@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
 """Where the time of full-width training goes, on one CUDA card.
 
-Run from the repository root: ``python3 chip_profile.py [--trees N]``.
-Trains the Higgs-shaped binary model of ``chip_smoke.py`` (2M x 28,
-max_bin=255, num_leaves=255, lr=0.1) through ``lightgbm_tpu_torch``:
-two warm-up trees, then ``--trees`` trees under ``torch.profiler``.
-Prints the wall time, the summed device time of every CUDA kernel, the
-device's busy and idle shares of the wall time, and the kernels and
+Run from the repository root: ``python3 chip_profile.py [--trees N]
+[--paths fused,per-phase]``. Trains the Higgs-shaped binary model of
+``chip_smoke.py`` (2M x 28, max_bin=255, num_leaves=255, lr=0.1) through
+``lightgbm_tpu_torch``, once per grow path: ``fused`` (the default
+``fused_split_kernel="auto"``: one fused split-step launch per split)
+and ``per-phase`` (``fused_split_kernel="off"``: partition, histogram
+and scan launches and one host read per split). Per path: two warm-up
+trees, then ``--trees`` trees under ``torch.profiler``; it prints the
+wall time, the summed device time of every CUDA kernel, the device's
+busy and idle shares of the wall time, and the kernels and
 host ops by time. The full tables go to ``chiprun_out/profile.txt``.
+One section per path.
 """
 
 import argparse
@@ -19,46 +24,37 @@ import time
 from chip_smoke import higgs_like
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--rows", type=int, default=2_000_000)
-    ap.add_argument("--trees", type=int, default=4)
-    args = ap.parse_args()
+PATHS = {"fused": {}, "per-phase": {"fused_split_kernel": "off"}}
+
+
+def profile_path(path: str, ds, trees: int) -> str:
     import torch
-    if not torch.cuda.is_available():
-        print("chip_profile: no CUDA device", file=sys.stderr)
-        return 2
     from torch.profiler import ProfilerActivity, profile
 
     import lightgbm_tpu_torch as lt
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], stdout=subprocess.PIPE, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(f"card: {card}")
-    X, y = higgs_like(args.rows)
     params = {"objective": "binary", "num_leaves": 255,
-              "learning_rate": 0.1, "max_bin": 255, "verbosity": -1}
-    bst = lt.Booster(params, lt.Dataset(X, label=y), device="cuda")
+              "learning_rate": 0.1, "max_bin": 255, "verbosity": -1,
+              **PATHS[path]}
+    bst = lt.Booster(params, ds, device="cuda")
     for _ in range(2):
         bst.update()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.trees):
+        for _ in range(trees):
             bst.update()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    trees = bst.models[-args.trees:]
-    splits = sum(t.num_leaves - 1 for t in trees)
+    splits = sum(t.num_leaves - 1 for t in bst.models[-trees:])
     events = prof.key_averages()
     dev_us = sum(e.self_device_time_total for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f"[profile] {args.rows} rows, {args.trees} trees, {splits} "
-          f"splits: wall {wall * 1e3:.1f} ms = "
+    tag = f"[profile {path}]"
+    print(f"{tag} fused={bst._gbdt.learner.fused} {len(ds.label)} rows, "
+          f"{trees} trees, {splits} splits: wall {wall * 1e3:.1f} ms = "
           f"{wall * 1e3 / splits:.4f} ms/split")
-    print(f"[profile] device kernel time {dev_us / 1e3:.1f} ms = "
+    print(f"{tag} device kernel time {dev_us / 1e3:.1f} ms = "
           f"{dev_us / 1e3 / splits:.4f} ms/split; device busy "
           f"{dev_us / 1e6 / wall:.3f} of wall, idle "
           f"{1 - dev_us / 1e6 / wall:.3f}")
@@ -71,12 +67,38 @@ def main() -> int:
     for e in by_cpu[:12]:
         print(f"  host   {e.self_cpu_time_total / 1e3:9.2f} ms "
               f"{e.count:7d} x  {e.key[:70]}")
+    tables = (f"== {path}\n"
+              + events.table(sort_by="self_cuda_time_total", row_limit=60)
+              + "\n"
+              + events.table(sort_by="self_cpu_time_total", row_limit=60))
+    del bst
+    torch.cuda.empty_cache()
+    return tables
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rows", type=int, default=2_000_000)
+    ap.add_argument("--trees", type=int, default=4)
+    ap.add_argument("--paths", default="fused,per-phase")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], stdout=subprocess.PIPE, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+    import lightgbm_tpu_torch as lt
+    X, y = higgs_like(args.rows)
+    ds = lt.Dataset(X, label=y)     # binned once, shared by the paths
+    tables = [profile_path(path, ds, args.trees)
+              for path in args.paths.split(",")]
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "profile.txt"), "w") as fh:
-        fh.write(events.table(sort_by="self_cuda_time_total",
-                              row_limit=60))
-        fh.write("\n")
-        fh.write(events.table(sort_by="self_cpu_time_total", row_limit=60))
+        fh.write("\n".join(tables))
     return 0
 
 

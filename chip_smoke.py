@@ -10,15 +10,21 @@ of the JAX package. Phases, each fatal on failure:
 2. hold every kernel against its plain PyTorch version on the card at
    the slice's shapes (2M rows x 28 features x 256 bins) and time both,
    beside the least time the card could take and one PyTorch library
-   call computing the same function where there is one;
+   call computing the same function where there is one; the fused
+   split step runs the root split of the 2M-row matrix;
 3. train the Higgs-shaped binary model at full width (2M x 28,
    max_bin=255, num_leaves=255, lr=0.1, 8 iterations) through
-   ``lightgbm_tpu_torch.train`` and show, from the launch counters, that
-   every kernel ran on that path;
-4. the fixed quality config (50k x 28, 63 leaves, 100 iterations) must
-   reach in-sample AUC >= 0.97906 - 0.002 (BENCH_QUALITY_BASELINE.json);
-5. a 100k-row, 3-tree run through the kernels must grow the same trees
-   as the same run through the plain versions on the card.
+   ``lightgbm_tpu_torch.train`` twice: the fused path (the default) and
+   the per-phase path (``fused_split_kernel="off"``). Both must grow
+   trees of the same structure; one more fused tree runs its L - 1
+   launches under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+   sync in the split loop); the launch counters show that every kernel
+   of each path ran;
+4. the fixed quality config (50k x 28, 63 leaves, 100 iterations,
+   fused path) must reach in-sample AUC >= 0.97906 - 0.002
+   (BENCH_QUALITY_BASELINE.json);
+5. a 100k-row, 3-tree run through the kernels (fused path) must grow the
+   same trees as the same run through the plain versions on the card.
 
 The second-to-last line of output is the per-kernel JSON record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -158,7 +164,8 @@ def check_partition(mat, n, reps):
         order = torch.argsort(right.to(torch.uint8), stable=True)
         work.copy_(work[order])
     library_ms = time_ms(library, reps)
-    nbytes = 4 * n * mat.shape[1]
+    # a stable partition reads the segment once and writes it once
+    nbytes = 2 * n * mat.shape[1]
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms,
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
@@ -232,6 +239,120 @@ def check_scan(mat, n, dataset, reps):
                 >= ops / F32_FLOPS else "operations")
 
 
+def check_fused(mat, n, dataset, reps):
+    """The root split (k = 1) of the matrix through the fused kernel and
+    through its plain version fed the per-phase histogram kernel: S, T,
+    k, the matrix and the histogram cache must be bitwise equal (so the
+    fused histogram equals the per-phase kernel's). Both child
+    histograms are also held against the float64 plain histograms."""
+    import torch
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.learner.partitioned import (
+        dataset_any_missing, feature_meta_from_dataset,
+        split_params_from_config)
+    from lightgbm_tpu_torch.learner.split_step import (SEG_SI_PREFIX,
+                                                       make_grow_pack,
+                                                       root_state)
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops import split_scan_cuda as sc
+    from lightgbm_tpu_torch.ops import split_step_cuda as ss
+    from lightgbm_tpu_torch.ops.split import meta_tensors
+    dev, big_l = mat.device, 255
+    meta = feature_meta_from_dataset(dataset)
+    params = split_params_from_config(
+        Config.from_params({"objective": "binary", "verbosity": -1}),
+        dataset_any_missing(dataset))
+    pack = make_grow_pack(SEG_SI_PREFIX, has_monotone=False, big_l=big_l)
+    meta_t = meta_tensors(meta, dev)
+    imeta, fmeta = ss.pack_meta_tables(meta, None, dev)
+    hist0 = torch.zeros((big_l, F, B, 3), device=dev)
+    hist0[0] = hc.histogram_segment(mat, 0, n, B, F)
+    sums = hist0[0, 0].sum(0).cpu().numpy()
+    root = tuple(np.float32(v) for v in sums)
+    table = sc.per_feature_numerical_cuda(
+        [hist0[0]], [root + (np.float32(-np.inf), np.float32(np.inf))],
+        meta_t, params)[0]
+    st0 = root_state(pack, table, *root, n, params, big_l)
+    k0 = torch.ones((1,), dtype=torch.int32, device=dev)
+    kw = dict(params=params, big_l=big_l, max_depth=-1, b=B, f=F,
+              has_monotone=False)
+    scratch = ss.FusedScratch(mat, F, B)
+    ws = torch.empty_like(mat)
+    state = [k0.clone(), st0["S"].clone(), st0["T"].clone(), mat.clone(),
+             hist0.clone()]
+
+    def restore():
+        for dst, src in zip(state, (k0, st0["S"], st0["T"], mat, hist0)):
+            dst.copy_(src)
+
+    def kernel():
+        k, S, T, m, h = state
+        ss.fused_split_step_segment(k, S, T, m, ws, h, imeta, fmeta,
+                                    scratch=scratch, **kw)
+
+    def plain(per_phase_hist):
+        k, S, T, m, h = state
+        fn = (lambda mm, bg, ct, mc: hc.histogram_segment(
+            mm, bg, ct, B, F, max_count=mc)) if per_phase_hist else None
+        ss.fused_split_step_segment_plain(k, S, T, m, ws, h, imeta, fmeta,
+                                          histogram=fn, **kw)
+
+    kernel()
+    torch.cuda.synchronize()
+    got = [t.clone() for t in state]
+    restore()
+    plain(True)
+    torch.cuda.synchronize()
+    names = ("k", "S", "T", "mat", "hist")
+    for name, a, b in zip(names, got, state):
+        if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+            fail(f"fused split step: {name} differs from its plain version")
+    if int(got[0][0]) != 2:
+        fail("fused split step did not split the root")
+    # the fused child histograms against the float64 plain histograms.
+    # Leaf 0 holds the left child, leaf 1 the right; the smaller one is
+    # built from its own rows and held to its own sum of |values|, the
+    # sibling is parent - child and so to the parent's.
+    v = pack.view({"S": got[1], "T": got[2]})
+    segs = [(int(v["leaf_begin"][i]), int(v["leaf_cnt"][i])) for i in (0, 1)]
+    small = 0 if segs[0][1] <= segs[1][1] else 1
+    scales = [hc.histogram_segment_plain(got[3], bg, ct, B, F, absolute=True)
+              for bg, ct in segs]
+    scales[1 - small] = scales[0] + scales[1]
+    worst = 0.0
+    for leaf, (bg, ct) in enumerate(segs):
+        ref = hc.histogram_segment_plain(got[3], bg, ct, B, F)
+        err = (got[4][leaf] - ref).abs()
+        if bool((err > 1e-5 * scales[leaf] + 1e-6).any()):
+            fail(f"fused child histogram {leaf} off by {float(err.max())}")
+        worst = max(worst, float(err.max()))
+
+    def timed(fn, count):
+        times = []
+        for _ in range(count):
+            restore()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        return float(np.median(times))
+
+    kernel()   # warm-up
+    ms = timed(kernel, reps)
+    plain_ms = timed(lambda: plain(False), 3)
+    # the parent's segment read once and written once (the smaller
+    # child's histogram can come from rows already being read), the
+    # parent's cache row read and both children's written
+    nbytes = 2 * n * mat.shape[1] + 3 * F * B * 3 * 4
+    shape = ss.launch_shape(F, B)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", launch_shape=shape)
+
+
 def tree_sig(t):
     return (t.num_leaves, t.split_feature_inner.tolist(),
             t.threshold_bin.tolist(), t.decision_type.tolist(),
@@ -299,28 +420,71 @@ def main() -> int:
     rec["partition_segment"] = check_partition(mat, n, args.reps)
     print(f"[check] partition_segment ok {time.perf_counter() - t0:.1f} s "
           f"{rec['partition_segment']}")
+    t0 = time.perf_counter()
+    rec["fused_split_step_segment"] = check_fused(mat, n, binned, args.reps)
+    print(f"[check] fused_split_step_segment ok "
+          f"{time.perf_counter() - t0:.1f} s "
+          f"{rec['fused_split_step_segment']}")
     del mat
     torch.cuda.empty_cache()
 
-    # ---- 3. the slice at full width -----------------------------------
-    _native.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    bst = lt.train(params, ds, args.iters, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(_native.LAUNCHES)
-    splits = sum(t.num_leaves - 1 for t in bst.models)
-    print(f"[train] {n} x {F}, {len(bst.models)} trees, {splits} splits "
-          f"in {wall:.2f} s = {wall / max(splits, 1) * 1e3:.3f} ms/split; "
-          f"launches {launches}")
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-    pred = bst.predict(X[:100_000], raw_score=True)
+    # ---- 3. the slice at full width, fused and per-phase --------------
+    runs = {}
+    for path, extra in (("fused", {}),
+                        ("per-phase", {"fused_split_kernel": "off"})):
+        _native.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst = lt.train(dict(params, **extra), ds, args.iters, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_native.LAUNCHES)
+        splits = sum(t.num_leaves - 1 for t in bst.models)
+        runs[path] = (bst, launches)
+        print(f"[train] {path}: {n} x {F}, {len(bst.models)} trees, "
+              f"{splits} splits in {wall:.2f} s = "
+              f"{wall / max(splits, 1) * 1e3:.3f} ms/split; "
+              f"launches {launches}")
+        on_path = ("hist_segment", "split_scan") + (
+            ("fused_split_step_segment",) if path == "fused"
+            else ("partition_segment",))
+        for name in on_path:
+            if launches[name] <= 0:
+                fail(f"kernel {name} was not launched on the {path} path")
+    fused_bst, per_bst = runs["fused"][0], runs["per-phase"][0]
+    if not fused_bst._gbdt.learner.fused or per_bst._gbdt.learner.fused:
+        fail("the default path is not the fused one")
+    same = [tree_sig(a) == tree_sig(b)
+            for a, b in zip(fused_bst.models, per_bst.models)]
+    rel = max(float(np.max(np.abs(a.leaf_value - b.leaf_value)
+                           / np.maximum(np.abs(b.leaf_value), 1e-30)))
+              for a, b in zip(fused_bst.models, per_bst.models))
+    print(f"[train] fused vs per-phase: structure equal {same}, "
+          f"max relative leaf value diff {rel:.3g}")
+    if len(same) != args.iters or not all(same) or rel > 1e-5:
+        fail("the fused and per-phase paths grew different trees")
+    # one more fused tree, its split loop under the sync checker
+    lrn = fused_bst._gbdt.learner
+    launch_loop = lrn._launch_fused
+
+    def checked(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return launch_loop(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    lrn._launch_fused = checked
+    fused_bst.update()
+    lrn._launch_fused = launch_loop
+    print(f"[train] tree {len(fused_bst.models)}: {lrn.num_leaves - 1} "
+          "fused launches ran under set_sync_debug_mode('error')")
+    pred = fused_bst.predict(X[:100_000], raw_score=True)
     if pred.shape != (100_000,) or not np.isfinite(pred).all():
         fail("full-width predictions are not finite")
-    del bst, ds, binned
+    launches = {name: runs["per-phase" if name == "partition_segment"
+                           else "fused"][1][name]
+                for name in _native.LAUNCHES}
+    del fused_bst, per_bst, runs, lrn, ds, binned
     torch.cuda.empty_cache()
 
     # ---- 4. quality ----------------------------------------------------
@@ -331,8 +495,9 @@ def main() -> int:
     bq = lt.train(qparams, lt.Dataset(Xq, label=yq), args.quality_iters,
                   device=dev)
     q_auc = auc(yq, bq.predict(Xq, raw_score=True))
-    print(f"[quality] 50000 x {F}, 63 leaves, {args.quality_iters} iters: "
-          f"AUC {q_auc:.5f} in {time.perf_counter() - t0:.1f} s")
+    print(f"[quality] 50000 x {F}, 63 leaves, {args.quality_iters} iters "
+          f"(fused {bq._gbdt.learner.fused}): AUC {q_auc:.5f} in "
+          f"{time.perf_counter() - t0:.1f} s")
     if args.quality_iters >= 100 and q_auc < 0.97906 - 0.002:
         fail(f"AUC {q_auc} below 0.97706")
 
@@ -346,7 +511,9 @@ def main() -> int:
                                                        pb.models)]
     leaf_err = max(float(np.abs(a.leaf_value - b.leaf_value).max())
                    for a, b in zip(kb.models, pb.models))
-    print(f"[parity] 100000 x {F}, 3 trees: structure equal {same}, "
+    print(f"[parity] 100000 x {F}, 3 trees, fused path (kernel "
+          f"{kb._gbdt.learner.fused}, plain {pb._gbdt.learner.fused}): "
+          f"structure equal {same}, "
           f"max leaf value diff {leaf_err:.3g} "
           f"in {time.perf_counter() - t0:.1f} s")
     if len(kb.models) != 3 or not all(same):
@@ -360,6 +527,9 @@ def main() -> int:
             "lightgbm_tpu/ops/partition_pallas.py:51"),
         "split_scan": ("lightgbm_tpu_torch/csrc/split_scan.cu",
                        "lightgbm_tpu/ops/split_scan_pallas.py:56"),
+        "fused_split_step_segment": (
+            "lightgbm_tpu_torch/csrc/split_step_segment.cu",
+            "lightgbm_tpu/ops/split_step_pallas.py:531"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

@@ -11,7 +11,11 @@ turn it into the port's objects:
   * ``trees_from_state`` — trained trees as node arrays (split feature,
     raw threshold, threshold bin, decision type, children, leaf values,
     per-node missing type), so the port's predictor runs a JAX-trained
-    model.
+    model;
+  * ``matrix_from_jax`` and ``grow_state_from_jax`` — the partitioned
+    grow loop's training matrix and its packed state (``S``, ``T``, the
+    per-leaf histogram cache), so one state can be stepped in both
+    packages.
 """
 
 from __future__ import annotations
@@ -19,9 +23,11 @@ from __future__ import annotations
 from typing import Dict, List, Sequence
 
 import numpy as np
+import torch
 
 from .data.binning import BinMapper
 from .models.tree import Tree, tree_from_arrays
+from .ops.hist_cuda import GH_COLS, matrix_cols, payload_offset
 
 
 def bin_mappers_from_state(states: Sequence[Dict]) -> List[BinMapper]:
@@ -63,3 +69,38 @@ def trees_from_state(states: Sequence[Dict]) -> List[Tree]:
             threshold_bin=st.get("threshold_bin"),
             split_feature_inner=st.get("split_feature_inner")))
     return trees
+
+
+def matrix_from_jax(mat: np.ndarray, num_features: int,
+                    n: int) -> torch.Tensor:
+    """The JAX package's training matrix (u8 ``[matrix_rows, round_up(F
+    + 13, 128)]``: bins, then the 13 payload bytes at column F) -> the
+    port's ``[n, matrix_cols(F)]`` (payload at ``round_up(F, 4)``). Both
+    payloads hold grad f32, hess f32, the count byte and the row id, in
+    that order, so bins, payload and row ids carry across byte for byte;
+    the JAX padding rows are dropped."""
+    mat = np.asarray(mat, np.uint8)
+    f = num_features
+    out = np.zeros((n, matrix_cols(f)), np.uint8)
+    out[:, :f] = mat[:n, :f]
+    p = payload_offset(f)
+    out[:, p:p + GH_COLS] = mat[:n, f:f + GH_COLS]
+    return torch.from_numpy(out)
+
+
+def grow_state_from_jax(S: np.ndarray, T: np.ndarray, hist: np.ndarray,
+                        channels_major: bool = False
+                        ) -> Dict[str, torch.Tensor]:
+    """The JAX package's packed grow state -> the port's. ``S`` and ``T``
+    share one layout (the merged ``StatePack``, int rows as float32 bit
+    patterns) and are copied bit for bit. ``hist`` is the per-leaf cache,
+    ``[L, F, B, 3]`` as the interpret path keeps it, or ``[L, 3, F, B]``
+    with ``channels_major`` (the compiled Mosaic path's layout). Every
+    result is a fresh copy: the port updates its state in place, and a
+    numpy view of a JAX array may share the array's buffer."""
+    hist = np.array(hist, np.float32)
+    if channels_major:
+        hist = np.moveaxis(hist, 1, -1)
+    return {"S": torch.from_numpy(np.array(S, np.float32)),
+            "T": torch.from_numpy(np.array(T, np.float32)),
+            "hist": torch.from_numpy(np.ascontiguousarray(hist))}

@@ -17,14 +17,10 @@
 //    DMA granule). Its rows are cut into gridDim.x contiguous chunks,
 //    one per block; grid.y tiles the features when F*B*3 floats do not
 //    fit the block's shared memory.
-//  * A block walks its chunk in tiles of 256 rows: each thread decodes
-//    one row's grad, hess and count into shared memory, then warp w owns
-//    features w, w+8, ... exclusively, so no two warps ever touch one
-//    bin.
-//  * For one feature and 32 rows, __match_any_sync groups the lanes
-//    that hit the same bin; the lowest lane sums its peers' values in
-//    lane order and adds the sum to the shared bin. The summation order
-//    of every bin is therefore fixed by the row order alone.
+//  * A block walks its chunk with hist_rows (hist_tile.cuh, shared with
+//    the fused split step): 256-row tiles, warps owning disjoint
+//    features, __match_any_sync + lane-ordered sums, so the summation
+//    order of every bin is fixed by the row order alone.
 //  * Each block writes its partial histogram to scratch
 //    [blocks, F, B, 3]; a second kernel sums the partials in block
 //    order. No float atomics anywhere: the result is bitwise
@@ -32,12 +28,11 @@
 //  * True float32 grad/hess sums; the TPU kernel's bf16 hi/lo split
 //    (about 16 mantissa bits) is a TPU means, not part of the contract.
 #include "common.cuh"
+#include "hist_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTileRows = 256;
+constexpr int kThreads = ltt::kHistThreads;
 
 __global__ void __launch_bounds__(kThreads)
 hist_partial_kernel(const uint8_t* __restrict__ mat, int stride, int pay_off,
@@ -47,9 +42,7 @@ hist_partial_kernel(const uint8_t* __restrict__ mat, int stride, int pay_off,
   const int f0 = blockIdx.y * feat_tile;
   const int nf = min(feat_tile, num_features - f0);
   float* hist_s = smem;                                 // [nf][B][3]
-  float* g_s = smem + (size_t)feat_tile * num_bins * 3;  // [kTileRows]
-  float* h_s = g_s + kTileRows;
-  float* c_s = h_s + kTileRows;
+  float* stage = smem + (size_t)feat_tile * num_bins * 3;
 
   const int n3 = nf * num_bins * 3;
   for (int i = threadIdx.x; i < n3; i += kThreads) hist_s[i] = 0.f;
@@ -59,46 +52,9 @@ hist_partial_kernel(const uint8_t* __restrict__ mat, int stride, int pay_off,
   const long long chunk = (count + gridDim.x - 1) / gridDim.x;
   const long long r0 = min(count, (long long)blockIdx.x * chunk);
   const long long r1 = min(count, r0 + chunk);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   __syncthreads();
-
-  for (long long t0 = r0; t0 < r1; t0 += kTileRows) {
-    const int nrows = (int)min((long long)kTileRows, r1 - t0);
-    const uint8_t* tile = mat + (size_t)(begin + t0) * stride;
-    if (threadIdx.x < nrows) {
-      const uint8_t* row = tile + (size_t)threadIdx.x * stride + pay_off;
-      g_s[threadIdx.x] = *reinterpret_cast<const float*>(row + LTT_G_OFF);
-      h_s[threadIdx.x] = *reinterpret_cast<const float*>(row + LTT_H_OFF);
-      c_s[threadIdx.x] = (float)row[LTT_CNT_OFF];
-    }
-    __syncthreads();
-    for (int fl = warp; fl < nf; fl += kWarps) {
-      float* hf = hist_s + (size_t)fl * num_bins * 3;
-      const uint8_t* col = tile + f0 + fl;
-      for (int base = 0; base < nrows; base += 32) {
-        const int r = base + lane;
-        const bool valid = r < nrows;
-        const int bin = valid ? (int)__ldg(col + (size_t)r * stride) : -1;
-        const unsigned peers = __match_any_sync(0xffffffffu, bin);
-        if (valid && lane == __ffs(peers) - 1) {
-          float sg = 0.f, sh = 0.f, sc = 0.f;
-          unsigned m = peers;
-          while (m) {
-            const int p = base + __ffs(m) - 1;
-            m &= m - 1;
-            sg += g_s[p];
-            sh += h_s[p];
-            sc += c_s[p];
-          }
-          hf[bin * 3 + 0] += sg;
-          hf[bin * 3 + 1] += sh;
-          hf[bin * 3 + 2] += sc;
-        }
-      }
-    }
-    __syncthreads();
-  }
+  ltt::hist_rows<true>(mat, begin, stride, pay_off, r0, r1, f0, nf,
+                       num_bins, hist_s, stage);
   float* dst = out + ((size_t)blockIdx.x * num_features + f0) * num_bins * 3;
   for (int i = threadIdx.x; i < n3; i += kThreads) dst[i] = hist_s[i];
 }
@@ -123,7 +79,7 @@ LTT_EXPORT int ltt_hist_segment(const uint8_t* mat, int stride, int pay_off,
                                 float* partial, float* out,
                                 cudaStream_t stream) {
   const size_t smem =
-      ((size_t)feat_tile * num_bins * 3 + 3 * kTileRows) * sizeof(float);
+      ltt::hist_smem_floats(feat_tile, num_bins) * sizeof(float);
   static size_t smem_set = 0;
   if (smem > 48 * 1024 && smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(

@@ -9,12 +9,14 @@
 // threshold with missing codes none/zero/nan, default_left, default bin
 // and bin count, or a 256-entry LUT for categorical / bundled splits.
 //
-// What bounds it on the H100: memory traffic. The segment is read twice
-// and written twice (scatter to the workspace, copy back), 4 * count *
-// stride bytes at 3.35 TB/s.
+// What bounds it on the H100: memory traffic. A stable partition needs
+// the segment read once and written once, 2 * count * stride bytes at
+// 3.35 TB/s; this kernel moves twice that (scatter to the workspace,
+// copy back).
 //
 // Design: a block-scan stable compaction instead of the TPU's
-// permutation matmuls.
+// permutation matmuls; the device code is partition_core.cuh, shared
+// with the fused split step.
 //  1. part_count: one thread per row decides left/right from the split
 //     feature's byte; __syncthreads_count gives each 256-row block its
 //     left count.
@@ -22,36 +24,22 @@
 //     offsets and writes {begin, NL, begin + NL, count - NL}.
 //  3. part_scatter: in-block stable ranks from warp ballots + popc and a
 //     scan over the block's 8 warp counts; lefts land at ws[rank],
-//     rights at ws[NL + rank]. Each warp copies its 32 rows as 16-byte
-//     vectors, neighbouring lanes on neighbouring source addresses.
+//     rights at ws[NL + rank], as 16-byte vectors.
 //  4. part_copy: ws[0, count) back to mat[begin, begin + count).
 // NL stays on the device, so a caller never has to wait for it.
 #include "common.cuh"
+#include "partition_core.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-struct Decision {
-  int feat, thr, dleft, miss, defbin, nbins, use_lut;
-  const float* lut;
-};
-
-__device__ __forceinline__ bool go_left(int b, const Decision& d) {
-  if (d.use_lut) return d.lut[b] > 0.5f;
-  const bool is_missing = (d.miss == LTT_MISSING_ZERO && b == d.defbin) ||
-                          (d.miss == LTT_MISSING_NAN && b == d.nbins - 1);
-  return is_missing ? d.dleft != 0 : b <= d.thr;
-}
+constexpr int kThreads = ltt::kPartRows;
+using ltt::Decision;
 
 __global__ void __launch_bounds__(kThreads)
 part_count_kernel(const uint8_t* __restrict__ mat, int stride, int begin,
                   int count, Decision d, int* __restrict__ block_left) {
-  const long long r = (long long)blockIdx.x * kThreads + threadIdx.x;
-  int left = 0;
-  if (r < count)
-    left = go_left(mat[(size_t)(begin + r) * stride + d.feat], d) ? 1 : 0;
-  const int total = __syncthreads_count(left);
+  const int total =
+      ltt::tile_left_count(mat, stride, begin, count, blockIdx.x, d);
   if (threadIdx.x == 0) block_left[blockIdx.x] = total;
 }
 
@@ -59,39 +47,13 @@ part_count_kernel(const uint8_t* __restrict__ mat, int stride, int begin,
 __global__ void __launch_bounds__(1024)
 part_scan_kernel(int* __restrict__ block_left, int nblk, int begin,
                  int count, int* __restrict__ seg_out) {
-  __shared__ int warp_sums[32];
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int per = (nblk + blockDim.x - 1) / blockDim.x;
-  const int lo = min(nblk, t * per), hi = min(nblk, lo + per);
-  int local = 0;
-  for (int i = lo; i < hi; ++i) local += block_left[i];
-  int x = local;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < (int)(blockDim.x >> 5) ? warp_sums[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    warp_sums[lane] = w;
-  }
-  __syncthreads();
-  int run = x - local + (warp > 0 ? warp_sums[warp - 1] : 0);
-  for (int i = lo; i < hi; ++i) {
-    const int v = block_left[i];
-    block_left[i] = run;
-    run += v;
-  }
-  if (t == blockDim.x - 1) {
+  __shared__ int scratch[33];
+  const int nl = ltt::block_exclusive_scan(block_left, nblk, scratch);
+  if (threadIdx.x == 0) {
     seg_out[0] = begin;
-    seg_out[1] = run;
-    seg_out[2] = begin + run;
-    seg_out[3] = count - run;
+    seg_out[1] = nl;
+    seg_out[2] = begin + nl;
+    seg_out[3] = count - nl;
   }
 }
 
@@ -100,42 +62,9 @@ part_scatter_kernel(const uint8_t* __restrict__ mat, uint8_t* __restrict__ ws,
                     int stride, int begin, int count, Decision d,
                     const int* __restrict__ block_off,
                     const int* __restrict__ seg) {
-  __shared__ int wl[kThreads / 32], wr[kThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long row0 = (long long)blockIdx.x * kThreads;
-  const long long r = row0 + threadIdx.x;
-  const bool valid = r < count;
-  const bool left =
-      valid && go_left(mat[(size_t)(begin + r) * stride + d.feat], d);
-  const bool right = valid && !left;
-  const unsigned bl = __ballot_sync(0xffffffffu, left);
-  const unsigned br = __ballot_sync(0xffffffffu, right);
-  if (lane == 0) {
-    wl[warp] = __popc(bl);
-    wr[warp] = __popc(br);
-  }
-  __syncthreads();
-  int off_l = 0, off_r = 0;
-  for (int w = 0; w < warp; ++w) {
-    off_l += wl[w];
-    off_r += wr[w];
-  }
-  const unsigned lt = (1u << lane) - 1u;
-  const int lefts_before = block_off[blockIdx.x];
-  const int rights_before = (int)row0 - lefts_before;
-  long long dest = -1;
-  if (left) dest = lefts_before + off_l + __popc(bl & lt);
-  if (right) dest = (long long)seg[1] + rights_before + off_r + __popc(br & lt);
-
-  const int vpr = stride / 16;  // 16-byte vectors per row
-  const int4* src = reinterpret_cast<const int4*>(
-      mat + (size_t)(begin + row0 + warp * 32) * stride);
-  int4* dst = reinterpret_cast<int4*>(ws);
-  for (int k = lane; k < 32 * vpr; k += 32) {
-    const int rr = k / vpr;
-    const long long dr = __shfl_sync(0xffffffffu, dest, rr);
-    if (dr >= 0) dst[(size_t)dr * vpr + (k - rr * vpr)] = src[k];
-  }
+  __shared__ int wlr[2 * kThreads / 32];
+  ltt::tile_scatter(mat, ws, stride, begin, count, blockIdx.x, d,
+                    block_off[blockIdx.x], seg[1], wlr);
 }
 
 __global__ void part_copy_kernel(const int4* __restrict__ src,
@@ -172,4 +101,9 @@ LTT_EXPORT int ltt_partition_segment(uint8_t* mat, uint8_t* ws, int stride,
         reinterpret_cast<int4*>(mat + (size_t)begin * stride), nvec);
   }
   return (int)cudaGetLastError();
+}
+
+// The message of a CUDA error code, for the Python side's exceptions.
+LTT_EXPORT const char* ltt_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
 }

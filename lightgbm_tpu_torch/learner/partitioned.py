@@ -1,26 +1,38 @@
 """Partitioned leaf-wise tree learner (port of
-``lightgbm_tpu/learner/partitioned.py``, per-phase configuration).
+``lightgbm_tpu/learner/partitioned.py``).
 
 Like the JAX learner, it keeps the training matrix PHYSICALLY
 partitioned by leaf (contiguous row segments, the reference's
-``DataPartition``), so each split costs O(leaf rows):
+``DataPartition``), so each split costs O(leaf rows): partition the
+chosen leaf's rows in place, build the SMALLER child's histogram from its
+segment, get the sibling as parent minus child
+(serial_tree_learner.cpp:434-436), and find both children's best splits.
+The per-leaf state and the tree arrays ride the JAX package's merged
+packed layout (``S``, ``T``; ``learner/split_step.py``).
 
-  * the partition kernel moves the chosen leaf's rows in place
-    (``ops/partition_cuda.py``);
-  * the histogram kernel builds the SMALLER child's histogram from its
-    segment (``ops/hist_cuda.py``) and the sibling is parent minus
-    child (serial_tree_learner.cpp:434-436);
-  * the scan kernel finds both children's best splits in one launch
-    (``ops/split_scan_cuda.py``).
+Two grow loops, chosen before training (``fused_split_kernel``):
 
-The grow loop is a Python loop over splits. Per split the host
-enqueues partition, histogram, subtraction and scan without waiting
-(the child segment stays on the device and the histogram's launch
-shape comes from the parent's size), then reads the scan table and the
-child segments once. That one host sync per split is the target of a
-later PR (CUDA graphs or a device-side loop). The row order persists
-across trees; only the grad/hess payload is repacked per tree, through
-the row id each row carries.
+  * **fused** (default "auto" on a CUDA device, or "on"): the root's
+    histogram and scan run through their kernels, ``S``, ``T`` and the
+    per-leaf histogram cache are packed on the device, and the host
+    enqueues ``num_leaves - 1`` launches of the fused split-step kernel
+    (``ops/split_step_cuda.py``) without waiting on any of them; the
+    kernel stops growing by itself. Then ``S``, ``T`` and ``k`` are read
+    once. On the CPU, or with ``ops="plain"``, each step is its plain
+    version.
+  * **per-phase** ("off", "auto" on the CPU, and configurations outside
+    the fused step's scope): a Python loop over splits; per split the
+    host enqueues the partition, histogram and scan kernels
+    (``ops/partition_cuda.py``, ``ops/hist_cuda.py``,
+    ``ops/split_scan_cuda.py``), then reads the scan tables and the
+    child segments once.
+
+Both loops write the same state through the same float32 bookkeeping
+(on host scalars in the per-phase loop, on 0-dim tensors in the fused
+step's plain version, on the device in its kernel) and size the child
+histogram by the parent's row count, so they grow the same trees. The
+row order persists across trees; only the grad/hess payload is repacked
+per tree, through the row id each row carries.
 
 On a CPU device every op runs its plain PyTorch version. ``ops="plain"``
 runs the plain versions on a CUDA device too (the parity check of
@@ -48,13 +60,17 @@ from ..ops.hist_cuda import (build_matrix, extract_row_ids,
 from ..ops.partition_cuda import partition_segment, partition_segment_plain
 from ..ops.split import (MISSING_NAN_CODE, MISSING_NONE_CODE,
                          MISSING_ZERO_CODE, FeatureMeta, SplitParams,
-                         assemble_split, meta_tensors)
+                         meta_tensors)
 from ..ops.split_scan_cuda import (per_feature_numerical_cuda,
                                    per_feature_numerical_plain,
                                    scan_meta_tables)
-from .split_step import (LeafState, child_constraints, f32,
-                         leaf_output_host, order_child_pair,
-                         split_node_updates)
+from ..ops.split_step_cuda import (FusedScratch, fused_split_step_segment,
+                                   fused_split_step_segment_plain,
+                                   learner_fused_kernel_on,
+                                   pack_meta_tables)
+from .split_step import (SEG_SI_PREFIX, SplitOps, f32,
+                         fused_split_eligible, fused_split_kernel_mode,
+                         make_grow_pack, root_state, split_step_host)
 
 _MISSING_CODE = {MISSING_NONE: MISSING_NONE_CODE,
                  MISSING_ZERO: MISSING_ZERO_CODE,
@@ -63,11 +79,11 @@ _MISSING_CODE = {MISSING_NONE: MISSING_NONE_CODE,
 
 def _reject(what: str, item: str) -> None:
     raise NotImplementedError(
-        f"{what} is not in the port's first slice (ROADMAP.md {item})")
+        f"{what} is not in the port yet (ROADMAP.md {item})")
 
 
 def check_slice(config: Config) -> None:
-    """Refuse configurations outside the first slice; nothing is
+    """Refuse configurations outside the port's slices; nothing is
     approximated."""
     if config.boosting != "gbdt":
         _reject(f"boosting={config.boosting}", "Queue 1 item 7")
@@ -86,9 +102,6 @@ def check_slice(config: Config) -> None:
         _reject("linear_tree", "Queue 1 item 7")
     if config.feature_fraction_bynode < 1.0:
         _reject("feature_fraction_bynode", "Queue 1 item 7")
-    if config.fused_split_kernel == "on":
-        _reject("fused_split_kernel=on (the split-step megakernel)",
-                "Queue 2 item 4")
     if config.tree_learner not in ("serial", "partitioned"):
         _reject(f"tree_learner={config.tree_learner}", "Queue 1 item 8")
 
@@ -146,7 +159,8 @@ class PartitionedTreeLearner:
     """The port's tree learner (the JAX package's accelerator learner).
 
     ``train(grad, hess)`` grows one tree and returns ``(Tree, leaf_id)``
-    with ``leaf_id`` [N] int64 on the device."""
+    with ``leaf_id`` [N] int64 on the device. ``fused`` says which grow
+    loop it runs (decided here, before training)."""
 
     def __init__(self, dataset: Dataset, config: Config,
                  device: torch.device, ops: str = "kernel"):
@@ -183,8 +197,24 @@ class PartitionedTreeLearner:
                                 device=self.device)
         self._meta_all = meta_tensors(self.meta, self.device)
         self._tables_all = scan_meta_tables(self._meta_all)
+        self._packed_all = pack_meta_tables(self.meta, None, self.device)
+        self.pack = make_grow_pack(SEG_SI_PREFIX,
+                                   has_monotone=self.has_monotone,
+                                   big_l=self.num_leaves)
+        self.fused = learner_fused_kernel_on(
+            fused_split_kernel_mode(config.fused_split_kernel),
+            eligible=fused_split_eligible(
+                self.params, cache_hists=True, merged=True,
+                extra_trees=bool(config.extra_trees),
+                ff_bynode=float(config.feature_fraction_bynode),
+                num_leaves=self.num_leaves),
+            device=self.device, params=self.params,
+            num_bins_max=self.num_bins_max)
+        self._scratch = FusedScratch(self.mat, self.num_features,
+                                     self.num_bins_max) \
+            if self.fused and not self.plain else None
 
-    # ---- the three ops, kernel or plain ------------------------------
+    # ---- the per-phase ops, kernel or plain ----------------------------
     def _histogram(self, begin, count, max_count):
         f, b = self.num_features, self.num_bins_max
         if self.plain:
@@ -195,13 +225,12 @@ class PartitionedTreeLearner:
         return histogram_segment(self.mat, begin, count, b, f,
                                  max_count=max_count)
 
-    def _partition(self, begin, cnt, split):
+    def _partition(self, begin, cnt, feat, thr, dleft):
         m = self.meta
-        j = split.feature
         fn = partition_segment_plain if self.plain else partition_segment
-        return fn(self.mat, self.ws, int(begin), int(cnt), j,
-                  split.threshold, split.default_left, int(m.missing[j]),
-                  int(m.default_bin[j]), int(m.num_bins[j]), False, None)
+        return fn(self.mat, self.ws, int(begin), int(cnt), feat, thr, dleft,
+                  int(m.missing[feat]), int(m.default_bin[feat]),
+                  int(m.num_bins[feat]), False, None)
 
     def _scan(self, hists, leaves, meta_t, tables) -> torch.Tensor:
         if self.plain:
@@ -210,23 +239,19 @@ class PartitionedTreeLearner:
         return per_feature_numerical_cuda(hists, leaves, meta_t,
                                           self.params, tables)
 
-    def _best(self, table: np.ndarray, depth: int):
-        split = assemble_split(table)
-        if self.max_depth > 0 and depth >= self.max_depth:
-            split = split._replace(gain=f32(-np.inf))
-        return split
-
     # ------------------------------------------------------------------
     def train(self, grad: torch.Tensor, hess: torch.Tensor,
               feature_mask: Optional[np.ndarray] = None):
-        f, n, big_l = self.num_features, self.num_data, self.num_leaves
-        p = self.params
+        f, n = self.num_features, self.num_data
         mat = self.mat
         if feature_mask is None:
             meta_t, tables = self._meta_all, self._tables_all
+            imeta, fmeta = self._packed_all
         else:
             meta_t = meta_tensors(self.meta, self.device, feature_mask)
             tables = scan_meta_tables(meta_t)
+            imeta, fmeta = pack_meta_tables(self.meta, feature_mask,
+                                            self.device)
 
         # repack the gh payload in the current row order (rows carry
         # their id); bagging is out of this slice, so every row counts
@@ -235,85 +260,88 @@ class PartitionedTreeLearner:
 
         root_hist = self._histogram(0, n, n)
         self.hist[0] = root_hist
+        # the root's one host read: its sums, which the scan takes as
+        # scalars
         sums = root_hist[0].sum(dim=0).cpu().numpy()
-        root_g, root_h, root_c = f32(sums[0]), f32(sums[1]), f32(sums[2])
+        root = (f32(sums[0]), f32(sums[1]), f32(sums[2]))
         inf = f32(np.inf)
-        table = self._scan([root_hist],
-                           [(root_g, root_h, root_c, -inf, inf)],
-                           meta_t, tables).cpu().numpy()
-        st = LeafState(big_l)
-        st.set_leaf(0, self._best(table[0], 0), root_g, root_h, root_c,
-                    leaf_output_host(root_g, root_h + f32(2e-15),
-                                     p.lambda_l1, p.lambda_l2,
-                                     p.max_delta_step),
-                    -inf, inf, -1, 0, 0, 0, n)
-
-        k = 1
-        while k < big_l and st.gain[:k].max() > 0.0:
-            leaf = int(np.argmax(st.gain[:k]))
-            new, s = k, k - 1
-            sp = st.split[leaf]
-            pg, ph, pc = st.g[leaf], st.h[leaf], st.c[leaf]
-            lg, lh, lc = sp.left_g, sp.left_h, sp.left_c
-            rg, rh, rc = pg - lg, ph - lh, pc - lc
-            begin, cnt = int(st.begin[leaf]), int(st.cnt[leaf])
-
-            # physical partition, then the smaller child's histogram
-            # and the sibling by subtraction from the cached parent
-            seg = self._partition(begin, cnt, sp)
-            left_small = bool(lc <= rc)
-            hist_small = self._histogram(
-                seg[0:2] if left_small else seg[2:4], None, cnt)
-            idx_a, idx_b = (leaf, new) if left_small else (new, leaf)
-            hist_other = self.hist[leaf] - hist_small
-            self.hist[idx_a] = hist_small
-            self.hist[idx_b] = hist_other
-
-            depth = int(st.depth[leaf]) + 1
-            split_node_updates(st, p, s, leaf, new, sp)
-            cmin_l, cmax_l, cmin_r, cmax_r = child_constraints(
-                int(self.meta.monotone[sp.feature]), sp.left_output,
-                sp.right_output, st.cmin[leaf], st.cmax[leaf],
-                self.has_monotone)
-            a, b, side_a = order_child_pair(
-                left_small,
-                (lg, lh, lc, sp.left_output, cmin_l, cmax_l),
-                (rg, rh, rc, sp.right_output, cmin_r, cmax_r))
-            out = self._scan([hist_small, hist_other],
-                             [(a[0], a[1], a[2], a[4], a[5]),
-                              (b[0], b[1], b[2], b[4], b[5])],
-                             meta_t, tables)
-            # the split's one host sync: scan table + child segments
-            table = out.cpu().numpy()
-            sg = seg.cpu().numpy()
-            segs = [(int(sg[0]), int(sg[1])), (int(sg[2]), int(sg[3]))]
-            for idx, ch, side, tab in ((idx_a, a, side_a, table[0]),
-                                       (idx_b, b, 1 - side_a, table[1])):
-                st.set_leaf(idx, self._best(tab, depth), ch[0], ch[1],
-                            ch[2], ch[3], ch[4], ch[5], s, side, depth,
-                            *segs[side])
-            k += 1
-
+        table = self._scan([root_hist], [root + (-inf, inf)], meta_t,
+                           tables)[0]
+        if self.fused:
+            st, k = self._grow_fused(table, root, imeta, fmeta)
+        else:
+            st, k = self._grow_per_phase(table.cpu(), root, meta_t, tables,
+                                         imeta)
+        v = {key: val.numpy() for key, val in self.pack.view(st).items()}
         tree = Tree(TreeArrays(
-            num_leaves=k, split_feature=st.split_feature,
-            threshold_bin=st.threshold_bin,
-            decision_type=st.decision_type, left_child=st.left_child,
-            right_child=st.right_child, split_gain=st.split_gain,
-            internal_value=st.internal_value,
-            internal_weight=st.internal_weight,
-            internal_count=st.internal_count, leaf_value=st.value,
-            leaf_weight=st.h, leaf_count=st.c, leaf_parent=st.ref_node,
-            leaf_depth=st.depth), dataset=self.dataset)
-        return tree, self._leaf_id(st, k)
+            num_leaves=k, split_feature=v["split_feature"],
+            threshold_bin=v["threshold_bin"],
+            decision_type=v["decision_type"], left_child=v["left_child"],
+            right_child=v["right_child"], split_gain=v["split_gain_arr"],
+            internal_value=v["internal_value"],
+            internal_weight=v["internal_weight"],
+            internal_count=v["internal_count"], leaf_value=v["leaf_value"],
+            leaf_weight=v["leaf_weight"], leaf_count=v["leaf_count"],
+            leaf_parent=v["leaf_parent"], leaf_depth=v["leaf_depth"]),
+            dataset=self.dataset)
+        return tree, self._leaf_id(v["leaf_begin"], v["leaf_cnt"], k)
 
-    def _leaf_id(self, st: LeafState, k: int) -> torch.Tensor:
+    def _grow_fused(self, table, root, imeta, fmeta):
+        """S, T and the histogram cache stay on the device; L - 1 fused
+        steps are enqueued without a host read (each stops by itself
+        once the tree is done), then S, T and k are read once."""
+        st = root_state(self.pack, table, *root, self.num_data,
+                        self.params, self.num_leaves)
+        k = torch.ones((1,), dtype=torch.int32, device=self.device)
+        self._launch_fused(k, st["S"], st["T"], imeta, fmeta)
+        # the tree's one host read
+        return {"S": st["S"].cpu(), "T": st["T"].cpu()}, int(k.cpu()[0])
+
+    def _launch_fused(self, k, S, T, imeta, fmeta) -> None:
+        """The split loop of one tree: L - 1 fused steps, enqueued with
+        no host read in between."""
+        step = fused_split_step_segment_plain if self.plain \
+            else fused_split_step_segment
+        kw = dict(params=self.params, big_l=self.num_leaves,
+                  max_depth=self.max_depth, b=self.num_bins_max,
+                  f=self.num_features, has_monotone=self.has_monotone)
+        if not self.plain:
+            kw["scratch"] = self._scratch
+        for _ in range(self.num_leaves - 1):
+            step(k, S, T, self.mat, self.ws, self.hist, imeta, fmeta, **kw)
+
+    def _grow_per_phase(self, table, root, meta_t, tables, imeta):
+        """S and T on the host; one host read of the scan tables and the
+        child segments per split (inside ``split_step_host``)."""
+        st = root_state(self.pack, table, *root, self.num_data,
+                        self.params, self.num_leaves)
+        ops = SplitOps(
+            partition=self._partition,
+            histogram=lambda seg2, max_count: self._histogram(
+                seg2, None, max_count),
+            scan=lambda hists, leaves: self._scan(hists, leaves, meta_t,
+                                                  tables))
+        im = imeta.cpu().numpy()
+        k = 1
+        while split_step_host(self.pack, st, self.hist, k, ops, imeta=im,
+                              params=self.params, big_l=self.num_leaves,
+                              max_depth=self.max_depth,
+                              has_monotone=self.has_monotone):
+            k += 1
+        return st, k
+
+    def _leaf_id(self, begin: np.ndarray, cnt: np.ndarray,
+                 k: int) -> torch.Tensor:
         """Row id -> leaf from the final segments: leaves in segment
-        order, each repeated over its rows, scattered by row id."""
-        order = np.argsort(st.begin[:k], kind="stable")
+        order, each repeated over its rows, scattered by row id. Built
+        on the device from the k segments (``output_size`` spares the
+        sync), not as an N-long host array copied across."""
+        order = np.argsort(begin[:k], kind="stable")
         pos_leaf = torch.repeat_interleave(
-            torch.as_tensor(order, dtype=torch.int64),
-            torch.as_tensor(st.cnt[:k][order], dtype=torch.int64)
-        ).to(self.device)
+            torch.as_tensor(order, dtype=torch.int64, device=self.device),
+            torch.as_tensor(cnt[:k][order].astype(np.int64),
+                            device=self.device),
+            output_size=self.num_data)
         rids = extract_row_ids(self.mat, self.num_features,
                                self.num_data).long()
         return torch.empty(self.num_data, dtype=torch.int64,

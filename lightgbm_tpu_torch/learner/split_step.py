@@ -1,22 +1,47 @@
-"""Per-split bookkeeping of the grow loop (port of the parts of
-``lightgbm_tpu/learner/split_step.py`` the per-phase partitioned loop
-needs).
+"""Per-split state and bookkeeping of the partitioned grow loop (port of
+``lightgbm_tpu/learner/split_step.py``, merged packing).
 
-The JAX package packs the per-leaf state into lane-packed matrices
-(``StatePack``) because it is the carry of one compiled
-``while_loop``. The port's loop is a Python loop that reads each
-split's scan results on the host, so the state is plain numpy arrays
-(``LeafState``) and these helpers work on float32 host scalars with the
-JAX package's expression order.
+**Packed state.** As in the JAX package, all per-leaf state rides ONE
+``S`` [Ks, L] float32 matrix (column = leaf; int rows bit-cast into
+float32, so their bit patterns round-trip exactly) and the tree arrays
+ONE ``T`` [Kt, L-1] matrix (column = internal node). The layout is the
+JAX package's merged ``StatePack`` field for field: the same field
+order, and the same rows dropped and synthesized by ``view()``
+(``leaf_weight`` = ``leaf_h``, ``leaf_count`` = ``leaf_c``,
+``leaf_parent`` = ``ref_node``; ``leaf_cmin``/``leaf_cmax`` without
+monotone constraints). The port has no categorical splits, so the
+categorical bitsets are never carried. The fused split-step kernel
+(``csrc/split_step_segment.cu``) reads and writes this layout on the
+device; the per-phase loop keeps it on the host. ``pack``, ``view``,
+``read_site``, ``set_state_cols`` and ``set_tree_col`` are functions
+on tensors; ``set_*`` take host scalars or 0-dim tensors.
+
+**The per-split bookkeeping** (``order_child_pair``,
+``child_constraints``, ``child_columns``, ``split_node_updates``) comes
+twice, in the JAX package's float32 expression order: on host numpy
+scalars for the per-phase loop (``split_step_host``), and on 0-dim
+tensors (``*_t``) for the plain version of the fused step
+(``ops/split_step_cuda.py``), which keeps its state where ``S`` lies as
+the kernel does. The kernel repeats the same expressions in float32 on
+the device, so all three write the same bits.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import os
+from typing import Callable, NamedTuple
 
-from ..ops.split import kEpsilon
+import numpy as np
+import torch
+
+from ..ops.split import assemble_split, kEpsilon
+from ..ops.split_step_cuda import IM_MONO
 
 f32 = np.float32
+
+# the partitioned loop's int state starts with its physical segment
+# bounds (lightgbm_tpu/learner/partitioned.py SEG_SI_PREFIX)
+SEG_SI_PREFIX = ("leaf_begin", "leaf_cnt")
 
 
 def leaf_output_host(g, h, l1, l2, max_delta_step) -> np.float32:
@@ -29,89 +54,510 @@ def leaf_output_host(g, h, l1, l2, max_delta_step) -> np.float32:
     return f32(out)
 
 
-class LeafState:
-    """Per-leaf state of one tree (L slots) and the tree arrays
-    (L-1 internal nodes)."""
-
-    def __init__(self, big_l: int):
-        self.begin = np.zeros(big_l, np.int64)
-        self.cnt = np.zeros(big_l, np.int64)
-        self.g = np.zeros(big_l, f32)
-        self.h = np.zeros(big_l, f32)
-        self.c = np.zeros(big_l, f32)
-        self.gain = np.full(big_l, -np.inf, f32)
-        self.split = [None] * big_l
-        self.cmin = np.full(big_l, -np.inf, f32)
-        self.cmax = np.full(big_l, np.inf, f32)
-        self.value = np.zeros(big_l, f32)
-        self.ref_node = np.full(big_l, -1, np.int32)
-        self.ref_side = np.zeros(big_l, np.int32)
-        self.depth = np.zeros(big_l, np.int32)
-        m = big_l - 1
-        self.split_feature = np.zeros(m, np.int32)
-        self.threshold_bin = np.zeros(m, np.int32)
-        self.decision_type = np.zeros(m, np.int32)
-        self.left_child = np.zeros(m, np.int32)
-        self.right_child = np.zeros(m, np.int32)
-        self.split_gain = np.zeros(m, f32)
-        self.internal_value = np.zeros(m, f32)
-        self.internal_weight = np.zeros(m, f32)
-        self.internal_count = np.zeros(m, f32)
-
-    def set_leaf(self, idx, split, g, h, c, out, cmin, cmax, ref_node,
-                 ref_side, depth, begin, cnt) -> None:
-        """One leaf's state column (``child_columns`` +
-        ``set_state_cols`` of the JAX package)."""
-        self.split[idx] = split
-        self.gain[idx] = split.gain
-        self.g[idx], self.h[idx], self.c[idx] = g, h, c
-        self.value[idx] = out
-        self.cmin[idx], self.cmax[idx] = cmin, cmax
-        self.ref_node[idx], self.ref_side[idx] = ref_node, ref_side
-        self.depth[idx] = depth
-        self.begin[idx], self.cnt[idx] = begin, cnt
+def fused_split_kernel_mode(config_value: str = "auto") -> str:
+    """Resolve the fused split-step gate to "on" / "off" / "auto". The
+    ``LGBM_TPU_FUSED_SPLIT_KERNEL`` environment variable overrides the
+    config value: 0/false/off force the per-phase loop, 1/on/force the
+    fused step (its plain version on the CPU), auto keeps the default
+    (on for a CUDA device)."""
+    env = os.environ.get("LGBM_TPU_FUSED_SPLIT_KERNEL", "").lower()
+    if env in ("0", "false", "off"):
+        return "off"
+    if env in ("1", "on", "force"):
+        return "on"
+    if env in ("auto",):
+        return "auto"
+    return config_value if config_value in ("on", "off") else "auto"
 
 
-def split_node_updates(st: LeafState, params, s: int, leaf: int, new: int,
-                       split) -> None:
-    """Write internal node ``s`` and fix its parent's child pointer
-    (``split_node_updates`` + ``set_tree_col``)."""
-    pg, ph, pc = st.g[leaf], st.h[leaf], st.c[leaf]
-    st.split_gain[s] = split.gain
-    st.internal_value[s] = leaf_output_host(
-        pg, ph + f32(2 * kEpsilon), params.lambda_l1, params.lambda_l2,
-        params.max_delta_step)
-    st.internal_weight[s] = ph
-    st.internal_count[s] = pc
-    st.split_feature[s] = split.feature
-    st.threshold_bin[s] = split.threshold
-    st.decision_type[s] = 2 if split.default_left else 0
-    st.left_child[s] = ~leaf
-    st.right_child[s] = ~new
-    pnode = int(st.ref_node[leaf])
-    if pnode >= 0:
-        if st.ref_side[leaf] == 0:
-            st.left_child[pnode] = s
-        else:
-            st.right_child[pnode] = s
+def fused_split_eligible(params, *, cache_hists: bool, merged: bool,
+                         extra_trees: bool, ff_bynode: float,
+                         mv_groups: int = 0, serial_comm: bool = True,
+                         num_leaves: int = 0) -> bool:
+    """Static eligibility of the fused split step for one learner: the
+    step owns the whole split, so anything that injects per-split work
+    it does not model keeps the per-phase loop (CEGB, per-node RNG,
+    pool-bounded histogram memory, multi-val groups, collectives)."""
+    return (merged and cache_hists and serial_comm
+            and not getattr(params, "cegb_on", False) and not extra_trees
+            and ff_bynode >= 1.0 and mv_groups == 0 and num_leaves >= 2)
 
 
-def child_constraints(monotone: int, lout, rout, pcmin, pcmax,
-                      has_monotone: bool):
-    """Monotone constraint propagation to both children
-    (LeafConstraints::UpdateConstraints, monotone_constraints.hpp:44);
-    parent bounds pass through when no feature is constrained."""
+def _as_f32_bits(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int32).contiguous().view(torch.float32)
+
+
+_NP_DTYPE = {torch.float32: np.float32, torch.int32: np.int32,
+             torch.int64: np.int64, torch.bool: np.bool_}
+
+
+def _scalar_t(v, dtype, device) -> torch.Tensor:
+    """One value (a host scalar or a 0-dim tensor) as a 0-dim tensor."""
+    if isinstance(v, torch.Tensor):
+        return v.reshape(()).to(device=device, dtype=dtype)
+    return torch.as_tensor(_NP_DTYPE[dtype](v), device=device)
+
+
+class StatePack:
+    """Merged packed grow-loop state: ``S`` [len(sf) + len(si), L] and
+    ``T`` [len(tf) + len(ti), L-1] float32, int rows bit-cast. Fields in
+    ``derived`` are not carried; ``view()`` synthesizes them."""
+
+    # field layouts of the JAX package (learner/split_step.py)
+    GROW_SF = ("leaf_g", "leaf_h", "leaf_c", "bs_gain", "bs_lg",
+               "bs_lh", "bs_lc", "bs_lout", "bs_rout", "leaf_cmin",
+               "leaf_cmax", "leaf_value", "leaf_weight", "leaf_count")
+    GROW_SI = ("bs_feat", "bs_thr", "bs_dleft", "bs_iscat", "ref_node",
+               "ref_side", "leaf_parent", "leaf_depth")
+    GROW_TF = ("split_gain_arr", "internal_value", "internal_weight",
+               "internal_count")
+    # left_child/right_child stay adjacent (the parent-pointer fixup)
+    GROW_TI = ("split_feature", "threshold_bin", "decision_type",
+               "left_child", "right_child")
+
+    def __init__(self, sf, si, tf, ti, bools=("bs_dleft", "bs_iscat"),
+                 derived=None):
+        self.sf_fields, self.si_fields = tuple(sf), tuple(si)
+        self.tf_fields, self.ti_fields = tuple(tf), tuple(ti)
+        self.sf_idx = {k: i for i, k in enumerate(self.sf_fields)}
+        self.si_idx = {k: i for i, k in enumerate(self.si_fields)}
+        self.tf_idx = {k: i for i, k in enumerate(self.tf_fields)}
+        self.ti_idx = {k: i for i, k in enumerate(self.ti_fields)}
+        self.bools = frozenset(bools)
+        self.derived = dict(derived or {})
+        self._packed = set(sf) | set(si) | set(tf) | set(ti)
+
+    # ---- pack / view -------------------------------------------------
+    def pack(self, fields: dict) -> dict:
+        """Per-field dict of [L] / [L-1] tensors -> {"S", "T"} plus the
+        unpacked keys; derived fields are dropped."""
+        st = {k: v for k, v in fields.items()
+              if k not in self._packed and k not in self.derived}
+        sfm = torch.stack([fields[k].to(torch.float32)
+                           for k in self.sf_fields])
+        sim = torch.stack([fields[k].to(torch.int32)
+                           for k in self.si_fields])
+        tfm = torch.stack([fields[k].to(torch.float32)
+                           for k in self.tf_fields])
+        tim = torch.stack([fields[k].to(torch.int32)
+                           for k in self.ti_fields])
+        st["S"] = torch.cat([sfm, _as_f32_bits(sim)])
+        st["T"] = torch.cat([tfm, _as_f32_bits(tim)])
+        return st
+
+    def view(self, st: dict) -> dict:
+        """Packed state -> per-field dict of row views plus the
+        synthesized derived fields."""
+        v = {k: val for k, val in st.items() if k not in ("S", "T")}
+        nf, nt = len(self.sf_fields), len(self.tf_fields)
+        sfm, sim = st["S"][:nf], st["S"][nf:].view(torch.int32)
+        tfm, tim = st["T"][:nt], st["T"][nt:].view(torch.int32)
+        for k, i in self.sf_idx.items():
+            v[k] = sfm[i]
+        for k, i in self.si_idx.items():
+            v[k] = sim[i].to(torch.bool) if k in self.bools else sim[i]
+        for k, i in self.tf_idx.items():
+            v[k] = tfm[i]
+        for k, i in self.ti_idx.items():
+            v[k] = tim[i]
+        for k, fn in self.derived.items():
+            v[k] = fn(v)
+        return v
+
+    def row_f(self, st: dict, name: str) -> torch.Tensor:
+        """One float state row [L]."""
+        return st["S"][self.sf_idx[name]]
+
+    def read_site(self, st: dict, leaf) -> dict:
+        """All carried state of one leaf (an int or a 0-dim tensor) as
+        0-dim tensors on ``S``'s device: one column read, int rows
+        reinterpreted, never converted. The column is a copy (a 0-dim
+        index tensor would give a view), so writes that follow in the
+        same split leave the site as it was read."""
+        col = st["S"][:, leaf].clone()
+        nf = len(self.sf_fields)
+        colf, coli = col[:nf], col[nf:].view(torch.int32)
+        site = {k: colf[i] for k, i in self.sf_idx.items()}
+        for k, i in self.si_idx.items():
+            site[k] = coli[i].to(torch.bool) if k in self.bools else coli[i]
+        return site
+
+    def read_site_host(self, st: dict, leaf: int) -> dict:
+        """``read_site`` of a host ``S`` as numpy scalars (float32,
+        int32, bool), for the per-phase loop's host bookkeeping."""
+        col = st["S"][:, int(leaf)].numpy()
+        nf = len(self.sf_fields)
+        colf, coli = col[:nf], col[nf:].view(np.int32)
+        site = {k: colf[i] for k, i in self.sf_idx.items()}
+        for k, i in self.si_idx.items():
+            site[k] = bool(coli[i]) if k in self.bools else coli[i]
+        return site
+
+    # ---- writes: a host index into a host matrix goes through numpy
+    # (the per-phase loop, whose values are host scalars: a few
+    # microseconds a split); a tensor index through torch ops on the
+    # matrix's device (the plain fused step, whose values are tensors)
+    @staticmethod
+    def _on_host(mat: torch.Tensor, index) -> bool:
+        return mat.device.type == "cpu" and not isinstance(index,
+                                                            torch.Tensor)
+
+    @staticmethod
+    def _column_np(fvals, ivals) -> np.ndarray:
+        return np.concatenate([np.array(fvals, np.float32),
+                               np.array(ivals, np.int32).view(np.float32)])
+
+    @staticmethod
+    def _column_t(fvals, ivals, device) -> torch.Tensor:
+        colf = torch.stack([_scalar_t(v, torch.float32, device)
+                            for v in fvals])
+        coli = torch.stack([_scalar_t(v, torch.int32, device)
+                            for v in ivals])
+        return torch.cat([colf, coli.view(torch.float32)])
+
+    def set_state_cols(self, st: dict, idx_a, idx_b, fa: dict, fb: dict,
+                       ia: dict, ib: dict) -> None:
+        """Write both fresh children's state columns into ``st["S"]`` in
+        place (keys outside the layout are ignored). Values are host
+        scalars or 0-dim tensors."""
+        s = st["S"]
+        vals = [([fa[k] for k in self.sf_fields],
+                 [ia[k] for k in self.si_fields]),
+                ([fb[k] for k in self.sf_fields],
+                 [ib[k] for k in self.si_fields])]
+        if self._on_host(s, idx_a):
+            sn = s.numpy()
+            sn[:, int(idx_a)] = self._column_np(*vals[0])
+            sn[:, int(idx_b)] = self._column_np(*vals[1])
+            return
+        cols = torch.stack([self._column_t(fv, iv, s.device)
+                            for fv, iv in vals], dim=1)
+        idx = torch.stack([_scalar_t(idx_a, torch.int64, s.device),
+                           _scalar_t(idx_b, torch.int64, s.device)])
+        s[:, idx] = cols
+
+    def set_tree_col(self, st: dict, s, tf: dict, ti: dict, pnode, upd,
+                     pside) -> None:
+        """Write internal node ``s``'s column into ``st["T"]`` in place
+        and, when ``upd``, point the parent's ``left_child`` (pside 0)
+        or ``right_child`` (pside 1) at ``s`` (one read-modify-write of
+        the adjacent child-pointer pair, as in the JAX package)."""
+        t = st["T"]
+        fv = [tf[k] for k in self.tf_fields]
+        iv = [ti[k] for k in self.ti_fields]
+        r0 = len(self.tf_fields) + self.ti_idx["left_child"]
+        if self._on_host(t, s):
+            tn = t.numpy()
+            tn[:, int(s)] = self._column_np(fv, iv)
+            if bool(upd):
+                tn[r0 + int(pside), int(pnode)] = \
+                    np.int32(s).view(np.float32)
+            return
+        dev = t.device
+        s_t = _scalar_t(s, torch.int64, dev)
+        t[:, s_t] = self._column_t(fv, iv, dev)
+        pn = _scalar_t(pnode, torch.int64, dev)
+        old = t[r0:r0 + 2, pn].view(torch.int32)
+        hit = _scalar_t(upd, torch.bool, dev) & (
+            _scalar_t(pside, torch.int32, dev)
+            == torch.arange(2, dtype=torch.int32, device=dev))
+        t[r0:r0 + 2, pn] = torch.where(hit, s_t.to(torch.int32),
+                                       old).view(torch.float32)
+
+
+def make_grow_pack(si_prefix=(), *, has_monotone: bool,
+                   big_l: int) -> StatePack:
+    """The merged grow-loop pack of one configuration
+    (``make_grow_pack(..., merged=True, has_cat=False)`` of the JAX
+    package): derivable rows and, without monotone constraints, the
+    constraint bounds are dropped and synthesized by ``view()``."""
+    sf = list(StatePack.GROW_SF)
+    si = list(si_prefix) + list(StatePack.GROW_SI)
+    derived = {}
+    for name, src in (("leaf_weight", "leaf_h"), ("leaf_count", "leaf_c"),
+                      ("leaf_parent", "ref_node")):
+        (sf if name in sf else si).remove(name)
+        derived[name] = (lambda src_: lambda v: v[src_])(src)
     if not has_monotone:
-        return pcmin, pcmax, pcmin, pcmax
+        sf.remove("leaf_cmin")
+        sf.remove("leaf_cmax")
+        derived["leaf_cmin"] = lambda v: torch.full(
+            (big_l,), -np.inf, dtype=torch.float32, device=v["leaf_g"].device)
+        derived["leaf_cmax"] = lambda v: torch.full(
+            (big_l,), np.inf, dtype=torch.float32, device=v["leaf_g"].device)
+    return StatePack(sf, si, StatePack.GROW_TF, StatePack.GROW_TI,
+                     derived=derived)
+
+
+# ---- per-split scalar bookkeeping (float32 numpy scalars) ------------
+
+def child_constraints_mono(mono, is_cat, lout, rout, pcmin, pcmax):
+    """Monotone constraint propagation to both children on one
+    feature's direction (LeafConstraints::UpdateConstraints,
+    monotone_constraints.hpp:44)."""
     mid = (f32(lout) + f32(rout)) * f32(0.5)
-    cmin_l = np.maximum(pcmin, mid) if monotone < 0 else pcmin
-    cmax_l = np.minimum(pcmax, mid) if monotone > 0 else pcmax
-    cmin_r = np.maximum(pcmin, mid) if monotone > 0 else pcmin
-    cmax_r = np.minimum(pcmax, mid) if monotone < 0 else pcmax
+    numerical = not bool(is_cat)
+    cmin_l = np.maximum(pcmin, mid) if numerical and mono < 0 else pcmin
+    cmax_l = np.minimum(pcmax, mid) if numerical and mono > 0 else pcmax
+    cmin_r = np.maximum(pcmin, mid) if numerical and mono > 0 else pcmin
+    cmax_r = np.minimum(pcmax, mid) if numerical and mono < 0 else pcmax
     return f32(cmin_l), f32(cmax_l), f32(cmin_r), f32(cmax_r)
 
 
-def order_child_pair(a_is_left: bool, left: tuple, right: tuple):
-    """(left, right) child tuples -> (a, b) storage order plus the
-    ref_side of a (0 = left child); b takes the other side."""
-    return (left, right, 0) if a_is_left else (right, left, 1)
+def child_constraints(monotone, lout, rout, pcmin, pcmax,
+                      has_monotone: bool):
+    """Parent bounds pass through when no feature is constrained; host
+    scalars or 0-dim tensors."""
+    if not has_monotone:
+        return pcmin, pcmax, pcmin, pcmax
+    fn = child_constraints_mono_t if isinstance(lout, torch.Tensor) \
+        else child_constraints_mono
+    return fn(monotone, False, lout, rout, pcmin, pcmax)
+
+
+def order_child_pair(a_is_left, k, lg, lh, lc, rg, rh, rc, lout, rout,
+                     cmin_l, cmax_l, cmin_r, cmax_r) -> dict:
+    """(left, right) child scalars -> (a, b) storage order; ``side_a``
+    is a's ref_side (0 = left child), the salts carry the child
+    identity (left 2k+1, right 2k+2)."""
+    a = bool(a_is_left)
+
+    def w(x, y):
+        return x if a else y
+
+    side_a = 0 if a else 1
+    return dict(
+        ga=w(lg, rg), ha=w(lh, rh), ca=w(lc, rc),
+        gb=w(rg, lg), hb=w(rh, lh), cb=w(rc, lc),
+        out_a=w(lout, rout), out_b=w(rout, lout),
+        cmin_a=w(cmin_l, cmin_r), cmax_a=w(cmax_l, cmax_r),
+        cmin_b=w(cmin_r, cmin_l), cmax_b=w(cmax_r, cmax_l),
+        salt_a=w(2 * k + 1, 2 * k + 2), salt_b=w(2 * k + 2, 2 * k + 1),
+        side_a=side_a, side_b=1 - side_a)
+
+
+def child_columns(split, g, h, c, out, cmin, cmax, s, side, depth,
+                  extra_i=None):
+    """One fresh child's state-column field dicts (float, int) for
+    ``StatePack.set_state_cols``."""
+    f = dict(leaf_g=g, leaf_h=h, leaf_c=c, bs_gain=split.gain,
+             bs_lg=split.left_g, bs_lh=split.left_h,
+             bs_lc=split.left_c, bs_lout=split.left_output,
+             bs_rout=split.right_output, leaf_cmin=cmin,
+             leaf_cmax=cmax, leaf_value=out, leaf_weight=h,
+             leaf_count=c)
+    i = dict(bs_feat=split.feature, bs_thr=split.threshold,
+             bs_dleft=split.default_left,
+             bs_iscat=getattr(split, "is_cat", False),
+             ref_node=s, ref_side=side, leaf_parent=s, leaf_depth=depth)
+    if extra_i:
+        i.update(extra_i)
+    return f, i
+
+
+def split_node_updates(params, gain, feat, thr, dleft, is_cat, pg, ph, pc,
+                       ref_node, leaf, new):
+    """Tree-array column dicts and the parent-pointer fixup of one
+    split (``set_tree_col`` consumes them)."""
+    dec = (1 if is_cat else 0) + (2 if dleft else 0)
+    upd = int(ref_node) >= 0
+    pnode = int(ref_node) if upd else 0
+    parent_out = leaf_output_host(
+        pg, f32(ph) + f32(2 * kEpsilon), params.lambda_l1,
+        params.lambda_l2, params.max_delta_step)
+    treef = dict(split_gain_arr=gain, internal_value=parent_out,
+                 internal_weight=ph, internal_count=pc)
+    treei = dict(split_feature=feat, threshold_bin=thr, decision_type=dec,
+                 left_child=~int(leaf), right_child=~int(new))
+    return treef, treei, pnode, upd
+
+
+# ---- the same bookkeeping on 0-dim tensors (the plain fused step, whose
+# state stays where S lies; the same float32 expressions as the host
+# versions above, so both loops write the same bits) ------------------
+
+def child_constraints_mono_t(mono, is_cat, lout, rout, pcmin, pcmax):
+    """``child_constraints_mono`` on 0-dim tensors."""
+    mid = (lout + rout) * 0.5
+    num = ~torch.as_tensor(is_cat, dtype=torch.bool, device=lout.device)
+    lo = num & (mono < 0)
+    hi = num & (mono > 0)
+    return (torch.where(lo, torch.maximum(pcmin, mid), pcmin),
+            torch.where(hi, torch.minimum(pcmax, mid), pcmax),
+            torch.where(hi, torch.maximum(pcmin, mid), pcmin),
+            torch.where(lo, torch.minimum(pcmax, mid), pcmax))
+
+
+def order_child_pair_t(a_is_left, k, lg, lh, lc, rg, rh, rc, lout, rout,
+                       cmin_l, cmax_l, cmin_r, cmax_r) -> dict:
+    """``order_child_pair`` on 0-dim tensors."""
+    def w(x, y):
+        return torch.where(a_is_left, x, y)
+
+    side_a = (~a_is_left).to(torch.int32)
+    return dict(
+        ga=w(lg, rg), ha=w(lh, rh), ca=w(lc, rc),
+        gb=w(rg, lg), hb=w(rh, lh), cb=w(rc, lc),
+        out_a=w(lout, rout), out_b=w(rout, lout),
+        cmin_a=w(cmin_l, cmin_r), cmax_a=w(cmax_l, cmax_r),
+        cmin_b=w(cmin_r, cmin_l), cmax_b=w(cmax_r, cmax_l),
+        salt_a=w(2 * k + 1, 2 * k + 2), salt_b=w(2 * k + 2, 2 * k + 1),
+        side_a=side_a, side_b=1 - side_a)
+
+
+def split_node_updates_t(params, gain, feat, thr, dleft, is_cat, pg, ph, pc,
+                         ref_node, leaf, new):
+    """``split_node_updates`` on 0-dim tensors."""
+    from ..ops.split import _f32, leaf_output_no_constraint
+    i32 = torch.int32
+    dec = torch.as_tensor(is_cat, device=pg.device).to(i32) \
+        + 2 * dleft.to(i32)
+    upd = ref_node >= 0
+    pnode = torch.where(upd, ref_node, torch.zeros_like(ref_node))
+    parent_out = leaf_output_no_constraint(
+        pg, ph + _f32(2 * kEpsilon, pg.device), params.lambda_l1,
+        params.lambda_l2, params.max_delta_step)
+    treef = dict(split_gain_arr=gain, internal_value=parent_out,
+                 internal_weight=ph, internal_count=pc)
+    treei = dict(split_feature=feat, threshold_bin=thr, decision_type=dec,
+                 left_child=~leaf, right_child=~new)
+    return treef, treei, pnode, upd
+
+
+# ---- the root state and one split, driven from the host --------------
+
+def root_state(pack: StatePack, table: torch.Tensor, root_g, root_h,
+               root_c, n: int, params, big_l: int) -> dict:
+    """``{"S", "T"}`` of a tree that has only its root, on ``table``'s
+    device (JAX partitioned.py:474-542). ``table`` is the root's [F, 8]
+    scan table; it is read where it lies, so no host read happens here.
+    The root sums are host float32 scalars."""
+    from ..ops.split import (O_DLEFT, O_LC, O_LG, O_LH, O_SCORE, O_THR,
+                             O_WL, O_WR)
+    dev = table.device
+    best = torch.argmax(table[:, O_SCORE])   # first index of the maximum
+    row = table[best]
+    i32, fl = torch.int32, torch.float32
+
+    def at0(fill, val, dtype, size=big_l):
+        t = torch.full((size,), fill, dtype=dtype, device=dev)
+        t[0] = val
+        return t
+
+    def zeros(dtype, size=big_l):
+        return torch.zeros((size,), dtype=dtype, device=dev)
+
+    root_out = leaf_output_host(root_g, f32(root_h) + f32(2 * kEpsilon),
+                                params.lambda_l1, params.lambda_l2,
+                                params.max_delta_step)
+    m = big_l - 1
+    fields = dict(
+        leaf_begin=zeros(i32), leaf_cnt=at0(0, int(n), i32),
+        leaf_g=at0(0.0, float(root_g), fl),
+        leaf_h=at0(0.0, float(root_h), fl),
+        leaf_c=at0(0.0, float(root_c), fl),
+        bs_gain=at0(-np.inf, row[O_SCORE], fl),
+        bs_feat=at0(0, best, i32), bs_thr=at0(0, row[O_THR], i32),
+        bs_dleft=at0(0, row[O_DLEFT] > 0.5, i32),
+        bs_lg=at0(0.0, row[O_LG], fl),
+        bs_lh=at0(0.0, row[O_LH] - kEpsilon, fl),
+        bs_lc=at0(0.0, row[O_LC], fl),
+        bs_lout=at0(0.0, row[O_WL], fl), bs_rout=at0(0.0, row[O_WR], fl),
+        bs_iscat=zeros(i32),
+        ref_node=torch.full((big_l,), -1, dtype=i32, device=dev),
+        ref_side=zeros(i32),
+        leaf_cmin=torch.full((big_l,), -np.inf, dtype=fl, device=dev),
+        leaf_cmax=torch.full((big_l,), np.inf, dtype=fl, device=dev),
+        leaf_value=at0(0.0, float(root_out), fl), leaf_depth=zeros(i32),
+        split_feature=zeros(i32, m), threshold_bin=zeros(i32, m),
+        decision_type=zeros(i32, m), left_child=zeros(i32, m),
+        right_child=zeros(i32, m), split_gain_arr=zeros(fl, m),
+        internal_value=zeros(fl, m), internal_weight=zeros(fl, m),
+        internal_count=zeros(fl, m))
+    return pack.pack(fields)
+
+
+class SplitOps(NamedTuple):
+    """The three per-split ops ``split_step_host`` calls (the per-phase
+    kernels, or their plain versions).
+
+    partition(begin, cnt, feat, thr, dleft) -> int32 [4] child segments
+    (begin, NL, begin + NL, cnt - NL) on the matrix's device;
+    histogram(seg2, max_count) -> [F, B, 3] of the segment in the int32
+    [2] tensor ``seg2`` (``max_count`` bounds its size);
+    scan(hists, leaves) -> [2, F, 8] tables."""
+    partition: Callable
+    histogram: Callable
+    scan: Callable
+
+
+def split_step_host(pack: StatePack, st: dict, hist: torch.Tensor, k: int,
+                    ops: SplitOps, *, imeta: np.ndarray, params,
+                    big_l: int, max_depth: int, has_monotone: bool) -> bool:
+    """Split ``k`` (the new leaf's id) of the packed state ``st``
+    ({"S", "T"}) and the histogram cache ``hist``, in place. Returns
+    False, and changes nothing, when the grow loop's condition fails:
+    ``k < L`` and the best open gain > 0 (lightgbm_tpu/learner/
+    partitioned.py:563-568). ``imeta`` is the host [F, 8] metadata
+    table. The host reads the scan tables and the child segments once,
+    after every op of the split is enqueued."""
+    if k >= big_l:
+        return False
+    gains = pack.row_f(st, "bs_gain")[:k].cpu().numpy()
+    if not gains.max() > 0.0:
+        return False
+    leaf = int(np.argmax(gains))
+    new, s = k, k - 1
+    site = pack.read_site_host(st, leaf)
+    feat, thr = int(site["bs_feat"]), int(site["bs_thr"])
+    dleft = bool(site["bs_dleft"])
+    lg, lh, lc = site["bs_lg"], site["bs_lh"], site["bs_lc"]
+    pg, ph, pc = site["leaf_g"], site["leaf_h"], site["leaf_c"]
+    rg, rh, rc = pg - lg, ph - lh, pc - lc
+    lout, rout = site["bs_lout"], site["bs_rout"]
+    inf = f32(np.inf)
+    pcmin = site.get("leaf_cmin", -inf)
+    pcmax = site.get("leaf_cmax", inf)
+    begin, cnt = int(site["leaf_begin"]), int(site["leaf_cnt"])
+
+    # physical partition, then the smaller child's histogram and the
+    # sibling by subtraction from the cached parent
+    seg = ops.partition(begin, cnt, feat, thr, dleft)
+    small_left = bool(lc <= rc)
+    hist_small = ops.histogram(seg[0:2] if small_left else seg[2:4], cnt)
+    idx_a, idx_b = (leaf, new) if small_left else (new, leaf)
+    hist_other = hist[leaf] - hist_small
+    hist[idx_a] = hist_small
+    hist[idx_b] = hist_other
+
+    depth = int(site["leaf_depth"]) + 1
+    cmin_l, cmax_l, cmin_r, cmax_r = child_constraints(
+        int(imeta[feat, IM_MONO]), lout, rout, pcmin, pcmax, has_monotone)
+    o = order_child_pair(small_left, k, lg, lh, lc, rg, rh, rc, lout, rout,
+                         cmin_l, cmax_l, cmin_r, cmax_r)
+    out = ops.scan([hist_small, hist_other],
+                   [(o["ga"], o["ha"], o["ca"], o["cmin_a"], o["cmax_a"]),
+                    (o["gb"], o["hb"], o["cb"], o["cmin_b"], o["cmax_b"])])
+    # the split's one host read: both scan tables + the child segments
+    table = out.cpu().numpy()
+    sg = seg.cpu().numpy()
+    segs = ((int(sg[0]), int(sg[1])), (int(sg[2]), int(sg[3])))
+    blocked = max_depth > 0 and depth >= max_depth
+    cols = []
+    for tab, ch, side in ((table[0], "a", o["side_a"]),
+                          (table[1], "b", o["side_b"])):
+        split = assemble_split(tab)
+        if blocked:
+            split = split._replace(gain=-inf)
+        cols.append(child_columns(
+            split, o["g" + ch], o["h" + ch], o["c" + ch], o["out_" + ch],
+            o["cmin_" + ch], o["cmax_" + ch], s, side, depth,
+            extra_i=dict(leaf_begin=segs[side][0],
+                         leaf_cnt=segs[side][1])))
+    treef, treei, pnode, upd = split_node_updates(
+        params, site["bs_gain"], feat, thr, dleft, False, pg, ph, pc,
+        site["ref_node"], leaf, new)
+    pack.set_state_cols(st, idx_a, idx_b, cols[0][0], cols[1][0],
+                        cols[0][1], cols[1][1])
+    pack.set_tree_col(st, s, treef, treei, pnode, upd, site["ref_side"])
+    return True

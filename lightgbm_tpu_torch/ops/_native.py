@@ -31,13 +31,17 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# per-source extra flags: the split scan reproduces the plain version's
-# float32 expression order, so no multiply-add contraction there
-_EXTRA_FLAGS = {"split_scan.cu": ["-fmad=false"]}
+# per-source extra flags: the split scan and the fused split step
+# reproduce the plain versions' float32 expression order (the scan, the
+# leaf outputs, the sibling subtraction), so no multiply-add contraction
+# there
+_EXTRA_FLAGS = {"split_scan.cu": ["-fmad=false"],
+                "split_step_segment.cu": ["-fmad=false"]}
 _COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"hist_segment": 0, "partition_segment": 0, "split_scan": 0}
+LAUNCHES = {"hist_segment": 0, "partition_segment": 0, "split_scan": 0,
+            "fused_split_step_segment": 0}
 BUILD_INFO = {"seconds": None, "ptxas": ""}
 
 _LIB = None
@@ -57,6 +61,13 @@ _SIGNATURES = {
     # imeta, fmeta, l1, l2, mds, min_data, min_hess, min_gain, out, stream
     "ltt_split_scan": [_I, _I, _I, _P, _P] + [_F] * 10
     + [_P, _P] + [_F] * 6 + [_P, _P],
+    # k, S, T, mat, ws, stride, pay_off, hist, imeta, fmeta, partial,
+    # tiles, table, ctl, L, F, B, feat_tile, has_monotone, max_depth,
+    # l1, l2, mds, min_data, min_hess, min_gain, stream
+    "ltt_split_step_segment": [_P] * 5 + [_I, _I] + [_P] * 7 + [_I] * 6
+    + [_F] * 6 + [_P],
+    # B, feat_tile, out int32[3] (blocks per SM, grid, shared bytes)
+    "ltt_split_step_shape": [_I, _I, _P],
 }
 
 
@@ -144,14 +155,18 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.ltt_error_string.argtypes = [_I]
+        lib.ltt_error_string.restype = ctypes.c_char_p
         _LIB = lib
         return lib
 
 
 def check(err: int, name: str) -> None:
-    """Raise on a non-zero ``cudaGetLastError()`` from a launcher."""
+    """Raise on a non-zero CUDA error code from a launcher, naming it."""
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+        what = _LIB.ltt_error_string(err).decode() if _LIB else "?"
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
+                           f"({what})")
 
 
 def stream_of(t) -> int:

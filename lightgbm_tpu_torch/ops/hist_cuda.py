@@ -137,7 +137,10 @@ def histogram_segment(mat: torch.Tensor, begin, count, num_bins: int,
     tensor (begin, count) — a segment the partition kernel produced —
     with ``count=None`` and ``max_count`` an upper bound on its size
     known to the host (the launch shape depends on it, so a split never
-    waits for the device to learn a child's size). ``variant`` accepts
+    waits for the device to learn a child's size). With int bounds,
+    ``max_count`` (default ``count``) sets the launch shape the same way,
+    so a child's histogram sized by its parent sums in the same order
+    whichever form its segment came in. ``variant`` accepts
     the JAX package's names; all are the same function here."""
     if variant is not None and variant not in VARIANTS:
         raise ValueError(f"unknown histogram variant {variant!r}")
@@ -159,7 +162,10 @@ def histogram_segment(mat: torch.Tensor, begin, count, num_bins: int,
     if seg_t is None:
         if not (0 <= int(begin) and int(begin) + int(count) <= n):
             raise ValueError("segment out of range")
-        max_count = int(count)
+        if max_count is None:
+            max_count = int(count)
+        elif int(max_count) < int(count):
+            raise ValueError("max_count is below the segment's count")
         seg_t = torch.tensor([int(begin), int(count)], dtype=torch.int32,
                              device=mat.device)
     else:

@@ -1,0 +1,290 @@
+"""The fused split step of the partitioned grow loop (port of
+``lightgbm_tpu/ops/split_step_pallas.py``, segment layout).
+
+One call is one whole split: pick the best open leaf from the packed
+state ``S``, stable-partition its segment of the training matrix, build
+the smaller child's histogram, get the sibling as parent - child, scan
+both children and write both ``S`` columns, the ``T`` column and both
+rows of the histogram cache. ``k`` is a device int32 [1] tensor that the
+step reads and increments; when the grow loop's condition fails
+(``k < L`` and the best open gain > 0) the step changes nothing, so a
+caller enqueues all L - 1 steps of a tree without reading anything.
+
+``fused_split_step_segment`` launches ``csrc/split_step_segment.cu``
+for CUDA tensors and runs ``fused_split_step_segment_plain`` for CPU
+ones. The plain version is the JAX package's interpret twin
+(``_segment_kernel_ref``) written with the port's plain ops
+(``partition_segment_plain``, ``histogram_segment_plain``,
+``per_feature_numerical_plain``, ``assemble_split``) and the tensor
+bookkeeping of ``learner/split_step.py``; the per-phase loop's host
+bookkeeping grows the same trees byte for byte.
+
+The 192-feature cap of the TPU kernel (``MAX_FUSED_F``, a Mosaic
+program-size limit) is not carried over: the kernel tiles features as
+the histogram kernel does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from . import _native
+from .hist_cuda import (MAX_BLOCKS, TILE_ROWS, histogram_segment_plain,
+                        matrix_cols, payload_offset)
+from .partition_cuda import PART_THREADS, partition_segment_plain
+from .split import FeatureMeta, SplitParams, assemble_split
+from .split_scan_cuda import per_feature_numerical_plain
+
+# imeta table columns (one [F, 8] i32 operand)
+IM_NBINS, IM_MISS, IM_DEFBIN, IM_MOSTFREQ, IM_MONO, IM_GROUP, \
+    IM_OFFSET, IM_ISCAT = range(8)
+
+# dynamic shared memory of one fused block: its histogram tile must
+# leave room for two blocks per SM (the scan's planes are static)
+FUSED_SMEM_BYTES = 100 * 1024
+STATE_INT_ROWS = 9   # leaf_begin, leaf_cnt + the JAX package's GROW_SI
+TREE_ROWS = 9
+
+
+def state_rows(has_monotone: bool) -> int:
+    """Ks of the merged segment pack: 10 float rows (12 with the
+    monotone bounds) + the int rows."""
+    return (12 if has_monotone else 10) + STATE_INT_ROWS
+
+
+def pack_meta_tables(meta: FeatureMeta, feature_mask=None, device="cpu"):
+    """FeatureMeta + feature mask -> (imeta [F, 8] i32, fmeta [F, 2]
+    f32) tensors: num_bins, missing, default_bin, most_freq_bin,
+    monotone, group, offset, is_categorical; penalty, numerical and in
+    the mask. Built once per tree (once per learner without a mask)."""
+    f = len(meta.num_bins)
+    is_cat = np.asarray(meta.is_categorical, bool)
+    mask = ~is_cat
+    if feature_mask is not None:
+        mask = mask & np.asarray(feature_mask, bool)
+    imeta = np.stack([meta.num_bins, meta.missing, meta.default_bin,
+                      meta.most_freq_bin, meta.monotone, np.arange(f),
+                      np.zeros(f), is_cat], axis=1).astype(np.int32)
+    fmeta = np.stack([meta.penalty, mask], axis=1).astype(np.float32)
+    return (torch.as_tensor(imeta, device=device),
+            torch.as_tensor(fmeta, device=device))
+
+
+def meta_from_tables(imeta: torch.Tensor, fmeta: torch.Tensor) -> dict:
+    """The scans' metadata dict (``ops/split.py:meta_tensors``) from the
+    two tables."""
+    return dict(num_bins=imeta[:, IM_NBINS], missing=imeta[:, IM_MISS],
+                default_bin=imeta[:, IM_DEFBIN], monotone=imeta[:, IM_MONO],
+                penalty=fmeta[:, 0], fmask=fmeta[:, 1])
+
+
+def fused_compiled_ok(params, *, bundled: bool, num_bins_max: int) -> bool:
+    """Static scope of the CUDA kernel: numerical splits, unbundled
+    columns, bins that fit a byte."""
+    return (not getattr(params, "has_categorical", False) and not bundled
+            and num_bins_max <= 256)
+
+
+def learner_fused_kernel_on(mode: str, *, eligible: bool,
+                            device: torch.device, params,
+                            num_bins_max: int) -> bool:
+    """The fused-step gate of one learner, decided before training from
+    the resolved mode ("on" / "off" / "auto"), the learner's static
+    eligibility, and for "auto" a CUDA device within
+    ``fused_compiled_ok``'s scope ("auto" is off on the CPU)."""
+    if mode == "off" or not eligible:
+        return False
+    if mode == "on":
+        return True
+    return torch.device(device).type == "cuda" and fused_compiled_ok(
+        params, bundled=False, num_bins_max=num_bins_max)
+
+
+def fused_feat_tile(num_features: int, num_bins: int) -> int:
+    """Features per histogram tile of the fused kernel."""
+    return max(1, min(num_features,
+                      (FUSED_SMEM_BYTES // 4 - 3 * TILE_ROWS)
+                      // (num_bins * 3)))
+
+
+class FusedScratch:
+    """Device scratch of the fused kernel, allocated once per learner
+    (never per split): histogram partials [264, F, B, 3], the partition's
+    per-tile counts, both children's scan tables and NL."""
+
+    def __init__(self, mat: torch.Tensor, num_features: int, num_bins: int):
+        dev = mat.device
+        self.partial = torch.empty((MAX_BLOCKS, num_features, num_bins, 3),
+                                   dtype=torch.float32, device=dev)
+        self.tiles = torch.empty((max(1, -(-mat.shape[0] // PART_THREADS)),),
+                                 dtype=torch.int32, device=dev)
+        self.table = torch.empty((2, num_features, 8), dtype=torch.float32,
+                                 device=dev)
+        self.ctl = torch.zeros((4,), dtype=torch.int32, device=dev)
+
+
+def launch_shape(num_features: int, num_bins: int) -> dict:
+    """The cooperative grid the kernel takes on the current card."""
+    out = (ctypes.c_int * 3)()
+    lib = _native.library()
+    err = lib.ltt_split_step_shape(num_bins,
+                                   fused_feat_tile(num_features, num_bins),
+                                   ctypes.addressof(out))
+    _native.check(err, "fused_split_step_segment")
+    return dict(blocks_per_sm=out[0], grid=out[1], smem_bytes=out[2])
+
+
+def fused_split_step_segment_plain(k, S, T, mat, ws, hist, imeta, fmeta, *,
+                                   params: SplitParams, big_l: int,
+                                   max_depth: int, b: int, f: int,
+                                   has_monotone: bool,
+                                   histogram: Optional[Callable] = None):
+    """Plain version of one fused split (the JAX package's interpret
+    twin ``_segment_kernel_ref``), in place on ``k``, ``S``, ``T``,
+    ``mat`` and ``hist``. The state stays where ``S`` lies and the
+    bookkeeping runs on 0-dim tensors, as in the kernel; the plain ops
+    read the segment bounds, the split feature and the scan inputs on
+    the host. ``histogram(mat, begin, count, max_count)`` replaces
+    ``histogram_segment_plain`` for the smaller child when given (the
+    card's check feeds it the per-phase kernel, so the rest of the step
+    can be held bit for bit)."""
+    from ..learner.split_step import (SEG_SI_PREFIX, child_columns,
+                                      child_constraints, make_grow_pack,
+                                      order_child_pair_t,
+                                      split_node_updates_t)
+    pack = make_grow_pack(SEG_SI_PREFIX, has_monotone=has_monotone,
+                          big_l=big_l)
+    st = {"S": S, "T": T}
+    dev = S.device
+    kk = k[0].long()
+    open_gain = torch.where(torch.arange(big_l, device=dev) < kk,
+                            pack.row_f(st, "bs_gain"), float("-inf"))
+    # the grow loop's condition (lightgbm_tpu/learner/partitioned.py:
+    # 563-568); when it fails the step changes nothing
+    if not bool((kk < big_l) & (open_gain.max() > 0.0)):
+        return
+    leaf = torch.argmax(open_gain)   # first index of the maximum
+    new, s = kk, kk - 1
+    site = pack.read_site(st, leaf)
+    feat, thr, dleft = site["bs_feat"], site["bs_thr"], site["bs_dleft"]
+    lg, lh, lc = site["bs_lg"], site["bs_lh"], site["bs_lc"]
+    pg, ph, pc = site["leaf_g"], site["leaf_h"], site["leaf_c"]
+    rg, rh, rc = pg - lg, ph - lh, pc - lc
+    lout, rout = site["bs_lout"], site["bs_rout"]
+    inf = torch.tensor(np.inf, dtype=torch.float32, device=dev)
+    pcmin, pcmax = site.get("leaf_cmin", -inf), site.get("leaf_cmax", inf)
+    begin, cnt = site["leaf_begin"], site["leaf_cnt"]
+
+    # stable partition of [begin, begin + cnt), then the smaller child's
+    # histogram and the sibling as parent - child
+    fi = int(feat)
+    im = imeta[fi].tolist()
+    seg = partition_segment_plain(
+        mat, ws, int(begin), int(cnt), fi, int(thr), bool(dleft),
+        im[IM_MISS], im[IM_DEFBIN], im[IM_NBINS], False, None)
+    small_left = lc <= rc
+    sb = torch.where(small_left, seg[0], seg[2])
+    sc = torch.where(small_left, seg[1], seg[3])
+    if histogram is None:
+        hist_small = histogram_segment_plain(mat, int(sb), int(sc), b, f)
+    else:
+        hist_small = histogram(mat, int(sb), int(sc), int(cnt))
+    hist_other = hist[leaf] - hist_small
+    idx_a = torch.where(small_left, leaf, new)
+    idx_b = torch.where(small_left, new, leaf)
+
+    # both children's scans and state columns, the node's tree column
+    depth = site["leaf_depth"] + 1
+    cmin_l, cmax_l, cmin_r, cmax_r = child_constraints(
+        imeta[fi, IM_MONO], lout, rout, pcmin, pcmax, has_monotone)
+    o = order_child_pair_t(small_left, kk, lg, lh, lc, rg, rh, rc, lout,
+                           rout, cmin_l, cmax_l, cmin_r, cmax_r)
+    leaves = [tuple(float(o[x + ch]) for x in ("g", "h", "c", "cmin_",
+                                                "cmax_"))
+              for ch in ("a", "b")]
+    table = per_feature_numerical_plain(
+        [hist_small, hist_other], leaves, meta_from_tables(imeta, fmeta),
+        params).cpu().numpy()
+    blocked = max_depth > 0 and int(depth) >= max_depth
+    segs = {"a": (sb, sc),
+            "b": (torch.where(small_left, seg[2], seg[0]), cnt - sc)}
+    cols = {}
+    for i, ch in enumerate(("a", "b")):
+        split = assemble_split(table[i])
+        if blocked:
+            split = split._replace(gain=-np.inf)
+        cols[ch] = child_columns(
+            split, o["g" + ch], o["h" + ch], o["c" + ch], o["out_" + ch],
+            o["cmin_" + ch], o["cmax_" + ch], s, o["side_" + ch], depth,
+            extra_i=dict(leaf_begin=segs[ch][0], leaf_cnt=segs[ch][1]))
+    treef, treei, pnode, upd = split_node_updates_t(
+        params, site["bs_gain"], feat, thr, dleft, False, pg, ph, pc,
+        site["ref_node"], leaf, new)
+    pack.set_state_cols(st, idx_a, idx_b, cols["a"][0], cols["b"][0],
+                        cols["a"][1], cols["b"][1])
+    pack.set_tree_col(st, s, treef, treei, pnode, upd, site["ref_side"])
+    hist[idx_a] = hist_small
+    hist[idx_b] = hist_other
+    k.add_(1)
+
+
+def fused_split_step_segment(k, S, T, mat, ws, hist, imeta, fmeta, *,
+                             params: SplitParams, big_l: int,
+                             max_depth: int, b: int, f: int,
+                             has_monotone: bool,
+                             scratch: Optional[FusedScratch] = None):
+    """One whole split of the partitioned grow loop, in place on ``k``
+    (int32 [1]), ``S`` [Ks, L] and ``T`` [9, L-1] (the merged
+    ``StatePack`` of ``learner/split_step.py``), ``mat``/``ws`` (the
+    training matrix and its workspace) and ``hist`` [L, F, B, 3].
+    ``imeta``/``fmeta`` come from ``pack_meta_tables``. ``scratch``
+    (``FusedScratch``) is allocated here when not given; a grow loop
+    passes its own so that no split allocates."""
+    dev = mat.device
+    if dev.type == "cpu":
+        return fused_split_step_segment_plain(
+            k, S, T, mat, ws, hist, imeta, fmeta, params=params,
+            big_l=big_l, max_depth=max_depth, b=b, f=f,
+            has_monotone=has_monotone)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not 1 <= b <= 256:
+        raise ValueError(f"num_bins must be in [1, 256], got {b}")
+    req = _native.require
+    req(k, device=dev, dtype=torch.int32, shape=(1,), name="k")
+    req(S, device=dev, dtype=torch.float32,
+        shape=(state_rows(has_monotone), big_l), name="S")
+    req(T, device=dev, dtype=torch.float32, shape=(TREE_ROWS, big_l - 1),
+        name="T")
+    req(mat, device=dev, dtype=torch.uint8, name="mat")
+    req(ws, device=dev, dtype=torch.uint8, shape=mat.shape, name="ws")
+    req(hist, device=dev, dtype=torch.float32, shape=(big_l, f, b, 3),
+        name="hist")
+    req(imeta, device=dev, dtype=torch.int32, shape=(f, 8), name="imeta")
+    req(fmeta, device=dev, dtype=torch.float32, shape=(f, 2), name="fmeta")
+    cols = mat.shape[1]
+    if cols != matrix_cols(f) or mat.data_ptr() % 16 or ws.data_ptr() % 16:
+        raise ValueError(f"mat is not a {f}-feature training matrix "
+                         "(stride or alignment)")
+    if scratch is None:
+        scratch = FusedScratch(mat, f, b)
+    if scratch.tiles.numel() * PART_THREADS < mat.shape[0] \
+            or tuple(scratch.partial.shape[1:]) != (f, b, 3):
+        raise ValueError("scratch does not fit this matrix")
+    p = params
+    lib = _native.library()
+    err = lib.ltt_split_step_segment(
+        k.data_ptr(), S.data_ptr(), T.data_ptr(), mat.data_ptr(),
+        ws.data_ptr(), cols, payload_offset(f), hist.data_ptr(),
+        imeta.data_ptr(), fmeta.data_ptr(), scratch.partial.data_ptr(),
+        scratch.tiles.data_ptr(), scratch.table.data_ptr(),
+        scratch.ctl.data_ptr(), big_l, f, b, fused_feat_tile(f, b),
+        int(bool(has_monotone)), int(max_depth), p.lambda_l1, p.lambda_l2,
+        p.max_delta_step, p.min_data_in_leaf, p.min_sum_hessian_in_leaf,
+        p.min_gain_to_split, _native.stream_of(mat))
+    _native.check(err, "fused_split_step_segment")
+    _native.LAUNCHES["fused_split_step_segment"] += 1

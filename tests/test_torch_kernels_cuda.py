@@ -84,3 +84,110 @@ def test_scan_kernel_matches_plain(mat):
     np.testing.assert_allclose(k.cpu().numpy(), p.cpu().numpy(),
                                rtol=1e-5, atol=1e-6)
     assert torch.equal(k[..., sp.O_THR], p[..., sp.O_THR])
+
+
+def _matrix(dev, n, f, b, seed):
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    g = torch.Generator(device=dev).manual_seed(seed)
+    binned = torch.randint(0, b, (n, f), generator=g, device=dev)
+    # real signal, so that splits keep positive gains for many steps
+    y = (binned[:, 0].float() / b + 0.3 * torch.rand(n, generator=g,
+                                                    device=dev) > 0.6)
+    m = hc.build_matrix(binned.to(torch.uint8))
+    hc.pack_gh(m, f, y.float() - 0.5 + 0.01 * torch.randn(
+        n, generator=g, device=dev), 0.2 + 0.05 * torch.rand(
+        n, generator=g, device=dev), torch.ones(n, device=dev))
+    return m
+
+
+def _fused_root(mat, f, b, big_l, max_depth=-1, monotone=False):
+    """Root state of a tree on ``mat`` ([k, S, T, mat copy, hist]), the
+    metadata tables and the step's keyword arguments."""
+    from lightgbm_tpu_torch.learner.split_step import (SEG_SI_PREFIX,
+                                                       make_grow_pack,
+                                                       root_state)
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops import split as sp
+    from lightgbm_tpu_torch.ops import split_scan_cuda as sc
+    from lightgbm_tpu_torch.ops import split_step_cuda as ss
+    dev, n = mat.device, mat.shape[0]
+    mono = np.zeros(f, np.int32)
+    if monotone:
+        mono[:2] = (1, -1)
+    meta = sp.FeatureMeta(
+        num_bins=np.full(f, b, np.int32),
+        missing=(np.arange(f) % 3).astype(np.int32),
+        default_bin=np.full(f, b // 2, np.int32),
+        most_freq_bin=np.zeros(f, np.int32), monotone=mono,
+        penalty=np.ones(f, np.float32), is_categorical=np.zeros(f, bool))
+    params = sp.SplitParams(0.1, 1.0, 0.0, 20.0, 1e-3, 0.0, True)
+    hist = torch.zeros((big_l, f, b, 3), device=dev)
+    hist[0] = hc.histogram_segment(mat, 0, n, b, f)
+    sums = hist[0, 0].sum(0).cpu().numpy()
+    table = sc.per_feature_numerical_cuda(
+        [hist[0]], [tuple(sums) + (-np.inf, np.inf)],
+        sp.meta_tensors(meta, dev), params)[0]
+    pack = make_grow_pack(SEG_SI_PREFIX, has_monotone=monotone, big_l=big_l)
+    st = root_state(pack, table, *sums, n, params, big_l)
+    k = torch.ones((1,), dtype=torch.int32, device=dev)
+    imeta, fmeta = ss.pack_meta_tables(meta, None, dev)
+    kw = dict(params=params, big_l=big_l, max_depth=max_depth, b=b, f=f,
+              has_monotone=monotone)
+    return [k, st["S"], st["T"], mat.clone(), hist], imeta, fmeta, kw
+
+
+def _same_bytes(a, b):
+    return a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+
+
+@pytest.mark.parametrize("n,f,b,max_depth,monotone", [
+    (N, F, B, -1, False),
+    (30_000, 40, 256, -1, False),     # two feature tiles in the kernel
+    (5_000, 5, 16, 3, True),          # few bins, depth cap, monotone
+], ids=["base", "feature_tiles", "small_bins"])
+def test_fused_step_kernel_matches_plain(dev, n, f, b, max_depth,
+                                         monotone):
+    """Consecutive splits of one tree through the fused kernel and
+    through its plain version fed the per-phase histogram kernel: k, S,
+    T, the matrix and the histogram cache bitwise equal after each, so
+    the fused histogram equals the per-phase kernel's bit for bit."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops import split_step_cuda as ss
+    mat = _matrix(dev, n, f, b, 1)
+    big_l = 31
+    state, imeta, fmeta, kw = _fused_root(mat, f, b, big_l, max_depth,
+                                          monotone)
+    plain = [t.clone() for t in state]
+    ws = torch.empty_like(mat)
+
+    def per_phase_hist(m, begin, count, max_count):
+        return hc.histogram_segment(m, begin, count, b, f,
+                                    max_count=max_count)
+    for _ in range(big_l - 1):
+        ss.fused_split_step_segment(*state[:3], state[3], ws, state[4],
+                                    imeta, fmeta, **kw)
+        ss.fused_split_step_segment_plain(*plain[:3], plain[3], ws,
+                                          plain[4], imeta, fmeta,
+                                          histogram=per_phase_hist, **kw)
+        torch.cuda.synchronize()
+        for name, a, p in zip(("k", "S", "T", "mat", "hist"), state, plain):
+            assert _same_bytes(a, p), (int(plain[0][0]), name)
+    assert int(state[0][0]) > 4
+
+
+@pytest.mark.parametrize("case", ["k_at_L", "gain_zero"])
+def test_fused_step_kernel_stops(mat, case):
+    """A launch whose grow-loop condition fails changes nothing."""
+    from lightgbm_tpu_torch.ops import split_step_cuda as ss
+    state, imeta, fmeta, kw = _fused_root(mat, F, B, 31)
+    if case == "k_at_L":
+        state[0][0] = 31
+    else:
+        state[1][3, 0] = 0.0   # bs_gain of the only open leaf
+    before = [t.clone() for t in state]
+    ss.fused_split_step_segment(*state[:3], state[3],
+                                torch.empty_like(mat), state[4], imeta,
+                                fmeta, **kw)
+    torch.cuda.synchronize()
+    for a, p in zip(before, state):
+        assert _same_bytes(a, p)

@@ -205,7 +205,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
     ({"extra_trees": True}, "Queue 1 item 7"),
     ({"cegb_penalty_split": 1.0}, "Queue 1 item 7"),
     ({"feature_fraction_bynode": 0.5}, "Queue 1 item 7"),
-    ({"fused_split_kernel": "on"}, "Queue 2 item 4"),
+    ({"linear_tree": True}, "Queue 1 item 7"),
     ({"tree_learner": "data"}, "Queue 1 item 8"),
     ({"histogram_pool_size": 0.001}, "Queue 1 item 7"),
 ])
