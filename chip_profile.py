@@ -2,12 +2,16 @@
 """Where the time of full-width training goes, on one CUDA card.
 
 Run from the repository root: ``python3 chip_profile.py [--trees N]
-[--paths fused,per-phase]``. Trains the Higgs-shaped binary model of
-``chip_smoke.py`` (2M x 28, max_bin=255, num_leaves=255, lr=0.1) through
-``lightgbm_tpu_torch``, once per grow path: ``fused`` (the default
-``fused_split_kernel="auto"``: one fused split-step launch per split)
+[--paths fused,per-phase,serial-fused,serial-per-phase]``. Trains the
+Higgs-shaped binary model of ``chip_smoke.py`` (2M x 28,
+num_leaves=255, lr=0.1) through ``lightgbm_tpu_torch``, once per grow
+path: at max_bin=255 the partitioned learner's ``fused`` (the default
+``fused_split_kernel="auto"``: one segment fused-step launch per split)
 and ``per-phase`` (``fused_split_kernel="off"``: partition, histogram
-and scan launches and one host read per split). Per path: two warm-up
+and scan launches and one host read per split); at max_bin=1023 the
+serial learner's ``serial-fused`` (one leaf fused-step launch per split)
+and ``serial-per-phase`` (torch histogram ops and the scan kernel, one
+host read per split); the default is all four. Per path: two warm-up
 trees, then ``--trees`` trees under ``torch.profiler``; it prints the
 wall time, the summed device time of every CUDA kernel, the device's
 busy and idle shares of the wall time, and the kernels and
@@ -24,7 +28,10 @@ import time
 from chip_smoke import higgs_like
 
 
-PATHS = {"fused": {}, "per-phase": {"fused_split_kernel": "off"}}
+PATHS = {"fused": {"max_bin": 255},
+         "per-phase": {"max_bin": 255, "fused_split_kernel": "off"},
+         "serial-fused": {"max_bin": 1023},
+         "serial-per-phase": {"max_bin": 1023, "fused_split_kernel": "off"}}
 
 
 def profile_path(path: str, ds, trees: int) -> str:
@@ -33,8 +40,7 @@ def profile_path(path: str, ds, trees: int) -> str:
 
     import lightgbm_tpu_torch as lt
     params = {"objective": "binary", "num_leaves": 255,
-              "learning_rate": 0.1, "max_bin": 255, "verbosity": -1,
-              **PATHS[path]}
+              "learning_rate": 0.1, "verbosity": -1, **PATHS[path]}
     bst = lt.Booster(params, ds, device="cuda")
     for _ in range(2):
         bst.update()
@@ -51,7 +57,9 @@ def profile_path(path: str, ds, trees: int) -> str:
     dev_us = sum(e.self_device_time_total for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA)
     tag = f"[profile {path}]"
-    print(f"{tag} fused={bst._gbdt.learner.fused} {len(ds.label)} rows, "
+    lrn = bst._gbdt.learner
+    print(f"{tag} {type(lrn).__name__} fused={lrn.fused} "
+          f"num_bins_max={lrn.num_bins_max} {len(ds.label)} rows, "
           f"{trees} trees, {splits} splits: wall {wall * 1e3:.1f} ms = "
           f"{wall * 1e3 / splits:.4f} ms/split")
     print(f"{tag} device kernel time {dev_us / 1e3:.1f} ms = "
@@ -80,7 +88,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=2_000_000)
     ap.add_argument("--trees", type=int, default=4)
-    ap.add_argument("--paths", default="fused,per-phase")
+    ap.add_argument("--paths", default=",".join(PATHS))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -93,9 +101,15 @@ def main() -> int:
     print(f"card: {card}")
     import lightgbm_tpu_torch as lt
     X, y = higgs_like(args.rows)
-    ds = lt.Dataset(X, label=y)     # binned once, shared by the paths
-    tables = [profile_path(path, ds, args.trees)
-              for path in args.paths.split(",")]
+    # binned once per max_bin (a Dataset keeps its first binning),
+    # shared by the paths
+    sets = {}
+    tables = []
+    for path in args.paths.split(","):
+        mb = PATHS[path]["max_bin"]
+        if mb not in sets:
+            sets[mb] = lt.Dataset(X, label=y)
+        tables.append(profile_path(path, sets[mb], args.trees))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "profile.txt"), "w") as fh:
         fh.write("\n".join(tables))

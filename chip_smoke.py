@@ -8,23 +8,39 @@ of the JAX package. Phases, each fatal on failure:
 
 1. build the kernel library and report the build time;
 2. hold every kernel against its plain PyTorch version on the card at
-   the slice's shapes (2M rows x 28 features x 256 bins) and time both,
-   beside the least time the card could take and one PyTorch library
-   call computing the same function where there is one; the fused
-   split step runs the root split of the 2M-row matrix;
+   the main paths' shapes and time both, beside the least time the card
+   could take and one PyTorch library call computing the same function
+   where there is one: the histogram, partition, scan and segment fused
+   step on the 2M x 28 u8 training matrix (256 bins; the fused step runs
+   the root split), then the scan at 1023 bins and the leaf fused step's
+   root split of the 2M x 28 bin matrix at 1023 bins (u16) and at 255
+   (u8);
 3. train the Higgs-shaped binary model at full width (2M x 28,
    max_bin=255, num_leaves=255, lr=0.1, 8 iterations) through
-   ``lightgbm_tpu_torch.train`` twice: the fused path (the default) and
-   the per-phase path (``fused_split_kernel="off"``). Both must grow
-   trees of the same structure; one more fused tree runs its L - 1
-   launches under ``torch.cuda.set_sync_debug_mode("error")`` (no host
-   sync in the split loop); the launch counters show that every kernel
-   of each path ran;
-4. the fixed quality config (50k x 28, 63 leaves, 100 iterations,
-   fused path) must reach in-sample AUC >= 0.97906 - 0.002
-   (BENCH_QUALITY_BASELINE.json);
-5. a 100k-row, 3-tree run through the kernels (fused path) must grow the
-   same trees as the same run through the plain versions on the card.
+   ``lightgbm_tpu_torch.train`` twice: the fused path (the default,
+   the partitioned learner) and the per-phase path
+   (``fused_split_kernel="off"``). Both must grow trees of the same
+   structure; one more fused tree runs its L - 1 launches under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in the
+   split loop); the launch counters show that every kernel of each
+   path ran;
+4. the same at ``max_bin=1023``, which ``create_tree_learner`` gives to
+   the serial (leaf_id) learner: fused (one leaf-kernel launch per
+   split) and per-phase, the same trees, one more fused tree under the
+   sync checker, and the launch counters;
+5. leaf against segment: at max_bin=255, 3 trees through a
+   ``SerialTreeLearner`` constructed directly (the leaf kernel) and
+   through the default ``PartitionedTreeLearner`` (the segment kernel):
+   bitwise the same trees on gradients whose sums are exact, and on
+   binary gradients, tree by tree from one score, the same structure up
+   to the first tie within float rounding of a tree;
+6. the fixed quality config (50k x 28, 63 leaves, 100 iterations)
+   must reach in-sample AUC >= 0.97906 - 0.002
+   (BENCH_QUALITY_BASELINE.json) on the partitioned fused path at
+   max_bin=255 and on the serial fused path at max_bin=1023;
+7. a 100k-row, 3-tree run through the kernels (fused path) must grow the
+   same trees as the same run through the plain versions on the card,
+   at max_bin=255 and at max_bin=1023.
 
 The second-to-last line of output is the per-kernel JSON record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -171,18 +187,18 @@ def check_partition(mat, n, reps):
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
 
 
-def check_scan(mat, n, dataset, reps):
+def check_scan(hists, dataset, b, reps):
+    """The scan kernel on two children's [F, b, 3] histograms against its
+    plain version, with every missing convention, monotone bounds, L1,
+    max_delta_step and a masked feature."""
     import torch
     from lightgbm_tpu_torch.learner.partitioned import (
         feature_meta_from_dataset, split_params_from_config)
     from lightgbm_tpu_torch.config import Config
-    from lightgbm_tpu_torch.ops import hist_cuda as hc
     from lightgbm_tpu_torch.ops import split_scan_cuda as sc
     from lightgbm_tpu_torch.ops.split import O_SCORE, O_THR, O_DLEFT, \
         meta_tensors
-    dev = mat.device
-    hists = [hc.histogram_segment(mat, 0, n // 3, B, F),
-             hc.histogram_segment(mat, n // 3, n - n // 3, B, F)]
+    dev = hists[0].device
     leaves = []
     for h in hists:
         s = h[0].sum(0).cpu().numpy().astype(np.float32)
@@ -196,7 +212,7 @@ def check_scan(mat, n, dataset, reps):
     # L1 and max_delta_step, one feature masked off
     miss = np.arange(F, dtype=np.int32) % 3
     meta2 = base._replace(
-        missing=miss, default_bin=np.full(F, 128, np.int32),
+        missing=miss, default_bin=np.full(F, b // 2, np.int32),
         monotone=np.asarray([(i % 5 == 0) - (i % 7 == 0)
                              for i in range(F)], np.int32))
     p2 = split_params_from_config(Config.from_params({
@@ -214,13 +230,13 @@ def check_scan(mat, n, dataset, reps):
         k, p = k.cpu().numpy(), p.cpu().numpy()
         fin = np.isfinite(p[..., O_SCORE])
         if not np.array_equal(fin, np.isfinite(k[..., O_SCORE])):
-            fail("scan: valid features differ")
+            fail(f"scan ({b} bins): valid features differ")
         for col in (O_THR, O_DLEFT):
             if not np.array_equal(k[..., col][fin], p[..., col][fin]):
-                fail(f"scan: column {col} differs")
+                fail(f"scan ({b} bins): column {col} differs")
         kv, pv = k[fin], p[fin]
         if not np.allclose(kv, pv, rtol=1e-5, atol=1e-6):
-            fail(f"scan values differ by {np.abs(kv - pv).max()}")
+            fail(f"scan ({b} bins) values differ by {np.abs(kv - pv).max()}")
         worst = max(worst, float(np.abs(kv - pv).max()))
     meta_t = meta_tensors(base, dev)
     tables = sc.scan_meta_tables(meta_t)
@@ -229,9 +245,9 @@ def check_scan(mat, n, dataset, reps):
         hists, leaves, meta_t, params, tables), reps)
     plain_ms = time_ms(lambda: sc.per_feature_numerical_plain(
         hists, leaves, meta_t, params), reps)
-    nbytes = 2 * F * B * 3 * 4 + 2 * F * 8 * 4
+    nbytes = 2 * F * b * 3 * 4 + 2 * F * 8 * 4
     # per bin and direction: ~4 prefix adds, ~40 flops of gain algebra
-    ops = 2 * F * B * 2 * 44
+    ops = 2 * F * b * 2 * 44
     bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 library_ms=None, bound_ms=bound,
@@ -353,10 +369,331 @@ def check_fused(mat, n, dataset, reps):
                 bound_by="bytes", launch_shape=shape)
 
 
+def check_fused_leaf(binned, ghc, dataset, b, reps):
+    """The root split (k = 1) of the [n, F] bin matrix (u8, or the int16
+    bits of u16 bins) through the leaf kernel and through its plain
+    version from the same state: k, leaf_id and the int rows of S and T
+    bitwise equal, the float rows at rtol 1e-5 / atol 1e-5, and both
+    child histograms within 1e-5 x sum|x| of the float64 plain
+    histograms (the smaller child's own rows for it, the parent's for
+    the sibling, which is parent - child)."""
+    import torch
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.learner.partitioned import (
+        dataset_any_missing, feature_meta_from_dataset,
+        split_params_from_config)
+    from lightgbm_tpu_torch.learner.split_step import (make_grow_pack,
+                                                       root_state)
+    from lightgbm_tpu_torch.ops import split_scan_cuda as sc
+    from lightgbm_tpu_torch.ops import split_step_cuda as ss
+    from lightgbm_tpu_torch.ops.histogram import build_histogram
+    from lightgbm_tpu_torch.ops.split import meta_tensors
+    dev, big_l = binned.device, 255
+    n = binned.shape[0]
+    meta = feature_meta_from_dataset(dataset)
+    params = split_params_from_config(
+        Config.from_params({"objective": "binary", "verbosity": -1}),
+        dataset_any_missing(dataset))
+    pack = make_grow_pack((), has_monotone=False, big_l=big_l)
+    imeta, fmeta = ss.pack_meta_tables(meta, None, dev)
+    hist0 = torch.zeros((big_l, F, b, 3), device=dev)
+    hist0[0] = build_histogram(binned, ghc, b)
+    root = tuple(np.float32(v) for v in hist0[0, 0].sum(0).cpu().numpy())
+    table = sc.per_feature_numerical_cuda(
+        [hist0[0]], [root + (np.float32(-np.inf), np.float32(np.inf))],
+        meta_tensors(meta, dev), params)[0]
+    st0 = root_state(pack, table, *root, n, params, big_l)
+    k0 = torch.ones((1,), dtype=torch.int32, device=dev)
+    lid0 = torch.zeros(n, dtype=torch.int32, device=dev)
+    kw = dict(params=params, big_l=big_l, max_depth=-1, b=b,
+              has_monotone=False)
+    scratch = ss.LeafScratch(binned, b)
+    state = [k0.clone(), st0["S"].clone(), st0["T"].clone(), lid0.clone(),
+             hist0.clone()]
+
+    def restore():
+        for dst, src in zip(state, (k0, st0["S"], st0["T"], lid0, hist0)):
+            dst.copy_(src)
+
+    def kernel():
+        ss.fused_split_step_leaf(*state, binned, ghc, imeta, fmeta,
+                                 scratch=scratch, **kw)
+
+    def plain():
+        ss.fused_split_step_leaf_plain(*state, binned, ghc, imeta, fmeta,
+                                       **kw)
+
+    kernel()
+    torch.cuda.synchronize()
+    got = [t.clone() for t in state]
+    restore()
+    kernel()
+    torch.cuda.synchronize()
+    for name, a, c in zip(("k", "S", "T", "lid", "hist"), got, state):
+        if not torch.equal(a.view(torch.uint8), c.view(torch.uint8)):
+            fail(f"leaf kernel ({b} bins): {name} not bitwise repeatable")
+    restore()
+    plain()
+    torch.cuda.synchronize()
+    if int(got[0][0]) != 2:
+        fail(f"leaf kernel ({b} bins) did not split the root")
+    nf = len(pack.sf_fields)
+    if not torch.equal(got[0], state[0]) or not torch.equal(got[3],
+                                                            state[3]):
+        fail(f"leaf kernel ({b} bins): k or leaf_id differs from plain")
+    for name, a, c, nfl in (("S", got[1], state[1], nf),
+                            ("T", got[2], state[2], 4)):
+        if not torch.equal(a[nfl:].view(torch.int32),
+                           c[nfl:].view(torch.int32)):
+            fail(f"leaf kernel ({b} bins): int rows of {name} differ")
+        if not torch.allclose(a[:nfl], c[:nfl], rtol=1e-5, atol=1e-5):
+            fail(f"leaf kernel ({b} bins): float rows of {name} differ")
+    lid = got[3]
+    v = pack.view({"S": got[1], "T": got[2]})
+    small = 0 if float(v["leaf_c"][0]) <= float(v["leaf_c"][1]) else 1
+    refs, scales = [], []
+    for leaf in (0, 1):
+        m = (lid == leaf).to(torch.float32)[:, None]
+        refs.append(build_histogram(binned, ghc * m, b))
+        scales.append(build_histogram(binned, ghc.abs() * m, b))
+    scales[1 - small] = scales[0] + scales[1]
+    worst = 0.0
+    for leaf in (0, 1):
+        err = (got[4][leaf] - refs[leaf]).abs()
+        if bool((err > 1e-5 * scales[leaf] + 1e-6).any()):
+            fail(f"leaf kernel ({b} bins): child histogram {leaf} off by "
+                 f"{float(err.max())}")
+        worst = max(worst, float(err.max()))
+    n_small = int((lid == small).sum())
+    n_right = int((lid == 1).sum())
+
+    def timed(fn, count):
+        times = []
+        for _ in range(count):
+            restore()
+            a = torch.cuda.Event(enable_timing=True)
+            c = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            c.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(c))
+        return float(np.median(times))
+
+    ms = timed(kernel, reps)
+    plain_ms = timed(plain, 3)
+    bin_bytes = binned.element_size()
+    # leaf_id read once and the right-going rows' ids written, the split
+    # feature's bins of the leaf's rows, the smaller child's bins and
+    # ghc, the parent's cache row read and both children's written
+    nbytes = (4 * n + 4 * n_right + bin_bytes * n
+              + n_small * (F * bin_bytes + 12) + 3 * F * b * 3 * 4)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", launch_shape=scratch.shape)
+
+
 def tree_sig(t):
     return (t.num_leaves, t.split_feature_inner.tolist(),
             t.threshold_bin.tolist(), t.decision_type.tolist(),
             t.left_child.tolist(), t.right_child.tolist())
+
+
+def first_divergence(a, b):
+    """The first node (in split order) where two trees differ in
+    feature, threshold or default direction, or None."""
+    k = min(a.num_leaves, b.num_leaves) - 1
+    for s in range(k):
+        if (a.split_feature_inner[s], a.threshold_bin[s],
+                a.decision_type[s] & 2) != (b.split_feature_inner[s],
+                                            b.threshold_bin[s],
+                                            b.decision_type[s] & 2):
+            return s
+    return None
+
+
+def node_rows(t, s, lid):
+    """Mask of the rows that ``lid`` (tree ``t``'s final leaves) puts
+    under node ``s``: the rows of the leaf that node ``s`` splits."""
+    import torch
+    leaves, stack = [], [s]
+    while stack:
+        node = stack.pop()
+        for c in (int(t.left_child[node]), int(t.right_child[node])):
+            if c >= 0:
+                stack.append(c)
+            else:
+                leaves.append(~c)
+    return torch.isin(lid.long(), torch.as_tensor(leaves, device=lid.device))
+
+
+def exact_gain(rows, bins, grad, hess, f, thr):
+    """Float64 split gain G_L^2/H_L + G_R^2/H_R - G^2/H (the split_gain
+    of lambda_l1 = lambda_l2 = 0, no missing values) of splitting the
+    masked rows at bin ``thr`` of feature ``f``."""
+    g, h = grad[rows].double(), hess[rows].double()
+    left = bins[rows, f].long() <= thr
+    gl, hl, gs, hs = g[left].sum(), h[left].sum(), g.sum(), h.sum()
+    return float(gl ** 2 / hl + (gs - gl) ** 2 / (hs - hl) - gs ** 2 / hs)
+
+
+def leaf_vs_segment(binned, params, dev, trees=3):
+    """The leaf kernel (a ``SerialTreeLearner`` constructed directly, as
+    the JAX package's benchmark leg does) against the segment kernel
+    (the default ``PartitionedTreeLearner``) at max_bin=255.
+
+    Exact: gradients and hessians in multiples of 1/8 (|g| <= 1), so
+    every histogram sum of 2M rows is exact in float32 in any order;
+    the segment kernel's float32 sums and the leaf kernel's float64 sums
+    are then equal, and so must be every tree, bit for bit (3 trees,
+    boosted with lr 0.1). Then binary logloss gradients, tree by tree
+    from one shared score (boosted with the segment learner's trees), so
+    every tree is compared from the same inputs: where two trees
+    differ, the two splits chosen at the first differing node (of one
+    leaf, or of two leaves whose gains tie) must be a tie within float
+    rounding: their exact float64 gains, each on its leaf's rows,
+    within 1e-3 of each other, and each kernel's gain within 1e-3 of
+    its split's exact gain (relative). A deep leaf's histogram comes
+    from float32 subtractions of its ancestors', so its rounding is at
+    the ancestors' scale: the segment kernel's gains were seen 1.0e-4
+    off the exact gains at 2M rows. The nodes of that tree after such a
+    tie are not compared (the two trees go on from different leaves)."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.learner import (PartitionedTreeLearner,
+                                            SerialTreeLearner)
+    cfg = lt.Config.from_params(params)
+    y = torch.as_tensor(binned.metadata.label, device=dev,
+                        dtype=torch.float32)
+    lrns = {"segment": PartitionedTreeLearner(binned, cfg, dev),
+            "leaf": SerialTreeLearner(binned, cfg, dev)}
+    for name, lrn in lrns.items():
+        if not lrn.fused:
+            fail(f"the {name} learner is not on its fused path")
+    grown = {}
+    for name, lrn in lrns.items():
+        score = torch.zeros(binned.num_data, device=dev)
+        grown[name] = []
+        for _ in range(trees):
+            p = torch.sigmoid(score)
+            grad = torch.round((p - y) * 8) / 8
+            hess = torch.clamp(torch.round(p * (1 - p) * 8) / 8, min=0.125)
+            tree, lid = lrn.train(grad, hess)
+            vals = torch.as_tensor(tree.leaf_value, device=dev)
+            score += 0.1 * vals[lid.long()]
+            grown[name].append(tree)
+    same = [tree_sig(a) == tree_sig(b)
+            and a.leaf_value.tobytes() == b.leaf_value.tobytes()
+            for a, b in zip(grown["segment"], grown["leaf"])]
+    print(f"[leaf vs segment] exact gradients, {binned.num_data} x {F}, "
+          f"max_bin 255, {trees} trees of "
+          f"{[t.num_leaves for t in grown['leaf']]} leaves: identical "
+          f"{same}")
+    if not all(same):
+        fail("the leaf and segment kernels grew different trees from "
+             "exact gradients")
+    p0 = float(y.mean())
+    score = torch.full((binned.num_data,), float(np.log(p0 / (1 - p0))),
+                       device=dev)
+    bins = binned.binned_device(dev)
+    for i in range(trees):
+        p = torch.sigmoid(score)
+        grad, hess = p - y, p * (1 - p)
+        a, lid = lrns["segment"].train(grad, hess)
+        b, lid_b = lrns["leaf"].train(grad, hess)
+        s = first_divergence(a, b)
+        if s is None and tree_sig(a) == tree_sig(b):
+            print(f"[leaf vs segment] binary gradients from one score, "
+                  f"tree {i}: same structure, all {a.num_leaves - 1} "
+                  "nodes compared")
+        elif s is None:
+            fail(f"leaf and segment trees {i} differ in their children")
+        else:
+            ga, gb = float(a.split_gain[s]), float(b.split_gain[s])
+            rows_a, rows_b = node_rows(a, s, lid), node_rows(b, s, lid_b)
+            ea, eb = (exact_gain(r, bins, grad, hess,
+                                 int(t.split_feature_inner[s]),
+                                 int(t.threshold_bin[s]))
+                      for r, t in ((rows_a, a), (rows_b, b)))
+            leaf = "the same leaf" if torch.equal(rows_a, rows_b) \
+                else "different leaves"
+            print(f"[leaf vs segment] binary gradients from one score, "
+                  f"tree {i}: first differs at node {s} of "
+                  f"{a.num_leaves - 1} (nodes {s}-{a.num_leaves - 2} not "
+                  f"compared), {leaf}: gains {ga!r} (segment) and "
+                  f"{gb!r} (leaf); exact float64 gains of the two splits "
+                  f"{ea!r} and {eb!r}; relative: segment error "
+                  f"{abs(ga - ea) / abs(ea):.3g}, leaf error "
+                  f"{abs(gb - eb) / abs(eb):.3g}, exact gap "
+                  f"{abs(ea - eb) / abs(ea):.3g}")
+            if not max(abs(ga - ea) / abs(ea), abs(gb - eb) / abs(eb),
+                       abs(ea - eb) / abs(ea)) <= 1e-3:
+                fail(f"leaf and segment trees {i} differ at node {s}, not "
+                     "at a tie within float rounding")
+        vals = torch.as_tensor(a.leaf_value, device=dev)
+        score += 0.1 * vals[lid.long()]
+
+
+def train_paths(label, params, ds, iters, dev, on_path, fused_kernel):
+    """Full-width training through the fused and the per-phase grow
+    paths, each driven with the launch counts set to 0 just before it
+    and read just after; the two must grow the same trees, and one more
+    fused tree runs its split loop under the sync checker. Returns the
+    fused run's launch counts and the per-phase run's."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import _native
+    runs = {}
+    for path, extra in (("fused", {}),
+                        ("per-phase", {"fused_split_kernel": "off"})):
+        _native.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst = lt.train(dict(params, **extra), ds, iters, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_native.LAUNCHES)
+        splits = sum(t.num_leaves - 1 for t in bst.models)
+        runs[path] = (bst, launches)
+        lrn = bst._gbdt.learner
+        print(f"[train {label}] {path}: {type(lrn).__name__}, "
+              f"num_bins_max {lrn.num_bins_max}, {len(bst.models)} trees, "
+              f"{splits} splits in {wall:.2f} s = "
+              f"{wall / max(splits, 1) * 1e3:.3f} ms/split; "
+              f"launches {launches}")
+        for name in on_path[path]:
+            if launches[name] <= 0:
+                fail(f"kernel {name} was not launched on the {label} "
+                     f"{path} path")
+    fused_bst, per_bst = runs["fused"][0], runs["per-phase"][0]
+    if not fused_bst._gbdt.learner.fused or per_bst._gbdt.learner.fused:
+        fail(f"the default {label} path is not the fused one")
+    same = [tree_sig(a) == tree_sig(b)
+            for a, b in zip(fused_bst.models, per_bst.models)]
+    rel = max(float(np.max(np.abs(a.leaf_value - b.leaf_value)
+                           / np.maximum(np.abs(b.leaf_value), 1e-30)))
+              for a, b in zip(fused_bst.models, per_bst.models))
+    print(f"[train {label}] fused vs per-phase: structure equal {same}, "
+          f"max relative leaf value diff {rel:.3g}")
+    if len(same) != iters or not all(same) or rel > 1e-5:
+        fail(f"the {label} fused and per-phase paths grew different trees")
+    # one more fused tree, its split loop under the sync checker
+    lrn = fused_bst._gbdt.learner
+    launch_loop = lrn._launch_fused
+
+    def checked(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return launch_loop(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    lrn._launch_fused = checked
+    fused_bst.update()
+    lrn._launch_fused = launch_loop
+    print(f"[train {label}] tree {len(fused_bst.models)}: "
+          f"{lrn.num_leaves - 1} {fused_kernel} launches ran under "
+          "set_sync_debug_mode('error')")
+    return fused_bst, runs["fused"][1], runs["per-phase"][1]
 
 
 def main() -> int:
@@ -372,7 +709,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.learner import SerialTreeLearner
     from lightgbm_tpu_torch.ops import _native
+    from lightgbm_tpu_torch.ops.histogram import build_histogram, make_ghc
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(
@@ -399,9 +738,15 @@ def main() -> int:
     X, y = higgs_like(n)
     params = {"objective": "binary", "num_leaves": 255,
               "learning_rate": 0.1, "max_bin": 255, "verbosity": -1}
+    params_wide = dict(params, max_bin=1023)
     ds = lt.Dataset(X, label=y)
     binned = ds.construct(lt.Config.from_params(params))
-    print(f"[data] {n} x {F} binned in {time.perf_counter() - t0:.1f} s")
+    ds_wide = lt.Dataset(X, label=y)
+    binned_wide = ds_wide.construct(lt.Config.from_params(params_wide))
+    b_wide = int(binned_wide.num_bins_array().max())
+    print(f"[data] {n} x {F} binned at max_bin 255 and 1023 "
+          f"(num_bins_max {int(binned.num_bins_array().max())} and "
+          f"{b_wide}) in {time.perf_counter() - t0:.1f} s")
     from lightgbm_tpu_torch.ops import hist_cuda as hc
     mat = hc.build_matrix(binned.binned_device(dev))
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -413,9 +758,11 @@ def main() -> int:
     print(f"[check] hist_segment ok {time.perf_counter() - t0:.1f} s "
           f"{rec['hist_segment']}")
     t0 = time.perf_counter()
-    rec["split_scan"] = check_scan(mat, n, binned, args.reps)
-    print(f"[check] split_scan ok {time.perf_counter() - t0:.1f} s "
-          f"{rec['split_scan']}")
+    hists = [hc.histogram_segment(mat, 0, n // 3, B, F),
+             hc.histogram_segment(mat, n // 3, n - n // 3, B, F)]
+    scan256 = check_scan(hists, binned, B, args.reps)
+    print(f"[check] split_scan ({B} bins) ok {time.perf_counter() - t0:.1f} "
+          f"s {scan256}")
     t0 = time.perf_counter()
     rec["partition_segment"] = check_partition(mat, n, args.reps)
     print(f"[check] partition_segment ok {time.perf_counter() - t0:.1f} s "
@@ -425,99 +772,113 @@ def main() -> int:
     print(f"[check] fused_split_step_segment ok "
           f"{time.perf_counter() - t0:.1f} s "
           f"{rec['fused_split_step_segment']}")
-    del mat
+    del mat, hists
+    torch.cuda.empty_cache()
+    # the serial learner's inputs: the bin matrices and ghc
+    ghc = make_ghc(grad, hess)
+    bins_wide = binned_wide.binned_device(dev)
+    t0 = time.perf_counter()
+    hists = [build_histogram(bins_wide[:n // 3], ghc[:n // 3], b_wide),
+             build_histogram(bins_wide[n // 3:], ghc[n // 3:], b_wide)]
+    rec["split_scan"] = check_scan(hists, binned_wide, b_wide, args.reps)
+    print(f"[check] split_scan ({b_wide} bins) ok "
+          f"{time.perf_counter() - t0:.1f} s {rec['split_scan']}")
+    del hists
+    t0 = time.perf_counter()
+    rec["fused_split_step_leaf"] = check_fused_leaf(
+        bins_wide, ghc, binned_wide, b_wide, args.reps)
+    print(f"[check] fused_split_step_leaf ({b_wide} bins, u16) ok "
+          f"{time.perf_counter() - t0:.1f} s {rec['fused_split_step_leaf']}")
+    t0 = time.perf_counter()
+    b_u8 = int(binned.num_bins_array().max())
+    leaf_u8 = check_fused_leaf(binned.binned_device(dev), ghc, binned, b_u8,
+                               args.reps)
+    print(f"[check] fused_split_step_leaf ({b_u8} bins, u8) ok "
+          f"{time.perf_counter() - t0:.1f} s {leaf_u8}")
+    del ghc, bins_wide, grad, hess
     torch.cuda.empty_cache()
 
-    # ---- 3. the slice at full width, fused and per-phase --------------
-    runs = {}
-    for path, extra in (("fused", {}),
-                        ("per-phase", {"fused_split_kernel": "off"})):
-        _native.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        bst = lt.train(dict(params, **extra), ds, args.iters, device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(_native.LAUNCHES)
-        splits = sum(t.num_leaves - 1 for t in bst.models)
-        runs[path] = (bst, launches)
-        print(f"[train] {path}: {n} x {F}, {len(bst.models)} trees, "
-              f"{splits} splits in {wall:.2f} s = "
-              f"{wall / max(splits, 1) * 1e3:.3f} ms/split; "
-              f"launches {launches}")
-        on_path = ("hist_segment", "split_scan") + (
-            ("fused_split_step_segment",) if path == "fused"
-            else ("partition_segment",))
-        for name in on_path:
-            if launches[name] <= 0:
-                fail(f"kernel {name} was not launched on the {path} path")
-    fused_bst, per_bst = runs["fused"][0], runs["per-phase"][0]
-    if not fused_bst._gbdt.learner.fused or per_bst._gbdt.learner.fused:
-        fail("the default path is not the fused one")
-    same = [tree_sig(a) == tree_sig(b)
-            for a, b in zip(fused_bst.models, per_bst.models)]
-    rel = max(float(np.max(np.abs(a.leaf_value - b.leaf_value)
-                           / np.maximum(np.abs(b.leaf_value), 1e-30)))
-              for a, b in zip(fused_bst.models, per_bst.models))
-    print(f"[train] fused vs per-phase: structure equal {same}, "
-          f"max relative leaf value diff {rel:.3g}")
-    if len(same) != args.iters or not all(same) or rel > 1e-5:
-        fail("the fused and per-phase paths grew different trees")
-    # one more fused tree, its split loop under the sync checker
-    lrn = fused_bst._gbdt.learner
-    launch_loop = lrn._launch_fused
-
-    def checked(*a, **kw):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return launch_loop(*a, **kw)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    lrn._launch_fused = checked
-    fused_bst.update()
-    lrn._launch_fused = launch_loop
-    print(f"[train] tree {len(fused_bst.models)}: {lrn.num_leaves - 1} "
-          "fused launches ran under set_sync_debug_mode('error')")
+    # ---- 3. the partitioned learner at full width, fused and per-phase -
+    fused_bst, part_fused, part_per = train_paths(
+        "max_bin 255", params, ds, args.iters, dev,
+        {"fused": ("hist_segment", "split_scan", "fused_split_step_segment"),
+         "per-phase": ("hist_segment", "split_scan", "partition_segment")},
+        "fused_split_step_segment")
     pred = fused_bst.predict(X[:100_000], raw_score=True)
     if pred.shape != (100_000,) or not np.isfinite(pred).all():
         fail("full-width predictions are not finite")
-    launches = {name: runs["per-phase" if name == "partition_segment"
-                           else "fused"][1][name]
-                for name in _native.LAUNCHES}
-    del fused_bst, per_bst, runs, lrn, ds, binned
+    del fused_bst
     torch.cuda.empty_cache()
 
-    # ---- 4. quality ----------------------------------------------------
-    t0 = time.perf_counter()
-    Xq, yq = higgs_like(50_000)
-    qparams = {"objective": "binary", "num_leaves": 63,
-               "learning_rate": 0.1, "max_bin": 255, "verbosity": -1}
-    bq = lt.train(qparams, lt.Dataset(Xq, label=yq), args.quality_iters,
-                  device=dev)
-    q_auc = auc(yq, bq.predict(Xq, raw_score=True))
-    print(f"[quality] 50000 x {F}, 63 leaves, {args.quality_iters} iters "
-          f"(fused {bq._gbdt.learner.fused}): AUC {q_auc:.5f} in "
-          f"{time.perf_counter() - t0:.1f} s")
-    if args.quality_iters >= 100 and q_auc < 0.97906 - 0.002:
-        fail(f"AUC {q_auc} below 0.97706")
+    # ---- 4. the serial learner at full width (1023 bins) ---------------
+    serial_bst, serial_fused, _ = train_paths(
+        "max_bin 1023", params_wide, ds_wide, args.iters, dev,
+        {"fused": ("split_scan", "fused_split_step_leaf"),
+         "per-phase": ("split_scan",)}, "fused_split_step_leaf")
+    if not isinstance(serial_bst._gbdt.learner, SerialTreeLearner):
+        fail("max_bin 1023 did not train through the SerialTreeLearner")
+    pred = serial_bst.predict(X[:100_000], raw_score=True)
+    if pred.shape != (100_000,) or not np.isfinite(pred).all():
+        fail("full-width serial predictions are not finite")
+    del serial_bst, ds_wide, binned_wide
+    torch.cuda.empty_cache()
+    launches = {name: 0 for name in _native.LAUNCHES}
+    launches.update(hist_segment=part_fused["hist_segment"],
+                    fused_split_step_segment=part_fused[
+                        "fused_split_step_segment"],
+                    partition_segment=part_per["partition_segment"],
+                    split_scan=serial_fused["split_scan"],
+                    fused_split_step_leaf=serial_fused[
+                        "fused_split_step_leaf"])
 
-    # ---- 5. parity: kernels against plain versions, end to end --------
+    # ---- 5. leaf kernel against segment kernel at 255 bins -------------
     t0 = time.perf_counter()
+    leaf_vs_segment(binned, params, dev)
+    print(f"[leaf vs segment] done in {time.perf_counter() - t0:.1f} s")
+    del ds, binned
+    torch.cuda.empty_cache()
+
+    # ---- 6. quality ----------------------------------------------------
+    Xq, yq = higgs_like(50_000)
+    for max_bin in (255, 1023):
+        t0 = time.perf_counter()
+        qparams = {"objective": "binary", "num_leaves": 63,
+                   "learning_rate": 0.1, "max_bin": max_bin,
+                   "verbosity": -1}
+        bq = lt.train(qparams, lt.Dataset(Xq, label=yq), args.quality_iters,
+                      device=dev)
+        q_auc = auc(yq, bq.predict(Xq, raw_score=True))
+        lrn = bq._gbdt.learner
+        print(f"[quality] 50000 x {F}, 63 leaves, max_bin {max_bin}, "
+              f"{args.quality_iters} iters ({type(lrn).__name__}, fused "
+              f"{lrn.fused}): AUC {q_auc:.5f} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        if not lrn.fused:
+            fail("the quality config did not run the fused path")
+        if args.quality_iters >= 100 and q_auc < 0.97906 - 0.002:
+            fail(f"AUC {q_auc} below 0.97706 at max_bin {max_bin}")
+
+    # ---- 7. parity: kernels against plain versions, end to end --------
     Xp, yp = higgs_like(100_000, seed=3)
-    kb = lt.train(params, lt.Dataset(Xp, label=yp), 3, device=dev)
-    pb = lt.train(params, lt.Dataset(Xp, label=yp), 3, device=dev,
-                  ops="plain")
-    same = [tree_sig(a) == tree_sig(b) for a, b in zip(kb.models,
-                                                       pb.models)]
-    leaf_err = max(float(np.abs(a.leaf_value - b.leaf_value).max())
-                   for a, b in zip(kb.models, pb.models))
-    print(f"[parity] 100000 x {F}, 3 trees, fused path (kernel "
-          f"{kb._gbdt.learner.fused}, plain {pb._gbdt.learner.fused}): "
-          f"structure equal {same}, "
-          f"max leaf value diff {leaf_err:.3g} "
-          f"in {time.perf_counter() - t0:.1f} s")
-    if len(kb.models) != 3 or not all(same):
-        fail("kernel and plain runs grew different trees")
+    for max_bin in (255, 1023):
+        t0 = time.perf_counter()
+        pp = dict(params, max_bin=max_bin)
+        kb = lt.train(pp, lt.Dataset(Xp, label=yp), 3, device=dev)
+        pb = lt.train(pp, lt.Dataset(Xp, label=yp), 3, device=dev,
+                      ops="plain")
+        same = [tree_sig(a) == tree_sig(b) for a, b in zip(kb.models,
+                                                           pb.models)]
+        leaf_err = max(float(np.abs(a.leaf_value - b.leaf_value).max())
+                       for a, b in zip(kb.models, pb.models))
+        print(f"[parity] 100000 x {F}, max_bin {max_bin}, 3 trees, "
+              f"{type(kb._gbdt.learner).__name__} fused path (kernel "
+              f"{kb._gbdt.learner.fused}, plain {pb._gbdt.learner.fused}): "
+              f"structure equal {same}, "
+              f"max leaf value diff {leaf_err:.3g} "
+              f"in {time.perf_counter() - t0:.1f} s")
+        if len(kb.models) != 3 or not all(same):
+            fail(f"kernel and plain runs grew different trees "
+                 f"(max_bin {max_bin})")
 
     sources = {
         "hist_segment": ("lightgbm_tpu_torch/csrc/hist_segment.cu",
@@ -530,6 +891,9 @@ def main() -> int:
         "fused_split_step_segment": (
             "lightgbm_tpu_torch/csrc/split_step_segment.cu",
             "lightgbm_tpu/ops/split_step_pallas.py:531"),
+        "fused_split_step_leaf": (
+            "lightgbm_tpu_torch/csrc/split_step_leaf.cu",
+            "lightgbm_tpu/ops/split_step_pallas.py:413"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

@@ -1,10 +1,12 @@
 """PyTorch/CUDA port of lightgbm_tpu for one Hopper GPU.
 
 The JAX package (``lightgbm_tpu``) stays the reference; this package
-imports neither it nor ``jax``. First slice: binary training on a dense
-numeric matrix through the partitioned learner, with the segment
-histogram, segment partition and split scan as hand-written CUDA
-kernels (``csrc/``), each beside its plain PyTorch version.
+imports neither it nor ``jax``. Binary training on a dense numeric
+matrix of up to 1024 bins per feature: the partitioned learner for bins
+that fit a byte, the serial (leaf_id) learner past that, with the
+segment histogram, segment partition, split scan and both fused split
+steps as hand-written CUDA kernels (``csrc/``), each beside its plain
+PyTorch version.
 """
 
 from .basic import Booster, Dataset

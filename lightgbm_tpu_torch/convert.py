@@ -14,7 +14,8 @@ turn it into the port's objects:
     model;
   * ``matrix_from_jax`` and ``grow_state_from_jax`` — the partitioned
     grow loop's training matrix and its packed state (``S``, ``T``, the
-    per-leaf histogram cache), so one state can be stepped in both
+    per-leaf histogram cache), or the serial grow loop's (``S``, ``T``,
+    ``leaf_id``, the cache), so one state can be stepped in both
     packages.
 """
 
@@ -89,18 +90,25 @@ def matrix_from_jax(mat: np.ndarray, num_features: int,
 
 
 def grow_state_from_jax(S: np.ndarray, T: np.ndarray, hist: np.ndarray,
-                        channels_major: bool = False
+                        channels_major: bool = False,
+                        leaf_id: np.ndarray | None = None
                         ) -> Dict[str, torch.Tensor]:
     """The JAX package's packed grow state -> the port's. ``S`` and ``T``
     share one layout (the merged ``StatePack``, int rows as float32 bit
     patterns) and are copied bit for bit. ``hist`` is the per-leaf cache,
     ``[L, F, B, 3]`` as the interpret path keeps it, or ``[L, 3, F, B]``
-    with ``channels_major`` (the compiled Mosaic path's layout). Every
-    result is a fresh copy: the port updates its state in place, and a
-    numpy view of a JAX array may share the array's buffer."""
+    with ``channels_major`` (the compiled Mosaic path's layout).
+    ``leaf_id`` ([N] int32, the serial grow loop's row membership; a
+    padded compiled-path vector is cut to N by the caller) comes across
+    as ``"lid"`` when given. Every result is a fresh copy: the port
+    updates its state in place, and a numpy view of a JAX array may
+    share the array's buffer."""
     hist = np.array(hist, np.float32)
     if channels_major:
         hist = np.moveaxis(hist, 1, -1)
-    return {"S": torch.from_numpy(np.array(S, np.float32)),
-            "T": torch.from_numpy(np.array(T, np.float32)),
-            "hist": torch.from_numpy(np.ascontiguousarray(hist))}
+    out = {"S": torch.from_numpy(np.array(S, np.float32)),
+           "T": torch.from_numpy(np.array(T, np.float32)),
+           "hist": torch.from_numpy(np.ascontiguousarray(hist))}
+    if leaf_id is not None:
+        out["lid"] = torch.from_numpy(np.array(leaf_id, np.int32))
+    return out

@@ -1,7 +1,7 @@
 // Device code of the numerical best-split scan, shared by the per-phase
-// kernel (split_scan.cu) and the fused split step
-// (split_step_segment.cu). Both are compiled with -fmad=false: the
-// arithmetic follows lightgbm_tpu_torch/ops/split.py
+// kernel (split_scan.cu) and both fused split steps
+// (split_step_segment.cu, split_step_leaf.cu). All are compiled with
+// -fmad=false: the arithmetic follows lightgbm_tpu_torch/ops/split.py
 // (per_feature_numerical, the plain version) expression by expression,
 // and no multiply-add contraction may change a rounding.
 //
@@ -12,9 +12,18 @@
 // right-to-left scan, smallest for left-to-right, right-to-left wins
 // ties). The six prefix sums (2 directions x 3 channels) run one per
 // thread, sequentially over the bins in double, rounded once per bin;
-// then every thread evaluates its bin's two candidate splits, and a
-// block argmax with (score, threshold) ordering picks each direction's
-// winner.
+// then every thread evaluates the two candidate splits of its bins
+// (bin b, b + blockDim.x, ...), and a block argmax with (score,
+// threshold) ordering picks each direction's winner. The (score,
+// threshold) order is total, so the winner does not depend on how the
+// bins are dealt to threads: a block of at least B threads (one bin
+// each, as split_scan.cu launches it) and a 256-thread block walking
+// 1024 bins find the same split.
+//
+// The bin capacity kCap of the shared planes is a template parameter:
+// kMaxBins (256) keeps the u8 kernels' static footprint; kMaxScanBins
+// (1024) serves the u16 leaf layout from dynamic shared memory
+// (12 x 1024 floats do not fit the 48 KB static limit).
 #pragma once
 
 #include <math.h>
@@ -23,7 +32,8 @@
 
 namespace ltt {
 
-constexpr int kMaxBins = 256;
+constexpr int kMaxBins = 256;       // bins of the u8 layouts
+constexpr int kMaxScanBins = 1024;  // bins the scan takes (u16 layout)
 constexpr float kEps = 1e-15f;
 
 struct Params {
@@ -110,10 +120,11 @@ __device__ __forceinline__ void block_argmax(float s, int t, bool last,
   __syncthreads();
 }
 
+template <int kCap>
 struct ScanSmem {
-  float xs[6][kMaxBins];  // masked inputs, then prefix sums
-  float lp[3][kMaxBins];  // left sums of the +1 scan
-  float lm[3][kMaxBins];  // left sums of the -1 scan
+  float xs[6][kCap];  // masked inputs, then prefix sums
+  float lp[3][kCap];  // left sums of the +1 scan
+  float lm[3][kCap];  // left sums of the -1 scan
   float red_s[32];
   int red_t[32];
   float win_s[2];
@@ -122,22 +133,21 @@ struct ScanSmem {
 
 // One (leaf, feature) row of the [K, F, 8] table (score, threshold,
 // left g/h(+kEps)/c, default_left, left and right output) into o.
-// Thread b owns bin b: blockDim.x >= B and a multiple of 32. hist points
-// at the feature's [B][3] planes.
+// blockDim.x is a multiple of 32; B <= kCap. hist points at the
+// feature's [B][3] planes.
+template <int kCap>
 __device__ __forceinline__ void scan_feature(const float* hist, int B,
                                              const Leaf& L, int nb, int miss,
                                              int defbin, int mono,
                                              float penalty, float fmask,
-                                             const Params& p, ScanSmem& sm,
-                                             float* o) {
-  const int b = threadIdx.x;
+                                             const Params& p,
+                                             ScanSmem<kCap>& sm, float* o) {
   const bool two_scan = miss != 0 && nb > 2;
-  const bool skip_default = two_scan && miss == LTT_MISSING_ZERO &&
-                            b == defbin;
   const bool na_excl = two_scan && miss == LTT_MISSING_NAN;
-  const bool is_na_bin = na_excl && b == nb - 1;
-  const bool in_range = b < B;
-  if (in_range) {
+  for (int b = threadIdx.x; b < B; b += blockDim.x) {
+    const bool skip_default = two_scan && miss == LTT_MISSING_ZERO &&
+                              b == defbin;
+    const bool is_na_bin = na_excl && b == nb - 1;
     for (int ch = 0; ch < 3; ++ch) {
       const float x = hist[b * 3 + ch];
       sm.xs[ch][b] = skip_default ? 0.f : x;
@@ -145,11 +155,12 @@ __device__ __forceinline__ void scan_feature(const float* hist, int B,
     }
   }
   __syncthreads();
-  if (b < 6) {
+  if (threadIdx.x < 6) {
+    const int c = threadIdx.x;
     double acc = 0.0;
     for (int i = 0; i < B; ++i) {
-      acc += (double)sm.xs[b][i];
-      sm.xs[b][i] = (float)acc;
+      acc += (double)sm.xs[c][i];
+      sm.xs[c][i] = (float)acc;
     }
   }
   __syncthreads();
@@ -157,8 +168,14 @@ __device__ __forceinline__ void scan_feature(const float* hist, int B,
   const float ph_eps = L.ph + 2e-15f;
   const float gain_shift = gain_given(L.pg, ph_eps, out_nc(L.pg, ph_eps, p), p);
   const float min_gain_shift = gain_shift + p.min_gain;
-  float score_p = -INFINITY, score_m = -INFINITY;
-  if (in_range) {
+  // each thread's best of its bins per direction; the initial
+  // thresholds lose every tie, as a padding thread's do
+  float best_m = -INFINITY, best_p = -INFINITY;
+  int t_m = -1, t_p = 0x7fffffff;
+  for (int b = threadIdx.x; b < B; b += blockDim.x) {
+    const bool skip_default = two_scan && miss == LTT_MISSING_ZERO &&
+                              b == defbin;
+    float score_p = -INFINITY, score_m = -INFINITY;
     // ---- dir=+1: left-to-right; default/NaN implicitly go right
     const float lg_p = sm.xs[0][b];
     const float hl_p = sm.xs[1][b] + kEps;
@@ -194,19 +211,25 @@ __device__ __forceinline__ void scan_feature(const float* hist, int B,
     sm.lm[0][b] = gl_m;
     sm.lm[1][b] = hl_m;
     sm.lm[2][b] = cl_m;
+    if (better(score_m, b, best_m, t_m, true)) {
+      best_m = score_m;
+      t_m = b;
+    }
+    if (better(score_p, b, best_p, t_p, false)) {
+      best_p = score_p;
+      t_p = b;
+    }
   }
-  // padding threads never win: -inf with a threshold that loses ties
-  block_argmax(score_m, in_range ? b : -1, true, sm.red_s, sm.red_t,
-               &sm.win_s[0], &sm.win_t[0]);
-  block_argmax(score_p, in_range ? b : 0x7fffffff, false, sm.red_s, sm.red_t,
-               &sm.win_s[1], &sm.win_t[1]);
+  block_argmax(best_m, t_m, true, sm.red_s, sm.red_t, &sm.win_s[0],
+               &sm.win_t[0]);
+  block_argmax(best_p, t_p, false, sm.red_s, sm.red_t, &sm.win_s[1],
+               &sm.win_t[1]);
 
   if (threadIdx.x == 0) {
     const float v_m = sm.win_s[0], v_p = sm.win_s[1];
-    const int t_m = sm.win_t[0], t_p = sm.win_t[1];
     const bool use_m = v_m >= v_p;
     const float feat_gain = use_m ? v_m : v_p;
-    const int t = use_m ? t_m : t_p;
+    const int t = use_m ? sm.win_t[0] : sm.win_t[1];
     const float lg = use_m ? sm.lm[0][t] : sm.lp[0][t];
     const float lh = use_m ? sm.lm[1][t] : sm.lp[1][t];
     const float lc = use_m ? sm.lm[2][t] : sm.lp[2][t];

@@ -51,7 +51,8 @@
 //     children's scans (scan_core.cuh, shared with split_scan.cu), one
 //     virtual block per (child, feature) | sync;
 //  4. block 0: first-index best feature per child, both S columns, the
-//     T column and the parent-pointer fixup, k + 1.
+//     T column and the parent-pointer fixup, k + 1 (split_state.cuh,
+//     shared with split_step_leaf.cu).
 // No float atomics: the result is bitwise reproducible. Compiled with
 // -fmad=false: the scan, the leaf outputs and the subtraction follow
 // the plain version's float32 expression order.
@@ -62,6 +63,7 @@
 #include "hist_tile.cuh"
 #include "partition_core.cuh"
 #include "scan_core.cuh"
+#include "split_state.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -70,22 +72,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRowsPerVBlock = 4096;  // hist_cuda.ROWS_PER_BLOCK
 constexpr int kMaxVBlocks = 264;      // hist_cuda.MAX_BLOCKS
-
-// imeta columns (split_step_cuda.pack_meta_tables)
-constexpr int IM_NBINS = 0, IM_MISS = 1, IM_DEFBIN = 2, IM_MONO = 4;
-constexpr int IM_COLS = 8;
-// float rows of S; leaf_cmin/leaf_cmax are carried only with monotone
-// constraints, then leaf_value
-constexpr int S_LEAF_G = 0, S_LEAF_H = 1, S_LEAF_C = 2, S_BS_GAIN = 3,
-              S_BS_LG = 4, S_BS_LH = 5, S_BS_LC = 6, S_BS_LOUT = 7,
-              S_BS_ROUT = 8, S_CMIN = 9, S_CMAX = 10;
-// int rows of S, after the nf float rows
-constexpr int SI_BEGIN = 0, SI_CNT = 1, SI_FEAT = 2, SI_THR = 3,
-              SI_DLEFT = 4, SI_ISCAT = 5, SI_REF_NODE = 6, SI_REF_SIDE = 7,
-              SI_DEPTH = 8;
-// rows of T
-constexpr int T_GAIN = 0, T_IVALUE = 1, T_IWEIGHT = 2, T_ICOUNT = 3,
-              T_FEAT = 4, T_THR = 5, T_DTYPE = 6, T_LEFT = 7, T_RIGHT = 8;
 
 struct Args {
   int* k;  // device int32[1]: the split index (= the new leaf's id)
@@ -101,207 +87,26 @@ struct Args {
   int* tiles;      // [ceil(rows / 256)] tile left counts -> offsets
   float* table;    // [2, F, 8] scan tables of the two children
   int* ctl;        // [0] = NL
-  int big_l, F, B, feat_tile, has_mono, nf, max_depth;
+  int big_l, F, B, feat_tile, has_mono, nf, si0, max_depth;
   ltt::Params p;
 };
-
-struct Site {
-  int k, leaf, go;
-  float g, h, c, gain, lg, lh, lc, lout, rout, cmin, cmax;
-  int begin, cnt, feat, thr, dleft, ref_node, ref_side, depth;
-};
-
-// the (smaller, other) children of the split, in storage order a, b
-struct Pair {
-  bool small_left;
-  ltt::Leaf a, b;  // scan inputs: g, h, c, cmin, cmax
-  float out_a, out_b;
-};
-
-__device__ __forceinline__ float s_at(const Args& a, int row, int leaf) {
-  return a.S[(size_t)row * a.big_l + leaf];
-}
-
-__device__ __forceinline__ int s_int(const Args& a, int row, int leaf) {
-  return __float_as_int(s_at(a, a.nf + row, leaf));
-}
-
-__device__ __forceinline__ bool takes(float v, int i, float best, int bi) {
-  return v > best || (v == best && i < bi);
-}
-
-// Whole block: the split site into s (shared).
-__device__ void read_site(const Args& a, Site& s, float* red_v, int* red_i) {
-  const int L = a.big_l;
-  const int k = *a.k;
-  const int kk = min(k, L);
-  const float* gain = a.S + (size_t)S_BS_GAIN * L;
-  float best = -INFINITY;
-  int bi = 0x7fffffff;
-  for (int j = threadIdx.x; j < kk; j += blockDim.x)
-    if (takes(gain[j], j, best, bi)) {
-      best = gain[j];
-      bi = j;
-    }
-  for (int o = 16; o > 0; o >>= 1) {
-    const float v2 = __shfl_xor_sync(0xffffffffu, best, o);
-    const int i2 = __shfl_xor_sync(0xffffffffu, bi, o);
-    if (takes(v2, i2, best, bi)) {
-      best = v2;
-      bi = i2;
-    }
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    red_v[warp] = best;
-    red_i[warp] = bi;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
-      if (takes(red_v[w], red_i[w], best, bi)) {
-        best = red_v[w];
-        bi = red_i[w];
-      }
-    s.k = k;
-    s.leaf = bi;
-    s.go = k < L && best > 0.f;
-    if (s.go) {
-      s.g = s_at(a, S_LEAF_G, bi);
-      s.h = s_at(a, S_LEAF_H, bi);
-      s.c = s_at(a, S_LEAF_C, bi);
-      s.gain = s_at(a, S_BS_GAIN, bi);
-      s.lg = s_at(a, S_BS_LG, bi);
-      s.lh = s_at(a, S_BS_LH, bi);
-      s.lc = s_at(a, S_BS_LC, bi);
-      s.lout = s_at(a, S_BS_LOUT, bi);
-      s.rout = s_at(a, S_BS_ROUT, bi);
-      s.cmin = a.has_mono ? s_at(a, S_CMIN, bi) : -INFINITY;
-      s.cmax = a.has_mono ? s_at(a, S_CMAX, bi) : INFINITY;
-      s.begin = s_int(a, SI_BEGIN, bi);
-      s.cnt = s_int(a, SI_CNT, bi);
-      s.feat = s_int(a, SI_FEAT, bi);
-      s.thr = s_int(a, SI_THR, bi);
-      s.dleft = s_int(a, SI_DLEFT, bi);
-      s.ref_node = s_int(a, SI_REF_NODE, bi);
-      s.ref_side = s_int(a, SI_REF_SIDE, bi);
-      s.depth = s_int(a, SI_DEPTH, bi);
-    }
-  }
-  __syncthreads();
-}
-
-// child sums, monotone bounds (monotone_constraints.hpp:44) and the
-// (smaller, other) order, as learner/split_step.py computes them
-__device__ __forceinline__ Pair derive_pair(const Args& a, const Site& s) {
-  Pair q;
-  const float rg = s.g - s.lg, rh = s.h - s.lh, rc = s.c - s.lc;
-  q.small_left = s.lc <= rc;
-  float cmin_l = s.cmin, cmax_l = s.cmax, cmin_r = s.cmin, cmax_r = s.cmax;
-  if (a.has_mono) {
-    const int mono = a.imeta[s.feat * IM_COLS + IM_MONO];
-    const float mid = (s.lout + s.rout) * 0.5f;
-    if (mono < 0) {
-      cmin_l = fmaxf(s.cmin, mid);
-      cmax_r = fminf(s.cmax, mid);
-    }
-    if (mono > 0) {
-      cmax_l = fminf(s.cmax, mid);
-      cmin_r = fmaxf(s.cmin, mid);
-    }
-  }
-  const ltt::Leaf left{s.lg, s.lh, s.lc, cmin_l, cmax_l};
-  const ltt::Leaf right{rg, rh, rc, cmin_r, cmax_r};
-  q.a = q.small_left ? left : right;
-  q.b = q.small_left ? right : left;
-  q.out_a = q.small_left ? s.lout : s.rout;
-  q.out_b = q.small_left ? s.rout : s.lout;
-  return q;
-}
-
-// One child's S column from its scan table [F, 8] (assemble_split:
-// first-index argmax of the score column).
-__device__ void write_child(const Args& a, int idx, const float* tab,
-                           const ltt::Leaf& ch, float out, int side,
-                           int begin, int cnt, int node, int depth,
-                           bool blocked) {
-  int bi = 0;
-  float best = tab[0];
-  for (int j = 1; j < a.F; ++j)
-    if (tab[j * 8] > best) {
-      best = tab[j * 8];
-      bi = j;
-    }
-  const float* r = tab + bi * 8;
-  const int L = a.big_l;
-  float* S = a.S;
-  S[S_LEAF_G * L + idx] = ch.pg;
-  S[S_LEAF_H * L + idx] = ch.ph;
-  S[S_LEAF_C * L + idx] = ch.pc;
-  S[S_BS_GAIN * L + idx] = blocked ? -INFINITY : r[0];
-  S[S_BS_LG * L + idx] = r[2];
-  S[S_BS_LH * L + idx] = r[3] - ltt::kEps;
-  S[S_BS_LC * L + idx] = r[4];
-  S[S_BS_LOUT * L + idx] = r[6];
-  S[S_BS_ROUT * L + idx] = r[7];
-  if (a.has_mono) {
-    S[S_CMIN * L + idx] = ch.cmin;
-    S[S_CMAX * L + idx] = ch.cmax;
-  }
-  S[(a.nf - 1) * L + idx] = out;  // leaf_value, the last float row
-  const int ints[9] = {begin, cnt, bi, (int)r[1], r[5] > 0.5f ? 1 : 0, 0,
-                       node, side, depth};
-  for (int i = 0; i < 9; ++i)
-    S[(size_t)(a.nf + i) * L + idx] = __int_as_float(ints[i]);
-}
-
-__device__ void finish(const Args& a, const Site& s, const Pair& q, int nl) {
-  const int leaf = s.leaf, nw = s.k, node = s.k - 1;
-  const int depth = s.depth + 1;
-  const bool blocked = a.max_depth > 0 && depth >= a.max_depth;
-  const int idx_a = q.small_left ? leaf : nw;
-  const int idx_b = q.small_left ? nw : leaf;
-  const int cnt_a = q.small_left ? nl : s.cnt - nl;
-  const int begin_a = q.small_left ? s.begin : s.begin + nl;
-  const int begin_b = q.small_left ? s.begin + nl : s.begin;
-  const int side_a = q.small_left ? 0 : 1;
-  write_child(a, idx_a, a.table, q.a, q.out_a, side_a, begin_a, cnt_a, node,
-              depth, blocked);
-  write_child(a, idx_b, a.table + (size_t)a.F * 8, q.b, q.out_b, 1 - side_a,
-              begin_b, s.cnt - cnt_a, node, depth, blocked);
-  const int L1 = a.big_l - 1;
-  float* T = a.T;
-  T[T_GAIN * L1 + node] = s.gain;
-  T[T_IVALUE * L1 + node] = ltt::out_nc(s.g, s.h + 2e-15f, a.p);
-  T[T_IWEIGHT * L1 + node] = s.h;
-  T[T_ICOUNT * L1 + node] = s.c;
-  T[T_FEAT * L1 + node] = __int_as_float(s.feat);
-  T[T_THR * L1 + node] = __int_as_float(s.thr);
-  T[T_DTYPE * L1 + node] = __int_as_float(s.dleft ? 2 : 0);
-  T[T_LEFT * L1 + node] = __int_as_float(~leaf);
-  T[T_RIGHT * L1 + node] = __int_as_float(~nw);
-  if (s.ref_node >= 0)
-    T[(s.ref_side == 0 ? T_LEFT : T_RIGHT) * L1 + s.ref_node] =
-        __int_as_float(node);
-  *a.k = s.k + 1;
-}
 
 __global__ void __launch_bounds__(kThreads, 2)
 split_step_kernel(Args a) {
   extern __shared__ float smem[];
-  __shared__ ltt::ScanSmem scan_sm;
-  __shared__ Site site;
+  __shared__ ltt::ScanSmem<ltt::kMaxBins> scan_sm;
+  __shared__ ltt::Site site;
   __shared__ int iscratch[33];
   __shared__ float fscratch[kThreads / 32];
   cg::grid_group grid = cg::this_grid();
 
   // ---- 0. the split site ---------------------------------------------
-  read_site(a, site, fscratch, iscratch);
+  ltt::read_site(a, site, fscratch, iscratch);
   if (!site.go) return;  // every block decides alike: no barrier skipped
   const int F = a.F, B = a.B, stride = a.stride;
-  const int* im = a.imeta + site.feat * IM_COLS;
-  const ltt::Decision d{site.feat, site.thr, site.dleft, im[IM_MISS],
-                        im[IM_DEFBIN], im[IM_NBINS], 0, nullptr};
+  const int* im = a.imeta + site.feat * ltt::IM_COLS;
+  const ltt::Decision d{site.feat, site.thr, site.dleft, im[ltt::IM_MISS],
+                        im[ltt::IM_DEFBIN], im[ltt::IM_NBINS], 0, nullptr};
   const long long begin = site.begin, cnt = site.cnt;
   const int ntiles = (int)((cnt + ltt::kPartRows - 1) / ltt::kPartRows);
 
@@ -331,7 +136,7 @@ split_step_kernel(Args a) {
     int4* dst = reinterpret_cast<int4*>(a.mat + (size_t)begin * stride);
     for (long long i = gtid; i < nvec; i += gsize) dst[i] = src[i];
   }
-  const Pair q = derive_pair(a, site);
+  const ltt::Pair q = ltt::derive_pair(a, site);
   const long long sb = q.small_left ? 0 : nl;  // relative to ws row 0
   const long long sc = q.small_left ? nl : cnt - nl;
   const int nblk = (int)min((long long)kMaxVBlocks,
@@ -373,16 +178,21 @@ split_step_kernel(Args a) {
     const int c = v / F, f = v % F;
     const float* h = a.hist + ((size_t)(c == 0 ? idx_a : idx_b) * F + f) *
                                   B * 3;
-    const int* mf = a.imeta + f * IM_COLS;
-    ltt::scan_feature(h, B, c == 0 ? q.a : q.b, mf[IM_NBINS], mf[IM_MISS],
-                      mf[IM_DEFBIN], mf[IM_MONO], a.fmeta[f * 2 + 0],
-                      a.fmeta[f * 2 + 1], a.p, scan_sm,
+    const int* mf = a.imeta + f * ltt::IM_COLS;
+    ltt::scan_feature(h, B, c == 0 ? q.a : q.b, mf[ltt::IM_NBINS],
+                      mf[ltt::IM_MISS], mf[ltt::IM_DEFBIN], mf[ltt::IM_MONO],
+                      a.fmeta[f * 2 + 0], a.fmeta[f * 2 + 1], a.p, scan_sm,
                       a.table + ((size_t)c * F + f) * 8);
   }
   grid.sync();
 
   // ---- 4. state, tree arrays, k ---------------------------------------
-  if (blockIdx.x == 0 && threadIdx.x == 0) finish(a, site, q, nl);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    const int cnt_a = q.small_left ? nl : site.cnt - nl;
+    const int begin_a = q.small_left ? site.begin : site.begin + nl;
+    const int begin_b = q.small_left ? site.begin + nl : site.begin;
+    ltt::finish(a, site, q, begin_a, cnt_a, begin_b, site.cnt - cnt_a);
+  }
 }
 
 size_t step_smem_bytes(int B, int feat_tile) {
@@ -394,27 +204,14 @@ int step_grid(size_t smem, int* per_sm_out, int* grid_out) {
   static int dev_c = -1, per_sm_c = 0, grid_c = 0;
   static size_t smem_c = 0;
   int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  const cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev != dev_c || smem != smem_c) {
-    int coop = 0, sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-    if (e != cudaSuccess) return (int)e;
-    if (!coop) return (int)cudaErrorNotSupported;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaFuncSetAttribute(split_step_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, split_step_kernel, kThreads, smem);
-    if (e != cudaSuccess) return (int)e;
-    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    const int err = ltt::cooperative_grid(split_step_kernel, kThreads, smem,
+                                          &per_sm_c, &grid_c);
+    if (err) return err;
     dev_c = dev;
     smem_c = smem;
-    per_sm_c = per_sm;
-    grid_c = per_sm * sms;
   }
   *per_sm_out = per_sm_c;
   *grid_out = grid_c;
@@ -453,7 +250,7 @@ LTT_EXPORT int ltt_split_step_segment(
   Args a{k,       S,        T,     mat,     ws,        stride,
          pay_off, hist,     imeta, fmeta,   partial,   tiles,
          table,   ctl,      big_l, F,       B,         feat_tile,
-         has_mono, has_mono ? 12 : 10, max_depth,
+         has_mono, has_mono ? 12 : 10, 2, max_depth,
          ltt::Params{l1, l2, mds, min_data, min_hess, min_gain}};
   void* params[] = {&a};
   const cudaError_t e = cudaLaunchCooperativeKernel(

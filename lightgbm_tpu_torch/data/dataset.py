@@ -60,8 +60,9 @@ class Metadata:
 
 
 class Dataset:
-    """Binned dataset: a dense ``[N, F]`` uint8 bin matrix on the host,
-    copied to the training device as a tensor on demand."""
+    """Binned dataset: a dense ``[N, F]`` bin matrix on the host (uint8,
+    or uint16 when a feature has more than 256 bins), copied to the
+    training device as a tensor on demand."""
 
     def __init__(self):
         self.num_data: int = 0
@@ -83,11 +84,17 @@ class Dataset:
 
     # ------------------------------------------------------------------
     def binned_device(self, device) -> torch.Tensor:
-        """Device copy of the binned matrix (uploaded once per device)."""
+        """Device copy of the binned matrix (uploaded once per device):
+        uint8, or for more than 256 bins the uint16 bins' bit patterns
+        as int16 (torch's uint16 has few CPU ops; every bin is below
+        2**15, so the values are the bins, and the leaf kernel reads the
+        bits as uint16)."""
         key = str(torch.device(device))
         if key not in self._device_copies:
-            self._device_copies[key] = torch.from_numpy(
-                np.ascontiguousarray(self.binned)).to(device)
+            host = np.ascontiguousarray(self.binned)
+            if host.dtype == np.uint16:
+                host = host.view(np.int16)
+            self._device_copies[key] = torch.from_numpy(host).to(device)
         return self._device_copies[key]
 
     @property

@@ -1,3 +1,5 @@
-"""Tree learners of the port (the partitioned learner in this slice)."""
+"""Tree learners of the port: the partitioned (segment) learner and the
+serial (leaf_id) learner."""
 
 from .partitioned import PartitionedTreeLearner
+from .serial import SerialTreeLearner

@@ -53,7 +53,6 @@ import torch
 from ..config import Config
 from ..data.binning import MISSING_NAN, MISSING_NONE, MISSING_ZERO
 from ..data.dataset import Dataset
-from ..models.tree import Tree, TreeArrays
 from ..ops.hist_cuda import (build_matrix, extract_row_ids,
                              histogram_segment, histogram_segment_plain,
                              pack_gh)
@@ -64,13 +63,15 @@ from ..ops.split import (MISSING_NAN_CODE, MISSING_NONE_CODE,
 from ..ops.split_scan_cuda import (per_feature_numerical_cuda,
                                    per_feature_numerical_plain,
                                    scan_meta_tables)
-from ..ops.split_step_cuda import (FusedScratch, fused_split_step_segment,
+from ..ops.split_step_cuda import (MAX_BINS, FusedScratch,
+                                   fused_split_step_segment,
                                    fused_split_step_segment_plain,
                                    learner_fused_kernel_on,
                                    pack_meta_tables)
 from .split_step import (SEG_SI_PREFIX, SplitOps, f32,
                          fused_split_eligible, fused_split_kernel_mode,
-                         make_grow_pack, root_state, split_step_host)
+                         grown_tree, make_grow_pack, root_state,
+                         split_step_host)
 
 _MISSING_CODE = {MISSING_NONE: MISSING_NONE_CODE,
                  MISSING_ZERO: MISSING_ZERO_CODE,
@@ -104,6 +105,16 @@ def check_slice(config: Config) -> None:
         _reject("feature_fraction_bynode", "Queue 1 item 7")
     if config.tree_learner not in ("serial", "partitioned"):
         _reject(f"tree_learner={config.tree_learner}", "Queue 1 item 8")
+
+
+def check_pool_mode(config: Config, num_features: int, num_bins_max: int,
+                    num_leaves: int) -> None:
+    """Refuse a ``histogram_pool_size`` too small for a cache row per
+    leaf (the JAX package's pool-bounded mode)."""
+    pool = float(config.histogram_pool_size)
+    if pool > 0 and pool * 1024 * 1024 // (
+            num_features * num_bins_max * 12) < num_leaves:
+        _reject("histogram_pool_size pool mode", "Queue 1 item 7")
 
 
 def split_cegb_on(config: Config) -> bool:
@@ -155,12 +166,17 @@ def feature_meta_from_dataset(dataset: Dataset) -> FeatureMeta:
         is_categorical=np.zeros(f, bool))
 
 
-class PartitionedTreeLearner:
-    """The port's tree learner (the JAX package's accelerator learner).
+class LeafwiseLearner:
+    """What the two learners share: the slice checks, the feature
+    metadata and split parameters, the per-leaf histogram cache, the
+    merged pack of the learner's layout, the fused gate and the scan.
+    A subclass names its layout (``LAYOUT``, a key of ``MAX_BINS``), its
+    pack's int prefix rows (``SI_PREFIX``) and what its bin cap means
+    (``BIN_NOTE``), then adds its layout's own state."""
 
-    ``train(grad, hess)`` grows one tree and returns ``(Tree, leaf_id)``
-    with ``leaf_id`` [N] int64 on the device. ``fused`` says which grow
-    loop it runs (decided here, before training)."""
+    LAYOUT = "segment"
+    SI_PREFIX = SEG_SI_PREFIX
+    BIN_NOTE = ""
 
     def __init__(self, dataset: Dataset, config: Config,
                  device: torch.device, ops: str = "kernel"):
@@ -175,30 +191,23 @@ class PartitionedTreeLearner:
         self.params = split_params_from_config(
             config, dataset_any_missing(dataset))
         self.num_bins_max = int(dataset.num_bins_array().max(initial=2))
-        if self.num_bins_max > 256:
-            _reject(f"{self.num_bins_max} bins per feature (the matrix "
-                    "packs bins as uint8)", "Queue 1 item 4")
+        if self.num_bins_max > MAX_BINS[self.LAYOUT]:
+            _reject(f"{self.num_bins_max} bins per feature {self.BIN_NOTE}",
+                    "Queue 1 item 4")
         self.num_leaves = int(config.num_leaves)
-        pool = float(config.histogram_pool_size)
-        if pool > 0 and pool * 1024 * 1024 // (
-                dataset.num_features * self.num_bins_max * 12) \
-                < self.num_leaves:
-            _reject("histogram_pool_size pool mode", "Queue 1 item 7")
+        check_pool_mode(config, dataset.num_features, self.num_bins_max,
+                        self.num_leaves)
         self.max_depth = int(config.max_depth)
         self.num_features = dataset.num_features
         self.num_data = dataset.num_data
         self.has_monotone = dataset_has_monotone(dataset)
-        self.mat = build_matrix(dataset.binned_device(self.device))
-        self.ws = torch.empty_like(self.mat)
         self.hist = torch.zeros(
             (self.num_leaves, self.num_features, self.num_bins_max, 3),
             dtype=torch.float32, device=self.device)
-        self._ones = torch.ones(self.num_data, dtype=torch.float32,
-                                device=self.device)
         self._meta_all = meta_tensors(self.meta, self.device)
         self._tables_all = scan_meta_tables(self._meta_all)
         self._packed_all = pack_meta_tables(self.meta, None, self.device)
-        self.pack = make_grow_pack(SEG_SI_PREFIX,
+        self.pack = make_grow_pack(self.SI_PREFIX,
                                    has_monotone=self.has_monotone,
                                    big_l=self.num_leaves)
         self.fused = learner_fused_kernel_on(
@@ -209,7 +218,66 @@ class PartitionedTreeLearner:
                 ff_bynode=float(config.feature_fraction_bynode),
                 num_leaves=self.num_leaves),
             device=self.device, params=self.params,
-            num_bins_max=self.num_bins_max)
+            num_bins_max=self.num_bins_max, layout=self.LAYOUT)
+
+    def _tree_meta(self, feature_mask: Optional[np.ndarray]):
+        """The scan's meta tensors and tables and the fused step's packed
+        tables for one tree's features."""
+        if feature_mask is None:
+            return (self._meta_all, self._tables_all) + self._packed_all
+        meta_t = meta_tensors(self.meta, self.device, feature_mask)
+        return (meta_t, scan_meta_tables(meta_t)) + pack_meta_tables(
+            self.meta, feature_mask, self.device)
+
+    def _scan(self, hists, leaves, meta_t, tables) -> torch.Tensor:
+        if self.plain:
+            return per_feature_numerical_plain(hists, leaves, meta_t,
+                                               self.params)
+        return per_feature_numerical_cuda(hists, leaves, meta_t,
+                                          self.params, tables)
+
+    def _root_scan(self, root_hist, meta_t, tables):
+        """Cache the root's histogram and scan it; returns the scan
+        table and the root's (g, h, count). The root's one host read is
+        its sums, which the scan takes as scalars."""
+        self.hist[0] = root_hist
+        sums = root_hist[0].sum(dim=0).cpu().numpy()
+        root = (f32(sums[0]), f32(sums[1]), f32(sums[2]))
+        inf = f32(np.inf)
+        table = self._scan([root_hist], [root + (-inf, inf)], meta_t,
+                           tables)[0]
+        return table, root
+
+    def _grow_host(self, st, ops: SplitOps, imeta) -> int:
+        """The per-phase split loop over host-side ``S``/``T``; returns
+        k."""
+        k = 1
+        while split_step_host(self.pack, st, self.hist, k, ops, imeta=imeta,
+                              params=self.params, big_l=self.num_leaves,
+                              max_depth=self.max_depth,
+                              has_monotone=self.has_monotone):
+            k += 1
+        return k
+
+
+class PartitionedTreeLearner(LeafwiseLearner):
+    """The port's segment-layout learner (the JAX package's accelerator
+    learner for datasets whose bins fit a byte).
+
+    ``train(grad, hess)`` grows one tree and returns ``(Tree, leaf_id)``
+    with ``leaf_id`` [N] int64 on the device. ``fused`` says which grow
+    loop it runs (decided here, before training)."""
+
+    BIN_NOTE = ("in the partitioned learner (the matrix packs bins as "
+                "uint8; tree_learner=serial takes up to 1024)")
+
+    def __init__(self, dataset: Dataset, config: Config,
+                 device: torch.device, ops: str = "kernel"):
+        super().__init__(dataset, config, device, ops)
+        self.mat = build_matrix(dataset.binned_device(self.device))
+        self.ws = torch.empty_like(self.mat)
+        self._ones = torch.ones(self.num_data, dtype=torch.float32,
+                                device=self.device)
         self._scratch = FusedScratch(self.mat, self.num_features,
                                      self.num_bins_max) \
             if self.fused and not self.plain else None
@@ -232,58 +300,23 @@ class PartitionedTreeLearner:
                   int(m.missing[feat]), int(m.default_bin[feat]),
                   int(m.num_bins[feat]), False, None)
 
-    def _scan(self, hists, leaves, meta_t, tables) -> torch.Tensor:
-        if self.plain:
-            return per_feature_numerical_plain(hists, leaves, meta_t,
-                                               self.params)
-        return per_feature_numerical_cuda(hists, leaves, meta_t,
-                                          self.params, tables)
-
     # ------------------------------------------------------------------
     def train(self, grad: torch.Tensor, hess: torch.Tensor,
               feature_mask: Optional[np.ndarray] = None):
         f, n = self.num_features, self.num_data
-        mat = self.mat
-        if feature_mask is None:
-            meta_t, tables = self._meta_all, self._tables_all
-            imeta, fmeta = self._packed_all
-        else:
-            meta_t = meta_tensors(self.meta, self.device, feature_mask)
-            tables = scan_meta_tables(meta_t)
-            imeta, fmeta = pack_meta_tables(self.meta, feature_mask,
-                                            self.device)
-
+        meta_t, tables, imeta, fmeta = self._tree_meta(feature_mask)
         # repack the gh payload in the current row order (rows carry
         # their id); bagging is out of this slice, so every row counts
-        rids = extract_row_ids(mat, f, n).long()
-        pack_gh(mat, f, grad[rids], hess[rids], self._ones)
-
-        root_hist = self._histogram(0, n, n)
-        self.hist[0] = root_hist
-        # the root's one host read: its sums, which the scan takes as
-        # scalars
-        sums = root_hist[0].sum(dim=0).cpu().numpy()
-        root = (f32(sums[0]), f32(sums[1]), f32(sums[2]))
-        inf = f32(np.inf)
-        table = self._scan([root_hist], [root + (-inf, inf)], meta_t,
-                           tables)[0]
+        rids = extract_row_ids(self.mat, f, n).long()
+        pack_gh(self.mat, f, grad[rids], hess[rids], self._ones)
+        table, root = self._root_scan(self._histogram(0, n, n), meta_t,
+                                      tables)
         if self.fused:
             st, k = self._grow_fused(table, root, imeta, fmeta)
         else:
             st, k = self._grow_per_phase(table.cpu(), root, meta_t, tables,
                                          imeta)
-        v = {key: val.numpy() for key, val in self.pack.view(st).items()}
-        tree = Tree(TreeArrays(
-            num_leaves=k, split_feature=v["split_feature"],
-            threshold_bin=v["threshold_bin"],
-            decision_type=v["decision_type"], left_child=v["left_child"],
-            right_child=v["right_child"], split_gain=v["split_gain_arr"],
-            internal_value=v["internal_value"],
-            internal_weight=v["internal_weight"],
-            internal_count=v["internal_count"], leaf_value=v["leaf_value"],
-            leaf_weight=v["leaf_weight"], leaf_count=v["leaf_count"],
-            leaf_parent=v["leaf_parent"], leaf_depth=v["leaf_depth"]),
-            dataset=self.dataset)
+        tree, v = grown_tree(self.pack, st, k, self.dataset)
         return tree, self._leaf_id(v["leaf_begin"], v["leaf_cnt"], k)
 
     def _grow_fused(self, table, root, imeta, fmeta):
@@ -315,20 +348,31 @@ class PartitionedTreeLearner:
         child segments per split (inside ``split_step_host``)."""
         st = root_state(self.pack, table, *root, self.num_data,
                         self.params, self.num_leaves)
+        def partition(site, leaf, new):
+            cnt = int(site["leaf_cnt"])
+            seg = self._partition(site["leaf_begin"], cnt,
+                                  int(site["bs_feat"]), int(site["bs_thr"]),
+                                  bool(site["bs_dleft"]))
+            return seg, cnt
+
+        def histogram(part, small_left):
+            # the child's histogram is sized by its parent's row count
+            seg, cnt = part
+            return self._histogram(seg[0:2] if small_left else seg[2:4],
+                                   None, cnt)
+
+        def extra_i(part):
+            # the child segments travel as extra int state fields
+            sg = part[0].cpu().numpy()
+            return tuple(dict(leaf_begin=int(sg[i]), leaf_cnt=int(sg[i + 1]))
+                         for i in (0, 2))
+
         ops = SplitOps(
-            partition=self._partition,
-            histogram=lambda seg2, max_count: self._histogram(
-                seg2, None, max_count),
+            partition=partition, histogram=histogram,
             scan=lambda hists, leaves: self._scan(hists, leaves, meta_t,
-                                                  tables))
-        im = imeta.cpu().numpy()
-        k = 1
-        while split_step_host(self.pack, st, self.hist, k, ops, imeta=im,
-                              params=self.params, big_l=self.num_leaves,
-                              max_depth=self.max_depth,
-                              has_monotone=self.has_monotone):
-            k += 1
-        return st, k
+                                                  tables),
+            extra_i=extra_i)
+        return st, self._grow_host(st, ops, imeta.cpu().numpy())
 
     def _leaf_id(self, begin: np.ndarray, cnt: np.ndarray,
                  k: int) -> torch.Tensor:

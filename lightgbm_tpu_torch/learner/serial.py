@@ -1,0 +1,121 @@
+"""Serial leaf-wise tree learner on the ``leaf_id[N]`` layout (port of
+``lightgbm_tpu/learner/serial.py``: ``SerialTreeLearner`` and the
+serial-comm, histogram-cache part of ``grow_tree``).
+
+Rows stay where they are: a ``leaf_id`` [N] int32 vector says which leaf
+each row is in, and a split relabels the right-going rows of the chosen
+leaf (``split_leaf``). The smaller child's histogram comes from the
+rows of that child, the sibling as parent minus child from the
+per-leaf cache (serial_tree_learner.cpp:434-436). The binned matrix is
+[N, F] uint8, or the int16 bits of uint16 bins when a feature has more
+than 256 bins (up to 1024): this is the learner ``create_tree_learner``
+gives such datasets, whose bins the partitioned learner's u8 matrix
+cannot hold.
+
+Two grow loops, chosen before training (``fused_split_kernel``):
+
+  * **fused** ("auto" on a CUDA device, or "on"): the root's histogram
+    (``ops/histogram.py``) and scan kernel, then ``num_leaves - 1``
+    launches of the leaf-layout fused split step
+    (``ops/split_step_cuda.py:fused_split_step_leaf``) enqueued without
+    a host read; ``S``, ``T`` and ``k`` are read once per tree. On the
+    CPU, or with ``ops="plain"``, each step is its plain version.
+  * **per-phase** ("off", "auto" on the CPU): a Python loop over splits
+    through ``split_step_host``: ``split_leaf``, the smaller child's
+    histogram over masked ghc (``build_histogram``, a torch op on the
+    card too, as the JAX package leaves it to XLA), the sibling by
+    subtraction, both children's scans (the scan kernel on the card),
+    one host read of the scan tables per split.
+
+Both loops write the same state through the same bookkeeping and build
+the histograms to the same float64-then-round rule, so they grow the
+same trees. ``leaf_id`` is returned as the loop kept it.
+
+Out of the slice (``NotImplementedError`` naming the ROADMAP item):
+more than 1024 bins, pool-bounded histogram memory, CEGB, extra trees
+and bundling (``check_slice``, shared with the partitioned learner).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..data.dataset import Dataset
+from ..ops.histogram import build_histogram, make_ghc
+from ..ops.split_step_cuda import (LeafScratch, fused_split_step_leaf,
+                                   fused_split_step_leaf_plain,
+                                   leaf_split_ops)
+from .partitioned import LeafwiseLearner
+from .split_step import grown_tree, root_state
+
+
+class SerialTreeLearner(LeafwiseLearner):
+    """The port's leaf-id learner.
+
+    ``train(grad, hess)`` grows one tree and returns ``(Tree, leaf_id)``
+    with ``leaf_id`` [N] int32 on the device. ``fused`` says which grow
+    loop it runs (decided here, before training)."""
+
+    LAYOUT = "leaf"
+    SI_PREFIX = ()
+    BIN_NOTE = "(the serial learner takes up to 1024)"
+
+    def __init__(self, dataset: Dataset, config: Config,
+                 device: torch.device, ops: str = "kernel"):
+        super().__init__(dataset, config, device, ops)
+        self.binned = dataset.binned_device(self.device)
+        self.leaf_id = torch.zeros(self.num_data, dtype=torch.int32,
+                                   device=self.device)
+        self._scratch = LeafScratch(self.binned, self.num_bins_max) \
+            if self.fused and not self.plain else None
+
+    # ------------------------------------------------------------------
+    def train(self, grad: torch.Tensor, hess: torch.Tensor,
+              feature_mask: Optional[np.ndarray] = None):
+        meta_t, tables, imeta, fmeta = self._tree_meta(feature_mask)
+        # bagging is out of this slice, so every row counts
+        ghc = make_ghc(grad.to(torch.float32), hess.to(torch.float32))
+        self.leaf_id.zero_()
+        table, root = self._root_scan(
+            build_histogram(self.binned, ghc, self.num_bins_max), meta_t,
+            tables)
+        st = root_state(self.pack, table, *root, self.num_data,
+                        self.params, self.num_leaves)
+        if self.fused:
+            k = torch.ones((1,), dtype=torch.int32, device=self.device)
+            self._launch_fused(k, st["S"], st["T"], ghc, imeta, fmeta)
+            # the tree's one host read
+            st = {"S": st["S"].cpu(), "T": st["T"].cpu()}
+            k = int(k.cpu()[0])
+        else:
+            # the per-phase loop keeps S and T on the host
+            st = {"S": st["S"].cpu(), "T": st["T"].cpu()}
+            k = self._grow_per_phase(st, ghc, meta_t, tables, imeta)
+        return grown_tree(self.pack, st, k, self.dataset)[0], self.leaf_id
+
+    def _launch_fused(self, k, S, T, ghc, imeta, fmeta) -> None:
+        """The split loop of one tree: L - 1 fused steps, enqueued with
+        no host read in between."""
+        step = fused_split_step_leaf_plain if self.plain \
+            else fused_split_step_leaf
+        kw = dict(params=self.params, big_l=self.num_leaves,
+                  max_depth=self.max_depth, b=self.num_bins_max,
+                  has_monotone=self.has_monotone)
+        if not self.plain:
+            kw["scratch"] = self._scratch
+        for _ in range(self.num_leaves - 1):
+            step(k, S, T, self.leaf_id, self.hist, self.binned, ghc, imeta,
+                 fmeta, **kw)
+
+    def _grow_per_phase(self, st, ghc, meta_t, tables, imeta) -> int:
+        """S and T on the host; one host read of the scan tables per
+        split (inside ``split_step_host``)."""
+        im = imeta.cpu().numpy()
+        ops = leaf_split_ops(
+            self.leaf_id, self.binned, ghc, im, self.num_bins_max,
+            lambda hists, leaves: self._scan(hists, leaves, meta_t, tables))
+        return self._grow_host(st, ops, im)

@@ -1,4 +1,5 @@
-"""Per-split state and bookkeeping of the partitioned grow loop (port of
+"""Per-split state and bookkeeping of both grow loops, the partitioned
+(segment) and the serial (``leaf_id``) layouts (port of
 ``lightgbm_tpu/learner/split_step.py``, merged packing).
 
 **Packed state.** As in the JAX package, all per-leaf state rides ONE
@@ -9,21 +10,25 @@ JAX package's merged ``StatePack`` field for field: the same field
 order, and the same rows dropped and synthesized by ``view()``
 (``leaf_weight`` = ``leaf_h``, ``leaf_count`` = ``leaf_c``,
 ``leaf_parent`` = ``ref_node``; ``leaf_cmin``/``leaf_cmax`` without
-monotone constraints). The port has no categorical splits, so the
-categorical bitsets are never carried. The fused split-step kernel
-(``csrc/split_step_segment.cu``) reads and writes this layout on the
-device; the per-phase loop keeps it on the host. ``pack``, ``view``,
-``read_site``, ``set_state_cols`` and ``set_tree_col`` are functions
-on tensors; ``set_*`` take host scalars or 0-dim tensors.
+monotone constraints). The segment layout's int rows start with its
+segment bounds (``make_grow_pack(SEG_SI_PREFIX)``), the leaf layout has
+none (``make_grow_pack(())``). The port has no categorical splits, so
+the categorical bitsets are never carried. The fused split-step kernels
+(``csrc/split_step_segment.cu``, ``csrc/split_step_leaf.cu``) read and
+write this layout on the device; the per-phase loops keep it on the
+host. ``pack``, ``view``, ``read_site``, ``set_state_cols`` and
+``set_tree_col`` are functions on tensors; ``set_*`` take host scalars
+or 0-dim tensors.
 
 **The per-split bookkeeping** (``order_child_pair``,
-``child_constraints``, ``child_columns``, ``split_node_updates``) comes
-twice, in the JAX package's float32 expression order: on host numpy
-scalars for the per-phase loop (``split_step_host``), and on 0-dim
-tensors (``*_t``) for the plain version of the fused step
-(``ops/split_step_cuda.py``), which keeps its state where ``S`` lies as
-the kernel does. The kernel repeats the same expressions in float32 on
-the device, so all three write the same bits.
+``child_constraints``, ``child_columns``, ``split_node_updates``) runs
+in the JAX package's float32 expression order on host numpy scalars in
+``split_step_host``, which both layouts' per-phase loops and the leaf
+layout's plain fused step call (``SplitOps`` carries what differs).
+The segment layout's plain fused step (``ops/split_step_cuda.py``) still
+repeats it on 0-dim tensors (``*_t``), keeping its state where ``S``
+lies as the kernel does. The kernels repeat the same expressions in
+float32 on the device, so all write the same bits.
 """
 
 from __future__ import annotations
@@ -429,9 +434,10 @@ def split_node_updates_t(params, gain, feat, thr, dleft, is_cat, pg, ph, pc,
 def root_state(pack: StatePack, table: torch.Tensor, root_g, root_h,
                root_c, n: int, params, big_l: int) -> dict:
     """``{"S", "T"}`` of a tree that has only its root, on ``table``'s
-    device (JAX partitioned.py:474-542). ``table`` is the root's [F, 8]
-    scan table; it is read where it lies, so no host read happens here.
-    The root sums are host float32 scalars."""
+    device (JAX partitioned.py:474-542, serial.py:961-1025). ``table``
+    is the root's [F, 8] scan table; it is read where it lies, so no host
+    read happens here. The root sums are host float32 scalars. The
+    segment bounds are packed only when ``pack`` carries them."""
     from ..ops.split import (O_DLEFT, O_LC, O_LG, O_LH, O_SCORE, O_THR,
                              O_WL, O_WR)
     dev = table.device
@@ -474,21 +480,48 @@ def root_state(pack: StatePack, table: torch.Tensor, root_g, root_h,
         right_child=zeros(i32, m), split_gain_arr=zeros(fl, m),
         internal_value=zeros(fl, m), internal_weight=zeros(fl, m),
         internal_count=zeros(fl, m))
+    if "leaf_begin" not in pack.si_idx:
+        del fields["leaf_begin"], fields["leaf_cnt"]
     return pack.pack(fields)
 
 
-class SplitOps(NamedTuple):
-    """The three per-split ops ``split_step_host`` calls (the per-phase
-    kernels, or their plain versions).
+def grown_tree(pack: StatePack, st: dict, k: int, dataset):
+    """The host ``Tree`` of a grown state ({"S", "T"} on the host) with
+    ``k`` leaves, and the state's per-field numpy view (the caller may
+    need the layout's extra fields)."""
+    from ..models.tree import Tree, TreeArrays
+    v = {key: val.numpy() for key, val in pack.view(st).items()}
+    tree = Tree(TreeArrays(
+        num_leaves=k, split_feature=v["split_feature"],
+        threshold_bin=v["threshold_bin"],
+        decision_type=v["decision_type"], left_child=v["left_child"],
+        right_child=v["right_child"], split_gain=v["split_gain_arr"],
+        internal_value=v["internal_value"],
+        internal_weight=v["internal_weight"],
+        internal_count=v["internal_count"], leaf_value=v["leaf_value"],
+        leaf_weight=v["leaf_weight"], leaf_count=v["leaf_count"],
+        leaf_parent=v["leaf_parent"], leaf_depth=v["leaf_depth"]),
+        dataset=dataset)
+    return tree, v
 
-    partition(begin, cnt, feat, thr, dleft) -> int32 [4] child segments
-    (begin, NL, begin + NL, cnt - NL) on the matrix's device;
-    histogram(seg2, max_count) -> [F, B, 3] of the segment in the int32
-    [2] tensor ``seg2`` (``max_count`` bounds its size);
-    scan(hists, leaves) -> [2, F, 8] tables."""
+
+class SplitOps(NamedTuple):
+    """The per-split ops ``split_step_host`` calls (the per-phase
+    kernels, or their plain versions), for either layout.
+
+    partition(site, leaf, new) -> ``part``, the layout's record of the
+    two children: moves the leaf's rows (the segment layout: a stable
+    partition of its segment, ``part`` holds the child segments on the
+    device) or relabels them (the leaf layout: ``leaf_id`` in place);
+    histogram(part, small_left) -> [F, B, 3] of the smaller child;
+    scan(hists, leaves) -> [2, F, 8] tables;
+    extra_i(part) -> (left, right) dicts of the layout's extra int state
+    fields (the segment bounds ``leaf_begin``/``leaf_cnt``; none for the
+    leaf layout), read on the host after the scans are enqueued."""
     partition: Callable
     histogram: Callable
     scan: Callable
+    extra_i: Callable
 
 
 def split_step_host(pack: StatePack, st: dict, hist: torch.Tensor, k: int,
@@ -498,9 +531,11 @@ def split_step_host(pack: StatePack, st: dict, hist: torch.Tensor, k: int,
     ({"S", "T"}) and the histogram cache ``hist``, in place. Returns
     False, and changes nothing, when the grow loop's condition fails:
     ``k < L`` and the best open gain > 0 (lightgbm_tpu/learner/
-    partitioned.py:563-568). ``imeta`` is the host [F, 8] metadata
-    table. The host reads the scan tables and the child segments once,
-    after every op of the split is enqueued."""
+    partitioned.py:563-568, serial.py:1035-1041). ``imeta`` is the host
+    [F, 8] metadata table. The host reads the scan tables (and the
+    layout's child records) once, after every op of the split is
+    enqueued. One bookkeeping serves both layouts; ``ops`` carries what
+    differs."""
     if k >= big_l:
         return False
     gains = pack.row_f(st, "bs_gain")[:k].cpu().numpy()
@@ -518,13 +553,12 @@ def split_step_host(pack: StatePack, st: dict, hist: torch.Tensor, k: int,
     inf = f32(np.inf)
     pcmin = site.get("leaf_cmin", -inf)
     pcmax = site.get("leaf_cmax", inf)
-    begin, cnt = int(site["leaf_begin"]), int(site["leaf_cnt"])
 
-    # physical partition, then the smaller child's histogram and the
-    # sibling by subtraction from the cached parent
-    seg = ops.partition(begin, cnt, feat, thr, dleft)
+    # the leaf's rows to its children, then the smaller child's
+    # histogram and the sibling by subtraction from the cached parent
+    part = ops.partition(site, leaf, new)
     small_left = bool(lc <= rc)
-    hist_small = ops.histogram(seg[0:2] if small_left else seg[2:4], cnt)
+    hist_small = ops.histogram(part, small_left)
     idx_a, idx_b = (leaf, new) if small_left else (new, leaf)
     hist_other = hist[leaf] - hist_small
     hist[idx_a] = hist_small
@@ -538,10 +572,9 @@ def split_step_host(pack: StatePack, st: dict, hist: torch.Tensor, k: int,
     out = ops.scan([hist_small, hist_other],
                    [(o["ga"], o["ha"], o["ca"], o["cmin_a"], o["cmax_a"]),
                     (o["gb"], o["hb"], o["cb"], o["cmin_b"], o["cmax_b"])])
-    # the split's one host read: both scan tables + the child segments
+    # the split's one host read: both scan tables (+ the child records)
     table = out.cpu().numpy()
-    sg = seg.cpu().numpy()
-    segs = ((int(sg[0]), int(sg[1])), (int(sg[2]), int(sg[3])))
+    extra = ops.extra_i(part)
     blocked = max_depth > 0 and depth >= max_depth
     cols = []
     for tab, ch, side in ((table[0], "a", o["side_a"]),
@@ -552,8 +585,7 @@ def split_step_host(pack: StatePack, st: dict, hist: torch.Tensor, k: int,
         cols.append(child_columns(
             split, o["g" + ch], o["h" + ch], o["c" + ch], o["out_" + ch],
             o["cmin_" + ch], o["cmax_" + ch], s, side, depth,
-            extra_i=dict(leaf_begin=segs[side][0],
-                         leaf_cnt=segs[side][1])))
+            extra_i=extra[side]))
     treef, treei, pnode, upd = split_node_updates(
         params, site["bs_gain"], feat, thr, dleft, False, pg, ph, pc,
         site["ref_node"], leaf, new)

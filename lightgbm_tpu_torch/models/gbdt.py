@@ -20,8 +20,8 @@ import torch
 
 from ..config import Config
 from ..data.dataset import Dataset
-from ..learner.partitioned import PartitionedTreeLearner
 from ..objective import create_objective
+from ..parallel.learners import create_tree_learner
 from ..utils.log import log_info, log_warning
 from .tree import Tree, constant_tree
 
@@ -41,8 +41,8 @@ class GBDT:
         self.models: List[Tree] = []
         self.iter = 0
         self.shrinkage_rate = float(config.learning_rate)
-        self.learner = PartitionedTreeLearner(train_data, config,
-                                              self.device, ops=ops)
+        self.learner = create_tree_learner(config.tree_learner, train_data,
+                                           config, self.device, ops=ops)
         self.num_data = train_data.num_data
         self.objective.init(train_data.metadata, self.num_data, self.device)
         init = train_data.metadata.init_score

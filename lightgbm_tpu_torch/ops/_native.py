@@ -36,12 +36,13 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # leaf outputs, the sibling subtraction), so no multiply-add contraction
 # there
 _EXTRA_FLAGS = {"split_scan.cu": ["-fmad=false"],
-                "split_step_segment.cu": ["-fmad=false"]}
+                "split_step_segment.cu": ["-fmad=false"],
+                "split_step_leaf.cu": ["-fmad=false"]}
 _COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"hist_segment": 0, "partition_segment": 0, "split_scan": 0,
-            "fused_split_step_segment": 0}
+            "fused_split_step_segment": 0, "fused_split_step_leaf": 0}
 BUILD_INFO = {"seconds": None, "ptxas": ""}
 
 _LIB = None
@@ -68,6 +69,13 @@ _SIGNATURES = {
     + [_F] * 6 + [_P],
     # B, feat_tile, out int32[3] (blocks per SM, grid, shared bytes)
     "ltt_split_step_shape": [_I, _I, _P],
+    # bin_bytes, k, S, T, lid, hist, bins, ghc, imeta, fmeta, partial,
+    # mask, table, n, L, F, B, feat_tile, nchunks, has_monotone,
+    # max_depth, l1, l2, mds, min_data, min_hess, min_gain, stream
+    "ltt_split_step_leaf": [_I] + [_P] * 12 + [_I] * 8 + [_F] * 6 + [_P],
+    # bin_bytes, n, F, B, feat_tile, out int32[4] (blocks per SM, grid,
+    # shared bytes, row chunks)
+    "ltt_split_step_leaf_shape": [_I] * 5 + [_P],
 }
 
 

@@ -1,9 +1,12 @@
-"""Bin-space split decision (port of ``lightgbm_tpu/ops/partition.py``).
+"""Bin-space split decision and the leaf_id update (port of
+``lightgbm_tpu/ops/partition.py``).
 
 ``rows_go_left`` is the one decision rule the partition kernel
-(``csrc/partition_segment.cu``, ``go_left``) and its plain version
-(``ops/partition_cuda.py``) both follow; the reference analog is the
-bin-space decision of ``Dense/SparseBin::Split`` (dense_bin.hpp:132+).
+(``csrc/partition_segment.cu``, ``go_left``), the leaf fused step
+(``csrc/split_step_leaf.cu``) and their plain versions follow; the
+reference analog is the bin-space decision of ``Dense/SparseBin::Split``
+(dense_bin.hpp:132+). ``split_leaf`` applies it to the serial learner's
+``leaf_id`` vector.
 """
 
 from __future__ import annotations
@@ -39,3 +42,16 @@ def rows_go_left(bin_col: torch.Tensor, threshold, default_left,
     word = torch.clamp(b // 32, 0, MAX_CAT_WORDS - 1)
     bit = (words[word] >> (b % 32)) & 1
     return (bit == 1) & (b < 32 * MAX_CAT_WORDS)
+
+
+def split_leaf(leaf_id: torch.Tensor, bin_col: torch.Tensor, target_leaf,
+               new_leaf, threshold, default_left, missing_code, default_bin,
+               num_bin, is_cat=False, cat_bitset=None) -> torch.Tensor:
+    """Send the right-side rows of ``target_leaf`` to ``new_leaf``
+    (DataPartition::Split on the ``leaf_id[N]`` layout); returns the new
+    ``leaf_id``, as the JAX function does."""
+    in_leaf = leaf_id == int(target_leaf)
+    go_left = rows_go_left(bin_col, threshold, default_left, missing_code,
+                           default_bin, num_bin, is_cat, cat_bitset)
+    return torch.where(in_leaf & ~go_left,
+                       torch.full_like(leaf_id, int(new_leaf)), leaf_id)

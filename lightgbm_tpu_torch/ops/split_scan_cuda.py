@@ -8,6 +8,8 @@ its scan over both fresh children (learner/split_step.py
 ``scan_children``); here the children are the kernel's first grid axis.
 The result is the ``[K, F, 8]`` table of ``ops/split.py`` (score,
 threshold, left g/h(+kEpsilon)/c, default_left, left and right output).
+The kernel takes 1 to 1024 bins: the partitioned learner's u8 bins and
+the serial learner's u16 bins.
 """
 
 from __future__ import annotations
@@ -18,6 +20,10 @@ import torch
 
 from . import _native
 from .split import SplitParams, per_feature_numerical, scan_table
+
+# bins per feature the kernel takes (csrc/scan_core.cuh kMaxScanBins); the
+# TPU kernel takes B from the histogram's shape
+MAX_SCAN_BINS = 1024
 
 
 def scan_meta_tables(meta_t: dict):
@@ -61,8 +67,9 @@ def per_feature_numerical_cuda(hists: Sequence[torch.Tensor],
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     f, b, _ = hists[0].shape
-    if not 1 <= b <= 256:
-        raise ValueError(f"num_bins must be in [1, 256], got {b}")
+    if not 1 <= b <= MAX_SCAN_BINS:
+        raise ValueError(f"num_bins must be in [1, {MAX_SCAN_BINS}], "
+                         f"got {b}")
     for i, h in enumerate(hists):
         _native.require(h, device=dev, dtype=torch.float32, shape=(f, b, 3),
                         name=f"hist[{i}]")

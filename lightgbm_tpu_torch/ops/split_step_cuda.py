@@ -1,14 +1,29 @@
-"""The fused split step of the partitioned grow loop (port of
-``lightgbm_tpu/ops/split_step_pallas.py``, segment layout).
+"""The fused split steps of both grow loops (port of
+``lightgbm_tpu/ops/split_step_pallas.py``, segment and leaf layouts).
 
 One call is one whole split: pick the best open leaf from the packed
-state ``S``, stable-partition its segment of the training matrix, build
-the smaller child's histogram, get the sibling as parent - child, scan
-both children and write both ``S`` columns, the ``T`` column and both
-rows of the histogram cache. ``k`` is a device int32 [1] tensor that the
-step reads and increments; when the grow loop's condition fails
-(``k < L`` and the best open gain > 0) the step changes nothing, so a
-caller enqueues all L - 1 steps of a tree without reading anything.
+state ``S``, move its rows to its children (segment layout: a stable
+partition of its segment of the training matrix; leaf layout: the
+right-going rows get the new leaf's id in ``leaf_id``), build the
+smaller child's histogram, get the sibling as parent - child, scan both
+children and write both ``S`` columns, the ``T`` column and both rows of
+the histogram cache. ``k`` is a device int32 [1] tensor that the step
+reads and increments; when the grow loop's condition fails (``k < L``
+and the best open gain > 0) the step changes nothing, so a caller
+enqueues all L - 1 steps of a tree without reading anything.
+
+**Leaf layout.** ``fused_split_step_leaf`` launches
+``csrc/split_step_leaf.cu`` for CUDA tensors and runs
+``fused_split_step_leaf_plain`` for CPU ones. The plain version is the
+JAX package's interpret twin (``_leaf_kernel_ref``) in torch: the
+serial learner's per-phase bookkeeping (``learner/split_step.py:
+split_step_host``) with the plain ops ``split_leaf``,
+``build_histogram`` over masked ghc and ``per_feature_numerical_plain``
+(``leaf_split_ops``). The kernel takes u8 bins up to 256 and u16 bins
+(held as int16 bit patterns) up to 1024, where the TPU body stops at
+u8 bins and 192 features (Mosaic limits).
+
+**Segment layout.**
 
 ``fused_split_step_segment`` launches ``csrc/split_step_segment.cu``
 for CUDA tensors and runs ``fused_split_step_segment_plain`` for CPU
@@ -36,6 +51,8 @@ from . import _native
 from .hist_cuda import (MAX_BLOCKS, TILE_ROWS, histogram_segment_plain,
                         matrix_cols, payload_offset)
 from .partition_cuda import PART_THREADS, partition_segment_plain
+from .histogram import build_histogram
+from .partition import split_leaf
 from .split import FeatureMeta, SplitParams, assemble_split
 from .split_scan_cuda import per_feature_numerical_plain
 
@@ -46,14 +63,22 @@ IM_NBINS, IM_MISS, IM_DEFBIN, IM_MOSTFREQ, IM_MONO, IM_GROUP, \
 # dynamic shared memory of one fused block: its histogram tile must
 # leave room for two blocks per SM (the scan's planes are static)
 FUSED_SMEM_BYTES = 100 * 1024
-STATE_INT_ROWS = 9   # leaf_begin, leaf_cnt + the JAX package's GROW_SI
+# the leaf kernel's histogram tile holds float64 sums; with its scan
+# planes reusing the same memory, two blocks fit an SM
+LEAF_SMEM_BYTES = 100 * 1024
+# int rows of the merged pack: the JAX package's GROW_SI less the
+# derived leaf_parent (7), after the segment layout's leaf_begin,
+# leaf_cnt
+STATE_INT_ROWS = {"segment": 9, "leaf": 7}
 TREE_ROWS = 9
+# bins per feature each layout's kernel takes
+MAX_BINS = {"segment": 256, "leaf": 1024}
 
 
-def state_rows(has_monotone: bool) -> int:
-    """Ks of the merged segment pack: 10 float rows (12 with the
-    monotone bounds) + the int rows."""
-    return (12 if has_monotone else 10) + STATE_INT_ROWS
+def state_rows(has_monotone: bool, layout: str = "segment") -> int:
+    """Ks of the merged pack of one layout: 10 float rows (12 with the
+    monotone bounds) + the layout's int rows."""
+    return (12 if has_monotone else 10) + STATE_INT_ROWS[layout]
 
 
 def pack_meta_tables(meta: FeatureMeta, feature_mask=None, device="cpu"):
@@ -82,16 +107,19 @@ def meta_from_tables(imeta: torch.Tensor, fmeta: torch.Tensor) -> dict:
                 penalty=fmeta[:, 0], fmask=fmeta[:, 1])
 
 
-def fused_compiled_ok(params, *, bundled: bool, num_bins_max: int) -> bool:
-    """Static scope of the CUDA kernel: numerical splits, unbundled
-    columns, bins that fit a byte."""
+def fused_compiled_ok(params, *, bundled: bool, num_bins_max: int,
+                      layout: str = "segment") -> bool:
+    """Static scope of one layout's CUDA kernel: numerical splits,
+    unbundled columns, bins that fit a byte (segment) or 1024 bins in
+    u16 (leaf)."""
     return (not getattr(params, "has_categorical", False) and not bundled
-            and num_bins_max <= 256)
+            and num_bins_max <= MAX_BINS[layout])
 
 
 def learner_fused_kernel_on(mode: str, *, eligible: bool,
                             device: torch.device, params,
-                            num_bins_max: int) -> bool:
+                            num_bins_max: int,
+                            layout: str = "segment") -> bool:
     """The fused-step gate of one learner, decided before training from
     the resolved mode ("on" / "off" / "auto"), the learner's static
     eligibility, and for "auto" a CUDA device within
@@ -101,7 +129,7 @@ def learner_fused_kernel_on(mode: str, *, eligible: bool,
     if mode == "on":
         return True
     return torch.device(device).type == "cuda" and fused_compiled_ok(
-        params, bundled=False, num_bins_max=num_bins_max)
+        params, bundled=False, num_bins_max=num_bins_max, layout=layout)
 
 
 def fused_feat_tile(num_features: int, num_bins: int) -> int:
@@ -288,3 +316,161 @@ def fused_split_step_segment(k, S, T, mat, ws, hist, imeta, fmeta, *,
         p.min_gain_to_split, _native.stream_of(mat))
     _native.check(err, "fused_split_step_segment")
     _native.LAUNCHES["fused_split_step_segment"] += 1
+
+
+# ---- leaf layout ------------------------------------------------------
+
+def leaf_feat_tile(num_features: int, num_bins: int) -> int:
+    """Features per histogram tile of the leaf kernel (float64 sums)."""
+    return max(1, min(num_features, LEAF_SMEM_BYTES // (num_bins * 3 * 8)))
+
+
+def leaf_bin_bytes(binned: torch.Tensor) -> int:
+    """1 for u8 bins, 2 for u16 bins held as int16 bit patterns."""
+    if binned.dtype == torch.uint8:
+        return 1
+    if binned.dtype == torch.int16:
+        return 2
+    raise TypeError(f"binned has dtype {binned.dtype}, expected uint8 or "
+                    "int16 (the bits of uint16 bins)")
+
+
+def leaf_launch_shape(bin_bytes: int, n: int, num_features: int,
+                      num_bins: int) -> dict:
+    """The cooperative grid the leaf kernel takes on the current card,
+    and the row chunks of its partials."""
+    out = (ctypes.c_int * 4)()
+    err = _native.library().ltt_split_step_leaf_shape(
+        bin_bytes, n, num_features, num_bins,
+        leaf_feat_tile(num_features, num_bins), ctypes.addressof(out))
+    _native.check(err, "fused_split_step_leaf")
+    return dict(blocks_per_sm=out[0], grid=out[1], smem_bytes=out[2],
+                nchunks=out[3])
+
+
+class LeafScratch:
+    """Device scratch of the leaf kernel, allocated once per learner
+    (never per split): float64 histogram partials [nchunks, F, B, 3],
+    the smaller child's membership bits [ceil(N / 32)] and both
+    children's scan tables."""
+
+    def __init__(self, binned: torch.Tensor, num_bins: int):
+        n, f = binned.shape
+        dev = binned.device
+        self.shape = leaf_launch_shape(leaf_bin_bytes(binned), n, f,
+                                       num_bins)
+        self.partial = torch.empty(
+            (self.shape["nchunks"], f, num_bins, 3), dtype=torch.float64,
+            device=dev)
+        self.mask = torch.empty((-(-n // 32),), dtype=torch.int32,
+                                device=dev)
+        self.table = torch.empty((2, f, 8), dtype=torch.float32, device=dev)
+
+
+def leaf_split_ops(lid, binned, ghc, imeta: np.ndarray, b: int, scan):
+    """``SplitOps`` of the leaf layout over plain torch ops: the split
+    relabels ``lid`` in place (``split_leaf``), the smaller child's
+    histogram is ``build_histogram`` over masked ghc, ``scan`` is given
+    (the scan kernel or its plain version). ``imeta`` is the host
+    [F, 8] metadata table."""
+    from ..learner.split_step import SplitOps
+
+    def partition(site, leaf, new):
+        f = int(site["bs_feat"])
+        lid.copy_(split_leaf(lid, binned[:, f], leaf, new,
+                             int(site["bs_thr"]), bool(site["bs_dleft"]),
+                             int(imeta[f, IM_MISS]),
+                             int(imeta[f, IM_DEFBIN]),
+                             int(imeta[f, IM_NBINS])))
+        return leaf, new
+
+    def histogram(part, small_left):
+        small = part[0] if small_left else part[1]
+        return build_histogram(binned, ghc * (lid == small).to(
+            ghc.dtype)[:, None], b)
+
+    return SplitOps(partition=partition, histogram=histogram, scan=scan,
+                    extra_i=lambda part: ({}, {}))
+
+
+def fused_split_step_leaf_plain(k, S, T, lid, hist, binned, ghc, imeta,
+                                fmeta, *, params: SplitParams, big_l: int,
+                                max_depth: int, b: int, has_monotone: bool):
+    """Plain version of one fused split on the leaf layout (the JAX
+    package's interpret twin ``_leaf_kernel_ref``), in place on ``k``,
+    ``S``, ``T``, ``lid`` and ``hist``: the serial learner's per-phase
+    bookkeeping (``split_step_host``) with ``leaf_split_ops``. ``S``,
+    ``T`` and ``k`` are read on the host and written back."""
+    from ..learner.split_step import make_grow_pack, split_step_host
+    pack = make_grow_pack((), has_monotone=has_monotone, big_l=big_l)
+    st = {"S": S.cpu().clone(), "T": T.cpu().clone()}
+    im = imeta.cpu().numpy()
+    meta_t = meta_from_tables(imeta, fmeta)
+    ops = leaf_split_ops(
+        lid, binned, ghc, im, b,
+        lambda hists, leaves: per_feature_numerical_plain(
+            hists, leaves, meta_t, params))
+    if split_step_host(pack, st, hist, int(k[0]), ops, imeta=im,
+                       params=params, big_l=big_l, max_depth=max_depth,
+                       has_monotone=has_monotone):
+        S.copy_(st["S"])
+        T.copy_(st["T"])
+        k.add_(1)
+
+
+def fused_split_step_leaf(k, S, T, lid, hist, binned, ghc, imeta, fmeta, *,
+                          params: SplitParams, big_l: int, max_depth: int,
+                          b: int, has_monotone: bool,
+                          scratch: Optional[LeafScratch] = None):
+    """One whole split of the serial grow loop, in place on ``k`` (int32
+    [1]), ``S`` [Ks, L] and ``T`` [9, L-1] (the merged ``StatePack`` of
+    ``learner/split_step.py``, leaf layout), ``lid`` [N] int32 and
+    ``hist`` [L, F, B, 3]. ``binned`` [N, F] is uint8 (B <= 256) or the
+    int16 bits of uint16 bins (B <= 1024), ``ghc`` [N, 3] float32.
+    ``imeta``/``fmeta`` come from ``pack_meta_tables``. ``scratch``
+    (``LeafScratch``) is allocated here when not given; a grow loop
+    passes its own so that no split allocates."""
+    dev = binned.device
+    if dev.type == "cpu":
+        return fused_split_step_leaf_plain(
+            k, S, T, lid, hist, binned, ghc, imeta, fmeta, params=params,
+            big_l=big_l, max_depth=max_depth, b=b,
+            has_monotone=has_monotone)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    bin_bytes = leaf_bin_bytes(binned)
+    if not 1 <= b <= (256 if bin_bytes == 1 else MAX_BINS["leaf"]):
+        raise ValueError(f"num_bins {b} out of range for "
+                         f"{8 * bin_bytes}-bit bins")
+    n, f = binned.shape
+    req = _native.require
+    req(k, device=dev, dtype=torch.int32, shape=(1,), name="k")
+    req(S, device=dev, dtype=torch.float32,
+        shape=(state_rows(has_monotone, "leaf"), big_l), name="S")
+    req(T, device=dev, dtype=torch.float32, shape=(TREE_ROWS, big_l - 1),
+        name="T")
+    req(lid, device=dev, dtype=torch.int32, shape=(n,), name="lid")
+    req(hist, device=dev, dtype=torch.float32, shape=(big_l, f, b, 3),
+        name="hist")
+    req(binned, device=dev, dtype=binned.dtype, name="binned")
+    req(ghc, device=dev, dtype=torch.float32, shape=(n, 3), name="ghc")
+    req(imeta, device=dev, dtype=torch.int32, shape=(f, 8), name="imeta")
+    req(fmeta, device=dev, dtype=torch.float32, shape=(f, 2), name="fmeta")
+    if scratch is None:
+        scratch = LeafScratch(binned, b)
+    nchunks = scratch.shape["nchunks"]
+    if tuple(scratch.partial.shape) != (nchunks, f, b, 3) \
+            or scratch.mask.numel() * 32 < n:
+        raise ValueError("scratch does not fit this matrix")
+    p = params
+    err = _native.library().ltt_split_step_leaf(
+        bin_bytes, k.data_ptr(), S.data_ptr(), T.data_ptr(), lid.data_ptr(),
+        hist.data_ptr(), binned.data_ptr(), ghc.data_ptr(), imeta.data_ptr(),
+        fmeta.data_ptr(), scratch.partial.data_ptr(),
+        scratch.mask.data_ptr(), scratch.table.data_ptr(), n, big_l, f, b,
+        leaf_feat_tile(f, b), nchunks, int(bool(has_monotone)),
+        int(max_depth), p.lambda_l1, p.lambda_l2, p.max_delta_step,
+        p.min_data_in_leaf, p.min_sum_hessian_in_leaf, p.min_gain_to_split,
+        _native.stream_of(binned))
+    _native.check(err, "fused_split_step_leaf")
+    _native.LAUNCHES["fused_split_step_leaf"] += 1

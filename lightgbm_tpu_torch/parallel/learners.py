@@ -1,0 +1,36 @@
+"""``create_tree_learner`` (port of
+``lightgbm_tpu/parallel/learners.py:620-664``;
+TreeLearner::CreateTreeLearner, src/treelearner/tree_learner.cpp:13-38).
+
+The port applies the JAX package's accelerator rule
+(``learners.py:655``) on every device: ``serial`` gives the partitioned
+(segment) learner when the widest feature's bins fit a byte and the
+serial (``leaf_id``) learner otherwise; ``partitioned`` always gives the
+partitioned learner. On the CPU, which stands in for the card in the
+tests, the JAX package sends ``serial`` to its ``SerialTreeLearner``
+whatever the bins; this is the one place where the port departs from the
+JAX package's CPU routing. Lazy CEGB and multi-val datasets, which pin
+the JAX package's serial learner too, are outside the port's slices and
+are refused by the learners. The data, feature and voting learners are
+ROADMAP Queue 1 item 8.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import Config
+from ..data.dataset import Dataset
+from ..learner.partitioned import PartitionedTreeLearner, _reject
+from ..learner.serial import SerialTreeLearner
+
+
+def create_tree_learner(learner_type: str, dataset: Dataset, config: Config,
+                        device: torch.device, ops: str = "kernel"):
+    """The tree learner for ``learner_type`` on ``dataset``."""
+    if learner_type not in ("serial", "partitioned"):
+        _reject(f"tree_learner={learner_type}", "Queue 1 item 8")
+    fits_u8 = int(dataset.num_bins_array().max(initial=2)) <= 256
+    if learner_type == "partitioned" or fits_u8:
+        return PartitionedTreeLearner(dataset, config, device, ops=ops)
+    return SerialTreeLearner(dataset, config, device, ops=ops)

@@ -34,6 +34,7 @@ def _matrix(seed=0, n=3000):
     {"max_bin": 255, "zero_as_missing": True},
     {"max_bin": 255, "use_missing": False},
     {"max_bin": 15, "bin_construct_sample_cnt": 1000},
+    {"max_bin": 1023},     # uint16 bins; on the device as int16 bits
 ])
 def test_bins_and_matrix_equal_jax(params):
     X, y = _matrix()

@@ -191,3 +191,152 @@ def test_fused_step_kernel_stops(mat, case):
     torch.cuda.synchronize()
     for a, p in zip(before, state):
         assert _same_bytes(a, p)
+
+
+@pytest.mark.parametrize("b", [256, 1024])
+def test_scan_kernel_matches_plain_wide(dev, b):
+    """The scan kernel at 256 bins (static planes) and 1024 (dynamic):
+    thresholds and default directions exact, values at rtol 1e-5; at
+    256 bins bitwise equal to the plain version, as before the bin
+    capacity became a template parameter."""
+    from lightgbm_tpu_torch.ops import split as sp
+    from lightgbm_tpu_torch.ops import split_scan_cuda as sc
+    from lightgbm_tpu_torch.ops.histogram import build_histogram
+    n, f = 40_000, 10
+    g = torch.Generator(device=dev).manual_seed(3)
+    binned = torch.randint(0, b, (n, f), generator=g, device=dev)
+    ghc = torch.stack([torch.randn(n, generator=g, device=dev)
+                       + (binned[:, 0] > b // 2).float(),
+                       torch.rand(n, generator=g, device=dev) + 0.1,
+                       torch.ones(n, device=dev)], dim=1)
+    hists = [build_histogram(binned[:n // 3], ghc[:n // 3], b),
+             build_histogram(binned[n // 3:], ghc[n // 3:], b)]
+    leaves = [tuple(h[0].sum(0).cpu().numpy()) + (-np.inf, np.inf)
+              for h in hists]
+    meta = sp.FeatureMeta(
+        num_bins=np.full(f, b, np.int32),
+        missing=(np.arange(f) % 3).astype(np.int32),
+        default_bin=np.full(f, b // 3, np.int32),
+        most_freq_bin=np.zeros(f, np.int32),
+        monotone=np.zeros(f, np.int32), penalty=np.ones(f, np.float32),
+        is_categorical=np.zeros(f, bool))
+    meta_t = sp.meta_tensors(meta, dev)
+    params = sp.SplitParams(0.0, 1.0, 0.0, 20.0, 1e-3, 0.0, True)
+    k = sc.per_feature_numerical_cuda(hists, leaves, meta_t, params)
+    p = sc.per_feature_numerical_plain(hists, leaves, meta_t, params)
+    assert torch.equal(k[..., sp.O_THR], p[..., sp.O_THR])
+    assert torch.equal(k[..., sp.O_DLEFT], p[..., sp.O_DLEFT])
+    np.testing.assert_allclose(k.cpu().numpy(), p.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    if b == 256:
+        assert _same_bytes(k, p)
+
+
+def _leaf_root(dev, n, f, b, big_l, max_depth=-1, monotone=False, seed=2):
+    """Root state of a serial tree on random [n, f] bins: ([k, S, T,
+    lid, hist], binned, ghc, imeta, fmeta, step kwargs)."""
+    from lightgbm_tpu_torch.learner.split_step import (make_grow_pack,
+                                                       root_state)
+    from lightgbm_tpu_torch.ops import split as sp
+    from lightgbm_tpu_torch.ops import split_scan_cuda as sc
+    from lightgbm_tpu_torch.ops import split_step_cuda as ss
+    from lightgbm_tpu_torch.ops.histogram import build_histogram, make_ghc
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bins = torch.randint(0, b, (n, f), generator=g, device=dev)
+    y = (bins[:, 0].float() / b + 0.3 * torch.rand(n, generator=g,
+                                                   device=dev) > 0.6)
+    ghc = make_ghc(y.float() - 0.5 + 0.01 * torch.randn(
+        n, generator=g, device=dev), 0.2 + 0.05 * torch.rand(
+        n, generator=g, device=dev))
+    binned = bins.to(torch.uint8 if b <= 256 else torch.int16)
+    mono = np.zeros(f, np.int32)
+    if monotone:
+        mono[:2] = (1, -1)
+    meta = sp.FeatureMeta(
+        num_bins=np.full(f, b, np.int32),
+        missing=(np.arange(f) % 3).astype(np.int32),
+        default_bin=np.full(f, b // 2, np.int32),
+        most_freq_bin=np.zeros(f, np.int32), monotone=mono,
+        penalty=np.ones(f, np.float32), is_categorical=np.zeros(f, bool))
+    params = sp.SplitParams(0.1, 1.0, 0.0, 20.0, 1e-3, 0.0, True)
+    hist = torch.zeros((big_l, f, b, 3), device=dev)
+    hist[0] = build_histogram(binned, ghc, b)
+    sums = hist[0, 0].sum(0).cpu().numpy()
+    table = sc.per_feature_numerical_cuda(
+        [hist[0]], [tuple(sums) + (-np.inf, np.inf)],
+        sp.meta_tensors(meta, dev), params)[0]
+    pack = make_grow_pack((), has_monotone=monotone, big_l=big_l)
+    st = root_state(pack, table, *sums, n, params, big_l)
+    k = torch.ones((1,), dtype=torch.int32, device=dev)
+    lid = torch.zeros(n, dtype=torch.int32, device=dev)
+    imeta, fmeta = ss.pack_meta_tables(meta, None, dev)
+    kw = dict(params=params, big_l=big_l, max_depth=max_depth, b=b,
+              has_monotone=monotone)
+    return [k, st["S"], st["T"], lid, hist], binned, ghc, imeta, fmeta, kw
+
+
+def _assert_leaf_states_agree(got, want, nf, ghc_abs_hist, what):
+    """k, lid and the int rows of S and T bitwise; float rows at rtol
+    1e-5 / atol 1e-5; the cache within 1e-5 x the bins' sum of |x| over
+    all rows (a bin of any leaf sums a subset of them), counts exact."""
+    k, S, T, lid, hist = (t.cpu() for t in got)
+    k2, S2, T2, lid2, hist2 = (t.cpu() for t in want)
+    assert torch.equal(k, k2), what
+    assert torch.equal(lid, lid2), what
+    for a, b, n_float in ((S, S2, nf), (T, T2, 4)):
+        assert a[n_float:].numpy().tobytes() == b[n_float:].numpy().tobytes(), what
+        np.testing.assert_allclose(a[:n_float].numpy(), b[:n_float].numpy(),
+                                   rtol=1e-5, atol=1e-5, err_msg=what)
+    assert torch.equal(hist[..., 2], hist2[..., 2]), what
+    assert bool(((hist - hist2).abs() <= 1e-5 * ghc_abs_hist + 1e-6).all()), what
+
+
+@pytest.mark.parametrize("n,f,b,max_depth,monotone", [
+    (20_000, 12, 256, -1, False),    # u8 bins
+    (30_000, 40, 1024, -1, False),   # u16 bins, several feature tiles
+    (5_000, 5, 16, 3, True),         # few bins, depth cap, monotone
+], ids=["u8", "u16_feature_tiles", "small_bins"])
+def test_fused_leaf_kernel_matches_plain(dev, n, f, b, max_depth, monotone):
+    """30 consecutive splits of one tree: each split runs through the
+    leaf kernel and through its plain version from the same state, and
+    the kernel's state carries on to the next split."""
+    from lightgbm_tpu_torch.ops import split_step_cuda as ss
+    from lightgbm_tpu_torch.ops.histogram import build_histogram
+    big_l = 31
+    state, binned, ghc, imeta, fmeta, kw = _leaf_root(
+        dev, n, f, b, big_l, max_depth, monotone)
+    scale = build_histogram(binned, ghc.abs(), b).cpu()
+    nf = ss.state_rows(monotone, "leaf") - ss.STATE_INT_ROWS["leaf"]
+    scratch = ss.LeafScratch(binned, b)
+    for _ in range(big_l - 1):
+        plain = [t.clone() for t in state]
+        ss.fused_split_step_leaf(*state, binned, ghc, imeta, fmeta,
+                                 scratch=scratch, **kw)
+        again = [t.clone() for t in plain]
+        ss.fused_split_step_leaf(*again, binned, ghc, imeta, fmeta,
+                                 scratch=scratch, **kw)
+        ss.fused_split_step_leaf_plain(*plain, binned, ghc, imeta, fmeta,
+                                       **kw)
+        torch.cuda.synchronize()
+        for a, p in zip(state, again):   # bitwise repeatable
+            assert _same_bytes(a, p), int(plain[0][0])
+        _assert_leaf_states_agree(state, plain, nf, scale,
+                                  f"split {int(plain[0][0]) - 1}")
+    assert int(state[0][0]) > 4
+
+
+@pytest.mark.parametrize("case", ["k_at_L", "gain_zero"])
+def test_fused_leaf_kernel_stops(dev, case):
+    """A launch whose grow-loop condition fails changes nothing."""
+    from lightgbm_tpu_torch.ops import split_step_cuda as ss
+    state, binned, ghc, imeta, fmeta, kw = _leaf_root(dev, 20_000, 12,
+                                                      1024, 31)
+    if case == "k_at_L":
+        state[0][0] = 31
+    else:
+        state[1][3, 0] = 0.0   # bs_gain of the only open leaf
+    before = [t.clone() for t in state]
+    ss.fused_split_step_leaf(*state, binned, ghc, imeta, fmeta, **kw)
+    torch.cuda.synchronize()
+    for a, p in zip(before, state):
+        assert _same_bytes(a, p)

@@ -159,6 +159,65 @@ def test_batched_wrapper_stacks_both_children():
     np.testing.assert_array_equal(table[1].numpy(), one.numpy())
 
 
+@pytest.mark.parametrize("missing", ["none", "mix"])
+@pytest.mark.parametrize("ref_name", ["xla", "pallas"])
+def test_matches_jax_at_1024_bins(missing, ref_name):
+    """The plain scan at B = 1024 (the serial learner's widest bins, the
+    scan kernel's new capacity) against both JAX scans."""
+    b = 1024
+    rng = np.random.RandomState(7)
+    n = 20000
+    nb = np.full(F, b, np.int32)
+    nb[1] = 700
+    binned = (rng.rand(n, F) * nb).astype(np.int64)
+    signal = ((binned > nb // 2) * rng.choice([-0.4, 0.4], F)).sum(axis=1)
+    g = (rng.randn(n) + signal).astype(np.float32)
+    h = (0.05 + rng.rand(n) * 0.2).astype(np.float32)
+    hist = np.zeros((F, b, 3), np.float32)
+    for j in range(F):
+        for ch, v in enumerate((g, h, np.ones(n, np.float32))):
+            np.add.at(hist[j, :, ch], binned[:, j], v)
+    miss = MISS_NONE if missing == "none" else MISS_MIX
+    meta = dict(num_bins=nb, missing=np.asarray(miss, np.int32),
+                default_bin=np.full(F, 300, np.int32),
+                most_freq_bin=np.zeros(F, np.int32),
+                monotone=np.zeros(F, np.int32),
+                penalty=np.ones(F, np.float32),
+                is_categorical=np.zeros(F, bool))
+    sums = hist[0].sum(axis=0)
+    p = _params({})
+    jmeta = jsplit.FeatureMeta(**{k: jnp.asarray(v)
+                                  for k, v in meta.items()})
+    jp = jsplit.SplitParams(**p, any_missing=missing != "none")
+    args = (jnp.asarray(hist), jnp.float32(sums[0]), jnp.float32(sums[1]),
+            jnp.float32(sums[2]), jmeta, jp, jnp.float32(-np.inf),
+            jnp.float32(np.inf), jnp.ones((F,), bool))
+    ref = jsplit.per_feature_numerical(*args) if ref_name == "xla" \
+        else per_feature_numerical_pallas(*args, interpret=True)
+    meta_t = tsplit.meta_tensors(tsplit.FeatureMeta(**meta), "cpu")
+    got = tsplit.per_feature_numerical(
+        torch.from_numpy(hist), sums[0], sums[1], sums[2], meta_t,
+        tsplit.SplitParams(**p, any_missing=missing != "none"))
+    fin = np.isfinite(np.asarray(ref.score))
+    assert fin.all()
+    np.testing.assert_array_equal(np.isfinite(got.score.numpy()), fin)
+    np.testing.assert_array_equal(got.threshold.numpy(),
+                                  np.asarray(ref.threshold))
+    np.testing.assert_array_equal(got.default_left.numpy(),
+                                  np.asarray(ref.default_left))
+    for field in FIELDS:
+        np.testing.assert_allclose(getattr(got, field).numpy(),
+                                   np.asarray(getattr(ref, field)),
+                                   rtol=1e-5, atol=1e-5, err_msg=field)
+    # the wrapper takes 1024 bins (on the CPU, the plain version)
+    table = per_feature_numerical_cuda([torch.from_numpy(hist)],
+                                       [(*sums, -np.inf, np.inf)], meta_t,
+                                       tsplit.SplitParams(
+                                           **p, any_missing=missing != "none"))
+    np.testing.assert_array_equal(table[0].numpy(),
+                                  tsplit.scan_table(got).numpy())
+
+
 def test_argmax_tie_rules():
     x = torch.tensor([[1.0, 3.0, 3.0, 2.0], [-np.inf] * 4])
     assert tsplit._argmax_first(x, 1).tolist() == [1, 0]

@@ -286,3 +286,45 @@ def test_learner_gate_on_the_cpu(monkeypatch, env, config, want):
                               "verbosity": -1, "fused_split_kernel": config})
     ds = Dataset.from_numpy(X, cfg, label=(X[:, 0] > 0).astype(np.float32))
     assert PartitionedTreeLearner(ds, cfg, torch.device("cpu")).fused == want
+
+
+@pytest.mark.parametrize("has_monotone", [False, True])
+def test_leaf_layout_matches_jax(has_monotone):
+    """The serial learner's pack (no segment prefix) is the JAX
+    package's ``make_grow_pack(())`` field for field, and its rows are
+    what the leaf kernel is given (``state_rows``)."""
+    from lightgbm_tpu_torch.ops.split_step_cuda import state_rows
+    jp = jss.make_grow_pack((), merged=True, has_cat=False,
+                            has_monotone=has_monotone, big_l=L)
+    tp = tss.make_grow_pack((), has_monotone=has_monotone, big_l=L)
+    assert tp.sf_fields == jp.sf_fields and tp.si_fields == jp.si_fields
+    assert tp.tf_fields == jp.tf_fields and tp.ti_fields == jp.ti_fields
+    assert "leaf_begin" not in tp.si_idx
+    fields = {k: v for k, v in _fields(1).items() if k not in PREFIX}
+    js, jt = _jax_pack(jp, fields)
+    ts, tt = _port_pack(tp, fields)
+    assert ts.numpy().tobytes() == js.tobytes()
+    assert tt.numpy().tobytes() == jt.tobytes()
+    assert ts.shape[0] == state_rows(has_monotone, "leaf") \
+        == state_rows(has_monotone) - len(PREFIX)
+
+
+@pytest.mark.parametrize("env,config,want", [
+    ("", "auto", False), ("", "on", True), ("", "off", False),
+    ("1", "auto", True), ("0", "on", False),
+])
+def test_serial_learner_gate_on_the_cpu(monkeypatch, env, config, want):
+    """The serial learner's gate as the partitioned one's: "auto" is off
+    on the CPU, "on" runs the leaf step's plain version."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.data import Dataset
+    from lightgbm_tpu_torch.learner import SerialTreeLearner
+    monkeypatch.setenv("LGBM_TPU_FUSED_SPLIT_KERNEL", env)
+    rng = np.random.RandomState(0)
+    X = rng.randn(2000, 4)
+    cfg = Config.from_params({"objective": "binary", "num_leaves": 7,
+                              "verbosity": -1, "max_bin": 500,
+                              "fused_split_kernel": config})
+    ds = Dataset.from_numpy(X, cfg, label=(X[:, 0] > 0).astype(np.float32))
+    lrn = SerialTreeLearner(ds, cfg, torch.device("cpu"))
+    assert lrn.fused == want and lrn.num_bins_max > 256

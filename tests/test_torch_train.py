@@ -208,9 +208,11 @@ def test_default_device_raises_without_cuda(monkeypatch):
     ({"linear_tree": True}, "Queue 1 item 7"),
     ({"tree_learner": "data"}, "Queue 1 item 8"),
     ({"histogram_pool_size": 0.001}, "Queue 1 item 7"),
+    ({"max_bin": 2000}, "Queue 1 item 4"),   # > 1024 bins: no learner
 ])
 def test_out_of_slice_configs_rejected(extra, item):
-    X, y = _data(5, n=200)
+    # enough distinct values for more than 1024 bins where asked
+    X, y = _data(5, n=5000 if extra.get("max_bin", 0) > 1024 else 200)
     with pytest.raises(NotImplementedError, match=item):
         lt.train(dict(PARAMS, **extra), lt.Dataset(X, label=y), 1,
                  device="cpu")
