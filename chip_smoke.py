@@ -369,6 +369,16 @@ def check_fused(mat, n, dataset, reps):
                 bound_by="bytes", launch_shape=shape)
 
 
+def leaf_bound_ms(n, n_leaf, n_right, n_small, f, b, bin_bytes):
+    """Least time of one leaf split: leaf_id read once and the
+    right-going rows' ids written, the split feature's bin of the leaf's
+    rows, the smaller child's bins and ghc (12 B), the parent's cache
+    row read and both children's written."""
+    nbytes = (4 * n + 4 * n_right + bin_bytes * n_leaf
+              + n_small * (f * bin_bytes + 12) + 3 * f * b * 3 * 4)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def check_fused_leaf(binned, ghc, dataset, b, reps):
     """The root split (k = 1) of the [n, F] bin matrix (u8, or the int16
     bits of u16 bins) through the leaf kernel and through its plain
@@ -376,7 +386,11 @@ def check_fused_leaf(binned, ghc, dataset, b, reps):
     bitwise equal, the float rows at rtol 1e-5 / atol 1e-5, and both
     child histograms within 1e-5 x sum|x| of the float64 plain
     histograms (the smaller child's own rows for it, the parent's for
-    the sibling, which is parent - child)."""
+    the sibling, which is parent - child). Then one whole tree of L - 1
+    launches from the root between two CUDA events (the tree-average
+    time per launch), and a small split: the state after 200 splits is
+    kept, and the 201st split is held against its plain version and
+    timed from it."""
     import torch
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.learner.partitioned import (
@@ -408,12 +422,12 @@ def check_fused_leaf(binned, ghc, dataset, b, reps):
     kw = dict(params=params, big_l=big_l, max_depth=-1, b=b,
               has_monotone=False)
     scratch = ss.LeafScratch(binned, b)
-    state = [k0.clone(), st0["S"].clone(), st0["T"].clone(), lid0.clone(),
-             hist0.clone()]
+    start = [k0, st0["S"], st0["T"], lid0, hist0]
+    state = [t.clone() for t in start]
 
-    def restore():
-        for dst, src in zip(state, (k0, st0["S"], st0["T"], lid0, hist0)):
-            dst.copy_(src)
+    def restore(src):
+        for dst, t in zip(state, src):
+            dst.copy_(t)
 
     def kernel():
         ss.fused_split_step_leaf(*state, binned, ghc, imeta, fmeta,
@@ -423,54 +437,109 @@ def check_fused_leaf(binned, ghc, dataset, b, reps):
         ss.fused_split_step_leaf_plain(*state, binned, ghc, imeta, fmeta,
                                        **kw)
 
-    kernel()
-    torch.cuda.synchronize()
-    got = [t.clone() for t in state]
-    restore()
-    kernel()
-    torch.cuda.synchronize()
-    for name, a, c in zip(("k", "S", "T", "lid", "hist"), got, state):
-        if not torch.equal(a.view(torch.uint8), c.view(torch.uint8)):
-            fail(f"leaf kernel ({b} bins): {name} not bitwise repeatable")
-    restore()
-    plain()
-    torch.cuda.synchronize()
-    if int(got[0][0]) != 2:
-        fail(f"leaf kernel ({b} bins) did not split the root")
-    nf = len(pack.sf_fields)
-    if not torch.equal(got[0], state[0]) or not torch.equal(got[3],
-                                                            state[3]):
-        fail(f"leaf kernel ({b} bins): k or leaf_id differs from plain")
-    for name, a, c, nfl in (("S", got[1], state[1], nf),
-                            ("T", got[2], state[2], 4)):
-        if not torch.equal(a[nfl:].view(torch.int32),
-                           c[nfl:].view(torch.int32)):
-            fail(f"leaf kernel ({b} bins): int rows of {name} differ")
-        if not torch.allclose(a[:nfl], c[:nfl], rtol=1e-5, atol=1e-5):
-            fail(f"leaf kernel ({b} bins): float rows of {name} differ")
-    lid = got[3]
-    v = pack.view({"S": got[1], "T": got[2]})
-    small = 0 if float(v["leaf_c"][0]) <= float(v["leaf_c"][1]) else 1
-    refs, scales = [], []
-    for leaf in (0, 1):
-        m = (lid == leaf).to(torch.float32)[:, None]
-        refs.append(build_histogram(binned, ghc * m, b))
-        scales.append(build_histogram(binned, ghc.abs() * m, b))
-    scales[1 - small] = scales[0] + scales[1]
-    worst = 0.0
-    for leaf in (0, 1):
-        err = (got[4][leaf] - refs[leaf]).abs()
-        if bool((err > 1e-5 * scales[leaf] + 1e-6).any()):
-            fail(f"leaf kernel ({b} bins): child histogram {leaf} off by "
-                 f"{float(err.max())}")
-        worst = max(worst, float(err.max()))
-    n_small = int((lid == small).sum())
-    n_right = int((lid == 1).sum())
+    def agree(src, what, gain_size=False):
+        """One split from src through the kernel twice (bitwise the
+        same) and through the plain version; returns the kernel's state
+        and the worst child-histogram error. With ``gain_size`` the gain
+        rows (S bs_gain, T split gain) are held to 1e-5 x (|gain| + the
+        leaf's g**2 / h) + 1e-5, as tests/test_torch_fused_leaf.py holds
+        them: a gain is a difference of terms of that size, so it
+        carries their float32 rounding (ROADMAP Queue 3); and a leaf
+        whose gain is -inf in both has no split, so its split fields
+        are not compared."""
+        restore(src)
+        kernel()
+        torch.cuda.synchronize()
+        got = [t.clone() for t in state]
+        restore(src)
+        kernel()
+        torch.cuda.synchronize()
+        for name, a, c in zip(("k", "S", "T", "lid", "hist"), got, state):
+            if not torch.equal(a.view(torch.uint8), c.view(torch.uint8)):
+                fail(f"leaf kernel ({b} bins, {what}): {name} not bitwise "
+                     "repeatable")
+        restore(src)
+        plain()
+        torch.cuda.synchronize()
+        if int(got[0][0]) != int(src[0][0]) + 1:
+            fail(f"leaf kernel ({b} bins) did not split ({what})")
+        nf = len(pack.sf_fields)
+        if not torch.equal(got[0], state[0]) or not torch.equal(got[3],
+                                                                state[3]):
+            fail(f"leaf kernel ({b} bins, {what}): k or leaf_id differs "
+                 "from plain")
+        S_, T_ = state[1], state[2]
+        g = S_[pack.sf_idx["leaf_g"]]
+        h = torch.clamp(S_[pack.sf_idx["leaf_h"]], min=1e-3)
+        v = T_[pack.tf_idx["internal_value"]]
+        w = T_[pack.tf_idx["internal_weight"]]
+        sizes = {"S": (pack.sf_idx["bs_gain"], g * g / h),
+                 "T": (pack.tf_idx["split_gain_arr"], v * v * w.abs())}
+        for name, a, c, nfl in (("S", got[1], S_, nf), ("T", got[2], T_, 4)):
+            if not torch.equal(a[nfl:].view(torch.int32),
+                               c[nfl:].view(torch.int32)):
+                fail(f"leaf kernel ({b} bins, {what}): int rows of {name} "
+                     "differ")
+            fa, fc = a[:nfl].clone(), c[:nfl].clone()
+            if gain_size:
+                row, size = sizes[name]
+                ga, gc = fa[row], fc[row]
+                fin = torch.isfinite(gc)
+                if not torch.equal(torch.isfinite(ga), fin) \
+                        or not torch.equal(ga[~fin], gc[~fin]) \
+                        or bool(((ga - gc).abs()[fin] > 1e-5 * (
+                            gc.abs() + size)[fin] + 1e-5).any()):
+                    fail(f"leaf kernel ({b} bins, {what}): the gain row of "
+                         f"{name} differs beyond its gain size")
+                fa[row] = fc[row]
+                if name == "S":
+                    # a leaf without a valid split (gain -inf in both)
+                    # keeps split fields that nothing reads: its scan's
+                    # outputs at an invalid threshold (0/0 or x/0)
+                    dead = torch.isneginf(gc)
+                    for field in ("bs_lg", "bs_lh", "bs_lc", "bs_lout",
+                                  "bs_rout"):
+                        i = pack.sf_idx[field]
+                        fa[i, dead] = 0.0
+                        fc[i, dead] = 0.0
+            close = torch.isclose(fa, fc, rtol=1e-5, atol=1e-5) \
+                | (torch.isinf(fa) & (fa == fc))
+            if not bool(close.all()):
+                r, col = (int(x) for x in (~close).nonzero()[0])
+                fail(f"leaf kernel ({b} bins, {what}): float rows of "
+                     f"{name} differ (row {r}, leaf {col}: "
+                     f"{float(fa[r, col])!r} vs plain "
+                     f"{float(fc[r, col])!r})")
+        # the two children: the leaf split and the new one
+        lid_old, lid = src[3], got[3]
+        moved = lid != lid_old
+        new = int(src[0][0])
+        parent = int(lid_old[moved][0]) if bool(moved.any()) else new
+        n_leaf = int((lid_old == parent).sum())
+        n_right = int(moved.sum())
+        small = parent if n_leaf - n_right <= n_right else new
+        refs, scales = {}, {}
+        for leaf in (parent, new):
+            m = (lid == leaf).to(torch.float32)[:, None]
+            refs[leaf] = build_histogram(binned, ghc * m, b)
+            scales[leaf] = build_histogram(binned, ghc.abs() * m, b)
+        other = new if small == parent else parent
+        scales[other] = scales[parent] + scales[new]
+        worst = 0.0
+        for leaf in (parent, new):
+            err = (got[4][leaf] - refs[leaf]).abs()
+            if bool((err > 1e-5 * scales[leaf] + 1e-6).any()):
+                fail(f"leaf kernel ({b} bins, {what}): child histogram "
+                     f"{leaf} off by {float(err.max())}")
+            worst = max(worst, float(err.max()))
+        sizes = dict(n_leaf=n_leaf, n_right=n_right,
+                     n_small=min(n_right, n_leaf - n_right))
+        return got, worst, sizes
 
-    def timed(fn, count):
+    def timed(fn, count, src):
         times = []
         for _ in range(count):
-            restore()
+            restore(src)
             a = torch.cuda.Event(enable_timing=True)
             c = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -480,17 +549,51 @@ def check_fused_leaf(binned, ghc, dataset, b, reps):
             times.append(a.elapsed_time(c))
         return float(np.median(times))
 
-    ms = timed(kernel, reps)
-    plain_ms = timed(plain, 3)
+    _, worst, root_sizes = agree(start, "root split")
+    ms = timed(kernel, reps, start)
+    plain_ms = timed(plain, 3, start)
     bin_bytes = binned.element_size()
-    # leaf_id read once and the right-going rows' ids written, the split
-    # feature's bins of the leaf's rows, the smaller child's bins and
-    # ghc, the parent's cache row read and both children's written
-    nbytes = (4 * n + 4 * n_right + bin_bytes * n
-              + n_small * (F * bin_bytes + 12) + 3 * F * b * 3 * 4)
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                library_ms=None, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                bound_by="bytes", launch_shape=scratch.shape)
+    bound = leaf_bound_ms(n, n, root_sizes["n_right"], root_sizes["n_small"],
+                          F, b, bin_bytes)
+    # one whole tree from the root, its launches between two events
+    restore(start)
+    a = torch.cuda.Event(enable_timing=True)
+    c = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(big_l - 1):
+        kernel()
+    c.record()
+    torch.cuda.synchronize()
+    splits = int(state[0][0]) - 1
+    tree_ms = a.elapsed_time(c) / (big_l - 1)
+    # a small split: the state after 200 splits (fewer if the tree
+    # stopped early), then the next one
+    restore(start)
+    for _ in range(min(200, splits - 1)):
+        kernel()
+    snap = [t.clone() for t in state]
+    _, small_err, small_sizes = agree(snap, f"split {int(snap[0][0])}",
+                                      gain_size=True)
+    small_ms = timed(kernel, reps, snap)
+    small_bound = leaf_bound_ms(n, small_sizes["n_leaf"],
+                                small_sizes["n_right"],
+                                small_sizes["n_small"], F, b, bin_bytes)
+    return dict(max_abs_err=max(worst, small_err), ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=bound, bound_by="bytes",
+                launch_shape=scratch.shape, root=root_sizes,
+                tree_avg_ms=tree_ms, tree_splits=splits,
+                small_split_ms=small_ms, small_split=small_sizes,
+                small_split_bound_ms=small_bound)
+
+
+def leaf_summary(r):
+    return (f"root split {r['ms']:.4f} ms (smaller child "
+            f"{r['root']['n_small']} rows), small split "
+            f"{r['small_split_ms']:.4f} ms (smaller child "
+            f"{r['small_split']['n_small']} rows, bound "
+            f"{r['small_split_bound_ms']:.5f} ms), tree average "
+            f"{r['tree_avg_ms']:.4f} ms per launch over "
+            f"{r['tree_splits']} splits;")
 
 
 def tree_sig(t):
@@ -677,23 +780,61 @@ def train_paths(label, params, ds, iters, dev, on_path, fused_kernel):
           f"max relative leaf value diff {rel:.3g}")
     if len(same) != iters or not all(same) or rel > 1e-5:
         fail(f"the {label} fused and per-phase paths grew different trees")
-    # one more fused tree, its split loop under the sync checker
+    # one more fused tree, its split loop under the sync checker and
+    # between two CUDA events
     lrn = fused_bst._gbdt.learner
     launch_loop = lrn._launch_fused
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
 
     def checked(*a, **kw):
         torch.cuda.set_sync_debug_mode("error")
         try:
-            return launch_loop(*a, **kw)
+            events[0].record()
+            launch_loop(*a, **kw)
+            events[1].record()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     lrn._launch_fused = checked
     fused_bst.update()
     lrn._launch_fused = launch_loop
+    torch.cuda.synchronize()
+    loop_ms = events[0].elapsed_time(events[1])
+    tree = fused_bst.models[-1]
     print(f"[train {label}] tree {len(fused_bst.models)}: "
           f"{lrn.num_leaves - 1} {fused_kernel} launches ran under "
-          "set_sync_debug_mode('error')")
+          f"set_sync_debug_mode('error'), {loop_ms:.3f} ms between the "
+          f"events = {loop_ms / (lrn.num_leaves - 1):.4f} ms per launch "
+          f"({tree.num_leaves - 1} splits); average-split bound "
+          f"{avg_split_bound_ms(fused_bst, lrn):.5f} ms over the "
+          f"{len(fused_bst.models)} trees")
     return fused_bst, runs["fused"][1], runs["per-phase"][1]
+
+
+def avg_split_bound_ms(bst, lrn):
+    """The fused kernel's bound (chip_smoke's byte counts, per split)
+    averaged over every split of the booster's trees, from the trees'
+    node and leaf counts: segment, the parent's segment read and written
+    once plus three cache rows; leaf, ``leaf_bound_ms``."""
+    from lightgbm_tpu_torch.learner import SerialTreeLearner
+    from lightgbm_tpu_torch.ops.hist_cuda import matrix_cols
+    n, f, b = lrn.num_data, F, lrn.num_bins_max
+    total, splits = 0.0, 0
+    for t in bst.models:
+        def count(c):
+            return int(t.internal_count[c]) if c >= 0 \
+                else int(t.leaf_count[~c])
+        for s in range(t.num_leaves - 1):
+            n_leaf = int(t.internal_count[s])
+            n_right = count(int(t.right_child[s]))
+            n_small = min(n_right, n_leaf - n_right)
+            if isinstance(lrn, SerialTreeLearner):
+                total += leaf_bound_ms(n, n_leaf, n_right, n_small, f, b,
+                                       lrn.binned.element_size())
+            else:
+                total += (2 * n_leaf * matrix_cols(f) + 3 * f * b * 3 * 4) \
+                    / HBM_BYTES_PER_S * 1e3
+            splits += 1
+    return total / max(splits, 1)
 
 
 def main() -> int:
@@ -788,13 +929,16 @@ def main() -> int:
     rec["fused_split_step_leaf"] = check_fused_leaf(
         bins_wide, ghc, binned_wide, b_wide, args.reps)
     print(f"[check] fused_split_step_leaf ({b_wide} bins, u16) ok "
-          f"{time.perf_counter() - t0:.1f} s {rec['fused_split_step_leaf']}")
+          f"{time.perf_counter() - t0:.1f} s: "
+          f"{leaf_summary(rec['fused_split_step_leaf'])} "
+          f"{rec['fused_split_step_leaf']}")
     t0 = time.perf_counter()
     b_u8 = int(binned.num_bins_array().max())
     leaf_u8 = check_fused_leaf(binned.binned_device(dev), ghc, binned, b_u8,
                                args.reps)
     print(f"[check] fused_split_step_leaf ({b_u8} bins, u8) ok "
-          f"{time.perf_counter() - t0:.1f} s {leaf_u8}")
+          f"{time.perf_counter() - t0:.1f} s: {leaf_summary(leaf_u8)} "
+          f"{leaf_u8}")
     del ghc, bins_wide, grad, hess
     torch.cuda.empty_cache()
 

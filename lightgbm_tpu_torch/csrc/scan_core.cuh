@@ -10,8 +10,9 @@
 // min_data/min_hessian, monotone bounds, the feature mask and penalty,
 // with the reference's tie rules (largest threshold for the
 // right-to-left scan, smallest for left-to-right, right-to-left wins
-// ties). The six prefix sums (2 directions x 3 channels) run one per
-// thread, sequentially over the bins in double, rounded once per bin;
+// ties). The six prefix sums (2 directions x 3 channels) are block
+// scans in double, rounded once per bin (block_prefix6: a fixed order
+// that ops/split.py _cumsum repeats with elementwise float64 adds);
 // then every thread evaluates the two candidate splits of its bins
 // (bin b, b + blockDim.x, ...), and a block argmax with (score,
 // threshold) ordering picks each direction's winner. The (score,
@@ -120,10 +121,19 @@ __device__ __forceinline__ void block_argmax(float s, int t, bool last,
   __syncthreads();
 }
 
+// Bin b of a plane sits at pad(b): one float of padding per 32 bins, so
+// that threads walking 32-bin segments side by side (block_prefix6)
+// hit 32 different banks.
+__device__ __forceinline__ int pad(int b) { return b + (b >> 5); }
+
 template <int kCap>
 struct ScanSmem {
-  float xs[6][kCap];  // masked inputs, then prefix sums
-  float lp[3][kCap];  // left sums of the +1 scan
+  static_assert(kCap >= 128, "the segment offsets share lp's memory");
+  float xs[6][kCap + kCap / 32];  // masked inputs, then prefix sums (pad)
+  union {
+    float lp[3][kCap];   // left sums of the +1 scan
+    double seg[6][32];   // block_prefix6's segment totals, then offsets
+  };
   float lm[3][kCap];  // left sums of the -1 scan
   float red_s[32];
   int red_t[32];
@@ -131,17 +141,86 @@ struct ScanSmem {
   int win_t[2];
 };
 
+// Inclusive scan of x over the warp's lanes: lane i adds the value of
+// lane i - o for o = 1, 2, 4, 8, 16 (Kogge-Stone).
+__device__ __forceinline__ double warp_scan(double x, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  return x;
+}
+
+// The six planes sm.xs[0..6)[0, B) replaced by their prefix sums,
+// accumulated in double and rounded once per bin. The order is fixed,
+// so the result is bitwise repeatable and ops/split.py _cumsum (the
+// plain version) repeats it: the bins in 32-bin segments, each summed
+// in bin order by one thread from 0.0 (the last segment padded with
+// zeros), a warp scan (warp_scan) of each plane's segment totals, and
+// each bin's running sum plus its segment's exclusive offset (0.0 for
+// the first). blockDim.x is a multiple of 32.
+template <int kCap>
+__device__ __forceinline__ void block_prefix6(ScanSmem<kCap>& sm, int B) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int nseg = (B + 31) >> 5, ntask = 6 * nseg;
+  for (int pass = 0; pass < 2; ++pass) {
+    // pass 0 keeps each segment's total, pass 1 writes the prefixes;
+    // 8 bins' loads in flight at a time
+    for (int t = threadIdx.x; t < ntask; t += blockDim.x) {
+      const int c = t / nseg, sg = t % nseg, b0 = sg * 32;
+      float* xc = sm.xs[c] + pad(b0);
+      const double off = pass == 0 ? 0.0 : sm.seg[c][sg];
+      double acc = 0.0;
+      for (int i0 = 0; i0 < 32; i0 += 8) {
+        float x[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) x[i] = b0 + i0 + i < B ? xc[i0 + i] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc += (double)x[i];
+          if (pass == 1 && b0 + i0 + i < B) xc[i0 + i] = (float)(acc + off);
+        }
+      }
+      if (pass == 0) sm.seg[c][sg] = acc;
+    }
+    __syncthreads();
+    if (pass == 0) {
+      // exclusive offsets of the segments, one warp per plane
+      for (int c = warp; c < 6; c += nwarps) {
+        const double t = warp_scan(lane < nseg ? sm.seg[c][lane] : 0.0, lane);
+        const double ex = __shfl_up_sync(0xffffffffu, t, 1);
+        sm.seg[c][lane] = lane == 0 ? 0.0 : ex;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Clock read i of a timed caller (kClock; thread 0 only).
+template <bool kClock>
+__device__ __forceinline__ void clock_at(unsigned long long* clk, int i) {
+  if constexpr (kClock) {
+    if (clk != nullptr && threadIdx.x == 0) clk[i] = clock64();
+  }
+}
+
 // One (leaf, feature) row of the [K, F, 8] table (score, threshold,
 // left g/h(+kEps)/c, default_left, left and right output) into o.
 // blockDim.x is a multiple of 32; B <= kCap. hist points at the
-// feature's [B][3] planes.
-template <int kCap>
+// feature's [B][3] planes. With kClock, thread 0 writes clock64 to
+// clk[0, 5): entry, planes loaded, prefix sums, candidates, end.
+template <int kCap, bool kClock = false>
 __device__ __forceinline__ void scan_feature(const float* hist, int B,
                                              const Leaf& L, int nb, int miss,
                                              int defbin, int mono,
                                              float penalty, float fmask,
                                              const Params& p,
-                                             ScanSmem<kCap>& sm, float* o) {
+                                             ScanSmem<kCap>& sm, float* o,
+                                             unsigned long long* clk =
+                                                 nullptr) {
+  clock_at<kClock>(clk, 0);
   const bool two_scan = miss != 0 && nb > 2;
   const bool na_excl = two_scan && miss == LTT_MISSING_NAN;
   for (int b = threadIdx.x; b < B; b += blockDim.x) {
@@ -149,21 +228,16 @@ __device__ __forceinline__ void scan_feature(const float* hist, int B,
                               b == defbin;
     const bool is_na_bin = na_excl && b == nb - 1;
     for (int ch = 0; ch < 3; ++ch) {
-      const float x = hist[b * 3 + ch];
-      sm.xs[ch][b] = skip_default ? 0.f : x;
-      sm.xs[3 + ch][b] = (skip_default || is_na_bin) ? 0.f : x;
+      // from L2: a fused step's other blocks wrote this row in this launch
+      const float x = __ldcg(hist + b * 3 + ch);
+      sm.xs[ch][pad(b)] = skip_default ? 0.f : x;
+      sm.xs[3 + ch][pad(b)] = (skip_default || is_na_bin) ? 0.f : x;
     }
   }
   __syncthreads();
-  if (threadIdx.x < 6) {
-    const int c = threadIdx.x;
-    double acc = 0.0;
-    for (int i = 0; i < B; ++i) {
-      acc += (double)sm.xs[c][i];
-      sm.xs[c][i] = (float)acc;
-    }
-  }
-  __syncthreads();
+  clock_at<kClock>(clk, 1);
+  block_prefix6(sm, B);
+  clock_at<kClock>(clk, 2);
 
   const float ph_eps = L.ph + 2e-15f;
   const float gain_shift = gain_given(L.pg, ph_eps, out_nc(L.pg, ph_eps, p), p);
@@ -177,9 +251,10 @@ __device__ __forceinline__ void scan_feature(const float* hist, int B,
                               b == defbin;
     float score_p = -INFINITY, score_m = -INFINITY;
     // ---- dir=+1: left-to-right; default/NaN implicitly go right
-    const float lg_p = sm.xs[0][b];
-    const float hl_p = sm.xs[1][b] + kEps;
-    const float lc_p = sm.xs[2][b];
+    const int pb = pad(b), plast = pad(B - 1);
+    const float lg_p = sm.xs[0][pb];
+    const float hl_p = sm.xs[1][pb] + kEps;
+    const float lc_p = sm.xs[2][pb];
     const float hr_p = ph_eps - hl_p;
     const float gr_p = L.pg - lg_p;
     const float cr_p = L.pc - lc_p;
@@ -194,9 +269,9 @@ __device__ __forceinline__ void scan_feature(const float* hist, int B,
     sm.lp[2][b] = lc_p;
 
     // ---- dir=-1: right-to-left; default/NaN implicitly go left
-    const float rg_m = sm.xs[3][B - 1] - sm.xs[3][b];
-    const float hr_m = (sm.xs[4][B - 1] - sm.xs[4][b]) + kEps;
-    const float rc_m = sm.xs[5][B - 1] - sm.xs[5][b];
+    const float rg_m = sm.xs[3][plast] - sm.xs[3][pb];
+    const float hr_m = (sm.xs[4][plast] - sm.xs[4][pb]) + kEps;
+    const float rc_m = sm.xs[5][plast] - sm.xs[5][pb];
     const float gl_m = L.pg - rg_m;
     const float hl_m = ph_eps - hr_m;
     const float cl_m = L.pc - rc_m;
@@ -220,6 +295,7 @@ __device__ __forceinline__ void scan_feature(const float* hist, int B,
       t_p = b;
     }
   }
+  clock_at<kClock>(clk, 3);
   block_argmax(best_m, t_m, true, sm.red_s, sm.red_t, &sm.win_s[0],
                &sm.win_t[0]);
   block_argmax(best_p, t_p, false, sm.red_s, sm.red_t, &sm.win_s[1],
@@ -247,6 +323,7 @@ __device__ __forceinline__ void scan_feature(const float* hist, int B,
     o[7] = out_c(L.pg - lg, ph_eps - lh, p, L.cmin, L.cmax);
   }
   __syncthreads();  // the shared planes are reused by the next call
+  clock_at<kClock>(clk, 4);
 }
 
 }  // namespace ltt

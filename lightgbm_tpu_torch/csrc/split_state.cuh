@@ -171,14 +171,18 @@ template <class A>
 __device__ void write_child(const A& a, int idx, const float* tab,
                            const Leaf& ch, float out, int side, int begin,
                            int cnt, int node, int depth, bool blocked) {
+  // the table rows come from other blocks of this launch: read from L2
   int bi = 0;
-  float best = tab[0];
-  for (int j = 1; j < a.F; ++j)
-    if (tab[j * 8] > best) {
-      best = tab[j * 8];
+  float best = __ldcg(tab);
+  for (int j = 1; j < a.F; ++j) {
+    const float v = __ldcg(tab + j * 8);
+    if (v > best) {
+      best = v;
       bi = j;
     }
-  const float* r = tab + bi * 8;
+  }
+  float r[8];
+  for (int i = 0; i < 8; ++i) r[i] = __ldcg(tab + bi * 8 + i);
   const int L = a.big_l;
   float* S = a.S;
   S[S_LEAF_G * L + idx] = ch.pg;

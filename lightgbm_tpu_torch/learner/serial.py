@@ -46,7 +46,7 @@ import torch
 from ..config import Config
 from ..data.dataset import Dataset
 from ..ops.histogram import build_histogram, make_ghc
-from ..ops.split_step_cuda import (LeafScratch, fused_split_step_leaf,
+from ..ops.split_step_cuda import (LeafScratch, LeafStep,
                                    fused_split_step_leaf_plain,
                                    leaf_split_ops)
 from .partitioned import LeafwiseLearner
@@ -99,17 +99,20 @@ class SerialTreeLearner(LeafwiseLearner):
 
     def _launch_fused(self, k, S, T, ghc, imeta, fmeta) -> None:
         """The split loop of one tree: L - 1 fused steps, enqueued with
-        no host read in between."""
-        step = fused_split_step_leaf_plain if self.plain \
-            else fused_split_step_leaf
+        no host read in between. The kernel's launch is prepared (and
+        its operands checked) once a tree."""
         kw = dict(params=self.params, big_l=self.num_leaves,
                   max_depth=self.max_depth, b=self.num_bins_max,
                   has_monotone=self.has_monotone)
-        if not self.plain:
-            kw["scratch"] = self._scratch
+        args = (k, S, T, self.leaf_id, self.hist, self.binned, ghc, imeta,
+                fmeta)
+        if self.plain:
+            for _ in range(self.num_leaves - 1):
+                fused_split_step_leaf_plain(*args, **kw)
+            return
+        step = LeafStep(*args, scratch=self._scratch, **kw)
         for _ in range(self.num_leaves - 1):
-            step(k, S, T, self.leaf_id, self.hist, self.binned, ghc, imeta,
-                 fmeta, **kw)
+            step()
 
     def _grow_per_phase(self, st, ghc, meta_t, tables, imeta) -> int:
         """S and T on the host; one host read of the scan tables per

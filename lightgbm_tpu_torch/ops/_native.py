@@ -70,11 +70,15 @@ _SIGNATURES = {
     # B, feat_tile, out int32[3] (blocks per SM, grid, shared bytes)
     "ltt_split_step_shape": [_I, _I, _P],
     # bin_bytes, k, S, T, lid, hist, bins, ghc, imeta, fmeta, partial,
-    # mask, table, n, L, F, B, feat_tile, nchunks, has_monotone,
-    # max_depth, l1, l2, mds, min_data, min_hess, min_gain, stream
-    "ltt_split_step_leaf": [_I] + [_P] * 12 + [_I] * 8 + [_F] * 6 + [_P],
+    # mask, ids, counts, table, done, n, L, F, B, feat_tile, grid_cap,
+    # has_monotone, max_depth, l1, l2, mds, min_data, min_hess, min_gain,
+    # stream
+    "ltt_split_step_leaf": [_I] + [_P] * 15 + [_I] * 8 + [_F] * 6 + [_P],
+    # the same, then times (u64 [L - 1, 32]), stream
+    "ltt_split_step_leaf_timed": [_I] + [_P] * 15 + [_I] * 8 + [_F] * 6
+    + [_P, _P],
     # bin_bytes, n, F, B, feat_tile, out int32[4] (blocks per SM, grid,
-    # shared bytes, row chunks)
+    # shared bytes, most chunks of a split)
     "ltt_split_step_leaf_shape": [_I] * 5 + [_P],
 }
 

@@ -11,9 +11,11 @@ kernel (``ops/split_scan_cuda.py``); both write the same ``[F, 8]``
 table (``scan_table``). One deliberate difference from the JAX
 formulation: prefix sums accumulate in float64 and round once per bin
 (``_cumsum``), and the right-to-left totals are the last prefix, as in
-``split_scan_pallas.scan_core``. That fixes one rounding per prefix, so
-the kernel and this version agree bit for bit on every device; against
-the JAX package they differ by float32 rounding only.
+``split_scan_pallas.scan_core``. ``_cumsum`` adds in the kernel's
+fixed order (``csrc/scan_core.cuh:block_prefix6``: 32-bin segments,
+then their totals) with elementwise float64 adds, so the kernel and
+this version round the same double on every device and agree bit for
+bit; against the JAX package they differ by float32 rounding only.
 """
 
 from __future__ import annotations
@@ -139,10 +141,38 @@ def _argmax_last(x, dim=-1):
     return n - 1 - torch.argmax(torch.flip(x, dims=(dim,)), dim=dim)
 
 
+def _warp_scan(v):
+    """Inclusive scan over the last axis of 32 lanes: lane i adds lane
+    i - o for o = 1, 2, 4, 8, 16 (the kernel's ``warp_scan``)."""
+    lane = torch.arange(32, device=v.device)
+    for o in (1, 2, 4, 8, 16):
+        y = torch.nn.functional.pad(v[..., :-o], (o, 0))
+        v = torch.where(lane >= o, v + y, v)
+    return v
+
+
 def _cumsum(x):
     """Prefix sums over the bin axis, accumulated in float64 and
-    rounded once per bin (see the module note)."""
-    return torch.cumsum(x.double(), dim=-1).float()
+    rounded once per bin (see the module note), in the order of the
+    kernel's ``block_prefix6``: 32-bin segments (the last padded with
+    zeros) each summed in bin order from 0.0, a warp scan of the segment
+    totals, and each bin's running sum plus its segment's exclusive
+    offset. Elementwise float64 adds only, so every device rounds the
+    same."""
+    b = x.shape[-1]
+    nseg = -(-b // 32)
+    v = torch.nn.functional.pad(x.double(), (0, nseg * 32 - b))
+    v = v.reshape(*x.shape[:-1], nseg, 32)
+    acc = torch.zeros(v.shape[:-1], dtype=torch.float64, device=x.device)
+    run = []
+    for i in range(32):
+        acc = acc + v[..., i]
+        run.append(acc)
+    run = torch.stack(run, dim=-1)
+    tot = torch.nn.functional.pad(run[..., 31], (0, 32 - nseg))
+    off = torch.nn.functional.pad(_warp_scan(tot)[..., :nseg - 1], (1, 0))
+    out = run + off[..., None]
+    return out.reshape(*x.shape[:-1], nseg * 32)[..., :b].float()
 
 
 def _f32(v, device):

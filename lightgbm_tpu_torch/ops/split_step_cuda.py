@@ -21,7 +21,9 @@ split_step_host``) with the plain ops ``split_leaf``,
 ``build_histogram`` over masked ghc and ``per_feature_numerical_plain``
 (``leaf_split_ops``). The kernel takes u8 bins up to 256 and u16 bins
 (held as int16 bit patterns) up to 1024, where the TPU body stops at
-u8 bins and 192 features (Mosaic limits).
+u8 bins and 192 features (Mosaic limits). ``LeafStep`` is the same
+launch prepared once for a tree's operands (checked once, one ctypes
+call per split), which the serial learner's split loop uses.
 
 **Segment layout.**
 
@@ -63,9 +65,13 @@ IM_NBINS, IM_MISS, IM_DEFBIN, IM_MOSTFREQ, IM_MONO, IM_GROUP, \
 # dynamic shared memory of one fused block: its histogram tile must
 # leave room for two blocks per SM (the scan's planes are static)
 FUSED_SMEM_BYTES = 100 * 1024
-# the leaf kernel's histogram tile holds float64 sums; with its scan
-# planes reusing the same memory, two blocks fit an SM
-LEAF_SMEM_BYTES = 100 * 1024
+# the leaf kernel's dynamic shared memory: a float64 histogram tile and
+# LEAF_STAGE_ROWS staged rows (ghc and the tile's bins), two blocks per
+# SM; the scan planes reuse the same memory
+LEAF_SMEM_BYTES = 110 * 1024
+LEAF_STAGE_ROWS = 512   # csrc/split_step_leaf.cu kStageRows
+LEAF_MAX_TILE = 16      # csrc/split_step_leaf.cu kMaxTile
+LEAF_TIMES = 32         # clock reads per split of the timed build
 # int rows of the merged pack: the JAX package's GROW_SI less the
 # derived leaf_parent (7), after the segment layout's leaf_begin,
 # leaf_cnt
@@ -320,9 +326,16 @@ def fused_split_step_segment(k, S, T, mat, ws, hist, imeta, fmeta, *,
 
 # ---- leaf layout ------------------------------------------------------
 
-def leaf_feat_tile(num_features: int, num_bins: int) -> int:
-    """Features per histogram tile of the leaf kernel (float64 sums)."""
-    return max(1, min(num_features, LEAF_SMEM_BYTES // (num_bins * 3 * 8)))
+def leaf_feat_tile(num_features: int, num_bins: int,
+                   bin_bytes: Optional[int] = None) -> int:
+    """Features per histogram tile of the leaf kernel (float64 sums and
+    the staged rows' bins; ``bin_bytes`` defaults to the narrowest type
+    that holds ``num_bins``)."""
+    if bin_bytes is None:
+        bin_bytes = 1 if num_bins <= 256 else 2
+    fit = (LEAF_SMEM_BYTES - 12 * LEAF_STAGE_ROWS) \
+        // (num_bins * 3 * 8 + LEAF_STAGE_ROWS * bin_bytes)
+    return max(1, min(num_features, fit, LEAF_MAX_TILE))
 
 
 def leaf_bin_bytes(binned: torch.Tensor) -> int:
@@ -338,21 +351,25 @@ def leaf_bin_bytes(binned: torch.Tensor) -> int:
 def leaf_launch_shape(bin_bytes: int, n: int, num_features: int,
                       num_bins: int) -> dict:
     """The cooperative grid the leaf kernel takes on the current card,
-    and the row chunks of its partials."""
+    and the most histogram chunks of one split (the partials' leading
+    dimension; it depends on the feature tiles, not on the card)."""
     out = (ctypes.c_int * 4)()
     err = _native.library().ltt_split_step_leaf_shape(
         bin_bytes, n, num_features, num_bins,
-        leaf_feat_tile(num_features, num_bins), ctypes.addressof(out))
+        leaf_feat_tile(num_features, num_bins, bin_bytes),
+        ctypes.addressof(out))
     _native.check(err, "fused_split_step_leaf")
     return dict(blocks_per_sm=out[0], grid=out[1], smem_bytes=out[2],
-                nchunks=out[3])
+                max_chunks=out[3])
 
 
 class LeafScratch:
     """Device scratch of the leaf kernel, allocated once per learner
-    (never per split): float64 histogram partials [nchunks, F, B, 3],
-    the smaller child's membership bits [ceil(N / 32)] and both
-    children's scan tables."""
+    (never per split): float64 histogram partials [max_chunks, F, B, 3]
+    (a split writes as many as its smaller child has chunks), the
+    smaller child's membership bits [ceil(N / 32)] and row ids [N], the
+    per-block member counts [grid], both children's scan tables and the
+    count of blocks past their scans."""
 
     def __init__(self, binned: torch.Tensor, num_bins: int):
         n, f = binned.shape
@@ -360,11 +377,16 @@ class LeafScratch:
         self.shape = leaf_launch_shape(leaf_bin_bytes(binned), n, f,
                                        num_bins)
         self.partial = torch.empty(
-            (self.shape["nchunks"], f, num_bins, 3), dtype=torch.float64,
+            (self.shape["max_chunks"], f, num_bins, 3), dtype=torch.float64,
             device=dev)
         self.mask = torch.empty((-(-n // 32),), dtype=torch.int32,
                                 device=dev)
+        self.ids = torch.empty((n,), dtype=torch.int32, device=dev)
+        self.counts = torch.empty((self.shape["grid"],), dtype=torch.int32,
+                                  device=dev)
         self.table = torch.empty((2, f, 8), dtype=torch.float32, device=dev)
+        # blocks past their scans; the launch that counts last resets it
+        self.done = torch.zeros((1,), dtype=torch.int32, device=dev)
 
 
 def leaf_split_ops(lid, binned, ghc, imeta: np.ndarray, b: int, scan):
@@ -418,6 +440,87 @@ def fused_split_step_leaf_plain(k, S, T, lid, hist, binned, ghc, imeta,
         k.add_(1)
 
 
+class LeafStep:
+    """A prepared launch of the leaf kernel over one tree's operands: the
+    checks run once, here, and each call is one ctypes call with the
+    arguments already converted (the serial learner's split loop calls
+    it L - 1 times a tree). Arguments as ``fused_split_step_leaf``."""
+
+    def __init__(self, k, S, T, lid, hist, binned, ghc, imeta, fmeta, *,
+                 params: SplitParams, big_l: int, max_depth: int, b: int,
+                 has_monotone: bool, scratch: Optional[LeafScratch] = None):
+        dev = binned.device
+        if dev.type != "cuda":
+            raise ValueError(f"the leaf kernel runs on CUDA, not {dev}")
+        bin_bytes = leaf_bin_bytes(binned)
+        if not 1 <= b <= (256 if bin_bytes == 1 else MAX_BINS["leaf"]):
+            raise ValueError(f"num_bins {b} out of range for "
+                             f"{8 * bin_bytes}-bit bins")
+        n, f = binned.shape
+        req = _native.require
+        req(k, device=dev, dtype=torch.int32, shape=(1,), name="k")
+        req(S, device=dev, dtype=torch.float32,
+            shape=(state_rows(has_monotone, "leaf"), big_l), name="S")
+        req(T, device=dev, dtype=torch.float32,
+            shape=(TREE_ROWS, big_l - 1), name="T")
+        req(lid, device=dev, dtype=torch.int32, shape=(n,), name="lid")
+        req(hist, device=dev, dtype=torch.float32, shape=(big_l, f, b, 3),
+            name="hist")
+        req(binned, device=dev, dtype=binned.dtype, name="binned")
+        req(ghc, device=dev, dtype=torch.float32, shape=(n, 3), name="ghc")
+        req(imeta, device=dev, dtype=torch.int32, shape=(f, 8),
+            name="imeta")
+        req(fmeta, device=dev, dtype=torch.float32, shape=(f, 2),
+            name="fmeta")
+        if scratch is None:
+            scratch = LeafScratch(binned, b)
+        if tuple(scratch.partial.shape[1:]) != (f, b, 3) \
+                or scratch.mask.numel() * 32 < n or scratch.ids.numel() < n:
+            raise ValueError("scratch does not fit this matrix")
+        # the tensors stay referenced while their pointers are held
+        self._keep = (k, S, T, lid, hist, binned, ghc, imeta, fmeta,
+                      scratch)
+        self.big_l = big_l
+        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        p = params
+        self._args = (
+            I(bin_bytes), *(P(t.data_ptr()) for t in (
+                k, S, T, lid, hist, binned, ghc, imeta, fmeta,
+                scratch.partial, scratch.mask, scratch.ids, scratch.counts,
+                scratch.table, scratch.done)),
+            *(I(v) for v in (n, big_l, f, b,
+                             leaf_feat_tile(f, b, bin_bytes),
+                             scratch.counts.numel(), int(bool(has_monotone)),
+                             int(max_depth))),
+            *(Fl(v) for v in (p.lambda_l1, p.lambda_l2, p.max_delta_step,
+                              p.min_data_in_leaf, p.min_sum_hessian_in_leaf,
+                              p.min_gain_to_split)))
+        self._stream = P(_native.stream_of(binned))
+        self._lib = _native.library()
+
+    def __call__(self) -> None:
+        _native.check(self._lib.ltt_split_step_leaf(*self._args,
+                                                    self._stream),
+                      "fused_split_step_leaf")
+        _native.LAUNCHES["fused_split_step_leaf"] += 1
+
+    def timed(self, times: torch.Tensor) -> None:
+        """The same split through the kernel's timed instantiation (for
+        ``chip_profile.py``; not counted in ``LAUNCHES``): block 0 writes
+        ``%globaltimer`` and ``clock64`` at the kernel's entry and after
+        each phase of split k into ``times[k - 1]`` (int64
+        [L - 1, LEAF_TIMES]: nanoseconds in columns 0-7, cycles in 8-14,
+        column 7 from the block that writes the state, block 0's
+        histogram cycles by part in 16-19 and clock reads inside its
+        first scan in 20-24; see ``csrc/split_step_leaf.cu`` ``stamp``)."""
+        _native.require(times, device=self._keep[0].device,
+                        dtype=torch.int64,
+                        shape=(self.big_l - 1, LEAF_TIMES), name="times")
+        _native.check(self._lib.ltt_split_step_leaf_timed(
+            *self._args, ctypes.c_void_p(times.data_ptr()), self._stream),
+            "fused_split_step_leaf (timed)")
+
+
 def fused_split_step_leaf(k, S, T, lid, hist, binned, ghc, imeta, fmeta, *,
                           params: SplitParams, big_l: int, max_depth: int,
                           b: int, has_monotone: bool,
@@ -429,48 +532,14 @@ def fused_split_step_leaf(k, S, T, lid, hist, binned, ghc, imeta, fmeta, *,
     int16 bits of uint16 bins (B <= 1024), ``ghc`` [N, 3] float32.
     ``imeta``/``fmeta`` come from ``pack_meta_tables``. ``scratch``
     (``LeafScratch``) is allocated here when not given; a grow loop
-    passes its own so that no split allocates."""
+    passes its own so that no split allocates, and prepares its launch
+    once a tree (``LeafStep``)."""
     dev = binned.device
     if dev.type == "cpu":
         return fused_split_step_leaf_plain(
             k, S, T, lid, hist, binned, ghc, imeta, fmeta, params=params,
             big_l=big_l, max_depth=max_depth, b=b,
             has_monotone=has_monotone)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    bin_bytes = leaf_bin_bytes(binned)
-    if not 1 <= b <= (256 if bin_bytes == 1 else MAX_BINS["leaf"]):
-        raise ValueError(f"num_bins {b} out of range for "
-                         f"{8 * bin_bytes}-bit bins")
-    n, f = binned.shape
-    req = _native.require
-    req(k, device=dev, dtype=torch.int32, shape=(1,), name="k")
-    req(S, device=dev, dtype=torch.float32,
-        shape=(state_rows(has_monotone, "leaf"), big_l), name="S")
-    req(T, device=dev, dtype=torch.float32, shape=(TREE_ROWS, big_l - 1),
-        name="T")
-    req(lid, device=dev, dtype=torch.int32, shape=(n,), name="lid")
-    req(hist, device=dev, dtype=torch.float32, shape=(big_l, f, b, 3),
-        name="hist")
-    req(binned, device=dev, dtype=binned.dtype, name="binned")
-    req(ghc, device=dev, dtype=torch.float32, shape=(n, 3), name="ghc")
-    req(imeta, device=dev, dtype=torch.int32, shape=(f, 8), name="imeta")
-    req(fmeta, device=dev, dtype=torch.float32, shape=(f, 2), name="fmeta")
-    if scratch is None:
-        scratch = LeafScratch(binned, b)
-    nchunks = scratch.shape["nchunks"]
-    if tuple(scratch.partial.shape) != (nchunks, f, b, 3) \
-            or scratch.mask.numel() * 32 < n:
-        raise ValueError("scratch does not fit this matrix")
-    p = params
-    err = _native.library().ltt_split_step_leaf(
-        bin_bytes, k.data_ptr(), S.data_ptr(), T.data_ptr(), lid.data_ptr(),
-        hist.data_ptr(), binned.data_ptr(), ghc.data_ptr(), imeta.data_ptr(),
-        fmeta.data_ptr(), scratch.partial.data_ptr(),
-        scratch.mask.data_ptr(), scratch.table.data_ptr(), n, big_l, f, b,
-        leaf_feat_tile(f, b), nchunks, int(bool(has_monotone)),
-        int(max_depth), p.lambda_l1, p.lambda_l2, p.max_delta_step,
-        p.min_data_in_leaf, p.min_sum_hessian_in_leaf, p.min_gain_to_split,
-        _native.stream_of(binned))
-    _native.check(err, "fused_split_step_leaf")
-    _native.LAUNCHES["fused_split_step_leaf"] += 1
+    LeafStep(k, S, T, lid, hist, binned, ghc, imeta, fmeta, params=params,
+             big_l=big_l, max_depth=max_depth, b=b,
+             has_monotone=has_monotone, scratch=scratch)()

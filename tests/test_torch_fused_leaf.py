@@ -297,3 +297,22 @@ def test_leaf_step_refuses_what_the_kernel_does_not_take():
         num_bins_max=1000, layout="leaf")
     assert ssc.leaf_feat_tile(28, 1024) == 4
     assert ssc.leaf_feat_tile(28, 256) == 16
+    # explicit bin widths: u16 bins at 1023, u8 at 255, u16 at 256
+    assert ssc.leaf_feat_tile(28, 1023, 2) == 4
+    assert ssc.leaf_feat_tile(28, 255, 1) == 16
+    assert ssc.leaf_feat_tile(28, 256, 2) == 14
+    assert ssc.leaf_feat_tile(3, 16) == 3
+
+
+def test_prepared_leaf_launch_runs_on_cuda_only(setup):
+    """``LeafStep`` (the serial learner's prepared launch) takes CUDA
+    tensors only: on the CPU it raises, and the public step runs the
+    plain version instead."""
+    _, _, tl, ghc, js = setup
+    st = _port_state(js)
+    imeta, fmeta = ssc.pack_meta_tables(tl.meta, None, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        ssc.LeafStep(st["k"], st["S"], st["T"], st["lid"], st["hist"],
+                     tl.binned, ghc, imeta, fmeta, params=tl.params,
+                     big_l=L, max_depth=tl.max_depth, b=tl.num_bins_max,
+                     has_monotone=tl.has_monotone)

@@ -193,12 +193,12 @@ def test_fused_step_kernel_stops(mat, case):
         assert _same_bytes(a, p)
 
 
-@pytest.mark.parametrize("b", [256, 1024])
+@pytest.mark.parametrize("b", [1, 31, 32, 33, 255, 256, 1023, 1024])
 def test_scan_kernel_matches_plain_wide(dev, b):
-    """The scan kernel at 256 bins (static planes) and 1024 (dynamic):
-    thresholds and default directions exact, values at rtol 1e-5; at
-    256 bins bitwise equal to the plain version, as before the bin
-    capacity became a template parameter."""
+    """The scan kernel at up to 256 bins (static planes) and past it
+    (dynamic), across the 32-bin segments of its block prefix scan:
+    bitwise equal to the plain version, whose ``_cumsum`` adds in the
+    same order."""
     from lightgbm_tpu_torch.ops import split as sp
     from lightgbm_tpu_torch.ops import split_scan_cuda as sc
     from lightgbm_tpu_torch.ops.histogram import build_histogram
@@ -226,15 +226,20 @@ def test_scan_kernel_matches_plain_wide(dev, b):
     p = sc.per_feature_numerical_plain(hists, leaves, meta_t, params)
     assert torch.equal(k[..., sp.O_THR], p[..., sp.O_THR])
     assert torch.equal(k[..., sp.O_DLEFT], p[..., sp.O_DLEFT])
-    np.testing.assert_allclose(k.cpu().numpy(), p.cpu().numpy(),
-                               rtol=1e-5, atol=1e-6)
-    if b == 256:
-        assert _same_bytes(k, p)
+    assert _same_bytes(k, p)
+    if b > 2:
+        assert bool(torch.isfinite(k[..., sp.O_SCORE]).any())
 
 
-def _leaf_root(dev, n, f, b, big_l, max_depth=-1, monotone=False, seed=2):
+def _leaf_root(dev, n, f, b, big_l, max_depth=-1, monotone=False, seed=2,
+               layout="random"):
     """Root state of a serial tree on random [n, f] bins: ([k, S, T,
-    lid, hist], binned, ghc, imeta, fmeta, step kwargs)."""
+    lid, hist], binned, ghc, imeta, fmeta, step kwargs). ``layout``
+    "sorted" makes feature 0 rise with the row index (a split on it
+    leaves whole row ranges, so whole blocks of the kernel's grid,
+    without a member); "outlier" gives one row the top bin of feature 0
+    and a large gradient, with min_data_in_leaf 1, so the first split
+    sends that one row to its own leaf."""
     from lightgbm_tpu_torch.learner.split_step import (make_grow_pack,
                                                        root_state)
     from lightgbm_tpu_torch.ops import split as sp
@@ -243,11 +248,18 @@ def _leaf_root(dev, n, f, b, big_l, max_depth=-1, monotone=False, seed=2):
     from lightgbm_tpu_torch.ops.histogram import build_histogram, make_ghc
     g = torch.Generator(device=dev).manual_seed(seed)
     bins = torch.randint(0, b, (n, f), generator=g, device=dev)
+    if layout == "sorted":
+        bins[:, 0] = torch.arange(n, device=dev) * b // n
+    if layout == "outlier":
+        bins[:, 0] = torch.randint(0, b - 1, (n,), generator=g, device=dev)
+        bins[7, 0] = b - 1
     y = (bins[:, 0].float() / b + 0.3 * torch.rand(n, generator=g,
                                                    device=dev) > 0.6)
-    ghc = make_ghc(y.float() - 0.5 + 0.01 * torch.randn(
-        n, generator=g, device=dev), 0.2 + 0.05 * torch.rand(
-        n, generator=g, device=dev))
+    grad = y.float() - 0.5 + 0.01 * torch.randn(n, generator=g, device=dev)
+    if layout == "outlier":
+        grad[7] = 2000.0
+    ghc = make_ghc(grad, 0.2 + 0.05 * torch.rand(n, generator=g,
+                                                 device=dev))
     binned = bins.to(torch.uint8 if b <= 256 else torch.int16)
     mono = np.zeros(f, np.int32)
     if monotone:
@@ -258,7 +270,9 @@ def _leaf_root(dev, n, f, b, big_l, max_depth=-1, monotone=False, seed=2):
         default_bin=np.full(f, b // 2, np.int32),
         most_freq_bin=np.zeros(f, np.int32), monotone=mono,
         penalty=np.ones(f, np.float32), is_categorical=np.zeros(f, bool))
-    params = sp.SplitParams(0.1, 1.0, 0.0, 20.0, 1e-3, 0.0, True)
+    params = sp.SplitParams(0.1, 1.0, 0.0,
+                            1.0 if layout == "outlier" else 20.0, 1e-3, 0.0,
+                            True)
     hist = torch.zeros((big_l, f, b, 3), device=dev)
     hist[0] = build_histogram(binned, ghc, b)
     sums = hist[0, 0].sum(0).cpu().numpy()
@@ -291,12 +305,25 @@ def _assert_leaf_states_agree(got, want, nf, ghc_abs_hist, what):
     assert bool(((hist - hist2).abs() <= 1e-5 * ghc_abs_hist + 1e-6).all()), what
 
 
-@pytest.mark.parametrize("n,f,b,max_depth,monotone", [
-    (20_000, 12, 256, -1, False),    # u8 bins
-    (30_000, 40, 1024, -1, False),   # u16 bins, several feature tiles
-    (5_000, 5, 16, 3, True),         # few bins, depth cap, monotone
-], ids=["u8", "u16_feature_tiles", "small_bins"])
-def test_fused_leaf_kernel_matches_plain(dev, n, f, b, max_depth, monotone):
+@pytest.mark.parametrize("n,f,b,max_depth,monotone,layout", [
+    (20_000, 12, 256, -1, False, "random"),    # u8 bins
+    (30_000, 40, 1024, -1, False, "random"),   # u16 bins, feature tiles
+    (5_000, 5, 16, 3, True, "random"),         # few bins, depth, monotone
+    # every child fits one histogram chunk (the direct cache write)
+    (3_000, 12, 1024, -1, False, "random"),
+    # the root's smaller child (~20k rows) spreads over the chunk cap
+    # (130 features at 1024 bins: 33 feature tiles, 7 chunks of 512)
+    (40_000, 130, 1024, -1, False, "random"),
+    # a 1-row child: the first split isolates one row
+    (20_011, 12, 256, -1, False, "outlier"),
+    # splits on a sorted feature leave whole blocks without a member;
+    # N is a multiple of neither 32 nor 256
+    (50_003, 12, 1024, -1, False, "sorted"),
+    (20_011, 9, 255, 4, True, "sorted"),       # u8, depth, monotone
+], ids=["u8", "u16_feature_tiles", "small_bins", "one_chunk",
+        "chunk_cap", "one_row_child", "sorted_u16", "sorted_u8_depth"])
+def test_fused_leaf_kernel_matches_plain(dev, n, f, b, max_depth, monotone,
+                                         layout):
     """30 consecutive splits of one tree: each split runs through the
     leaf kernel and through its plain version from the same state, and
     the kernel's state carries on to the next split."""
@@ -304,7 +331,12 @@ def test_fused_leaf_kernel_matches_plain(dev, n, f, b, max_depth, monotone):
     from lightgbm_tpu_torch.ops.histogram import build_histogram
     big_l = 31
     state, binned, ghc, imeta, fmeta, kw = _leaf_root(
-        dev, n, f, b, big_l, max_depth, monotone)
+        dev, n, f, b, big_l, max_depth, monotone, layout=layout)
+    if layout == "outlier":
+        # the root's split sends the one outlier row to its own leaf
+        step = [t.clone() for t in state]
+        ss.fused_split_step_leaf(*step, binned, ghc, imeta, fmeta, **kw)
+        assert int((step[3] == step[3][7]).sum()) == 1
     scale = build_histogram(binned, ghc.abs(), b).cpu()
     nf = ss.state_rows(monotone, "leaf") - ss.STATE_INT_ROWS["leaf"]
     scratch = ss.LeafScratch(binned, b)

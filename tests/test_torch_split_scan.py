@@ -224,3 +224,48 @@ def test_argmax_tie_rules():
     assert tsplit._argmax_last(x, 1).tolist() == [2, 3]
     jx = jnp.asarray(x.numpy())
     assert np.asarray(jsplit._argmax_last(jx, 1)).tolist() == [2, 3]
+
+
+def _blocked_prefix_reference(x: np.ndarray) -> np.ndarray:
+    """The kernel's prefix order (``csrc/scan_core.cuh:block_prefix6``)
+    written bin by bin: float64, 32-bin segments each summed in bin
+    order from 0.0, a Kogge-Stone scan over the segment totals (step o =
+    1, 2, 4, 8, 16: lane i adds lane i - o's value from before the
+    step), then each bin's running sum plus its segment's exclusive
+    offset, rounded once to float32."""
+    b = len(x)
+    nseg = -(-b // 32)
+    run, tot = [], []
+    for s in range(nseg):
+        acc = 0.0
+        for i in range(32):
+            acc += float(x[s * 32 + i]) if s * 32 + i < b else 0.0
+            run.append(acc)
+        tot.append(acc)
+    lanes = tot + [0.0] * (32 - nseg)
+    for o in (1, 2, 4, 8, 16):
+        prev = list(lanes)
+        for i in range(o, 32):
+            lanes[i] = prev[i] + prev[i - o]
+    out = [run[s * 32 + i] + (lanes[s - 1] if s else 0.0)
+           for s in range(nseg) for i in range(32)]
+    return np.asarray(out[:b], np.float64).astype(np.float32)
+
+
+@pytest.mark.parametrize("b", [1, 31, 32, 33, 255, 256, 1023, 1024])
+def test_plain_prefix_sums_follow_the_kernel_order(b):
+    """``_cumsum`` (the plain version's prefix sums) adds in the scan
+    kernel's fixed block order, bit for bit, over leading batch axes;
+    against a sequential float64 cumsum rounded once it differs by at
+    most one float32 rounding."""
+    rng = np.random.RandomState(b)
+    x = (rng.randn(2, 3, b) * np.exp(rng.randn(2, 3, b) * 4)).astype(
+        np.float32)
+    got = tsplit._cumsum(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32 and got.shape == x.shape
+    for i in range(2):
+        for j in range(3):
+            ref = _blocked_prefix_reference(x[i, j])
+            assert got[i, j].tobytes() == ref.tobytes()
+    seq = np.cumsum(x.astype(np.float64), axis=-1).astype(np.float32)
+    np.testing.assert_allclose(got, seq, rtol=2 ** -23, atol=0)
