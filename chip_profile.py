@@ -2,7 +2,8 @@
 """Where the time of full-width training goes, on one CUDA card.
 
 Run from the repository root: ``python3 chip_profile.py [--trees N]
-[--paths fused,per-phase,serial-fused,serial-per-phase]``. Trains the
+[--paths fused,per-phase,serial-fused,serial-per-phase]
+[--leaf-phases] [--segment-phases]``. Trains the
 Higgs-shaped binary model of ``chip_smoke.py`` (2M x 28,
 num_leaves=255, lr=0.1) through ``lightgbm_tpu_torch``, once per grow
 path: at max_bin=255 the partitioned learner's ``fused`` (the default
@@ -27,6 +28,12 @@ events. It prints the mean time of each phase (site read, ``lid`` pass,
 compaction, histogram, reduce, scans, finish) and of the launch itself
 (event time less the in-kernel span), for all splits, the root, and the
 splits whose smaller child has at most 10,000 rows and more.
+``--segment-phases`` does the same for the segment kernel over one
+max_bin 255 partitioned fused tree (its timed instantiation,
+``SegmentStep.timed``), with block 0's cycles inside the histogram
+phase, then times the root histogram (``hist_segment``) of the whole
+matrix. A phases flag alone runs only that; with ``--paths`` it runs
+after the named paths.
 """
 
 import argparse
@@ -149,42 +156,11 @@ def leaf_phases(ds, warm: int = 2) -> str:
         raise SystemExit("chip_profile: a split wrote no clock reads")
     # slots 0-6 are block 0's (clock64 and ns); slot 7 is the ns at which
     # the last block wrote the state
-    cyc = np.diff(t[:, 8:15].astype(np.float64), axis=1)   # [splits, 6]
-    ns = t[:, :8].astype(np.float64)
-    # phases 1-6 by their share of block 0's cycles, scaled to its ns
-    phase_us = cyc / cyc.sum(1, keepdims=True) \
-        * ((ns[:, 6] - ns[:, 0]) / 1e3)[:, None]
-    phase_us = np.concatenate([phase_us, (ns[:, 7:8] - ns[:, 6:7]) / 1e3], 1)
-    span_us = (ns[:, 7] - ns[:, 0]) / 1e3
-    launch_us = ev_us - span_us
-
-    def count(c):
-        return int(tree.internal_count[c]) if c >= 0 \
-            else int(tree.leaf_count[~c])
-    small = np.asarray([min(count(tree.left_child[s]),
-                            count(tree.right_child[s]))
-                        for s in range(nsplit)])
-    lines = [f"[leaf phases] {type(lrn).__name__} num_bins_max "
-             f"{lrn.num_bins_max}, {len(ds.label)} rows, one tree of "
-             f"{nsplit} splits (after {warm} warm-up trees); mean us per "
-             "split (share of the launch's event time)"]
-    groups = (("all splits", np.ones(nsplit, bool)),
-              ("root split", np.arange(nsplit) == 0),
-              ("smaller child <= 10000 rows", small <= 10_000),
-              ("smaller child > 10000 rows", small > 10_000))
-    for label, m in groups:
-        if not m.any():
-            continue
-        total = ev_us[m].mean()
-        parts = [f"{name} {phase_us[m, i].mean():.2f} "
-                 f"({phase_us[m, i].mean() / total:.3f})"
-                 for i, name in enumerate(PHASES)]
-        parts.append(f"launch {launch_us[m].mean():.2f} "
-                     f"({launch_us[m].mean() / total:.3f})")
-        lines.append(f"[leaf phases] {label} ({int(m.sum())} splits, "
-                     f"smaller child {int(small[m].mean())} rows on "
-                     f"average): event {total:.2f} us = "
-                     + ", ".join(parts))
+    lines, groups = phase_lines(
+        "leaf phases", f"{type(lrn).__name__} num_bins_max "
+        f"{lrn.num_bins_max}, {len(ds.label)} rows, one tree of {nsplit} "
+        f"splits (after {warm} warm-up trees)", PHASES,
+        t[:, :7], t[:, 8:15], t[:, 7], ev_us, tree)
     # inside the histogram phase (block 0's virtual blocks) and inside
     # block 0's first scan, in us at each split's own clock rate
     rate = (t[:, 14] - t[:, 8]).astype(np.float64) \
@@ -209,15 +185,169 @@ def leaf_phases(ds, warm: int = 2) -> str:
     return "\n".join(lines)
 
 
+def smaller_child_rows(tree, nsplit: int):
+    """Row count of the smaller child of each of a tree's splits."""
+    import numpy as np
+
+    def count(c):
+        return int(tree.internal_count[c]) if c >= 0 \
+            else int(tree.leaf_count[~c])
+    return np.asarray([min(count(tree.left_child[s]),
+                           count(tree.right_child[s]))
+                       for s in range(nsplit)])
+
+
+def phase_lines(tag, head, names, ns, cyc, finish_ns, ev_us, tree):
+    """Mean us per phase of a timed kernel over one tree's splits.
+    ``ns``/``cyc`` [splits, P + 1]: block 0's %globaltimer and clock64
+    at the kernel's entry and after each of its P phases; ``finish_ns``:
+    when the state was written. Phases 1..P get their share of block 0's
+    cycles, scaled to its ns span; "finish" is the ns from block 0's
+    last read to the state write; "launch" the CUDA-event time less the
+    in-kernel span. Grouped by the smaller child's size."""
+    import numpy as np
+    ns, cyc = ns.astype(np.float64), cyc.astype(np.float64)
+    dc = np.diff(cyc, axis=1)
+    phase_us = dc / np.maximum(dc.sum(1, keepdims=True), 1) \
+        * ((ns[:, -1] - ns[:, 0]) / 1e3)[:, None]
+    phase_us = np.concatenate(
+        [phase_us, ((finish_ns - ns[:, -1]) / 1e3)[:, None]], 1)
+    launch_us = ev_us - (finish_ns - ns[:, 0]) / 1e3
+    nsplit = len(ev_us)
+    small = smaller_child_rows(tree, nsplit)
+    lines = [f"[{tag}] {head}; mean us per split (share of the launch's "
+             "event time)"]
+    groups = (("all splits", np.ones(nsplit, bool)),
+              ("root split", np.arange(nsplit) == 0),
+              ("smaller child <= 10000 rows", small <= 10_000),
+              ("smaller child > 10000 rows", small > 10_000))
+    for label, m in groups:
+        if not m.any():
+            continue
+        total = ev_us[m].mean()
+        parts = [f"{name} {phase_us[m, i].mean():.2f} "
+                 f"({phase_us[m, i].mean() / total:.3f})"
+                 for i, name in enumerate(names)]
+        parts.append(f"launch {launch_us[m].mean():.2f} "
+                     f"({launch_us[m].mean() / total:.3f})")
+        lines.append(f"[{tag}] {label} ({int(m.sum())} splits, "
+                     f"smaller child {int(small[m].mean())} rows on "
+                     f"average): event {total:.2f} us = "
+                     + ", ".join(parts))
+    return lines, groups
+
+
+SEGMENT_PHASES = ("site", "count pass", "scatter", "histogram", "reduce",
+                  "scans", "finish")
+
+
+def segment_phases(ds, warm: int = 2) -> str:
+    """Phase times of the segment kernel over one partitioned fused tree
+    at max_bin 255 (see the module note)."""
+    import numpy as np
+    import torch
+
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops.split_step_cuda import (SEGMENT_TIMES,
+                                                        SegmentStep)
+    params = {"objective": "binary", "num_leaves": 255,
+              "learning_rate": 0.1, "verbosity": -1, **PATHS["fused"]}
+    bst = lt.Booster(params, ds, device="cuda")
+    lrn = bst._gbdt.learner
+    big_l = lrn.num_leaves
+    times = torch.zeros((big_l - 1, SEGMENT_TIMES), dtype=torch.int64,
+                        device="cuda")
+    events = []
+
+    def timed_loop(k, S, T, imeta, fmeta):
+        step = SegmentStep(k, S, T, lrn.mat, lrn.ws, lrn.hist, imeta, fmeta,
+                           params=lrn.params, big_l=big_l,
+                           max_depth=lrn.max_depth, b=lrn.num_bins_max,
+                           f=lrn.num_features,
+                           has_monotone=lrn.has_monotone,
+                           scratch=lrn._scratch)
+        for _ in range(big_l - 1):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            step.timed(times)
+            b.record()
+            events.append((a, b))
+
+    # the warm-up trees run the timed build too, then one tree is kept
+    lrn._launch_fused = timed_loop
+    for _ in range(warm):
+        bst.update()
+    torch.cuda.synchronize()
+    events.clear()
+    times.zero_()
+    bst.update()
+    torch.cuda.synchronize()
+    del lrn._launch_fused
+    tree = bst.models[-1]
+    nsplit = tree.num_leaves - 1
+    t = times.cpu().numpy()[:nsplit]
+    ev_us = np.asarray([a.elapsed_time(b) * 1e3
+                        for a, b in events])[:nsplit]
+    if not (t[:, 15] > 0).all():
+        raise SystemExit("chip_profile: a split wrote no clock reads")
+    nph = len(SEGMENT_PHASES) - 1   # phases block 0 reads, then finish
+    lines, groups = phase_lines(
+        "segment phases", f"{type(lrn).__name__} num_bins_max "
+        f"{lrn.num_bins_max}, {len(ds.label)} rows, one tree of {nsplit} "
+        f"splits (after {warm} warm-up trees)", SEGMENT_PHASES,
+        t[:, :nph + 1], t[:, 16:17 + nph], t[:, 15], ev_us, tree)
+    # inside the histogram phase: block 0's cycles (zeroing, rows and
+    # their staging and accumulation, write-out) in us at each split's
+    # own clock rate, and its virtual blocks
+    rate = (t[:, 16 + nph] - t[:, 16]).astype(np.float64) \
+        / np.maximum(t[:, nph] - t[:, 0], 1)             # cycles per ns
+    hist_us = t[:, 24:30].astype(np.float64) / rate[:, None] / 1e3
+    for label, m in groups:
+        if not m.any():
+            continue
+        h = ", ".join(f"{name} {hist_us[m, i].mean():.2f}" for i, name in
+                      ((0, "zeroing"), (1, "rows"), (4, "of which staging"),
+                       (5, "accumulation"), (2, "write-out")))
+        lines.append(f"[segment phases] {label}: block 0 histogram us: {h}; "
+                     f"its virtual blocks {t[m, 27].mean():.2f}")
+    # the root histogram (hist_segment.cu) of the whole matrix
+    n, f, b = lrn.num_data, lrn.num_features, lrn.num_bins_max
+    hist_ms = []
+    for _ in range(21):
+        a = torch.cuda.Event(enable_timing=True)
+        c = torch.cuda.Event(enable_timing=True)
+        a.record()
+        hc.histogram_segment(lrn.mat, 0, n, b, f)
+        c.record()
+        torch.cuda.synchronize()
+        hist_ms.append(a.elapsed_time(c))
+    lines.append(f"[segment phases] root histogram ({n} rows, hist_segment)"
+                 f": median {np.median(hist_ms[1:]):.4f} ms over 20")
+    print("\n".join(lines))
+    del bst
+    torch.cuda.empty_cache()
+    return "\n".join(lines)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=2_000_000)
     ap.add_argument("--trees", type=int, default=4)
-    ap.add_argument("--paths", default=",".join(PATHS))
+    ap.add_argument("--paths", default=None,
+                    help="comma-separated grow paths (default: all four, "
+                    "or none with a phases flag)")
     ap.add_argument("--leaf-phases", action="store_true",
                     help="time the leaf kernel's phases only")
+    ap.add_argument("--segment-phases", action="store_true",
+                    help="time the segment kernel's phases only")
     args = ap.parse_args()
-    paths = ["leaf-phases"] if args.leaf_phases else args.paths.split(",")
+    phase_flags = ["leaf-phases"] * args.leaf_phases \
+        + ["segment-phases"] * args.segment_phases
+    paths = args.paths.split(",") if args.paths else \
+        ([] if phase_flags else list(PATHS))
+    paths += phase_flags
     import torch
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
@@ -233,12 +363,13 @@ def main() -> int:
     # shared by the paths
     sets = {}
     tables = []
+    phases = {"leaf-phases": ("serial-fused", leaf_phases),
+              "segment-phases": ("fused", segment_phases)}
     for path in paths:
-        mb = PATHS["serial-fused" if path == "leaf-phases"
-                   else path]["max_bin"]
+        mb = PATHS[phases[path][0] if path in phases else path]["max_bin"]
         if mb not in sets:
             sets[mb] = lt.Dataset(X, label=y)
-        tables.append(leaf_phases(sets[mb]) if path == "leaf-phases"
+        tables.append(phases[path][1](sets[mb]) if path in phases
                       else profile_path(path, sets[mb], args.trees))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "profile.txt"), "w") as fh:

@@ -11,8 +11,10 @@ of the JAX package. Phases, each fatal on failure:
    the main paths' shapes and time both, beside the least time the card
    could take and one PyTorch library call computing the same function
    where there is one: the histogram, partition, scan and segment fused
-   step on the 2M x 28 u8 training matrix (256 bins; the fused step runs
-   the root split), then the scan at 1023 bins and the leaf fused step's
+   step on the 2M x 28 u8 training matrix (256 bins; the fused step at
+   the root, at a mid-tree split whose smaller child has several
+   histogram chunks and at a late one whose smaller child has one, and
+   a whole tree's average launch), then the scan at 1023 bins and the leaf fused step's
    root split of the 2M x 28 bin matrix at 1023 bins (u16) and at 255
    (u8);
 3. train the Higgs-shaped binary model at full width (2M x 28,
@@ -107,7 +109,12 @@ def check_hist(mat, n, reps):
     import torch
     from lightgbm_tpu_torch.ops import hist_cuda as hc
     worst = 0.0
-    for begin, count in ((0, n), (n // 16 + 7, n // 2 + 3)):
+    # the whole matrix, a large inner segment, and segments at the chunk
+    # rule's edges: one chunk exactly, one row over, past the chunk cap
+    cap = hc.max_chunks(F) * hc.CHUNK_ROWS + 1
+    for begin, count in ((0, n), (n // 16 + 7, n // 2 + 3),
+                         (0, hc.CHUNK_ROWS), (5, hc.CHUNK_ROWS + 1),
+                         (3, min(cap, n - 3))):
         ref = hc.histogram_segment_plain(mat, begin, count, B, F)
         scale = hc.histogram_segment_plain(mat, begin, count, B, F,
                                            absolute=True)
@@ -126,6 +133,14 @@ def check_hist(mat, n, reps):
             if bool((err > tol).any()):
                 fail(f"histogram off by {float(err.max())} ({variant})")
             worst = max(worst, float(err.max()))
+        # the same segment on the device, launched for a larger bound (a
+        # child sized by its parent): the chunks come from its own count
+        seg = torch.tensor([begin, count], dtype=torch.int32,
+                           device=mat.device)
+        bound = hc.histogram_segment(mat, seg, None, B, F, max_count=n)
+        if not torch.equal(bound.view(torch.int32), out.view(torch.int32)):
+            fail(f"histogram of a device segment ({begin}+{count}) differs "
+                 "with a larger bound")
     # timings on the full segment: kernel, plain, one index_add_ call
     ms = time_ms(lambda: hc.histogram_segment(mat, 0, n, B, F), reps)
     plain_ms = time_ms(
@@ -256,11 +271,17 @@ def check_scan(hists, dataset, b, reps):
 
 
 def check_fused(mat, n, dataset, reps):
-    """The root split (k = 1) of the matrix through the fused kernel and
-    through its plain version fed the per-phase histogram kernel: S, T,
-    k, the matrix and the histogram cache must be bitwise equal (so the
-    fused histogram equals the per-phase kernel's). Both child
-    histograms are also held against the float64 plain histograms."""
+    """The segment fused kernel against its plain version fed the
+    per-phase histogram kernel, at three splits of one tree grown by the
+    kernel from the matrix: the root (k = 1), a mid-tree split whose
+    smaller child has more than one histogram chunk, and a late split
+    whose smaller child is one chunk (a direct cache write). At each:
+    S, T, k, the matrix and the histogram cache bitwise equal to the
+    plain version's, and the kernel bitwise repeatable. The root's
+    child histograms are also held against the float64 plain
+    histograms. Then the root split's time, and one whole tree of L - 1
+    launches from the root between two CUDA events (the tree-average
+    time per launch)."""
     import torch
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.learner.partitioned import (
@@ -294,12 +315,12 @@ def check_fused(mat, n, dataset, reps):
               has_monotone=False)
     scratch = ss.FusedScratch(mat, F, B)
     ws = torch.empty_like(mat)
-    state = [k0.clone(), st0["S"].clone(), st0["T"].clone(), mat.clone(),
-             hist0.clone()]
+    start = [k0, st0["S"], st0["T"], mat, hist0]
+    state = [t.clone() for t in start]
 
-    def restore():
-        for dst, src in zip(state, (k0, st0["S"], st0["T"], mat, hist0)):
-            dst.copy_(src)
+    def restore(src):
+        for dst, t in zip(state, src):
+            dst.copy_(t)
 
     def kernel():
         k, S, T, m, h = state
@@ -313,19 +334,61 @@ def check_fused(mat, n, dataset, reps):
         ss.fused_split_step_segment_plain(k, S, T, m, ws, h, imeta, fmeta,
                                           histogram=fn, **kw)
 
-    kernel()
-    torch.cuda.synchronize()
-    got = [t.clone() for t in state]
-    restore()
-    plain(True)
-    torch.cuda.synchronize()
     names = ("k", "S", "T", "mat", "hist")
-    for name, a, b in zip(names, got, state):
-        if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
-            fail(f"fused split step: {name} differs from its plain version")
-    if int(got[0][0]) != 2:
-        fail("fused split step did not split the root")
-    # the fused child histograms against the float64 plain histograms.
+
+    dead_rows = [pack.sf_idx[f] for f in ("bs_lg", "bs_lh", "bs_lc",
+                                           "bs_lout", "bs_rout")]
+
+    def agree(src, what):
+        """One split from src through the kernel twice and through the
+        plain version fed the per-phase histogram kernel: all bitwise
+        equal, except the split fields of a leaf without a valid split
+        (bs_gain -inf in both; ROADMAP Queue 3: the scan's outputs at an
+        invalid threshold, 0/0 or x/0, which nothing reads), as
+        ``check_fused_leaf`` skips them. Returns the kernel's state."""
+        restore(src)
+        kernel()
+        torch.cuda.synchronize()
+        got = [t.clone() for t in state]
+        for again in (True, False):
+            restore(src)
+            if again:
+                kernel()
+            else:
+                plain(True)
+            torch.cuda.synchronize()
+            for name, a, b in zip(names, got, state):
+                a, b = a.view(torch.uint8), b.view(torch.uint8)
+                if name == "S" and not again:
+                    gain = pack.sf_idx["bs_gain"]
+                    dead = torch.isneginf(got[1][gain]) \
+                        & torch.isneginf(state[1][gain])
+                    a, b = got[1].clone(), state[1].clone()
+                    for row in dead_rows:
+                        a[row, dead] = 0.0
+                        b[row, dead] = 0.0
+                    a, b = a.view(torch.uint8), b.view(torch.uint8)
+                if not torch.equal(a, b):
+                    fail(f"fused split step ({what}): {name} "
+                         + ("not bitwise repeatable" if again else
+                            "differs from its plain version"))
+        if int(got[0][0]) != int(src[0][0]) + 1:
+            fail(f"fused split step did not split ({what})")
+        return got
+
+    def next_small(st):
+        """The smaller child's rows of the split the kernel takes next
+        (from S on the host: the first open leaf of the largest gain)."""
+        v = pack.view({"S": st[1].cpu(), "T": st[2].cpu()})
+        k = int(st[0][0])
+        gain = np.asarray(v["bs_gain"])[:k]
+        leaf = int(np.argmax(gain))
+        lc = float(v["bs_lc"][leaf])
+        return k, float(gain[leaf]), int(min(lc, float(v["leaf_c"][leaf])
+                                             - lc))
+
+    got = agree(start, "root split")
+    # the root's child histograms against the float64 plain histograms.
     # Leaf 0 holds the left child, leaf 1 the right; the smaller one is
     # built from its own rows and held to its own sum of |values|, the
     # sibling is parent - child and so to the parent's.
@@ -343,10 +406,10 @@ def check_fused(mat, n, dataset, reps):
             fail(f"fused child histogram {leaf} off by {float(err.max())}")
         worst = max(worst, float(err.max()))
 
-    def timed(fn, count):
+    def timed(fn, count, src):
         times = []
         for _ in range(count):
-            restore()
+            restore(src)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -356,17 +419,71 @@ def check_fused(mat, n, dataset, reps):
             times.append(a.elapsed_time(b))
         return float(np.median(times))
 
+    restore(start)
     kernel()   # warm-up
-    ms = timed(kernel, reps)
-    plain_ms = timed(lambda: plain(False), 3)
+    ms = timed(kernel, reps, start)
+    plain_ms = timed(lambda: plain(False), 3, start)
+    # one whole tree from the root, its launches between two events
+    restore(start)
+    a = torch.cuda.Event(enable_timing=True)
+    c = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(big_l - 1):
+        kernel()
+    c.record()
+    torch.cuda.synchronize()
+    splits = int(state[0][0]) - 1
+    tree_ms = a.elapsed_time(c) / (big_l - 1)
+    # the same tree split by split: the state before the first split
+    # from 100 on whose smaller child has more than one chunk, and
+    # before the first from 200 on whose smaller child is one chunk (or,
+    # if none is, the smallest such child from 150 on)
+    restore(start)
+    snaps, best_late = {}, None
+    while len(snaps) < 2:
+        k, gain, n_small = next_small(state)
+        if k >= big_l or gain <= 0:
+            break
+        if "mid" not in snaps and k >= 101 \
+                and hc.child_chunks(n_small, F) > 1:
+            snaps["mid"] = ([t.clone() for t in state], n_small)
+        if "late" not in snaps and k >= 201 \
+                and hc.child_chunks(n_small, F) == 1:
+            snaps["late"] = ([t.clone() for t in state], n_small)
+        elif "late" not in snaps and k >= 151 and (
+                best_late is None or n_small < best_late[1]):
+            best_late = ([t.clone() for t in state], n_small)
+        kernel()
+    snaps.setdefault("late", best_late)
+    split_ms = {}
+    for name, snap in snaps.items():
+        if snap is None:
+            fail(f"no {name} split in the tree")
+        src, n_small = snap
+        what = f"split {int(src[0][0])}, smaller child {n_small} rows"
+        agree(src, what)
+        split_ms[name] = dict(split=int(src[0][0]), n_small=n_small,
+                              chunks=hc.child_chunks(n_small, F),
+                              ms=timed(kernel, reps, src))
     # the parent's segment read once and written once (the smaller
     # child's histogram can come from rows already being read), the
     # parent's cache row read and both children's written
     nbytes = 2 * n * mat.shape[1] + 3 * F * B * 3 * 4
-    shape = ss.launch_shape(F, B)
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 library_ms=None, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                bound_by="bytes", launch_shape=shape)
+                bound_by="bytes", launch_shape=scratch.shape,
+                root_small=segs[small][1], tree_avg_ms=tree_ms,
+                tree_splits=splits, splits=split_ms)
+
+
+def segment_summary(r):
+    parts = ", ".join(f"{name} split {d['split']} {d['ms']:.4f} ms "
+                      f"(smaller child {d['n_small']} rows, {d['chunks']} "
+                      "chunks)" for name, d in r["splits"].items())
+    return (f"root split {r['ms']:.4f} ms (smaller child "
+            f"{r['root_small']} rows), {parts}, tree average "
+            f"{r['tree_avg_ms']:.4f} ms per launch over "
+            f"{r['tree_splits']} splits;")
 
 
 def leaf_bound_ms(n, n_leaf, n_right, n_small, f, b, bin_bytes):
@@ -911,7 +1028,8 @@ def main() -> int:
     t0 = time.perf_counter()
     rec["fused_split_step_segment"] = check_fused(mat, n, binned, args.reps)
     print(f"[check] fused_split_step_segment ok "
-          f"{time.perf_counter() - t0:.1f} s "
+          f"{time.perf_counter() - t0:.1f} s: "
+          f"{segment_summary(rec['fused_split_step_segment'])} "
           f"{rec['fused_split_step_segment']}")
     del mat, hists
     torch.cuda.empty_cache()
@@ -1021,6 +1139,17 @@ def main() -> int:
               f"max leaf value diff {leaf_err:.3g} "
               f"in {time.perf_counter() - t0:.1f} s")
         if len(kb.models) != 3 or not all(same):
+            for i, (a, b) in enumerate(zip(kb.models, pb.models)):
+                s = first_divergence(a, b)
+                if s is not None:
+                    print(f"[parity] tree {i} first differs at node {s}: "
+                          f"kernel feature {int(a.split_feature_inner[s])}"
+                          f" bin {int(a.threshold_bin[s])} gain "
+                          f"{float(a.split_gain[s])!r}, plain feature "
+                          f"{int(b.split_feature_inner[s])} bin "
+                          f"{int(b.threshold_bin[s])} gain "
+                          f"{float(b.split_gain[s])!r}")
+                    break
             fail(f"kernel and plain runs grew different trees "
                  f"(max_bin {max_bin})")
 

@@ -164,23 +164,42 @@ __device__ __forceinline__ Pair derive_pair(const A& a, const Site& s) {
   return q;
 }
 
-// One child's S column from its scan table [F, 8] (assemble_split:
-// first-index argmax of the score column); begin/cnt fill the segment
-// layout's prefix rows.
-template <class A>
-__device__ void write_child(const A& a, int idx, const float* tab,
-                           const Leaf& ch, float out, int side, int begin,
-                           int cnt, int node, int depth, bool blocked) {
-  // the table rows come from other blocks of this launch: read from L2
-  int bi = 0;
-  float best = __ldcg(tab);
-  for (int j = 1; j < a.F; ++j) {
+// One warp: the best feature of a scan table [F, 8] (assemble_split: the
+// first index of the largest score, as a loop from feature 0 taking only
+// a strictly larger score finds it; a NaN never wins, and a NaN first
+// score keeps feature 0), every lane walking its own features, then a
+// warp argmax; to every lane. The table rows come from other blocks of
+// this launch: read from L2.
+__device__ __forceinline__ int warp_best_feature(const float* tab, int F) {
+  float best = -INFINITY;
+  int bi = 0x7fffffff;
+  for (int j = threadIdx.x & 31; j < F; j += 32) {
     const float v = __ldcg(tab + j * 8);
-    if (v > best) {
+    if (takes(v, j, best, bi)) {
       best = v;
       bi = j;
     }
   }
+  for (int o = 16; o > 0; o >>= 1) {
+    const float v2 = __shfl_xor_sync(0xffffffffu, best, o);
+    const int i2 = __shfl_xor_sync(0xffffffffu, bi, o);
+    if (takes(v2, i2, best, bi)) {
+      best = v2;
+      bi = i2;
+    }
+  }
+  return isnan(__ldcg(tab)) ? 0 : bi;
+}
+
+// One child's S column from its scan table [F, 8] (assemble_split: bi,
+// the first-index argmax of the score column, from warp_best_feature);
+// begin/cnt fill the segment layout's prefix rows.
+template <class A>
+__device__ void write_child(const A& a, int idx, const float* tab,
+                           const Leaf& ch, float out, int side, int begin,
+                           int cnt, int node, int depth, bool blocked,
+                           int bi) {
+  // the table rows come from other blocks of this launch: read from L2
   float r[8];
   for (int i = 0; i < 8; ++i) r[i] = __ldcg(tab + bi * 8 + i);
   const int L = a.big_l;
@@ -209,11 +228,13 @@ __device__ void write_child(const A& a, int idx, const float* tab,
 }
 
 // One thread: both children's S columns from a.table ([2, F, 8], a then
-// b), the node's T column and the parent-pointer fixup, then k + 1.
-// (begin, cnt) of each child fill the segment layout's prefix rows.
+// b; bi_a/bi_b their best features), the node's T column and the
+// parent-pointer fixup, then k + 1. (begin, cnt) of each child fill the
+// segment layout's prefix rows.
 template <class A>
 __device__ void finish(const A& a, const Site& s, const Pair& q,
-                       int begin_a, int cnt_a, int begin_b, int cnt_b) {
+                       int begin_a, int cnt_a, int begin_b, int cnt_b,
+                       int bi_a, int bi_b) {
   const int leaf = s.leaf, nw = s.k, node = s.k - 1;
   const int depth = s.depth + 1;
   const bool blocked = a.max_depth > 0 && depth >= a.max_depth;
@@ -221,9 +242,9 @@ __device__ void finish(const A& a, const Site& s, const Pair& q,
   const int idx_b = q.small_left ? nw : leaf;
   const int side_a = q.small_left ? 0 : 1;
   write_child(a, idx_a, a.table, q.a, q.out_a, side_a, begin_a, cnt_a, node,
-              depth, blocked);
+              depth, blocked, bi_a);
   write_child(a, idx_b, a.table + (size_t)a.F * 8, q.b, q.out_b, 1 - side_a,
-              begin_b, cnt_b, node, depth, blocked);
+              begin_b, cnt_b, node, depth, blocked, bi_b);
   const int L1 = a.big_l - 1;
   float* T = a.T;
   T[T_GAIN * L1 + node] = s.gain;
@@ -239,6 +260,23 @@ __device__ void finish(const A& a, const Site& s, const Pair& q,
     T[(s.ref_side == 0 ? T_LEFT : T_RIGHT) * L1 + s.ref_node] =
         __int_as_float(node);
   *a.k = s.k + 1;
+}
+
+// The last block of a launch, all its threads: warps 0 and 1 find the
+// two children's best features, then thread 0 writes the state
+// (finish). red: shared int[2].
+template <class A>
+__device__ void finish_block(const A& a, const Site& s, const Pair& q,
+                             int begin_a, int cnt_a, int begin_b, int cnt_b,
+                             int* red) {
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const int bi = warp_best_feature(a.table + (size_t)warp * a.F * 8, a.F);
+    if ((threadIdx.x & 31) == 0) red[warp] = bi;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    finish(a, s, q, begin_a, cnt_a, begin_b, cnt_b, red[0], red[1]);
 }
 
 // Blocks per SM and grid size of a cooperative kernel at this block

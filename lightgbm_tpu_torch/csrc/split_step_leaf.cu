@@ -549,12 +549,11 @@ split_step_leaf_kernel(Args a) {
     last = atomicAdd(a.done, 1) == (int)gridDim.x - 1;
   }
   __syncthreads();
-  if (last && threadIdx.x == 0) {
-    __threadfence();
-    *a.done = 0;
-    ltt::finish(a, site, q, 0, 0, 0, 0);
-    stamp_finish<kTimed>(a, site.k);
-  }
+  if (!last) return;
+  __threadfence();
+  if (threadIdx.x == 0) *a.done = 0;
+  ltt::finish_block(a, site, q, 0, 0, 0, 0, iscratch);
+  if (threadIdx.x == 0) stamp_finish<kTimed>(a, site.k);
 }
 
 // dynamic shared memory: the histogram tile (float64) and the staged

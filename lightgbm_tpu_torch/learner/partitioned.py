@@ -45,6 +45,7 @@ the ROADMAP item (``check_slice``).
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import numpy as np
@@ -63,8 +64,7 @@ from ..ops.split import (MISSING_NAN_CODE, MISSING_NONE_CODE,
 from ..ops.split_scan_cuda import (per_feature_numerical_cuda,
                                    per_feature_numerical_plain,
                                    scan_meta_tables)
-from ..ops.split_step_cuda import (MAX_BINS, FusedScratch,
-                                   fused_split_step_segment,
+from ..ops.split_step_cuda import (MAX_BINS, FusedScratch, SegmentStep,
                                    fused_split_step_segment_plain,
                                    learner_fused_kernel_on,
                                    pack_meta_tables)
@@ -333,15 +333,16 @@ class PartitionedTreeLearner(LeafwiseLearner):
     def _launch_fused(self, k, S, T, imeta, fmeta) -> None:
         """The split loop of one tree: L - 1 fused steps, enqueued with
         no host read in between."""
-        step = fused_split_step_segment_plain if self.plain \
-            else fused_split_step_segment
         kw = dict(params=self.params, big_l=self.num_leaves,
                   max_depth=self.max_depth, b=self.num_bins_max,
                   f=self.num_features, has_monotone=self.has_monotone)
-        if not self.plain:
-            kw["scratch"] = self._scratch
+        args = (k, S, T, self.mat, self.ws, self.hist, imeta, fmeta)
+        if self.plain:
+            step = partial(fused_split_step_segment_plain, *args, **kw)
+        else:   # checked and converted once a tree
+            step = SegmentStep(*args, scratch=self._scratch, **kw)
         for _ in range(self.num_leaves - 1):
-            step(k, S, T, self.mat, self.ws, self.hist, imeta, fmeta, **kw)
+            step()
 
     def _grow_per_phase(self, table, root, meta_t, tables, imeta):
         """S and T on the host; one host read of the scan tables and the
@@ -356,7 +357,9 @@ class PartitionedTreeLearner(LeafwiseLearner):
             return seg, cnt
 
         def histogram(part, small_left):
-            # the child's histogram is sized by its parent's row count
+            # the launch is sized by the parent's row count (a bound the
+            # host knows); the kernel cuts the chunks from the child's own
+            # count on the device, as the fused step does
             seg, cnt = part
             return self._histogram(seg[0:2] if small_left else seg[2:4],
                                    None, cnt)

@@ -52,8 +52,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # mat, stride, pay_off, seg, F, B, nblk, feat_tile, partial, out, stream
-    "ltt_hist_segment": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P],
+    # mat, stride, pay_off, seg, F, B, max_chunks, partial, out, stream
+    "ltt_hist_segment": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
     # mat, ws, stride, begin, count, feat, thr, dleft, miss, defbin,
     # nbins, use_lut, lut, block_buf, seg_out, stream
     "ltt_partition_segment": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -63,12 +63,15 @@ _SIGNATURES = {
     "ltt_split_scan": [_I, _I, _I, _P, _P] + [_F] * 10
     + [_P, _P] + [_F] * 6 + [_P, _P],
     # k, S, T, mat, ws, stride, pay_off, hist, imeta, fmeta, partial,
-    # tiles, table, ctl, L, F, B, feat_tile, has_monotone, max_depth,
-    # l1, l2, mds, min_data, min_hess, min_gain, stream
-    "ltt_split_step_segment": [_P] * 5 + [_I, _I] + [_P] * 7 + [_I] * 6
+    # tiles, counts, table, done, L, F, B, grid_cap, has_monotone,
+    # max_depth, l1, l2, mds, min_data, min_hess, min_gain, stream
+    "ltt_split_step_segment": [_P] * 5 + [_I, _I] + [_P] * 8 + [_I] * 6
     + [_F] * 6 + [_P],
-    # B, feat_tile, out int32[3] (blocks per SM, grid, shared bytes)
-    "ltt_split_step_shape": [_I, _I, _P],
+    # the same, then times (u64 [L - 1, 32]), stream
+    "ltt_split_step_segment_timed": [_P] * 5 + [_I, _I] + [_P] * 8
+    + [_I] * 6 + [_F] * 6 + [_P, _P],
+    # B, out int32[3] (blocks per SM, grid, shared bytes)
+    "ltt_split_step_shape": [_I, _P],
     # bin_bytes, k, S, T, lid, hist, bins, ghc, imeta, fmeta, partial,
     # mask, ids, counts, table, done, n, L, F, B, feat_tile, grid_cap,
     # has_monotone, max_depth, l1, l2, mds, min_data, min_hess, min_gain,

@@ -36,13 +36,16 @@ GH_COLS = 13       # payload columns after the (aligned) features
 G_OFF, H_OFF, CNT_OFF, RID_OFF = 0, 4, 8, 9
 VARIANTS = ("grouped", "perfeat", "perbin")
 
-# histogram launch shape: each block takes a contiguous chunk of at
-# least ROWS_PER_BLOCK rows; at most MAX_BLOCKS chunks (2 blocks of
-# ~90 KB shared memory fit one H100 SM, 132 SMs)
-ROWS_PER_BLOCK = 4096
-MAX_BLOCKS = 264
-SMEM_BYTES = 232448          # dynamic shared memory a block may use
-TILE_ROWS = 256              # must match kTileRows in hist_segment.cu
+# The chunk rule (csrc/hist_tile.cuh child_chunks), shared by the
+# histogram kernel and the fused split step: features go in tiles of
+# TILE_FEATURES (one a warp), and a segment of `count` rows is cut into
+# contiguous chunks of about CHUNK_ROWS rows, at most max_chunks(F) of
+# them (chunks x feature tiles <= CHUNK_SLOTS; the leading dimension of
+# both kernels' partial buffers).
+CHUNK_ROWS = 256             # csrc/hist_tile.cuh kChunkRows
+CHUNK_SLOTS = 264            # csrc/hist_tile.cuh kChunkSlots
+STEP_ROWS = 256              # csrc/hist_tile.cuh kStepRows
+TILE_FEATURES = 8            # csrc/hist_tile.cuh kTileFeatures
 
 
 def _round_up(x: int, m: int) -> int:
@@ -121,11 +124,25 @@ def histogram_segment_plain(mat: torch.Tensor, begin: int, count: int,
     return out.float()
 
 
-def _launch_shape(max_count: int, num_features: int, num_bins: int):
-    nblk = max(1, min(MAX_BLOCKS, -(-max_count // ROWS_PER_BLOCK)))
-    feat_tile = min(num_features,
-                    (SMEM_BYTES - 3 * TILE_ROWS * 4) // (num_bins * 12))
-    return nblk, feat_tile
+def max_chunks(num_features: int) -> int:
+    """The most row chunks of a segment (``csrc/hist_tile.cuh``
+    ``max_chunks``): the leading dimension of the partial buffers."""
+    return max(1, CHUNK_SLOTS // -(-num_features // TILE_FEATURES))
+
+
+def child_chunks(count: int, num_features: int) -> int:
+    """Row chunks of a segment of ``count`` rows (``csrc/hist_tile.cuh``
+    ``child_chunks``): the chunks, and with them the summation order of
+    its histogram, depend on the row and feature counts alone."""
+    return max(1, min(max_chunks(num_features),
+                      -(-int(count) // CHUNK_ROWS)))
+
+
+def hist_smem_bytes(num_bins: int) -> int:
+    """Shared bytes of one histogram block (``hist_smem_bytes``): the
+    float64 bins of its feature tile and one staged step of rows."""
+    return TILE_FEATURES * num_bins * 24 + 3 * STEP_ROWS * 4 \
+        + TILE_FEATURES * STEP_ROWS
 
 
 def histogram_segment(mat: torch.Tensor, begin, count, num_bins: int,
@@ -136,12 +153,13 @@ def histogram_segment(mat: torch.Tensor, begin, count, num_bins: int,
     ``begin``/``count`` are ints, or ``begin`` is a device int32 [2]
     tensor (begin, count) — a segment the partition kernel produced —
     with ``count=None`` and ``max_count`` an upper bound on its size
-    known to the host (the launch shape depends on it, so a split never
-    waits for the device to learn a child's size). With int bounds,
-    ``max_count`` (default ``count``) sets the launch shape the same way,
-    so a child's histogram sized by its parent sums in the same order
-    whichever form its segment came in. ``variant`` accepts
-    the JAX package's names; all are the same function here."""
+    known to the host: the grid and the partials are sized from it (so a
+    split never waits for the device to learn a child's size), and the
+    kernel reads the segment's own count for its chunks (``child_chunks``),
+    so the sums do not depend on the bound. With int bounds,
+    ``max_count`` (default ``count``) sizes the launch the same way.
+    ``variant`` accepts the JAX package's names; all are the same
+    function here."""
     if variant is not None and variant not in VARIANTS:
         raise ValueError(f"unknown histogram variant {variant!r}")
     seg_t = begin if isinstance(begin, torch.Tensor) else None
@@ -174,15 +192,15 @@ def histogram_segment(mat: torch.Tensor, begin, count, num_bins: int,
         if max_count is None:
             raise ValueError("a device segment needs max_count")
     lib = _native.library()
-    nblk, feat_tile = _launch_shape(int(max_count), num_features, num_bins)
+    nblk = child_chunks(int(max_count), num_features)
     out = torch.empty((num_features, num_bins, 3), dtype=torch.float32,
                       device=mat.device)
     partial = torch.empty((nblk, num_features, num_bins, 3),
-                          dtype=torch.float32, device=mat.device) \
+                          dtype=torch.float64, device=mat.device) \
         if nblk > 1 else out
     err = lib.ltt_hist_segment(
         mat.data_ptr(), cols, payload_offset(num_features),
-        seg_t.data_ptr(), num_features, num_bins, nblk, feat_tile,
+        seg_t.data_ptr(), num_features, num_bins, nblk,
         partial.data_ptr(), out.data_ptr(), _native.stream_of(mat))
     _native.LAUNCHES["hist_segment"] += 1
     _native.check(err, "hist_segment")

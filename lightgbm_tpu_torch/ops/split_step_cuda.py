@@ -34,7 +34,9 @@ ones. The plain version is the JAX package's interpret twin
 (``partition_segment_plain``, ``histogram_segment_plain``,
 ``per_feature_numerical_plain``, ``assemble_split``) and the tensor
 bookkeeping of ``learner/split_step.py``; the per-phase loop's host
-bookkeeping grows the same trees byte for byte.
+bookkeeping grows the same trees byte for byte. ``SegmentStep`` is the
+launch prepared once for a tree's operands, which the partitioned
+learner's split loop uses.
 
 The 192-feature cap of the TPU kernel (``MAX_FUSED_F``, a Mosaic
 program-size limit) is not carried over: the kernel tiles features as
@@ -50,8 +52,8 @@ import numpy as np
 import torch
 
 from . import _native
-from .hist_cuda import (MAX_BLOCKS, TILE_ROWS, histogram_segment_plain,
-                        matrix_cols, payload_offset)
+from .hist_cuda import (histogram_segment_plain, matrix_cols, max_chunks,
+                        payload_offset)
 from .partition_cuda import PART_THREADS, partition_segment_plain
 from .histogram import build_histogram
 from .partition import split_leaf
@@ -62,9 +64,6 @@ from .split_scan_cuda import per_feature_numerical_plain
 IM_NBINS, IM_MISS, IM_DEFBIN, IM_MOSTFREQ, IM_MONO, IM_GROUP, \
     IM_OFFSET, IM_ISCAT = range(8)
 
-# dynamic shared memory of one fused block: its histogram tile must
-# leave room for two blocks per SM (the scan's planes are static)
-FUSED_SMEM_BYTES = 100 * 1024
 # the leaf kernel's dynamic shared memory: a float64 histogram tile and
 # LEAF_STAGE_ROWS staged rows (ghc and the tile's bins), two blocks per
 # SM; the scan planes reuse the same memory
@@ -72,6 +71,7 @@ LEAF_SMEM_BYTES = 110 * 1024
 LEAF_STAGE_ROWS = 512   # csrc/split_step_leaf.cu kStageRows
 LEAF_MAX_TILE = 16      # csrc/split_step_leaf.cu kMaxTile
 LEAF_TIMES = 32         # clock reads per split of the timed build
+SEGMENT_TIMES = 32      # the same, csrc/split_step_segment.cu kTimes
 # int rows of the merged pack: the JAX package's GROW_SI less the
 # derived leaf_parent (7), after the segment layout's leaf_begin,
 # leaf_cnt
@@ -138,36 +138,35 @@ def learner_fused_kernel_on(mode: str, *, eligible: bool,
         params, bundled=False, num_bins_max=num_bins_max, layout=layout)
 
 
-def fused_feat_tile(num_features: int, num_bins: int) -> int:
-    """Features per histogram tile of the fused kernel."""
-    return max(1, min(num_features,
-                      (FUSED_SMEM_BYTES // 4 - 3 * TILE_ROWS)
-                      // (num_bins * 3)))
-
-
 class FusedScratch:
     """Device scratch of the fused kernel, allocated once per learner
-    (never per split): histogram partials [264, F, B, 3], the partition's
-    per-tile counts, both children's scan tables and NL."""
+    (never per split): float64 histogram partials [max_chunks(F), F, B,
+    3] (a split writes as many as its smaller child has chunks,
+    ``child_chunks``), the partition's per-tile and per-block left
+    counts, both children's scan tables and the count of blocks past
+    their scans."""
 
     def __init__(self, mat: torch.Tensor, num_features: int, num_bins: int):
         dev = mat.device
-        self.partial = torch.empty((MAX_BLOCKS, num_features, num_bins, 3),
-                                   dtype=torch.float32, device=dev)
+        self.shape = launch_shape(num_bins)
+        self.partial = torch.empty(
+            (max_chunks(num_features), num_features, num_bins, 3),
+            dtype=torch.float64, device=dev)
         self.tiles = torch.empty((max(1, -(-mat.shape[0] // PART_THREADS)),),
                                  dtype=torch.int32, device=dev)
+        self.counts = torch.empty((self.shape["grid"],), dtype=torch.int32,
+                                  device=dev)
         self.table = torch.empty((2, num_features, 8), dtype=torch.float32,
                                  device=dev)
-        self.ctl = torch.zeros((4,), dtype=torch.int32, device=dev)
+        # blocks past their scans; the launch that counts last resets it
+        self.done = torch.zeros((1,), dtype=torch.int32, device=dev)
 
 
-def launch_shape(num_features: int, num_bins: int) -> dict:
+def launch_shape(num_bins: int) -> dict:
     """The cooperative grid the kernel takes on the current card."""
     out = (ctypes.c_int * 3)()
     lib = _native.library()
-    err = lib.ltt_split_step_shape(num_bins,
-                                   fused_feat_tile(num_features, num_bins),
-                                   ctypes.addressof(out))
+    err = lib.ltt_split_step_shape(num_bins, ctypes.addressof(out))
     _native.check(err, "fused_split_step_segment")
     return dict(blocks_per_sm=out[0], grid=out[1], smem_bytes=out[2])
 
@@ -266,6 +265,88 @@ def fused_split_step_segment_plain(k, S, T, mat, ws, hist, imeta, fmeta, *,
     k.add_(1)
 
 
+class SegmentStep:
+    """A prepared launch of the segment kernel over one tree's operands:
+    the checks run once, here, and each call is one ctypes call with the
+    arguments already converted (the partitioned learner's split loop
+    calls it L - 1 times a tree). Arguments as
+    ``fused_split_step_segment``."""
+
+    def __init__(self, k, S, T, mat, ws, hist, imeta, fmeta, *,
+                 params: SplitParams, big_l: int, max_depth: int, b: int,
+                 f: int, has_monotone: bool,
+                 scratch: Optional[FusedScratch] = None):
+        dev = mat.device
+        if dev.type != "cuda":
+            raise ValueError(f"the segment kernel runs on CUDA, not {dev}")
+        if not 1 <= b <= 256:
+            raise ValueError(f"num_bins must be in [1, 256], got {b}")
+        req = _native.require
+        req(k, device=dev, dtype=torch.int32, shape=(1,), name="k")
+        req(S, device=dev, dtype=torch.float32,
+            shape=(state_rows(has_monotone), big_l), name="S")
+        req(T, device=dev, dtype=torch.float32,
+            shape=(TREE_ROWS, big_l - 1), name="T")
+        req(mat, device=dev, dtype=torch.uint8, name="mat")
+        req(ws, device=dev, dtype=torch.uint8, shape=mat.shape, name="ws")
+        req(hist, device=dev, dtype=torch.float32, shape=(big_l, f, b, 3),
+            name="hist")
+        req(imeta, device=dev, dtype=torch.int32, shape=(f, 8),
+            name="imeta")
+        req(fmeta, device=dev, dtype=torch.float32, shape=(f, 2),
+            name="fmeta")
+        cols = mat.shape[1]
+        if cols != matrix_cols(f) or mat.data_ptr() % 16 \
+                or ws.data_ptr() % 16:
+            raise ValueError(f"mat is not a {f}-feature training matrix "
+                             "(stride or alignment)")
+        if scratch is None:
+            scratch = FusedScratch(mat, f, b)
+        if scratch.tiles.numel() * PART_THREADS < mat.shape[0] \
+                or tuple(scratch.partial.shape) != (max_chunks(f), f, b, 3):
+            raise ValueError("scratch does not fit this matrix")
+        # the tensors stay referenced while their pointers are held
+        self._keep = (k, S, T, mat, ws, hist, imeta, fmeta, scratch)
+        self.big_l = big_l
+        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        p = params
+        self._args = (
+            *(P(t.data_ptr()) for t in (k, S, T, mat, ws)),
+            I(cols), I(payload_offset(f)),
+            *(P(t.data_ptr()) for t in (
+                hist, imeta, fmeta, scratch.partial, scratch.tiles,
+                scratch.counts, scratch.table, scratch.done)),
+            *(I(v) for v in (big_l, f, b, scratch.counts.numel(),
+                             int(bool(has_monotone)), int(max_depth))),
+            *(Fl(v) for v in (p.lambda_l1, p.lambda_l2, p.max_delta_step,
+                              p.min_data_in_leaf, p.min_sum_hessian_in_leaf,
+                              p.min_gain_to_split)))
+        self._stream = P(_native.stream_of(mat))
+        self._lib = _native.library()
+
+    def __call__(self) -> None:
+        _native.check(self._lib.ltt_split_step_segment(*self._args,
+                                                       self._stream),
+                      "fused_split_step_segment")
+        _native.LAUNCHES["fused_split_step_segment"] += 1
+
+    def timed(self, times: torch.Tensor) -> None:
+        """The same split through the kernel's timed instantiation (for
+        ``chip_profile.py``; not counted in ``LAUNCHES``): block 0 writes
+        ``%globaltimer`` and ``clock64`` at the kernel's entry and after
+        each phase of split k into ``times[k - 1]`` (int64
+        [L - 1, SEGMENT_TIMES]: nanoseconds in columns 0-6, cycles in
+        16-22, column 15 from the block that writes the state, block
+        0's histogram cycles by part in 24-26 and 28-29 and its virtual
+        blocks in 27; see ``csrc/split_step_segment.cu`` ``stamp``)."""
+        _native.require(times, device=self._keep[0].device,
+                        dtype=torch.int64,
+                        shape=(self.big_l - 1, SEGMENT_TIMES), name="times")
+        _native.check(self._lib.ltt_split_step_segment_timed(
+            *self._args, ctypes.c_void_p(times.data_ptr()), self._stream),
+            "fused_split_step_segment (timed)")
+
+
 def fused_split_step_segment(k, S, T, mat, ws, hist, imeta, fmeta, *,
                              params: SplitParams, big_l: int,
                              max_depth: int, b: int, f: int,
@@ -277,51 +358,16 @@ def fused_split_step_segment(k, S, T, mat, ws, hist, imeta, fmeta, *,
     training matrix and its workspace) and ``hist`` [L, F, B, 3].
     ``imeta``/``fmeta`` come from ``pack_meta_tables``. ``scratch``
     (``FusedScratch``) is allocated here when not given; a grow loop
-    passes its own so that no split allocates."""
-    dev = mat.device
-    if dev.type == "cpu":
+    passes its own so that no split allocates, and prepares its launch
+    once a tree (``SegmentStep``)."""
+    if mat.device.type == "cpu":
         return fused_split_step_segment_plain(
             k, S, T, mat, ws, hist, imeta, fmeta, params=params,
             big_l=big_l, max_depth=max_depth, b=b, f=f,
             has_monotone=has_monotone)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if not 1 <= b <= 256:
-        raise ValueError(f"num_bins must be in [1, 256], got {b}")
-    req = _native.require
-    req(k, device=dev, dtype=torch.int32, shape=(1,), name="k")
-    req(S, device=dev, dtype=torch.float32,
-        shape=(state_rows(has_monotone), big_l), name="S")
-    req(T, device=dev, dtype=torch.float32, shape=(TREE_ROWS, big_l - 1),
-        name="T")
-    req(mat, device=dev, dtype=torch.uint8, name="mat")
-    req(ws, device=dev, dtype=torch.uint8, shape=mat.shape, name="ws")
-    req(hist, device=dev, dtype=torch.float32, shape=(big_l, f, b, 3),
-        name="hist")
-    req(imeta, device=dev, dtype=torch.int32, shape=(f, 8), name="imeta")
-    req(fmeta, device=dev, dtype=torch.float32, shape=(f, 2), name="fmeta")
-    cols = mat.shape[1]
-    if cols != matrix_cols(f) or mat.data_ptr() % 16 or ws.data_ptr() % 16:
-        raise ValueError(f"mat is not a {f}-feature training matrix "
-                         "(stride or alignment)")
-    if scratch is None:
-        scratch = FusedScratch(mat, f, b)
-    if scratch.tiles.numel() * PART_THREADS < mat.shape[0] \
-            or tuple(scratch.partial.shape[1:]) != (f, b, 3):
-        raise ValueError("scratch does not fit this matrix")
-    p = params
-    lib = _native.library()
-    err = lib.ltt_split_step_segment(
-        k.data_ptr(), S.data_ptr(), T.data_ptr(), mat.data_ptr(),
-        ws.data_ptr(), cols, payload_offset(f), hist.data_ptr(),
-        imeta.data_ptr(), fmeta.data_ptr(), scratch.partial.data_ptr(),
-        scratch.tiles.data_ptr(), scratch.table.data_ptr(),
-        scratch.ctl.data_ptr(), big_l, f, b, fused_feat_tile(f, b),
-        int(bool(has_monotone)), int(max_depth), p.lambda_l1, p.lambda_l2,
-        p.max_delta_step, p.min_data_in_leaf, p.min_sum_hessian_in_leaf,
-        p.min_gain_to_split, _native.stream_of(mat))
-    _native.check(err, "fused_split_step_segment")
-    _native.LAUNCHES["fused_split_step_segment"] += 1
+    SegmentStep(k, S, T, mat, ws, hist, imeta, fmeta, params=params,
+                big_l=big_l, max_depth=max_depth, b=b, f=f,
+                has_monotone=has_monotone, scratch=scratch)()
 
 
 # ---- leaf layout ------------------------------------------------------

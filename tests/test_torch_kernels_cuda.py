@@ -36,8 +36,11 @@ def mat(dev):
     return m
 
 
-@pytest.mark.parametrize("begin,count", [(0, N), (3, 12_345), (N - 1, 1),
-                                         (77, 0)])
+@pytest.mark.parametrize("begin,count", [
+    (0, N), (3, 12_345), (N - 1, 1), (77, 0),
+    (0, 256),      # one chunk exactly (hist_cuda.CHUNK_ROWS)
+    (5, 257),      # one row over: two chunks
+])
 def test_histogram_kernel_matches_plain(mat, begin, count):
     from lightgbm_tpu_torch.ops import hist_cuda as hc
     out = hc.histogram_segment(mat, begin, count, B, F)
@@ -46,6 +49,31 @@ def test_histogram_kernel_matches_plain(mat, begin, count):
                                        absolute=True)
     assert bool(((out - ref).abs() <= 1e-5 * scale + 1e-6).all())
     assert torch.equal(out, hc.histogram_segment(mat, begin, count, B, F))
+
+
+@pytest.mark.parametrize("count", [256, 257, None],
+                         ids=["one_chunk", "one_row_over", "chunk_cap"])
+def test_histogram_kernel_device_segment(dev, count):
+    """A segment given on the device with a larger bound (a child sized
+    by its parent, as the per-phase path launches it) sums bitwise as
+    with its own count: the chunks come from the count on the device.
+    The last case (None) passes the chunk cap (max_chunks(F) chunks of
+    more than CHUNK_ROWS rows)."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    if count is None:
+        count = hc.max_chunks(F) * hc.CHUNK_ROWS + 1
+    n = count + 2_000
+    m = _matrix(dev, n, F, B, 4)
+    begin = 1_001
+    seg = torch.tensor([begin, count], dtype=torch.int32, device=dev)
+    out = hc.histogram_segment(m, begin, count, B, F)
+    bound = hc.histogram_segment(m, seg, None, B, F, max_count=n)
+    assert _same_bytes(out, bound)
+    ref = hc.histogram_segment_plain(m, begin, count, B, F)
+    scale = hc.histogram_segment_plain(m, begin, count, B, F,
+                                       absolute=True)
+    assert bool(((out - ref).abs() <= 1e-5 * scale + 1e-6).all())
+    assert torch.equal(out[..., 2], ref[..., 2])
 
 
 @pytest.mark.parametrize("miss,is_cat", [(0, False), (1, False),
@@ -86,13 +114,24 @@ def test_scan_kernel_matches_plain(mat):
     assert torch.equal(k[..., sp.O_THR], p[..., sp.O_THR])
 
 
-def _matrix(dev, n, f, b, seed):
+def _matrix(dev, n, f, b, seed, block=None):
+    """A random [n, f] u8 training matrix with gradients. ``block``: the
+    rows of a random subset of that size take bin 0 of feature 0 and the
+    others its top bin, and the gradient is mostly the subset (features
+    1-3 carry a smaller linear signal), so the root split sends exactly
+    ``block`` rows to its smaller child and later splits still gain."""
     from lightgbm_tpu_torch.ops import hist_cuda as hc
     g = torch.Generator(device=dev).manual_seed(seed)
     binned = torch.randint(0, b, (n, f), generator=g, device=dev)
     # real signal, so that splits keep positive gains for many steps
     y = (binned[:, 0].float() / b + 0.3 * torch.rand(n, generator=g,
                                                     device=dev) > 0.6)
+    if block is not None:
+        rows = torch.randperm(n, generator=g, device=dev)[:block]
+        binned[:, 0] = b - 1
+        binned[rows, 0] = 0
+        y = (binned[:, 0] == 0).float() \
+            + 0.3 * (binned[:, 1:4].float().sum(1) / b - 1.5)
     m = hc.build_matrix(binned.to(torch.uint8))
     hc.pack_gh(m, f, y.float() - 0.5 + 0.01 * torch.randn(
         n, generator=g, device=dev), 0.2 + 0.05 * torch.rand(
@@ -140,20 +179,31 @@ def _same_bytes(a, b):
     return a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
 
 
-@pytest.mark.parametrize("n,f,b,max_depth,monotone", [
-    (N, F, B, -1, False),
-    (30_000, 40, 256, -1, False),     # two feature tiles in the kernel
-    (5_000, 5, 16, 3, True),          # few bins, depth cap, monotone
-], ids=["base", "feature_tiles", "small_bins"])
+@pytest.mark.parametrize("n,f,b,max_depth,monotone,block", [
+    (N, F, B, -1, False, None),
+    (30_000, 40, 256, -1, False, None),   # two feature tiles in the kernel
+    (5_000, 5, 16, 3, True, None),        # few bins, depth cap, monotone
+    # the root's smaller child is one chunk exactly (CHUNK_ROWS rows),
+    # then one row over it (two chunks)
+    (16_384, F, B, -1, False, 256),
+    (16_384, F, B, -1, False, 257),
+    # the root's smaller child past the chunk cap (max_chunks(F) chunks);
+    # the root's segment goes through the workspace, later ones are held
+    (600_000, F, B, -1, False, 290_000),
+    # 80-byte rows: every segment goes through the workspace
+    (30_000, 60, 256, -1, False, None),
+], ids=["base", "feature_tiles", "small_bins", "one_chunk_child",
+        "one_row_over", "chunk_cap", "wide_rows"])
 def test_fused_step_kernel_matches_plain(dev, n, f, b, max_depth,
-                                         monotone):
+                                         monotone, block):
     """Consecutive splits of one tree through the fused kernel and
     through its plain version fed the per-phase histogram kernel: k, S,
     T, the matrix and the histogram cache bitwise equal after each, so
-    the fused histogram equals the per-phase kernel's bit for bit."""
+    the fused histogram equals the per-phase kernel's bit for bit; and
+    the kernel again from the same state, bitwise the same."""
     from lightgbm_tpu_torch.ops import hist_cuda as hc
     from lightgbm_tpu_torch.ops import split_step_cuda as ss
-    mat = _matrix(dev, n, f, b, 1)
+    mat = _matrix(dev, n, f, b, 1, block)
     big_l = 31
     state, imeta, fmeta, kw = _fused_root(mat, f, b, big_l, max_depth,
                                           monotone)
@@ -164,14 +214,23 @@ def test_fused_step_kernel_matches_plain(dev, n, f, b, max_depth,
         return hc.histogram_segment(m, begin, count, b, f,
                                     max_count=max_count)
     for _ in range(big_l - 1):
+        again = [t.clone() for t in state]
         ss.fused_split_step_segment(*state[:3], state[3], ws, state[4],
+                                    imeta, fmeta, **kw)
+        ss.fused_split_step_segment(*again[:3], again[3], ws, again[4],
                                     imeta, fmeta, **kw)
         ss.fused_split_step_segment_plain(*plain[:3], plain[3], ws,
                                           plain[4], imeta, fmeta,
                                           histogram=per_phase_hist, **kw)
         torch.cuda.synchronize()
-        for name, a, p in zip(("k", "S", "T", "mat", "hist"), state, plain):
+        for name, a, p, r in zip(("k", "S", "T", "mat", "hist"), state,
+                                 plain, again):
             assert _same_bytes(a, p), (int(plain[0][0]), name)
+            assert _same_bytes(a, r), (int(plain[0][0]), name, "again")
+        if block is not None and int(state[0][0]) == 2:
+            cnt = ss.state_rows(monotone) - ss.STATE_INT_ROWS["segment"]
+            sizes = state[1][cnt + 1, :2].view(torch.int32).tolist()
+            assert min(sizes) == block
     assert int(state[0][0]) > 4
 
 
