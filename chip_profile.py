@@ -92,6 +92,9 @@ def profile_path(path: str, ds, trees: int) -> str:
     for e in by_cpu[:12]:
         print(f"  host   {e.self_cpu_time_total / 1e3:9.2f} ms "
               f"{e.count:7d} x  {e.key[:70]}")
+    if lrn.fused:
+        for line in fused_timeline(prof, lrn.num_leaves - 1, trees):
+            print(f"{tag} {line}")
     tables = (f"== {path}\n"
               + events.table(sort_by="self_cuda_time_total", row_limit=60)
               + "\n"
@@ -99,6 +102,50 @@ def profile_path(path: str, ds, trees: int) -> str:
     del bst
     torch.cuda.empty_cache()
     return tables
+
+
+def fused_timeline(prof, launches: int, trees: int) -> list:
+    """Where a fused path's tree spends its wall time, from the
+    profiler's timeline: each tree enqueues ``launches`` fused-step
+    launches (``cudaLaunchCooperativeKernel`` on the host, one kernel
+    each on the card). Per tree, mean ms: the host's enqueue of the
+    split loop (first launch call to last), the card's split loop (first
+    fused kernel's start to last one's end), how long the card runs on
+    after the host's last enqueue, and the rest of the tree ("outside":
+    the card's last split kernel of one tree to the host's first launch
+    call of the next: the state read, the tree build, the score update,
+    the gradients, the root histogram and scan) with the card's busy
+    time inside it."""
+    from torch.autograd import DeviceType
+    evs = prof.events()
+    calls = sorted((e.time_range.start, e.time_range.end) for e in evs
+                   if e.device_type == DeviceType.CPU
+                   and e.name == "cudaLaunchCooperativeKernel")
+    dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in evs
+                 if e.device_type == DeviceType.CUDA)
+    steps = [d for d in dev if "split_step" in d[2]]
+    if len(calls) != launches * trees or len(steps) != launches * trees:
+        return [f"timeline: {len(calls)} launch calls and {len(steps)} "
+                f"fused kernels, expected {launches * trees}; not split"]
+    host, card, tail, outside, busy = [], [], [], [], []
+    for t in range(trees):
+        c0, c1 = calls[t * launches], calls[(t + 1) * launches - 1]
+        k0, k1 = steps[t * launches], steps[(t + 1) * launches - 1]
+        host.append(c1[1] - c0[0])
+        card.append(k1[1] - k0[0])
+        tail.append(k1[1] - c1[1])
+        if t + 1 < trees:
+            a, b = k1[1], calls[(t + 1) * launches][0]
+            outside.append(b - a)
+            busy.append(sum(max(0.0, min(e, b) - max(s, a))
+                            for s, e, _ in dev))
+
+    def ms(x):
+        return f"{sum(x) / max(len(x), 1) / 1e3:.3f}"
+    return [f"timeline per tree: host enqueue of the split loop {ms(host)} "
+            f"ms, card's split loop {ms(card)} ms, card after the last "
+            f"enqueue {ms(tail)} ms; outside the loop {ms(outside)} ms, "
+            f"card busy {ms(busy)} ms of it"]
 
 
 PHASES = ("site", "lid pass", "compaction", "histogram", "reduce", "scan",

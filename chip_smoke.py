@@ -14,9 +14,10 @@ of the JAX package. Phases, each fatal on failure:
    step on the 2M x 28 u8 training matrix (256 bins; the fused step at
    the root, at a mid-tree split whose smaller child has several
    histogram chunks and at a late one whose smaller child has one, and
-   a whole tree's average launch), then the scan at 1023 bins and the leaf fused step's
-   root split of the 2M x 28 bin matrix at 1023 bins (u16) and at 255
-   (u8);
+   a whole tree's average launch), then the scan at 1023 bins, the leaf
+   fused step's root split of the 2M x 28 bin matrix at 1023 bins (u16)
+   and at 255 (u8), and the full-range histogram (``hist_rows``) of both
+   bin matrices over all rows and over a third of them;
 3. train the Higgs-shaped binary model at full width (2M x 28,
    max_bin=255, num_leaves=255, lr=0.1, 8 iterations) through
    ``lightgbm_tpu_torch.train`` twice: the fused path (the default,
@@ -29,7 +30,8 @@ of the JAX package. Phases, each fatal on failure:
 4. the same at ``max_bin=1023``, which ``create_tree_learner`` gives to
    the serial (leaf_id) learner: fused (one leaf-kernel launch per
    split) and per-phase, the same trees, one more fused tree under the
-   sync checker, and the launch counters;
+   sync checker, and the launch counters (``hist_rows`` once a tree on
+   the fused path, once a tree and once a split per-phase);
 5. leaf against segment: at max_bin=255, 3 trees through a
    ``SerialTreeLearner`` constructed directly (the leaf kernel) and
    through the default ``PartitionedTreeLearner`` (the segment kernel):
@@ -336,16 +338,12 @@ def check_fused(mat, n, dataset, reps):
 
     names = ("k", "S", "T", "mat", "hist")
 
-    dead_rows = [pack.sf_idx[f] for f in ("bs_lg", "bs_lh", "bs_lc",
-                                           "bs_lout", "bs_rout")]
-
     def agree(src, what):
         """One split from src through the kernel twice and through the
         plain version fed the per-phase histogram kernel: all bitwise
-        equal, except the split fields of a leaf without a valid split
-        (bs_gain -inf in both; ROADMAP Queue 3: the scan's outputs at an
-        invalid threshold, 0/0 or x/0, which nothing reads), as
-        ``check_fused_leaf`` skips them. Returns the kernel's state."""
+        equal, the split fields of a leaf without a valid split
+        included (both store them defined: finite, or 0). Returns the
+        kernel's state."""
         restore(src)
         kernel()
         torch.cuda.synchronize()
@@ -359,15 +357,6 @@ def check_fused(mat, n, dataset, reps):
             torch.cuda.synchronize()
             for name, a, b in zip(names, got, state):
                 a, b = a.view(torch.uint8), b.view(torch.uint8)
-                if name == "S" and not again:
-                    gain = pack.sf_idx["bs_gain"]
-                    dead = torch.isneginf(got[1][gain]) \
-                        & torch.isneginf(state[1][gain])
-                    a, b = got[1].clone(), state[1].clone()
-                    for row in dead_rows:
-                        a[row, dead] = 0.0
-                        b[row, dead] = 0.0
-                    a, b = a.view(torch.uint8), b.view(torch.uint8)
                 if not torch.equal(a, b):
                     fail(f"fused split step ({what}): {name} "
                          + ("not bitwise repeatable" if again else
@@ -561,9 +550,9 @@ def check_fused_leaf(binned, ghc, dataset, b, reps):
         rows (S bs_gain, T split gain) are held to 1e-5 x (|gain| + the
         leaf's g**2 / h) + 1e-5, as tests/test_torch_fused_leaf.py holds
         them: a gain is a difference of terms of that size, so it
-        carries their float32 rounding (ROADMAP Queue 3); and a leaf
-        whose gain is -inf in both has no split, so its split fields
-        are not compared."""
+        carries their float32 rounding (ROADMAP Queue 3). The split
+        fields of a leaf without a valid split are compared like the
+        others (both store them defined: finite, or 0)."""
         restore(src)
         kernel()
         torch.cuda.synchronize()
@@ -609,16 +598,6 @@ def check_fused_leaf(binned, ghc, dataset, b, reps):
                     fail(f"leaf kernel ({b} bins, {what}): the gain row of "
                          f"{name} differs beyond its gain size")
                 fa[row] = fc[row]
-                if name == "S":
-                    # a leaf without a valid split (gain -inf in both)
-                    # keeps split fields that nothing reads: its scan's
-                    # outputs at an invalid threshold (0/0 or x/0)
-                    dead = torch.isneginf(gc)
-                    for field in ("bs_lg", "bs_lh", "bs_lc", "bs_lout",
-                                  "bs_rout"):
-                        i = pack.sf_idx[field]
-                        fa[i, dead] = 0.0
-                        fc[i, dead] = 0.0
             close = torch.isclose(fa, fc, rtol=1e-5, atol=1e-5) \
                 | (torch.isinf(fa) & (fa == fc))
             if not bool(close.all()):
@@ -711,6 +690,80 @@ def leaf_summary(r):
             f"{r['small_split_bound_ms']:.5f} ms), tree average "
             f"{r['tree_avg_ms']:.4f} ms per launch over "
             f"{r['tree_splits']} splits;")
+
+
+def check_hist_rows(bins_by_width, ghc, reps):
+    """The full-range histogram kernel (``hist_rows``) against its plain
+    version (``build_histogram``) on the [n, F] bin matrices, u8 (255
+    bins) and u16 (1023 bins), over all rows (the serial learner's root)
+    and over a random third of the rows in row order (a per-phase
+    child): bitwise repeatable, counts exact, sums within 1e-5 x the
+    bin's sum of |values| + 1e-6. Each case timed beside its plain
+    version, its byte bound (each listed row's bins and ghc read once,
+    its id too in list mode, the histogram written once) and one
+    float32 ``index_add_`` over the flattened (feature, bin) keys of the
+    same rows. The record's own numbers are the u16 root's (the serial
+    learner's main path)."""
+    import torch
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    dev = ghc.device
+    n = ghc.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ids = torch.nonzero(torch.rand(n, generator=gen, device=dev) < 1 / 3) \
+        .flatten().to(torch.int32)
+    cases, worst = {}, 0.0
+    for width, (bins, b) in bins_by_width.items():
+        partial = hc.rows_partial(bins, b)
+        f, bb = bins.shape[1], bins.element_size()
+        for mode, rows in (("all rows", None), ("a third", ids)):
+            out = hc.histogram_rows(bins, ghc, b, rows, partial=partial)
+            again = hc.histogram_rows(bins, ghc, b, rows, partial=partial)
+            ref = hc.histogram_rows_plain(bins, ghc, b, rows)
+            scale = hc.histogram_rows_plain(bins, ghc.abs(), b, rows)
+            torch.cuda.synchronize()
+            what = f"hist_rows ({width}, {mode})"
+            if not torch.equal(out.view(torch.int32), again.view(torch.int32)):
+                fail(f"{what} not bitwise repeatable")
+            if not torch.equal(out[..., 2], ref[..., 2]):
+                fail(f"{what}: counts differ from the plain version")
+            err = (out - ref).abs()
+            if bool((err > 1e-5 * scale + 1e-6).any()):
+                fail(f"{what} off by {float(err.max())}")
+            worst = max(worst, float(err.max()))
+            ms = time_ms(lambda: hc.histogram_rows(bins, ghc, b, rows,
+                                                   partial=partial), reps)
+            plain_ms = time_ms(
+                lambda: hc.histogram_rows_plain(bins, ghc, b, rows), 3)
+            sel = torch.arange(n, device=dev) if rows is None else rows.long()
+            keys = (bins.index_select(0, sel).long() & 0xFFFF) \
+                + torch.arange(f, device=dev) * b
+            keys = keys.reshape(-1)
+            vals = ghc.index_select(0, sel).repeat_interleave(f, 0)
+            lib_out = torch.zeros((f * b, 3), device=dev)
+            library_ms = time_ms(lambda: lib_out.index_add_(0, keys, vals),
+                                 reps)
+            del keys, vals
+            rows_n = sel.numel()
+            nbytes = rows_n * (f * bb + 12 + (0 if rows is None else 4)) \
+                + f * b * 3 * 4
+            cases[f"{width}, {mode}"] = dict(
+                rows=rows_n, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                chunks=hc.leaf_child_chunks(
+                    rows_n, f, hc.leaf_feat_tile(f, b, bb)))
+        del partial
+    main = cases["u16, all rows"]
+    return dict(max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
+                library_ms=main["library_ms"], bound_ms=main["bound_ms"],
+                bound_by="bytes", cases=cases)
+
+
+def hist_rows_summary(r):
+    return "; ".join(f"{name}: {c['ms']:.4f} ms ({c['rows']} rows, "
+                     f"{c['chunks']} chunks; plain {c['plain_ms']:.3f}, "
+                     f"index_add_ {c['library_ms']:.3f}, bound "
+                     f"{c['bound_ms']:.4f})"
+                     for name, c in r["cases"].items())
 
 
 def tree_sig(t):
@@ -1057,6 +1110,12 @@ def main() -> int:
     print(f"[check] fused_split_step_leaf ({b_u8} bins, u8) ok "
           f"{time.perf_counter() - t0:.1f} s: {leaf_summary(leaf_u8)} "
           f"{leaf_u8}")
+    t0 = time.perf_counter()
+    rec["hist_rows"] = check_hist_rows(
+        {"u8": (binned.binned_device(dev), b_u8),
+         "u16": (bins_wide, b_wide)}, ghc, args.reps)
+    print(f"[check] hist_rows ok {time.perf_counter() - t0:.1f} s: "
+          f"{hist_rows_summary(rec['hist_rows'])} {rec['hist_rows']}")
     del ghc, bins_wide, grad, hess
     torch.cuda.empty_cache()
 
@@ -1073,12 +1132,26 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 4. the serial learner at full width (1023 bins) ---------------
-    serial_bst, serial_fused, _ = train_paths(
+    serial_bst, serial_fused, serial_per = train_paths(
         "max_bin 1023", params_wide, ds_wide, args.iters, dev,
-        {"fused": ("split_scan", "fused_split_step_leaf"),
-         "per-phase": ("split_scan",)}, "fused_split_step_leaf")
+        {"fused": ("hist_rows", "split_scan", "fused_split_step_leaf"),
+         "per-phase": ("hist_rows", "split_scan")}, "fused_split_step_leaf")
     if not isinstance(serial_bst._gbdt.learner, SerialTreeLearner):
         fail("max_bin 1023 did not train through the SerialTreeLearner")
+    # hist_rows: the root of every tree, and per-phase every split's
+    # smaller child too (the two paths grew the same trees)
+    trees = serial_bst.models[:args.iters]
+    splits = sum(t.num_leaves - 1 for t in trees)
+    print(f"[train max_bin 1023] hist_rows launches: fused "
+          f"{serial_fused['hist_rows']} (trees {len(trees)}), per-phase "
+          f"{serial_per['hist_rows']} (trees + splits "
+          f"{len(trees) + splits})")
+    if serial_fused["hist_rows"] != len(trees) \
+            or serial_per["hist_rows"] != len(trees) + splits:
+        fail("hist_rows launches on the serial paths are not one a tree "
+             "(fused) and one a tree plus one a split (per-phase)")
+    if part_fused["hist_rows"] or part_per["hist_rows"]:
+        fail("the partitioned learner launched hist_rows")
     pred = serial_bst.predict(X[:100_000], raw_score=True)
     if pred.shape != (100_000,) or not np.isfinite(pred).all():
         fail("full-width serial predictions are not finite")
@@ -1091,7 +1164,8 @@ def main() -> int:
                     partition_segment=part_per["partition_segment"],
                     split_scan=serial_fused["split_scan"],
                     fused_split_step_leaf=serial_fused[
-                        "fused_split_step_leaf"])
+                        "fused_split_step_leaf"],
+                    hist_rows=serial_fused["hist_rows"])
 
     # ---- 5. leaf kernel against segment kernel at 255 bins -------------
     t0 = time.perf_counter()
@@ -1167,6 +1241,8 @@ def main() -> int:
         "fused_split_step_leaf": (
             "lightgbm_tpu_torch/csrc/split_step_leaf.cu",
             "lightgbm_tpu/ops/split_step_pallas.py:413"),
+        "hist_rows": ("lightgbm_tpu_torch/csrc/hist_rows.cu",
+                      "lightgbm_tpu/ops/hist_pallas.py:642"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

@@ -207,12 +207,19 @@ __device__ void write_child(const A& a, int idx, const float* tab,
   S[S_LEAF_G * L + idx] = ch.pg;
   S[S_LEAF_H * L + idx] = ch.ph;
   S[S_LEAF_C * L + idx] = ch.pc;
-  S[S_BS_GAIN * L + idx] = blocked ? -INFINITY : r[0];
-  S[S_BS_LG * L + idx] = r[2];
-  S[S_BS_LH * L + idx] = r[3] - kEps;
-  S[S_BS_LC * L + idx] = r[4];
-  S[S_BS_LOUT * L + idx] = r[6];
-  S[S_BS_ROUT * L + idx] = r[7];
+  const float gain = blocked ? -INFINITY : r[0];
+  // a leaf without a valid split keeps its scan's fields at an invalid
+  // threshold, where an output can be 0/0 or x/0: a field that is not
+  // finite there is stored as 0 (learner/split_step.py
+  // defined_split_fields)
+  const bool dead = !(gain > -INFINITY);
+  auto field = [dead](float x) { return dead && !isfinite(x) ? 0.f : x; };
+  S[S_BS_GAIN * L + idx] = gain;
+  S[S_BS_LG * L + idx] = field(r[2]);
+  S[S_BS_LH * L + idx] = field(r[3] - kEps);
+  S[S_BS_LC * L + idx] = field(r[4]);
+  S[S_BS_LOUT * L + idx] = field(r[6]);
+  S[S_BS_ROUT * L + idx] = field(r[7]);
   if (a.has_mono) {
     S[S_CMIN * L + idx] = ch.cmin;
     S[S_CMAX * L + idx] = ch.cmax;

@@ -44,16 +44,18 @@
 //     writes its members' row ids, in row order, to ids[0, sc) (one
 //     coalesced read of its own mask words) | sync. Membership is fixed
 //     here, once: no later phase reads a lid another block may write;
-//  3. the histogram over ids: (chunk, feature tile) virtual blocks, the
-//     chunks cut from sc alone (kChunkRows rows each, at most
-//     kMaxVBlocks / tiles of them), so the summation order does not
-//     depend on the card. A virtual block stages kStageRows rows' ghc
-//     and tile bins in shared memory through the id list (independent
-//     loads in flight), then warp w owns features w, w + 8, ... of the
-//     tile; __match_any_sync groups the lanes that hit one bin and the
-//     lowest lane adds its peers in lane order, two 32-row groups in
-//     flight. Sums are float64 in shared memory, so a bin's sum depends
-//     on the row order alone. A child of one chunk (sc <= kChunkRows)
+//  3. the histogram over ids, the row loop of hist_ids.cuh (shared with
+//     hist_rows.cu, so a per-phase child's histogram is this one bit for
+//     bit): (chunk, feature tile) virtual blocks, the chunks cut from sc
+//     alone (kChunkRows rows each, at most kMaxVBlocks / tiles of them),
+//     so the summation order does not depend on the card. A virtual
+//     block stages kStageRows rows' ghc and tile bins in shared memory
+//     through the id list (independent loads in flight), then warp w
+//     owns features w, w + 8, ... of the tile; __match_any_sync groups
+//     the lanes that hit one bin and the lowest lane adds its peers in
+//     lane order, four 32-row groups in flight. Sums are float64 in
+//     shared memory, so a bin's sum depends on the row order alone. A
+//     child of one chunk (sc <= kChunkRows)
 //     writes its rounded child row and parent - child straight into the
 //     cache; otherwise each chunk writes a float64 partial | sync;
 //  4. (more than one chunk) partials summed in chunk order in float64
@@ -76,6 +78,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "hist_ids.cuh"
 #include "partition_core.cuh"
 #include "scan_core.cuh"
 #include "split_state.cuh"
@@ -84,17 +87,13 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using ltt::ids::kThreads;
+using ltt::ids::kWarps;
+using ltt::ids::kMaxTile;
+using ltt::ids::kFull;
+using ltt::ids::Laps;
 constexpr int kLidUnroll = 16;     // rows a thread keeps in flight (lid pass)
-constexpr int kStageRows = 512;    // child rows staged per step
-constexpr int kPer = kStageRows / kThreads;  // staged rows per thread
-constexpr int kMaxTile = 16;       // features per histogram tile, at most
-constexpr int kChunkRows = 512;    // child rows per histogram chunk
-constexpr int kMaxVBlocks = 256;   // cap of chunks x feature tiles
-constexpr int kGroups = 4;         // 32-row groups a warp has in flight
 constexpr int kTimes = 32;         // clock reads per split (timed build)
-constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
   int* k;  // device int32[1]: the split index (= the new leaf's id)
@@ -116,18 +115,6 @@ struct Args {
   int n, big_l, F, B, feat_tile, has_mono, nf, si0, max_depth;
   ltt::Params p;
 };
-
-// Chunks of the histogram phase for a child of sc rows: they depend on
-// sc and the feature tiles only, never on the grid.
-__host__ __device__ inline int max_chunks_of(int F, int feat_tile) {
-  const int nft = (F + feat_tile - 1) / feat_tile;
-  return kMaxVBlocks / nft > 1 ? kMaxVBlocks / nft : 1;
-}
-
-__device__ __forceinline__ int child_chunks(long long sc, int max_chunks) {
-  const long long c = (sc + kChunkRows - 1) / kChunkRows;
-  return (int)max(1LL, min((long long)max_chunks, c));
-}
 
 __device__ __forceinline__ unsigned long long global_ns() {
   unsigned long long t;
@@ -166,59 +153,6 @@ __device__ __forceinline__ void stamp_finish(const Args& a, int k) {
   if constexpr (kTimed) a.times[(size_t)(k - 1) * kTimes + 7] = global_ns();
 }
 
-// cycles since the last lap into acc (timed build, thread 0's view)
-template <bool kTimed>
-struct Laps {
-  unsigned long long t = 0, acc[4] = {0, 0, 0, 0};
-  __device__ __forceinline__ void start() {
-    if constexpr (kTimed) t = clock64();
-  }
-  __device__ __forceinline__ void lap(int i) {
-    if constexpr (kTimed) {
-      const unsigned long long now = clock64();
-      acc[i] += now - t;
-      t = now;
-    }
-  }
-};
-
-// One thread's share of a staged step: kPer rows' ids, ghc and the
-// tile's bins, in registers while the previous step is accumulated.
-template <typename BinT>
-struct Staged {
-  int rid[kPer];
-  float g[kPer], h[kPer], c[kPer];
-  BinT bin[kPer][kMaxTile];
-};
-
-__device__ __forceinline__ void load_ids(const int* ids, long long s0, int m,
-                                         int (&rid)[kPer]) {
-#pragma unroll
-  for (int u = 0; u < kPer; ++u) {
-    const int j = u * kThreads + threadIdx.x;
-    rid[u] = j < m ? __ldcg(ids + s0 + j) : -1;
-  }
-}
-
-// the rows' ghc and tile bins, every load issued before any is used
-template <typename BinT>
-__device__ __forceinline__ void load_rows(const float* ghc, const BinT* bins,
-                                          int F, int f0, int nf,
-                                          Staged<BinT>& st) {
-#pragma unroll
-  for (int u = 0; u < kPer; ++u) {
-    if (st.rid[u] < 0) continue;
-    const float* gp = ghc + (size_t)st.rid[u] * 3;
-    st.g[u] = gp[0];
-    st.h[u] = gp[1];
-    st.c[u] = gp[2];
-    const BinT* rp = bins + (size_t)st.rid[u] * F + f0;
-#pragma unroll
-    for (int fl = 0; fl < kMaxTile; ++fl)
-      if (fl < nf) st.bin[u][fl] = rp[fl];
-  }
-}
-
 // Whole block: the sum of x over the block to every thread (integers,
 // so the order does not matter). red: shared int[kWarps].
 __device__ __forceinline__ int block_sum(int x, int* red) {
@@ -229,58 +163,6 @@ __device__ __forceinline__ int block_sum(int x, int* red) {
   for (int w = 0; w < kWarps; ++w) s += red[w];
   __syncthreads();
   return s;
-}
-
-// One warp adds kGroups consecutive 32-row groups of the stage into the
-// float64 bins of one feature (bs: the feature's staged bins; rows from
-// base, m rows staged). In each group the lanes of one bin are found
-// with __match_any_sync and the lowest adds its peers in lane order;
-// the matches and sums of all groups are in flight together, their adds
-// into hf land group by group. A bin's sum therefore depends on the
-// row order alone.
-template <typename BinT>
-__device__ __forceinline__ void add_groups(const BinT* bs, int base, int m,
-                                           int lane, const float* g_s,
-                                           const float* h_s,
-                                           const float* c_s, double* hf) {
-  int bin[kGroups];
-  unsigned peers[kGroups];
-#pragma unroll
-  for (int q = 0; q < kGroups; ++q) {
-    const int j = base + 32 * q + lane;
-    bin[q] = j < m ? (int)bs[j] : -1;
-  }
-#pragma unroll
-  for (int q = 0; q < kGroups; ++q) peers[q] = __match_any_sync(kFull, bin[q]);
-  double sg[kGroups], sh[kGroups], sc[kGroups];
-  bool lead[kGroups];
-#pragma unroll
-  for (int q = 0; q < kGroups; ++q) {
-    lead[q] = bin[q] >= 0 && lane == __ffs(peers[q]) - 1;
-    double g = 0.0, h = 0.0, c = 0.0;
-    if (lead[q]) {
-      unsigned mm = peers[q];
-      while (mm) {
-        const int p = base + 32 * q + __ffs(mm) - 1;
-        mm &= mm - 1;
-        g += (double)g_s[p];
-        h += (double)h_s[p];
-        c += (double)c_s[p];
-      }
-    }
-    sg[q] = g;
-    sh[q] = h;
-    sc[q] = c;
-  }
-#pragma unroll
-  for (int q = 0; q < kGroups; ++q) {
-    if (lead[q]) {
-      hf[bin[q] * 3 + 0] += sg[q];
-      hf[bin[q] * 3 + 1] += sh[q];
-      hf[bin[q] * 3 + 2] += sc[q];
-    }
-    __syncwarp();  // this group's adds land before the next group's
-  }
 }
 
 template <typename BinT, int kCap, bool kTimed>
@@ -399,77 +281,29 @@ split_step_leaf_kernel(Args a) {
   grid.sync();
   stamp<kTimed>(a, site.k, 3);
 
-  // ---- 3. the smaller child's histogram over ids ---------------------
-  const int nft = (F + a.feat_tile - 1) / a.feat_tile;
-  const int chunks = child_chunks(sc, max_chunks_of(F, a.feat_tile));
+  // ---- 3. the smaller child's histogram over ids (hist_ids.cuh) ------
+  const int nft = ltt::ids::feature_tiles(F, a.feat_tile);
+  const int chunks = ltt::ids::child_chunks(
+      sc, ltt::ids::max_chunks_of(F, a.feat_tile));
   const long long chunk = (sc + chunks - 1) / chunks;
   const bool direct = chunks == 1;
   const int idx_a = q.small_left ? leaf : nw;
   const int idx_b = q.small_left ? nw : leaf;
   const size_t fb3 = (size_t)F * B * 3;
   {
-    double* hist_s = reinterpret_cast<double*>(dyn);
-    float* g_s =
-        reinterpret_cast<float*>(hist_s + (size_t)a.feat_tile * B * 3);
-    float* h_s = g_s + kStageRows;
-    float* c_s = h_s + kStageRows;
-    BinT* bin_s = reinterpret_cast<BinT*>(c_s + kStageRows);
+    const ltt::ids::TileSmem<BinT> tile =
+        ltt::ids::carve<BinT>(dyn, a.feat_tile, B);
+    double* hist_s = tile.hist;
     Laps<kTimed> clk;
     for (int v = blockIdx.x; v < chunks * nft; v += gridDim.x) {
       clk.start();
       const int c = v / nft, f0 = (v % nft) * a.feat_tile;
       const int nf = min(a.feat_tile, F - f0);
       const int n3 = nf * B * 3;
-      for (int i = threadIdx.x; i < n3; i += kThreads) hist_s[i] = 0.0;
       const long long i0 = min(sc, (long long)c * chunk);
       const long long i1 = min(sc, i0 + chunk);
-      // a two-step pipeline: the rows of step s + 1 load into registers
-      // while step s is accumulated, the ids of step s + 2 likewise
-      Staged<BinT> st;
-      int nid[kPer];
-      load_ids(a.ids, i0, (int)min((long long)kStageRows, i1 - i0), st.rid);
-      load_rows(a.ghc, bins, F, f0, nf, st);
-      load_ids(a.ids, i0 + kStageRows,
-               (int)max(0LL, min((long long)kStageRows,
-                                 i1 - i0 - kStageRows)),
-               nid);
-      clk.lap(0);
-      for (long long s0 = i0; s0 < i1; s0 += kStageRows) {
-        const int m = (int)min((long long)kStageRows, i1 - s0);
-        __syncthreads();  // the last step's stage is read (and zeroed)
-        clk.lap(2);
-#pragma unroll
-        for (int u = 0; u < kPer; ++u) {
-          const int j = u * kThreads + threadIdx.x;
-          if (st.rid[u] < 0) continue;
-          g_s[j] = st.g[u];
-          h_s[j] = st.h[u];
-          c_s[j] = st.c[u];
-#pragma unroll
-          for (int fl = 0; fl < kMaxTile; ++fl)
-            if (fl < nf) bin_s[fl * kStageRows + j] = st.bin[u][fl];
-        }
-        __syncthreads();
-        clk.lap(1);
-        const long long s1 = s0 + kStageRows;
-        if (s1 < i1) {
-#pragma unroll
-          for (int u = 0; u < kPer; ++u) st.rid[u] = nid[u];
-          load_rows(a.ghc, bins, F, f0, nf, st);
-          load_ids(a.ids, s1 + kStageRows,
-                   (int)max(0LL, min((long long)kStageRows,
-                                     i1 - s1 - kStageRows)),
-                   nid);
-        }
-        for (int fl = warp; fl < nf; fl += kWarps) {
-          double* hf = hist_s + (size_t)fl * B * 3;
-          const BinT* bs = bin_s + fl * kStageRows;
-          for (int base = 0; base < m; base += 32 * kGroups)
-            add_groups(bs, base, m, lane, g_s, h_s, c_s, hf);
-        }
-      }
-      __syncthreads();
-      clk.lap(2);
+      ltt::ids::hist_chunk<BinT, true, kTimed>(a.ids, i0, i1, a.ghc, bins, F,
+                                               f0, nf, B, tile, clk);
       const size_t off = (size_t)f0 * B * 3;
       if (direct) {
         // the tile of the whole child: rounded once, into the cache
@@ -560,9 +394,7 @@ split_step_leaf_kernel(Args a) {
 // rows, or the scan planes, whichever is larger
 size_t leaf_smem_bytes(int bin_bytes, int B, int feat_tile,
                        size_t scan_bytes) {
-  const size_t hist = (size_t)feat_tile * B * 3 * sizeof(double) +
-                      (size_t)kStageRows * 3 * sizeof(float) +
-                      (size_t)feat_tile * kStageRows * bin_bytes;
+  const size_t hist = ltt::ids::tile_smem_bytes(bin_bytes, B, feat_tile);
   return hist > scan_bytes ? hist : scan_bytes;
 }
 
@@ -610,7 +442,7 @@ int leaf_shape(int bin_bytes, int n, int F, int B, int feat_tile,
                                                          &out[1]);
   }
   out[2] = (int)smem;
-  out[3] = max_chunks_of(F, feat_tile);
+  out[3] = ltt::ids::max_chunks_of(F, feat_tile);
   return err;
 }
 

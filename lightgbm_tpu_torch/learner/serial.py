@@ -15,17 +15,20 @@ cannot hold.
 Two grow loops, chosen before training (``fused_split_kernel``):
 
   * **fused** ("auto" on a CUDA device, or "on"): the root's histogram
-    (``ops/histogram.py``) and scan kernel, then ``num_leaves - 1``
-    launches of the leaf-layout fused split step
+    (the ``hist_rows`` kernel, ``ops/hist_cuda.py:histogram_rows``, the
+    port of the JAX package's ``histogram_pallas``) and scan kernel, then
+    ``num_leaves - 1`` launches of the leaf-layout fused split step
     (``ops/split_step_cuda.py:fused_split_step_leaf``) enqueued without
     a host read; ``S``, ``T`` and ``k`` are read once per tree. On the
-    CPU, or with ``ops="plain"``, each step is its plain version.
+    CPU, or with ``ops="plain"``, each op is its plain version
+    (``build_histogram`` for the histograms).
   * **per-phase** ("off", "auto" on the CPU): a Python loop over splits
     through ``split_step_host``: ``split_leaf``, the smaller child's
-    histogram over masked ghc (``build_histogram``, a torch op on the
-    card too, as the JAX package leaves it to XLA), the sibling by
-    subtraction, both children's scans (the scan kernel on the card),
-    one host read of the scan tables per split.
+    histogram (on the card the ``hist_rows`` kernel over the child's
+    row ids, which sums as the fused step does; plain: ``build_histogram``
+    over masked ghc), the sibling by subtraction, both children's scans
+    (the scan kernel on the card), one host read of the scan tables per
+    split.
 
 Both loops write the same state through the same bookkeeping and build
 the histograms to the same float64-then-round rule, so they grow the
@@ -45,6 +48,7 @@ import torch
 
 from ..config import Config
 from ..data.dataset import Dataset
+from ..ops.hist_cuda import histogram_rows, rows_partial
 from ..ops.histogram import build_histogram, make_ghc
 from ..ops.split_step_cuda import (LeafScratch, LeafStep,
                                    fused_split_step_leaf_plain,
@@ -72,6 +76,19 @@ class SerialTreeLearner(LeafwiseLearner):
                                    device=self.device)
         self._scratch = LeafScratch(self.binned, self.num_bins_max) \
             if self.fused and not self.plain else None
+        # the hist_rows kernel's float64 partials: the fused step's when
+        # it has them (the same shape), else allocated once here
+        self._partial = None if self.plain else (
+            self._scratch.partial if self._scratch is not None
+            else rows_partial(self.binned, self.num_bins_max))
+
+    def _histogram(self, ghc: torch.Tensor) -> torch.Tensor:
+        """The root histogram: the hist_rows kernel on the card, the plain
+        ``build_histogram`` on the CPU or with ``ops="plain"``."""
+        if self.plain:
+            return build_histogram(self.binned, ghc, self.num_bins_max)
+        return histogram_rows(self.binned, ghc, self.num_bins_max,
+                              partial=self._partial)
 
     # ------------------------------------------------------------------
     def train(self, grad: torch.Tensor, hess: torch.Tensor,
@@ -80,9 +97,7 @@ class SerialTreeLearner(LeafwiseLearner):
         # bagging is out of this slice, so every row counts
         ghc = make_ghc(grad.to(torch.float32), hess.to(torch.float32))
         self.leaf_id.zero_()
-        table, root = self._root_scan(
-            build_histogram(self.binned, ghc, self.num_bins_max), meta_t,
-            tables)
+        table, root = self._root_scan(self._histogram(ghc), meta_t, tables)
         st = root_state(self.pack, table, *root, self.num_data,
                         self.params, self.num_leaves)
         if self.fused:
@@ -120,5 +135,6 @@ class SerialTreeLearner(LeafwiseLearner):
         im = imeta.cpu().numpy()
         ops = leaf_split_ops(
             self.leaf_id, self.binned, ghc, im, self.num_bins_max,
-            lambda hists, leaves: self._scan(hists, leaves, meta_t, tables))
+            lambda hists, leaves: self._scan(hists, leaves, meta_t, tables),
+            partial=self._partial)
         return self._grow_host(st, ops, im)

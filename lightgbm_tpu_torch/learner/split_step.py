@@ -341,16 +341,36 @@ def order_child_pair(a_is_left, k, lg, lh, lc, rg, rh, rc, lout, rout,
         side_a=side_a, side_b=1 - side_a)
 
 
+def defined_split_fields(gain, lg, lh, lc, lout, rout):
+    """The split fields ``bs_lg``, ``bs_lh``, ``bs_lc``, ``bs_lout``,
+    ``bs_rout`` of a leaf as the state stores them. A leaf without a
+    valid split (gain -inf) holds its scan's sums and outputs at an
+    invalid threshold, where the right side can be empty (an output of
+    0/0 or x/0, NaN in the JAX twins, -inf or NaN here): a field that is
+    not finite there is stored as 0, the others as the JAX twins store
+    them (``csrc/split_state.cuh`` ``write_child`` does the same). Host
+    scalars or tensors."""
+    fields = (lg, lh, lc, lout, rout)
+    if isinstance(gain, torch.Tensor):
+        dead = ~(gain > float("-inf"))
+        return tuple(torch.where(dead & ~torch.isfinite(x),
+                                 torch.zeros_like(x), x) for x in fields)
+    if gain > -np.inf:
+        return fields
+    return tuple(x if np.isfinite(x) else np.float32(0.0) for x in fields)
+
+
 def child_columns(split, g, h, c, out, cmin, cmax, s, side, depth,
                   extra_i=None):
     """One fresh child's state-column field dicts (float, int) for
     ``StatePack.set_state_cols``."""
+    lg, lh, lc, lout, rout = defined_split_fields(
+        split.gain, split.left_g, split.left_h, split.left_c,
+        split.left_output, split.right_output)
     f = dict(leaf_g=g, leaf_h=h, leaf_c=c, bs_gain=split.gain,
-             bs_lg=split.left_g, bs_lh=split.left_h,
-             bs_lc=split.left_c, bs_lout=split.left_output,
-             bs_rout=split.right_output, leaf_cmin=cmin,
-             leaf_cmax=cmax, leaf_value=out, leaf_weight=h,
-             leaf_count=c)
+             bs_lg=lg, bs_lh=lh, bs_lc=lc, bs_lout=lout, bs_rout=rout,
+             leaf_cmin=cmin, leaf_cmax=cmax, leaf_value=out,
+             leaf_weight=h, leaf_count=c)
     i = dict(bs_feat=split.feature, bs_thr=split.threshold,
              bs_dleft=split.default_left,
              bs_iscat=getattr(split, "is_cat", False),
@@ -457,6 +477,9 @@ def root_state(pack: StatePack, table: torch.Tensor, root_g, root_h,
                                 params.lambda_l1, params.lambda_l2,
                                 params.max_delta_step)
     m = big_l - 1
+    lg, lh, lc, lout, rout = defined_split_fields(
+        row[O_SCORE], row[O_LG], row[O_LH] - kEpsilon, row[O_LC], row[O_WL],
+        row[O_WR])
     fields = dict(
         leaf_begin=zeros(i32), leaf_cnt=at0(0, int(n), i32),
         leaf_g=at0(0.0, float(root_g), fl),
@@ -465,10 +488,9 @@ def root_state(pack: StatePack, table: torch.Tensor, root_g, root_h,
         bs_gain=at0(-np.inf, row[O_SCORE], fl),
         bs_feat=at0(0, best, i32), bs_thr=at0(0, row[O_THR], i32),
         bs_dleft=at0(0, row[O_DLEFT] > 0.5, i32),
-        bs_lg=at0(0.0, row[O_LG], fl),
-        bs_lh=at0(0.0, row[O_LH] - kEpsilon, fl),
-        bs_lc=at0(0.0, row[O_LC], fl),
-        bs_lout=at0(0.0, row[O_WL], fl), bs_rout=at0(0.0, row[O_WR], fl),
+        bs_lg=at0(0.0, lg, fl), bs_lh=at0(0.0, lh, fl),
+        bs_lc=at0(0.0, lc, fl), bs_lout=at0(0.0, lout, fl),
+        bs_rout=at0(0.0, rout, fl),
         bs_iscat=zeros(i32),
         ref_node=torch.full((big_l,), -1, dtype=i32, device=dev),
         ref_side=zeros(i32),

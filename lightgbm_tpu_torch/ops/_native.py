@@ -42,7 +42,8 @@ _COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"hist_segment": 0, "partition_segment": 0, "split_scan": 0,
-            "fused_split_step_segment": 0, "fused_split_step_leaf": 0}
+            "fused_split_step_segment": 0, "fused_split_step_leaf": 0,
+            "hist_rows": 0}
 BUILD_INFO = {"seconds": None, "ptxas": ""}
 
 _LIB = None
@@ -51,6 +52,7 @@ _LOCK = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # mat, stride, pay_off, seg, F, B, max_chunks, partial, out, stream
     "ltt_hist_segment": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
@@ -83,6 +85,9 @@ _SIGNATURES = {
     # bin_bytes, n, F, B, feat_tile, out int32[4] (blocks per SM, grid,
     # shared bytes, most chunks of a split)
     "ltt_split_step_leaf_shape": [_I] * 5 + [_P],
+    # bin_bytes, bins, ghc, ids (or null: all rows), count, F, B,
+    # feat_tile, max_chunks, partial, out, stream
+    "ltt_hist_rows": [_I, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P],
 }
 
 

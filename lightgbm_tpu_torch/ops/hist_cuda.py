@@ -24,13 +24,27 @@ used 128). The matrix has exactly N rows.
 tensor and runs ``histogram_segment_plain`` for a CPU tensor; all three
 TPU variant names (grouped, perfeat, perbin) compute the same function
 and go to the one kernel.
+
+**Full-range histogram** (``histogram_pallas``, the JAX package's
+``build_histogram(method="pallas")``). ``histogram_rows`` launches
+``csrc/hist_rows.cu`` for CUDA tensors and runs ``histogram_rows_plain``
+(``ops/histogram.py:build_histogram``) for CPU ones: the [F, B, 3]
+histogram of a row-major [N, F] bin matrix (u8, or the int16 bits of
+u16 bins) with ghc [N, 3], over all rows or over a list of row ids in
+row order. No training matrix is built. The kernel shares the leaf
+fused step's row loop and chunk rule (``csrc/hist_ids.cuh``; mirrored
+below as ``LEAF_*``), so the serial learner's per-phase child
+histograms equal the fused step's bit for bit.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import _native
+from .histogram import build_histogram
 
 GH_COLS = 13       # payload columns after the (aligned) features
 G_OFF, H_OFF, CNT_OFF, RID_OFF = 0, 4, 8, 9
@@ -204,4 +218,125 @@ def histogram_segment(mat: torch.Tensor, begin, count, num_bins: int,
         partial.data_ptr(), out.data_ptr(), _native.stream_of(mat))
     _native.LAUNCHES["hist_segment"] += 1
     _native.check(err, "hist_segment")
+    return out
+
+
+# ---- the row-list histogram (csrc/hist_ids.cuh) -----------------------
+
+# The leaf layout's histogram tile and chunk rule, shared by the leaf
+# fused step (csrc/split_step_leaf.cu) and the full-range histogram
+# (csrc/hist_rows.cu): features go in tiles of ``leaf_feat_tile`` (the
+# float64 sums and the staged rows' bins fit LEAF_SMEM_BYTES, two blocks
+# an SM), and a list of ``count`` rows is cut into contiguous chunks of
+# about LEAF_CHUNK_ROWS rows, at most ``leaf_max_chunks`` of them
+# (chunks x feature tiles <= LEAF_MAX_VBLOCKS; the leading dimension of
+# the partial buffers).
+LEAF_SMEM_BYTES = 110 * 1024
+LEAF_STAGE_ROWS = 512        # csrc/hist_ids.cuh kStageRows
+LEAF_MAX_TILE = 16           # csrc/hist_ids.cuh kMaxTile
+LEAF_CHUNK_ROWS = 512        # csrc/hist_ids.cuh kChunkRows
+LEAF_MAX_VBLOCKS = 256       # csrc/hist_ids.cuh kMaxVBlocks
+
+
+def leaf_feat_tile(num_features: int, num_bins: int,
+                   bin_bytes: Optional[int] = None) -> int:
+    """Features per histogram tile of the leaf layout (float64 sums and
+    the staged rows' bins; ``bin_bytes`` defaults to the narrowest type
+    that holds ``num_bins``)."""
+    if bin_bytes is None:
+        bin_bytes = 1 if num_bins <= 256 else 2
+    fit = (LEAF_SMEM_BYTES - 12 * LEAF_STAGE_ROWS) \
+        // (num_bins * 3 * 8 + LEAF_STAGE_ROWS * bin_bytes)
+    return max(1, min(num_features, fit, LEAF_MAX_TILE))
+
+
+def leaf_max_chunks(num_features: int, feat_tile: int) -> int:
+    """The most chunks of a row list (``max_chunks_of``)."""
+    tiles = -(-num_features // feat_tile)
+    return max(1, LEAF_MAX_VBLOCKS // tiles)
+
+
+def leaf_child_chunks(count: int, num_features: int, feat_tile: int) -> int:
+    """Chunks of a list of ``count`` rows (``child_chunks``): from the
+    row count, the feature count and the tile alone."""
+    return max(1, min(leaf_max_chunks(num_features, feat_tile),
+                      -(-int(count) // LEAF_CHUNK_ROWS)))
+
+
+def leaf_bin_bytes(binned: torch.Tensor) -> int:
+    """1 for u8 bins, 2 for u16 bins held as int16 bit patterns."""
+    if binned.dtype == torch.uint8:
+        return 1
+    if binned.dtype == torch.int16:
+        return 2
+    raise TypeError(f"binned has dtype {binned.dtype}, expected uint8 or "
+                    "int16 (the bits of uint16 bins)")
+
+
+def rows_partial(binned: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """The kernel's float64 partials [leaf_max_chunks, F, B, 3] for a bin
+    matrix, allocated once by a caller that launches many histograms."""
+    f = binned.shape[1]
+    tile = leaf_feat_tile(f, num_bins, leaf_bin_bytes(binned))
+    return torch.empty((leaf_max_chunks(f, tile), f, num_bins, 3),
+                       dtype=torch.float64, device=binned.device)
+
+
+def histogram_rows_plain(binned: torch.Tensor, ghc: torch.Tensor,
+                         num_bins: int,
+                         ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version: ``build_histogram`` of all rows, or of the rows
+    ``ids`` (float64 sums rounded once)."""
+    if ids is not None:
+        ids = ids.long()
+        binned, ghc = binned.index_select(0, ids), ghc.index_select(0, ids)
+    return build_histogram(binned, ghc, num_bins)
+
+
+def histogram_rows(binned: torch.Tensor, ghc: torch.Tensor, num_bins: int,
+                   ids: Optional[torch.Tensor] = None,
+                   partial: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[F, B, 3] f32 histogram of all rows of ``binned`` [N, F] (uint8,
+    B <= 256, or the int16 bits of uint16 bins, B <= 1024) with ``ghc``
+    [N, 3] f32, or of the rows ``ids`` (int32 in [0, N), in row order:
+    the order fixes the sums' order, as in the fused step). On a CUDA
+    tensor it launches ``csrc/hist_rows.cu``; ``partial`` is the float64
+    scratch (``rows_partial``, or the leaf fused step's
+    ``LeafScratch.partial``), allocated here when not given. On a CPU
+    tensor it runs ``histogram_rows_plain``."""
+    dev = binned.device
+    if dev.type == "cpu":
+        return histogram_rows_plain(binned, ghc, num_bins, ids)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    bin_bytes = leaf_bin_bytes(binned)
+    if not 1 <= num_bins <= (256 if bin_bytes == 1 else 1024):
+        raise ValueError(f"num_bins {num_bins} out of range for "
+                         f"{8 * bin_bytes}-bit bins")
+    n, f = binned.shape
+    req = _native.require
+    req(binned, device=dev, dtype=binned.dtype, name="binned")
+    req(ghc, device=dev, dtype=torch.float32, shape=(n, 3), name="ghc")
+    if ids is None:
+        count, ids_ptr = n, None
+    else:
+        req(ids, device=dev, dtype=torch.int32, name="ids")
+        if ids.dim() != 1:
+            raise ValueError("ids must be one-dimensional")
+        # an empty list may have no storage: rows [0, 0) then
+        count, ids_ptr = ids.numel(), ids.data_ptr() or None
+    tile = leaf_feat_tile(f, num_bins, bin_bytes)
+    max_chunks = leaf_max_chunks(f, tile)
+    if partial is None:
+        partial = rows_partial(binned, num_bins)
+    req(partial, device=dev, dtype=torch.float64, name="partial")
+    if tuple(partial.shape) != (max_chunks, f, num_bins, 3):
+        raise ValueError("partial does not fit this histogram")
+    out = torch.empty((f, num_bins, 3), dtype=torch.float32, device=dev)
+    err = _native.library().ltt_hist_rows(
+        bin_bytes, binned.data_ptr(), ghc.data_ptr(), ids_ptr, count, f,
+        num_bins, tile, max_chunks, partial.data_ptr(), out.data_ptr(),
+        _native.stream_of(binned))
+    _native.LAUNCHES["hist_rows"] += 1
+    _native.check(err, "hist_rows")
     return out

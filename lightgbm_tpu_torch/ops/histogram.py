@@ -2,12 +2,17 @@
 (port of ``lightgbm_tpu/ops/histogram.py``: ``make_ghc``, and
 ``histogram_scatter`` as ``build_histogram``).
 
-The serial learner's histograms: the root over all rows, and per split
-the smaller child's over masked ``ghc`` (rows outside the child carry
-zero ghc). The JAX package computes these outside any Pallas kernel (an
-XLA scatter, or a one-hot contraction on the TPU), so they stay torch
-ops here too, on the CPU and on the card; the fused leaf step
-(``csrc/split_step_leaf.cu``) builds its children's histograms itself.
+``build_histogram`` is the plain version of the serial learner's
+histograms: the root over all rows, and per split the smaller child's
+over masked ``ghc`` (rows outside the child carry zero ghc). The JAX
+package reaches the same function through ``build_histogram`` as an XLA
+scatter, a one-hot contraction, or with ``method="pallas"`` the Pallas
+kernel ``histogram_pallas`` (``lightgbm_tpu/ops/hist_pallas.py:642``).
+The port's kernel for it is ``hist_cuda.histogram_rows``
+(``csrc/hist_rows.cu``), which the serial learner runs on the card and
+holds against this function; the fused leaf step
+(``csrc/split_step_leaf.cu``) builds its children's histograms itself,
+in the same order.
 
 Histogram layout: ``[F, B, 3]`` float32 with channels (sum_grad,
 sum_hess, count). Sums accumulate in float64 and round once to float32

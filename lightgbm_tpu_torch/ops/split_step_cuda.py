@@ -52,8 +52,9 @@ import numpy as np
 import torch
 
 from . import _native
-from .hist_cuda import (histogram_segment_plain, matrix_cols, max_chunks,
-                        payload_offset)
+from .hist_cuda import (histogram_rows, histogram_segment_plain,
+                        leaf_bin_bytes, leaf_feat_tile, matrix_cols,
+                        max_chunks, payload_offset)
 from .partition_cuda import PART_THREADS, partition_segment_plain
 from .histogram import build_histogram
 from .partition import split_leaf
@@ -64,12 +65,8 @@ from .split_scan_cuda import per_feature_numerical_plain
 IM_NBINS, IM_MISS, IM_DEFBIN, IM_MOSTFREQ, IM_MONO, IM_GROUP, \
     IM_OFFSET, IM_ISCAT = range(8)
 
-# the leaf kernel's dynamic shared memory: a float64 histogram tile and
-# LEAF_STAGE_ROWS staged rows (ghc and the tile's bins), two blocks per
-# SM; the scan planes reuse the same memory
-LEAF_SMEM_BYTES = 110 * 1024
-LEAF_STAGE_ROWS = 512   # csrc/split_step_leaf.cu kStageRows
-LEAF_MAX_TILE = 16      # csrc/split_step_leaf.cu kMaxTile
+# the leaf kernel's histogram tile and chunk rule are hist_cuda's LEAF_*
+# (csrc/hist_ids.cuh); the scan planes reuse the tile's shared memory
 LEAF_TIMES = 32         # clock reads per split of the timed build
 SEGMENT_TIMES = 32      # the same, csrc/split_step_segment.cu kTimes
 # int rows of the merged pack: the JAX package's GROW_SI less the
@@ -372,28 +369,6 @@ def fused_split_step_segment(k, S, T, mat, ws, hist, imeta, fmeta, *,
 
 # ---- leaf layout ------------------------------------------------------
 
-def leaf_feat_tile(num_features: int, num_bins: int,
-                   bin_bytes: Optional[int] = None) -> int:
-    """Features per histogram tile of the leaf kernel (float64 sums and
-    the staged rows' bins; ``bin_bytes`` defaults to the narrowest type
-    that holds ``num_bins``)."""
-    if bin_bytes is None:
-        bin_bytes = 1 if num_bins <= 256 else 2
-    fit = (LEAF_SMEM_BYTES - 12 * LEAF_STAGE_ROWS) \
-        // (num_bins * 3 * 8 + LEAF_STAGE_ROWS * bin_bytes)
-    return max(1, min(num_features, fit, LEAF_MAX_TILE))
-
-
-def leaf_bin_bytes(binned: torch.Tensor) -> int:
-    """1 for u8 bins, 2 for u16 bins held as int16 bit patterns."""
-    if binned.dtype == torch.uint8:
-        return 1
-    if binned.dtype == torch.int16:
-        return 2
-    raise TypeError(f"binned has dtype {binned.dtype}, expected uint8 or "
-                    "int16 (the bits of uint16 bins)")
-
-
 def leaf_launch_shape(bin_bytes: int, n: int, num_features: int,
                       num_bins: int) -> dict:
     """The cooperative grid the leaf kernel takes on the current card,
@@ -435,12 +410,16 @@ class LeafScratch:
         self.done = torch.zeros((1,), dtype=torch.int32, device=dev)
 
 
-def leaf_split_ops(lid, binned, ghc, imeta: np.ndarray, b: int, scan):
-    """``SplitOps`` of the leaf layout over plain torch ops: the split
-    relabels ``lid`` in place (``split_leaf``), the smaller child's
-    histogram is ``build_histogram`` over masked ghc, ``scan`` is given
-    (the scan kernel or its plain version). ``imeta`` is the host
-    [F, 8] metadata table."""
+def leaf_split_ops(lid, binned, ghc, imeta: np.ndarray, b: int, scan,
+                   partial: Optional[torch.Tensor] = None):
+    """``SplitOps`` of the leaf layout: the split relabels ``lid`` in
+    place (``split_leaf``); the smaller child's histogram is, with
+    ``partial`` (the kernel's float64 scratch: the card), the
+    ``hist_rows`` kernel over the child's row ids in row order, else
+    ``build_histogram`` over masked ghc (the plain version, the JAX
+    twin's formulation; rows with zero ghc add nothing, so the two are
+    the same function); ``scan`` is given (the scan kernel or its plain
+    version). ``imeta`` is the host [F, 8] metadata table."""
     from ..learner.split_step import SplitOps
 
     def partition(site, leaf, new):
@@ -454,6 +433,9 @@ def leaf_split_ops(lid, binned, ghc, imeta: np.ndarray, b: int, scan):
 
     def histogram(part, small_left):
         small = part[0] if small_left else part[1]
+        if partial is not None:
+            ids = torch.nonzero(lid == small).flatten().to(torch.int32)
+            return histogram_rows(binned, ghc, b, ids, partial=partial)
         return build_histogram(binned, ghc * (lid == small).to(
             ghc.dtype)[:, None], b)
 

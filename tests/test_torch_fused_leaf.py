@@ -181,10 +181,31 @@ def _assert_packed_close(port, jax_mat, n_float, what, gain_row,
             <= 1e-5 * (np.abs(gb[fin]) + gain_size[fin]) + 1e-5).all(), what
 
 
+SPLIT_FIELDS = ("bs_lg", "bs_lh", "bs_lc", "bs_lout", "bs_rout")
+
+
+def _defined_split_fields(pack, jS):
+    """The JAX state's split fields as the port stores them: a leaf
+    without a valid split (bs_gain -inf) keeps the twin's value where it
+    is finite and 0 where the twin's is not (an output of 0/0 or x/0 at
+    an invalid threshold; ``learner/split_step.py``
+    ``defined_split_fields``)."""
+    jS = np.array(jS)
+    dead = np.isneginf(jS[pack.sf_idx["bs_gain"]])
+    for name in SPLIT_FIELDS:
+        row = jS[pack.sf_idx[name]]
+        row[dead & ~np.isfinite(row)] = 0.0
+    return jS
+
+
 def _assert_state_close(pack, S, T, jS, jT, what):
     """``S`` and ``T`` of both packages; the gain sizes g**2 / h come
-    from the JAX state (T: internal_value**2 x internal_weight)."""
-    jS, jT = np.asarray(jS), np.asarray(jT)
+    from the JAX state (T: internal_value**2 x internal_weight). The
+    split fields of a leaf without a valid split are finite in the port
+    (``_defined_split_fields``)."""
+    jS, jT = _defined_split_fields(pack, jS), np.asarray(jT)
+    for name in SPLIT_FIELDS:
+        assert np.isfinite(S[pack.sf_idx[name]].numpy()).all(), (what, name)
     g = jS[pack.sf_idx["leaf_g"]]
     h = np.maximum(jS[pack.sf_idx["leaf_h"]], 1e-3)
     _assert_packed_close(S, jS, len(pack.sf_fields), f"S {what}",
@@ -316,3 +337,55 @@ def test_prepared_leaf_launch_runs_on_cuda_only(setup):
                      tl.binned, ghc, imeta, fmeta, params=tl.params,
                      big_l=L, max_depth=tl.max_depth, b=tl.num_bins_max,
                      has_monotone=tl.has_monotone)
+
+
+@pytest.mark.parametrize("max_bin", [255, 600])
+def test_children_without_a_valid_split(max_bin):
+    """The root split leaves two children that cannot split again
+    (min_data_in_leaf is just under half the rows), so their scans find
+    no valid threshold: bs_gain -inf, and the split fields hold the
+    scan's values at an invalid threshold, where the twin's right output
+    is 0/0 (NaN, lambda_l2 = 0). The port's plain step stores the
+    twin's value where it is finite and 0 where it is not, as the
+    kernels do (``csrc/split_state.cuh`` ``write_child``)."""
+    from lightgbm_tpu.ops.split_step_pallas import (fused_split_step_leaf,
+                                                    pack_meta_tables)
+    X, y = _data(7)
+    params = dict(BASE, max_bin=max_bin, min_data_in_leaf=1400)
+    jcfg = JConfig.from_params(params)
+    jl = JSerial(JDataset.from_numpy(X, jcfg, label=y), jcfg)
+    cfg = Config.from_params(params)
+    tl = SerialTreeLearner(Dataset.from_numpy(X, cfg, label=y), cfg,
+                           torch.device("cpu"))
+    grad, hess = _grads(y)
+    js = _jax_root(jl, grad, hess)
+    ghc = make_ghc(torch.from_numpy(grad), torch.from_numpy(hess))
+    st = _port_state(js)
+    imeta, fmeta = ssc.pack_meta_tables(tl.meta, None, "cpu")
+    jim, jfm = pack_meta_tables(jl.meta, jnp.ones((tl.num_features,), bool))
+    _port_step(tl, st, ghc, imeta, fmeta)
+    S, T, _, _ = fused_split_step_leaf(
+        jnp.int32(1), jnp.array(js["S"]), jnp.array(js["T"]),
+        jnp.array(js["lid"]), jnp.array(js["hist"]),
+        jnp.asarray(jl.binned), js["ghc"], jim, jfm, params=jl.params,
+        si_prefix=(), big_l=L, max_depth=jl.max_depth, b=tl.num_bins_max,
+        bundled=False, has_monotone=jl.has_monotone, hist_method="scatter",
+        interpret=True)
+    assert int(st["k"][0]) == 2
+    pack = tl.pack
+    jS, pS = np.asarray(S), st["S"].numpy()
+    gain = pS[pack.sf_idx["bs_gain"], :2]
+    assert np.isneginf(gain).all()
+    assert np.isneginf(jS[pack.sf_idx["bs_gain"], :2]).all()
+    # the twin's right outputs are undefined there, its sums are not
+    assert np.isnan(jS[pack.sf_idx["bs_rout"], :2]).all()
+    np.testing.assert_array_equal(pS[pack.sf_idx["bs_rout"], :2], 0.0)
+    for name in ("bs_lg", "bs_lh", "bs_lc", "bs_lout"):
+        assert np.isfinite(jS[pack.sf_idx[name], :2]).all(), name
+        np.testing.assert_allclose(pS[pack.sf_idx[name], :2],
+                                   jS[pack.sf_idx[name], :2], rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+    # the scan's sums at the invalid threshold are the leaf's own
+    np.testing.assert_array_equal(pS[pack.sf_idx["bs_lc"], :2],
+                                  pS[pack.sf_idx["leaf_c"], :2])
+    _assert_state_close(pack, st["S"], st["T"], S, T, "after the root")

@@ -431,3 +431,112 @@ def test_fused_leaf_kernel_stops(dev, case):
     torch.cuda.synchronize()
     for a, p in zip(before, state):
         assert _same_bytes(a, p)
+
+
+def _bins_ghc(dev, n, f, b, seed):
+    """Random [n, f] bins (u8 up to 256 bins, else the int16 bits of
+    u16) and ghc [n, 3] with a 0/1 count channel."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bins = torch.randint(0, b, (n, f), generator=g, device=dev)
+    bins[:, 1] = torch.clamp(bins[:, 1], max=2)       # crowded bins
+    ghc = torch.stack([torch.randn(n, generator=g, device=dev),
+                       torch.rand(n, generator=g, device=dev) + 0.1,
+                       (torch.rand(n, generator=g, device=dev) < 0.9)
+                       .float()], dim=1)
+    return bins.to(torch.uint8 if b <= 256 else torch.int16), ghc
+
+
+def _hist_rows_agree(binned, ghc, b, ids=None):
+    """The hist_rows kernel against its plain version: bitwise
+    repeatable, counts exact, sums within 1e-5 x the bin's sum of
+    |values| + 1e-6 (the float64 sums in another order than the
+    plain version's, each rounded once)."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    out = hc.histogram_rows(binned, ghc, b, ids)
+    again = hc.histogram_rows(binned, ghc, b, ids)
+    ref = hc.histogram_rows_plain(binned, ghc, b, ids)
+    scale = hc.histogram_rows_plain(binned, ghc.abs(), b, ids)
+    torch.cuda.synchronize()
+    assert _same_bytes(out, again)
+    assert torch.equal(out[..., 2], ref[..., 2])
+    assert bool(((out - ref).abs() <= 1e-5 * scale + 1e-6).all())
+    return out
+
+
+@pytest.mark.parametrize("b", [255, 1023], ids=["u8", "u16"])
+@pytest.mark.parametrize("n", [300, 513, 20_011, None],
+                         ids=["below_one_chunk", "one_row_over",
+                              "n_not_multiple_of_32", "past_chunk_cap"])
+def test_hist_rows_kernel_matches_plain(dev, b, n):
+    """All rows: below one chunk (LEAF_CHUNK_ROWS), one row over it, an
+    N that is a multiple of neither 32 nor a chunk, and past the chunk
+    cap (leaf_max_chunks chunks of more than LEAF_CHUNK_ROWS rows)."""
+    from lightgbm_tpu_torch.ops import _native
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    f = 12
+    if n is None:
+        tile = hc.leaf_feat_tile(f, b)
+        n = hc.leaf_max_chunks(f, tile) * hc.LEAF_CHUNK_ROWS + 1
+    binned, ghc = _bins_ghc(dev, n, f, b, 5)
+    before = _native.LAUNCHES["hist_rows"]
+    _hist_rows_agree(binned, ghc, b)
+    assert _native.LAUNCHES["hist_rows"] == before + 2
+
+
+@pytest.mark.parametrize("b", [255, 1023], ids=["u8", "u16"])
+@pytest.mark.parametrize("case", ["empty", "one_row", "third", "all"])
+def test_hist_rows_kernel_id_list(dev, b, case):
+    """A list of row ids in row order: empty (all zeros), one row, a
+    random third of the rows, every row (bitwise the all-rows mode: the
+    same rows in the same order)."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    n, f = 30_001, 12
+    binned, ghc = _bins_ghc(dev, n, f, b, 6)
+    g = torch.Generator(device=dev).manual_seed(9)
+    pick = {"empty": torch.zeros(n, dtype=torch.bool, device=dev),
+            "one_row": torch.arange(n, device=dev) == 12_345,
+            "third": torch.rand(n, generator=g, device=dev) < 1 / 3,
+            "all": torch.ones(n, dtype=torch.bool, device=dev)}[case]
+    ids = torch.nonzero(pick).flatten().to(torch.int32)
+    out = _hist_rows_agree(binned, ghc, b, ids)
+    if case == "empty":
+        assert not bool(out.any())
+    if case == "all":
+        assert _same_bytes(out, hc.histogram_rows(binned, ghc, b))
+
+
+@pytest.mark.parametrize("n,f,b", [(20_000, 12, 256), (30_000, 40, 1024),
+                                   (3_000, 12, 1023)],
+                         ids=["u8", "u16_feature_tiles", "one_chunk"])
+def test_hist_rows_equals_fused_leaf_child(dev, n, f, b):
+    """The id-list histogram of a split's smaller child (its rows in row
+    order, as the per-phase loop passes them) equals, bitwise, the child
+    row one ``fused_split_step_leaf`` launch writes into the cache: the
+    two kernels share the row loop and the chunk rule (hist_ids.cuh)."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops import split_step_cuda as ss
+    state, binned, ghc, imeta, fmeta, kw = _leaf_root(dev, n, f, b, 31)
+    scratch = ss.LeafScratch(binned, b)
+    checked = 0
+    for _ in range(12):
+        lid_old = state[3].clone()
+        k = int(state[0][0])
+        ss.fused_split_step_leaf(*state, binned, ghc, imeta, fmeta,
+                                 scratch=scratch, **kw)
+        torch.cuda.synchronize()
+        if int(state[0][0]) != k + 1:
+            break
+        lid = state[3]
+        moved = lid != lid_old
+        leaf = int(lid_old[moved][0]) if bool(moved.any()) else None
+        if leaf is None:
+            continue
+        n_left = int((lid == leaf).sum())
+        n_right = int(moved.sum())
+        small = leaf if n_left <= n_right else k
+        ids = torch.nonzero(lid == small).flatten().to(torch.int32)
+        h = hc.histogram_rows(binned, ghc, b, ids)
+        torch.cuda.synchronize()
+        assert _same_bytes(h, state[4][small]), (k, small, ids.numel())
+        checked += 1
+    assert checked >= 8

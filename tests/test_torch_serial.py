@@ -102,6 +102,62 @@ def test_learner_matches_jax_serial(monkeypatch, max_bin, fused):
         assert tt.num_leaves > 8
 
 
+@pytest.mark.parametrize("fused", ["0", "1"], ids=["per_phase", "fused"])
+def test_plain_ops_match_jax_serial_past_256_bins(monkeypatch, fused):
+    """``ops="plain"`` (the plain versions the card's parity run uses:
+    ``build_histogram`` for the root and the per-phase children) at 600
+    bins, both grow loops, against the JAX ``SerialTreeLearner``; no
+    kernel is counted."""
+    from lightgbm_tpu_torch.ops import _native
+    monkeypatch.setenv("LGBM_TPU_FUSED_SPLIT_KERNEL", fused)
+    X, y = _data(5)
+    params = dict(BASE, max_bin=600)
+    jcfg = JConfig.from_params(params)
+    jl = JSerial(JDataset.from_numpy(X, jcfg, label=y), jcfg)
+    cfg = Config.from_params(params)
+    tl = SerialTreeLearner(Dataset.from_numpy(X, cfg, label=y), cfg,
+                           torch.device("cpu"), ops="plain")
+    assert tl.plain and tl._partial is None
+    assert tl.fused == (fused == "1")
+    before = dict(_native.LAUNCHES)
+    for tree in range(3):
+        g, h = _grads(y, tree)
+        jr = jl.train(jnp.asarray(g), jnp.asarray(h))
+        tt, lid = tl.train(torch.from_numpy(g), torch.from_numpy(h))
+        _tree_matches(jr.tree, tt, f"tree {tree}")
+        np.testing.assert_array_equal(lid.numpy(), np.asarray(jr.leaf_id))
+        assert tt.num_leaves > 8
+    assert dict(_native.LAUNCHES) == before
+
+
+def test_per_phase_row_ids_grow_the_masked_bytes():
+    """The per-phase loop's card route for the smaller child (its row
+    ids in row order through ``histogram_rows``, here its plain version)
+    grows the same bytes as the masked-ghc ``build_histogram``."""
+    from lightgbm_tpu_torch.ops.hist_cuda import rows_partial
+    X, y = _data(6)
+    cfg = Config.from_params(dict(BASE, max_bin=600,
+                                  fused_split_kernel="off"))
+    ds = Dataset.from_numpy(X, cfg, label=y)
+    grown = []
+    for ids in (False, True):
+        lrn = SerialTreeLearner(ds, cfg, torch.device("cpu"))
+        assert not lrn.fused and lrn._partial is None
+        if ids:
+            lrn._partial = rows_partial(lrn.binned, lrn.num_bins_max)
+        out = []
+        for tree in range(2):
+            g, h = _grads(y, tree)
+            t, lid = lrn.train(torch.from_numpy(g), torch.from_numpy(h))
+            out.append((t, lid.clone()))
+        grown.append(out)
+    for (ta, la), (tb, lb) in zip(*grown):
+        assert _structure(ta) == _structure(tb)
+        assert ta.leaf_value.tobytes() == tb.leaf_value.tobytes()
+        assert ta.internal_value.tobytes() == tb.internal_value.tobytes()
+        assert la.numpy().tobytes() == lb.numpy().tobytes()
+
+
 def _structure(t):
     return (t.num_leaves, t.split_feature_inner.tolist(),
             t.threshold_bin.tolist(), (t.decision_type & 2).tolist(),
