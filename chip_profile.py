@@ -3,7 +3,8 @@
 
 Run from the repository root: ``python3 chip_profile.py [--trees N]
 [--paths fused,per-phase,serial-fused,serial-per-phase]
-[--leaf-phases] [--segment-phases]``. Trains the
+[--leaf-phases] [--segment-phases] [--hist-rows-phases]
+[--hist-rows]``. Trains the
 Higgs-shaped binary model of ``chip_smoke.py`` (2M x 28,
 num_leaves=255, lr=0.1) through ``lightgbm_tpu_torch``, once per grow
 path: at max_bin=255 the partitioned learner's ``fused`` (the default
@@ -32,8 +33,17 @@ splits whose smaller child has at most 10,000 rows and more.
 max_bin 255 partitioned fused tree (its timed instantiation,
 ``SegmentStep.timed``), with block 0's cycles inside the histogram
 phase, then times the root histogram (``hist_segment``) of the whole
-matrix. A phases flag alone runs only that; with ``--paths`` it runs
-after the named paths.
+matrix. ``--hist-rows-phases`` times the full-range histogram
+(``hist_rows``) on the 2M x 28 bin matrices at max_bin 255 (u8) and
+1023 (u16), over all rows (the serial root) and over a random third of
+the rows (a per-phase child): the median of 20 launches, then one
+launch of its timed instantiation (every block's thread 0 reads
+``clock64`` around the first fetch, the stores of each staged step, the
+accumulation and the write-out), printed as mean cycles a block and as
+cycles per 32-row feature group of a busy warp and of an SM;
+``--hist-rows`` prints the launch medians alone (it runs on a tree
+without the timed build too, to compare with a parent). A phases flag
+alone runs only that; with ``--paths`` it runs after the named paths.
 """
 
 import argparse
@@ -95,6 +105,8 @@ def profile_path(path: str, ds, trees: int) -> str:
     if lrn.fused:
         for line in fused_timeline(prof, lrn.num_leaves - 1, trees):
             print(f"{tag} {line}")
+    else:
+        print(f"{tag} {split_bounds(lrn, bst.models[-trees:])}")
     tables = (f"== {path}\n"
               + events.table(sort_by="self_cuda_time_total", row_limit=60)
               + "\n"
@@ -102,6 +114,41 @@ def profile_path(path: str, ds, trees: int) -> str:
     del bst
     torch.cuda.empty_cache()
     return tables
+
+
+def split_bounds(lrn, trees) -> str:
+    """The byte bound (each input byte read once, each output written
+    once, at chip_smoke.HBM_BYTES_PER_S) of a per-phase path's average
+    launch of each kernel over ``trees``: the partition moves the
+    parent's rows of the training matrix (read and written); the child's
+    histogram reads the smaller child's rows (``hist_segment``: matrix
+    rows; ``hist_rows``: bins, ghc and an id) and writes [F, B, 3] f32;
+    the scan reads both children's histograms."""
+    import numpy as np
+
+    from chip_smoke import HBM_BYTES_PER_S
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    f, b = lrn.num_features, lrn.num_bins_max
+    parent = np.concatenate([t.internal_count[:t.num_leaves - 1]
+                             for t in trees]).astype(np.float64)
+    small = np.concatenate([smaller_child_rows(t, t.num_leaves - 1)
+                            for t in trees]).astype(np.float64)
+    hist_out = f * b * 3 * 4
+    if hasattr(lrn, "mat"):
+        cols = hc.matrix_cols(f)
+        launches = {"partition_segment": 2 * parent.mean() * cols,
+                    "hist_segment": small.mean() * cols + hist_out}
+    else:
+        row = f * (1 if b <= 256 else 2) + 12 + 4
+        launches = {"hist_rows": small.mean() * row + hist_out}
+    launches["split_scan"] = 2 * hist_out + 2 * f * 8 * 4
+
+    def ms(nbytes):
+        return f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f}"
+    return (f"average split over {len(parent)} splits: parent "
+            f"{parent.mean():.0f} rows, smaller child {small.mean():.0f}; "
+            "byte bound of the average launch, ms: "
+            + ", ".join(f"{k} {ms(v)}" for k, v in launches.items()))
 
 
 def fused_timeline(prof, launches: int, trees: int) -> list:
@@ -378,6 +425,70 @@ def segment_phases(ds, warm: int = 2) -> str:
     return "\n".join(lines)
 
 
+def hist_rows_phases(sets, timed: bool = True) -> str:
+    """``hist_rows`` over the 2M x 28 bin matrices, u8 (max_bin 255) and
+    u16 (max_bin 1023), over all rows and over a random third in row
+    order: the median of 20 launches between CUDA events and, with
+    ``timed``, one launch of the timed instantiation (see the module
+    note), whose blocks' cycles give the cycles per 32-row feature group
+    of a busy warp, and of an SM (two blocks an SM)."""
+    import numpy as np
+    import torch
+
+    import lightgbm_tpu_torch as lt
+    from chip_smoke import hist_rows_work, time_ms
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops.histogram import make_ghc
+    dev = torch.device("cuda")
+    n = len(sets[255].label)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ghc = make_ghc(torch.randn(n, generator=gen, device=dev),
+                   torch.rand(n, generator=gen, device=dev) * 0.25 + 1e-3)
+    gen.manual_seed(11)
+    third = torch.nonzero(torch.rand(n, generator=gen, device=dev) < 1 / 3) \
+        .flatten().to(torch.int32)
+    lines = []
+    for width, mb in (("u8", 255), ("u16", 1023)):
+        binned = sets[mb].construct(lt.Config.from_params(
+            {"objective": "binary", "max_bin": mb}))
+        bins = binned.binned_device(dev)
+        b = int(binned.num_bins_array().max())
+        f, bb = bins.shape[1], bins.element_size()
+        partial = hc.rows_partial(bins, b)
+        for mode, ids in (("all rows", None), ("a third", third)):
+            rows = n if ids is None else ids.numel()
+            work = hist_rows_work(rows, f, b, bb)
+            ms = time_ms(lambda: hc.histogram_rows(bins, ghc, b, ids,
+                                                   partial=partial), 20)
+            line = (f"[hist_rows phases] {width} ({b} bins), {mode} ({rows} "
+                    f"rows): {ms:.4f} ms median of 20; {work['blocks']} "
+                    f"blocks, {work['busy_warps']} busy warps a block, "
+                    f"{work['groups_per_warp']} groups a busy warp")
+            if timed:
+                times = torch.zeros((work["blocks"], 4), dtype=torch.int64,
+                                    device=dev)
+                hc.histogram_rows(bins, ghc, b, ids, partial=partial,
+                                  times=times)
+                torch.cuda.synchronize()
+                cyc = times.cpu().numpy().astype(np.float64)
+                mean = cyc.mean(0)
+                per = mean / work["groups_per_warp"]
+                sm = per / (2 * work["busy_warps"])
+                line += ("; timed build, mean cycles a block: " + ", ".join(
+                    f"{name} {mean[i]:.0f}" for i, name in enumerate(
+                        ("first fetch", "stores", "accumulation",
+                         "write-out")))
+                    + f" (slowest block's accumulation "
+                    f"{cyc[:, 2].max():.0f}); per 32-row feature group: "
+                    f"a busy warp {per[1]:.1f} stores + {per[2]:.1f} "
+                    f"accumulation cycles, an SM {sm[1]:.1f} + {sm[2]:.1f}")
+            lines.append(line)
+            print(line)
+        del partial, bins
+    torch.cuda.empty_cache()
+    return "\n".join(lines)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=2_000_000)
@@ -389,9 +500,15 @@ def main() -> int:
                     help="time the leaf kernel's phases only")
     ap.add_argument("--segment-phases", action="store_true",
                     help="time the segment kernel's phases only")
+    ap.add_argument("--hist-rows-phases", action="store_true",
+                    help="time hist_rows and its timed build only")
+    ap.add_argument("--hist-rows", action="store_true",
+                    help="time hist_rows only (no timed build)")
     args = ap.parse_args()
     phase_flags = ["leaf-phases"] * args.leaf_phases \
-        + ["segment-phases"] * args.segment_phases
+        + ["segment-phases"] * args.segment_phases \
+        + ["hist-rows-phases"] * args.hist_rows_phases \
+        + ["hist-rows"] * args.hist_rows
     paths = args.paths.split(",") if args.paths else \
         ([] if phase_flags else list(PATHS))
     paths += phase_flags
@@ -413,6 +530,12 @@ def main() -> int:
     phases = {"leaf-phases": ("serial-fused", leaf_phases),
               "segment-phases": ("fused", segment_phases)}
     for path in paths:
+        if path in ("hist-rows-phases", "hist-rows"):
+            for mb in (255, 1023):
+                sets.setdefault(mb, lt.Dataset(X, label=y))
+            tables.append(hist_rows_phases(
+                sets, timed=path == "hist-rows-phases"))
+            continue
         mb = PATHS[phases[path][0] if path in phases else path]["max_bin"]
         if mb not in sets:
             sets[mb] = lt.Dataset(X, label=y)

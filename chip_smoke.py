@@ -61,6 +61,7 @@ import numpy as np
 F, B = 28, 256
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
+WARPS = 8                    # warps of a hist_rows block (csrc/hist_ids.cuh)
 
 
 def higgs_like(n: int, f: int = F, seed: int = 42):
@@ -702,11 +703,17 @@ def check_hist_rows(bins_by_width, ghc, reps):
     version, its byte bound (each listed row's bins and ghc read once,
     its id too in list mode, the histogram written once) and one
     float32 ``index_add_`` over the flattened (feature, bin) keys of the
-    same rows. The record's own numbers are the u16 root's (the serial
-    learner's main path)."""
+    same rows, and as SM cycles per 32-row feature group (ms x the card's
+    maximum SM clock / the groups of a busy warp, then / the busy warps
+    of an SM at two blocks an SM). The record's own numbers are the u16
+    root's (the serial learner's main path)."""
     import torch
     from lightgbm_tpu_torch.ops import hist_cuda as hc
     dev = ghc.device
+    clock_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], stdout=subprocess.PIPE,
+        text=True, check=True).stdout.split()[0]) * 1e6
     n = ghc.shape[0]
     gen = torch.Generator(device=dev).manual_seed(11)
     ids = torch.nonzero(torch.rand(n, generator=gen, device=dev) < 1 / 3) \
@@ -746,11 +753,15 @@ def check_hist_rows(bins_by_width, ghc, reps):
             rows_n = sel.numel()
             nbytes = rows_n * (f * bb + 12 + (0 if rows is None else 4)) \
                 + f * b * 3 * 4
+            work = hist_rows_work(rows_n, f, b, bb)
+            warp_cycles = ms * 1e-3 * clock_hz / work["groups_per_warp"]
             cases[f"{width}, {mode}"] = dict(
                 rows=rows_n, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                 chunks=hc.leaf_child_chunks(
-                    rows_n, f, hc.leaf_feat_tile(f, b, bb)))
+                    rows_n, f, hc.leaf_feat_tile(f, b, bb)),
+                warp_cycles_per_group=warp_cycles,
+                sm_cycles_per_group=warp_cycles / (2 * work["busy_warps"]))
         del partial
     main = cases["u16, all rows"]
     return dict(max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
@@ -758,11 +769,26 @@ def check_hist_rows(bins_by_width, ghc, reps):
                 bound_by="bytes", cases=cases)
 
 
+def hist_rows_work(rows, f, b, bin_bytes):
+    """How one ``hist_rows`` launch over ``rows`` rows divides its work:
+    blocks, the busy warps of a block (one a feature of the tile, at
+    most eight) and the 32-row feature groups each busy warp sums."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    tile = hc.leaf_feat_tile(f, b, bin_bytes)
+    chunks = hc.leaf_child_chunks(rows, f, tile)
+    per_block = -(-rows // chunks)
+    busy = min(tile, WARPS)
+    return dict(blocks=chunks * -(-f // tile), busy_warps=busy,
+                groups_per_warp=-(-per_block // 32) * -(-tile // busy))
+
+
 def hist_rows_summary(r):
     return "; ".join(f"{name}: {c['ms']:.4f} ms ({c['rows']} rows, "
                      f"{c['chunks']} chunks; plain {c['plain_ms']:.3f}, "
                      f"index_add_ {c['library_ms']:.3f}, bound "
-                     f"{c['bound_ms']:.4f})"
+                     f"{c['bound_ms']:.4f}; cycles per 32-row feature "
+                     f"group: a busy warp {c['warp_cycles_per_group']:.0f},"
+                     f" an SM {c['sm_cycles_per_group']:.1f})"
                      for name, c in r["cases"].items())
 
 

@@ -7,7 +7,7 @@
 // Rows come from a list in row order: row ids[i] (the fused step's
 // compacted child, or a per-phase child's ids), or row i itself (all
 // rows: no list is read). Bins are [N, F] row-major, u8 or u16; ghc
-// [N, 3] f32 (grad, hess, count).
+// [N, 3] f32 (grad, hess, count), the count a 0/1 indicator.
 //
 // The chunk rule: a list of sc rows is cut into child_chunks(sc,
 // max_chunks_of(F, feat_tile)) contiguous chunks of ceil(sc / chunks)
@@ -16,15 +16,27 @@
 // grid, never the card. A block sums one (chunk, feature tile) virtual
 // block with hist_chunk: kStageRows rows staged through registers into
 // shared memory (the next step's loads in flight while this step is
-// accumulated), warp w owning features w, w + kWarps, ... of the tile;
-// for each feature and 32-row group __match_any_sync finds the lanes of
-// one bin and the lowest adds its peers in lane order (float64), kGroups
-// groups in flight, their adds landing group by group. So every bin's
-// sum is fixed by the row order within the chunk. The chunks' float64
-// partials are then summed in chunk order and rounded once to float32,
-// as the plain version (ops/histogram.py build_histogram) accumulates in
-// float64 and rounds once. The Python mirror of the constants is
-// ops/hist_cuda.py (LEAF_*).
+// accumulated), warp w owning features w, w + kWarps, ... of the tile.
+// Each 32-row group of a feature adds, into each bin it hits, the sum
+// of its lanes of that bin in lane order (float64, from 0), one add a
+// bin, groups in order. So every bin's sum is fixed by the row order
+// within the chunk. The chunks' float64 partials are then summed in
+// chunk order and rounded once to float32, as the plain version
+// (ops/histogram.py build_histogram) accumulates in float64 and rounds
+// once. The Python mirror of the constants is ops/hist_cuda.py (LEAF_*).
+//
+// How a group finds the lanes of one bin (add_groups): not with
+// __match_any_sync, whose cost (~40 SM cycles a warp-wide call with ~30
+// distinct bins on the H100, chip_hist_levers.py) was most of the
+// accumulation.
+// Each tile bin holds (g, h) as one double2 and a uint2 (peers, count).
+// Every lane of a group ORs its lane bit into its bin's peer word
+// (integer atomics: the word is the same whatever their order), then
+// reads the word back: the lowest lane of the word leads, adds its
+// peers' g and h in lane order into the double2, adds the popcount of
+// its peers' count bits (one ballot a group at staging) to the count
+// and clears the peer word for the next group. The count is exact as an
+// integer: it equals the float64 sum of a 0/1 column.
 #pragma once
 
 #include "common.cuh"
@@ -36,10 +48,13 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kStageRows = 512;    // rows staged per step
 constexpr int kPer = kStageRows / kThreads;  // staged rows per thread
+constexpr int kStageGroups = kStageRows / 32;  // count-bit words a step
 constexpr int kMaxTile = 16;       // features per histogram tile, at most
 constexpr int kChunkRows = 512;    // rows per histogram chunk
 constexpr int kMaxVBlocks = 256;   // cap of chunks x feature tiles
-constexpr int kGroups = 4;         // 32-row groups a warp has in flight
+constexpr int kGroups = 4;         // 32-row groups a warp has loaded
+constexpr int kBinBytes = 24;      // a tile bin: double2 (g, h), uint2
+constexpr int kStageRowBytes = 8;  // a staged row's float2 (g, h)
 constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ inline int feature_tiles(int F, int feat_tile) {
@@ -58,33 +73,48 @@ __host__ __device__ inline int child_chunks(long long sc, int max_chunks) {
   return (int)(c < 1 ? 1 : (c > max_chunks ? max_chunks : c));
 }
 
-// Shared bytes of one histogram block: the float64 tile [feat_tile][B][3]
-// and the staged rows' ghc (f32) and tile bins ([feat_tile][kStageRows]).
+// Shared bytes of one histogram block: the tile's bins ([feat_tile][B]
+// double2, then uint2) and the staged rows' (g, h) pairs, count bits and
+// tile bins ([feat_tile][kStageRows]).
 __host__ __device__ inline size_t tile_smem_bytes(int bin_bytes, int B,
                                                   int feat_tile) {
-  return (size_t)feat_tile * B * 3 * sizeof(double) +
-         (size_t)kStageRows * 3 * sizeof(float) +
+  return (size_t)feat_tile * B * kBinBytes +
+         (size_t)kStageRows * kStageRowBytes + kStageGroups * 4 +
          (size_t)feat_tile * kStageRows * bin_bytes;
 }
 
 // The same bytes, carved from a block's dynamic shared memory.
 template <typename BinT>
 struct TileSmem {
-  double* hist;
-  float *g, *h, *c;
-  BinT* bin;
+  double2* gh;      // [feat_tile][B] (sum g, sum h)
+  uint2* pc;        // [feat_tile][B] (peer word, count)
+  float2* sgh;      // [kStageRows] staged (g, h)
+  unsigned* cbits;  // [kStageGroups] staged count bits, a word a group
+  BinT* bin;        // [feat_tile][kStageRows] staged tile bins
 };
 
 template <typename BinT>
 __device__ __forceinline__ TileSmem<BinT> carve(unsigned char* dyn,
                                                 int feat_tile, int B) {
   TileSmem<BinT> s;
-  s.hist = reinterpret_cast<double*>(dyn);
-  s.g = reinterpret_cast<float*>(s.hist + (size_t)feat_tile * B * 3);
-  s.h = s.g + kStageRows;
-  s.c = s.h + kStageRows;
-  s.bin = reinterpret_cast<BinT*>(s.c + kStageRows);
+  s.gh = reinterpret_cast<double2*>(dyn);
+  s.pc = reinterpret_cast<uint2*>(s.gh + (size_t)feat_tile * B);
+  s.sgh = reinterpret_cast<float2*>(s.pc + (size_t)feat_tile * B);
+  s.cbits = reinterpret_cast<unsigned*>(s.sgh + kStageRows);
+  s.bin = reinterpret_cast<BinT*>(s.cbits + kStageGroups);
   return s;
+}
+
+// Element i of the finished tile as [nf][B][3] float64 (sum g, sum h,
+// count): one load, from the pair or from the count hist_chunk wrote
+// over the bin's (peer word, count) as a double.
+template <typename BinT>
+__device__ __forceinline__ double tile_value(const TileSmem<BinT>& s,
+                                             int i) {
+  const int k = i / 3, ch = i - 3 * k;
+  const double* p = ch < 2 ? reinterpret_cast<const double*>(s.gh) + 2 * k + ch
+                           : reinterpret_cast<const double*>(s.pc) + k;
+  return *p;
 }
 
 // cycles since the last lap into acc (a timed caller, thread 0's view)
@@ -145,64 +175,69 @@ __device__ __forceinline__ void load_rows(const float* ghc, const BinT* bins,
   }
 }
 
-// One warp adds kGroups consecutive 32-row groups of the stage into the
-// float64 bins of one feature (bs: the feature's staged bins; rows from
-// base, m rows staged). In each group the lanes of one bin are found
-// with __match_any_sync and the lowest adds its peers in lane order;
-// the matches and sums of all groups are in flight together, their adds
-// into hf land group by group. A bin's sum therefore depends on the
-// row order alone.
-template <typename BinT>
+// One warp adds kGroups consecutive 32-row groups of the stage into one
+// feature's tile bins (bs: the feature's staged bins; rows from base, m
+// rows staged). Group by group: the lanes OR their bits into their
+// bins' peer words, read them back, and the lowest lane of each word
+// adds its peers in lane order, adds the popcount of their count bits
+// and clears the word. A bin's sum therefore depends on the row order
+// alone, as with __match_any_sync. kOwn: each lane's own (g, h) and its
+// group's count bits come from registers (own, cb: loaded once for the
+// warp's features), else the leader reads them from the stage; the same
+// sums.
+template <typename BinT, bool kOwn>
 __device__ __forceinline__ void add_groups(const BinT* bs, int base, int m,
-                                           int lane, const float* g_s,
-                                           const float* h_s,
-                                           const float* c_s, double* hf) {
+                                           int lane, const float2* sgh,
+                                           const unsigned* cbits,
+                                           const float2 (&own)[kGroups],
+                                           const unsigned (&cb)[kGroups],
+                                           double2* gh, uint2* pc) {
   int bin[kGroups];
-  unsigned peers[kGroups];
 #pragma unroll
   for (int q = 0; q < kGroups; ++q) {
     const int j = base + 32 * q + lane;
     bin[q] = j < m ? (int)bs[j] : -1;
   }
 #pragma unroll
-  for (int q = 0; q < kGroups; ++q) peers[q] = __match_any_sync(kFull, bin[q]);
-  double sg[kGroups], sh[kGroups], sc[kGroups];
-  bool lead[kGroups];
-#pragma unroll
   for (int q = 0; q < kGroups; ++q) {
-    lead[q] = bin[q] >= 0 && lane == __ffs(peers[q]) - 1;
-    double g = 0.0, h = 0.0, c = 0.0;
-    if (lead[q]) {
-      unsigned mm = peers[q];
-      while (mm) {
-        const int p = base + 32 * q + __ffs(mm) - 1;
-        mm &= mm - 1;
-        g += (double)g_s[p];
-        h += (double)h_s[p];
-        c += (double)c_s[p];
+    const int b = bin[q];
+    if (b >= 0) atomicOr(&pc[b].x, 1u << lane);
+    __syncwarp();
+    uint2 w = make_uint2(0u, 0u);
+    if (b >= 0) w = pc[b];
+    __syncwarp();  // every lane's read lands before its leader clears
+    if (b >= 0 && (w.x & ((1u << lane) - 1u)) == 0u) {
+      double g = 0.0, h = 0.0;
+      unsigned mm = w.x;
+      if constexpr (kOwn) {
+        g += (double)own[q].x;
+        h += (double)own[q].y;
+        mm &= mm - 1u;
       }
-    }
-    sg[q] = g;
-    sh[q] = h;
-    sc[q] = c;
-  }
-#pragma unroll
-  for (int q = 0; q < kGroups; ++q) {
-    if (lead[q]) {
-      hf[bin[q] * 3 + 0] += sg[q];
-      hf[bin[q] * 3 + 1] += sh[q];
-      hf[bin[q] * 3 + 2] += sc[q];
+      for (; mm; mm &= mm - 1u) {
+        const float2 v = sgh[base + 32 * q + __ffs(mm) - 1];
+        g += (double)v.x;
+        h += (double)v.y;
+      }
+      double2 d = gh[b];
+      d.x += g;
+      d.y += h;
+      gh[b] = d;
+      const unsigned bits = kOwn ? cb[q] : cbits[(base >> 5) + q];
+      pc[b] = make_uint2(0u, w.y + __popc(w.x & bits));
     }
     __syncwarp();  // this group's adds land before the next group's
   }
 }
 
-// Whole block: list positions [i0, i1) into sm.hist, the float64 tile
-// of features f0 .. f0 + nf (zeroed here). A two-step pipeline: the rows
-// of step s + 1 load into registers while step s is accumulated, the ids
-// of step s + 2 likewise. On return sm.hist is complete and visible to
-// the whole block. Laps: 0 first fetch, 1 stores, 2 accumulation.
-template <typename BinT, bool kIds, bool kTimed>
+// Whole block: list positions [i0, i1) into the tile of features f0 ..
+// f0 + nf (zeroed here). A two-step pipeline: the rows of step s + 1
+// load into registers while step s is accumulated, the ids of step s + 2
+// likewise. On return the tile is complete, each count a double in its
+// bin's (peer word, count) slot (every peer word is 0 by then), and
+// visible to the whole block (tile_value). Laps: 0 first fetch, 1
+// stores, 2 accumulation.
+template <typename BinT, bool kIds, bool kTimed, bool kOwn>
 __device__ __forceinline__ void hist_chunk(const int* ids, long long i0,
                                            long long i1, const float* ghc,
                                            const BinT* bins, int F, int f0,
@@ -210,8 +245,10 @@ __device__ __forceinline__ void hist_chunk(const int* ids, long long i0,
                                            const TileSmem<BinT>& sm,
                                            Laps<kTimed>& clk) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n3 = nf * B * 3;
-  for (int i = threadIdx.x; i < n3; i += kThreads) sm.hist[i] = 0.0;
+  for (int i = threadIdx.x; i < nf * B; i += kThreads) {
+    sm.gh[i] = make_double2(0.0, 0.0);
+    sm.pc[i] = make_uint2(0u, 0u);
+  }
   Staged<BinT> st;
   int nid[kPer];
   load_ids<kIds>(ids, i0, (int)min((long long)kStageRows, i1 - i0), st.rid);
@@ -227,11 +264,14 @@ __device__ __forceinline__ void hist_chunk(const int* ids, long long i0,
     clk.lap(2);
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
+      // staged row j = u * kThreads + threadIdx.x: a warp's 32 rows are
+      // group u * kWarps + warp, one ballot its count bits
       const int j = u * kThreads + threadIdx.x;
-      if (st.rid[u] < 0) continue;
-      sm.g[j] = st.g[u];
-      sm.h[j] = st.h[u];
-      sm.c[j] = st.c[u];
+      const bool ok = st.rid[u] >= 0;
+      const unsigned bits = __ballot_sync(kFull, ok && st.c[u] != 0.0f);
+      if (lane == 0) sm.cbits[u * kWarps + warp] = bits;
+      if (!ok) continue;
+      sm.sgh[j] = make_float2(st.g[u], st.h[u]);
 #pragma unroll
       for (int fl = 0; fl < kMaxTile; ++fl)
         if (fl < nf) sm.bin[fl * kStageRows + j] = st.bin[u][fl];
@@ -248,13 +288,28 @@ __device__ __forceinline__ void hist_chunk(const int* ids, long long i0,
                                        i1 - s1 - kStageRows)),
                      nid);
     }
-    for (int fl = warp; fl < nf; fl += kWarps) {
-      double* hf = sm.hist + (size_t)fl * B * 3;
-      const BinT* bs = sm.bin + fl * kStageRows;
-      for (int base = 0; base < m; base += 32 * kGroups)
-        add_groups(bs, base, m, lane, sm.g, sm.h, sm.c, hf);
+    if (warp >= nf) continue;
+    for (int base = 0; base < m; base += 32 * kGroups) {
+      float2 own[kGroups];
+      unsigned cb[kGroups];
+      if constexpr (kOwn) {
+#pragma unroll
+        for (int q = 0; q < kGroups; ++q) {
+          const int j = base + 32 * q + lane;
+          own[q] = j < m ? sm.sgh[j] : make_float2(0.0f, 0.0f);
+          cb[q] = sm.cbits[(base >> 5) + q];
+        }
+      }
+      for (int fl = warp; fl < nf; fl += kWarps)
+        add_groups<BinT, kOwn>(sm.bin + fl * kStageRows, base, m, lane,
+                               sm.sgh, sm.cbits, own, cb,
+                               sm.gh + (size_t)fl * B,
+                               sm.pc + (size_t)fl * B);
     }
   }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nf * B; i += kThreads)
+    reinterpret_cast<double*>(sm.pc)[i] = (double)sm.pc[i].y;
   __syncthreads();
   clk.lap(2);
 }

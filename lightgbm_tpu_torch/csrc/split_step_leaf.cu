@@ -51,13 +51,14 @@
 //     so the summation order does not depend on the card. A virtual
 //     block stages kStageRows rows' ghc and tile bins in shared memory
 //     through the id list (independent loads in flight), then warp w
-//     owns features w, w + 8, ... of the tile; __match_any_sync groups
-//     the lanes that hit one bin and the lowest lane adds its peers in
-//     lane order, four 32-row groups in flight. Sums are float64 in
-//     shared memory, so a bin's sum depends on the row order alone. A
-//     child of one chunk (sc <= kChunkRows)
-//     writes its rounded child row and parent - child straight into the
-//     cache; otherwise each chunk writes a float64 partial | sync;
+//     owns features w, w + 8, ... of the tile; in each 32-row group the
+//     lanes of one bin find each other through an integer peer word a
+//     bin, and the lowest adds its peers in lane order (hist_ids.cuh).
+//     Sums are float64 in shared memory, so a bin's sum depends on the
+//     row order alone; counts are integers. A child of one chunk
+//     (sc <= kChunkRows) writes its rounded child row and parent - child
+//     straight into the cache; otherwise each chunk writes a float64
+//     partial | sync;
 //  4. (more than one chunk) partials summed in chunk order in float64
 //     and rounded once (as the plain histogram, ops/histogram.py,
 //     accumulates in float64 and rounds once); sibling = parent - child
@@ -94,6 +95,11 @@ using ltt::ids::kFull;
 using ltt::ids::Laps;
 constexpr int kLidUnroll = 16;     // rows a thread keeps in flight (lid pass)
 constexpr int kTimes = 32;         // clock reads per split (timed build)
+// the histogram's leaders read their own lanes' (g, h) and count bits
+// from the stage (hist_ids.cuh add_groups, kOwn false): held in
+// registers, as hist_rows.cu holds them, they cost this kernel spills
+// and its other phases time (chip_profile.py --leaf-phases)
+constexpr bool kLeafOwn = false;
 
 struct Args {
   int* k;  // device int32[1]: the split index (= the new leaf's id)
@@ -293,7 +299,6 @@ split_step_leaf_kernel(Args a) {
   {
     const ltt::ids::TileSmem<BinT> tile =
         ltt::ids::carve<BinT>(dyn, a.feat_tile, B);
-    double* hist_s = tile.hist;
     Laps<kTimed> clk;
     for (int v = blockIdx.x; v < chunks * nft; v += gridDim.x) {
       clk.start();
@@ -302,22 +307,23 @@ split_step_leaf_kernel(Args a) {
       const int n3 = nf * B * 3;
       const long long i0 = min(sc, (long long)c * chunk);
       const long long i1 = min(sc, i0 + chunk);
-      ltt::ids::hist_chunk<BinT, true, kTimed>(a.ids, i0, i1, a.ghc, bins, F,
-                                               f0, nf, B, tile, clk);
+      ltt::ids::hist_chunk<BinT, true, kTimed, kLeafOwn>(
+          a.ids, i0, i1, a.ghc, bins, F, f0, nf, B, tile, clk);
       const size_t off = (size_t)f0 * B * 3;
       if (direct) {
         // the tile of the whole child: rounded once, into the cache
         for (int i = threadIdx.x; i < n3; i += kThreads) {
-          const float child = (float)hist_s[i];
+          const float child = (float)ltt::ids::tile_value(tile, i);
           const float parent = __ldcg(a.hist + leaf * fb3 + off + i);
           a.hist[idx_a * fb3 + off + i] = child;
           a.hist[idx_b * fb3 + off + i] = parent - child;
         }
       } else {
         double* dst = a.partial + c * fb3 + off;
-        for (int i = threadIdx.x; i < n3; i += kThreads) dst[i] = hist_s[i];
+        for (int i = threadIdx.x; i < n3; i += kThreads)
+          dst[i] = ltt::ids::tile_value(tile, i);
       }
-      __syncthreads();  // hist_s is zeroed by the next virtual block
+      __syncthreads();  // the tile is zeroed by the next virtual block
       clk.lap(3);
     }
     if constexpr (kTimed) {

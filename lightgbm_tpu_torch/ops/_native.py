@@ -88,6 +88,9 @@ _SIGNATURES = {
     # bin_bytes, bins, ghc, ids (or null: all rows), count, F, B,
     # feat_tile, max_chunks, partial, out, stream
     "ltt_hist_rows": [_I, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P],
+    # the same, then times (u64 [grid, 4]), stream
+    "ltt_hist_rows_timed": [_I, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P,
+                            _P, _P],
 }
 
 

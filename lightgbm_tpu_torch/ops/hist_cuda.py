@@ -226,8 +226,8 @@ def histogram_segment(mat: torch.Tensor, begin, count, num_bins: int,
 # The leaf layout's histogram tile and chunk rule, shared by the leaf
 # fused step (csrc/split_step_leaf.cu) and the full-range histogram
 # (csrc/hist_rows.cu): features go in tiles of ``leaf_feat_tile`` (the
-# float64 sums and the staged rows' bins fit LEAF_SMEM_BYTES, two blocks
-# an SM), and a list of ``count`` rows is cut into contiguous chunks of
+# tile's bins and the staged rows fit LEAF_SMEM_BYTES, two blocks an
+# SM), and a list of ``count`` rows is cut into contiguous chunks of
 # about LEAF_CHUNK_ROWS rows, at most ``leaf_max_chunks`` of them
 # (chunks x feature tiles <= LEAF_MAX_VBLOCKS; the leading dimension of
 # the partial buffers).
@@ -236,18 +236,34 @@ LEAF_STAGE_ROWS = 512        # csrc/hist_ids.cuh kStageRows
 LEAF_MAX_TILE = 16           # csrc/hist_ids.cuh kMaxTile
 LEAF_CHUNK_ROWS = 512        # csrc/hist_ids.cuh kChunkRows
 LEAF_MAX_VBLOCKS = 256       # csrc/hist_ids.cuh kMaxVBlocks
+LEAF_BIN_BYTES = 24          # csrc/hist_ids.cuh kBinBytes
+LEAF_STAGE_ROW_BYTES = 8     # csrc/hist_ids.cuh kStageRowBytes
 
 
 def leaf_feat_tile(num_features: int, num_bins: int,
                    bin_bytes: Optional[int] = None) -> int:
-    """Features per histogram tile of the leaf layout (float64 sums and
-    the staged rows' bins; ``bin_bytes`` defaults to the narrowest type
-    that holds ``num_bins``)."""
+    """Features per histogram tile of the leaf layout (``bin_bytes``
+    defaults to the narrowest type that holds ``num_bins``). The tile
+    sets the chunk cap (``leaf_max_chunks``), and with it the order of
+    every sum, so its rule is fixed: 24 bytes a bin, 12 bytes and the
+    tile's bins a staged row, within LEAF_SMEM_BYTES. The kernel's tile
+    (``leaf_tile_smem_bytes``) takes no more than that."""
     if bin_bytes is None:
         bin_bytes = 1 if num_bins <= 256 else 2
     fit = (LEAF_SMEM_BYTES - 12 * LEAF_STAGE_ROWS) \
         // (num_bins * 3 * 8 + LEAF_STAGE_ROWS * bin_bytes)
     return max(1, min(num_features, fit, LEAF_MAX_TILE))
+
+
+def leaf_tile_smem_bytes(feat_tile: int, num_bins: int,
+                         bin_bytes: int) -> int:
+    """Shared bytes of one block's tile (``tile_smem_bytes``): the bins'
+    (g, h) float64 pairs and (peer word, count) integer pairs, and one
+    staged step: the rows' (g, h) float32 pairs, a word of count bits a
+    32-row group, and the tile's bins."""
+    return feat_tile * num_bins * LEAF_BIN_BYTES \
+        + LEAF_STAGE_ROWS * LEAF_STAGE_ROW_BYTES + LEAF_STAGE_ROWS // 32 * 4 \
+        + feat_tile * LEAF_STAGE_ROWS * bin_bytes
 
 
 def leaf_max_chunks(num_features: int, feat_tile: int) -> int:
@@ -295,7 +311,8 @@ def histogram_rows_plain(binned: torch.Tensor, ghc: torch.Tensor,
 
 def histogram_rows(binned: torch.Tensor, ghc: torch.Tensor, num_bins: int,
                    ids: Optional[torch.Tensor] = None,
-                   partial: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   partial: Optional[torch.Tensor] = None,
+                   times: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[F, B, 3] f32 histogram of all rows of ``binned`` [N, F] (uint8,
     B <= 256, or the int16 bits of uint16 bins, B <= 1024) with ``ghc``
     [N, 3] f32, or of the rows ``ids`` (int32 in [0, N), in row order:
@@ -303,7 +320,18 @@ def histogram_rows(binned: torch.Tensor, ghc: torch.Tensor, num_bins: int,
     tensor it launches ``csrc/hist_rows.cu``; ``partial`` is the float64
     scratch (``rows_partial``, or the leaf fused step's
     ``LeafScratch.partial``), allocated here when not given. On a CPU
-    tensor it runs ``histogram_rows_plain``."""
+    tensor it runs ``histogram_rows_plain``.
+
+    The count channel of ``ghc`` must be a 0/1 indicator, as every
+    caller makes it (``make_ghc``): the kernel counts the rows whose
+    count is not 0, in integers, where the plain version sums the column
+    in float64. On a 0/1 column the two are the same number.
+
+    ``times`` (for ``chip_profile.py``; not counted in ``LAUNCHES``):
+    int64 [blocks, 4] on the card, a row for each (chunk, feature tile)
+    block of the launch; the launch goes through the kernel's timed
+    instantiation, whose every block writes its cycles of first fetch,
+    stores, accumulation and write-out there."""
     dev = binned.device
     if dev.type == "cpu":
         return histogram_rows_plain(binned, ghc, num_bins, ids)
@@ -333,10 +361,17 @@ def histogram_rows(binned: torch.Tensor, ghc: torch.Tensor, num_bins: int,
     if tuple(partial.shape) != (max_chunks, f, num_bins, 3):
         raise ValueError("partial does not fit this histogram")
     out = torch.empty((f, num_bins, 3), dtype=torch.float32, device=dev)
-    err = _native.library().ltt_hist_rows(
-        bin_bytes, binned.data_ptr(), ghc.data_ptr(), ids_ptr, count, f,
-        num_bins, tile, max_chunks, partial.data_ptr(), out.data_ptr(),
-        _native.stream_of(binned))
+    args = (bin_bytes, binned.data_ptr(), ghc.data_ptr(), ids_ptr, count, f,
+            num_bins, tile, max_chunks, partial.data_ptr(), out.data_ptr())
+    if times is not None:
+        blocks = leaf_child_chunks(count, f, tile) * -(-f // tile)
+        req(times, device=dev, dtype=torch.int64, shape=(blocks, 4),
+            name="times")
+        _native.check(_native.library().ltt_hist_rows_timed(
+            *args, times.data_ptr(), _native.stream_of(binned)),
+            "hist_rows (timed)")
+        return out
+    err = _native.library().ltt_hist_rows(*args, _native.stream_of(binned))
     _native.LAUNCHES["hist_rows"] += 1
     _native.check(err, "hist_rows")
     return out

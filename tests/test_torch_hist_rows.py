@@ -14,9 +14,12 @@ port's own masked-ghc ``build_histogram`` the id-list mode is bitwise
 Also here: the numpy model of the kernel's summation order (512-row
 chunks from the row, feature and tile counts, 32-row groups summed in
 lane order, chunks in order, float64 rounded once) against the plain
-version bit for bit, and the Python mirror of the chunk constants
-against ``csrc/hist_ids.cuh``. The serial learner on these histograms:
-``tests/test_torch_serial.py``.
+version bit for bit; the model of the kernel's loop
+(``tests/torch_hist_model.py``: peer words, integer counts) against it;
+the integer count against the float64 sum of 0/1 count columns; the
+tile against the one the order was fixed with; and the Python mirror of
+the constants against ``csrc/hist_ids.cuh``. The serial learner on these
+histograms: ``tests/test_torch_serial.py``.
 """
 
 import os
@@ -32,6 +35,7 @@ from lightgbm_tpu.ops import histogram as jh
 from lightgbm_tpu_torch.ops import _native
 from lightgbm_tpu_torch.ops import hist_cuda as hc
 from lightgbm_tpu_torch.ops.histogram import build_histogram
+from torch_hist_model import kernel_histogram
 
 torch.set_num_threads(2)
 N, F = 3000, 10
@@ -148,7 +152,10 @@ def _constant(name: str) -> int:
 @pytest.mark.parametrize("py,c", [("LEAF_CHUNK_ROWS", "kChunkRows"),
                                   ("LEAF_MAX_VBLOCKS", "kMaxVBlocks"),
                                   ("LEAF_STAGE_ROWS", "kStageRows"),
-                                  ("LEAF_MAX_TILE", "kMaxTile")])
+                                  ("LEAF_MAX_TILE", "kMaxTile"),
+                                  ("LEAF_BIN_BYTES", "kBinBytes"),
+                                  ("LEAF_STAGE_ROW_BYTES",
+                                   "kStageRowBytes")])
 def test_mirror_matches_source(py, c):
     assert getattr(hc, py) == _constant(c)
 
@@ -177,16 +184,42 @@ def test_chunks_from_the_counts(f, b, bb, count):
     assert hc.rows_partial(held, b).shape == (cap, f, b, 3)
 
 
+TILE_WALK = [(b, bb) for b in (1, 16, 255, 256, 600, 1023, 1024)
+             for bb in (1, 2) if not (bb == 1 and b > 256)]
+
+
 def test_tile_fits_two_blocks_an_sm():
-    """The tile's shared memory (float64 bins, staged rows) stays within
-    the leaf kernel's budget for two blocks an SM."""
-    for b in (1, 16, 255, 256, 600, 1023, 1024):
-        for bb in (1, 2):
-            if bb == 1 and b > 256:
-                continue
-            t = hc.leaf_feat_tile(28, b, bb)
-            smem = t * b * 24 + hc.LEAF_STAGE_ROWS * (12 + t * bb)
-            assert smem <= hc.LEAF_SMEM_BYTES
+    """The tile's shared memory (the bins' float64 (g, h) pairs and
+    integer (peer word, count) pairs, one staged step) stays within the
+    leaf kernel's budget for two blocks an SM, and within the bytes of
+    the tile rule (24 a bin, 12 a staged row)."""
+    for b, bb in TILE_WALK:
+        t = hc.leaf_feat_tile(28, b, bb)
+        smem = hc.leaf_tile_smem_bytes(t, b, bb)
+        assert smem <= t * b * 24 + hc.LEAF_STAGE_ROWS * (12 + t * bb)
+        assert smem <= hc.LEAF_SMEM_BYTES
+        # the shape the H100's 227 KB a block and 228 KB an SM allow
+        assert 2 * (smem + 1024) <= 228 * 1024
+
+
+# leaf_feat_tile as it was before the peer-word tile: the tile sets the
+# chunk cap, so a changed tile would change the order of every sum
+TILE_BEFORE = {28: {(1, 1): 16, (1, 2): 16, (16, 1): 16, (16, 2): 16,
+                 (255, 1): 16, (255, 2): 14, (256, 1): 16, (256, 2): 14,
+                 (600, 2): 6, (1023, 2): 4, (1024, 2): 4},
+            10: {(1, 1): 10, (1, 2): 10, (16, 1): 10, (16, 2): 10,
+                 (255, 1): 10, (255, 2): 10, (256, 1): 10, (256, 2): 10,
+                 (600, 2): 6, (1023, 2): 4, (1024, 2): 4},
+            130: {(1, 1): 16, (1, 2): 16, (16, 1): 16, (16, 2): 16,
+                  (255, 1): 16, (255, 2): 14, (256, 1): 16, (256, 2): 14,
+                  (600, 2): 6, (1023, 2): 4, (1024, 2): 4}}
+
+
+@pytest.mark.parametrize("f", [28, 10, 130])
+def test_tile_unchanged(f):
+    """``leaf_feat_tile`` at every (B, width) the budget test walks is
+    the tile the order was fixed with."""
+    assert {k: hc.leaf_feat_tile(f, *k) for k in TILE_WALK} == TILE_BEFORE[f]
 
 
 def chunked_histogram(binned, ghc, rows, b, feat_tile, model_tile):
@@ -245,6 +278,47 @@ def test_chunked_order_matches_plain(u8, u16, width, rows):
             jnp.asarray(binned), jnp.asarray(ghc), b, interpret=True))
         scale = _abs_scale(binned, ghc, b)
         assert np.all(np.abs(outs[0] - ref) <= 2e-5 * scale + 1e-30)
+
+
+@pytest.mark.parametrize("rows", ["all", "one_row_over", "subset"])
+@pytest.mark.parametrize("width", ["u8", "u16"])
+def test_kernel_loop_model_matches_order_model(u8, u16, width, rows):
+    """The model of the kernel's loop (peer words, the lowest lane's
+    walk, integer counts; ``tests/torch_hist_model.py``, which the card
+    tests hold the kernel against) is bitwise the order model above."""
+    binned, ghc, held, tghc = u8 if width == "u8" else u16
+    b = 64 if width == "u8" else 600
+    tile = hc.leaf_feat_tile(F, b, 1 if width == "u8" else 2)
+    sel = {"all": np.arange(N), "one_row_over": np.arange(3, 3 + 513),
+           "subset": np.flatnonzero(np.random.RandomState(2).rand(N)
+                                    < 0.6)}[rows]
+    got = kernel_histogram(binned, ghc, sel, b, tile)
+    assert got.tobytes() == chunked_histogram(binned, ghc, sel, b, tile,
+                                              tile).tobytes()
+
+
+@pytest.mark.parametrize("column", ["bagged", "all_zero", "all_one"])
+@pytest.mark.parametrize("width", ["u8", "u16"])
+def test_integer_count_equals_float_sum(u8, u16, width, column):
+    """The kernel counts the rows whose count is not 0, in integers; on a
+    0/1 count column (``make_ghc``'s, every caller's) that is the
+    float64 sum the plain version takes, an all-zero column included."""
+    binned, ghc, held, tghc = u8 if width == "u8" else u16
+    b = 64 if width == "u8" else 600
+    ghc = ghc.copy()
+    ghc[:, 2] = {"bagged": ghc[:, 2], "all_zero": 0.0,
+                 "all_one": 1.0}[column]
+    assert set(np.unique(ghc[:, 2])) <= {0.0, 1.0}
+    tile = hc.leaf_feat_tile(F, b, 1 if width == "u8" else 2)
+    rows = np.arange(N)
+    got = kernel_histogram(binned, ghc, rows, b, tile)[..., 2]
+    plain = hc.histogram_rows_plain(held, torch.from_numpy(ghc), b)[..., 2]
+    want = np.zeros((F, b))
+    for j in range(F):
+        np.add.at(want[j], binned[:, j], ghc[:, 2].astype(np.float64))
+    assert got.tobytes() == plain.numpy().tobytes()
+    assert got.tobytes() == want.astype(np.float32).tobytes()
+    assert got.sum() == F * ghc[:, 2].sum()
 
 
 def test_kernel_refuses_what_it_does_not_take(u8):

@@ -540,3 +540,39 @@ def test_hist_rows_equals_fused_leaf_child(dev, n, f, b):
         assert _same_bytes(h, state[4][small]), (k, small, ids.numel())
         checked += 1
     assert checked >= 8
+
+
+@pytest.mark.parametrize("b", [255, 1023, 1024],
+                         ids=["u8", "u16", "u16_1024"])
+@pytest.mark.parametrize("case", ["all", "list", "crowded_all",
+                                  "crowded_list"])
+def test_hist_rows_kernel_matches_loop_model(dev, b, case):
+    """All-rows and list modes bitwise against the numpy model of the
+    kernel's loop (``tests/torch_hist_model.py``, which the CPU tests
+    hold bitwise to the summation-order model ``chunked_histogram``):
+    several chunks, a tile of fewer features than warps, and the count
+    channel counted. "crowded": every row of feature 0 in bin b - 1 and
+    of feature 1 in bin 0, so all 32 lanes of every group share one
+    peer word, with some count bits 0."""
+    from torch_hist_model import kernel_histogram
+
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    n, f = 5_003, 6
+    binned, ghc = _bins_ghc(dev, n, f, b, 12)
+    if case.startswith("crowded"):
+        binned[:, 0] = b - 1
+        binned[:, 1] = 0
+    rows = np.arange(n)
+    ids = None
+    if case.endswith("list"):
+        rows = np.flatnonzero(np.random.RandomState(4).rand(n) < 0.4)
+        ids = torch.from_numpy(rows.astype(np.int32)).to(dev)
+    out = hc.histogram_rows(binned, ghc, b, ids)
+    torch.cuda.synchronize()
+    host = binned.cpu().numpy()
+    host = host.view(np.uint16) if host.dtype == np.int16 else host
+    want = kernel_histogram(host, ghc.cpu().numpy(), rows, b,
+                            hc.leaf_feat_tile(f, b))
+    assert out.cpu().numpy().tobytes() == want.tobytes()
+    if case.startswith("crowded"):
+        assert float(out[0, b - 1, 2]) == float(ghc[rows, 2].sum())

@@ -161,7 +161,8 @@ def test_port_imports_no_jax_and_no_jax_package():
              if "_build" not in os.path.relpath(d, pkg).split(os.sep)
              for f in fs if f.endswith(".py")]
     files += [os.path.join(REPO, "chip_smoke.py"),
-              os.path.join(REPO, "chip_profile.py")]
+              os.path.join(REPO, "chip_profile.py"),
+              os.path.join(REPO, "chip_hist_levers.py")]
     bad = []
     for path in files:
         for mod in _imports(path):
