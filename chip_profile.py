@@ -4,7 +4,7 @@
 Run from the repository root: ``python3 chip_profile.py [--trees N]
 [--paths fused,per-phase,serial-fused,serial-per-phase]
 [--leaf-phases] [--segment-phases] [--hist-rows-phases]
-[--hist-rows]``. Trains the
+[--hist-rows] [--scan-phases] [--partition]``. Trains the
 Higgs-shaped binary model of ``chip_smoke.py`` (2M x 28,
 num_leaves=255, lr=0.1) through ``lightgbm_tpu_torch``, once per grow
 path: at max_bin=255 the partitioned learner's ``fused`` (the default
@@ -42,8 +42,17 @@ launch of its timed instantiation (every block's thread 0 reads
 accumulation and the write-out), printed as mean cycles a block and as
 cycles per 32-row feature group of a busy warp and of an SM;
 ``--hist-rows`` prints the launch medians alone (it runs on a tree
-without the timed build too, to compare with a parent). A phases flag
-alone runs only that; with ``--paths`` it runs after the named paths.
+without the timed build too, to compare with a parent).
+``--scan-phases`` times the standalone scan kernel (``split_scan``) on
+two children's histograms of the 2M-row matrices at max_bin 255 and
+1023, at its default block size and others, and its timed build's
+sub-phases (``scan_feature``'s clock64 reads: load planes, prefix sums,
+candidates, argmax and row); ``--partition`` times ``partition_segment``
+on the whole 2M-row u8 training matrix. Both run on a parent tree too
+(the launch times alone where its wrapper lacks the timed build). A
+path's profile also prints each wrapper's in-training device time a
+call. A phases flag alone runs only that; with ``--paths`` it runs after
+the named paths.
 """
 
 import argparse
@@ -52,7 +61,7 @@ import subprocess
 import sys
 import time
 
-from chip_smoke import higgs_like
+from chip_smoke import device_us, higgs_like, merged_us
 
 
 PATHS = {"fused": {"max_bin": 255},
@@ -68,10 +77,12 @@ def profile_path(path: str, ds, trees: int) -> str:
     import lightgbm_tpu_torch as lt
     params = {"objective": "binary", "num_leaves": 255,
               "learning_rate": 0.1, "verbosity": -1, **PATHS[path]}
+    from lightgbm_tpu_torch.ops import _native
     bst = lt.Booster(params, ds, device="cuda")
     for _ in range(2):
         bst.update()
     torch.cuda.synchronize()
+    _native.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -98,6 +109,7 @@ def profile_path(path: str, ds, trees: int) -> str:
     for e in by_dev[:12]:
         print(f"  device {e.self_device_time_total / 1e3:9.2f} ms "
               f"{e.count:7d} x  {e.key[:70]}")
+    print(f"{tag} {per_wrapper(prof, dict(_native.LAUNCHES))}")
     by_cpu = sorted(events, key=lambda e: -e.self_cpu_time_total)
     for e in by_cpu[:12]:
         print(f"  host   {e.self_cpu_time_total / 1e3:9.2f} ms "
@@ -114,6 +126,38 @@ def profile_path(path: str, ds, trees: int) -> str:
     del bst
     torch.cuda.empty_cache()
     return tables
+
+
+# which wrapper launches a CUDA kernel, by a part of its name
+KERNEL_OF = (("part_", "partition_segment"),
+             ("split_scan_kernel", "split_scan"),
+             ("hist_partial", "hist_segment"), ("hist_reduce", "hist_segment"),
+             ("hist_rows", "hist_rows"),
+             ("split_step_leaf", "fused_split_step_leaf"),
+             ("split_step_kernel", "fused_split_step_segment"))
+
+
+def per_wrapper(prof, launches: dict) -> str:
+    """Device time of each wrapper's kernels over its calls in the
+    window: the in-training time a call. A call's kernels are merged as
+    intervals on the card's timeline, so kernels that overlap (the
+    partition's copy back launches while its compaction runs) count
+    once."""
+    from torch.autograd import DeviceType
+    spans = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for part, name in KERNEL_OF:
+            if part in e.name:
+                spans.setdefault(name, []).append(
+                    (e.time_range.start, e.time_range.end))
+                break
+    ms = {name: merged_us(iv) / 1e3 for name, iv in spans.items()}
+    return "per wrapper call, device us: " + ", ".join(
+        f"{name} {t:.2f} ms / {launches.get(name, 0)} = "
+        f"{t * 1e3 / max(launches.get(name, 0), 1):.2f}"
+        for name, t in sorted(ms.items()))
 
 
 def split_bounds(lrn, trees) -> str:
@@ -255,6 +299,10 @@ def leaf_phases(ds, warm: int = 2) -> str:
         f"{lrn.num_bins_max}, {len(ds.label)} rows, one tree of {nsplit} "
         f"splits (after {warm} warm-up trees)", PHASES,
         t[:, :7], t[:, 8:15], t[:, 7], ev_us, tree)
+    from lightgbm_tpu_torch.ops.split_step_cuda import leaf_launch_shape
+    lines.append("[leaf phases] launch shape: " + str(leaf_launch_shape(
+        lrn.binned.element_size(), len(ds.label), lrn.num_features,
+        lrn.num_bins_max)))
     # inside the histogram phase (block 0's virtual blocks) and inside
     # block 0's first scan, in us at each split's own clock rate
     rate = (t[:, 14] - t[:, 8]).astype(np.float64) \
@@ -387,11 +435,14 @@ def segment_phases(ds, warm: int = 2) -> str:
     if not (t[:, 15] > 0).all():
         raise SystemExit("chip_profile: a split wrote no clock reads")
     nph = len(SEGMENT_PHASES) - 1   # phases block 0 reads, then finish
+    from lightgbm_tpu_torch.ops.split_step_cuda import launch_shape
+    shape = launch_shape(lrn.num_bins_max)
     lines, groups = phase_lines(
         "segment phases", f"{type(lrn).__name__} num_bins_max "
         f"{lrn.num_bins_max}, {len(ds.label)} rows, one tree of {nsplit} "
         f"splits (after {warm} warm-up trees)", SEGMENT_PHASES,
         t[:, :nph + 1], t[:, 16:17 + nph], t[:, 15], ev_us, tree)
+    lines.append(f"[segment phases] launch shape: {shape}")
     # inside the histogram phase: block 0's cycles (zeroing, rows and
     # their staging and accumulation, write-out) in us at each split's
     # own clock rate, and its virtual blocks
@@ -489,6 +540,131 @@ def hist_rows_phases(sets, timed: bool = True) -> str:
     return "\n".join(lines)
 
 
+SCAN_POINTS = ("load planes", "prefix sums", "candidates", "argmax + row")
+
+
+def _sm_clock_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         stdout=subprocess.PIPE, text=True, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def scan_phases(sets) -> str:
+    """The standalone scan kernel on two children's [28, B, 3] histograms
+    of the 2M-row matrices (a third of the rows and the rest) at max_bin
+    255 and 1023: the mean device time of 100 launches (profiler) at the
+    default block size and, where the wrapper takes them, at other block
+    sizes; then one launch of the timed build (``times=``): each
+    block's thread 0 reads clock64 at scan_feature's five points, printed
+    as mean cycles of each sub-phase over the blocks, and us at the SM
+    clock nvidia-smi reads just after. A tree without the timed build
+    (a parent) prints the default launch time only."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.learner.partitioned import (
+        feature_meta_from_dataset, split_params_from_config)
+    from lightgbm_tpu_torch.ops import split_scan_cuda as sc
+    from lightgbm_tpu_torch.ops.histogram import build_histogram, make_ghc
+    from lightgbm_tpu_torch.ops.split import meta_tensors
+    dev = torch.device("cuda")
+    n = len(sets[255].label)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ghc = make_ghc(torch.randn(n, generator=gen, device=dev),
+                   torch.rand(n, generator=gen, device=dev) * 0.25 + 1e-3)
+    takes = inspect.signature(sc.per_feature_numerical_cuda).parameters
+    lines = []
+    for mb in (255, 1023):
+        cfg = lt.Config.from_params({"objective": "binary", "max_bin": mb,
+                                     "verbosity": -1})
+        binned = sets[mb].construct(cfg)
+        bins = binned.binned_device(dev)
+        b = int(binned.num_bins_array().max())
+        hists = [build_histogram(bins[:n // 3], ghc[:n // 3], b),
+                 build_histogram(bins[n // 3:], ghc[n // 3:], b)]
+        leaves = []
+        for h in hists:
+            t = h[0].sum(0).cpu().numpy().astype(np.float32)
+            leaves.append((t[0], t[1], t[2], np.float32(-np.inf),
+                           np.float32(np.inf)))
+        meta_t = meta_tensors(feature_meta_from_dataset(binned), dev)
+        tables = sc.scan_meta_tables(meta_t)
+        params = split_params_from_config(cfg, any_missing=False)
+        f = hists[0].shape[0]
+
+        def launch(**kw):
+            return sc.per_feature_numerical_cuda(hists, leaves, meta_t,
+                                                 params, tables, **kw)
+        line = (f"[scan phases] B {b}, K 2, F {f}: device us a launch "
+                f"(profiler, 100 launches): default block "
+                f"{device_us(launch, 100, 'split_scan_kernel'):.2f}")
+        if "threads" in takes:
+            line += f" ({sc.scan_threads(b)} threads); by block size:"
+            for threads in (64, 128, 192, 256, 384, 512):
+                us = device_us(lambda: launch(threads=threads), 100,
+                               "split_scan_kernel")
+                line += f" {threads} {us:.2f}"
+        if "times" in takes:
+            times = torch.zeros((2, f, 5), dtype=torch.int64, device=dev)
+            launch(times=times)
+            torch.cuda.synchronize()
+            mhz = _sm_clock_mhz()
+            cyc = np.diff(times.cpu().numpy().astype(np.float64),
+                          axis=-1).reshape(-1, 4)
+            mean = cyc.mean(0)
+            line += (f"; timed build, mean cycles a block (us at "
+                     f"{mhz:.0f} MHz): " + ", ".join(
+                         f"{name} {mean[i]:.0f} ({mean[i] / mhz:.2f})"
+                         for i, name in enumerate(SCAN_POINTS))
+                     + f"; total {mean.sum():.0f} "
+                     f"({mean.sum() / mhz:.2f})")
+        lines.append(line)
+        print(line)
+        del hists, bins
+    torch.cuda.empty_cache()
+    return "\n".join(lines)
+
+
+def partition_times(sets) -> str:
+    """``partition_segment`` on the 2M x 28 u8 training matrix (the
+    whole matrix as one segment, feature 3 at bin 127, as chip_smoke.py
+    times it): the median of 20 calls between CUDA events (as
+    chip_smoke.py times it) and the mean device time of its kernels
+    (profiler)."""
+    import torch
+
+    import lightgbm_tpu_torch as lt
+    from chip_smoke import time_ms
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops import partition_cuda as pc
+    dev = torch.device("cuda")
+    binned = sets[255].construct(lt.Config.from_params(
+        {"objective": "binary", "max_bin": 255, "verbosity": -1}))
+    mat = hc.build_matrix(binned.binned_device(dev))
+    n, f = mat.shape[0], binned.num_features
+    gen = torch.Generator(device=dev).manual_seed(7)
+    hc.pack_gh(mat, f, torch.randn(n, generator=gen, device=dev),
+               torch.rand(n, generator=gen, device=dev),
+               torch.ones(n, device=dev))
+    ws = torch.empty_like(mat)
+    b = int(binned.num_bins_array().max())
+    call = lambda: pc.partition_segment(mat, ws, 0, n, 3, 127, 0, 0,  # noqa: E731
+                                        0, b, False)
+    ms = time_ms(call, 20)
+    us = device_us(call, 20, "part_")
+    line = (f"[partition] {n} rows x {mat.shape[1]} bytes: {ms:.4f} ms "
+            f"median of 20 between CUDA events, {us / 1e3:.4f} ms device "
+            "time a call (profiler)")
+    print(line)
+    del mat, ws
+    torch.cuda.empty_cache()
+    return line
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=2_000_000)
@@ -504,11 +680,17 @@ def main() -> int:
                     help="time hist_rows and its timed build only")
     ap.add_argument("--hist-rows", action="store_true",
                     help="time hist_rows only (no timed build)")
+    ap.add_argument("--scan-phases", action="store_true",
+                    help="time the standalone scan and its timed build")
+    ap.add_argument("--partition", action="store_true",
+                    help="time partition_segment on the 2M-row matrix")
     args = ap.parse_args()
     phase_flags = ["leaf-phases"] * args.leaf_phases \
         + ["segment-phases"] * args.segment_phases \
         + ["hist-rows-phases"] * args.hist_rows_phases \
-        + ["hist-rows"] * args.hist_rows
+        + ["hist-rows"] * args.hist_rows \
+        + ["scan-phases"] * args.scan_phases \
+        + ["partition"] * args.partition
     paths = args.paths.split(",") if args.paths else \
         ([] if phase_flags else list(PATHS))
     paths += phase_flags
@@ -530,11 +712,17 @@ def main() -> int:
     phases = {"leaf-phases": ("serial-fused", leaf_phases),
               "segment-phases": ("fused", segment_phases)}
     for path in paths:
-        if path in ("hist-rows-phases", "hist-rows"):
+        if path in ("hist-rows-phases", "hist-rows", "scan-phases",
+                    "partition"):
             for mb in (255, 1023):
                 sets.setdefault(mb, lt.Dataset(X, label=y))
-            tables.append(hist_rows_phases(
-                sets, timed=path == "hist-rows-phases"))
+            if path == "scan-phases":
+                tables.append(scan_phases(sets))
+            elif path == "partition":
+                tables.append(partition_times(sets))
+            else:
+                tables.append(hist_rows_phases(
+                    sets, timed=path == "hist-rows-phases"))
             continue
         mb = PATHS[phases[path][0] if path in phases else path]["max_bin"]
         if mb not in sets:

@@ -17,7 +17,11 @@ of the JAX package. Phases, each fatal on failure:
    a whole tree's average launch), then the scan at 1023 bins, the leaf
    fused step's root split of the 2M x 28 bin matrix at 1023 bins (u16)
    and at 255 (u8), and the full-range histogram (``hist_rows``) of both
-   bin matrices over all rows and over a third of them;
+   bin matrices over all rows and over a third of them. The scan is held
+   bitwise, every column, there and at B in {1, 31, 32, 33, 255, 256,
+   1023, 1024}; the partition also at its tiles' and look-back's edges,
+   on a reused scratch, and as two launches a call. Each kernel's time
+   is printed beside its bound and its launch floor;
 3. train the Higgs-shaped binary model at full width (2M x 28,
    max_bin=255, num_leaves=255, lr=0.1, 8 iterations) through
    ``lightgbm_tpu_torch.train`` twice: the fused path (the default,
@@ -62,6 +66,11 @@ F, B = 28, 256
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
 WARPS = 8                    # warps of a hist_rows block (csrc/hist_ids.cuh)
+# kernel launches of one wrapper call at phase 2's timed shapes (the
+# histograms past one chunk add their reduce)
+LAUNCHES_A_CALL = {"hist_segment": 2, "partition_segment": 2,
+                   "split_scan": 1, "fused_split_step_segment": 1,
+                   "fused_split_step_leaf": 1, "hist_rows": 2}
 
 
 def higgs_like(n: int, f: int = F, seed: int = 42):
@@ -102,6 +111,39 @@ def time_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def merged_us(intervals) -> float:
+    """The length of the union of (start, end) intervals, us."""
+    total, lo, hi = 0.0, None, None
+    for s, e in sorted(intervals):
+        if hi is None or s > hi:
+            total += 0.0 if hi is None else hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    return total + (0.0 if hi is None else hi - lo)
+
+
+def device_us(fn, reps: int, kernel: str) -> float:
+    """Mean device time of the CUDA kernels whose names hold ``kernel``
+    over ``reps`` calls of ``fn``: their intervals on the card's
+    timeline merged (torch.profiler). Unlike CUDA events around a call,
+    this leaves out the host's time between launches, which is most of
+    a small kernel's event time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return merged_us([(e.time_range.start, e.time_range.end)
+                      for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and kernel in e.name]) / reps
 
 
 def fail(msg: str) -> None:
@@ -174,22 +216,67 @@ def check_partition(mat, n, reps):
         (3, 127, 0, 0, 0, False), (5, 90, 1, 1, 128, False),
         (7, 160, 1, 2, 0, False), (9, 40, 0, 2, 0, False),
         (11, 0, 0, 0, 0, True)]
-    for begin, count in ((0, n), (n // 16 + 7, n // 2 + 3)):
-        for feat, thr, dl, miss, dbin, is_cat in cases:
-            m1, m2 = mat.clone(), mat.clone()
-            s1 = pc.partition_segment(m1, ws, begin, count, feat, thr, dl,
-                                      miss, dbin, B, is_cat, lut)
-            s2 = pc.partition_segment_plain(m2, None, begin, count, feat,
-                                            thr, dl, miss, dbin, B, is_cat,
-                                            lut)
-            torch.cuda.synchronize()
-            if not torch.equal(s1, s2) or not torch.equal(m1, m2):
-                fail(f"partition differs (feat {feat}, missing {miss}, "
-                     f"lut {is_cat}, segment {begin}+{count})")
-            del m1, m2
+    tile = pc.TILE_ROWS
+    # every decision on two large segments, then the look-back's edges:
+    # one row, a tile less one, a tile, a tile and one, three tiles less
+    # one and plus one, at begin 0 and past it; all rows left, all right
+    segments = [(b0, c, case) for b0, c in ((0, n), (n // 16 + 7, n // 2 + 3))
+                for case in cases]
+    segments += [(b0, c, cases[k % len(cases)])
+                 for k, (b0, c) in enumerate(
+                     (b0, c) for b0 in (0, 1_001)
+                     for c in (1, 255, 256, 257, tile - 1, tile, tile + 1,
+                               3 * tile - 1, 3 * tile + 1))]
+    segments += [(5, n - 9, (4, B - 1, 0, 0, 0, False)),
+                 (5, n - 9, (4, -1, 0, 0, 0, False))]
+    for begin, count, (feat, thr, dl, miss, dbin, is_cat) in segments:
+        m1, m2 = mat.clone(), mat.clone()
+        s1 = pc.partition_segment(m1, ws, begin, count, feat, thr, dl,
+                                  miss, dbin, B, is_cat, lut)
+        s2 = pc.partition_segment_plain(m2, None, begin, count, feat,
+                                        thr, dl, miss, dbin, B, is_cat,
+                                        lut)
+        torch.cuda.synchronize()
+        if not torch.equal(s1, s2) or not torch.equal(m1, m2):
+            fail(f"partition differs (feat {feat}, missing {miss}, "
+                 f"lut {is_cat}, segment {begin}+{count})")
+        del m1, m2
+    # two calls in a row on one scratch, the second on the first's
+    # children: the scratch is the same tensor and its tile counter is 0
+    m1, m2 = mat.clone(), mat.clone()
+    ptr = pc._SCRATCH[mat.device][0].data_ptr()
+    for begin, count, feat in ((0, n, 3), (0, None, 9)):
+        if count is None:
+            count = int(s2[1])
+        s1 = pc.partition_segment(m1, ws, begin, count, feat, 100, 0, 0, 0,
+                                  B, False)
+        s2 = pc.partition_segment_plain(m2, None, begin, count, feat, 100,
+                                        0, 0, 0, B, False, None)
+        torch.cuda.synchronize()
+        if not torch.equal(s1, s2) or not torch.equal(m1, m2):
+            fail(f"partition differs on a reused scratch ({count} rows)")
+    scratch = pc._SCRATCH[mat.device][0]
+    if scratch.data_ptr() != ptr or int(scratch[0]) != 0:
+        fail("the partition reallocated its scratch or left its counter")
+    del m1, m2
+    # two kernel launches a call
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pc.partition_segment(mat.clone(), ws, 0, n, 3, 127, 0, 0, 0, B,
+                             False)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "part_" in e.name]
+    if len(kernels) != 2:
+        fail(f"partition_segment launched {kernels}, not two kernels")
     work = mat.clone()
     args = (0, n, 3, 127, 0, 0, 0, B, False, None)
-    ms = time_ms(lambda: pc.partition_segment(work, ws, *args), reps)
+    event_ms = time_ms(lambda: pc.partition_segment(work, ws, *args), reps)
+    # device time: its two kernels' span (events around a call add the
+    # host's launch time)
+    ms = device_us(lambda: pc.partition_segment(work, ws, *args), reps,
+                   "part_") / 1e3
     plain_ms = time_ms(lambda: pc.partition_segment_plain(work, ws, *args),
                        3)
     right = ~rows_go_left(work[:, 3], 127, 0, 0, 0, B)
@@ -200,7 +287,7 @@ def check_partition(mat, n, reps):
     library_ms = time_ms(library, reps)
     # a stable partition reads the segment once and writes it once
     nbytes = 2 * n * mat.shape[1]
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+    return dict(max_abs_err=0.0, ms=ms, event_ms=event_ms, plain_ms=plain_ms,
                 library_ms=library_ms,
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
 
@@ -214,8 +301,7 @@ def check_scan(hists, dataset, b, reps):
         feature_meta_from_dataset, split_params_from_config)
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.ops import split_scan_cuda as sc
-    from lightgbm_tpu_torch.ops.split import O_SCORE, O_THR, O_DLEFT, \
-        meta_tensors
+    from lightgbm_tpu_torch.ops.split import O_SCORE, meta_tensors
     dev = hists[0].device
     leaves = []
     for h in hists:
@@ -238,7 +324,6 @@ def check_scan(hists, dataset, b, reps):
         "lambda_l2": 1.0, "max_delta_step": 0.7}), any_missing=True)
     leaves2 = [leaves[0], leaves[1][:3] + (np.float32(-0.05),
                                            np.float32(0.05))]
-    worst = 0.0
     for meta, params, lv in (nomiss, (meta2, p2, leaves2)):
         mask = np.ones(F, bool)
         mask[4] = meta is not meta2
@@ -246,31 +331,80 @@ def check_scan(hists, dataset, b, reps):
         k = sc.per_feature_numerical_cuda(hists, lv, meta_t, params)
         p = sc.per_feature_numerical_plain(hists, lv, meta_t, params)
         k, p = k.cpu().numpy(), p.cpu().numpy()
-        fin = np.isfinite(p[..., O_SCORE])
-        if not np.array_equal(fin, np.isfinite(k[..., O_SCORE])):
-            fail(f"scan ({b} bins): valid features differ")
-        for col in (O_THR, O_DLEFT):
-            if not np.array_equal(k[..., col][fin], p[..., col][fin]):
-                fail(f"scan ({b} bins): column {col} differs")
-        kv, pv = k[fin], p[fin]
-        if not np.allclose(kv, pv, rtol=1e-5, atol=1e-6):
-            fail(f"scan ({b} bins) values differ by {np.abs(kv - pv).max()}")
-        worst = max(worst, float(np.abs(kv - pv).max()))
+        if not np.isfinite(p[..., O_SCORE]).any():
+            fail(f"scan ({b} bins): no valid feature")
+        # every column of the table, bit for bit
+        if k.tobytes() != p.tobytes():
+            at = np.argwhere(k.view(np.int32) != p.view(np.int32))
+            fail(f"scan ({b} bins) differs from its plain version at "
+                 f"(leaf, feature, column) {at[:4].tolist()}")
     meta_t = meta_tensors(base, dev)
     tables = sc.scan_meta_tables(meta_t)
     params = nomiss[1]
-    ms = time_ms(lambda: sc.per_feature_numerical_cuda(
-        hists, leaves, meta_t, params, tables), reps)
+    call = lambda: sc.per_feature_numerical_cuda(  # noqa: E731
+        hists, leaves, meta_t, params, tables)
+    event_ms = time_ms(call, reps)
+    ms = device_us(call, reps, "split_scan_kernel") / 1e3
     plain_ms = time_ms(lambda: sc.per_feature_numerical_plain(
         hists, leaves, meta_t, params), reps)
     nbytes = 2 * F * b * 3 * 4 + 2 * F * 8 * 4
     # per bin and direction: ~4 prefix adds, ~40 flops of gain algebra
     ops = 2 * F * b * 2 * 44
     bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                library_ms=None, bound_ms=bound,
+    return dict(max_abs_err=0.0, ms=ms, event_ms=event_ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=bound,
                 bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                 >= ops / F32_FLOPS else "operations")
+
+
+def check_scan_widths(dev):
+    """The scan kernel at B in {1, 31, 32, 33, 255, 256, 1023, 1024}
+    (the 32-bin segments' edges, the static planes' edge) on random
+    children of 200k rows, every missing convention: every column
+    bitwise its plain version's."""
+    import torch
+    from lightgbm_tpu_torch.ops import split as sp
+    from lightgbm_tpu_torch.ops import split_scan_cuda as sc
+    from lightgbm_tpu_torch.ops.histogram import build_histogram
+    n, f = 200_000, F
+    for b in (1, 31, 32, 33, 255, 256, 1023, 1024):
+        g = torch.Generator(device=dev).manual_seed(b)
+        bins = torch.randint(0, b, (n, f), generator=g, device=dev)
+        ghc = torch.stack([torch.randn(n, generator=g, device=dev)
+                           + (bins[:, 0] > b // 2).float(),
+                           torch.rand(n, generator=g, device=dev) + 0.1,
+                           torch.ones(n, device=dev)], dim=1)
+        hists = [build_histogram(bins[:n // 3], ghc[:n // 3], b),
+                 build_histogram(bins[n // 3:], ghc[n // 3:], b)]
+        leaves = [tuple(h[0].sum(0).cpu().numpy()) + (-np.inf, np.inf)
+                  for h in hists]
+        meta = sp.FeatureMeta(
+            num_bins=np.full(f, b, np.int32),
+            missing=(np.arange(f) % 3).astype(np.int32),
+            default_bin=np.full(f, b // 3, np.int32),
+            most_freq_bin=np.zeros(f, np.int32),
+            monotone=np.zeros(f, np.int32), penalty=np.ones(f, np.float32),
+            is_categorical=np.zeros(f, bool))
+        meta_t = sp.meta_tensors(meta, dev)
+        params = sp.SplitParams(0.0, 1.0, 0.0, 20.0, 1e-3, 0.0, True)
+        k = sc.per_feature_numerical_cuda(hists, leaves, meta_t, params)
+        p = sc.per_feature_numerical_plain(hists, leaves, meta_t, params)
+        if k.cpu().numpy().tobytes() != p.cpu().numpy().tobytes():
+            fail(f"scan at {b} bins differs from its plain version")
+    return "B 1, 31, 32, 33, 255, 256, 1023, 1024 bitwise"
+
+
+def launch_floor_ms(reps):
+    """A launch's least time on the card: a CUDA graph of 100
+    one-element fills replayed (no host work between the launches), the
+    median replay over ``reps`` divided by 100."""
+    import torch
+    x = torch.zeros(1, device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(100):
+            x.fill_(1.0)
+    return time_ms(graph.replay, reps) / 100
 
 
 def check_fused(mat, n, dataset, reps):
@@ -1144,6 +1278,23 @@ def main() -> int:
           f"{hist_rows_summary(rec['hist_rows'])} {rec['hist_rows']}")
     del ghc, bins_wide, grad, hess
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    print(f"[check] split_scan widths: {check_scan_widths(dev)} "
+          f"{time.perf_counter() - t0:.1f} s")
+    # each kernel beside its byte (or operation) bound and its launch
+    # floor: the launches of one call times a launch's least device time
+    floor = launch_floor_ms(args.reps)
+    print(f"[floor] a launch's least time on the card {floor * 1e3:.2f} "
+          "us (a CUDA graph of one-element fills); the scan's and the "
+          "partition's ms are device time (profiler), the others' CUDA "
+          "events around a call")
+    for name, r in rec.items():
+        print(f"[floor] {name}: {r['ms']:.4f} ms, bound {r['bound_ms']:.5f}"
+              f" ms ({r['bound_by']}), launch floor "
+              f"{LAUNCHES_A_CALL[name] * floor:.4f} ms "
+              f"({LAUNCHES_A_CALL[name]} launches a call)")
+    print(f"[floor] split_scan ({B} bins): {scan256['ms']:.4f} ms, bound "
+          f"{scan256['bound_ms']:.5f} ms, launch floor {floor:.4f} ms")
 
     # ---- 3. the partitioned learner at full width, fused and per-phase -
     fused_bst, part_fused, part_per = train_paths(

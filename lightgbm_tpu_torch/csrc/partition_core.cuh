@@ -1,12 +1,13 @@
-// Device code of the stable segment partition, shared by the per-phase
-// kernels (partition_segment.cu) and the fused split step
-// (split_step_segment.cu), so the two cannot drift apart.
+// Device code of the stable segment partition. go_left, the decision,
+// is shared by the per-phase kernel (partition_segment.cu) and both
+// fused split steps, so they cannot drift apart.
 //
-// A segment of `count` rows starting at matrix row `begin` is cut into
-// 256-row tiles. Per tile: the left count (tile_left_count), then, after
-// an exclusive scan of the tile counts (block_exclusive_scan), a stable
-// scatter of whole rows (tile_scatter): lefts to dst[0, NL), rights to
-// dst[NL, count), each side in row order.
+// The segment fused step (split_step_segment.cu) partitions a segment
+// too large to hold in registers through the workspace: a segment of
+// `count` rows starting at matrix row `begin` is cut into 256-row tiles;
+// per tile the left count (tile_left_count), then, from the tiles'
+// exclusive offsets, a stable scatter of whole rows (tile_scatter):
+// lefts to dst[0, NL), rights to dst[NL, count), each side in row order.
 #pragma once
 
 #include "common.cuh"
@@ -40,42 +41,6 @@ __device__ __forceinline__ int tile_left_count(const uint8_t* mat, int stride,
   if (r < count)
     left = go_left(mat[(size_t)(begin + r) * stride + d.feat], d) ? 1 : 0;
   return __syncthreads_count(left);
-}
-
-// One block: exclusive scan of counts[0, n) in place; returns the total
-// to every thread. warp_sums: shared int[33].
-__device__ __forceinline__ int block_exclusive_scan(int* counts, int n,
-                                                    int* warp_sums) {
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int per = (n + blockDim.x - 1) / blockDim.x;
-  const int lo = min(n, t * per), hi = min(n, lo + per);
-  int local = 0;
-  for (int i = lo; i < hi; ++i) local += counts[i];
-  int x = local;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < (int)(blockDim.x >> 5) ? warp_sums[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    warp_sums[lane] = w;
-  }
-  __syncthreads();
-  int run = x - local + (warp > 0 ? warp_sums[warp - 1] : 0);
-  for (int i = lo; i < hi; ++i) {
-    const int v = counts[i];
-    counts[i] = run;
-    run += v;
-  }
-  if (t == blockDim.x - 1) warp_sums[32] = run;
-  __syncthreads();
-  return warp_sums[32];
 }
 
 // Stable scatter of tile `tile` to dst rows (segment-relative): in-tile

@@ -10,21 +10,35 @@
 // min_data/min_hessian, monotone bounds, the feature mask and penalty,
 // with the reference's tie rules (largest threshold for the
 // right-to-left scan, smallest for left-to-right, right-to-left wins
-// ties). The six prefix sums (2 directions x 3 channels) are block
-// scans in double, rounded once per bin (block_prefix6: a fixed order
-// that ops/split.py _cumsum repeats with elementwise float64 adds);
-// then every thread evaluates the two candidate splits of its bins
-// (bin b, b + blockDim.x, ...), and a block argmax with (score,
-// threshold) ordering picks each direction's winner. The (score,
-// threshold) order is total, so the winner does not depend on how the
-// bins are dealt to threads: a block of at least B threads (one bin
-// each, as split_scan.cu launches it) and a 256-thread block walking
-// 1024 bins find the same split.
+// ties). One scan is a chain of dependent steps inside one block, so
+// its time is that chain's length, not memory (a feature's 3 x B floats
+// are 12 KB at B = 1024). The chain, with three block barriers:
+//  1. the block loads the feature's contiguous 3 x B floats as 16-byte
+//     vectors into six padded planes, masked (load_planes) | barrier;
+//  2. a plane a warp (plane_prefix): the prefix sums in float64,
+//     rounded once per bin, in a fixed order that ops/split.py _cumsum
+//     repeats with elementwise float64 adds: lane s sums its 32-bin
+//     segment in bin order from 0.0 (keeping the 32 running sums in
+//     registers, or adding them again), a warp scan (warp_scan) of the
+//     segment totals gives each segment its exclusive offset, and each
+//     bin is its running sum plus that offset (ops/split.py names this
+//     order after block_prefix6, the two-pass block scan plane_prefix
+//     replaced; the adds are the same). No shared totals | barrier;
+//  3. every thread evaluates the two candidate splits of its bins (bin
+//     b, b + blockDim.x, ...), the gain algebra only where the candidate
+//     is valid (an invalid one scores -inf whatever its gain), and keeps
+//     its best as one 64-bit key (cand_key) with the left sums of that
+//     candidate; a warp's best by shuffles | barrier; warp 0 reduces the
+//     warps' keys and thread 0 writes the row.
+// The key orders (score, direction, threshold) totally, as the
+// reference's tie rules do, so the winner does not depend on how the
+// bins are dealt to threads: any block of a multiple of 32 threads finds
+// the same split (the standalone kernel runs the block size its wrapper
+// picks by measurement; the fused steps run 256 threads).
 //
 // The bin capacity kCap of the shared planes is a template parameter:
-// kMaxBins (256) keeps the u8 kernels' static footprint; kMaxScanBins
-// (1024) serves the u16 leaf layout from dynamic shared memory
-// (12 x 1024 floats do not fit the 48 KB static limit).
+// kMaxBins (256) for the u8 layouts, kMaxScanBins (1024) for the u16
+// leaf layout.
 #pragma once
 
 #include <math.h>
@@ -83,62 +97,68 @@ __device__ __forceinline__ float split_gains(float gl, float hl, float gr,
   return violates ? 0.f : gain;
 }
 
-// (score, t) total order; `last` prefers the larger t on equal scores
-__device__ __forceinline__ bool better(float sa, int ta, float sb, int tb,
-                                       bool last) {
-  if (sa != sb) return sa > sb;
-  return last ? ta > tb : ta < tb;
+// One candidate as a key whose unsigned order is the reference's: the
+// larger score first; on equal scores the right-to-left scan (minus)
+// before the left-to-right one, then the larger threshold for minus and
+// the smaller for plus. The high word is the score's bits made
+// monotone; a score is a gain above the shift (> 0) or -inf, never
+// -0.0 or NaN, so float equality and key equality agree. Key 0 loses
+// to every candidate (a thread without bins). t < 1024.
+__device__ __forceinline__ unsigned long long cand_key(float s, int t,
+                                                       bool minus) {
+  const unsigned u = __float_as_uint(s);
+  const unsigned hi = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  const unsigned lo = minus ? 0x800u | (unsigned)t : 0x3ffu - (unsigned)t;
+  return ((unsigned long long)hi << 32) | lo;
 }
 
-__device__ __forceinline__ void block_argmax(float s, int t, bool last,
-                                             float* red_s, int* red_t,
-                                             float* out_s, int* out_t) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+__device__ __forceinline__ float key_score(unsigned long long k) {
+  const unsigned hi = (unsigned)(k >> 32);
+  return __uint_as_float((hi & 0x80000000u) ? hi & 0x7fffffffu : ~hi);
+}
+
+__device__ __forceinline__ bool key_minus(unsigned long long k) {
+  return (k & 0x800u) != 0;
+}
+
+__device__ __forceinline__ int key_threshold(unsigned long long k) {
+  const unsigned lo = (unsigned)k & 0xfffu;
+  return key_minus(k) ? (int)(lo & 0x3ffu) : (int)(0x3ffu - lo);
+}
+
+// A candidate with its left sums (g, h + kEps, c).
+struct Cand {
+  unsigned long long key;
+  float lg, lh, lc;
+};
+
+__device__ __forceinline__ void keep_better(Cand& best, unsigned long long k,
+                                            float lg, float lh, float lc) {
+  if (k > best.key) best = Cand{k, lg, lh, lc};
+}
+
+// The warp's best candidate to every lane (keys are distinct).
+__device__ __forceinline__ Cand warp_best(Cand c) {
+#pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
-    const float s2 = __shfl_xor_sync(0xffffffffu, s, o);
-    const int t2 = __shfl_xor_sync(0xffffffffu, t, o);
-    if (better(s2, t2, s, t, last)) {
-      s = s2;
-      t = t2;
-    }
+    const unsigned long long k = __shfl_xor_sync(0xffffffffu, c.key, o);
+    const float g = __shfl_xor_sync(0xffffffffu, c.lg, o);
+    const float h = __shfl_xor_sync(0xffffffffu, c.lh, o);
+    const float n = __shfl_xor_sync(0xffffffffu, c.lc, o);
+    keep_better(c, k, g, h, n);
   }
-  if (lane == 0) {
-    red_s[warp] = s;
-    red_t[warp] = t;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float bs = red_s[0];
-    int bt = red_t[0];
-    for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
-      if (better(red_s[w], red_t[w], bs, bt, last)) {
-        bs = red_s[w];
-        bt = red_t[w];
-      }
-    *out_s = bs;
-    *out_t = bt;
-  }
-  __syncthreads();
+  return c;
 }
 
 // Bin b of a plane sits at pad(b): one float of padding per 32 bins, so
-// that threads walking 32-bin segments side by side (block_prefix6)
-// hit 32 different banks.
+// that lanes walking 32-bin segments side by side (plane_prefix) hit 32
+// different banks.
 __device__ __forceinline__ int pad(int b) { return b + (b >> 5); }
 
 template <int kCap>
 struct ScanSmem {
-  static_assert(kCap >= 128, "the segment offsets share lp's memory");
   float xs[6][kCap + kCap / 32];  // masked inputs, then prefix sums (pad)
-  union {
-    float lp[3][kCap];   // left sums of the +1 scan
-    double seg[6][32];   // block_prefix6's segment totals, then offsets
-  };
-  float lm[3][kCap];  // left sums of the -1 scan
-  float red_s[32];
-  int red_t[32];
-  float win_s[2];
-  int win_t[2];
+  Cand red[32];                   // each warp's best candidate
 };
 
 // Inclusive scan of x over the warp's lanes: lane i adds the value of
@@ -152,52 +172,6 @@ __device__ __forceinline__ double warp_scan(double x, int lane) {
   return x;
 }
 
-// The six planes sm.xs[0..6)[0, B) replaced by their prefix sums,
-// accumulated in double and rounded once per bin. The order is fixed,
-// so the result is bitwise repeatable and ops/split.py _cumsum (the
-// plain version) repeats it: the bins in 32-bin segments, each summed
-// in bin order by one thread from 0.0 (the last segment padded with
-// zeros), a warp scan (warp_scan) of each plane's segment totals, and
-// each bin's running sum plus its segment's exclusive offset (0.0 for
-// the first). blockDim.x is a multiple of 32.
-template <int kCap>
-__device__ __forceinline__ void block_prefix6(ScanSmem<kCap>& sm, int B) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int nseg = (B + 31) >> 5, ntask = 6 * nseg;
-  for (int pass = 0; pass < 2; ++pass) {
-    // pass 0 keeps each segment's total, pass 1 writes the prefixes;
-    // 8 bins' loads in flight at a time
-    for (int t = threadIdx.x; t < ntask; t += blockDim.x) {
-      const int c = t / nseg, sg = t % nseg, b0 = sg * 32;
-      float* xc = sm.xs[c] + pad(b0);
-      const double off = pass == 0 ? 0.0 : sm.seg[c][sg];
-      double acc = 0.0;
-      for (int i0 = 0; i0 < 32; i0 += 8) {
-        float x[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) x[i] = b0 + i0 + i < B ? xc[i0 + i] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          acc += (double)x[i];
-          if (pass == 1 && b0 + i0 + i < B) xc[i0 + i] = (float)(acc + off);
-        }
-      }
-      if (pass == 0) sm.seg[c][sg] = acc;
-    }
-    __syncthreads();
-    if (pass == 0) {
-      // exclusive offsets of the segments, one warp per plane
-      for (int c = warp; c < 6; c += nwarps) {
-        const double t = warp_scan(lane < nseg ? sm.seg[c][lane] : 0.0, lane);
-        const double ex = __shfl_up_sync(0xffffffffu, t, 1);
-        sm.seg[c][lane] = lane == 0 ? 0.0 : ex;
-      }
-      __syncthreads();
-    }
-  }
-}
-
 // Clock read i of a timed caller (kClock; thread 0 only).
 template <bool kClock>
 __device__ __forceinline__ void clock_at(unsigned long long* clk, int i) {
@@ -206,12 +180,112 @@ __device__ __forceinline__ void clock_at(unsigned long long* clk, int i) {
   }
 }
 
+// The feature's [B][3] floats at hist into the six planes, masked: planes
+// 0-2 are g, h, c with the zero-missing default bin (skip_bin) zeroed;
+// planes 3-5 also zero the NaN bin (na_bin), as the right-to-left scan
+// needs. The whole block loads the contiguous 3 * B floats as 16-byte
+// vectors (a scalar head up to the first 16-byte boundary and a scalar
+// tail), every load of a thread in flight before its stores; from L2:
+// a fused step's other blocks wrote this row in this launch.
+template <int kCap>
+__device__ __forceinline__ void load_planes(ScanSmem<kCap>& sm,
+                                            const float* hist, int B,
+                                            int skip_bin, int na_bin) {
+  const int n3 = 3 * B;
+  const int head = min(n3, (int)((16 - ((uintptr_t)hist & 15)) & 15) >> 2);
+  const int nvec = (n3 - head) >> 2;
+  auto put = [&](int e, float x) {
+    const int b = e / 3, ch = e - 3 * b, pb = pad(b);
+    const float xm = b == skip_bin ? 0.f : x;
+    sm.xs[ch][pb] = xm;
+    sm.xs[3 + ch][pb] = b == na_bin ? 0.f : xm;
+  };
+  for (int e = threadIdx.x; e < head; e += blockDim.x)
+    put(e, __ldcg(hist + e));
+  for (int e = head + 4 * nvec + threadIdx.x; e < n3; e += blockDim.x)
+    put(e, __ldcg(hist + e));
+  const float4* hv = reinterpret_cast<const float4*>(hist + head);
+  for (int j0 = threadIdx.x; j0 < nvec; j0 += 4 * blockDim.x) {
+    float4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + u * blockDim.x;
+      if (j < nvec) v[u] = __ldcg(hv + j);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + u * blockDim.x;
+      if (j < nvec) {
+        const int e = head + 4 * j;
+        put(e, v[u].x);
+        put(e + 1, v[u].y);
+        put(e + 2, v[u].z);
+        put(e + 3, v[u].w);
+      }
+    }
+  }
+}
+
+// Plane c of sm.xs replaced by its prefix sums, by one whole warp (see
+// the note at the top); the bins past B read as zeros. kHold keeps a
+// segment's 32 running sums in registers (64 of them); without it a
+// lane adds its segment again after the warp scan, the same adds in the
+// same order, for a kernel whose other phases need the registers. The
+// segment's floats are read from shared memory 8 at a time, so the
+// chain is the float64 adds and not the loads.
+template <int kCap, bool kHold>
+__device__ __forceinline__ void plane_prefix(ScanSmem<kCap>& sm, int B,
+                                             int c) {
+  const int lane = threadIdx.x & 31;
+  const int b0 = lane * 32;
+  float* seg = sm.xs[c] + lane * 33;  // = pad(b0)
+  double run[kHold ? 32 : 1];
+  double acc = 0.0;
+#pragma unroll
+  for (int i0 = 0; i0 < 32; i0 += 8) {
+    float x[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = b0 + i0 + i < B ? seg[i0 + i] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      acc += (double)x[i];
+      if constexpr (kHold) run[i0 + i] = acc;
+    }
+  }
+  const double incl = warp_scan(acc, lane);
+  const double ex = __shfl_up_sync(0xffffffffu, incl, 1);
+  const double off = lane == 0 ? 0.0 : ex;
+  if (b0 >= B) return;
+  acc = 0.0;
+#pragma unroll
+  for (int i0 = 0; i0 < 32; i0 += 8) {
+    float x[8];
+    if constexpr (!kHold) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) x[i] = b0 + i0 + i < B ? seg[i0 + i] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if constexpr (kHold) {
+        acc = run[i0 + i];
+      } else {
+        acc += (double)x[i];
+      }
+      if (b0 + i0 + i < B) seg[i0 + i] = (float)(acc + off);
+    }
+  }
+}
+
 // One (leaf, feature) row of the [K, F, 8] table (score, threshold,
-// left g/h(+kEps)/c, default_left, left and right output) into o.
-// blockDim.x is a multiple of 32; B <= kCap. hist points at the
-// feature's [B][3] planes. With kClock, thread 0 writes clock64 to
-// clk[0, 5): entry, planes loaded, prefix sums, candidates, end.
-template <int kCap, bool kClock = false>
+// left g/h(+kEps)/c, default_left, left and right output) into o,
+// written by thread 0. blockDim.x is a multiple of 32; B <= kCap. hist
+// points at the feature's [B][3] planes. The block may call it again at
+// once with the same sm (the fused steps' loop over features): the
+// next call's loads follow this call's second barrier, after which no
+// thread reads the planes. kHold: plane_prefix. With kClock, thread 0
+// writes clock64 to clk[0, 5): entry, planes loaded, prefix sums (each
+// after its barrier), its candidates, end.
+template <int kCap, bool kClock = false, bool kHold = false>
 __device__ __forceinline__ void scan_feature(const float* hist, int B,
                                              const Leaf& L, int nb, int miss,
                                              int defbin, int mono,
@@ -223,106 +297,90 @@ __device__ __forceinline__ void scan_feature(const float* hist, int B,
   clock_at<kClock>(clk, 0);
   const bool two_scan = miss != 0 && nb > 2;
   const bool na_excl = two_scan && miss == LTT_MISSING_NAN;
-  for (int b = threadIdx.x; b < B; b += blockDim.x) {
-    const bool skip_default = two_scan && miss == LTT_MISSING_ZERO &&
-                              b == defbin;
-    const bool is_na_bin = na_excl && b == nb - 1;
-    for (int ch = 0; ch < 3; ++ch) {
-      // from L2: a fused step's other blocks wrote this row in this launch
-      const float x = __ldcg(hist + b * 3 + ch);
-      sm.xs[ch][pad(b)] = skip_default ? 0.f : x;
-      sm.xs[3 + ch][pad(b)] = (skip_default || is_na_bin) ? 0.f : x;
-    }
-  }
+  const bool zero_miss = two_scan && miss == LTT_MISSING_ZERO;
+  const int skip_bin = zero_miss ? defbin : -1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  load_planes(sm, hist, B, skip_bin, na_excl ? nb - 1 : -1);
   __syncthreads();
   clock_at<kClock>(clk, 1);
-  block_prefix6(sm, B);
+  for (int c = warp; c < 6; c += nwarps) plane_prefix<kCap, kHold>(sm, B, c);
+  __syncthreads();
   clock_at<kClock>(clk, 2);
 
   const float ph_eps = L.ph + 2e-15f;
   const float gain_shift = gain_given(L.pg, ph_eps, out_nc(L.pg, ph_eps, p), p);
   const float min_gain_shift = gain_shift + p.min_gain;
-  // each thread's best of its bins per direction; the initial
-  // thresholds lose every tie, as a padding thread's do
-  float best_m = -INFINITY, best_p = -INFINITY;
-  int t_m = -1, t_p = 0x7fffffff;
+  const int plast = pad(B - 1);
+  const float tg = sm.xs[3][plast], th = sm.xs[4][plast],
+              tc = sm.xs[5][plast];
+  Cand best{0ull, 0.f, 0.f, 0.f};
   for (int b = threadIdx.x; b < B; b += blockDim.x) {
-    const bool skip_default = two_scan && miss == LTT_MISSING_ZERO &&
-                              b == defbin;
-    float score_p = -INFINITY, score_m = -INFINITY;
+    const int pb = pad(b);
     // ---- dir=+1: left-to-right; default/NaN implicitly go right
-    const int pb = pad(b), plast = pad(B - 1);
-    const float lg_p = sm.xs[0][pb];
-    const float hl_p = sm.xs[1][pb] + kEps;
-    const float lc_p = sm.xs[2][pb];
-    const float hr_p = ph_eps - hl_p;
-    const float gr_p = L.pg - lg_p;
-    const float cr_p = L.pc - lc_p;
-    const bool valid_p = two_scan && b <= nb - 2 && !skip_default &&
-                         lc_p >= p.min_data && cr_p >= p.min_data &&
-                         hl_p >= p.min_hess && hr_p >= p.min_hess;
-    const float gains_p =
-        split_gains(lg_p, hl_p, gr_p, hr_p, mono, p, L.cmin, L.cmax);
-    if (valid_p && gains_p > min_gain_shift) score_p = gains_p;
-    sm.lp[0][b] = lg_p;
-    sm.lp[1][b] = hl_p;
-    sm.lp[2][b] = lc_p;
-
-    // ---- dir=-1: right-to-left; default/NaN implicitly go left
-    const float rg_m = sm.xs[3][plast] - sm.xs[3][pb];
-    const float hr_m = (sm.xs[4][plast] - sm.xs[4][pb]) + kEps;
-    const float rc_m = sm.xs[5][plast] - sm.xs[5][pb];
-    const float gl_m = L.pg - rg_m;
-    const float hl_m = ph_eps - hr_m;
-    const float cl_m = L.pc - rc_m;
-    bool valid_m = b <= nb - 2 - (na_excl ? 1 : 0);
-    valid_m = valid_m &&
-              !(two_scan && miss == LTT_MISSING_ZERO && b == defbin - 1);
-    valid_m = valid_m && cl_m >= p.min_data && rc_m >= p.min_data &&
-              hl_m >= p.min_hess && hr_m >= p.min_hess;
-    const float gains_m =
-        split_gains(gl_m, hl_m, rg_m, hr_m, mono, p, L.cmin, L.cmax);
-    if (valid_m && gains_m > min_gain_shift) score_m = gains_m;
-    sm.lm[0][b] = gl_m;
-    sm.lm[1][b] = hl_m;
-    sm.lm[2][b] = cl_m;
-    if (better(score_m, b, best_m, t_m, true)) {
-      best_m = score_m;
-      t_m = b;
+    {
+      const float lg = sm.xs[0][pb];
+      const float hl = sm.xs[1][pb] + kEps;
+      const float lc = sm.xs[2][pb];
+      const float hr = ph_eps - hl;
+      const float gr = L.pg - lg;
+      const float cr = L.pc - lc;
+      const bool valid = two_scan && b <= nb - 2 && b != skip_bin &&
+                         lc >= p.min_data && cr >= p.min_data &&
+                         hl >= p.min_hess && hr >= p.min_hess;
+      float score = -INFINITY;
+      if (valid) {
+        const float gains =
+            split_gains(lg, hl, gr, hr, mono, p, L.cmin, L.cmax);
+        if (gains > min_gain_shift) score = gains;
+      }
+      keep_better(best, cand_key(score, b, false), lg, hl, lc);
     }
-    if (better(score_p, b, best_p, t_p, false)) {
-      best_p = score_p;
-      t_p = b;
+    // ---- dir=-1: right-to-left; default/NaN implicitly go left
+    {
+      const float rg = tg - sm.xs[3][pb];
+      const float hr = (th - sm.xs[4][pb]) + kEps;
+      const float rc = tc - sm.xs[5][pb];
+      const float gl = L.pg - rg;
+      const float hl = ph_eps - hr;
+      const float cl = L.pc - rc;
+      const bool valid = b <= nb - 2 - (na_excl ? 1 : 0) &&
+                         !(zero_miss && b == defbin - 1) &&
+                         cl >= p.min_data && rc >= p.min_data &&
+                         hl >= p.min_hess && hr >= p.min_hess;
+      float score = -INFINITY;
+      if (valid) {
+        const float gains =
+            split_gains(gl, hl, rg, hr, mono, p, L.cmin, L.cmax);
+        if (gains > min_gain_shift) score = gains;
+      }
+      keep_better(best, cand_key(score, b, true), gl, hl, cl);
     }
   }
   clock_at<kClock>(clk, 3);
-  block_argmax(best_m, t_m, true, sm.red_s, sm.red_t, &sm.win_s[0],
-               &sm.win_t[0]);
-  block_argmax(best_p, t_p, false, sm.red_s, sm.red_t, &sm.win_s[1],
-               &sm.win_t[1]);
-
-  if (threadIdx.x == 0) {
-    const float v_m = sm.win_s[0], v_p = sm.win_s[1];
-    const bool use_m = v_m >= v_p;
-    const float feat_gain = use_m ? v_m : v_p;
-    const int t = use_m ? sm.win_t[0] : sm.win_t[1];
-    const float lg = use_m ? sm.lm[0][t] : sm.lp[0][t];
-    const float lh = use_m ? sm.lm[1][t] : sm.lp[1][t];
-    const float lc = use_m ? sm.lm[2][t] : sm.lp[2][t];
+  best = warp_best(best);
+  if (lane == 0) sm.red[warp] = best;
+  __syncthreads();
+  if (warp != 0) return;
+  best = lane < nwarps ? sm.red[lane] : Cand{0ull, 0.f, 0.f, 0.f};
+  best = warp_best(best);
+  if (lane == 0) {
+    const bool use_m = key_minus(best.key);
+    const float feat_gain = key_score(best.key);
+    const int t = key_threshold(best.key);
     const bool valid = isfinite(feat_gain) && fmask > 0.f;
     const float score =
         valid ? (feat_gain - min_gain_shift) * penalty : -INFINITY;
     const bool dleft = use_m && !(nb <= 2 && miss == LTT_MISSING_NAN);
     o[0] = score;
     o[1] = (float)t;
-    o[2] = lg;
-    o[3] = lh;
-    o[4] = lc;
+    o[2] = best.lg;
+    o[3] = best.lh;
+    o[4] = best.lc;
     o[5] = dleft ? 1.f : 0.f;
-    o[6] = out_c(lg, lh, p, L.cmin, L.cmax);
-    o[7] = out_c(L.pg - lg, ph_eps - lh, p, L.cmin, L.cmax);
+    o[6] = out_c(best.lg, best.lh, p, L.cmin, L.cmax);
+    o[7] = out_c(L.pg - best.lg, ph_eps - best.lh, p, L.cmin, L.cmax);
   }
-  __syncthreads();  // the shared planes are reused by the next call
   clock_at<kClock>(clk, 4);
 }
 

@@ -450,6 +450,8 @@ split_step_kernel(Args a) {
     const float* h = a.hist + ((c == 0 ? idx_a : idx_b) * (size_t)F + f) *
                                   B * 3;
     const int* mf = a.imeta + f * ltt::IM_COLS;
+    // the running sums added again (no kHold): holding them spilled this
+    // kernel's registers (216 bytes of stack against 96) and was slower
     ltt::scan_feature(h, B, c == 0 ? q.a : q.b, mf[ltt::IM_NBINS],
                       mf[ltt::IM_MISS], mf[ltt::IM_DEFBIN], mf[ltt::IM_MONO],
                       a.fmeta[f * 2 + 0], a.fmeta[f * 2 + 1], a.p, scan_sm,

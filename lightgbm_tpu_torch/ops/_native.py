@@ -57,13 +57,17 @@ _SIGNATURES = {
     # mat, stride, pay_off, seg, F, B, max_chunks, partial, out, stream
     "ltt_hist_segment": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
     # mat, ws, stride, begin, count, feat, thr, dleft, miss, defbin,
-    # nbins, use_lut, lut, block_buf, seg_out, stream
+    # nbins, use_lut, lut, scratch, epoch, seg_out, stream
     "ltt_partition_segment": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _P, _P, _P, _P],
+                              _I, _P, _P, _I, _P, _P],
     # K, F, B, hist0, hist1, leaf scalars (2 x pg ph pc cmin cmax),
-    # imeta, fmeta, l1, l2, mds, min_data, min_hess, min_gain, out, stream
+    # imeta, fmeta, l1, l2, mds, min_data, min_hess, min_gain, threads,
+    # out, stream
     "ltt_split_scan": [_I, _I, _I, _P, _P] + [_F] * 10
-    + [_P, _P] + [_F] * 6 + [_P, _P],
+    + [_P, _P] + [_F] * 6 + [_I, _P, _P],
+    # the same, then times (u64 [K, F, 5]) before the stream
+    "ltt_split_scan_timed": [_I, _I, _I, _P, _P] + [_F] * 10
+    + [_P, _P] + [_F] * 6 + [_I, _P, _P, _P],
     # k, S, T, mat, ws, stride, pay_off, hist, imeta, fmeta, partial,
     # tiles, counts, table, done, L, F, B, grid_cap, has_monotone,
     # max_depth, l1, l2, mds, min_data, min_hess, min_gain, stream

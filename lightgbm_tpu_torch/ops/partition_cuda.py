@@ -1,8 +1,11 @@
 """Stable in-place segment partition (port of
 ``lightgbm_tpu/ops/partition_pallas.py``).
 
-``partition_segment`` launches ``csrc/partition_segment.cu`` for a CUDA
-matrix and runs ``partition_segment_plain`` for a CPU one. Both reorder
+``partition_segment`` launches ``csrc/partition_segment.cu`` (two
+kernels: a stable compaction into the workspace with decoupled
+look-back, lefts from the front and rights from the back in reverse,
+then the copy back) for a CUDA matrix and runs
+``partition_segment_plain`` for a CPU one. Both reorder
 rows [begin, begin+count) so the left rows come first, each side in its
 original order, and return the child segments as an int32 [4] tensor
 ``(begin, NL, begin + NL, count - NL)`` on the matrix's device (the NL
@@ -17,7 +20,31 @@ import torch
 from . import _native
 from .partition import rows_go_left
 
-PART_THREADS = 256   # rows per block; must match kThreads in the .cu
+# rows a tile of the segment fused step's workspace partition
+# (csrc/partition_core.cuh kPartRows, one row a thread)
+PART_THREADS = 256
+
+# rows a tile of the compaction takes: kTileRows of
+# csrc/partition_segment.cu (kThreads x kItems)
+TILE_ROWS = 1024
+
+# per device: [the u64 scratch (word 0 the tile counter, then one state a
+# tile), the epoch of its last call]
+_SCRATCH: dict = {}
+
+
+def _scratch(device, count: int):
+    """The device's partition scratch, grown to ``count`` rows' tiles,
+    and the next call's epoch (1 .. 2^30 - 1; a tile's state carries
+    its call's epoch, so the states need no reset between calls)."""
+    tiles = max(1, -(-count // TILE_ROWS))
+    entry = _SCRATCH.get(device)
+    if entry is None or entry[0].numel() < 1 + tiles:
+        entry = [torch.zeros((1 + tiles,), dtype=torch.int64,
+                             device=device), 0]
+        _SCRATCH[device] = entry
+    entry[1] = entry[1] % ((1 << 30) - 1) + 1
+    return entry[0], entry[1]
 
 
 def bitset_to_lut(cat_bitset) -> torch.Tensor:
@@ -86,15 +113,13 @@ def partition_segment(mat: torch.Tensor, ws: torch.Tensor, begin: int,
     else:
         lut = mat  # never read
     lib = _native.library()
-    nblk = -(-count // PART_THREADS)
-    block_buf = torch.empty((max(nblk, 1),), dtype=torch.int32,
-                            device=mat.device)
+    scratch, epoch = _scratch(mat.device, count)
     seg = torch.empty((4,), dtype=torch.int32, device=mat.device)
     err = lib.ltt_partition_segment(
         mat.data_ptr(), ws.data_ptr(), cols, begin, count, int(feat),
         int(thr), int(bool(default_left)), int(missing_code),
         int(default_bin), int(num_bins_f), int(bool(is_cat)),
-        lut.data_ptr(), block_buf.data_ptr(), seg.data_ptr(),
+        lut.data_ptr(), scratch.data_ptr(), epoch, seg.data_ptr(),
         _native.stream_of(mat))
     _native.LAUNCHES["partition_segment"] += 1
     _native.check(err, "partition_segment")

@@ -109,9 +109,8 @@ def test_scan_kernel_matches_plain(mat):
     params = sp.SplitParams(0.0, 1.0, 0.0, 20.0, 1e-3, 0.0, True)
     k = sc.per_feature_numerical_cuda(hists, leaves, meta_t, params)
     p = sc.per_feature_numerical_plain(hists, leaves, meta_t, params)
-    np.testing.assert_allclose(k.cpu().numpy(), p.cpu().numpy(),
-                               rtol=1e-5, atol=1e-6)
     assert torch.equal(k[..., sp.O_THR], p[..., sp.O_THR])
+    assert _same_bytes(k, p)
 
 
 def _matrix(dev, n, f, b, seed, block=None):
@@ -576,3 +575,201 @@ def test_hist_rows_kernel_matches_loop_model(dev, b, case):
     assert out.cpu().numpy().tobytes() == want.tobytes()
     if case.startswith("crowded"):
         assert float(out[0, b - 1, 2]) == float(ghc[rows, 2].sum())
+
+
+def _scan_inputs(dev, b, f=10, seed=5, empty=None):
+    """Two children's [f, b, 3] histograms of random bins; ``empty``: a
+    bin range no row falls in (candidates there tie)."""
+    from lightgbm_tpu_torch.ops.histogram import build_histogram
+    n = 40_000
+    g = torch.Generator(device=dev).manual_seed(seed)
+    binned = torch.randint(0, b, (n, f), generator=g, device=dev)
+    if empty is not None:
+        lo, hi = empty
+        binned = torch.where((binned >= lo) & (binned < hi),
+                             binned - lo, binned)
+    ghc = torch.stack([torch.randn(n, generator=g, device=dev)
+                       + (binned[:, 0] > b // 2).float()
+                       - 0.5 * (binned[:, 1] > b // 3).float(),
+                       torch.rand(n, generator=g, device=dev) + 0.1,
+                       torch.ones(n, device=dev)], dim=1)
+    return [build_histogram(binned[:n // 3], ghc[:n // 3], b),
+            build_histogram(binned[n // 3:], ghc[n // 3:], b)]
+
+
+def _scan_meta(b, f, default_bin, monotone=None, nbins=None):
+    from lightgbm_tpu_torch.ops import split as sp
+    return sp.FeatureMeta(
+        num_bins=np.full(f, b, np.int32) if nbins is None
+        else np.asarray(nbins, np.int32),
+        missing=(np.arange(f) % 3).astype(np.int32),
+        default_bin=np.full(f, default_bin, np.int32),
+        most_freq_bin=np.zeros(f, np.int32),
+        monotone=np.zeros(f, np.int32) if monotone is None
+        else np.asarray(monotone, np.int32),
+        penalty=np.linspace(0.5, 1.5, f).astype(np.float32),
+        is_categorical=np.zeros(f, bool))
+
+
+@pytest.mark.parametrize("case,b", [
+    ("one_leaf", 255), ("one_leaf", 1023),
+    ("regularized", 255), ("regularized", 1023),
+    ("ties", 255), ("ties", 1023),
+    ("all_invalid", 255), ("all_invalid", 1023),
+])
+def test_scan_kernel_cases(dev, case, b):
+    """The scan kernel against its plain version, every column of the
+    [K, F, 8] table bitwise: one leaf (K = 1); L1 + max_delta_step +
+    monotone bounds + a masked feature; ties (an empty bin range, so
+    neighbouring thresholds of a direction and the two directions score
+    the same: the right-to-left scan wins with its largest threshold);
+    and features none of whose candidates is valid (min_data past the
+    leaf; a 2-bin NaN feature), whose rows still match."""
+    from lightgbm_tpu_torch.ops import split as sp
+    from lightgbm_tpu_torch.ops import split_scan_cuda as sc
+    f = 10
+    hists = _scan_inputs(dev, b, f, empty=(b // 4, b // 2)
+                         if case == "ties" else None)
+    leaves = [tuple(h[0].sum(0).cpu().numpy()) + (-np.inf, np.inf)
+              for h in hists]
+    meta = _scan_meta(b, f, b // 3)
+    params = sp.SplitParams(0.0, 1.0, 0.0, 20.0, 1e-3, 0.0, True)
+    mask = None
+    if case == "one_leaf":
+        hists, leaves = hists[:1], leaves[:1]
+    elif case == "regularized":
+        meta = _scan_meta(b, f, b // 3, monotone=[(i % 4 == 0) -
+                                                  (i % 3 == 0)
+                                                  for i in range(f)])
+        params = sp.SplitParams(0.5, 1.0, 0.7, 20.0, 1e-3, 0.0, True)
+        leaves[1] = leaves[1][:3] + (np.float32(-0.05), np.float32(0.05))
+        mask = np.ones(f, bool)
+        mask[4] = False
+    elif case == "ties":
+        meta = _scan_meta(b, f, b // 4 + 3)   # zero-missing: an empty bin
+    elif case == "all_invalid":
+        nbins = np.full(f, b, np.int32)
+        nbins[2] = 2                          # NaN-missing, 2 bins
+        meta = _scan_meta(b, f, b // 3, nbins=nbins)
+        params = sp.SplitParams(0.0, 1.0, 0.0, 1e9, 1e-3, 0.0, True)
+    meta_t = sp.meta_tensors(meta, dev, mask)
+    k = sc.per_feature_numerical_cuda(hists, leaves, meta_t, params)
+    p = sc.per_feature_numerical_plain(hists, leaves, meta_t, params)
+    assert k.shape == (len(hists), f, 8)
+    assert _same_bytes(k, p)
+    finite = torch.isfinite(k[..., sp.O_SCORE])
+    if case == "all_invalid":
+        assert not bool(finite.any())
+    else:
+        assert bool(finite.any())
+
+
+@pytest.mark.parametrize("b", [33, 255, 1023])
+@pytest.mark.parametrize("threads", [32, 64, 192, 512])
+def test_scan_kernel_any_block_size(dev, b, threads):
+    """The winner does not depend on how the bins are dealt to threads:
+    any block size gives the plain version's bytes (fewer than six
+    warps take several planes each)."""
+    from lightgbm_tpu_torch.ops import split as sp
+    from lightgbm_tpu_torch.ops import split_scan_cuda as sc
+    f = 10
+    hists = _scan_inputs(dev, b, f, seed=b)
+    leaves = [tuple(h[0].sum(0).cpu().numpy()) + (-np.inf, np.inf)
+              for h in hists]
+    meta_t = sp.meta_tensors(_scan_meta(b, f, b // 3), dev)
+    params = sp.SplitParams(0.0, 1.0, 0.0, 20.0, 1e-3, 0.0, True)
+    k = sc.per_feature_numerical_cuda(hists, leaves, meta_t, params,
+                                      threads=threads)
+    p = sc.per_feature_numerical_plain(hists, leaves, meta_t, params)
+    assert _same_bytes(k, p)
+    times = torch.zeros((2, f, 5), dtype=torch.int64, device=dev)
+    timed = sc.per_feature_numerical_cuda(hists, leaves, meta_t, params,
+                                          threads=threads, times=times)
+    assert _same_bytes(timed, p)
+    t = times.cpu().numpy()
+    assert (np.diff(t, axis=-1) >= 0).all() and (t[..., 0] > 0).all()
+
+
+def _partition_pair(m, begin, count, args, lut):
+    """The kernel and the plain version on copies of ``m``: both
+    matrices and both segment tensors bitwise equal."""
+    from lightgbm_tpu_torch.ops import partition_cuda as pc
+    m1, m2 = m.clone(), m.clone()
+    feat, thr, dl, miss, dbin, nbins, is_cat = args
+    s1 = pc.partition_segment(m1, torch.empty_like(m1), begin, count, feat,
+                              thr, dl, miss, dbin, nbins, is_cat, lut)
+    s2 = pc.partition_segment_plain(m2, None, begin, count, feat, thr, dl,
+                                    miss, dbin, nbins, is_cat, lut)
+    torch.cuda.synchronize()
+    assert torch.equal(s1, s2), (s1.tolist(), s2.tolist())
+    assert _same_bytes(m1, m2)
+    return m1, s1
+
+
+PARTITION_EDGES = {  # (n, begin, count, (feat, thr, dl, miss, dbin, B, cat))
+    "one_row": (4_000, 0, 1, (2, 100, 0, 0, 0, B, False)),
+    "tile_255": (4_000, 0, 255, (2, 100, 0, 0, 0, B, False)),
+    "tile_256": (4_000, 0, 256, (2, 100, 1, 1, 60, B, False)),
+    "tile_257": (4_000, 0, 257, (2, 100, 0, 2, 0, B, False)),
+    "tiles_1023_1024_1025": (4_000, 0, 3_073, (3, 128, 1, 2, 0, B, False)),
+    "begin_one_row": (4_000, 1_001, 1, (2, 100, 0, 0, 0, B, False)),
+    "begin_257": (4_000, 1_001, 257, (2, 100, 0, 1, 99, B, False)),
+    "all_left": (20_000, 17, 19_000, (4, B - 1, 0, 0, 0, B, False)),
+    "all_right": (20_000, 17, 19_000, (4, -1, 0, 0, 0, B, False)),
+    "lut": (20_000, 3, 19_990, (5, 0, 0, 0, 0, B, True)),
+    "empty": (4_000, 77, 0, (2, 100, 0, 0, 0, B, False)),
+    "two_million": (2_003_000, 2_999, 2_000_000,
+                    (6, 120, 1, 1, 64, B, False)),
+    # 64- and 80-byte rows (4 and 5 vectors a row in the warps' copy)
+    "rows_64": (20_000, 9, 19_000, (33, 100, 0, 2, 0, B, False)),
+    "rows_80": (20_000, 9, 19_000, (50, 100, 1, 1, 30, B, False)),
+}
+PARTITION_FEATURES = {"two_million": 28, "rows_64": 40, "rows_80": 60}
+
+
+@pytest.mark.parametrize("case", list(PARTITION_EDGES))
+def test_partition_kernel_edges(dev, case):
+    """The partition at its tiles' and look-back's edges (counts 1, 255,
+    256, 257, three tiles and one row, 2M rows; a nonzero begin; all
+    rows left, all right; the LUT; an empty segment; rows of 32, 48, 64
+    and 80 bytes): the matrix and the segment tensor bitwise the plain
+    version's."""
+    from lightgbm_tpu_torch.ops import partition_cuda as pc
+    n, begin, count, args = PARTITION_EDGES[case]
+    f = PARTITION_FEATURES.get(case, F)
+    m = _matrix(dev, n, f, B, 11)
+    assert m.shape[1] == {28: 48, 40: 64, 60: 80}.get(f, 32)
+    bits = np.zeros(8, np.uint32)
+    bits[0], bits[3] = 0x0F0F0F0F, 0x80000001
+    _partition_pair(m, begin, count, args, pc.bitset_to_lut(bits).to(dev))
+
+
+def test_partition_kernel_reuses_its_scratch(dev):
+    """Calls in a row on one scratch (the tile states carry each call's
+    epoch; the copy back resets the tile counter): each matches the
+    plain version, the scratch is not reallocated, its counter is 0
+    after every call, and a call is two kernel launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightgbm_tpu_torch.ops import partition_cuda as pc
+    m = _matrix(dev, 50_000, F, B, 12)
+    _partition_pair(m, 0, 50_000, (1, 60, 0, 0, 0, B, False), None)
+    scratch = pc._SCRATCH[m.device][0]
+    ptr = scratch.data_ptr()
+    m2, _ = _partition_pair(m, 0, 50_000, (1, 60, 0, 0, 0, B, False), None)
+    # the children of that split, split again on another feature
+    m3, seg = _partition_pair(m2, 0, 30_000, (2, 200, 1, 1, 7, B, False),
+                              None)
+    _partition_pair(m3, int(seg[2]), 50_000 - int(seg[2]),
+                    (3, 10, 0, 2, 0, B, False), None)
+    assert pc._SCRATCH[m.device][0].data_ptr() == ptr
+    assert int(scratch[0]) == 0
+    ws = torch.empty_like(m)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pc.partition_segment(m.clone(), ws, 0, 50_000, 1, 60, 0, 0, 0, B,
+                             False)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "part_" in e.name]
+    assert len(names) == 2, names

@@ -227,7 +227,7 @@ def test_argmax_tie_rules():
 
 
 def _blocked_prefix_reference(x: np.ndarray) -> np.ndarray:
-    """The kernel's prefix order (``csrc/scan_core.cuh:block_prefix6``)
+    """The kernel's prefix order (``csrc/scan_core.cuh:plane_prefix``)
     written bin by bin: float64, 32-bin segments each summed in bin
     order from 0.0, a Kogge-Stone scan over the segment totals (step o =
     1, 2, 4, 8, 16: lane i adds lane i - o's value from before the
@@ -269,3 +269,41 @@ def test_plain_prefix_sums_follow_the_kernel_order(b):
             assert got[i, j].tobytes() == ref.tobytes()
     seq = np.cumsum(x.astype(np.float64), axis=-1).astype(np.float32)
     np.testing.assert_allclose(got, seq, rtol=2 ** -23, atol=0)
+
+
+def _cand_key(score: np.float32, t: int, minus: bool) -> int:
+    """``csrc/scan_core.cuh:cand_key``: the score's bits made monotone
+    above, the direction and threshold below."""
+    u = int(np.float32(score).view(np.uint32))
+    hi = (~u & 0xFFFFFFFF) if u & 0x80000000 else (u | 0x80000000)
+    lo = (0x800 | t) if minus else (0x3FF - t)
+    return (hi << 32) | lo
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("b", [1, 2, 7, 64, 1024])
+def test_one_key_argmax_follows_the_tie_rules(seed, b):
+    """The scan kernel reduces both directions' candidates to one
+    winner by the largest ``cand_key``; that is the plain version's
+    rule: the right-to-left scan's last argmax, the left-to-right
+    scan's first, and right-to-left on equal scores (all -inf
+    included). Scores come from a few values, so ties are common."""
+    rng = np.random.RandomState(seed * 1031 + b)
+    vals = np.asarray([-np.inf, 0.25, 0.5, 3.0], np.float32)
+    sm = vals[rng.randint(0, len(vals), b)]
+    sp = vals[rng.randint(0, len(vals), b)]
+    if seed == 0:
+        sm[:] = sp[:] = -np.inf
+    keys = [_cand_key(sm[t], t, True) for t in range(b)] \
+        + [_cand_key(sp[t], t, False) for t in range(b)]
+    win = max(keys)
+    minus = bool(win & 0x800)
+    t = (win & 0x3FF) if minus else 0x3FF - (win & 0xFFF)
+    tm = tsplit._argmax_last(torch.from_numpy(sm)[None], 1).item()
+    tp = tsplit._argmax_first(torch.from_numpy(sp)[None], 1).item()
+    use_m = sm[tm] >= sp[tp]
+    assert minus == use_m
+    assert t == (tm if use_m else tp)
+    score = np.uint32((win >> 32) & 0x7FFFFFFF) if win >> 63 \
+        else np.uint32(~(win >> 32) & 0xFFFFFFFF)
+    assert score.view(np.float32) == (sm[tm] if use_m else sp[tp])
