@@ -61,7 +61,7 @@ import subprocess
 import sys
 import time
 
-from chip_smoke import device_us, higgs_like, merged_us
+from chip_smoke import KERNEL_NAMES, device_us, higgs_like, merged_us
 
 
 PATHS = {"fused": {"max_bin": 255},
@@ -129,12 +129,8 @@ def profile_path(path: str, ds, trees: int) -> str:
 
 
 # which wrapper launches a CUDA kernel, by a part of its name
-KERNEL_OF = (("part_", "partition_segment"),
-             ("split_scan_kernel", "split_scan"),
-             ("hist_partial", "hist_segment"), ("hist_reduce", "hist_segment"),
-             ("hist_rows", "hist_rows"),
-             ("split_step_leaf", "fused_split_step_leaf"),
-             ("split_step_kernel", "fused_split_step_segment"))
+KERNEL_OF = tuple((part, name) for name, parts in KERNEL_NAMES.items()
+                  for part in parts)
 
 
 def per_wrapper(prof, launches: dict) -> str:
@@ -554,14 +550,13 @@ def scan_phases(sets) -> str:
     """The standalone scan kernel on two children's [28, B, 3] histograms
     of the 2M-row matrices (a third of the rows and the rest) at max_bin
     255 and 1023: the mean device time of 100 launches (profiler) at the
-    default block size and, where the wrapper takes them, at other block
-    sizes; then one launch of the timed build (``times=``): each
-    block's thread 0 reads clock64 at scan_feature's five points, printed
-    as mean cycles of each sub-phase over the blocks, and us at the SM
-    clock nvidia-smi reads just after. A tree without the timed build
-    (a parent) prints the default launch time only."""
-    import inspect
-
+    kernel's own block size and, through the profiling entry
+    (``per_feature_numerical_profile``), at other block sizes; then one
+    launch of its timed build (``times=``): each block's thread 0 reads
+    clock64 at scan_feature's five points, printed as mean cycles of
+    each sub-phase over the blocks, and us at the SM clock nvidia-smi
+    reads just after. A tree without the profiling entry (a parent)
+    prints the default launch time only."""
     import numpy as np
     import torch
 
@@ -576,7 +571,7 @@ def scan_phases(sets) -> str:
     gen = torch.Generator(device=dev).manual_seed(7)
     ghc = make_ghc(torch.randn(n, generator=gen, device=dev),
                    torch.rand(n, generator=gen, device=dev) * 0.25 + 1e-3)
-    takes = inspect.signature(sc.per_feature_numerical_cuda).parameters
+    profiled = getattr(sc, "per_feature_numerical_profile", None)
     lines = []
     for mb in (255, 1023):
         cfg = lt.Config.from_params({"objective": "binary", "max_bin": mb,
@@ -596,21 +591,23 @@ def scan_phases(sets) -> str:
         params = split_params_from_config(cfg, any_missing=False)
         f = hists[0].shape[0]
 
-        def launch(**kw):
+        def launch():
             return sc.per_feature_numerical_cuda(hists, leaves, meta_t,
-                                                 params, tables, **kw)
+                                                 params, tables)
+
+        def profile(**kw):
+            return profiled(hists, leaves, meta_t, params, tables, **kw)
         line = (f"[scan phases] B {b}, K 2, F {f}: device us a launch "
                 f"(profiler, 100 launches): default block "
                 f"{device_us(launch, 100, 'split_scan_kernel'):.2f}")
-        if "threads" in takes:
-            line += f" ({sc.scan_threads(b)} threads); by block size:"
+        if profiled is not None:
+            line += "; by block size:"
             for threads in (64, 128, 192, 256, 384, 512):
-                us = device_us(lambda: launch(threads=threads), 100,
+                us = device_us(lambda: profile(threads=threads), 100,
                                "split_scan_kernel")
                 line += f" {threads} {us:.2f}"
-        if "times" in takes:
             times = torch.zeros((2, f, 5), dtype=torch.int64, device=dev)
-            launch(times=times)
+            profile(times=times)
             torch.cuda.synchronize()
             mhz = _sm_clock_mhz()
             cyc = np.diff(times.cpu().numpy().astype(np.float64),
@@ -656,13 +653,52 @@ def partition_times(sets) -> str:
                                         0, b, False)
     ms = time_ms(call, 20)
     us = device_us(call, 20, "part_")
-    line = (f"[partition] {n} rows x {mat.shape[1]} bytes: {ms:.4f} ms "
-            f"median of 20 between CUDA events, {us / 1e3:.4f} ms device "
-            "time a call (profiler)")
-    print(line)
+    lines = [f"[partition] {n} rows x {mat.shape[1]} bytes: {ms:.4f} ms "
+             f"median of 20 between CUDA events, {us / 1e3:.4f} ms device "
+             "time a call (profiler)"]
+    print(lines[-1])
     del mat, ws
+    if hasattr(pc, "partition_segment_profile"):
+        lines += partition_variants(n, b)
     torch.cuda.empty_cache()
-    return line
+    return "\n".join(lines)
+
+
+def partition_variants(n: int, b: int) -> list:
+    """The compaction's instantiations against each other: on random u8
+    matrices of 32-, 48- and 64-byte rows, the mean device time of a
+    call (profiler) on the per-phase path's average segment (60,169 rows)
+    and on all ``n`` rows, with the rows held in registers over the
+    look-back (vpr = row bytes / 16, the kernel's pick) and loaded after
+    it (vpr 0), in the order held, loaded, loaded, held."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import partition_cuda as pc
+    dev = torch.device("cuda")
+    lines = []
+    for stride in (32, 48, 64):
+        gen = torch.Generator(device=dev).manual_seed(stride)
+        mat = torch.randint(0, 256, (n, stride), generator=gen,
+                            device=dev, dtype=torch.uint8)
+        ws = torch.empty_like(mat)
+        for begin, count, reps in ((n // 3, 60_169, 200), (0, n, 20)):
+            def call(vpr):
+                return pc.partition_segment_profile(
+                    mat, ws, begin, count, 3, 127, 0, 0, 0, b, False,
+                    vpr=vpr)
+            held, loaded = stride // 16, 0
+            us = {held: [], loaded: []}
+            for vpr in (held, loaded, loaded, held):
+                us[vpr].append(device_us(lambda: call(vpr), reps, "part_"))
+            lines.append(
+                f"[partition] {stride}-byte rows, {count} rows: device us a"
+                f" call (profiler, {reps} calls): rows held (vpr {held}) "
+                + ", ".join(f"{u:.2f}" for u in us[held])
+                + "; rows loaded after the look-back (vpr 0) "
+                + ", ".join(f"{u:.2f}" for u in us[loaded]))
+            print(lines[-1])
+        del mat, ws
+    return lines
 
 
 def main() -> int:

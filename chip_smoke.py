@@ -21,7 +21,9 @@ of the JAX package. Phases, each fatal on failure:
    bitwise, every column, there and at B in {1, 31, 32, 33, 255, 256,
    1023, 1024}; the partition also at its tiles' and look-back's edges,
    on a reused scratch, and as two launches a call. Each kernel's time
-   is printed beside its bound and its launch floor;
+   (``ms``: the median of CUDA events around a call; ``device_ms``: its
+   kernels' time on the card's timeline, torch.profiler) is printed
+   beside its bound and its launch floor;
 3. train the Higgs-shaped binary model at full width (2M x 28,
    max_bin=255, num_leaves=255, lr=0.1, 8 iterations) through
    ``lightgbm_tpu_torch.train`` twice: the fused path (the default,
@@ -71,6 +73,13 @@ WARPS = 8                    # warps of a hist_rows block (csrc/hist_ids.cuh)
 LAUNCHES_A_CALL = {"hist_segment": 2, "partition_segment": 2,
                    "split_scan": 1, "fused_split_step_segment": 1,
                    "fused_split_step_leaf": 1, "hist_rows": 2}
+# each wrapper's CUDA kernels, by a part of their names
+KERNEL_NAMES = {"hist_segment": ("hist_partial", "hist_reduce"),
+                "partition_segment": ("part_",),
+                "split_scan": ("split_scan_kernel",),
+                "fused_split_step_segment": ("split_step_kernel",),
+                "fused_split_step_leaf": ("split_step_leaf",),
+                "hist_rows": ("hist_rows",)}
 
 
 def higgs_like(n: int, f: int = F, seed: int = 42):
@@ -125,12 +134,15 @@ def merged_us(intervals) -> float:
     return total + (0.0 if hi is None else hi - lo)
 
 
-def device_us(fn, reps: int, kernel: str) -> float:
+def device_us(fn, reps: int, kernel) -> float:
     """Mean device time of the CUDA kernels whose names hold ``kernel``
-    over ``reps`` calls of ``fn``: their intervals on the card's
-    timeline merged (torch.profiler). Unlike CUDA events around a call,
-    this leaves out the host's time between launches, which is most of
-    a small kernel's event time."""
+    (a string, or a tuple of them for a wrapper of several kernels) over
+    ``reps`` calls of ``fn``: their intervals on the card's timeline
+    merged (torch.profiler), so work ``fn`` does around the kernel (a
+    state restored) is left out. Unlike CUDA events around a call, this
+    leaves out the host's time between launches, which is most of a
+    small kernel's event time."""
+    parts = (kernel,) if isinstance(kernel, str) else kernel
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -143,7 +155,7 @@ def device_us(fn, reps: int, kernel: str) -> float:
     return merged_us([(e.time_range.start, e.time_range.end)
                       for e in prof.events()
                       if e.device_type == DeviceType.CUDA
-                      and kernel in e.name]) / reps
+                      and any(p in e.name for p in parts)]) / reps
 
 
 def fail(msg: str) -> None:
@@ -188,6 +200,8 @@ def check_hist(mat, n, reps):
                  "with a larger bound")
     # timings on the full segment: kernel, plain, one index_add_ call
     ms = time_ms(lambda: hc.histogram_segment(mat, 0, n, B, F), reps)
+    device_ms = device_us(lambda: hc.histogram_segment(mat, 0, n, B, F),
+                          reps, KERNEL_NAMES["hist_segment"]) / 1e3
     plain_ms = time_ms(
         lambda: hc.histogram_segment_plain(mat, 0, n, B, F), 3)
     g, h, c = hc.decode_payload(mat, F)
@@ -198,8 +212,8 @@ def check_hist(mat, n, reps):
     library_ms = time_ms(lambda: lib_out.index_add_(0, keys, vals), reps)
     del keys, vals
     nbytes = n * (F + 9) + F * B * 3 * 4
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms,
+    return dict(max_abs_err=worst, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
 
 
@@ -272,11 +286,9 @@ def check_partition(mat, n, reps):
         fail(f"partition_segment launched {kernels}, not two kernels")
     work = mat.clone()
     args = (0, n, 3, 127, 0, 0, 0, B, False, None)
-    event_ms = time_ms(lambda: pc.partition_segment(work, ws, *args), reps)
-    # device time: its two kernels' span (events around a call add the
-    # host's launch time)
-    ms = device_us(lambda: pc.partition_segment(work, ws, *args), reps,
-                   "part_") / 1e3
+    ms = time_ms(lambda: pc.partition_segment(work, ws, *args), reps)
+    device_ms = device_us(lambda: pc.partition_segment(work, ws, *args),
+                          reps, KERNEL_NAMES["partition_segment"]) / 1e3
     plain_ms = time_ms(lambda: pc.partition_segment_plain(work, ws, *args),
                        3)
     right = ~rows_go_left(work[:, 3], 127, 0, 0, 0, B)
@@ -287,8 +299,8 @@ def check_partition(mat, n, reps):
     library_ms = time_ms(library, reps)
     # a stable partition reads the segment once and writes it once
     nbytes = 2 * n * mat.shape[1]
-    return dict(max_abs_err=0.0, ms=ms, event_ms=event_ms, plain_ms=plain_ms,
-                library_ms=library_ms,
+    return dict(max_abs_err=0.0, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
 
 
@@ -343,15 +355,15 @@ def check_scan(hists, dataset, b, reps):
     params = nomiss[1]
     call = lambda: sc.per_feature_numerical_cuda(  # noqa: E731
         hists, leaves, meta_t, params, tables)
-    event_ms = time_ms(call, reps)
-    ms = device_us(call, reps, "split_scan_kernel") / 1e3
+    ms = time_ms(call, reps)
+    device_ms = device_us(call, reps, KERNEL_NAMES["split_scan"]) / 1e3
     plain_ms = time_ms(lambda: sc.per_feature_numerical_plain(
         hists, leaves, meta_t, params), reps)
     nbytes = 2 * F * b * 3 * 4 + 2 * F * 8 * 4
     # per bin and direction: ~4 prefix adds, ~40 flops of gain algebra
     ops = 2 * F * b * 2 * 44
     bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
-    return dict(max_abs_err=0.0, ms=ms, event_ms=event_ms,
+    return dict(max_abs_err=0.0, ms=ms, device_ms=device_ms,
                 plain_ms=plain_ms, library_ms=None, bound_ms=bound,
                 bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                 >= ops / F32_FLOPS else "operations")
@@ -546,6 +558,8 @@ def check_fused(mat, n, dataset, reps):
     restore(start)
     kernel()   # warm-up
     ms = timed(kernel, reps, start)
+    device_ms = device_us(lambda: (restore(start), kernel()), reps,
+                          KERNEL_NAMES["fused_split_step_segment"]) / 1e3
     plain_ms = timed(lambda: plain(False), 3, start)
     # one whole tree from the root, its launches between two events
     restore(start)
@@ -593,8 +607,9 @@ def check_fused(mat, n, dataset, reps):
     # child's histogram can come from rows already being read), the
     # parent's cache row read and both children's written
     nbytes = 2 * n * mat.shape[1] + 3 * F * B * 3 * 4
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                library_ms=None, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+    return dict(max_abs_err=worst, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, library_ms=None,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                 bound_by="bytes", launch_shape=scratch.shape,
                 root_small=segs[small][1], tree_avg_ms=tree_ms,
                 tree_splits=splits, splits=split_ms)
@@ -782,6 +797,8 @@ def check_fused_leaf(binned, ghc, dataset, b, reps):
 
     _, worst, root_sizes = agree(start, "root split")
     ms = timed(kernel, reps, start)
+    device_ms = device_us(lambda: (restore(start), kernel()), reps,
+                          KERNEL_NAMES["fused_split_step_leaf"]) / 1e3
     plain_ms = timed(plain, 3, start)
     bin_bytes = binned.element_size()
     bound = leaf_bound_ms(n, n, root_sizes["n_right"], root_sizes["n_small"],
@@ -809,7 +826,8 @@ def check_fused_leaf(binned, ghc, dataset, b, reps):
     small_bound = leaf_bound_ms(n, small_sizes["n_leaf"],
                                 small_sizes["n_right"],
                                 small_sizes["n_small"], F, b, bin_bytes)
-    return dict(max_abs_err=max(worst, small_err), ms=ms, plain_ms=plain_ms,
+    return dict(max_abs_err=max(worst, small_err), ms=ms,
+                device_ms=device_ms, plain_ms=plain_ms,
                 library_ms=None, bound_ms=bound, bound_by="bytes",
                 launch_shape=scratch.shape, root=root_sizes,
                 tree_avg_ms=tree_ms, tree_splits=splits,
@@ -873,6 +891,10 @@ def check_hist_rows(bins_by_width, ghc, reps):
             worst = max(worst, float(err.max()))
             ms = time_ms(lambda: hc.histogram_rows(bins, ghc, b, rows,
                                                    partial=partial), reps)
+            device_ms = device_us(
+                lambda: hc.histogram_rows(bins, ghc, b, rows,
+                                          partial=partial), reps,
+                KERNEL_NAMES["hist_rows"]) / 1e3
             plain_ms = time_ms(
                 lambda: hc.histogram_rows_plain(bins, ghc, b, rows), 3)
             sel = torch.arange(n, device=dev) if rows is None else rows.long()
@@ -890,7 +912,8 @@ def check_hist_rows(bins_by_width, ghc, reps):
             work = hist_rows_work(rows_n, f, b, bb)
             warp_cycles = ms * 1e-3 * clock_hz / work["groups_per_warp"]
             cases[f"{width}, {mode}"] = dict(
-                rows=rows_n, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                rows=rows_n, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                library_ms=library_ms,
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                 chunks=hc.leaf_child_chunks(
                     rows_n, f, hc.leaf_feat_tile(f, b, bb)),
@@ -898,7 +921,8 @@ def check_hist_rows(bins_by_width, ghc, reps):
                 sm_cycles_per_group=warp_cycles / (2 * work["busy_warps"]))
         del partial
     main = cases["u16, all rows"]
-    return dict(max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
+    return dict(max_abs_err=worst, ms=main["ms"],
+                device_ms=main["device_ms"], plain_ms=main["plain_ms"],
                 library_ms=main["library_ms"], bound_ms=main["bound_ms"],
                 bound_by="bytes", cases=cases)
 
@@ -917,7 +941,8 @@ def hist_rows_work(rows, f, b, bin_bytes):
 
 
 def hist_rows_summary(r):
-    return "; ".join(f"{name}: {c['ms']:.4f} ms ({c['rows']} rows, "
+    return "; ".join(f"{name}: {c['ms']:.4f} ms, device "
+                     f"{c['device_ms']:.4f} ({c['rows']} rows, "
                      f"{c['chunks']} chunks; plain {c['plain_ms']:.3f}, "
                      f"index_add_ {c['library_ms']:.3f}, bound "
                      f"{c['bound_ms']:.4f}; cycles per 32-row feature "
@@ -1285,15 +1310,16 @@ def main() -> int:
     # floor: the launches of one call times a launch's least device time
     floor = launch_floor_ms(args.reps)
     print(f"[floor] a launch's least time on the card {floor * 1e3:.2f} "
-          "us (a CUDA graph of one-element fills); the scan's and the "
-          "partition's ms are device time (profiler), the others' CUDA "
-          "events around a call")
+          "us (a CUDA graph of one-element fills); ms: the median of CUDA "
+          "events around a call; device: its kernels' time (profiler)")
     for name, r in rec.items():
-        print(f"[floor] {name}: {r['ms']:.4f} ms, bound {r['bound_ms']:.5f}"
+        print(f"[floor] {name}: {r['ms']:.4f} ms, device "
+              f"{r['device_ms']:.4f} ms, bound {r['bound_ms']:.5f}"
               f" ms ({r['bound_by']}), launch floor "
               f"{LAUNCHES_A_CALL[name] * floor:.4f} ms "
               f"({LAUNCHES_A_CALL[name]} launches a call)")
-    print(f"[floor] split_scan ({B} bins): {scan256['ms']:.4f} ms, bound "
+    print(f"[floor] split_scan ({B} bins): {scan256['ms']:.4f} ms, device "
+          f"{scan256['device_ms']:.4f} ms, bound "
           f"{scan256['bound_ms']:.5f} ms, launch floor {floor:.4f} ms")
 
     # ---- 3. the partitioned learner at full width, fused and per-phase -
@@ -1427,6 +1453,7 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=rep, launches=launches[name],
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
+                            device_ms=r["device_ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
                             library_ms=r["library_ms"]))

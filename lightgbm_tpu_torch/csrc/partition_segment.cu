@@ -21,9 +21,8 @@
 //     from an atomic counter, so tiles are claimed in order whatever
 //     order the blocks are scheduled in (a tile only waits on tiles
 //     already claimed, so the wait always ends). It reads its rows'
-//     bins (one byte a row) while it claims (those of tile blockIdx.x,
-//     which blocks mostly get, again if not), decides them once,
-//     publishes its left count (flag A), and its warp 0 looks back over
+//     bins (one byte a row), decides them once, publishes its left
+//     count (flag A), and its warp 0 looks back over
 //     the tiles before it (while every warp's row loads are in flight),
 //     32 at a time, summing
 //     their counts up to the nearest one that has published its
@@ -109,27 +108,19 @@ part_compact_kernel(const uint8_t* __restrict__ mat,
   // the copy back may start launching (it waits for this grid's end)
   asm volatile("griddepcontrol.launch_dependents;");
 
-  // ---- the tile's bins, one byte a row, loaded for tile blockIdx.x
-  // while the tile id is claimed; when the claim gives another tile,
-  // that tile's own block is fetching its bins, so the reload finds
-  // them in L2
-  int bin[kItems];
-  auto load_bins = [&](long long row0) {
-#pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const long long r = row0 + i * kThreads + threadIdx.x;
-      bin[i] = r < count
-                   ? __ldg(mat + (size_t)(begin + r) * stride + d.feat)
-                   : -1;
-    }
-  };
-  load_bins((long long)blockIdx.x * kTileRows);
+  // ---- claim the next tile, load its bins, one byte a row
   if (threadIdx.x == 0)
     s_tile = (int)atomicAdd(scratch, 1ull);
   __syncthreads();
   const int tile = s_tile;
   const long long row0 = (long long)tile * kTileRows;
-  if (tile != (int)blockIdx.x) load_bins(row0);
+  int bin[kItems];
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const long long r = row0 + i * kThreads + threadIdx.x;
+    bin[i] =
+        r < count ? __ldg(mat + (size_t)(begin + r) * stride + d.feat) : -1;
+  }
   volatile unsigned long long* states = scratch + 1;
 
   // ---- decide, ballots a 32-row group
@@ -260,22 +251,19 @@ __global__ void part_copy_back_kernel(const int4* __restrict__ ws,
 
 }  // namespace
 
-// scratch: device u64[1 + ceil(count / kTileRows)] (word 0 the tile
-// counter, 0 before the first call and left 0 by every call; then the
-// tile states); epoch: in [1, 2^30), different from the previous call's
-// on this scratch; seg_out: device int32[4] = {begin, NL, begin + NL,
-// count - NL}.
-LTT_EXPORT int ltt_partition_segment(uint8_t* mat, uint8_t* ws, int stride,
-                                     int begin, int count, int feat, int thr,
-                                     int dleft, int miss, int defbin,
-                                     int nbins, int use_lut, const float* lut,
-                                     unsigned long long* scratch, int epoch,
-                                     int* seg_out, cudaStream_t stream) {
-  if (count < 0 || stride % 16 || epoch < 1 || epoch >= (1 << 30))
+namespace {
+
+// The two launches; vpr: the compaction's instantiation, the row's
+// 16-byte vectors held in registers (2, 3 or 4) or 0, the rows loaded
+// after the look-back (any stride).
+int launch_partition(uint8_t* mat, uint8_t* ws, int stride, int begin,
+                     int count, const Decision& d,
+                     unsigned long long* scratch, int epoch, int* seg_out,
+                     int vpr, cudaStream_t stream) {
+  if (count < 0 || stride % 16 || epoch < 1 || epoch >= (1 << 30) ||
+      (vpr != 0 && (vpr != stride / 16 || vpr < 2 || vpr > 4)))
     return (int)cudaErrorInvalidValue;
-  const Decision d{feat, thr, dleft, miss, defbin, nbins, use_lut, lut};
   const int ntiles = count > 0 ? (count + kTileRows - 1) / kTileRows : 1;
-  const int vpr = stride / 16;
   auto compact = vpr == 2   ? part_compact_kernel<2>
                  : vpr == 3 ? part_compact_kernel<3>
                  : vpr == 4 ? part_compact_kernel<4>
@@ -283,7 +271,8 @@ LTT_EXPORT int ltt_partition_segment(uint8_t* mat, uint8_t* ws, int stride,
   compact<<<ntiles, kThreads, 0, stream>>>(mat, ws, stride, begin, count, d,
                                            scratch, (unsigned)epoch, ntiles,
                                            seg_out);
-  const long long nvec = (long long)count * vpr;
+  const int vecs = stride / 16;
+  const long long nvec = (long long)count * vecs;
   const int blocks =
       (int)max(1ll, min((nvec + 255) / 256, (long long)132 * 16));
   cudaLaunchConfig_t cfg = {};
@@ -297,10 +286,43 @@ LTT_EXPORT int ltt_partition_segment(uint8_t* mat, uint8_t* ws, int stride,
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, part_copy_back_kernel, reinterpret_cast<const int4*>(ws),
-      reinterpret_cast<int4*>(mat + (size_t)begin * stride), vpr, count,
+      reinterpret_cast<int4*>(mat + (size_t)begin * stride), vecs, count,
       (const int*)seg_out, scratch);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// scratch: device u64[1 + ceil(count / kTileRows)] (word 0 the tile
+// counter, 0 before the first call and left 0 by every call; then the
+// tile states); epoch: in [1, 2^30), different from the previous call's
+// on this scratch; seg_out: device int32[4] = {begin, NL, begin + NL,
+// count - NL}. Rows of 32, 48 or 64 bytes are held in registers, wider
+// ones loaded after the look-back.
+LTT_EXPORT int ltt_partition_segment(uint8_t* mat, uint8_t* ws, int stride,
+                                     int begin, int count, int feat, int thr,
+                                     int dleft, int miss, int defbin,
+                                     int nbins, int use_lut, const float* lut,
+                                     unsigned long long* scratch, int epoch,
+                                     int* seg_out, cudaStream_t stream) {
+  const Decision d{feat, thr, dleft, miss, defbin, nbins, use_lut, lut};
+  const int vpr = stride / 16;
+  return launch_partition(mat, ws, stride, begin, count, d, scratch, epoch,
+                          seg_out, vpr >= 2 && vpr <= 4 ? vpr : 0, stream);
+}
+
+// For profiling only (chip_profile.py --partition): the same, with the
+// compaction's instantiation the caller picks: vpr = stride / 16 (rows
+// held, 32 to 64 bytes) or 0 (rows loaded after the look-back).
+LTT_EXPORT int ltt_partition_segment_profile(
+    uint8_t* mat, uint8_t* ws, int stride, int begin, int count, int feat,
+    int thr, int dleft, int miss, int defbin, int nbins, int use_lut,
+    const float* lut, unsigned long long* scratch, int epoch, int* seg_out,
+    int vpr, cudaStream_t stream) {
+  const Decision d{feat, thr, dleft, miss, defbin, nbins, use_lut, lut};
+  return launch_partition(mat, ws, stride, begin, count, d, scratch, epoch,
+                          seg_out, vpr, stream);
 }
 
 // The message of a CUDA error code, for the Python side's exceptions.

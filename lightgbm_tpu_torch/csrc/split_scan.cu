@@ -5,8 +5,8 @@
 // :70, :342), which the JAX grow loop vmaps over both fresh children
 // (lightgbm_tpu/learner/split_step.py:485). Here both children are one
 // launch: grid (K, F), one block a (leaf, feature) row, of a block size
-// the caller picks (a multiple of 32, up to 512; the winner does not
-// depend on it: scan_core.cuh). Like the TPU kernel it takes B from the
+// picked from B (scan_threads; the winner does not depend on it:
+// scan_core.cuh). Like the TPU kernel it takes B from the
 // histogram's shape, 1 <= B <= 1024: up to 256 bins the planes take
 // 7 KB of static shared memory (split_scan_kernel<kMaxBins>), above that
 // 26 KB (split_scan_kernel<kMaxScanBins>), with the same device code.
@@ -36,6 +36,11 @@ using ltt::kMaxScanBins;
 // the most threads a block: a prefix lane keeps 32 float64 running sums
 // in registers, so 128 registers a thread, not the 64 of 1024 threads
 constexpr int kMaxThreads = 512;
+
+// Threads a block at B bins, the fastest measured (chip_profile.py
+// --scan-phases, which sweeps the block size through
+// ltt_split_scan_profile): 256 up to 256 bins, 512 above.
+inline int scan_threads(int B) { return B <= kMaxBins ? 256 : kMaxThreads; }
 
 struct ScanArgs {
   int num_bins;
@@ -84,16 +89,15 @@ int launch_scan(int K, int F, int B, int threads, const ScanArgs& a,
 
 // K leaves (1 or 2) x F features; hist{0,1}: [F, B, 3] f32; imeta
 // [F, 4] i32 (num_bins, missing, default_bin, monotone); fmeta [F, 2]
-// f32 (penalty, numerical-and-in-mask); threads a block (a multiple of
-// 32 in [32, 512]); out [K, F, 8] f32.
+// f32 (penalty, numerical-and-in-mask); out [K, F, 8] f32.
 LTT_EXPORT int ltt_split_scan(int K, int F, int B, const float* hist0,
                               const float* hist1, float pg0, float ph0,
                               float pc0, float cmin0, float cmax0, float pg1,
                               float ph1, float pc1, float cmin1, float cmax1,
                               const int* imeta, const float* fmeta, float l1,
                               float l2, float mds, float min_data,
-                              float min_hess, float min_gain, int threads,
-                              float* out, cudaStream_t stream) {
+                              float min_hess, float min_gain, float* out,
+                              cudaStream_t stream) {
   const ScanArgs a{B,
                    hist0,
                    hist1,
@@ -104,13 +108,15 @@ LTT_EXPORT int ltt_split_scan(int K, int F, int B, const float* hist0,
                    ltt::Params{l1, l2, mds, min_data, min_hess, min_gain},
                    out,
                    nullptr};
-  return launch_scan<false>(K, F, B, threads, a, stream);
+  return launch_scan<false>(K, F, B, scan_threads(B), a, stream);
 }
 
-// The timed instantiation (chip_profile.py only): the same table, and
-// thread 0 of block (k, f) writes scan_feature's five clock64 reads to
-// times[k, f, 0:5] (u64).
-LTT_EXPORT int ltt_split_scan_timed(
+// For profiling only (chip_profile.py, the card tests): the same table
+// at a block size the caller picks (a multiple of 32 in [32, 512]; 0:
+// scan_threads(B)) and, when times is not null, from the timed
+// instantiation: thread 0 of block (k, f) writes scan_feature's five
+// clock64 reads to times[k, f, 0:5] (u64).
+LTT_EXPORT int ltt_split_scan_profile(
     int K, int F, int B, const float* hist0, const float* hist1, float pg0,
     float ph0, float pc0, float cmin0, float cmax0, float pg1, float ph1,
     float pc1, float cmin1, float cmax1, const int* imeta,
@@ -127,5 +133,7 @@ LTT_EXPORT int ltt_split_scan_timed(
                    ltt::Params{l1, l2, mds, min_data, min_hess, min_gain},
                    out,
                    times};
-  return launch_scan<true>(K, F, B, threads, a, stream);
+  if (threads == 0) threads = scan_threads(B);
+  return times ? launch_scan<true>(K, F, B, threads, a, stream)
+               : launch_scan<false>(K, F, B, threads, a, stream);
 }

@@ -60,13 +60,18 @@ _SIGNATURES = {
     # nbins, use_lut, lut, scratch, epoch, seg_out, stream
     "ltt_partition_segment": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                               _I, _P, _P, _I, _P, _P],
+    # the same, then vpr (the compaction's instantiation) before the
+    # stream
+    "ltt_partition_segment_profile": [_P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                      _I, _I, _I, _P, _P, _I, _P, _I, _P],
     # K, F, B, hist0, hist1, leaf scalars (2 x pg ph pc cmin cmax),
-    # imeta, fmeta, l1, l2, mds, min_data, min_hess, min_gain, threads,
-    # out, stream
+    # imeta, fmeta, l1, l2, mds, min_data, min_hess, min_gain, out,
+    # stream
     "ltt_split_scan": [_I, _I, _I, _P, _P] + [_F] * 10
-    + [_P, _P] + [_F] * 6 + [_I, _P, _P],
-    # the same, then times (u64 [K, F, 5]) before the stream
-    "ltt_split_scan_timed": [_I, _I, _I, _P, _P] + [_F] * 10
+    + [_P, _P] + [_F] * 6 + [_P, _P],
+    # the same with threads before out, then times (u64 [K, F, 5] or
+    # null) before the stream
+    "ltt_split_scan_profile": [_I, _I, _I, _P, _P] + [_F] * 10
     + [_P, _P] + [_F] * 6 + [_I, _P, _P, _P],
     # k, S, T, mat, ws, stride, pay_off, hist, imeta, fmeta, partial,
     # tiles, counts, table, done, L, F, B, grid_cap, has_monotone,

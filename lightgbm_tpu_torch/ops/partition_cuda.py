@@ -96,6 +96,42 @@ def partition_segment(mat: torch.Tensor, ws: torch.Tensor, begin: int,
             default_bin, num_bins_f, is_cat, cat_lut)
     if mat.device.type != "cuda":
         raise ValueError(f"unsupported device {mat.device}")
+    seg, args = _partition_args(mat, ws, begin, count, feat, thr,
+                                default_left, missing_code, default_bin,
+                                num_bins_f, is_cat, cat_lut)
+    err = _native.library().ltt_partition_segment(
+        *args, seg.data_ptr(), _native.stream_of(mat))
+    _native.LAUNCHES["partition_segment"] += 1
+    _native.check(err, "partition_segment")
+    return seg
+
+
+def partition_segment_profile(mat, ws, begin, count, feat, thr,
+                              default_left, missing_code, default_bin,
+                              num_bins_f, is_cat, cat_lut=None, *,
+                              vpr: int) -> torch.Tensor:
+    """For profiling only (``chip_profile.py --partition``):
+    ``partition_segment`` on a CUDA matrix with the compaction's
+    instantiation picked by the caller: ``vpr`` = row bytes / 16 (2 to
+    4: rows held in registers over the look-back) or 0 (rows loaded
+    after it, any width)."""
+    if mat.device.type != "cuda":
+        raise ValueError(f"the profiled partition runs on the card, not "
+                         f"{mat.device}")
+    seg, args = _partition_args(mat, ws, int(begin), int(count), feat, thr,
+                                default_left, missing_code, default_bin,
+                                num_bins_f, is_cat, cat_lut)
+    err = _native.library().ltt_partition_segment_profile(
+        *args, seg.data_ptr(), int(vpr), _native.stream_of(mat))
+    _native.LAUNCHES["partition_segment"] += 1
+    _native.check(err, "partition_segment")
+    return seg
+
+
+def _partition_args(mat, ws, begin, count, feat, thr, default_left,
+                    missing_code, default_bin, num_bins_f, is_cat, cat_lut):
+    """Checks a CUDA call's inputs; returns the segment tensor it fills
+    and the C entry points' arguments up to ``seg_out``."""
     n, cols = mat.shape
     _native.require(mat, device=mat.device, dtype=torch.uint8, name="mat")
     _native.require(ws, device=mat.device, dtype=torch.uint8,
@@ -112,15 +148,10 @@ def partition_segment(mat: torch.Tensor, ws: torch.Tensor, begin: int,
                         shape=(256,), name="cat_lut")
     else:
         lut = mat  # never read
-    lib = _native.library()
     scratch, epoch = _scratch(mat.device, count)
     seg = torch.empty((4,), dtype=torch.int32, device=mat.device)
-    err = lib.ltt_partition_segment(
-        mat.data_ptr(), ws.data_ptr(), cols, begin, count, int(feat),
-        int(thr), int(bool(default_left)), int(missing_code),
-        int(default_bin), int(num_bins_f), int(bool(is_cat)),
-        lut.data_ptr(), scratch.data_ptr(), epoch, seg.data_ptr(),
-        _native.stream_of(mat))
-    _native.LAUNCHES["partition_segment"] += 1
-    _native.check(err, "partition_segment")
-    return seg
+    return seg, (mat.data_ptr(), ws.data_ptr(), cols, begin, count,
+                 int(feat), int(thr), int(bool(default_left)),
+                 int(missing_code), int(default_bin), int(num_bins_f),
+                 int(bool(is_cat)), lut.data_ptr(), scratch.data_ptr(),
+                 epoch)

@@ -24,16 +24,6 @@ from .split import SplitParams, per_feature_numerical, scan_table
 # bins per feature the kernel takes (csrc/scan_core.cuh kMaxScanBins); the
 # TPU kernel takes B from the histogram's shape
 MAX_SCAN_BINS = 1024
-# the most threads a block of the scan kernel (csrc/split_scan.cu
-# kMaxThreads)
-MAX_SCAN_THREADS = 512
-
-
-def scan_threads(b: int) -> int:
-    """Threads a block of the scan kernel at ``b`` bins (any multiple of
-    32 in [32, MAX_SCAN_THREADS] gives the same table; this is the measured
-    fastest, ``chip_profile.py --scan-phases``)."""
-    return 256 if b <= 256 else 512
 
 
 def scan_meta_tables(meta_t: dict):
@@ -58,29 +48,17 @@ def per_feature_numerical_plain(hists: Sequence[torch.Tensor],
         for h, leaf in zip(hists, leaves)])
 
 
-def per_feature_numerical_cuda(hists: Sequence[torch.Tensor],
-                               leaves: Sequence[tuple], meta_t: dict,
-                               params: SplitParams, tables=None,
-                               threads: int | None = None,
-                               times: torch.Tensor | None = None
-                               ) -> torch.Tensor:
-    """Best threshold per feature of K = len(hists) leaves (1 or 2).
-
-    ``hists``: [F, B, 3] f32 each; ``leaves``: per leaf
-    ``(parent_g, parent_h, parent_c, cmin, cmax)`` float32 scalars (host
-    values, passed to the kernel by value). ``tables`` optionally
-    supplies ``scan_meta_tables(meta_t)`` built once by the caller.
-    ``threads`` overrides the block size (``scan_threads``); ``times``
-    (int64 [K, F, 5], on the card) runs the timed build, which writes
-    each block's five ``clock64`` reads of ``scan_feature`` there."""
-    k = len(hists)
-    if k not in (1, 2) or len(leaves) != k:
+def _leaf_count(hists, leaves) -> int:
+    if len(hists) not in (1, 2) or len(leaves) != len(hists):
         raise ValueError("scan takes 1 or 2 leaves")
+    return len(hists)
+
+
+def _scan_args(hists, leaves, meta_t, params, tables):
+    """Checks the inputs and returns (out, the kernel's arguments up to
+    ``out``) for the scan's C entry points."""
+    k = _leaf_count(hists, leaves)
     dev = hists[0].device
-    if dev.type == "cpu":
-        return per_feature_numerical_plain(hists, leaves, meta_t, params)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     f, b, _ = hists[0].shape
     if not 1 <= b <= MAX_SCAN_BINS:
         raise ValueError(f"num_bins must be in [1, {MAX_SCAN_BINS}], "
@@ -93,26 +71,63 @@ def per_feature_numerical_cuda(hists: Sequence[torch.Tensor],
                     name="imeta")
     _native.require(fmeta, device=dev, dtype=torch.float32, shape=(f, 2),
                     name="fmeta")
-    threads = scan_threads(b) if threads is None else int(threads)
-    if not (32 <= threads <= MAX_SCAN_THREADS and threads % 32 == 0):
-        raise ValueError(f"threads must be a multiple of 32 in [32, "
-                         f"{MAX_SCAN_THREADS}], got {threads}")
-    lib = _native.library()
     out = torch.empty((k, f, 8), dtype=torch.float32, device=dev)
     l0 = [float(v) for v in leaves[0]]
     l1 = [float(v) for v in leaves[-1]]
     p = params
-    args = (k, f, b, hists[0].data_ptr(), hists[-1].data_ptr(), *l0, *l1,
-            imeta.data_ptr(), fmeta.data_ptr(), p.lambda_l1, p.lambda_l2,
-            p.max_delta_step, p.min_data_in_leaf, p.min_sum_hessian_in_leaf,
-            p.min_gain_to_split, threads, out.data_ptr())
-    if times is None:
-        err = lib.ltt_split_scan(*args, _native.stream_of(hists[0]))
-    else:
+    return out, (k, f, b, hists[0].data_ptr(), hists[-1].data_ptr(), *l0,
+                 *l1, imeta.data_ptr(), fmeta.data_ptr(), p.lambda_l1,
+                 p.lambda_l2, p.max_delta_step, p.min_data_in_leaf,
+                 p.min_sum_hessian_in_leaf, p.min_gain_to_split)
+
+
+def per_feature_numerical_cuda(hists: Sequence[torch.Tensor],
+                               leaves: Sequence[tuple], meta_t: dict,
+                               params: SplitParams, tables=None
+                               ) -> torch.Tensor:
+    """Best threshold per feature of K = len(hists) leaves (1 or 2).
+
+    ``hists``: [F, B, 3] f32 each; ``leaves``: per leaf
+    ``(parent_g, parent_h, parent_c, cmin, cmax)`` float32 scalars (host
+    values, passed to the kernel by value). ``tables`` optionally
+    supplies ``scan_meta_tables(meta_t)`` built once by the caller."""
+    _leaf_count(hists, leaves)
+    dev = hists[0].device
+    if dev.type == "cpu":
+        return per_feature_numerical_plain(hists, leaves, meta_t, params)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out, args = _scan_args(hists, leaves, meta_t, params, tables)
+    err = _native.library().ltt_split_scan(*args, out.data_ptr(),
+                                           _native.stream_of(hists[0]))
+    _native.LAUNCHES["split_scan"] += 1
+    _native.check(err, "split_scan")
+    return out
+
+
+def per_feature_numerical_profile(hists: Sequence[torch.Tensor],
+                                  leaves: Sequence[tuple], meta_t: dict,
+                                  params: SplitParams, tables=None,
+                                  threads: int = 0,
+                                  times: torch.Tensor | None = None
+                                  ) -> torch.Tensor:
+    """For profiling only (``chip_profile.py --scan-phases``, the card
+    tests): ``per_feature_numerical_cuda``'s table from CUDA histograms
+    at ``threads`` a block (a multiple of 32 in [32, 512]; 0: the
+    kernel's own choice) and, with ``times`` (int64 [K, F, 5], on the
+    card), from the timed build, which writes each block's five
+    ``clock64`` reads of ``scan_feature`` there."""
+    dev = hists[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"the profiled scan runs on the card, not {dev}")
+    out, args = _scan_args(hists, leaves, meta_t, params, tables)
+    if times is not None:
         _native.require(times, device=dev, dtype=torch.int64,
-                        shape=(k, f, 5), name="times")
-        err = lib.ltt_split_scan_timed(*args, times.data_ptr(),
-                                       _native.stream_of(hists[0]))
+                        shape=(*out.shape[:2], 5), name="times")
+    err = _native.library().ltt_split_scan_profile(
+        *args, int(threads), out.data_ptr(),
+        0 if times is None else times.data_ptr(),
+        _native.stream_of(hists[0]))
     _native.LAUNCHES["split_scan"] += 1
     _native.check(err, "split_scan")
     return out

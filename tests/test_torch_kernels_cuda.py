@@ -678,13 +678,13 @@ def test_scan_kernel_any_block_size(dev, b, threads):
               for h in hists]
     meta_t = sp.meta_tensors(_scan_meta(b, f, b // 3), dev)
     params = sp.SplitParams(0.0, 1.0, 0.0, 20.0, 1e-3, 0.0, True)
-    k = sc.per_feature_numerical_cuda(hists, leaves, meta_t, params,
-                                      threads=threads)
+    k = sc.per_feature_numerical_profile(hists, leaves, meta_t, params,
+                                         threads=threads)
     p = sc.per_feature_numerical_plain(hists, leaves, meta_t, params)
     assert _same_bytes(k, p)
     times = torch.zeros((2, f, 5), dtype=torch.int64, device=dev)
-    timed = sc.per_feature_numerical_cuda(hists, leaves, meta_t, params,
-                                          threads=threads, times=times)
+    timed = sc.per_feature_numerical_profile(hists, leaves, meta_t, params,
+                                             threads=threads, times=times)
     assert _same_bytes(timed, p)
     t = times.cpu().numpy()
     assert (np.diff(t, axis=-1) >= 0).all() and (t[..., 0] > 0).all()
