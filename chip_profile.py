@@ -45,11 +45,15 @@ cycles per 32-row feature group of a busy warp and of an SM;
 without the timed build too, to compare with a parent).
 ``--scan-phases`` times the standalone scan kernel (``split_scan``) on
 two children's histograms of the 2M-row matrices at max_bin 255 and
-1023, at its default block size and others, and its timed build's
+1023, at its own block size and (through the profile-only entry
+``per_feature_numerical_profile``) others, and its timed build's
 sub-phases (``scan_feature``'s clock64 reads: load planes, prefix sums,
 candidates, argmax and row); ``--partition`` times ``partition_segment``
-on the whole 2M-row u8 training matrix. Both run on a parent tree too
-(the launch times alone where its wrapper lacks the timed build). A
+on the whole 2M-row u8 training matrix, then (through
+``partition_segment_profile``) its compaction with rows held in
+registers against rows loaded after the look-back, at 32-, 48- and
+64-byte rows. Both run on a parent tree too (the launch times alone
+where it lacks the profile-only entries). A
 path's profile also prints each wrapper's in-training device time a
 call. A phases flag alone runs only that; with ``--paths`` it runs after
 the named paths.
