@@ -50,7 +50,23 @@ of the JAX package. Phases, each fatal on failure:
    max_bin=255 and on the serial fused path at max_bin=1023;
 7. a 100k-row, 3-tree run through the kernels (fused path) must grow the
    same trees as the same run through the plain versions on the card,
-   at max_bin=255 and at max_bin=1023.
+   at max_bin=255 and at max_bin=1023;
+8. the model file on the card: phase 3's full-width fused model (2M x
+   28, 255 leaves, its 8 trees and the one grown under the sync checker)
+   is written with ``model_to_string``, parsed with
+   ``Booster(model_str=)`` on the card (no ``device``) and predicts all
+   2M rows, raw scores and leaf indices bitwise equal to the trained
+   booster's, and writes the same text again; ``train(init_model=)`` its
+   file grows 2 more trees, keeping the file's trees to the bit, with
+   finite predictions; every golden model the reference wrote
+   (``tests/fixtures/golden``, data from ``tests/golden_common.py``)
+   predicts within 1e-6 of the reference's output; a 200k x 28
+   Higgs-like matrix written as CSV with a header and as LibSVM reads
+   back as its arrays and ``Dataset(path)`` grows the 3 fused trees the
+   arrays grow, to the bit. Each training run is driven with the launch
+   counts set to 0 just before it and read just after, and must launch
+   every kernel of the partitioned fused path. Printed: the write,
+   parse and 2M-row predict times and the files' parse rates (rows/s).
 
 The second-to-last line of output is the per-kernel JSON record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1192,6 +1208,182 @@ def avg_split_bound_ms(bst, lrn):
     return total / max(splits, 1)
 
 
+FUSED_SEGMENT_PATH = ("hist_segment", "split_scan",
+                      "fused_split_step_segment")
+
+
+def counted_train(label, params, ds, iters, dev, init_model=None):
+    """``lt.train`` with the launch counts set to 0 just before it and
+    read just after; every kernel of the partitioned fused path must have
+    run."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import _native
+    _native.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = lt.train(params, ds, iters, init_model=init_model, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_native.LAUNCHES)
+    for name in FUSED_SEGMENT_PATH:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by {label}")
+    if not bst._gbdt.learner.fused:
+        fail(f"{label} did not run the fused path")
+    return bst, wall, launches
+
+
+def write_csv(path, X, y):
+    """Label first, then the features, with a header; every value as
+    the shortest text that reads back as the same float64."""
+    header = ",".join(["label"] + [f"f{j}" for j in range(X.shape[1])])
+    rows = np.column_stack([y, X]).astype(np.float64).tolist()
+    with open(path, "w") as f:
+        f.write(header + "\n")
+        f.write("\n".join(",".join(map(repr, r)) for r in rows) + "\n")
+
+
+def write_libsvm(path, X, y):
+    """``label i:v ...`` with 0-based indices, zeros left out."""
+    full = " ".join(["%r"] + [f"{j}:%r" for j in range(X.shape[1])])
+    lines = []
+    for lab, r in zip(y.astype(np.float64).tolist(),
+                      X.astype(np.float64).tolist()):
+        lines.append(full % (lab, *r) if 0.0 not in r else " ".join(
+            [repr(lab)] + [f"{j}:{v!r}" for j, v in enumerate(r) if v]))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def same_trees(a, b):
+    """The model text's view of two tree lists equal to the bit: split
+    features, raw thresholds, default directions, missing types,
+    children and leaf values (a tree read from text has no bins)."""
+    def sig(t):
+        return (t.num_leaves, t.split_feature.tolist(),
+                t.threshold.tobytes(), (t.decision_type & 3).tolist(),
+                t.missing_code.tolist(), t.left_child.tolist(),
+                t.right_child.tolist(), t.leaf_value.tobytes())
+    return len(a) == len(b) and all(sig(s) == sig(t) for s, t in zip(a, b))
+
+
+def model_file_phase(bst, ds, X, params, dev):
+    """Phase 8: the model file on the card. The full-width fused model
+    through its text and back (predictions and leaf indices bitwise
+    equal, the text a fixed point), continued training from its file,
+    every golden model the reference wrote, and training from CSV and
+    LibSVM files against training from the same arrays."""
+    import os
+    import tempfile
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.config import Config
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tests"))
+    from golden_common import DATASETS
+    out = {}
+    n = X.shape[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        # the full-width model through its text
+        t0 = time.perf_counter()
+        text = bst.model_to_string()
+        out["write_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        loaded = lt.Booster(model_str=text)
+        out["parse_ms"] = (time.perf_counter() - t0) * 1e3
+        if loaded.device.type != "cuda":
+            fail("a loaded model without a device is not on the card")
+        raw = bst.predict(X, raw_score=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        raw_loaded = loaded.predict(X, raw_score=True)
+        out["predict_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        leaf_loaded = loaded.predict(X, pred_leaf=True)
+        out["predict_leaf_ms"] = (time.perf_counter() - t0) * 1e3
+        leaf = bst.predict(X, pred_leaf=True)
+        trees = len(bst.models)
+        print(f"[model file] {n} x {X.shape[1]}, {trees} trees of up to "
+              f"{max(t.num_leaves for t in bst.models)} leaves, "
+              f"{len(text)} bytes: write {out['write_ms']:.1f} ms, parse "
+              f"{out['parse_ms']:.1f} ms, predict {n} rows "
+              f"{out['predict_ms']:.1f} ms (raw), "
+              f"{out['predict_leaf_ms']:.1f} ms (leaf indices)")
+        if not np.array_equal(raw, raw_loaded) \
+                or not np.array_equal(leaf, leaf_loaded) \
+                or leaf.shape != (n, trees):
+            fail("the loaded full-width model does not predict as the "
+                 "trained one, bit for bit")
+        if loaded.model_to_string() != text:
+            fail("writing the loaded full-width model gives other text")
+        path = os.path.join(tmp, "model.txt")
+        bst.save_model(path)
+
+        # continued training from the file: 2 more trees
+        more, wall, launches = counted_train(
+            "continued training", params, ds, 2, dev, init_model=path)
+        grown = more.predict(X, raw_score=True)
+        print(f"[model file] continued training: {len(more.models)} trees "
+              f"({trees} from the file) in {wall:.2f} s; launches "
+              f"{launches}")
+        if len(more.models) != trees + 2 \
+                or not same_trees(more.models[:trees], bst.models) \
+                or not np.isfinite(grown).all():
+            fail("continued training did not keep the file's trees, or "
+                 "predicts non-finite values")
+
+        # every golden model the reference wrote, on the card
+        worst = {}
+        for name in sorted(DATASETS):
+            g = lt.Booster(model_file=os.path.join(
+                here, "tests", "fixtures", "golden", f"model_{name}.txt"))
+            _, _, Xte, _ = DATASETS[name]["make"]()
+            ref = np.loadtxt(os.path.join(here, "tests", "fixtures",
+                                          "golden", f"pred_{name}.txt"))
+            pred = g.predict(Xte)
+            err = np.abs(pred - ref)
+            worst[name] = float(err.max())
+            if pred.shape != ref.shape \
+                    or not (err <= 1e-6 + 1e-6 * np.abs(ref)).all():
+                fail(f"golden model {name} predicts off the reference's "
+                     f"output (max abs err {worst[name]:.3g})")
+        out["golden_max_abs_err"] = worst
+        print(f"[model file] {len(worst)} golden models on the card within "
+              f"1e-6 of the reference's output: max abs err {worst}")
+
+        # text data: CSV with a header and LibSVM, against the arrays
+        Xt, yt = higgs_like(200_000, seed=5)
+        base, _, _ = counted_train("training from arrays", params,
+                                   lt.Dataset(Xt, label=yt), 3, dev)
+        for fmt, writer, extra in (("csv", write_csv, {"header": True}),
+                                   ("libsvm", write_libsvm, {})):
+            fpath = os.path.join(tmp, f"train.{fmt}")
+            t0 = time.perf_counter()
+            writer(fpath, Xt, yt)
+            write_s = time.perf_counter() - t0
+            fparams = dict(params, **extra)
+            fds = lt.Dataset(fpath)
+            t0 = time.perf_counter()
+            data = fds.raw_matrix(Config.from_params(fparams))
+            parse_s = time.perf_counter() - t0
+            if not np.array_equal(data, Xt.astype(np.float64)) \
+                    or not np.array_equal(fds.label, yt):
+                fail(f"the {fmt} file does not read back as its arrays")
+            fbst, wall, _ = counted_train(f"training from {fmt}", fparams,
+                                          fds, 3, dev)
+            out[f"{fmt}_parse_rows_per_s"] = len(yt) / parse_s
+            print(f"[model file] {fmt}: {len(yt)} x {Xt.shape[1]} written in "
+                  f"{write_s:.2f} s ({os.path.getsize(fpath)} bytes), "
+                  f"parsed in {parse_s:.2f} s = "
+                  f"{len(yt) / parse_s:.0f} rows/s; binned and 3 fused "
+                  f"trees in {wall:.2f} s")
+            if not same_trees(fbst.models, base.models):
+                fail(f"training from the {fmt} file grew other trees than "
+                     "training from the arrays")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=2_000_000)
@@ -1331,8 +1523,6 @@ def main() -> int:
     pred = fused_bst.predict(X[:100_000], raw_score=True)
     if pred.shape != (100_000,) or not np.isfinite(pred).all():
         fail("full-width predictions are not finite")
-    del fused_bst
-    torch.cuda.empty_cache()
 
     # ---- 4. the serial learner at full width (1023 bins) ---------------
     serial_bst, serial_fused, serial_per = train_paths(
@@ -1374,7 +1564,7 @@ def main() -> int:
     t0 = time.perf_counter()
     leaf_vs_segment(binned, params, dev)
     print(f"[leaf vs segment] done in {time.perf_counter() - t0:.1f} s")
-    del ds, binned
+    del binned
     torch.cuda.empty_cache()
 
     # ---- 6. quality ----------------------------------------------------
@@ -1429,6 +1619,13 @@ def main() -> int:
                     break
             fail(f"kernel and plain runs grew different trees "
                  f"(max_bin {max_bin})")
+
+    # ---- 8. the model file on the card ---------------------------------
+    t0 = time.perf_counter()
+    model_file_phase(fused_bst, ds, X, params, dev)
+    print(f"[model file] done in {time.perf_counter() - t0:.1f} s")
+    del fused_bst, ds
+    torch.cuda.empty_cache()
 
     sources = {
         "hist_segment": ("lightgbm_tpu_torch/csrc/hist_segment.cu",

@@ -6,7 +6,10 @@ matrix of up to 1024 bins per feature: the partitioned learner for bins
 that fit a byte, the serial (leaf_id) learner past that, with the
 segment histogram, segment partition, split scan and both fused split
 steps as hand-written CUDA kernels (``csrc/``), each beside its plain
-PyTorch version.
+PyTorch version. Models go in and out as the reference's model text
+(``io/model_text.py``): a loaded model predicts on the card and seeds
+continued training (``train(..., init_model=)``); training data may be a
+CSV / TSV / LibSVM file (``data/file_loader.py``).
 """
 
 from .basic import Booster, Dataset

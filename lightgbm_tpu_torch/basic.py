@@ -1,87 +1,231 @@
-"""User-facing ``Dataset`` and ``Booster`` (port of the training and
-predict surface of ``lightgbm_tpu/basic.py``).
+"""User-facing ``Dataset`` and ``Booster`` (port of the training,
+predict and model IO surface of ``lightgbm_tpu/basic.py``).
 
-``Dataset`` holds the raw arrays until training constructs the binned
-dataset with the booster's parameters (the reference's lazy
-construction). ``Booster`` trains on one device and predicts through
-``predictor.py``.
+``Dataset`` holds the raw arrays, or the path of a CSV / TSV / LibSVM
+file, until training constructs the binned dataset with the booster's
+parameters (the reference's lazy construction). ``Booster`` trains on
+one device, or holds a model loaded from text (``model_file`` /
+``model_str``), and predicts through ``predictor.py`` on its device:
+the card unless ``device`` says otherwise.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from .config import Config
 from .data.dataset import Dataset as _BinnedDataset
+from .data.dataset import load_forced_bins
+from .io.model_text import (LoadedBooster, dump_model_json,
+                            feature_importance, load_model_from_string,
+                            save_model_to_string)
 from .models.gbdt import GBDT
 from .objective import create_objective
-from .predictor import predict_raw
+from .predictor import predict as _predict
 from .utils.device import resolve_device
+
+SPARSE_PREDICT_CHUNK_ROWS = 65536
+
+
+def _is_sparse(data) -> bool:
+    try:
+        import scipy.sparse as sp
+    except ImportError:  # pragma: no cover
+        return False
+    return sp.issparse(data)
 
 
 class Dataset:
-    """Raw training data + label, binned on first use."""
+    """Raw training data + label, binned on first use. ``data`` is a
+    dense matrix or the path of a text file (``data/file_loader.py``),
+    whose label, weight, init score and header names fill what the
+    caller did not give."""
 
-    def __init__(self, data, label=None, weight=None, init_score=None,
-                 feature_name: Optional[List[str]] = None,
+    def __init__(self, data, label=None, weight=None, group=None,
+                 init_score=None, feature_name: Optional[List[str]] = None,
                  params: Optional[Dict[str, Any]] = None):
         self.data = data
         self.label = label
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
         self.params = dict(params or {})
+        self._raw: Optional[np.ndarray] = None
         self._binned: Optional[_BinnedDataset] = None
+
+    def raw_matrix(self, config: Config) -> np.ndarray:
+        """The raw feature matrix, float64 (read once from a file)."""
+        if self._raw is not None:
+            return self._raw
+        if isinstance(self.data, str):
+            if config.two_round:
+                raise NotImplementedError(
+                    "two_round loading bins into EFB bundles in the JAX "
+                    "package, which the port does not have yet "
+                    "(ROADMAP.md Queue 1 item 7.3)")
+            from .data.file_loader import load_file
+            X, label, weight, group, init, names = load_file(self.data,
+                                                             config)
+            for key, val in (("label", label), ("weight", weight),
+                             ("group", group), ("init_score", init),
+                             ("feature_name", names)):
+                if getattr(self, key) is None:
+                    setattr(self, key, val)
+        elif _is_sparse(self.data):
+            raise NotImplementedError(
+                "sparse input bins into EFB bundles in the JAX package, "
+                "which the port does not have yet (ROADMAP.md Queue 1 "
+                "item 7.3)")
+        else:
+            X = self.data
+        self._raw = np.asarray(X, np.float64)
+        return self._raw
 
     def construct(self, config: Config) -> _BinnedDataset:
         if self._binned is None:
+            X = self.raw_matrix(config)
+            if self.group is not None:
+                raise NotImplementedError(
+                    "query groups need the ranking objectives (ROADMAP.md "
+                    "Queue 1 item 2.4)")
             self._binned = _BinnedDataset.from_numpy(
-                np.asarray(self.data), config, label=self.label,
-                weight=self.weight, init_score=self.init_score,
-                feature_names=self.feature_name)
+                X, config, label=self.label, weight=self.weight,
+                init_score=self.init_score,
+                feature_names=self.feature_name,
+                forced_bins=load_forced_bins(config.forcedbins_filename))
         return self._binned
 
 
 class Booster:
-    """A trained (or training) model on one device."""
+    """A trained (or training) model on one device, or a model loaded
+    from text (``model_file`` / ``model_str``) predicting on one."""
 
     def __init__(self, params: Optional[Dict[str, Any]] = None,
-                 train_set: Optional[Dataset] = None, device=None,
+                 train_set: Optional[Dataset] = None,
+                 model_file: Optional[str] = None,
+                 model_str: Optional[str] = None, device=None,
                  ops: str = "kernel"):
         self.params = dict(params or {})
         self.config = Config.from_params(self.params)
         self.device = resolve_device(device)
         self._gbdt: Optional[GBDT] = None
-        self.models: List = []
+        self._loaded: Optional[LoadedBooster] = None
         if train_set is not None:
             merged = dict(train_set.params)
             merged.update(self.params)
             self.config = Config.from_params(merged)
             binned = train_set.construct(self.config)
             self._gbdt = GBDT(self.config, binned, self.device, ops=ops)
-            self.models = self._gbdt.models
+        elif model_file is not None:
+            with open(model_file) as f:
+                self._loaded = load_model_from_string(f.read())
+        elif model_str is not None:
+            self._loaded = load_model_from_string(model_str)
+        else:
+            raise TypeError("Need at least one training dataset or model "
+                            "file or model string to create Booster "
+                            "instance")
 
     @classmethod
     def from_trees(cls, trees: List, params=None, device=None) -> "Booster":
         """A predict-only booster over carried-over trees
-        (``convert.py``)."""
-        bst = cls(params=params, device=device)
-        bst.models = list(trees)
+        (``convert.py``), converting scores with ``params``'s
+        objective."""
+        loaded = LoadedBooster()
+        loaded.models = list(trees)
+        loaded.objective = create_objective(Config.from_params(params))
+        bst = cls(params=params, model_str="", device=device)
+        bst._loaded = loaded
         return bst
+
+    def _src(self):
+        """The trained GBDT, or the loaded model."""
+        return self._gbdt if self._gbdt is not None else self._loaded
+
+    @property
+    def models(self) -> List:
+        return self._src().models
 
     def update(self) -> bool:
         """One boosting iteration; True when training should stop."""
         return self._gbdt.train_one_iter()
 
+    def current_iteration(self) -> int:
+        return self._src().num_iterations_trained
+
+    def num_trees(self) -> int:
+        return len(self._src().models)
+
+    def num_model_per_iteration(self) -> int:
+        return self._src().num_tree_per_iteration
+
+    def num_feature(self) -> int:
+        if self._gbdt is not None:
+            return self._gbdt.train_data.num_total_features
+        return self._loaded.max_feature_idx + 1
+
+    def feature_name(self) -> List[str]:
+        if self._gbdt is not None:
+            return list(self._gbdt.train_data.feature_names)
+        return list(self._loaded.feature_names)
+
+    # ------------------------------------------------------------------
     def predict(self, data, num_iteration: Optional[int] = None,
-                raw_score: bool = False) -> np.ndarray:
-        """Raw scores or probabilities (binary objective) per row."""
-        models = self.models
-        if num_iteration is not None and num_iteration > 0:
-            models = models[:num_iteration]
-        raw = predict_raw(models, data, self.device)
-        if not raw_score:
-            raw = create_objective(self.config).convert_output(raw)
-        return raw.cpu().numpy()
+                raw_score: bool = False, pred_leaf: bool = False,
+                pred_contrib: bool = False, start_iteration: int = 0,
+                **kwargs) -> np.ndarray:
+        """Scores per row ([N], or [N, k] for k trees an iteration; raw,
+        or converted by the objective) or leaf indices ([N, T] int32)
+        of the iterations from ``start_iteration`` on (``num_iteration``
+        of them when > 0). Sparse rows are densified in fixed chunks."""
+        if pred_contrib:
+            raise NotImplementedError(
+                "pred_contrib (SHAP) is not ported yet (ROADMAP.md Queue 1 "
+                "item 6)")
+        if kwargs.get("pred_early_stop"):
+            raise NotImplementedError(
+                "pred_early_stop is not ported yet (ROADMAP.md Queue 1 "
+                "item 6)")
+        kw = dict(num_iteration=num_iteration,
+                  start_iteration=start_iteration, raw_score=raw_score,
+                  pred_leaf=pred_leaf)
+        if _is_sparse(data):
+            csr = data.tocsr()
+            step = SPARSE_PREDICT_CHUNK_ROWS
+            return np.concatenate([
+                self.predict(np.asarray(csr[lo:lo + step].todense()), **kw)
+                for lo in range(0, max(csr.shape[0], 1), step)])
+        return _predict(self._src(), data, self.device, **kw).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    def model_to_string(self, num_iteration: Optional[int] = None,
+                        start_iteration: int = 0) -> str:
+        """The model text, with the ``pandas_categorical`` trailer line
+        the JAX Booster appends (no pandas categories: ``[]``)."""
+        text = save_model_to_string(
+            self._src(), start_iteration,
+            num_iteration if num_iteration is not None else -1)
+        return text + "\npandas_categorical:" + json.dumps([]) + "\n"
+
+    def save_model(self, filename: str,
+                   num_iteration: Optional[int] = None,
+                   start_iteration: int = 0) -> "Booster":
+        with open(filename, "w") as f:
+            f.write(self.model_to_string(num_iteration, start_iteration))
+        return self
+
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0) -> Dict:
+        return json.loads(dump_model_json(
+            self._src(), start_iteration,
+            num_iteration if num_iteration is not None else -1))
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: Optional[int] = None) -> np.ndarray:
+        imp = feature_importance(self._src(), importance_type,
+                                 iteration if iteration is not None else 0)
+        return imp.astype(np.int64) if importance_type == "split" else imp

@@ -10,8 +10,11 @@ turn it into the port's objects:
     exactly as the JAX dataset did;
   * ``trees_from_state`` — trained trees as node arrays (split feature,
     raw threshold, threshold bin, decision type, children, leaf values,
-    per-node missing type), so the port's predictor runs a JAX-trained
-    model;
+    per-node missing type, and optionally every other field the model
+    text holds: gains, internal and leaf weights and counts, leaf
+    parents and depths, shrinkage, categorical thresholds), so the
+    port's predictor runs a JAX-trained model and the port's writer
+    writes its text;
   * ``matrix_from_jax`` and ``grow_state_from_jax`` — the partitioned
     grow loop's training matrix and its packed state (``S``, ``T``, the
     per-leaf histogram cache), or the serial grow loop's (``S``, ``T``,
@@ -50,25 +53,29 @@ def bin_mappers_from_state(states: Sequence[Dict]) -> List[BinMapper]:
 
 _TREE_KEYS = ("num_leaves", "split_feature", "threshold", "decision_type",
               "left_child", "right_child", "leaf_value", "missing_code")
+_OPTIONAL_TREE_KEYS = ("threshold_bin", "split_feature_inner", "split_gain",
+                       "internal_value", "internal_weight",
+                       "internal_count", "leaf_weight", "leaf_count",
+                       "leaf_parent", "leaf_depth", "shrinkage",
+                       "cat_threshold")
 
 
 def trees_from_state(states: Sequence[Dict]) -> List[Tree]:
-    """Predict-ready trees from per-tree dicts of numpy node arrays.
-    Required keys: num_leaves, split_feature (original feature index),
-    threshold (raw value), decision_type, left_child, right_child,
-    leaf_value, missing_code (0 none / 1 zero / 2 nan); optional:
-    threshold_bin, split_feature_inner."""
+    """Trees from per-tree dicts of numpy node arrays. Required keys:
+    num_leaves, split_feature (original feature index), threshold (raw
+    value), decision_type, left_child, right_child, leaf_value,
+    missing_code (0 none / 1 zero / 2 nan); optional: the keys of
+    ``_OPTIONAL_TREE_KEYS`` (``cat_threshold`` a list of category
+    arrays, one a node), zero (leaf parents -1, shrinkage 1) when
+    absent."""
     trees = []
     for st in states:
         missing = [k for k in _TREE_KEYS if k not in st]
         if missing:
             raise KeyError(f"tree state lacks {missing}")
         trees.append(tree_from_arrays(
-            st["num_leaves"], st["split_feature"], st["threshold"],
-            st["decision_type"], st["left_child"], st["right_child"],
-            st["leaf_value"], st["missing_code"],
-            threshold_bin=st.get("threshold_bin"),
-            split_feature_inner=st.get("split_feature_inner")))
+            *(st[k] for k in _TREE_KEYS),
+            **{k: st[k] for k in _OPTIONAL_TREE_KEYS if k in st}))
     return trees
 
 

@@ -7,15 +7,18 @@ check, so both packages produce the same binned matrix from the same
 arrays. The device copy is a ``torch`` tensor on the caller's device
 (``binned_device``) instead of a lazily uploaded jax array.
 
-Out of this slice (``NotImplementedError`` naming the ROADMAP item):
-categorical features, EFB plans that bundle features or go multi-val,
-forced bins, linear trees and the sparse / two-round / streaming
-loaders.
+Forced bin bounds come from a ``forcedbins_filename`` JSON
+(``load_forced_bins``). Out of this slice (``NotImplementedError``
+naming the ROADMAP item): categorical features, EFB plans that bundle
+features or go multi-val, linear trees and the sparse / two-round /
+streaming loaders.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import json
+import os
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,6 +26,21 @@ import torch
 from ..config import Config
 from ..utils.log import log_fatal, log_warning
 from .binning import BIN_TYPE_NUMERICAL, BinMapper, kZeroThreshold
+
+
+def load_forced_bins(path: str) -> Dict[int, List[float]]:
+    """Parse a forced-bin-bounds JSON file (``forcedbins_filename``;
+    DatasetLoader::GetForcedBins, src/io/dataset_loader.cpp:1203-1236):
+    a list of ``{"feature": i, "bin_upper_bound": [...]}`` entries."""
+    if not path:
+        return {}
+    if not os.path.exists(path):
+        log_warning(f"Forced bins file {path} does not exist")
+        return {}
+    with open(path) as fh:
+        entries = json.load(fh)
+    return {int(e["feature"]): [float(v) for v in e["bin_upper_bound"]]
+            for e in entries}
 
 
 class Metadata:
@@ -119,22 +137,21 @@ class Dataset:
                    init_score: Optional[Sequence[float]] = None,
                    feature_names: Optional[List[str]] = None,
                    categorical_features: Sequence[int] = (),
-                   bin_mappers: Optional[List[BinMapper]] = None
+                   bin_mappers: Optional[List[BinMapper]] = None,
+                   forced_bins: Optional[Dict[int, List[float]]] = None
                    ) -> "Dataset":
         """Bin a raw dense feature matrix (CostructFromSampleData,
         dataset_loader.cpp:528-712, + ExtractFeatures push loop).
 
         ``bin_mappers`` adopts mappers built elsewhere (for example
         carried over from the JAX package by ``convert.py``) instead of
-        finding bins, so both packages bin a matrix identically."""
+        finding bins, so both packages bin a matrix identically.
+        ``forced_bins`` maps a feature to the bin upper bounds its bins
+        must keep (``load_forced_bins``)."""
         if len(categorical_features):
             raise NotImplementedError(
                 "categorical features are not in the port's first slice "
                 "(ROADMAP.md Queue 1 item 7)")
-        if config.forcedbins_filename:
-            raise NotImplementedError(
-                "forcedbins_filename is not ported yet (ROADMAP.md "
-                "Queue 1 item 1)")
         if config.linear_tree:
             raise NotImplementedError(
                 "linear_tree is not in the port's first slice (ROADMAP.md "
@@ -161,7 +178,7 @@ class Dataset:
             self.bin_mappers = list(bin_mappers)
             self._finalize_used_features()
         else:
-            self._find_bins(data, config)
+            self._find_bins(data, config, forced_bins)
         self._resolve_monotone_and_penalty(config)
         self._extract_features(data)
         self._check_bundles(config)
@@ -172,7 +189,8 @@ class Dataset:
         self.metadata.set_init_score(init_score)
         return self
 
-    def _find_bins(self, data: np.ndarray, config: Config) -> None:
+    def _find_bins(self, data: np.ndarray, config: Config,
+                   forced_bins: Optional[Dict[int, List[float]]]) -> None:
         n = data.shape[0]
         sample_cnt = min(n, self.bin_construct_sample_cnt)
         rng = np.random.RandomState(config.data_random_seed)
@@ -197,7 +215,8 @@ class Dataset:
                 min_split_data=filter_cnt,
                 pre_filter=config.feature_pre_filter,
                 bin_type=BIN_TYPE_NUMERICAL, use_missing=self.use_missing,
-                zero_as_missing=self.zero_as_missing)
+                zero_as_missing=self.zero_as_missing,
+                forced_upper_bounds=(forced_bins or {}).get(j, ()))
             self.bin_mappers.append(mapper)
         self._finalize_used_features()
 

@@ -4,8 +4,9 @@ src/boosting/gbdt.cpp:42-780).
 
 Covered: ``boost_from_average`` (gbdt.cpp:312-335), ``train_one_iter``
 (gradients -> grow -> shrinkage -> score update -> bias, with the
-constant-tree fallback, gbdt.cpp:337-419) and the train-score update
-from leaf membership (``_score_add_leaf``). Scores and gradients live
+constant-tree fallback, gbdt.cpp:337-419), the train-score update
+from leaf membership (``_update_scores``) and continued training from
+an existing model's trees (``init_from_models``). Scores and gradients live
 on the training device; trees live on the host. Valid sets, metrics,
 callbacks, early stopping, bagging and the DART/GOSS/RF variants are
 not in this slice.
@@ -37,6 +38,7 @@ class GBDT:
         self.train_data = train_data
         self.device = torch.device(device)
         self.objective = create_objective(config)
+        self.num_class = int(config.num_class)
         self.num_tree_per_iteration = 1
         self.models: List[Tree] = []
         self.iter = 0
@@ -56,6 +58,23 @@ class GBDT:
                                            device=self.device)
         self._feature_rng = np.random.RandomState(
             config.feature_fraction_seed)
+
+    @property
+    def num_iterations_trained(self) -> int:
+        return len(self.models) // self.num_tree_per_iteration
+
+    def init_from_models(self, models: List[Tree],
+                         train_add: Optional[torch.Tensor] = None) -> None:
+        """Continued training (GBDT::LoadModelFromString + the resume
+        of boosting.cpp:35-68): adopt an existing model's trees and add
+        their raw float64 sum, rounded to float32, to the train scores, so
+        the next ``train_one_iter`` boosts on the right residuals (and
+        skips boost_from_average, as there are trees)."""
+        self.models = list(models)
+        self.iter = len(models) // self.num_tree_per_iteration
+        if train_add is not None:
+            add = torch.as_tensor(train_add).to(self.device, torch.float32)
+            self.train_score += add.reshape(self.num_data, -1)
 
     # ------------------------------------------------------------------
     def _feature_mask(self) -> Optional[np.ndarray]:

@@ -2,31 +2,38 @@
 reference ``class Tree``, include/LightGBM/tree.h:25-564).
 
 Same flat-array representation and node numbering as the JAX package,
-so trees carry across in both directions (``convert.py``):
+so trees carry across in both directions (``convert.py``) and through
+the model text (``io/model_text.py``):
 
   * internal node ``s`` is created by the ``s``-th split (0-based);
   * child pointers >= 0 reference internal nodes, negative values
     ``~leaf`` reference leaves;
-  * ``decision_type`` bit0 = categorical, bit1 = default_left.
+  * ``decision_type`` bit0 = categorical, bit1 = default_left (bits 2-3,
+    the missing type, are kept apart in ``missing_code`` and joined only
+    in the model text).
 
 The port's grow loop keeps the per-split state on the host, so a tree is
 born as numpy ``TreeArrays`` and becomes a host ``Tree``. Traversals
 (raw values and bins) are vectorized numpy here; the batched device
-predictor lives in ``predictor.py``.
+predictor lives in ``predictor.py``. Categorical nodes come only from
+model text in this slice: the port's learners grow numerical splits.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 
-from ..data.binning import MISSING_NAN, MISSING_NONE, MISSING_ZERO
+from ..data.binning import (BIN_TYPE_CATEGORICAL, MISSING_NAN, MISSING_NONE,
+                            MISSING_ZERO)
+from ..ops.partition import MAX_CAT_WORDS
 
 kCategoricalMask = 1
 kDefaultLeftMask = 2
 
 _MISSING_TYPE_CODE = {MISSING_NONE: 0, MISSING_ZERO: 1, MISSING_NAN: 2}
+_MISSING_TYPE_NAME = {v: k for k, v in _MISSING_TYPE_CODE.items()}
 
 
 class TreeArrays(NamedTuple):
@@ -46,11 +53,16 @@ class TreeArrays(NamedTuple):
     leaf_count: np.ndarray        # f32 [L]
     leaf_parent: np.ndarray       # i32 [L]
     leaf_depth: np.ndarray        # i32 [L]
+    cat_bitsets: Optional[np.ndarray] = None   # u32 [L-1, MAX_CAT_WORDS]
 
 
 class Tree:
     """Host-side tree (numpy arrays): raw-value and bin-space
     traversal, shrinkage and bias."""
+
+    # piecewise-linear leaves are parsed from model text but not
+    # predicted (ROADMAP.md Queue 1 item 7.5)
+    is_linear = False
 
     def __init__(self, arrays: TreeArrays, dataset=None,
                  shrinkage: float = 1.0):
@@ -74,16 +86,19 @@ class Tree:
             a.leaf_count, np.float64)[:ll].astype(np.int64)
         self.leaf_parent = np.asarray(a.leaf_parent, np.int32)[:ll]
         self.leaf_depth = np.asarray(a.leaf_depth, np.int32)[:ll]
+        self.cat_bitsets = np.zeros((n, MAX_CAT_WORDS), np.uint32) \
+            if a.cat_bitsets is None \
+            else np.asarray(a.cat_bitsets, np.uint32)[:n]
         self.shrinkage = float(shrinkage)
+        self.cat_threshold: List[np.ndarray] = [
+            np.zeros(0, np.int64) for _ in range(n)]
         if self.num_leaves > 1 and dataset is not None:
             sfi = self.split_feature_inner
             self.split_feature = np.asarray(
                 [dataset.real_feature_idx[f] for f in sfi], np.int32)
             mappers = [dataset.feature_mapper(int(f)) for f in sfi]
-            # raw-value threshold: the bin's upper bound (Tree::Split
-            # stores RealThreshold via BinToValue, tree.cpp)
             self.threshold = np.asarray(
-                [float(m.bin_upper_bound[int(t)])
+                [_bin_threshold_to_value(m, t)
                  for m, t in zip(mappers, self.threshold_bin)], np.float64)
             self.missing_code = np.asarray(
                 [_MISSING_TYPE_CODE[m.missing_type] for m in mappers],
@@ -91,6 +106,11 @@ class Tree:
             self.num_bin = np.asarray([m.num_bin for m in mappers], np.int32)
             self.default_bin = np.asarray([m.default_bin for m in mappers],
                                           np.int32)
+            # categorical: raw category values on the left side
+            for i, m in enumerate(mappers):
+                if self.decision_type[i] & kCategoricalMask:
+                    self.cat_threshold[i] = _bitset_to_cats(
+                        self.cat_bitsets[i], m)
         else:
             self.split_feature = self.split_feature_inner.copy()
             self.threshold = np.zeros(len(self.split_feature), np.float64)
@@ -111,15 +131,61 @@ class Tree:
         self.internal_value = self.internal_value + val
         self.shrinkage = 1.0
 
+    def default_left(self, node: int) -> bool:
+        return bool(self.decision_type[node] & kDefaultLeftMask)
+
+    def is_categorical(self, node: int) -> bool:
+        return bool(self.decision_type[node] & kCategoricalMask)
+
+    def missing_type(self, node: int) -> str:
+        return _MISSING_TYPE_NAME[int(self.missing_code[node])]
+
+    def leaf_depth_of(self, leaf: int) -> int:
+        return int(self.leaf_depth[leaf])
+
+    def ensure_leaf_depth(self) -> None:
+        """Rebuild ``leaf_depth`` / ``leaf_parent`` from the child arrays
+        when the source did not carry them (the model text does not).
+        Children have larger node indices than their parent (creation
+        order), so one forward pass suffices."""
+        if self.num_leaves <= 1 or self.leaf_depth.max(initial=0) > 0:
+            return
+        node_depth = np.zeros(len(self.left_child), np.int32)
+        for s in range(len(self.left_child)):
+            for child in (int(self.left_child[s]),
+                          int(self.right_child[s])):
+                if child >= 0:
+                    node_depth[child] = node_depth[s] + 1
+                else:
+                    self.leaf_depth[~child] = node_depth[s] + 1
+                    self.leaf_parent[~child] = s
+
     # ------------------------------------------------------------------
     def predict(self, data: np.ndarray) -> np.ndarray:
         """Batch raw-feature prediction (Tree::Predict, tree.h:476)."""
         return self.leaf_value[self.predict_leaf_index(data)]
 
     def predict_leaf_index(self, data: np.ndarray) -> np.ndarray:
-        return self._walk(data.shape[0], lambda idx, nd: decide_raw(
-            data[idx, self.split_feature[nd]], self.threshold[nd],
-            self.decision_type[nd], self.missing_code[nd]))
+        return self._walk(data.shape[0], lambda idx, nd: self._decide(
+            data[idx, self.split_feature[nd]], nd))
+
+    def _decide(self, fval, nodes) -> np.ndarray:
+        """NumericalDecision / CategoricalDecision (tree.h:250-300)."""
+        numeric = decide_raw(fval, self.threshold[nodes],
+                             self.decision_type[nodes],
+                             self.missing_code[nodes])
+        is_cat = (self.decision_type[nodes] & kCategoricalMask) != 0
+        if not is_cat.any():
+            return numeric
+        fval = np.asarray(fval, np.float64)
+        fval = np.where(np.isnan(fval) & (self.missing_code[nodes] != 2),
+                        0.0, fval)
+        cat = np.zeros(len(nodes), bool)
+        for i in np.nonzero(is_cat)[0]:
+            v = fval[i]
+            cat[i] = not np.isnan(v) and int(v) >= 0 \
+                and int(v) in set(self.cat_threshold[nodes[i]].tolist())
+        return np.where(is_cat, cat, numeric)
 
     def predict_leaf_index_binned(self, binned: np.ndarray) -> np.ndarray:
         """Leaf index per row of a train-aligned BINNED matrix."""
@@ -167,6 +233,25 @@ def decide_raw(fval, threshold, decision_type, missing_code) -> np.ndarray:
     return np.where(is_missing, dleft, fval <= threshold)
 
 
+def _bin_threshold_to_value(mapper, threshold_bin: int) -> float:
+    """Bin threshold -> raw-value threshold: the bin's upper bound
+    (Tree::Split stores RealThreshold via BinToValue, tree.cpp); a
+    categorical node keeps its bin."""
+    if mapper.bin_type == BIN_TYPE_CATEGORICAL:
+        return float(threshold_bin)
+    return float(mapper.bin_upper_bound[int(threshold_bin)])
+
+
+def _bitset_to_cats(bitset: np.ndarray, mapper) -> np.ndarray:
+    """Bin-space bitset -> the raw categories of its set bins."""
+    cats = []
+    for b in range(min(mapper.num_bin, 32 * MAX_CAT_WORDS)):
+        if (int(bitset[b // 32]) >> (b % 32)) & 1:
+            if b < len(mapper.bin_2_categorical):
+                cats.append(int(mapper.bin_2_categorical[b]))
+    return np.asarray(cats, np.int64)
+
+
 def constant_tree(output: float) -> Tree:
     """A one-leaf tree with value ``output`` (gbdt.cpp:407-415)."""
     z = np.zeros(1)
@@ -183,31 +268,46 @@ def constant_tree(output: float) -> Tree:
 def tree_from_arrays(num_leaves: int, split_feature, threshold,
                      decision_type, left_child, right_child, leaf_value,
                      missing_code, threshold_bin=None,
-                     split_feature_inner=None) -> Tree:
-    """A predict-ready Tree from plain node arrays (raw-feature split
-    index and threshold per node). ``convert.py`` builds trees carried
-    over from the JAX package with this."""
-    k = max(int(num_leaves) - 1, 1)
+                     split_feature_inner=None, split_gain=None,
+                     internal_value=None, internal_weight=None,
+                     internal_count=None, leaf_weight=None, leaf_count=None,
+                     leaf_parent=None, leaf_depth=None, shrinkage=1.0,
+                     cat_threshold=None) -> Tree:
+    """A Tree from plain node arrays (raw-feature split index and
+    threshold per node). ``convert.py`` builds trees carried over from
+    the JAX package with this; a field not given is zero (the leaf
+    parents -1, the shrinkage 1)."""
+    nl = int(num_leaves)
+    k = max(nl - 1, 1)
     sf = np.asarray(split_feature, np.int32)[:k]
-    zi = np.zeros(k, np.int32)
-    zf = np.zeros(k, np.float64)
-    zl = np.zeros(int(num_leaves), np.float64)
+
+    def node(a, dtype):
+        return np.zeros(k, dtype) if a is None else np.asarray(a, dtype)[:k]
+
+    def leaf(a, dtype, fill=0):
+        return np.full(nl, fill, dtype) if a is None \
+            else np.asarray(a, dtype)[:nl]
     tree = Tree(TreeArrays(
-        num_leaves=int(num_leaves),
+        num_leaves=nl,
         split_feature=sf if split_feature_inner is None
         else np.asarray(split_feature_inner, np.int32)[:k],
-        threshold_bin=zi if threshold_bin is None
-        else np.asarray(threshold_bin, np.int32)[:k],
+        threshold_bin=node(threshold_bin, np.int32),
         decision_type=np.asarray(decision_type, np.int32)[:k],
         left_child=np.asarray(left_child, np.int32)[:k],
         right_child=np.asarray(right_child, np.int32)[:k],
-        split_gain=zf, internal_value=zf, internal_weight=zf,
-        internal_count=zf, leaf_value=np.asarray(leaf_value, np.float64),
-        leaf_weight=zl, leaf_count=zl,
-        leaf_parent=np.full(int(num_leaves), -1, np.int32),
-        leaf_depth=np.zeros(int(num_leaves), np.int32)))
+        split_gain=node(split_gain, np.float32),
+        internal_value=node(internal_value, np.float64),
+        internal_weight=node(internal_weight, np.float64),
+        internal_count=node(internal_count, np.float64),
+        leaf_value=np.asarray(leaf_value, np.float64),
+        leaf_weight=leaf(leaf_weight, np.float64),
+        leaf_count=leaf(leaf_count, np.float64),
+        leaf_parent=leaf(leaf_parent, np.int32, -1),
+        leaf_depth=leaf(leaf_depth, np.int32)), shrinkage=shrinkage)
     tree.split_feature = sf
     tree.threshold = np.asarray(threshold, np.float64)[:k]
     tree.missing_code = np.asarray(missing_code, np.int32)[:k]
+    if cat_threshold is not None:
+        tree.cat_threshold = [np.asarray(c, np.int64)
+                              for c in list(cat_threshold)[:k]]
     return tree
-
