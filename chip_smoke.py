@@ -66,7 +66,32 @@ of the JAX package. Phases, each fatal on failure:
    arrays grow, to the bit. Each training run is driven with the launch
    counts set to 0 just before it and read just after, and must launch
    every kernel of the partitioned fused path. Printed: the write,
-   parse and 2M-row predict times and the files' parse rates (rows/s).
+   parse and 2M-row predict times and the files' parse rates (rows/s);
+9. every objective, valid sets and early stopping: on phase 3's 2M x 28
+   matrix and bins, labels from the generator's latent score plus
+   noise, 255 leaves, lr 0.1, the fused path, with a 500k-row valid set
+   (seed 43) binned with the train set's mappers and evaluated every
+   iteration, runs (a) regression (l2, rmse; ``early_stopping(3)`` and
+   ``record_evaluation``), (b) regression_l1 (l1; the leaf refit on the
+   card), (c) 5-class multiclass on the score's quintiles
+   (multi_logloss, multi_error; 8 iterations = 40 trees), (d) the same
+   at max_bin 1023 (4 iterations, the serial learner) and (e)
+   lambdarank, relevance 0-4 by in-query rank over queries of 10-29
+   documents (ndcg@1,3,5), each driven with the launch counts set to 0
+   just before it and read just after and required to launch every
+   kernel of its fused path. Printed per run: ms/split, gradient ms an
+   iteration, the refit ms a tree (b), the valid walk ms a tree, eval
+   ms an iteration, the launch counts and the valid history. Then run
+   a's best_iteration through its model text on the card (``predict``
+   with no ``num_iteration`` equal to ``predict(num_iteration=
+   best_iteration)`` and to the loaded text's, to the bit); kernels
+   against plain versions at 100k x 28, 3 iterations of a, b, c, e at
+   max_bin 255 and c at 1023 (the same trees, leaf values and valid
+   histories to the bit); and the golden datasets multiclass, rank,
+   regression_l1, monotone and tweedie trained with the reference
+   CLI's ``train_params``, their held-out loss within
+   ``tests/test_golden_parity.py``'s margins of the reference's
+   recorded predictions (NDCG@5 at least the reference's minus 0.02).
 
 The second-to-last line of output is the per-kernel JSON record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -98,8 +123,9 @@ KERNEL_NAMES = {"hist_segment": ("hist_partial", "hist_reduce"),
                 "hist_rows": ("hist_rows",)}
 
 
-def higgs_like(n: int, f: int = F, seed: int = 42):
-    """The synthetic Higgs-shaped problem of bench.py (seed 42)."""
+def higgs_latent(n: int, f: int = F, seed: int = 42):
+    """The synthetic Higgs-shaped problem of bench.py (seed 42): the
+    matrix and its latent score plus noise, float32."""
     rng = np.random.RandomState(seed)
     X = rng.randn(n, f).astype(np.float32)
 
@@ -108,8 +134,14 @@ def higgs_like(n: int, f: int = F, seed: int = 42):
 
     logit = (2.0 * c(0) - 1.5 * c(1) + c(2) * c(3)
              + 0.8 * c(4) * c(5) - c(6))
-    y = (logit + rng.randn(n).astype(np.float32) > 0).astype(np.float32)
-    return X, y
+    return X, logit + rng.randn(n).astype(np.float32)
+
+
+def higgs_like(n: int, f: int = F, seed: int = 42):
+    """The Higgs-shaped binary problem: label 1 where the latent score
+    plus noise is positive."""
+    X, z = higgs_latent(n, f, seed)
+    return X, (z > 0).astype(np.float32)
 
 
 def auc(y: np.ndarray, s: np.ndarray) -> float:
@@ -1384,6 +1416,377 @@ def model_file_phase(bst, ds, X, params, dev):
     return out
 
 
+# ---- phase 9: every objective, valid sets and early stopping ---------
+OBJECTIVE_RUNS = (
+    # (run, objective, max_bin, iterations, metric)
+    ("a", "regression", 255, 8, "l2,rmse"),
+    ("b", "regression_l1", 255, 8, "l1"),
+    ("c", "multiclass", 255, 8, "multi_logloss,multi_error"),
+    ("d", "multiclass", 1023, 4, "multi_logloss,multi_error"),
+    ("e", "lambdarank", 255, 8, "ndcg"),
+)
+PATH_KERNELS = {255: FUSED_SEGMENT_PATH,
+                1023: ("hist_rows", "split_scan", "fused_split_step_leaf")}
+
+
+def query_sizes(n, seed, lo=10, hi=30):
+    """Queries of lo to hi - 1 documents covering n rows (the shape of
+    examples/lambdarank/gen_data.py); the last one takes the rest."""
+    sizes = np.random.RandomState(seed).randint(lo, hi, n // lo + 1)
+    cum = np.cumsum(sizes)
+    k = int(np.searchsorted(cum, n))
+    sizes = sizes[:k + 1].copy()
+    sizes[-1] -= cum[k] - n
+    return sizes[sizes > 0]
+
+
+def objective_labels(objective, z, group=None):
+    """A run's labels from the latent score plus noise: the score itself
+    (regression), its quintiles (multiclass), or relevance 0-4 by its
+    rank inside the query (lambdarank)."""
+    if objective.startswith("regression"):
+        return z.astype(np.float64)
+    if objective == "multiclass":
+        return np.digitize(z, np.quantile(z, [0.2, 0.4, 0.6, 0.8])).astype(
+            np.float64)
+    qid = np.repeat(np.arange(len(group)), group)
+    start = np.repeat(np.cumsum(group) - group, group)
+    order = np.lexsort((z, qid))
+    rank = np.empty(len(z), np.int64)
+    rank[order] = np.arange(len(z)) - start[order]
+    return np.clip(rank * 5 // np.repeat(group, group), 0, 4).astype(
+        np.float64)
+
+
+def relabeled(binned, label, group=None):
+    """A binned dataset under other labels and query groups: the bins
+    depend only on the matrix and max_bin, so a run reuses them."""
+    import copy
+    from lightgbm_tpu_torch.data.dataset import Metadata
+    out = copy.copy(binned)
+    out.metadata = Metadata(binned.num_data)
+    out.metadata.set_label(label)
+    out.metadata.set_query(group)
+    return out
+
+
+def labeled_sets(binned, vbinned, X, Xv, objective, z, zv, groups):
+    """The train and valid ``lt.Dataset`` of one run over bins made
+    once (the valid bins with ``reference=`` the train set)."""
+    import lightgbm_tpu_torch as lt
+    group, vgroup = groups if objective == "lambdarank" else (None, None)
+    y = objective_labels(objective, z, group)
+    yv = objective_labels(objective, zv, vgroup)
+    tr = lt.Dataset(X, label=y, group=group)
+    tr._binned = relabeled(binned, y, group)
+    va = tr.create_valid(Xv, label=yv, group=vgroup)
+    va._binned = relabeled(vbinned, yv, vgroup)
+    return tr, va
+
+
+class DeviceTimer:
+    """CUDA events around every call of a function; summed after one
+    synchronisation."""
+
+    def __init__(self):
+        self.pairs = []
+
+    def wrap(self, fn):
+        import torch
+
+        def timed(*a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            self.pairs.append(ev)
+            return out
+        return timed
+
+    def ms(self):
+        import torch
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def objective_run(run, params, tr, va, iters, dev, early_stop=False):
+    """One phase-9 run through ``lt.train`` with a valid set, the launch
+    counts set to 0 just before it and read just after, and CUDA events
+    around the gradients, the L1 refit, each valid-set walk of a tree
+    and each evaluation. Returns the booster, its numbers and its valid
+    history."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.models.tree import Tree
+    from lightgbm_tpu_torch.ops import _native
+    timers = {k: DeviceTimer() for k in ("grad", "refit", "walk", "eval")}
+
+    def instrument(env):
+        g = env.model._gbdt
+        if not hasattr(g, "_timed"):
+            g._timed = True
+            g.gradients = timers["grad"].wrap(g.gradients)
+            g.eval_sets = timers["eval"].wrap(g.eval_sets)
+            if g.objective.is_renew_tree_output:
+                g.objective.renew_tree_output = timers["refit"].wrap(
+                    g.objective.renew_tree_output)
+    instrument.before_iteration = True
+    hist = {}
+    callbacks = [instrument, lt.record_evaluation(hist)]
+    if early_stop:
+        callbacks.append(lt.early_stopping(3, verbose=False))
+    walk = Tree.predict_binned_add
+    Tree.predict_binned_add = timers["walk"].wrap(walk)
+    try:
+        _native.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst = lt.train(params, tr, iters, valid_sets=[va],
+                       valid_names=["valid"], callbacks=callbacks,
+                       verbose_eval=False, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        Tree.predict_binned_add = walk
+    launches = dict(_native.LAUNCHES)
+    trees = len(bst.models)
+    its = bst.current_iteration()
+    splits = sum(t.num_leaves - 1 for t in bst.models)
+    info = dict(wall_s=wall, trees=trees, iterations=its, splits=splits,
+                ms_per_split=wall / max(splits, 1) * 1e3,
+                grad_ms_per_iter=timers["grad"].ms() / max(its, 1),
+                walk_ms_per_tree=timers["walk"].ms() / max(trees, 1),
+                eval_ms_per_iter=timers["eval"].ms() / max(its, 1),
+                launches=launches)
+    if timers["refit"].pairs:
+        info["refit_ms_per_tree"] = timers["refit"].ms() / trees
+    for name in PATH_KERNELS[int(params["max_bin"])]:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by run {run}")
+    if not bst._gbdt.learner.fused:
+        fail(f"run {run} did not take the fused path")
+    return bst, info, hist["valid"]
+
+
+def objectives_phase(X, binned, binned_wide, dev):
+    """Phase 9: runs a-e at 2M x 28 (255 leaves, lr 0.1, the fused
+    path), each with a 500k-row valid set; run a's early stopping and
+    model text; kernels against plain versions for every new objective
+    at 100k x 28; the golden datasets' quality against the reference
+    CLI's predictions."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    n = X.shape[0]
+    t0 = time.perf_counter()
+    _, z = higgs_latent(n)
+    Xv, zv = higgs_latent(n // 4, seed=43)
+    groups = (query_sizes(n, 44), query_sizes(len(zv), 45))
+    vbins = {}
+    for max_bin, b in ((255, binned), (1023, binned_wide)):
+        base = lt.Dataset(X)
+        base._binned = b
+        vbins[max_bin] = base.create_valid(Xv).construct(
+            lt.Config.from_params({"max_bin": max_bin, "verbosity": -1}))
+    print(f"[objectives] labels, {len(groups[0])} train and "
+          f"{len(groups[1])} valid queries, {len(zv)} valid rows binned at "
+          f"max_bin 255 and 1023 in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    run_a = None
+    for run, objective, max_bin, iters, metric in OBJECTIVE_RUNS:
+        params = {"objective": objective, "num_leaves": 255,
+                  "learning_rate": 0.1, "max_bin": max_bin,
+                  "metric": metric, "verbosity": -1}
+        if objective == "multiclass":
+            params["num_class"] = 5
+        if objective == "lambdarank":
+            params["eval_at"] = [1, 3, 5]
+        tr, va = labeled_sets(binned if max_bin == 255 else binned_wide,
+                              vbins[max_bin], X, Xv, objective, z, zv,
+                              groups)
+        bst, info, hist = objective_run(run, params, tr, va, iters, dev,
+                                        early_stop=run == "a")
+        info["history"] = hist
+        out[run] = info
+        extra = f", refit {info['refit_ms_per_tree']:.3f} ms a tree" \
+            if "refit_ms_per_tree" in info else ""
+        print(f"[objectives {run}] {objective} max_bin {max_bin} "
+              f"({type(bst._gbdt.learner).__name__}): {info['iterations']} "
+              f"iterations, {info['trees']} trees, {info['splits']} splits "
+              f"in {info['wall_s']:.2f} s = {info['ms_per_split']:.4f} "
+              f"ms/split; gradients {info['grad_ms_per_iter']:.3f} ms an "
+              f"iteration{extra}; valid walk {info['walk_ms_per_tree']:.3f} "
+              f"ms a tree; eval {info['eval_ms_per_iter']:.3f} ms an "
+              f"iteration; launches {info['launches']}")
+        print(f"[objectives {run}] valid history {json.dumps(hist)}")
+        for name, vals in hist.items():
+            if len(vals) != info["iterations"] \
+                    or not np.isfinite(vals).all():
+                fail(f"run {run}'s valid {name} history is not one finite "
+                     "value an iteration")
+        if run == "a":
+            run_a = (bst, Xv[:100_000])
+        else:
+            del bst
+        del tr, va
+        torch.cuda.empty_cache()
+    out["early_stopping"] = early_stopping_check(*run_a)
+    del run_a
+    torch.cuda.empty_cache()
+    out["parity"] = objective_parity(dev)
+    out["golden"] = golden_quality(dev)
+    return out
+
+
+def early_stopping_check(bst, Xq):
+    """Run a's best_iteration through the model text on the card, and
+    ``predict`` with no ``num_iteration`` at best_iteration."""
+    import lightgbm_tpu_torch as lt
+    best = bst.best_iteration
+    loaded = lt.Booster(model_str=bst.model_to_string())
+    at_best = bst.predict(Xq, num_iteration=best)
+    same = np.array_equal(bst.predict(Xq), at_best) \
+        and np.array_equal(loaded.predict(Xq), at_best)
+    print(f"[objectives a] best_iteration {best} of "
+          f"{bst.current_iteration()}; the loaded text holds "
+          f"{loaded.current_iteration()} iterations; predict() = "
+          f"predict(num_iteration={best}) = loaded predict(): {same}")
+    if best < 1 or loaded.current_iteration() != best or not same:
+        fail("run a's best_iteration did not survive the model text")
+    return {"best_iteration": best,
+            "iterations": bst.current_iteration()}
+
+
+def objective_parity(dev):
+    """Kernels against plain versions at 100k x 28, 3 iterations, for
+    runs a, b, c, e at max_bin 255 and c at 1023: the same trees, leaf
+    values equal to the bit, and the same valid histories to the bit."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    Xp, zp = higgs_latent(100_000, seed=3)
+    Xpv, zpv = higgs_latent(20_000, seed=4)
+    groups = (query_sizes(len(zp), 46), query_sizes(len(zpv), 47))
+    out = {}
+    for max_bin, runs in ((255, "abce"), (1023, "c")):
+        cfg = lt.Config.from_params({"max_bin": max_bin, "verbosity": -1})
+        base = lt.Dataset(Xp)
+        binned = base.construct(cfg)
+        vbinned = base.create_valid(Xpv).construct(cfg)
+        for run, objective, _, _, metric in OBJECTIVE_RUNS:
+            if run not in runs:
+                continue
+            t0 = time.perf_counter()
+            params = {"objective": objective, "num_leaves": 255,
+                      "learning_rate": 0.1, "max_bin": max_bin,
+                      "metric": metric, "verbosity": -1}
+            if objective == "multiclass":
+                params["num_class"] = 5
+            res = {}
+            for ops in ("kernel", "plain"):
+                tr, va = labeled_sets(binned, vbinned, Xp, Xpv, objective,
+                                      zp, zpv, groups)
+                hist = {}
+                b = lt.train(params, tr, 3, valid_sets=[va],
+                             valid_names=["valid"], evals_result=hist,
+                             verbose_eval=False, device=dev, ops=ops)
+                res[ops] = (b, hist["valid"])
+            (kb, kh), (pb, ph) = res["kernel"], res["plain"]
+            same = len(kb.models) == len(pb.models) and all(
+                tree_sig(a) == tree_sig(c)
+                for a, c in zip(kb.models, pb.models))
+            diff = max(float(np.abs(a.leaf_value - c.leaf_value).max())
+                       for a, c in zip(kb.models, pb.models))
+            key = f"{run} max_bin {max_bin}"
+            out[key] = dict(trees=len(kb.models), same=same,
+                            leaf_value_diff=diff, history_equal=kh == ph,
+                            seconds=time.perf_counter() - t0)
+            print(f"[objectives parity] {key} ({objective}, "
+                  f"{type(kb._gbdt.learner).__name__}, kernel fused "
+                  f"{kb._gbdt.learner.fused}): {len(kb.models)} trees, "
+                  f"structure equal {same}, max leaf value diff {diff:.3g}, "
+                  f"valid histories equal {kh == ph} in "
+                  f"{out[key]['seconds']:.1f} s")
+            if not same or diff != 0 or kh != ph:
+                fail(f"kernel and plain runs differ for run {key}")
+            del kb, pb, res
+            torch.cuda.empty_cache()
+    return out
+
+
+GOLDEN_QUALITY = {"multiclass": 0.05, "regression_l1": 0.05,
+                  "monotone": 0.05, "tweedie": 0.10, "rank": None}
+
+
+def golden_loss(objective, spec, p, y):
+    """The held-out loss of tests/test_golden_parity.py."""
+    p = np.asarray(p)
+    if objective == "multiclass":
+        p = np.clip(p.reshape(len(y), -1), 1e-12, None)
+        return -np.mean(np.log(p[np.arange(len(y)), y.astype(int)]))
+    if objective == "tweedie":
+        rho = float(spec.get("tweedie_variance_power", 1.5))
+        mu = np.clip(p.reshape(-1), 1e-9, None)
+        return np.mean(2 * (
+            np.where(y > 0, np.maximum(y, 1e-9) ** (2 - rho)
+                     / ((1 - rho) * (2 - rho)), 0.0)
+            - y * mu ** (1 - rho) / (1 - rho) + mu ** (2 - rho) / (2 - rho)))
+    return np.mean(np.abs(p.reshape(-1) - y))
+
+
+def golden_quality(dev):
+    """The golden datasets trained on the card with the reference
+    model's train_params; held-out loss within the margins of
+    tests/test_golden_parity.py of the reference's recorded predictions
+    (NDCG@5 at least the reference's minus 0.02)."""
+    import os
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.data.dataset import Metadata
+    from lightgbm_tpu_torch.metric.rank_metrics import NDCGMetric
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tests"))
+    from golden_common import DATASETS
+    out = {}
+    for name, tol in GOLDEN_QUALITY.items():
+        spec = dict(kv.split("=", 1) for kv in DATASETS[name]["train_params"])
+        n_trees = int(spec.pop("num_trees"))
+        Xtr, ytr, Xte, yte = DATASETS[name]["make"]()
+        ref = np.loadtxt(os.path.join(here, "tests", "fixtures", "golden",
+                                      f"pred_{name}.txt"))
+        group = None
+        if "make_query" in DATASETS[name]:
+            group, qte = DATASETS[name]["make_query"]()
+        bst = lt.train(spec, lt.Dataset(Xtr, label=ytr, group=group),
+                       n_trees, device=dev)
+        pred = bst.predict(Xte)
+        if tol is None:
+            md = Metadata(len(yte))
+            md.set_label(yte)
+            md.set_query(qte)
+            metric = NDCGMetric(lt.Config.from_params(
+                {"objective": "lambdarank", "eval_at": [5]}))
+            metric.init(md, len(yte), dev)
+
+            def ndcg5(sc):
+                t = torch.as_tensor(np.asarray(sc).reshape(-1),
+                                    device=dev)
+                return float(metric.eval(t, t)[0])
+            ours, theirs = ndcg5(pred), ndcg5(ref)
+            ok = ours > theirs - 0.02
+            what = "NDCG@5"
+        else:
+            ours = golden_loss(spec["objective"], spec, pred, yte)
+            theirs = golden_loss(spec["objective"], spec, ref, yte)
+            ok = ours < theirs * (1 + tol)
+            what = f"loss (margin {tol:.0%})"
+        out[name] = {"ours": ours, "reference": theirs}
+        print(f"[objectives golden] {name}: {what} ours {ours:.6f}, "
+              f"reference CLI {theirs:.6f}")
+        if not ok:
+            fail(f"golden {name}: {what} {ours} against the reference's "
+                 f"{theirs}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=2_000_000)
@@ -1548,7 +1951,7 @@ def main() -> int:
     pred = serial_bst.predict(X[:100_000], raw_score=True)
     if pred.shape != (100_000,) or not np.isfinite(pred).all():
         fail("full-width serial predictions are not finite")
-    del serial_bst, ds_wide, binned_wide
+    del serial_bst, ds_wide
     torch.cuda.empty_cache()
     launches = {name: 0 for name in _native.LAUNCHES}
     launches.update(hist_segment=part_fused["hist_segment"],
@@ -1564,7 +1967,6 @@ def main() -> int:
     t0 = time.perf_counter()
     leaf_vs_segment(binned, params, dev)
     print(f"[leaf vs segment] done in {time.perf_counter() - t0:.1f} s")
-    del binned
     torch.cuda.empty_cache()
 
     # ---- 6. quality ----------------------------------------------------
@@ -1625,6 +2027,13 @@ def main() -> int:
     model_file_phase(fused_bst, ds, X, params, dev)
     print(f"[model file] done in {time.perf_counter() - t0:.1f} s")
     del fused_bst, ds
+    torch.cuda.empty_cache()
+
+    # ---- 9. every objective, valid sets and early stopping ------------
+    t0 = time.perf_counter()
+    objectives_phase(X, binned, binned_wide, dev)
+    print(f"[objectives] done in {time.perf_counter() - t0:.1f} s")
+    del binned, binned_wide
     torch.cuda.empty_cache()
 
     sources = {

@@ -1,18 +1,23 @@
 """PyTorch/CUDA port of lightgbm_tpu for one Hopper GPU.
 
 The JAX package (``lightgbm_tpu``) stays the reference; this package
-imports neither it nor ``jax``. Binary training on a dense numeric
-matrix of up to 1024 bins per feature: the partitioned learner for bins
-that fit a byte, the serial (leaf_id) learner past that, with the
-segment histogram, segment partition, split scan and both fused split
-steps as hand-written CUDA kernels (``csrc/``), each beside its plain
-PyTorch version. Models go in and out as the reference's model text
-(``io/model_text.py``): a loaded model predicts on the card and seeds
-continued training (``train(..., init_model=)``); training data may be a
-CSV / TSV / LibSVM file (``data/file_loader.py``).
+imports neither it nor ``jax``. Training of every objective of the JAX
+package (regression family, binary, multiclass, cross-entropy, ranking,
+or a custom ``fobj``) with valid sets, metrics, callbacks and early
+stopping, on a dense numeric matrix of up to 1024 bins per feature:
+the partitioned learner for bins that fit a byte, the serial (leaf_id)
+learner past that, with the segment histogram, segment partition,
+split scan and both fused split steps as hand-written CUDA kernels
+(``csrc/``), each beside its plain PyTorch version. Models go in and
+out as the reference's model text (``io/model_text.py``): a loaded
+model predicts on the card and seeds continued training
+(``train(..., init_model=)``); training data may be a CSV / TSV /
+LibSVM file (``data/file_loader.py``).
 """
 
 from .basic import Booster, Dataset
+from .callback import (EarlyStopException, early_stopping, print_evaluation,
+                       record_evaluation, reset_parameter)
 from .config import Config
 from .engine import train
 from .utils.device import resolve_device

@@ -1,12 +1,15 @@
 """User-facing ``Dataset`` and ``Booster`` (port of the training,
-predict and model IO surface of ``lightgbm_tpu/basic.py``).
+evaluation, predict and model IO surface of ``lightgbm_tpu/basic.py``).
 
 ``Dataset`` holds the raw arrays, or the path of a CSV / TSV / LibSVM
 file, until training constructs the binned dataset with the booster's
-parameters (the reference's lazy construction). ``Booster`` trains on
-one device, or holds a model loaded from text (``model_file`` /
-``model_str``), and predicts through ``predictor.py`` on its device:
-the card unless ``device`` says otherwise.
+parameters (the reference's lazy construction); a valid set is binned
+with its training set's mappers. ``Booster`` trains on one device, with
+valid sets and evaluation, or holds a model loaded from text
+(``model_file`` / ``model_str``), and predicts through ``predictor.py``
+on its device: the card unless ``device`` says otherwise. After early
+stopping, ``predict``, ``model_to_string`` and ``save_model`` default
+to ``best_iteration``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from .models.gbdt import GBDT
 from .objective import create_objective
 from .predictor import predict as _predict
 from .utils.device import resolve_device
+from .utils.log import LightGBMError
 
 SPARSE_PREDICT_CHUNK_ROWS = 65536
 
@@ -41,14 +45,17 @@ def _is_sparse(data) -> bool:
 class Dataset:
     """Raw training data + label, binned on first use. ``data`` is a
     dense matrix or the path of a text file (``data/file_loader.py``),
-    whose label, weight, init score and header names fill what the
-    caller did not give."""
+    whose label, weight, query groups, init score and header names fill
+    what the caller did not give. A dataset with a ``reference`` (a
+    valid set) is binned with the reference's mappers."""
 
-    def __init__(self, data, label=None, weight=None, group=None,
-                 init_score=None, feature_name: Optional[List[str]] = None,
+    def __init__(self, data, label=None, reference: Optional["Dataset"]
+                 = None, weight=None, group=None, init_score=None,
+                 feature_name: Optional[List[str]] = None,
                  params: Optional[Dict[str, Any]] = None):
         self.data = data
         self.label = label
+        self.reference = reference
         self.weight = weight
         self.group = group
         self.init_score = init_score
@@ -88,16 +95,43 @@ class Dataset:
     def construct(self, config: Config) -> _BinnedDataset:
         if self._binned is None:
             X = self.raw_matrix(config)
-            if self.group is not None:
-                raise NotImplementedError(
-                    "query groups need the ranking objectives (ROADMAP.md "
-                    "Queue 1 item 2.4)")
+            ref = None
+            if self.reference is not None:
+                ref = self.reference.construct(config)
             self._binned = _BinnedDataset.from_numpy(
                 X, config, label=self.label, weight=self.weight,
-                init_score=self.init_score,
-                feature_names=self.feature_name,
-                forced_bins=load_forced_bins(config.forcedbins_filename))
+                group=self.group, init_score=self.init_score,
+                feature_names=self.feature_name, reference=ref,
+                forced_bins=None if ref is not None
+                else load_forced_bins(config.forcedbins_filename))
         return self._binned
+
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
+        """A valid set binned with this dataset's mappers
+        (basic.py:996-1022)."""
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       group=group, init_score=init_score,
+                       feature_name=self.feature_name,
+                       params=params or self.params)
+
+    def set_group(self, group) -> "Dataset":
+        self.group = group
+        if self._binned is not None:
+            self._binned.metadata.set_query(group)
+        return self
+
+    def get_group(self):
+        if self._binned is not None \
+                and self._binned.metadata.query_boundaries is not None:
+            return np.diff(self._binned.metadata.query_boundaries)
+        return self.group
+
+    def get_label(self):
+        if self._binned is not None \
+                and self._binned.metadata.label is not None:
+            return self._binned.metadata.label
+        return self.label
 
 
 class Booster:
@@ -112,8 +146,14 @@ class Booster:
         self.params = dict(params or {})
         self.config = Config.from_params(self.params)
         self.device = resolve_device(device)
+        self.best_iteration = -1
+        self.best_score: Dict = {}
+        self._train_data_name = "training"
         self._gbdt: Optional[GBDT] = None
         self._loaded: Optional[LoadedBooster] = None
+        self.train_set = train_set
+        self.valid_sets: List[Dataset] = []
+        self.name_valid_sets: List[str] = []
         if train_set is not None:
             merged = dict(train_set.params)
             merged.update(self.params)
@@ -150,9 +190,105 @@ class Booster:
     def models(self) -> List:
         return self._src().models
 
-    def update(self) -> bool:
-        """One boosting iteration; True when training should stop."""
-        return self._gbdt.train_one_iter()
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        """Evaluate ``data`` (binned with the training set's mappers)
+        after every iteration under ``name``."""
+        if self._gbdt is None:
+            raise LightGBMError("Booster was loaded from a model file; "
+                                "cannot add validation data")
+        if data.reference is None:
+            data.reference = self.train_set
+        self._gbdt.add_valid(data.construct(self.config), name)
+        self.valid_sets.append(data)
+        self.name_valid_sets.append(name)
+        return self
+
+    def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
+        """Change parameters mid training (the ``reset_parameter``
+        callback): the learning rate takes effect from the next tree."""
+        self.params.update(params)
+        if self._gbdt is not None:
+            if "learning_rate" in params:
+                self._gbdt.shrinkage_rate = float(params["learning_rate"])
+            self.config = Config.from_params(
+                {**self.train_set.params, **self.params})
+            self._gbdt.config = self.config
+        return self
+
+    def update(self, train_set: Optional[Dataset] = None,
+               fobj=None) -> bool:
+        """One boosting iteration, with the objective's gradients or
+        ``fobj(raw_train_score, train_set) -> (grad, hess)``; True when
+        training should stop."""
+        if self._gbdt is None:
+            raise LightGBMError("Cannot update a loaded-model Booster")
+        if train_set is not None and train_set is not self.train_set:
+            raise LightGBMError("change of train set is not supported; "
+                                "create a new Booster")
+        if fobj is None:
+            return self._gbdt.train_one_iter()
+        grad, hess = fobj(self._inner_predict_train(), self.train_set)
+        return self._gbdt.train_one_iter(grad, hess)
+
+    def _inner_predict_train(self) -> np.ndarray:
+        """The raw train scores, float64: [N], or the reference's flat
+        k blocks of N."""
+        sc = self._gbdt.train_score.cpu().numpy().astype(np.float64)
+        return sc[:, 0] if sc.shape[1] == 1 else sc.T.reshape(-1)
+
+    # ------------------------------------------------------------------
+    def eval(self, data: Dataset, name: str, feval=None) -> List:
+        """Evaluate the training set or an added valid set."""
+        if data is self.train_set:
+            return self.eval_train(feval)
+        for i, vd in enumerate(self.valid_sets):
+            if vd is data:
+                return self._eval_jobs(
+                    [(self._gbdt.valid_metrics[i],
+                      self._gbdt.valid_scores[i], name, data)], feval)
+        raise LightGBMError("Data should be train set or a set added by "
+                            "add_valid")
+
+    def eval_train(self, feval=None) -> List:
+        return self.eval_all(feval, include_train=True, include_valid=False)
+
+    def eval_valid(self, feval=None) -> List:
+        return self.eval_all(feval, include_train=False)
+
+    def eval_all(self, feval=None, include_train: bool = True,
+                 include_valid: bool = True) -> List:
+        """(dataset, metric, value, bigger_better) of the training set
+        and every valid set, with one host read of the metric values."""
+        g = self._gbdt
+        jobs = []
+        if include_train:
+            if not g.training_metrics:
+                g.training_metrics = g._metrics_for(g.train_data)
+            jobs.append((g.training_metrics, g.train_score,
+                         self._train_data_name, self.train_set))
+        if include_valid:
+            jobs += list(zip(g.valid_metrics, g.valid_scores,
+                             self.name_valid_sets, self.valid_sets))
+        return self._eval_jobs(jobs, feval)
+
+    def _eval_jobs(self, jobs, feval) -> List:
+        g = self._gbdt
+        rows = g.eval_sets([(m, sc, name) for m, sc, name, _ in jobs])
+        out = []
+        for metrics, score, name, dataset in jobs:
+            n = sum(len(m.names) for m in metrics)
+            out += rows[:n]
+            rows = rows[n:]
+            if feval is not None:
+                flat = score.cpu().numpy().astype(np.float64)
+                flat = flat[:, 0] if flat.shape[1] == 1 \
+                    else flat.T.reshape(-1)
+                res = feval(flat, dataset)
+                if res is not None:
+                    for mname, v, bigger in ([res] if isinstance(res, tuple)
+                                             else res):
+                        out.append((name, mname, v, bigger))
+        return out
 
     def current_iteration(self) -> int:
         return self._src().num_iterations_trained
@@ -190,6 +326,8 @@ class Booster:
             raise NotImplementedError(
                 "pred_early_stop is not ported yet (ROADMAP.md Queue 1 "
                 "item 6)")
+        if num_iteration is None and self.best_iteration > 0:
+            num_iteration = self.best_iteration
         kw = dict(num_iteration=num_iteration,
                   start_iteration=start_iteration, raw_score=raw_score,
                   pred_leaf=pred_leaf)
@@ -204,11 +342,13 @@ class Booster:
     # ------------------------------------------------------------------
     def model_to_string(self, num_iteration: Optional[int] = None,
                         start_iteration: int = 0) -> str:
-        """The model text, with the ``pandas_categorical`` trailer line
-        the JAX Booster appends (no pandas categories: ``[]``)."""
+        """The model text (of the iterations up to ``best_iteration``
+        unless ``num_iteration`` says otherwise), with the
+        ``pandas_categorical`` trailer line the JAX Booster appends (no
+        pandas categories: ``[]``)."""
         text = save_model_to_string(
             self._src(), start_iteration,
-            num_iteration if num_iteration is not None else -1)
+            self._iterations(num_iteration))
         return text + "\npandas_categorical:" + json.dumps([]) + "\n"
 
     def save_model(self, filename: str,
@@ -221,8 +361,12 @@ class Booster:
     def dump_model(self, num_iteration: Optional[int] = None,
                    start_iteration: int = 0) -> Dict:
         return json.loads(dump_model_json(
-            self._src(), start_iteration,
-            num_iteration if num_iteration is not None else -1))
+            self._src(), start_iteration, self._iterations(num_iteration)))
+
+    def _iterations(self, num_iteration: Optional[int]) -> int:
+        if num_iteration is not None:
+            return num_iteration
+        return self.best_iteration if self.best_iteration > 0 else -1
 
     def feature_importance(self, importance_type: str = "split",
                            iteration: Optional[int] = None) -> np.ndarray:

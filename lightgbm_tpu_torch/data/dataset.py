@@ -8,10 +8,13 @@ arrays. The device copy is a ``torch`` tensor on the caller's device
 (``binned_device``) instead of a lazily uploaded jax array.
 
 Forced bin bounds come from a ``forcedbins_filename`` JSON
-(``load_forced_bins``). Out of this slice (``NotImplementedError``
-naming the ROADMAP item): categorical features, EFB plans that bundle
-features or go multi-val, linear trees and the sparse / two-round /
-streaming loaders.
+(``load_forced_bins``). A valid set is binned with its training set's
+mappers (``reference=``, the JAX package's ``CreateValid`` path:
+``values_to_bins`` through the same bins, no bin search), and query
+groups fill ``Metadata`` (``set_query``). Out of this slice
+(``NotImplementedError`` naming the ROADMAP item): categorical features,
+EFB plans that bundle features or go multi-val, linear trees and the
+sparse / two-round / streaming loaders.
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ class Metadata:
         self.num_data = num_data
         self.label: Optional[np.ndarray] = None          # float32 [N]
         self.weights: Optional[np.ndarray] = None        # float32 [N]
+        self.query_boundaries: Optional[np.ndarray] = None  # int32 [nq+1]
+        self.query_weights: Optional[np.ndarray] = None  # float32 [nq]
         self.init_score: Optional[np.ndarray] = None     # float64 [N*k]
 
     def set_label(self, label: Sequence[float]) -> None:
@@ -69,6 +74,41 @@ class Metadata:
             log_fatal(f"Length of weights ({len(weights)}) doesn't match "
                       f"num_data ({self.num_data})")
         self.weights = weights
+        self._update_query_weights()
+
+    def set_query(self, group: Optional[Sequence[int]]) -> None:
+        """Query structure from per-query sizes (the ``.query`` file /
+        ``set_group`` convention); boundary arrays (first element 0,
+        last num_data, nondecreasing) are accepted when they cannot be
+        row counts."""
+        if group is None:
+            self.query_boundaries = None
+            self.query_weights = None
+            return
+        group = np.asarray(group, dtype=np.int64).ravel()
+        if len(group) == 0:
+            log_fatal("group/query must be non-empty")
+        if group.sum() == self.num_data:
+            boundaries = np.concatenate([[0], np.cumsum(group)])
+        elif group[0] == 0 and group[-1] == self.num_data \
+                and (np.diff(group) >= 0).all():
+            boundaries = group
+        else:
+            log_fatal("Sum of query counts doesn't match num_data")
+        self.query_boundaries = boundaries.astype(np.int32)
+        self._update_query_weights()
+
+    def _update_query_weights(self) -> None:
+        # metadata.cpp: a query's weight is the mean of its rows' weights
+        if self.weights is not None and self.query_boundaries is not None:
+            qb = self.query_boundaries
+            sums = np.add.reduceat(self.weights, qb[:-1])
+            self.query_weights = (sums / np.maximum(np.diff(qb), 1)
+                                  ).astype(np.float32)
+
+    def num_queries(self) -> int:
+        return 0 if self.query_boundaries is None \
+            else len(self.query_boundaries) - 1
 
     def set_init_score(self, init_score: Optional[Sequence[float]]) -> None:
         if init_score is None:
@@ -138,7 +178,9 @@ class Dataset:
                    feature_names: Optional[List[str]] = None,
                    categorical_features: Sequence[int] = (),
                    bin_mappers: Optional[List[BinMapper]] = None,
-                   forced_bins: Optional[Dict[int, List[float]]] = None
+                   forced_bins: Optional[Dict[int, List[float]]] = None,
+                   group: Optional[Sequence[int]] = None,
+                   reference: Optional["Dataset"] = None
                    ) -> "Dataset":
         """Bin a raw dense feature matrix (CostructFromSampleData,
         dataset_loader.cpp:528-712, + ExtractFeatures push loop).
@@ -147,7 +189,9 @@ class Dataset:
         carried over from the JAX package by ``convert.py``) instead of
         finding bins, so both packages bin a matrix identically.
         ``forced_bins`` maps a feature to the bin upper bounds its bins
-        must keep (``load_forced_bins``)."""
+        must keep (``load_forced_bins``). ``reference`` (a valid set's
+        training set) gives its whole layout: mappers, used features,
+        monotone types and penalties; the rows go through its bins."""
         if len(categorical_features):
             raise NotImplementedError(
                 "categorical features are not in the port's first slice "
@@ -171,7 +215,10 @@ class Dataset:
         self.feature_names = feature_names or [
             f"Column_{i}" for i in range(num_features)]
 
-        if bin_mappers is not None:
+        if reference is not None:
+            # valid set aligned with train (CreateValid, dataset.cpp:703)
+            self._copy_layout_from(reference)
+        elif bin_mappers is not None:
             if len(bin_mappers) != num_features:
                 log_fatal(f"{len(bin_mappers)} bin mappers for "
                           f"{num_features} features")
@@ -179,15 +226,30 @@ class Dataset:
             self._finalize_used_features()
         else:
             self._find_bins(data, config, forced_bins)
-        self._resolve_monotone_and_penalty(config)
+        if reference is None:
+            self._resolve_monotone_and_penalty(config)
         self._extract_features(data)
-        self._check_bundles(config)
+        if reference is None:
+            self._check_bundles(config)
         self.metadata.num_data = n
         if label is not None:
             self.metadata.set_label(label)
         self.metadata.set_weights(weight)
+        self.metadata.set_query(group)
         self.metadata.set_init_score(init_score)
         return self
+
+    def _copy_layout_from(self, ref: "Dataset") -> None:
+        if self.num_total_features != ref.num_total_features:
+            log_fatal(f"The validation data has {self.num_total_features} "
+                      f"features but the training data "
+                      f"{ref.num_total_features}")
+        self.bin_mappers = list(ref.bin_mappers)
+        self.used_feature_map = list(ref.used_feature_map)
+        self.real_feature_idx = list(ref.real_feature_idx)
+        self.monotone_types = list(ref.monotone_types)
+        self.feature_penalty = list(ref.feature_penalty)
+        self.max_bin = ref.max_bin
 
     def _find_bins(self, data: np.ndarray, config: Config,
                    forced_bins: Optional[Dict[int, List[float]]]) -> None:

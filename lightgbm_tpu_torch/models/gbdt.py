@@ -2,31 +2,67 @@
 ``lightgbm_tpu/models/gbdt.py``; reference ``GBDT``,
 src/boosting/gbdt.cpp:42-780).
 
-Covered: ``boost_from_average`` (gbdt.cpp:312-335), ``train_one_iter``
-(gradients -> grow -> shrinkage -> score update -> bias, with the
-constant-tree fallback, gbdt.cpp:337-419), the train-score update
-from leaf membership (``_update_scores``) and continued training from
-an existing model's trees (``init_from_models``). Scores and gradients live
-on the training device; trees live on the host. Valid sets, metrics,
-callbacks, early stopping, bagging and the DART/GOSS/RF variants are
-not in this slice.
+Covered: ``boost_from_average`` per class (gbdt.cpp:312-335),
+``train_one_iter`` with k trees an iteration, each on its own column of
+the gradients (gradients -> grow -> leaf refit -> shrinkage -> score
+update -> bias, with the constant-tree fallback per class,
+gbdt.cpp:337-419), custom gradients (``fobj``), valid sets scored by a
+bin-space walk of each new tree on the device, the training and valid
+metrics (``eval_metrics``: one host read an eval boundary),
+``output_metric`` with ``early_stopping_round``, ``first_metric_only``
+and ``metric_freq`` (gbdt.cpp:439-542), and continued training from an
+existing model's trees (``init_from_models``). Scores and gradients
+live on the training device as float32 ``[N, k]``; trees live on the
+host. Bagging and the DART/GOSS/RF variants are not in this slice.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import Config
 from ..data.dataset import Dataset
+from ..metric import create_metrics
 from ..objective import create_objective
 from ..parallel.learners import create_tree_learner
-from ..utils.log import log_info, log_warning
+from ..utils.log import log_fatal, log_info, log_warning
 from .tree import Tree, constant_tree
 
 kEpsilon = 1e-15
+
+
+def init_score_matrix(init, num_data: int, k: int) -> np.ndarray:
+    """[N, k] start scores from a flat init score: ``N * k`` values are
+    class-major (k blocks of N, the reference's layout), N values go to
+    every class."""
+    arr = np.asarray(init, np.float64)
+    if arr.size == num_data * k:
+        return arr.reshape(k, num_data).T
+    return np.tile(arr.reshape(-1)[:, None], (1, k))
+
+
+def coerce_custom_grad(arr, num_data: int, k: int,
+                       device) -> torch.Tensor:
+    """Custom gradients as float32 [N, k] on the device: [N], [N, k],
+    [k, N] or the reference's flat [k * N] (k blocks of N)."""
+    a = np.asarray(arr, np.float32)
+    if a.ndim == 1:
+        if a.size == num_data:
+            a = a[:, None]
+        elif a.size == num_data * k:
+            a = a.reshape(k, num_data).T
+        else:
+            log_fatal(f"custom gradient length {a.size} does not match "
+                      f"num_data*num_class {num_data * k}")
+    elif a.shape == (k, num_data):
+        a = a.T
+    elif a.shape != (num_data, k):
+        log_fatal(f"custom gradient shape {a.shape} does not match "
+                  f"({num_data}, {k})")
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 class GBDT:
@@ -39,23 +75,39 @@ class GBDT:
         self.device = torch.device(device)
         self.objective = create_objective(config)
         self.num_class = int(config.num_class)
-        self.num_tree_per_iteration = 1
+        self.num_tree_per_iteration = (
+            self.objective.num_model_per_iteration
+            if self.objective is not None else self.num_class)
         self.models: List[Tree] = []
         self.iter = 0
         self.shrinkage_rate = float(config.learning_rate)
+        self.valid_sets: List[Dataset] = []
+        self.valid_names: List[str] = []
+        self.valid_metrics: List[list] = []
+        self.valid_scores: List[torch.Tensor] = []
+        self.training_metrics: list = []
+        self.best_iter: Dict = {}
+        self.best_score: Dict = {}
+        self.best_msg: Dict = {}
+        self.evals_result: Dict[str, Dict[str, list]] = {}
         self.learner = create_tree_learner(config.tree_learner, train_data,
                                            config, self.device, ops=ops)
         self.num_data = train_data.num_data
-        self.objective.init(train_data.metadata, self.num_data, self.device)
+        if self.objective is not None:
+            self.objective.init(train_data.metadata, self.num_data,
+                                self.device)
+        k = self.num_tree_per_iteration
         init = train_data.metadata.init_score
-        if init is not None:
-            score0 = np.asarray(init, np.float64).reshape(self.num_data, 1)
-            self._has_init_score = True
-        else:
-            score0 = np.zeros((self.num_data, 1))
-            self._has_init_score = False
+        self._has_init_score = init is not None
+        score0 = np.zeros((self.num_data, k)) if init is None \
+            else init_score_matrix(init, self.num_data, k)
         self.train_score = torch.as_tensor(score0, dtype=torch.float32,
                                            device=self.device)
+        self.class_need_train = [
+            self.objective.class_need_train(i)
+            if self.objective is not None else True for i in range(k)]
+        if config.is_provide_training_metric:
+            self.training_metrics = self._metrics_for(train_data)
         self._feature_rng = np.random.RandomState(
             config.feature_fraction_seed)
 
@@ -63,18 +115,40 @@ class GBDT:
     def num_iterations_trained(self) -> int:
         return len(self.models) // self.num_tree_per_iteration
 
+    def _metrics_for(self, data: Dataset) -> list:
+        metrics = create_metrics(self.config.resolved_metrics(), self.config)
+        for m in metrics:
+            m.init(data.metadata, data.num_data, self.device)
+        return metrics
+
+    def add_valid(self, valid_data: Dataset, name: str) -> None:
+        """A valid set binned with the training set's mappers: its
+        metrics and its scores (its init score, or zeros)."""
+        self.valid_sets.append(valid_data)
+        self.valid_names.append(name)
+        self.valid_metrics.append(self._metrics_for(valid_data))
+        k = self.num_tree_per_iteration
+        init = valid_data.metadata.init_score
+        score0 = np.zeros((valid_data.num_data, k)) if init is None \
+            else init_score_matrix(init, valid_data.num_data, k)
+        self.valid_scores.append(torch.as_tensor(
+            score0, dtype=torch.float32, device=self.device))
+
     def init_from_models(self, models: List[Tree],
-                         train_add: Optional[torch.Tensor] = None) -> None:
+                         train_add: Optional[torch.Tensor] = None,
+                         valid_adds=()) -> None:
         """Continued training (GBDT::LoadModelFromString + the resume
         of boosting.cpp:35-68): adopt an existing model's trees and add
-        their raw float64 sum, rounded to float32, to the train scores, so
-        the next ``train_one_iter`` boosts on the right residuals (and
-        skips boost_from_average, as there are trees)."""
+        their raw float64 sums, rounded to float32, to the train and
+        valid scores, so the next ``train_one_iter`` boosts on the right
+        residuals (and skips boost_from_average, as there are trees)."""
         self.models = list(models)
         self.iter = len(models) // self.num_tree_per_iteration
-        if train_add is not None:
-            add = torch.as_tensor(train_add).to(self.device, torch.float32)
-            self.train_score += add.reshape(self.num_data, -1)
+        for score, add in [(self.train_score, train_add)] \
+                + list(zip(self.valid_scores, valid_adds)):
+            if add is not None:
+                add = torch.as_tensor(add).to(self.device, torch.float32)
+                score += add.reshape(score.shape[0], -1)
 
     # ------------------------------------------------------------------
     def _feature_mask(self) -> Optional[np.ndarray]:
@@ -88,60 +162,213 @@ class GBDT:
         mask[idx] = True
         return mask
 
-    def boost_from_average(self, class_id: int = 0) -> float:
+    def _add_score(self, tid: int, value: float) -> None:
+        self.train_score[:, tid] += value
+        for vs in self.valid_scores:
+            vs[:, tid] += value
+
+    def boost_from_average(self, class_id: int) -> float:
         """gbdt.cpp:312-335."""
-        if self.models or self._has_init_score:
+        if self.models or self._has_init_score or self.objective is None:
             return 0.0
         if self.config.boost_from_average \
                 or self.train_data.num_features == 0:
             init_score = float(self.objective.boost_from_score(class_id))
             if abs(init_score) > kEpsilon:
-                self.train_score[:, class_id] += init_score
+                self._add_score(class_id, init_score)
                 log_info(f"Start training from score {init_score:.6f}")
                 return init_score
+        elif self.objective.name() in ("regression_l1", "quantile", "mape"):
+            log_warning(
+                f"Disabling boost_from_average in {self.objective.name()} "
+                "may cause the slow convergence")
         return 0.0
 
-    def train_one_iter(self) -> bool:
+    def gradients(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The objective's float32 gradients and hessians, [N, k]."""
+        k = self.num_tree_per_iteration
+        score = self.train_score if k > 1 else self.train_score[:, 0]
+        grad, hess = self.objective.gradients(score)
+        if k == 1:
+            grad, hess = grad[:, None], hess[:, None]
+        return grad, hess
+
+    def train_one_iter(self, gradients=None, hessians=None) -> bool:
         """Returns True when training should STOP (no more valid
-        splits), mirroring GBDT::TrainOneIter (gbdt.cpp:337-419)."""
-        init_score = self.boost_from_average(0)
-        grad, hess = self.objective.gradients(self.train_score[:, 0])
-        fmask = self._feature_mask()
-        tree = None
-        leaf_id = None
-        if self.objective.class_need_train(0) \
-                and self.train_data.num_features > 0:
-            tree, leaf_id = self.learner.train(grad, hess,
-                                               feature_mask=fmask)
-        if tree is not None and tree.num_leaves > 1:
-            tree.shrink(self.shrinkage_rate)
-            self._update_scores(tree, leaf_id)
-            if abs(init_score) > kEpsilon:
-                tree.add_bias(init_score)
+        splits), mirroring GBDT::TrainOneIter (gbdt.cpp:337-419).
+        ``gradients`` / ``hessians`` are a custom objective's."""
+        k = self.num_tree_per_iteration
+        init_scores = [0.0] * k
+        if gradients is None or hessians is None:
+            if self.objective is None:
+                log_fatal("No objective function provided")
+            for tid in range(k):
+                init_scores[tid] = self.boost_from_average(tid)
+            grad, hess = self.gradients()
         else:
-            output = 0.0
-            if not self.models:
-                output = init_score if self.objective.class_need_train(0) \
-                    else float(self.objective.boost_from_score(0))
-                self.train_score[:, 0] += output
-            tree = None if self.models else constant_tree(output)
+            grad = coerce_custom_grad(gradients, self.num_data, k,
+                                      self.device)
+            hess = coerce_custom_grad(hessians, self.num_data, k,
+                                      self.device)
+        fmask = self._feature_mask()
+        should_continue = False
+        new_trees: List[Tree] = []
+        for tid in range(k):
+            tree = None
+            if self.class_need_train[tid] \
+                    and self.train_data.num_features > 0:
+                # each tree trains on its own contiguous column
+                tree, leaf_id = self.learner.train(
+                    grad[:, tid].contiguous(), hess[:, tid].contiguous(),
+                    feature_mask=fmask)
+            if tree is not None and tree.num_leaves > 1:
+                should_continue = True
+                self._renew_tree_output(tree, leaf_id, tid)
+                tree.shrink(self.shrinkage_rate)
+                self._update_scores(tree, leaf_id, tid)
+                if abs(init_scores[tid]) > kEpsilon:
+                    tree.add_bias(init_scores[tid])
+            else:
+                # constant-tree fallback, first iteration only
+                output = 0.0
+                if len(self.models) < k:
+                    if not self.class_need_train[tid]:
+                        if self.objective is not None:
+                            output = float(
+                                self.objective.boost_from_score(tid))
+                    else:
+                        output = init_scores[tid]
+                    self._add_score(tid, output)
+                tree = constant_tree(output)
+            new_trees.append(tree)
+        if not should_continue:
             log_warning("Stopped training because there are no more "
                         "leaves that meet the split requirements")
-            if tree is not None:
-                self.models.append(tree)
+            # keep first-iteration constant trees, drop later no-op
+            # trees (gbdt.cpp:407-415)
+            if not self.models:
+                self.models.extend(new_trees)
             return True
-        self.models.append(tree)
+        self.models.extend(new_trees)
         self.iter += 1
         return False
 
-    def _update_scores(self, tree: Tree, leaf_id: torch.Tensor) -> None:
-        """Train score += leaf value of each row's leaf (no traversal:
-        the learner knows every row's leaf)."""
+    def _renew_tree_output(self, tree: Tree, leaf_id: torch.Tensor,
+                           tid: int) -> None:
+        """The L1 family's leaf refit (serial_tree_learner.cpp:720-758),
+        on the training device; the refit values are read to the host
+        tree once."""
+        if self.objective is None or not self.objective.is_renew_tree_output:
+            return
+        vals = self.objective.renew_tree_output(
+            self.train_score[:, tid], leaf_id, tree.num_leaves)
+        tree.leaf_value = vals.cpu().numpy()[:tree.num_leaves]
+
+    def _update_scores(self, tree: Tree, leaf_id: torch.Tensor,
+                       tid: int) -> None:
+        """Train score += the leaf value of each row's leaf (the learner
+        knows every row's leaf); each valid set's by a bin-space walk of
+        the tree."""
         vals = torch.as_tensor(tree.leaf_value.astype(np.float32),
                                device=self.device)
-        self.train_score[:, 0] += vals[leaf_id]
+        self.train_score[:, tid] += vals[leaf_id]
+        for vd, vs in zip(self.valid_sets, self.valid_scores):
+            tree.predict_binned_add(vs, tid, vd.binned_device(self.device))
+
+    # ------------------------------------------------------------------
+    def eval_sets(self, jobs) -> List[Tuple[str, str, float, bool]]:
+        """``jobs``: (metrics, [N, k] raw score, dataset name). Each
+        dataset's score is converted once on the device; every metric
+        value stays on the device until one host read for all of them."""
+        k = self.num_tree_per_iteration
+        keys, vals = [], []
+        for metrics, score, name in jobs:
+            sc = score if k > 1 else score[:, 0]
+            pred = sc if self.objective is None \
+                else self.objective.convert_output(sc)
+            for m in metrics:
+                for mname, v in zip(m.names, m.eval(sc, pred)):
+                    keys.append((name, mname, m.factor_to_bigger_better > 0))
+                    vals.append(v)
+        if not vals:
+            return []
+        host = torch.stack(vals).cpu().tolist()    # the one host read
+        return [(n, mn, v, b) for (n, mn, b), v in zip(keys, host)]
+
+    def eval_metrics(self) -> List[Tuple[str, str, float, bool]]:
+        """All (dataset_name, metric_name, value, bigger_better) tuples:
+        the training metrics (``is_provide_training_metric``), then each
+        valid set's."""
+        jobs = [(self.training_metrics, self.train_score, "training")]
+        jobs += list(zip(self.valid_metrics, self.valid_scores,
+                         self.valid_names))
+        return self.eval_sets([j for j in jobs if j[0]])
+
+    def output_metric(self, it: int) -> str:
+        """OutputMetric (gbdt.cpp:484-542): logs every ``metric_freq``
+        iterations, tracks the best valid scores, and returns the best
+        iteration's message once ``early_stopping_round`` iterations
+        passed without a better one."""
+        cfg = self.config
+        need_output = cfg.metric_freq > 0 and it % cfg.metric_freq == 0
+        es_round = cfg.early_stopping_round
+        ret = ""
+        msg_lines = []
+        first_metric_seen: Dict[str, bool] = {}
+        for ds_name, mname, value, bigger in self.eval_metrics():
+            line = f"Iteration:{it}, {ds_name} {mname} : {value:g}"
+            if need_output:
+                log_info(line)
+            msg_lines.append(line)
+            self.evals_result.setdefault(ds_name, {}).setdefault(
+                mname, []).append(value)
+            if ds_name == "training" or es_round <= 0:
+                continue
+            if cfg.first_metric_only and first_metric_seen.get(ds_name):
+                continue
+            first_metric_seen[ds_name] = True
+            key = (ds_name, mname)
+            cur = value if bigger else -value
+            if key not in self.best_score or cur > self.best_score[key]:
+                self.best_score[key] = cur
+                self.best_iter[key] = it
+                self.best_msg[key] = "\n".join(msg_lines)
+            elif not ret and it - self.best_iter[key] >= es_round:
+                ret = self.best_msg[key]
+        return ret
+
+    def _eval_and_check_early_stopping(self) -> bool:
+        best_msg = self.output_metric(self.iter)
+        if not best_msg:
+            return False
+        es = self.config.early_stopping_round
+        log_info(f"Early stopping at iteration {self.iter}, the best "
+                 f"iteration round is {self.iter - es}")
+        log_info(f"Output of best iteration round:\n{best_msg}")
+        # back to the best iteration, the cached scores with it
+        k = self.num_tree_per_iteration
+        for j in range(es):
+            for tid in range(k):
+                tree = self.models[-(es - j) * k + tid]
+                tree.shrink(-1.0)
+                tree.predict_binned_add(
+                    self.train_score, tid,
+                    self.train_data.binned_device(self.device))
+                for vd, vs in zip(self.valid_sets, self.valid_scores):
+                    tree.predict_binned_add(vs, tid,
+                                            vd.binned_device(self.device))
+        del self.models[-es * k:]
+        self.iter -= es
+        return True
 
     def train(self, num_iterations: int) -> None:
-        for _ in range(num_iterations):
+        """GBDT::Train (gbdt.cpp:245-264) up to ``num_iterations``
+        iterations in all, evaluating after each one when there are
+        metrics."""
+        has_eval = bool(self.training_metrics) \
+            or any(len(m) > 0 for m in self.valid_metrics)
+        for _ in range(self.iter, num_iterations):
             if self.train_one_iter():
+                break
+            if has_eval and self._eval_and_check_early_stopping():
                 break

@@ -199,6 +199,47 @@ class Tree:
             return np.where(is_missing, dleft, b <= self.threshold_bin[nd])
         return self._walk(binned.shape[0], decide)
 
+    def predict_binned_add(self, score, tid: int, binned) -> None:
+        """``score[:, tid] += `` each row's float32 leaf value, for a
+        train-aligned binned matrix on the device ([N, F] uint8, or the
+        int16 bits of uint16 bins): the bin-space walk of
+        ``predict_leaf_index_binned`` (the JAX package's
+        ``_traverse_binned_add_jax``) for exactly the tree's depth in
+        steps, known on the host, so the device is never read."""
+        import torch
+        vals = torch.as_tensor(self.leaf_value.astype(np.float32),
+                               device=score.device)
+        if self.num_leaves <= 1:
+            score[:, tid] += vals[0]
+            return
+        if (self.decision_type & kCategoricalMask).any():
+            raise NotImplementedError(
+                "bin-space prediction of categorical nodes is not ported "
+                "yet (ROADMAP.md Queue 1 item 7.2)")
+        self.ensure_leaf_depth()
+        nodes = np.stack([
+            self.split_feature_inner, self.threshold_bin,
+            (self.decision_type & kDefaultLeftMask) != 0, self.left_child,
+            self.right_child, self.missing_code, self.default_bin,
+            self.num_bin]).astype(np.int64)
+        col, thr, dleft, left, right, miss, dbin, nbin = torch.as_tensor(
+            nodes, device=score.device)
+        n, f = binned.shape
+        flat = binned.reshape(-1)
+        base = torch.arange(n, device=score.device) * f
+        node = torch.zeros(n, dtype=torch.int64, device=score.device)
+        for _ in range(int(self.leaf_depth.max())):
+            internal = node >= 0
+            nd = torch.where(internal, node, torch.zeros_like(node))
+            b = flat[base + col[nd]].to(torch.int64)
+            m = miss[nd]
+            is_missing = torch.where(m == 1, b == dbin[nd],
+                                     (m == 2) & (b == nbin[nd] - 1))
+            go_left = torch.where(is_missing, dleft[nd] != 0, b <= thr[nd])
+            child = torch.where(go_left, left[nd], right[nd])
+            node = torch.where(internal, child, node)
+        score[:, tid] += vals[~node]
+
     def _walk(self, n: int, decide) -> np.ndarray:
         if self.num_leaves <= 1:
             return np.zeros(n, np.int32)

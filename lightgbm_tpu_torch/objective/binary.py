@@ -20,7 +20,7 @@ kEpsilon = 1e-15
 
 class BinaryLogloss(ObjectiveFunction):
 
-    def __init__(self, config: Config):
+    def __init__(self, config: Config, is_pos=None):
         super().__init__(config)
         self.sigmoid = float(config.sigmoid)
         if self.sigmoid <= 0.0:
@@ -31,11 +31,14 @@ class BinaryLogloss(ObjectiveFunction):
         if self.is_unbalance and abs(self.scale_pos_weight - 1.0) > 1e-6:
             log_fatal("Cannot set is_unbalance and scale_pos_weight at the "
                       "same time")
+        # which labels are positive (one class of a one-vs-all model)
+        self._is_pos = is_pos if is_pos is not None \
+            else (lambda label: label > 0)
         self.need_train = True
 
     def init(self, metadata, num_data, device):
         super().init(metadata, num_data, device)
-        pos_mask = self.label_np > 0
+        pos_mask = self._is_pos(self.label_np)
         cnt_positive = int(pos_mask.sum())
         cnt_negative = num_data - cnt_positive
         self.need_train = cnt_positive > 0 and cnt_negative > 0
@@ -69,7 +72,7 @@ class BinaryLogloss(ObjectiveFunction):
         return self._weighted(grad, hess)
 
     def boost_from_score(self, class_id: int = 0) -> float:
-        pos = (self.label_np > 0).astype(np.float64)
+        pos = self._is_pos(self.label_np).astype(np.float64)
         if self.weights_np is not None:
             w = np.asarray(self.weights_np, np.float64)
             pavg = float((pos * w).sum() / w.sum())

@@ -391,9 +391,6 @@ def test_data_refusals_name_their_items(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue 1 item 7.3"):
         lt.train(PARAMS, lt.Dataset(sp.csr_matrix(np.nan_to_num(X)),
                                     label=y), 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2.4"):
-        lt.train(PARAMS, lt.Dataset(X, label=y, group=[100, 200]), 1,
-                 device="cpu")
 
 
 def test_loaded_booster_needs_the_card_by_default(monkeypatch, trained):

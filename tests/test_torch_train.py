@@ -200,7 +200,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"objective": "regression"}, "Queue 1 item 2"),
+    ({"boosting": "dart"}, "Queue 1 item 7"),
     ({"boosting": "goss"}, "Queue 1 item 7"),
     ({"bagging_freq": 1, "bagging_fraction": 0.5}, "Queue 1 item 7"),
     ({"extra_trees": True}, "Queue 1 item 7"),
