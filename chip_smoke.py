@@ -92,6 +92,29 @@ of the JAX package. Phases, each fatal on failure:
    CLI's ``train_params``, their held-out loss within
    ``tests/test_golden_parity.py``'s margins of the reference's
    recorded predictions (NDCG@5 at least the reference's minus 0.02).
+   Run e carries the lambdarank example's ``bagging_fraction=0.9,
+   bagging_freq=1``;
+10. SHAP, early-stopped prediction and row sampling: SHAP
+   contributions (``predict(pred_contrib=True)``, the ``tree_shap``
+   kernel) of phase 3's binary model (255 leaves, 9 trees) over 100k
+   rows, every row held against the plain version run on the card, and
+   of phase 9's 5-class model, the nine golden models and a 40-feature
+   chain (paths longer than a warp), their first 256 rows against the
+   plain version on the CPU; local accuracy on every row; the kernel's
+   ms, launches and bound (float64 operations over 34 TFLOP/s or bytes
+   over 3.35 TB/s), after the split of the binary model's 2M-row
+   predict (the upload, the tree walk with its host read a level
+   against the same levels with no read; CUDA events).
+   ``pred_early_stop`` of the binary and the 5-class
+   model at the median first-check margin, equal to the JAX package's
+   host loop to the bit, timed against the plain predict. Full width
+   (2M x 28, 255 leaves, lr 0.1, fused): bagging 0.8 at max_bin 255
+   and 1023, balanced bagging (0.5 / 0.9), GOSS (0.2 / 0.1, 14
+   iterations: 4 sample), DART (drop_rate 0.1) and RF (0.632, feature
+   fraction 0.8), each with its launch counts and in-training AUC; then
+   kernels against plain versions at 100k x 28, 63 leaves, 3 iterations
+   of bagging (255 and 1023 bins), GOSS at lr 0.5 and DART: trees, leaf
+   values and train scores to the bit.
 
 The second-to-last line of output is the per-kernel JSON record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1425,6 +1448,8 @@ OBJECTIVE_RUNS = (
     ("d", "multiclass", 1023, 4, "multi_logloss,multi_error"),
     ("e", "lambdarank", 255, 8, "ndcg"),
 )
+# the lambdarank example's bagging (examples/lambdarank/train.conf)
+RANK_BAGGING = {"bagging_fraction": 0.9, "bagging_freq": 1}
 PATH_KERNELS = {255: FUSED_SEGMENT_PATH,
                 1023: ("hist_rows", "split_scan", "fused_split_step_leaf")}
 
@@ -1599,7 +1624,7 @@ def objectives_phase(X, binned, binned_wide, dev):
         if objective == "multiclass":
             params["num_class"] = 5
         if objective == "lambdarank":
-            params["eval_at"] = [1, 3, 5]
+            params.update(eval_at=[1, 3, 5], **RANK_BAGGING)
         tr, va = labeled_sets(binned if max_bin == 255 else binned_wide,
                               vbins[max_bin], X, Xv, objective, z, zv,
                               groups)
@@ -1625,6 +1650,8 @@ def objectives_phase(X, binned, binned_wide, dev):
                      "value an iteration")
         if run == "a":
             run_a = (bst, Xv[:100_000])
+        elif run == "c":
+            out["c_model"] = bst       # phase 10 explains it (SHAP)
         else:
             del bst
         del tr, va
@@ -1680,6 +1707,8 @@ def objective_parity(dev):
                       "metric": metric, "verbosity": -1}
             if objective == "multiclass":
                 params["num_class"] = 5
+            if objective == "lambdarank":
+                params.update(RANK_BAGGING)
             res = {}
             for ops in ("kernel", "plain"):
                 tr, va = labeled_sets(binned, vbinned, Xp, Xpv, objective,
@@ -1785,6 +1814,372 @@ def golden_quality(dev):
             fail(f"golden {name}: {what} {ours} against the reference's "
                  f"{theirs}")
     return out
+
+
+# ---- phase 10: SHAP, early-stopped prediction, row sampling -----------
+F64_FLOPS = 34e12            # H100 SXM float64 outside the tensor cores
+SHAP_PARITY_ROWS = 256
+SAMPLING_RUNS = (
+    # (run, extra params, max_bin, iterations)
+    ("bagging", {"bagging_fraction": 0.8, "bagging_freq": 1}, 255, 8),
+    ("bagging 1023", {"bagging_fraction": 0.8, "bagging_freq": 1}, 1023,
+     8),
+    ("balanced", {"pos_bagging_fraction": 0.5, "neg_bagging_fraction": 0.9,
+                  "bagging_freq": 1}, 255, 8),
+    ("goss", {"boosting": "goss", "top_rate": 0.2, "other_rate": 0.1}, 255,
+     14),
+    ("dart", {"boosting": "dart", "drop_rate": 0.1}, 255, 8),
+    ("rf", {"boosting": "rf", "bagging_fraction": 0.632, "bagging_freq": 1,
+            "feature_fraction": 0.8}, 255, 8),
+)
+SAMPLING_PARITY = (
+    ("bagging", {"bagging_fraction": 0.8, "bagging_freq": 1}, 255),
+    ("bagging 1023", {"bagging_fraction": 0.8, "bagging_freq": 1}, 1023),
+    ("goss", {"boosting": "goss", "top_rate": 0.2, "other_rate": 0.1,
+              "learning_rate": 0.5}, 255),
+    ("dart", {"boosting": "dart", "drop_rate": 0.1}, 255),
+)
+
+
+def shap_explain(label, bst, X, dev, reps, plain_on_card=False,
+                 abs_scale=False):
+    """One model through ``Booster.predict(pred_contrib=True)`` on the
+    card (the launch counts set to 0 just before and read just after),
+    local accuracy on every row (1e-9 relative to the raw score, or with
+    ``abs_scale`` to the sum of the row's |contributions|, for a
+    synthetic chain whose 41-element paths cancel), the kernel against
+    its plain version (every row on the card with ``plain_on_card``,
+    else the first 256 rows on the CPU), the kernel's ms over ``reps``
+    calls and its bound."""
+    import torch
+    from lightgbm_tpu_torch.ops import _native
+    from lightgbm_tpu_torch.ops.tree_shap_cuda import (ShapModel, shap_work,
+                                                       tree_shap_cuda)
+    from lightgbm_tpu_torch.predictor import tree_shap_plain
+    X = np.ascontiguousarray(X, np.float64)
+    n, f = X.shape
+    k = bst.num_model_per_iteration()
+    _native.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = bst.predict(X, pred_contrib=True).reshape(n, -1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _native.LAUNCHES["tree_shap"]
+    if launches < 1:
+        fail(f"SHAP of {label} did not launch tree_shap")
+    if out.shape != (n, k * (f + 1)) or not np.isfinite(out).all():
+        fail(f"SHAP of {label}: shape {out.shape} or not finite")
+    raw = bst.predict(X, raw_score=True).reshape(n, k)
+    per = out.reshape(n, k, f + 1)
+    scale = np.abs(per).sum(axis=2) if abs_scale else np.abs(raw)
+    local = np.abs(per.sum(axis=2) - raw) / np.maximum(scale, 1e-300)
+    if not (np.abs(per.sum(axis=2) - raw) <= 1e-12 + 1e-9 * scale).all():
+        fail(f"SHAP of {label}: local accuracy off by {local.max():.3g}")
+    models = bst.models
+    xd = torch.from_numpy(X).to(dev)
+    sm = ShapModel(models, k, dev)
+    ms = time_ms(lambda: tree_shap_cuda(sm, xd), reps)
+    plain_ms = None
+    if plain_on_card:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = tree_shap_plain(models, xd, k)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        ref, got = ref.cpu().numpy(), out
+    else:
+        m = min(n, SHAP_PARITY_ROWS)
+        ref = tree_shap_plain(models, torch.from_numpy(X[:m]), k).numpy()
+        got = tree_shap_cuda(sm, xd[:m]).cpu().numpy()
+    err = float(np.abs(got - ref).max())
+    if not np.allclose(got, ref, rtol=1e-9, atol=1e-12):
+        fail(f"SHAP of {label}: the kernel is {err:.3g} from the plain "
+             "version")
+    nbytes, ops = shap_work(sm.paths, n, f, k)
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / F64_FLOPS) * 1e3
+    r = dict(rows=n, trees=len(models), paths=len(sm.paths["pvalue"]),
+             max_path=sm.paths["max_len"], wall_ms=wall * 1e3, ms=ms,
+             plain_ms=plain_ms, max_abs_err=err,
+             parity_rows=len(ref), launches=launches,
+             local_rel_err=float(local.max()), bound_ms=bound,
+             bound_by="operations" if ops / F64_FLOPS
+             > nbytes / HBM_BYTES_PER_S else "bytes")
+    print(f"[shap {label}] {n} x {f}, {len(models)} trees, "
+          f"{r['paths']} paths of at most {r['max_path']} elements: "
+          f"predict(pred_contrib) {r['wall_ms']:.1f} ms wall, kernel "
+          f"{ms:.3f} ms (bound {bound:.4f} ms, {r['bound_by']}), "
+          f"launches {launches}; kernel vs plain on {len(ref)} rows "
+          f"max abs err {err:.3g}"
+          + (f", plain on the card {plain_ms:.1f} ms" if plain_ms else "")
+          + f"; local accuracy {r['local_rel_err']:.3g} relative")
+    return r
+
+
+def early_stop_reference(bst, X, freq, margin):
+    """The JAX package's early-stopped loop (predictor.py:140) in numpy
+    on the host trees: each row's float64 sum in tree order, its live
+    rows checked every ``freq * k`` trees."""
+    k = bst.num_model_per_iteration()
+    models = bst.models
+    raw = np.zeros((len(X), k))
+    active = np.arange(len(X))
+    period = freq * k
+    for i, t in enumerate(models):
+        if len(active) == 0:
+            break
+        raw[active, i % k] += t.predict(X[active])
+        if (i + 1) % period == 0 and i + 1 < len(models):
+            sub = raw[active]
+            if k == 1:
+                m = 2.0 * np.abs(sub[:, 0])
+            else:
+                top = np.sort(sub, axis=1)
+                m = top[:, -1] - top[:, -2]
+            active = active[m < margin]
+    return raw
+
+
+def early_stop_check(label, bst, X, dev, reps, freq=2):
+    """``pred_early_stop`` on the card at the median margin of the first
+    check (about half the rows stop there): scores equal to the host
+    loop's to the bit, and its ms against the plain predict's."""
+    k = bst.num_model_per_iteration()
+    X = np.ascontiguousarray(X, np.float64)
+    first = bst.predict(X, raw_score=True,
+                        num_iteration=freq).reshape(len(X), k)
+    if k == 1:
+        m = 2.0 * np.abs(first[:, 0])
+    else:
+        top = np.sort(first, axis=1)
+        m = top[:, -1] - top[:, -2]
+    margin = float(np.median(m))
+    kw = dict(raw_score=True, pred_early_stop=True,
+              pred_early_stop_freq=freq, pred_early_stop_margin=margin)
+    got = bst.predict(X, **kw).reshape(len(X), k)
+    ref = early_stop_reference(bst, X, freq, margin)
+    same = np.array_equal(got, ref)
+    stopped = float(np.mean(m >= margin))
+    es_ms = time_ms(lambda: bst.predict(X, **kw), reps)
+    full_ms = time_ms(lambda: bst.predict(X, raw_score=True), reps)
+    print(f"[early stop {label}] {len(X)} rows, {len(bst.models)} trees, "
+          f"freq {freq}, margin {margin:.4g} ({stopped:.1%} stop at the "
+          f"first check): {es_ms:.2f} ms against the plain predict's "
+          f"{full_ms:.2f} ms; equal to the host loop to the bit: {same}")
+    if not same:
+        fail(f"early-stopped predict of {label} differs from the host loop")
+    return dict(ms=es_ms, plain_ms=full_ms, stopped=stopped)
+
+
+def walk_levels(stacked, x, levels):
+    """``predictor.predict_leaf_index``'s walk for exactly ``levels``
+    levels, with no host read between them (its loop stops when a read
+    shows every row done): the device's share of the walk."""
+    import torch
+    from lightgbm_tpu_torch.predictor import _category_left, numerical_left
+    t, n = stacked["feat"].shape[0], x.shape[0]
+    node = torch.zeros((t, n), dtype=torch.int64, device=x.device)
+    out = torch.zeros((t, n), dtype=torch.int64, device=x.device)
+    done = stacked["single"][:, None].expand(t, n).clone()
+    rows = torch.arange(n, device=x.device)[None, :].expand(t, n)
+    for _ in range(levels):
+        nd = torch.where(done, torch.zeros_like(node), node)
+
+        def at(name):
+            return torch.gather(stacked[name], 1, nd)
+        go_left, fval = numerical_left(x[rows, at("feat")], at("thr"),
+                                       at("dleft"), at("miss"))
+        if stacked["words"] is not None:
+            go_left = torch.where(at("is_cat"), _category_left(
+                stacked["words"], nd, fval), go_left)
+        child = torch.where(go_left, at("left"), at("right"))
+        is_leaf = child < 0
+        out = torch.where(~done & is_leaf, ~child, out)
+        node = torch.where(~done & ~is_leaf, child, node)
+        done = done | is_leaf
+    return out
+
+
+def predict_split(bst, X, dev):
+    """How the 2M-row predict's time splits (PERF.md section 7), with
+    CUDA events and host clocks (no profiler): the rows to float64 on
+    the host, their upload, the tree walk as ``predict_raw`` runs it (a
+    host read a level) against the same levels with no read between
+    them, and the whole ``predict_raw``."""
+    import torch
+    from lightgbm_tpu_torch.predictor import (_row_chunks, predict_raw,
+                                              predict_leaf_index,
+                                              stack_trees, used_models)
+    models = used_models(bst._src())
+    k = bst.num_model_per_iteration()
+    predict_raw(models, X[:1000], dev, k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    X = np.asarray(X, np.float64)
+    convert = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    predict_raw(models, X, dev, k)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    x = torch.as_tensor(X, device=dev)
+    ev[1].record()
+    torch.cuda.synchronize()
+    upload = ev[0].elapsed_time(ev[1])
+    stacked = stack_trees(models, dev)
+    chunks = _row_chunks(len(X), len(models))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    leaves = [predict_leaf_index(stacked, x[lo:hi]) for lo, hi in chunks]
+    torch.cuda.synchronize()
+    walk = (time.perf_counter() - t0) * 1e3
+    # the levels the loop ran (the deepest leaf a chunk's rows reached)
+    # and its reads: one before each level and the one that ends it
+    levels = [max(int(t.leaf_depth[li[i].cpu().numpy()].max())
+                  for i, t in enumerate(models) if t.num_leaves > 1)
+              for li in leaves]
+    reads = sum(min(lv + 1, stacked["depth"]) for lv in levels)
+    ev[0].record()
+    fixed = [walk_levels(stacked, x[lo:hi], lv)
+             for (lo, hi), lv in zip(chunks, levels)]
+    ev[1].record()
+    torch.cuda.synchronize()
+    device_walk = ev[0].elapsed_time(ev[1])
+    if not all(torch.equal(a, b) for a, b in zip(fixed, leaves)):
+        fail("the walk with no level reads found other leaves")
+    r = dict(convert_ms=convert, wall_ms=wall, upload_ms=upload,
+             walk_ms=walk, walk_no_read_ms=device_walk,
+             level_reads=reads, chunks=len(chunks))
+    print(f"[predict split] {len(X)} rows x {len(models)} trees "
+          f"({len(chunks)} row chunks): the rows to float64 on the host "
+          f"{convert:.1f} ms; predict_raw {wall:.1f} ms; of it the upload "
+          f"{upload:.1f} ms (CUDA events) and the tree walk {walk:.1f} ms "
+          f"with its {reads} level reads, against "
+          f"{device_walk:.1f} ms for the same levels with no read "
+          f"between them (CUDA events)")
+    return r
+
+
+def sampling_run(label, params, ds, iters, dev, y):
+    """One full-width training run with row sampling through the fused
+    path, the launch counts set to 0 just before it and read just after;
+    every kernel of the path must have run. Prints ms/split and the
+    in-training AUC (the train scores against the labels)."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import _native
+    _native.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = lt.train(params, ds, iters, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_native.LAUNCHES)
+    splits = sum(t.num_leaves - 1 for t in bst.models)
+    for name in PATH_KERNELS[int(params["max_bin"])]:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the {label} run")
+    lrn = bst._gbdt.learner
+    if not lrn.fused:
+        fail(f"the {label} run did not take the fused path")
+    score = bst._gbdt.train_score[:, 0].cpu().numpy()
+    a = auc(y, score)
+    bag = bst._gbdt.bag_weight
+    inbag = "all" if bag is None else f"{float(bag.gt(0).float().mean()):.4f}"
+    print(f"[sampling {label}] {type(lrn).__name__}, {len(bst.models)} "
+          f"trees, {splits} splits in {wall:.2f} s = "
+          f"{wall / max(splits, 1) * 1e3:.4f} ms/split; in-training AUC "
+          f"{a:.5f}; rows in the last bag {inbag}; launches {launches}")
+    if not np.isfinite(score).all() or len(bst.models) != iters:
+        fail(f"the {label} run's scores are not finite or it stopped")
+    return dict(ms_per_split=wall / max(splits, 1) * 1e3, auc=a,
+                trees=len(bst.models), launches=launches)
+
+
+def sampling_parity(dev):
+    """Kernels against plain versions at 100k x 28, 63 leaves, 3
+    iterations: bagging (255 and 1023 bins), GOSS at lr 0.5 (it samples
+    from iteration 2) and DART; trees, leaf values and train scores to
+    the bit."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    Xp, yp = higgs_like(100_000, seed=3)
+    out = {}
+    for label, extra, max_bin in SAMPLING_PARITY:
+        t0 = time.perf_counter()
+        params = dict({"objective": "binary", "num_leaves": 63,
+                       "learning_rate": 0.1, "max_bin": max_bin,
+                       "verbosity": -1}, **extra)
+        ds = lt.Dataset(Xp, label=yp)
+        kb, pb = (lt.train(params, ds, 3, device=dev, ops=ops)
+                  for ops in ("kernel", "plain"))
+        same = len(kb.models) == len(pb.models) == 3 and all(
+            tree_sig(a) == tree_sig(b) for a, b in zip(kb.models, pb.models))
+        leaves = all(np.array_equal(a.leaf_value, b.leaf_value)
+                     for a, b in zip(kb.models, pb.models))
+        scores = torch.equal(kb._gbdt.train_score, pb._gbdt.train_score)
+        out[label] = dict(same=same, leaves=leaves, scores=scores,
+                          seconds=time.perf_counter() - t0)
+        print(f"[sampling parity] {label} ({type(kb._gbdt.learner).__name__}"
+              f", kernel fused {kb._gbdt.learner.fused}): structure equal "
+              f"{same}, leaf values equal {leaves}, train scores equal "
+              f"{scores} in {out[label]['seconds']:.1f} s")
+        if not (same and leaves and scores):
+            fail(f"kernel and plain runs differ for {label}")
+        del kb, pb
+        torch.cuda.empty_cache()
+    return out
+
+
+def sampling_phase(X, y, binned, binned_wide, bin_bst, mc_bst, dev, reps):
+    """Phase 10: SHAP (the tree_shap kernel) of the full-width binary
+    model, phase 9's 5-class model, the golden models and a chain deeper
+    than a warp; early-stopped prediction of the first two; training
+    with bagging, balanced bagging, GOSS, DART and RF at full width; the
+    kernels against their plain versions with sampling. Returns the
+    tree_shap record and its launches on the main path (the binary
+    model's SHAP)."""
+    import os
+    import torch
+    import lightgbm_tpu_torch as lt
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tests"))
+    from golden_common import DATASETS
+    from torch_shap_model import chain_rows, chain_tree
+    predict_split(bin_bst, X, dev)
+    rows = X[:100_000]
+    shap = shap_explain("binary", bin_bst, rows, dev, reps,
+                        plain_on_card=True)
+    shap_explain("multiclass 5", mc_bst, rows, dev, max(reps // 4, 2))
+    for name in sorted(DATASETS):
+        with open(os.path.join(here, "tests", "fixtures", "golden",
+                               f"model_{name}.txt")) as fh:
+            gb = lt.Booster(model_str=fh.read(), device=dev)
+        Xte = DATASETS[name]["make"]()[2]
+        Xte = Xte.todense() if hasattr(Xte, "todense") else Xte
+        shap_explain(f"golden {name}", gb, np.asarray(Xte), dev, 2)
+    chain = lt.Booster.from_trees(
+        [chain_tree(list(range(40)), list(0.05 * np.arange(40) - 1.0),
+                    seed=2)], {"objective": "regression"}, device=dev)
+    shap_explain("40-feature chain", chain, chain_rows(40, n=5_000), dev, 2,
+                 abs_scale=True)
+    for label, bst in (("binary", bin_bst), ("multiclass 5", mc_bst)):
+        early_stop_check(label, bst, rows, dev, max(reps // 4, 2))
+    base = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
+            "verbosity": -1}
+    for label, extra, max_bin, iters in SAMPLING_RUNS:
+        ds = lt.Dataset(X, label=y)
+        ds._binned = binned if max_bin == 255 else binned_wide
+        sampling_run(label, dict(base, max_bin=max_bin, **extra), ds,
+                     iters, dev, y)
+        torch.cuda.empty_cache()
+    sampling_parity(dev)
+    rec = dict(max_abs_err=shap["max_abs_err"], ms=shap["ms"],
+               device_ms=None, plain_ms=shap["plain_ms"],
+               bound_ms=float(shap["bound_ms"]), bound_by=shap["bound_by"],
+               library_ms=None)
+    return rec, shap["launches"]
 
 
 def main() -> int:
@@ -2026,14 +2421,23 @@ def main() -> int:
     t0 = time.perf_counter()
     model_file_phase(fused_bst, ds, X, params, dev)
     print(f"[model file] done in {time.perf_counter() - t0:.1f} s")
-    del fused_bst, ds
+    del ds
     torch.cuda.empty_cache()
 
     # ---- 9. every objective, valid sets and early stopping ------------
     t0 = time.perf_counter()
-    objectives_phase(X, binned, binned_wide, dev)
+    multiclass_bst = objectives_phase(X, binned, binned_wide,
+                                      dev).pop("c_model")
     print(f"[objectives] done in {time.perf_counter() - t0:.1f} s")
-    del binned, binned_wide
+    torch.cuda.empty_cache()
+
+    # ---- 10. SHAP, early-stopped prediction, row sampling --------------
+    t0 = time.perf_counter()
+    rec["tree_shap"], launches["tree_shap"] = sampling_phase(
+        X, y, binned, binned_wide, fused_bst, multiclass_bst, dev,
+        args.reps)
+    print(f"[sampling] done in {time.perf_counter() - t0:.1f} s")
+    del binned, binned_wide, fused_bst, multiclass_bst
     torch.cuda.empty_cache()
 
     sources = {
@@ -2052,6 +2456,10 @@ def main() -> int:
             "lightgbm_tpu/ops/split_step_pallas.py:413"),
         "hist_rows": ("lightgbm_tpu_torch/csrc/hist_rows.cu",
                       "lightgbm_tpu/ops/hist_pallas.py:642"),
+        "tree_shap": ("lightgbm_tpu_torch/csrc/tree_shap.cu",
+                      "no TPU kernel: the host TreeSHAP "
+                      "lightgbm_tpu/native/treeshap.cpp, called from "
+                      "lightgbm_tpu/predictor.py:503"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

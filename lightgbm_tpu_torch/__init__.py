@@ -12,7 +12,10 @@ split scan and both fused split steps as hand-written CUDA kernels
 out as the reference's model text (``io/model_text.py``): a loaded
 model predicts on the card and seeds continued training
 (``train(..., init_model=)``); training data may be a CSV / TSV /
-LibSVM file (``data/file_loader.py``).
+LibSVM file (``data/file_loader.py``). Bagging (balanced too), GOSS,
+DART and RF sample rows through the same kernels; prediction gives SHAP
+contributions (the TreeSHAP kernel, ``csrc/tree_shap.cu``) and stops
+early by margin (``pred_early_stop``).
 """
 
 from .basic import Booster, Dataset

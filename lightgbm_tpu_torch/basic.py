@@ -26,6 +26,7 @@ from .io.model_text import (LoadedBooster, dump_model_json,
                             feature_importance, load_model_from_string,
                             save_model_to_string)
 from .models.gbdt import GBDT
+from .models.variants import create_boosting
 from .objective import create_objective
 from .predictor import predict as _predict
 from .utils.device import resolve_device
@@ -47,12 +48,16 @@ class Dataset:
     dense matrix or the path of a text file (``data/file_loader.py``),
     whose label, weight, query groups, init score and header names fill
     what the caller did not give. A dataset with a ``reference`` (a
-    valid set) is binned with the reference's mappers."""
+    valid set) is binned with the reference's mappers. The signature is
+    the JAX package's: ``feature_name="auto"`` means no names, a
+    non-empty ``categorical_feature`` is refused (ROADMAP.md Queue 1
+    item 7.2), and ``free_raw_data`` drops ``data`` once binned."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"]
                  = None, weight=None, group=None, init_score=None,
-                 feature_name: Optional[List[str]] = None,
-                 params: Optional[Dict[str, Any]] = None):
+                 feature_name="auto", categorical_feature="auto",
+                 params: Optional[Dict[str, Any]] = None,
+                 free_raw_data: bool = False):
         self.data = data
         self.label = label
         self.reference = reference
@@ -60,7 +65,9 @@ class Dataset:
         self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
+        self.categorical_feature = categorical_feature
         self.params = dict(params or {})
+        self.free_raw_data = free_raw_data
         self._raw: Optional[np.ndarray] = None
         self._binned: Optional[_BinnedDataset] = None
 
@@ -78,10 +85,11 @@ class Dataset:
             X, label, weight, group, init, names = load_file(self.data,
                                                              config)
             for key, val in (("label", label), ("weight", weight),
-                             ("group", group), ("init_score", init),
-                             ("feature_name", names)):
+                             ("group", group), ("init_score", init)):
                 if getattr(self, key) is None:
                     setattr(self, key, val)
+            if self.feature_name in ("auto", None) and names:
+                self.feature_name = names
         elif _is_sparse(self.data):
             raise NotImplementedError(
                 "sparse input bins into EFB bundles in the JAX package, "
@@ -94,16 +102,25 @@ class Dataset:
 
     def construct(self, config: Config) -> _BinnedDataset:
         if self._binned is None:
+            if self.categorical_feature not in ("auto", None) \
+                    and len(self.categorical_feature):
+                raise NotImplementedError(
+                    "categorical features are not in the port yet "
+                    "(ROADMAP.md Queue 1 item 7.2)")
             X = self.raw_matrix(config)
             ref = None
             if self.reference is not None:
                 ref = self.reference.construct(config)
+            names = None if self.feature_name in ("auto", None) \
+                else list(self.feature_name)
             self._binned = _BinnedDataset.from_numpy(
                 X, config, label=self.label, weight=self.weight,
                 group=self.group, init_score=self.init_score,
-                feature_names=self.feature_name, reference=ref,
+                feature_names=names, reference=ref,
                 forced_bins=None if ref is not None
                 else load_forced_bins(config.forcedbins_filename))
+            if self.free_raw_data:
+                self.data = None
         return self._binned
 
     def create_valid(self, data, label=None, weight=None, group=None,
@@ -113,6 +130,7 @@ class Dataset:
         return Dataset(data, label=label, reference=self, weight=weight,
                        group=group, init_score=init_score,
                        feature_name=self.feature_name,
+                       categorical_feature=self.categorical_feature,
                        params=params or self.params)
 
     def set_group(self, group) -> "Dataset":
@@ -155,11 +173,14 @@ class Booster:
         self.valid_sets: List[Dataset] = []
         self.name_valid_sets: List[str] = []
         if train_set is not None:
-            merged = dict(train_set.params)
-            merged.update(self.params)
-            self.config = Config.from_params(merged)
-            binned = train_set.construct(self.config)
-            self._gbdt = GBDT(self.config, binned, self.device, ops=ops)
+            # the JAX Booster's order (lightgbm_tpu/basic.py:408-416):
+            # the data is binned with the booster's params under the
+            # Dataset's own, and boosting reads the booster's alone
+            train_set.params = {**self.params, **train_set.params}
+            binned = train_set.construct(
+                Config.from_params(train_set.params))
+            self._gbdt = create_boosting(self.config, binned, self.device,
+                                         ops=ops)
         elif model_file is not None:
             with open(model_file) as f:
                 self._loaded = load_model_from_string(f.read())
@@ -198,7 +219,8 @@ class Booster:
                                 "cannot add validation data")
         if data.reference is None:
             data.reference = self.train_set
-        self._gbdt.add_valid(data.construct(self.config), name)
+        self._gbdt.add_valid(data.construct(Config.from_params(
+            {**self.train_set.params, **data.params})), name)
         self.valid_sets.append(data)
         self.name_valid_sets.append(name)
         return self
@@ -210,8 +232,7 @@ class Booster:
         if self._gbdt is not None:
             if "learning_rate" in params:
                 self._gbdt.shrinkage_rate = float(params["learning_rate"])
-            self.config = Config.from_params(
-                {**self.train_set.params, **self.params})
+            self.config = Config.from_params(self.params)
             self._gbdt.config = self.config
         return self
 
@@ -315,22 +336,22 @@ class Booster:
                 pred_contrib: bool = False, start_iteration: int = 0,
                 **kwargs) -> np.ndarray:
         """Scores per row ([N], or [N, k] for k trees an iteration; raw,
-        or converted by the objective) or leaf indices ([N, T] int32)
-        of the iterations from ``start_iteration`` on (``num_iteration``
-        of them when > 0). Sparse rows are densified in fixed chunks."""
-        if pred_contrib:
-            raise NotImplementedError(
-                "pred_contrib (SHAP) is not ported yet (ROADMAP.md Queue 1 "
-                "item 6)")
-        if kwargs.get("pred_early_stop"):
-            raise NotImplementedError(
-                "pred_early_stop is not ported yet (ROADMAP.md Queue 1 "
-                "item 6)")
+        or converted by the objective), leaf indices ([N, T] int32) or
+        SHAP contributions (``pred_contrib``: float64 [N, k * (F + 1)],
+        each class's expected value last) of the iterations from
+        ``start_iteration`` on (``num_iteration`` of them when > 0).
+        ``pred_early_stop`` (with ``pred_early_stop_freq`` /
+        ``_margin``, else the booster's params) stops a row's trees
+        once its margin is reached. Sparse rows are densified in fixed
+        chunks."""
         if num_iteration is None and self.best_iteration > 0:
             num_iteration = self.best_iteration
+        es = {key: kwargs.get(key, getattr(self.config, key))
+              for key in ("pred_early_stop", "pred_early_stop_freq",
+                          "pred_early_stop_margin")}
         kw = dict(num_iteration=num_iteration,
                   start_iteration=start_iteration, raw_score=raw_score,
-                  pred_leaf=pred_leaf)
+                  pred_leaf=pred_leaf, pred_contrib=pred_contrib, **es)
         if _is_sparse(data):
             csr = data.tocsr()
             step = SPARSE_PREDICT_CHUNK_ROWS

@@ -1,9 +1,13 @@
 """Configuration / flag system.
 
 Copy of ``lightgbm_tpu/config.py`` for the PyTorch port: same dataclass,
-aliases and ``check_param_conflict``. Two differences: ``device_type``
-defaults to ``cuda``, and ``slo_specs``/``slo_windows`` (validated by
-the serving plane, not ported yet) are rejected. Which parameters the
+aliases and ``check_param_conflict``. The differences: ``device_type``
+defaults to ``cuda``; ``slo_specs``/``slo_windows`` (validated by the
+serving plane, not ported yet), the robustness and observability
+parameters (``checkpoint_dir``, ``guard_policy``, ``faults``,
+``elastic_*``, ``telemetry_out``, ``trace_out``, ``profile_dir``,
+``crash_dump``) and ``categorical_feature`` are rejected when set, since
+no module of the port reads them yet. Which parameters the
 port's training path accepts is checked where they are used
 (``learner/partitioned.py:check_slice``).
 
@@ -837,6 +841,19 @@ class Config:
             raise NotImplementedError(
                 "slo_specs/slo_windows need the serving plane "
                 "(ROADMAP.md Queue 1 item 10)")
+        for name in _ROBUSTNESS_PARAMS + tuple(
+                f.name for f in dataclasses.fields(self)
+                if f.name.startswith("elastic_")):
+            if getattr(self, name) != _field_default(name):
+                # the robustness and observability planes: nothing in
+                # the port reads these yet, so a set one is refused
+                raise NotImplementedError(
+                    f"{name} needs the robustness and observability "
+                    "planes (ROADMAP.md Queue 1 item 11)")
+        if self.categorical_feature:
+            raise NotImplementedError(
+                "categorical features are not in the port yet "
+                "(ROADMAP.md Queue 1 item 7.2)")
         if self.objective in ("multiclass", "multiclassova") and self.num_class < 2:
             raise ValueError("num_class must be >= 2 for multiclass objectives")
         if self.objective not in ("multiclass", "multiclassova", "custom",
@@ -877,6 +894,18 @@ class Config:
 
     def to_params(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
+
+
+# parsed for the JAX package's names, read by no module of the port
+_ROBUSTNESS_PARAMS = ("checkpoint_dir", "guard_policy", "faults",
+                      "telemetry_out", "trace_out", "profile_dir",
+                      "crash_dump")
+
+
+def _field_default(name: str) -> Any:
+    f = {f.name: f for f in dataclasses.fields(Config)}[name]
+    return f.default if f.default is not dataclasses.MISSING \
+        else f.default_factory()
 
 
 def _coerce(value: Any, f: dataclasses.Field) -> Any:

@@ -2,8 +2,9 @@
 reference python-package/lightgbm/engine.py:18-276).
 
 ``train(params, Dataset, num_boost_round, valid_sets=, valid_names=,
-fobj=, feval=, init_model=, early_stopping_rounds=, evals_result=,
-verbose_eval=, callbacks=)`` returns a ``Booster``. It runs on the CUDA
+fobj=, feval=, init_model=, feature_name=, categorical_feature=,
+early_stopping_rounds=, evals_result=, verbose_eval=, callbacks=)``
+(the JAX package's positional order) returns a ``Booster``. It runs on the CUDA
 device unless ``device`` says otherwise, and raises when there is none.
 With valid sets, ``feval``, ``fobj`` or callbacks it steps one iteration
 at a time: the update, one evaluation (one host read of every metric
@@ -39,6 +40,7 @@ _ES_ALIASES = ("early_stopping_round", "early_stopping_rounds",
 def train(params: Dict[str, Any], train_set: Dataset,
           num_boost_round: int = 100, valid_sets=None, valid_names=None,
           fobj=None, feval=None, init_model=None,
+          feature_name="auto", categorical_feature="auto",
           early_stopping_rounds: Optional[int] = None,
           evals_result: Optional[Dict] = None, verbose_eval=True,
           keep_training_booster: bool = False, callbacks=None, *,
@@ -68,6 +70,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
             raise TypeError("init_model should be a path or a Booster")
     if not isinstance(train_set, Dataset):
         raise TypeError("Training only accepts Dataset object")
+    if feature_name != "auto":
+        train_set.feature_name = feature_name
+    if categorical_feature != "auto":
+        train_set.categorical_feature = categorical_feature
     booster = Booster(params=params, train_set=train_set, device=device,
                       ops=ops)
     gbdt = booster._gbdt

@@ -86,13 +86,6 @@ def _reject(what: str, item: str) -> None:
 def check_slice(config: Config) -> None:
     """Refuse configurations outside the port's slices; nothing is
     approximated."""
-    if config.boosting != "gbdt":
-        _reject(f"boosting={config.boosting}", "Queue 1 item 7")
-    if config.bagging_freq > 0 and (
-            config.bagging_fraction < 1.0
-            or config.pos_bagging_fraction < 1.0
-            or config.neg_bagging_fraction < 1.0):
-        _reject("bagging", "Queue 1 item 7")
     if split_cegb_on(config):
         _reject("CEGB", "Queue 1 item 7")
     if config.extra_trees:
@@ -302,13 +295,21 @@ class PartitionedTreeLearner(LeafwiseLearner):
 
     # ------------------------------------------------------------------
     def train(self, grad: torch.Tensor, hess: torch.Tensor,
-              feature_mask: Optional[np.ndarray] = None):
+              feature_mask: Optional[np.ndarray] = None,
+              bag_weight: Optional[torch.Tensor] = None):
         f, n = self.num_features, self.num_data
         meta_t, tables, imeta, fmeta = self._tree_meta(feature_mask)
         # repack the gh payload in the current row order (rows carry
-        # their id); bagging is out of this slice, so every row counts
+        # their id), weighted (JAX partitioned.py:331-335): an
+        # out-of-bag row keeps its place in its segment with zero g/h
+        # and count 0, so every count below comes from the count
+        # channel and every segment length stays a row count
         rids = extract_row_ids(self.mat, f, n).long()
-        pack_gh(self.mat, f, grad[rids], hess[rids], self._ones)
+        if bag_weight is None:
+            pack_gh(self.mat, f, grad[rids], hess[rids], self._ones)
+        else:
+            w = bag_weight[rids]
+            pack_gh(self.mat, f, grad[rids] * w, hess[rids] * w, w)
         table, root = self._root_scan(self._histogram(0, n, n), meta_t,
                                       tables)
         if self.fused:

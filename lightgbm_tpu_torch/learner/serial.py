@@ -92,10 +92,13 @@ class SerialTreeLearner(LeafwiseLearner):
 
     # ------------------------------------------------------------------
     def train(self, grad: torch.Tensor, hess: torch.Tensor,
-              feature_mask: Optional[np.ndarray] = None):
+              feature_mask: Optional[np.ndarray] = None,
+              bag_weight: Optional[torch.Tensor] = None):
         meta_t, tables, imeta, fmeta = self._tree_meta(feature_mask)
-        # bagging is out of this slice, so every row counts
-        ghc = make_ghc(grad.to(torch.float32), hess.to(torch.float32))
+        # an out-of-bag row carries zero g/h and count 0; its leaf_id
+        # follows the splits all the same
+        ghc = make_ghc(grad.to(torch.float32), hess.to(torch.float32),
+                       bag_weight)
         self.leaf_id.zero_()
         table, root = self._root_scan(self._histogram(ghc), meta_t, tables)
         st = root_state(self.pack, table, *root, self.num_data,

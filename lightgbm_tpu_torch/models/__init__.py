@@ -1,3 +1,4 @@
-"""Tree IR and the boosting driver of the port."""
+"""Tree IR, the boosting driver and its variants (GOSS, DART, RF) of
+the port."""
 
 from .tree import Tree, TreeArrays

@@ -11,9 +11,14 @@ bin-space walk of each new tree on the device, the training and valid
 metrics (``eval_metrics``: one host read an eval boundary),
 ``output_metric`` with ``early_stopping_round``, ``first_metric_only``
 and ``metric_freq`` (gbdt.cpp:439-542), and continued training from an
-existing model's trees (``init_from_models``). Scores and gradients
-live on the training device as float32 ``[N, k]``; trees live on the
-host. Bagging and the DART/GOSS/RF variants are not in this slice.
+existing model's trees (``init_from_models``), and bagging
+(gbdt.cpp:163-243; balanced on the label too): each row's 0/1 weight
+is the JAX package's ``jax.random`` draw for the iteration
+(``bag_mask``, through ``utils/threefry.py``), made on the device and
+handed to the learner, which packs ``grad * w``, ``hess * w`` and the
+count ``w > 0``. Scores and gradients live on the training device as
+float32 ``[N, k]``; trees live on the host. GOSS, DART and RF are
+subclasses (``models/variants.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from ..metric import create_metrics
 from ..objective import create_objective
 from ..parallel.learners import create_tree_learner
 from ..utils.log import log_fatal, log_info, log_warning
+from ..utils.threefry import Key, fold_in, prng_key, uniform
 from .tree import Tree, constant_tree
 
 kEpsilon = 1e-15
@@ -63,6 +69,27 @@ def coerce_custom_grad(arr, num_data: int, k: int,
         log_fatal(f"custom gradient shape {a.shape} does not match "
                   f"({num_data}, {k})")
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def bag_mask(key0: Key, it: int, n: int, device, *, freq: int,
+             frac: float, pos_frac: float = 1.0, neg_frac: float = 1.0,
+             label: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-row 0/1 float32 bagging weights of iteration ``it`` (JAX
+    ``models/gbdt.py:168 _bag_mask_core``): the iteration collapses to
+    its ``bagging_freq`` boundary, the key is ``fold_in(key0, it)``,
+    and a row is in the bag when its uniform draw is below
+    ``frac`` (or, with ``label``, below ``pos_frac`` for a positive
+    label and ``neg_frac`` otherwise), compared in float32."""
+    it_eff = it - it % max(int(freq), 1)
+    u = uniform(fold_in(key0, it_eff), n, device)
+    f32 = torch.float32
+    if label is None:
+        thr = torch.tensor(frac, dtype=f32, device=device)
+    else:
+        thr = torch.where(label > 0,
+                          torch.tensor(pos_frac, dtype=f32, device=device),
+                          torch.tensor(neg_frac, dtype=f32, device=device))
+    return (u < thr).to(f32)
 
 
 class GBDT:
@@ -110,6 +137,9 @@ class GBDT:
             self.training_metrics = self._metrics_for(train_data)
         self._feature_rng = np.random.RandomState(
             config.feature_fraction_seed)
+        self._bag_key = prng_key(config.bagging_seed)
+        self._bag_label: Optional[torch.Tensor] = None
+        self.bag_weight: Optional[torch.Tensor] = None
 
     @property
     def num_iterations_trained(self) -> int:
@@ -151,6 +181,38 @@ class GBDT:
                 score += add.reshape(score.shape[0], -1)
 
     # ------------------------------------------------------------------
+    def _bagging_need(self) -> bool:
+        cfg = self.config
+        return cfg.bagging_freq > 0 and (
+            cfg.bagging_fraction < 1.0 or cfg.pos_bagging_fraction < 1.0
+            or cfg.neg_bagging_fraction < 1.0)
+
+    def _bagging_weight(self, it: int, grad=None,
+                        hess=None) -> Optional[torch.Tensor]:
+        """The rows' bagging weights for iteration ``it`` (JAX
+        ``gbdt.py:403``), on the device with no host read; the draw of
+        a ``bagging_freq`` boundary is kept until the next one.
+        ``grad``/``hess`` [N, k] are for gradient-based sampling
+        (GOSS)."""
+        cfg = self.config
+        if not self._bagging_need():
+            return None
+        if it % cfg.bagging_freq != 0 and self.bag_weight is not None:
+            return self.bag_weight
+        label = None
+        if cfg.pos_bagging_fraction < 1.0 or cfg.neg_bagging_fraction < 1.0:
+            if self._bag_label is None:
+                self._bag_label = torch.as_tensor(
+                    np.asarray(self.train_data.metadata.label),
+                    dtype=torch.float32, device=self.device)
+            label = self._bag_label
+        self.bag_weight = bag_mask(
+            self._bag_key, it, self.num_data, self.device,
+            freq=cfg.bagging_freq, frac=cfg.bagging_fraction,
+            pos_frac=cfg.pos_bagging_fraction,
+            neg_frac=cfg.neg_bagging_fraction, label=label)
+        return self.bag_weight
+
     def _feature_mask(self) -> Optional[np.ndarray]:
         frac = self.config.feature_fraction
         if frac >= 1.0:
@@ -210,6 +272,7 @@ class GBDT:
                                       self.device)
             hess = coerce_custom_grad(hessians, self.num_data, k,
                                       self.device)
+        bag = self._bagging_weight(self.iter, grad, hess)
         fmask = self._feature_mask()
         should_continue = False
         new_trees: List[Tree] = []
@@ -220,10 +283,11 @@ class GBDT:
                 # each tree trains on its own contiguous column
                 tree, leaf_id = self.learner.train(
                     grad[:, tid].contiguous(), hess[:, tid].contiguous(),
-                    feature_mask=fmask)
+                    feature_mask=fmask, bag_weight=bag)
             if tree is not None and tree.num_leaves > 1:
                 should_continue = True
-                self._renew_tree_output(tree, leaf_id, tid)
+                self._renew_tree_output(tree, self.train_score[:, tid],
+                                        leaf_id)
                 tree.shrink(self.shrinkage_rate)
                 self._update_scores(tree, leaf_id, tid)
                 if abs(init_scores[tid]) > kEpsilon:
@@ -253,16 +317,34 @@ class GBDT:
         self.iter += 1
         return False
 
-    def _renew_tree_output(self, tree: Tree, leaf_id: torch.Tensor,
-                           tid: int) -> None:
-        """The L1 family's leaf refit (serial_tree_learner.cpp:720-758),
-        on the training device; the refit values are read to the host
-        tree once."""
+    def _renew_tree_output(self, tree: Tree, score: torch.Tensor,
+                           leaf_id: torch.Tensor) -> None:
+        """The L1 family's leaf refit (serial_tree_learner.cpp:720-758)
+        against ``score``, on the training device, over the rows in the
+        bag only (JAX ``gbdt.py:670-693``): out-of-bag rows go to an
+        extra last leaf, whose value is dropped. The refit values are
+        read to the host tree once."""
         if self.objective is None or not self.objective.is_renew_tree_output:
             return
-        vals = self.objective.renew_tree_output(
-            self.train_score[:, tid], leaf_id, tree.num_leaves)
-        tree.leaf_value = vals.cpu().numpy()[:tree.num_leaves]
+        nl = tree.num_leaves
+        if self.bag_weight is not None:
+            leaf_id = torch.where(self.bag_weight > 0, leaf_id.long(),
+                                  torch.full_like(leaf_id.long(), nl))
+        vals = self.objective.renew_tree_output(score, leaf_id, nl + 1)
+        tree.leaf_value = vals.cpu().numpy()[:nl]
+
+    def _add_tree_score(self, tree: Tree, tid: int, train: bool,
+                        valid: bool) -> None:
+        """Add ``tree`` (at its current leaf values) to the train scores
+        and/or every valid set's, by its bin-space walk."""
+        if train:
+            tree.predict_binned_add(self.train_score, tid,
+                                    self.train_data.binned_device(
+                                        self.device))
+        if valid:
+            for vd, vs in zip(self.valid_sets, self.valid_scores):
+                tree.predict_binned_add(vs, tid,
+                                        vd.binned_device(self.device))
 
     def _update_scores(self, tree: Tree, leaf_id: torch.Tensor,
                        tid: int) -> None:
@@ -351,12 +433,7 @@ class GBDT:
             for tid in range(k):
                 tree = self.models[-(es - j) * k + tid]
                 tree.shrink(-1.0)
-                tree.predict_binned_add(
-                    self.train_score, tid,
-                    self.train_data.binned_device(self.device))
-                for vd, vs in zip(self.valid_sets, self.valid_scores):
-                    tree.predict_binned_add(vs, tid,
-                                            vd.binned_device(self.device))
+                self._add_tree_score(tree, tid, train=True, valid=True)
         del self.models[-es * k:]
         self.iter -= es
         return True

@@ -1,0 +1,170 @@
+"""The port's user surface against the JAX package's, side by side on
+the CPU (ROADMAP.md Queue 3, faults 1-3).
+
+1. Dataset and Booster parameters: the data is binned with the
+   booster's parameters under the Dataset's own, and boosting reads the
+   booster's alone (JAX ``basic.py:408-416``).
+2. ``train`` and ``Dataset`` take the JAX signatures: ``feature_name``
+   and ``categorical_feature`` after ``init_model``, ``"auto"`` meaning
+   no names, ``free_raw_data``; a non-empty ``categorical_feature`` is
+   refused with Queue 1 item 7.2.
+3. The robustness and observability parameters, which no module of the
+   port reads yet, are refused with Queue 1 item 11 where the JAX
+   package acts on them.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import lightgbm_tpu as lgb
+import lightgbm_tpu_torch as lt
+
+torch.set_num_threads(2)
+
+
+def _data(seed=0, n=2000, f=4):
+    """Random binary data, the shape of the fault's report (ROADMAP.md
+    Queue 3, fault 1)."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, f)
+    y = rng.randint(0, 2, n).astype(np.float32)
+    return X, y
+
+
+def _both(params, ds_params, rounds=2):
+    X, y = _data()
+    port = lt.train(params, lt.Dataset(X, label=y, params=ds_params),
+                    rounds, device="cpu")
+    ref = lgb.train(params, lgb.Dataset(X, label=y, params=ds_params),
+                    num_boost_round=rounds, verbose_eval=False)
+    return X, port, ref
+
+
+def test_dataset_params_win_for_binning():
+    X, port, ref = _both({"objective": "binary", "num_leaves": 7,
+                          "max_bin": 63, "verbosity": -1},
+                         {"max_bin": 15, "verbosity": -1})
+    nb = port._gbdt.train_data.num_bins_array()
+    assert nb.max() == ref._gbdt.train_data.num_bins_array().max() <= 16
+    np.testing.assert_allclose(port.predict(X, raw_score=True),
+                               ref.predict(X, raw_score=True), rtol=0,
+                               atol=1e-6)
+
+
+def test_boosting_reads_the_booster_params_alone():
+    _, port, ref = _both({"objective": "binary", "verbosity": -1},
+                         {"num_leaves": 4, "verbosity": -1})
+    for bst in (port, ref):
+        assert max(t.num_leaves for t in bst._gbdt.models) == 31
+    assert port._gbdt.config.num_leaves == ref._gbdt.config.num_leaves \
+        == 31
+
+
+def test_reset_parameter_reads_the_booster_params_alone():
+    X, y = _data()
+    p = {"objective": "binary", "verbosity": -1}
+    port = lt.Booster(p, lt.Dataset(X, label=y,
+                                    params={"num_leaves": 4}),
+                      device="cpu")
+    ref = lgb.Booster(p, lgb.Dataset(X, label=y,
+                                     params={"num_leaves": 4}))
+    port.reset_parameter({"learning_rate": 0.05})
+    ref.reset_parameter({"learning_rate": 0.05})
+    assert port._gbdt.config.num_leaves == ref._gbdt.config.num_leaves
+    assert port._gbdt.shrinkage_rate == ref._gbdt.shrinkage_rate
+
+
+def test_train_takes_feature_name_after_init_model_positionally():
+    X, y = _data()
+    p = {"objective": "binary", "num_leaves": 7, "verbosity": -1}
+    names = ["w", "x", "y", "z"]
+    port = lt.train(p, lt.Dataset(X, label=y), 2, None, None, None, None,
+                    None, names, device="cpu")
+    ref = lgb.train(p, lgb.Dataset(X, label=y), 2, None, None, None, None,
+                    None, names, verbose_eval=False)
+    assert port.feature_name() == ref.feature_name() == names
+
+
+def test_auto_feature_name_means_no_names():
+    X, y = _data()
+    p = {"objective": "binary", "num_leaves": 7, "verbosity": -1}
+    port = lt.train(p, lt.Dataset(X, label=y, feature_name="auto"), 2,
+                    feature_name="auto", device="cpu")
+    ref = lgb.train(p, lgb.Dataset(X, label=y, feature_name="auto"), 2,
+                    feature_name="auto", verbose_eval=False)
+    assert port.feature_name() == ref.feature_name() \
+        == [f"Column_{i}" for i in range(4)]
+    assert port.model_to_string() .split("feature_names=")[1] \
+        .split("\n")[0] == ref.model_to_string().split(
+            "feature_names=")[1].split("\n")[0]
+
+
+def test_dataset_signature_matches_jax():
+    import inspect
+    port = inspect.signature(lt.Dataset.__init__).parameters
+    ref = inspect.signature(lgb.Dataset.__init__).parameters
+    assert list(port) == list(ref)
+    assert {k: v.default for k, v in port.items()} \
+        == {k: v.default for k, v in ref.items()}
+    tport = list(inspect.signature(lt.train).parameters)
+    tref = list(inspect.signature(lgb.train).parameters)
+    assert tport[:len(tref)] == tref
+    assert tport[len(tref):] == ["device", "ops"]
+
+
+def test_free_raw_data_drops_the_matrix():
+    X, y = _data()
+    p = {"objective": "binary", "num_leaves": 7, "verbosity": -1}
+    ds = lt.Dataset(X, label=y, free_raw_data=True)
+    bst = lt.train(p, ds, 2, device="cpu")
+    rds = lgb.Dataset(X, label=y, free_raw_data=True)
+    ref = lgb.train(p, rds, 2, verbose_eval=False)
+    assert ds.data is None and rds.data is None
+    # tests/test_torch_train.py's tolerance (float32 against float64
+    # histogram sums)
+    np.testing.assert_allclose(bst.predict(X, raw_score=True),
+                               ref.predict(X, raw_score=True), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("where", ["dataset", "train", "params"])
+def test_categorical_features_are_refused(where):
+    X, y = _data()
+    p = {"objective": "binary", "num_leaves": 7, "verbosity": -1}
+    kw, tkw = {}, {}
+    if where == "dataset":
+        kw = {"categorical_feature": [1]}
+    elif where == "train":
+        tkw = {"categorical_feature": [1]}
+    else:
+        p = dict(p, categorical_feature="1")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7.2"):
+        lt.train(p, lt.Dataset(X, label=y, **kw), 2, device="cpu", **tkw)
+
+
+@pytest.mark.parametrize("param,value", [
+    ("guard_policy", "raise"), ("faults", "nan_grad@iteration=1"),
+    ("telemetry_out", "tel.jsonl"), ("trace_out", "trace.json"),
+    ("profile_dir", "prof"), ("crash_dump", "crash.json"),
+    ("elastic_watchdog", False), ("elastic_heartbeat_ms", 250.0)])
+def test_robustness_params_are_refused(param, value):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        lt.Config.from_params({param: value})
+    # their defaults pass
+    lt.Config.from_params({"guard_policy": "off", "elastic_watchdog": True})
+
+
+def test_checkpoint_dir_writes_in_jax_and_is_refused_in_the_port(tmp_path):
+    X, y = _data()
+    p = {"objective": "binary", "num_leaves": 7, "verbosity": -1,
+         "checkpoint_dir": str(tmp_path / "ckpt"), "checkpoint_freq": 1}
+    lgb.train(p, lgb.Dataset(X, label=y), 2, verbose_eval=False)
+    assert sorted(os.listdir(tmp_path / "ckpt"))[:2] == [
+        "ckpt_00000001", "ckpt_00000002"]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        lt.train(dict(p, checkpoint_dir=str(tmp_path / "port")),
+                 lt.Dataset(X, label=y), 2, device="cpu")
+    assert not os.path.exists(tmp_path / "port")

@@ -773,3 +773,67 @@ def test_partition_kernel_reuses_its_scratch(dev):
              if e.device_type == torch.autograd.DeviceType.CUDA
              and "part_" in e.name]
     assert len(names) == 2, names
+
+
+# ---- TreeSHAP (csrc/tree_shap.cu) --------------------------------------
+
+def _golden_shap(name, rows=300):
+    import os
+    from golden_common import DATASETS
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "fixtures", "golden",
+                           f"model_{name}.txt")) as f:
+        text = f.read()
+    X = DATASETS[name]["make"]()[2][:rows]
+    X = X.todense() if hasattr(X, "todense") else X
+    return text, np.asarray(X, np.float64)
+
+
+@pytest.mark.parametrize("name", ["binary", "categorical", "monotone",
+                                  "multiclass", "rank", "regression_l1",
+                                  "sparse_efb", "tweedie", "weighted"])
+def test_tree_shap_kernel_matches_plain(dev, name):
+    """The kernel against its plain version on every golden model:
+    1e-9 relative (float64, sums in another order), and
+    ``Booster.predict(pred_contrib=True)`` on the card goes through it."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import _native
+    from lightgbm_tpu_torch.ops.tree_shap_cuda import tree_shap
+    from lightgbm_tpu_torch.predictor import tree_shap_plain
+    text, X = _golden_shap(name)
+    bst = lt.Booster(model_str=text, device=dev)
+    k = bst.num_model_per_iteration()
+    before = _native.LAUNCHES["tree_shap"]
+    out = tree_shap(bst.models, torch.from_numpy(X).to(dev), k)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES["tree_shap"] == before + 1
+    ref = tree_shap_plain(bst.models, torch.from_numpy(X), k).numpy()
+    np.testing.assert_allclose(out.cpu().numpy(), ref, rtol=1e-9,
+                               atol=1e-12)
+    got = bst.predict(X, pred_contrib=True).reshape(len(X), -1)
+    assert _native.LAUNCHES["tree_shap"] == before + 2
+    np.testing.assert_allclose(got, ref, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("which", ["repeats", "long"])
+def test_tree_shap_kernel_deep_chains(dev, which):
+    """A chain repeating one feature on 37 of its 40 nodes (paths of 5
+    elements), and a chain of 40 distinct features (paths of up to 41
+    elements: the long-path kernel)."""
+    from lightgbm_tpu_torch.ops.tree_shap_cuda import tree_shap
+    from lightgbm_tpu_torch.predictor import tree_shap_plain
+    from torch_shap_model import chain_rows, chain_tree
+    if which == "repeats":
+        f = 4
+        tree = chain_tree([0] * 36 + [1, 2, 3, 0],
+                          list(np.linspace(-1.5, 1.5, 36))
+                          + [0.1, -0.2, 0.3, 1.8])
+    else:
+        f = 40
+        tree = chain_tree(list(range(f)), list(0.05 * np.arange(f) - 1.0),
+                          seed=2)
+    x = chain_rows(f, n=300)
+    out = tree_shap([tree], torch.from_numpy(x).to(dev), 1)
+    ref = tree_shap_plain([tree], torch.from_numpy(x), 1)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=1e-9,
+                               atol=1e-12)

@@ -376,9 +376,15 @@ def test_linear_trees_parse_but_do_not_predict(trained):
 @pytest.mark.parametrize("kwargs", [{"pred_contrib": True},
                                     {"pred_early_stop": True}])
 def test_prediction_refusals_name_queue_1_item_6(trained, kwargs):
-    X, _, bst, _ = trained
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        bst.predict(X, **kwargs)
+    """Queue 1 item 6 landed: what was refused with its ID now predicts
+    what the JAX predictor predicts on the same trees (SHAP values to
+    1e-9 relative, early-stopped scores to the bit)."""
+    from lightgbm_tpu.predictor import predict as jpredict
+    X, _, bst, text = trained
+    jb = jtext.load_model_from_string(text)
+    out = bst.predict(X, raw_score=True, **kwargs)
+    ref = jpredict(jb, X, raw_score=True, **kwargs)
+    np.testing.assert_allclose(out, ref, rtol=1e-9, atol=1e-12)
 
 
 def test_data_refusals_name_their_items(tmp_path):

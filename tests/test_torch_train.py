@@ -200,9 +200,9 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"boosting": "dart"}, "Queue 1 item 7"),
-    ({"boosting": "goss"}, "Queue 1 item 7"),
-    ({"bagging_freq": 1, "bagging_fraction": 0.5}, "Queue 1 item 7"),
+    ({"forcedsplits_filename": "forced.json"}, "Queue 1 item 7"),
+    ({"categorical_feature": "0"}, "Queue 1 item 7.2"),
+    ({"checkpoint_dir": "ckpt"}, "Queue 1 item 11"),
     ({"extra_trees": True}, "Queue 1 item 7"),
     ({"cegb_penalty_split": 1.0}, "Queue 1 item 7"),
     ({"feature_fraction_bynode": 0.5}, "Queue 1 item 7"),
