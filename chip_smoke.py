@@ -114,7 +114,33 @@ of the JAX package. Phases, each fatal on failure:
    fraction 0.8), each with its launch counts and in-training AUC; then
    kernels against plain versions at 100k x 28, 63 leaves, 3 iterations
    of bagging (255 and 1023 bins), GOSS at lr 0.5 and DART: trees, leaf
-   values and train scores to the bit.
+   values and train scores to the bit;
+11. categorical features on the per-phase path of both learners: an
+   airline-shaped matrix (the on-time data of LightGBM's categorical
+   experiment: Month, DayofMonth, DayOfWeek, CRSDepTime, UniqueCarrier,
+   Origin, Dest, Distance; airports and carriers Zipf-skewed; label
+   "delayed", ~20% positive), 2M rows and a 500k-row valid set (seed
+   43), ``categorical_feature=[0, 1, 2, 4, 5, 6]``, 255 leaves, lr 0.1,
+   8 iterations, auc and binary_logloss every iteration: (a) max_bin
+   255 (the partitioned learner; the partition's LUT route for every
+   categorical split) and (b) max_bin 1023 (the serial learner; Origin
+   and Dest keep 300 bins, wider than the 256-bin bitset, so they never
+   split). Printed per run: ms/split, the categorical search's
+   CUDA-event ms a split and its share of the split, the launch counts
+   and the valid AUC; on a, one more tree under torch.profiler: the
+   card's busy time a split and the partition's in-training device us
+   a call, LUT and threshold routes apart. Gates: every kernel of the
+   run's path launched (the LUT route on a);
+   ``predict(pred_leaf=True)`` of the 2M raw rows equal, tree by tree,
+   to the bin-space walk of their bins (at b
+   except on rows with a categorical bin at or above 256, whose count
+   is printed); a's valid AUC above the same data trained with no
+   categorical feature; kernels against plain versions at 100k rows,
+   63 leaves, 3 iterations at max_bin 255 (``max_cat_to_onehot=8``, so
+   DayOfWeek goes one-hot) and 1023: the same trees, leaf values and
+   valid histories to the bit. Phase 9's golden datasets include the
+   reference CLI's ``categorical`` one (``categorical_feature=0,1`` in
+   its params).
 
 The second-to-last line of output is the per-kernel JSON record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1025,7 +1051,8 @@ def hist_rows_summary(r):
 def tree_sig(t):
     return (t.num_leaves, t.split_feature_inner.tolist(),
             t.threshold_bin.tolist(), t.decision_type.tolist(),
-            t.left_child.tolist(), t.right_child.tolist())
+            t.left_child.tolist(), t.right_child.tolist(),
+            [sorted(c.tolist()) for c in t.cat_threshold])
 
 
 def first_divergence(a, b):
@@ -1742,7 +1769,8 @@ def objective_parity(dev):
 
 
 GOLDEN_QUALITY = {"multiclass": 0.05, "regression_l1": 0.05,
-                  "monotone": 0.05, "tweedie": 0.10, "rank": None}
+                  "monotone": 0.05, "tweedie": 0.10, "categorical": 0.05,
+                  "rank": None}
 
 
 def golden_loss(objective, spec, p, y):
@@ -2181,6 +2209,310 @@ def sampling_phase(X, y, binned, binned_wide, bin_bst, mc_bst, dev, reps):
                library_ms=None)
     return rec, shap["launches"]
 
+# ---- phase 11: categorical features ------------------------------------
+AIRLINE_CATEGORICAL = [0, 1, 2, 4, 5, 6]
+CATEGORICAL_PATH = {255: ("hist_segment", "partition_segment", "split_scan"),
+                    1023: ("hist_rows", "split_scan")}
+
+
+def airline_like(n: int, seed: int = 42):
+    """An airline-shaped matrix: the columns of the on-time data of
+    LightGBM's "Optimal Split for Categorical Features" experiment (Expo
+    data) with their cardinalities, Month (12), DayofMonth (31),
+    DayOfWeek (7), CRSDepTime (hhmm), UniqueCarrier (22), Origin (300),
+    Dest (300) and Distance; carriers Zipf(1.1) and airports Zipf(1.5)
+    over shuffled ids. The label (delayed, ~20% positive) is logistic in
+    per-category effects, the departure hour and the log distance. The
+    effects, ids and distances are one fixed draw (seed 7), the rows
+    come from ``seed``."""
+    rng = np.random.RandomState(seed)
+    world = np.random.RandomState(7)
+    month_e, dom_e, dow_e = (world.randn(k) * sd for k, sd in
+                             ((12, 0.3), (31, 0.1), (7, 0.25)))
+    carrier_e, origin_e, dest_e = (world.randn(k) * sd for k, sd in
+                                   ((22, 0.4), (300, 0.5), (300, 0.4)))
+    carrier_ids, origin_ids, dest_ids = (world.permutation(k)
+                                         for k in (22, 300, 300))
+    miles = world.uniform(100.0, 2700.0, (300, 300))
+
+    def zipf(k, s):
+        p = np.arange(1, k + 1, dtype=np.float64) ** -s
+        return rng.choice(k, n, p=p / p.sum())
+    month = rng.randint(0, 12, n)
+    dom = rng.randint(0, 31, n)
+    dow = rng.randint(0, 7, n)
+    hour = rng.choice(np.arange(5, 24), n)
+    dep = hour * 100 + rng.randint(0, 60, n)
+    carrier = carrier_ids[zipf(22, 1.1)]
+    origin = origin_ids[zipf(300, 1.5)]
+    dest = dest_ids[zipf(300, 1.5)]
+    dist = miles[origin, dest] * np.exp(0.05 * rng.randn(n))
+    logit = (-1.75 + month_e[month] + dom_e[dom] + dow_e[dow]
+             + carrier_e[carrier] + origin_e[origin] + dest_e[dest]
+             + 0.07 * (hour - 14) + 0.2 * np.log(dist / 800.0))
+    y = (logit + rng.logistic(size=n) > 0).astype(np.float32)
+    X = np.column_stack([month, dom, dow, dep, carrier, origin, dest,
+                         dist]).astype(np.float64)
+    return X, y
+
+
+def categorical_run(label, params, tr, va, iters, dev):
+    """One phase-11 run through ``lt.train`` with its valid set, the
+    launch counts set to 0 just before it and read just after, CUDA
+    events around every categorical search (``per_feature_categorical``:
+    both children of a split in one call). Returns the booster, its
+    numbers and its valid history."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import _native
+    from lightgbm_tpu_torch.ops import split_categorical as sc
+    timer = DeviceTimer()
+    search = sc.per_feature_categorical
+    sc.per_feature_categorical = timer.wrap(search)
+    hist = {}
+    try:
+        _native.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst = lt.train(params, tr, iters, valid_sets=[va],
+                       valid_names=["valid"], evals_result=hist,
+                       verbose_eval=False, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sc.per_feature_categorical = search
+    launches = dict(_native.LAUNCHES)
+    lut = _native.ROUTE_LAUNCHES["partition_segment_lut"]
+    splits = sum(t.num_leaves - 1 for t in bst.models)
+    cat_nodes = sum(int((t.decision_type[:t.num_leaves - 1] & 1).sum())
+                    for t in bst.models)
+    ms_split = wall / max(splits, 1) * 1e3
+    search_ms = timer.ms() / max(splits, 1)
+    info = dict(wall_s=wall, trees=len(bst.models), splits=splits,
+                categorical_splits=cat_nodes, ms_per_split=ms_split,
+                search_ms_per_split=search_ms,
+                search_share=search_ms / ms_split,
+                launches=launches, lut_launches=lut,
+                valid_auc=hist["valid"]["auc"][-1])
+    lrn = bst._gbdt.learner
+    print(f"[categorical {label}] {type(lrn).__name__} (fused "
+          f"{lrn.fused}), num_bins_max {lrn.num_bins_max}: "
+          f"{len(bst.models)} trees, {splits} splits ({cat_nodes} "
+          f"categorical) in {wall:.2f} s = {ms_split:.3f} ms/split; "
+          f"categorical search {search_ms:.3f} ms a split "
+          f"({info['search_share']:.1%}, CUDA events); launches "
+          f"{launches}, LUT route {lut}; valid "
+          f"auc {[round(v, 6) for v in hist['valid']['auc']]}, "
+          f"binary_logloss "
+          f"{[round(v, 6) for v in hist['valid']['binary_logloss']]}")
+    for name in CATEGORICAL_PATH[int(params["max_bin"])]:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by categorical run "
+                 f"{label}")
+    if int(params["max_bin"]) == 255 and (lut <= 0 or lut != cat_nodes):
+        fail(f"categorical run {label}: {lut} LUT-route partitions for "
+             f"{cat_nodes} categorical splits")
+    if lrn.fused or not cat_nodes:
+        fail(f"categorical run {label} took the fused path or grew no "
+             "categorical split")
+    return bst, info, hist["valid"]
+
+
+def categorical_profile(label, params, tr, dev):
+    """One more tree of a phase-11 run under torch.profiler: the card's
+    busy time a split (every kernel's interval merged) and, on the
+    partitioned learner, the partition's in-training device us a call by
+    route (a call's two kernels merged: the k-th call is the k-th pair
+    of ``part_`` kernels on the stream)."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from lightgbm_tpu_torch.ops import split_step_cuda as ssc
+    routes, part = [], ssc.partition_segment
+
+    def recorded(*a, **kw):
+        routes.append(bool(a[10]))
+        return part(*a, **kw)
+    ssc.partition_segment = recorded
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            bst = lt.train(params, tr, 1, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        ssc.partition_segment = part
+    evs = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    splits = max(bst.models[0].num_leaves - 1, 1)
+    busy_ms = merged_us([(a, b) for a, b, _ in evs]) / 1e3
+    out = dict(profiled_ms_per_split=wall / splits * 1e3,
+               busy_ms_per_split=busy_ms / splits,
+               idle_share=1.0 - busy_ms / (wall * 1e3))
+    pairs = [(a, b) for a, b, name in evs if "part_" in name]
+    if routes:
+        if len(pairs) != 2 * len(routes):
+            fail(f"categorical {label}: {len(pairs)} partition kernels "
+                 f"for {len(routes)} calls")
+        per_call = [merged_us(pairs[2 * i:2 * i + 2])
+                    for i in range(len(routes))]
+        for key, want in (("lut", True), ("threshold", False)):
+            us = [u for u, r in zip(per_call, routes) if r == want]
+            out[f"partition_{key}_calls"] = len(us)
+            out[f"partition_{key}_us_per_call"] = float(np.mean(us)) \
+                if us else None
+    print(f"[categorical {label}] one more tree under the profiler: "
+          f"{out['profiled_ms_per_split']:.3f} ms/split, the card busy "
+          f"{out['busy_ms_per_split']:.4f} ms a split (idle share "
+          f"{out['idle_share']:.3f})"
+          + ("" if not routes else
+             f"; partition in training, device us a call: LUT route "
+             f"{out['partition_lut_us_per_call']:.2f} "
+             f"({out['partition_lut_calls']} calls), threshold route "
+             f"{out['partition_threshold_us_per_call']:.2f} "
+             f"({out['partition_threshold_calls']} calls)"))
+    return out
+
+
+def leaf_walk_check(label, bst, X, binned, dev, wide_cols):
+    """``predict(X, pred_leaf=True)`` of the raw rows against the
+    bin-space walk of their bins (``Tree.predict_binned_add`` with the
+    leaf indices as leaf values), tree by tree. Differences are allowed
+    only on rows with a bin at or above 256 in one of ``wide_cols`` (the
+    bitset's edge, ROADMAP.md Queue 3); their count is printed."""
+    import copy
+    import torch
+    leaves = bst.predict(X, pred_leaf=True)
+    bins = binned.binned_device(dev)
+    edge = np.zeros(len(X), bool)
+    for c in wide_cols:
+        edge |= binned.binned[:, c].astype(np.int64) >= 256
+    bad = edge_diff = 0
+    for j, t in enumerate(bst.models):
+        walk_tree = copy.copy(t)
+        walk_tree.leaf_value = np.arange(t.num_leaves, dtype=np.float64)
+        score = torch.zeros((len(X), 1), device=dev)
+        walk_tree.predict_binned_add(score, 0, bins)
+        diff = score[:, 0].long().cpu().numpy() != leaves[:, j]
+        bad += int((diff & ~edge).sum())
+        edge_diff += int((diff & edge).sum())
+    print(f"[categorical {label}] pred_leaf of {len(X)} raw rows against "
+          f"the bin walk, {len(bst.models)} trees: {bad} differences off "
+          f"the edge; {int(edge.sum())} rows with a categorical bin >= "
+          f"256, {edge_diff} (row, tree) differences there")
+    if bad:
+        fail(f"categorical {label}: pred_leaf and the bin walk differ")
+
+
+def categorical_parity(dev):
+    """Kernels against plain versions at 100k rows, 63 leaves, 3
+    iterations, max_bin 255 (max_cat_to_onehot 8) and 1023: the same
+    trees, leaf values and valid histories to the bit."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    X, y = airline_like(100_000, seed=3)
+    Xv, yv = airline_like(20_000, seed=4)
+    for max_bin, extra in ((255, {"max_cat_to_onehot": 8}), (1023, {})):
+        t0 = time.perf_counter()
+        params = dict({"objective": "binary", "num_leaves": 63,
+                       "learning_rate": 0.1, "max_bin": max_bin,
+                       "metric": "auc,binary_logloss", "verbosity": -1},
+                      **extra)
+        res = {}
+        for ops in ("kernel", "plain"):
+            tr = lt.Dataset(X, label=y, categorical_feature=AIRLINE_CATEGORICAL)
+            hist = {}
+            b = lt.train(params, tr, 3,
+                         valid_sets=[tr.create_valid(Xv, label=yv)],
+                         valid_names=["valid"], evals_result=hist,
+                         verbose_eval=False, device=dev, ops=ops)
+            res[ops] = (b, hist["valid"])
+        (kb, kh), (pb, ph) = res["kernel"], res["plain"]
+        same = len(kb.models) == len(pb.models) == 3 and all(
+            tree_sig(a) == tree_sig(c) for a, c in zip(kb.models, pb.models))
+        diff = max(float(np.abs(a.leaf_value - c.leaf_value).max())
+                   for a, c in zip(kb.models, pb.models))
+        cat_nodes = sum(int(((t.decision_type[:t.num_leaves - 1] & 1) > 0).sum())
+                     for t in kb.models)
+        print(f"[categorical parity] 100000 x 8, max_bin {max_bin} "
+              f"{extra}, {type(kb._gbdt.learner).__name__}: structure "
+              f"equal {same}, max leaf value diff {diff:.3g}, valid "
+              f"histories equal {kh == ph}, {cat_nodes} categorical nodes in "
+              f"{time.perf_counter() - t0:.1f} s")
+        if not same or diff != 0 or kh != ph or not cat_nodes:
+            fail(f"categorical kernel and plain runs differ at max_bin "
+                 f"{max_bin}")
+        del kb, pb, res
+        torch.cuda.empty_cache()
+
+
+def categorical_phase(n, iters, dev):
+    """Phase 11: runs a (max_bin 255) and b (1023) at n x 8 with a
+    500k-row valid set, their gates, the no-categorical AUC gate and the
+    kernel-against-plain parity. Returns the runs' numbers."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    t0 = time.perf_counter()
+    X, y = airline_like(n, seed=42)
+    Xv, yv = airline_like(500_000, seed=43)
+    print(f"[categorical] {n} x 8 airline-shaped rows, {y.mean():.3f} "
+          f"positive, valid 500000 rows in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for run, max_bin in (("a", 255), ("b", 1023)):
+        t0 = time.perf_counter()
+        params = {"objective": "binary", "num_leaves": 255,
+                  "learning_rate": 0.1, "max_bin": max_bin,
+                  "metric": "auc,binary_logloss", "verbosity": -1}
+        tr = lt.Dataset(X, label=y, categorical_feature=AIRLINE_CATEGORICAL)
+        va = tr.create_valid(Xv, label=yv)
+        binned = tr.construct(lt.Config.from_params(params))
+        va.construct(lt.Config.from_params(params))     # outside the run
+        nb = [int(binned.feature_mapper(i).num_bin)
+              for i in range(binned.num_features)]
+        print(f"[categorical {run}] max_bin {max_bin}: bins per column "
+              f"{nb}, binned in {time.perf_counter() - t0:.1f} s")
+        bst, info, _ = categorical_run(f"{run} max_bin {max_bin}", params,
+                                       tr, va, iters, dev)
+        if run == "a":
+            t0 = time.perf_counter()
+            info.update(categorical_profile(f"{run} max_bin {max_bin}",
+                                            params, tr, dev))
+            print(f"[categorical a] profiled tree in "
+                  f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        wide = [binned.used_feature_map[c] for c in AIRLINE_CATEGORICAL
+                if binned.bin_mappers[c].num_bin > 256]
+        leaf_walk_check(f"{run} max_bin {max_bin}", bst, X, binned, dev,
+                        wide)
+        print(f"[categorical {run}] pred_leaf check in "
+              f"{time.perf_counter() - t0:.1f} s")
+        out[run] = info
+        if run == "a":
+            hist = {}
+            t0 = time.perf_counter()
+            nc = lt.Dataset(X, label=y)
+            lt.train(params, nc, iters,
+                     valid_sets=[nc.create_valid(Xv, label=yv)],
+                     valid_names=["valid"], evals_result=hist,
+                     verbose_eval=False, device=dev)
+            out["a_no_categorical_auc"] = hist["valid"]["auc"][-1]
+            print(f"[categorical a] the same data with no categorical "
+                  f"feature: valid auc {out['a_no_categorical_auc']:.6f} "
+                  f"against {info['valid_auc']:.6f} "
+                  f"({time.perf_counter() - t0:.1f} s)")
+            if not info["valid_auc"] > out["a_no_categorical_auc"]:
+                fail("categorical treatment did not beat numerical "
+                     "treatment in valid AUC")
+            del nc
+        del bst, tr, va, binned
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    categorical_parity(dev)
+    print(f"[categorical parity] done in {time.perf_counter() - t0:.1f} s")
+    return out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser()
@@ -2439,6 +2771,12 @@ def main() -> int:
     print(f"[sampling] done in {time.perf_counter() - t0:.1f} s")
     del binned, binned_wide, fused_bst, multiclass_bst
     torch.cuda.empty_cache()
+
+    # ---- 11. categorical features on the per-phase path ----------------
+    t0 = time.perf_counter()
+    cat = categorical_phase(n, args.iters, dev)
+    print(f"[categorical] done in {time.perf_counter() - t0:.1f} s: "
+          + json.dumps(cat))
 
     sources = {
         "hist_segment": ("lightgbm_tpu_torch/csrc/hist_segment.cu",

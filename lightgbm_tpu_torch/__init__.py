@@ -4,7 +4,9 @@ The JAX package (``lightgbm_tpu``) stays the reference; this package
 imports neither it nor ``jax``. Training of every objective of the JAX
 package (regression family, binary, multiclass, cross-entropy, ranking,
 or a custom ``fobj``) with valid sets, metrics, callbacks and early
-stopping, on a dense numeric matrix of up to 1024 bins per feature:
+stopping, on a dense matrix of up to 1024 bins per feature, numerical
+or categorical features alike (``categorical_feature``; pandas category
+columns):
 the partitioned learner for bins that fit a byte, the serial (leaf_id)
 learner past that, with the segment histogram, segment partition,
 split scan and both fused split steps as hand-written CUDA kernels
@@ -19,6 +21,7 @@ early by margin (``pred_early_stop``).
 """
 
 from .basic import Booster, Dataset
+from .utils.log import LightGBMError
 from .callback import (EarlyStopException, early_stopping, print_evaluation,
                        record_evaluation, reset_parameter)
 from .config import Config

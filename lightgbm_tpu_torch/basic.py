@@ -10,6 +10,15 @@ valid sets and evaluation, or holds a model loaded from text
 on its device: the card unless ``device`` says otherwise. After early
 stopping, ``predict``, ``model_to_string`` and ``save_model`` default
 to ``best_iteration``.
+
+Categorical features come from the ``categorical_feature`` argument
+(indices, names, or a ``"0,1"`` / ``"name:a,b"`` string), else from the
+``categorical_feature`` parameter (the reference CLI's form), else, for
+a pandas DataFrame, from its ``category`` columns. A DataFrame's
+category columns become their integer codes, and their categories ride
+the model text's ``pandas_categorical`` trailer, so ``predict`` on a
+DataFrame codes its columns the same way. pandas is imported only when
+a DataFrame is passed.
 """
 
 from __future__ import annotations
@@ -35,6 +44,77 @@ from .utils.log import LightGBMError
 SPARSE_PREDICT_CHUNK_ROWS = 65536
 
 
+def _is_pandas_df(data) -> bool:
+    """A pandas DataFrame, told apart without importing pandas."""
+    cls = type(data)
+    return cls.__name__ == "DataFrame" \
+        and cls.__module__.split(".")[0] == "pandas"
+
+
+def _resolve_categorical(categorical_feature, feature_name) -> List[int]:
+    """Categorical feature indices, sorted and unique, from indices,
+    names, or a string: ``"0,1"`` (indices), ``"name:a,b"`` (names);
+    ``"auto"``, None and ``""`` mean none (JAX ``basic.py:62``, with the
+    reference's string forms; an index past the features is ignored,
+    as there)."""
+    if categorical_feature in ("auto", None, ""):
+        return []
+    if isinstance(categorical_feature, str):
+        text = categorical_feature.strip()
+        if text.startswith("name:"):
+            categorical_feature = [c.strip() for c in text[5:].split(",")
+                                   if c.strip()]
+        else:
+            categorical_feature = [int(c) for c in text.split(",")
+                                   if c.strip()]
+    names = None if feature_name in ("auto", None) else list(feature_name)
+    out = []
+    for c in categorical_feature:
+        if isinstance(c, str):
+            if names is None or c not in names:
+                raise LightGBMError(f"Unknown categorical feature name {c}")
+            out.append(names.index(c))
+        else:
+            out.append(int(c))
+    return sorted(set(out))
+
+
+def _data_from_pandas(df, pandas_categorical=None):
+    """A DataFrame -> (float64 matrix, column names, category column
+    indices, each category column's categories). Category columns become
+    their codes, missing (-1) as NaN; with ``pandas_categorical`` (a
+    training set's) each is first recoded to those categories (JAX
+    ``basic.py:36 _data_from_pandas`` and ``_apply_pandas_categorical``)."""
+    import pandas as pd
+    df = df.copy()
+    cat_cols = [i for i, c in enumerate(df.columns)
+                if isinstance(df[c].dtype, pd.CategoricalDtype)]
+    cats = []
+    for i, idx in enumerate(cat_cols):
+        col = df.columns[idx]
+        if pandas_categorical is not None and i < len(pandas_categorical):
+            df[col] = df[col].cat.set_categories(pandas_categorical[i])
+        cats.append(list(df[col].cat.categories))
+        codes = df[col].cat.codes.astype(np.float64)
+        df[col] = codes.where(codes >= 0, np.nan)
+    return (df.astype(np.float64).to_numpy(), [str(c) for c in df.columns],
+            cat_cols, cats)
+
+
+def _parse_pandas_categorical(text: str) -> List:
+    """The model text's trailing ``pandas_categorical:`` JSON line, or []
+    (JAX ``basic.py:822``)."""
+    tail = text[-min(len(text), 1 << 16):]
+    pos = tail.rfind("pandas_categorical:")
+    if pos < 0:
+        return []
+    lines = tail[pos + len("pandas_categorical:"):].splitlines()
+    try:
+        return (json.loads(lines[0]) if lines else None) or []
+    except json.JSONDecodeError:
+        return []
+
+
 def _is_sparse(data) -> bool:
     try:
         import scipy.sparse as sp
@@ -49,9 +129,10 @@ class Dataset:
     whose label, weight, query groups, init score and header names fill
     what the caller did not give. A dataset with a ``reference`` (a
     valid set) is binned with the reference's mappers. The signature is
-    the JAX package's: ``feature_name="auto"`` means no names, a
-    non-empty ``categorical_feature`` is refused (ROADMAP.md Queue 1
-    item 7.2), and ``free_raw_data`` drops ``data`` once binned."""
+    the JAX package's: ``feature_name="auto"`` means no names (a
+    DataFrame's columns name themselves), ``categorical_feature`` as
+    the module note says, and ``free_raw_data`` drops ``data`` once
+    binned."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"]
                  = None, weight=None, group=None, init_score=None,
@@ -68,6 +149,8 @@ class Dataset:
         self.categorical_feature = categorical_feature
         self.params = dict(params or {})
         self.free_raw_data = free_raw_data
+        self.pandas_categorical: List = []
+        self._pandas_cat_cols: List[int] = []
         self._raw: Optional[np.ndarray] = None
         self._binned: Optional[_BinnedDataset] = None
 
@@ -90,6 +173,13 @@ class Dataset:
                     setattr(self, key, val)
             if self.feature_name in ("auto", None) and names:
                 self.feature_name = names
+        elif _is_pandas_df(self.data):
+            ref = self.reference.pandas_categorical \
+                if self.reference is not None else None
+            X, names, self._pandas_cat_cols, self.pandas_categorical = \
+                _data_from_pandas(self.data, ref or None)
+            if self.feature_name in ("auto", None):
+                self.feature_name = names
         elif _is_sparse(self.data):
             raise NotImplementedError(
                 "sparse input bins into EFB bundles in the JAX package, "
@@ -102,26 +192,34 @@ class Dataset:
 
     def construct(self, config: Config) -> _BinnedDataset:
         if self._binned is None:
-            if self.categorical_feature not in ("auto", None) \
-                    and len(self.categorical_feature):
-                raise NotImplementedError(
-                    "categorical features are not in the port yet "
-                    "(ROADMAP.md Queue 1 item 7.2)")
-            X = self.raw_matrix(config)
             ref = None
             if self.reference is not None:
                 ref = self.reference.construct(config)
+            X = self.raw_matrix(config)
             names = None if self.feature_name in ("auto", None) \
                 else list(self.feature_name)
             self._binned = _BinnedDataset.from_numpy(
                 X, config, label=self.label, weight=self.weight,
                 group=self.group, init_score=self.init_score,
                 feature_names=names, reference=ref,
+                categorical_features=self.categorical_indices(config),
                 forced_bins=None if ref is not None
                 else load_forced_bins(config.forcedbins_filename))
             if self.free_raw_data:
                 self.data = None
         return self._binned
+
+    def categorical_indices(self, config: Config) -> List[int]:
+        """The categorical features' indices: the ``categorical_feature``
+        argument, else the parameter, else a DataFrame's category
+        columns."""
+        if self.categorical_feature not in ("auto", None):
+            spec = self.categorical_feature
+        elif config.categorical_feature:
+            spec = config.categorical_feature
+        else:
+            return list(self._pandas_cat_cols)
+        return _resolve_categorical(spec, self.feature_name)
 
     def create_valid(self, data, label=None, weight=None, group=None,
                      init_score=None, params=None) -> "Dataset":
@@ -172,6 +270,7 @@ class Booster:
         self.train_set = train_set
         self.valid_sets: List[Dataset] = []
         self.name_valid_sets: List[str] = []
+        self.pandas_categorical: List = []
         if train_set is not None:
             # the JAX Booster's order (lightgbm_tpu/basic.py:408-416):
             # the data is binned with the booster's params under the
@@ -181,11 +280,15 @@ class Booster:
                 Config.from_params(train_set.params))
             self._gbdt = create_boosting(self.config, binned, self.device,
                                          ops=ops)
+            self.pandas_categorical = train_set.pandas_categorical
         elif model_file is not None:
             with open(model_file) as f:
-                self._loaded = load_model_from_string(f.read())
+                text = f.read()
+            self._loaded = load_model_from_string(text)
+            self.pandas_categorical = _parse_pandas_categorical(text)
         elif model_str is not None:
             self._loaded = load_model_from_string(model_str)
+            self.pandas_categorical = _parse_pandas_categorical(model_str)
         else:
             raise TypeError("Need at least one training dataset or model "
                             "file or model string to create Booster "
@@ -343,7 +446,10 @@ class Booster:
         ``pred_early_stop`` (with ``pred_early_stop_freq`` /
         ``_margin``, else the booster's params) stops a row's trees
         once its margin is reached. Sparse rows are densified in fixed
-        chunks."""
+        chunks. A DataFrame's category columns are coded with the
+        training set's categories (``pandas_categorical``)."""
+        if _is_pandas_df(data):
+            data = _data_from_pandas(data, self.pandas_categorical)[0]
         if num_iteration is None and self.best_iteration > 0:
             num_iteration = self.best_iteration
         es = {key: kwargs.get(key, getattr(self.config, key))
@@ -365,12 +471,14 @@ class Booster:
                         start_iteration: int = 0) -> str:
         """The model text (of the iterations up to ``best_iteration``
         unless ``num_iteration`` says otherwise), with the
-        ``pandas_categorical`` trailer line the JAX Booster appends (no
-        pandas categories: ``[]``)."""
+        ``pandas_categorical`` trailer line the JAX Booster appends (a
+        DataFrame's categories, one list a category column, else
+        ``[]``)."""
         text = save_model_to_string(
             self._src(), start_iteration,
             self._iterations(num_iteration))
-        return text + "\npandas_categorical:" + json.dumps([]) + "\n"
+        return text + "\npandas_categorical:" + json.dumps(
+            self.pandas_categorical, default=str) + "\n"
 
     def save_model(self, filename: str,
                    num_iteration: Optional[int] = None,

@@ -6,8 +6,8 @@ defaults to ``cuda``; ``slo_specs``/``slo_windows`` (validated by the
 serving plane, not ported yet), the robustness and observability
 parameters (``checkpoint_dir``, ``guard_policy``, ``faults``,
 ``elastic_*``, ``telemetry_out``, ``trace_out``, ``profile_dir``,
-``crash_dump``) and ``categorical_feature`` are rejected when set, since
-no module of the port reads them yet. Which parameters the
+``crash_dump``) are rejected when set, since no module of the port reads
+them yet. Which parameters the
 port's training path accepts is checked where they are used
 (``learner/partitioned.py:check_slice``).
 
@@ -850,10 +850,6 @@ class Config:
                 raise NotImplementedError(
                     f"{name} needs the robustness and observability "
                     "planes (ROADMAP.md Queue 1 item 11)")
-        if self.categorical_feature:
-            raise NotImplementedError(
-                "categorical features are not in the port yet "
-                "(ROADMAP.md Queue 1 item 7.2)")
         if self.objective in ("multiclass", "multiclassova") and self.num_class < 2:
             raise ValueError("num_class must be >= 2 for multiclass objectives")
         if self.objective not in ("multiclass", "multiclassova", "custom",

@@ -12,14 +12,15 @@ turn it into the port's objects:
     raw threshold, threshold bin, decision type, children, leaf values,
     per-node missing type, and optionally every other field the model
     text holds: gains, internal and leaf weights and counts, leaf
-    parents and depths, shrinkage, categorical thresholds), so the
-    port's predictor runs a JAX-trained model and the port's writer
-    writes its text;
+    parents and depths, shrinkage, categorical thresholds and bin
+    bitsets), so the port's predictor runs a JAX-trained model, the
+    port's writer writes its text and its bin-space walk scores a valid
+    set;
   * ``matrix_from_jax`` and ``grow_state_from_jax`` — the partitioned
     grow loop's training matrix and its packed state (``S``, ``T``, the
-    per-leaf histogram cache), or the serial grow loop's (``S``, ``T``,
-    ``leaf_id``, the cache), so one state can be stepped in both
-    packages.
+    per-leaf histogram cache and, with categorical features, the bin
+    bitsets), or the serial grow loop's (``S``, ``T``, ``leaf_id``, the
+    cache), so one state can be stepped in both packages.
 """
 
 from __future__ import annotations
@@ -57,7 +58,8 @@ _OPTIONAL_TREE_KEYS = ("threshold_bin", "split_feature_inner", "split_gain",
                        "internal_value", "internal_weight",
                        "internal_count", "leaf_weight", "leaf_count",
                        "leaf_parent", "leaf_depth", "shrinkage",
-                       "cat_threshold")
+                       "cat_threshold", "cat_bitsets", "num_bin",
+                       "default_bin")
 
 
 def trees_from_state(states: Sequence[Dict]) -> List[Tree]:
@@ -66,8 +68,10 @@ def trees_from_state(states: Sequence[Dict]) -> List[Tree]:
     value), decision_type, left_child, right_child, leaf_value,
     missing_code (0 none / 1 zero / 2 nan); optional: the keys of
     ``_OPTIONAL_TREE_KEYS`` (``cat_threshold`` a list of category
-    arrays, one a node), zero (leaf parents -1, shrinkage 1) when
-    absent."""
+    arrays, one a node; ``cat_bitsets`` [nodes, 8] uint32 bin bitsets;
+    ``num_bin`` and ``default_bin`` of each node's feature, which with
+    the bins give the bin-space walk), zero (leaf parents -1, shrinkage
+    1) when absent."""
     trees = []
     for st in states:
         missing = [k for k in _TREE_KEYS if k not in st]
@@ -98,7 +102,9 @@ def matrix_from_jax(mat: np.ndarray, num_features: int,
 
 def grow_state_from_jax(S: np.ndarray, T: np.ndarray, hist: np.ndarray,
                         channels_major: bool = False,
-                        leaf_id: np.ndarray | None = None
+                        leaf_id: np.ndarray | None = None,
+                        bs_bitset: np.ndarray | None = None,
+                        cat_bitsets: np.ndarray | None = None
                         ) -> Dict[str, torch.Tensor]:
     """The JAX package's packed grow state -> the port's. ``S`` and ``T``
     share one layout (the merged ``StatePack``, int rows as float32 bit
@@ -107,9 +113,12 @@ def grow_state_from_jax(S: np.ndarray, T: np.ndarray, hist: np.ndarray,
     with ``channels_major`` (the compiled Mosaic path's layout).
     ``leaf_id`` ([N] int32, the serial grow loop's row membership; a
     padded compiled-path vector is cut to N by the caller) comes across
-    as ``"lid"`` when given. Every result is a fresh copy: the port
-    updates its state in place, and a numpy view of a JAX array may
-    share the array's buffer."""
+    as ``"lid"`` when given. ``bs_bitset`` [L, 8] and ``cat_bitsets``
+    [L-1, 8] (uint32; the JAX state carries them beside ``S`` and ``T``
+    on a dataset with categorical features) come across under their
+    names as int32 bit patterns, the port's layout. Every result is a
+    fresh copy: the port updates its state in place, and a numpy view
+    of a JAX array may share the array's buffer."""
     hist = np.array(hist, np.float32)
     if channels_major:
         hist = np.moveaxis(hist, 1, -1)
@@ -118,4 +127,9 @@ def grow_state_from_jax(S: np.ndarray, T: np.ndarray, hist: np.ndarray,
            "hist": torch.from_numpy(np.ascontiguousarray(hist))}
     if leaf_id is not None:
         out["lid"] = torch.from_numpy(np.array(leaf_id, np.int32))
+    for name, bits in (("bs_bitset", bs_bitset),
+                       ("cat_bitsets", cat_bitsets)):
+        if bits is not None:
+            out[name] = torch.from_numpy(
+                np.array(bits, np.uint32).view(np.int32))
     return out

@@ -11,10 +11,12 @@ Forced bin bounds come from a ``forcedbins_filename`` JSON
 (``load_forced_bins``). A valid set is binned with its training set's
 mappers (``reference=``, the JAX package's ``CreateValid`` path:
 ``values_to_bins`` through the same bins, no bin search), and query
-groups fill ``Metadata`` (``set_query``). Out of this slice
-(``NotImplementedError`` naming the ROADMAP item): categorical features,
-EFB plans that bundle features or go multi-val, linear trees and the
-sparse / two-round / streaming loaders.
+groups fill ``Metadata`` (``set_query``). The features listed in
+``categorical_features`` get the categorical bin mappers (count-sorted
+categories, the 99% cut), as in the JAX package. Out of this slice
+(``NotImplementedError`` naming the ROADMAP item): EFB plans that bundle
+features or go multi-val, linear trees and the sparse / two-round /
+streaming loaders.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import torch
 
 from ..config import Config
 from ..utils.log import log_fatal, log_warning
-from .binning import BIN_TYPE_NUMERICAL, BinMapper, kZeroThreshold
+from .binning import (BIN_TYPE_CATEGORICAL, BIN_TYPE_NUMERICAL, BinMapper,
+                      kZeroThreshold)
 
 
 def load_forced_bins(path: str) -> Dict[int, List[float]]:
@@ -189,13 +192,11 @@ class Dataset:
         carried over from the JAX package by ``convert.py``) instead of
         finding bins, so both packages bin a matrix identically.
         ``forced_bins`` maps a feature to the bin upper bounds its bins
-        must keep (``load_forced_bins``). ``reference`` (a valid set's
-        training set) gives its whole layout: mappers, used features,
-        monotone types and penalties; the rows go through its bins."""
-        if len(categorical_features):
-            raise NotImplementedError(
-                "categorical features are not in the port's first slice "
-                "(ROADMAP.md Queue 1 item 7)")
+        must keep (``load_forced_bins``). ``categorical_features`` (original
+        feature indices) get categorical mappers when bins are found here.
+        ``reference`` (a valid set's training set) gives its whole layout:
+        mappers, used features, monotone types and penalties; the rows go
+        through its bins."""
         if config.linear_tree:
             raise NotImplementedError(
                 "linear_tree is not in the port's first slice (ROADMAP.md "
@@ -225,7 +226,7 @@ class Dataset:
             self.bin_mappers = list(bin_mappers)
             self._finalize_used_features()
         else:
-            self._find_bins(data, config, forced_bins)
+            self._find_bins(data, config, categorical_features, forced_bins)
         if reference is None:
             self._resolve_monotone_and_penalty(config)
         self._extract_features(data)
@@ -252,6 +253,7 @@ class Dataset:
         self.max_bin = ref.max_bin
 
     def _find_bins(self, data: np.ndarray, config: Config,
+                   categorical_features: Sequence[int],
                    forced_bins: Optional[Dict[int, List[float]]]) -> None:
         n = data.shape[0]
         sample_cnt = min(n, self.bin_construct_sample_cnt)
@@ -262,6 +264,7 @@ class Dataset:
             sample_idx = np.arange(n)
         sample = np.asarray(data[sample_idx], np.float64)
         num_features = sample.shape[1]
+        cat_set = set(int(c) for c in categorical_features)
         filter_cnt = int(max(
             config.min_data_in_leaf * sample_cnt / max(n, 1), 1)) \
             if config.feature_pre_filter else 0
@@ -276,7 +279,8 @@ class Dataset:
                 min_data_in_bin=self.min_data_in_bin,
                 min_split_data=filter_cnt,
                 pre_filter=config.feature_pre_filter,
-                bin_type=BIN_TYPE_NUMERICAL, use_missing=self.use_missing,
+                bin_type=BIN_TYPE_CATEGORICAL if j in cat_set
+                else BIN_TYPE_NUMERICAL, use_missing=self.use_missing,
                 zero_as_missing=self.zero_as_missing,
                 forced_upper_bounds=(forced_bins or {}).get(j, ()))
             self.bin_mappers.append(mapper)

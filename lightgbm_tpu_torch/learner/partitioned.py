@@ -21,16 +21,18 @@ Two grow loops, chosen before training (``fused_split_kernel``):
     once. On the CPU, or with ``ops="plain"``, each step is its plain
     version.
   * **per-phase** ("off", "auto" on the CPU, and configurations outside
-    the fused step's scope): a Python loop over splits; per split the
-    host enqueues the partition, histogram and scan kernels
-    (``ops/partition_cuda.py``, ``ops/hist_cuda.py``,
-    ``ops/split_scan_cuda.py``), then reads the scan tables and the
-    child segments once.
+    the fused step's scope, categorical features among them): a Python
+    loop over splits; per split the host enqueues the partition (a
+    categorical split through its LUT route), histogram and scan
+    kernels (``ops/partition_cuda.py``, ``ops/hist_cuda.py``,
+    ``ops/split_scan_cuda.py``) and, with categorical features, the
+    categorical search (``ops/split_categorical.py``), then reads the
+    scan tables and the child segments once.
 
 Both loops write the same state through the same float32 bookkeeping
-(on host scalars in the per-phase loop, on 0-dim tensors in the fused
-step's plain version, on the device in its kernel) and size the child
-histogram by the parent's row count, so they grow the same trees. The
+(on host scalars in the per-phase loop and the fused step's plain
+version, on the device in its kernel) and size the child histogram by
+the parent's row count, so they grow the same trees. The
 row order persists across trees; only the grad/hess payload is repacked
 per tree, through the row id each row carries.
 
@@ -52,26 +54,24 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..data.binning import MISSING_NAN, MISSING_NONE, MISSING_ZERO
+from ..data.binning import (BIN_TYPE_CATEGORICAL, MISSING_NAN,
+                            MISSING_NONE, MISSING_ZERO)
 from ..data.dataset import Dataset
-from ..ops.hist_cuda import (build_matrix, extract_row_ids,
-                             histogram_segment, histogram_segment_plain,
-                             pack_gh)
-from ..ops.partition_cuda import partition_segment, partition_segment_plain
+from ..ops.hist_cuda import build_matrix, extract_row_ids, pack_gh
 from ..ops.split import (MISSING_NAN_CODE, MISSING_NONE_CODE,
                          MISSING_ZERO_CODE, FeatureMeta, SplitParams,
-                         meta_tensors)
+                         meta_tensors, per_feature_splits)
 from ..ops.split_scan_cuda import (per_feature_numerical_cuda,
                                    per_feature_numerical_plain,
                                    scan_meta_tables)
 from ..ops.split_step_cuda import (MAX_BINS, FusedScratch, SegmentStep,
                                    fused_split_step_segment_plain,
                                    learner_fused_kernel_on,
-                                   pack_meta_tables)
-from .split_step import (SEG_SI_PREFIX, SplitOps, f32,
-                         fused_split_eligible, fused_split_kernel_mode,
-                         grown_tree, make_grow_pack, root_state,
-                         split_step_host)
+                                   pack_meta_tables, segment_histogram,
+                                   segment_split_ops)
+from .split_step import (SEG_SI_PREFIX, f32, fused_split_eligible,
+                         fused_split_kernel_mode, grown_tree,
+                         make_grow_pack, root_state, split_step_host)
 
 _MISSING_CODE = {MISSING_NONE: MISSING_NONE_CODE,
                  MISSING_ZERO: MISSING_ZERO_CODE,
@@ -118,8 +118,8 @@ def split_cegb_on(config: Config) -> bool:
         lazy or coupled or float(config.cegb_penalty_split) > 0.0)
 
 
-def split_params_from_config(config: Config,
-                             any_missing: bool = True) -> SplitParams:
+def split_params_from_config(config: Config, any_missing: bool = True,
+                             has_categorical: bool = False) -> SplitParams:
     return SplitParams(
         lambda_l1=float(config.lambda_l1),
         lambda_l2=float(config.lambda_l2),
@@ -127,11 +127,22 @@ def split_params_from_config(config: Config,
         min_data_in_leaf=float(config.min_data_in_leaf),
         min_sum_hessian_in_leaf=float(config.min_sum_hessian_in_leaf),
         min_gain_to_split=float(config.min_gain_to_split),
-        any_missing=any_missing)
+        any_missing=any_missing,
+        max_cat_threshold=int(config.max_cat_threshold),
+        cat_l2=float(config.cat_l2),
+        cat_smooth=float(config.cat_smooth),
+        max_cat_to_onehot=int(config.max_cat_to_onehot),
+        min_data_per_group=float(config.min_data_per_group),
+        has_categorical=has_categorical)
 
 
 def dataset_any_missing(dataset: Dataset) -> bool:
     return any(dataset.feature_mapper(i).missing_type != MISSING_NONE
+               for i in range(dataset.num_features))
+
+
+def dataset_has_categorical(dataset: Dataset) -> bool:
+    return any(dataset.feature_mapper(i).bin_type == BIN_TYPE_CATEGORICAL
                for i in range(dataset.num_features))
 
 
@@ -156,7 +167,8 @@ def feature_meta_from_dataset(dataset: Dataset) -> FeatureMeta:
         if dataset.monotone_types else np.zeros(f, np.int32),
         penalty=np.asarray(dataset.feature_penalty, np.float32)
         if dataset.feature_penalty else np.ones(f, np.float32),
-        is_categorical=np.zeros(f, bool))
+        is_categorical=np.asarray(
+            [m.bin_type == BIN_TYPE_CATEGORICAL for m in mappers], bool))
 
 
 class LeafwiseLearner:
@@ -181,8 +193,9 @@ class LeafwiseLearner:
         self.device = torch.device(device)
         self.plain = ops == "plain" or self.device.type == "cpu"
         self.meta = feature_meta_from_dataset(dataset)
+        self.has_categorical = dataset_has_categorical(dataset)
         self.params = split_params_from_config(
-            config, dataset_any_missing(dataset))
+            config, dataset_any_missing(dataset), self.has_categorical)
         self.num_bins_max = int(dataset.num_bins_array().max(initial=2))
         if self.num_bins_max > MAX_BINS[self.LAYOUT]:
             _reject(f"{self.num_bins_max} bins per feature {self.BIN_NOTE}",
@@ -202,7 +215,8 @@ class LeafwiseLearner:
         self._packed_all = pack_meta_tables(self.meta, None, self.device)
         self.pack = make_grow_pack(self.SI_PREFIX,
                                    has_monotone=self.has_monotone,
-                                   big_l=self.num_leaves)
+                                   big_l=self.num_leaves,
+                                   has_cat=self.has_categorical)
         self.fused = learner_fused_kernel_on(
             fused_split_kernel_mode(config.fused_split_kernel),
             eligible=fused_split_eligible(
@@ -223,11 +237,17 @@ class LeafwiseLearner:
             self.meta, feature_mask, self.device)
 
     def _scan(self, hists, leaves, meta_t, tables) -> torch.Tensor:
+        """Both children's (or the root's) per-feature table: the
+        numerical scan (the kernel, or its plain version), merged with
+        the categorical search when the dataset has categorical
+        features."""
         if self.plain:
-            return per_feature_numerical_plain(hists, leaves, meta_t,
-                                               self.params)
-        return per_feature_numerical_cuda(hists, leaves, meta_t,
-                                          self.params, tables)
+            table = per_feature_numerical_plain(hists, leaves, meta_t,
+                                                self.params)
+        else:
+            table = per_feature_numerical_cuda(hists, leaves, meta_t,
+                                               self.params, tables)
+        return per_feature_splits(table, hists, leaves, meta_t, self.params)
 
     def _root_scan(self, root_hist, meta_t, tables):
         """Cache the root's histogram and scan it; returns the scan
@@ -275,24 +295,6 @@ class PartitionedTreeLearner(LeafwiseLearner):
                                      self.num_bins_max) \
             if self.fused and not self.plain else None
 
-    # ---- the per-phase ops, kernel or plain ----------------------------
-    def _histogram(self, begin, count, max_count):
-        f, b = self.num_features, self.num_bins_max
-        if self.plain:
-            if isinstance(begin, torch.Tensor):
-                begin, count = (int(v) for v in begin.tolist())
-            return histogram_segment_plain(self.mat, int(begin), int(count),
-                                           b, f)
-        return histogram_segment(self.mat, begin, count, b, f,
-                                 max_count=max_count)
-
-    def _partition(self, begin, cnt, feat, thr, dleft):
-        m = self.meta
-        fn = partition_segment_plain if self.plain else partition_segment
-        return fn(self.mat, self.ws, int(begin), int(cnt), feat, thr, dleft,
-                  int(m.missing[feat]), int(m.default_bin[feat]),
-                  int(m.num_bins[feat]), False, None)
-
     # ------------------------------------------------------------------
     def train(self, grad: torch.Tensor, hess: torch.Tensor,
               feature_mask: Optional[np.ndarray] = None,
@@ -310,8 +312,9 @@ class PartitionedTreeLearner(LeafwiseLearner):
         else:
             w = bag_weight[rids]
             pack_gh(self.mat, f, grad[rids] * w, hess[rids] * w, w)
-        table, root = self._root_scan(self._histogram(0, n, n), meta_t,
-                                      tables)
+        table, root = self._root_scan(
+            segment_histogram(self.mat, 0, n, self.num_bins_max, f,
+                              plain=self.plain, max_count=n), meta_t, tables)
         if self.fused:
             st, k = self._grow_fused(table, root, imeta, fmeta)
         else:
@@ -350,33 +353,12 @@ class PartitionedTreeLearner(LeafwiseLearner):
         child segments per split (inside ``split_step_host``)."""
         st = root_state(self.pack, table, *root, self.num_data,
                         self.params, self.num_leaves)
-        def partition(site, leaf, new):
-            cnt = int(site["leaf_cnt"])
-            seg = self._partition(site["leaf_begin"], cnt,
-                                  int(site["bs_feat"]), int(site["bs_thr"]),
-                                  bool(site["bs_dleft"]))
-            return seg, cnt
-
-        def histogram(part, small_left):
-            # the launch is sized by the parent's row count (a bound the
-            # host knows); the kernel cuts the chunks from the child's own
-            # count on the device, as the fused step does
-            seg, cnt = part
-            return self._histogram(seg[0:2] if small_left else seg[2:4],
-                                   None, cnt)
-
-        def extra_i(part):
-            # the child segments travel as extra int state fields
-            sg = part[0].cpu().numpy()
-            return tuple(dict(leaf_begin=int(sg[i]), leaf_cnt=int(sg[i + 1]))
-                         for i in (0, 2))
-
-        ops = SplitOps(
-            partition=partition, histogram=histogram,
-            scan=lambda hists, leaves: self._scan(hists, leaves, meta_t,
-                                                  tables),
-            extra_i=extra_i)
-        return st, self._grow_host(st, ops, imeta.cpu().numpy())
+        im = imeta.cpu().numpy()
+        ops = segment_split_ops(
+            self.mat, self.ws, im, self.num_bins_max, self.num_features,
+            lambda hists, leaves: self._scan(hists, leaves, meta_t, tables),
+            plain=self.plain)
+        return st, self._grow_host(st, ops, im)
 
     def _leaf_id(self, begin: np.ndarray, cnt: np.ndarray,
                  k: int) -> torch.Tensor:

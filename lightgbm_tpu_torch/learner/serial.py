@@ -27,8 +27,11 @@ Two grow loops, chosen before training (``fused_split_kernel``):
     histogram (on the card the ``hist_rows`` kernel over the child's
     row ids, which sums as the fused step does; plain: ``build_histogram``
     over masked ghc), the sibling by subtraction, both children's scans
-    (the scan kernel on the card), one host read of the scan tables per
-    split.
+    (the scan kernel on the card, merged with the categorical search
+    when the dataset has a categorical feature, whose split relabels
+    the rows of its bitset's bins), one host read of the scan tables
+    per split. A dataset with a categorical feature always takes this
+    loop.
 
 Both loops write the same state through the same bookkeeping and build
 the histograms to the same float64-then-round rule, so they grow the
@@ -110,8 +113,8 @@ class SerialTreeLearner(LeafwiseLearner):
             st = {"S": st["S"].cpu(), "T": st["T"].cpu()}
             k = int(k.cpu()[0])
         else:
-            # the per-phase loop keeps S and T on the host
-            st = {"S": st["S"].cpu(), "T": st["T"].cpu()}
+            # the per-phase loop keeps S, T and the bitsets on the host
+            st = {key: val.cpu() for key, val in st.items()}
             k = self._grow_per_phase(st, ghc, meta_t, tables, imeta)
         return grown_tree(self.pack, st, k, self.dataset)[0], self.leaf_id
 

@@ -12,23 +12,25 @@ order, and the same rows dropped and synthesized by ``view()``
 ``leaf_parent`` = ``ref_node``; ``leaf_cmin``/``leaf_cmax`` without
 monotone constraints). The segment layout's int rows start with its
 segment bounds (``make_grow_pack(SEG_SI_PREFIX)``), the leaf layout has
-none (``make_grow_pack(())``). The port has no categorical splits, so
-the categorical bitsets are never carried. The fused split-step kernels
+none (``make_grow_pack(())``). A dataset with categorical features
+carries the bin bitsets beside ``S`` and ``T``, as the JAX package's
+``make_grow_pack(has_cat=True)`` does: ``bs_bitset`` [L, MAX_CAT_WORDS]
+(each leaf's best split) and ``cat_bitsets`` [L-1, MAX_CAT_WORDS] (each
+node's), int32 bit patterns of the uint32 words; without them
+``view()`` synthesizes zeros. The fused split-step kernels
 (``csrc/split_step_segment.cu``, ``csrc/split_step_leaf.cu``) read and
-write this layout on the device; the per-phase loops keep it on the
-host. ``pack``, ``view``, ``read_site``, ``set_state_cols`` and
-``set_tree_col`` are functions on tensors; ``set_*`` take host scalars
-or 0-dim tensors.
+write the numerical layout on the device; the per-phase loops keep the
+state on the host. ``pack`` and ``view`` are functions on tensors;
+``read_site`` reads, and ``set_state_cols``, ``set_tree_col`` and
+``set_bitsets`` write, host scalars of the host state.
 
 **The per-split bookkeeping** (``order_child_pair``,
 ``child_constraints``, ``child_columns``, ``split_node_updates``) runs
 in the JAX package's float32 expression order on host numpy scalars in
-``split_step_host``, which both layouts' per-phase loops and the leaf
-layout's plain fused step call (``SplitOps`` carries what differs).
-The segment layout's plain fused step (``ops/split_step_cuda.py``) still
-repeats it on 0-dim tensors (``*_t``), keeping its state where ``S``
-lies as the kernel does. The kernels repeat the same expressions in
-float32 on the device, so all write the same bits.
+``split_step_host``, which both layouts' per-phase loops and both plain
+fused steps call (``SplitOps`` carries what differs). The kernels
+repeat the same expressions in float32 on the device, so all write the
+same bits.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..ops.split import assemble_split, kEpsilon
+from ..ops.split import MAX_CAT_WORDS, O_BITS, O_ISCAT, assemble_split, \
+    kEpsilon
 from ..ops.split_step_cuda import IM_MONO
 
 f32 = np.float32
@@ -90,17 +93,6 @@ def fused_split_eligible(params, *, cache_hists: bool, merged: bool,
 
 def _as_f32_bits(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int32).contiguous().view(torch.float32)
-
-
-_NP_DTYPE = {torch.float32: np.float32, torch.int32: np.int32,
-             torch.int64: np.int64, torch.bool: np.bool_}
-
-
-def _scalar_t(v, dtype, device) -> torch.Tensor:
-    """One value (a host scalar or a 0-dim tensor) as a 0-dim tensor."""
-    if isinstance(v, torch.Tensor):
-        return v.reshape(()).to(device=device, dtype=dtype)
-    return torch.as_tensor(_NP_DTYPE[dtype](v), device=device)
 
 
 class StatePack:
@@ -173,23 +165,10 @@ class StatePack:
         """One float state row [L]."""
         return st["S"][self.sf_idx[name]]
 
-    def read_site(self, st: dict, leaf) -> dict:
-        """All carried state of one leaf (an int or a 0-dim tensor) as
-        0-dim tensors on ``S``'s device: one column read, int rows
-        reinterpreted, never converted. The column is a copy (a 0-dim
-        index tensor would give a view), so writes that follow in the
-        same split leave the site as it was read."""
-        col = st["S"][:, leaf].clone()
-        nf = len(self.sf_fields)
-        colf, coli = col[:nf], col[nf:].view(torch.int32)
-        site = {k: colf[i] for k, i in self.sf_idx.items()}
-        for k, i in self.si_idx.items():
-            site[k] = coli[i].to(torch.bool) if k in self.bools else coli[i]
-        return site
-
-    def read_site_host(self, st: dict, leaf: int) -> dict:
-        """``read_site`` of a host ``S`` as numpy scalars (float32,
-        int32, bool), for the per-phase loop's host bookkeeping."""
+    def read_site(self, st: dict, leaf: int) -> dict:
+        """All carried state of one leaf of a host ``S`` as numpy
+        scalars (float32, int32, bool): one column read, int rows
+        reinterpreted, never converted."""
         col = st["S"][:, int(leaf)].numpy()
         nf = len(self.sf_fields)
         colf, coli = col[:nf], col[nf:].view(np.int32)
@@ -198,84 +177,56 @@ class StatePack:
             site[k] = bool(coli[i]) if k in self.bools else coli[i]
         return site
 
-    # ---- writes: a host index into a host matrix goes through numpy
-    # (the per-phase loop, whose values are host scalars: a few
-    # microseconds a split); a tensor index through torch ops on the
-    # matrix's device (the plain fused step, whose values are tensors)
-    @staticmethod
-    def _on_host(mat: torch.Tensor, index) -> bool:
-        return mat.device.type == "cpu" and not isinstance(index,
-                                                            torch.Tensor)
-
+    # ---- writes of host scalars into the host state (the per-phase
+    # loop and the plain fused steps: a few microseconds a split)
     @staticmethod
     def _column_np(fvals, ivals) -> np.ndarray:
         return np.concatenate([np.array(fvals, np.float32),
                                np.array(ivals, np.int32).view(np.float32)])
 
-    @staticmethod
-    def _column_t(fvals, ivals, device) -> torch.Tensor:
-        colf = torch.stack([_scalar_t(v, torch.float32, device)
-                            for v in fvals])
-        coli = torch.stack([_scalar_t(v, torch.int32, device)
-                            for v in ivals])
-        return torch.cat([colf, coli.view(torch.float32)])
+    def set_state_cols(self, st: dict, idx_a: int, idx_b: int, fa: dict,
+                       fb: dict, ia: dict, ib: dict) -> None:
+        """Write both fresh children's state columns into the host
+        ``st["S"]`` in place (keys outside the layout are ignored)."""
+        sn = st["S"].numpy()
+        for idx, fv, iv in ((idx_a, fa, ia), (idx_b, fb, ib)):
+            sn[:, int(idx)] = self._column_np(
+                [fv[k] for k in self.sf_fields],
+                [iv[k] for k in self.si_fields])
 
-    def set_state_cols(self, st: dict, idx_a, idx_b, fa: dict, fb: dict,
-                       ia: dict, ib: dict) -> None:
-        """Write both fresh children's state columns into ``st["S"]`` in
-        place (keys outside the layout are ignored). Values are host
-        scalars or 0-dim tensors."""
-        s = st["S"]
-        vals = [([fa[k] for k in self.sf_fields],
-                 [ia[k] for k in self.si_fields]),
-                ([fb[k] for k in self.sf_fields],
-                 [ib[k] for k in self.si_fields])]
-        if self._on_host(s, idx_a):
-            sn = s.numpy()
-            sn[:, int(idx_a)] = self._column_np(*vals[0])
-            sn[:, int(idx_b)] = self._column_np(*vals[1])
+    def set_tree_col(self, st: dict, s: int, tf: dict, ti: dict, pnode: int,
+                     upd: bool, pside: int) -> None:
+        """Write internal node ``s``'s column into the host ``st["T"]`` in
+        place and, when ``upd``, point the parent's ``left_child``
+        (pside 0) or ``right_child`` (pside 1) at ``s``."""
+        tn = st["T"].numpy()
+        tn[:, int(s)] = self._column_np([tf[k] for k in self.tf_fields],
+                                        [ti[k] for k in self.ti_fields])
+        if upd:
+            r0 = len(self.tf_fields) + self.ti_idx["left_child"]
+            tn[r0 + int(pside), int(pnode)] = np.int32(s).view(np.float32)
+
+    def set_bitsets(self, st: dict, idx_a: int, idx_b: int, bits_a, bits_b,
+                    s: int, site_bitset) -> None:
+        """The bitset updates of one split (``set_bitsets`` of the JAX
+        package): both children's best-split bitsets and node ``s``'s,
+        the split leaf's; nothing when the pack derives them (no
+        categorical feature)."""
+        if "bs_bitset" in self.derived:
             return
-        cols = torch.stack([self._column_t(fv, iv, s.device)
-                            for fv, iv in vals], dim=1)
-        idx = torch.stack([_scalar_t(idx_a, torch.int64, s.device),
-                           _scalar_t(idx_b, torch.int64, s.device)])
-        s[:, idx] = cols
-
-    def set_tree_col(self, st: dict, s, tf: dict, ti: dict, pnode, upd,
-                     pside) -> None:
-        """Write internal node ``s``'s column into ``st["T"]`` in place
-        and, when ``upd``, point the parent's ``left_child`` (pside 0)
-        or ``right_child`` (pside 1) at ``s`` (one read-modify-write of
-        the adjacent child-pointer pair, as in the JAX package)."""
-        t = st["T"]
-        fv = [tf[k] for k in self.tf_fields]
-        iv = [ti[k] for k in self.ti_fields]
-        r0 = len(self.tf_fields) + self.ti_idx["left_child"]
-        if self._on_host(t, s):
-            tn = t.numpy()
-            tn[:, int(s)] = self._column_np(fv, iv)
-            if bool(upd):
-                tn[r0 + int(pside), int(pnode)] = \
-                    np.int32(s).view(np.float32)
-            return
-        dev = t.device
-        s_t = _scalar_t(s, torch.int64, dev)
-        t[:, s_t] = self._column_t(fv, iv, dev)
-        pn = _scalar_t(pnode, torch.int64, dev)
-        old = t[r0:r0 + 2, pn].view(torch.int32)
-        hit = _scalar_t(upd, torch.bool, dev) & (
-            _scalar_t(pside, torch.int32, dev)
-            == torch.arange(2, dtype=torch.int32, device=dev))
-        t[r0:r0 + 2, pn] = torch.where(hit, s_t.to(torch.int32),
-                                       old).view(torch.float32)
+        bs = st["bs_bitset"].numpy().view(np.uint32)
+        bs[int(idx_a)] = bits_a
+        bs[int(idx_b)] = bits_b
+        st["cat_bitsets"].numpy().view(np.uint32)[int(s)] = site_bitset
 
 
-def make_grow_pack(si_prefix=(), *, has_monotone: bool,
-                   big_l: int) -> StatePack:
+def make_grow_pack(si_prefix=(), *, has_monotone: bool, big_l: int,
+                   has_cat: bool = False) -> StatePack:
     """The merged grow-loop pack of one configuration
-    (``make_grow_pack(..., merged=True, has_cat=False)`` of the JAX
-    package): derivable rows and, without monotone constraints, the
-    constraint bounds are dropped and synthesized by ``view()``."""
+    (``make_grow_pack(..., merged=True)`` of the JAX package): derivable
+    rows, without monotone constraints the constraint bounds and
+    without categorical features the bitsets are dropped and
+    synthesized by ``view()``."""
     sf = list(StatePack.GROW_SF)
     si = list(si_prefix) + list(StatePack.GROW_SI)
     derived = {}
@@ -290,6 +241,13 @@ def make_grow_pack(si_prefix=(), *, has_monotone: bool,
             (big_l,), -np.inf, dtype=torch.float32, device=v["leaf_g"].device)
         derived["leaf_cmax"] = lambda v: torch.full(
             (big_l,), np.inf, dtype=torch.float32, device=v["leaf_g"].device)
+    if not has_cat:
+        derived["bs_bitset"] = lambda v: torch.zeros(
+            (big_l, MAX_CAT_WORDS), dtype=torch.int32,
+            device=v["leaf_g"].device)
+        derived["cat_bitsets"] = lambda v: torch.zeros(
+            (big_l - 1, MAX_CAT_WORDS), dtype=torch.int32,
+            device=v["leaf_g"].device)
     return StatePack(sf, si, StatePack.GROW_TF, StatePack.GROW_TI,
                      derived=derived)
 
@@ -309,15 +267,13 @@ def child_constraints_mono(mono, is_cat, lout, rout, pcmin, pcmax):
     return f32(cmin_l), f32(cmax_l), f32(cmin_r), f32(cmax_r)
 
 
-def child_constraints(monotone, lout, rout, pcmin, pcmax,
+def child_constraints(monotone, is_cat, lout, rout, pcmin, pcmax,
                       has_monotone: bool):
-    """Parent bounds pass through when no feature is constrained; host
-    scalars or 0-dim tensors."""
+    """Parent bounds pass through when no feature is constrained."""
     if not has_monotone:
         return pcmin, pcmax, pcmin, pcmax
-    fn = child_constraints_mono_t if isinstance(lout, torch.Tensor) \
-        else child_constraints_mono
-    return fn(monotone, False, lout, rout, pcmin, pcmax)
+    return child_constraints_mono(monotone, is_cat, lout, rout, pcmin,
+                                  pcmax)
 
 
 def order_child_pair(a_is_left, k, lg, lh, lc, rg, rh, rc, lout, rout,
@@ -397,65 +353,15 @@ def split_node_updates(params, gain, feat, thr, dleft, is_cat, pg, ph, pc,
     return treef, treei, pnode, upd
 
 
-# ---- the same bookkeeping on 0-dim tensors (the plain fused step, whose
-# state stays where S lies; the same float32 expressions as the host
-# versions above, so both loops write the same bits) ------------------
-
-def child_constraints_mono_t(mono, is_cat, lout, rout, pcmin, pcmax):
-    """``child_constraints_mono`` on 0-dim tensors."""
-    mid = (lout + rout) * 0.5
-    num = ~torch.as_tensor(is_cat, dtype=torch.bool, device=lout.device)
-    lo = num & (mono < 0)
-    hi = num & (mono > 0)
-    return (torch.where(lo, torch.maximum(pcmin, mid), pcmin),
-            torch.where(hi, torch.minimum(pcmax, mid), pcmax),
-            torch.where(hi, torch.maximum(pcmin, mid), pcmin),
-            torch.where(lo, torch.minimum(pcmax, mid), pcmax))
-
-
-def order_child_pair_t(a_is_left, k, lg, lh, lc, rg, rh, rc, lout, rout,
-                       cmin_l, cmax_l, cmin_r, cmax_r) -> dict:
-    """``order_child_pair`` on 0-dim tensors."""
-    def w(x, y):
-        return torch.where(a_is_left, x, y)
-
-    side_a = (~a_is_left).to(torch.int32)
-    return dict(
-        ga=w(lg, rg), ha=w(lh, rh), ca=w(lc, rc),
-        gb=w(rg, lg), hb=w(rh, lh), cb=w(rc, lc),
-        out_a=w(lout, rout), out_b=w(rout, lout),
-        cmin_a=w(cmin_l, cmin_r), cmax_a=w(cmax_l, cmax_r),
-        cmin_b=w(cmin_r, cmin_l), cmax_b=w(cmax_r, cmax_l),
-        salt_a=w(2 * k + 1, 2 * k + 2), salt_b=w(2 * k + 2, 2 * k + 1),
-        side_a=side_a, side_b=1 - side_a)
-
-
-def split_node_updates_t(params, gain, feat, thr, dleft, is_cat, pg, ph, pc,
-                         ref_node, leaf, new):
-    """``split_node_updates`` on 0-dim tensors."""
-    from ..ops.split import _f32, leaf_output_no_constraint
-    i32 = torch.int32
-    dec = torch.as_tensor(is_cat, device=pg.device).to(i32) \
-        + 2 * dleft.to(i32)
-    upd = ref_node >= 0
-    pnode = torch.where(upd, ref_node, torch.zeros_like(ref_node))
-    parent_out = leaf_output_no_constraint(
-        pg, ph + _f32(2 * kEpsilon, pg.device), params.lambda_l1,
-        params.lambda_l2, params.max_delta_step)
-    treef = dict(split_gain_arr=gain, internal_value=parent_out,
-                 internal_weight=ph, internal_count=pc)
-    treei = dict(split_feature=feat, threshold_bin=thr, decision_type=dec,
-                 left_child=~leaf, right_child=~new)
-    return treef, treei, pnode, upd
-
-
 # ---- the root state and one split, driven from the host --------------
 
 def root_state(pack: StatePack, table: torch.Tensor, root_g, root_h,
                root_c, n: int, params, big_l: int) -> dict:
     """``{"S", "T"}`` of a tree that has only its root, on ``table``'s
-    device (JAX partitioned.py:474-542, serial.py:961-1025). ``table``
-    is the root's [F, 8] scan table; it is read where it lies, so no host
+    device (JAX partitioned.py:474-542, serial.py:961-1025), with the
+    bitsets ``bs_bitset`` and ``cat_bitsets`` when ``pack`` carries
+    them. ``table`` is the root's [F, 8] scan table ([F, CAT_TABLE_COLS]
+    with categorical features); it is read where it lies, so no host
     read happens here. The root sums are host float32 scalars. The
     segment bounds are packed only when ``pack`` carries them."""
     from ..ops.split import (O_DLEFT, O_LC, O_LG, O_LH, O_SCORE, O_THR,
@@ -491,7 +397,8 @@ def root_state(pack: StatePack, table: torch.Tensor, root_g, root_h,
         bs_lg=at0(0.0, lg, fl), bs_lh=at0(0.0, lh, fl),
         bs_lc=at0(0.0, lc, fl), bs_lout=at0(0.0, lout, fl),
         bs_rout=at0(0.0, rout, fl),
-        bs_iscat=zeros(i32),
+        bs_iscat=at0(0, row[O_ISCAT] > 0.5, i32) if table.shape[1] > O_ISCAT
+        else zeros(i32),
         ref_node=torch.full((big_l,), -1, dtype=i32, device=dev),
         ref_side=zeros(i32),
         leaf_cmin=torch.full((big_l,), -np.inf, dtype=fl, device=dev),
@@ -504,6 +411,12 @@ def root_state(pack: StatePack, table: torch.Tensor, root_g, root_h,
         internal_count=zeros(fl, m))
     if "leaf_begin" not in pack.si_idx:
         del fields["leaf_begin"], fields["leaf_cnt"]
+    if "bs_bitset" not in pack.derived:
+        bits = torch.zeros((big_l, MAX_CAT_WORDS), dtype=i32, device=dev)
+        bits[0] = row[O_BITS:O_BITS + MAX_CAT_WORDS].view(i32)
+        fields["bs_bitset"] = bits
+        fields["cat_bitsets"] = torch.zeros((m, MAX_CAT_WORDS), dtype=i32,
+                                            device=dev)
     return pack.pack(fields)
 
 
@@ -513,6 +426,8 @@ def grown_tree(pack: StatePack, st: dict, k: int, dataset):
     need the layout's extra fields)."""
     from ..models.tree import Tree, TreeArrays
     v = {key: val.numpy() for key, val in pack.view(st).items()}
+    cat_bitsets = v["cat_bitsets"].view(np.uint32) \
+        if "bs_bitset" not in pack.derived else None
     tree = Tree(TreeArrays(
         num_leaves=k, split_feature=v["split_feature"],
         threshold_bin=v["threshold_bin"],
@@ -522,8 +437,8 @@ def grown_tree(pack: StatePack, st: dict, k: int, dataset):
         internal_weight=v["internal_weight"],
         internal_count=v["internal_count"], leaf_value=v["leaf_value"],
         leaf_weight=v["leaf_weight"], leaf_count=v["leaf_count"],
-        leaf_parent=v["leaf_parent"], leaf_depth=v["leaf_depth"]),
-        dataset=dataset)
+        leaf_parent=v["leaf_parent"], leaf_depth=v["leaf_depth"],
+        cat_bitsets=cat_bitsets), dataset=dataset)
     return tree, v
 
 
@@ -565,9 +480,11 @@ def split_step_host(pack: StatePack, st: dict, hist: torch.Tensor, k: int,
         return False
     leaf = int(np.argmax(gains))
     new, s = k, k - 1
-    site = pack.read_site_host(st, leaf)
+    site = pack.read_site(st, leaf)
+    site["bs_bitset"] = st["bs_bitset"][leaf].numpy().view(np.uint32).copy() \
+        if "bs_bitset" in st else np.zeros(MAX_CAT_WORDS, np.uint32)
     feat, thr = int(site["bs_feat"]), int(site["bs_thr"])
-    dleft = bool(site["bs_dleft"])
+    dleft, is_cat = bool(site["bs_dleft"]), bool(site["bs_iscat"])
     lg, lh, lc = site["bs_lg"], site["bs_lh"], site["bs_lc"]
     pg, ph, pc = site["leaf_g"], site["leaf_h"], site["leaf_c"]
     rg, rh, rc = pg - lg, ph - lh, pc - lc
@@ -588,7 +505,8 @@ def split_step_host(pack: StatePack, st: dict, hist: torch.Tensor, k: int,
 
     depth = int(site["leaf_depth"]) + 1
     cmin_l, cmax_l, cmin_r, cmax_r = child_constraints(
-        int(imeta[feat, IM_MONO]), lout, rout, pcmin, pcmax, has_monotone)
+        int(imeta[feat, IM_MONO]), is_cat, lout, rout, pcmin, pcmax,
+        has_monotone)
     o = order_child_pair(small_left, k, lg, lh, lc, rg, rh, rc, lout, rout,
                          cmin_l, cmax_l, cmin_r, cmax_r)
     out = ops.scan([hist_small, hist_other],
@@ -598,20 +516,23 @@ def split_step_host(pack: StatePack, st: dict, hist: torch.Tensor, k: int,
     table = out.cpu().numpy()
     extra = ops.extra_i(part)
     blocked = max_depth > 0 and depth >= max_depth
-    cols = []
+    cols, bits = [], []
     for tab, ch, side in ((table[0], "a", o["side_a"]),
                           (table[1], "b", o["side_b"])):
         split = assemble_split(tab)
         if blocked:
             split = split._replace(gain=-inf)
+        bits.append(split.cat_bitset)
         cols.append(child_columns(
             split, o["g" + ch], o["h" + ch], o["c" + ch], o["out_" + ch],
             o["cmin_" + ch], o["cmax_" + ch], s, side, depth,
             extra_i=extra[side]))
     treef, treei, pnode, upd = split_node_updates(
-        params, site["bs_gain"], feat, thr, dleft, False, pg, ph, pc,
+        params, site["bs_gain"], feat, thr, dleft, is_cat, pg, ph, pc,
         site["ref_node"], leaf, new)
     pack.set_state_cols(st, idx_a, idx_b, cols[0][0], cols[1][0],
                         cols[0][1], cols[1][1])
     pack.set_tree_col(st, s, treef, treei, pnode, upd, site["ref_side"])
+    pack.set_bitsets(st, idx_a, idx_b, bits[0], bits[1], s,
+                     site["bs_bitset"])
     return True

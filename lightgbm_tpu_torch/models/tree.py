@@ -15,8 +15,13 @@ the model text (``io/model_text.py``):
 The port's grow loop keeps the per-split state on the host, so a tree is
 born as numpy ``TreeArrays`` and becomes a host ``Tree``. Traversals
 (raw values and bins) are vectorized numpy here; the batched device
-predictor lives in ``predictor.py``. Categorical nodes come only from
-model text in this slice: the port's learners grow numerical splits.
+predictor lives in ``predictor.py``. A categorical node holds its left
+set twice: as raw categories (``cat_threshold``, what raw-value
+prediction and the model text read) and, in a tree the port trained or
+carried over with its bins, as a bin bitset (``cat_bitsets``, what the
+bin-space walks read, as the JAX package's ``_traverse_binned_idx``
+does: the word index is clipped to the bitset, so a bin at or above
+256 reads word 7).
 """
 
 from __future__ import annotations
@@ -190,13 +195,17 @@ class Tree:
     def predict_leaf_index_binned(self, binned: np.ndarray) -> np.ndarray:
         """Leaf index per row of a train-aligned BINNED matrix."""
         def decide(idx, nd):
-            b = binned[idx, self.split_feature_inner[nd]].astype(np.int32)
+            b = binned[idx, self.split_feature_inner[nd]].astype(np.int64)
             miss = self.missing_code[nd]
             dleft = (self.decision_type[nd] & kDefaultLeftMask) != 0
             is_missing = np.where(
                 miss == 1, b == self.default_bin[nd],
                 np.where(miss == 2, b == self.num_bin[nd] - 1, False))
-            return np.where(is_missing, dleft, b <= self.threshold_bin[nd])
+            go_left = np.where(is_missing, dleft, b <= self.threshold_bin[nd])
+            is_cat = (self.decision_type[nd] & kCategoricalMask) != 0
+            word = np.clip(b // 32, 0, MAX_CAT_WORDS - 1)
+            bit = (self.cat_bitsets[nd, word].astype(np.int64) >> (b % 32)) & 1
+            return np.where(is_cat, bit == 1, go_left)
         return self._walk(binned.shape[0], decide)
 
     def predict_binned_add(self, score, tid: int, binned) -> None:
@@ -212,18 +221,18 @@ class Tree:
         if self.num_leaves <= 1:
             score[:, tid] += vals[0]
             return
-        if (self.decision_type & kCategoricalMask).any():
-            raise NotImplementedError(
-                "bin-space prediction of categorical nodes is not ported "
-                "yet (ROADMAP.md Queue 1 item 7.2)")
         self.ensure_leaf_depth()
         nodes = np.stack([
             self.split_feature_inner, self.threshold_bin,
             (self.decision_type & kDefaultLeftMask) != 0, self.left_child,
             self.right_child, self.missing_code, self.default_bin,
-            self.num_bin]).astype(np.int64)
-        col, thr, dleft, left, right, miss, dbin, nbin = torch.as_tensor(
-            nodes, device=score.device)
+            self.num_bin,
+            self.decision_type & kCategoricalMask]).astype(np.int64)
+        col, thr, dleft, left, right, miss, dbin, nbin, iscat = \
+            torch.as_tensor(nodes, device=score.device)
+        has_cat = bool((self.decision_type & kCategoricalMask).any())
+        words = torch.as_tensor(self.cat_bitsets.astype(np.int64),
+                                device=score.device) if has_cat else None
         n, f = binned.shape
         flat = binned.reshape(-1)
         base = torch.arange(n, device=score.device) * f
@@ -236,6 +245,10 @@ class Tree:
             is_missing = torch.where(m == 1, b == dbin[nd],
                                      (m == 2) & (b == nbin[nd] - 1))
             go_left = torch.where(is_missing, dleft[nd] != 0, b <= thr[nd])
+            if has_cat:
+                word = torch.clamp(b // 32, 0, MAX_CAT_WORDS - 1)
+                bit = (words[nd, word] >> (b % 32)) & 1
+                go_left = torch.where(iscat[nd] != 0, bit == 1, go_left)
             child = torch.where(go_left, left[nd], right[nd])
             node = torch.where(internal, child, node)
         score[:, tid] += vals[~node]
@@ -313,7 +326,8 @@ def tree_from_arrays(num_leaves: int, split_feature, threshold,
                      internal_value=None, internal_weight=None,
                      internal_count=None, leaf_weight=None, leaf_count=None,
                      leaf_parent=None, leaf_depth=None, shrinkage=1.0,
-                     cat_threshold=None) -> Tree:
+                     cat_threshold=None, cat_bitsets=None, num_bin=None,
+                     default_bin=None) -> Tree:
     """A Tree from plain node arrays (raw-feature split index and
     threshold per node). ``convert.py`` builds trees carried over from
     the JAX package with this; a field not given is zero (the leaf
@@ -344,11 +358,17 @@ def tree_from_arrays(num_leaves: int, split_feature, threshold,
         leaf_weight=leaf(leaf_weight, np.float64),
         leaf_count=leaf(leaf_count, np.float64),
         leaf_parent=leaf(leaf_parent, np.int32, -1),
-        leaf_depth=leaf(leaf_depth, np.int32)), shrinkage=shrinkage)
+        leaf_depth=leaf(leaf_depth, np.int32),
+        cat_bitsets=None if cat_bitsets is None
+        else np.asarray(cat_bitsets, np.uint32)[:k]), shrinkage=shrinkage)
     tree.split_feature = sf
     tree.threshold = np.asarray(threshold, np.float64)[:k]
     tree.missing_code = np.asarray(missing_code, np.int32)[:k]
     if cat_threshold is not None:
         tree.cat_threshold = [np.asarray(c, np.int64)
                               for c in list(cat_threshold)[:k]]
+    if num_bin is not None:
+        tree.num_bin = np.asarray(num_bin, np.int32)[:k]
+    if default_bin is not None:
+        tree.default_bin = np.asarray(default_bin, np.int32)[:k]
     return tree

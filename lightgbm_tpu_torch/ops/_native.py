@@ -44,6 +44,9 @@ _COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"hist_segment": 0, "partition_segment": 0, "split_scan": 0,
             "fused_split_step_segment": 0, "fused_split_step_leaf": 0,
             "hist_rows": 0, "tree_shap": 0}
+# launches of a kernel's route, counted beside LAUNCHES: the partition's
+# LUT route (categorical splits)
+ROUTE_LAUNCHES = {"partition_segment_lut": 0}
 BUILD_INFO = {"seconds": None, "ptxas": ""}
 
 _LIB = None
@@ -112,6 +115,8 @@ _SIGNATURES = {
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in ROUTE_LAUNCHES:
+        ROUTE_LAUNCHES[k] = 0
 
 
 def _sources():

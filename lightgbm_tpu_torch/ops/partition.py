@@ -11,11 +11,10 @@ reference analog is the bin-space decision of ``Dense/SparseBin::Split``
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .split import MISSING_NAN_CODE, MISSING_ZERO_CODE
-
-MAX_CAT_WORDS = 8
+from .split import MAX_CAT_WORDS, MISSING_NAN_CODE, MISSING_ZERO_CODE
 
 
 def rows_go_left(bin_col: torch.Tensor, threshold, default_left,
@@ -26,7 +25,8 @@ def rows_go_left(bin_col: torch.Tensor, threshold, default_left,
     Missing rows (the default bin under Zero-missing, the last bin under
     NaN-missing) follow ``default_left``; others compare
     ``bin <= threshold``. Categorical splits test membership of the bin
-    in ``cat_bitset`` ([MAX_CAT_WORDS] uint32 words, left = member)."""
+    in ``cat_bitset`` ([MAX_CAT_WORDS] uint32 words, a host array, left
+    = member); a bin at or above 256 goes right."""
     b = bin_col.to(torch.int64)
     if missing_code == MISSING_ZERO_CODE:
         is_missing = b == int(default_bin)
@@ -38,7 +38,8 @@ def rows_go_left(bin_col: torch.Tensor, threshold, default_left,
                                b <= int(threshold))
     if not is_cat:
         return numeric_left
-    words = torch.as_tensor(cat_bitset, device=b.device).to(torch.int64)
+    words = torch.as_tensor(np.asarray(cat_bitset, np.uint32).astype(
+        np.int64), device=b.device)
     word = torch.clamp(b // 32, 0, MAX_CAT_WORDS - 1)
     bit = (words[word] >> (b % 32)) & 1
     return (bit == 1) & (b < 32 * MAX_CAT_WORDS)

@@ -102,6 +102,8 @@ def partition_segment(mat: torch.Tensor, ws: torch.Tensor, begin: int,
     err = _native.library().ltt_partition_segment(
         *args, seg.data_ptr(), _native.stream_of(mat))
     _native.LAUNCHES["partition_segment"] += 1
+    if bool(is_cat):
+        _native.ROUTE_LAUNCHES["partition_segment_lut"] += 1
     _native.check(err, "partition_segment")
     return seg
 

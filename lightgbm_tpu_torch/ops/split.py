@@ -16,6 +16,12 @@ fixed order (``csrc/scan_core.cuh:block_prefix6``: 32-bin segments,
 then their totals) with elementwise float64 adds, so the kernel and
 this version round the same double on every device and agree bit for
 bit; against the JAX package they differ by float32 rounding only.
+
+Categorical features (``SplitParams.has_categorical``) take their split
+from ``ops/split_categorical.py``: ``per_feature_splits`` merges it into
+the numerical table per feature, as the JAX ``per_feature_splits``
+does, and widens the table by the flag and the left-side bin bitset
+(``CAT_TABLE_COLS``), so one host read still brings the whole choice.
 """
 
 from __future__ import annotations
@@ -34,6 +40,11 @@ MISSING_NAN_CODE = 2
 
 # column slots of the [F, 8] per-feature result table
 O_SCORE, O_THR, O_LG, O_LH, O_LC, O_DLEFT, O_WL, O_WR = range(8)
+# a dataset with categorical features widens it: is_cat, then the
+# left-side bin bitset's MAX_CAT_WORDS words as int32 bit patterns
+MAX_CAT_WORDS = 8    # categorical features up to 256 bins
+O_ISCAT, O_BITS = 8, 9
+CAT_TABLE_COLS = O_BITS + MAX_CAT_WORDS
 
 
 class FeatureMeta(NamedTuple):
@@ -59,6 +70,14 @@ class SplitParams(NamedTuple):
     # can the left-to-right scan win (the reference's one-scan path for
     # MissingType::None otherwise)
     any_missing: bool = True
+    # categorical search (ops/split_categorical.py), run only when the
+    # dataset has a categorical feature
+    max_cat_threshold: int = 32
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
+    max_cat_to_onehot: int = 4
+    min_data_per_group: float = 100.0
+    has_categorical: bool = False
 
 
 class PerFeatureSplits(NamedTuple):
@@ -84,6 +103,10 @@ class SplitResult(NamedTuple):
     left_c: np.float32
     left_output: np.float32
     right_output: np.float32
+    # a categorical split sends the bins of ``cat_bitset`` ([MAX_CAT_WORDS]
+    # uint32) left
+    is_cat: bool = False
+    cat_bitset: np.ndarray = np.zeros(MAX_CAT_WORDS, np.uint32)
 
 
 def threshold_l1(s, l1):
@@ -324,10 +347,16 @@ def table_splits(table) -> PerFeatureSplits:
 
 
 def assemble_split(table: np.ndarray) -> SplitResult:
-    """Best feature of one leaf from its host [F, 8] table: first-index
-    argmax over scores (``_argmax_first``), then that feature's row."""
+    """Best feature of one leaf from its host [F, 8] (or, with categorical
+    features, [F, CAT_TABLE_COLS]) table: first-index argmax over scores
+    (``_argmax_first``), then that feature's row."""
     best_f = int(np.argmax(table[:, O_SCORE]))
     row = table[best_f]
+    cat = {}
+    if table.shape[1] > O_ISCAT:
+        cat = dict(is_cat=bool(row[O_ISCAT] > 0.5),
+                   cat_bitset=np.ascontiguousarray(
+                       row[O_BITS:O_BITS + MAX_CAT_WORDS]).view(np.uint32))
     return SplitResult(
         gain=np.float32(row[O_SCORE]), feature=best_f,
         threshold=int(row[O_THR]), default_left=bool(row[O_DLEFT] > 0.5),
@@ -335,7 +364,34 @@ def assemble_split(table: np.ndarray) -> SplitResult:
         left_h=np.float32(row[O_LH]) - np.float32(kEpsilon),
         left_c=np.float32(row[O_LC]),
         left_output=np.float32(row[O_WL]),
-        right_output=np.float32(row[O_WR]))
+        right_output=np.float32(row[O_WR]), **cat)
+
+
+def per_feature_splits(table: torch.Tensor, hists, leaves, meta_t: dict,
+                       params: SplitParams) -> torch.Tensor:
+    """The numerical scan's [K, F, 8] ``table`` of K leaves merged, per
+    feature, with the categorical search of the same leaves
+    (``per_feature_splits`` of the JAX package): a categorical feature
+    takes its categorical score, left sums and outputs, default_left
+    False and keeps the scan's threshold; every feature gets the is_cat
+    flag and the left bin bitset. Returns [K, F, CAT_TABLE_COLS] on the
+    table's device; the table itself when no feature is categorical."""
+    if not params.has_categorical:
+        return table
+    from .split_categorical import per_feature_categorical
+    cat = per_feature_categorical(hists, leaves, meta_t, params)
+    use = meta_t["is_cat"][None, :]
+    cols = []
+    for col, key in ((O_SCORE, "score"), (O_THR, None), (O_LG, "left_g"),
+                     (O_LH, "left_h_eps"), (O_LC, "left_c"),
+                     (O_DLEFT, "default_left"), (O_WL, "left_output"),
+                     (O_WR, "right_output")):
+        cols.append(table[..., col] if key is None
+                    else torch.where(use, cat[key], table[..., col]))
+    cols.append((use & torch.isfinite(cat["score"])).to(torch.float32))
+    bits = torch.where(use[..., None], cat["bitset"], 0).to(
+        torch.int32).view(torch.float32)
+    return torch.cat([torch.stack(cols, dim=-1), bits], dim=-1)
 
 
 def best_split_numerical(hist, parent_g, parent_h, parent_c, meta_t,
@@ -349,10 +405,16 @@ def best_split_numerical(hist, parent_g, parent_h, parent_c, meta_t,
 
 def meta_tensors(meta: FeatureMeta, device, feature_mask=None) -> dict:
     """Per-feature metadata as tensors for the scans. ``fmask`` is
-    numerical-and-in-mask as float (the kernel's fmeta column)."""
-    fmask = ~np.asarray(meta.is_categorical, bool)
-    if feature_mask is not None:
-        fmask = fmask & np.asarray(feature_mask, bool)
+    numerical-and-in-mask as float (the kernel's fmeta column);
+    ``is_cat`` the categorical flag and ``catmask`` categorical, in the
+    mask and at most 256 bins (the widest bitset), both bool, for the
+    categorical search."""
+    is_cat = np.asarray(meta.is_categorical, bool)
+    inmask = np.ones(len(is_cat), bool) if feature_mask is None \
+        else np.asarray(feature_mask, bool)
+    fmask = ~is_cat & inmask
+    catmask = is_cat & inmask & (np.asarray(meta.num_bins)
+                                 <= 32 * MAX_CAT_WORDS)
     as_t = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt,  # noqa: E731
                                          device=device)
     return dict(
@@ -361,4 +423,5 @@ def meta_tensors(meta: FeatureMeta, device, feature_mask=None) -> dict:
         default_bin=as_t(meta.default_bin, torch.int32),
         monotone=as_t(meta.monotone, torch.int32),
         penalty=as_t(meta.penalty, torch.float32),
-        fmask=as_t(fmask.astype(np.float32), torch.float32))
+        fmask=as_t(fmask.astype(np.float32), torch.float32),
+        is_cat=as_t(is_cat, torch.bool), catmask=as_t(catmask, torch.bool))

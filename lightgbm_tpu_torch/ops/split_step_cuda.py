@@ -30,13 +30,13 @@ call per split), which the serial learner's split loop uses.
 ``fused_split_step_segment`` launches ``csrc/split_step_segment.cu``
 for CUDA tensors and runs ``fused_split_step_segment_plain`` for CPU
 ones. The plain version is the JAX package's interpret twin
-(``_segment_kernel_ref``) written with the port's plain ops
-(``partition_segment_plain``, ``histogram_segment_plain``,
-``per_feature_numerical_plain``, ``assemble_split``) and the tensor
-bookkeeping of ``learner/split_step.py``; the per-phase loop's host
-bookkeeping grows the same trees byte for byte. ``SegmentStep`` is the
-launch prepared once for a tree's operands, which the partitioned
-learner's split loop uses.
+(``_segment_kernel_ref``) in torch: the partitioned learner's per-phase
+bookkeeping (``split_step_host``) with the plain ops
+``partition_segment_plain``, ``histogram_segment_plain`` and
+``per_feature_numerical_plain`` (``segment_split_ops``, which the
+per-phase loop runs with the kernels). ``SegmentStep`` is the launch
+prepared once for a tree's operands, which the partitioned learner's
+split loop uses.
 
 The 192-feature cap of the TPU kernel (``MAX_FUSED_F``, a Mosaic
 program-size limit) is not carried over: the kernel tiles features as
@@ -52,13 +52,15 @@ import numpy as np
 import torch
 
 from . import _native
-from .hist_cuda import (histogram_rows, histogram_segment_plain,
-                        leaf_bin_bytes, leaf_feat_tile, matrix_cols,
-                        max_chunks, payload_offset)
-from .partition_cuda import PART_THREADS, partition_segment_plain
+from .hist_cuda import (histogram_rows, histogram_segment,
+                        histogram_segment_plain, leaf_bin_bytes,
+                        leaf_feat_tile, matrix_cols, max_chunks,
+                        payload_offset)
+from .partition_cuda import (PART_THREADS, bitset_to_lut, partition_segment,
+                             partition_segment_plain)
 from .histogram import build_histogram
 from .partition import split_leaf
-from .split import FeatureMeta, SplitParams, assemble_split
+from .split import FeatureMeta, SplitParams
 from .split_scan_cuda import per_feature_numerical_plain
 
 # imeta table columns (one [F, 8] i32 operand)
@@ -126,8 +128,12 @@ def learner_fused_kernel_on(mode: str, *, eligible: bool,
     """The fused-step gate of one learner, decided before training from
     the resolved mode ("on" / "off" / "auto"), the learner's static
     eligibility, and for "auto" a CUDA device within
-    ``fused_compiled_ok``'s scope ("auto" is off on the CPU)."""
-    if mode == "off" or not eligible:
+    ``fused_compiled_ok``'s scope ("auto" is off on the CPU). A dataset
+    with categorical features always takes the per-phase loop: the JAX
+    package's compiled fused bodies refuse categorical data, and the
+    kernels here do the same."""
+    if mode == "off" or not eligible \
+            or getattr(params, "has_categorical", False):
         return False
     if mode == "on":
         return True
@@ -168,6 +174,63 @@ def launch_shape(num_bins: int) -> dict:
     return dict(blocks_per_sm=out[0], grid=out[1], smem_bytes=out[2])
 
 
+def segment_histogram(mat, begin, count, b: int, f: int, *, plain: bool,
+                      max_count=None) -> torch.Tensor:
+    """One segment's histogram: the ``hist_segment`` kernel (``begin`` a
+    host int, or an int32 [2] device tensor of (begin, count) with
+    ``count`` None and ``max_count`` a bound the host knows), or with
+    ``plain`` its plain version (bounds read on the host)."""
+    if plain:
+        if isinstance(begin, torch.Tensor):
+            begin, count = (int(v) for v in begin.tolist())
+        return histogram_segment_plain(mat, int(begin), int(count), b, f)
+    return histogram_segment(mat, begin, count, b, f, max_count=max_count)
+
+
+def segment_split_ops(mat, ws, imeta: np.ndarray, b: int, f: int, scan, *,
+                      plain: bool, histogram: Optional[Callable] = None):
+    """``SplitOps`` of the segment layout: the split is a stable
+    partition of the leaf's segment (``partition_segment``, or with
+    ``plain`` its plain version; a categorical split goes through the
+    LUT route with the site's bin bitset, as the JAX package's
+    ``partition_decision_lut``), the smaller child's histogram comes
+    from its segment (sized by the parent's row count; the kernel cuts
+    its chunks from the child's own count on the device), and the child
+    segments travel as the extra int state fields. ``histogram(mat,
+    begin, count, max_count)`` replaces the child's histogram when given
+    (host bounds). ``imeta`` is the host [F, 8] metadata table."""
+    from ..learner.split_step import SplitOps
+    part_fn = partition_segment_plain if plain else partition_segment
+
+    def partition(site, leaf, new):
+        feat, cnt = int(site["bs_feat"]), int(site["leaf_cnt"])
+        is_cat = bool(site["bs_iscat"])
+        lut = bitset_to_lut(site["bs_bitset"]).to(mat.device) \
+            if is_cat else None
+        seg = part_fn(mat, ws, int(site["leaf_begin"]), cnt, feat,
+                      int(site["bs_thr"]), bool(site["bs_dleft"]),
+                      int(imeta[feat, IM_MISS]), int(imeta[feat, IM_DEFBIN]),
+                      int(imeta[feat, IM_NBINS]), is_cat, lut)
+        return seg, cnt
+
+    def child_histogram(part, small_left):
+        seg, cnt = part
+        bounds = seg[0:2] if small_left else seg[2:4]
+        if histogram is not None:
+            begin, count = (int(v) for v in bounds.tolist())
+            return histogram(mat, begin, count, cnt)
+        return segment_histogram(mat, bounds, None, b, f, plain=plain,
+                                 max_count=cnt)
+
+    def extra_i(part):
+        sg = part[0].cpu().numpy()
+        return tuple(dict(leaf_begin=int(sg[i]), leaf_cnt=int(sg[i + 1]))
+                     for i in (0, 2))
+
+    return SplitOps(partition=partition, histogram=child_histogram,
+                    scan=scan, extra_i=extra_i)
+
+
 def fused_split_step_segment_plain(k, S, T, mat, ws, hist, imeta, fmeta, *,
                                    params: SplitParams, big_l: int,
                                    max_depth: int, b: int, f: int,
@@ -175,91 +238,30 @@ def fused_split_step_segment_plain(k, S, T, mat, ws, hist, imeta, fmeta, *,
                                    histogram: Optional[Callable] = None):
     """Plain version of one fused split (the JAX package's interpret
     twin ``_segment_kernel_ref``), in place on ``k``, ``S``, ``T``,
-    ``mat`` and ``hist``. The state stays where ``S`` lies and the
-    bookkeeping runs on 0-dim tensors, as in the kernel; the plain ops
-    read the segment bounds, the split feature and the scan inputs on
-    the host. ``histogram(mat, begin, count, max_count)`` replaces
-    ``histogram_segment_plain`` for the smaller child when given (the
-    card's check feeds it the per-phase kernel, so the rest of the step
-    can be held bit for bit)."""
-    from ..learner.split_step import (SEG_SI_PREFIX, child_columns,
-                                      child_constraints, make_grow_pack,
-                                      order_child_pair_t,
-                                      split_node_updates_t)
+    ``mat`` and ``hist``: the partitioned learner's per-phase
+    bookkeeping (``split_step_host``) with the plain ``segment_split_ops``
+    and ``per_feature_numerical_plain``. ``S``, ``T`` and ``k`` are read
+    on the host and written back. ``histogram(mat, begin, count,
+    max_count)`` replaces ``histogram_segment_plain`` for the smaller
+    child when given (the card's check feeds it the per-phase kernel, so
+    the rest of the step can be held bit for bit)."""
+    from ..learner.split_step import (SEG_SI_PREFIX, make_grow_pack,
+                                      split_step_host)
     pack = make_grow_pack(SEG_SI_PREFIX, has_monotone=has_monotone,
                           big_l=big_l)
-    st = {"S": S, "T": T}
-    dev = S.device
-    kk = k[0].long()
-    open_gain = torch.where(torch.arange(big_l, device=dev) < kk,
-                            pack.row_f(st, "bs_gain"), float("-inf"))
-    # the grow loop's condition (lightgbm_tpu/learner/partitioned.py:
-    # 563-568); when it fails the step changes nothing
-    if not bool((kk < big_l) & (open_gain.max() > 0.0)):
-        return
-    leaf = torch.argmax(open_gain)   # first index of the maximum
-    new, s = kk, kk - 1
-    site = pack.read_site(st, leaf)
-    feat, thr, dleft = site["bs_feat"], site["bs_thr"], site["bs_dleft"]
-    lg, lh, lc = site["bs_lg"], site["bs_lh"], site["bs_lc"]
-    pg, ph, pc = site["leaf_g"], site["leaf_h"], site["leaf_c"]
-    rg, rh, rc = pg - lg, ph - lh, pc - lc
-    lout, rout = site["bs_lout"], site["bs_rout"]
-    inf = torch.tensor(np.inf, dtype=torch.float32, device=dev)
-    pcmin, pcmax = site.get("leaf_cmin", -inf), site.get("leaf_cmax", inf)
-    begin, cnt = site["leaf_begin"], site["leaf_cnt"]
-
-    # stable partition of [begin, begin + cnt), then the smaller child's
-    # histogram and the sibling as parent - child
-    fi = int(feat)
-    im = imeta[fi].tolist()
-    seg = partition_segment_plain(
-        mat, ws, int(begin), int(cnt), fi, int(thr), bool(dleft),
-        im[IM_MISS], im[IM_DEFBIN], im[IM_NBINS], False, None)
-    small_left = lc <= rc
-    sb = torch.where(small_left, seg[0], seg[2])
-    sc = torch.where(small_left, seg[1], seg[3])
-    if histogram is None:
-        hist_small = histogram_segment_plain(mat, int(sb), int(sc), b, f)
-    else:
-        hist_small = histogram(mat, int(sb), int(sc), int(cnt))
-    hist_other = hist[leaf] - hist_small
-    idx_a = torch.where(small_left, leaf, new)
-    idx_b = torch.where(small_left, new, leaf)
-
-    # both children's scans and state columns, the node's tree column
-    depth = site["leaf_depth"] + 1
-    cmin_l, cmax_l, cmin_r, cmax_r = child_constraints(
-        imeta[fi, IM_MONO], lout, rout, pcmin, pcmax, has_monotone)
-    o = order_child_pair_t(small_left, kk, lg, lh, lc, rg, rh, rc, lout,
-                           rout, cmin_l, cmax_l, cmin_r, cmax_r)
-    leaves = [tuple(float(o[x + ch]) for x in ("g", "h", "c", "cmin_",
-                                                "cmax_"))
-              for ch in ("a", "b")]
-    table = per_feature_numerical_plain(
-        [hist_small, hist_other], leaves, meta_from_tables(imeta, fmeta),
-        params).cpu().numpy()
-    blocked = max_depth > 0 and int(depth) >= max_depth
-    segs = {"a": (sb, sc),
-            "b": (torch.where(small_left, seg[2], seg[0]), cnt - sc)}
-    cols = {}
-    for i, ch in enumerate(("a", "b")):
-        split = assemble_split(table[i])
-        if blocked:
-            split = split._replace(gain=-np.inf)
-        cols[ch] = child_columns(
-            split, o["g" + ch], o["h" + ch], o["c" + ch], o["out_" + ch],
-            o["cmin_" + ch], o["cmax_" + ch], s, o["side_" + ch], depth,
-            extra_i=dict(leaf_begin=segs[ch][0], leaf_cnt=segs[ch][1]))
-    treef, treei, pnode, upd = split_node_updates_t(
-        params, site["bs_gain"], feat, thr, dleft, False, pg, ph, pc,
-        site["ref_node"], leaf, new)
-    pack.set_state_cols(st, idx_a, idx_b, cols["a"][0], cols["b"][0],
-                        cols["a"][1], cols["b"][1])
-    pack.set_tree_col(st, s, treef, treei, pnode, upd, site["ref_side"])
-    hist[idx_a] = hist_small
-    hist[idx_b] = hist_other
-    k.add_(1)
+    st = {"S": S.cpu().clone(), "T": T.cpu().clone()}
+    im = imeta.cpu().numpy()
+    meta_t = meta_from_tables(imeta, fmeta)
+    ops = segment_split_ops(
+        mat, ws, im, b, f,
+        lambda hists, leaves: per_feature_numerical_plain(
+            hists, leaves, meta_t, params), plain=True, histogram=histogram)
+    if split_step_host(pack, st, hist, int(k[0]), ops, imeta=im,
+                       params=params, big_l=big_l, max_depth=max_depth,
+                       has_monotone=has_monotone):
+        S.copy_(st["S"])
+        T.copy_(st["T"])
+        k.add_(1)
 
 
 class SegmentStep:
@@ -428,7 +430,8 @@ def leaf_split_ops(lid, binned, ghc, imeta: np.ndarray, b: int, scan,
                              int(site["bs_thr"]), bool(site["bs_dleft"]),
                              int(imeta[f, IM_MISS]),
                              int(imeta[f, IM_DEFBIN]),
-                             int(imeta[f, IM_NBINS])))
+                             int(imeta[f, IM_NBINS]),
+                             bool(site["bs_iscat"]), site["bs_bitset"]))
         return leaf, new
 
     def histogram(part, small_left):

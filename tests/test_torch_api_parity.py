@@ -6,8 +6,9 @@ the CPU (ROADMAP.md Queue 3, faults 1-3).
    booster's alone (JAX ``basic.py:408-416``).
 2. ``train`` and ``Dataset`` take the JAX signatures: ``feature_name``
    and ``categorical_feature`` after ``init_model``, ``"auto"`` meaning
-   no names, ``free_raw_data``; a non-empty ``categorical_feature`` is
-   refused with Queue 1 item 7.2.
+   no names, ``free_raw_data``; ``categorical_feature`` given to the
+   Dataset, to ``train`` or as the parameter trains the JAX package's
+   model (which reads the argument only).
 3. The robustness and observability parameters, which no module of the
    port reads yet, are refused with Queue 1 item 11 where the JAX
    package acts on them.
@@ -131,9 +132,19 @@ def test_free_raw_data_drops_the_matrix():
 
 
 @pytest.mark.parametrize("where", ["dataset", "train", "params"])
-def test_categorical_features_are_refused(where):
+def test_categorical_features_match_jax(where):
+    """Feature 1 as a 12-way category, given in each of the three places,
+    against the JAX package given it as the Dataset argument:
+    categorical nodes in the trees, predictions within the tolerance of
+    tests/test_torch_train.py."""
     X, y = _data()
-    p = {"objective": "binary", "num_leaves": 7, "verbosity": -1}
+    rng = np.random.RandomState(1)
+    X[:, 1] = rng.randint(0, 12, len(X))
+    # a noisy label, so that no split's gain is float rounding alone
+    y = ((X[:, 0] + 1.5 * np.isin(X[:, 1], [2, 3, 7])
+          + rng.randn(len(X))) > 0.7).astype(np.float32)
+    p = {"objective": "binary", "num_leaves": 7, "verbosity": -1,
+         "min_data_per_group": 20}
     kw, tkw = {}, {}
     if where == "dataset":
         kw = {"categorical_feature": [1]}
@@ -141,8 +152,14 @@ def test_categorical_features_are_refused(where):
         tkw = {"categorical_feature": [1]}
     else:
         p = dict(p, categorical_feature="1")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7.2"):
-        lt.train(p, lt.Dataset(X, label=y, **kw), 2, device="cpu", **tkw)
+    bst = lt.train(p, lt.Dataset(X, label=y, **kw), 2, device="cpu", **tkw)
+    ref = lgb.train(p, lgb.Dataset(X, label=y, categorical_feature=[1]), 2,
+                    verbose_eval=False)
+    assert any(t.decision_type[:t.num_leaves - 1].any() & 1
+               for t in bst.models)
+    np.testing.assert_allclose(bst.predict(X, raw_score=True),
+                               ref.predict(X, raw_score=True), rtol=0,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("param,value", [

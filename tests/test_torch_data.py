@@ -1,6 +1,7 @@
 """Port data layer vs the JAX package: same bin mappers and the same
-binned matrix from the same arrays (exact), including NaN, zero-heavy
-and constant columns; the EFB check and the slice's rejections."""
+binned matrix from the same arrays (exact), including NaN, zero-heavy,
+constant and categorical columns; the EFB check and the slice's
+rejections."""
 
 import numpy as np
 import pytest
@@ -89,8 +90,28 @@ def test_sparse_matrix_that_would_bundle_is_rejected():
     assert Dataset.from_numpy(X, off).num_features == 6
 
 
-def test_categorical_rejected():
+@pytest.mark.parametrize("max_bin", [255, 15])
+def test_categorical_mappers_match_jax(max_bin):
+    """Categorical columns (a few distinct values; a skewed 60-way
+    column with negative values, which become NaN, cut at 99% of the
+    sample or at max_bin) bin as the JAX package bins them: the same
+    mappers and the same matrix, a valid set through the same bins."""
     X, y = _matrix(5)
-    with pytest.raises(NotImplementedError, match="categorical"):
-        Dataset.from_numpy(X, Config.from_params({"verbosity": -1}),
-                           label=y, categorical_features=[3])
+    rng = np.random.RandomState(6)
+    X[:, 6] = np.minimum(rng.zipf(1.3, len(X)), 60) - 3.0
+    p = {"verbosity": -1, "max_bin": max_bin}
+    cats = [3, 6]
+    tds = Dataset.from_numpy(X, Config.from_params(p), label=y,
+                             categorical_features=cats)
+    jds = JDataset.from_numpy(X, JConfig.from_params(p), label=y,
+                              categorical_features=cats)
+    assert [m.to_dict() for m in tds.bin_mappers] \
+        == [m.to_dict() for m in jds.bin_mappers]
+    assert tds.feature_mapper(tds.used_feature_map[6]).bin_type \
+        == "categorical"
+    np.testing.assert_array_equal(tds.binned, np.asarray(jds.binned))
+    Xv, _ = _matrix(7, n=500)
+    Xv[:, 6] = np.arange(500) % 70 - 3.0          # unseen categories too
+    vt = Dataset.from_numpy(Xv, Config.from_params(p), reference=tds)
+    vj = JDataset.from_numpy(Xv, JConfig.from_params(p), reference=jds)
+    np.testing.assert_array_equal(vt.binned, np.asarray(vj.binned))

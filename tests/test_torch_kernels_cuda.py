@@ -837,3 +837,67 @@ def test_tree_shap_kernel_deep_chains(dev, which):
     ref = tree_shap_plain([tree], torch.from_numpy(x), 1)
     np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=1e-9,
                                atol=1e-12)
+
+
+def _categorical_data(n, seed=3):
+    """A 40-way category (feature 0) with numeric noise, as
+    tests/test_torch_categorical_train.py trains it."""
+    rng = np.random.RandomState(seed)
+    cats = rng.randint(0, 40, n)
+    effect = np.where(np.isin(cats, [2, 5, 11, 17, 23, 31]), 2.5, -1.0)
+    noise = rng.randn(n, 3)
+    z = effect + 0.3 * noise[:, 0] + 0.5 * rng.randn(n)
+    X = np.concatenate([cats[:, None].astype(np.float64), noise], axis=1)
+    return X, (z > 0).astype(np.float32)
+
+
+@pytest.mark.parametrize("max_bin", [255, 600])
+def test_categorical_training_kernels_match_plain(dev, max_bin):
+    """Per-phase categorical training through the kernels (at 255 bins
+    the partition's LUT route for every categorical split) against the
+    same run through the plain versions on the card: the same trees,
+    categorical left sets included, and leaf values to the bit."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import _native
+    X, y = _categorical_data(20_000)
+    p = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
+         "learning_rate": 0.2, "min_data_per_group": 20, "max_bin": max_bin}
+    _native.reset_launch_counts()
+    kb = lt.train(p, lt.Dataset(X, label=y, categorical_feature=[0]), 3,
+                  device=dev)
+    lut = _native.ROUTE_LAUNCHES["partition_segment_lut"]
+    pb = lt.train(p, lt.Dataset(X, label=y, categorical_feature=[0]), 3,
+                  device=dev, ops="plain")
+    cat_nodes = sum(int((t.decision_type[:t.num_leaves - 1] & 1).sum())
+                    for t in kb.models)
+    assert cat_nodes > 0
+    assert lut == (cat_nodes if max_bin == 255 else 0)
+    for a, b in zip(kb.models, pb.models):
+        assert a.num_leaves == b.num_leaves
+        for name in ("split_feature_inner", "threshold_bin",
+                     "decision_type", "left_child", "right_child",
+                     "cat_bitsets"):
+            np.testing.assert_array_equal(getattr(a, name),
+                                          getattr(b, name), err_msg=name)
+        np.testing.assert_array_equal(a.leaf_value, b.leaf_value)
+
+
+def test_lut_partition_matches_plain(dev, mat):
+    """The partition kernel's LUT route against its plain version on a
+    categorical split's bin bitset, inside a segment of the matrix."""
+    from lightgbm_tpu_torch.ops import _native
+    from lightgbm_tpu_torch.ops.partition_cuda import (
+        bitset_to_lut, partition_segment, partition_segment_plain)
+    words = np.zeros(8, np.uint32)
+    words[0] = 0b1010_0110_0011_0101_1100_1010_0101_0011
+    words[3] = 0b1001
+    words[7] = 1 << 31
+    lut = bitset_to_lut(words).to(dev)
+    a, b = mat.clone(), mat.clone()
+    before = _native.ROUTE_LAUNCHES["partition_segment_lut"]
+    sa = partition_segment(a, torch.empty_like(a), 123, 15_000, 2, 0, False,
+                           0, 0, B, True, lut)
+    sb = partition_segment_plain(b, None, 123, 15_000, 2, 0, False, 0, 0, B,
+                                 True, lut)
+    assert _native.ROUTE_LAUNCHES["partition_segment_lut"] == before + 1
+    assert torch.equal(sa, sb) and torch.equal(a, b)

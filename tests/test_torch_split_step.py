@@ -5,12 +5,13 @@ package's (``lightgbm_tpu/learner/split_step.py``), on the CPU.
 The layout must be the JAX package's merged ``StatePack`` field for
 field, so ``S``/``T`` from both packages compare value for value: the
 same field order, the same dropped and derived rows, int rows bit-cast.
-Writes (``set_state_cols``, ``set_tree_col``) are held bitwise, from host
-scalars and from 0-dim tensors. The bookkeeping is pure float32
-arithmetic in the same expression order, so both of the port's versions
-(host numpy scalars and 0-dim tensors) must give the JAX values bit for
-bit. Also the fused-step gate: the mode resolution with its environment
-override, static eligibility, and "auto" being off on the CPU.
+Writes (``set_state_cols``, ``set_tree_col``, ``set_bitsets``) are held
+bitwise. The bookkeeping is pure float32 arithmetic in the same
+expression order, so the port's host version must give the JAX values
+bit for bit, for numerical and categorical splits. Also the fused-step
+gate: the mode resolution with its environment override, static
+eligibility, "auto" being off on the CPU and a categorical dataset
+always taking the per-phase loop.
 """
 
 import numpy as np
@@ -71,10 +72,8 @@ def test_layout_matches_jax(has_monotone):
     assert tp.si_fields == jp.si_fields
     assert tp.tf_fields == jp.tf_fields
     assert tp.ti_fields == jp.ti_fields
-    # the JAX pack also derives the categorical bitsets, which the port
-    # (numerical splits only) never carries
-    assert set(tp.derived) == set(jp.derived) - {"bs_bitset",
-                                                 "cat_bitsets"}
+    # both derive the categorical bitsets of a numerical-only dataset
+    assert set(tp.derived) == set(jp.derived)
     assert set(tp.derived) >= {"leaf_weight", "leaf_count", "leaf_parent"}
     assert ("leaf_cmin" in tp.derived) == (not has_monotone)
 
@@ -92,23 +91,14 @@ def test_pack_and_view_match_jax_bitwise(has_monotone):
     for name, val in tv.items():
         np.testing.assert_array_equal(val.numpy(), np.asarray(jv[name]),
                                       err_msg=name)
-    site_t = tp.read_site({"S": ts, "T": tt}, torch.tensor(3))
-    site_h = tp.read_site_host({"S": ts, "T": tt}, 3)
+    site_h = tp.read_site({"S": ts, "T": tt}, 3)
     site_j = jp.read_site({"S": jnp.asarray(js)}, 3)
     for name in site_j:
-        assert site_t[name].item() == site_h[name] == site_j[name].item(), \
-            name
+        assert site_h[name] == site_j[name].item(), name
 
 
-def _as(kind, v, dtype):
-    if kind == "tensor":
-        return torch.as_tensor(np.asarray(v)).to(dtype)
-    return v
-
-
-@pytest.mark.parametrize("kind", ["host", "tensor"])
 @pytest.mark.parametrize("has_monotone", [False, True])
-def test_set_state_cols_matches_jax_bitwise(kind, has_monotone):
+def test_set_state_cols_matches_jax_bitwise(has_monotone):
     jp, tp = _packs(has_monotone)
     fields = _fields(1)
     js, jt = _jax_pack(jp, fields)
@@ -123,20 +113,13 @@ def test_set_state_cols_matches_jax_bitwise(kind, has_monotone):
         cols.append((fv, iv))
     (fa, ia), (fb, ib) = cols
     out_j = jp.set_state_cols({"S": jnp.asarray(js)}, 7, 2, fa, fb, ia, ib)
-    conv = {"host": lambda d, dt: d,
-            "tensor": lambda d, dt: {k: _as("tensor", v, dt)
-                                     for k, v in d.items()}}[kind]
     st = {"S": ts, "T": tt}
-    tp.set_state_cols(st, _as(kind, 7, torch.int64),
-                      _as(kind, 2, torch.int64),
-                      conv(fa, torch.float32), conv(fb, torch.float32),
-                      conv(ia, torch.int32), conv(ib, torch.int32))
+    tp.set_state_cols(st, 7, 2, fa, fb, ia, ib)
     assert st["S"].numpy().tobytes() == np.asarray(out_j["S"]).tobytes()
 
 
-@pytest.mark.parametrize("kind", ["host", "tensor"])
 @pytest.mark.parametrize("upd,pside", [(True, 0), (True, 1), (False, 1)])
-def test_set_tree_col_matches_jax_bitwise(kind, upd, pside):
+def test_set_tree_col_matches_jax_bitwise(upd, pside):
     jp, tp = _packs(False)
     fields = _fields(3)
     js, jt = _jax_pack(jp, fields)
@@ -150,15 +133,60 @@ def test_set_tree_col_matches_jax_bitwise(kind, upd, pside):
                             jnp.int32(pnode), jnp.bool_(upd),
                             jnp.int32(pside))
     st = {"S": ts, "T": tt}
-    if kind == "host":
-        tp.set_tree_col(st, s, tf, ti, pnode, upd, pside)
-    else:
-        tp.set_tree_col(
-            st, torch.tensor(s), {k: torch.tensor(v) for k, v in tf.items()},
-            {k: torch.tensor(v) for k, v in ti.items()},
-            torch.tensor(pnode, dtype=torch.int32), torch.tensor(upd),
-            torch.tensor(pside, dtype=torch.int32))
+    tp.set_tree_col(st, s, tf, ti, pnode, upd, pside)
     assert st["T"].numpy().tobytes() == np.asarray(out_j["T"]).tobytes()
+
+
+def test_categorical_layout_matches_jax():
+    """With categorical features the bitsets ride beside S and T
+    (``make_grow_pack(has_cat=True)``); without, ``view()`` synthesizes
+    zero bitsets of the JAX shapes."""
+    from lightgbm_tpu.ops.split import MAX_CAT_WORDS
+    for has_cat in (False, True):
+        jp = jss.make_grow_pack(PREFIX, merged=True, has_cat=has_cat,
+                                has_monotone=False, big_l=L)
+        tp = tss.make_grow_pack(PREFIX, has_monotone=False, big_l=L,
+                                has_cat=has_cat)
+        assert ("bs_bitset" in jp.derived) == ("bs_bitset" in tp.derived) \
+            == (not has_cat)
+        fields = _fields(6)
+        if has_cat:
+            fields["bs_bitset"] = np.arange(L * MAX_CAT_WORDS, dtype=np.int32
+                                            ).reshape(L, MAX_CAT_WORDS)
+            fields["cat_bitsets"] = -fields["bs_bitset"][1:]
+        st = tp.pack({k: torch.from_numpy(np.array(v))
+                      for k, v in fields.items()})
+        v = tp.view(st)
+        for name, rows in (("bs_bitset", L), ("cat_bitsets", L - 1)):
+            assert tuple(v[name].shape) == (rows, MAX_CAT_WORDS)
+            want = fields[name] if has_cat else 0
+            assert (v[name].numpy() == want).all()
+
+
+def test_set_bitsets_matches_jax_bitwise():
+    from lightgbm_tpu.ops.split import MAX_CAT_WORDS
+    jp = jss.make_grow_pack(PREFIX, merged=True, has_cat=True,
+                            has_monotone=False, big_l=L)
+    tp = tss.make_grow_pack(PREFIX, has_monotone=False, big_l=L,
+                            has_cat=True)
+    rng = np.random.RandomState(8)
+    bs = rng.randint(0, 2 ** 32, (L, MAX_CAT_WORDS), dtype=np.uint64) \
+        .astype(np.uint32)
+    cb = rng.randint(0, 2 ** 32, (L - 1, MAX_CAT_WORDS), dtype=np.uint64) \
+        .astype(np.uint32)
+    words = rng.randint(0, 2 ** 32, (3, MAX_CAT_WORDS), dtype=np.uint64) \
+        .astype(np.uint32)
+    out_j = jss.set_bitsets(jp, {"bs_bitset": jnp.asarray(bs),
+                                 "cat_bitsets": jnp.asarray(cb)},
+                            jnp.int32(4), jnp.int32(11),
+                            jnp.asarray(words[0]), jnp.asarray(words[1]),
+                            jnp.int32(10), jnp.asarray(words[2]))
+    st = {"bs_bitset": torch.from_numpy(bs.view(np.int32).copy()),
+          "cat_bitsets": torch.from_numpy(cb.view(np.int32).copy())}
+    tp.set_bitsets(st, 4, 11, words[0], words[1], 10, words[2])
+    for name in ("bs_bitset", "cat_bitsets"):
+        assert st[name].numpy().view(np.uint32).tobytes() \
+            == np.asarray(out_j[name]).tobytes()
 
 
 def _scalars(seed):
@@ -169,20 +197,17 @@ def _scalars(seed):
                 pcmin=np.float32(-0.4), pcmax=np.float32(0.35))
 
 
+@pytest.mark.parametrize("is_cat", [False, True])
 @pytest.mark.parametrize("mono", [-1, 0, 1])
 @pytest.mark.parametrize("seed", [0, 1])
-def test_child_constraints_match_jax(mono, seed):
+def test_child_constraints_match_jax(mono, seed, is_cat):
     d = _scalars(seed)
     args = (d["lout"], d["rout"], d["pcmin"], d["pcmax"])
     want = [np.asarray(x) for x in jss.child_constraints_mono(
-        jnp.int32(mono), jnp.bool_(False), *map(jnp.float32, args))]
-    host = tss.child_constraints_mono(mono, False, *args)
-    tens = tss.child_constraints_mono_t(
-        torch.tensor(mono, dtype=torch.int32), False,
-        *(torch.tensor(a) for a in args))
-    for w, h, t in zip(want, host, tens):
-        assert w.tobytes() == np.float32(h).tobytes() \
-            == t.numpy().tobytes()
+        jnp.int32(mono), jnp.bool_(is_cat), *map(jnp.float32, args))]
+    host = tss.child_constraints(mono, is_cat, *args, has_monotone=True)
+    for w, h in zip(want, host):
+        assert w.tobytes() == np.float32(h).tobytes()
 
 
 @pytest.mark.parametrize("a_is_left", [True, False])
@@ -195,15 +220,14 @@ def test_order_child_pair_matches_jax(a_is_left):
     want = jss.order_child_pair(jnp.bool_(a_is_left), jnp.int32(k),
                                 *map(jnp.float32, vals))
     host = tss.order_child_pair(a_is_left, k, *vals)
-    tens = tss.order_child_pair_t(torch.tensor(a_is_left), torch.tensor(k),
-                                  *(torch.tensor(v) for v in vals))
-    assert set(host) == set(tens) == set(want)
+    assert set(host) == set(want)
     for key, w in want.items():
-        assert np.asarray(w).item() == host[key] == tens[key].item(), key
+        assert np.asarray(w).item() == host[key], key
 
 
+@pytest.mark.parametrize("is_cat", [False, True])
 @pytest.mark.parametrize("ref_node,dleft", [(-1, True), (4, False)])
-def test_split_node_updates_match_jax(ref_node, dleft):
+def test_split_node_updates_match_jax(ref_node, dleft, is_cat):
     from lightgbm_tpu.ops.split import SplitParams as JParams
     from lightgbm_tpu_torch.ops.split import SplitParams
     p = dict(lambda_l1=0.3, lambda_l2=1.5, max_delta_step=0.6,
@@ -214,26 +238,20 @@ def test_split_node_updates_match_jax(ref_node, dleft):
     gain, feat, thr, leaf, new = np.float32(12.5), 3, 77, 2, 9
     want = jss.split_node_updates(
         jp_, jnp.float32(gain), jnp.int32(feat), jnp.int32(thr),
-        jnp.bool_(dleft), jnp.bool_(False), jnp.float32(pg),
+        jnp.bool_(dleft), jnp.bool_(is_cat), jnp.float32(pg),
         jnp.float32(ph), jnp.float32(pc), jnp.int32(ref_node),
         jnp.int32(leaf), jnp.int32(new))
-    host = tss.split_node_updates(tp_, gain, feat, thr, dleft, False, pg,
+    host = tss.split_node_updates(tp_, gain, feat, thr, dleft, is_cat, pg,
                                   ph, pc, np.int32(ref_node), leaf, new)
-    t = torch.tensor
-    tens = tss.split_node_updates_t(
-        tp_, t(gain), t(feat), t(thr), t(dleft), False, t(pg), t(ph),
-        t(pc), t(ref_node, dtype=torch.int32), t(leaf), t(new))
     for i in (0, 1):
         for key, w in want[i].items():
             w = np.asarray(w)
-            h, v = host[i][key], tens[i][key]
-            assert w.item() == v.item() == np.asarray(h).item(), key
+            h = host[i][key]
+            assert w.item() == np.asarray(h).item(), key
             if w.dtype == np.float32:
-                assert w.tobytes() == np.float32(h).tobytes() \
-                    == v.numpy().tobytes(), key
+                assert w.tobytes() == np.float32(h).tobytes(), key
     for i in (2, 3):
-        assert np.asarray(want[i]).item() == int(host[i]) \
-            == tens[i].item()
+        assert np.asarray(want[i]).item() == int(host[i])
 
 
 @pytest.mark.parametrize("env,config,want", [
@@ -328,3 +346,23 @@ def test_serial_learner_gate_on_the_cpu(monkeypatch, env, config, want):
     ds = Dataset.from_numpy(X, cfg, label=(X[:, 0] > 0).astype(np.float32))
     lrn = SerialTreeLearner(ds, cfg, torch.device("cpu"))
     assert lrn.fused == want and lrn.num_bins_max > 256
+
+
+@pytest.mark.parametrize("config", ["on", "auto"])
+@pytest.mark.parametrize("max_bin", [255, 600])
+def test_categorical_dataset_takes_the_per_phase_loop(config, max_bin):
+    """The fused kernels refuse categorical data (as the JAX package's
+    compiled fused bodies do), so a dataset with a categorical feature
+    keeps the per-phase loop on both learners, even with "on"."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.data import Dataset
+    from lightgbm_tpu_torch.parallel.learners import create_tree_learner
+    rng = np.random.RandomState(1)
+    X = np.column_stack([rng.randint(0, 9, 3000), rng.randn(3000)])
+    cfg = Config.from_params({"objective": "binary", "num_leaves": 7,
+                              "verbosity": -1, "max_bin": max_bin,
+                              "fused_split_kernel": config})
+    ds = Dataset.from_numpy(X, cfg, label=(X[:, 1] > 0).astype(np.float32),
+                            categorical_features=[0])
+    lrn = create_tree_learner("serial", ds, cfg, torch.device("cpu"))
+    assert lrn.params.has_categorical and not lrn.fused

@@ -201,7 +201,6 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("extra,item", [
     ({"forcedsplits_filename": "forced.json"}, "Queue 1 item 7"),
-    ({"categorical_feature": "0"}, "Queue 1 item 7.2"),
     ({"checkpoint_dir": "ckpt"}, "Queue 1 item 11"),
     ({"extra_trees": True}, "Queue 1 item 7"),
     ({"cegb_penalty_split": 1.0}, "Queue 1 item 7"),
@@ -217,6 +216,33 @@ def test_out_of_slice_configs_rejected(extra, item):
     with pytest.raises(NotImplementedError, match=item):
         lt.train(dict(PARAMS, **extra), lt.Dataset(X, label=y), 1,
                  device="cpu")
+
+
+@pytest.mark.parametrize("learner", ["serial", "partitioned"])
+def test_categorical_param_trains_like_jax(learner):
+    """``categorical_feature`` as a parameter string (the reference CLI's
+    form) trains feature 0 as a category: the trees of the JAX learners
+    given it as the Dataset argument, categorical nodes included."""
+    X, y = _data(7, n=3000)
+    X[:, 0] = np.floor(np.abs(X[:, 0]) * 6)
+    # a noisy label, so that no split's gain is float rounding alone
+    y = ((X[:, 0] % 3 == 1) + X[:, 1]
+         + np.random.RandomState(8).randn(len(X)) > 0.5).astype(np.float32)
+    params = dict(PARAMS, min_data_per_group=20)
+    port = lt.train(dict(params, categorical_feature="0"),
+                    lt.Dataset(X, label=y), ROUNDS, device="cpu")
+    jb = lgb.train(dict(params, tree_learner=learner,
+                        fused_split_kernel="off"),
+                   lgb.Dataset(X, label=y, categorical_feature=[0]),
+                   num_boost_round=ROUNDS, verbose_eval=False)
+    assert any(t.decision_type[:t.num_leaves - 1].any() & 1
+               for t in port.models)
+    for a, b in zip(jb._gbdt.models, port.models):
+        assert _structure(b) == _structure(a)
+        assert [sorted(c.tolist()) for c in b.cat_threshold] \
+            == [sorted(c.tolist()) for c in a.cat_threshold]
+        np.testing.assert_allclose(b.leaf_value, a.leaf_value, rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_leaf_ids_follow_the_partition():
