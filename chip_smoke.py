@@ -85,7 +85,7 @@ of the JAX package. Phases, each fatal on failure:
    a's best_iteration through its model text on the card (``predict``
    with no ``num_iteration`` equal to ``predict(num_iteration=
    best_iteration)`` and to the loaded text's, to the bit); kernels
-   against plain versions at 100k x 28, 3 iterations of a, b, c, e at
+   against plain versions at 100k x 28, 2 iterations of a, b, c, e at
    max_bin 255 and c at 1023 (the same trees, leaf values and valid
    histories to the bit); and the golden datasets multiclass, rank,
    regression_l1, monotone and tweedie trained with the reference
@@ -140,7 +140,28 @@ of the JAX package. Phases, each fatal on failure:
    DayOfWeek goes one-hot) and 1023: the same trees, leaf values and
    valid histories to the bit. Phase 9's golden datasets include the
    reference CLI's ``categorical`` one (``categorical_feature=0,1`` in
-   its params).
+   its params);
+12. EFB, multi-val, sparse input and two-round loading, each bundled
+   (the default) and with ``enable_bundle=false``, 255 leaves, 8
+   iterations, auc on a valid set every iteration: (a) the Expo data
+   one-hot (``expo_one_hot``: airline_like's six categorical columns
+   one-hot, 674 columns, 8 stored entries a row, scipy CSR, 2M rows,
+   valid 500k) at max_bin 255 (its plan goes multi-val: the serial
+   learner with the ``hist_multival`` kernel); (a') the same rows with
+   Origin and Dest numeric (76 columns, 8 groups: the partitioned
+   learner's bundled path, the LUT partition); (b) a at max_bin 1023;
+   (c) a Bosch-shaped 1M x 968 CSC matrix at 15% stored (``bosch_like``,
+   max_bin 63, lr 0.015, min_sum_hessian_in_leaf 5, valid 200k), which
+   must go multi-val; (d) 200k rows of a as LibSVM loaded in memory and
+   with ``two_round=true``: the matrices byte for byte and the same
+   trees; the multi-val histogram kernel against its plain version over
+   all of c's rows and a third (max abs err 0); (e) kernels against
+   plain versions at 100k rows, 63 leaves, 3 iterations for a, a', b, c.
+   Printed per run: the plan, ms/split, the debundle's CUDA-event share,
+   ``hist_multival`` ms a call, the launch counts, the LUT route's
+   launches (= bundled splits on the partitioned learner) and the valid
+   AUC; for a, a' and c one more tree under torch.profiler (the card's
+   busy share, the LUT partition's us a call).
 
 The second-to-last line of output is the per-kernel JSON record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1711,9 +1732,10 @@ def early_stopping_check(bst, Xq):
 
 
 def objective_parity(dev):
-    """Kernels against plain versions at 100k x 28, 3 iterations, for
-    runs a, b, c, e at max_bin 255 and c at 1023: the same trees, leaf
-    values equal to the bit, and the same valid histories to the bit."""
+    """Kernels against plain versions at 100k x 28, 2 iterations (cut
+    from 3 to keep the script within half its time limit), for runs a,
+    b, c, e at max_bin 255 and c at 1023: the same trees, leaf values
+    equal to the bit, and the same valid histories to the bit."""
     import torch
     import lightgbm_tpu_torch as lt
     Xp, zp = higgs_latent(100_000, seed=3)
@@ -1741,7 +1763,7 @@ def objective_parity(dev):
                 tr, va = labeled_sets(binned, vbinned, Xp, Xpv, objective,
                                       zp, zpv, groups)
                 hist = {}
-                b = lt.train(params, tr, 3, valid_sets=[va],
+                b = lt.train(params, tr, 2, valid_sets=[va],
                              valid_names=["valid"], evals_result=hist,
                              verbose_eval=False, device=dev, ops=ops)
                 res[ops] = (b, hist["valid"])
@@ -2318,8 +2340,9 @@ def categorical_run(label, params, tr, va, iters, dev):
     return bst, info, hist["valid"]
 
 
-def categorical_profile(label, params, tr, dev):
-    """One more tree of a phase-11 run under torch.profiler: the card's
+def categorical_profile(label, params, tr, dev, tag="categorical"):
+    """One more tree of a phase-11 (or 12, ``tag``) run under
+    torch.profiler: the card's
     busy time a split (every kernel's interval merged) and, on the
     partitioned learner, the partition's in-training device us a call by
     route (a call's two kernels merged: the k-th call is the k-th pair
@@ -2352,10 +2375,12 @@ def categorical_profile(label, params, tr, dev):
                busy_ms_per_split=busy_ms / splits,
                idle_share=1.0 - busy_ms / (wall * 1e3))
     pairs = [(a, b) for a, b, name in evs if "part_" in name]
-    if routes:
-        if len(pairs) != 2 * len(routes):
-            fail(f"categorical {label}: {len(pairs)} partition kernels "
-                 f"for {len(routes)} calls")
+    # the k-th call's kernels are the k-th pair on the stream; when the
+    # profiler drops records (it does late in a long script) the pairs
+    # no longer line up, and the per-route times are not measured (the
+    # launches themselves are counted apart, by the wrappers)
+    paired = bool(routes) and len(pairs) == 2 * len(routes)
+    if paired:
         per_call = [merged_us(pairs[2 * i:2 * i + 2])
                     for i in range(len(routes))]
         for key, want in (("lut", True), ("threshold", False)):
@@ -2363,16 +2388,21 @@ def categorical_profile(label, params, tr, dev):
             out[f"partition_{key}_calls"] = len(us)
             out[f"partition_{key}_us_per_call"] = float(np.mean(us)) \
                 if us else None
-    print(f"[categorical {label}] one more tree under the profiler: "
+    note = ""
+    if routes and not paired:
+        note = ("; partition in training, device us a call: not measured "
+                f"(the profiler recorded {len(pairs)} partition kernels "
+                f"for {len(routes)} calls)")
+    elif routes:
+        note = "; partition in training, device us a call: " + ", ".join(
+            f"{k} route {out[f'partition_{k}_us_per_call']:.2f} "
+            f"({out[f'partition_{k}_calls']} calls)"
+            if out[f"partition_{k}_calls"] else f"{k} route no call"
+            for k in ("lut", "threshold"))
+    print(f"[{tag} {label}] one more tree under the profiler: "
           f"{out['profiled_ms_per_split']:.3f} ms/split, the card busy "
           f"{out['busy_ms_per_split']:.4f} ms a split (idle share "
-          f"{out['idle_share']:.3f})"
-          + ("" if not routes else
-             f"; partition in training, device us a call: LUT route "
-             f"{out['partition_lut_us_per_call']:.2f} "
-             f"({out['partition_lut_calls']} calls), threshold route "
-             f"{out['partition_threshold_us_per_call']:.2f} "
-             f"({out['partition_threshold_calls']} calls)"))
+          f"{out['idle_share']:.3f}){note}")
     return out
 
 
@@ -2514,12 +2544,446 @@ def categorical_phase(n, iters, dev):
     return out
 
 
+# ---- phase 12: EFB, multi-val, sparse input, two-round loading --------
+# the categories of airline_like's six categorical columns
+EXPO_CARDS = {0: 12, 1: 31, 2: 7, 4: 22, 5: 300, 6: 300}
+EFB_PATH = {("SerialTreeLearner", False): ("hist_rows", "split_scan"),
+            ("SerialTreeLearner", True): ("hist_rows", "split_scan",
+                                          "fused_split_step_leaf"),
+            ("PartitionedTreeLearner", False): ("hist_segment",
+                                                "partition_segment",
+                                                "split_scan"),
+            ("PartitionedTreeLearner", True): ("hist_segment", "split_scan",
+                                               "fused_split_step_segment")}
+
+
+def expo_one_hot(n, seed, airports=True):
+    """The Expo data as the reference's 700-feature run feeds it:
+    ``airline_like`` with its categorical columns one-hot (Month 12,
+    DayofMonth 31, DayOfWeek 7, UniqueCarrier 22, Origin 300, Dest 300:
+    672 columns) and CRSDepTime and Distance beside them, 8 stored
+    entries a row, as a scipy CSR matrix. ``airports=False`` keeps Origin
+    and Dest as numeric id columns (76 columns). Returns (csr, y)."""
+    import scipy.sparse as sp
+    X, y = airline_like(n, seed)
+    cats = [c for c in AIRLINE_CATEGORICAL if airports or c not in (5, 6)]
+    numeric = [3, 7] if airports else [3, 5, 6, 7]
+    k = len(cats) + len(numeric)
+    idx = np.empty((n, k), np.int64)
+    val = np.ones((n, k))
+    off = 0
+    for j, c in enumerate(cats):
+        idx[:, j] = off + X[:, c].astype(np.int64)
+        off += EXPO_CARDS[c]
+    for j, c in enumerate(numeric):
+        idx[:, len(cats) + j] = off + j
+        val[:, len(cats) + j] = X[:, c]
+    csr = sp.csr_matrix((val.ravel(), idx.ravel(),
+                         np.arange(0, k * n + 1, k)),
+                        shape=(n, off + len(numeric)))
+    return csr, y
+
+
+def bosch_like(n, f=968, density=0.15, seed=44):
+    """A Bosch-shaped matrix (the reference's Bosch GPU run: 968 numeric
+    columns, mostly empty), generated column by column as CSC, never
+    dense: ~``density`` of the cells stored at random positions, values
+    positive measurements (two decimals, so a column's default and most
+    frequent bin is its zero), the label ~0.6% positive, logistic in five
+    columns. Returns (csc, y)."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    indptr = np.zeros(f + 1, np.int64)
+    rows, vals = [], []
+    for j in range(f):
+        r = np.flatnonzero(rng.random(n, dtype=np.float32)
+                           < density).astype(np.int32)
+        rows.append(r)
+        vals.append(np.round(rng.gamma(2.0, 0.5, len(r)), 2) + 0.01)
+        indptr[j + 1] = indptr[j] + len(r)
+    csc = sp.csc_matrix((np.concatenate(vals), np.concatenate(rows),
+                         indptr), shape=(n, f))
+    logit = -5.5 + sum(w * csc[:, j].toarray()[:, 0] for j, w in
+                       enumerate((0.9, -0.7, 0.6, 0.5, -0.4)))
+    y = (logit + rng.logistic(size=n) > 0).astype(np.float32)
+    return csc, y
+
+
+def describe_plan(label, ds):
+    """Print a binned dataset's EFB plan: dense groups and their bins,
+    multi-val pseudo-groups and the slot width."""
+    g_dense, g_all = ds.num_dense_groups, ds.num_groups
+    bins = [int(b) for b in ds.group_num_bins[:g_dense]] \
+        if ds.is_bundled else []
+    k = ds.mv_slots.shape[1] if ds.has_multival else 0
+    print(f"[efb {label}] {ds.num_data} rows, {ds.num_total_features} "
+          f"columns ({ds.num_features} used): {g_dense} dense groups "
+          f"{bins if len(bins) <= 16 else bins[:16] + ['...']} "
+          f"({ds.binned.dtype}, {ds.binned.nbytes / 1e6:.1f} MB), "
+          f"{g_all - g_dense} multi-val pseudo-groups, slots K {k}"
+          + (f" ({ds.mv_slots.nbytes / 1e9:.2f} GB)" if k else ""))
+    return dict(features=ds.num_features, dense_groups=g_dense,
+                mv_groups=g_all - g_dense, slots_k=k,
+                group_bins_max=max(bins, default=0))
+
+
+def efb_run(label, params, tr, va, iters, dev, want_learner):
+    """One phase-12 run through ``lt.train`` with its valid set (auc
+    every iteration), the launch counts set to 0 just before it and read
+    just after, CUDA events around every debundle
+    (``debundle_leaf_hists``: the root, or both children of a split)
+    and multi-val histogram. Returns the
+    booster and its numbers."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.learner import partitioned as lp
+    from lightgbm_tpu_torch.learner import serial as ls
+    from lightgbm_tpu_torch.ops import _native
+    from lightgbm_tpu_torch.ops import hist_multival_cuda as hmc
+    deb, mvh = DeviceTimer(), DeviceTimer()
+    saved = (lp.debundle_leaf_hists, ls.hist_multival, hmc.hist_multival)
+    lp.debundle_leaf_hists = deb.wrap(saved[0])
+    ls.hist_multival = hmc.hist_multival = mvh.wrap(saved[1])
+    hist = {}
+    try:
+        _native.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst = lt.train(params, tr, iters, valid_sets=[va],
+                       valid_names=["valid"], evals_result=hist,
+                       verbose_eval=False, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        lp.debundle_leaf_hists, ls.hist_multival, hmc.hist_multival = saved
+    launches = dict(_native.LAUNCHES)
+    lut = _native.ROUTE_LAUNCHES["partition_segment_lut"]
+    lrn = bst._gbdt.learner
+    td = bst._gbdt.train_data
+    splits = sum(t.num_leaves - 1 for t in bst.models)
+    bundled_nodes = sum(int((td.feature_offset[
+        t.split_feature_inner[:t.num_leaves - 1]] > 0).sum())
+        for t in bst.models) if td.is_bundled else 0
+    ms_split = wall / max(splits, 1) * 1e3
+    deb_ms = deb.ms() / max(splits, 1)
+    mv_calls = len(mvh.pairs)
+    info = dict(learner=type(lrn).__name__, fused=lrn.fused,
+                num_bins_max=lrn.num_bins_max, wall_s=wall,
+                trees=len(bst.models), splits=splits,
+                bundled_splits=bundled_nodes, ms_per_split=ms_split,
+                debundle_ms_per_split=deb_ms,
+                debundle_share=deb_ms / ms_split,
+                hist_multival_calls=mv_calls,
+                hist_multival_ms_per_call=mvh.ms() / mv_calls
+                if mv_calls else None,
+                launches=launches, lut_launches=lut,
+                valid_auc=hist["valid"]["auc"][-1])
+    print(f"[efb {label}] {info['learner']} (fused {lrn.fused}), "
+          f"num_bins_max {lrn.num_bins_max}: {len(bst.models)} trees, "
+          f"{splits} splits ({bundled_nodes} on bundled features) in "
+          f"{wall:.2f} s = {ms_split:.4f} ms/split; debundle "
+          f"{deb_ms:.4f} ms a split ({info['debundle_share']:.1%}, CUDA "
+          f"events); hist_multival {mv_calls} calls"
+          + (f", {info['hist_multival_ms_per_call']:.3f} ms a call"
+             if mv_calls else "")
+          + f"; launches {launches}, LUT route {lut}; valid auc "
+          f"{[round(v, 6) for v in hist['valid']['auc']]}")
+    if info["learner"] != want_learner:
+        fail(f"efb run {label} trained on {info['learner']}, expected "
+             f"{want_learner}")
+    for name in EFB_PATH[want_learner, bool(lrn.fused)] + (
+            ("hist_multival",) if td.has_multival else ()):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by efb run {label}")
+    if td.is_bundled:
+        if lrn.fused:
+            fail(f"efb run {label}: a bundled dataset took the fused path")
+        if want_learner == "PartitionedTreeLearner" \
+                and lut != bundled_nodes:
+            fail(f"efb run {label}: {lut} LUT-route partitions for "
+                 f"{bundled_nodes} bundled splits")
+    if not np.isfinite(hist["valid"]["auc"]).all():
+        fail(f"efb run {label}: valid auc not finite")
+    return bst, info
+
+
+def efb_pair(label, params, data, y, vdata, vy, iters, dev,
+             profile=False, keep=False):
+    """A dataset trained bundled (EFB on, the default) and with
+    ``enable_bundle=false``, each with its valid set: plan, runs, and
+    the bundled run's profiled tree. ``keep`` returns the bundled binned
+    dataset beside the numbers."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    out = {}
+    for mode, extra in (("bundled", {}), ("unbundled",
+                                          {"enable_bundle": False})):
+        p = dict(params, **extra)
+        t0 = time.perf_counter()
+        tr = lt.Dataset(data, label=y)
+        va = tr.create_valid(vdata, label=vy)
+        ds = tr.construct(lt.Config.from_params(p))
+        va.construct(lt.Config.from_params(p))     # outside the run
+        plan = describe_plan(f"{label} {mode}", ds)
+        plan["bin_s"] = time.perf_counter() - t0
+        print(f"[efb {label} {mode}] binned (train and valid) in "
+              f"{plan['bin_s']:.1f} s")
+        # the learner rule (parallel/learners.py): multi-val pins the
+        # serial learner, as do bins wider than a byte
+        want = "SerialTreeLearner" if ds.has_multival or int(
+            ds.num_bins_array().max()) > 256 else "PartitionedTreeLearner"
+        bst, info = efb_run(f"{label} {mode}", p, tr, va, iters, dev, want)
+        info["plan"] = plan
+        if profile and mode == "bundled":
+            info.update(categorical_profile(f"{label} {mode}", p, tr, dev,
+                                            tag="efb"))
+        out[mode] = info
+        if keep and mode == "bundled":
+            kept = ds
+        del bst, tr, va, ds
+        torch.cuda.empty_cache()
+    b, u = out["bundled"], out["unbundled"]
+    print(f"[efb {label}] bundled {b['ms_per_split']:.4f} ms/split "
+          f"({b['learner']}, fused {b['fused']}), auc "
+          f"{b['valid_auc']:.6f}; unbundled {u['ms_per_split']:.4f} "
+          f"ms/split ({u['learner']}, fused {u['fused']}), auc "
+          f"{u['valid_auc']:.6f}")
+    return (out, kept) if keep else out
+
+
+def check_hist_multival(ds, dev, reps):
+    """The multi-val histogram kernel against its plain version on a
+    multi-val dataset's slots over all rows (the serial learner's root)
+    and a random third of them in row order (a per-phase child): max
+    abs err 0, bitwise repeatable. Timed beside its plain version, its
+    byte bound (the slots, the rows' ghc and ids read once, the
+    histogram written once) and one float64 ``index_add_`` over the
+    flattened slots (the same sums in atomic order). The record's
+    numbers are the root's."""
+    import torch
+    from lightgbm_tpu_torch.ops import hist_multival_cuda as hm
+    slots = ds.mv_slots_device(dev)
+    n, k = slots.shape
+    g_mv = ds.num_groups - ds.num_dense_groups
+    b = int(max(ds.num_bins_array().max(), ds.group_num_bins.max()))
+    gen = torch.Generator(device=dev).manual_seed(12)
+    ghc = torch.stack([torch.randn(n, generator=gen, device=dev),
+                       torch.rand(n, generator=gen, device=dev) * 0.25,
+                       torch.ones(n, device=dev)], 1).contiguous()
+    third = torch.nonzero(torch.rand(n, generator=gen, device=dev)
+                          < 1 / 3).flatten().to(torch.int32)
+    partial = hm.multival_partial(g_mv, dev)
+    cases, worst = {}, 0.0
+    for mode, ids in (("all rows", None), ("a third", third)):
+        out = hm.hist_multival(slots, ghc, g_mv, b, ids, partial=partial)
+        again = hm.hist_multival(slots, ghc, g_mv, b, ids, partial=partial)
+        ref = hm.hist_multival_plain(slots, ghc, g_mv, b, ids)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        worst = max(worst, err)
+        if not torch.equal(out, again):
+            fail(f"hist_multival ({mode}) not bitwise repeatable")
+        if err != 0.0:
+            fail(f"hist_multival ({mode}) off its plain version by {err}")
+        ms = time_ms(lambda: hm.hist_multival(slots, ghc, g_mv, b, ids,
+                                              partial=partial), reps)
+        # None: the profiler recorded none of its kernels (it loses
+        # records late in a long script), not measured
+        dev_ms = device_us(lambda: hm.hist_multival(
+            slots, ghc, g_mv, b, ids, partial=partial), reps,
+            ("hist_multival",)) / 1e3 or None
+        plain_ms = time_ms(lambda: hm.hist_multival_plain(
+            slots, ghc, g_mv, b, ids), 3)
+        rows = n if ids is None else ids.numel()
+        sel = torch.arange(n, device=dev) if ids is None else ids.long()
+        keys = slots.index_select(0, sel).reshape(-1).long()
+        vals = ghc.index_select(0, sel).double().repeat_interleave(k, 0)
+        lib_out = torch.zeros((g_mv * 256, 3), dtype=torch.float64,
+                              device=dev)
+        library_ms = time_ms(lambda: lib_out.index_add_(0, keys, vals),
+                             reps)
+        del keys, vals
+        nbytes = rows * (k * 4 + 12 + (0 if ids is None else 4)) \
+            + g_mv * b * 3 * 4
+        cases[mode] = dict(rows=rows, ms=ms, device_ms=dev_ms,
+                           plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                           chunks=hm.child_chunks(rows, k, g_mv),
+                           windows=-(-g_mv // hm.window_groups(g_mv)))
+    main = cases["all rows"]
+    print("[check] hist_multival ok: " + "; ".join(
+        f"{m}: {c['ms']:.4f} ms, device {c['device_ms'] or 'not measured'}"
+        f" ({c['rows']} "
+        f"rows x K {k}, G_mv {g_mv}, {c['chunks']} chunks x "
+        f"{c['windows']} windows; plain {c['plain_ms']:.3f}, float64 "
+        f"index_add_ {c['library_ms']:.3f}, bound {c['bound_ms']:.4f})"
+        for m, c in cases.items()))
+    return dict(max_abs_err=worst, ms=main["ms"],
+                device_ms=main["device_ms"], plain_ms=main["plain_ms"],
+                library_ms=main["library_ms"], bound_ms=main["bound_ms"],
+                bound_by="bytes", cases=cases)
+
+
+def write_libsvm_csr(path, csr, y):
+    """A CSR matrix as LibSVM text, one row a line (``%.17g`` values)."""
+    with open(path, "w") as fh:
+        for i in range(csr.shape[0]):
+            lo, hi = csr.indptr[i], csr.indptr[i + 1]
+            fh.write(f"{y[i]:.17g} " + " ".join(
+                f"{j}:{v:.17g}" for j, v in zip(csr.indices[lo:hi],
+                                                csr.data[lo:hi])) + "\n")
+
+
+def two_round_check(csr, y, dev):
+    """(d): the first rows of (a) as LibSVM, loaded in memory and with
+    two_round: the binned matrices and slots byte for byte, the same
+    trees (3 iterations, 63 leaves, on the card)."""
+    import os
+    import tempfile
+    import lightgbm_tpu_torch as lt
+    params = {"objective": "binary", "num_leaves": 63, "max_bin": 255,
+              "learning_rate": 0.1, "verbosity": -1}
+    out, res = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train.svm")
+        t0 = time.perf_counter()
+        write_libsvm_csr(path, csr, y)
+        print(f"[efb d] {csr.shape[0]} rows written as LibSVM "
+              f"({os.path.getsize(path) / 1e6:.1f} MB) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for mode in ("in memory", "two_round"):
+            p = dict(params, two_round=mode == "two_round")
+            t0 = time.perf_counter()
+            ds = lt.Dataset(path)
+            binned = ds.construct(lt.Config.from_params(p))
+            out[f"{mode}_load_s"] = time.perf_counter() - t0
+            res[mode] = (binned, lt.train(p, ds, 3, device=dev))
+            print(f"[efb d] {mode}: loaded and binned in "
+                  f"{out[f'{mode}_load_s']:.1f} s, {binned.binned.shape} "
+                  f"{binned.binned.dtype}, multi-val {binned.has_multival}")
+    (a, ba), (b, bb) = res["in memory"], res["two_round"]
+    same = a.binned.dtype == b.binned.dtype \
+        and np.array_equal(a.binned, b.binned) \
+        and (a.mv_slots is None) == (b.mv_slots is None) \
+        and (a.mv_slots is None or np.array_equal(a.mv_slots, b.mv_slots)) \
+        and np.array_equal(a.metadata.label, b.metadata.label)
+    trees = len(ba.models) == len(bb.models) and all(
+        tree_sig(s) == tree_sig(t) and np.array_equal(s.leaf_value,
+                                                      t.leaf_value)
+        for s, t in zip(ba.models, bb.models))
+    print(f"[efb d] two_round against in memory: matrices equal {same}, "
+          f"trees and leaf values equal {trees}")
+    if not same or not trees:
+        fail("two_round loading differs from in-memory loading")
+    return out
+
+
+def efb_parity(dev, expo, expo_num, bosch):
+    """(e): kernels against plain versions at 100k rows, 63 leaves, 3
+    iterations, for (a), (a'), (b) and (c): the same trees and leaf
+    values to the bit."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    runs = (("a", expo, 255), ("a'", expo_num, 255), ("b", expo, 1023),
+            ("c", bosch, 63))
+    for label, (data, y), max_bin in runs:
+        t0 = time.perf_counter()
+        params = {"objective": "binary", "num_leaves": 63,
+                  "learning_rate": 0.1, "max_bin": max_bin,
+                  "verbosity": -1}
+        if label == "c":
+            params.update(learning_rate=0.015, min_sum_hessian_in_leaf=5)
+        res = {}
+        for ops in ("kernel", "plain"):
+            res[ops] = lt.train(params, lt.Dataset(data, label=y), 3,
+                                device=dev, ops=ops)
+        kb, pb = res["kernel"], res["plain"]
+        same = len(kb.models) == len(pb.models) == 3 and all(
+            tree_sig(a) == tree_sig(c) for a, c in zip(kb.models, pb.models))
+        diff = max(float(np.abs(a.leaf_value - c.leaf_value).max())
+                   for a, c in zip(kb.models, pb.models))
+        td = kb._gbdt.train_data
+        print(f"[efb parity] {label}: {data.shape[0]} x {data.shape[1]}, "
+              f"max_bin {max_bin}, {type(kb._gbdt.learner).__name__} "
+              f"(bundled {td.is_bundled}, multi-val {td.has_multival}): "
+              f"structure equal {same}, max leaf value diff {diff:.3g} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        if not same or diff != 0:
+            fail(f"efb kernel and plain runs differ ({label})")
+        del kb, pb, res
+        torch.cuda.empty_cache()
+
+
+def efb_phase(n, iters, dev, reps, bosch_rows=1_000_000):
+    """Phase 12: (a) Expo one-hot at max_bin 255, (a') with the airports
+    as numeric columns (the partitioned learner on bundles), (b) (a) at
+    max_bin 1023, (c) Bosch-shaped multi-val, each bundled and with
+    ``enable_bundle=false``; (d) two-round loading; (e) kernels against
+    plain versions and the multi-val histogram's check. Returns the
+    runs' numbers and the multi-val histogram's record."""
+    import torch
+    from lightgbm_tpu_torch.ops import _native
+    out = {}
+    t0 = time.perf_counter()
+    expo, y = expo_one_hot(n, 42)
+    expo_v, yv = expo_one_hot(500_000, 43)
+    print(f"[efb] Expo one-hot {expo.shape[0]} x {expo.shape[1]} CSR "
+          f"({expo.nnz} stored, {y.mean():.3f} positive), valid "
+          f"{expo_v.shape[0]} rows, in {time.perf_counter() - t0:.1f} s")
+    base = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
+            "metric": "auc", "verbosity": -1}
+    out["a"] = efb_pair("a max_bin 255", dict(base, max_bin=255), expo, y,
+                        expo_v, yv, iters, dev, profile=True)
+    num, ynum = expo_one_hot(n, 42, airports=False)
+    num_v, ynum_v = expo_one_hot(500_000, 43, airports=False)
+    out["a'"] = efb_pair("a' airports numeric", dict(base, max_bin=255),
+                         num, ynum, num_v, ynum_v, iters, dev,
+                         profile=True)
+    del num, num_v
+    out["b"] = efb_pair("b max_bin 1023", dict(base, max_bin=1023), expo, y,
+                        expo_v, yv, iters, dev)
+    t0 = time.perf_counter()
+    out["d"] = two_round_check(expo[:200_000], y[:200_000], dev)
+    print(f"[efb d] done in {time.perf_counter() - t0:.1f} s")
+    del expo_v
+    t0 = time.perf_counter()
+    bosch, yb = bosch_like(bosch_rows)
+    bosch_v, ybv = bosch_like(200_000, seed=45)
+    print(f"[efb] Bosch-shaped {bosch.shape[0]} x {bosch.shape[1]} CSC "
+          f"({bosch.nnz} stored, {bosch.nnz / np.prod(bosch.shape):.3f} "
+          f"density, {yb.mean():.4f} positive), valid "
+          f"{bosch_v.shape[0]} rows, in {time.perf_counter() - t0:.1f} s")
+    cparams = dict(base, max_bin=63, learning_rate=0.015,
+                   min_sum_hessian_in_leaf=5)
+    out["c"], cds = efb_pair("c bosch", cparams, bosch, yb, bosch_v, ybv,
+                             iters, dev, profile=True, keep=True)
+    if not out["c"]["bundled"]["plan"]["mv_groups"]:
+        fail("the Bosch-shaped plan did not go multi-val")
+    launches = out["c"]["bundled"]["launches"]["hist_multival"]
+    del bosch_v
+    torch.cuda.empty_cache()
+    # the multi-val histogram against its plain version on (c)'s slots
+    t0 = time.perf_counter()
+    rec = check_hist_multival(cds, dev, reps)
+    print(f"[check] hist_multival in {time.perf_counter() - t0:.1f} s")
+    del cds
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    efb_parity(dev, (expo[:100_000], y[:100_000]),
+               expo_one_hot(100_000, 3, airports=False),
+               (bosch[:100_000], yb[:100_000]))
+    print(f"[efb parity] done in {time.perf_counter() - t0:.1f} s")
+    _native.reset_launch_counts()
+    return out, rec, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=2_000_000)
     ap.add_argument("--iters", type=int, default=8)
     ap.add_argument("--quality-iters", type=int, default=100)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--bosch-rows", type=int, default=1_000_000)
     args = ap.parse_args()
 
     import torch
@@ -2777,6 +3241,14 @@ def main() -> int:
     cat = categorical_phase(n, args.iters, dev)
     print(f"[categorical] done in {time.perf_counter() - t0:.1f} s: "
           + json.dumps(cat))
+    torch.cuda.empty_cache()
+
+    # ---- 12. EFB, multi-val, sparse input, two-round loading -----------
+    t0 = time.perf_counter()
+    efb, rec["hist_multival"], launches["hist_multival"] = efb_phase(
+        n, args.iters, dev, args.reps, bosch_rows=args.bosch_rows)
+    print(f"[efb] done in {time.perf_counter() - t0:.1f} s: "
+          + json.dumps(efb, default=str))
 
     sources = {
         "hist_segment": ("lightgbm_tpu_torch/csrc/hist_segment.cu",
@@ -2798,6 +3270,9 @@ def main() -> int:
                       "no TPU kernel: the host TreeSHAP "
                       "lightgbm_tpu/native/treeshap.cpp, called from "
                       "lightgbm_tpu/predictor.py:503"),
+        "hist_multival": ("lightgbm_tpu_torch/csrc/hist_multival.cu",
+                          "lightgbm_tpu/ops/histogram.py:103 multival_hist "
+                          "(XLA scatter, no Pallas kernel)"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

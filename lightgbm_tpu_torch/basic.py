@@ -1,10 +1,12 @@
 """User-facing ``Dataset`` and ``Booster`` (port of the training,
 evaluation, predict and model IO surface of ``lightgbm_tpu/basic.py``).
 
-``Dataset`` holds the raw arrays, or the path of a CSV / TSV / LibSVM
-file, until training constructs the binned dataset with the booster's
-parameters (the reference's lazy construction); a valid set is binned
-with its training set's mappers. ``Booster`` trains on one device, with
+``Dataset`` holds the raw arrays (dense, or a scipy sparse matrix that
+is binned without densifying), or the path of a CSV / TSV / LibSVM file
+(read in two passes with ``two_round=true``), until training constructs
+the binned dataset with the booster's parameters (the reference's lazy
+construction); a valid set is binned with its training set's mappers
+and bundled through its EFB plan. ``Booster`` trains on one device, with
 valid sets and evaluation, or holds a model loaded from text
 (``model_file`` / ``model_str``), and predicts through ``predictor.py``
 on its device: the card unless ``device`` says otherwise. After early
@@ -155,15 +157,13 @@ class Dataset:
         self._binned: Optional[_BinnedDataset] = None
 
     def raw_matrix(self, config: Config) -> np.ndarray:
-        """The raw feature matrix, float64 (read once from a file)."""
+        """The raw feature matrix, float64 (read once from a file). Binning
+        reads a sparse matrix and a ``two_round`` file without it
+        (``construct``); a continued training's ``init_model`` scores
+        them through it (a sparse matrix densified here)."""
         if self._raw is not None:
             return self._raw
         if isinstance(self.data, str):
-            if config.two_round:
-                raise NotImplementedError(
-                    "two_round loading bins into EFB bundles in the JAX "
-                    "package, which the port does not have yet "
-                    "(ROADMAP.md Queue 1 item 7.3)")
             from .data.file_loader import load_file
             X, label, weight, group, init, names = load_file(self.data,
                                                              config)
@@ -181,30 +181,45 @@ class Dataset:
             if self.feature_name in ("auto", None):
                 self.feature_name = names
         elif _is_sparse(self.data):
-            raise NotImplementedError(
-                "sparse input bins into EFB bundles in the JAX package, "
-                "which the port does not have yet (ROADMAP.md Queue 1 "
-                "item 7.3)")
+            X = self.data.toarray()
         else:
             X = self.data
         self._raw = np.asarray(X, np.float64)
         return self._raw
 
     def construct(self, config: Config) -> _BinnedDataset:
+        """Bin the data (once): a dense matrix, a DataFrame or a text
+        file through ``from_numpy``; a scipy sparse matrix through
+        ``from_scipy``, never densified (JAX ``basic.py:241-260``); a
+        text file with ``two_round=true`` through
+        ``from_file_two_round``, in two passes over the file."""
         if self._binned is None:
             ref = None
             if self.reference is not None:
                 ref = self.reference.construct(config)
-            X = self.raw_matrix(config)
+            two_round = isinstance(self.data, str) and config.two_round
+            sparse = _is_sparse(self.data)
+            X = None if two_round or sparse else self.raw_matrix(config)
+            if two_round and self.feature_name in ("auto", None):
+                from .data.file_loader import TwoRoundLoader
+                self.feature_name = TwoRoundLoader(
+                    self.data, config).resolve_feature_names() or "auto"
             names = None if self.feature_name in ("auto", None) \
                 else list(self.feature_name)
-            self._binned = _BinnedDataset.from_numpy(
-                X, config, label=self.label, weight=self.weight,
-                group=self.group, init_score=self.init_score,
-                feature_names=names, reference=ref,
-                categorical_features=self.categorical_indices(config),
-                forced_bins=None if ref is not None
-                else load_forced_bins(config.forcedbins_filename))
+            kw = dict(label=self.label, weight=self.weight,
+                      group=self.group, init_score=self.init_score,
+                      feature_names=names, reference=ref,
+                      categorical_features=self.categorical_indices(config),
+                      forced_bins=None if ref is not None
+                      else load_forced_bins(config.forcedbins_filename))
+            if two_round:
+                self._binned = _BinnedDataset.from_file_two_round(
+                    self.data, config, **kw)
+            elif sparse:
+                self._binned = _BinnedDataset.from_scipy(self.data, config,
+                                                         **kw)
+            else:
+                self._binned = _BinnedDataset.from_numpy(X, config, **kw)
             if self.free_raw_data:
                 self.data = None
         return self._binned
@@ -230,6 +245,21 @@ class Dataset:
                        feature_name=self.feature_name,
                        categorical_feature=self.categorical_feature,
                        params=params or self.params)
+
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """Refused: ROADMAP.md Queue 1 item 7.6 (with ``cv``)."""
+        raise NotImplementedError("Dataset.subset is not in the port yet "
+                                  "(ROADMAP.md Queue 1 item 7.6)")
+
+    def save_binary(self, filename: str) -> "Dataset":
+        """Refused: ROADMAP.md Queue 1 item 7.6."""
+        raise NotImplementedError("save_binary is not in the port yet "
+                                  "(ROADMAP.md Queue 1 item 7.6)")
+
+    def add_features_from(self, other: "Dataset") -> "Dataset":
+        """Refused: ROADMAP.md Queue 1 item 7.6."""
+        raise NotImplementedError("add_features_from is not in the port "
+                                  "yet (ROADMAP.md Queue 1 item 7.6)")
 
     def set_group(self, group) -> "Dataset":
         self.group = group

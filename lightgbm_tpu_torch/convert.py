@@ -16,11 +16,17 @@ turn it into the port's objects:
     bitsets), so the port's predictor runs a JAX-trained model, the
     port's writer writes its text and its bin-space walk scores a valid
     set;
+  * ``bundles_from_state`` — an EFB dataset's bundle plan
+    (``feature_group``, ``feature_offset``, ``group_num_bins``,
+    ``mv_group_start``) applied to a port dataset binned unbundled with
+    the same mappers, which then holds the JAX dataset's group matrix
+    and multi-val slots byte for byte;
   * ``matrix_from_jax`` and ``grow_state_from_jax`` — the partitioned
     grow loop's training matrix and its packed state (``S``, ``T``, the
-    per-leaf histogram cache and, with categorical features, the bin
-    bitsets), or the serial grow loop's (``S``, ``T``, ``leaf_id``, the
-    cache), so one state can be stepped in both packages.
+    per-leaf histogram cache, over the EFB groups for a bundled dataset,
+    and, with categorical features, the bin bitsets), or the serial grow
+    loop's (``S``, ``T``, ``leaf_id``, the cache), so one state can be
+    stepped in both packages.
 """
 
 from __future__ import annotations
@@ -83,6 +89,35 @@ def trees_from_state(states: Sequence[Dict]) -> List[Tree]:
     return trees
 
 
+def bundles_from_state(dataset, feature_group, feature_offset,
+                       group_num_bins, mv_group_start=None):
+    """Give ``dataset`` (a port ``Dataset`` binned with the JAX
+    dataset's mappers and ``enable_bundle=false``, so its matrix is the
+    unbundled ``[N, F]``) the JAX dataset's EFB plan: its matrix becomes
+    the plan's group columns (``bundle_matrix``) and, with multi-val
+    groups, ``mv_slots`` the slot matrix (``build_mv_slots``), as the
+    JAX dataset built them. Returns the dataset."""
+    from .data.bundling import (BundlePlan, build_mv_slots, bundle_matrix,
+                                dense_feature_bins)
+    if dataset.is_bundled:
+        raise ValueError("the dataset is bundled already")
+    group_num_bins = np.asarray(group_num_bins, np.int32)
+    plan = BundlePlan(np.asarray(feature_group, np.int32),
+                      np.asarray(feature_offset, np.int32),
+                      len(group_num_bins), group_num_bins, mv_group_start)
+    raw = dataset.binned
+    dataset.binned = bundle_matrix(raw, plan)
+    if plan.has_multival:
+        dataset.mv_slots = build_mv_slots(plan, raw.shape[0],
+                                          dense_feature_bins(raw))
+        dataset.mv_group_start = plan.mv_group_start
+    dataset.feature_group = plan.feature_group
+    dataset.feature_offset = plan.feature_offset
+    dataset.group_num_bins = plan.group_num_bins
+    dataset._device_copies = {}
+    return dataset
+
+
 def matrix_from_jax(mat: np.ndarray, num_features: int,
                     n: int) -> torch.Tensor:
     """The JAX package's training matrix (u8 ``[matrix_rows, round_up(F
@@ -109,7 +144,8 @@ def grow_state_from_jax(S: np.ndarray, T: np.ndarray, hist: np.ndarray,
     """The JAX package's packed grow state -> the port's. ``S`` and ``T``
     share one layout (the merged ``StatePack``, int rows as float32 bit
     patterns) and are copied bit for bit. ``hist`` is the per-leaf cache,
-    ``[L, F, B, 3]`` as the interpret path keeps it, or ``[L, 3, F, B]``
+    ``[L, F, B, 3]`` as the interpret path keeps it (F the EFB groups of
+    a bundled dataset: the cache holds group histograms), or ``[L, 3, F, B]``
     with ``channels_major`` (the compiled Mosaic path's layout).
     ``leaf_id`` ([N] int32, the serial grow loop's row membership; a
     padded compiled-path vector is cut to N by the caller) comes across

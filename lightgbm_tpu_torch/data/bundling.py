@@ -1,12 +1,24 @@
-"""Exclusive Feature Bundling (EFB) planner — the check half.
+"""Exclusive Feature Bundling (EFB): the planner and the bundled layout.
 
-Copy of the planning part of ``lightgbm_tpu/data/bundling.py``
-(``FindGroups``/``FastFeatureBundling``, src/io/dataset.cpp:41-314 of the
-reference). The port's first slice trains on unbundled matrices only:
-the dataset runs this planner exactly as the JAX package does and
-rejects any plan that would put two features in one column or use the
-multi-val layout (``Dataset._check_bundles``). A dense matrix plans one
-singleton group per feature and passes through unchanged.
+Copy of ``lightgbm_tpu/data/bundling.py`` (``FindGroups`` /
+``FastFeatureBundling``, src/io/dataset.cpp:41-314 of the reference;
+``FeatureGroup`` offsets, include/LightGBM/feature_group.h:32-50).
+Mutually (nearly) exclusive features share one physical column, so the
+training matrix shrinks from ``[N, F]`` to ``[N, G]``.
+
+Layout of a multi-feature group: value 0 = every member at its default
+bin; member ``i`` with ``num_bin_i`` bins owns the values
+``[offset_i, offset_i + num_bin_i - 2]`` (its bins 1..num_bin_i-1), with
+``offset_{i+1} = offset_i + num_bin_i - 1`` and a group total
+``1 + sum(num_bin_i - 1) <= 256``. A singleton group keeps raw bins
+(offset 0), so a dense matrix passes through unchanged. Per-feature
+histograms are rebuilt at scan time (``ops/histogram.py:debundle_hist``),
+bin 0 from the leaf totals (the reference's ``FixHistogram``).
+
+Multi-val pseudo-groups (the second round, dataset.cpp:186-231) have no
+column: each row's values ride a padded ``[N, K]`` int32 slot matrix
+(``build_mv_slots``), ``pseudo_local * MV_SLOT_STRIDE + offset + bin -
+1``, 0-padded.
 """
 
 from __future__ import annotations
@@ -17,10 +29,34 @@ import numpy as np
 
 MAX_BIN_PER_GROUP = 256
 MAX_SEARCH_GROUP = 100
+_HEAD = 2048       # conflict-count rows read before the early cut
+# multi-val slot encoding stride: slot = pseudo_local * MV_SLOT_STRIDE
+# + offset + bin - 1 (build_mv_slots); every decoder uses this
+MV_SLOT_STRIDE = MAX_BIN_PER_GROUP
+
+
+def decode_feature_bin(col, off, nbf):
+    """Group-column value -> this feature's bin (0 = default bin).
+    ``off == 0`` means raw passthrough. Arithmetic only, so the same
+    helper serves numpy arrays and torch tensors."""
+    in_range = (col >= off) & (col < off + nbf - 1)
+    fb = (col - off + 1) * in_range
+    return fb * (off > 0) + col * (off == 0)
+
+
+def encode_feature_bin(out_col: np.ndarray, bins: np.ndarray,
+                       off: int) -> None:
+    """Write a feature's non-default bins into its group column in place
+    (FeatureGroup::PushData semantics)."""
+    nz = bins != 0
+    out_col[nz] = (bins[nz].astype(np.int64) + off - 1).astype(
+        out_col.dtype)
 
 
 class BundlePlan:
-    """Result of bundling: per-inner-feature column/offset maps."""
+    """Result of bundling: per-inner-feature column/offset maps. Group
+    ids at and above ``mv_group_start`` are multi-val pseudo-groups with
+    no matrix column."""
 
     def __init__(self, feature_group: np.ndarray,
                  feature_offset: np.ndarray, num_groups: int,
@@ -34,8 +70,18 @@ class BundlePlan:
                                else mv_group_start)
 
     @property
+    def num_dense_groups(self) -> int:
+        return self.mv_group_start
+
+    @property
     def has_multival(self) -> bool:
         return self.mv_group_start < self.num_groups
+
+    @property
+    def is_identity(self) -> bool:
+        return self.num_groups == len(self.feature_group) \
+            and (self.feature_offset == 0).all() \
+            and not self.has_multival
 
 
 def _find_groups(nz_idx: List[Optional[np.ndarray]], nbins: np.ndarray,
@@ -74,9 +120,17 @@ def _find_groups(nz_idx: List[Optional[np.ndarray]], nbins: np.ndarray,
         best = -1
         best_cnt = -1
         for g in search:
-            rest_max = max_conflict - total_cnt[g] + used_cnt[g]
-            cnt = int(marks[g][idx].sum())
-            if cnt <= rest_max and cnt <= nnz // 2:
+            # the JAX loop's test, cnt <= rest_max and cnt <= nnz // 2,
+            # with the count cut short once a head of idx already breaks
+            # it: the same groups, far fewer reads on conflicting data
+            limit = min(max_conflict - total_cnt[g] + used_cnt[g],
+                        nnz // 2)
+            cnt = int(marks[g][idx[:_HEAD]].sum())
+            if cnt > limit:
+                continue
+            if nnz > _HEAD:
+                cnt += int(marks[g][idx[_HEAD:]].sum())
+            if cnt <= limit:
                 best = g
                 best_cnt = cnt
                 break
@@ -202,3 +256,66 @@ def plan_bundles_from_nonzeros(nz_idx: List[Optional[np.ndarray]],
         groups = [[]] + groups
     return BundlePlan(feature_group, feature_offset, len(groups),
                       group_num_bins, mv_group_start)
+
+
+def bundle_matrix(binned: np.ndarray, plan: BundlePlan) -> np.ndarray:
+    """[N, F] raw bins -> [N, G_dense] bundled columns (FeatureGroup::
+    PushData semantics: non-default values land at their offset, ties
+    resolved by feature order, bounded by the conflict budget).
+    Multi-val pseudo-groups get no column (``build_mv_slots``)."""
+    n, f = binned.shape
+    g_dense = plan.num_dense_groups
+    max_b = int(plan.group_num_bins[:g_dense].max(initial=2))
+    dtype = np.uint8 if max_b <= 256 else np.uint16
+    out = np.zeros((n, max(g_dense, 1)), dtype)
+    for j in range(f):
+        g = plan.feature_group[j]
+        if g >= g_dense:
+            continue
+        off = plan.feature_offset[j]
+        col = binned[:, j]
+        if off == 0:
+            out[:, g] = col.astype(dtype)
+        else:
+            encode_feature_bin(out[:, g], col, int(off))
+    return out
+
+
+def dense_feature_bins(raw: np.ndarray):
+    """``feature_bins`` callback of ``build_mv_slots`` over a dense raw
+    bin matrix: (nonzero rows, their bins) of column j."""
+    def feature_bins(j):
+        col = raw[:, j]
+        rows = np.nonzero(col)[0]
+        return rows, col[rows]
+    return feature_bins
+
+
+def build_mv_slots(plan: BundlePlan, n: int, feature_bins) -> np.ndarray:
+    """Row-wise padded slot matrix of the multi-val pseudo-groups
+    (MultiValSparseBin analog, multi_val_sparse_bin.hpp:26): slot value
+    ``pseudo_local * 256 + offset + bin - 1``, 0-padded, a row's values
+    in feature order. Bin 0 of a pseudo-group is never encoded (offsets
+    start at 1), so padding lands where the debundle never reads.
+    ``feature_bins(j)`` -> (row ids, bins > 0) of feature j's non-default
+    rows, each row at most once. The JAX package's fill, with a feature's
+    rows advanced by one plain fancy-index add (its rows are distinct)
+    in place of ``np.add.at``."""
+    encoded = []
+    counts = np.zeros(n, np.int64)
+    for j in range(len(plan.feature_group)):
+        g = plan.feature_group[j]
+        if g < plan.mv_group_start:
+            continue
+        rows, bins = feature_bins(j)
+        rows = np.asarray(rows, np.int64)
+        encoded.append((rows, (g - plan.mv_group_start) * MV_SLOT_STRIDE
+                        + plan.feature_offset[j]
+                        + np.asarray(bins, np.int64) - 1))
+        counts += np.bincount(rows, minlength=n)
+    slots = np.zeros((n, max(int(counts.max(initial=0)), 1)), np.int32)
+    fill = np.zeros(n, np.int64)
+    for rows, enc in encoded:
+        slots[rows, fill[rows]] = enc
+        fill[rows] += 1
+    return slots

@@ -1,22 +1,29 @@
 """Constructed (binned) dataset + metadata for the PyTorch port.
 
-Port of the dense numpy construction path of
-``lightgbm_tpu/data/dataset.py`` (``Dataset.from_numpy``): the same
-bin mappers, used-feature filter, monotone/penalty resolution and EFB
-check, so both packages produce the same binned matrix from the same
-arrays. The device copy is a ``torch`` tensor on the caller's device
-(``binned_device``) instead of a lazily uploaded jax array.
+Port of ``lightgbm_tpu/data/dataset.py``: the same bin mappers,
+used-feature filter, monotone/penalty resolution and Exclusive Feature
+Bundling (``_maybe_bundle``, ``data/bundling.py``), so both packages
+produce the same binned matrix from the same arrays. After bundling the
+matrix is ``[N, G_dense]`` group columns (uint8, or uint16 when a
+singleton group keeps more than 256 bins), with the per-feature maps
+``feature_group`` / ``feature_offset`` / ``group_num_bins``; features
+that go multi-val ride the ``[N, K]`` int32 slot matrix ``mv_slots``
+(``mv_group_start`` and up are its pseudo-groups). The device copies are
+``torch`` tensors on the caller's device (``binned_device``,
+``mv_slots_device``).
 
-Forced bin bounds come from a ``forcedbins_filename`` JSON
-(``load_forced_bins``). A valid set is binned with its training set's
-mappers (``reference=``, the JAX package's ``CreateValid`` path:
-``values_to_bins`` through the same bins, no bin search), and query
+Loaders: ``from_numpy`` (a dense matrix), ``from_scipy`` (a scipy sparse
+matrix, binned from its CSC nonzeros straight into the bundled matrix:
+the raw float matrix never materializes) and ``from_file_two_round``
+(``two_round=true``: pass 1 samples rows and reads the label columns,
+pass 2 bins chunk by chunk). Forced bin bounds come from a
+``forcedbins_filename`` JSON (``load_forced_bins``). A valid set is
+binned with its training set's mappers and bundled through its plan
+(``reference=``, the JAX package's ``CreateValid`` path), and query
 groups fill ``Metadata`` (``set_query``). The features listed in
-``categorical_features`` get the categorical bin mappers (count-sorted
-categories, the 99% cut), as in the JAX package. Out of this slice
-(``NotImplementedError`` naming the ROADMAP item): EFB plans that bundle
-features or go multi-val, linear trees and the sparse / two-round /
-streaming loaders.
+``categorical_features`` get the categorical bin mappers. Out of the
+port so far (``NotImplementedError`` naming the ROADMAP item): linear
+trees (item 7.5).
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..utils.log import log_fatal, log_warning
+from ..utils.log import log_fatal, log_info, log_warning
 from .binning import (BIN_TYPE_CATEGORICAL, BIN_TYPE_NUMERICAL, BinMapper,
                       kZeroThreshold)
 
@@ -120,10 +127,20 @@ class Metadata:
         self.init_score = np.asarray(init_score, dtype=np.float64).ravel()
 
 
+def _bundle_eligible(mapper: BinMapper) -> bool:
+    """A feature EFB may share a column with: numerical, default and
+    most frequent bin 0, at most 256 bins (the sparse-feature shape)."""
+    return (mapper.bin_type == BIN_TYPE_NUMERICAL
+            and mapper.most_freq_bin == 0 and mapper.default_bin == 0
+            and mapper.num_bin <= 256)
+
+
 class Dataset:
-    """Binned dataset: a dense ``[N, F]`` bin matrix on the host (uint8,
-    or uint16 when a feature has more than 256 bins), copied to the
-    training device as a tensor on demand."""
+    """Binned dataset: a dense ``[N, G]`` bin matrix on the host (one
+    column a feature unless EFB bundled them; uint8, or uint16 when a
+    column has more than 256 bins) and, for multi-val pseudo-groups, the
+    ``[N, K]`` slot matrix, copied to the training device as tensors on
+    demand."""
 
     def __init__(self):
         self.num_data: int = 0
@@ -141,6 +158,14 @@ class Dataset:
         self.zero_as_missing: bool = False
         self.monotone_types: List[int] = []
         self.feature_penalty: List[float] = []
+        # EFB maps (None when unbundled; data/bundling.py)
+        self.feature_group: Optional[np.ndarray] = None   # [F] i32
+        self.feature_offset: Optional[np.ndarray] = None  # [F] i32
+        self.group_num_bins: Optional[np.ndarray] = None  # [G] i32
+        # multi-val pseudo-groups: slots [N, K] i32, groups >=
+        # mv_group_start have no column
+        self.mv_slots: Optional[np.ndarray] = None
+        self.mv_group_start: Optional[int] = None
         self._device_copies = {}
 
     # ------------------------------------------------------------------
@@ -158,9 +183,62 @@ class Dataset:
             self._device_copies[key] = torch.from_numpy(host).to(device)
         return self._device_copies[key]
 
+    def mv_slots_device(self, device) -> Optional[torch.Tensor]:
+        """Device copy of the multi-val slot matrix (int32 [N, K]), or
+        None without multi-val groups."""
+        if self.mv_slots is None:
+            return None
+        key = "mv:" + str(torch.device(device))
+        if key not in self._device_copies:
+            self._device_copies[key] = torch.from_numpy(
+                np.ascontiguousarray(self.mv_slots)).to(device)
+        return self._device_copies[key]
+
+    @property
+    def has_multival(self) -> bool:
+        return self.mv_slots is not None
+
+    @property
+    def is_bundled(self) -> bool:
+        return self.feature_offset is not None
+
     @property
     def num_features(self) -> int:
         return len(self.real_feature_idx)
+
+    @property
+    def num_groups(self) -> int:
+        """Histogram groups, multi-val pseudo-groups included
+        (``num_features`` when unbundled)."""
+        if self.group_num_bins is not None:
+            return len(self.group_num_bins)
+        return self.num_features
+
+    @property
+    def num_dense_groups(self) -> int:
+        """Physical matrix columns (the groups below mv_group_start)."""
+        if self.mv_group_start is not None:
+            return self.mv_group_start
+        return self.num_groups
+
+    def bundle_maps(self):
+        """(feature_group, feature_offset, group_num_bins), the identity
+        for an unbundled dataset."""
+        f = self.num_features
+        if self.feature_group is None:
+            return (np.arange(f, dtype=np.int32), np.zeros(f, np.int32),
+                    self.num_bins_array())
+        return self.feature_group, self.feature_offset, self.group_num_bins
+
+    def bundle_plan(self):
+        """The stored bundling as a ``BundlePlan`` (valid sets bundle
+        through it), or None when unbundled."""
+        if self.feature_group is None:
+            return None
+        from .bundling import BundlePlan
+        return BundlePlan(self.feature_group, self.feature_offset,
+                          len(self.group_num_bins), self.group_num_bins,
+                          mv_group_start=self.mv_group_start)
 
     def num_bin(self, inner_feature: int) -> int:
         return self.bin_mappers[self.real_feature_idx[inner_feature]].num_bin
@@ -206,16 +284,7 @@ class Dataset:
             log_fatal("Dataset data must be 2-dimensional")
         n, num_features = data.shape
         self = cls()
-        self.num_data = n
-        self.num_total_features = num_features
-        self.max_bin = config.max_bin
-        self.bin_construct_sample_cnt = config.bin_construct_sample_cnt
-        self.min_data_in_bin = config.min_data_in_bin
-        self.use_missing = config.use_missing
-        self.zero_as_missing = config.zero_as_missing
-        self.feature_names = feature_names or [
-            f"Column_{i}" for i in range(num_features)]
-
+        self._init_from_config(config, n, num_features, feature_names)
         if reference is not None:
             # valid set aligned with train (CreateValid, dataset.cpp:703)
             self._copy_layout_from(reference)
@@ -230,15 +299,32 @@ class Dataset:
         if reference is None:
             self._resolve_monotone_and_penalty(config)
         self._extract_features(data)
-        if reference is None:
-            self._check_bundles(config)
+        self._bundle_extracted(config, reference)
+        self._set_metadata(n, label, weight, group, init_score)
+        return self
+
+    def _set_metadata(self, n, label, weight, group, init_score) -> None:
         self.metadata.num_data = n
         if label is not None:
             self.metadata.set_label(label)
         self.metadata.set_weights(weight)
         self.metadata.set_query(group)
         self.metadata.set_init_score(init_score)
-        return self
+
+    def _bundle_extracted(self, config: Config, reference) -> None:
+        """After an unbundled extraction: plan and apply EFB, or for a
+        valid set apply its training set's plan."""
+        if reference is None:
+            self._maybe_bundle(config)
+        elif self.feature_group is not None:
+            from .bundling import (build_mv_slots, bundle_matrix,
+                                   dense_feature_bins)
+            plan = self.bundle_plan()
+            raw = self.binned
+            self.binned = bundle_matrix(raw, plan)
+            if plan.has_multival:
+                self.mv_slots = build_mv_slots(plan, raw.shape[0],
+                                               dense_feature_bins(raw))
 
     def _copy_layout_from(self, ref: "Dataset") -> None:
         if self.num_total_features != ref.num_total_features:
@@ -251,27 +337,44 @@ class Dataset:
         self.monotone_types = list(ref.monotone_types)
         self.feature_penalty = list(ref.feature_penalty)
         self.max_bin = ref.max_bin
+        self.feature_group = ref.feature_group
+        self.feature_offset = ref.feature_offset
+        self.group_num_bins = ref.group_num_bins
+        self.mv_group_start = ref.mv_group_start
 
     def _find_bins(self, data: np.ndarray, config: Config,
                    categorical_features: Sequence[int],
                    forced_bins: Optional[Dict[int, List[float]]]) -> None:
         n = data.shape[0]
-        sample_cnt = min(n, self.bin_construct_sample_cnt)
-        rng = np.random.RandomState(config.data_random_seed)
-        if sample_cnt < n:
-            sample_idx = np.sort(rng.choice(n, sample_cnt, replace=False))
-        else:
-            sample_idx = np.arange(n)
-        sample = np.asarray(data[sample_idx], np.float64)
-        num_features = sample.shape[1]
+        sample_idx = _sample_rows(n, self.bin_construct_sample_cnt,
+                                  config.data_random_seed)
+        self._find_bins_from_sample(np.asarray(data[sample_idx], np.float64),
+                                    n, config, categorical_features,
+                                    forced_bins)
+
+    def _find_bins_from_sample(self, sample: np.ndarray, n: int,
+                               config: Config,
+                               categorical_features: Sequence[int],
+                               forced_bins) -> None:
+        """Bin mappers from an already drawn row sample (the in-memory
+        and the two-round loaders)."""
+        cols = [sample[:, j] for j in range(sample.shape[1])]
+        self._find_bins_from_columns(
+            [c[(np.abs(c) > kZeroThreshold) | np.isnan(c)] for c in cols],
+            sample.shape[0], n, config, categorical_features, forced_bins)
+
+    def _find_bins_from_columns(self, nonzeros: List[np.ndarray],
+                                sample_cnt: int, n: int, config: Config,
+                                categorical_features: Sequence[int],
+                                forced_bins) -> None:
+        """One ``find_bin`` a column over its sampled non-zero values
+        (zeros are implicit, counted through ``sample_cnt``)."""
         cat_set = set(int(c) for c in categorical_features)
         filter_cnt = int(max(
             config.min_data_in_leaf * sample_cnt / max(n, 1), 1)) \
             if config.feature_pre_filter else 0
         self.bin_mappers = []
-        for j in range(num_features):
-            col = sample[:, j]
-            nonzero = col[(np.abs(col) > kZeroThreshold) | np.isnan(col)]
+        for j, nonzero in enumerate(nonzeros):
             mapper = BinMapper()
             mapper.find_bin(
                 nonzero, total_sample_cnt=sample_cnt,
@@ -299,32 +402,38 @@ class Dataset:
             log_warning("There are no meaningful features, as all feature "
                         "values are constant.")
 
-    def _check_bundles(self, config: Config) -> None:
-        """Run the EFB planner as the JAX package does
-        (``Dataset._maybe_bundle``) and refuse any plan that is not the
-        identity: the port's matrix has one column per feature."""
+    def _maybe_bundle(self, config: Config) -> None:
+        """EFB (FindGroups/FastFeatureBundling, dataset.cpp:41-314):
+        collapse nearly exclusive features into shared columns, and
+        overflowing sparse sets into multi-val pseudo-groups. No-op for
+        dense data (every group a singleton)."""
         if not config.enable_bundle or self.num_features < 2:
             return
-        from .bundling import plan_bundles
-        nb = self.num_bins_array()
-        eligible = np.asarray([
-            m.bin_type == BIN_TYPE_NUMERICAL and m.most_freq_bin == 0
-            and m.default_bin == 0 and m.num_bin <= 256
-            for m in (self.feature_mapper(i)
-                      for i in range(self.num_features))])
+        from .bundling import (build_mv_slots, bundle_matrix,
+                               dense_feature_bins, plan_bundles)
+        eligible = np.asarray([_bundle_eligible(self.feature_mapper(i))
+                               for i in range(self.num_features)])
         if not eligible.any():
             return
-        plan = plan_bundles(self.binned, nb, eligible,
+        plan = plan_bundles(self.binned, self.num_bins_array(), eligible,
                             sample_cnt=self.bin_construct_sample_cnt,
                             seed=config.data_random_seed)
-        if plan.num_groups < self.num_features or plan.has_multival:
-            raise NotImplementedError(
-                f"EFB would bundle {self.num_features} features into "
-                f"{plan.num_groups} columns"
-                + (" (multi-val)" if plan.has_multival else "")
-                + "; bundled and multi-val datasets are not in the "
-                "port's first slice (ROADMAP.md Queue 1 item 7). "
-                "Pass enable_bundle=false to train unbundled.")
+        if plan.num_groups >= self.num_features \
+                and not plan.has_multival:
+            return
+        log_info(f"EFB: bundled {self.num_features} features into "
+                 f"{plan.num_groups} columns"
+                 + (f" ({plan.num_groups - plan.mv_group_start} "
+                    "multi-val)" if plan.has_multival else ""))
+        raw = self.binned
+        self.binned = bundle_matrix(raw, plan)
+        if plan.has_multival:
+            self.mv_slots = build_mv_slots(plan, raw.shape[0],
+                                           dense_feature_bins(raw))
+            self.mv_group_start = plan.mv_group_start
+        self.feature_group = plan.feature_group
+        self.feature_offset = plan.feature_offset
+        self.group_num_bins = plan.group_num_bins
 
     def _resolve_monotone_and_penalty(self, config: Config) -> None:
         mt = list(config.monotone_constraints)
@@ -336,18 +445,310 @@ class Dataset:
             (fp[j] if j < len(fp) else 1.0) for j in self.real_feature_idx] \
             if fp else []
 
-    def _extract_features(self, data: np.ndarray) -> None:
-        n = data.shape[0]
-        width = max(self.num_features, 1)
+    def _empty_binned(self, n: int) -> np.ndarray:
+        """The unbundled [n, F] bin matrix to fill: uint8, or uint16 when
+        a feature has more than 256 bins."""
         max_b = max([self.num_bin(f) for f in range(self.num_features)],
                     default=2)
-        dtype = np.uint8 if max_b <= 256 else np.uint16
-        out = np.zeros((n, width), dtype=dtype)
+        return np.zeros((n, max(self.num_features, 1)),
+                        np.uint8 if max_b <= 256 else np.uint16)
+
+    def _bin_rows(self, data: np.ndarray, dtype) -> np.ndarray:
+        out = np.zeros((data.shape[0], max(self.num_features, 1)), dtype)
         for inner, orig in enumerate(self.real_feature_idx):
-            mapper = self.bin_mappers[orig]
-            out[:, inner] = mapper.values_to_bins(
+            out[:, inner] = self.bin_mappers[orig].values_to_bins(
                 np.asarray(data[:, orig], dtype=np.float64)).astype(dtype)
+        return out
+
+    def _extract_features(self, data: np.ndarray) -> None:
+        self.binned = self._bin_rows(data, self._empty_binned(0).dtype)
+
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_scipy(cls, data, config: Config,
+                   label: Optional[Sequence[float]] = None,
+                   weight: Optional[Sequence[float]] = None,
+                   init_score: Optional[Sequence[float]] = None,
+                   feature_names: Optional[List[str]] = None,
+                   categorical_features: Sequence[int] = (),
+                   forced_bins: Optional[Dict[int, List[float]]] = None,
+                   group: Optional[Sequence[int]] = None,
+                   reference: Optional["Dataset"] = None) -> "Dataset":
+        """Bin a scipy sparse matrix without densifying it (JAX
+        ``Dataset.from_scipy``; the reference's SparseBin /
+        MultiValSparseBin story): bin finding samples each CSC column's
+        stored entries (zeros implicit, as the reference's sparse
+        sampler), the EFB plan comes from the sampled rows' non-default
+        entries, and extraction writes the binned nonzeros straight into
+        the bundled matrix. Duplicate entries sum (scipy's semantics), on
+        a copy: the caller's matrix is never changed."""
+        import scipy.sparse as sp
+        if not sp.issparse(data):
+            log_fatal("Dataset.from_scipy requires a scipy.sparse matrix")
+        if config.linear_tree:
+            raise NotImplementedError(
+                "linear_tree is not in the port yet (ROADMAP.md Queue 1 "
+                "item 7.5)")
+        csc = data.tocsc()
+        if not csc.has_canonical_format:
+            if csc is data:
+                csc = csc.copy()
+            csc.sum_duplicates()
+        n, num_features = csc.shape
+        self = cls()
+        self._init_from_config(config, n, num_features, feature_names)
+        if reference is not None:
+            self._copy_layout_from(reference)
+        else:
+            self._find_bins_sparse(csc, config, categorical_features,
+                                   forced_bins)
+            self._resolve_monotone_and_penalty(config)
+        self._extract_sparse(csc, config, reference)
+        self._set_metadata(n, label, weight, group, init_score)
+        return self
+
+    def _init_from_config(self, config: Config, n: int, num_features: int,
+                          feature_names) -> None:
+        self.num_data = n
+        self.num_total_features = num_features
+        self.max_bin = config.max_bin
+        self.bin_construct_sample_cnt = config.bin_construct_sample_cnt
+        self.min_data_in_bin = config.min_data_in_bin
+        self.use_missing = config.use_missing
+        self.zero_as_missing = config.zero_as_missing
+        self.feature_names = feature_names or [
+            f"Column_{i}" for i in range(num_features)]
+
+    def _find_bins_sparse(self, csc, config: Config,
+                          categorical_features: Sequence[int],
+                          forced_bins) -> None:
+        """Per-column ``find_bin`` over the CSC nonzeros of a row sample
+        (the same rows as the dense path's sample: the same draw)."""
+        n, num_features = csc.shape
+        sample_cnt = min(n, self.bin_construct_sample_cnt)
+        in_sample = None
+        if sample_cnt < n:
+            in_sample = np.zeros(n, bool)
+            in_sample[_sample_rows(n, sample_cnt,
+                                   config.data_random_seed)] = True
+        indptr, indices, vals = csc.indptr, csc.indices, csc.data
+        nonzeros = []
+        for j in range(num_features):
+            colv = vals[indptr[j]:indptr[j + 1]]
+            if in_sample is not None:
+                colv = colv[in_sample[indices[indptr[j]:indptr[j + 1]]]]
+            colv = np.asarray(colv, np.float64)
+            nonzeros.append(colv[(np.abs(colv) > kZeroThreshold)
+                                 | np.isnan(colv)])
+        self._find_bins_from_columns(nonzeros, sample_cnt, n, config,
+                                     categorical_features, forced_bins)
+
+    def _extract_sparse(self, csc, config: Config, reference) -> None:
+        """CSC nonzeros -> the (bundled) binned matrix and slots, with no
+        [N, F] intermediate; the EFB plan comes from the row sample's
+        non-default entries (``plan_bundles_from_nonzeros``)."""
+        from .bundling import build_mv_slots, plan_bundles_from_nonzeros
+        n = csc.shape[0]
+        f_used = self.num_features
+        indptr, indices, vals = csc.indptr, csc.indices, csc.data
+        nbins = self.num_bins_array()
+        dtype = np.uint8 if int(nbins.max(initial=2)) <= 256 else np.uint16
+        zero_bin = np.zeros(max(f_used, 1), np.int64)
+        bins_nz: List[np.ndarray] = []
+        for inner, orig in enumerate(self.real_feature_idx):
+            m = self.bin_mappers[orig]
+            zero_bin[inner] = int(m.values_to_bins(np.zeros(1))[0])
+            bins_nz.append(m.values_to_bins(np.asarray(
+                vals[indptr[orig]:indptr[orig + 1]], np.float64)
+            ).astype(dtype))
+
+        def rows_of(inner):
+            orig = self.real_feature_idx[inner]
+            return indices[indptr[orig]:indptr[orig + 1]]
+
+        plan = None
+        if reference is not None:
+            plan = self.bundle_plan()
+        elif config.enable_bundle and f_used >= 2:
+            take = min(n, self.bin_construct_sample_cnt)
+            pos_of_row = None
+            if take < n:
+                rows = _sample_rows(n, take, config.data_random_seed)
+                pos_of_row = np.full(n, -1, np.int32)
+                pos_of_row[rows] = np.arange(take, dtype=np.int32)
+            nz_idx: List[Optional[np.ndarray]] = []
+            for inner in range(f_used):
+                if not _bundle_eligible(self.feature_mapper(inner)):
+                    nz_idx.append(None)
+                    continue
+                rows_j = rows_of(inner)[bins_nz[inner] != 0]
+                if pos_of_row is None:
+                    nz_idx.append(rows_j.astype(np.int32))
+                else:
+                    pos = pos_of_row[rows_j]
+                    nz_idx.append(pos[pos >= 0])
+            if any(ix is not None for ix in nz_idx):
+                cand = plan_bundles_from_nonzeros(
+                    nz_idx, nbins, take, seed=config.data_random_seed)
+                if cand.num_groups < f_used or cand.has_multival:
+                    log_info(
+                        f"EFB: bundled {f_used} sparse features into "
+                        f"{cand.num_groups} columns"
+                        + (f" ({cand.num_groups - cand.mv_group_start}"
+                           " multi-val)" if cand.has_multival else ""))
+                    plan = cand
+        g_dense = plan.num_dense_groups if plan is not None \
+            else max(f_used, 1)
+        if plan is not None:
+            max_g = int(plan.group_num_bins[:g_dense].max(initial=2))
+            dtype = np.uint8 if max_g <= 256 else np.uint16
+        out = np.zeros((n, max(g_dense, 1)), dtype)
+        for inner in range(f_used):
+            if plan is not None and plan.feature_group[inner] >= g_dense:
+                continue            # multi-val: the slot matrix below
+            rows_j, bj = rows_of(inner), bins_nz[inner]
+            if plan is None or plan.feature_offset[inner] == 0:
+                g = inner if plan is None else plan.feature_group[inner]
+                if zero_bin[inner]:
+                    out[:, g] = zero_bin[inner]
+                out[rows_j, g] = bj.astype(dtype)
+            else:
+                g = plan.feature_group[inner]
+                off = int(plan.feature_offset[inner])
+                nz = bj != 0
+                out[rows_j[nz], g] = (bj[nz].astype(np.int64) + off
+                                      - 1).astype(dtype)
         self.binned = out
+        if plan is not None and plan.has_multival:
+            def feature_bins(inner):
+                bj = bins_nz[inner]
+                nz = bj != 0
+                return rows_of(inner)[nz], bj[nz].astype(np.int64)
+            self.mv_slots = build_mv_slots(plan, n, feature_bins)
+            self.mv_group_start = plan.mv_group_start
+        if plan is not None and reference is None:
+            self.feature_group = plan.feature_group
+            self.feature_offset = plan.feature_offset
+            self.group_num_bins = plan.group_num_bins
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_file_two_round(cls, path: str, config: Config, label=None,
+                            weight=None, group=None, init_score=None,
+                            feature_names: Optional[List[str]] = None,
+                            categorical_features: Sequence[int] = (),
+                            forced_bins=None,
+                            reference: Optional["Dataset"] = None
+                            ) -> "Dataset":
+        """Two-pass file ingestion (``two_round=true``, the reference's
+        DatasetLoader::LoadFromFile two_round branch,
+        dataset_loader.cpp:201-216; JAX ``from_file_two_round``): pass 1
+        streams the file for the bin sample (the in-memory path's draw,
+        so the mappers are the same) and the label, weight and query
+        columns; pass 2 bins it chunk by chunk into the packed matrix,
+        which is then bundled. The float matrix of the whole file never
+        materializes. Explicit label/weight/group/init_score arguments
+        override the file's columns and sidecars."""
+        from .file_loader import TwoRoundLoader, _qid_to_group_sizes
+        if config.linear_tree:
+            raise NotImplementedError(
+                "linear_tree is not in the port yet (ROADMAP.md Queue 1 "
+                "item 7.5)")
+        loader = TwoRoundLoader(path, config)
+        n = loader.count_rows()
+        sample_idx = _sample_rows(n, min(n, config.bin_construct_sample_cnt),
+                                  config.data_random_seed)
+        parts, labels, weights, qids = [], [], [], []
+        r = 0
+        num_features = 0
+        for X, lab, wt, qid in loader.iter_chunks():
+            m = X.shape[0]
+            num_features = X.shape[1]
+            lo, hi = np.searchsorted(sample_idx, [r, r + m])
+            if hi > lo:
+                parts.append(X[sample_idx[lo:hi] - r])
+            labels.append(np.asarray(lab, np.float64))
+            if wt is not None:
+                weights.append(np.asarray(wt, np.float64))
+            if qid is not None:
+                qids.append(np.asarray(qid, np.float64))
+            r += m
+        if r != n:
+            log_fatal(f"two_round load of {path}: pass 1 saw {r} rows "
+                      f"but the file has {n}")
+        self = cls()
+        self._init_from_config(config, n, num_features,
+                               feature_names or loader.feature_names)
+        sample = np.concatenate(parts) if parts \
+            else np.zeros((0, num_features))
+        if reference is not None:
+            self._copy_layout_from(reference)
+        else:
+            self._find_bins_from_sample(sample, n, config,
+                                        categorical_features, forced_bins)
+            self._resolve_monotone_and_penalty(config)
+        del sample, parts
+        out = self._empty_binned(n)
+        r = 0
+        for X, _, _, _ in loader.iter_chunks():
+            out[r:r + X.shape[0]] = self._bin_rows(X, out.dtype)
+            r += X.shape[0]
+        self.binned = out
+        self._bundle_extracted(config, reference)
+        f_weight, f_group, f_init = loader.load_sidecars()
+        if label is None and labels:
+            label = np.concatenate(labels)
+        if weight is None:
+            weight = f_weight if f_weight is not None else (
+                np.concatenate(weights) if weights else None)
+        if group is None:
+            if f_group is not None:
+                group = f_group
+            elif qids:
+                group = _qid_to_group_sizes(np.concatenate(qids))
+        if init_score is None:
+            init_score = f_init
+        self._set_metadata(n, label, weight, None if group is None
+                           else np.asarray(group, np.int64), init_score)
+        log_info(f"Loaded {n} rows x {num_features} features from {path} "
+                 f"in two passes ({loader.fmt})")
+        return self
+
+
+    # ---- refused until their ROADMAP items --------------------------
+    @classmethod
+    def from_sampled_columns(cls, *args, **kwargs):
+        """The C API's streaming construction (JAX
+        ``Dataset.from_sampled_columns``, LGBM_DatasetCreateFromSampled
+        Column): ROADMAP.md Queue 1 item 12, with the C API."""
+        _refuse("from_sampled_columns (streaming ingestion)", "12")
+
+    def push_rows(self, *args, **kwargs):
+        _refuse("push_rows (streaming ingestion)", "12")
+
+    def save_binary(self, *args, **kwargs):
+        _refuse("save_binary", "7.6")
+
+    def subset(self, *args, **kwargs):
+        _refuse("Dataset.subset", "7.6")
+
+    def add_features_from(self, *args, **kwargs):
+        _refuse("add_features_from", "7.6")
+
+
+def _refuse(what: str, item: str) -> None:
+    raise NotImplementedError(
+        f"{what} is not in the port yet (ROADMAP.md Queue 1 item {item})")
+
+
+def _sample_rows(n: int, sample_cnt: int, seed: int) -> np.ndarray:
+    """The bin-construction row sample: sorted, the same draw for every
+    loader (dense, sparse, two-round) and for the EFB planner."""
+    if sample_cnt < n:
+        return np.sort(np.random.RandomState(seed).choice(
+            n, sample_cnt, replace=False))
+    return np.arange(n)
 
 
 def _max_bin_for(config: Config, feature_idx: int) -> int:

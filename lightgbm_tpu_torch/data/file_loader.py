@@ -145,21 +145,34 @@ def _parse_tokens(tokens: List[str], simple: bool) -> np.ndarray:
     return np.fromiter((atof(t) for t in tokens), np.float64, len(tokens))
 
 
-def _data_lines(path: str, skip: int) -> List[bytes]:
+def _iter_data_lines(path: str, skip: int):
     """The file's non-blank lines (blank: only spaces, tabs and carriage
     returns) without their trailing carriage returns, after skipping
     ``skip`` of them (the header)."""
     with open(path, "rb") as f:
-        raw = f.read()
-    lines = [ln.rstrip(b"\r") for ln in raw.split(b"\n")
-             if ln.strip(b" \t\r")]
-    return lines[skip:]
+        for ln in f:
+            ln = ln.rstrip(b"\n").rstrip(b"\r")
+            if not ln.strip(b" \t\r"):
+                continue
+            if skip:
+                skip -= 1
+                continue
+            yield ln
+
+
+def _data_lines(path: str, skip: int) -> List[bytes]:
+    return list(_iter_data_lines(path, skip))
 
 
 def _parse_dense(path: str, sep: str, skip: int) -> np.ndarray:
     lines = _data_lines(path, skip)
     if not lines:
         log_fatal(f"Data file {path} has no data rows")
+    return _dense_from_lines(lines, sep, path)
+
+
+def _dense_from_lines(lines: List[bytes], sep: str, path: str) -> np.ndarray:
+    """The float64 matrix of a run of CSV / TSV data lines."""
     d = sep.encode()
     cols = lines[0].count(d) + 1
     if any(ln.count(d) != cols - 1 for ln in lines):
@@ -182,6 +195,13 @@ def _parse_libsvm(path: str) -> Tuple[np.ndarray, np.ndarray]:
     lines = _data_lines(path, 0)
     if not lines:
         log_fatal(f"Data file {path} is empty")
+    return _libsvm_from_lines(lines)
+
+
+def _libsvm_from_lines(lines: List[bytes], width: Optional[int] = None
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """(dense matrix, labels) of a run of LibSVM lines; the matrix is
+    ``width`` columns wide, or as wide as its largest index + 1."""
     body = b"\n".join(lines)
     text = body.decode("latin-1")
     labels, idx, vals, counts = None, None, None, None
@@ -222,7 +242,9 @@ def _parse_libsvm(path: str) -> Tuple[np.ndarray, np.ndarray]:
         labels = np.asarray(lab, np.float64)
         idx = np.asarray(idx_l, np.int64)
         vals = np.asarray(val_l, np.float64)
-    X = np.zeros((len(labels), int(idx.max(initial=-1)) + 1))
+    if width is None:
+        width = int(idx.max(initial=-1)) + 1
+    X = np.zeros((len(labels), width))
     X[np.repeat(np.arange(len(labels)), counts), idx] = vals
     return X, labels
 
@@ -249,6 +271,27 @@ def _load_sidecar(path: str, suffixes) -> Optional[np.ndarray]:
     return None
 
 
+def _resolve_columns(config: Config, names: Optional[List[str]],
+                     total_cols: int):
+    """(label, weight, group column or None, kept feature columns) of a
+    dense file (dataset_loader.cpp:31-167)."""
+    label_idx = _resolve_column(config.label_column, names)
+    if label_idx is None:
+        label_idx = 0
+    weight_idx = _resolve_column(config.weight_column, names)
+    group_idx = _resolve_column(config.group_column, names)
+    drop = {label_idx} | set(_resolve_ignore(config.ignore_column, names))
+    drop |= {i for i in (weight_idx, group_idx) if i is not None}
+    keep = [i for i in range(total_cols) if i not in drop]
+    return label_idx, weight_idx, group_idx, keep
+
+
+def _header_names(path: str, sep: str) -> List[str]:
+    with open(path) as f:
+        head_line = f.readline().rstrip("\n")
+    return [c.strip() for c in head_line.split(sep)]
+
+
 def load_file(path: str, config: Config) -> Tuple[
         np.ndarray, Optional[np.ndarray], Optional[np.ndarray],
         Optional[np.ndarray], Optional[np.ndarray], Optional[List[str]]]:
@@ -272,23 +315,14 @@ def load_file(path: str, config: Config) -> Tuple[
     else:
         sep = "\t" if fmt == "tsv" else ","
         if config.header:
-            with open(path) as f:
-                head_line = f.readline().rstrip("\n")
-            names = [c.strip() for c in head_line.split(sep)]
+            names = _header_names(path, sep)
         mat = _parse_dense(path, sep, 1 if config.header else 0)
-        label_idx = _resolve_column(config.label_column, names)
-        if label_idx is None:
-            label_idx = 0
-        weight_idx = _resolve_column(config.weight_column, names)
-        group_idx = _resolve_column(config.group_column, names)
-        drop = {label_idx} | set(_resolve_ignore(config.ignore_column, names))
+        label_idx, weight_idx, group_idx, keep = _resolve_columns(
+            config, names, mat.shape[1])
         if weight_idx is not None:
-            drop.add(weight_idx)
             weight = mat[:, weight_idx]
         if group_idx is not None:
-            drop.add(group_idx)
             group = _qid_to_group_sizes(mat[:, group_idx])
-        keep = [i for i in range(mat.shape[1]) if i not in drop]
         label = mat[:, label_idx]
         X = mat[:, keep]
         if names is not None:
@@ -306,3 +340,98 @@ def load_file(path: str, config: Config) -> Tuple[
     log_info(f"Loaded {X.shape[0]} rows x {X.shape[1]} features "
              f"from {path} ({fmt})")
     return X, label, weight, group, init_score, names
+
+
+# data lines a two-round chunk holds (~34 MB of float64 at 64 columns)
+TWO_ROUND_CHUNK_ROWS = 65_536
+
+
+class TwoRoundLoader:
+    """Chunked text ingestion for ``two_round=true`` (JAX
+    ``data/file_loader.py:229 TwoRoundLoader``; the reference's two_round
+    branch of DatasetLoader::LoadFromFile, dataset_loader.cpp:201-216):
+    each pass streams the file ``chunk_rows`` data lines at a time, so
+    the float64 matrix of the whole file never exists. Every chunk is
+    parsed by the token rules of ``load_file`` and its columns resolved
+    the same way, so the rows equal the in-memory path's bit for bit;
+    LibSVM chunks are as wide as the file's largest index + 1 (one scan
+    of the indices first)."""
+
+    def __init__(self, path: str, config: Config,
+                 chunk_rows: Optional[int] = None):
+        if not os.path.exists(path):
+            log_fatal(f"Data file {path} does not exist")
+        self.path = path
+        self.config = config
+        self.chunk_rows = int(chunk_rows or TWO_ROUND_CHUNK_ROWS)
+        self.fmt = detect_format(path)
+        self.sep = "\t" if self.fmt == "tsv" else ","
+        self.names = _header_names(path, self.sep) \
+            if self.fmt != "libsvm" and config.header else None
+        self._cols = None     # (label, weight, group, keep) of a dense file
+        self._width = None    # a LibSVM file's matrix width
+        self.feature_names: Optional[List[str]] = None
+
+    def _line_chunks(self):
+        """The file's data lines (``_iter_data_lines``), in runs of at
+        most ``chunk_rows``."""
+        skip = 1 if self.fmt != "libsvm" and self.config.header else 0
+        run: List[bytes] = []
+        for ln in _iter_data_lines(self.path, skip):
+            run.append(ln)
+            if len(run) >= self.chunk_rows:
+                yield run
+                run = []
+        if run:
+            yield run
+
+    def count_rows(self) -> int:
+        return sum(len(run) for run in self._line_chunks())
+
+    def _resolve(self, total_cols: int) -> None:
+        self._total = total_cols
+        self._cols = _resolve_columns(self.config, self.names, total_cols)
+        if self.names is not None:
+            self.feature_names = [self.names[i] for i in self._cols[3]]
+
+    def resolve_feature_names(self) -> Optional[List[str]]:
+        """The feature columns' header names (None without a header),
+        from the first data line's column count."""
+        if self._cols is None and self.fmt != "libsvm":
+            for run in self._line_chunks():
+                self._resolve(run[0].count(self.sep.encode()) + 1)
+                break
+        return self.feature_names
+
+    def iter_chunks(self):
+        """``(X, label, weight, qid)`` a chunk in file order: ``X`` float64
+        [m, features], the rest [m] or None."""
+        if self.fmt == "libsvm":
+            if self._width is None:
+                self._width = 0
+                for run in self._line_chunks():
+                    self._width = max(self._width,
+                                      _libsvm_from_lines(run)[0].shape[1])
+            for run in self._line_chunks():
+                X, label = _libsvm_from_lines(run, self._width)
+                yield X, label, None, None
+            return
+        for run in self._line_chunks():
+            mat = _dense_from_lines(run, self.sep, self.path)
+            if self._cols is None:
+                self._resolve(mat.shape[1])
+            label_idx, weight_idx, group_idx, keep = self._cols
+            if mat.shape[1] != self._total:
+                log_fatal(f"Data file {self.path} has rows with other "
+                          f"than {self._total} columns")
+            yield (mat[:, keep], mat[:, label_idx],
+                   None if weight_idx is None else mat[:, weight_idx],
+                   None if group_idx is None else mat[:, group_idx])
+
+    def load_sidecars(self):
+        """(weight, group, init_score) from the files beside the data."""
+        weight = _load_sidecar(self.path, (".weight",))
+        group = _load_sidecar(self.path, (".query", ".group"))
+        if group is not None:
+            group = group.astype(np.int64)
+        return weight, group, _load_sidecar(self.path, (".init",))

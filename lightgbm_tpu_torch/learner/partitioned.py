@@ -36,6 +36,15 @@ the parent's row count, so they grow the same trees. The
 row order persists across trees; only the grad/hess payload is repacked
 per tree, through the row id each row carries.
 
+An EFB dataset (``data/bundling.py``) trains on its group columns: the
+matrix, the root and child histograms and the per-leaf cache are over
+the G groups, each leaf's histograms are debundled into per-feature
+ones before its scans (``ops/histogram.py:Debundler``), and a numerical
+split of a feature sharing its group partitions the group's column
+through the partition kernel's LUT route (``partition_decision_lut``).
+Bundled data always takes the per-phase loop, and a multi-val dataset
+(pseudo-groups without a column) goes to the serial learner.
+
 On a CPU device every op runs its plain PyTorch version. ``ops="plain"``
 runs the plain versions on a CUDA device too (the parity check of
 ``chip_smoke.py``); it is the caller's explicit choice, never a
@@ -58,6 +67,7 @@ from ..data.binning import (BIN_TYPE_CATEGORICAL, MISSING_NAN,
                             MISSING_NONE, MISSING_ZERO)
 from ..data.dataset import Dataset
 from ..ops.hist_cuda import build_matrix, extract_row_ids, pack_gh
+from ..ops.histogram import Debundler, debundle_leaf_hists
 from ..ops.split import (MISSING_NAN_CODE, MISSING_NONE_CODE,
                          MISSING_ZERO_CODE, FeatureMeta, SplitParams,
                          meta_tensors, per_feature_splits)
@@ -100,13 +110,14 @@ def check_slice(config: Config) -> None:
         _reject(f"tree_learner={config.tree_learner}", "Queue 1 item 8")
 
 
-def check_pool_mode(config: Config, num_features: int, num_bins_max: int,
+def check_pool_mode(config: Config, num_groups: int, num_bins_max: int,
                     num_leaves: int) -> None:
     """Refuse a ``histogram_pool_size`` too small for a cache row per
-    leaf (the JAX package's pool-bounded mode)."""
+    leaf (the JAX package's pool-bounded mode); a cache row holds the
+    histograms of the dataset's groups."""
     pool = float(config.histogram_pool_size)
     if pool > 0 and pool * 1024 * 1024 // (
-            num_features * num_bins_max * 12) < num_leaves:
+            num_groups * num_bins_max * 12) < num_leaves:
         _reject("histogram_pool_size pool mode", "Queue 1 item 7")
 
 
@@ -153,9 +164,10 @@ def dataset_has_monotone(dataset: Dataset) -> bool:
 
 def feature_meta_from_dataset(dataset: Dataset) -> FeatureMeta:
     """Static per-feature metadata (learner/serial.py of the JAX
-    package)."""
+    package), with each feature's EFB group and offset."""
     f = dataset.num_features
     mappers = [dataset.feature_mapper(i) for i in range(f)]
+    group, offset, _ = dataset.bundle_maps()
     return FeatureMeta(
         num_bins=dataset.num_bins_array(),
         missing=np.asarray([_MISSING_CODE[m.missing_type] for m in mappers],
@@ -168,7 +180,44 @@ def feature_meta_from_dataset(dataset: Dataset) -> FeatureMeta:
         penalty=np.asarray(dataset.feature_penalty, np.float32)
         if dataset.feature_penalty else np.ones(f, np.float32),
         is_categorical=np.asarray(
-            [m.bin_type == BIN_TYPE_CATEGORICAL for m in mappers], bool))
+            [m.bin_type == BIN_TYPE_CATEGORICAL for m in mappers], bool),
+        group=np.asarray(group, np.int32),
+        offset=np.asarray(offset, np.int32))
+
+
+def partition_decision_lut(imeta: np.ndarray, feat: int, thr: int,
+                           dleft: bool, is_cat: bool, bitset,
+                           bundled: bool):
+    """(column, use_lut, lut) of one split's physical partition (JAX
+    ``partition_decision_lut``, learner/partitioned.py:63-92): the
+    256-entry "column value -> goes left" table ([1, 256] f32 on the
+    host) that decodes a bundled numerical split's group column and its
+    missing rule in feature-bin space, or a categorical split's bin
+    bitset; a raw (offset 0) numerical split reads its column through
+    the threshold route (``use_lut`` False, ``lut`` None). ``imeta`` is
+    the host [F, 8] metadata table (``pack_meta_tables``)."""
+    from ..data.bundling import decode_feature_bin
+    from ..ops.partition_cuda import bitset_to_lut
+    from ..ops.split_step_cuda import (IM_DEFBIN, IM_GROUP, IM_MISS,
+                                       IM_NBINS, IM_OFFSET)
+    col = int(imeta[feat, IM_GROUP]) if bundled else int(feat)
+    off = int(imeta[feat, IM_OFFSET]) if bundled else 0
+    if is_cat:
+        return col, True, bitset_to_lut(bitset)
+    if off == 0:
+        return col, False, None
+    nbf = int(imeta[feat, IM_NBINS])
+    fbin = decode_feature_bin(np.arange(256, dtype=np.int64), off, nbf)
+    mcode = int(imeta[feat, IM_MISS])
+    if mcode == MISSING_ZERO_CODE:
+        is_miss = fbin == int(imeta[feat, IM_DEFBIN])
+    elif mcode == MISSING_NAN_CODE:
+        is_miss = fbin == nbf - 1
+    else:
+        is_miss = np.zeros(256, bool)
+    go_left = np.where(is_miss, bool(dleft), fbin <= int(thr))
+    return col, True, torch.from_numpy(
+        go_left.astype(np.float32).reshape(1, 256))
 
 
 class LeafwiseLearner:
@@ -196,21 +245,32 @@ class LeafwiseLearner:
         self.has_categorical = dataset_has_categorical(dataset)
         self.params = split_params_from_config(
             config, dataset_any_missing(dataset), self.has_categorical)
-        self.num_bins_max = int(dataset.num_bins_array().max(initial=2))
+        # the histograms are over the EFB groups (a feature a group when
+        # unbundled); the widest of a feature and a group sets B
+        _, _, group_bins = dataset.bundle_maps()
+        self.num_bins_max = max(
+            int(dataset.num_bins_array().max(initial=2)),
+            int(np.asarray(group_bins).max(initial=2)))
         if self.num_bins_max > MAX_BINS[self.LAYOUT]:
             _reject(f"{self.num_bins_max} bins per feature {self.BIN_NOTE}",
                     "Queue 1 item 4")
         self.num_leaves = int(config.num_leaves)
-        check_pool_mode(config, dataset.num_features, self.num_bins_max,
+        self.bundled = dataset.is_bundled
+        self.num_groups = dataset.num_groups
+        self.num_cols = dataset.num_dense_groups   # bin matrix columns
+        check_pool_mode(config, self.num_groups, self.num_bins_max,
                         self.num_leaves)
         self.max_depth = int(config.max_depth)
         self.num_features = dataset.num_features
         self.num_data = dataset.num_data
         self.has_monotone = dataset_has_monotone(dataset)
         self.hist = torch.zeros(
-            (self.num_leaves, self.num_features, self.num_bins_max, 3),
+            (self.num_leaves, self.num_groups, self.num_bins_max, 3),
             dtype=torch.float32, device=self.device)
         self._meta_all = meta_tensors(self.meta, self.device)
+        self._debundler = Debundler(
+            self.meta.group, self.meta.offset, self.meta.num_bins,
+            self.num_bins_max, self.device) if self.bundled else None
         self._tables_all = scan_meta_tables(self._meta_all)
         self._packed_all = pack_meta_tables(self.meta, None, self.device)
         self.pack = make_grow_pack(self.SI_PREFIX,
@@ -223,9 +283,11 @@ class LeafwiseLearner:
                 self.params, cache_hists=True, merged=True,
                 extra_trees=bool(config.extra_trees),
                 ff_bynode=float(config.feature_fraction_bynode),
+                mv_groups=self.num_groups - self.num_cols,
                 num_leaves=self.num_leaves),
             device=self.device, params=self.params,
-            num_bins_max=self.num_bins_max, layout=self.LAYOUT)
+            num_bins_max=self.num_bins_max, layout=self.LAYOUT,
+            bundled=self.bundled)
 
     def _tree_meta(self, feature_mask: Optional[np.ndarray]):
         """The scan's meta tensors and tables and the fused step's packed
@@ -240,7 +302,11 @@ class LeafwiseLearner:
         """Both children's (or the root's) per-feature table: the
         numerical scan (the kernel, or its plain version), merged with
         the categorical search when the dataset has categorical
-        features."""
+        features. An EFB dataset's group histograms are debundled into
+        per-feature histograms first (JAX partitioned.py:430-434,
+        split_step.py:425-440), each from its own leaf's totals."""
+        if self.bundled:
+            hists = debundle_leaf_hists(self._debundler, hists, leaves)
         if self.plain:
             table = per_feature_numerical_plain(hists, leaves, meta_t,
                                                 self.params)
@@ -286,12 +352,16 @@ class PartitionedTreeLearner(LeafwiseLearner):
 
     def __init__(self, dataset: Dataset, config: Config,
                  device: torch.device, ops: str = "kernel"):
+        if dataset.has_multival:
+            raise ValueError(
+                f"{type(self).__name__} needs a matrix column per group; "
+                "a multi-val dataset trains on the SerialTreeLearner")
         super().__init__(dataset, config, device, ops)
         self.mat = build_matrix(dataset.binned_device(self.device))
         self.ws = torch.empty_like(self.mat)
         self._ones = torch.ones(self.num_data, dtype=torch.float32,
                                 device=self.device)
-        self._scratch = FusedScratch(self.mat, self.num_features,
+        self._scratch = FusedScratch(self.mat, self.num_cols,
                                      self.num_bins_max) \
             if self.fused and not self.plain else None
 
@@ -299,7 +369,7 @@ class PartitionedTreeLearner(LeafwiseLearner):
     def train(self, grad: torch.Tensor, hess: torch.Tensor,
               feature_mask: Optional[np.ndarray] = None,
               bag_weight: Optional[torch.Tensor] = None):
-        f, n = self.num_features, self.num_data
+        f, n = self.num_cols, self.num_data
         meta_t, tables, imeta, fmeta = self._tree_meta(feature_mask)
         # repack the gh payload in the current row order (rows carry
         # their id), weighted (JAX partitioned.py:331-335): an
@@ -339,7 +409,7 @@ class PartitionedTreeLearner(LeafwiseLearner):
         no host read in between."""
         kw = dict(params=self.params, big_l=self.num_leaves,
                   max_depth=self.max_depth, b=self.num_bins_max,
-                  f=self.num_features, has_monotone=self.has_monotone)
+                  f=self.num_cols, has_monotone=self.has_monotone)
         args = (k, S, T, self.mat, self.ws, self.hist, imeta, fmeta)
         if self.plain:
             step = partial(fused_split_step_segment_plain, *args, **kw)
@@ -355,9 +425,9 @@ class PartitionedTreeLearner(LeafwiseLearner):
                         self.params, self.num_leaves)
         im = imeta.cpu().numpy()
         ops = segment_split_ops(
-            self.mat, self.ws, im, self.num_bins_max, self.num_features,
+            self.mat, self.ws, im, self.num_bins_max, self.num_cols,
             lambda hists, leaves: self._scan(hists, leaves, meta_t, tables),
-            plain=self.plain)
+            plain=self.plain, bundled=self.bundled)
         return st, self._grow_host(st, ops, im)
 
     def _leaf_id(self, begin: np.ndarray, cnt: np.ndarray,
@@ -372,7 +442,7 @@ class PartitionedTreeLearner(LeafwiseLearner):
             torch.as_tensor(cnt[:k][order].astype(np.int64),
                             device=self.device),
             output_size=self.num_data)
-        rids = extract_row_ids(self.mat, self.num_features,
+        rids = extract_row_ids(self.mat, self.num_cols,
                                self.num_data).long()
         return torch.empty(self.num_data, dtype=torch.int64,
                            device=self.device).scatter_(0, rids, pos_leaf)

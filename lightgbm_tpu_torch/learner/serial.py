@@ -37,9 +37,21 @@ Both loops write the same state through the same bookkeeping and build
 the histograms to the same float64-then-round rule, so they grow the
 same trees. ``leaf_id`` is returned as the loop kept it.
 
+An EFB dataset trains here on its ``[N, G_dense]`` group matrix
+through the per-phase loop (the fused kernels refuse bundled data, as
+the JAX package's compiled bodies do): ``hist_rows`` sums the group
+columns (u8, or u16 when a dense column keeps more than 256 bins), the
+split feature's bins are its group column decoded, and each leaf's
+group histograms are debundled before its scan (``LeafwiseLearner.
+_scan``). A multi-val dataset (``create_tree_learner`` sends it here)
+adds its pseudo-groups' histograms from the slot matrix
+(``ops/hist_multival_cuda.py``: the ``hist_multival`` kernel on the
+card), concatenated after the dense groups' on the group axis (JAX
+serial.py:786-800).
+
 Out of the slice (``NotImplementedError`` naming the ROADMAP item):
-more than 1024 bins, pool-bounded histogram memory, CEGB, extra trees
-and bundling (``check_slice``, shared with the partitioned learner).
+more than 1024 bins, pool-bounded histogram memory, CEGB and extra
+trees (``check_slice``, shared with the partitioned learner).
 """
 
 from __future__ import annotations
@@ -52,6 +64,8 @@ import torch
 from ..config import Config
 from ..data.dataset import Dataset
 from ..ops.hist_cuda import histogram_rows, rows_partial
+from ..ops.hist_multival_cuda import (hist_multival, hist_multival_plain,
+                                      multival_partial)
 from ..ops.histogram import build_histogram, make_ghc
 from ..ops.split_step_cuda import (LeafScratch, LeafStep,
                                    fused_split_step_leaf_plain,
@@ -75,6 +89,11 @@ class SerialTreeLearner(LeafwiseLearner):
                  device: torch.device, ops: str = "kernel"):
         super().__init__(dataset, config, device, ops)
         self.binned = dataset.binned_device(self.device)
+        # multi-val pseudo-groups: no column, their values in the slots
+        self.mv_groups = self.num_groups - self.num_cols
+        self.mv_slots = dataset.mv_slots_device(self.device)
+        self._mv_partial = multival_partial(self.mv_groups, self.device) \
+            if self.mv_groups and not self.plain else None
         self.leaf_id = torch.zeros(self.num_data, dtype=torch.int32,
                                    device=self.device)
         self._scratch = LeafScratch(self.binned, self.num_bins_max) \
@@ -87,11 +106,20 @@ class SerialTreeLearner(LeafwiseLearner):
 
     def _histogram(self, ghc: torch.Tensor) -> torch.Tensor:
         """The root histogram: the hist_rows kernel on the card, the plain
-        ``build_histogram`` on the CPU or with ``ops="plain"``."""
+        ``build_histogram`` on the CPU or with ``ops="plain"``; then the
+        multi-val groups' (``hist_multival``, or its plain version)."""
+        b = self.num_bins_max
         if self.plain:
-            return build_histogram(self.binned, ghc, self.num_bins_max)
-        return histogram_rows(self.binned, ghc, self.num_bins_max,
-                              partial=self._partial)
+            h = build_histogram(self.binned, ghc, b)
+        else:
+            h = histogram_rows(self.binned, ghc, b, partial=self._partial)
+        if not self.mv_groups:
+            return h
+        hm = hist_multival_plain(self.mv_slots, ghc, self.mv_groups, b) \
+            if self.plain else hist_multival(
+                self.mv_slots, ghc, self.mv_groups, b,
+                partial=self._mv_partial)
+        return torch.cat([h, hm])
 
     # ------------------------------------------------------------------
     def train(self, grad: torch.Tensor, hess: torch.Tensor,
@@ -142,5 +170,7 @@ class SerialTreeLearner(LeafwiseLearner):
         ops = leaf_split_ops(
             self.leaf_id, self.binned, ghc, im, self.num_bins_max,
             lambda hists, leaves: self._scan(hists, leaves, meta_t, tables),
-            partial=self._partial)
+            partial=self._partial, bundled=self.bundled,
+            mv=(self.mv_slots, self.mv_groups, self._mv_partial)
+            if self.mv_groups else None)
         return self._grow_host(st, ops, im)

@@ -339,12 +339,12 @@ class GBDT:
         and/or every valid set's, by its bin-space walk."""
         if train:
             tree.predict_binned_add(self.train_score, tid,
-                                    self.train_data.binned_device(
-                                        self.device))
+                                    *_walk_inputs(self.train_data,
+                                                  self.device))
         if valid:
             for vd, vs in zip(self.valid_sets, self.valid_scores):
                 tree.predict_binned_add(vs, tid,
-                                        vd.binned_device(self.device))
+                                        *_walk_inputs(vd, self.device))
 
     def _update_scores(self, tree: Tree, leaf_id: torch.Tensor,
                        tid: int) -> None:
@@ -355,7 +355,7 @@ class GBDT:
                                device=self.device)
         self.train_score[:, tid] += vals[leaf_id]
         for vd, vs in zip(self.valid_sets, self.valid_scores):
-            tree.predict_binned_add(vs, tid, vd.binned_device(self.device))
+            tree.predict_binned_add(vs, tid, *_walk_inputs(vd, self.device))
 
     # ------------------------------------------------------------------
     def eval_sets(self, jobs) -> List[Tuple[str, str, float, bool]]:
@@ -449,3 +449,9 @@ class GBDT:
                 break
             if has_eval and self._eval_and_check_early_stopping():
                 break
+
+
+def _walk_inputs(dataset: Dataset, device):
+    """A dataset's bin matrix and multi-val slots (None without
+    multi-val groups) on ``device``: the bin walk's inputs."""
+    return dataset.binned_device(device), dataset.mv_slots_device(device)

@@ -111,6 +111,12 @@ class Tree:
             self.num_bin = np.asarray([m.num_bin for m in mappers], np.int32)
             self.default_bin = np.asarray([m.default_bin for m in mappers],
                                           np.int32)
+            # EFB: each node's physical column (its feature's group; a
+            # multi-val pseudo-group at or past the matrix's width) and
+            # value offset (0 = raw bins)
+            grp, off, _ = dataset.bundle_maps()
+            self.col = np.asarray(grp, np.int32)[sfi]
+            self.offset = np.asarray(off, np.int32)[sfi]
             # categorical: raw category values on the left side
             for i, m in enumerate(mappers):
                 if self.decision_type[i] & kCategoricalMask:
@@ -122,6 +128,8 @@ class Tree:
             self.missing_code = np.zeros(len(self.split_feature), np.int32)
             self.num_bin = np.zeros(len(self.split_feature), np.int32)
             self.default_bin = np.zeros(len(self.split_feature), np.int32)
+            self.col = self.split_feature_inner.copy()
+            self.offset = np.zeros(len(self.split_feature), np.int32)
 
     # ------------------------------------------------------------------
     def shrink(self, rate: float) -> None:
@@ -192,10 +200,36 @@ class Tree:
                 and int(v) in set(self.cat_threshold[nodes[i]].tolist())
         return np.where(is_cat, cat, numeric)
 
-    def predict_leaf_index_binned(self, binned: np.ndarray) -> np.ndarray:
-        """Leaf index per row of a train-aligned BINNED matrix."""
+    def _check_mv(self, g_dense: int, mv_slots) -> None:
+        if mv_slots is None and (self.col >= g_dense).any():
+            raise ValueError("the tree splits on multi-val pseudo-groups; "
+                             "a bin-space walk needs the dataset's "
+                             "mv_slots matrix")
+
+    def predict_leaf_index_binned(self, binned: np.ndarray,
+                                  mv_slots: Optional[np.ndarray] = None
+                                  ) -> np.ndarray:
+        """Leaf index per row of a train-aligned BINNED matrix (its EFB
+        group columns, and ``mv_slots`` for multi-val features; JAX
+        ``predict_leaf_index_binned``)."""
+        from ..data.bundling import MV_SLOT_STRIDE, decode_feature_bin
+        g_dense = binned.shape[1]
+        if self.num_leaves > 1:
+            self._check_mv(g_dense, mv_slots)
+
         def decide(idx, nd):
-            b = binned[idx, self.split_feature_inner[nd]].astype(np.int64)
+            col = self.col[nd]
+            b = decode_feature_bin(
+                binned[idx, np.clip(col, 0, g_dense - 1)].astype(np.int64),
+                self.offset[nd], self.num_bin[nd])
+            if mv_slots is not None and (col >= g_dense).any():
+                base = ((col.astype(np.int64) - g_dense) * MV_SLOT_STRIDE
+                        + self.offset[nd])[:, None]
+                sl = mv_slots[idx]
+                inr = (sl >= base) & (sl < base + self.num_bin[nd][:, None]
+                                      - 1)
+                b = np.where(col >= g_dense,
+                             np.where(inr, sl - base + 1, 0).sum(axis=1), b)
             miss = self.missing_code[nd]
             dleft = (self.decision_type[nd] & kDefaultLeftMask) != 0
             is_missing = np.where(
@@ -208,39 +242,52 @@ class Tree:
             return np.where(is_cat, bit == 1, go_left)
         return self._walk(binned.shape[0], decide)
 
-    def predict_binned_add(self, score, tid: int, binned) -> None:
+    def predict_binned_add(self, score, tid: int, binned,
+                           mv_slots=None) -> None:
         """``score[:, tid] += `` each row's float32 leaf value, for a
-        train-aligned binned matrix on the device ([N, F] uint8, or the
-        int16 bits of uint16 bins): the bin-space walk of
-        ``predict_leaf_index_binned`` (the JAX package's
+        train-aligned binned matrix on the device ([N, G] uint8, or the
+        int16 bits of uint16 bins; with EFB the group columns, and
+        ``mv_slots`` [N, K] int32 for multi-val features): the bin-space
+        walk of ``predict_leaf_index_binned`` (the JAX package's
         ``_traverse_binned_add_jax``) for exactly the tree's depth in
         steps, known on the host, so the device is never read."""
         import torch
+        from ..data.bundling import decode_feature_bin
+        from ..ops.histogram import multival_node_bins
         vals = torch.as_tensor(self.leaf_value.astype(np.float32),
                                device=score.device)
         if self.num_leaves <= 1:
             score[:, tid] += vals[0]
             return
         self.ensure_leaf_depth()
+        n, g_dense = binned.shape
+        self._check_mv(g_dense, mv_slots)
         nodes = np.stack([
-            self.split_feature_inner, self.threshold_bin,
+            self.col, self.offset, self.threshold_bin,
             (self.decision_type & kDefaultLeftMask) != 0, self.left_child,
             self.right_child, self.missing_code, self.default_bin,
             self.num_bin,
             self.decision_type & kCategoricalMask]).astype(np.int64)
-        col, thr, dleft, left, right, miss, dbin, nbin, iscat = \
+        col, off, thr, dleft, left, right, miss, dbin, nbin, iscat = \
             torch.as_tensor(nodes, device=score.device)
         has_cat = bool((self.decision_type & kCategoricalMask).any())
+        bundled = bool((self.offset > 0).any())
+        has_mv = bool((self.col >= g_dense).any())
         words = torch.as_tensor(self.cat_bitsets.astype(np.int64),
                                 device=score.device) if has_cat else None
-        n, f = binned.shape
         flat = binned.reshape(-1)
-        base = torch.arange(n, device=score.device) * f
+        base = torch.arange(n, device=score.device) * g_dense
         node = torch.zeros(n, dtype=torch.int64, device=score.device)
         for _ in range(int(self.leaf_depth.max())):
             internal = node >= 0
             nd = torch.where(internal, node, torch.zeros_like(node))
-            b = flat[base + col[nd]].to(torch.int64)
+            c = col[nd]
+            b = flat[base + c.clamp(max=g_dense - 1)].to(torch.int64)
+            if bundled:
+                b = decode_feature_bin(b, off[nd], nbin[nd])
+            if has_mv:
+                b = torch.where(c >= g_dense, multival_node_bins(
+                    mv_slots, c, off[nd], nbin[nd], g_dense), b)
             m = miss[nd]
             is_missing = torch.where(m == 1, b == dbin[nd],
                                      (m == 2) & (b == nbin[nd] - 1))

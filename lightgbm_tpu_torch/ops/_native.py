@@ -43,7 +43,7 @@ _COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"hist_segment": 0, "partition_segment": 0, "split_scan": 0,
             "fused_split_step_segment": 0, "fused_split_step_leaf": 0,
-            "hist_rows": 0, "tree_shap": 0}
+            "hist_rows": 0, "tree_shap": 0, "hist_multival": 0}
 # launches of a kernel's route, counted beside LAUNCHES: the partition's
 # LUT route (categorical splits)
 ROUTE_LAUNCHES = {"partition_segment_lut": 0}
@@ -103,6 +103,9 @@ _SIGNATURES = {
     # the same, then times (u64 [grid, 4]), stream
     "ltt_hist_rows_timed": [_I, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P,
                             _P, _P],
+    # slots, K, ghc, ids (or null: all rows), count, g_mv, B,
+    # max_chunks, partial, out, stream
+    "ltt_hist_multival": [_P, _I, _P, _P, _L, _I, _I, _I, _P, _P, _P],
     # x, n, F, nfeat, nthr, nflags, ncat_off, ncat_len, cats, pbegin,
     # pvalue, pcls, efeat, ezero, ecbegin, cnode, cleft, expected, k,
     # short_paths, num_short, group, long_paths, num_long, long_threads,

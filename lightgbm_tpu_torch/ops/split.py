@@ -26,7 +26,7 @@ does, and widens the table by the flag and the left-side bin bitset
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -56,6 +56,10 @@ class FeatureMeta(NamedTuple):
     monotone: np.ndarray       # int32 in {-1, 0, +1}
     penalty: np.ndarray        # float32
     is_categorical: np.ndarray  # bool
+    # EFB: each feature's histogram group and value offset (0 = raw
+    # bins); None means unbundled (the identity)
+    group: Optional[np.ndarray] = None   # int32
+    offset: Optional[np.ndarray] = None  # int32
 
 
 class SplitParams(NamedTuple):
@@ -404,7 +408,8 @@ def best_split_numerical(hist, parent_g, parent_h, parent_c, meta_t,
 
 
 def meta_tensors(meta: FeatureMeta, device, feature_mask=None) -> dict:
-    """Per-feature metadata as tensors for the scans. ``fmask`` is
+    """Per-feature metadata as tensors for the scans (and, ``group`` and
+    ``offset``, for the debundle). ``fmask`` is
     numerical-and-in-mask as float (the kernel's fmeta column);
     ``is_cat`` the categorical flag and ``catmask`` categorical, in the
     mask and at most 256 bins (the widest bitset), both bool, for the
@@ -417,7 +422,12 @@ def meta_tensors(meta: FeatureMeta, device, feature_mask=None) -> dict:
                                  <= 32 * MAX_CAT_WORDS)
     as_t = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt,  # noqa: E731
                                          device=device)
+    f = len(is_cat)
     return dict(
+        group=as_t(np.arange(f) if meta.group is None else meta.group,
+                   torch.int64),
+        offset=as_t(np.zeros(f) if meta.offset is None else meta.offset,
+                    torch.int64),
         num_bins=as_t(meta.num_bins, torch.int32),
         missing=as_t(meta.missing, torch.int32),
         default_bin=as_t(meta.default_bin, torch.int32),

@@ -56,7 +56,7 @@ from .hist_cuda import (histogram_rows, histogram_segment,
                         histogram_segment_plain, leaf_bin_bytes,
                         leaf_feat_tile, matrix_cols, max_chunks,
                         payload_offset)
-from .partition_cuda import (PART_THREADS, bitset_to_lut, partition_segment,
+from .partition_cuda import (PART_THREADS, partition_segment,
                              partition_segment_plain)
 from .histogram import build_histogram
 from .partition import split_leaf
@@ -96,9 +96,11 @@ def pack_meta_tables(meta: FeatureMeta, feature_mask=None, device="cpu"):
     mask = ~is_cat
     if feature_mask is not None:
         mask = mask & np.asarray(feature_mask, bool)
+    group = np.arange(f) if meta.group is None else meta.group
+    offset = np.zeros(f) if meta.offset is None else meta.offset
     imeta = np.stack([meta.num_bins, meta.missing, meta.default_bin,
-                      meta.most_freq_bin, meta.monotone, np.arange(f),
-                      np.zeros(f), is_cat], axis=1).astype(np.int32)
+                      meta.most_freq_bin, meta.monotone, group, offset,
+                      is_cat], axis=1).astype(np.int32)
     fmeta = np.stack([meta.penalty, mask], axis=1).astype(np.float32)
     return (torch.as_tensor(imeta, device=device),
             torch.as_tensor(fmeta, device=device))
@@ -124,21 +126,23 @@ def fused_compiled_ok(params, *, bundled: bool, num_bins_max: int,
 def learner_fused_kernel_on(mode: str, *, eligible: bool,
                             device: torch.device, params,
                             num_bins_max: int,
-                            layout: str = "segment") -> bool:
+                            layout: str = "segment",
+                            bundled: bool = False) -> bool:
     """The fused-step gate of one learner, decided before training from
     the resolved mode ("on" / "off" / "auto"), the learner's static
     eligibility, and for "auto" a CUDA device within
     ``fused_compiled_ok``'s scope ("auto" is off on the CPU). A dataset
-    with categorical features always takes the per-phase loop: the JAX
-    package's compiled fused bodies refuse categorical data, and the
-    kernels here do the same."""
-    if mode == "off" or not eligible \
+    with categorical features, or an EFB-bundled one, always takes the
+    per-phase loop, even with "on": the JAX package's compiled fused
+    bodies refuse such data (split_step_pallas.py:470-475, 584-589,
+    642-649), and the kernels here do the same."""
+    if mode == "off" or not eligible or bundled \
             or getattr(params, "has_categorical", False):
         return False
     if mode == "on":
         return True
     return torch.device(device).type == "cuda" and fused_compiled_ok(
-        params, bundled=False, num_bins_max=num_bins_max, layout=layout)
+        params, bundled=bundled, num_bins_max=num_bins_max, layout=layout)
 
 
 class FusedScratch:
@@ -188,29 +192,36 @@ def segment_histogram(mat, begin, count, b: int, f: int, *, plain: bool,
 
 
 def segment_split_ops(mat, ws, imeta: np.ndarray, b: int, f: int, scan, *,
-                      plain: bool, histogram: Optional[Callable] = None):
+                      plain: bool, histogram: Optional[Callable] = None,
+                      bundled: bool = False):
     """``SplitOps`` of the segment layout: the split is a stable
     partition of the leaf's segment (``partition_segment``, or with
-    ``plain`` its plain version; a categorical split goes through the
-    LUT route with the site's bin bitset, as the JAX package's
-    ``partition_decision_lut``), the smaller child's histogram comes
-    from its segment (sized by the parent's row count; the kernel cuts
-    its chunks from the child's own count on the device), and the child
-    segments travel as the extra int state fields. ``histogram(mat,
-    begin, count, max_count)`` replaces the child's histogram when given
-    (host bounds). ``imeta`` is the host [F, 8] metadata table."""
+    ``plain`` its plain version; the column and route come from
+    ``learner/partitioned.py:partition_decision_lut``: a categorical
+    split, and with ``bundled`` a numerical split of a feature sharing
+    its EFB group, go through the LUT route on the group's column), the
+    smaller child's histogram comes from its segment (sized by the
+    parent's row count; the kernel cuts its chunks from the child's own
+    count on the device), and the child segments travel as the extra
+    int state fields. ``f`` is the matrix's bin columns (the groups).
+    ``histogram(mat, begin, count, max_count)`` replaces the child's
+    histogram when given (host bounds). ``imeta`` is the host [F, 8]
+    metadata table."""
+    from ..learner.partitioned import partition_decision_lut
     from ..learner.split_step import SplitOps
     part_fn = partition_segment_plain if plain else partition_segment
 
     def partition(site, leaf, new):
         feat, cnt = int(site["bs_feat"]), int(site["leaf_cnt"])
-        is_cat = bool(site["bs_iscat"])
-        lut = bitset_to_lut(site["bs_bitset"]).to(mat.device) \
-            if is_cat else None
-        seg = part_fn(mat, ws, int(site["leaf_begin"]), cnt, feat,
-                      int(site["bs_thr"]), bool(site["bs_dleft"]),
-                      int(imeta[feat, IM_MISS]), int(imeta[feat, IM_DEFBIN]),
-                      int(imeta[feat, IM_NBINS]), is_cat, lut)
+        thr, dleft = int(site["bs_thr"]), bool(site["bs_dleft"])
+        col, use_lut, lut = partition_decision_lut(
+            imeta, feat, thr, dleft, bool(site["bs_iscat"]),
+            site["bs_bitset"], bundled)
+        seg = part_fn(mat, ws, int(site["leaf_begin"]), cnt, col, thr,
+                      dleft, int(imeta[feat, IM_MISS]),
+                      int(imeta[feat, IM_DEFBIN]),
+                      int(imeta[feat, IM_NBINS]), use_lut,
+                      None if lut is None else lut.to(mat.device))
         return seg, cnt
 
     def child_histogram(part, small_left):
@@ -413,20 +424,50 @@ class LeafScratch:
 
 
 def leaf_split_ops(lid, binned, ghc, imeta: np.ndarray, b: int, scan,
-                   partial: Optional[torch.Tensor] = None):
+                   partial: Optional[torch.Tensor] = None, *,
+                   bundled: bool = False, mv: Optional[tuple] = None):
     """``SplitOps`` of the leaf layout: the split relabels ``lid`` in
-    place (``split_leaf``); the smaller child's histogram is, with
-    ``partial`` (the kernel's float64 scratch: the card), the
-    ``hist_rows`` kernel over the child's row ids in row order, else
-    ``build_histogram`` over masked ghc (the plain version, the JAX
-    twin's formulation; rows with zero ghc add nothing, so the two are
-    the same function); ``scan`` is given (the scan kernel or its plain
-    version). ``imeta`` is the host [F, 8] metadata table."""
+    place (``split_leaf``) from the split feature's bins: its column, or
+    with ``bundled`` its EFB group's column decoded
+    (``decode_feature_bin``), or for a multi-val feature its bins read
+    from the slots of the leaf's rows (``multival_feature_bins``; JAX
+    serial.py:1084-1108 decodes every row).
+    The smaller child's histogram is, with ``partial`` (the kernel's
+    float64 scratch: the card), the ``hist_rows`` kernel over the child's
+    row ids in row order, else ``build_histogram`` over masked ghc (the
+    plain version, the JAX twin's formulation; rows with zero ghc add
+    nothing, so the two are the same function); with ``mv`` = (slots,
+    G_mv, the kernel's multi-val partials or None for the plain
+    version) the multi-val groups' histogram of the same rows
+    (``hist_multival``) follows on the group axis. ``scan`` is given
+    (the scan kernel or its plain version). ``imeta`` is the host [F, 8]
+    metadata table."""
     from ..learner.split_step import SplitOps
+    from ..data.bundling import MV_SLOT_STRIDE, decode_feature_bin
+    from .hist_multival_cuda import hist_multival, hist_multival_plain
+    from .histogram import multival_feature_bins
+    g_dense = binned.shape[1]
+
+    def bin_column(f: int, leaf: int) -> torch.Tensor:
+        if not bundled:
+            return binned[:, f]
+        grp, off = int(imeta[f, IM_GROUP]), int(imeta[f, IM_OFFSET])
+        nbf = int(imeta[f, IM_NBINS])
+        if grp < g_dense:
+            return decode_feature_bin(binned[:, grp].long(), off, nbf)
+        # a multi-val feature's bins from the slots of the leaf's rows
+        # only: split_leaf reads no other row's bin
+        rows = torch.nonzero(lid == leaf).flatten()
+        col = torch.zeros(lid.shape[0], dtype=torch.int64,
+                          device=lid.device)
+        col[rows] = multival_feature_bins(
+            mv[0].index_select(0, rows),
+            (grp - g_dense) * MV_SLOT_STRIDE + off, nbf)
+        return col
 
     def partition(site, leaf, new):
         f = int(site["bs_feat"])
-        lid.copy_(split_leaf(lid, binned[:, f], leaf, new,
+        lid.copy_(split_leaf(lid, bin_column(f, leaf), leaf, new,
                              int(site["bs_thr"]), bool(site["bs_dleft"]),
                              int(imeta[f, IM_MISS]),
                              int(imeta[f, IM_DEFBIN]),
@@ -436,11 +477,23 @@ def leaf_split_ops(lid, binned, ghc, imeta: np.ndarray, b: int, scan,
 
     def histogram(part, small_left):
         small = part[0] if small_left else part[1]
+        in_small = lid == small
         if partial is not None:
-            ids = torch.nonzero(lid == small).flatten().to(torch.int32)
-            return histogram_rows(binned, ghc, b, ids, partial=partial)
-        return build_histogram(binned, ghc * (lid == small).to(
-            ghc.dtype)[:, None], b)
+            ids = torch.nonzero(in_small).flatten().to(torch.int32)
+            h = histogram_rows(binned, ghc, b, ids, partial=partial)
+        else:
+            ids = None
+            h = build_histogram(binned, ghc * in_small.to(ghc.dtype)[:, None],
+                                b)
+        if mv is None:
+            return h
+        slots, g_mv, mv_partial = mv
+        if mv_partial is not None:
+            hm = hist_multival(slots, ghc, g_mv, b, ids, partial=mv_partial)
+        else:
+            hm = hist_multival_plain(slots, ghc, g_mv, b, torch.nonzero(
+                in_small).flatten())
+        return torch.cat([h, hm])
 
     return SplitOps(partition=partition, histogram=histogram, scan=scan,
                     extra_i=lambda part: ({}, {}))

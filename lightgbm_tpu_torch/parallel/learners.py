@@ -9,9 +9,11 @@ serial (``leaf_id``) learner otherwise; ``partitioned`` always gives the
 partitioned learner. On the CPU, which stands in for the card in the
 tests, the JAX package sends ``serial`` to its ``SerialTreeLearner``
 whatever the bins; this is the one place where the port departs from the
-JAX package's CPU routing. Lazy CEGB and multi-val datasets, which pin
-the JAX package's serial learner too, are outside the port's slices and
-are refused by the learners. The data, feature and voting learners are
+JAX package's CPU routing. A multi-val dataset (EFB pseudo-groups
+without a matrix column) pins the serial learner, as in the JAX package
+(``learners.py:641, 655``); ``partitioned`` refuses it. Lazy CEGB, which
+pins the JAX package's serial learner too, is outside the port's slices
+and refused by the learners. The data, feature and voting learners are
 ROADMAP Queue 1 item 8.
 """
 
@@ -31,6 +33,7 @@ def create_tree_learner(learner_type: str, dataset: Dataset, config: Config,
     if learner_type not in ("serial", "partitioned"):
         _reject(f"tree_learner={learner_type}", "Queue 1 item 8")
     fits_u8 = int(dataset.num_bins_array().max(initial=2)) <= 256
-    if learner_type == "partitioned" or fits_u8:
+    if learner_type == "partitioned" or (fits_u8
+                                         and not dataset.has_multival):
         return PartitionedTreeLearner(dataset, config, device, ops=ops)
     return SerialTreeLearner(dataset, config, device, ops=ops)

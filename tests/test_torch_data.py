@@ -77,6 +77,11 @@ def test_dense_matrix_forms_no_bundle():
 
 
 def test_sparse_matrix_that_would_bundle_is_rejected():
+    """Mutually exclusive sparse columns, once refused, now bundle (EFB,
+    ROADMAP.md Queue 1 item 7.3) into the JAX package's columns;
+    ``enable_bundle=false`` keeps one column a feature."""
+    from lightgbm_tpu.config import Config as JConfig
+    from lightgbm_tpu.data.dataset import Dataset as JDataset
     rng = np.random.RandomState(4)
     n = 2000
     X = np.zeros((n, 6))
@@ -84,10 +89,14 @@ def test_sparse_matrix_that_would_bundle_is_rejected():
         rows = np.arange(j, n, 6)
         X[rows, j] = rng.rand(len(rows)) + 1.0
     cfg = Config.from_params({"verbosity": -1})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        Dataset.from_numpy(X, cfg)
+    tds = Dataset.from_numpy(X, cfg)
+    jds = JDataset.from_numpy(X, JConfig.from_params({"verbosity": -1}))
+    assert tds.is_bundled and tds.binned.shape[1] < 6
+    np.testing.assert_array_equal(tds.binned, jds.binned)
+    np.testing.assert_array_equal(tds.feature_offset, jds.feature_offset)
     off = Config.from_params({"verbosity": -1, "enable_bundle": False})
     assert Dataset.from_numpy(X, off).num_features == 6
+    assert Dataset.from_numpy(X, off).binned.shape == (n, 6)
 
 
 @pytest.mark.parametrize("max_bin", [255, 15])

@@ -901,3 +901,130 @@ def test_lut_partition_matches_plain(dev, mat):
                                  True, lut)
     assert _native.ROUTE_LAUNCHES["partition_segment_lut"] == before + 1
     assert torch.equal(sa, sb) and torch.equal(a, b)
+
+
+# ---- EFB, multi-val ----------------------------------------------------
+
+def _bosch_slots(n, seed=3):
+    """A Bosch-shaped multi-val dataset's slots (``torch_efb_data``)."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.data.dataset import Dataset
+    from torch_efb_data import bosch_like
+    X, y = bosch_like(n=n, f=200, seed=seed)
+    ds = Dataset.from_numpy(X, Config.from_params({"verbosity": -1}),
+                            label=y)
+    assert ds.has_multival
+    return ds
+
+
+@pytest.mark.parametrize("b", [64, 256, 300])
+@pytest.mark.parametrize("case", ["all", "third", "one_row", "empty",
+                                  "one_chunk"])
+def test_hist_multival_kernel_matches_plain(dev, b, case):
+    """The multi-val histogram kernel against its plain version on the
+    card, over all rows and over row lists: max abs err 0."""
+    from lightgbm_tpu_torch.ops import _native
+    from lightgbm_tpu_torch.ops import hist_multival_cuda as hm
+    ds = _bosch_slots(30_000)
+    g_mv = ds.num_groups - ds.num_dense_groups
+    slots = ds.mv_slots_device(dev)
+    n = slots.shape[0]
+    g = torch.Generator(device=dev).manual_seed(4)
+    ghc = torch.stack([torch.randn(n, generator=g, device=dev),
+                       torch.rand(n, generator=g, device=dev),
+                       torch.ones(n, device=dev)], 1).contiguous()
+    ids = {"all": None,
+           "third": torch.randperm(n, generator=g, device=dev)[:n // 3],
+           "one_row": torch.tensor([n - 1], device=dev),
+           "empty": torch.zeros(0, dtype=torch.int64, device=dev),
+           "one_chunk": torch.arange(hm.chunk_rows(slots.shape[1]),
+                                     device=dev)}[case]
+    if ids is not None:
+        ids = ids.sort().values.to(torch.int32)
+    before = _native.LAUNCHES["hist_multival"]
+    out = hm.hist_multival(slots, ghc, g_mv, b, ids)
+    ref = hm.hist_multival_plain(slots, ghc, g_mv, b, ids)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES["hist_multival"] == before + 1
+    assert out.shape == (g_mv, b, 3)
+    assert torch.equal(out, ref)
+    assert torch.equal(out, hm.hist_multival(slots, ghc, g_mv, b, ids))
+
+
+def test_group_matrix_histogram_and_bundled_lut_partition(dev):
+    """On a bundled dataset's group matrix: the segment histogram kernel
+    against its plain version, and a bundled numerical split's LUT
+    partition (``partition_decision_lut``) against its plain version."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.data.dataset import Dataset
+    from lightgbm_tpu_torch.learner.partitioned import (
+        feature_meta_from_dataset, partition_decision_lut)
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops.split_step_cuda import pack_meta_tables
+    from torch_efb_data import sparse_problem
+    X, y = sparse_problem(n=40_000, f=60)
+    ds = Dataset.from_numpy(X, Config.from_params({"verbosity": -1}),
+                            label=y)
+    g_cols = ds.binned.shape[1]
+    b = int(max(ds.num_bins_array().max(), ds.group_num_bins.max()))
+    m = hc.build_matrix(ds.binned_device(dev))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n = m.shape[0]
+    hc.pack_gh(m, g_cols, torch.randn(n, generator=gen, device=dev),
+               torch.rand(n, generator=gen, device=dev),
+               torch.ones(n, device=dev))
+    for begin, count in ((0, n), (11, 9_999)):
+        out = hc.histogram_segment(m, begin, count, b, g_cols)
+        ref = hc.histogram_segment_plain(m, begin, count, b, g_cols)
+        scale = hc.histogram_segment_plain(m, begin, count, b, g_cols,
+                                           absolute=True)
+        assert bool(((out - ref).abs() <= 1e-5 * scale + 1e-6).all())
+    imeta = pack_meta_tables(feature_meta_from_dataset(ds))[0].numpy()
+    feat = int(np.flatnonzero(ds.feature_offset > 1)[0])
+    col, use_lut, lut = partition_decision_lut(
+        imeta, feat, 1, True, False, np.zeros(8, np.uint32), True)
+    assert use_lut and col == ds.feature_group[feat]
+    _partition_pair(m, 5, n - 10, (col, 1, 1, int(imeta[feat, 1]),
+                                   int(imeta[feat, 2]), b, True),
+                    lut.to(dev))
+
+
+@pytest.mark.parametrize("case", ["partitioned_255", "serial_600",
+                                  "multival"])
+def test_bundled_training_kernels_match_plain(dev, case):
+    """EFB training through the kernels against the same run through
+    the plain versions on the card: the same trees and leaf values to
+    the bit; the bundled splits take the partition's LUT route, and a
+    multi-val dataset launches the multi-val histogram kernel."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import _native
+    from torch_efb_data import bosch_like, sparse_problem
+    if case == "multival":
+        X, y = bosch_like(n=30_000, f=200)
+        p = {"max_bin": 63}
+    else:
+        X, y = sparse_problem(n=30_000, f=60)
+        p = {"max_bin": 255 if case == "partitioned_255" else 600}
+    p.update(objective="binary", num_leaves=15, verbosity=-1,
+             learning_rate=0.2, min_data_in_leaf=5)
+    _native.reset_launch_counts()
+    kb = lt.train(p, lt.Dataset(X, label=y), 3, device=dev)
+    launches = dict(_native.LAUNCHES)
+    lut = _native.ROUTE_LAUNCHES["partition_segment_lut"]
+    pb = lt.train(p, lt.Dataset(X, label=y), 3, device=dev, ops="plain")
+    td = kb._gbdt.train_data
+    assert td.is_bundled and not kb._gbdt.learner.fused
+    if case == "partitioned_255":
+        bundled_nodes = sum(int((td.feature_offset[
+            t.split_feature_inner[:t.num_leaves - 1]] > 0).sum())
+            for t in kb.models)
+        assert lut == bundled_nodes > 0
+    if case == "multival":
+        assert launches["hist_multival"] > 0
+    for a, b in zip(kb.models, pb.models):
+        assert a.num_leaves == b.num_leaves
+        for name in ("split_feature_inner", "threshold_bin",
+                     "decision_type", "left_child", "right_child"):
+            np.testing.assert_array_equal(getattr(a, name),
+                                          getattr(b, name), err_msg=name)
+        np.testing.assert_array_equal(a.leaf_value, b.leaf_value)

@@ -388,15 +388,35 @@ def test_prediction_refusals_name_queue_1_item_6(trained, kwargs):
 
 
 def test_data_refusals_name_their_items(tmp_path):
+    """``two_round`` files and sparse matrices train (ROADMAP.md Queue 1
+    item 7.3, once refused here) as their in-memory dense forms do; what
+    is still refused names its item: the binary cache, subsets and
+    feature appends (7.6), streaming ingestion (12)."""
     X, y = _data(n=300)
     path = str(tmp_path / "train.csv")
     np.savetxt(path, np.column_stack([y, X]), delimiter=",", fmt="%.17g")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7.3"):
-        lt.train(dict(PARAMS, two_round=True), lt.Dataset(path), 1,
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7.3"):
-        lt.train(PARAMS, lt.Dataset(sp.csr_matrix(np.nan_to_num(X)),
-                                    label=y), 1, device="cpu")
+    dense = lt.train(PARAMS, lt.Dataset(path), 1, device="cpu")
+    two = lt.train(dict(PARAMS, two_round=True), lt.Dataset(path), 1,
+                   device="cpu")
+    # the same trees; the texts differ in the params echo alone
+    assert two.model_to_string().split("parameters:")[0] \
+        == dense.model_to_string().split("parameters:")[0]
+    Xz = np.nan_to_num(X)
+    sparse = lt.train(PARAMS, lt.Dataset(sp.csr_matrix(Xz), label=y), 1,
+                      device="cpu")
+    np.testing.assert_array_equal(
+        sparse.predict(Xz, raw_score=True),
+        lt.train(PARAMS, lt.Dataset(Xz, label=y), 1,
+                 device="cpu").predict(Xz, raw_score=True))
+    ds = lt.Dataset(X, label=y)
+    for call, item in ((lambda: ds.save_binary(str(tmp_path / "b")), "7.6"),
+                       (lambda: ds.subset([0, 1]), "7.6"),
+                       (lambda: ds.add_features_from(ds), "7.6")):
+        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+            call()
+    from lightgbm_tpu_torch.data.dataset import Dataset as Binned
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        Binned.from_sampled_columns([], [], 0, 0, None)
 
 
 def test_loaded_booster_needs_the_card_by_default(monkeypatch, trained):
