@@ -85,7 +85,7 @@ of the JAX package. Phases, each fatal on failure:
    a's best_iteration through its model text on the card (``predict``
    with no ``num_iteration`` equal to ``predict(num_iteration=
    best_iteration)`` and to the loaded text's, to the bit); kernels
-   against plain versions at 100k x 28, 2 iterations of a, b, c, e at
+   against plain versions at 100k x 28, 3 iterations of a, b, c, e at
    max_bin 255 and c at 1023 (the same trees, leaf values and valid
    histories to the bit); and the golden datasets multiclass, rank,
    regression_l1, monotone and tweedie trained with the reference
@@ -1732,10 +1732,9 @@ def early_stopping_check(bst, Xq):
 
 
 def objective_parity(dev):
-    """Kernels against plain versions at 100k x 28, 2 iterations (cut
-    from 3 to keep the script within half its time limit), for runs a,
-    b, c, e at max_bin 255 and c at 1023: the same trees, leaf values
-    equal to the bit, and the same valid histories to the bit."""
+    """Kernels against plain versions at 100k x 28, 3 iterations, for
+    runs a, b, c, e at max_bin 255 and c at 1023: the same trees, leaf
+    values equal to the bit, and the same valid histories to the bit."""
     import torch
     import lightgbm_tpu_torch as lt
     Xp, zp = higgs_latent(100_000, seed=3)
@@ -1763,7 +1762,7 @@ def objective_parity(dev):
                 tr, va = labeled_sets(binned, vbinned, Xp, Xpv, objective,
                                       zp, zpv, groups)
                 hist = {}
-                b = lt.train(params, tr, 2, valid_sets=[va],
+                b = lt.train(params, tr, 3, valid_sets=[va],
                              valid_names=["valid"], evals_result=hist,
                              verbose_eval=False, device=dev, ops=ops)
                 res[ops] = (b, hist["valid"])
@@ -2351,8 +2350,9 @@ def categorical_profile(label, params, tr, dev, tag="categorical"):
     import lightgbm_tpu_torch as lt
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from lightgbm_tpu_torch.ops import split_step_cuda as ssc
+    from lightgbm_tpu_torch.ops import _native, split_step_cuda as ssc
     routes, part = [], ssc.partition_segment
+    launched = _native.LAUNCHES["partition_segment"]
 
     def recorded(*a, **kw):
         routes.append(bool(a[10]))
@@ -2367,6 +2367,10 @@ def categorical_profile(label, params, tr, dev, tag="categorical"):
             wall = time.perf_counter() - t0
     finally:
         ssc.partition_segment = part
+    launched = _native.LAUNCHES["partition_segment"] - launched
+    if launched != len(routes):
+        fail(f"{tag} {label}: {launched} partition launches for "
+             f"{len(routes)} calls")
     evs = sorted((e.time_range.start, e.time_range.end, e.name)
                  for e in prof.events() if e.device_type == DeviceType.CUDA)
     splits = max(bst.models[0].num_leaves - 1, 1)
@@ -2375,10 +2379,14 @@ def categorical_profile(label, params, tr, dev, tag="categorical"):
                busy_ms_per_split=busy_ms / splits,
                idle_share=1.0 - busy_ms / (wall * 1e3))
     pairs = [(a, b) for a, b, name in evs if "part_" in name]
-    # the k-th call's kernels are the k-th pair on the stream; when the
-    # profiler drops records (it does late in a long script) the pairs
-    # no longer line up, and the per-route times are not measured (the
-    # launches themselves are counted apart, by the wrappers)
+    # the k-th call's kernels are the k-th pair on the stream. Every call
+    # launched (the wrapper's count above); torch.profiler now and then
+    # drops a record, and then the pairs no longer line up and the
+    # per-route times are not measured. More records than launches is a
+    # fault.
+    if len(pairs) > 2 * len(routes):
+        fail(f"{tag} {label}: {len(pairs)} partition kernels for "
+             f"{len(routes)} calls")
     paired = bool(routes) and len(pairs) == 2 * len(routes)
     if paired:
         per_call = [merged_us(pairs[2 * i:2 * i + 2])

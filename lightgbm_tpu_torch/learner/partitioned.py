@@ -41,7 +41,8 @@ matrix, the root and child histograms and the per-leaf cache are over
 the G groups, each leaf's histograms are debundled into per-feature
 ones before its scans (``ops/histogram.py:Debundler``), and a numerical
 split of a feature sharing its group partitions the group's column
-through the partition kernel's LUT route (``partition_decision_lut``).
+through the partition kernel's LUT route
+(``ops/partition_cuda.py:partition_decision_lut``).
 Bundled data always takes the per-phase loop, and a multi-val dataset
 (pseudo-groups without a column) goes to the serial learner.
 
@@ -183,41 +184,6 @@ def feature_meta_from_dataset(dataset: Dataset) -> FeatureMeta:
             [m.bin_type == BIN_TYPE_CATEGORICAL for m in mappers], bool),
         group=np.asarray(group, np.int32),
         offset=np.asarray(offset, np.int32))
-
-
-def partition_decision_lut(imeta: np.ndarray, feat: int, thr: int,
-                           dleft: bool, is_cat: bool, bitset,
-                           bundled: bool):
-    """(column, use_lut, lut) of one split's physical partition (JAX
-    ``partition_decision_lut``, learner/partitioned.py:63-92): the
-    256-entry "column value -> goes left" table ([1, 256] f32 on the
-    host) that decodes a bundled numerical split's group column and its
-    missing rule in feature-bin space, or a categorical split's bin
-    bitset; a raw (offset 0) numerical split reads its column through
-    the threshold route (``use_lut`` False, ``lut`` None). ``imeta`` is
-    the host [F, 8] metadata table (``pack_meta_tables``)."""
-    from ..data.bundling import decode_feature_bin
-    from ..ops.partition_cuda import bitset_to_lut
-    from ..ops.split_step_cuda import (IM_DEFBIN, IM_GROUP, IM_MISS,
-                                       IM_NBINS, IM_OFFSET)
-    col = int(imeta[feat, IM_GROUP]) if bundled else int(feat)
-    off = int(imeta[feat, IM_OFFSET]) if bundled else 0
-    if is_cat:
-        return col, True, bitset_to_lut(bitset)
-    if off == 0:
-        return col, False, None
-    nbf = int(imeta[feat, IM_NBINS])
-    fbin = decode_feature_bin(np.arange(256, dtype=np.int64), off, nbf)
-    mcode = int(imeta[feat, IM_MISS])
-    if mcode == MISSING_ZERO_CODE:
-        is_miss = fbin == int(imeta[feat, IM_DEFBIN])
-    elif mcode == MISSING_NAN_CODE:
-        is_miss = fbin == nbf - 1
-    else:
-        is_miss = np.zeros(256, bool)
-    go_left = np.where(is_miss, bool(dleft), fbin <= int(thr))
-    return col, True, torch.from_numpy(
-        go_left.astype(np.float32).reshape(1, 256))
 
 
 class LeafwiseLearner:

@@ -17,8 +17,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..data.bundling import decode_feature_bin
 from . import _native
 from .partition import rows_go_left
+from .split import (IM_DEFBIN, IM_GROUP, IM_MISS, IM_NBINS, IM_OFFSET,
+                    MISSING_NAN_CODE, MISSING_ZERO_CODE)
 
 # rows a tile of the segment fused step's workspace partition
 # (csrc/partition_core.cuh kPartRows, one row a thread)
@@ -55,6 +58,37 @@ def bitset_to_lut(cat_bitset) -> torch.Tensor:
     lut = np.zeros((1, 256), np.float32)
     lut[0, bins] = (bits[bins // 32] >> (bins % 32).astype(np.uint32)) & 1
     return torch.from_numpy(lut)
+
+
+def partition_decision_lut(imeta: np.ndarray, feat: int, thr: int,
+                           dleft: bool, is_cat: bool, bitset,
+                           bundled: bool):
+    """(column, use_lut, lut) of one split's physical partition (JAX
+    ``partition_decision_lut``, learner/partitioned.py:63-92): the
+    256-entry "column value -> goes left" table ([1, 256] f32 on the
+    host) that decodes a bundled numerical split's group column and its
+    missing rule in feature-bin space, or a categorical split's bin
+    bitset; a raw (offset 0) numerical split reads its column through
+    the threshold route (``use_lut`` False, ``lut`` None). ``imeta`` is
+    the host [F, 8] metadata table (``pack_meta_tables``)."""
+    col = int(imeta[feat, IM_GROUP]) if bundled else int(feat)
+    off = int(imeta[feat, IM_OFFSET]) if bundled else 0
+    if is_cat:
+        return col, True, bitset_to_lut(bitset)
+    if off == 0:
+        return col, False, None
+    nbf = int(imeta[feat, IM_NBINS])
+    fbin = decode_feature_bin(np.arange(256, dtype=np.int64), off, nbf)
+    mcode = int(imeta[feat, IM_MISS])
+    if mcode == MISSING_ZERO_CODE:
+        is_miss = fbin == int(imeta[feat, IM_DEFBIN])
+    elif mcode == MISSING_NAN_CODE:
+        is_miss = fbin == nbf - 1
+    else:
+        is_miss = np.zeros(256, bool)
+    go_left = np.where(is_miss, bool(dleft), fbin <= int(thr))
+    return col, True, torch.from_numpy(
+        go_left.astype(np.float32).reshape(1, 256))
 
 
 def _decide(mat, begin, count, feat, thr, default_left, missing_code,

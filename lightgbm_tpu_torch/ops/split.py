@@ -38,6 +38,11 @@ MISSING_NONE_CODE = 0
 MISSING_ZERO_CODE = 1
 MISSING_NAN_CODE = 2
 
+# columns of the [F, 8] i32 per-feature metadata table (imeta,
+# ``split_step_cuda.pack_meta_tables``)
+IM_NBINS, IM_MISS, IM_DEFBIN, IM_MOSTFREQ, IM_MONO, IM_GROUP, \
+    IM_OFFSET, IM_ISCAT = range(8)
+
 # column slots of the [F, 8] per-feature result table
 O_SCORE, O_THR, O_LG, O_LH, O_LC, O_DLEFT, O_WL, O_WR = range(8)
 # a dataset with categorical features widens it: is_cat, then the

@@ -56,16 +56,14 @@ from .hist_cuda import (histogram_rows, histogram_segment,
                         histogram_segment_plain, leaf_bin_bytes,
                         leaf_feat_tile, matrix_cols, max_chunks,
                         payload_offset)
-from .partition_cuda import (PART_THREADS, partition_segment,
-                             partition_segment_plain)
+from .partition_cuda import (PART_THREADS, partition_decision_lut,
+                             partition_segment, partition_segment_plain)
 from .histogram import build_histogram
 from .partition import split_leaf
-from .split import FeatureMeta, SplitParams
+from .split import (IM_DEFBIN, IM_GROUP, IM_ISCAT, IM_MISS,  # noqa: F401
+                    IM_MONO, IM_MOSTFREQ, IM_NBINS, IM_OFFSET,
+                    FeatureMeta, SplitParams)
 from .split_scan_cuda import per_feature_numerical_plain
-
-# imeta table columns (one [F, 8] i32 operand)
-IM_NBINS, IM_MISS, IM_DEFBIN, IM_MOSTFREQ, IM_MONO, IM_GROUP, \
-    IM_OFFSET, IM_ISCAT = range(8)
 
 # the leaf kernel's histogram tile and chunk rule are hist_cuda's LEAF_*
 # (csrc/hist_ids.cuh); the scan planes reuse the tile's shared memory
@@ -197,7 +195,7 @@ def segment_split_ops(mat, ws, imeta: np.ndarray, b: int, f: int, scan, *,
     """``SplitOps`` of the segment layout: the split is a stable
     partition of the leaf's segment (``partition_segment``, or with
     ``plain`` its plain version; the column and route come from
-    ``learner/partitioned.py:partition_decision_lut``: a categorical
+    ``partition_cuda.partition_decision_lut``: a categorical
     split, and with ``bundled`` a numerical split of a feature sharing
     its EFB group, go through the LUT route on the group's column), the
     smaller child's histogram comes from its segment (sized by the
@@ -207,7 +205,6 @@ def segment_split_ops(mat, ws, imeta: np.ndarray, b: int, f: int, scan, *,
     ``histogram(mat, begin, count, max_count)`` replaces the child's
     histogram when given (host bounds). ``imeta`` is the host [F, 8]
     metadata table."""
-    from ..learner.partitioned import partition_decision_lut
     from ..learner.split_step import SplitOps
     part_fn = partition_segment_plain if plain else partition_segment
 

@@ -957,8 +957,9 @@ def test_group_matrix_histogram_and_bundled_lut_partition(dev):
     partition (``partition_decision_lut``) against its plain version."""
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.data.dataset import Dataset
-    from lightgbm_tpu_torch.learner.partitioned import (
-        feature_meta_from_dataset, partition_decision_lut)
+    from lightgbm_tpu_torch.learner.partitioned import \
+        feature_meta_from_dataset
+    from lightgbm_tpu_torch.ops.partition_cuda import partition_decision_lut
     from lightgbm_tpu_torch.ops import hist_cuda as hc
     from lightgbm_tpu_torch.ops.split_step_cuda import pack_meta_tables
     from torch_efb_data import sparse_problem
