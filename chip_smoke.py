@@ -169,6 +169,8 @@ last line is ``{"ok": true, "device": {...}}``.
 
 import argparse
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2985,6 +2987,404 @@ def efb_phase(n, iters, dev, reps, bosch_rows=1_000_000):
     return out, rec, launches
 
 
+# ---- 13. the rest of tree growing and linear leaves --------------------
+
+PER_PHASE_PATH = {"PartitionedTreeLearner": ("hist_segment",
+                                             "partition_segment",
+                                             "split_scan"),
+                  "SerialTreeLearner": ("hist_rows", "split_scan")}
+FUSED_PATH = {"PartitionedTreeLearner": FUSED_SEGMENT_PATH,
+              "SerialTreeLearner": ("hist_rows", "split_scan",
+                                    "fused_split_step_leaf")}
+
+
+def forced_json(path, X):
+    """Phase 13 d's plan: 3 levels, 7 splits on features 0-3 at their
+    medians, breadth first f0; f1, f2; f3, f2, f1, f3."""
+    med = [float(np.nanmedian(X[:, f])) for f in range(4)]
+
+    def nd(f, left=None, right=None):
+        out = {"feature": f, "threshold": med[f]}
+        if left is not None:
+            out.update(left=left, right=right)
+        return out
+    plan = nd(0, nd(1, nd(3), nd(2)), nd(2, nd(1), nd(3)))
+    with open(path, "w") as fh:
+        json.dump(plan, fh)
+
+
+def with_raw(binned, X, label=None):
+    """A binned dataset that also holds its raw values (what
+    ``linear_tree`` keeps), over the same bins."""
+    import copy
+    out = copy.copy(binned)
+    out._device_copies = dict(binned._device_copies)
+    out.raw_numeric = np.ascontiguousarray(
+        X[:, binned.real_feature_idx], np.float32)
+    return out
+
+
+def scan_us_in_training(bst):
+    """The scan kernel's mean device us a launch over one more tree of
+    ``bst`` (profiler, merged intervals) and the launches of that tree."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from lightgbm_tpu_torch.ops import _native
+    before = _native.LAUNCHES["split_scan"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bst.update()
+        torch.cuda.synchronize()
+    calls = _native.LAUNCHES["split_scan"] - before
+    iv = [(e.time_range.start, e.time_range.end) for e in prof.events()
+          if e.device_type == DeviceType.CUDA
+          and "split_scan_kernel" in e.name]
+    if not iv:
+        return None, calls
+    return merged_us(iv) / max(len(iv), 1), calls
+
+
+def extras_run(label, params, tr, va, iters, dev, want):
+    """One phase-13 run through ``lt.train`` with a 500k-row valid set
+    (auc), the launch counts set to 0 just before it and read just
+    after: the learner must be ``want`` and every kernel of its grow
+    path must have run."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import _native
+    hist = {}
+    _native.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = lt.train(dict(params, metric="auc"), tr, iters, valid_sets=[va],
+                   valid_names=["valid"],
+                   callbacks=[lt.record_evaluation(hist)],
+                   verbose_eval=False, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+    lrn = bst._gbdt.learner
+    name = type(lrn).__name__
+    splits = sum(t.num_leaves - 1 for t in bst.models)
+    info = dict(learner=name, fused=bool(lrn.fused), trees=len(bst.models),
+                splits=splits, wall_s=wall,
+                ms_per_split=wall / max(splits, 1) * 1e3,
+                auc=float(hist["valid"]["auc"][-1]), launches=launches)
+    print(f"[extras {label}] {name}, {'fused' if lrn.fused else 'per-phase'}"
+          f", {len(bst.models)} trees, {splits} splits in {wall:.2f} s = "
+          f"{info['ms_per_split']:.4f} ms/split; valid auc "
+          f"{info['auc']:.6f}; launches {launches}")
+    if name != want:
+        fail(f"phase 13 {label} trained on {name}, not {want}")
+    path = (FUSED_PATH if lrn.fused else PER_PHASE_PATH)[name]
+    for k in path:
+        if not launches.get(k):
+            fail(f"kernel {k} was not launched by phase 13 {label}")
+    if splits == 0:
+        fail(f"phase 13 {label} grew no split")
+    return bst, info
+
+
+def same_or_tie(label, a_models, b_models):
+    """Tree by tree (``b_models`` may hold more trees: its first ones
+    count), the same structure, or the first difference at a near tie
+    (gains within 1e-5 relative: float association picks another of two
+    near-equal candidates); returns (trees equal, max leaf value diff over the
+    equal trees, the tie or None)."""
+    equal, diff = 0, 0.0
+    if len(a_models) > len(b_models):
+        fail(f"{label}: {len(a_models)} trees against {len(b_models)}")
+    for i, (a, b) in enumerate(zip(a_models, b_models)):
+        if tree_sig(a) == tree_sig(b):
+            equal += 1
+            diff = max(diff, float(np.abs(a.leaf_value
+                                          - b.leaf_value).max()))
+            continue
+        s = first_divergence(a, b)
+        ga, gb = float(a.split_gain[s]), float(b.split_gain[s])
+        tie = abs(ga - gb) <= 1e-5 * abs(gb)
+        if not tie:
+            fail(f"{label}: tree {i} differs at node {s} (gains {ga!r}, "
+                 f"{gb!r})")
+        return equal, diff, (i, s, ga, gb)
+    return equal, diff, None
+
+
+def check_scan_node(dev, reps):
+    """The scan kernel with a node table (rand bins and node masks)
+    against its plain version with the same rows, bitwise, at B 255 and
+    1023, K 1 and 2; its time with and without the table."""
+    import torch
+    from lightgbm_tpu_torch.ops import split as sp
+    from lightgbm_tpu_torch.ops import split_scan_cuda as sc
+    from lightgbm_tpu_torch.ops.histogram import build_histogram
+    n, f = 200_000, F
+    out = {}
+    for b in (255, 1023):
+        g = torch.Generator(device=dev).manual_seed(b)
+        bins = torch.randint(0, b, (n, f), generator=g, device=dev)
+        ghc = torch.stack([torch.randn(n, generator=g, device=dev)
+                           + (bins[:, 0] > b // 2).float(),
+                           torch.rand(n, generator=g, device=dev) + 0.1,
+                           torch.ones(n, device=dev)], dim=1)
+        hists = [build_histogram(bins[:n // 3], ghc[:n // 3], b),
+                 build_histogram(bins[n // 3:], ghc[n // 3:], b)]
+        leaves = [tuple(h[0].sum(0).cpu().numpy()) + (-np.inf, np.inf)
+                  for h in hists]
+        meta = sp.FeatureMeta(
+            num_bins=np.full(f, b, np.int32),
+            missing=(np.arange(f) % 3).astype(np.int32),
+            default_bin=np.full(f, b // 3, np.int32),
+            most_freq_bin=np.zeros(f, np.int32),
+            monotone=np.zeros(f, np.int32), penalty=np.ones(f, np.float32),
+            is_categorical=np.zeros(f, bool))
+        meta_t = sp.meta_tensors(meta, dev)
+        tables = sc.scan_meta_tables(meta_t)
+        params = sp.SplitParams(0.0, 1.0, 0.0, 20.0, 1e-3, 0.0, True)
+        rng = np.random.RandomState(b)
+        rb = rng.randint(0, b - 2, (5, f))
+        rb[1] = -1                      # a row of every threshold
+        nm = rng.rand(5, f) < 0.6
+        for rbs, nms in ((rb, None), (None, nm), (rb, nm)):
+            node = sc.node_table(rbs, nms, f, dev)
+            for k, salts in ((1, (3,)), (2, (2, 4)), (2, (1, 0))):
+                kk = sc.per_feature_numerical_cuda(
+                    hists[:k], leaves[:k], meta_t, params, tables,
+                    node=node, salts=salts)
+                pp = sc.per_feature_numerical_plain(
+                    hists[:k], leaves[:k], meta_t, params, node, salts)
+                if kk.cpu().numpy().tobytes() != pp.cpu().numpy().tobytes():
+                    fail(f"scan with a node table ({b} bins, K {k}) "
+                         "differs from its plain version")
+        node = sc.node_table(rb, nm, f, dev)
+        with_t = time_ms(lambda: sc.per_feature_numerical_cuda(
+            hists, leaves, meta_t, params, tables, node=node,
+            salts=(2, 4)), reps)
+        without = time_ms(lambda: sc.per_feature_numerical_cuda(
+            hists, leaves, meta_t, params, tables), reps)
+        out[b] = dict(max_abs_err=0.0, ms=with_t, ms_without=without)
+    return out
+
+
+def extras_parity(dev, forced_path):
+    """Phase 13 g: kernels against plain versions at 100k x 28, 63
+    leaves, 3 iterations, for each option of a-f: the same trees, leaf
+    values and linear coefficients to the bit."""
+    import lightgbm_tpu_torch as lt
+    Xp, yp = higgs_like(100_000, seed=3)
+    forced_json(forced_path, Xp)
+    base = {"objective": "binary", "num_leaves": 63, "learning_rate": 0.1,
+            "verbosity": -1}
+    slot = F * 256 * 12
+    runs = [("a extra 255", {"extra_trees": True, "max_bin": 255}),
+            ("a extra 1023", {"extra_trees": True, "max_bin": 1023}),
+            ("b bynode", {"feature_fraction": 0.8,
+                          "feature_fraction_bynode": 0.5}),
+            ("c cegb", dict(CEGB_COUPLED)),
+            ("c lazy", dict(CEGB_LAZY)),
+            ("d forced", {"forcedsplits_filename": forced_path}),
+            ("e pool", {"histogram_pool_size": 8.5 * slot / 2 ** 20}),
+            ("e rebuild 1023", {"histogram_pool_size": 1.5 * 4 * slot
+                                / 2 ** 20, "max_bin": 1023}),
+            ("f linear", {"linear_tree": True, "linear_max_features": 8})]
+    out = {}
+    for label, extra in runs:
+        t0 = time.perf_counter()
+        pp = dict(base, **extra)
+        kb = lt.train(pp, lt.Dataset(Xp, label=yp), 3, device=dev)
+        pb = lt.train(pp, lt.Dataset(Xp, label=yp), 3, device=dev,
+                      ops="plain")
+        same = [tree_sig(a) == tree_sig(b) for a, b in zip(kb.models,
+                                                           pb.models)]
+        leaf = all(a.leaf_value.tobytes() == b.leaf_value.tobytes()
+                   for a, b in zip(kb.models, pb.models))
+        lin = all((a.leaf_coeff.tobytes() == b.leaf_coeff.tobytes()
+                   and a.leaf_const.tobytes() == b.leaf_const.tobytes())
+                  for a, b in zip(kb.models, pb.models) if a.is_linear)
+        nlin = sum(a.is_linear for a in kb.models)
+        print(f"[extras parity {label}] {type(kb._gbdt.learner).__name__}"
+              f": structure equal {same}, leaf values bitwise {leaf}, "
+              f"linear trees {nlin} bitwise {lin} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        if len(kb.models) != 3 or not all(same) or not leaf or not lin:
+            fail(f"phase 13 {label}: kernel and plain runs differ")
+        if label == "f linear" and nlin == 0:
+            fail("phase 13 f: no linear tree at 100k rows")
+        out[label] = all(same) and leaf and lin
+    return out
+
+
+CEGB_COUPLED = {"cegb_penalty_split": 1e-7,
+                "cegb_penalty_feature_coupled": [2.0 + 0.5 * i
+                                                 for i in range(F)]}
+CEGB_LAZY = {"cegb_penalty_feature_lazy": [1e-5] * F}
+
+
+def extras_phase(X, y, binned, binned_wide, dev, iters, reps):
+    """Phase 13: extra_trees, by-node sampling, CEGB, forced splits,
+    the bounded histogram memory and linear leaves at 2M x 28 (255
+    leaves, lr 0.1, 8 iterations cut from 500) with a 500k-row valid
+    set, each beside the same run without the option; then the scan's
+    node table against its plain version and the kernels against their
+    plain versions at 100k rows (g)."""
+    import tempfile
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.learner import partitioned as lp
+    from lightgbm_tpu_torch.models import gbdt as mg
+    t0 = time.perf_counter()
+    Xv, yv = higgs_like(500_000, seed=43)
+    sets = {}
+    for mb, b in ((255, binned), (1023, binned_wide)):
+        tr = lt.Dataset(X, label=y)
+        tr._binned = b
+        va = tr.create_valid(Xv, label=yv)
+        va.construct(lt.Config.from_params({"max_bin": mb,
+                                            "verbosity": -1}))
+        sets[mb] = (tr, va)
+    print(f"[extras] valid 500000 rows binned at max_bin 255 and 1023 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    tmp = tempfile.mkdtemp()
+    forced_path = os.path.join(tmp, "forced.json")
+    forced_json(forced_path, X)
+    base = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
+            "verbosity": -1, "fused_split_kernel": "off"}
+    out = {}
+    scan_us = {}
+    # one warm-up tree, so that the first timed run pays no first use
+    extras_run("warm-up", dict(base, max_bin=255), *sets[255], 1, dev,
+               "PartitionedTreeLearner")
+    for mb, want in ((255, "PartitionedTreeLearner"),
+                     (1023, "SerialTreeLearner")):
+        bst, info = extras_run(f"baseline {mb}", dict(base, max_bin=mb),
+                               *sets[mb], iters, dev, want)
+        scan_us[f"without {mb}"] = scan_us_in_training(bst)
+        out[f"baseline {mb}"] = (bst, info)
+    g = binned.num_groups
+    slot = {mb: g * out[f"baseline {mb}"][0]._gbdt.learner.num_bins_max
+            * 12 for mb in (255, 1023)}
+    runs = [("a extra 255", {"extra_trees": True}, 255,
+             "PartitionedTreeLearner"),
+            ("a extra 1023", {"extra_trees": True}, 1023,
+             "SerialTreeLearner"),
+            ("b bynode", {"feature_fraction": 0.8,
+                          "feature_fraction_bynode": 0.5}, 255,
+             "PartitionedTreeLearner"),
+            ("c cegb", dict(CEGB_COUPLED), 255, "PartitionedTreeLearner"),
+            ("c lazy", dict(CEGB_LAZY), 255, "SerialTreeLearner"),
+            ("d forced", {"forcedsplits_filename": forced_path}, 255,
+             "PartitionedTreeLearner"),
+            ("e pool", {"histogram_pool_size": 32.5 * slot[255] / 2 ** 20},
+             255, "PartitionedTreeLearner"),
+            ("e rebuild 1023", {"histogram_pool_size": 1.5 * slot[1023]
+                                / 2 ** 20}, 1023, "SerialTreeLearner")]
+    for label, extra, mb, want in runs:
+        bst, info = extras_run(label, dict(base, max_bin=mb, **extra),
+                               *sets[mb], iters, dev, want)
+        lrn = bst._gbdt.learner
+        ref_bst, ref = out[f"baseline {mb}"]
+        info["auc_without"] = ref["auc"]
+        if label.startswith("a"):
+            scan_us[f"with {mb}"] = scan_us_in_training(bst)
+        if label == "d forced":
+            plan = lrn.forced_plan
+            want_f = [p.feat for p in plan]
+            want_t = [p.thr for p in plan]
+            ok = len(plan) == 7 and all(
+                list(t.split_feature_inner[:7]) == want_f
+                and list(t.threshold_bin[:7]) == want_t
+                for t in bst.models)
+            print(f"[extras d] plan (feature, bin) "
+                  f"{list(zip(want_f, want_t))}: every tree's first 7 "
+                  f"nodes are the plan's {ok}")
+            if not ok:
+                fail("phase 13 d: a tree does not start with the plan")
+        if label.startswith("e"):
+            mode = lrn.mem.mode
+            per_phase = info["trees"] + info["splits"]
+            hist_name = "hist_segment" if mb == 255 else "hist_rows"
+            extra_launches = info["launches"].get(hist_name, 0) - per_phase
+            equal, diff, tie = same_or_tie(f"phase 13 {label}",
+                                           bst.models, ref_bst.models)
+            info.update(mode=mode, slots=lrn.hist_slots,
+                        builds=lrn.mem.builds,
+                        extra_hist_launches=extra_launches,
+                        trees_equal=equal, max_leaf_diff=diff, tie=tie)
+            print(f"[extras {label}] {mode}, {lrn.hist_slots} slots: "
+                  f"{extra_launches} {hist_name} launches beyond the "
+                  f"cache's; {equal} of {info['trees']} trees equal to "
+                  f"the full cache's (max leaf value diff {diff:.3g}), "
+                  f"first tie {tie}")
+            if mode != ("pool" if mb == 255 else "rebuild"):
+                fail(f"phase 13 {label} ran histogram memory {mode}")
+        if label.startswith("c"):
+            info["cegb_used"] = int(lrn.cegb.used.sum())
+        out[label] = (None, info)
+        del bst
+        torch.cuda.empty_cache()
+    # f: linear leaves (the same bins, with their raw values)
+    tr, va = lt.Dataset(X, label=y), None
+    tr._binned = with_raw(binned, X)
+    va = tr.create_valid(Xv, label=yv)
+    va._binned = with_raw(sets[255][1]._binned, Xv)
+    fit = DeviceTimer()
+    fit_fn = mg.fit_linear_leaves
+    mg.fit_linear_leaves = fit.wrap(fit_fn)
+    try:
+        bst, info = extras_run("f linear", dict(
+            base, max_bin=255, linear_tree=True, linear_max_features=8,
+            fused_split_kernel="auto"), tr, va, iters, dev,
+            "PartitionedTreeLearner")
+    finally:
+        mg.fit_linear_leaves = fit_fn
+    # a tree's fit; the first call also loads the card's solver
+    # library, so the median stands for the steady state
+    fit.ms()
+    fit_each = [a.elapsed_time(b) for a, b in fit.pairs]
+    info["fit_ms_per_tree"] = float(np.median(fit_each))
+    info["fit_ms_first"] = fit_each[0]
+    info["auc_without"] = out["baseline 255"][1]["auc"]
+    nlin = sum(t.is_linear for t in bst.models)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pred = bst.predict(X, raw_score=True)
+    torch.cuda.synchronize()
+    info["predict_s"] = time.perf_counter() - t1
+    gap = float(np.abs(np.asarray(pred, np.float64) - bst._gbdt.train_score[
+        :, 0].double().cpu().numpy()).max())
+    text = bst.model_to_string()
+    again = lt.Booster(model_str=text, device=dev).model_to_string()
+    info.update(linear_trees=nlin, train_vs_predict=gap,
+                text_round_trip=text == again)
+    print(f"[extras f] {nlin} linear trees; fit {info['fit_ms_per_tree']:.3f}"
+          f" ms a tree (median; the first {info['fit_ms_first']:.3f}); "
+          f"train score vs predict(raw_score) of the 2M rows "
+          f"{gap:.3g}; predict {info['predict_s']:.2f} s; text round trip "
+          f"byte-equal {text == again}; valid auc {info['auc']:.6f} "
+          f"against constant leaves {info['auc_without']:.6f}")
+    if nlin == 0 or gap > 2e-5 or text != again \
+            or not np.isfinite(pred).all():
+        fail("phase 13 f: linear leaves missing, off their predictions or "
+             "not round-tripped")
+    out["f linear"] = (None, info)
+    del bst, tr, va
+    torch.cuda.empty_cache()
+    for k, (us, calls) in scan_us.items():
+        print(f"[extras scan] {k} bins: "
+              + (f"{us:.2f} us a launch" if us is not None
+                 else "not measured") + f" over one tree ({calls} launches)")
+    node = check_scan_node(dev, reps)
+    print(f"[extras scan] node table against plain bitwise: {node}")
+    parity = extras_parity(dev, forced_path)
+    shutil.rmtree(tmp, ignore_errors=True)
+    res = {k: v[1] for k, v in out.items()}
+    res["scan_us"] = {k: v[0] for k, v in scan_us.items()}
+    res["node_table"] = node
+    res["parity"] = parity
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=2_000_000)
@@ -3241,7 +3641,7 @@ def main() -> int:
         X, y, binned, binned_wide, fused_bst, multiclass_bst, dev,
         args.reps)
     print(f"[sampling] done in {time.perf_counter() - t0:.1f} s")
-    del binned, binned_wide, fused_bst, multiclass_bst
+    del fused_bst, multiclass_bst
     torch.cuda.empty_cache()
 
     # ---- 11. categorical features on the per-phase path ----------------
@@ -3257,6 +3657,15 @@ def main() -> int:
         n, args.iters, dev, args.reps, bosch_rows=args.bosch_rows)
     print(f"[efb] done in {time.perf_counter() - t0:.1f} s: "
           + json.dumps(efb, default=str))
+    torch.cuda.empty_cache()
+
+    # ---- 13. the rest of tree growing and linear leaves ----------------
+    t0 = time.perf_counter()
+    extras = extras_phase(X, y, binned, binned_wide, dev, args.iters,
+                          args.reps)
+    del binned, binned_wide
+    print(f"[extras] done in {time.perf_counter() - t0:.1f} s: "
+          + json.dumps(extras, default=str))
 
     sources = {
         "hist_segment": ("lightgbm_tpu_torch/csrc/hist_segment.cu",
@@ -3292,6 +3701,11 @@ def main() -> int:
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
                             library_ms=r["library_ms"]))
+        if name == "split_scan":
+            # the per-phase scan also takes the tree's node table
+            # (extra_trees, by-node sampling; phase 13)
+            kernels[-1]["node_table"] = {
+                str(b): v for b, v in extras["node_table"].items()}
     print(f"[total] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

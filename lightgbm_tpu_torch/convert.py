@@ -13,9 +13,9 @@ turn it into the port's objects:
     per-node missing type, and optionally every other field the model
     text holds: gains, internal and leaf weights and counts, leaf
     parents and depths, shrinkage, categorical thresholds and bin
-    bitsets), so the port's predictor runs a JAX-trained model, the
-    port's writer writes its text and its bin-space walk scores a valid
-    set;
+    bitsets, linear leaf models), so the port's predictor runs a
+    JAX-trained model, the port's writer writes its text and its
+    bin-space walk scores a valid set;
   * ``bundles_from_state`` — an EFB dataset's bundle plan
     (``feature_group``, ``feature_offset``, ``group_num_bins``,
     ``mv_group_start``) applied to a port dataset binned unbundled with
@@ -77,15 +77,27 @@ def trees_from_state(states: Sequence[Dict]) -> List[Tree]:
     arrays, one a node; ``cat_bitsets`` [nodes, 8] uint32 bin bitsets;
     ``num_bin`` and ``default_bin`` of each node's feature, which with
     the bins give the bin-space walk), zero (leaf parents -1, shrinkage
-    1) when absent."""
+    1) when absent. A linear-leaf tree adds ``leaf_const`` [L],
+    ``leaf_coeff`` [L, C] and ``leaf_features`` [L, C] (raw columns, -1
+    padded) and optionally ``leaf_features_inner`` (the inner features,
+    for the bin-space walk's linear scoring)."""
     trees = []
     for st in states:
         missing = [k for k in _TREE_KEYS if k not in st]
         if missing:
             raise KeyError(f"tree state lacks {missing}")
-        trees.append(tree_from_arrays(
+        tree = tree_from_arrays(
             *(st[k] for k in _TREE_KEYS),
-            **{k: st[k] for k in _OPTIONAL_TREE_KEYS if k in st}))
+            **{k: st[k] for k in _OPTIONAL_TREE_KEYS if k in st})
+        if st.get("leaf_coeff") is not None:
+            tree.leaf_const = np.asarray(st["leaf_const"], np.float64)
+            tree.leaf_coeff = np.asarray(st["leaf_coeff"], np.float64)
+            tree.leaf_features = np.asarray(st["leaf_features"], np.int32)
+            inner = st.get("leaf_features_inner")
+            tree.leaf_features_inner = None if inner is None \
+                else np.asarray(inner, np.int32)
+            tree.is_linear = True
+        trees.append(tree)
     return trees
 
 

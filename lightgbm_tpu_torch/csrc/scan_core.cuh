@@ -284,7 +284,10 @@ __device__ __forceinline__ void plane_prefix(ScanSmem<kCap>& sm, int B,
 // next call's loads follow this call's second barrier, after which no
 // thread reads the planes. kHold: plane_prefix. With kClock, thread 0
 // writes clock64 to clk[0, 5): entry, planes loaded, prefix sums (each
-// after its barrier), its candidates, end.
+// after its barrier), its candidates, end. rand_bin >= 0 (extra_trees,
+// from the per-phase scan's node table) makes that bin the only candidate
+// threshold of both directions; -1 (the fused steps pass nothing) keeps
+// every threshold.
 template <int kCap, bool kClock = false, bool kHold = false>
 __device__ __forceinline__ void scan_feature(const float* hist, int B,
                                              const Leaf& L, int nb, int miss,
@@ -293,7 +296,8 @@ __device__ __forceinline__ void scan_feature(const float* hist, int B,
                                              const Params& p,
                                              ScanSmem<kCap>& sm, float* o,
                                              unsigned long long* clk =
-                                                 nullptr) {
+                                                 nullptr,
+                                             int rand_bin = -1) {
   clock_at<kClock>(clk, 0);
   const bool two_scan = miss != 0 && nb > 2;
   const bool na_excl = two_scan && miss == LTT_MISSING_NAN;
@@ -317,6 +321,7 @@ __device__ __forceinline__ void scan_feature(const float* hist, int B,
   Cand best{0ull, 0.f, 0.f, 0.f};
   for (int b = threadIdx.x; b < B; b += blockDim.x) {
     const int pb = pad(b);
+    const bool rand_ok = rand_bin < 0 || b == rand_bin;
     // ---- dir=+1: left-to-right; default/NaN implicitly go right
     {
       const float lg = sm.xs[0][pb];
@@ -326,7 +331,7 @@ __device__ __forceinline__ void scan_feature(const float* hist, int B,
       const float gr = L.pg - lg;
       const float cr = L.pc - lc;
       const bool valid = two_scan && b <= nb - 2 && b != skip_bin &&
-                         lc >= p.min_data && cr >= p.min_data &&
+                         rand_ok && lc >= p.min_data && cr >= p.min_data &&
                          hl >= p.min_hess && hr >= p.min_hess;
       float score = -INFINITY;
       if (valid) {
@@ -345,7 +350,7 @@ __device__ __forceinline__ void scan_feature(const float* hist, int B,
       const float hl = ph_eps - hr;
       const float cl = L.pc - rc;
       const bool valid = b <= nb - 2 - (na_excl ? 1 : 0) &&
-                         !(zero_miss && b == defbin - 1) &&
+                         !(zero_miss && b == defbin - 1) && rand_ok &&
                          cl >= p.min_data && rc >= p.min_data &&
                          hl >= p.min_hess && hr >= p.min_hess;
       float score = -INFINITY;

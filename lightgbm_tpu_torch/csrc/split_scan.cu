@@ -19,6 +19,14 @@
 // version) expression by expression; this file is compiled with
 // -fmad=false so no multiply-add contraction changes a rounding.
 //
+// With extra_trees or by-node feature sampling the grow loop passes a node
+// table (ltt_split_scan's node0/node1, one [F] int32 row a leaf, rows of
+// the tree's [2L + 1, F] table picked by each child's salt): bits 0-15 hold
+// the feature's rand bin as an int16 (-1: every threshold), bit 16 the
+// node mask (0: the feature is out of this node's sample, as if fmask were
+// 0). Without a table (null rows, and always in the fused steps) the scan
+// is unchanged.
+//
 // What bounds it on the H100: not memory (one leaf pair is 2 * F * B * 3
 // floats in and 2 * F * 8 out, ~0.7 MB at F = 28, B = 1024: 0.21 us at
 // 3.35 TB/s) but a launch's minimum device time (~2 us) and, inside a
@@ -50,6 +58,8 @@ struct ScanArgs {
   ltt::Leaf leaf0, leaf1;
   const int* imeta;
   const float* fmeta;
+  const int* node0;  // node table rows (null: no table)
+  const int* node1;
   ltt::Params p;
   float* out;
   unsigned long long* times;  // timed instantiation: [K, F, 5] clock64
@@ -64,11 +74,19 @@ __global__ void __launch_bounds__(kMaxThreads) split_scan_kernel(ScanArgs a) {
   const float* hist = (k == 0 ? a.hist0 : a.hist1) + (size_t)f * B * 3;
   const int* im = a.imeta + f * 4;
   const size_t row = (size_t)k * gridDim.y + f;
+  const int* node = k == 0 ? a.node0 : a.node1;
+  int rand_bin = -1;
+  float fmask = a.fmeta[f * 2 + 1];
+  if (node != nullptr) {
+    const int v = node[f];
+    rand_bin = (int)(short)(v & 0xffff);
+    if (!((v >> 16) & 1)) fmask = 0.f;
+  }
   // a block of its own: the running sums stay in registers
   ltt::scan_feature<kCap, kClock, true>(
-      hist, B, L, im[0], im[1], im[2], im[3], a.fmeta[f * 2 + 0],
-      a.fmeta[f * 2 + 1], a.p, sm, a.out + row * 8,
-      kClock ? a.times + row * 5 : nullptr);
+      hist, B, L, im[0], im[1], im[2], im[3], a.fmeta[f * 2 + 0], fmask,
+      a.p, sm, a.out + row * 8, kClock ? a.times + row * 5 : nullptr,
+      rand_bin);
 }
 
 template <bool kClock>
@@ -90,14 +108,16 @@ int launch_scan(int K, int F, int B, int threads, const ScanArgs& a,
 
 // K leaves (1 or 2) x F features; hist{0,1}: [F, B, 3] f32; imeta
 // [F, 4] i32 (num_bins, missing, default_bin, monotone); fmeta [F, 2]
-// f32 (penalty, numerical-and-in-mask); out [K, F, 8] f32.
+// f32 (penalty, numerical-and-in-mask); node0/node1 the leaves' node
+// table rows ([F] i32 each, or null); out [K, F, 8] f32.
 LTT_EXPORT int ltt_split_scan(int K, int F, int B, const float* hist0,
                               const float* hist1, float pg0, float ph0,
                               float pc0, float cmin0, float cmax0, float pg1,
                               float ph1, float pc1, float cmin1, float cmax1,
                               const int* imeta, const float* fmeta, float l1,
                               float l2, float mds, float min_data,
-                              float min_hess, float min_gain, float* out,
+                              float min_hess, float min_gain,
+                              const int* node0, const int* node1, float* out,
                               cudaStream_t stream) {
   const ScanArgs a{B,
                    hist0,
@@ -106,6 +126,8 @@ LTT_EXPORT int ltt_split_scan(int K, int F, int B, const float* hist0,
                    ltt::Leaf{pg1, ph1, pc1, cmin1, cmax1},
                    imeta,
                    fmeta,
+                   node0,
+                   node1,
                    ltt::Params{l1, l2, mds, min_data, min_hess, min_gain},
                    out,
                    nullptr};
@@ -131,6 +153,8 @@ LTT_EXPORT int ltt_split_scan_profile(
                    ltt::Leaf{pg1, ph1, pc1, cmin1, cmax1},
                    imeta,
                    fmeta,
+                   nullptr,
+                   nullptr,
                    ltt::Params{l1, l2, mds, min_data, min_hess, min_gain},
                    out,
                    times};

@@ -21,9 +21,13 @@ pass 2 bins chunk by chunk). Forced bin bounds come from a
 binned with its training set's mappers and bundled through its plan
 (``reference=``, the JAX package's ``CreateValid`` path), and query
 groups fill ``Metadata`` (``set_query``). The features listed in
-``categorical_features`` get the categorical bin mappers. Out of the
-port so far (``NotImplementedError`` naming the ROADMAP item): linear
-trees (item 7.5).
+``categorical_features`` get the categorical bin mappers. With
+``linear_tree`` a dense dataset also keeps its raw values of the used
+features (``raw_numeric``, float32 [N, F] with NaN kept, on the device as
+``raw_numeric_device``), as does a valid set of such a training set: the
+linear leaves fit and score on raw values. A sparse or two-round dataset
+keeps none, and training then falls back to constant leaves with a
+warning, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -166,6 +170,9 @@ class Dataset:
         # mv_group_start have no column
         self.mv_slots: Optional[np.ndarray] = None
         self.mv_group_start: Optional[int] = None
+        # raw values of the used features [N, F] f32 (NaN kept), only
+        # with linear_tree (the leaf models read raw values, not bins)
+        self.raw_numeric: Optional[np.ndarray] = None
         self._device_copies = {}
 
     # ------------------------------------------------------------------
@@ -193,6 +200,24 @@ class Dataset:
             self._device_copies[key] = torch.from_numpy(
                 np.ascontiguousarray(self.mv_slots)).to(device)
         return self._device_copies[key]
+
+    def raw_numeric_device(self, device) -> Optional[torch.Tensor]:
+        """Device copy of ``raw_numeric`` (float32 [N, F]), or None."""
+        if self.raw_numeric is None:
+            return None
+        key = "raw:" + str(torch.device(device))
+        if key not in self._device_copies:
+            self._device_copies[key] = torch.from_numpy(
+                self.raw_numeric).to(device)
+        return self._device_copies[key]
+
+    def _store_raw(self, data: np.ndarray) -> None:
+        """Keep the used features' raw values for the linear leaves (the
+        reference's linear_tree keeps raw data too)."""
+        idx = np.asarray(self.real_feature_idx, np.int64)
+        self.raw_numeric = np.ascontiguousarray(
+            np.asarray(data, np.float64)[:, idx], np.float32) \
+            if idx.size else np.zeros((data.shape[0], 0), np.float32)
 
     @property
     def has_multival(self) -> bool:
@@ -275,10 +300,6 @@ class Dataset:
         ``reference`` (a valid set's training set) gives its whole layout:
         mappers, used features, monotone types and penalties; the rows go
         through its bins."""
-        if config.linear_tree:
-            raise NotImplementedError(
-                "linear_tree is not in the port's first slice (ROADMAP.md "
-                "Queue 1 item 7)")
         data = np.asarray(data)
         if data.ndim != 2:
             log_fatal("Dataset data must be 2-dimensional")
@@ -299,6 +320,9 @@ class Dataset:
         if reference is None:
             self._resolve_monotone_and_penalty(config)
         self._extract_features(data)
+        if config.linear_tree or (reference is not None
+                                  and reference.raw_numeric is not None):
+            self._store_raw(data)
         self._bundle_extracted(config, reference)
         self._set_metadata(n, label, weight, group, init_score)
         return self
@@ -486,10 +510,6 @@ class Dataset:
         import scipy.sparse as sp
         if not sp.issparse(data):
             log_fatal("Dataset.from_scipy requires a scipy.sparse matrix")
-        if config.linear_tree:
-            raise NotImplementedError(
-                "linear_tree is not in the port yet (ROADMAP.md Queue 1 "
-                "item 7.5)")
         csc = data.tocsc()
         if not csc.has_canonical_format:
             if csc is data:
@@ -651,10 +671,6 @@ class Dataset:
         materializes. Explicit label/weight/group/init_score arguments
         override the file's columns and sidecars."""
         from .file_loader import TwoRoundLoader, _qid_to_group_sizes
-        if config.linear_tree:
-            raise NotImplementedError(
-                "linear_tree is not in the port yet (ROADMAP.md Queue 1 "
-                "item 7.5)")
         loader = TwoRoundLoader(path, config)
         n = loader.count_rows()
         sample_idx = _sample_rows(n, min(n, config.bin_construct_sample_cnt),

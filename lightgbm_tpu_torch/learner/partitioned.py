@@ -51,8 +51,16 @@ runs the plain versions on a CUDA device too (the parity check of
 ``chip_smoke.py``); it is the caller's explicit choice, never a
 fall-back.
 
-Configurations outside this slice raise ``NotImplementedError`` naming
-the ROADMAP item (``check_slice``).
+The per-phase loop also carries what the fused step does not model
+(``learner/grow_extras.py``, ``learner/node_rand.py``): extra_trees and
+by-node feature sampling (a node table a tree, which the scan kernel
+reads by each leaf's salt), CEGB (penalties applied to the scan tables
+on the host, with the raw tables kept for the coupled refund), forced
+splits (split first, from the leaf's histogram) and a bounded
+histogram memory (an LRU pool of ``histogram_pool_size`` MB, or both
+children rebuilt every split). Any of them keeps a tree per-phase.
+The distributed learners raise ``NotImplementedError`` naming the
+ROADMAP item (``check_tree_learner``).
 """
 
 from __future__ import annotations
@@ -80,6 +88,11 @@ from ..ops.split_step_cuda import (MAX_BINS, FusedScratch, SegmentStep,
                                    learner_fused_kernel_on,
                                    pack_meta_tables, segment_histogram,
                                    segment_split_ops)
+from ..ops.split_scan_cuda import node_rows, node_table
+from ..utils.log import log_warning
+from .grow_extras import (CegbState, HistMemory, build_forced_plan,
+                          cegb_on, cegb_penalties, hist_pool_slots)
+from .node_rand import NodeRand
 from .split_step import (SEG_SI_PREFIX, f32, fused_split_eligible,
                          fused_split_kernel_mode, grown_tree,
                          make_grow_pack, root_state, split_step_host)
@@ -94,44 +107,16 @@ def _reject(what: str, item: str) -> None:
         f"{what} is not in the port yet (ROADMAP.md {item})")
 
 
-def check_slice(config: Config) -> None:
-    """Refuse configurations outside the port's slices; nothing is
-    approximated."""
-    if split_cegb_on(config):
-        _reject("CEGB", "Queue 1 item 7")
-    if config.extra_trees:
-        _reject("extra_trees", "Queue 1 item 7")
-    if config.forcedsplits_filename:
-        _reject("forced splits", "Queue 1 item 7")
-    if config.linear_tree:
-        _reject("linear_tree", "Queue 1 item 7")
-    if config.feature_fraction_bynode < 1.0:
-        _reject("feature_fraction_bynode", "Queue 1 item 7")
+def check_tree_learner(config: Config) -> None:
+    """Refuse the distributed learners (outside the port's slices);
+    nothing is approximated."""
     if config.tree_learner not in ("serial", "partitioned"):
         _reject(f"tree_learner={config.tree_learner}", "Queue 1 item 8")
 
 
-def check_pool_mode(config: Config, num_groups: int, num_bins_max: int,
-                    num_leaves: int) -> None:
-    """Refuse a ``histogram_pool_size`` too small for a cache row per
-    leaf (the JAX package's pool-bounded mode); a cache row holds the
-    histograms of the dataset's groups."""
-    pool = float(config.histogram_pool_size)
-    if pool > 0 and pool * 1024 * 1024 // (
-            num_groups * num_bins_max * 12) < num_leaves:
-        _reject("histogram_pool_size pool mode", "Queue 1 item 7")
-
-
-def split_cegb_on(config: Config) -> bool:
-    lazy = any(float(c) > 0.0 for c in config.cegb_penalty_feature_lazy)
-    coupled = any(float(c) > 0.0
-                  for c in config.cegb_penalty_feature_coupled)
-    return float(config.cegb_tradeoff) > 0.0 and (
-        lazy or coupled or float(config.cegb_penalty_split) > 0.0)
-
-
 def split_params_from_config(config: Config, any_missing: bool = True,
                              has_categorical: bool = False) -> SplitParams:
+    on, lazy = cegb_on(config)
     return SplitParams(
         lambda_l1=float(config.lambda_l1),
         lambda_l2=float(config.lambda_l2),
@@ -145,7 +130,10 @@ def split_params_from_config(config: Config, any_missing: bool = True,
         cat_smooth=float(config.cat_smooth),
         max_cat_to_onehot=int(config.max_cat_to_onehot),
         min_data_per_group=float(config.min_data_per_group),
-        has_categorical=has_categorical)
+        has_categorical=has_categorical,
+        cegb_on=on, cegb_lazy_on=lazy,
+        cegb_tradeoff=float(config.cegb_tradeoff),
+        cegb_penalty_split=float(config.cegb_penalty_split))
 
 
 def dataset_any_missing(dataset: Dataset) -> bool:
@@ -163,10 +151,15 @@ def dataset_has_monotone(dataset: Dataset) -> bool:
         and any(int(t) != 0 for t in dataset.monotone_types)
 
 
-def feature_meta_from_dataset(dataset: Dataset) -> FeatureMeta:
+def feature_meta_from_dataset(dataset: Dataset,
+                              config: Optional[Config] = None
+                              ) -> FeatureMeta:
     """Static per-feature metadata (learner/serial.py of the JAX
-    package), with each feature's EFB group and offset."""
+    package), with each feature's EFB group and offset and, given the
+    config, its CEGB penalties."""
     f = dataset.num_features
+    coupled, lazy = cegb_penalties(dataset, config) \
+        if config is not None else (None, None)
     mappers = [dataset.feature_mapper(i) for i in range(f)]
     group, offset, _ = dataset.bundle_maps()
     return FeatureMeta(
@@ -183,34 +176,48 @@ def feature_meta_from_dataset(dataset: Dataset) -> FeatureMeta:
         is_categorical=np.asarray(
             [m.bin_type == BIN_TYPE_CATEGORICAL for m in mappers], bool),
         group=np.asarray(group, np.int32),
-        offset=np.asarray(offset, np.int32))
+        offset=np.asarray(offset, np.int32),
+        cegb_coupled_penalty=coupled, cegb_lazy_penalty=lazy)
 
 
 class LeafwiseLearner:
-    """What the two learners share: the slice checks, the feature
-    metadata and split parameters, the per-leaf histogram cache, the
-    merged pack of the learner's layout, the fused gate and the scan.
-    A subclass names its layout (``LAYOUT``, a key of ``MAX_BINS``), its
-    pack's int prefix rows (``SI_PREFIX``) and what its bin cap means
-    (``BIN_NOTE``), then adds its layout's own state."""
+    """What the two learners share: the feature metadata and split
+    parameters, the histogram memory, the per-node randomness, the
+    forced plan and CEGB state, the merged pack of the learner's layout,
+    the fused gate and the scan. A subclass names its layout
+    (``LAYOUT``, a key of ``MAX_BINS``), its pack's int prefix rows
+    (``SI_PREFIX``), what its bin cap means (``BIN_NOTE``), whether its
+    histogram memory may be an LRU pool (``POOL``) and whether it keeps
+    the lazy CEGB penalty (``LAZY_CEGB``), then adds its layout's own
+    state."""
 
     LAYOUT = "segment"
     SI_PREFIX = SEG_SI_PREFIX
     BIN_NOTE = ""
+    POOL = True
+    LAZY_CEGB = False
 
     def __init__(self, dataset: Dataset, config: Config,
                  device: torch.device, ops: str = "kernel"):
-        check_slice(config)
+        check_tree_learner(config)
         if ops not in ("kernel", "plain"):
             raise ValueError(f"ops must be 'kernel' or 'plain', got {ops!r}")
         self.dataset = dataset
         self.config = config
         self.device = torch.device(device)
         self.plain = ops == "plain" or self.device.type == "cpu"
-        self.meta = feature_meta_from_dataset(dataset)
+        self.meta = feature_meta_from_dataset(dataset, config)
         self.has_categorical = dataset_has_categorical(dataset)
         self.params = split_params_from_config(
             config, dataset_any_missing(dataset), self.has_categorical)
+        if self.params.cegb_lazy_on and not self.LAZY_CEGB:
+            log_warning("cegb_penalty_feature_lazy is only supported by "
+                        "the serial tree learner (partitioned learners "
+                        "keep rows physically reordered); ignoring the "
+                        "lazy penalty")
+            on, lazy = cegb_on(config, lazy_ok=False)
+            self.params = self.params._replace(cegb_on=on,
+                                               cegb_lazy_on=lazy)
         # the histograms are over the EFB groups (a feature a group when
         # unbundled); the widest of a feature and a group sets B
         _, _, group_bins = dataset.bundle_maps()
@@ -224,15 +231,25 @@ class LeafwiseLearner:
         self.bundled = dataset.is_bundled
         self.num_groups = dataset.num_groups
         self.num_cols = dataset.num_dense_groups   # bin matrix columns
-        check_pool_mode(config, self.num_groups, self.num_bins_max,
-                        self.num_leaves)
         self.max_depth = int(config.max_depth)
         self.num_features = dataset.num_features
         self.num_data = dataset.num_data
         self.has_monotone = dataset_has_monotone(dataset)
-        self.hist = torch.zeros(
-            (self.num_leaves, self.num_groups, self.num_bins_max, 3),
-            dtype=torch.float32, device=self.device)
+        # a cache row holds the histograms of the dataset's groups
+        self.hist_slots = hist_pool_slots(config, self.num_leaves,
+                                          self.num_groups, self.num_bins_max)
+        self.mem = HistMemory.for_learner(
+            self.hist_slots, self.num_leaves,
+            (self.num_groups, self.num_bins_max, 3), self.device,
+            pool_ok=self.POOL)
+        self.hist = self.mem.hist
+        self.node_rand = NodeRand(config, self.meta.num_bins)
+        self._node = None
+        self.forced_plan = build_forced_plan(dataset, config, _MISSING_CODE)
+        self.cegb = CegbState(
+            self.params, self.meta.cegb_coupled_penalty,
+            self.meta.cegb_lazy_penalty, self.num_data, self.device,
+            self.params.cegb_lazy_on) if self.params.cegb_on else None
         self._meta_all = meta_tensors(self.meta, self.device)
         self._debundler = Debundler(
             self.meta.group, self.meta.offset, self.meta.num_bins,
@@ -243,64 +260,98 @@ class LeafwiseLearner:
                                    has_monotone=self.has_monotone,
                                    big_l=self.num_leaves,
                                    has_cat=self.has_categorical)
+        # CEGB, per-node randomness, a bounded histogram memory and a
+        # forced plan keep the per-phase loop (the JAX package's gate)
         self.fused = learner_fused_kernel_on(
             fused_split_kernel_mode(config.fused_split_kernel),
             eligible=fused_split_eligible(
-                self.params, cache_hists=True, merged=True,
-                extra_trees=bool(config.extra_trees),
+                self.params, cache_hists=self.mem.mode == "cache",
+                merged=True, extra_trees=bool(config.extra_trees),
                 ff_bynode=float(config.feature_fraction_bynode),
                 mv_groups=self.num_groups - self.num_cols,
-                num_leaves=self.num_leaves),
+                num_leaves=self.num_leaves) and not self.forced_plan,
             device=self.device, params=self.params,
             num_bins_max=self.num_bins_max, layout=self.LAYOUT,
             bundled=self.bundled)
 
     def _tree_meta(self, feature_mask: Optional[np.ndarray]):
         """The scan's meta tensors and tables and the fused step's packed
-        tables for one tree's features."""
+        tables for one tree's features; draws the tree's node table
+        (extra_trees, by-node sampling) for every salt of the tree."""
+        keys = self.node_rand.next_tree_keys()
+        self._node = None
+        if keys is not None:
+            rb, nm = self.node_rand.tables(keys, feature_mask,
+                                           2 * self.num_leaves + 1)
+            self._node = node_table(rb, nm, self.num_features, self.device)
         if feature_mask is None:
             return (self._meta_all, self._tables_all) + self._packed_all
         meta_t = meta_tensors(self.meta, self.device, feature_mask)
         return (meta_t, scan_meta_tables(meta_t)) + pack_meta_tables(
             self.meta, feature_mask, self.device)
 
-    def _scan(self, hists, leaves, meta_t, tables) -> torch.Tensor:
+    def _feature_hist(self, hist, sums):
+        """A leaf's per-feature histograms (debundled from its totals
+        when the dataset is bundled)."""
+        if not self.bundled:
+            return hist
+        return debundle_leaf_hists(self._debundler, [hist], [sums])[0]
+
+    def _scan(self, hists, leaves, meta_t, tables, salts=(0, 0)
+              ) -> torch.Tensor:
         """Both children's (or the root's) per-feature table: the
-        numerical scan (the kernel, or its plain version), merged with
+        numerical scan (the kernel, or its plain version) with each
+        leaf's row of the tree's node table (``salts``), merged with
         the categorical search when the dataset has categorical
         features. An EFB dataset's group histograms are debundled into
         per-feature histograms first (JAX partitioned.py:430-434,
         split_step.py:425-440), each from its own leaf's totals."""
         if self.bundled:
             hists = debundle_leaf_hists(self._debundler, hists, leaves)
+        node = self._node
         if self.plain:
             table = per_feature_numerical_plain(hists, leaves, meta_t,
-                                                self.params)
+                                                self.params, node, salts)
         else:
             table = per_feature_numerical_cuda(hists, leaves, meta_t,
-                                               self.params, tables)
-        return per_feature_splits(table, hists, leaves, meta_t, self.params)
+                                               self.params, tables,
+                                               node=node, salts=salts)
+        nm = None if node is None or not self.params.has_categorical \
+            else torch.stack([m for _, m in node_rows(node,
+                                                      salts[:len(hists)])])
+        return per_feature_splits(table, hists, leaves, meta_t, self.params,
+                                  nm)
 
     def _root_scan(self, root_hist, meta_t, tables):
-        """Cache the root's histogram and scan it; returns the scan
-        table and the root's (g, h, count). The root's one host read is
-        its sums, which the scan takes as scalars."""
-        self.hist[0] = root_hist
+        """Keep the root's histogram and scan it; returns the scan
+        table (penalized, with CEGB) and the root's (g, h, count). The
+        root's one host read is its sums, which the scan takes as
+        scalars."""
+        self.mem.start_tree(root_hist, self.num_leaves)
         sums = root_hist[0].sum(dim=0).cpu().numpy()
         root = (f32(sums[0]), f32(sums[1]), f32(sums[2]))
         inf = f32(np.inf)
         table = self._scan([root_hist], [root + (-inf, inf)], meta_t,
-                           tables)[0]
+                           tables, (0,))[0]
+        if self.cegb is not None:
+            table = torch.from_numpy(self.cegb.root(table.cpu().numpy(),
+                                                    root[2]))
         return table, root
 
     def _grow_host(self, st, ops: SplitOps, imeta) -> int:
-        """The per-phase split loop over host-side ``S``/``T``; returns
-        k."""
+        """The per-phase split loop over host-side ``S``/``T``: the
+        forced plan's splits first (the first that fails ends the plan),
+        then the best open leaf's until none gains; returns k."""
+        kw = dict(imeta=imeta, params=self.params, big_l=self.num_leaves,
+                  max_depth=self.max_depth, has_monotone=self.has_monotone,
+                  cegb=self.cegb)
         k = 1
-        while split_step_host(self.pack, st, self.hist, k, ops, imeta=imeta,
-                              params=self.params, big_l=self.num_leaves,
-                              max_depth=self.max_depth,
-                              has_monotone=self.has_monotone):
+        for step in self.forced_plan:
+            if not split_step_host(self.pack, st, self.mem, k, ops,
+                                   forced=(step, self._feature_hist), **kw):
+                break
+            k += 1
+        while split_step_host(self.pack, st, self.mem, k, ops, **kw):
             k += 1
         return k
 
@@ -348,6 +399,8 @@ class PartitionedTreeLearner(LeafwiseLearner):
         else:
             w = bag_weight[rids]
             pack_gh(self.mat, f, grad[rids] * w, hess[rids] * w, w)
+        if self.cegb is not None:
+            self.cegb.start_tree(self.num_leaves)
         table, root = self._root_scan(
             segment_histogram(self.mat, 0, n, self.num_bins_max, f,
                               plain=self.plain, max_count=n), meta_t, tables)
@@ -392,7 +445,8 @@ class PartitionedTreeLearner(LeafwiseLearner):
         im = imeta.cpu().numpy()
         ops = segment_split_ops(
             self.mat, self.ws, im, self.num_bins_max, self.num_cols,
-            lambda hists, leaves: self._scan(hists, leaves, meta_t, tables),
+            lambda hists, leaves, salts: self._scan(hists, leaves, meta_t,
+                                                    tables, salts),
             plain=self.plain, bundled=self.bundled)
         return st, self._grow_host(st, ops, im)
 

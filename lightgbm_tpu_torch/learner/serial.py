@@ -49,9 +49,13 @@ adds its pseudo-groups' histograms from the slot matrix
 card), concatenated after the dense groups' on the group axis (JAX
 serial.py:786-800).
 
-Out of the slice (``NotImplementedError`` naming the ROADMAP item):
-more than 1024 bins, pool-bounded histogram memory, CEGB and extra
-trees (``check_slice``, shared with the partitioned learner).
+The per-phase loop also runs extra_trees, by-node sampling, CEGB
+(with the lazy penalty: its ``[N, F]`` charged matrix lives here, on the
+device), forced splits and, when the histogram cache does not fit
+``histogram_pool_size``, both children rebuilt every split
+(``cache_hists=False`` of the JAX package; ``learner/grow_extras.py``).
+More than 1024 bins raises ``NotImplementedError`` naming the ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -84,6 +88,11 @@ class SerialTreeLearner(LeafwiseLearner):
     LAYOUT = "leaf"
     SI_PREFIX = ()
     BIN_NOTE = "(the serial learner takes up to 1024)"
+    # the JAX serial learner rebuilds both children when the cache does
+    # not fit (no pool), and keeps the lazy CEGB penalty: its rows stay
+    # where they are
+    POOL = False
+    LAZY_CEGB = True
 
     def __init__(self, dataset: Dataset, config: Config,
                  device: torch.device, ops: str = "kernel"):
@@ -131,6 +140,11 @@ class SerialTreeLearner(LeafwiseLearner):
         ghc = make_ghc(grad.to(torch.float32), hess.to(torch.float32),
                        bag_weight)
         self.leaf_id.zero_()
+        if self.cegb is not None:
+            used = torch.ones(self.num_data, dtype=torch.bool,
+                              device=self.device) if bag_weight is None \
+                else bag_weight > 0
+            self.cegb.start_tree(self.num_leaves, self.leaf_id, used)
         table, root = self._root_scan(self._histogram(ghc), meta_t, tables)
         st = root_state(self.pack, table, *root, self.num_data,
                         self.params, self.num_leaves)
@@ -169,7 +183,8 @@ class SerialTreeLearner(LeafwiseLearner):
         im = imeta.cpu().numpy()
         ops = leaf_split_ops(
             self.leaf_id, self.binned, ghc, im, self.num_bins_max,
-            lambda hists, leaves: self._scan(hists, leaves, meta_t, tables),
+            lambda hists, leaves, salts: self._scan(hists, leaves, meta_t,
+                                                    tables, salts),
             partial=self._partial, bundled=self.bundled,
             mv=(self.mv_slots, self.mv_groups, self._mv_partial)
             if self.mv_groups else None)

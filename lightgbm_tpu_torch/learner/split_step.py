@@ -36,7 +36,7 @@ same bits.
 from __future__ import annotations
 
 import os
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -450,71 +450,99 @@ class SplitOps(NamedTuple):
     two children: moves the leaf's rows (the segment layout: a stable
     partition of its segment, ``part`` holds the child segments on the
     device) or relabels them (the leaf layout: ``leaf_id`` in place);
-    histogram(part, small_left) -> [F, B, 3] of the smaller child;
-    scan(hists, leaves) -> [2, F, 8] tables;
+    histogram(part, left) -> [G, B, 3] of the left (or right) child;
+    scan(hists, leaves, salts) -> [2, F, 8] tables (``salts`` the
+    leaves' node-randomness salts);
     extra_i(part) -> (left, right) dicts of the layout's extra int state
     fields (the segment bounds ``leaf_begin``/``leaf_cnt``; none for the
-    leaf layout), read on the host after the scans are enqueued."""
+    leaf layout), read on the host after the scans are enqueued;
+    leaf_histogram(leaf, site) -> [G, B, 3] of an existing leaf, built
+    from its rows (the bounded histogram memory's forced splits)."""
     partition: Callable
     histogram: Callable
     scan: Callable
     extra_i: Callable
+    leaf_histogram: Optional[Callable] = None
 
 
-def split_step_host(pack: StatePack, st: dict, hist: torch.Tensor, k: int,
+def split_step_host(pack: StatePack, st: dict, mem, k: int,
                     ops: SplitOps, *, imeta: np.ndarray, params,
-                    big_l: int, max_depth: int, has_monotone: bool) -> bool:
+                    big_l: int, max_depth: int, has_monotone: bool,
+                    cegb=None, forced=None) -> bool:
     """Split ``k`` (the new leaf's id) of the packed state ``st``
-    ({"S", "T"}) and the histogram cache ``hist``, in place. Returns
-    False, and changes nothing, when the grow loop's condition fails:
-    ``k < L`` and the best open gain > 0 (lightgbm_tpu/learner/
-    partitioned.py:563-568, serial.py:1035-1041). ``imeta`` is the host
-    [F, 8] metadata table. The host reads the scan tables (and the
-    layout's child records) once, after every op of the split is
-    enqueued. One bookkeeping serves both layouts; ``ops`` carries what
-    differs."""
+    ({"S", "T"}) and the histogram memory ``mem``
+    (``grow_extras.HistMemory``), in place. Returns False, and changes
+    nothing, when the grow loop's condition fails: ``k < L`` and the
+    best open gain > 0 (lightgbm_tpu/learner/partitioned.py:563-568,
+    serial.py:1035-1041). ``imeta`` is the host [F, 8] metadata table.
+    The host reads the scan tables (and the layout's child records)
+    once, after every op of the split is enqueued. One bookkeeping
+    serves both layouts; ``ops`` carries what differs.
+
+    ``forced`` = (``ForcedStep``, feature_hist) splits the step's leaf
+    as the plan says (feature_hist(hist, leaf sums) gives a leaf's
+    per-feature histograms), or returns False when a side would be
+    empty (the caller then drops the rest of the plan; JAX
+    partitioned.py:790-810). ``cegb`` (``CegbState``) penalizes the
+    children's tables and keeps its bookkeeping."""
     if k >= big_l:
         return False
-    gains = pack.row_f(st, "bs_gain")[:k].cpu().numpy()
-    if not gains.max() > 0.0:
-        return False
-    leaf = int(np.argmax(gains))
+    if forced is None:
+        gains = pack.row_f(st, "bs_gain")[:k].cpu().numpy()
+        if not gains.max() > 0.0:
+            return False
+        leaf = int(np.argmax(gains))
+    else:
+        leaf = int(forced[0].leaf)
     new, s = k, k - 1
     site = pack.read_site(st, leaf)
     site["bs_bitset"] = st["bs_bitset"][leaf].numpy().view(np.uint32).copy() \
         if "bs_bitset" in st else np.zeros(MAX_CAT_WORDS, np.uint32)
+    inf = f32(np.inf)
+    pcmin = site.get("leaf_cmin", -inf)
+    pcmax = site.get("leaf_cmax", inf)
+    if forced is not None:
+        from .grow_extras import forced_split, forced_sums
+        step, feature_hist = forced
+        fh = feature_hist(mem.leaf_hist(leaf, site, ops),
+                          (site["leaf_g"], site["leaf_h"], site["leaf_c"]))
+        lg, lh, lc = forced_sums(fh[step.feat], step)
+        kEps = f32(kEpsilon)
+        if not (lh > kEps and site["leaf_h"] - lh > kEps):
+            return False
+        site.update(forced_split(step, lg, lh, lc, site["leaf_g"],
+                                 site["leaf_h"], pcmin, pcmax, params))
     feat, thr = int(site["bs_feat"]), int(site["bs_thr"])
     dleft, is_cat = bool(site["bs_dleft"]), bool(site["bs_iscat"])
     lg, lh, lc = site["bs_lg"], site["bs_lh"], site["bs_lc"]
     pg, ph, pc = site["leaf_g"], site["leaf_h"], site["leaf_c"]
     rg, rh, rc = pg - lg, ph - lh, pc - lc
     lout, rout = site["bs_lout"], site["bs_rout"]
-    inf = f32(np.inf)
-    pcmin = site.get("leaf_cmin", -inf)
-    pcmax = site.get("leaf_cmax", inf)
 
-    # the leaf's rows to its children, then the smaller child's
-    # histogram and the sibling by subtraction from the cached parent
+    # the leaf's rows to its children, then their histograms (the
+    # smaller child's, the sibling by subtraction from the cached parent)
     part = ops.partition(site, leaf, new)
-    small_left = bool(lc <= rc)
-    hist_small = ops.histogram(part, small_left)
-    idx_a, idx_b = (leaf, new) if small_left else (new, leaf)
-    hist_other = hist[leaf] - hist_small
-    hist[idx_a] = hist_small
-    hist[idx_b] = hist_other
+    a_is_left, hist_a, hist_b = mem.children(leaf, new, k, part,
+                                             bool(lc <= rc), ops)
+    idx_a, idx_b = (leaf, new) if a_is_left else (new, leaf)
 
     depth = int(site["leaf_depth"]) + 1
     cmin_l, cmax_l, cmin_r, cmax_r = child_constraints(
         int(imeta[feat, IM_MONO]), is_cat, lout, rout, pcmin, pcmax,
         has_monotone)
-    o = order_child_pair(small_left, k, lg, lh, lc, rg, rh, rc, lout, rout,
+    o = order_child_pair(a_is_left, k, lg, lh, lc, rg, rh, rc, lout, rout,
                          cmin_l, cmax_l, cmin_r, cmax_r)
-    out = ops.scan([hist_small, hist_other],
+    out = ops.scan([hist_a, hist_b],
                    [(o["ga"], o["ha"], o["ca"], o["cmin_a"], o["cmax_a"]),
-                    (o["gb"], o["hb"], o["cb"], o["cmin_b"], o["cmax_b"])])
+                    (o["gb"], o["hb"], o["cb"], o["cmin_b"], o["cmax_b"])],
+                   (o["salt_a"], o["salt_b"]))
     # the split's one host read: both scan tables (+ the child records)
     table = out.cpu().numpy()
     extra = ops.extra_i(part)
+    raw = table
+    if cegb is not None:
+        table = cegb.children(raw, (o["ca"], o["cb"]), leaf, new, feat,
+                              (a_is_left, not a_is_left))
     blocked = max_depth > 0 and depth >= max_depth
     cols, bits = [], []
     for tab, ch, side in ((table[0], "a", o["side_a"]),
@@ -535,4 +563,7 @@ def split_step_host(pack: StatePack, st: dict, hist: torch.Tensor, k: int,
     pack.set_tree_col(st, s, treef, treei, pnode, upd, site["ref_side"])
     pack.set_bitsets(st, idx_a, idx_b, bits[0], bits[1], s,
                      site["bs_bitset"])
+    if cegb is not None:
+        left, right = (raw[0], raw[1]) if a_is_left else (raw[1], raw[0])
+        cegb.after_split(pack, st, left, right, blocked, feat, leaf, new)
     return True

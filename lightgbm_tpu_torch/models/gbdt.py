@@ -18,7 +18,9 @@ is the JAX package's ``jax.random`` draw for the iteration
 handed to the learner, which packs ``grad * w``, ``hess * w`` and the
 count ``w > 0``. Scores and gradients live on the training device as
 float32 ``[N, k]``; trees live on the host. GOSS, DART and RF are
-subclasses (``models/variants.py``).
+subclasses (``models/variants.py``). With ``linear_tree`` each grown tree
+gets its leaf models (``models/linear.py``) before the leaf refit and
+shrinkage, and the scores add them over the datasets' raw values.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from ..objective import create_objective
 from ..parallel.learners import create_tree_learner
 from ..utils.log import log_fatal, log_info, log_warning
 from ..utils.threefry import Key, fold_in, prng_key, uniform
+from .linear import fit_linear_leaves, linear_leaf_values
 from .tree import Tree, constant_tree
 
 kEpsilon = 1e-15
@@ -140,6 +143,26 @@ class GBDT:
         self._bag_key = prng_key(config.bagging_seed)
         self._bag_label: Optional[torch.Tensor] = None
         self.bag_weight: Optional[torch.Tensor] = None
+        # linear leaves (models/linear.py): fit after each grow, scored
+        # on raw values; off, with a warning, where they cannot be
+        # (JAX gbdt.py:329-359)
+        self._linear_on = bool(config.linear_tree)
+        if self._linear_on:
+            if self.objective is not None \
+                    and self.objective.is_renew_tree_output:
+                log_warning(
+                    "linear_tree is not supported with objective "
+                    f"{self.objective.name()} (its percentile leaf "
+                    "refit overwrites leaf outputs); using constant "
+                    "leaves")
+                self._linear_on = False
+            elif train_data.raw_numeric is None \
+                    or train_data.num_features == 0:
+                log_warning(
+                    "linear_tree needs the raw numeric matrix on a "
+                    "single-device learner (in-memory dense data); "
+                    "using constant leaves")
+                self._linear_on = False
 
     @property
     def num_iterations_trained(self) -> int:
@@ -154,6 +177,11 @@ class GBDT:
     def add_valid(self, valid_data: Dataset, name: str) -> None:
         """A valid set binned with the training set's mappers: its
         metrics and its scores (its init score, or zeros)."""
+        if self._linear_on and valid_data.raw_numeric is None:
+            log_warning(
+                f"valid set {name!r} carries no raw numeric matrix; "
+                "linear_tree falls back to constant leaves")
+            self._linear_on = False
         self.valid_sets.append(valid_data)
         self.valid_names.append(name)
         self.valid_metrics.append(self._metrics_for(valid_data))
@@ -286,6 +314,10 @@ class GBDT:
                     feature_mask=fmask, bag_weight=bag)
             if tree is not None and tree.num_leaves > 1:
                 should_continue = True
+                if self._linear_on:
+                    fit_linear_leaves(tree, self.train_data, self.config,
+                                      leaf_id, grad[:, tid], hess[:, tid],
+                                      bag)
                 self._renew_tree_output(tree, self.train_score[:, tid],
                                         leaf_id)
                 tree.shrink(self.shrinkage_rate)
@@ -351,9 +383,14 @@ class GBDT:
         """Train score += the leaf value of each row's leaf (the learner
         knows every row's leaf); each valid set's by a bin-space walk of
         the tree."""
-        vals = torch.as_tensor(tree.leaf_value.astype(np.float32),
-                               device=self.device)
-        self.train_score[:, tid] += vals[leaf_id]
+        if tree.is_linear:
+            self.train_score[:, tid] += linear_leaf_values(
+                tree, leaf_id, self.train_data.raw_numeric_device(
+                    self.device))
+        else:
+            vals = torch.as_tensor(tree.leaf_value.astype(np.float32),
+                                   device=self.device)
+            self.train_score[:, tid] += vals[leaf_id]
         for vd, vs in zip(self.valid_sets, self.valid_scores):
             tree.predict_binned_add(vs, tid, *_walk_inputs(vd, self.device))
 
@@ -452,6 +489,8 @@ class GBDT:
 
 
 def _walk_inputs(dataset: Dataset, device):
-    """A dataset's bin matrix and multi-val slots (None without
-    multi-val groups) on ``device``: the bin walk's inputs."""
-    return dataset.binned_device(device), dataset.mv_slots_device(device)
+    """A dataset's bin matrix, multi-val slots (None without multi-val
+    groups) and raw values (None without linear_tree) on ``device``:
+    the bin walk's inputs."""
+    return (dataset.binned_device(device), dataset.mv_slots_device(device),
+            dataset.raw_numeric_device(device))

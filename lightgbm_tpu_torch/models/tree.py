@@ -65,9 +65,12 @@ class Tree:
     """Host-side tree (numpy arrays): raw-value and bin-space
     traversal, shrinkage and bias."""
 
-    # piecewise-linear leaves are parsed from model text but not
-    # predicted (ROADMAP.md Queue 1 item 7.5)
+    # piecewise-linear leaf models (models/linear.py): ``leaf_const``
+    # [L], ``leaf_coeff`` [L, C] float64, ``leaf_features`` [L, C] raw
+    # feature columns and, for a tree that knows its dataset,
+    # ``leaf_features_inner`` (-1 padded)
     is_linear = False
+    leaf_const = leaf_coeff = leaf_features = leaf_features_inner = None
 
     def __init__(self, arrays: TreeArrays, dataset=None,
                  shrinkage: float = 1.0):
@@ -132,16 +135,49 @@ class Tree:
             self.offset = np.zeros(len(self.split_feature), np.int32)
 
     # ------------------------------------------------------------------
+    def set_linear(self, feats_inner: np.ndarray, coeff: np.ndarray,
+                   const: np.ndarray, dataset=None) -> None:
+        """Attach per-leaf linear models (``models/linear.py``'s fit):
+        ``feats_inner`` [L, C] -1-padded inner features, trimmed to the
+        widest leaf; a leaf without a model has coeff 0 and its constant
+        as ``const``."""
+        feats_inner = np.asarray(feats_inner, np.int32)
+        cmax = max(int((feats_inner >= 0).sum(axis=1).max(initial=0)), 1)
+        self.leaf_features_inner = np.ascontiguousarray(
+            feats_inner[:, :cmax])
+        self.leaf_coeff = np.asarray(coeff, np.float64)[:, :cmax].copy()
+        self.leaf_const = np.asarray(const, np.float64).copy()
+        lf = self.leaf_features_inner
+        if dataset is not None:
+            real = np.asarray(dataset.real_feature_idx, np.int64)
+            self.leaf_features = np.where(
+                lf >= 0, real[np.clip(lf, 0, max(len(real) - 1, 0))],
+                -1).astype(np.int32)
+        else:
+            self.leaf_features = lf.copy()
+        self.is_linear = True
+
+    def clear_linear(self) -> None:
+        """Back to constant leaves."""
+        self.is_linear = False
+        self.leaf_const = self.leaf_coeff = None
+        self.leaf_features = self.leaf_features_inner = None
+
     def shrink(self, rate: float) -> None:
         """Tree::Shrinkage (tree.h:164-172)."""
         self.leaf_value *= rate
         self.internal_value *= rate
         self.shrinkage *= rate
+        if self.is_linear:
+            self.leaf_coeff = self.leaf_coeff * rate
+            self.leaf_const = self.leaf_const * rate
 
     def add_bias(self, val: float) -> None:
         """Tree::AddBias (tree.h:180-189)."""
         self.leaf_value = self.leaf_value + val
         self.internal_value = self.internal_value + val
+        if self.is_linear:
+            self.leaf_const = self.leaf_const + val
         self.shrinkage = 1.0
 
     def default_left(self, node: int) -> bool:
@@ -175,8 +211,18 @@ class Tree:
 
     # ------------------------------------------------------------------
     def predict(self, data: np.ndarray) -> np.ndarray:
-        """Batch raw-feature prediction (Tree::Predict, tree.h:476)."""
-        return self.leaf_value[self.predict_leaf_index(data)]
+        """Batch raw-feature prediction (Tree::Predict, tree.h:476); a
+        linear tree's leaves evaluate their models (float64 of the
+        float32 chain)."""
+        idx = self.predict_leaf_index(data)
+        if not self.is_linear:
+            return self.leaf_value[idx]
+        import torch
+        from .linear import linear_leaf_values
+        vals = linear_leaf_values(
+            self, torch.as_tensor(idx), torch.as_tensor(
+                np.asarray(data, np.float64)), inner=False)
+        return vals.numpy()
 
     def predict_leaf_index(self, data: np.ndarray) -> np.ndarray:
         return self._walk(data.shape[0], lambda idx, nd: self._decide(
@@ -243,14 +289,16 @@ class Tree:
         return self._walk(binned.shape[0], decide)
 
     def predict_binned_add(self, score, tid: int, binned,
-                           mv_slots=None) -> None:
+                           mv_slots=None, raw=None) -> None:
         """``score[:, tid] += `` each row's float32 leaf value, for a
         train-aligned binned matrix on the device ([N, G] uint8, or the
         int16 bits of uint16 bins; with EFB the group columns, and
         ``mv_slots`` [N, K] int32 for multi-val features): the bin-space
         walk of ``predict_leaf_index_binned`` (the JAX package's
         ``_traverse_binned_add_jax``) for exactly the tree's depth in
-        steps, known on the host, so the device is never read."""
+        steps, known on the host, so the device is never read. A linear
+        tree adds its leaf models over ``raw`` (the dataset's
+        ``raw_numeric_device``)."""
         import torch
         from ..data.bundling import decode_feature_bin
         from ..ops.histogram import multival_node_bins
@@ -298,6 +346,13 @@ class Tree:
                 go_left = torch.where(iscat[nd] != 0, bit == 1, go_left)
             child = torch.where(go_left, left[nd], right[nd])
             node = torch.where(internal, child, node)
+        if self.is_linear:
+            if raw is None:
+                raise ValueError("a linear-leaf tree's bin-space walk "
+                                 "needs the dataset's raw values")
+            from .linear import linear_leaf_values
+            score[:, tid] += linear_leaf_values(self, ~node, raw)
+            return
         score[:, tid] += vals[~node]
 
     def _walk(self, n: int, decide) -> np.ndarray:

@@ -68,10 +68,10 @@ _SIGNATURES = {
     "ltt_partition_segment_profile": [_P, _P, _I, _I, _I, _I, _I, _I, _I,
                                       _I, _I, _I, _P, _P, _I, _P, _I, _P],
     # K, F, B, hist0, hist1, leaf scalars (2 x pg ph pc cmin cmax),
-    # imeta, fmeta, l1, l2, mds, min_data, min_hess, min_gain, out,
-    # stream
+    # imeta, fmeta, l1, l2, mds, min_data, min_hess, min_gain, node0,
+    # node1 (node table rows or null), out, stream
     "ltt_split_scan": [_I, _I, _I, _P, _P] + [_F] * 10
-    + [_P, _P] + [_F] * 6 + [_P, _P],
+    + [_P, _P] + [_F] * 6 + [_P, _P, _P, _P],
     # the same with threads before out, then times (u64 [K, F, 5] or
     # null) before the stream
     "ltt_split_scan_profile": [_I, _I, _I, _P, _P] + [_F] * 10

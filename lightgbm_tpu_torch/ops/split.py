@@ -65,6 +65,9 @@ class FeatureMeta(NamedTuple):
     # bins); None means unbundled (the identity)
     group: Optional[np.ndarray] = None   # int32
     offset: Optional[np.ndarray] = None  # int32
+    # CEGB per-feature penalties (float32 [F]; zeros when unset)
+    cegb_coupled_penalty: Optional[np.ndarray] = None
+    cegb_lazy_penalty: Optional[np.ndarray] = None
 
 
 class SplitParams(NamedTuple):
@@ -87,6 +90,13 @@ class SplitParams(NamedTuple):
     max_cat_to_onehot: int = 4
     min_data_per_group: float = 100.0
     has_categorical: bool = False
+    # cost-effective gradient boosting (``cegb_delta``): on when
+    # cegb_tradeoff > 0 and a penalty is set; the lazy penalty alone
+    # needs the serial learner's [N, F] charged matrix
+    cegb_on: bool = False
+    cegb_lazy_on: bool = False
+    cegb_tradeoff: float = 1.0
+    cegb_penalty_split: float = 0.0
 
 
 class PerFeatureSplits(NamedTuple):
@@ -207,6 +217,13 @@ def _cumsum(x):
     return out.reshape(*x.shape[:-1], nseg * 32)[..., :b].float()
 
 
+def _rand_ok(bins, rand_bins):
+    """[F, B]: the bins a feature may split at under extra_trees (its
+    rand bin; every bin where it is -1)."""
+    rb = rand_bins.to(bins.device).long()[:, None]
+    return (rb < 0) | (bins == rb)
+
+
 def _f32(v, device):
     return torch.as_tensor(np.float32(v), device=device)
 
@@ -214,10 +231,18 @@ def _f32(v, device):
 def per_feature_numerical(hist: torch.Tensor, parent_g, parent_h, parent_c,
                           meta_t: dict, params: SplitParams,
                           constraint_min=NEG_INF,
-                          constraint_max=float("inf")) -> PerFeatureSplits:
+                          constraint_max=float("inf"),
+                          rand_bins: Optional[torch.Tensor] = None,
+                          node_mask: Optional[torch.Tensor] = None
+                          ) -> PerFeatureSplits:
     """Per-feature best numerical split of one leaf (plain version of
     the split-scan kernel; ``ops/split.py:per_feature_numerical`` of the
     JAX package).
+
+    ``rand_bins`` [F] (extra_trees, the reference's IS_RAND paths): a
+    numerical feature's only candidate threshold in both scan
+    directions, -1 for every threshold. ``node_mask`` [F] bool (by-node
+    feature sampling) narrows the feature mask for this leaf.
 
     hist: [F, B, 3] (sum_grad, sum_hess, count) per bin. Parent sums
     and constraints are float32 scalars. ``meta_t`` holds the per-feature
@@ -263,6 +288,8 @@ def per_feature_numerical(hist: torch.Tensor, parent_g, parent_h, parent_c,
         gr_p = pg - lg_p
         cr_p = pc - lc_p
         valid_p = two_scan & (bins <= nb - 2) & ~skip_default
+        if rand_bins is not None:
+            valid_p &= _rand_ok(bins, rand_bins)
         valid_p &= (lc_p >= min_data) & (cr_p >= min_data)
         valid_p &= (hl_p >= min_hess) & (hr_p >= min_hess)
         gains_p = _split_gains(lg_p, hl_p, gr_p, hr_p, p, monotone,
@@ -292,6 +319,8 @@ def per_feature_numerical(hist: torch.Tensor, parent_g, parent_h, parent_c,
                               & (bins == default_bin - 1))
     else:
         valid_m = bins <= nb - 2
+    if rand_bins is not None:
+        valid_m = valid_m & _rand_ok(bins, rand_bins)
     valid_m = valid_m & (cl_m >= min_data) & (rc_m >= min_data)
     valid_m = valid_m & (hl_m >= min_hess) & (hr_m >= min_hess)
     gains_m = _split_gains(gl_m, hl_m, rg_m, hr_m, p, monotone, cmin, cmax)
@@ -319,6 +348,8 @@ def per_feature_numerical(hist: torch.Tensor, parent_g, parent_h, parent_c,
     lg_f, lh_f, lc_f = lf[0], lf[1], lf[2]
 
     feat_valid = torch.isfinite(feat_gain) & (meta_t["fmask"] > 0)
+    if node_mask is not None:
+        feat_valid = feat_valid & node_mask
     feat_score = torch.where(
         feat_valid, (feat_gain - min_gain_shift) * meta_t["penalty"], ninf)
     # default direction: -1 scan => left; 2-bin NaN fix goes right
@@ -377,18 +408,22 @@ def assemble_split(table: np.ndarray) -> SplitResult:
 
 
 def per_feature_splits(table: torch.Tensor, hists, leaves, meta_t: dict,
-                       params: SplitParams) -> torch.Tensor:
+                       params: SplitParams,
+                       node_mask: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """The numerical scan's [K, F, 8] ``table`` of K leaves merged, per
     feature, with the categorical search of the same leaves
     (``per_feature_splits`` of the JAX package): a categorical feature
     takes its categorical score, left sums and outputs, default_left
     False and keeps the scan's threshold; every feature gets the is_cat
     flag and the left bin bitset. Returns [K, F, CAT_TABLE_COLS] on the
-    table's device; the table itself when no feature is categorical."""
+    table's device; the table itself when no feature is categorical.
+    ``node_mask`` [K, F] bool narrows each leaf's categorical features
+    (by-node sampling; the numerical ones are narrowed by the scan)."""
     if not params.has_categorical:
         return table
     from .split_categorical import per_feature_categorical
-    cat = per_feature_categorical(hists, leaves, meta_t, params)
+    cat = per_feature_categorical(hists, leaves, meta_t, params, node_mask)
     use = meta_t["is_cat"][None, :]
     cols = []
     for col, key in ((O_SCORE, "score"), (O_THR, None), (O_LG, "left_g"),

@@ -28,7 +28,7 @@ the JAX function is XLA, not a TPU kernel.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -61,7 +61,9 @@ def _leaf_scalars(leaves: Sequence[tuple], dev) -> list:
 
 def per_feature_categorical(hists: Sequence[torch.Tensor],
                             leaves: Sequence[tuple], meta_t: dict,
-                            params: SplitParams) -> dict:
+                            params: SplitParams,
+                            node_mask: Optional[torch.Tensor] = None
+                            ) -> dict:
     """Best categorical split per feature of K leaves.
 
     ``hists``: K histograms [F, B, 3] (sum_grad, sum_hess, count);
@@ -72,7 +74,9 @@ def per_feature_categorical(hists: Sequence[torch.Tensor],
     than 256 bins or has no valid split), ``left_g``, ``left_h``
     (eps-free), ``left_h_eps`` (with its kEpsilon seed), ``left_c``,
     ``left_output``, ``right_output``, ``default_left`` (0.0) and
-    ``bitset`` [K, F, MAX_CAT_WORDS] int64 (the left side's bins)."""
+    ``bitset`` [K, F, MAX_CAT_WORDS] int64 (the left side's bins).
+    ``node_mask`` [K, F] bool (by-node feature sampling) narrows the
+    mask per leaf, as the JAX package's ``feature_mask`` argument does."""
     h3 = torch.stack(list(hists))                          # [K, F, B, 3]
     k, f, b, _ = h3.shape
     dev = h3.device
@@ -198,6 +202,8 @@ def per_feature_categorical(hists: Sequence[torch.Tensor],
     bits = torch.where(use_onehot[..., None], oh_bits, mm_bits)
     l2_f = torch.where(use_onehot, _f32(p.lambda_l2, dev), _f32(l2m, dev))
     valid = torch.isfinite(best) & meta_t["catmask"][None, :]
+    if node_mask is not None:
+        valid = valid & node_mask
     score = torch.where(valid, (best - min_gain_shift[..., 0])
                         * meta_t["penalty"][None, :], ninf)
     cmin2, cmax2 = cmin[..., 0], cmax[..., 0]

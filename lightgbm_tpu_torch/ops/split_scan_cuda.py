@@ -10,11 +10,17 @@ The result is the ``[K, F, 8]`` table of ``ops/split.py`` (score,
 threshold, left g/h(+kEpsilon)/c, default_left, left and right output).
 The kernel takes 1 to 1024 bins: the partitioned learner's u8 bins and
 the serial learner's u16 bins.
+
+With extra_trees or by-node feature sampling the scan takes the tree's
+node table (``node_table``) and each leaf's salt (0 at the root,
+``2k+1`` / ``2k+2`` for the children of split ``k``): the kernel reads
+the leaf's row, the plain version the same row decoded
+(``node_rows``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -24,6 +30,33 @@ from .split import SplitParams, per_feature_numerical, scan_table
 # bins per feature the kernel takes (csrc/scan_core.cuh kMaxScanBins); the
 # TPU kernel takes B from the histogram's shape
 MAX_SCAN_BINS = 1024
+
+
+def node_table(rand_bins, mask, f: int, device) -> torch.Tensor:
+    """One tree's per-node randomness as the kernel reads it, a row per
+    salt: int32 [S, F] on ``device``, bits 0-15 the rand bin as an int16
+    (-1: every threshold; ``rand_bins`` int [S, F], or None without
+    extra_trees) and bit 16 the node mask (``mask`` bool [S, F], or
+    None without by-node sampling: every feature). Uploaded once a
+    tree."""
+    s = (rand_bins if rand_bins is not None else mask).shape[0]
+    rb = torch.full((s, f), -1, dtype=torch.int64) if rand_bins is None \
+        else torch.as_tensor(rand_bins, dtype=torch.int64)
+    nm = torch.ones((s, f), dtype=torch.int64) if mask is None \
+        else torch.as_tensor(mask, dtype=torch.int64)
+    return ((rb & 0xFFFF) | (nm << 16)).to(torch.int32).to(device)
+
+
+def node_rows(node: Optional[torch.Tensor], salts):
+    """The rows ``salts`` of a node table, decoded: per leaf (rand_bins
+    [F] int64, -1 for every threshold; node_mask [F] bool), or
+    (None, None) a leaf without a table."""
+    if node is None:
+        return [(None, None)] * len(salts)
+    rows = node[[int(x) for x in salts]].long()
+    rb = ((rows & 0xFFFF) ^ 0x8000) - 0x8000
+    nm = ((rows >> 16) & 1) == 1
+    return list(zip(rb, nm))
 
 
 def scan_meta_tables(meta_t: dict):
@@ -39,13 +72,18 @@ def scan_meta_tables(meta_t: dict):
 
 def per_feature_numerical_plain(hists: Sequence[torch.Tensor],
                                 leaves: Sequence[tuple], meta_t: dict,
-                                params: SplitParams) -> torch.Tensor:
+                                params: SplitParams,
+                                node: Optional[torch.Tensor] = None,
+                                salts: Sequence[int] = (0, 0)
+                                ) -> torch.Tensor:
     """Plain version: one ``per_feature_numerical`` per leaf, stacked
-    into the [K, F, 8] table."""
+    into the [K, F, 8] table; with ``node`` (``node_table``), leaf ``i``
+    takes the rand bins and node mask of row ``salts[i]``."""
     return torch.stack([
         scan_table(per_feature_numerical(h, *leaf[:3], meta_t, params,
-                                         leaf[3], leaf[4]))
-        for h, leaf in zip(hists, leaves)])
+                                         leaf[3], leaf[4], rb, nm))
+        for h, leaf, (rb, nm) in zip(hists, leaves,
+                                     node_rows(node, salts))])
 
 
 def _leaf_count(hists, leaves) -> int:
@@ -83,22 +121,36 @@ def _scan_args(hists, leaves, meta_t, params, tables):
 
 def per_feature_numerical_cuda(hists: Sequence[torch.Tensor],
                                leaves: Sequence[tuple], meta_t: dict,
-                               params: SplitParams, tables=None
+                               params: SplitParams, tables=None,
+                               node: Optional[torch.Tensor] = None,
+                               salts: Sequence[int] = (0, 0)
                                ) -> torch.Tensor:
     """Best threshold per feature of K = len(hists) leaves (1 or 2).
 
     ``hists``: [F, B, 3] f32 each; ``leaves``: per leaf
     ``(parent_g, parent_h, parent_c, cmin, cmax)`` float32 scalars (host
     values, passed to the kernel by value). ``tables`` optionally
-    supplies ``scan_meta_tables(meta_t)`` built once by the caller."""
-    _leaf_count(hists, leaves)
+    supplies ``scan_meta_tables(meta_t)`` built once by the caller.
+    ``node`` (``node_table``) and ``salts`` (a salt a leaf) select each
+    leaf's row of the tree's node table."""
+    k = _leaf_count(hists, leaves)
     dev = hists[0].device
     if dev.type == "cpu":
-        return per_feature_numerical_plain(hists, leaves, meta_t, params)
+        return per_feature_numerical_plain(hists, leaves, meta_t, params,
+                                           node, salts)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out, args = _scan_args(hists, leaves, meta_t, params, tables)
-    err = _native.library().ltt_split_scan(*args, out.data_ptr(),
+    rows = (0, 0)
+    if node is not None:
+        f = hists[0].shape[0]
+        _native.require(node, device=dev, dtype=torch.int32, name="node")
+        if node.dim() != 2 or node.shape[1] != f \
+                or not all(0 <= int(s) < node.shape[0] for s in salts[:k]):
+            raise ValueError("node table rows do not fit the scan")
+        rows = tuple(node.data_ptr() + int(salts[min(i, k - 1)]) * f * 4
+                     for i in range(2))
+    err = _native.library().ltt_split_scan(*args, *rows, out.data_ptr(),
                                            _native.stream_of(hists[0]))
     _native.LAUNCHES["split_scan"] += 1
     _native.check(err, "split_scan")

@@ -221,14 +221,19 @@ def segment_split_ops(mat, ws, imeta: np.ndarray, b: int, f: int, scan, *,
                       None if lut is None else lut.to(mat.device))
         return seg, cnt
 
-    def child_histogram(part, small_left):
+    def child_histogram(part, left):
         seg, cnt = part
-        bounds = seg[0:2] if small_left else seg[2:4]
+        bounds = seg[0:2] if left else seg[2:4]
         if histogram is not None:
             begin, count = (int(v) for v in bounds.tolist())
             return histogram(mat, begin, count, cnt)
         return segment_histogram(mat, bounds, None, b, f, plain=plain,
                                  max_count=cnt)
+
+    def leaf_histogram(leaf, site):
+        cnt = int(site["leaf_cnt"])
+        return segment_histogram(mat, int(site["leaf_begin"]), cnt, b, f,
+                                 plain=plain, max_count=cnt)
 
     def extra_i(part):
         sg = part[0].cpu().numpy()
@@ -236,7 +241,8 @@ def segment_split_ops(mat, ws, imeta: np.ndarray, b: int, f: int, scan, *,
                      for i in (0, 2))
 
     return SplitOps(partition=partition, histogram=child_histogram,
-                    scan=scan, extra_i=extra_i)
+                    scan=scan, extra_i=extra_i,
+                    leaf_histogram=leaf_histogram)
 
 
 def fused_split_step_segment_plain(k, S, T, mat, ws, hist, imeta, fmeta, *,
@@ -253,6 +259,7 @@ def fused_split_step_segment_plain(k, S, T, mat, ws, hist, imeta, fmeta, *,
     max_count)`` replaces ``histogram_segment_plain`` for the smaller
     child when given (the card's check feeds it the per-phase kernel, so
     the rest of the step can be held bit for bit)."""
+    from ..learner.grow_extras import HistMemory
     from ..learner.split_step import (SEG_SI_PREFIX, make_grow_pack,
                                       split_step_host)
     pack = make_grow_pack(SEG_SI_PREFIX, has_monotone=has_monotone,
@@ -262,9 +269,10 @@ def fused_split_step_segment_plain(k, S, T, mat, ws, hist, imeta, fmeta, *,
     meta_t = meta_from_tables(imeta, fmeta)
     ops = segment_split_ops(
         mat, ws, im, b, f,
-        lambda hists, leaves: per_feature_numerical_plain(
+        lambda hists, leaves, salts: per_feature_numerical_plain(
             hists, leaves, meta_t, params), plain=True, histogram=histogram)
-    if split_step_host(pack, st, hist, int(k[0]), ops, imeta=im,
+    if split_step_host(pack, st, HistMemory("cache", hist), int(k[0]), ops,
+                       imeta=im,
                        params=params, big_l=big_l, max_depth=max_depth,
                        has_monotone=has_monotone):
         S.copy_(st["S"])
@@ -429,7 +437,7 @@ def leaf_split_ops(lid, binned, ghc, imeta: np.ndarray, b: int, scan,
     (``decode_feature_bin``), or for a multi-val feature its bins read
     from the slots of the leaf's rows (``multival_feature_bins``; JAX
     serial.py:1084-1108 decodes every row).
-    The smaller child's histogram is, with ``partial`` (the kernel's
+    A child's (or a leaf's) histogram is, with ``partial`` (the kernel's
     float64 scratch: the card), the ``hist_rows`` kernel over the child's
     row ids in row order, else ``build_histogram`` over masked ghc (the
     plain version, the JAX twin's formulation; rows with zero ghc add
@@ -472,9 +480,11 @@ def leaf_split_ops(lid, binned, ghc, imeta: np.ndarray, b: int, scan,
                              bool(site["bs_iscat"]), site["bs_bitset"]))
         return leaf, new
 
-    def histogram(part, small_left):
-        small = part[0] if small_left else part[1]
-        in_small = lid == small
+    def histogram(part, left):
+        return rows_histogram(part[0] if left else part[1])
+
+    def rows_histogram(leaf):
+        in_small = lid == leaf
         if partial is not None:
             ids = torch.nonzero(in_small).flatten().to(torch.int32)
             h = histogram_rows(binned, ghc, b, ids, partial=partial)
@@ -493,7 +503,8 @@ def leaf_split_ops(lid, binned, ghc, imeta: np.ndarray, b: int, scan,
         return torch.cat([h, hm])
 
     return SplitOps(partition=partition, histogram=histogram, scan=scan,
-                    extra_i=lambda part: ({}, {}))
+                    extra_i=lambda part: ({}, {}),
+                    leaf_histogram=lambda leaf, site: rows_histogram(leaf))
 
 
 def fused_split_step_leaf_plain(k, S, T, lid, hist, binned, ghc, imeta,
@@ -504,6 +515,7 @@ def fused_split_step_leaf_plain(k, S, T, lid, hist, binned, ghc, imeta,
     ``S``, ``T``, ``lid`` and ``hist``: the serial learner's per-phase
     bookkeeping (``split_step_host``) with ``leaf_split_ops``. ``S``,
     ``T`` and ``k`` are read on the host and written back."""
+    from ..learner.grow_extras import HistMemory
     from ..learner.split_step import make_grow_pack, split_step_host
     pack = make_grow_pack((), has_monotone=has_monotone, big_l=big_l)
     st = {"S": S.cpu().clone(), "T": T.cpu().clone()}
@@ -511,9 +523,10 @@ def fused_split_step_leaf_plain(k, S, T, lid, hist, binned, ghc, imeta,
     meta_t = meta_from_tables(imeta, fmeta)
     ops = leaf_split_ops(
         lid, binned, ghc, im, b,
-        lambda hists, leaves: per_feature_numerical_plain(
+        lambda hists, leaves, salts: per_feature_numerical_plain(
             hists, leaves, meta_t, params))
-    if split_step_host(pack, st, hist, int(k[0]), ops, imeta=im,
+    if split_step_host(pack, st, HistMemory("cache", hist), int(k[0]), ops,
+                       imeta=im,
                        params=params, big_l=big_l, max_depth=max_depth,
                        has_monotone=has_monotone):
         S.copy_(st["S"])

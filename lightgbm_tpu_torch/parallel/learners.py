@@ -11,10 +11,10 @@ tests, the JAX package sends ``serial`` to its ``SerialTreeLearner``
 whatever the bins; this is the one place where the port departs from the
 JAX package's CPU routing. A multi-val dataset (EFB pseudo-groups
 without a matrix column) pins the serial learner, as in the JAX package
-(``learners.py:641, 655``); ``partitioned`` refuses it. Lazy CEGB, which
-pins the JAX package's serial learner too, is outside the port's slices
-and refused by the learners. The data, feature and voting learners are
-ROADMAP Queue 1 item 8.
+(``learners.py:641, 655``); ``partitioned`` refuses it. The lazy CEGB
+penalty pins the serial learner too (``learners.py:640, 655``: its
+charged rows stay in place); ``partitioned`` drops it with a warning.
+The data, feature and voting learners are ROADMAP Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch
 
 from ..config import Config
 from ..data.dataset import Dataset
+from ..learner.grow_extras import cegb_on
 from ..learner.partitioned import PartitionedTreeLearner, _reject
 from ..learner.serial import SerialTreeLearner
 
@@ -33,7 +34,8 @@ def create_tree_learner(learner_type: str, dataset: Dataset, config: Config,
     if learner_type not in ("serial", "partitioned"):
         _reject(f"tree_learner={learner_type}", "Queue 1 item 8")
     fits_u8 = int(dataset.num_bins_array().max(initial=2)) <= 256
-    if learner_type == "partitioned" or (fits_u8
+    lazy_on = cegb_on(config)[1]
+    if learner_type == "partitioned" or (fits_u8 and not lazy_on
                                          and not dataset.has_multival):
         return PartitionedTreeLearner(dataset, config, device, ops=ops)
     return SerialTreeLearner(dataset, config, device, ops=ops)

@@ -12,6 +12,10 @@ with NumericalDecision / CategoricalDecision semantics (tree.h:250-300).
 Tree ``i`` adds to output column ``i % k`` in tree order, as the JAX
 host loop adds, so raw scores equal JAX's to the bit.
 
+A linear-leaf tree's output is its leaf model over the row's raw
+features (``models/linear.py``: the JAX host route's float32 add chain,
+widened to float64 before the tree's add).
+
 Prediction early stopping (``pred_early_stop``, JAX
 ``predictor.py:140 _predict_raw_early_stop``) keeps the live rows'
 index on the device and reads one count a period of ``freq * k``
@@ -166,12 +170,27 @@ def predict_raw(models: List, data, device, k: int = 1) -> torch.Tensor:
         return raw
     stacked = stack_trees(models, device)
     for lo, hi in _row_chunks(n, len(models)):
-        vals = torch.gather(stacked["leaf"], 1,
-                            predict_leaf_index(stacked, x[lo:hi]))
+        vals = leaf_values(stacked, models, x[lo:hi])
         acc = raw[lo:hi]
         for i in range(vals.shape[0]):
             acc[:, i % k] += vals[i]
     return raw
+
+
+def leaf_values(stacked: dict, models: List, x: torch.Tensor
+                ) -> torch.Tensor:
+    """[T, N] float64: each tree's output for the float64 rows ``x``,
+    its leaf's value or, for a linear tree, its leaf model's float32
+    ``const + w . x`` (``models/linear.py:linear_values``, the JAX host
+    route's add chain) widened to float64."""
+    idx = predict_leaf_index(stacked, x)
+    vals = torch.gather(stacked["leaf"], 1, idx)
+    if any(m.is_linear for m in models):
+        from .models.linear import linear_leaf_values
+        for i, m in enumerate(models):
+            if m.is_linear:
+                vals[i] = linear_leaf_values(m, idx[i], x, inner=False)
+    return vals
 
 
 def predict_leaf(models: List, data, device) -> torch.Tensor:
@@ -245,8 +264,7 @@ def predict_raw_early_stop(src, models: List, data, device, k: int,
         sub = _slice_stacked(stacked, lo, hi)
         acc = raw if live is None else raw[live]
         for clo, chi in _row_chunks(rows.shape[0], hi - lo):
-            vals = torch.gather(sub["leaf"], 1,
-                                predict_leaf_index(sub, rows[clo:chi]))
+            vals = leaf_values(sub, models[lo:hi], rows[clo:chi])
             part = acc[clo:chi]
             for i in range(vals.shape[0]):
                 part[:, (lo + i) % k] += vals[i]
@@ -438,10 +456,6 @@ def predict(src, data, device, num_iteration=None, start_iteration: int = 0,
     if pred_contrib:
         return predict_contrib(models, data, device,
                                src.num_tree_per_iteration)
-    if any(m.is_linear for m in models):
-        raise NotImplementedError(
-            "linear-leaf trees are not predicted by the port yet "
-            "(ROADMAP.md Queue 1 item 7.5)")
     if pred_leaf:
         return predict_leaf(models, data, device)
     k = src.num_tree_per_iteration

@@ -1029,3 +1029,122 @@ def test_bundled_training_kernels_match_plain(dev, case):
             np.testing.assert_array_equal(getattr(a, name),
                                           getattr(b, name), err_msg=name)
         np.testing.assert_array_equal(a.leaf_value, b.leaf_value)
+
+
+# ---- the scan's node table and the rest of tree growing ----------------
+
+def _node_scan_inputs(dev, b, f=10, n=40_000):
+    from lightgbm_tpu_torch.ops import split as sp
+    from lightgbm_tpu_torch.ops.histogram import build_histogram
+    g = torch.Generator(device=dev).manual_seed(b + 7)
+    binned = torch.randint(0, b, (n, f), generator=g, device=dev)
+    ghc = torch.stack([torch.randn(n, generator=g, device=dev)
+                       + (binned[:, 0] > b // 2).float(),
+                       torch.rand(n, generator=g, device=dev) + 0.1,
+                       torch.ones(n, device=dev)], dim=1)
+    hists = [build_histogram(binned[:n // 3], ghc[:n // 3], b),
+             build_histogram(binned[n // 3:], ghc[n // 3:], b)]
+    leaves = [tuple(h[0].sum(0).cpu().numpy()) + (-np.inf, np.inf)
+              for h in hists]
+    meta = sp.FeatureMeta(
+        num_bins=np.full(f, b, np.int32),
+        missing=(np.arange(f) % 3).astype(np.int32),
+        default_bin=np.full(f, b // 3, np.int32),
+        most_freq_bin=np.zeros(f, np.int32),
+        monotone=np.zeros(f, np.int32), penalty=np.ones(f, np.float32),
+        is_categorical=np.zeros(f, bool))
+    params = sp.SplitParams(0.0, 1.0, 0.0, 20.0, 1e-3, 0.0, True)
+    return hists, leaves, sp.meta_tensors(meta, dev), params
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("b", [64, 255, 1023])
+def test_scan_kernel_node_table_matches_plain(dev, b, k):
+    """The scan with a node table (each leaf's rand bins, -1 in one row,
+    and node masks) against its plain version with the same rows: every
+    column of the table bitwise."""
+    from lightgbm_tpu_torch.ops import split as sp
+    from lightgbm_tpu_torch.ops import split_scan_cuda as sc
+    hists, leaves, meta_t, params = _node_scan_inputs(dev, b)
+    f = hists[0].shape[0]
+    rng = np.random.RandomState(b * 10 + k)
+    rb = rng.randint(0, b - 2, (6, f))
+    rb[2] = -1
+    nm = rng.rand(6, f) < 0.5
+    for rbs, nms in ((rb, None), (None, nm), (rb, nm)):
+        node = sc.node_table(rbs, nms, f, dev)
+        for salts in ((1, 4), (2, 0), (5, 3)):
+            out = sc.per_feature_numerical_cuda(
+                hists[:k], leaves[:k], meta_t, params, node=node,
+                salts=salts[:k])
+            ref = sc.per_feature_numerical_plain(
+                hists[:k], leaves[:k], meta_t, params, node, salts[:k])
+            assert _same_bytes(out, ref), (b, k, salts)
+            if rbs is not None:
+                thr = out[..., sp.O_THR].long().cpu().numpy()
+                fin = np.isfinite(out[..., sp.O_SCORE].cpu().numpy())
+                for i in range(k):
+                    row = rbs[salts[i]]
+                    sel = fin[i] & (row >= 0)
+                    assert (thr[i][sel] == row[sel]).all()
+
+
+@pytest.mark.parametrize("b", [64, 255, 1023])
+def test_scan_kernel_pass_table_is_no_table(dev, b):
+    """A node table that keeps every threshold and every feature gives
+    the scan without a table, bit for bit (the fused steps pass none)."""
+    from lightgbm_tpu_torch.ops import split_scan_cuda as sc
+    hists, leaves, meta_t, params = _node_scan_inputs(dev, b)
+    f = hists[0].shape[0]
+    node = sc.node_table(np.full((3, f), -1), np.ones((3, f), bool), f,
+                         dev)
+    out = sc.per_feature_numerical_cuda(hists, leaves, meta_t, params,
+                                        node=node, salts=(0, 2))
+    ref = sc.per_feature_numerical_cuda(hists, leaves, meta_t, params)
+    assert _same_bytes(out, ref)
+
+
+EXTRAS_CASES = {
+    "extra_255": {"extra_trees": True},
+    "extra_600": {"extra_trees": True, "max_bin": 600},
+    "bynode": {"feature_fraction": 0.8, "feature_fraction_bynode": 0.5},
+    "cegb": {"cegb_penalty_split": 1e-5,
+             "cegb_penalty_feature_coupled": [1.0 + 0.5 * i
+                                              for i in range(8)]},
+    "lazy": {"cegb_penalty_feature_lazy": [1e-3] * 8},
+    "pool": {"histogram_pool_size": 4.5 * 8 * 256 * 12 / 2 ** 20},
+    "rebuild_600": {"histogram_pool_size": 0.01, "max_bin": 600},
+    "linear": {"linear_tree": True},
+}
+
+
+@pytest.mark.parametrize("case", list(EXTRAS_CASES))
+def test_extras_training_kernels_match_plain(dev, case):
+    """Training with each option of the rest of tree growing (and
+    linear leaves) through the kernels against the same run through the
+    plain versions on the card: the same trees, leaf values and linear
+    models to the bit, on the per-phase path (linear: the fused one)."""
+    import lightgbm_tpu_torch as lt
+    rng = np.random.RandomState(5)
+    X = rng.randn(30_000, 8)
+    X[rng.rand(30_000) < 0.1, 2] = np.nan
+    y = (X[:, 0] - X[:, 1] + 0.5 * np.nan_to_num(X[:, 2])
+         + 0.3 * rng.randn(30_000) > 0).astype(np.float32)
+    p = dict({"objective": "binary", "num_leaves": 15, "verbosity": -1,
+              "learning_rate": 0.2}, **EXTRAS_CASES[case])
+    kb = lt.train(p, lt.Dataset(X, label=y), 3, device=dev)
+    pb = lt.train(p, lt.Dataset(X, label=y), 3, device=dev, ops="plain")
+    assert kb._gbdt.learner.fused == (case == "linear")
+    for a, b in zip(kb.models, pb.models):
+        assert a.num_leaves == b.num_leaves > 1
+        for name in ("split_feature_inner", "threshold_bin",
+                     "decision_type", "left_child", "right_child"):
+            np.testing.assert_array_equal(getattr(a, name),
+                                          getattr(b, name), err_msg=name)
+        np.testing.assert_array_equal(a.leaf_value, b.leaf_value)
+        assert a.is_linear == b.is_linear == (case == "linear")
+        if a.is_linear:
+            np.testing.assert_array_equal(a.leaf_coeff, b.leaf_coeff)
+            np.testing.assert_array_equal(a.leaf_const, b.leaf_const)
+    np.testing.assert_array_equal(kb.predict(X[:5000], raw_score=True),
+                                  pb.predict(X[:5000], raw_score=True))

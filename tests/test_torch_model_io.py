@@ -358,19 +358,24 @@ def _linear_text(text):
 
 
 def test_linear_trees_parse_but_do_not_predict(trained):
+    """The name is from before Queue 1 item 7.5: a linear-leaf tree in
+    the model text now parses, writes the JAX writer's text and predicts
+    what the JAX predictor predicts (its constant leaves here; the
+    trained linear models in tests/test_torch_linear.py)."""
     X, _, _, text = trained
     lin = _linear_text(text)
     bst = lt.Booster(model_str=lin, device="cpu")
     assert bst.models[0].is_linear and not bst.models[1].is_linear
-    _assert_same_text(bst.model_to_string(),
-                      lgb.Booster(model_str=lin).model_to_string())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7.5"):
-        bst.predict(X)
-    # the iterations past the linear tree still predict
-    np.testing.assert_array_equal(
-        bst.predict(X, raw_score=True, start_iteration=1),
+    jb = lgb.Booster(model_str=lin)
+    _assert_same_text(bst.model_to_string(), jb.model_to_string())
+    np.testing.assert_array_equal(bst.predict(X, raw_score=True),
+                                  jb.predict(X, raw_score=True))
+    # a linear tree with constant leaves predicts the constant model, its
+    # leaf constants rounded to float32 (the linear add chain's type)
+    np.testing.assert_allclose(
+        bst.predict(X, raw_score=True),
         lt.Booster(model_str=text, device="cpu").predict(
-            X, raw_score=True, start_iteration=1))
+            X, raw_score=True), rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("kwargs", [{"pred_contrib": True},

@@ -199,16 +199,17 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert lt.resolve_device("cpu").type == "cpu"
 
 
+# the ids the cases had when the list also held the refusals that
+# Queue 1 items 7.4 and 7.5 lifted (tests/test_torch_extras.py and
+# tests/test_torch_linear.py train those configurations now)
 @pytest.mark.parametrize("extra,item", [
-    ({"forcedsplits_filename": "forced.json"}, "Queue 1 item 7"),
-    ({"checkpoint_dir": "ckpt"}, "Queue 1 item 11"),
-    ({"extra_trees": True}, "Queue 1 item 7"),
-    ({"cegb_penalty_split": 1.0}, "Queue 1 item 7"),
-    ({"feature_fraction_bynode": 0.5}, "Queue 1 item 7"),
-    ({"linear_tree": True}, "Queue 1 item 7"),
-    ({"tree_learner": "data"}, "Queue 1 item 8"),
-    ({"histogram_pool_size": 0.001}, "Queue 1 item 7"),
-    ({"max_bin": 2000}, "Queue 1 item 4"),   # > 1024 bins: no learner
+    pytest.param({"checkpoint_dir": "ckpt"}, "Queue 1 item 11",
+                 id="extra1-Queue 1 item 11"),
+    pytest.param({"tree_learner": "data"}, "Queue 1 item 8",
+                 id="extra6-Queue 1 item 8"),
+    # > 1024 bins: no learner
+    pytest.param({"max_bin": 2000}, "Queue 1 item 4",
+                 id="extra8-Queue 1 item 4"),
 ])
 def test_out_of_slice_configs_rejected(extra, item):
     # enough distinct values for more than 1024 bins where asked
