@@ -161,7 +161,27 @@ of the JAX package. Phases, each fatal on failure:
    ``hist_multival`` ms a call, the launch counts, the LUT route's
    launches (= bundled splits on the partitioned learner) and the valid
    AUC; for a, a' and c one more tree under torch.profiler (the card's
-   busy share, the LUT partition's us a call).
+   busy share, the LUT partition's us a call);
+13. the rest of tree growing and linear leaves at 2M x 28 with a 500k
+   valid set, each option beside the same per-phase run without it
+   (``extras_phase``), then kernels against plain versions at 100k rows;
+14. cv, refit, rollback, the scikit-learn estimators, the binary file
+   and the feature join at 2M x 28, 255 leaves, 8 iterations
+   (``slice15_phase``): (a) ``lt.cv`` with 5 stratified folds, auc and
+   early stopping, every fold on the fused segment path (one
+   ``fused_split_step_segment`` launch a split), fold 0 bitwise its rows
+   binned against the parent and trained alone; (b) ``Booster.refit`` on
+   a second 2M draw (seed 44) at decay 0.9, one ``hist_rows`` launch a
+   tree, ``pred_leaf`` and the replay timed apart, leaf values bitwise
+   against the plain versions, decay 1.0 unchanged, AUC before and
+   after; (c) ``rollback_one_iter`` twice after 10 iterations against
+   an 8-iteration run; (d) ``LGBMClassifier`` and ``LGBMRegressor`` with
+   the 500k ``eval_set``, bitwise ``lt.train``, and whether
+   scikit-learn was importable; (e) ``save_binary`` and back, and
+   ``add_features_from`` of the two column halves; (f) kernels against
+   plain versions at 100k rows, 63 leaves, 3 iterations: cv at max_bin
+   255 and 1023, and refit. The refit route of ``hist_rows`` (F 1, B
+   255, 2M rows) is timed beside its bound for the kernels line.
 
 The second-to-last line of output is the per-kernel JSON record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -3385,6 +3405,421 @@ def extras_phase(X, y, binned, binned_wide, dev, iters, reps):
     return res
 
 
+# ---- phase 14: cv, refit, rollback, the estimators, the binary file ----
+
+def trees_bitwise(a_models, b_models):
+    """Two tree lists with the same structure and leaf values (and
+    linear models) to the bit."""
+    def lin(t):
+        return (t.leaf_const.tobytes(), t.leaf_coeff.tobytes()) \
+            if t.is_linear else None
+    return len(a_models) == len(b_models) and all(
+        tree_sig(a) == tree_sig(b)
+        and a.leaf_value.tobytes() == b.leaf_value.tobytes()
+        and lin(a) == lin(b) for a, b in zip(a_models, b_models))
+
+
+def over_binned(binned, X, label):
+    """An ``lt.Dataset`` over already binned rows (no host binning):
+    ``binned``'s bins with ``label``."""
+    import copy
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.data.dataset import Metadata
+    ds = lt.Dataset(X, label=label)
+    ds._binned = copy.copy(binned)
+    ds._binned.metadata = Metadata(binned.num_data)
+    ds._binned.metadata.set_label(label)
+    return ds
+
+
+def trees_text(bst):
+    """The trees of a model's text (no header or parameters)."""
+    return bst.model_to_string().split("Tree=0")[1].split("end of trees")[0]
+
+
+def timed_updates(lt):
+    """Wrap ``Booster.update`` to sum each booster's wall time of an
+    update (synchronised); returns the sums by booster and the undo."""
+    import torch
+    orig = lt.Booster.update
+    spent = {}
+
+    def update(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(self, *a, **kw)
+        torch.cuda.synchronize()
+        spent[id(self)] = spent.get(id(self), 0.0) \
+            + time.perf_counter() - t0
+        return out
+    lt.Booster.update = update
+
+    def undo():
+        lt.Booster.update = orig
+    return spent, undo
+
+
+def refit_route_record(dev, n, reps):
+    """The refit route of ``hist_rows``: one tree's per-leaf sums at
+    F = 1, B = 255 over ``n`` rows (the leaf ids as uint8 bins): us a
+    call (CUDA events) and on the card (profiler), the plain version's
+    us, the byte bound (the leaf ids and ghc read once, the [255, 3]
+    float32 sums written once) and the kernel against the plain version
+    (max abs err, 0 = bitwise)."""
+    import torch
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    g = torch.Generator(device=dev).manual_seed(15)
+    leaf = torch.randint(0, 255, (n,), generator=g, device=dev)
+    ghc = torch.stack([torch.randn(n, generator=g, device=dev),
+                       torch.rand(n, generator=g, device=dev),
+                       torch.ones(n, device=dev)], dim=1)
+    out = hc.leaf_histogram(leaf, ghc, 255)
+    plain = hc.leaf_histogram(leaf, ghc, 255, plain=True)
+    err = float((out - plain).abs().max())
+    us = time_ms(lambda: hc.leaf_histogram(leaf, ghc, 255), reps) * 1e3
+    # None: the profiler recorded no launch (it can lose records late
+    # in a long process)
+    dev_us = device_us(lambda: hc.leaf_histogram(leaf, ghc, 255), reps,
+                       "hist_rows") or None
+    plain_us = time_ms(lambda: hc.leaf_histogram(leaf, ghc, 255,
+                                                 plain=True), reps) * 1e3
+    bound_us = (n * (1 + 12) + 255 * 3 * 4) / HBM_BYTES_PER_S * 1e6
+    return dict(us=us, device_us=dev_us, plain_us=plain_us,
+                bound_us=bound_us, bound_by="bytes", max_abs_err=err,
+                rows=n, num_leaves=255)
+
+
+def slice15_cv(params, full, X, y, iters, dev):
+    """14 a: ``lt.cv`` at full width, 5 folds stratified by the port's
+    own splitter, auc, early stopping after 3 rounds; every fold on the
+    fused segment path, one ``fused_split_step_segment`` launch a split
+    of a full tree; fold 0's rows bitwise the parent's and its trees
+    bitwise ``lt.train`` on those raw rows binned with the parent as
+    reference."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import _native
+    spent, undo = timed_updates(lt)
+    _native.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        res = lt.cv(dict(params, metric="auc"), full, iters, nfold=5,
+                    early_stopping_rounds=3, return_cvbooster=True,
+                    device=dev)
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+    cvb = res.pop("cvbooster")
+    trees = sum(b.num_trees() for b in cvb.boosters)
+    splits = sum(t.num_leaves - 1 for b in cvb.boosters for t in b.models)
+    per_fold = []
+    for i, b in enumerate(cvb.boosters):
+        lrn = b._gbdt.learner
+        s = sum(t.num_leaves - 1 for t in b.models)
+        per_fold.append(spent[id(b)] / max(s, 1) * 1e3)
+        if type(lrn).__name__ != "PartitionedTreeLearner" or not lrn.fused:
+            fail(f"phase 14 a: fold {i} did not train on the fused "
+                 "segment path")
+    want = trees * (int(params["num_leaves"]) - 1)
+    print(f"[slice15 a] cv 5 folds x {iters} iterations in {wall:.2f} s: "
+          f"{trees} trees, {splits} splits; ms/split by fold (update "
+          f"wall, synchronised) {[round(v, 4) for v in per_fold]}; "
+          f"launches {launches}; cv_agg auc mean "
+          f"{res['auc-mean'][-1]:.6f} stdv {res['auc-stdv'][-1]:.6f} "
+          f"(best iteration {cvb.best_iteration})")
+    for name in FUSED_SEGMENT_PATH:
+        if not launches.get(name):
+            fail(f"phase 14 a: kernel {name} was not launched by cv")
+    if launches.get("fused_split_step_segment") != want or splits != want:
+        fail(f"phase 14 a: {launches.get('fused_split_step_segment')} "
+             f"fused_split_step_segment launches for {splits} splits "
+             f"({want} in full trees)")
+    b0 = cvb.boosters[0]
+    idx = b0.train_set.used_indices
+    rows_equal = np.array_equal(b0.train_set.construct().binned,
+                                full.construct().binned[idx])
+    t1 = time.perf_counter()
+    ref = lt.train(params, lt.Dataset(X[idx], label=y[idx], reference=full),
+                   b0.num_trees(), device=dev)
+    same = trees_bitwise(b0.models, ref.models)
+    print(f"[slice15 a] fold 0: {len(idx)} rows, binned rows bitwise the "
+          f"parent's {rows_equal}; {b0.num_trees()} trees bitwise lt.train "
+          f"on lt.Dataset(X[idx], reference=full) {same} "
+          f"({time.perf_counter() - t1:.1f} s)")
+    if not rows_equal or not same:
+        fail("phase 14 a: fold 0 differs from its rows trained alone")
+    return dict(wall_s=wall, trees=trees, splits=splits,
+                ms_per_split_by_fold=per_fold, launches=launches,
+                auc_mean=res["auc-mean"][-1], auc_stdv=res["auc-stdv"][-1],
+                best_iteration=cvb.best_iteration)
+
+
+def slice15_refit(params, bst, n, dev):
+    """14 b: refit of the phase's model on a second draw (seed 44) at
+    decay 0.9 through ``Booster.refit``: one ``hist_rows`` launch a
+    tree; ``pred_leaf`` and the replay timed apart; leaf values bitwise
+    against the plain versions; decay 1.0 changes nothing."""
+    import copy
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import _native
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    X2, y2 = higgs_like(n, seed=44)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    leaf = bst.predict(X2, pred_leaf=True, num_iteration=-1)
+    torch.cuda.synchronize()
+    pred_ms = (time.perf_counter() - t0) * 1e3
+    routes = dict(hc.LEAF_SUM_ROUTES)
+    _native.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kb = bst.refit(X2, y2, 0.9)
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t0
+    launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+    route = hc.LEAF_SUM_ROUTES["hist_rows"] - routes["hist_rows"]
+    sorted_trees = hc.LEAF_SUM_ROUTES["sorted"] - routes["sorted"]
+    trees = kb.num_trees()
+    # the replay alone, on the refit booster's binned rows
+    ts = kb.train_set
+    rp = dict(params, refit_decay_rate=0.9)
+    nb = lt.Booster(rp, ts, device=dev)
+    nb._gbdt.models = [copy.deepcopy(t) for t in bst.models]
+    nb._gbdt.iter = bst.current_iteration()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nb._gbdt.refit(leaf)
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) * 1e3
+    pb = bst._refit_on(ts, leaf, rp, ops="plain")
+    ob = bst._refit_on(ts, leaf, dict(params, refit_decay_rate=1.0))
+    kernel_plain = trees_bitwise(kb.models, pb.models)
+    repeat = trees_bitwise(kb.models, nb.models)
+    unchanged = trees_bitwise(ob.models, bst.models)
+    auc_before = auc(y2, bst.predict(X2, raw_score=True))
+    auc_after = auc(y2, kb.predict(X2, raw_score=True))
+    print(f"[slice15 b] refit of {trees} trees on {n} new rows (seed 44), "
+          f"decay 0.9: Booster.refit {refit_s:.2f} s (pred_leaf "
+          f"{pred_ms:.1f} ms, the replay {replay_ms:.1f} ms, the rest the "
+          f"new rows' binning and the booster's set-up); launches "
+          f"{launches}; per-leaf sums by hist_rows {route} trees, sorted "
+          f"{sorted_trees}; kernel against plain bitwise {kernel_plain}, "
+          f"a second replay bitwise {repeat}; decay 1.0 unchanged "
+          f"{unchanged}; AUC on the new rows {auc_before:.6f} before, "
+          f"{auc_after:.6f} after")
+    if launches.get("hist_rows") != trees or route != trees \
+            or sorted_trees:
+        fail("phase 14 b: refit's per-leaf sums were not one hist_rows "
+             "launch a tree")
+    if not (kernel_plain and repeat and unchanged):
+        fail("phase 14 b: refit kernel and plain runs differ, or decay 1.0 "
+             "changed the model")
+    if not np.isfinite(auc_after) or auc_after < auc_before - 0.01:
+        fail("phase 14 b: refit lost the model's AUC")
+    return dict(trees=trees, hist_rows_launches=launches.get("hist_rows"),
+                refit_s=refit_s, pred_leaf_ms=pred_ms, replay_ms=replay_ms,
+                auc_before=auc_before, auc_after=auc_after)
+
+
+def slice15_rollback(params, full, bst8, iters, dev):
+    """14 c: ``rollback_one_iter`` twice after ``iters + 2`` iterations:
+    the remaining trees' text equals an ``iters``-iteration run's, the
+    train scores within 1e-5."""
+    import lightgbm_tpu_torch as lt
+    rb = lt.train(params, full, iters + 2, device=dev)
+    rb.rollback_one_iter().rollback_one_iter()
+    same = trees_text(rb) == trees_text(bst8)
+    gap = float((rb._gbdt.train_score - bst8._gbdt.train_score).abs().max())
+    print(f"[slice15 c] {iters + 2} iterations rolled back twice: "
+          f"{rb.num_trees()} trees, text equal to a {iters}-iteration run's "
+          f"{same}; train score gap {gap:.3g}")
+    if not same or gap > 1e-5 or rb.current_iteration() != iters:
+        fail("phase 14 c: rollback did not return to the shorter run")
+    return dict(text_equal=same, train_score_gap=gap)
+
+
+def slice15_estimators(params, X, y, Xv, yv, bst8, binned, dev):
+    """14 d: ``LGBMClassifier`` and ``LGBMRegressor`` at full width with
+    the 500k ``eval_set``; the classifier's ``predict_proba`` bitwise
+    ``lt.train``'s, the regressor's predictions bitwise ``lt.train``'s
+    on the latent score."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import sklearn as psk
+    out = {"sklearn_importable": psk.SKLEARN_INSTALLED}
+    t0 = time.perf_counter()
+    clf = lt.LGBMClassifier(n_estimators=bst8.current_iteration(),
+                            num_leaves=255, device=dev)
+    clf.fit(X, y, eval_set=[(Xv, yv)])
+    proba = clf.predict_proba(Xv)
+    p = bst8.predict(Xv)
+    clf_same = np.array_equal(proba[:, 1], p) \
+        and np.array_equal(proba[:, 0], 1.0 - p)
+    out["classifier_s"] = time.perf_counter() - t0
+    hist = clf.evals_result_["valid_0"]["binary_logloss"]
+    _, z = higgs_latent(len(y))
+    _, zv = higgs_latent(len(yv), seed=43)
+    t0 = time.perf_counter()
+    reg = lt.LGBMRegressor(n_estimators=bst8.current_iteration(),
+                           num_leaves=255, device=dev)
+    reg.fit(X, z, eval_set=[(Xv, zv)])
+    rb = lt.train(dict(params, objective="regression"),
+                  over_binned(binned, X, z), bst8.current_iteration(),
+                  device=dev)
+    reg_same = np.array_equal(reg.predict(Xv), rb.predict(Xv))
+    out["regressor_s"] = time.perf_counter() - t0
+    l2 = reg.evals_result_["valid_0"]["l2"]
+    print(f"[slice15 d] scikit-learn importable {psk.SKLEARN_INSTALLED}; "
+          f"LGBMClassifier fit + predict {out['classifier_s']:.1f} s, "
+          f"predict_proba bitwise lt.train's {clf_same}, valid logloss "
+          f"{hist[0]:.6f} -> {hist[-1]:.6f}; LGBMRegressor "
+          f"{out['regressor_s']:.1f} s, predict bitwise lt.train's "
+          f"{reg_same}, valid l2 {l2[0]:.6f} -> {l2[-1]:.6f}")
+    if not (clf_same and reg_same) or not hist[-1] < hist[0] \
+            or not l2[-1] < l2[0]:
+        fail("phase 14 d: an estimator is not its lt.train model")
+    out.update(classifier_bitwise=clf_same, regressor_bitwise=reg_same)
+    return out
+
+
+def slice15_files(params, full, X, bst8, binned, dev):
+    """14 e: ``save_binary`` of the 2M x 28 dataset and back (the same 8
+    trees, to the bit), and ``add_features_from`` of columns 0-13 and
+    14-27 (each half binned with the whole matrix's mappers: bin finding
+    is per column, so a fresh binning finds the same ones) against the
+    28-column binned matrix."""
+    import tempfile
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.data.dataset import Dataset as Binned
+    tmp = tempfile.mkdtemp()
+    path = os.path.join(tmp, "train.bin")
+    t0 = time.perf_counter()
+    full.save_binary(path)
+    save_s = time.perf_counter() - t0
+    mb = os.path.getsize(path) / 2 ** 20
+    t0 = time.perf_counter()
+    disk = lt.Dataset(path)
+    disk.construct()
+    load_s = time.perf_counter() - t0
+    again = lt.train(params, disk, bst8.current_iteration(), device=dev)
+    same = trees_bitwise(again.models, bst8.models)
+    cfg = lt.Config.from_params(params)
+    half = X.shape[1] // 2
+    t0 = time.perf_counter()
+    left = Binned.from_numpy(X[:, :half], cfg,
+                             bin_mappers=binned.bin_mappers[:half])
+    right = Binned.from_numpy(X[:, half:], cfg,
+                              bin_mappers=binned.bin_mappers[half:])
+    left.add_features_from(right)
+    joined = np.array_equal(left.binned, binned.binned) \
+        and left.num_total_features == binned.num_total_features
+    join_s = time.perf_counter() - t0
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[slice15 e] save_binary {save_s:.2f} s, {mb:.1f} MB; load "
+          f"{load_s:.2f} s; {again.num_trees()} trees bitwise the "
+          f"in-memory run's {same}; add_features_from of columns 0-{half - 1}"
+          f" and {half}-{X.shape[1] - 1} bitwise the {X.shape[1]}-column "
+          f"binned matrix {joined} ({join_s:.1f} s)")
+    if not same or not joined:
+        fail("phase 14 e: the binary file or the feature join differs")
+    return dict(save_s=save_s, load_s=load_s, file_mb=mb)
+
+
+def slice15_parity(dev):
+    """14 f: kernels against plain versions at 100k rows, 63 leaves, 3
+    iterations: cv (3 folds) at max_bin 255 (the segment kernels) and
+    1023 (the leaf kernel and ``hist_rows``), and refit: the same folds'
+    trees and cv lists, and the same refit leaf values, to the bit."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import _native
+    Xp, yp = higgs_like(100_000, seed=3)
+    base = {"objective": "binary", "num_leaves": 63, "learning_rate": 0.1,
+            "verbosity": -1, "metric": "auc"}
+    out = {}
+    for mb, kernel in ((255, "fused_split_step_segment"),
+                       (1023, "fused_split_step_leaf")):
+        t0 = time.perf_counter()
+        pp = dict(base, max_bin=mb)
+        ds = lt.Dataset(Xp, label=yp)
+        _native.reset_launch_counts()
+        kr = lt.cv(pp, ds, 3, nfold=3, return_cvbooster=True, device=dev)
+        launched = dict(_native.LAUNCHES)
+        pr = lt.cv(pp, ds, 3, nfold=3, return_cvbooster=True, device=dev,
+                   ops="plain")
+        kc, pc = kr.pop("cvbooster"), pr.pop("cvbooster")
+        same = kr == pr and all(
+            trees_bitwise(a.models, b.models)
+            for a, b in zip(kc.boosters, pc.boosters))
+        print(f"[slice15 f] cv max_bin {mb}: kernel against plain bitwise "
+              f"{same} ({kernel} {launched[kernel]}, hist_rows "
+              f"{launched['hist_rows']} launches) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        if not same or not launched[kernel] or (
+                mb == 1023 and not launched["hist_rows"]):
+            fail(f"phase 14 f: cv at max_bin {mb}: kernel and plain differ")
+        out[f"cv {mb}"] = same
+    t0 = time.perf_counter()
+    text = lt.train(dict(base, max_bin=255), lt.Dataset(Xp, label=yp), 3,
+                    device=dev).model_to_string()
+    Xq, yq = higgs_like(100_000, seed=4)
+    _native.reset_launch_counts()
+    kb = lt.Booster(model_str=text, device=dev).refit(Xq, yq, 0.9)
+    launched = _native.LAUNCHES["hist_rows"]
+    pb = lt.Booster(model_str=text, device=dev, ops="plain").refit(Xq, yq,
+                                                                   0.9)
+    same = trees_bitwise(kb.models, pb.models)
+    print(f"[slice15 f] refit: kernel against plain bitwise {same} "
+          f"(hist_rows {launched} launches) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not same or launched != 3:
+        fail("phase 14 f: refit kernel and plain differ")
+    out["refit"] = same
+    return out
+
+
+def slice15_phase(X, y, binned, dev, iters, reps):
+    """Phase 14: cv, refit, rollback, the scikit-learn estimators, the
+    binary file and the feature join at full width (2M x 28, 255 leaves,
+    lr 0.1, binary, max_bin 255, ``iters`` iterations cut from 500;
+    valid 500k, seed 43), then kernels against plain versions at 100k
+    rows. Returns its numbers and the refit route's record for the
+    kernels line."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    params = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
+              "max_bin": 255, "verbosity": -1}
+    full = over_binned(binned, X, y)
+    Xv, yv = higgs_like(500_000, seed=43)
+    out = {"a cv": slice15_cv(params, full, X, y, iters, dev)}
+    torch.cuda.empty_cache()
+    bst8 = lt.train(params, full, iters, device=dev)
+    out["b refit"] = slice15_refit(params, bst8, len(y), dev)
+    torch.cuda.empty_cache()
+    out["c rollback"] = slice15_rollback(params, full, bst8, iters, dev)
+    out["d estimators"] = slice15_estimators(params, X, y, Xv, yv, bst8,
+                                             binned, dev)
+    torch.cuda.empty_cache()
+    out["e files"] = slice15_files(params, full, X, bst8, binned, dev)
+    del bst8, full
+    torch.cuda.empty_cache()
+    out["f parity"] = slice15_parity(dev)
+    route = refit_route_record(dev, len(y), reps)
+    route["launches"] = out["b refit"]["hist_rows_launches"]
+    on_card = "not measured" if route["device_us"] is None \
+        else f"{route['device_us']:.1f}"
+    print(f"[slice15 route] hist_rows refit route, F 1, B 255, "
+          f"{route['rows']} rows: {route['us']:.1f} us a call (events), "
+          f"{on_card} on the card, plain {route['plain_us']:.1f}, bound "
+          f"{route['bound_us']:.2f} us (bytes), max abs err "
+          f"{route['max_abs_err']}")
+    if route["max_abs_err"] != 0.0:
+        fail("phase 14: the refit route disagrees with its plain version")
+    return out, route
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=2_000_000)
@@ -3663,9 +4098,18 @@ def main() -> int:
     t0 = time.perf_counter()
     extras = extras_phase(X, y, binned, binned_wide, dev, args.iters,
                           args.reps)
-    del binned, binned_wide
+    del binned_wide
     print(f"[extras] done in {time.perf_counter() - t0:.1f} s: "
           + json.dumps(extras, default=str))
+    torch.cuda.empty_cache()
+
+    # ---- 14. cv, refit, rollback, estimators, binary file --------------
+    t0 = time.perf_counter()
+    slice15, refit_route = slice15_phase(X, y, binned, dev, args.iters,
+                                         args.reps)
+    del binned
+    print(f"[slice15] done in {time.perf_counter() - t0:.1f} s: "
+          + json.dumps(slice15, default=str))
 
     sources = {
         "hist_segment": ("lightgbm_tpu_torch/csrc/hist_segment.cu",
@@ -3701,6 +4145,9 @@ def main() -> int:
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
                             library_ms=r["library_ms"]))
+        if name == "hist_rows":
+            # refit's per-leaf sums (phase 14): F = 1, B = the leaves
+            kernels[-1]["refit_route"] = refit_route
         if name == "split_scan":
             # the per-phase scan also takes the tree's node table
             # (extra_trees, by-node sampling; phase 13)

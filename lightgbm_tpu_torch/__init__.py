@@ -17,7 +17,11 @@ model predicts on the card and seeds continued training
 LibSVM file (``data/file_loader.py``). Bagging (balanced too), GOSS,
 DART and RF sample rows through the same kernels; prediction gives SHAP
 contributions (the TreeSHAP kernel, ``csrc/tree_shap.cu``) and stops
-early by margin (``pred_early_stop``).
+early by margin (``pred_early_stop``). ``cv`` cross-validates by
+folds of one binned dataset (``Dataset.subset``); ``Booster.refit``
+refits a model's leaves on new rows (per-leaf sums through the
+``hist_rows`` kernel); the scikit-learn estimators (``LGBMRegressor``,
+``LGBMClassifier``, ``LGBMRanker``) fit with or without scikit-learn.
 """
 
 from .basic import Booster, Dataset
@@ -25,7 +29,19 @@ from .utils.log import LightGBMError
 from .callback import (EarlyStopException, early_stopping, print_evaluation,
                        record_evaluation, reset_parameter)
 from .config import Config
-from .engine import train
+from .engine import CVBooster, cv, train
 from .utils.device import resolve_device
 
 __version__ = "0.1.0"
+
+_ESTIMATORS = ("LGBMModel", "LGBMRegressor", "LGBMClassifier", "LGBMRanker")
+
+
+def __getattr__(name):
+    """The scikit-learn estimators, imported on first use: scikit-learn
+    (where installed) pulls in pandas, which the rest of the port never
+    imports unless given a DataFrame."""
+    if name in _ESTIMATORS:
+        from . import sklearn
+        return getattr(sklearn, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

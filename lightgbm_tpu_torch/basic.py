@@ -11,7 +11,13 @@ valid sets and evaluation, or holds a model loaded from text
 (``model_file`` / ``model_str``), and predicts through ``predictor.py``
 on its device: the card unless ``device`` says otherwise. After early
 stopping, ``predict``, ``model_to_string`` and ``save_model`` default
-to ``best_iteration``.
+to ``best_iteration``. ``Dataset.subset`` cuts rows out of a binned
+dataset when first used (whole queries for ranking data), a
+``save_binary`` file loads as a dataset (checked against its
+reference's bin layout), and ``add_features_from`` joins two binned
+datasets' columns. ``Booster.refit`` refits a model's leaf values on
+new rows (``GBDT.refit``), ``rollback_one_iter`` drops the last
+iteration and ``reset_training_data`` moves a model onto new rows.
 
 Categorical features come from the ``categorical_feature`` argument
 (indices, names, or a ``"0,1"`` / ``"name:a,b"`` string), else from the
@@ -25,6 +31,7 @@ a DataFrame is passed.
 
 from __future__ import annotations
 
+import copy
 import json
 from typing import Any, Dict, List, Optional
 
@@ -40,8 +47,9 @@ from .models.gbdt import GBDT
 from .models.variants import create_boosting
 from .objective import create_objective
 from .predictor import predict as _predict
+from .predictor import predict_raw
 from .utils.device import resolve_device
-from .utils.log import LightGBMError
+from .utils.log import LightGBMError, log_fatal
 
 SPARSE_PREDICT_CHUNK_ROWS = 65536
 
@@ -152,6 +160,7 @@ class Dataset:
         self.params = dict(params or {})
         self.free_raw_data = free_raw_data
         self.pandas_categorical: List = []
+        self.used_indices: Optional[np.ndarray] = None
         self._pandas_cat_cols: List[int] = []
         self._raw: Optional[np.ndarray] = None
         self._binned: Optional[_BinnedDataset] = None
@@ -163,6 +172,11 @@ class Dataset:
         them through it (a sparse matrix densified here)."""
         if self._raw is not None:
             return self._raw
+        if self.data is None:
+            raise LightGBMError(
+                "the raw feature matrix is gone (free_raw_data=True, or a "
+                "subset); construct the Dataset with free_raw_data=False "
+                "and not via subset()")
         if isinstance(self.data, str):
             from .data.file_loader import load_file
             X, label, weight, group, init, names = load_file(self.data,
@@ -187,42 +201,110 @@ class Dataset:
         self._raw = np.asarray(X, np.float64)
         return self._raw
 
-    def construct(self, config: Config) -> _BinnedDataset:
-        """Bin the data (once): a dense matrix, a DataFrame or a text
-        file through ``from_numpy``; a scipy sparse matrix through
-        ``from_scipy``, never densified (JAX ``basic.py:241-260``); a
-        text file with ``two_round=true`` through
-        ``from_file_two_round``, in two passes over the file."""
-        if self._binned is None:
-            ref = None
-            if self.reference is not None:
-                ref = self.reference.construct(config)
-            two_round = isinstance(self.data, str) and config.two_round
-            sparse = _is_sparse(self.data)
-            X = None if two_round or sparse else self.raw_matrix(config)
-            if two_round and self.feature_name in ("auto", None):
-                from .data.file_loader import TwoRoundLoader
-                self.feature_name = TwoRoundLoader(
-                    self.data, config).resolve_feature_names() or "auto"
-            names = None if self.feature_name in ("auto", None) \
-                else list(self.feature_name)
-            kw = dict(label=self.label, weight=self.weight,
-                      group=self.group, init_score=self.init_score,
-                      feature_names=names, reference=ref,
-                      categorical_features=self.categorical_indices(config),
-                      forced_bins=None if ref is not None
-                      else load_forced_bins(config.forcedbins_filename))
-            if two_round:
-                self._binned = _BinnedDataset.from_file_two_round(
-                    self.data, config, **kw)
-            elif sparse:
-                self._binned = _BinnedDataset.from_scipy(self.data, config,
-                                                         **kw)
-            else:
-                self._binned = _BinnedDataset.from_numpy(X, config, **kw)
-            if self.free_raw_data:
-                self.data = None
+    def construct(self, config: Optional[Config] = None) -> _BinnedDataset:
+        """Bin the data (once), with ``config`` or, without one, this
+        dataset's params over its reference's: a dense matrix, a
+        DataFrame or a text file through ``from_numpy``; a scipy sparse
+        matrix through ``from_scipy``, never densified (JAX
+        ``basic.py:241-260``); a text file with ``two_round=true``
+        through ``from_file_two_round``, in two passes over the file; a
+        file written by ``save_binary`` by loading it; a ``subset`` by
+        cutting its reference's binned rows."""
+        if self._binned is not None:
+            return self._binned
+        if config is None:
+            config = Config.from_params(self._merged_params())
+        ref = None
+        if self.reference is not None:
+            ref = self.reference.construct(config)
+        if self.used_indices is not None:
+            self._binned = self._subset_of(ref)
+            return self._binned
+        if isinstance(self.data, str) \
+                and _BinnedDataset.is_binary_file(self.data):
+            self._binned = self._load_binary(ref)
+            return self._binned
+        two_round = isinstance(self.data, str) and config.two_round
+        sparse = _is_sparse(self.data)
+        X = None if two_round or sparse else self.raw_matrix(config)
+        if two_round and self.feature_name in ("auto", None):
+            from .data.file_loader import TwoRoundLoader
+            self.feature_name = TwoRoundLoader(
+                self.data, config).resolve_feature_names() or "auto"
+        names = None if self.feature_name in ("auto", None) \
+            else list(self.feature_name)
+        kw = dict(label=self.label, weight=self.weight,
+                  group=self.group, init_score=self.init_score,
+                  feature_names=names, reference=ref,
+                  categorical_features=self.categorical_indices(config),
+                  forced_bins=None if ref is not None
+                  else load_forced_bins(config.forcedbins_filename))
+        if two_round:
+            self._binned = _BinnedDataset.from_file_two_round(
+                self.data, config, **kw)
+        elif sparse:
+            self._binned = _BinnedDataset.from_scipy(self.data, config, **kw)
+        else:
+            self._binned = _BinnedDataset.from_numpy(X, config, **kw)
+        if self.free_raw_data:
+            self.data = None
         return self._binned
+
+    def _merged_params(self) -> Dict[str, Any]:
+        if self.reference is not None:
+            return {**self.reference.params, **self.params}
+        return dict(self.params)
+
+    def _subset_of(self, parent: _BinnedDataset) -> _BinnedDataset:
+        """The reference's rows ``used_indices`` (JAX
+        ``basic.py:124-136``); without a ``group`` of its own, a subset of
+        a ranking set keeps whole queries: their sizes are rebuilt from
+        the parent's query ids of the kept rows."""
+        out = parent.subset(self.used_indices)
+        if self.group is not None:
+            out.metadata.set_query(self.group)
+        elif parent.metadata.query_boundaries is not None:
+            qb = parent.metadata.query_boundaries
+            qid = np.repeat(np.arange(len(qb) - 1),
+                            np.diff(qb))[self.used_indices]
+            change = np.nonzero(np.diff(qid))[0]
+            bounds = np.concatenate([[0], change + 1, [len(qid)]])
+            out.metadata.set_query(np.diff(bounds))
+        return out
+
+    def _load_binary(self, ref: Optional[_BinnedDataset]) -> _BinnedDataset:
+        """A ``save_binary`` file (DatasetLoader::CheckCanLoadFromBin):
+        with a reference its bin layout must be the reference's
+        (``CheckAlign``); the label, weight, group and init score given
+        here override the file's, and the file's fill those not given
+        (JAX ``basic.py:145-184``)."""
+        out = _BinnedDataset.load_binary(self.data)
+        if ref is not None and ref.bin_layout_fingerprint() \
+                != out.bin_layout_fingerprint():
+            log_fatal(f"binary dataset {self.data!r} was saved with a "
+                      "different bin layout than its reference (train) "
+                      "set; re-save it with reference=<train set> so the "
+                      "bin mappers align, or load the text file instead")
+        md = out.metadata
+        if self.label is not None:
+            md.set_label(self.label)
+        else:
+            self.label = md.label
+        if self.weight is not None:
+            md.set_weights(self.weight)
+        else:
+            self.weight = md.weights
+        if self.group is not None:
+            md.set_query(self.group)
+        elif md.query_boundaries is not None:
+            self.group = np.diff(md.query_boundaries)
+        if self.init_score is not None:
+            md.set_init_score(self.init_score)
+        else:
+            self.init_score = md.init_score
+        if self.free_raw_data:
+            self.data = None
+        return out
 
     def categorical_indices(self, config: Config) -> List[int]:
         """The categorical features' indices: the ``categorical_feature``
@@ -247,19 +329,45 @@ class Dataset:
                        params=params or self.params)
 
     def subset(self, used_indices, params=None) -> "Dataset":
-        """Refused: ROADMAP.md Queue 1 item 7.6 (with ``cv``)."""
-        raise NotImplementedError("Dataset.subset is not in the port yet "
-                                  "(ROADMAP.md Queue 1 item 7.6)")
+        """The rows ``used_indices`` (sorted) of this dataset, binned
+        with its bins when first used (reference basic.py:1322-1341; the
+        folds of ``cv``)."""
+        out = Dataset(None, reference=self, feature_name=self.feature_name,
+                      categorical_feature=self.categorical_feature,
+                      params=params or self.params)
+        out.used_indices = np.sort(np.asarray(used_indices, np.int64))
+        return out
 
     def save_binary(self, filename: str) -> "Dataset":
-        """Refused: ROADMAP.md Queue 1 item 7.6."""
-        raise NotImplementedError("save_binary is not in the port yet "
-                                  "(ROADMAP.md Queue 1 item 7.6)")
+        """Write the binned dataset to ``filename`` (the JAX package's
+        npz format: either package loads the other's)."""
+        self.construct().save_binary(filename)
+        return self
 
     def add_features_from(self, other: "Dataset") -> "Dataset":
-        """Refused: ROADMAP.md Queue 1 item 7.6."""
-        raise NotImplementedError("add_features_from is not in the port "
-                                  "yet (ROADMAP.md Queue 1 item 7.6)")
+        """Append ``other``'s features to this dataset in place (both
+        binned, the same rows; this dataset keeps its label, weight and
+        group)."""
+        self.construct().add_features_from(other.construct())
+        return self
+
+    def set_label(self, label) -> "Dataset":
+        self.label = label
+        if self._binned is not None and label is not None:
+            self._binned.metadata.set_label(label)
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = weight
+        if self._binned is not None:
+            self._binned.metadata.set_weights(weight)
+        return self
+
+    def set_init_score(self, init_score) -> "Dataset":
+        self.init_score = init_score
+        if self._binned is not None:
+            self._binned.metadata.set_init_score(init_score)
+        return self
 
     def set_group(self, group) -> "Dataset":
         self.group = group
@@ -267,17 +375,50 @@ class Dataset:
             self._binned.metadata.set_query(group)
         return self
 
-    def get_group(self):
-        if self._binned is not None \
-                and self._binned.metadata.query_boundaries is not None:
-            return np.diff(self._binned.metadata.query_boundaries)
-        return self.group
+    def set_reference(self, reference: "Dataset") -> "Dataset":
+        self.reference = reference
+        return self
 
     def get_label(self):
         if self._binned is not None \
                 and self._binned.metadata.label is not None:
             return self._binned.metadata.label
         return self.label
+
+    def get_weight(self):
+        if self._binned is not None \
+                and self._binned.metadata.weights is not None:
+            return self._binned.metadata.weights
+        return self.weight
+
+    def get_group(self):
+        if self._binned is not None \
+                and self._binned.metadata.query_boundaries is not None:
+            return np.diff(self._binned.metadata.query_boundaries)
+        return self.group
+
+    def get_init_score(self):
+        return self.init_score
+
+    def get_data(self):
+        return self.data
+
+    def num_data(self) -> int:
+        return self.construct().num_data
+
+    def num_feature(self) -> int:
+        return self.construct().num_total_features
+
+    def get_feature_name(self) -> List[str]:
+        return list(self.construct().feature_names)
+
+    def get_ref_chain(self, ref_limit: int = 100):
+        """This dataset and its references, up to ``ref_limit``."""
+        chain, head = set(), self
+        while head is not None and len(chain) < ref_limit:
+            chain.add(head)
+            head = head.reference
+        return chain
 
 
 class Booster:
@@ -292,6 +433,7 @@ class Booster:
         self.params = dict(params or {})
         self.config = Config.from_params(self.params)
         self.device = resolve_device(device)
+        self.ops = ops
         self.best_iteration = -1
         self.best_score: Dict = {}
         self._train_data_name = "training"
@@ -383,6 +525,49 @@ class Booster:
             return self._gbdt.train_one_iter()
         grad, hess = fobj(self._inner_predict_train(), self.train_set)
         return self._gbdt.train_one_iter(grad, hess)
+
+    def rollback_one_iter(self) -> "Booster":
+        """Drop the last iteration's trees and their scores."""
+        self._gbdt.rollback_one_iter()
+        return self
+
+    def reset_training_data(self, train_set: Dataset) -> "Booster":
+        """Swap the training data under the model (GBDT::ResetTrainingData,
+        gbdt.cpp:244-262; JAX ``basic.py:463-520``): the trees are kept
+        and their raw sums over the new rows seed its scores (the
+        continued-training seed), so the next ``update`` boosts on the
+        new data's residuals. The new data has the model's feature count
+        and comes before any ``add_valid`` (a valid set's bins follow
+        the old training set's mappers)."""
+        if self._gbdt is None:
+            raise LightGBMError("Booster was loaded from a model file; "
+                                "cannot reset training data")
+        if self.valid_sets:
+            raise LightGBMError(
+                "reset_training_data must be called before adding "
+                "validation data (valid bins reference the old training "
+                "mappers)")
+        if not isinstance(train_set, Dataset):
+            raise TypeError("Training data should be Dataset instance, met "
+                            f"{type(train_set).__name__}")
+        train_set.params = {**self.params, **train_set.params}
+        binned = train_set.construct(Config.from_params(train_set.params))
+        want = self._gbdt.train_data.num_features
+        if binned.num_features != want:
+            raise LightGBMError(
+                f"reset_training_data: new dataset has "
+                f"{binned.num_features} features, model expects {want}")
+        gbdt = create_boosting(self.config, binned, self.device,
+                               ops=self.ops)
+        models = list(self._gbdt.models)
+        if models:
+            gbdt.init_from_models(models, predict_raw(
+                models, train_set.raw_matrix(self.config), self.device,
+                gbdt.num_tree_per_iteration))
+        self._gbdt = gbdt
+        self.train_set = train_set
+        self.pandas_categorical = train_set.pandas_categorical
+        return self
 
     def _inner_predict_train(self) -> np.ndarray:
         """The raw train scores, float64: [N], or the reference's flat
@@ -495,6 +680,58 @@ class Booster:
                 self.predict(np.asarray(csr[lo:lo + step].todense()), **kw)
                 for lo in range(0, max(csr.shape[0], 1), step)])
         return _predict(self._src(), data, self.device, **kw).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    def refit(self, data, label, decay_rate: float = 0.9,
+              **kwargs) -> "Booster":
+        """A new Booster with this model's trees, their leaf values refit
+        on ``data``/``label`` (reference basic.py:2614-2659; JAX
+        ``basic.py:722-773``): ``predict(pred_leaf=True)`` over every
+        tree (``kwargs`` go to it), then ``GBDT.refit``'s replay on a
+        Booster over the new rows, on this booster's device and ops,
+        with ``leaf = decay_rate * old + (1 - decay_rate) * new``. A
+        model loaded from text takes its objective from its
+        ``objective`` line; linear trees refit their coefficients from
+        the raw rows."""
+        src = self._src()
+        if getattr(src, "objective", None) is None \
+                and not getattr(src, "objective_str", ""):
+            raise LightGBMError("Cannot refit due to null objective function.")
+        kwargs.setdefault("num_iteration", -1)
+        leaf_preds = self.predict(data, pred_leaf=True, **kwargs)
+        params = dict(self.params, refit_decay_rate=decay_rate)
+        obj_str = getattr(src, "objective_str", "")
+        if "objective" not in params and obj_str:
+            # "binary sigmoid:1", "multiclass num_class:3", ...
+            toks = obj_str.split()
+            params["objective"] = toks[0]
+            for tok in toks[1:]:
+                key, _, val = tok.partition(":")
+                if key and val:
+                    params.setdefault(key, val)
+        raw = None
+        if any(t.is_linear for t in src.models):
+            params.setdefault("linear_tree", True)
+            if _is_pandas_df(data):
+                raw = _data_from_pandas(data, self.pandas_categorical)[0]
+            elif _is_sparse(data):
+                raw = data.toarray()
+            raw = np.asarray(data if raw is None else raw, np.float64)
+        return self._refit_on(Dataset(data, label=label), leaf_preds,
+                              params, raw)
+
+    def _refit_on(self, train_set: Dataset, leaf_preds: np.ndarray,
+                  params: Dict[str, Any], raw=None,
+                  ops: Optional[str] = None) -> "Booster":
+        """``refit``'s second half: a Booster over ``train_set`` with
+        copies of this model's trees, refit from ``leaf_preds``."""
+        src = self._src()
+        out = Booster(params, train_set, device=self.device,
+                      ops=self.ops if ops is None else ops)
+        out._gbdt.models = [copy.deepcopy(t) for t in src.models]
+        out._gbdt.iter = len(src.models) // src.num_tree_per_iteration
+        out._gbdt.refit(leaf_preds, raw=raw)
+        return out
 
     # ------------------------------------------------------------------
     def model_to_string(self, num_iteration: Optional[int] = None,

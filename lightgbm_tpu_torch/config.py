@@ -892,6 +892,24 @@ class Config:
         return dataclasses.asdict(self)
 
 
+def refuse_cv_multiboost(config: Config) -> None:
+    """``cv``'s batched route (JAX ``engine.py:_cv_multiboost``, all
+    folds in one program) is ROADMAP.md Queue 1 item 9: ``multiboost=on``
+    and a ``multiboost_max_batch`` of its own are refused. "auto" and
+    "off" run the per-fold loop, where the JAX package's "auto" falls
+    back whenever it cannot batch. ``train`` reads neither, as in the
+    JAX package."""
+    mode = str(config.multiboost).lower()
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"multiboost must be auto|on|off, got {mode!r}")
+    if mode == "on" or config.multiboost_max_batch \
+            != _field_default("multiboost_max_batch"):
+        raise NotImplementedError(
+            "cv's batched multiboost route is not in the port yet "
+            "(ROADMAP.md Queue 1 item 9); use multiboost=auto or off and "
+            "the default multiboost_max_batch")
+
+
 # parsed for the JAX package's names, read by no module of the port
 _ROBUSTNESS_PARAMS = ("checkpoint_dir", "guard_policy", "faults",
                       "telemetry_out", "trace_out", "profile_dir",

@@ -28,6 +28,14 @@ features (``raw_numeric``, float32 [N, F] with NaN kept, on the device as
 linear leaves fit and score on raw values. A sparse or two-round dataset
 keeps none, and training then falls back to constant leaves with a
 warning, as in the JAX package.
+
+A dataset's rows cut out (``subset``: bins, slots, raw values and
+metadata, the layout kept; ``cv``'s folds), its features joined with
+another's (``add_features_from``) and the binary file
+(``save_binary`` / ``load_binary``, the JAX package's npz members and
+meta keys, so either package reads the other's, with
+``bin_layout_fingerprint`` for the alignment check) follow the JAX
+package's functions of those names.
 """
 
 from __future__ import annotations
@@ -129,6 +137,21 @@ class Metadata:
             self.init_score = None
             return
         self.init_score = np.asarray(init_score, dtype=np.float64).ravel()
+
+    def subset(self, indices: np.ndarray) -> "Metadata":
+        """The rows ``indices`` (JAX ``Metadata.subset``): label,
+        weights and the class-major ``[k, N]`` init score. Queries
+        cannot be cut by rows: the caller rebuilds them."""
+        out = Metadata(len(indices))
+        if self.label is not None:
+            out.label = self.label[indices]
+        if self.weights is not None:
+            out.weights = self.weights[indices]
+        if self.init_score is not None:
+            k = len(self.init_score) // max(self.num_data, 1)
+            out.init_score = self.init_score.reshape(
+                k, self.num_data)[:, indices].ravel()
+        return out
 
 
 def _bundle_eligible(mapper: BinMapper) -> bool:
@@ -732,6 +755,187 @@ class Dataset:
         return self
 
 
+    # ------------------------------------------------------------------
+    def subset(self, indices: np.ndarray) -> "Dataset":
+        """The rows ``indices`` (CopySubset, dataset.cpp; JAX
+        ``Dataset.subset``): their bins, multi-val slots and, with
+        linear leaves, raw values; the mappers, used-feature maps and
+        EFB layout are the parent's. The metadata is cut by
+        ``Metadata.subset``; queries are the caller's to rebuild."""
+        indices = np.asarray(indices)
+        out = Dataset()
+        out.__dict__.update({
+            k: v for k, v in self.__dict__.items()
+            if k not in ("binned", "metadata", "num_data", "mv_slots",
+                         "raw_numeric", "_device_copies")})
+        out.binned = self.binned[indices]
+        out.mv_slots = self.mv_slots[indices] \
+            if self.mv_slots is not None else None
+        out.raw_numeric = np.ascontiguousarray(self.raw_numeric[indices]) \
+            if self.raw_numeric is not None else None
+        out.num_data = len(indices)
+        out.metadata = self.metadata.subset(indices)
+        return out
+
+    def add_features_from(self, other: "Dataset") -> "Dataset":
+        """Append ``other``'s features in place (Dataset::AddFeaturesFrom,
+        dataset.h:497; JAX ``add_features_from``). Both hold the same
+        rows; ``self`` keeps its metadata. A bundled layout stays
+        bundled: ``other``'s group columns follow ``self``'s with
+        shifted group ids. Multi-val pseudo-groups cannot be appended
+        and are refused, as in the JAX package."""
+        if other.num_data != self.num_data:
+            log_fatal("Cannot add features from a dataset with "
+                      f"{other.num_data} rows to one with "
+                      f"{self.num_data} rows")
+        if self.has_multival or other.has_multival:
+            log_fatal("add_features_from is not supported for multi-val "
+                      "datasets (pseudo-group ids cannot be appended)")
+        f_self, f_other = self.num_features, other.num_features
+        base_orig = self.num_total_features
+        if self.feature_group is not None \
+                or other.feature_group is not None:
+            g_s, o_s, b_s = self.bundle_maps()
+            g_o, o_o, b_o = other.bundle_maps()
+            self.feature_group = np.concatenate(
+                [g_s, g_o + len(b_s)]).astype(np.int32)
+            self.feature_offset = np.concatenate([o_s, o_o]).astype(np.int32)
+            self.group_num_bins = np.concatenate([b_s, b_o]).astype(np.int32)
+        dtype = self.binned.dtype \
+            if self.binned.dtype.itemsize >= other.binned.dtype.itemsize \
+            else other.binned.dtype
+        self.binned = np.concatenate(
+            [self.binned.astype(dtype, copy=False),
+             other.binned.astype(dtype, copy=False)], axis=1)
+        if self.raw_numeric is not None and other.raw_numeric is not None:
+            self.raw_numeric = np.concatenate(
+                [self.raw_numeric, other.raw_numeric], axis=1)
+        else:
+            self.raw_numeric = None
+        self._device_copies = {}
+        self.bin_mappers = list(self.bin_mappers) + list(other.bin_mappers)
+        self.used_feature_map = list(self.used_feature_map) + [
+            (-1 if m < 0 else m + f_self) for m in other.used_feature_map]
+        self.real_feature_idx = list(self.real_feature_idx) + [
+            r + base_orig for r in other.real_feature_idx]
+        self.num_total_features += other.num_total_features
+        self.feature_names = list(self.feature_names) \
+            + list(other.feature_names)
+
+        def joined(a, b, fill):
+            return (list(a) if a else [fill] * f_self) \
+                + (list(b) if b else [fill] * f_other)
+        if self.monotone_types or other.monotone_types:
+            self.monotone_types = joined(self.monotone_types,
+                                         other.monotone_types, 0)
+        if self.feature_penalty or other.feature_penalty:
+            self.feature_penalty = joined(self.feature_penalty,
+                                          other.feature_penalty, 1.0)
+        return self
+
+    # ---- the binary dataset file (SaveBinaryFile, dataset.cpp) ---------
+    def _layout_meta(self) -> dict:
+        group = lambda a: None if a is None \
+            else [int(v) for v in a]  # noqa: E731
+        return {"mappers": [m.to_dict() for m in self.bin_mappers],
+                "used_feature_map": [int(v) for v in self.used_feature_map],
+                "num_total_features": int(self.num_total_features),
+                "feature_group": group(self.feature_group),
+                "feature_offset": group(self.feature_offset),
+                "mv_group_start": self.mv_group_start}
+
+    def save_binary(self, path: str) -> None:
+        """Write the binned dataset to ``path`` exactly (no suffix
+        added): an npz archive with the JAX package's members
+        (``binned``, ``mv_slots``, ``label``, ``weights``,
+        ``query_boundaries``, ``init_score``, ``meta``) and meta keys,
+        so a file written by either package loads in the other. Raw
+        values (``raw_numeric``) are not kept, as there."""
+        md = self.metadata
+        meta = dict(self._layout_meta(),
+                    real_feature_idx=[int(v) for v in self.real_feature_idx],
+                    feature_names=list(self.feature_names),
+                    max_bin=self.max_bin,
+                    min_data_in_bin=self.min_data_in_bin,
+                    use_missing=self.use_missing,
+                    zero_as_missing=self.zero_as_missing,
+                    group_num_bins=None if self.group_num_bins is None
+                    else [int(v) for v in self.group_num_bins])
+
+        def or_empty(a, dtype, ndim=1):
+            return a if a is not None else np.zeros((0,) * ndim, dtype)
+        with open(path, "wb") as fh:
+            np.savez_compressed(
+                fh, binned=self.binned,
+                mv_slots=or_empty(self.mv_slots, np.int32, 2),
+                label=or_empty(md.label, np.float32),
+                weights=or_empty(md.weights, np.float32),
+                query_boundaries=or_empty(md.query_boundaries, np.int32),
+                init_score=or_empty(md.init_score, np.float64),
+                meta=np.frombuffer(json.dumps(meta).encode(), np.uint8))
+        log_info(f"Saved binary dataset to {path}")
+
+    @staticmethod
+    def is_binary_file(path: str) -> bool:
+        """True when ``path`` is a saved binary dataset
+        (DatasetLoader::CheckCanLoadFromBin): a zip holding the
+        ``binned`` and ``meta`` members, not merely a ``PK`` prefix."""
+        import zipfile
+        try:
+            with open(path, "rb") as fh:
+                if fh.read(2) != b"PK":
+                    return False
+            with np.load(path, allow_pickle=False) as z:
+                return "binned" in z.files and "meta" in z.files
+        except (OSError, ValueError, KeyError, zipfile.BadZipFile):
+            return False
+
+    def bin_layout_fingerprint(self) -> str:
+        """A digest of everything that decides where a raw value lands
+        in the binned matrix (the mappers, the used-feature map, the EFB
+        layout): two datasets with equal fingerprints bin alike. The
+        binary load's alignment check against a reference compares them
+        (the reference's ``CheckAlign``); the JAX package's digest of
+        the same payload."""
+        import hashlib
+        blob = json.dumps(self._layout_meta(), sort_keys=True, default=float)
+        return hashlib.sha1(blob.encode()).hexdigest()
+
+    @classmethod
+    def load_binary(cls, path: str) -> "Dataset":
+        """A dataset written by ``save_binary`` (either package's)."""
+        from .binning import BinMapper
+        with np.load(path) as z:
+            meta = json.loads(bytes(z["meta"]).decode())
+            self = cls()
+            self.bin_mappers = [BinMapper.from_dict(d)
+                                for d in meta["mappers"]]
+            for key in ("used_feature_map", "real_feature_idx",
+                        "feature_names", "num_total_features", "max_bin",
+                        "min_data_in_bin", "use_missing", "zero_as_missing"):
+                setattr(self, key, meta[key])
+            if meta.get("feature_group") is not None:
+                for key in ("feature_group", "feature_offset",
+                            "group_num_bins"):
+                    setattr(self, key, np.asarray(meta[key], np.int32))
+            self.binned = z["binned"]
+            if meta.get("mv_group_start") is not None:
+                self.mv_group_start = meta["mv_group_start"]
+                self.mv_slots = z["mv_slots"]
+            self.num_data = len(self.binned)
+            md = Metadata(self.num_data)
+            if len(z["label"]):
+                md.set_label(z["label"])
+            if len(z["weights"]):
+                md.set_weights(z["weights"])
+            if len(z["query_boundaries"]):
+                md.query_boundaries = z["query_boundaries"]
+                md._update_query_weights()
+            if len(z["init_score"]):
+                md.init_score = z["init_score"]
+            self.metadata = md
+        return self
+
     # ---- refused until their ROADMAP items --------------------------
     @classmethod
     def from_sampled_columns(cls, *args, **kwargs):
@@ -742,15 +946,6 @@ class Dataset:
 
     def push_rows(self, *args, **kwargs):
         _refuse("push_rows (streaming ingestion)", "12")
-
-    def save_binary(self, *args, **kwargs):
-        _refuse("save_binary", "7.6")
-
-    def subset(self, *args, **kwargs):
-        _refuse("Dataset.subset", "7.6")
-
-    def add_features_from(self, *args, **kwargs):
-        _refuse("add_features_from", "7.6")
 
 
 def _refuse(what: str, item: str) -> None:

@@ -21,6 +21,9 @@ float32 ``[N, k]``; trees live on the host. GOSS, DART and RF are
 subclasses (``models/variants.py``). With ``linear_tree`` each grown tree
 gets its leaf models (``models/linear.py``) before the leaf refit and
 shrinkage, and the scores add them over the datasets' raw values.
+``refit`` replays a model's trees on this booster's rows to refit their
+leaf values (the per-leaf sums through the ``hist_rows`` kernel), and
+``rollback_one_iter`` takes the last iteration's trees off the scores.
 """
 
 from __future__ import annotations
@@ -103,6 +106,9 @@ class GBDT:
         self.config = config
         self.train_data = train_data
         self.device = torch.device(device)
+        # the kernels' plain versions (the CPU, or ops="plain" on the
+        # card): the learner's, and refit's per-leaf sums
+        self.plain = ops == "plain" or self.device.type == "cpu"
         self.objective = create_objective(config)
         self.num_class = int(config.num_class)
         self.num_tree_per_iteration = (
@@ -393,6 +399,147 @@ class GBDT:
             self.train_score[:, tid] += vals[leaf_id]
         for vd, vs in zip(self.valid_sets, self.valid_scores):
             tree.predict_binned_add(vs, tid, *_walk_inputs(vd, self.device))
+
+    # ------------------------------------------------------------------
+    def refit(self, leaf_preds: np.ndarray,
+              raw: Optional[np.ndarray] = None) -> None:
+        """RefitTree (gbdt.cpp:266-289) + FitByExistingTree
+        (serial_tree_learner.cpp:194-224; JAX ``GBDT.refit``): keep every
+        tree's structure and refit its leaf values on this booster's
+        training data by replaying the iterations from a zero score: the
+        objective's gradients at the current score over every row (no
+        bagging or GOSS), each tree's per-leaf sums of (grad, hess, 1)
+        (``hist_cuda.leaf_histogram``: the ``hist_rows`` kernel), the
+        leaf output, ``decay * old + (1 - decay) * output * shrinkage``
+        and the score update, all on the device in float32 as the JAX
+        package's program does. The refit outputs are read to the host
+        once, after the last tree, and blended into the float64 leaf
+        values. A linear tree also refits each leaf's ridge model over
+        its features (``models/linear.py``'s float64 sums and batched
+        solve; a gated leaf decays toward the constant output) from
+        ``raw``, the refit rows' raw matrix by original feature, or else
+        the training set's ``raw_numeric``. ``leaf_preds`` [N, trees]:
+        each row's leaf in every tree (``predict(pred_leaf=True)``)."""
+        from ..ops.hist_cuda import leaf_histogram
+        from ..ops.split import leaf_output_no_constraint
+        from .linear import fit_linear_device, linear_values
+        dev = self.device
+        raw_dev, use_inner = None, False
+        if any(t.is_linear for t in self.models):
+            if raw is not None:
+                raw_dev = torch.as_tensor(np.asarray(raw, np.float32),
+                                          device=dev)
+            elif self.train_data.raw_numeric is not None:
+                raw_dev = self.train_data.raw_numeric_device(dev)
+                use_inner = True
+            else:
+                from ..utils.log import LightGBMError
+                raise LightGBMError(
+                    "refit_linear_raw_missing: refit of a linear_tree=true "
+                    "model must re-fit the per-leaf linear coefficients, "
+                    "which needs the raw feature matrix of the refit data; "
+                    "pass raw= (Booster.refit does) or construct the "
+                    "training Dataset with linear_tree=true so it keeps "
+                    "raw values")
+        k = self.num_tree_per_iteration
+        cfg = self.config
+        decay = float(cfg.refit_decay_rate)
+        leaf_preds = np.asarray(leaf_preds)
+        if leaf_preds.ndim == 1:
+            leaf_preds = leaf_preds.reshape(self.num_data, -1)
+        if leaf_preds.shape != (self.num_data, len(self.models)):
+            log_fatal(f"leaf_preds shape {leaf_preds.shape} does not match "
+                      f"(num_data={self.num_data}, "
+                      f"num_models={len(self.models)})")
+        lp_dev = torch.as_tensor(leaf_preds.astype(np.int32), device=dev)
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32,  # noqa: E731
+                                     device=dev)
+        # float32 scalars as the JAX program has them: 1 - decay is
+        # rounded from float32(decay)
+        d32 = f32(decay)
+        one_minus = 1.0 - d32
+        l1, l2 = float(cfg.lambda_l1), float(cfg.lambda_l2)
+        mds = float(cfg.max_delta_step)
+        ones = torch.ones(self.num_data, dtype=torch.float32, device=dev)
+        self.train_score = torch.zeros_like(self.train_score)
+        pending = []   # (tree, device outputs, linear features or None)
+        for it in range(len(self.models) // k):
+            grad, hess = self.gradients()
+            for tid in range(k):
+                mi = it * k + tid
+                tree = self.models[mi]
+                nl = max(tree.num_leaves, 1)
+                lp = lp_dev[:, mi]
+                g, h = grad[:, tid].contiguous(), hess[:, tid].contiguous()
+                sums = leaf_histogram(lp, torch.stack([g, h, ones], 1), nl,
+                                      plain=self.plain)
+                out = leaf_output_no_constraint(
+                    sums[:, 0], sums[:, 1] + f32(kEpsilon), l1, l2, mds)
+                shrink = f32(tree.shrinkage)
+                new_leaf = d32 * f32(np.asarray(tree.leaf_value,
+                                                np.float32)) \
+                    + one_minus * out * shrink
+                lpl = lp.long()
+                if not tree.is_linear:
+                    self.train_score[:, tid] += new_leaf[lpl]
+                    pending.append((tree, (out,), None))
+                    continue
+                feats = np.asarray(tree.leaf_features_inner if use_inner
+                                   else tree.leaf_features, np.int32)
+                coeff, const, ok = fit_linear_device(
+                    raw_dev, lp, g, h, None, feats, out,
+                    lam=float(cfg.linear_lambda), l2=l2)
+                bc = d32 * f32(np.asarray(tree.leaf_const, np.float32)) \
+                    + one_minus * const * shrink
+                bw = d32 * f32(np.asarray(tree.leaf_coeff, np.float32)) \
+                    + one_minus * coeff * shrink
+                self.train_score[:, tid] += linear_values(
+                    lpl, raw_dev, new_leaf, bc, bw,
+                    torch.as_tensor(feats, dtype=torch.int64, device=dev))
+                pending.append((tree, (out, const, coeff, ok), feats))
+        if any(t.num_leaves > 1024 for t in self.models):
+            log_info("refit: the per-leaf sums of trees past 1024 leaves "
+                     "take the sorted route (hist_cuda.leaf_histogram)")
+        # the one host read: every tree's outputs in one float64 buffer
+        # (float32 and bool widen exactly)
+        parts = [t for _, outs, _ in pending for t in outs]
+        flat = torch.cat([t.double().reshape(-1) for t in parts]).cpu() \
+            .numpy() if parts else np.zeros(0)
+        ends = np.cumsum([t.numel() for t in parts])
+        host = iter(np.split(flat, ends[:-1]))
+        host = [[next(host).reshape(tuple(t.shape)) for t in outs]
+                for _, outs, _ in pending]
+        for (tree, _, feats), outs in zip(pending, host):
+            o64 = outs[0]
+            shrink = tree.shrinkage
+            tree.leaf_value = decay * tree.leaf_value \
+                + (1.0 - decay) * o64 * shrink
+            if feats is None:
+                continue
+            # the linear blend again in float64 on the tree's arrays
+            _, fit_const, fit_coeff, ok = outs
+            okh = ok > 0
+            target_c = np.where(okh, fit_const, o64)
+            const = decay * tree.leaf_const \
+                + (1.0 - decay) * target_c * shrink
+            coeff = decay * tree.leaf_coeff + (1.0 - decay) * np.where(
+                okh[:, None], fit_coeff, 0.0) * shrink
+            tree.set_linear(feats, coeff, const,
+                            dataset=self.train_data if use_inner else None)
+
+    def rollback_one_iter(self) -> None:
+        """Drop the last iteration's trees, their outputs taken off the
+        train and valid scores by a bin-space walk of each tree shrunk by
+        -1 (gbdt.cpp:421-437)."""
+        if self.iter <= 0:
+            return
+        k = self.num_tree_per_iteration
+        for tid in range(k):
+            tree = self.models[-k + tid]
+            tree.shrink(-1.0)
+            self._add_tree_score(tree, tid, train=True, valid=True)
+        del self.models[-k:]
+        self.iter -= 1
 
     # ------------------------------------------------------------------
     def eval_sets(self, jobs) -> List[Tuple[str, str, float, bool]]:

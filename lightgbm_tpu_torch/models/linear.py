@@ -123,6 +123,18 @@ def fit_linear(raw: torch.Tensor, leaf_id: torch.Tensor, grad, hess, bag,
     ``feats`` [L, C] -1-padded, ``leaf_value`` [L] the constant
     fallback. Returns host (coeff float32 [L, C], const float32 [L],
     ok bool [L])."""
+    lv = torch.as_tensor(np.asarray(leaf_value, np.float32),
+                         device=raw.device)
+    return tuple(t.cpu().numpy() for t in fit_linear_device(
+        raw, leaf_id, grad, hess, bag, feats, lv, lam=lam, l2=l2))
+
+
+def fit_linear_device(raw: torch.Tensor, leaf_id: torch.Tensor, grad, hess,
+                      bag, feats: np.ndarray, lv: torch.Tensor, *,
+                      lam: float, l2: float):
+    """``fit_linear`` with the constant fallback ``lv`` (float32 [L]) and
+    the results (coeff, const, ok) left on the device: refit reads them
+    once, after its last tree."""
     dev = raw.device
     big_l, c = feats.shape
     ft = torch.as_tensor(feats, device=dev)
@@ -169,10 +181,9 @@ def fit_linear(raw: torch.Tensor, leaf_id: torch.Tensor, grad, hess, bag,
     ok = ((info == 0) & torch.isfinite(sol).all(dim=1)
           & (sol.abs() < kCoeffBound).all(dim=1) & (cnt > ca) & (ca > 0))
     sol = sol.float()
-    lv = torch.as_tensor(np.asarray(leaf_value, np.float32), device=dev)
     coeff = torch.where(ok[:, None], sol[:, :c], torch.zeros_like(sol[:, :c]))
     const = torch.where(ok, sol[:, c], lv)
-    return coeff.cpu().numpy(), const.cpu().numpy(), ok.cpu().numpy()
+    return coeff, const, ok
 
 
 def fit_linear_leaves(tree, dataset, config, leaf_id, grad, hess,

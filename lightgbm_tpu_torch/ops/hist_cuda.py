@@ -375,3 +375,39 @@ def histogram_rows(binned: torch.Tensor, ghc: torch.Tensor, num_bins: int,
     _native.LAUNCHES["hist_rows"] += 1
     _native.check(err, "hist_rows")
     return out
+
+
+# ---- refit's per-leaf sums ----------------------------------------------
+
+# trees whose per-leaf sums took each route (both devices): up to 1024
+# leaves the hist_rows kernel (its plain version on the CPU or with
+# ``plain``), past that a stable sort by leaf and float64 segment sums
+LEAF_SUM_ROUTES = {"hist_rows": 0, "sorted": 0}
+
+
+def leaf_histogram(leaf: torch.Tensor, ghc: torch.Tensor, num_leaves: int,
+                   plain: bool = False) -> torch.Tensor:
+    """[L, 3] float32 sums of ``ghc`` [N, 3] (grad, hess, a 0/1 count)
+    by the rows' leaf ``leaf`` [N] (refit's per-leaf sums, JAX
+    ``models/gbdt.py:_refit_tree``'s scatter): the histogram of a
+    one-column bin matrix whose bin is the leaf, through
+    ``histogram_rows`` (uint8 bins up to 256 leaves, the int16 bits of
+    u16 bins up to 1024), so one ``hist_rows`` launch a tree on the card
+    and float64 sums rounded once. ``plain`` runs its plain version on
+    any device. Past 1024 leaves (wider than the kernel's bins) the
+    rows are stably sorted by leaf and each leaf's rows summed in
+    float64 in row order (``segment_reduce``), on every device alike."""
+    if num_leaves > 1024:
+        LEAF_SUM_ROUTES["sorted"] += 1
+        lid = leaf.long()
+        order = torch.argsort(lid, stable=True)
+        counts = torch.bincount(lid, minlength=num_leaves)
+        sums = torch.segment_reduce(ghc.double()[order], "sum",
+                                    lengths=counts, unsafe=True)
+        return sums.float()
+    LEAF_SUM_ROUTES["hist_rows"] += 1
+    bins = leaf.to(torch.uint8 if num_leaves <= 256 else torch.int16)
+    bins = bins.reshape(-1, 1)
+    if plain:
+        return histogram_rows_plain(bins, ghc, num_leaves)[0]
+    return histogram_rows(bins, ghc.contiguous(), num_leaves)[0]

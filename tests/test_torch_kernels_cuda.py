@@ -1148,3 +1148,62 @@ def test_extras_training_kernels_match_plain(dev, case):
             np.testing.assert_array_equal(a.leaf_const, b.leaf_const)
     np.testing.assert_array_equal(kb.predict(X[:5000], raw_score=True),
                                   pb.predict(X[:5000], raw_score=True))
+
+
+@pytest.mark.parametrize("num_leaves", [63, 1000], ids=["u8", "u16"])
+def test_refit_leaf_sums_kernel_matches_plain(dev, num_leaves):
+    """Refit's per-leaf sums through the ``hist_rows`` kernel (the leaf
+    ids as a one-column bin matrix: uint8 bins at 63 leaves, the int16
+    bits of u16 bins at 1000) against its plain version on the card and
+    on the CPU: one launch, the same float32 sums to the bit."""
+    from lightgbm_tpu_torch.ops import _native
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    n = 300_007
+    g = torch.Generator(device=dev).manual_seed(num_leaves)
+    leaf = torch.randint(0, num_leaves, (n,), generator=g, device=dev)
+    ghc = torch.stack([torch.randn(n, generator=g, device=dev),
+                       torch.rand(n, generator=g, device=dev),
+                       torch.ones(n, device=dev)], dim=1)
+    before = _native.LAUNCHES["hist_rows"]
+    out = hc.leaf_histogram(leaf, ghc, num_leaves)
+    assert _native.LAUNCHES["hist_rows"] == before + 1
+    plain = hc.leaf_histogram(leaf, ghc, num_leaves, plain=True)
+    cpu = hc.leaf_histogram(leaf.cpu(), ghc.cpu(), num_leaves)
+    torch.cuda.synchronize()
+    assert _same_bytes(out, plain)
+    assert _same_bytes(out.cpu(), cpu)
+
+
+@pytest.mark.parametrize("linear", [False, True])
+def test_refit_kernel_matches_plain(dev, linear):
+    """``Booster.refit`` of one model on the card through the kernel and
+    through the plain versions: the same leaf values (and linear
+    models) to the bit, one ``hist_rows`` launch a tree; decay 1.0
+    changes no leaf."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import _native
+    rng = np.random.RandomState(6)
+    X = rng.randn(40_000, 8)
+    X[rng.rand(40_000) < 0.1, 2] = np.nan
+    y = (X[:, 0] - X[:, 1] + 0.3 * rng.randn(40_000) > 0).astype(np.float32)
+    p = {"objective": "binary", "num_leaves": 63, "verbosity": -1,
+         "learning_rate": 0.2, "linear_tree": linear}
+    text = lt.train(p, lt.Dataset(X, label=y), 4, device=dev) \
+        .model_to_string()
+    X2 = rng.randn(40_000, 8)
+    y2 = (X2[:, 0] - X2[:, 1] + 0.3 * rng.randn(40_000) > 0).astype(
+        np.float32)
+    before = _native.LAUNCHES["hist_rows"]
+    kb = lt.Booster(model_str=text, device=dev).refit(X2, y2, 0.9)
+    assert _native.LAUNCHES["hist_rows"] == before + 4
+    pb = lt.Booster(model_str=text, device=dev, ops="plain").refit(X2, y2,
+                                                                   0.9)
+    same = lt.Booster(model_str=text, device=dev).refit(X2, y2, 1.0)
+    src = lt.Booster(model_str=text, device=dev)
+    for a, b, c, d in zip(kb.models, pb.models, same.models, src.models):
+        np.testing.assert_array_equal(a.leaf_value, b.leaf_value)
+        np.testing.assert_array_equal(c.leaf_value, d.leaf_value)
+        assert a.is_linear == linear
+        if linear:
+            np.testing.assert_array_equal(a.leaf_coeff, b.leaf_coeff)
+            np.testing.assert_array_equal(a.leaf_const, b.leaf_const)

@@ -394,9 +394,10 @@ def test_prediction_refusals_name_queue_1_item_6(trained, kwargs):
 
 def test_data_refusals_name_their_items(tmp_path):
     """``two_round`` files and sparse matrices train (ROADMAP.md Queue 1
-    item 7.3, once refused here) as their in-memory dense forms do; what
-    is still refused names its item: the binary cache, subsets and
-    feature appends (7.6), streaming ingestion (12)."""
+    item 7.3, once refused here) as their in-memory dense forms do; so
+    do the binary cache, subsets and feature appends (item 7.6, once
+    refused here); what is still refused names its item: streaming
+    ingestion (12)."""
     X, y = _data(n=300)
     path = str(tmp_path / "train.csv")
     np.savetxt(path, np.column_stack([y, X]), delimiter=",", fmt="%.17g")
@@ -414,11 +415,13 @@ def test_data_refusals_name_their_items(tmp_path):
         lt.train(PARAMS, lt.Dataset(Xz, label=y), 1,
                  device="cpu").predict(Xz, raw_score=True))
     ds = lt.Dataset(X, label=y)
-    for call, item in ((lambda: ds.save_binary(str(tmp_path / "b")), "7.6"),
-                       (lambda: ds.subset([0, 1]), "7.6"),
-                       (lambda: ds.add_features_from(ds), "7.6")):
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-            call()
+    ds.save_binary(str(tmp_path / "b"))
+    np.testing.assert_array_equal(
+        lt.Dataset(str(tmp_path / "b")).construct().binned,
+        ds.construct().binned)
+    assert ds.subset([1, 0]).num_data() == 2
+    ds.add_features_from(lt.Dataset(X, label=y))
+    assert ds.num_feature() == 2 * X.shape[1]
     from lightgbm_tpu_torch.data.dataset import Dataset as Binned
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         Binned.from_sampled_columns([], [], 0, 0, None)
