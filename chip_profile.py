@@ -500,7 +500,7 @@ def hist_rows_phases(sets, timed: bool = True) -> str:
         .flatten().to(torch.int32)
     lines = []
     for width, mb in (("u8", 255), ("u16", 1023)):
-        binned = sets[mb].construct(lt.Config.from_params(
+        binned = sets[mb]._construct(lt.Config.from_params(
             {"objective": "binary", "max_bin": mb}))
         bins = binned.binned_device(dev)
         b = int(binned.num_bins_array().max())
@@ -580,7 +580,7 @@ def scan_phases(sets) -> str:
     for mb in (255, 1023):
         cfg = lt.Config.from_params({"objective": "binary", "max_bin": mb,
                                      "verbosity": -1})
-        binned = sets[mb].construct(cfg)
+        binned = sets[mb]._construct(cfg)
         bins = binned.binned_device(dev)
         b = int(binned.num_bins_array().max())
         hists = [build_histogram(bins[:n // 3], ghc[:n // 3], b),
@@ -643,7 +643,7 @@ def partition_times(sets) -> str:
     from lightgbm_tpu_torch.ops import hist_cuda as hc
     from lightgbm_tpu_torch.ops import partition_cuda as pc
     dev = torch.device("cuda")
-    binned = sets[255].construct(lt.Config.from_params(
+    binned = sets[255]._construct(lt.Config.from_params(
         {"objective": "binary", "max_bin": 255, "verbosity": -1}))
     mat = hc.build_matrix(binned.binned_device(dev))
     n, f = mat.shape[0], binned.num_features

@@ -182,6 +182,35 @@ of the JAX package. Phases, each fatal on failure:
    plain versions at 100k rows, 63 leaves, 3 iterations: cv at max_bin
    255 and 1023, and refit. The refit route of ``hist_rows`` (F 1, B
    255, 2M rows) is timed beside its bound for the kernels line.
+15. more than 1024 bins: the scan and ``hist_rows`` alone
+   (``wide_kernel_checks``, run right after phase 2's checks, while the
+   profiler keeps its records) at B in {1025, 2048, 4095, 4096}, the
+   last width whose one-feature tile fits a block and one past it,
+   32,767, 32,768, 32,769 and 65,536 (2M x 28 rows for ``hist_rows``:
+   int16 bits up to 32,768, int32 past; the scan bitwise, ``hist_rows``
+   by phase 2's rule), with ms, device ms, bound and library time; then
+   (``wide_bins_phase``) the 2M x 28 rows at max_bin 4095 on the serial
+   learner's per-phase path (255 leaves, 8 iterations, a 500k valid set)
+   beside phase 4's per-phase ms/split at 1023, with
+   ``fused_split_step_leaf`` never launched and
+   ``split_scan`` and ``hist_rows`` once a tree and once a split; then
+   kernel against plain at 100k rows, 63 leaves, 3 iterations at max_bin
+   4095 and 40,000 (``min_data_in_bin`` 1), the same trees to the bit;
+16. the parallel learners (``parallel_phase``): 2 rank processes on the
+   one card (this script with ``--rank``; gloo, a ``file://``
+   rendezvous, a 60 s collective timeout), each on its 1M-row
+   ``host_row_range`` block of phase 3's rows under ``pre_partition``,
+   binned from the pooled sample of every row; ``tree_learner=data`` at
+   max_bin 255 (the segment kernels on each rank) and 1023 (``hist_rows``
+   and the scan), voting (top_k 20) at 255 and feature at 1023 (every row
+   on each rank), 255 leaves, 4 iterations (cut from 8 for time), each
+   with its ms/split, collectives and bytes a split and launches, held
+   against the single process on the same rows and bins (trained here
+   while the ranks run: the same bins; data and feature the same trees
+   within the tests' tolerance, and whether to the bit; voting's valid
+   AUC within 0.002 of the data model's), then each learner kernel
+   against plain at 100k rows, 63 leaves, 3 iterations, the same trees
+   to the bit. A rank that fails or runs out of time fails the run.
 
 The second-to-last line of output is the per-kernel JSON record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -209,7 +238,7 @@ LAUNCHES_A_CALL = {"hist_segment": 2, "partition_segment": 2,
 # each wrapper's CUDA kernels, by a part of their names
 KERNEL_NAMES = {"hist_segment": ("hist_partial", "hist_reduce"),
                 "partition_segment": ("part_",),
-                "split_scan": ("split_scan_kernel",),
+                "split_scan": ("split_scan_kernel", "split_scan_wide_kernel"),
                 "fused_split_step_segment": ("split_step_kernel",),
                 "fused_split_step_leaf": ("split_step_leaf",),
                 "hist_rows": ("hist_rows",)}
@@ -1233,6 +1262,10 @@ def leaf_vs_segment(binned, params, dev, trees=3):
         score += 0.1 * vals[lid.long()]
 
 
+# ms/split of each full-width run of train_paths, by (label, path)
+PATH_MS = {}
+
+
 def train_paths(label, params, ds, iters, dev, on_path, fused_kernel):
     """Full-width training through the fused and the per-phase grow
     paths, each driven with the launch counts set to 0 just before it
@@ -1254,6 +1287,7 @@ def train_paths(label, params, ds, iters, dev, on_path, fused_kernel):
         launches = dict(_native.LAUNCHES)
         splits = sum(t.num_leaves - 1 for t in bst.models)
         runs[path] = (bst, launches)
+        PATH_MS[label, path] = wall / max(splits, 1) * 1e3
         lrn = bst._gbdt.learner
         print(f"[train {label}] {path}: {type(lrn).__name__}, "
               f"num_bins_max {lrn.num_bins_max}, {len(bst.models)} trees, "
@@ -1680,7 +1714,7 @@ def objectives_phase(X, binned, binned_wide, dev):
     for max_bin, b in ((255, binned), (1023, binned_wide)):
         base = lt.Dataset(X)
         base._binned = b
-        vbins[max_bin] = base.create_valid(Xv).construct(
+        vbins[max_bin] = base.create_valid(Xv)._construct(
             lt.Config.from_params({"max_bin": max_bin, "verbosity": -1}))
     print(f"[objectives] labels, {len(groups[0])} train and "
           f"{len(groups[1])} valid queries, {len(zv)} valid rows binned at "
@@ -1766,8 +1800,8 @@ def objective_parity(dev):
     for max_bin, runs in ((255, "abce"), (1023, "c")):
         cfg = lt.Config.from_params({"max_bin": max_bin, "verbosity": -1})
         base = lt.Dataset(Xp)
-        binned = base.construct(cfg)
-        vbinned = base.create_valid(Xpv).construct(cfg)
+        binned = base._construct(cfg)
+        vbinned = base.create_valid(Xpv)._construct(cfg)
         for run, objective, _, _, metric in OBJECTIVE_RUNS:
             if run not in runs:
                 continue
@@ -2527,8 +2561,8 @@ def categorical_phase(n, iters, dev):
                   "metric": "auc,binary_logloss", "verbosity": -1}
         tr = lt.Dataset(X, label=y, categorical_feature=AIRLINE_CATEGORICAL)
         va = tr.create_valid(Xv, label=yv)
-        binned = tr.construct(lt.Config.from_params(params))
-        va.construct(lt.Config.from_params(params))     # outside the run
+        binned = tr._construct(lt.Config.from_params(params))
+        va._construct(lt.Config.from_params(params))     # outside the run
         nb = [int(binned.feature_mapper(i).num_bin)
               for i in range(binned.num_features)]
         print(f"[categorical {run}] max_bin {max_bin}: bins per column "
@@ -2752,8 +2786,8 @@ def efb_pair(label, params, data, y, vdata, vy, iters, dev,
         t0 = time.perf_counter()
         tr = lt.Dataset(data, label=y)
         va = tr.create_valid(vdata, label=vy)
-        ds = tr.construct(lt.Config.from_params(p))
-        va.construct(lt.Config.from_params(p))     # outside the run
+        ds = tr._construct(lt.Config.from_params(p))
+        va._construct(lt.Config.from_params(p))     # outside the run
         plan = describe_plan(f"{label} {mode}", ds)
         plan["bin_s"] = time.perf_counter() - t0
         print(f"[efb {label} {mode}] binned (train and valid) in "
@@ -2885,7 +2919,7 @@ def two_round_check(csr, y, dev):
             p = dict(params, two_round=mode == "two_round")
             t0 = time.perf_counter()
             ds = lt.Dataset(path)
-            binned = ds.construct(lt.Config.from_params(p))
+            binned = ds._construct(lt.Config.from_params(p))
             out[f"{mode}_load_s"] = time.perf_counter() - t0
             res[mode] = (binned, lt.train(p, ds, 3, device=dev))
             print(f"[efb d] {mode}: loaded and binned in "
@@ -3260,7 +3294,7 @@ def extras_phase(X, y, binned, binned_wide, dev, iters, reps):
         tr = lt.Dataset(X, label=y)
         tr._binned = b
         va = tr.create_valid(Xv, label=yv)
-        va.construct(lt.Config.from_params({"max_bin": mb,
+        va._construct(lt.Config.from_params({"max_bin": mb,
                                             "verbosity": -1}))
         sets[mb] = (tr, va)
     print(f"[extras] valid 500000 rows binned at max_bin 255 and 1023 in "
@@ -3483,10 +3517,15 @@ def refit_route_record(dev, n, reps):
                        "hist_rows") or None
     plain_us = time_ms(lambda: hc.leaf_histogram(leaf, ghc, 255,
                                                  plain=True), reps) * 1e3
+    # one flattened float64 index_add_ of the same sums
+    lib_out = torch.zeros((255, 3), dtype=torch.float64, device=dev)
+    vals = ghc.double()
+    library_us = time_ms(lambda: lib_out.index_add_(0, leaf, vals),
+                         reps) * 1e3
     bound_us = (n * (1 + 12) + 255 * 3 * 4) / HBM_BYTES_PER_S * 1e6
     return dict(us=us, device_us=dev_us, plain_us=plain_us,
-                bound_us=bound_us, bound_by="bytes", max_abs_err=err,
-                rows=n, num_leaves=255)
+                library_us=library_us, bound_us=bound_us, bound_by="bytes",
+                max_abs_err=err, rows=n, num_leaves=255)
 
 
 def slice15_cv(params, full, X, y, iters, dev):
@@ -3539,8 +3578,8 @@ def slice15_cv(params, full, X, y, iters, dev):
              f"({want} in full trees)")
     b0 = cvb.boosters[0]
     idx = b0.train_set.used_indices
-    rows_equal = np.array_equal(b0.train_set.construct().binned,
-                                full.construct().binned[idx])
+    rows_equal = np.array_equal(b0.train_set._construct().binned,
+                                full._construct().binned[idx])
     t1 = time.perf_counter()
     ref = lt.train(params, lt.Dataset(X[idx], label=y[idx], reference=full),
                    b0.num_trees(), device=dev)
@@ -3812,12 +3851,518 @@ def slice15_phase(X, y, binned, dev, iters, reps):
         else f"{route['device_us']:.1f}"
     print(f"[slice15 route] hist_rows refit route, F 1, B 255, "
           f"{route['rows']} rows: {route['us']:.1f} us a call (events), "
-          f"{on_card} on the card, plain {route['plain_us']:.1f}, bound "
+          f"{on_card} on the card, plain {route['plain_us']:.1f}, float64 "
+          f"index_add_ {route['library_us']:.1f}, bound "
           f"{route['bound_us']:.2f} us (bytes), max abs err "
           f"{route['max_abs_err']}")
     if route["max_abs_err"] != 0.0:
         fail("phase 14: the refit route disagrees with its plain version")
     return out, route
+
+
+# ---- phase 15: more than 1024 bins ------------------------------------
+
+def wide_bins_dtype(b):
+    """The device copy of a bin matrix at ``b`` bins (data/dataset.py
+    ``binned_device``): uint8, the int16 bits of uint16, or int32 past
+    32,768 bins."""
+    import torch
+    return torch.uint8 if b <= 256 else torch.int16 if b <= 32768 \
+        else torch.int32
+
+
+def wide_scan_case(dev, b, reps, n=200_000, f=F):
+    """The scan kernel at ``b`` bins on two random children of ``n``
+    rows, every missing convention: every column bitwise its plain
+    version's; ms, device ms, plain ms and bound."""
+    import torch
+    from lightgbm_tpu_torch.ops import split as sp
+    from lightgbm_tpu_torch.ops import split_scan_cuda as sc
+    from lightgbm_tpu_torch.ops.histogram import build_histogram
+    g = torch.Generator(device=dev).manual_seed(b)
+    bins = torch.randint(0, b, (n, f), generator=g, device=dev)
+    ghc = torch.stack([torch.randn(n, generator=g, device=dev)
+                       + (bins[:, 0] > b // 2).float(),
+                       torch.rand(n, generator=g, device=dev) + 0.1,
+                       torch.ones(n, device=dev)], dim=1)
+    hists = [build_histogram(bins[:n // 3], ghc[:n // 3], b),
+             build_histogram(bins[n // 3:], ghc[n // 3:], b)]
+    leaves = [tuple(h[0].sum(0).cpu().numpy()) + (-np.inf, np.inf)
+              for h in hists]
+    meta = sp.FeatureMeta(
+        num_bins=np.full(f, b, np.int32),
+        missing=(np.arange(f) % 3).astype(np.int32),
+        default_bin=np.full(f, b // 3, np.int32),
+        most_freq_bin=np.zeros(f, np.int32),
+        monotone=np.zeros(f, np.int32), penalty=np.ones(f, np.float32),
+        is_categorical=np.zeros(f, bool))
+    meta_t = sp.meta_tensors(meta, dev)
+    tables = sc.scan_meta_tables(meta_t)
+    params = sp.SplitParams(0.0, 1.0, 0.0, 20.0, 1e-3, 0.0, True)
+    k = sc.per_feature_numerical_cuda(hists, leaves, meta_t, params, tables)
+    p = sc.per_feature_numerical_plain(hists, leaves, meta_t, params)
+    k, p = k.cpu().numpy(), p.cpu().numpy()
+    if k.tobytes() != p.tobytes():
+        fail(f"scan at {b} bins differs from its plain version")
+    if not np.isfinite(k[..., sp.O_SCORE]).any():
+        fail(f"scan at {b} bins: no valid feature")
+    call = lambda: sc.per_feature_numerical_cuda(  # noqa: E731
+        hists, leaves, meta_t, params, tables)
+    nbytes = 2 * f * b * 3 * 4 + 2 * f * 8 * 4
+    ops = 2 * f * b * 2 * 44
+    # None: the profiler recorded no launch
+    return dict(ms=time_ms(call, reps),
+                device_ms=device_us(call, reps,
+                                    KERNEL_NAMES["split_scan"]) / 1e3
+                or None,
+                plain_ms=time_ms(lambda: sc.per_feature_numerical_plain(
+                    hists, leaves, meta_t, params), 3),
+                bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                             ops / F32_FLOPS) * 1e3,
+                bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+                >= ops / F32_FLOPS else "operations", library_ms=None,
+                max_abs_err=0.0)
+
+
+def wide_hist_case(dev, b, reps, n, f=F):
+    """``hist_rows`` over all ``n`` rows of a random [n, f] bin matrix at
+    ``b`` bins (the device copy's dtype at that width) against its plain
+    version, phase 2's rule (bitwise repeatable, counts exact, sums
+    within 1e-5 x the bin's sum of |values| + 1e-6); ms, device ms,
+    plain ms, one flattened float32 ``index_add_`` of the same rows and
+    the byte bound; the blocks' window of bins."""
+    import torch
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    g = torch.Generator(device=dev).manual_seed(b + 1)
+    bins = torch.randint(0, b, (n, f), generator=g, device=dev) \
+        .to(wide_bins_dtype(b))
+    ghc = torch.stack([torch.randn(n, generator=g, device=dev),
+                       torch.rand(n, generator=g, device=dev) + 0.1,
+                       (torch.rand(n, generator=g, device=dev) < 0.9)
+                       .float()], dim=1)
+    bb = bins.element_size()
+    partial = hc.rows_partial(bins, b)
+    out = hc.histogram_rows(bins, ghc, b, partial=partial)
+    again = hc.histogram_rows(bins, ghc, b, partial=partial)
+    ref = hc.histogram_rows_plain(bins, ghc, b)
+    scale = hc.histogram_rows_plain(bins, ghc.abs(), b)
+    torch.cuda.synchronize()
+    if not torch.equal(out.view(torch.int32), again.view(torch.int32)):
+        fail(f"hist_rows at {b} bins not bitwise repeatable")
+    if not torch.equal(out[..., 2], ref[..., 2]):
+        fail(f"hist_rows at {b} bins: counts differ from the plain version")
+    err = (out - ref).abs()
+    if bool((err > 1e-5 * scale + 1e-6).any()):
+        fail(f"hist_rows at {b} bins off by {float(err.max())}")
+    del again, ref, scale
+    call = lambda: hc.histogram_rows(bins, ghc, b,  # noqa: E731
+                                     partial=partial)
+    keys = (bins.long() & 0xFFFFFFFF) + torch.arange(f, device=dev) * b
+    keys = keys.reshape(-1)
+    vals = ghc.repeat_interleave(f, 0)
+    lib_out = torch.zeros((f * b, 3), device=dev)
+    library_ms = time_ms(lambda: lib_out.index_add_(0, keys, vals), reps)
+    del keys, vals, lib_out
+    tile = hc.leaf_feat_tile(f, b, bb)
+    nbytes = n * (f * bb + 12) + f * b * 3 * 4
+    return dict(ms=time_ms(call, reps),
+                device_ms=device_us(call, reps,
+                                    KERNEL_NAMES["hist_rows"]) / 1e3
+                or None,
+                plain_ms=time_ms(lambda: hc.histogram_rows_plain(
+                    bins, ghc, b), 3),
+                library_ms=library_ms,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                max_abs_err=float(err.max()), rows=n, bin_bytes=bb,
+                feat_tile=tile, window=hc.rows_window(bb, b, tile))
+
+
+def wide_parity(dev, max_bin, min_data_in_bin=3):
+    """Kernel against plain at 100k rows, 63 leaves, 3 iterations, at
+    ``max_bin`` (the serial learner, per-phase past 1024 bins): the same
+    trees and leaf values to the bit."""
+    import lightgbm_tpu_torch as lt
+    Xp, yp = higgs_like(100_000, seed=3)
+    pp = {"objective": "binary", "num_leaves": 63, "learning_rate": 0.1,
+          "max_bin": max_bin, "min_data_in_bin": min_data_in_bin,
+          "verbosity": -1}
+    t0 = time.perf_counter()
+    ds = lt.Dataset(Xp, label=yp)
+    kb = lt.train(pp, ds, 3, device=dev)
+    pb = lt.train(pp, ds, 3, device=dev, ops="plain")
+    lrn = kb._gbdt.learner
+    same = trees_bitwise(kb.models, pb.models)
+    print(f"[wide bins] parity at max_bin {max_bin}: num_bins_max "
+          f"{lrn.num_bins_max}, bins {lrn.binned.dtype}, fused "
+          f"{lrn.fused}, trees bitwise {same} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not same or len(kb.models) != 3:
+        fail(f"kernel and plain runs grew different trees at max_bin "
+             f"{max_bin}")
+    return lrn.num_bins_max
+
+
+def fmt_ms(v):
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def wide_kernel_checks(dev, n, reps):
+    """Phase 15's kernels alone (run beside phase 2's, early in the
+    process, where the profiler keeps its records): the scan and
+    ``hist_rows`` past 1024 bins at B in {1025, 2048, 4095, 4096}, the
+    last width whose one-feature tile fits a block and one past it,
+    32,767, 32,768, 32,769 and 65,536."""
+    import torch
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    t0 = time.perf_counter()
+    fit = hc.rows_window(2, 65536, 1)     # the widest one-feature tile
+    widths = (1025, 2048, 4095, 4096, fit, fit + 1, 32767, 32768, 32769,
+              65536)
+    reps = min(reps, 5)
+    scans, hists = {}, {}
+    for b in widths:
+        scans[b] = wide_scan_case(dev, b, reps)
+        hists[b] = wide_hist_case(dev, b, reps, n)
+        torch.cuda.empty_cache()
+        s, h = scans[b], hists[b]
+        print(f"[wide bins] B {b}: split_scan {s['ms']:.4f} ms, device "
+              f"{fmt_ms(s['device_ms'])}, plain {s['plain_ms']:.3f}, bound "
+              f"{s['bound_ms']:.5f} ({s['bound_by']}), bitwise; hist_rows "
+              f"({h['bin_bytes']}-byte bins, tile {h['feat_tile']}, window "
+              f"{h['window']}) {h['ms']:.4f} ms, device "
+              f"{fmt_ms(h['device_ms'])}, plain {h['plain_ms']:.3f}, "
+              f"index_add_ {h['library_ms']:.3f}, bound "
+              f"{h['bound_ms']:.4f}, max abs err {h['max_abs_err']:.3g}")
+    print(f"[wide bins] kernels alone in {time.perf_counter() - t0:.1f} s")
+    return scans, hists
+
+
+def wide_bins_phase(X, y, dev, iters):
+    """Phase 15 (ROADMAP Queue 1 item 4), past its kernels alone
+    (``wide_kernel_checks``): the 2M x 28 rows at max_bin 4095 on the
+    serial learner's per-phase path (255 leaves, a 500k valid set)
+    beside phase 4's per-phase run at 1023; then kernel against plain at
+    4095 and past 32,768 bins."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.learner import SerialTreeLearner
+    from lightgbm_tpu_torch.ops import _native
+    t0 = time.perf_counter()
+    params = {"objective": "binary", "num_leaves": 255,
+              "learning_rate": 0.1, "max_bin": 4095, "verbosity": -1,
+              "metric": "auc"}
+    tr = lt.Dataset(X, label=y, params=params)
+    Xv, yv = higgs_like(len(X) // 4, seed=43)
+    va = tr.create_valid(Xv, label=yv)
+    tr._construct()
+    va._construct()
+    t_bin = time.perf_counter() - t0
+    _native.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = {}
+    bst = lt.train(params, tr, iters, valid_sets=[va], valid_names=["valid"],
+                   evals_result=hist, verbose_eval=False, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_native.LAUNCHES)
+    lrn = bst._gbdt.learner
+    trees = bst.models[:iters]
+    splits = sum(t.num_leaves - 1 for t in trees)
+    ms = wall / max(splits, 1) * 1e3
+    valid_auc = hist["valid"]["auc"][-1]
+    print(f"[wide bins] 4095: {type(lrn).__name__}, num_bins_max "
+          f"{lrn.num_bins_max}, bins {lrn.binned.dtype}, fused "
+          f"{lrn.fused}, {len(trees)} trees, {splits} splits in "
+          f"{wall:.2f} s = {ms:.4f} ms/split (phase 4 per-phase at 1023: "
+          f"{PATH_MS.get(('max_bin 1023', 'per-phase'), float('nan')):.4f});"
+          f" binned in {t_bin:.1f} s; valid auc {valid_auc:.6f}; launches "
+          f"{launches}")
+    if not isinstance(lrn, SerialTreeLearner) or lrn.fused:
+        fail("max_bin 4095 did not train on the serial learner's "
+             "per-phase path")
+    if launches["fused_split_step_leaf"] != 0:
+        fail("the fused leaf kernel ran past 1024 bins")
+    if launches["hist_rows"] != len(trees) + splits \
+            or launches["split_scan"] != len(trees) + splits:
+        fail("hist_rows and split_scan did not run once a tree and once a "
+             "split at max_bin 4095")
+    if not valid_auc > 0.75:
+        fail(f"valid AUC {valid_auc} at max_bin 4095")
+    del bst, tr, va
+    torch.cuda.empty_cache()
+    wide4095 = wide_parity(dev, 4095)
+    wide40k = wide_parity(dev, 40000, min_data_in_bin=1)
+    if wide40k <= 32768:
+        fail(f"the parity run past 32,768 bins has {wide40k} bins")
+    return dict(ms_per_split=ms, valid_auc=valid_auc, launches=launches,
+                splits=splits, parity_bins=[wide4095, wide40k],
+                per_phase_1023_ms=PATH_MS.get(("max_bin 1023", "per-phase")))
+
+
+# ---- phase 16: the parallel learners over ranks on one card -------------
+
+PAR_RANKS = 2
+PAR_ITERS = 4          # cut from 8 for the time limit (PERF.md section 4)
+PAR_TIMEOUT_S = 60.0   # a collective's limit: a lost rank fails the run
+# run -> (tree_learner, max_bin): the rows each rank loaded
+PAR_RUNS = {"data_255": ("data", 255), "data_1023": ("data", 1023),
+            "voting_255": ("voting", 255), "feature_1023": ("feature", 1023)}
+PAR_LEARNERS = {"data_255": "MeshPartitionedTreeLearner",
+                "data_1023": "DataParallelTreeLearner",
+                "voting_255": "MeshPartitionedTreeLearner",
+                "feature_1023": "FeatureParallelTreeLearner"}
+
+
+def par_tree(t):
+    k = t.num_leaves
+    return dict(num_leaves=k,
+                split_feature=t.split_feature_inner[:k - 1].tolist(),
+                threshold_bin=t.threshold_bin[:k - 1].tolist(),
+                leaf_value=t.leaf_value[:k].tolist())
+
+
+def par_params(learner, max_bin, n):
+    """Phase 3's params for ``learner`` at ``max_bin``: every rank bins
+    from the pooled sample of every row (``bin_construct_sample_cnt`` =
+    the rows), so its bins are the single process's."""
+    p = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
+         "max_bin": max_bin, "verbosity": -1, "tree_learner": learner,
+         "bin_construct_sample_cnt": n, "top_k": 20}
+    if learner != "feature":
+        p["pre_partition"] = True
+    return p
+
+
+def par_full(local, mb, n, X, y):
+    """Every row, binned with a rank's pooled mappers (the single
+    process's bins)."""
+    import lightgbm_tpu_torch as lt
+    p = par_params("serial", mb, n)
+    p.pop("pre_partition")
+    full = lt.Dataset(X, label=y, reference=local, params=p)
+    full._construct()
+    return full
+
+
+def par_rank(rank, size, rdzv, out, n, iters):
+    """One rank of phase 16 (``chip_smoke.py --rank``): joins the gloo
+    group on the one card, loads its ``host_row_range`` block of phase
+    3's rows under ``pre_partition`` (binned from the pooled sample of
+    every row), trains each run with the launch and collective counts
+    set to 0 just before it and read just after, then kernel against
+    plain at 100k rows; rank 0 also trains the single process on every
+    row with the same bins (the feature run's rows). Writes its results
+    to ``out/rank<r>.json``."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.learner import comm
+    from lightgbm_tpu_torch.ops import _native
+    from lightgbm_tpu_torch.parallel.distributed import shutdown_distributed
+    from lightgbm_tpu_torch.parallel.ingest import host_row_range
+    dev = torch.device("cuda")
+    torch.cuda.set_device(0)
+    lt.init_distributed(rank=rank, world_size=size,
+                        init_method=f"file://{rdzv}", backend="gloo",
+                        timeout_s=PAR_TIMEOUT_S)
+    res = {"runs": {}, "parity": {}, "single": {}}
+    t0 = time.perf_counter()
+    X, y = higgs_like(n)
+    lo, hi = host_row_range(n)
+    res["rows"] = [lo, hi]
+    local = {}
+    for mb in (255, 1023):
+        ds = lt.Dataset(X[lo:hi], label=y[lo:hi],
+                        params=par_params("data", mb, n))
+        ds._construct()
+        local[mb] = ds
+    res["bin_s"] = time.perf_counter() - t0
+    res["mappers"] = {str(mb): [[m.num_bin, list(m.bin_upper_bound)]
+                                for m in local[mb]._binned.bin_mappers]
+                      for mb in local}
+    # the feature learner's rows: every row, with the pooled mappers
+    full = {1023: par_full(local[1023], 1023, n, X, y)}
+    Xv, yv = higgs_like(n // 4, seed=43) if rank == 0 else (None, None)
+    if rank == 0:
+        # the single process on every row and the same bins, per-phase
+        full[255] = par_full(local[255], 255, n, X, y)
+        for mb in (255, 1023):
+            p = dict(par_params("serial", mb, n), fused_split_kernel="off")
+            p.pop("pre_partition")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            bst = lt.train(p, full[mb], iters, device=dev)
+            torch.cuda.synchronize()
+            splits = sum(t.num_leaves - 1 for t in bst.models)
+            res["single"][str(mb)] = dict(
+                trees=[par_tree(t) for t in bst.models],
+                ms_per_split=(time.perf_counter() - t1) / max(splits, 1)
+                * 1e3, valid_auc=auc(yv, bst.predict(Xv, raw_score=True)))
+            del bst
+        del full[255]
+        torch.cuda.empty_cache()
+    for run, (learner, mb) in PAR_RUNS.items():
+        ds = full[mb] if learner == "feature" else local[mb]
+        params = par_params(learner, mb, n)
+        _native.reset_launch_counts()
+        comm.reset_comm_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bst = lt.train(params, ds, iters, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        splits = sum(t.num_leaves - 1 for t in bst.models)
+        res["runs"][run] = dict(
+            learner=type(bst._gbdt.learner).__name__,
+            fused=bst._gbdt.learner.fused, wall_s=wall, splits=splits,
+            ms_per_split=wall / max(splits, 1) * 1e3,
+            launches=dict(_native.LAUNCHES),
+            calls=dict(comm.COMM_CALLS), bytes=dict(comm.COMM_BYTES),
+            trees=[par_tree(t) for t in bst.models],
+            valid_auc=None if Xv is None
+            else auc(yv, bst.predict(Xv, raw_score=True)))
+        del bst
+        torch.cuda.empty_cache()
+    # kernel against plain at 100k rows, 63 leaves, 3 iterations
+    Xp, yp = higgs_like(100_000, seed=3)
+    plo, phi = host_row_range(len(Xp))
+    for run, (learner, mb) in PAR_RUNS.items():
+        p = dict(par_params(learner, mb, len(Xp)), num_leaves=63)
+        rows = slice(None) if learner == "feature" else slice(plo, phi)
+        ds = lt.Dataset(Xp[rows], label=yp[rows], params=p)
+        kb = lt.train(p, ds, 3, device=dev)
+        pb = lt.train(p, ds, 3, device=dev, ops="plain")
+        res["parity"][run] = trees_bitwise(kb.models, pb.models)
+    res["total_s"] = time.perf_counter() - t0
+    shutdown_distributed()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+
+
+def par_same(a, b, exact):
+    """Two tree records: the same structure; leaf values equal to the
+    bit (``exact``) or within the tests' rtol 2e-4 / atol 2e-6."""
+    if a["num_leaves"] != b["num_leaves"] \
+            or a["split_feature"] != b["split_feature"] \
+            or a["threshold_bin"] != b["threshold_bin"]:
+        return False
+    x, z = np.asarray(a["leaf_value"]), np.asarray(b["leaf_value"])
+    return bool(np.array_equal(x, z) if exact
+                else np.allclose(x, z, rtol=2e-4, atol=2e-6))
+
+
+def parallel_phase(n, iters, dev, limit_s):
+    """Phase 16 (ROADMAP Queue 1 item 8): ``PAR_RANKS`` rank processes on
+    the one card (gloo, a ``file://`` rendezvous in a temporary
+    directory), each on its 1M-row block of phase 3's rows binned from
+    the pooled sample; tree_learner=data at max_bin 255 (the segment
+    kernels on each rank) and 1023 (hist_rows and the scan), voting
+    (top_k 20) at 255 and feature at 1023, each held against the single
+    process on the same rows and bins (rank 0 trains it); then each
+    learner kernel against plain at 100k rows. Meanwhile this process
+    bins every row itself, on the host only, for the ranks' bins to be
+    held against."""
+    import tempfile
+    import lightgbm_tpu_torch as lt
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         "--world", str(PAR_RANKS), "--rdzv", os.path.join(tmp, "rdzv"),
+         "--out", tmp, "--rows", str(n), "--iters", str(iters)])
+        for r in range(PAR_RANKS)]
+    try:
+        X, y = higgs_like(n)
+        mappers = {}
+        for mb in (255, 1023):
+            p = par_params("serial", mb, n)
+            p.pop("pre_partition", None)
+            ds = lt.Dataset(X, label=y, params=p)
+            ds._construct()
+            mappers[mb] = [[m.num_bin, list(m.bin_upper_bound)]
+                           for m in ds._binned.bin_mappers]
+            del ds
+        del X, y
+        deadline = time.monotonic() + limit_s
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        fail(f"phase 16: the ranks did not finish in {limit_s:.0f} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        fail(f"phase 16: a rank failed (exit codes "
+             f"{[p.returncode for p in procs]})")
+    ranks = []
+    for r in range(PAR_RANKS):
+        with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for mb in (255, 1023):
+        for rk in ranks:
+            if rk["mappers"][str(mb)] != mappers[mb]:
+                fail(f"phase 16: a rank's bins at {mb} are not the single "
+                     "process's")
+    out = {"rows": [rk["rows"] for rk in ranks], "bin_s": r0["bin_s"],
+           "rank_s": r0["total_s"], "wall_s": wall, "runs": {}}
+    data_auc = r0["runs"]["data_255"]["valid_auc"]
+    for run, (learner, mb) in PAR_RUNS.items():
+        recs = [rk["runs"][run] for rk in ranks]
+        r = recs[0]
+        single = r0["single"][str(mb)]
+        if any(x["trees"] != r["trees"] for x in recs[1:]):
+            fail(f"phase 16 {run}: the ranks grew different trees")
+        if r["learner"] != PAR_LEARNERS[run] or r["fused"]:
+            fail(f"phase 16 {run} ran {r['learner']} (fused {r['fused']})")
+        ref = single["trees"]
+        exact = len(ref) == len(r["trees"]) and all(
+            par_same(a, b, True) for a, b in zip(r["trees"], ref))
+        close = len(ref) == len(r["trees"]) and all(
+            par_same(a, b, False) for a, b in zip(r["trees"], ref))
+        if learner == "voting":
+            if abs(r["valid_auc"] - data_auc) > 0.002:
+                fail(f"phase 16 voting: valid AUC {r['valid_auc']} is "
+                     f"more than 0.002 from the data model's {data_auc}")
+        elif not close:
+            fail(f"phase 16 {run}: not the single process's trees")
+        if not all(rk["parity"][run] for rk in ranks):
+            fail(f"phase 16 {run}: kernel and plain runs grew different "
+                 "trees")
+        on_path = ("hist_segment", "partition_segment", "split_scan") \
+            if PAR_LEARNERS[run] == "MeshPartitionedTreeLearner" \
+            else ("hist_rows", "split_scan")
+        for name in on_path:
+            if r["launches"][name] <= 0:
+                fail(f"phase 16 {run}: kernel {name} was not launched")
+        splits = max(r["splits"], 1)
+        rec = dict(
+            learner=r["learner"], ms_per_split=r["ms_per_split"],
+            single_ms_per_split=single["ms_per_split"],
+            collectives_per_split={k: v / splits
+                                   for k, v in r["calls"].items()},
+            bytes_per_split={k: v / splits for k, v in r["bytes"].items()},
+            launches=r["launches"], valid_auc=r["valid_auc"],
+            single_valid_auc=single["valid_auc"],
+            trees_equal_to_the_bit=exact, trees_within_tolerance=close,
+            parity_bitwise=True)
+        out["runs"][run] = rec
+        print(f"[parallel] {run}: {r['learner']} on {PAR_RANKS} ranks, "
+              f"{r['splits']} splits, {r['ms_per_split']:.4f} ms/split "
+              f"(single process per-phase {single['ms_per_split']:.4f}); "
+              f"collectives a split {rec['collectives_per_split']}, bytes "
+              f"a split {rec['bytes_per_split']}; valid auc "
+              f"{r['valid_auc']:.6f} (single {single['valid_auc']:.6f}); "
+              f"trees: to the bit {exact}, within tolerance {close}; "
+              f"kernel vs plain bitwise; launches (rank 0) {r['launches']}")
+    print(f"[parallel] ranks: binning {r0['bin_s']:.1f} s, rank 0 in all "
+          f"{r0['total_s']:.1f} s; the bins of every rank equal this "
+          "process's on every row")
+    return out
 
 
 def main() -> int:
@@ -3827,12 +4372,21 @@ def main() -> int:
     ap.add_argument("--quality-iters", type=int, default=100)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--bosch-rows", type=int, default=1_000_000)
+    # phase 16's rank processes (the script runs itself once a rank)
+    ap.add_argument("--rank", type=int, default=None)
+    ap.add_argument("--world", type=int, default=PAR_RANKS)
+    ap.add_argument("--rdzv", default=None)
+    ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.rank is not None:
+        par_rank(args.rank, args.world, args.rdzv, args.out, args.rows,
+                 args.iters)
+        return 0
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.learner import SerialTreeLearner
     from lightgbm_tpu_torch.ops import _native
@@ -3865,9 +4419,9 @@ def main() -> int:
               "learning_rate": 0.1, "max_bin": 255, "verbosity": -1}
     params_wide = dict(params, max_bin=1023)
     ds = lt.Dataset(X, label=y)
-    binned = ds.construct(lt.Config.from_params(params))
+    binned = ds._construct(lt.Config.from_params(params))
     ds_wide = lt.Dataset(X, label=y)
-    binned_wide = ds_wide.construct(lt.Config.from_params(params_wide))
+    binned_wide = ds_wide._construct(lt.Config.from_params(params_wide))
     b_wide = int(binned_wide.num_bins_array().max())
     print(f"[data] {n} x {F} binned at max_bin 255 and 1023 "
           f"(num_bins_max {int(binned.num_bins_array().max())} and "
@@ -3935,6 +4489,8 @@ def main() -> int:
     t0 = time.perf_counter()
     print(f"[check] split_scan widths: {check_scan_widths(dev)} "
           f"{time.perf_counter() - t0:.1f} s")
+    # phase 15's kernels alone, here while the profiler keeps records
+    wide_scans, wide_hists = wide_kernel_checks(dev, n, args.reps)
     # each kernel beside its byte (or operation) bound and its launch
     # floor: the launches of one call times a launch's least device time
     floor = launch_floor_ms(args.reps)
@@ -4110,6 +4666,20 @@ def main() -> int:
     del binned
     print(f"[slice15] done in {time.perf_counter() - t0:.1f} s: "
           + json.dumps(slice15, default=str))
+    torch.cuda.empty_cache()
+
+    # ---- 15. more than 1024 bins ---------------------------------------
+    t0 = time.perf_counter()
+    wide = wide_bins_phase(X, y, dev, args.iters)
+    print(f"[wide bins] done in {time.perf_counter() - t0:.1f} s: "
+          + json.dumps(wide, default=str))
+    torch.cuda.empty_cache()
+
+    # ---- 16. the parallel learners over ranks on the card --------------
+    t0 = time.perf_counter()
+    par = parallel_phase(n, min(args.iters, PAR_ITERS), dev, limit_s=400.0)
+    print(f"[parallel] done in {time.perf_counter() - t0:.1f} s: "
+          + json.dumps(par, default=str))
 
     sources = {
         "hist_segment": ("lightgbm_tpu_torch/csrc/hist_segment.cu",
@@ -4148,6 +4718,16 @@ def main() -> int:
         if name == "hist_rows":
             # refit's per-leaf sums (phase 14): F = 1, B = the leaves
             kernels[-1]["refit_route"] = refit_route
+        if name in ("split_scan", "hist_rows"):
+            # past 1024 bins alone (phase 15), and its launches in the
+            # 4095-bin training run
+            kernels[-1]["wide_bins"] = {
+                str(b): v for b, v in (wide_scans if name == "split_scan"
+                                       else wide_hists).items()}
+            kernels[-1]["wide_bins_launches"] = wide["launches"][name]
+        # each kernel's launches on rank 0 of phase 16's runs
+        kernels[-1]["parallel_launches"] = {
+            run: r["launches"][name] for run, r in par["runs"].items()}
         if name == "split_scan":
             # the per-phase scan also takes the tree's node table
             # (extra_trees, by-node sampling; phase 13)

@@ -4,7 +4,7 @@ The JAX package (``lightgbm_tpu``) stays the reference; this package
 imports neither it nor ``jax``. Training of every objective of the JAX
 package (regression family, binary, multiclass, cross-entropy, ranking,
 or a custom ``fobj``) with valid sets, metrics, callbacks and early
-stopping, on a dense matrix of up to 1024 bins per feature, numerical
+stopping, on a dense matrix of up to 65,536 bins per feature, numerical
 or categorical features alike (``categorical_feature``; pandas category
 columns):
 the partitioned learner for bins that fit a byte, the serial (leaf_id)
@@ -22,6 +22,9 @@ folds of one binned dataset (``Dataset.subset``); ``Booster.refit``
 refits a model's leaves on new rows (per-leaf sums through the
 ``hist_rows`` kernel); the scikit-learn estimators (``LGBMRegressor``,
 ``LGBMClassifier``, ``LGBMRanker``) fit with or without scikit-learn.
+``tree_learner=data|voting|feature`` train over the ranks of a
+``torch.distributed`` group (``init_distributed``, one process a rank;
+``parallel/``), or as a world of one without a group.
 """
 
 from .basic import Booster, Dataset
@@ -30,6 +33,7 @@ from .callback import (EarlyStopException, early_stopping, print_evaluation,
                        record_evaluation, reset_parameter)
 from .config import Config
 from .engine import CVBooster, cv, train
+from .parallel.distributed import init_distributed
 from .utils.device import resolve_device
 
 __version__ = "0.1.0"

@@ -201,7 +201,15 @@ class Dataset:
         self._raw = np.asarray(X, np.float64)
         return self._raw
 
-    def construct(self, config: Optional[Config] = None) -> _BinnedDataset:
+    def construct(self) -> "Dataset":
+        """Bin the data (once) with this dataset's params over its
+        reference's, and return this ``Dataset`` (JAX ``basic.py:118``,
+        LightGBM's ``Dataset.construct``); ``_construct`` returns the
+        binned dataset itself."""
+        self._construct()
+        return self
+
+    def _construct(self, config: Optional[Config] = None) -> _BinnedDataset:
         """Bin the data (once), with ``config`` or, without one, this
         dataset's params over its reference's: a dense matrix, a
         DataFrame or a text file through ``from_numpy``; a scipy sparse
@@ -216,7 +224,7 @@ class Dataset:
             config = Config.from_params(self._merged_params())
         ref = None
         if self.reference is not None:
-            ref = self.reference.construct(config)
+            ref = self.reference._construct(config)
         if self.used_indices is not None:
             self._binned = self._subset_of(ref)
             return self._binned
@@ -341,14 +349,14 @@ class Dataset:
     def save_binary(self, filename: str) -> "Dataset":
         """Write the binned dataset to ``filename`` (the JAX package's
         npz format: either package loads the other's)."""
-        self.construct().save_binary(filename)
+        self._construct().save_binary(filename)
         return self
 
     def add_features_from(self, other: "Dataset") -> "Dataset":
         """Append ``other``'s features to this dataset in place (both
         binned, the same rows; this dataset keeps its label, weight and
         group)."""
-        self.construct().add_features_from(other.construct())
+        self._construct().add_features_from(other._construct())
         return self
 
     def set_label(self, label) -> "Dataset":
@@ -404,13 +412,13 @@ class Dataset:
         return self.data
 
     def num_data(self) -> int:
-        return self.construct().num_data
+        return self._construct().num_data
 
     def num_feature(self) -> int:
-        return self.construct().num_total_features
+        return self._construct().num_total_features
 
     def get_feature_name(self) -> List[str]:
-        return list(self.construct().feature_names)
+        return list(self._construct().feature_names)
 
     def get_ref_chain(self, ref_limit: int = 100):
         """This dataset and its references, up to ``ref_limit``."""
@@ -448,7 +456,7 @@ class Booster:
             # the data is binned with the booster's params under the
             # Dataset's own, and boosting reads the booster's alone
             train_set.params = {**self.params, **train_set.params}
-            binned = train_set.construct(
+            binned = train_set._construct(
                 Config.from_params(train_set.params))
             self._gbdt = create_boosting(self.config, binned, self.device,
                                          ops=ops)
@@ -494,7 +502,7 @@ class Booster:
                                 "cannot add validation data")
         if data.reference is None:
             data.reference = self.train_set
-        self._gbdt.add_valid(data.construct(Config.from_params(
+        self._gbdt.add_valid(data._construct(Config.from_params(
             {**self.train_set.params, **data.params})), name)
         self.valid_sets.append(data)
         self.name_valid_sets.append(name)
@@ -551,7 +559,7 @@ class Booster:
             raise TypeError("Training data should be Dataset instance, met "
                             f"{type(train_set).__name__}")
         train_set.params = {**self.params, **train_set.params}
-        binned = train_set.construct(Config.from_params(train_set.params))
+        binned = train_set._construct(Config.from_params(train_set.params))
         want = self._gbdt.train_data.num_features
         if binned.num_features != want:
             raise LightGBMError(

@@ -9,7 +9,7 @@ parameters (``checkpoint_dir``, ``guard_policy``, ``faults``,
 ``crash_dump``) are rejected when set, since no module of the port reads
 them yet. Which parameters the
 port's training path accepts is checked where they are used
-(``learner/partitioned.py:check_tree_learner`` and the learners).
+(``parallel/learners.py:create_tree_learner`` and the learners).
 
 Originally a TPU-native re-design of the reference parameter system
 (``include/LightGBM/config.h:32-1081``, ``src/io/config.cpp``,

@@ -6,8 +6,13 @@
 //
 // Rows come from a list in row order: row ids[i] (the fused step's
 // compacted child, or a per-phase child's ids), or row i itself (all
-// rows: no list is read). Bins are [N, F] row-major, u8 or u16; ghc
-// [N, 3] f32 (grad, hess, count), the count a 0/1 indicator.
+// rows: no list is read). Bins are [N, F] row-major, u8, u16 or (past
+// 32,768 bins) u32; ghc [N, 3] f32 (grad, hess, count), the count a 0/1
+// indicator. A block may take one window of a feature's bins
+// [bin_lo, bin_lo + B) (hist_rows.cu past the bins whose tile fits
+// shared memory): it reads its chunk's rows as any block does and adds
+// only the rows whose bin is inside its window, so a window adds no
+// step to a bin's sum.
 //
 // The chunk rule: a list of sc rows is cut into child_chunks(sc,
 // max_chunks_of(F, feat_tile)) contiguous chunks of ceil(sc / chunks)
@@ -191,12 +196,14 @@ __device__ __forceinline__ void add_groups(const BinT* bs, int base, int m,
                                            const unsigned* cbits,
                                            const float2 (&own)[kGroups],
                                            const unsigned (&cb)[kGroups],
-                                           double2* gh, uint2* pc) {
+                                           double2* gh, uint2* pc,
+                                           int bin_lo, int nbw) {
   int bin[kGroups];
 #pragma unroll
   for (int q = 0; q < kGroups; ++q) {
     const int j = base + 32 * q + lane;
-    bin[q] = j < m ? (int)bs[j] : -1;
+    const int b = j < m ? (int)bs[j] - bin_lo : -1;
+    bin[q] = b < nbw ? b : -1;
   }
 #pragma unroll
   for (int q = 0; q < kGroups; ++q) {
@@ -231,7 +238,7 @@ __device__ __forceinline__ void add_groups(const BinT* bs, int base, int m,
 }
 
 // Whole block: list positions [i0, i1) into the tile of features f0 ..
-// f0 + nf (zeroed here). A two-step pipeline: the rows of step s + 1
+// f0 + nf (zeroed here), bins [bin_lo, bin_lo + B) of each. A two-step pipeline: the rows of step s + 1
 // load into registers while step s is accumulated, the ids of step s + 2
 // likewise. On return the tile is complete, each count a double in its
 // bin's (peer word, count) slot (every peer word is 0 by then), and
@@ -243,7 +250,8 @@ __device__ __forceinline__ void hist_chunk(const int* ids, long long i0,
                                            const BinT* bins, int F, int f0,
                                            int nf, int B,
                                            const TileSmem<BinT>& sm,
-                                           Laps<kTimed>& clk) {
+                                           Laps<kTimed>& clk,
+                                           int bin_lo = 0) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int i = threadIdx.x; i < nf * B; i += kThreads) {
     sm.gh[i] = make_double2(0.0, 0.0);
@@ -304,7 +312,7 @@ __device__ __forceinline__ void hist_chunk(const int* ids, long long i0,
         add_groups<BinT, kOwn>(sm.bin + fl * kStageRows, base, m, lane,
                                sm.sgh, sm.cbits, own, cb,
                                sm.gh + (size_t)fl * B,
-                               sm.pc + (size_t)fl * B);
+                               sm.pc + (size_t)fl * B, bin_lo, B);
     }
   }
   __syncthreads();

@@ -45,7 +45,7 @@ __global__ void __launch_bounds__(kThreads)
 hist_partial_kernel(const uint8_t* __restrict__ mat, int stride, int pay_off,
                     const int* __restrict__ seg, int num_features,
                     int num_bins, double* __restrict__ partial,
-                    float* __restrict__ out) {
+                    float* __restrict__ out, double* __restrict__ out64) {
   extern __shared__ __align__(16) unsigned char dyn[];
   const long long begin = seg[0];
   const long long count = seg[1];
@@ -65,7 +65,10 @@ hist_partial_kernel(const uint8_t* __restrict__ mat, int stride, int pay_off,
   ltt::hist_rows<false>(mat, begin, stride, pay_off, r0, r1, f0, nf,
                         num_bins, hist_s, stage);
   const size_t off = (size_t)f0 * num_bins * 3;
-  if (chunks == 1) {
+  if (chunks == 1 && out64 != nullptr) {
+    for (int i = threadIdx.x; i < n3; i += kThreads)
+      out64[off + i] = hist_s[i];
+  } else if (chunks == 1) {
     for (int i = threadIdx.x; i < n3; i += kThreads)
       out[off + i] = (float)hist_s[i];
   } else {
@@ -77,17 +80,21 @@ hist_partial_kernel(const uint8_t* __restrict__ mat, int stride, int pay_off,
 
 // out[i] = sum over the segment's chunks c, in chunk order, of
 // partial[c][i], rounded once; nothing when the segment has one chunk
-// (its block wrote out directly)
+// (its block wrote out directly); into out64 unrounded when it is given
 __global__ void hist_reduce_kernel(const double* __restrict__ partial,
                                    const int* __restrict__ seg,
                                    int num_features, int n,
-                                   float* __restrict__ out) {
+                                   float* __restrict__ out,
+                                   double* __restrict__ out64) {
   const int chunks = ltt::child_chunks(seg[1], num_features);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (chunks == 1 || i >= n) return;
   double s = partial[i];
   for (int c = 1; c < chunks; ++c) s += partial[(size_t)c * n + i];
-  out[i] = (float)s;
+  if (out64 != nullptr)
+    out64[i] = s;
+  else
+    out[i] = (float)s;
 }
 
 }  // namespace
@@ -95,10 +102,13 @@ __global__ void hist_reduce_kernel(const double* __restrict__ partial,
 // seg: device int32[2] = {begin, count}; max_chunks = child_chunks of
 // an upper bound on count known to the host (the grid); partial holds
 // [max_chunks, F, B, 3] doubles when max_chunks > 1 (unused otherwise).
+// out64, when not null, takes the [F, B, 3] sums in float64, unrounded,
+// instead of out (the data-parallel learners reduce them across ranks
+// before their one rounding).
 LTT_EXPORT int ltt_hist_segment(const uint8_t* mat, int stride, int pay_off,
                                 const int* seg, int num_features,
                                 int num_bins, int max_chunks,
-                                double* partial, float* out,
+                                double* partial, float* out, double* out64,
                                 cudaStream_t stream) {
   if (num_features < 1 || num_bins < 1 || num_bins > 256 ||
       max_chunks < 1 || max_chunks > ltt::max_chunks(num_features) ||
@@ -115,11 +125,12 @@ LTT_EXPORT int ltt_hist_segment(const uint8_t* mat, int stride, int pay_off,
   }
   const dim3 grid(max_chunks, ltt::feature_tiles(num_features));
   hist_partial_kernel<<<grid, kThreads, smem, stream>>>(
-      mat, stride, pay_off, seg, num_features, num_bins, partial, out);
+      mat, stride, pay_off, seg, num_features, num_bins, partial, out,
+      out64);
   if (max_chunks > 1) {
     const int n = num_features * num_bins * 3;
     hist_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
-        partial, seg, num_features, n, out);
+        partial, seg, num_features, n, out, out64);
   }
   return (int)cudaGetLastError();
 }

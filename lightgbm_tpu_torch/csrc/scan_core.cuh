@@ -39,6 +39,21 @@
 // The bin capacity kCap of the shared planes is a template parameter:
 // kMaxBins (256) for the u8 layouts, kMaxScanBins (1024) for the u16
 // leaf layout.
+//
+// Past 1024 bins (scan_feature_wide, the per-phase kernel's own
+// instance) the planes are walked in windows of kScanWindow = 1024 bins
+// through the same 26 KB of shared memory, up to kMaxWideBins = 65,536
+// bins: the six planes of a wide feature (24 B a bin) would not fit a
+// block past ~9,400 bins. A window's prefix is plane_prefix's, plus a
+// float64 carry per plane: window 0 takes each segment's exclusive
+// offset as it is, window w > 0 takes carry + offset, and the carry
+// after a window is its total (window 0) or carry + its total. So at
+// B <= 1024 the order is plane_prefix's to the add, and
+// ops/split.py _cumsum repeats the windows. The right-to-left totals
+// (the last bin of planes 3-5) are needed before any candidate, so a
+// first pass runs the windows of planes 3-5 alone; the second runs all
+// six and evaluates each window's bins, keeping every thread's best key
+// across windows.
 #pragma once
 
 #include <math.h>
@@ -48,7 +63,9 @@
 namespace ltt {
 
 constexpr int kMaxBins = 256;       // bins of the u8 layouts
-constexpr int kMaxScanBins = 1024;  // bins the scan takes (u16 layout)
+constexpr int kMaxScanBins = 1024;  // bins of one block of planes
+constexpr int kScanWindow = 1024;   // bins a window past kMaxScanBins
+constexpr int kMaxWideBins = 65536; // bins the wide scan takes
 constexpr float kEps = 1e-15f;
 
 struct Params {
@@ -103,12 +120,14 @@ __device__ __forceinline__ float split_gains(float gl, float hl, float gr,
 // the smaller for plus. The high word is the score's bits made
 // monotone; a score is a gain above the shift (> 0) or -inf, never
 // -0.0 or NaN, so float equality and key equality agree. Key 0 loses
-// to every candidate (a thread without bins). t < 1024.
+// to every candidate (a thread without bins). t < 65536: the low word
+// holds the direction at bit 16 and the threshold's order in bits 0-15.
 __device__ __forceinline__ unsigned long long cand_key(float s, int t,
                                                        bool minus) {
   const unsigned u = __float_as_uint(s);
   const unsigned hi = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  const unsigned lo = minus ? 0x800u | (unsigned)t : 0x3ffu - (unsigned)t;
+  const unsigned lo =
+      minus ? 0x10000u | (unsigned)t : 0xffffu - (unsigned)t;
   return ((unsigned long long)hi << 32) | lo;
 }
 
@@ -118,12 +137,12 @@ __device__ __forceinline__ float key_score(unsigned long long k) {
 }
 
 __device__ __forceinline__ bool key_minus(unsigned long long k) {
-  return (k & 0x800u) != 0;
+  return (k & 0x10000u) != 0;
 }
 
 __device__ __forceinline__ int key_threshold(unsigned long long k) {
-  const unsigned lo = (unsigned)k & 0xfffu;
-  return key_minus(k) ? (int)(lo & 0x3ffu) : (int)(0x3ffu - lo);
+  const unsigned lo = (unsigned)k & 0xffffu;
+  return key_minus(k) ? (int)lo : (int)(0xffffu - lo);
 }
 
 // A candidate with its left sums (g, h + kEps, c).
@@ -276,6 +295,100 @@ __device__ __forceinline__ void plane_prefix(ScanSmem<kCap>& sm, int B,
   }
 }
 
+// What one leaf's candidates are held against (scan_feature's locals).
+struct Eval {
+  Leaf L;
+  Params p;
+  float ph_eps, min_gain_shift, tg, th, tc;
+  int nb, defbin, mono, skip_bin, rand_bin;
+  bool two_scan, na_excl, zero_miss;
+};
+
+// The two candidate splits of bin b (its prefix sums at pad index pb of
+// sm's planes) into this thread's best.
+template <int kCap>
+__device__ __forceinline__ void eval_bin(const ScanSmem<kCap>& sm, int pb,
+                                         int b, const Eval& e, Cand& best) {
+  const Leaf& L = e.L;
+  const Params& p = e.p;
+  const bool rand_ok = e.rand_bin < 0 || b == e.rand_bin;
+  // ---- dir=+1: left-to-right; default/NaN implicitly go right
+  {
+    const float lg = sm.xs[0][pb];
+    const float hl = sm.xs[1][pb] + kEps;
+    const float lc = sm.xs[2][pb];
+    const float hr = e.ph_eps - hl;
+    const float gr = L.pg - lg;
+    const float cr = L.pc - lc;
+    const bool valid = e.two_scan && b <= e.nb - 2 && b != e.skip_bin &&
+                       rand_ok && lc >= p.min_data && cr >= p.min_data &&
+                       hl >= p.min_hess && hr >= p.min_hess;
+    float score = -INFINITY;
+    if (valid) {
+      const float gains =
+          split_gains(lg, hl, gr, hr, e.mono, p, L.cmin, L.cmax);
+      if (gains > e.min_gain_shift) score = gains;
+    }
+    keep_better(best, cand_key(score, b, false), lg, hl, lc);
+  }
+  // ---- dir=-1: right-to-left; default/NaN implicitly go left
+  {
+    const float rg = e.tg - sm.xs[3][pb];
+    const float hr = (e.th - sm.xs[4][pb]) + kEps;
+    const float rc = e.tc - sm.xs[5][pb];
+    const float gl = L.pg - rg;
+    const float hl = e.ph_eps - hr;
+    const float cl = L.pc - rc;
+    const bool valid = b <= e.nb - 2 - (e.na_excl ? 1 : 0) &&
+                       !(e.zero_miss && b == e.defbin - 1) && rand_ok &&
+                       cl >= p.min_data && rc >= p.min_data &&
+                       hl >= p.min_hess && hr >= p.min_hess;
+    float score = -INFINITY;
+    if (valid) {
+      const float gains =
+          split_gains(gl, hl, rg, hr, e.mono, p, L.cmin, L.cmax);
+      if (gains > e.min_gain_shift) score = gains;
+    }
+    keep_better(best, cand_key(score, b, true), gl, hl, cl);
+  }
+}
+
+// The block's best of the threads' candidates into the row o (thread 0):
+// a warp's best by shuffles | barrier; warp 0 reduces the warps' keys.
+template <int kCap>
+__device__ __forceinline__ void write_best(ScanSmem<kCap>& sm, Cand best,
+                                           const Leaf& L, const Params& p,
+                                           float penalty, float fmask,
+                                           float min_gain_shift, int nb,
+                                           int miss, float ph_eps,
+                                           float* o) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  best = warp_best(best);
+  if (lane == 0) sm.red[warp] = best;
+  __syncthreads();
+  if (warp != 0) return;
+  best = lane < nwarps ? sm.red[lane] : Cand{0ull, 0.f, 0.f, 0.f};
+  best = warp_best(best);
+  if (lane == 0) {
+    const bool use_m = key_minus(best.key);
+    const float feat_gain = key_score(best.key);
+    const int t = key_threshold(best.key);
+    const bool valid = isfinite(feat_gain) && fmask > 0.f;
+    const float score =
+        valid ? (feat_gain - min_gain_shift) * penalty : -INFINITY;
+    const bool dleft = use_m && !(nb <= 2 && miss == LTT_MISSING_NAN);
+    o[0] = score;
+    o[1] = (float)t;
+    o[2] = best.lg;
+    o[3] = best.lh;
+    o[4] = best.lc;
+    o[5] = dleft ? 1.f : 0.f;
+    o[6] = out_c(best.lg, best.lh, p, L.cmin, L.cmax);
+    o[7] = out_c(L.pg - best.lg, ph_eps - best.lh, p, L.cmin, L.cmax);
+  }
+}
+
 // One (leaf, feature) row of the [K, F, 8] table (score, threshold,
 // left g/h(+kEps)/c, default_left, left and right output) into o,
 // written by thread 0. blockDim.x is a multiple of 32; B <= kCap. hist
@@ -303,7 +416,7 @@ __device__ __forceinline__ void scan_feature(const float* hist, int B,
   const bool na_excl = two_scan && miss == LTT_MISSING_NAN;
   const bool zero_miss = two_scan && miss == LTT_MISSING_ZERO;
   const int skip_bin = zero_miss ? defbin : -1;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   load_planes(sm, hist, B, skip_bin, na_excl ? nb - 1 : -1);
   __syncthreads();
@@ -318,74 +431,124 @@ __device__ __forceinline__ void scan_feature(const float* hist, int B,
   const int plast = pad(B - 1);
   const float tg = sm.xs[3][plast], th = sm.xs[4][plast],
               tc = sm.xs[5][plast];
+  const Eval e{L, p, ph_eps, min_gain_shift, tg, th, tc, nb, defbin, mono,
+               skip_bin, rand_bin, two_scan, na_excl, zero_miss};
   Cand best{0ull, 0.f, 0.f, 0.f};
-  for (int b = threadIdx.x; b < B; b += blockDim.x) {
-    const int pb = pad(b);
-    const bool rand_ok = rand_bin < 0 || b == rand_bin;
-    // ---- dir=+1: left-to-right; default/NaN implicitly go right
-    {
-      const float lg = sm.xs[0][pb];
-      const float hl = sm.xs[1][pb] + kEps;
-      const float lc = sm.xs[2][pb];
-      const float hr = ph_eps - hl;
-      const float gr = L.pg - lg;
-      const float cr = L.pc - lc;
-      const bool valid = two_scan && b <= nb - 2 && b != skip_bin &&
-                         rand_ok && lc >= p.min_data && cr >= p.min_data &&
-                         hl >= p.min_hess && hr >= p.min_hess;
-      float score = -INFINITY;
-      if (valid) {
-        const float gains =
-            split_gains(lg, hl, gr, hr, mono, p, L.cmin, L.cmax);
-        if (gains > min_gain_shift) score = gains;
-      }
-      keep_better(best, cand_key(score, b, false), lg, hl, lc);
-    }
-    // ---- dir=-1: right-to-left; default/NaN implicitly go left
-    {
-      const float rg = tg - sm.xs[3][pb];
-      const float hr = (th - sm.xs[4][pb]) + kEps;
-      const float rc = tc - sm.xs[5][pb];
-      const float gl = L.pg - rg;
-      const float hl = ph_eps - hr;
-      const float cl = L.pc - rc;
-      const bool valid = b <= nb - 2 - (na_excl ? 1 : 0) &&
-                         !(zero_miss && b == defbin - 1) && rand_ok &&
-                         cl >= p.min_data && rc >= p.min_data &&
-                         hl >= p.min_hess && hr >= p.min_hess;
-      float score = -INFINITY;
-      if (valid) {
-        const float gains =
-            split_gains(gl, hl, rg, hr, mono, p, L.cmin, L.cmax);
-        if (gains > min_gain_shift) score = gains;
-      }
-      keep_better(best, cand_key(score, b, true), gl, hl, cl);
-    }
-  }
+  for (int b = threadIdx.x; b < B; b += blockDim.x)
+    eval_bin(sm, pad(b), b, e, best);
   clock_at<kClock>(clk, 3);
-  best = warp_best(best);
-  if (lane == 0) sm.red[warp] = best;
-  __syncthreads();
-  if (warp != 0) return;
-  best = lane < nwarps ? sm.red[lane] : Cand{0ull, 0.f, 0.f, 0.f};
-  best = warp_best(best);
-  if (lane == 0) {
-    const bool use_m = key_minus(best.key);
-    const float feat_gain = key_score(best.key);
-    const int t = key_threshold(best.key);
-    const bool valid = isfinite(feat_gain) && fmask > 0.f;
-    const float score =
-        valid ? (feat_gain - min_gain_shift) * penalty : -INFINITY;
-    const bool dleft = use_m && !(nb <= 2 && miss == LTT_MISSING_NAN);
-    o[0] = score;
-    o[1] = (float)t;
-    o[2] = best.lg;
-    o[3] = best.lh;
-    o[4] = best.lc;
-    o[5] = dleft ? 1.f : 0.f;
-    o[6] = out_c(best.lg, best.lh, p, L.cmin, L.cmax);
-    o[7] = out_c(L.pg - best.lg, ph_eps - best.lh, p, L.cmin, L.cmax);
+  write_best<kCap>(sm, best, L, p, penalty, fmask, min_gain_shift, nb, miss,
+                   ph_eps, o);
+  clock_at<kClock>(clk, 4);
+}
+
+// Plane c of one window (Bw <= kCap bins in sm.xs) replaced by its prefix
+// sums carried from the windows before it (see the note at the top),
+// by one whole warp; carry is the plane's float64 carry (warp-uniform),
+// updated here; first: window 0. The segment's adds are plane_prefix's
+// without kHold: a lane sums its segment, and adds it again after the
+// warp scan.
+template <int kCap>
+__device__ __forceinline__ void plane_prefix_carry(ScanSmem<kCap>& sm,
+                                                   int Bw, int c,
+                                                   double& carry,
+                                                   bool first) {
+  const int lane = threadIdx.x & 31;
+  const int b0 = lane * 32;
+  float* seg = sm.xs[c] + lane * 33;  // = pad(b0)
+  double acc = 0.0;
+#pragma unroll
+  for (int i0 = 0; i0 < 32; i0 += 8) {
+    float x[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = b0 + i0 + i < Bw ? seg[i0 + i] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc += (double)x[i];
   }
+  const double incl = warp_scan(acc, lane);
+  const double ex = __shfl_up_sync(0xffffffffu, incl, 1);
+  const double total = __shfl_sync(0xffffffffu, incl, 31);
+  const double ex0 = lane == 0 ? 0.0 : ex;
+  const double off = first ? ex0 : carry + ex0;
+  carry = first ? total : carry + total;
+  if (b0 >= Bw) return;
+  acc = 0.0;
+#pragma unroll
+  for (int i0 = 0; i0 < 32; i0 += 8) {
+    float x[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = b0 + i0 + i < Bw ? seg[i0 + i] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      acc += (double)x[i];
+      if (b0 + i0 + i < Bw) seg[i0 + i] = (float)(acc + off);
+    }
+  }
+}
+
+// scan_feature past kMaxScanBins bins (B <= kMaxWideBins): the same row,
+// from windows of kScanWindow bins (see the note at the top). Needs at
+// least 6 warps: warp c owns plane c in every window, and with it that
+// plane's carry. With kClock, clk[0, 5): entry, the first pass (the
+// right-to-left totals), the second pass's prefix sums and candidates
+// (both at its end), end.
+template <bool kClock = false>
+__device__ __forceinline__ void scan_feature_wide(
+    const float* hist, int B, const Leaf& L, int nb, int miss, int defbin,
+    int mono, float penalty, float fmask, const Params& p,
+    ScanSmem<kScanWindow>& sm, float* o, unsigned long long* clk = nullptr,
+    int rand_bin = -1) {
+  clock_at<kClock>(clk, 0);
+  const bool two_scan = miss != 0 && nb > 2;
+  const bool na_excl = two_scan && miss == LTT_MISSING_NAN;
+  const bool zero_miss = two_scan && miss == LTT_MISSING_ZERO;
+  const int skip_bin = zero_miss ? defbin : -1;
+  const int na_bin = na_excl ? nb - 1 : -1;
+  const int warp = threadIdx.x >> 5;
+  const int nwin = (B + kScanWindow - 1) / kScanWindow;
+  // pass 1: planes 3-5 through every window, for the totals at bin B - 1
+  double carry = 0.0;
+  int bw = 0;
+  for (int w = 0; w < nwin; ++w) {
+    const int base = w * kScanWindow;
+    bw = min(kScanWindow, B - base);
+    __syncthreads();  // the last window's planes are read
+    load_planes(sm, hist + (size_t)base * 3, bw, skip_bin - base,
+                na_bin - base);
+    __syncthreads();
+    if (warp >= 3 && warp < 6)
+      plane_prefix_carry<kScanWindow>(sm, bw, warp, carry, w == 0);
+  }
+  __syncthreads();
+  const int plast = pad(bw - 1);
+  const float tg = sm.xs[3][plast], th = sm.xs[4][plast],
+              tc = sm.xs[5][plast];
+  clock_at<kClock>(clk, 1);
+
+  const float ph_eps = L.ph + 2e-15f;
+  const float gain_shift = gain_given(L.pg, ph_eps, out_nc(L.pg, ph_eps, p), p);
+  const float min_gain_shift = gain_shift + p.min_gain;
+  const Eval e{L, p, ph_eps, min_gain_shift, tg, th, tc, nb, defbin, mono,
+               skip_bin, rand_bin, two_scan, na_excl, zero_miss};
+  Cand best{0ull, 0.f, 0.f, 0.f};
+  // pass 2: all six planes, window by window, and the window's candidates
+  carry = 0.0;
+  for (int w = 0; w < nwin; ++w) {
+    const int base = w * kScanWindow;
+    bw = min(kScanWindow, B - base);
+    __syncthreads();  // the last window's candidates are read
+    load_planes(sm, hist + (size_t)base * 3, bw, skip_bin - base,
+                na_bin - base);
+    __syncthreads();
+    if (warp < 6) plane_prefix_carry<kScanWindow>(sm, bw, warp, carry, w == 0);
+    __syncthreads();
+    for (int b = threadIdx.x; b < bw; b += blockDim.x)
+      eval_bin(sm, pad(b), base + b, e, best);
+  }
+  clock_at<kClock>(clk, 2);
+  clock_at<kClock>(clk, 3);
+  write_best<kScanWindow>(sm, best, L, p, penalty, fmask, min_gain_shift,
+                          nb, miss, ph_eps, o);
   clock_at<kClock>(clk, 4);
 }
 

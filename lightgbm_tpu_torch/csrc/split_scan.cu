@@ -7,9 +7,12 @@
 // launch: grid (K, F), one block a (leaf, feature) row, of a block size
 // picked from B (scan_threads; the winner does not depend on it:
 // scan_core.cuh). Like the TPU kernel it takes B from the
-// histogram's shape, 1 <= B <= 1024: up to 256 bins the planes take
-// 7 KB of static shared memory (split_scan_kernel<kMaxBins>), above that
-// 26 KB (split_scan_kernel<kMaxScanBins>), with the same device code.
+// histogram's shape, 1 <= B <= 65,536: up to 256 bins the planes take
+// 7 KB of static shared memory (split_scan_kernel<kMaxBins>), up to 1024
+// 26 KB (split_scan_kernel<kMaxScanBins>), with the same device code;
+// past 1024 bins split_scan_wide_kernel walks the bins in windows of
+// 1024 through the same 26 KB (scan_core.cuh scan_feature_wide: two
+// passes, the prefix sums carried in float64 from window to window).
 //
 // The per-feature scan is scan_feature (scan_core.cuh, shared with the
 // fused split steps): both missing-value directions, L1/L2/
@@ -22,7 +25,8 @@
 // With extra_trees or by-node feature sampling the grow loop passes a node
 // table (ltt_split_scan's node0/node1, one [F] int32 row a leaf, rows of
 // the tree's [2L + 1, F] table picked by each child's salt): bits 0-15 hold
-// the feature's rand bin as an int16 (-1: every threshold), bit 16 the
+// the feature's rand bin as a uint16 (0xffff: every threshold; a rand
+// bin is a threshold, at most 65,534), bit 16 the
 // node mask (0: the feature is out of this node's sample, as if fmask were
 // 0). Without a table (null rows, and always in the fused steps) the scan
 // is unchanged.
@@ -41,6 +45,8 @@ namespace {
 
 using ltt::kMaxBins;
 using ltt::kMaxScanBins;
+using ltt::kMaxWideBins;
+using ltt::kScanWindow;
 // the most threads a block: a prefix lane keeps 32 float64 running sums
 // in registers, so 128 registers a thread, not the 64 of 1024 threads
 constexpr int kMaxThreads = 512;
@@ -50,6 +56,8 @@ constexpr int kMaxThreads = 512;
 // ltt_split_scan_profile): 256 up to 256 bins, 512 above (at 1023 bins
 // 384 and 512 are within 0.1 us, 256 and fewer slower).
 inline int scan_threads(int B) { return B <= kMaxBins ? 256 : kMaxThreads; }
+// the wide scan's warp c owns plane c: at least six warps
+constexpr int kMinWideThreads = 192;
 
 struct ScanArgs {
   int num_bins;
@@ -65,42 +73,73 @@ struct ScanArgs {
   unsigned long long* times;  // timed instantiation: [K, F, 5] clock64
 };
 
+// This block's (leaf, feature) row: its histogram, leaf, rand bin and
+// feature mask (from the node table when there is one).
+struct Row {
+  const float* hist;
+  ltt::Leaf L;
+  const int* im;
+  size_t row;
+  int rand_bin;
+  float fmask;
+};
+
+__device__ __forceinline__ Row block_row(const ScanArgs& a) {
+  const int k = blockIdx.x, f = blockIdx.y;
+  Row r;
+  r.L = k == 0 ? a.leaf0 : a.leaf1;
+  r.hist = (k == 0 ? a.hist0 : a.hist1) + (size_t)f * a.num_bins * 3;
+  r.im = a.imeta + f * 4;
+  r.row = (size_t)k * gridDim.y + f;
+  const int* node = k == 0 ? a.node0 : a.node1;
+  r.rand_bin = -1;
+  r.fmask = a.fmeta[f * 2 + 1];
+  if (node != nullptr) {
+    const int v = node[f];
+    const int rb = v & 0xffff;
+    r.rand_bin = rb == 0xffff ? -1 : rb;
+    if (!((v >> 16) & 1)) r.fmask = 0.f;
+  }
+  return r;
+}
+
 template <int kCap, bool kClock>
 __global__ void __launch_bounds__(kMaxThreads) split_scan_kernel(ScanArgs a) {
   __shared__ ltt::ScanSmem<kCap> sm;
-  const int k = blockIdx.x, f = blockIdx.y;
-  const int B = a.num_bins;
-  const ltt::Leaf L = k == 0 ? a.leaf0 : a.leaf1;
-  const float* hist = (k == 0 ? a.hist0 : a.hist1) + (size_t)f * B * 3;
-  const int* im = a.imeta + f * 4;
-  const size_t row = (size_t)k * gridDim.y + f;
-  const int* node = k == 0 ? a.node0 : a.node1;
-  int rand_bin = -1;
-  float fmask = a.fmeta[f * 2 + 1];
-  if (node != nullptr) {
-    const int v = node[f];
-    rand_bin = (int)(short)(v & 0xffff);
-    if (!((v >> 16) & 1)) fmask = 0.f;
-  }
+  const Row r = block_row(a);
   // a block of its own: the running sums stay in registers
   ltt::scan_feature<kCap, kClock, true>(
-      hist, B, L, im[0], im[1], im[2], im[3], a.fmeta[f * 2 + 0], fmask,
-      a.p, sm, a.out + row * 8, kClock ? a.times + row * 5 : nullptr,
-      rand_bin);
+      r.hist, a.num_bins, r.L, r.im[0], r.im[1], r.im[2], r.im[3],
+      a.fmeta[blockIdx.y * 2 + 0], r.fmask, a.p, sm, a.out + r.row * 8,
+      kClock ? a.times + r.row * 5 : nullptr, r.rand_bin);
+}
+
+template <bool kClock>
+__global__ void __launch_bounds__(kMaxThreads)
+    split_scan_wide_kernel(ScanArgs a) {
+  __shared__ ltt::ScanSmem<kScanWindow> sm;
+  const Row r = block_row(a);
+  ltt::scan_feature_wide<kClock>(
+      r.hist, a.num_bins, r.L, r.im[0], r.im[1], r.im[2], r.im[3],
+      a.fmeta[blockIdx.y * 2 + 0], r.fmask, a.p, sm, a.out + r.row * 8,
+      kClock ? a.times + r.row * 5 : nullptr, r.rand_bin);
 }
 
 template <bool kClock>
 int launch_scan(int K, int F, int B, int threads, const ScanArgs& a,
                 cudaStream_t stream) {
-  if (B < 1 || B > kMaxScanBins || K < 1 || K > 2 || F < 1 ||
-      threads < 32 || threads > kMaxThreads || threads % 32)
+  if (B < 1 || B > kMaxWideBins || K < 1 || K > 2 || F < 1 ||
+      threads < 32 || threads > kMaxThreads || threads % 32 ||
+      (B > kMaxScanBins && threads < kMinWideThreads))
     return (int)cudaErrorInvalidValue;
   if (B <= kMaxBins)
     split_scan_kernel<kMaxBins, kClock>
         <<<dim3(K, F), threads, 0, stream>>>(a);
-  else
+  else if (B <= kMaxScanBins)
     split_scan_kernel<kMaxScanBins, kClock>
         <<<dim3(K, F), threads, 0, stream>>>(a);
+  else
+    split_scan_wide_kernel<kClock><<<dim3(K, F), threads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -135,10 +174,10 @@ LTT_EXPORT int ltt_split_scan(int K, int F, int B, const float* hist0,
 }
 
 // For profiling only (chip_profile.py, the card tests): the same table
-// at a block size the caller picks (a multiple of 32 in [32, 512]; 0:
-// scan_threads(B)) and, when times is not null, from the timed
-// instantiation: thread 0 of block (k, f) writes scan_feature's five
-// clock64 reads to times[k, f, 0:5] (u64).
+// at a block size the caller picks (a multiple of 32 in [32, 512], at
+// least 192 past 1024 bins; 0: scan_threads(B)) and, when times is not
+// null, from the timed instantiation: thread 0 of block (k, f) writes
+// scan_feature's five clock64 reads to times[k, f, 0:5] (u64).
 LTT_EXPORT int ltt_split_scan_profile(
     int K, int F, int B, const float* hist0, const float* hist1, float pg0,
     float ph0, float pc0, float cmin0, float cmax0, float pg1, float ph1,

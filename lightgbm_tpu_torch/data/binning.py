@@ -88,10 +88,33 @@ def greedy_find_bin(distinct_values: np.ndarray, counts: np.ndarray,
     mean_bin_size = rest_sample_cnt / max(rest_bin_cnt, 1)
     upper_bounds = [math.inf] * max_bin
     lower_bounds = [math.inf] * max_bin
-    bin_cnt = 0
     lower_bounds[0] = float(distinct_values[0])
+    if is_big.any():
+        bin_cnt = _greedy_pack(distinct_values, counts, is_big, max_bin,
+                               mean_bin_size, rest_bin_cnt, rest_sample_cnt,
+                               upper_bounds, lower_bounds)
+    else:
+        bin_cnt = _greedy_pack_no_big(distinct_values, counts, max_bin,
+                                      mean_bin_size, rest_bin_cnt,
+                                      rest_sample_cnt, upper_bounds,
+                                      lower_bounds)
+    bin_cnt += 1
+    for i in range(bin_cnt - 1):
+        val = _next_after_up((upper_bounds[i] + lower_bounds[i + 1]) / 2.0)
+        if not bounds or not _double_equal_ordered(bounds[-1], val):
+            bounds.append(val)
+    bounds.append(math.inf)
+    return bounds
+
+
+def _greedy_pack(distinct_values, counts, is_big, max_bin, mean_bin_size,
+                 rest_bin_cnt, rest_sample_cnt, upper_bounds,
+                 lower_bounds) -> int:
+    """The packing loop of ``greedy_find_bin`` (bin.cpp:119-142), a
+    distinct value at a time; returns the bins cut."""
+    bin_cnt = 0
     cur = 0
-    for i in range(num_distinct - 1):
+    for i in range(len(distinct_values) - 1):
         if not is_big[i]:
             rest_sample_cnt -= int(counts[i])
         cur += int(counts[i])
@@ -106,13 +129,35 @@ def greedy_find_bin(distinct_values: np.ndarray, counts: np.ndarray,
             if not is_big[i]:
                 rest_bin_cnt -= 1
                 mean_bin_size = rest_sample_cnt / max(rest_bin_cnt, 1)
-    bin_cnt += 1
-    for i in range(bin_cnt - 1):
-        val = _next_after_up((upper_bounds[i] + lower_bounds[i + 1]) / 2.0)
-        if not bounds or not _double_equal_ordered(bounds[-1], val):
-            bounds.append(val)
-    bounds.append(math.inf)
-    return bounds
+    return bin_cnt
+
+
+def _greedy_pack_no_big(distinct_values, counts, max_bin, mean_bin_size,
+                        rest_bin_cnt, rest_sample_cnt, upper_bounds,
+                        lower_bounds) -> int:
+    """``_greedy_pack`` where no distinct value is big (every count
+    below the mean bin size: continuous data), a bin at a time: a bin
+    ends at the first value where the integer running count reaches the
+    float mean (``cur >= mean`` is ``cur >= ceil(mean)``), found by a
+    search of the cumulative counts, and the rest count there is the
+    total less the cumulative count. The same bounds as the loop."""
+    c = np.cumsum(np.asarray(counts, np.int64))
+    total = rest_sample_cnt
+    last = len(distinct_values) - 2          # the loop's last index
+    bin_cnt, start, base = 0, 0, 0
+    while True:
+        i = max(start, int(np.searchsorted(
+            c, base + math.ceil(mean_bin_size), side="left")))
+        if i > last:
+            return bin_cnt
+        upper_bounds[bin_cnt] = float(distinct_values[i])
+        bin_cnt += 1
+        lower_bounds[bin_cnt] = float(distinct_values[i + 1])
+        if bin_cnt >= max_bin - 1:
+            return bin_cnt
+        rest_bin_cnt -= 1
+        mean_bin_size = (total - int(c[i])) / max(rest_bin_cnt, 1)
+        start, base = i + 1, int(c[i])
 
 
 def find_bin_with_zero_as_one_bin(distinct_values: np.ndarray,
@@ -215,6 +260,22 @@ def find_bin_with_predefined_bin(distinct_values: np.ndarray,
     return bounds
 
 
+def _count_in_bins(dv: np.ndarray, cn: np.ndarray,
+                   upper: List[float]) -> List[int]:
+    """The sample count of each bin (bin.cpp:411-423): the reference
+    walks the distinct values and moves to the next bin when a value
+    passes the current bin's bound, one bin a value at most, so its bin
+    t_i = min(s_i, t_(i-1) + 1), with s_i the value's first bound at or
+    above it (a search) and t_(-1) = 0: t_i = min(i + 1, min over j <= i
+    of (s_j - j) + i). The same counts as the walk, in numpy."""
+    s = np.searchsorted(np.asarray(upper, np.float64), dv, side="left")
+    i = np.arange(len(dv), dtype=np.int64)
+    t = np.minimum(np.minimum.accumulate(s.astype(np.int64) - i) + i,
+                   i + 1)
+    return np.bincount(t, weights=np.asarray(cn, np.float64),
+                       minlength=len(upper)).astype(np.int64).tolist()
+
+
 class BinMapper:
     """Per-feature value -> bin mapping (bin.h:58-230)."""
 
@@ -262,44 +323,35 @@ class BinMapper:
         # vectorized: consecutive values within one float ulp are merged
         # ("use the large value"), matching CheckDoubleEqualOrdered.
         values = np.sort(values, kind="stable")
-        distinct_values: List[float] = []
-        counts: List[int] = []
         if num_sample_values > 0:
             new_grp = np.concatenate(
                 [[True], values[1:] > np.nextafter(values[:-1], np.inf)])
             starts = np.nonzero(new_grp)[0]
             ends = np.concatenate([starts[1:], [num_sample_values]])
-            dvals = values[ends - 1]
-            dcnts = (ends - starts).astype(np.int64)
-            distinct_values = dvals.tolist()
-            counts = dcnts.tolist()
+            dv = values[ends - 1]
+            cn = (ends - starts).astype(np.int64)
             # insert the implicit-zero entry at its sorted position
-            if zero_cnt > 0 or not distinct_values:
-                if distinct_values and distinct_values[0] > 0.0:
-                    distinct_values.insert(0, 0.0)
-                    counts.insert(0, zero_cnt)
-                elif distinct_values and distinct_values[-1] < 0.0:
-                    distinct_values.append(0.0)
-                    counts.append(zero_cnt)
+            if zero_cnt > 0:
+                if dv[0] > 0.0:
+                    pos = 0
+                elif dv[-1] < 0.0:
+                    pos = len(dv)
                 else:
-                    pos = int(np.searchsorted(dvals, 0.0))
-                    if 0 < pos < len(distinct_values) \
-                            and distinct_values[pos - 1] < 0.0 \
-                            and distinct_values[pos] > 0.0:
-                        distinct_values.insert(pos, 0.0)
-                        counts.insert(pos, zero_cnt)
+                    pos = int(np.searchsorted(dv, 0.0))
+                    if not (0 < pos < len(dv) and dv[pos - 1] < 0.0
+                            and dv[pos] > 0.0):
+                        pos = -1
+                if pos >= 0:
+                    dv = np.insert(dv, pos, 0.0)
+                    cn = np.insert(cn, pos, zero_cnt)
         else:
-            distinct_values = [0.0]
-            counts = [zero_cnt]
-
-        if not distinct_values:
-            self.num_bin = 1
-            self.is_trivial = True
-            return
-        self.min_val = distinct_values[0]
-        self.max_val = distinct_values[-1]
-        dv = np.asarray(distinct_values)
-        cn = np.asarray(counts)
+            dv = np.asarray([0.0])
+            cn = np.asarray([zero_cnt], np.int64)
+        # the sorted distinct values and their counts, as host lists for
+        # the categorical walk
+        distinct_values, counts = dv, cn
+        self.min_val = float(dv[0])
+        self.max_val = float(dv[-1])
 
         cnt_in_bin: List[int] = []
         if bin_type == BIN_TYPE_NUMERICAL:
@@ -323,12 +375,7 @@ class BinMapper:
                 self.bin_upper_bound.append(math.nan)
             self.num_bin = len(self.bin_upper_bound)
             # count per bin (bin.cpp:411-423)
-            cnt_in_bin = [0] * self.num_bin
-            i_bin = 0
-            for i in range(len(dv)):
-                if dv[i] > self.bin_upper_bound[i_bin]:
-                    i_bin += 1
-                cnt_in_bin[i_bin] += int(cn[i])
+            cnt_in_bin = _count_in_bins(dv, cn, self.bin_upper_bound)
             if self.missing_type == MISSING_NAN:
                 cnt_in_bin[self.num_bin - 1] = na_cnt
             assert self.num_bin <= max_bin

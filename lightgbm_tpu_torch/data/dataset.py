@@ -201,17 +201,26 @@ class Dataset:
     # ------------------------------------------------------------------
     def binned_device(self, device) -> torch.Tensor:
         """Device copy of the binned matrix (uploaded once per device):
-        uint8, or for more than 256 bins the uint16 bins' bit patterns
-        as int16 (torch's uint16 has few CPU ops; every bin is below
-        2**15, so the values are the bins, and the leaf kernel reads the
-        bits as uint16)."""
+        uint8; for more than 256 bins the uint16 bins' bit patterns as
+        int16 while every bin is below 2**15 (torch's uint16 has few CPU
+        ops; the values are the bins, and the kernels read the bits as
+        uint16); past 32,768 bins in a column, int32 (int16 bits would
+        read as negative values in every plain reader)."""
         key = str(torch.device(device))
         if key not in self._device_copies:
             host = np.ascontiguousarray(self.binned)
             if host.dtype == np.uint16:
-                host = host.view(np.int16)
+                host = host.view(np.int16) if self.max_column_bins() \
+                    <= 32768 else host.astype(np.int32)
             self._device_copies[key] = torch.from_numpy(host).to(device)
         return self._device_copies[key]
+
+    def max_column_bins(self) -> int:
+        """The most bins of a column of the bin matrix (a feature's, or
+        with EFB a group's)."""
+        _, _, group_bins = self.bundle_maps()
+        return max(int(self.num_bins_array().max(initial=2)),
+                   int(np.asarray(group_bins).max(initial=2)))
 
     def mv_slots_device(self, device) -> Optional[torch.Tensor]:
         """Device copy of the multi-val slot matrix (int32 [N, K]), or
@@ -404,7 +413,12 @@ class Dataset:
                                categorical_features: Sequence[int],
                                forced_bins) -> None:
         """Bin mappers from an already drawn row sample (the in-memory
-        and the two-round loaders)."""
+        and the two-round loaders). With ``pre_partition`` in a process
+        group the ranks' samples are pooled first, in rank order
+        (``parallel/distributed.py:maybe_gather_bin_sample``; JAX
+        ``data/dataset.py:358``), so every rank bins alike."""
+        from ..parallel.distributed import maybe_gather_bin_sample
+        sample, n = maybe_gather_bin_sample(sample, config, n)
         cols = [sample[:, j] for j in range(sample.shape[1])]
         self._find_bins_from_columns(
             [c[(np.abs(c) > kZeroThreshold) | np.isnan(c)] for c in cols],
@@ -584,6 +598,9 @@ class Dataset:
             colv = np.asarray(colv, np.float64)
             nonzeros.append(colv[(np.abs(colv) > kZeroThreshold)
                                  | np.isnan(colv)])
+        from ..parallel.distributed import maybe_gather_sparse_bin_sample
+        nonzeros, sample_cnt, n = maybe_gather_sparse_bin_sample(
+            nonzeros, sample_cnt, config, n)
         self._find_bins_from_columns(nonzeros, sample_cnt, n, config,
                                      categorical_features, forced_bins)
 

@@ -59,8 +59,10 @@ on the host, with the raw tables kept for the coupled refund), forced
 splits (split first, from the leaf's histogram) and a bounded
 histogram memory (an LRU pool of ``histogram_pool_size`` MB, or both
 children rebuilt every split). Any of them keeps a tree per-phase.
-The distributed learners raise ``NotImplementedError`` naming the
-ROADMAP item (``check_tree_learner``).
+The parallel learners (``parallel/learners.py``) are these learners
+with a communication recipe (``comm``, ``learner/comm.py``): the
+per-phase loop only, the histograms reduced and the splits chosen
+across ranks.
 """
 
 from __future__ import annotations
@@ -75,7 +77,9 @@ from ..config import Config
 from ..data.binning import (BIN_TYPE_CATEGORICAL, MISSING_NAN,
                             MISSING_NONE, MISSING_ZERO)
 from ..data.dataset import Dataset
-from ..ops.hist_cuda import build_matrix, extract_row_ids, pack_gh
+from ..ops.hist_cuda import (build_matrix, extract_row_ids,
+                             histogram_segment, histogram_segment_plain,
+                             pack_gh)
 from ..ops.histogram import Debundler, debundle_leaf_hists
 from ..ops.split import (MISSING_NAN_CODE, MISSING_NONE_CODE,
                          MISSING_ZERO_CODE, FeatureMeta, SplitParams,
@@ -90,6 +94,7 @@ from ..ops.split_step_cuda import (MAX_BINS, FusedScratch, SegmentStep,
                                    segment_split_ops)
 from ..ops.split_scan_cuda import node_rows, node_table
 from ..utils.log import log_warning
+from .comm import comm_root_hooks
 from .grow_extras import (CegbState, HistMemory, build_forced_plan,
                           cegb_on, cegb_penalties, hist_pool_slots)
 from .node_rand import NodeRand
@@ -100,18 +105,6 @@ from .split_step import (SEG_SI_PREFIX, f32, fused_split_eligible,
 _MISSING_CODE = {MISSING_NONE: MISSING_NONE_CODE,
                  MISSING_ZERO: MISSING_ZERO_CODE,
                  MISSING_NAN: MISSING_NAN_CODE}
-
-
-def _reject(what: str, item: str) -> None:
-    raise NotImplementedError(
-        f"{what} is not in the port yet (ROADMAP.md {item})")
-
-
-def check_tree_learner(config: Config) -> None:
-    """Refuse the distributed learners (outside the port's slices);
-    nothing is approximated."""
-    if config.tree_learner not in ("serial", "partitioned"):
-        _reject(f"tree_learner={config.tree_learner}", "Queue 1 item 8")
 
 
 def split_params_from_config(config: Config, any_missing: bool = True,
@@ -185,21 +178,26 @@ class LeafwiseLearner:
     parameters, the histogram memory, the per-node randomness, the
     forced plan and CEGB state, the merged pack of the learner's layout,
     the fused gate and the scan. A subclass names its layout
-    (``LAYOUT``, a key of ``MAX_BINS``), its pack's int prefix rows
-    (``SI_PREFIX``), what its bin cap means (``BIN_NOTE``), whether its
+    (``LAYOUT``, a key of ``MAX_BINS``: the fused kernel's bins), its
+    pack's int prefix rows (``SI_PREFIX``), the most bins it takes
+    (``MAX_LEARNER_BINS``) and its refusal past them (``BIN_NOTE``, the
+    bins as ``{n}``),
+    whether its
     histogram memory may be an LRU pool (``POOL``) and whether it keeps
     the lazy CEGB penalty (``LAZY_CEGB``), then adds its layout's own
     state."""
 
     LAYOUT = "segment"
     SI_PREFIX = SEG_SI_PREFIX
+    MAX_LEARNER_BINS = MAX_BINS["segment"]
     BIN_NOTE = ""
     POOL = True
     LAZY_CEGB = False
+    # a parallel learner's recipe (learner/comm.py); None: serial
+    comm = None
 
     def __init__(self, dataset: Dataset, config: Config,
                  device: torch.device, ops: str = "kernel"):
-        check_tree_learner(config)
         if ops not in ("kernel", "plain"):
             raise ValueError(f"ops must be 'kernel' or 'plain', got {ops!r}")
         self.dataset = dataset
@@ -224,9 +222,9 @@ class LeafwiseLearner:
         self.num_bins_max = max(
             int(dataset.num_bins_array().max(initial=2)),
             int(np.asarray(group_bins).max(initial=2)))
-        if self.num_bins_max > MAX_BINS[self.LAYOUT]:
-            _reject(f"{self.num_bins_max} bins per feature {self.BIN_NOTE}",
-                    "Queue 1 item 4")
+        if self.num_bins_max > self.MAX_LEARNER_BINS:
+            raise ValueError(f"{type(self).__name__} " + self.BIN_NOTE.format(
+                n=self.num_bins_max))
         self.num_leaves = int(config.num_leaves)
         self.bundled = dataset.is_bundled
         self.num_groups = dataset.num_groups
@@ -269,10 +267,16 @@ class LeafwiseLearner:
                 merged=True, extra_trees=bool(config.extra_trees),
                 ff_bynode=float(config.feature_fraction_bynode),
                 mv_groups=self.num_groups - self.num_cols,
+                serial_comm=self.comm is None,
                 num_leaves=self.num_leaves) and not self.forced_plan,
             device=self.device, params=self.params,
             num_bins_max=self.num_bins_max, layout=self.LAYOUT,
             bundled=self.bundled)
+
+    def _device_bins(self, dataset: Dataset) -> torch.Tensor:
+        """The bin matrix this learner trains on, on its device (a
+        parallel learner's row block: ``parallel/learners.py``)."""
+        return dataset.binned_device(self.device)
 
     def _tree_meta(self, feature_mask: Optional[np.ndarray]):
         """The scan's meta tensors and tables and the fused step's packed
@@ -299,37 +303,48 @@ class LeafwiseLearner:
 
     def _scan(self, hists, leaves, meta_t, tables, salts=(0, 0)
               ) -> torch.Tensor:
-        """Both children's (or the root's) per-feature table: the
-        numerical scan (the kernel, or its plain version) with each
-        leaf's row of the tree's node table (``salts``), merged with
+        """Both children's (or the root's) per-feature table, the same on
+        every rank: the serial scan, or a parallel recipe's select
+        (``learner/comm.py``)."""
+        return comm_root_hooks(self.comm)[1](self, hists, leaves, meta_t,
+                                             tables, salts)
+
+    def serial_scan(self, hists, leaves, meta_t, tables, salts=(0, 0)
+                    ) -> torch.Tensor:
+        """The numerical scan (the kernel, or its plain version) with
+        each leaf's row of the tree's node table (``salts``), merged with
         the categorical search when the dataset has categorical
         features. An EFB dataset's group histograms are debundled into
         per-feature histograms first (JAX partitioned.py:430-434,
         split_step.py:425-440), each from its own leaf's totals."""
         if self.bundled:
             hists = debundle_leaf_hists(self._debundler, hists, leaves)
-        node = self._node
+        return self.scan_table(hists, leaves, meta_t, tables, self.params,
+                               self._node, salts)
+
+    def scan_table(self, hists, leaves, meta_t, tables, params,
+                   node=None, salts=(0, 0)) -> torch.Tensor:
+        """[K, F, C] table of K leaves' per-feature histograms (``meta_t``
+        and ``tables`` of the same F features) under ``params``."""
         if self.plain:
             table = per_feature_numerical_plain(hists, leaves, meta_t,
-                                                self.params, node, salts)
+                                                params, node, salts)
         else:
             table = per_feature_numerical_cuda(hists, leaves, meta_t,
-                                               self.params, tables,
+                                               params, tables,
                                                node=node, salts=salts)
-        nm = None if node is None or not self.params.has_categorical \
+        nm = None if node is None or not params.has_categorical \
             else torch.stack([m for _, m in node_rows(node,
                                                       salts[:len(hists)])])
-        return per_feature_splits(table, hists, leaves, meta_t, self.params,
-                                  nm)
+        return per_feature_splits(table, hists, leaves, meta_t, params, nm)
 
     def _root_scan(self, root_hist, meta_t, tables):
         """Keep the root's histogram and scan it; returns the scan
         table (penalized, with CEGB) and the root's (g, h, count). The
         root's one host read is its sums, which the scan takes as
-        scalars."""
+        scalars (the same on every rank of a parallel learner)."""
         self.mem.start_tree(root_hist, self.num_leaves)
-        sums = root_hist[0].sum(dim=0).cpu().numpy()
-        root = (f32(sums[0]), f32(sums[1]), f32(sums[2]))
+        root = comm_root_hooks(self.comm)[0](self, root_hist)
         inf = f32(np.inf)
         table = self._scan([root_hist], [root + (-inf, inf)], meta_t,
                            tables, (0,))[0]
@@ -364,8 +379,10 @@ class PartitionedTreeLearner(LeafwiseLearner):
     with ``leaf_id`` [N] int64 on the device. ``fused`` says which grow
     loop it runs (decided here, before training)."""
 
-    BIN_NOTE = ("in the partitioned learner (the matrix packs bins as "
-                "uint8; tree_learner=serial takes up to 1024)")
+    # JAX learner/partitioned.py:141-145
+    BIN_NOTE = ("packs bins as uint8 and supports max 256 bins per "
+                "feature, got {n}; use max_bin<=255 or "
+                "tree_learner='serial'")
 
     def __init__(self, dataset: Dataset, config: Config,
                  device: torch.device, ops: str = "kernel"):
@@ -374,7 +391,7 @@ class PartitionedTreeLearner(LeafwiseLearner):
                 f"{type(self).__name__} needs a matrix column per group; "
                 "a multi-val dataset trains on the SerialTreeLearner")
         super().__init__(dataset, config, device, ops)
-        self.mat = build_matrix(dataset.binned_device(self.device))
+        self.mat = build_matrix(self._device_bins(dataset))
         self.ws = torch.empty_like(self.mat)
         self._ones = torch.ones(self.num_data, dtype=torch.float32,
                                 device=self.device)
@@ -401,9 +418,8 @@ class PartitionedTreeLearner(LeafwiseLearner):
             pack_gh(self.mat, f, grad[rids] * w, hess[rids] * w, w)
         if self.cegb is not None:
             self.cegb.start_tree(self.num_leaves)
-        table, root = self._root_scan(
-            segment_histogram(self.mat, 0, n, self.num_bins_max, f,
-                              plain=self.plain, max_count=n), meta_t, tables)
+        table, root = self._root_scan(self._segment_hist(0, n, n), meta_t,
+                                      tables)
         if self.fused:
             st, k = self._grow_fused(table, root, imeta, fmeta)
         else:
@@ -411,6 +427,24 @@ class PartitionedTreeLearner(LeafwiseLearner):
                                          imeta)
         tree, v = grown_tree(self.pack, st, k, self.dataset)
         return tree, self._leaf_id(v["leaf_begin"], v["leaf_cnt"], k)
+
+    def _segment_hist(self, begin: int, count: int, max_count: int):
+        """One segment's histogram (host bounds): with a data-parallel
+        recipe its float64 sums reduced across the ranks and rounded
+        once, else the rank's own."""
+        if self.comm is None or not self.comm.float64_hist:
+            return segment_histogram(self.mat, begin, count,
+                                     self.num_bins_max, self.num_cols,
+                                     plain=self.plain, max_count=max_count)
+        if self.plain:
+            h = histogram_segment_plain(self.mat, begin, count,
+                                        self.num_bins_max, self.num_cols,
+                                        float64=True)
+        else:
+            h = histogram_segment(self.mat, begin, count, self.num_bins_max,
+                                  self.num_cols, max_count=max_count,
+                                  float64=True)
+        return self.comm.reduce_hist(h)
 
     def _grow_fused(self, table, root, imeta, fmeta):
         """S, T and the histogram cache stay on the device; L - 1 fused
@@ -447,7 +481,10 @@ class PartitionedTreeLearner(LeafwiseLearner):
             self.mat, self.ws, im, self.num_bins_max, self.num_cols,
             lambda hists, leaves, salts: self._scan(hists, leaves, meta_t,
                                                     tables, salts),
-            plain=self.plain, bundled=self.bundled)
+            plain=self.plain, bundled=self.bundled,
+            histogram=None if self.comm is None or not self.comm.float64_hist
+            else lambda mat, begin, count, cnt: self._segment_hist(
+                begin, count, cnt))
         return st, self._grow_host(st, ops, im)
 
     def _leaf_id(self, begin: np.ndarray, cnt: np.ndarray,

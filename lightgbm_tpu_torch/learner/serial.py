@@ -7,10 +7,10 @@ each row is in, and a split relabels the right-going rows of the chosen
 leaf (``split_leaf``). The smaller child's histogram comes from the
 rows of that child, the sibling as parent minus child from the
 per-leaf cache (serial_tree_learner.cpp:434-436). The binned matrix is
-[N, F] uint8, or the int16 bits of uint16 bins when a feature has more
-than 256 bins (up to 1024): this is the learner ``create_tree_learner``
-gives such datasets, whose bins the partitioned learner's u8 matrix
-cannot hold.
+[N, F] uint8, the int16 bits of uint16 bins when a feature has more
+than 256 bins, or int32 past 32,768 bins (up to 65,536): this is the
+learner ``create_tree_learner`` gives such datasets, whose bins the
+partitioned learner's u8 matrix cannot hold.
 
 Two grow loops, chosen before training (``fused_split_kernel``):
 
@@ -54,8 +54,9 @@ The per-phase loop also runs extra_trees, by-node sampling, CEGB
 device), forced splits and, when the histogram cache does not fit
 ``histogram_pool_size``, both children rebuilt every split
 (``cache_hists=False`` of the JAX package; ``learner/grow_extras.py``).
-More than 1024 bins raises ``NotImplementedError`` naming the ROADMAP
-item.
+Past 1024 bins (the fused leaf kernel's cap) every tree takes the
+per-phase loop, even with ``fused_split_kernel="on"``: ``hist_rows`` and
+the scan kernel take up to 65,536 bins.
 """
 
 from __future__ import annotations
@@ -87,7 +88,10 @@ class SerialTreeLearner(LeafwiseLearner):
 
     LAYOUT = "leaf"
     SI_PREFIX = ()
-    BIN_NOTE = "(the serial learner takes up to 1024)"
+    # the u16 bins' widest feature; past MAX_BINS["leaf"] (1024, the
+    # fused leaf kernel's) a tree runs per-phase
+    MAX_LEARNER_BINS = 65536
+    BIN_NOTE = "takes up to 65,536 bins per feature, got {n}"
     # the JAX serial learner rebuilds both children when the cache does
     # not fit (no pool), and keeps the lazy CEGB penalty: its rows stay
     # where they are
@@ -97,7 +101,10 @@ class SerialTreeLearner(LeafwiseLearner):
     def __init__(self, dataset: Dataset, config: Config,
                  device: torch.device, ops: str = "kernel"):
         super().__init__(dataset, config, device, ops)
-        self.binned = dataset.binned_device(self.device)
+        self.binned = self._device_bins(dataset)
+        # the matrix the histograms read (a feature-parallel rank's
+        # shard of the columns; parallel/learners.py)
+        self.binned_hist = self._hist_bins()
         # multi-val pseudo-groups: no column, their values in the slots
         self.mv_groups = self.num_groups - self.num_cols
         self.mv_slots = dataset.mv_slots_device(self.device)
@@ -111,17 +118,33 @@ class SerialTreeLearner(LeafwiseLearner):
         # it has them (the same shape), else allocated once here
         self._partial = None if self.plain else (
             self._scratch.partial if self._scratch is not None
-            else rows_partial(self.binned, self.num_bins_max))
+            else rows_partial(self.binned_hist, self.num_bins_max))
+
+    def _hist_bins(self) -> torch.Tensor:
+        return self.binned
+
+    def _hist_reduce(self):
+        """A data-parallel recipe's reduce of float64 histograms, else
+        None (the histograms are rounded where they are built)."""
+        return self.comm.reduce_hist \
+            if self.comm is not None and self.comm.float64_hist else None
 
     def _histogram(self, ghc: torch.Tensor) -> torch.Tensor:
         """The root histogram: the hist_rows kernel on the card, the plain
-        ``build_histogram`` on the CPU or with ``ops="plain"``; then the
+        ``build_histogram`` on the CPU or with ``ops="plain"`` (float64
+        sums reduced across ranks with a data-parallel recipe); then the
         multi-val groups' (``hist_multival``, or its plain version)."""
         b = self.num_bins_max
+        reduce = self._hist_reduce()
         if self.plain:
-            h = build_histogram(self.binned, ghc, b)
+            h = build_histogram(self.binned_hist, ghc, b,
+                                float64=reduce is not None)
         else:
-            h = histogram_rows(self.binned, ghc, b, partial=self._partial)
+            h = histogram_rows(self.binned_hist, ghc, b,
+                               partial=self._partial,
+                               float64=reduce is not None)
+        if reduce is not None:
+            h = reduce(h)
         if not self.mv_groups:
             return h
         hm = hist_multival_plain(self.mv_slots, ghc, self.mv_groups, b) \
@@ -187,5 +210,6 @@ class SerialTreeLearner(LeafwiseLearner):
                                                     tables, salts),
             partial=self._partial, bundled=self.bundled,
             mv=(self.mv_slots, self.mv_groups, self._mv_partial)
-            if self.mv_groups else None)
+            if self.mv_groups else None, hist_binned=self.binned_hist,
+            reduce=self._hist_reduce())
         return self._grow_host(st, ops, im)

@@ -28,6 +28,7 @@ leaf values (the per-leaf sums through the ``hist_rows`` kernel), and
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -37,6 +38,8 @@ from ..config import Config
 from ..data.dataset import Dataset
 from ..metric import create_metrics
 from ..objective import create_objective
+from ..ops import _native
+from ..parallel.distributed import current_world
 from ..parallel.learners import create_tree_learner
 from ..utils.log import log_fatal, log_info, log_warning
 from ..utils.threefry import Key, fold_in, prng_key, uniform
@@ -106,6 +109,8 @@ class GBDT:
         self.config = config
         self.train_data = train_data
         self.device = torch.device(device)
+        # the kernel library's build directory (JAX gbdt.py:282-283)
+        _native.maybe_enable_compile_cache(config)
         # the kernels' plain versions (the CPU, or ops="plain" on the
         # card): the learner's, and refit's per-leaf sums
         self.plain = ops == "plain" or self.device.type == "cpu"
@@ -132,6 +137,12 @@ class GBDT:
         if self.objective is not None:
             self.objective.init(train_data.metadata, self.num_data,
                                 self.device)
+            if self.objective.is_renew_tree_output \
+                    and config.pre_partition and current_world() is not None:
+                raise NotImplementedError(
+                    f"objective {self.objective.name()} with pre_partition "
+                    "over ranks (its leaf refit needs every rank's rows) is "
+                    "not in the port yet (ROADMAP.md Queue 1 item 13)")
         k = self.num_tree_per_iteration
         init = train_data.metadata.init_score
         self._has_init_score = init is not None
@@ -269,7 +280,8 @@ class GBDT:
             return 0.0
         if self.config.boost_from_average \
                 or self.train_data.num_features == 0:
-            init_score = float(self.objective.boost_from_score(class_id))
+            init_score = float(self._objective_of_all_rows().boost_from_score(
+                class_id))
             if abs(init_score) > kEpsilon:
                 self._add_score(class_id, init_score)
                 log_info(f"Start training from score {init_score:.6f}")
@@ -279,6 +291,24 @@ class GBDT:
                 f"Disabling boost_from_average in {self.objective.name()} "
                 "may cause the slow convergence")
         return 0.0
+
+    def _objective_of_all_rows(self):
+        """The objective, or with ``pre_partition`` in a process group
+        (each rank holds its own rows) one over every rank's labels and
+        weights, gathered in rank order: the init score is the single
+        process's on the same rows."""
+        from ..parallel.distributed import gather_rows
+        if not self.config.pre_partition or current_world() is None:
+            return self.objective
+        md = self.train_data.metadata
+        label = gather_rows(np.asarray(md.label, np.float64))
+        weights = None if md.weights is None else gather_rows(
+            np.asarray(md.weights, np.float64))
+        obj = create_objective(self.config)
+        obj.init(SimpleNamespace(label=label, weights=weights,
+                                 query_boundaries=None, init_score=None),
+                 len(label), "cpu")
+        return obj
 
     def gradients(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The objective's float32 gradients and hessians, [N, k]."""
@@ -497,8 +527,8 @@ class GBDT:
                     lpl, raw_dev, new_leaf, bc, bw,
                     torch.as_tensor(feats, dtype=torch.int64, device=dev))
                 pending.append((tree, (out, const, coeff, ok), feats))
-        if any(t.num_leaves > 1024 for t in self.models):
-            log_info("refit: the per-leaf sums of trees past 1024 leaves "
+        if any(t.num_leaves > 65536 for t in self.models):
+            log_info("refit: the per-leaf sums of trees past 65,536 leaves "
                      "take the sorted route (hist_cuda.leaf_histogram)")
         # the one host read: every tree's outputs in one float64 buffer
         # (float32 and bool widen exactly)

@@ -4,7 +4,9 @@ The kernels live in ``lightgbm_tpu_torch/csrc/*.cu`` with a plain C
 interface. At first use they are compiled for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``), one ``nvcc`` per source,
 all started together, then linked into one shared library under
-``lightgbm_tpu_torch/_build/`` (git-ignored) and loaded with ``ctypes``.
+``lightgbm_tpu_torch/_build/`` (git-ignored; the ``compile_cache_dir``
+parameter moves it, ``maybe_enable_compile_cache``) and loaded with
+``ctypes``.
 The library name carries a digest of the sources and flags, so an
 edited source rebuilds and an unchanged one is reused.
 
@@ -30,6 +32,9 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
+# the build directory a config's ``compile_cache_dir`` named (None: the
+# default BUILD_DIR)
+_CACHE_DIR = {"path": None}
 
 # per-source extra flags: the split scan and the fused split step
 # reproduce the plain versions' float32 expression order (the scan, the
@@ -57,8 +62,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # mat, stride, pay_off, seg, F, B, max_chunks, partial, out, stream
-    "ltt_hist_segment": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
+    # mat, stride, pay_off, seg, F, B, max_chunks, partial, out, out64
+    # (or null), stream
+    "ltt_hist_segment": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P],
     # mat, ws, stride, begin, count, feat, thr, dleft, miss, defbin,
     # nbins, use_lut, lut, scratch, epoch, seg_out, stream
     "ltt_partition_segment": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -98,11 +104,13 @@ _SIGNATURES = {
     # shared bytes, most chunks of a split)
     "ltt_split_step_leaf_shape": [_I] * 5 + [_P],
     # bin_bytes, bins, ghc, ids (or null: all rows), count, F, B,
-    # feat_tile, max_chunks, partial, out, stream
-    "ltt_hist_rows": [_I, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P],
+    # feat_tile, max_chunks, partial, out, out64 (or null), stream
+    "ltt_hist_rows": [_I, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P],
     # the same, then times (u64 [grid, 4]), stream
     "ltt_hist_rows_timed": [_I, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P,
                             _P, _P],
+    # bin_bytes, B, feat_tile -> the bins one block takes
+    "ltt_hist_rows_window": [_I, _I, _I],
     # slots, K, ghc, ids (or null: all rows), count, g_mv, B,
     # max_chunks, partial, out, stream
     "ltt_hist_multival": [_P, _I, _P, _P, _L, _I, _I, _I, _P, _P, _P],
@@ -120,6 +128,23 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
     for k in ROUTE_LAUNCHES:
         ROUTE_LAUNCHES[k] = 0
+
+
+def build_dir() -> str:
+    """Where the kernel library is built and looked for: the last
+    ``compile_cache_dir`` a config named, else ``BUILD_DIR``."""
+    return _CACHE_DIR["path"] or BUILD_DIR
+
+
+def maybe_enable_compile_cache(config) -> None:
+    """``compile_cache_dir`` (JAX ``models/gbdt.py:282-283``, which
+    points XLA's compilation cache there): the port's one compile cache
+    is its kernel library, so a set directory becomes the nvcc build
+    directory. Builds nothing; the library is built there at first use
+    (a library already loaded stays loaded)."""
+    path = getattr(config, "compile_cache_dir", "") or ""
+    if path:
+        _CACHE_DIR["path"] = os.path.abspath(os.path.expanduser(path))
 
 
 def _sources():
@@ -146,12 +171,13 @@ def _find_nvcc() -> str:
 
 
 def _build(nvcc: str, lib_path: str) -> None:
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    out_dir = os.path.dirname(lib_path)
+    os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
     procs = []
     objs = []
     for src in _sources():
-        obj = os.path.join(BUILD_DIR, src[:-3] + f".{os.getpid()}.o")
+        obj = os.path.join(out_dir, src[:-3] + f".{os.getpid()}.o")
         cmd = [nvcc, *_COMMON_FLAGS, *_EXTRA_FLAGS.get(src, []), "-c",
                os.path.join(SRC_DIR, src), "-o", obj]
         procs.append((src, subprocess.Popen(
@@ -183,6 +209,12 @@ def _build(nvcc: str, lib_path: str) -> None:
     BUILD_INFO["ptxas"] = "\n".join(logs)
 
 
+def library_path(nvcc: str) -> str:
+    """The library file for the current sources, flags and ``nvcc``
+    under ``build_dir()`` (its name carries their digest)."""
+    return os.path.join(build_dir(), f"libltt_kernels_{_digest(nvcc)}.so")
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _LIB
@@ -190,8 +222,7 @@ def library() -> ctypes.CDLL:
         if _LIB is not None:
             return _LIB
         nvcc = _find_nvcc()
-        lib_path = os.path.join(BUILD_DIR,
-                                f"libltt_kernels_{_digest(nvcc)}.so")
+        lib_path = library_path(nvcc)
         if not os.path.exists(lib_path):
             _build(nvcc, lib_path)
         else:

@@ -29,12 +29,14 @@ and go to the one kernel.
 ``build_histogram(method="pallas")``). ``histogram_rows`` launches
 ``csrc/hist_rows.cu`` for CUDA tensors and runs ``histogram_rows_plain``
 (``ops/histogram.py:build_histogram``) for CPU ones: the [F, B, 3]
-histogram of a row-major [N, F] bin matrix (u8, or the int16 bits of
-u16 bins) with ghc [N, 3], over all rows or over a list of row ids in
-row order. No training matrix is built. The kernel shares the leaf
-fused step's row loop and chunk rule (``csrc/hist_ids.cuh``; mirrored
-below as ``LEAF_*``), so the serial learner's per-phase child
-histograms equal the fused step's bit for bit.
+histogram of a row-major [N, F] bin matrix (u8, the int16 bits of u16
+bins, or past 32,768 bins int32) with ghc [N, 3], over all rows or over
+a list of row ids in row order, up to 65,536 bins (past the bins whose
+one-feature tile fits a block, each block takes a window of the bins).
+No training matrix is built. The kernel shares the leaf fused step's
+row loop and chunk rule (``csrc/hist_ids.cuh``; mirrored below as
+``LEAF_*``), so the serial learner's per-phase child histograms equal
+the fused step's bit for bit.
 """
 
 from __future__ import annotations
@@ -120,11 +122,12 @@ def decode_payload(seg_rows: torch.Tensor, num_features: int):
 
 def histogram_segment_plain(mat: torch.Tensor, begin: int, count: int,
                             num_bins: int, num_features: int,
-                            absolute: bool = False) -> torch.Tensor:
+                            absolute: bool = False,
+                            float64: bool = False) -> torch.Tensor:
     """Plain version: [F, B, 3] histogram of rows [begin, begin+count),
-    accumulated in float64 and rounded once to float32.
-    ``absolute`` sums |grad|, |hess| instead (the tolerance scale the
-    checks use)."""
+    accumulated in float64 and rounded once to float32 (``float64``:
+    not rounded). ``absolute`` sums |grad|, |hess| instead (the
+    tolerance scale the checks use)."""
     f, b = num_features, num_bins
     rows = mat[begin:begin + count]
     g, h, c = decode_payload(rows, f)
@@ -135,7 +138,7 @@ def histogram_segment_plain(mat: torch.Tensor, begin: int, count: int,
     bins = rows[:, :f].long()
     for j in range(f):
         out[j].index_add_(0, bins[:, j], vals)
-    return out.float()
+    return out if float64 else out.float()
 
 
 def max_chunks(num_features: int) -> int:
@@ -161,7 +164,8 @@ def hist_smem_bytes(num_bins: int) -> int:
 
 def histogram_segment(mat: torch.Tensor, begin, count, num_bins: int,
                       num_features: int, variant: str | None = None,
-                      max_count: int | None = None) -> torch.Tensor:
+                      max_count: int | None = None,
+                      float64: bool = False) -> torch.Tensor:
     """Histogram of rows [begin, begin+count) -> [F, B, 3] f32.
 
     ``begin``/``count`` are ints, or ``begin`` is a device int32 [2]
@@ -173,7 +177,8 @@ def histogram_segment(mat: torch.Tensor, begin, count, num_bins: int,
     so the sums do not depend on the bound. With int bounds,
     ``max_count`` (default ``count``) sizes the launch the same way.
     ``variant`` accepts the JAX package's names; all are the same
-    function here."""
+    function here. ``float64`` returns the float64 sums unrounded (the
+    data-parallel learners reduce them across ranks, then round once)."""
     if variant is not None and variant not in VARIANTS:
         raise ValueError(f"unknown histogram variant {variant!r}")
     seg_t = begin if isinstance(begin, torch.Tensor) else None
@@ -181,7 +186,8 @@ def histogram_segment(mat: torch.Tensor, begin, count, num_bins: int,
         if seg_t is not None:
             begin, count = (int(v) for v in seg_t.tolist())
         return histogram_segment_plain(mat, int(begin), int(count),
-                                       num_bins, num_features)
+                                       num_bins, num_features,
+                                       float64=float64)
     if mat.device.type != "cuda":
         raise ValueError(f"unsupported device {mat.device}")
     if not 1 <= num_bins <= 256:
@@ -207,7 +213,8 @@ def histogram_segment(mat: torch.Tensor, begin, count, num_bins: int,
             raise ValueError("a device segment needs max_count")
     lib = _native.library()
     nblk = child_chunks(int(max_count), num_features)
-    out = torch.empty((num_features, num_bins, 3), dtype=torch.float32,
+    out = torch.empty((num_features, num_bins, 3),
+                      dtype=torch.float64 if float64 else torch.float32,
                       device=mat.device)
     partial = torch.empty((nblk, num_features, num_bins, 3),
                           dtype=torch.float64, device=mat.device) \
@@ -215,7 +222,8 @@ def histogram_segment(mat: torch.Tensor, begin, count, num_bins: int,
     err = lib.ltt_hist_segment(
         mat.data_ptr(), cols, payload_offset(num_features),
         seg_t.data_ptr(), num_features, num_bins, nblk,
-        partial.data_ptr(), out.data_ptr(), _native.stream_of(mat))
+        partial.data_ptr(), 0 if float64 else out.data_ptr(),
+        out.data_ptr() if float64 else 0, _native.stream_of(mat))
     _native.LAUNCHES["hist_segment"] += 1
     _native.check(err, "hist_segment")
     return out
@@ -279,14 +287,29 @@ def leaf_child_chunks(count: int, num_features: int, feat_tile: int) -> int:
                       -(-int(count) // LEAF_CHUNK_ROWS)))
 
 
+# the most bins each width of the bin matrix holds (int16: the bits of
+# u16 bins below 2**15, so every reader's value is the bin)
+BIN_BYTES_MAX_BINS = {1: 256, 2: 32768, 4: 65536}
+
+
 def leaf_bin_bytes(binned: torch.Tensor) -> int:
-    """1 for u8 bins, 2 for u16 bins held as int16 bit patterns."""
+    """1 for u8 bins, 2 for u16 bins held as int16 bit patterns, 4 for
+    int32 bins (more than 32,768 bins)."""
     if binned.dtype == torch.uint8:
         return 1
     if binned.dtype == torch.int16:
         return 2
-    raise TypeError(f"binned has dtype {binned.dtype}, expected uint8 or "
-                    "int16 (the bits of uint16 bins)")
+    if binned.dtype == torch.int32:
+        return 4
+    raise TypeError(f"binned has dtype {binned.dtype}, expected uint8, "
+                    "int16 (the bits of uint16 bins) or int32")
+
+
+def rows_window(bin_bytes: int, num_bins: int, feat_tile: int) -> int:
+    """The bins one block of the kernel takes (``ltt_hist_rows_window``):
+    all of them while the tile fits a block's shared memory."""
+    return int(_native.library().ltt_hist_rows_window(bin_bytes, num_bins,
+                                                       feat_tile))
 
 
 def rows_partial(binned: torch.Tensor, num_bins: int) -> torch.Tensor:
@@ -300,23 +323,26 @@ def rows_partial(binned: torch.Tensor, num_bins: int) -> torch.Tensor:
 
 def histogram_rows_plain(binned: torch.Tensor, ghc: torch.Tensor,
                          num_bins: int,
-                         ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         ids: Optional[torch.Tensor] = None,
+                         float64: bool = False) -> torch.Tensor:
     """Plain version: ``build_histogram`` of all rows, or of the rows
-    ``ids`` (float64 sums rounded once)."""
+    ``ids`` (float64 sums rounded once; ``float64``: not rounded)."""
     if ids is not None:
         ids = ids.long()
         binned, ghc = binned.index_select(0, ids), ghc.index_select(0, ids)
-    return build_histogram(binned, ghc, num_bins)
+    return build_histogram(binned, ghc, num_bins, float64=float64)
 
 
 def histogram_rows(binned: torch.Tensor, ghc: torch.Tensor, num_bins: int,
                    ids: Optional[torch.Tensor] = None,
                    partial: Optional[torch.Tensor] = None,
-                   times: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   times: Optional[torch.Tensor] = None,
+                   float64: bool = False) -> torch.Tensor:
     """[F, B, 3] f32 histogram of all rows of ``binned`` [N, F] (uint8,
-    B <= 256, or the int16 bits of uint16 bins, B <= 1024) with ``ghc``
-    [N, 3] f32, or of the rows ``ids`` (int32 in [0, N), in row order:
-    the order fixes the sums' order, as in the fused step). On a CUDA
+    B <= 256; the int16 bits of uint16 bins, B <= 32,768; int32, B <=
+    65,536) with ``ghc`` [N, 3] f32, or of the rows ``ids`` (int32 in
+    [0, N), in row order: the order fixes the sums' order, as in the
+    fused step). On a CUDA
     tensor it launches ``csrc/hist_rows.cu``; ``partial`` is the float64
     scratch (``rows_partial``, or the leaf fused step's
     ``LeafScratch.partial``), allocated here when not given. On a CPU
@@ -331,14 +357,17 @@ def histogram_rows(binned: torch.Tensor, ghc: torch.Tensor, num_bins: int,
     int64 [blocks, 4] on the card, a row for each (chunk, feature tile)
     block of the launch; the launch goes through the kernel's timed
     instantiation, whose every block writes its cycles of first fetch,
-    stores, accumulation and write-out there."""
+    stores, accumulation and write-out there. ``float64`` returns the
+    float64 sums unrounded (the data-parallel learners reduce them
+    across ranks before their one rounding)."""
     dev = binned.device
     if dev.type == "cpu":
-        return histogram_rows_plain(binned, ghc, num_bins, ids)
+        return histogram_rows_plain(binned, ghc, num_bins, ids,
+                                    float64=float64)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     bin_bytes = leaf_bin_bytes(binned)
-    if not 1 <= num_bins <= (256 if bin_bytes == 1 else 1024):
+    if not 1 <= num_bins <= BIN_BYTES_MAX_BINS[bin_bytes]:
         raise ValueError(f"num_bins {num_bins} out of range for "
                          f"{8 * bin_bytes}-bit bins")
     n, f = binned.shape
@@ -364,24 +393,30 @@ def histogram_rows(binned: torch.Tensor, ghc: torch.Tensor, num_bins: int,
     args = (bin_bytes, binned.data_ptr(), ghc.data_ptr(), ids_ptr, count, f,
             num_bins, tile, max_chunks, partial.data_ptr(), out.data_ptr())
     if times is not None:
-        blocks = leaf_child_chunks(count, f, tile) * -(-f // tile)
+        blocks = leaf_child_chunks(count, f, tile) * -(-f // tile) \
+            * -(-num_bins // rows_window(bin_bytes, num_bins, tile))
         req(times, device=dev, dtype=torch.int64, shape=(blocks, 4),
             name="times")
         _native.check(_native.library().ltt_hist_rows_timed(
             *args, times.data_ptr(), _native.stream_of(binned)),
             "hist_rows (timed)")
         return out
-    err = _native.library().ltt_hist_rows(*args, _native.stream_of(binned))
+    out64 = torch.empty((f, num_bins, 3), dtype=torch.float64,
+                        device=dev) if float64 else None
+    err = _native.library().ltt_hist_rows(
+        *args, None if out64 is None else out64.data_ptr(),
+        _native.stream_of(binned))
     _native.LAUNCHES["hist_rows"] += 1
     _native.check(err, "hist_rows")
-    return out
+    return out if out64 is None else out64
 
 
 # ---- refit's per-leaf sums ----------------------------------------------
 
-# trees whose per-leaf sums took each route (both devices): up to 1024
-# leaves the hist_rows kernel (its plain version on the CPU or with
-# ``plain``), past that a stable sort by leaf and float64 segment sums
+# trees whose per-leaf sums took each route (both devices): up to 65,536
+# leaves (the kernel's widest bins) the hist_rows kernel (its plain
+# version on the CPU or with ``plain``), past that a stable sort by leaf
+# and float64 segment sums
 LEAF_SUM_ROUTES = {"hist_rows": 0, "sorted": 0}
 
 
@@ -392,12 +427,13 @@ def leaf_histogram(leaf: torch.Tensor, ghc: torch.Tensor, num_leaves: int,
     ``models/gbdt.py:_refit_tree``'s scatter): the histogram of a
     one-column bin matrix whose bin is the leaf, through
     ``histogram_rows`` (uint8 bins up to 256 leaves, the int16 bits of
-    u16 bins up to 1024), so one ``hist_rows`` launch a tree on the card
-    and float64 sums rounded once. ``plain`` runs its plain version on
-    any device. Past 1024 leaves (wider than the kernel's bins) the
-    rows are stably sorted by leaf and each leaf's rows summed in
-    float64 in row order (``segment_reduce``), on every device alike."""
-    if num_leaves > 1024:
+    u16 bins up to 32,768, int32 up to 65,536), so one ``hist_rows``
+    launch a tree on the card and float64 sums rounded once. ``plain``
+    runs its plain version on any device. Past 65,536 leaves (wider
+    than the kernel's bins) the rows are stably sorted by leaf and each
+    leaf's rows summed in float64 in row order (``segment_reduce``), on
+    every device alike."""
+    if num_leaves > BIN_BYTES_MAX_BINS[4]:
         LEAF_SUM_ROUTES["sorted"] += 1
         lid = leaf.long()
         order = torch.argsort(lid, stable=True)
@@ -406,7 +442,9 @@ def leaf_histogram(leaf: torch.Tensor, ghc: torch.Tensor, num_leaves: int,
                                     lengths=counts, unsafe=True)
         return sums.float()
     LEAF_SUM_ROUTES["hist_rows"] += 1
-    bins = leaf.to(torch.uint8 if num_leaves <= 256 else torch.int16)
+    bins = leaf.to(next(dt for dt, bb in ((torch.uint8, 1), (torch.int16, 2),
+                                          (torch.int32, 4))
+                        if num_leaves <= BIN_BYTES_MAX_BINS[bb]))
     bins = bins.reshape(-1, 1)
     if plain:
         return histogram_rows_plain(bins, ghc, num_leaves)[0]

@@ -1,8 +1,8 @@
 """Histogram construction over a whole binned matrix, in plain PyTorch
 (port of ``lightgbm_tpu/ops/histogram.py``: ``make_ghc``,
-``histogram_scatter`` as ``build_histogram``, and the EFB helpers
-``Debundler`` / ``debundle_hist`` / ``debundle_leaf_hists`` and the
-multi-val bin decoders; the multi-val histogram itself is
+``histogram_scatter`` as ``build_histogram``, ``fix_histogram``, and
+the EFB helpers ``Debundler`` / ``debundle_hist`` / ``debundle_totals``
+/ ``debundle_leaf_hists`` and the multi-val bin decoders; the multi-val histogram itself is
 ``ops/hist_multival_cuda.py``).
 
 ``build_histogram`` is the plain version of the serial learner's
@@ -45,19 +45,20 @@ def make_ghc(grad: torch.Tensor, hess: torch.Tensor,
 
 
 def build_histogram(binned: torch.Tensor, ghc: torch.Tensor,
-                    num_bins: int) -> torch.Tensor:
+                    num_bins: int, float64: bool = False) -> torch.Tensor:
     """Per-feature scatter histogram. ``binned`` [N, F] integer bins
-    (uint8, or the int16 bit pattern of uint16 bins; every bin is below
-    2**15), ``ghc`` [N, 3] -> [F, B, 3] float32. The scatter is the
-    port's one method: the JAX package's one-hot and Pallas methods are
-    TPU formulations of the same function."""
+    (uint8, the int16 bit pattern of uint16 bins below 2**15, or int32
+    past 32,768 bins: every value is its bin), ``ghc`` [N, 3] -> [F, B,
+    3] float32 (``float64``: the float64 sums, not rounded). The scatter
+    is the port's one method: the JAX package's one-hot and Pallas
+    methods are TPU formulations of the same function."""
     n, f = binned.shape
     vals = ghc.to(torch.float64)
     out = torch.zeros((f, num_bins, 3), dtype=torch.float64,
                       device=binned.device)
     for j in range(f):
         out[j].index_add_(0, binned[:, j].long(), vals)
-    return out.float()
+    return out if float64 else out.float()
 
 
 # ---- EFB: group histograms to feature histograms, multi-val bins -------
@@ -116,16 +117,46 @@ def debundle_hist(hist_g: torch.Tensor, group: torch.Tensor,
                      hist_g.device)(hist_g[None], totals)[0]
 
 
-def debundle_leaf_hists(debundler: Debundler, hists, leaves):
+def debundle_totals(hists, leaves, local_hist: bool) -> torch.Tensor:
+    """[K, 3] float64 leaf totals for the debundle's bin 0 (JAX
+    ``debundle_totals``): rank-local histograms (``local_hist``, the
+    voting learner's) take their own, group 0's bins summed (any group's
+    bins sum to the rank's rows of the leaf); globally reduced ones the
+    leaves' (g, h, c) host scalars."""
+    if local_hist:
+        return torch.stack([h[0].double().sum(dim=0) for h in hists])
+    return torch.tensor([[float(v) for v in leaf[:3]] for leaf in leaves],
+                        dtype=torch.float64, device=hists[0].device)
+
+
+def debundle_leaf_hists(debundler: Debundler, hists, leaves,
+                        local_hist: bool = False):
     """The scans' debundle of K leaves (1 or 2: the root, or a split's
-    children), each from its own leaf totals: on one device the
-    histograms are never shard-local (JAX ``debundle_totals`` with
-    ``local_hist`` False; its shard-local branch belongs to the mesh
-    learners, ROADMAP Queue 1 item 8). ``leaves``: per leaf (g, h, c,
-    ...) host scalars. Returns the K [F, B, 3] histograms."""
-    totals = torch.tensor([[float(v) for v in leaf[:3]] for leaf in leaves],
-                          dtype=torch.float64, device=hists[0].device)
+    children), each from its own leaf totals (``debundle_totals``).
+    ``leaves``: per leaf (g, h, c, ...) host scalars. Returns the K
+    [F, B, 3] histograms."""
+    totals = debundle_totals(hists, leaves, local_hist)
     return list(debundler(torch.stack(list(hists)), totals))
+
+
+def fix_histogram(hist: torch.Tensor, parent_g, parent_h, parent_c,
+                  most_freq_bins: torch.Tensor) -> torch.Tensor:
+    """An elided most-frequent bin rebuilt from the leaf totals
+    (``Dataset::FixHistogram``, dataset.cpp:1424-1442; JAX
+    ``ops/histogram.py:197``, for a reduce that skips that bin): each
+    feature's bin ``most_freq_bins[f]`` of ``hist`` [F, B, 3] gains the
+    parent's (g, h, c) less the feature's bins, summed in float64 and
+    rounded once."""
+    f = hist.shape[0]
+    parent = torch.tensor([float(parent_g), float(parent_h),
+                           float(parent_c)], dtype=torch.float64,
+                          device=hist.device)
+    missing = parent[None, :] - hist.double().sum(dim=1)
+    rows = torch.arange(f, device=hist.device)
+    mfb = torch.as_tensor(most_freq_bins, device=hist.device).long()
+    out = hist.clone()
+    out[rows, mfb] = (hist[rows, mfb].double() + missing).to(hist.dtype)
+    return out
 
 
 def multival_feature_bins(slots: torch.Tensor, base,

@@ -13,7 +13,8 @@ formulation: prefix sums accumulate in float64 and round once per bin
 (``_cumsum``), and the right-to-left totals are the last prefix, as in
 ``split_scan_pallas.scan_core``. ``_cumsum`` adds in the kernel's
 fixed order (``csrc/scan_core.cuh:block_prefix6``: 32-bin segments,
-then their totals) with elementwise float64 adds, so the kernel and
+then their totals; past 1024 bins windows of 1024 with a float64 carry,
+``plane_prefix_carry``) with elementwise float64 adds, so the kernel and
 this version round the same double on every device and agree bit for
 bit; against the JAX package they differ by float32 rounding only.
 
@@ -199,22 +200,32 @@ def _cumsum(x):
     kernel's ``block_prefix6``: 32-bin segments (the last padded with
     zeros) each summed in bin order from 0.0, a warp scan of the segment
     totals, and each bin's running sum plus its segment's exclusive
-    offset. Elementwise float64 adds only, so every device rounds the
-    same."""
+    offset. Past 1024 bins the segments go in windows of 32 segments
+    (the kernel's ``plane_prefix_carry``): window 0 as above, window w > 0
+    adds its carry to each exclusive offset, and the carry after a
+    window is its total (window 0) or the carry plus its total.
+    Elementwise float64 adds only, so every device rounds the same."""
     b = x.shape[-1]
     nseg = -(-b // 32)
-    v = torch.nn.functional.pad(x.double(), (0, nseg * 32 - b))
-    v = v.reshape(*x.shape[:-1], nseg, 32)
+    nwin = -(-nseg // 32)
+    v = torch.nn.functional.pad(x.double(), (0, nwin * 1024 - b))
+    v = v.reshape(*x.shape[:-1], nwin, 32, 32)
     acc = torch.zeros(v.shape[:-1], dtype=torch.float64, device=x.device)
     run = []
     for i in range(32):
         acc = acc + v[..., i]
         run.append(acc)
     run = torch.stack(run, dim=-1)
-    tot = torch.nn.functional.pad(run[..., 31], (0, 32 - nseg))
-    off = torch.nn.functional.pad(_warp_scan(tot)[..., :nseg - 1], (1, 0))
+    incl = _warp_scan(run[..., 31])                     # [..., nwin, 32]
+    off = torch.nn.functional.pad(incl[..., :31], (1, 0))
+    offs = [off[..., 0, :]]
+    carry = incl[..., 0, 31]
+    for w in range(1, nwin):
+        offs.append(carry[..., None] + off[..., w, :])
+        carry = carry + incl[..., w, 31]
+    off = torch.stack(offs, dim=-2)
     out = run + off[..., None]
-    return out.reshape(*x.shape[:-1], nseg * 32)[..., :b].float()
+    return out.reshape(*x.shape[:-1], nwin * 1024)[..., :b].float()
 
 
 def _rand_ok(bins, rand_bins):

@@ -8,8 +8,10 @@ its scan over both fresh children (learner/split_step.py
 ``scan_children``); here the children are the kernel's first grid axis.
 The result is the ``[K, F, 8]`` table of ``ops/split.py`` (score,
 threshold, left g/h(+kEpsilon)/c, default_left, left and right output).
-The kernel takes 1 to 1024 bins: the partitioned learner's u8 bins and
-the serial learner's u16 bins.
+The kernel takes 1 to 65,536 bins: the partitioned learner's u8 bins and
+the serial learner's u16 bins; past 1024 bins it walks the bins in
+windows of 1024 (``csrc/scan_core.cuh`` ``scan_feature_wide``), and the
+plain version's ``_cumsum`` repeats the windows' order.
 
 With extra_trees or by-node feature sampling the scan takes the tree's
 node table (``node_table``) and each leaf's salt (0 at the root,
@@ -27,16 +29,19 @@ import torch
 from . import _native
 from .split import SplitParams, per_feature_numerical, scan_table
 
-# bins per feature the kernel takes (csrc/scan_core.cuh kMaxScanBins); the
+# bins per feature the kernel takes (csrc/scan_core.cuh kMaxWideBins); the
 # TPU kernel takes B from the histogram's shape
-MAX_SCAN_BINS = 1024
+MAX_SCAN_BINS = 65536
+# the rand-bin field of a node-table entry that means "every threshold"
+# (a rand bin is a threshold, at most 65,534)
+ALL_THRESHOLDS = 0xFFFF
 
 
 def node_table(rand_bins, mask, f: int, device) -> torch.Tensor:
     """One tree's per-node randomness as the kernel reads it, a row per
-    salt: int32 [S, F] on ``device``, bits 0-15 the rand bin as an int16
-    (-1: every threshold; ``rand_bins`` int [S, F], or None without
-    extra_trees) and bit 16 the node mask (``mask`` bool [S, F], or
+    salt: int32 [S, F] on ``device``, bits 0-15 the rand bin as a uint16
+    (``ALL_THRESHOLDS`` for -1, every threshold; ``rand_bins`` int
+    [S, F], or None without extra_trees) and bit 16 the node mask (``mask`` bool [S, F], or
     None without by-node sampling: every feature). Uploaded once a
     tree."""
     s = (rand_bins if rand_bins is not None else mask).shape[0]
@@ -54,7 +59,8 @@ def node_rows(node: Optional[torch.Tensor], salts):
     if node is None:
         return [(None, None)] * len(salts)
     rows = node[[int(x) for x in salts]].long()
-    rb = ((rows & 0xFFFF) ^ 0x8000) - 0x8000
+    rb = rows & 0xFFFF
+    rb = torch.where(rb == ALL_THRESHOLDS, torch.full_like(rb, -1), rb)
     nm = ((rows >> 16) & 1) == 1
     return list(zip(rb, nm))
 

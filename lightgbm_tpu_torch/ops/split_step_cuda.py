@@ -133,9 +133,12 @@ def learner_fused_kernel_on(mode: str, *, eligible: bool,
     with categorical features, or an EFB-bundled one, always takes the
     per-phase loop, even with "on": the JAX package's compiled fused
     bodies refuse such data (split_step_pallas.py:470-475, 584-589,
-    642-649), and the kernels here do the same."""
+    642-649), and the kernels here do the same. So does a dataset wider
+    than the layout's kernel (``MAX_BINS``: past 1024 bins the leaf
+    kernel is ineligible, and its trees run per-phase)."""
     if mode == "off" or not eligible or bundled \
-            or getattr(params, "has_categorical", False):
+            or getattr(params, "has_categorical", False) \
+            or num_bins_max > MAX_BINS[layout]:
         return False
     if mode == "on":
         return True
@@ -232,6 +235,8 @@ def segment_split_ops(mat, ws, imeta: np.ndarray, b: int, f: int, scan, *,
 
     def leaf_histogram(leaf, site):
         cnt = int(site["leaf_cnt"])
+        if histogram is not None:
+            return histogram(mat, int(site["leaf_begin"]), cnt, cnt)
         return segment_histogram(mat, int(site["leaf_begin"]), cnt, b, f,
                                  plain=plain, max_count=cnt)
 
@@ -430,7 +435,9 @@ class LeafScratch:
 
 def leaf_split_ops(lid, binned, ghc, imeta: np.ndarray, b: int, scan,
                    partial: Optional[torch.Tensor] = None, *,
-                   bundled: bool = False, mv: Optional[tuple] = None):
+                   bundled: bool = False, mv: Optional[tuple] = None,
+                   hist_binned: Optional[torch.Tensor] = None,
+                   reduce: Optional[Callable] = None):
     """``SplitOps`` of the leaf layout: the split relabels ``lid`` in
     place (``split_leaf``) from the split feature's bins: its column, or
     with ``bundled`` its EFB group's column decoded
@@ -446,7 +453,10 @@ def leaf_split_ops(lid, binned, ghc, imeta: np.ndarray, b: int, scan,
     version) the multi-val groups' histogram of the same rows
     (``hist_multival``) follows on the group axis. ``scan`` is given
     (the scan kernel or its plain version). ``imeta`` is the host [F, 8]
-    metadata table."""
+    metadata table. ``hist_binned`` (default ``binned``) is the matrix
+    the histograms read (the feature-parallel learner's shard of the
+    columns); ``reduce`` takes each histogram's float64 sums, unrounded,
+    and returns the histogram (the data-parallel learners' all-reduce)."""
     from ..learner.split_step import SplitOps
     from ..data.bundling import MV_SLOT_STRIDE, decode_feature_bin
     from .hist_multival_cuda import hist_multival, hist_multival_plain
@@ -483,15 +493,21 @@ def leaf_split_ops(lid, binned, ghc, imeta: np.ndarray, b: int, scan,
     def histogram(part, left):
         return rows_histogram(part[0] if left else part[1])
 
+    hb = binned if hist_binned is None else hist_binned
+    f64 = reduce is not None
+
     def rows_histogram(leaf):
         in_small = lid == leaf
         if partial is not None:
             ids = torch.nonzero(in_small).flatten().to(torch.int32)
-            h = histogram_rows(binned, ghc, b, ids, partial=partial)
+            h = histogram_rows(hb, ghc, b, ids, partial=partial,
+                               float64=f64)
         else:
             ids = None
-            h = build_histogram(binned, ghc * in_small.to(ghc.dtype)[:, None],
-                                b)
+            h = build_histogram(hb, ghc * in_small.to(ghc.dtype)[:, None],
+                                b, float64=f64)
+        if f64:
+            h = reduce(h)
         if mv is None:
             return h
         slots, g_mv, mv_partial = mv

@@ -1,4 +1,8 @@
-"""Learner selection of the port (port of ``lightgbm_tpu/parallel/``;
-the mesh learners are ROADMAP Queue 1 item 8)."""
+"""The learners' selection and the parallel learners on
+``torch.distributed`` (port of ``lightgbm_tpu/parallel/``)."""
 
-from .learners import create_tree_learner
+from .distributed import (current_world, init_distributed,
+                          shutdown_distributed)
+from .learners import (DataParallelTreeLearner, FeatureParallelTreeLearner,
+                       MeshPartitionedTreeLearner, VotingParallelTreeLearner,
+                       create_tree_learner)

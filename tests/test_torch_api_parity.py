@@ -185,3 +185,52 @@ def test_checkpoint_dir_writes_in_jax_and_is_refused_in_the_port(tmp_path):
         lt.train(dict(p, checkpoint_dir=str(tmp_path / "port")),
                  lt.Dataset(X, label=y), 2, device="cpu")
     assert not os.path.exists(tmp_path / "port")
+
+
+def _chain(pkg):
+    """The chained calls of ROADMAP Queue 3 fault 1 on ``randn(500, 4)``
+    (seed 0), through one package."""
+    rng = np.random.RandomState(0)
+    X = rng.randn(500, 4)
+    y = (X[:, 0] > 0).astype(np.float32)
+    ds = pkg.Dataset(X, label=y).construct()
+    sub = ds.subset([0, 1, 2, 3, 4])
+    relabeled = ds.set_label(1.0 - y)
+    return ds, sub, relabeled, y
+
+
+def test_construct_returns_the_dataset_as_jax():
+    port, psub, prel, y = _chain(lt)
+    ref, jsub, jrel, _ = _chain(lgb)
+    assert isinstance(port, lt.Dataset) and isinstance(ref, lgb.Dataset)
+    assert port.num_data() == ref.num_data() == 500
+    assert port.num_feature() == ref.num_feature() == 4
+    np.testing.assert_array_equal(port.get_label(), ref.get_label())
+    assert port.get_feature_name() == ref.get_feature_name()
+    assert isinstance(psub, lt.Dataset) and isinstance(jsub, lgb.Dataset)
+    assert psub.num_data() == jsub.num_data() == 5
+    assert prel is port and jrel is ref
+    np.testing.assert_array_equal(port.get_label(), 1.0 - y)
+    np.testing.assert_array_equal(port.get_label(), ref.get_label())
+
+
+def test_compile_cache_dir_sets_the_kernel_build_directory(tmp_path):
+    """``compile_cache_dir`` is read (JAX ``models/gbdt.py:282-283``):
+    training points the kernel library's build directory there; on the
+    CPU nothing is built."""
+    from lightgbm_tpu_torch.ops import _native
+    X, y = _data(n=300)
+    d = tmp_path / "kernels"
+    cfg = lt.Config.from_params({"compile_cache_dir": str(d)})
+    assert cfg.compile_cache_dir == str(d)
+    saved = _native._CACHE_DIR["path"]
+    try:
+        assert _native.build_dir() != str(d)
+        lt.train({"objective": "binary", "num_leaves": 4, "verbosity": -1,
+                  "compile_cache_dir": str(d)}, lt.Dataset(X, label=y), 1,
+                 device="cpu")
+        assert _native.build_dir() == str(d)
+        assert os.path.dirname(_native.library_path("nvcc")) == str(d)
+        assert not d.exists()
+    finally:
+        _native._CACHE_DIR["path"] = saved

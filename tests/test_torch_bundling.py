@@ -249,10 +249,10 @@ def test_bundled_valid_set_text_round_trip_and_raw_predict(tmp_path):
     va = ds.create_valid(Xv, label=yv)
     bst = lt.train(params, ds, ROUNDS, valid_sets=[va], device="cpu",
                    verbose_eval=False)
-    vb = va.construct(Config.from_params(params))
+    vb = va._construct(Config.from_params(params))
     assert vb.is_bundled
     np.testing.assert_array_equal(vb.feature_group,
-                                  ds.construct(None).feature_group)
+                                  ds._construct(None).feature_group)
     # the bin walk's valid scores (group columns decoded) equal raw-
     # feature prediction, which never sees the bundles
     walk = bst._gbdt.valid_scores[0].numpy()[:, 0]

@@ -194,16 +194,16 @@ def test_binary_file_trains_as_the_text_data(tmp_path):
     path = str(tmp_path / "train.bin")
     mem.save_binary(path)
     disk = lt.Dataset(path, params=params)
-    assert np.array_equal(disk.construct().binned, mem.construct().binned)
+    assert np.array_equal(disk._construct().binned, mem._construct().binned)
     assert np.array_equal(disk.get_label(), y)
     a = lt.train(params, mem, 3, device="cpu")
     b = lt.train(params, disk, 3, device="cpu")
     assert a.model_to_string() == b.model_to_string()
     flipped = lt.Dataset(path, label=1 - y, params=params)
-    assert np.array_equal(flipped.construct().metadata.label, 1 - y)
+    assert np.array_equal(flipped._construct().metadata.label, 1 - y)
     # what JAX makes of the same file
     j = lgb.Dataset(path, params=params).construct()
-    assert np.array_equal(j._inner.binned, disk.construct().binned)
+    assert np.array_equal(j._inner.binned, disk._construct().binned)
 
 
 def test_binary_file_layout_must_match_its_reference(tmp_path):

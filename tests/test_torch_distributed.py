@@ -1,0 +1,201 @@
+"""The port's multi-process runtime (``lightgbm_tpu_torch/parallel/
+distributed.py``) on the CPU: the hermetic cases of
+``tests/test_distributed.py`` (machine lists, the local rank, the
+single-process identities), then one gloo world of 2 rank processes
+(``torch_parallel_worker.py``, suite "distributed"; a ``file://``
+rendezvous under ``tmp_path``, a 30 s group timeout, a 60 s limit on the
+world) that holds:
+
+* bins from the pooled sample (``pre_partition``, dense and sparse): every
+  rank's bin mappers equal each other's, the single-process port's and
+  the JAX package's on all the rows;
+* the bin-finding seed synced to the group's minimum;
+* ``pre_partition`` training, each rank on its ``host_row_range`` block:
+  the data learner's model is the single process's on the same rows and
+  bins (structure exact, leaf values at rtol 2e-4 / atol 2e-6), the
+  voting learner's too where ``top_k`` covers every feature;
+* ``lt.train`` with ``tree_learner=data|voting|feature`` against
+  ``lgb.train`` on a mesh of 2 CPU devices (``num_machines=2``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import lightgbm_tpu as lgb
+import lightgbm_tpu_torch as lt
+import torch_parallel_worker as W
+from lightgbm_tpu.config import Config as JConfig
+from lightgbm_tpu.data import Dataset as JDataset
+from lightgbm_tpu.parallel import distributed as jdist
+from lightgbm_tpu_torch.config import Config
+from lightgbm_tpu_torch.data import Dataset
+from lightgbm_tpu_torch.parallel import distributed as dist
+
+torch.set_num_threads(2)
+K = 2
+
+
+def test_parse_machines_string():
+    cfg = Config.from_params({"machines": "10.0.0.1:12400,10.0.0.2:12401"})
+    assert dist.parse_machines(cfg) == jdist.parse_machines(JConfig(
+        machines="10.0.0.1:12400,10.0.0.2:12401")) \
+        == [("10.0.0.1", 12400), ("10.0.0.2", 12401)]
+
+
+def test_parse_machines_file(tmp_path):
+    f = tmp_path / "mlist.txt"
+    f.write_text("10.0.0.1 12400\n\n10.0.0.2:12401\nbad\n")
+    cfg = Config.from_params({"machine_list_filename": str(f)})
+    assert dist.parse_machines(cfg) == jdist.parse_machines(JConfig(
+        machine_list_filename=str(f))) \
+        == [("10.0.0.1", 12400), ("10.0.0.2", 12401)]
+
+
+def test_find_local_rank_env_override(monkeypatch):
+    monkeypatch.setenv("LIGHTGBM_TPU_RANK", "3")
+    assert dist.find_local_rank([("a", 1)] * 4, Config()) == 3
+
+
+def test_find_local_rank_by_address(monkeypatch):
+    monkeypatch.delenv("LIGHTGBM_TPU_RANK", raising=False)
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.setattr(dist, "_local_addresses", lambda: {"10.0.0.2"})
+    machines = [("10.0.0.1", 12400), ("10.0.0.2", 12400)]
+    assert dist.find_local_rank(machines, Config()) == 1
+    monkeypatch.setattr(dist, "_local_addresses", lambda: {"10.9.9.9"})
+    with pytest.raises(lt.LightGBMError, match="machine list"):
+        dist.find_local_rank(machines, Config())
+
+
+def test_find_local_rank_port_disambiguation(monkeypatch):
+    monkeypatch.delenv("LIGHTGBM_TPU_RANK", raising=False)
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.setattr(dist, "_local_addresses", lambda: {"127.0.0.1"})
+    machines = [("127.0.0.1", 12400), ("127.0.0.1", 12401)]
+    cfg = Config.from_params({"local_listen_port": 12401})
+    assert dist.find_local_rank(machines, cfg) == 1
+
+
+def test_init_distributed_single_machine_noop():
+    assert dist.init_distributed(Config()) is False
+    assert dist.current_world() is None
+    assert not torch.distributed.is_initialized()
+
+
+def test_single_process_identities():
+    sample = np.arange(12.0).reshape(6, 2)
+    assert dist.gather_bin_sample(sample) is sample
+    cfg = Config.from_params({"pre_partition": True})
+    got, n = dist.maybe_gather_bin_sample(sample, cfg, 6)
+    assert got is sample and n == 6
+    cols = [np.asarray([1.0, 2.0])]
+    assert dist.maybe_gather_sparse_bin_sample(cols, 4, cfg, 9) \
+        == (cols, 4, 9)
+    cfg = Config.from_params({"tree_learner": "data",
+                              "data_random_seed": 9})
+    assert dist.sync_bin_find_seed(cfg) == 9
+
+
+def test_init_needs_rank_and_size_with_an_init_method(tmp_path):
+    with pytest.raises(ValueError, match="rank and world_size"):
+        dist.init_distributed(init_method=f"file://{tmp_path}/r")
+    assert lt.init_distributed is dist.init_distributed
+
+
+# ---- one world of 2 ranks ---------------------------------------------
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    return W.spawn_world(str(tmp_path_factory.mktemp("distributed_world")),
+                         "distributed", K)
+
+
+def _single_process_mappers(kind):
+    X, y = W.dist_problem()
+    params = {"objective": "binary", "bin_construct_sample_cnt": len(X),
+              "verbosity": -1}
+    if kind == "sparse_bins":
+        import scipy.sparse as sp
+        ds = Dataset.from_scipy(sp.csr_matrix(X), Config.from_params(params),
+                                label=y)
+    else:
+        ds = Dataset.from_numpy(X, Config.from_params(params), label=y)
+    jds = JDataset.from_numpy(X, JConfig.from_params(params), label=y)
+    return W.mapper_record(ds), W.mapper_record(jds)
+
+
+def _same_mappers(a, b):
+    assert len(a) == len(b)
+    for (na, ua, ma, da), (nb, ub, mb, db) in zip(a, b):
+        assert (na, ma, da) == (nb, mb, db)
+        np.testing.assert_array_equal(ua, ub)
+
+
+@pytest.mark.parametrize("kind", ["dense_bins", "sparse_bins"])
+def test_distributed_bins_match_pooled_bins(world, kind):
+    ranks = [world[kind, r] for r in range(K)]
+    assert ranks[0]["rows"] == (0, 2000) and ranks[1]["rows"] == (2000, 4000)
+    port1, jax1 = _single_process_mappers(kind)
+    for r in range(K):
+        _same_mappers(ranks[r]["mappers"], port1)
+        _same_mappers(ranks[r]["mappers"], jax1)
+
+
+def test_sync_bin_find_seed_is_the_minimum(world):
+    assert [world["seed", r]["seed"] for r in range(K)] == [7, 7]
+
+
+def test_gather_bin_sample_pools_in_rank_order(world):
+    want = np.asarray([[0.0, 0.0], [1.0, 1.0], [1.0, 1.0]])
+    for r in range(K):
+        np.testing.assert_array_equal(world["gather", r]["pooled"], want)
+
+
+def _same_trees(port_trees, ref_trees):
+    assert len(port_trees) == len(ref_trees)
+    for rec, t in zip(port_trees, ref_trees):
+        k = rec["num_leaves"]
+        assert k == t.num_leaves
+        np.testing.assert_array_equal(rec["split_feature"],
+                                      np.asarray(t.split_feature_inner)[:k - 1])
+        np.testing.assert_array_equal(rec["threshold_bin"],
+                                      np.asarray(t.threshold_bin)[:k - 1])
+        np.testing.assert_allclose(rec["leaf_value"],
+                                   np.asarray(t.leaf_value)[:k], rtol=2e-4,
+                                   atol=2e-6)
+
+
+@pytest.mark.parametrize("mode", ["data", "voting"])
+def test_pre_partition_trains_the_single_process_model(world, mode):
+    """Each rank trains on its own rows (binned from the pooled sample of
+    every row): the model of the single process on all the rows, the
+    init score included (every rank's labels)."""
+    name = f"pre_partition_{mode}"
+    ranks = [world[name, r] for r in range(K)]
+    assert ranks[0]["learner"] == "MeshPartitionedTreeLearner"
+    X, y = W.dist_problem()
+    ref = lt.train({"objective": "binary", "num_leaves": 15,
+                    "learning_rate": 0.2, "verbosity": -1,
+                    "bin_construct_sample_cnt": len(X)},
+                   lt.Dataset(X, label=y), 3, device="cpu")
+    for r in range(K):
+        _same_trees(ranks[r]["trees"], ref.models)
+        np.testing.assert_allclose(ranks[r]["raw"],
+                                   ref.predict(X, raw_score=True),
+                                   rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", list(W.TRAIN_CASES))
+def test_train_matches_jax_mesh(world, name):
+    params, rounds, data = W.TRAIN_CASES[name]
+    X, y = W.data_of(data)
+    ranks = [world[name, r] for r in range(K)]
+    np.testing.assert_array_equal(ranks[0]["raw"], ranks[1]["raw"])
+    ref = lgb.train(dict(params, num_machines=K), lgb.Dataset(X, label=y),
+                    num_boost_round=rounds, verbose_eval=False)
+    _same_trees(ranks[0]["trees"], ref._gbdt.models)
+    np.testing.assert_allclose(ranks[0]["raw"], ref.predict(X, raw_score=True),
+                               rtol=0, atol=1e-4)
+    acc = ((ranks[0]["pred"] > 0.5) == y).mean()
+    assert acc > 0.9, acc

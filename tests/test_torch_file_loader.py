@@ -241,11 +241,11 @@ def test_forced_bins_match_jax(tmp_path):
                    {"feature": 4, "bin_upper_bound": [-0.3]}], f)
     params = dict(PARAMS, forcedbins_filename=path, max_bin=31)
     jds = lgb.Dataset(X, label=y, params=params).construct()._inner
-    pds = lt.Dataset(X, label=y).construct(Config.from_params(params))
+    pds = lt.Dataset(X, label=y)._construct(Config.from_params(params))
     assert [m.to_dict() for m in pds.bin_mappers] \
         == [m.to_dict() for m in jds.bin_mappers]
     np.testing.assert_array_equal(pds.binned, np.asarray(jds.binned))
-    plain = lt.Dataset(X, label=y).construct(
+    plain = lt.Dataset(X, label=y)._construct(
         Config.from_params(dict(PARAMS, max_bin=31)))
     assert [m.to_dict() for m in plain.bin_mappers] \
         != [m.to_dict() for m in pds.bin_mappers]

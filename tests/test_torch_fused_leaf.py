@@ -302,8 +302,9 @@ def test_leaf_step_refuses_what_the_kernel_does_not_take():
     from lightgbm_tpu_torch.ops.split import SplitParams
     assert ssc.leaf_bin_bytes(torch.zeros((2, 2), dtype=torch.uint8)) == 1
     assert ssc.leaf_bin_bytes(torch.zeros((2, 2), dtype=torch.int16)) == 2
+    assert ssc.leaf_bin_bytes(torch.zeros((2, 2), dtype=torch.int32)) == 4
     with pytest.raises(TypeError):
-        ssc.leaf_bin_bytes(torch.zeros((2, 2), dtype=torch.int32))
+        ssc.leaf_bin_bytes(torch.zeros((2, 2), dtype=torch.int64))
     p = SplitParams(0.0, 1.0, 0.0, 20.0, 1e-3, 0.0)
     assert ssc.fused_compiled_ok(p, bundled=False, num_bins_max=1024,
                                  layout="leaf")

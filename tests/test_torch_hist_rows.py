@@ -325,6 +325,8 @@ def test_kernel_refuses_what_it_does_not_take(u8):
     """Checks that need no card: the bin dtype of the leaf layout."""
     _, _, held, tghc = u8
     with pytest.raises(TypeError):
-        hc.leaf_bin_bytes(held.to(torch.int32))
+        hc.leaf_bin_bytes(held.to(torch.int64))
     assert hc.leaf_bin_bytes(held) == 1
     assert hc.leaf_bin_bytes(held.to(torch.int16)) == 2
+    # int32: the device copy past 32,768 bins
+    assert hc.leaf_bin_bytes(held.to(torch.int32)) == 4

@@ -251,12 +251,14 @@ def test_fused_step_kernel_stops(mat, case):
         assert _same_bytes(a, p)
 
 
-@pytest.mark.parametrize("b", [1, 31, 32, 33, 255, 256, 1023, 1024])
+@pytest.mark.parametrize("b", [1, 31, 32, 33, 255, 256, 1023, 1024,
+                               1025, 2048, 4095, 4096, 9400, 12000,
+                               32767, 32768, 32769, 65536])
 def test_scan_kernel_matches_plain_wide(dev, b):
-    """The scan kernel at up to 256 bins (static planes) and past it
-    (dynamic), across the 32-bin segments of its block prefix scan:
-    bitwise equal to the plain version, whose ``_cumsum`` adds in the
-    same order."""
+    """The scan kernel at up to 256 bins (static planes), past it
+    (dynamic) and past 1024 bins (windows of 1024 with a float64 carry),
+    across the 32-bin segments of its block prefix scan: bitwise equal
+    to the plain version, whose ``_cumsum`` adds in the same order."""
     from lightgbm_tpu_torch.ops import split as sp
     from lightgbm_tpu_torch.ops import split_scan_cuda as sc
     from lightgbm_tpu_torch.ops.histogram import build_histogram
@@ -433,8 +435,8 @@ def test_fused_leaf_kernel_stops(dev, case):
 
 
 def _bins_ghc(dev, n, f, b, seed):
-    """Random [n, f] bins (u8 up to 256 bins, else the int16 bits of
-    u16) and ghc [n, 3] with a 0/1 count channel."""
+    """Random [n, f] bins (u8 up to 256 bins, the int16 bits of u16 up
+    to 32,768, else int32) and ghc [n, 3] with a 0/1 count channel."""
     g = torch.Generator(device=dev).manual_seed(seed)
     bins = torch.randint(0, b, (n, f), generator=g, device=dev)
     bins[:, 1] = torch.clamp(bins[:, 1], max=2)       # crowded bins
@@ -442,7 +444,8 @@ def _bins_ghc(dev, n, f, b, seed):
                        torch.rand(n, generator=g, device=dev) + 0.1,
                        (torch.rand(n, generator=g, device=dev) < 0.9)
                        .float()], dim=1)
-    return bins.to(torch.uint8 if b <= 256 else torch.int16), ghc
+    return bins.to(torch.uint8 if b <= 256 else torch.int16
+                   if b <= 32768 else torch.int32), ghc
 
 
 def _hist_rows_agree(binned, ghc, b, ids=None):
@@ -480,6 +483,33 @@ def test_hist_rows_kernel_matches_plain(dev, b, n):
     before = _native.LAUNCHES["hist_rows"]
     _hist_rows_agree(binned, ghc, b)
     assert _native.LAUNCHES["hist_rows"] == before + 2
+
+
+@pytest.mark.parametrize("b", [2048, 4095, 9400, 9500, 12000, 32769, 65536])
+@pytest.mark.parametrize("ids", [False, True], ids=["all", "third"])
+def test_hist_rows_kernel_wide_bins(dev, b, ids):
+    """``hist_rows`` past 1024 bins: a tile of one feature from ~4,400
+    bins on, and past ~9,400 one window of a feature's bins a block
+    (int32 bins past 32,768), all rows and a list of a third of them,
+    against its plain version; past the chunk cap, so the partials'
+    reduce runs."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    f = 5
+    n = hc.leaf_max_chunks(f, hc.leaf_feat_tile(f, b)) \
+        * hc.LEAF_CHUNK_ROWS + 1
+    binned, ghc = _bins_ghc(dev, n, f, b, 7)
+    sel = torch.arange(0, n, 3, device=dev, dtype=torch.int32) \
+        if ids else None
+    out = _hist_rows_agree(binned, ghc, b, sel)
+    assert int(out[..., 2].sum()) == int(
+        (ghc[:, 2] if sel is None else ghc[sel.long(), 2]).sum()) * f
+    wide = hc.histogram_rows(binned, ghc, b, sel, float64=True)
+    plain = hc.histogram_rows_plain(binned, ghc, b, sel, float64=True)
+    torch.cuda.synchronize()
+    assert wide.dtype == torch.float64
+    assert torch.equal(wide.float(), out)
+    assert bool(((wide - plain).abs() <= 1e-9 * plain.abs().sum() + 1e-9)
+                .all())
 
 
 @pytest.mark.parametrize("b", [255, 1023], ids=["u8", "u16"])
@@ -1150,7 +1180,8 @@ def test_extras_training_kernels_match_plain(dev, case):
                                   pb.predict(X[:5000], raw_score=True))
 
 
-@pytest.mark.parametrize("num_leaves", [63, 1000], ids=["u8", "u16"])
+@pytest.mark.parametrize("num_leaves", [63, 1000, 40000],
+                         ids=["u8", "u16", "u32"])
 def test_refit_leaf_sums_kernel_matches_plain(dev, num_leaves):
     """Refit's per-leaf sums through the ``hist_rows`` kernel (the leaf
     ids as a one-column bin matrix: uint8 bins at 63 leaves, the int16

@@ -417,8 +417,8 @@ def test_data_refusals_name_their_items(tmp_path):
     ds = lt.Dataset(X, label=y)
     ds.save_binary(str(tmp_path / "b"))
     np.testing.assert_array_equal(
-        lt.Dataset(str(tmp_path / "b")).construct().binned,
-        ds.construct().binned)
+        lt.Dataset(str(tmp_path / "b"))._construct().binned,
+        ds._construct().binned)
     assert ds.subset([1, 0]).num_data() == 2
     ds.add_features_from(lt.Dataset(X, label=y))
     assert ds.num_feature() == 2 * X.shape[1]

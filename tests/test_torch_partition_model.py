@@ -51,9 +51,12 @@ def test_tile_rows_mirror_the_kernel():
 
 
 def test_scan_block_mirrors_the_kernel():
-    # the wrapper's bin limit is the kernel's; the kernel's largest block
-    # is whole warps, within a block's 1024 threads
-    assert sc.MAX_SCAN_BINS == _constant("scan_core.cuh", "kMaxScanBins")
+    # the wrapper's bin limit is the kernel's (past one block of planes,
+    # the wide scan's windows of kMaxScanBins); the kernel's largest
+    # block is whole warps, within a block's 1024 threads
+    assert sc.MAX_SCAN_BINS == _constant("scan_core.cuh", "kMaxWideBins")
+    assert _constant("scan_core.cuh", "kScanWindow") \
+        == _constant("scan_core.cuh", "kMaxScanBins") == 1024
     top = _constant("split_scan.cu", "kMaxThreads")
     assert 32 <= top <= 1024 and top % 32 == 0
 

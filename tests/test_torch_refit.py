@@ -13,7 +13,8 @@ float32 (ROADMAP.md Queue 3, the linear-leaf entries). Decay 1.0 leaves
 every leaf value, constant and coefficient unchanged, to the bit. The
 per-leaf sums themselves (``hist_cuda.leaf_histogram``) equal a float64
 ``bincount`` in row order, to the bit, on each route: uint8 bins, the
-int16 bits of u16 bins, and the sorted route past 1024 leaves.
+int16 bits of u16 bins, int32 bins past 32,768 leaves, and the sorted
+route past 65,536 leaves.
 
 Rollback and reset: train scores within 1e-5 of JAX's, trees within
 1e-5 of an equal run's.
@@ -176,10 +177,14 @@ def test_linear_refit_without_raw_values_is_refused():
 
 @pytest.mark.parametrize("num_leaves,dtype", [(63, torch.uint8),
                                               (1000, torch.int16),
-                                              (1500, None)])
+                                              (1500, torch.int16),
+                                              (40000, torch.int32),
+                                              (70000, None)])
 def test_leaf_histogram_routes(num_leaves, dtype):
     """The per-leaf sums on each route equal float64 ``bincount`` sums
-    in row order rounded once, to the bit; empty leaves are zero."""
+    in row order rounded once, to the bit; empty leaves are zero. The
+    ``hist_rows`` route takes up to 65,536 leaves (the kernel's widest
+    bins: int32 past 32,768), the sorted route the rest."""
     rng = np.random.RandomState(num_leaves)
     n = 5000
     leaf = rng.randint(0, num_leaves - 7, n)

@@ -287,10 +287,19 @@ def test_create_tree_learner_follows_the_jax_accelerator_rule(
 
 
 def test_partitioned_learner_past_256_bins_is_refused():
+    """Past 256 bins the partitioned learner raises the JAX package's
+    ValueError (``lightgbm_tpu/learner/partitioned.py:141-145``): its
+    matrix packs bins as uint8."""
+    from lightgbm_tpu.learner.partitioned import \
+        PartitionedTreeLearner as JPartitioned
     X, y = _data(4)
-    cfg = Config.from_params(dict(BASE, max_bin=600,
-                                  tree_learner="partitioned"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        lt.train(dict(BASE, max_bin=600, tree_learner="partitioned"),
-                 lt.Dataset(X, label=y), 1, device="cpu")
+    params = dict(BASE, max_bin=600, tree_learner="partitioned")
+    cfg = Config.from_params(params)
+    with pytest.raises(ValueError, match="packs bins as uint8") as port:
+        lt.train(params, lt.Dataset(X, label=y), 1, device="cpu")
+    jcfg = JConfig.from_params(params)
+    with pytest.raises(ValueError, match="packs bins as uint8") as ref:
+        JPartitioned(JDataset.from_numpy(X, jcfg, label=y), jcfg)
+    assert str(port.value).split(" packs")[1] \
+        == str(ref.value).split(" packs")[1]
     assert cfg.tree_learner == "partitioned"

@@ -97,10 +97,10 @@ def test_aligned_valid_set():
         tr = lt.Dataset(train, label=y)
         va_sparse = tr.create_valid(sp.csr_matrix(Xv), label=yv)
         va_dense = tr.create_valid(Xv, label=yv)
-        tr.construct(cfg)
-        _same(va_sparse.construct(cfg), va_dense.construct(cfg))
-        assert va_sparse.construct(cfg).binned.shape[1] \
-            == tr.construct(cfg).binned.shape[1]
+        tr._construct(cfg)
+        _same(va_sparse._construct(cfg), va_dense._construct(cfg))
+        assert va_sparse._construct(cfg).binned.shape[1] \
+            == tr._construct(cfg).binned.shape[1]
 
 
 @pytest.mark.parametrize("shape,max_bin", [("one_hot", 255),

@@ -201,22 +201,62 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 # the ids the cases had when the list also held the refusals that
 # Queue 1 items 7.4 and 7.5 lifted (tests/test_torch_extras.py and
-# tests/test_torch_linear.py train those configurations now)
+# tests/test_torch_linear.py train those configurations now); items 4
+# and 8 lifted theirs too: those cases (item None) now train, as the
+# JAX package's serial learner does (a data-parallel world of one rank
+# is the serial learner; tests/test_torch_parallel.py holds the ranks)
 @pytest.mark.parametrize("extra,item", [
     pytest.param({"checkpoint_dir": "ckpt"}, "Queue 1 item 11",
                  id="extra1-Queue 1 item 11"),
-    pytest.param({"tree_learner": "data"}, "Queue 1 item 8",
+    pytest.param({"tree_learner": "data"}, None,
                  id="extra6-Queue 1 item 8"),
-    # > 1024 bins: no learner
-    pytest.param({"max_bin": 2000}, "Queue 1 item 4",
+    # > 1024 bins: the serial learner, per-phase
+    pytest.param({"max_bin": 2000}, None,
                  id="extra8-Queue 1 item 4"),
 ])
 def test_out_of_slice_configs_rejected(extra, item):
     # enough distinct values for more than 1024 bins where asked
     X, y = _data(5, n=5000 if extra.get("max_bin", 0) > 1024 else 200)
-    with pytest.raises(NotImplementedError, match=item):
-        lt.train(dict(PARAMS, **extra), lt.Dataset(X, label=y), 1,
-                 device="cpu")
+    params = dict(PARAMS, **extra)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            lt.train(params, lt.Dataset(X, label=y), 1, device="cpu")
+        return
+    port = lt.train(params, lt.Dataset(X, label=y), 2, device="cpu")
+    if "tree_learner" in extra:
+        # a world of one rank: the serial learner's trees, to the bit
+        # (tests/test_torch_parallel.py holds worlds of 2 against JAX)
+        ref = lt.train(PARAMS, lt.Dataset(X, label=y), 2, device="cpu")
+        assert type(port._gbdt.learner).__name__ \
+            == "MeshPartitionedTreeLearner"
+        trees = lambda b: b.model_to_string().split(  # noqa: E731
+            "end of trees")[0]
+        assert trees(port) == trees(ref)
+        return
+    jb = lgb.train(dict(params, tree_learner="serial"),
+                   lgb.Dataset(X, label=y), num_boost_round=2,
+                   verbose_eval=False)
+    assert len(port.models) == len(jb._gbdt.models) == 2
+    # threshold ties of float64 against float32 sums at 2000 bins on
+    # 5000 rows (ROADMAP Queue 3): the trees' split features agree, and
+    # where a threshold differs the two gains are within 1e-5
+    ties = []
+    for a, b in zip(jb._gbdt.models, port.models):
+        k = b.num_leaves
+        assert int(a.num_leaves) == k
+        np.testing.assert_array_equal(np.asarray(a.split_feature)[:k - 1],
+                                      b.split_feature_inner[:k - 1])
+        diff = np.nonzero(np.asarray(a.threshold_bin)[:k - 1]
+                          != b.threshold_bin[:k - 1])[0]
+        np.testing.assert_allclose(b.split_gain[diff],
+                                   np.asarray(a.split_gain)[diff],
+                                   rtol=1e-5)
+        if not len(diff):
+            np.testing.assert_allclose(b.leaf_value,
+                                       np.asarray(a.leaf_value), rtol=0,
+                                       atol=5e-5)
+        ties.append(len(diff))
+    assert ties == [1, 2]
 
 
 @pytest.mark.parametrize("learner", ["serial", "partitioned"])

@@ -39,8 +39,8 @@ def _write_libsvm(path, X, y):
 
 def _loads(path, params, monkeypatch, chunk=97):
     monkeypatch.setattr(file_loader, "TWO_ROUND_CHUNK_ROWS", chunk)
-    one = lt.Dataset(path).construct(Config.from_params(params))
-    two = lt.Dataset(path).construct(Config.from_params(
+    one = lt.Dataset(path)._construct(Config.from_params(params))
+    two = lt.Dataset(path)._construct(Config.from_params(
         dict(params, two_round=True)))
     return one, two
 
@@ -100,7 +100,7 @@ def test_header_weight_and_query_columns(tmp_path, monkeypatch):
     assert two.metadata.query_boundaries is not None
     assert two.feature_names == [f"f{i}" for i in range(20)]
     ds = lt.Dataset(path)
-    ds.construct(Config.from_params(dict(params, two_round=True)))
+    ds._construct(Config.from_params(dict(params, two_round=True)))
     assert ds.feature_name == [f"f{i}" for i in range(20)]
 
 
