@@ -705,6 +705,220 @@ def partition_variants(n: int, b: int) -> list:
     return lines
 
 
+MV_ITERS = 4
+
+
+def multival_sets():
+    """The multi-val slot matrices of chip_smoke.py phase 12: (c) the
+    Bosch-shaped 1M x 968 at 15% (max_bin 63; K ~200, 242 pseudo-groups)
+    and (a) the Expo one-hot 2M x 674 (max_bin 255; K 2), binned on the
+    host as the phase bins them. Returns {label: (Dataset, binned,
+    params)}."""
+    import lightgbm_tpu_torch as lt
+    from chip_smoke import bosch_like, expo_one_hot
+    base = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
+            "verbosity": -1}
+    out = {}
+    for label, make, params in (
+            ("c", lambda: bosch_like(1_000_000),
+             dict(base, max_bin=63, learning_rate=0.015,
+                  min_sum_hessian_in_leaf=5)),
+            ("a", lambda: expo_one_hot(2_000_000, 42),
+             dict(base, max_bin=255))):
+        t0 = time.perf_counter()
+        data, y = make()
+        ds = lt.Dataset(data, label=y)
+        binned = ds._construct(lt.Config.from_params(params))
+        print(f"[multival] {label}: {data.shape[0]} x {data.shape[1]} "
+              f"binned in {time.perf_counter() - t0:.1f} s, slots "
+              f"{binned.mv_slots.shape}")
+        out[label] = (ds, binned, params)
+    return out
+
+
+def multival_caller(binned, dev):
+    """(call(ghc, b, ids, times=None), g_mv, b, K, blocks(count)): the
+    multi-val histogram of a binned dataset through whichever wrapper the
+    imported package has: this tree's over the slots' compact layout
+    (built here, its time printed), or a parent's over the slots."""
+    import torch
+    from lightgbm_tpu_torch.ops import hist_multival_cuda as hm
+    slots = binned.mv_slots_device(dev)
+    g_mv = binned.num_groups - binned.num_dense_groups
+    b = int(max(binned.num_bins_array().max(), binned.group_num_bins.max()))
+    k = slots.shape[1]
+    if not hasattr(hm, "MultivalLayout"):
+        partial = hm.multival_partial(g_mv, dev)
+        return (lambda ghc, bb, ids, times=None: hm.hist_multival(
+            slots, ghc, g_mv, bb, ids, partial=partial)), g_mv, b, k, None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lay = binned.mv_layout_device(dev)
+    torch.cuda.synchronize()
+    print(f"[multival] layout of {tuple(slots.shape)} slots built on the "
+          f"card in {(time.perf_counter() - t0) * 1e3:.1f} ms: "
+          f"{lay.ent.numel()} entries, {lay.windows} windows")
+    partial = hm.multival_partial(g_mv, b, dev)
+
+    def call(ghc, bb, ids, times=None):
+        kw = {} if times is None else {"times": times}
+        return hm.hist_multival(lay, ghc, bb, ids, partial=partial, **kw)
+
+    def blocks(count):
+        return hm.child_chunks(count, g_mv) * hm.windows(g_mv)
+    return call, g_mv, b, k, blocks
+
+
+MV_TIMED = ("staging", "pass loads + sort", "accumulation", "write-out",
+            "entries")
+
+
+def multival_phases(sets, dev, timed: bool = True) -> str:
+    """``hist_multival`` on phase 12's (c) and (a) slots: over all rows
+    and a random third in row order (chip_smoke.py check_hist_multival's
+    ghc and third), the median of 20 launches between CUDA events against
+    the byte bound; with ``timed``, one launch of the timed build (mean
+    cycles a block of each of its laps); then ``MV_ITERS`` iterations of
+    each run's training with CUDA events around every call (ms a call,
+    calls)."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from chip_smoke import DeviceTimer, HBM_BYTES_PER_S, time_ms
+    from lightgbm_tpu_torch.learner import serial as ls
+    from lightgbm_tpu_torch.ops import hist_multival_cuda as hmc
+    lines = []
+    for label, (ds, binned, params) in sets.items():
+        call, g_mv, b, k, blocks = multival_caller(binned, dev)
+        n = binned.num_data
+        gen = torch.Generator(device=dev).manual_seed(12)
+        ghc = torch.stack([torch.randn(n, generator=gen, device=dev),
+                           torch.rand(n, generator=gen, device=dev) * 0.25,
+                           torch.ones(n, device=dev)], 1).contiguous()
+        third = torch.nonzero(torch.rand(n, generator=gen, device=dev)
+                              < 1 / 3).flatten().to(torch.int32)
+        real = float((torch.from_numpy(binned.mv_slots) != 0).sum()) / n
+        for mode, ids in (("all rows", None), ("a third", third)):
+            rows = n if ids is None else ids.numel()
+            ms = time_ms(lambda: call(ghc, b, ids), 20)
+            nbytes = rows * (k * 4 + 12 + (0 if ids is None else 4)) \
+                + g_mv * b * 3 * 4
+            line = (f"[multival phases] {label} {mode}: {rows} rows x K {k} "
+                    f"({real:.1f} real slots a row), G_mv {g_mv}, B {b}: "
+                    f"{ms:.4f} ms median of 20, bound "
+                    f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+            if timed and blocks is not None:
+                nb = blocks(rows)
+                times = torch.zeros((nb, len(MV_TIMED)), dtype=torch.int64,
+                                    device=dev)
+                call(ghc, b, ids, times=times)
+                torch.cuda.synchronize()
+                cyc = times.cpu().numpy().astype(np.float64)
+                mean = cyc.mean(0)
+                line += f"; timed build, {nb} blocks, mean a block: " \
+                    + ", ".join(f"{name} {mean[i]:.0f}"
+                                for i, name in enumerate(MV_TIMED)) \
+                    + f" (slowest block {cyc[:, :4].sum(1).max():.0f} cycles)"
+            lines.append(line)
+            print(line)
+        del ghc, third
+        timer = DeviceTimer()
+        saved = (ls.hist_multival, hmc.hist_multival)
+        ls.hist_multival = hmc.hist_multival = timer.wrap(saved[0])
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bst = lt.train(params, ds, MV_ITERS, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            ls.hist_multival, hmc.hist_multival = saved
+        calls = len(timer.pairs)
+        splits = sum(t.num_leaves - 1 for t in bst.models)
+        line = (f"[multival training] {label}: {MV_ITERS} iterations, "
+                f"{splits} splits in {wall:.2f} s = {wall / max(splits, 1) * 1e3:.4f}"
+                f" ms/split; hist_multival {calls} calls, "
+                f"{timer.ms() / max(calls, 1):.4f} ms a call (CUDA events)")
+        lines.append(line)
+        print(line)
+        del bst
+        torch.cuda.empty_cache()
+    return "\n".join(lines)
+
+
+SHAP_TIMED = ("bin loads", "one fractions", "extends", "unwound sums",
+              "peer sums + phi adds", "phi zero + write-out",
+              "(row, bin) steps")
+
+
+def shap_models(X, y, dev):
+    """The models chip_smoke.py phase 10 explains: the full-width binary
+    model (2M x 28, 255 leaves, max_bin 255, 9 trees) and the 5-class
+    model of phase 9's run c (8 iterations, 40 trees)."""
+    import lightgbm_tpu_torch as lt
+    from chip_smoke import higgs_latent, objective_labels
+    base = {"num_leaves": 255, "learning_rate": 0.1, "max_bin": 255,
+            "verbosity": -1}
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X, label=y)
+    binary = lt.train(dict(base, objective="binary"), ds, 9, device=dev)
+    _, z = higgs_latent(len(y))
+    mc = lt.train(dict(base, objective="multiclass", num_class=5),
+                  lt.Dataset(X, label=objective_labels("multiclass", z)), 8,
+                  device=dev)
+    print(f"[shap] models trained in {time.perf_counter() - t0:.1f} s: "
+          f"binary {len(binary.models)} trees, 5-class {len(mc.models)}")
+    return {"binary": binary, "multiclass 5": mc}
+
+
+def shap_phases(models, X, dev, timed: bool = True) -> str:
+    """``tree_shap`` on 100k rows of each model: the median of CUDA
+    events over 5 calls against the float64 operation bound, the mean
+    device time in its own profiler session; with ``timed``, one launch
+    of the timed build (the warp kernel's mean cycles a warp in each
+    lap)."""
+    import numpy as np
+    import torch
+    from chip_smoke import (F64_FLOPS, HBM_BYTES_PER_S, device_us,
+                            time_ms)
+    from lightgbm_tpu_torch.ops import tree_shap_cuda as ts
+    rows = np.ascontiguousarray(X[:100_000], np.float64)
+    xd = torch.from_numpy(rows).to(dev)
+    lines = []
+    for label, bst in models.items():
+        k = bst.num_model_per_iteration()
+        sm = ts.ShapModel(bst.models, k, dev)
+        n, f = rows.shape
+        ms = time_ms(lambda: ts.tree_shap_cuda(sm, xd), 5)
+        dev_ms = device_us(lambda: ts.tree_shap_cuda(sm, xd), 3,
+                           "tree_shap") / 1e3
+        nbytes, ops = ts.shap_work(sm.paths, n, f, k)
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / F64_FLOPS) * 1e3
+        lens = sm.paths["lens"]
+        bins = getattr(sm, "bins", None)
+        busy = lens[lens <= 32].sum() / 32 / max(len(bins or ()), 1)
+        line = (f"[shap phases] {label}: {n} rows, {len(bst.models)} trees, "
+                f"{len(lens)} paths (mean {lens.mean():.2f}, longest "
+                f"{lens.max()} elements)"
+                + (f", {len(bins)} bins ({busy:.3f} of their lanes busy)"
+                   if bins is not None else "")
+                + f": {ms:.3f} ms median of 5, device "
+                f"{dev_ms:.3f} ms (profiler, mean of 3), bound "
+                f"{bound:.4f} ms")
+        if timed:
+            nw = ts.shap_warps(n, k * (f + 1))
+            times = torch.zeros((nw, len(SHAP_TIMED)), dtype=torch.int64,
+                                device=dev)
+            ts.tree_shap_cuda(sm, xd, times=times)
+            torch.cuda.synchronize()
+            mean = times.cpu().numpy().astype(np.float64).mean(0)
+            line += "; timed build, mean a warp: " + ", ".join(
+                f"{name} {mean[i]:.0f}" for i, name in enumerate(SHAP_TIMED))
+        lines.append(line)
+        print(line)
+    return "\n".join(lines)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=2_000_000)
@@ -722,6 +936,18 @@ def main() -> int:
                     help="time hist_rows only (no timed build)")
     ap.add_argument("--scan-phases", action="store_true",
                     help="time the standalone scan and its timed build")
+    ap.add_argument("--multival-phases", action="store_true",
+                    help="time hist_multival on phase 12's slots, its "
+                    "timed build and its calls in training")
+    ap.add_argument("--multival", action="store_true",
+                    help="the same without the timed build")
+    ap.add_argument("--shap-phases", action="store_true",
+                    help="time tree_shap on 100k rows and its timed build")
+    ap.add_argument("--shap", action="store_true",
+                    help="the same without the timed build")
+    ap.add_argument("--package", default=None,
+                    help="import lightgbm_tpu_torch from this directory "
+                    "(a parent tree unpacked beside this one)")
     ap.add_argument("--partition", action="store_true",
                     help="time partition_segment on the 2M-row matrix")
     args = ap.parse_args()
@@ -730,7 +956,12 @@ def main() -> int:
         + ["hist-rows-phases"] * args.hist_rows_phases \
         + ["hist-rows"] * args.hist_rows \
         + ["scan-phases"] * args.scan_phases \
-        + ["partition"] * args.partition
+        + ["partition"] * args.partition \
+        + ["multival-phases"] * args.multival_phases \
+        + ["multival"] * args.multival \
+        + ["shap-phases"] * args.shap_phases + ["shap"] * args.shap
+    if args.package:
+        sys.path.insert(0, os.path.abspath(args.package))
     paths = args.paths.split(",") if args.paths else \
         ([] if phase_flags else list(PATHS))
     paths += phase_flags
@@ -744,11 +975,23 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}")
     import lightgbm_tpu_torch as lt
+    print(f"package: {os.path.dirname(lt.__file__)}")
+    dev = torch.device("cuda")
+    tables = []
+    if "multival-phases" in paths or "multival" in paths:
+        tables.append(multival_phases(multival_sets(), dev,
+                                      timed="multival-phases" in paths))
+    paths = [p for p in paths if p not in ("multival-phases", "multival")]
+    if not paths:
+        return write_tables(tables)
     X, y = higgs_like(args.rows)
+    if "shap-phases" in paths or "shap" in paths:
+        tables.append(shap_phases(shap_models(X, y, dev), X, dev,
+                                  timed="shap-phases" in paths))
+    paths = [p for p in paths if p not in ("shap-phases", "shap")]
     # binned once per max_bin (a Dataset keeps its first binning),
     # shared by the paths
     sets = {}
-    tables = []
     phases = {"leaf-phases": ("serial-fused", leaf_phases),
               "segment-phases": ("fused", segment_phases)}
     for path in paths:
@@ -769,6 +1012,10 @@ def main() -> int:
             sets[mb] = lt.Dataset(X, label=y)
         tables.append(phases[path][1](sets[mb]) if path in phases
                       else profile_path(path, sets[mb], args.trees))
+    return write_tables(tables)
+
+
+def write_tables(tables) -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "profile.txt"), "w") as fh:
         fh.write("\n".join(tables))

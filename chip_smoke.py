@@ -2822,26 +2822,32 @@ def check_hist_multival(ds, dev, reps):
     abs err 0, bitwise repeatable. Timed beside its plain version, its
     byte bound (the slots, the rows' ghc and ids read once, the
     histogram written once) and one float64 ``index_add_`` over the
-    flattened slots (the same sums in atomic order). The record's
-    numbers are the root's."""
+    flattened slots (the same sums in atomic order); the compact
+    layout's build (once a dataset, at learner setup) timed apart. The
+    record's numbers are the root's."""
     import torch
     from lightgbm_tpu_torch.ops import hist_multival_cuda as hm
     slots = ds.mv_slots_device(dev)
     n, k = slots.shape
     g_mv = ds.num_groups - ds.num_dense_groups
     b = int(max(ds.num_bins_array().max(), ds.group_num_bins.max()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lay = hm.MultivalLayout(slots, g_mv)
+    torch.cuda.synchronize()
+    layout_ms = (time.perf_counter() - t0) * 1e3
     gen = torch.Generator(device=dev).manual_seed(12)
     ghc = torch.stack([torch.randn(n, generator=gen, device=dev),
                        torch.rand(n, generator=gen, device=dev) * 0.25,
                        torch.ones(n, device=dev)], 1).contiguous()
     third = torch.nonzero(torch.rand(n, generator=gen, device=dev)
                           < 1 / 3).flatten().to(torch.int32)
-    partial = hm.multival_partial(g_mv, dev)
+    partial = hm.multival_partial(g_mv, b, dev)
     cases, worst = {}, 0.0
     for mode, ids in (("all rows", None), ("a third", third)):
-        out = hm.hist_multival(slots, ghc, g_mv, b, ids, partial=partial)
-        again = hm.hist_multival(slots, ghc, g_mv, b, ids, partial=partial)
-        ref = hm.hist_multival_plain(slots, ghc, g_mv, b, ids)
+        out = hm.hist_multival(lay, ghc, b, ids, partial=partial)
+        again = hm.hist_multival(lay, ghc, b, ids, partial=partial)
+        ref = hm.hist_multival_plain(lay, ghc, b, ids)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         worst = max(worst, err)
@@ -2849,15 +2855,15 @@ def check_hist_multival(ds, dev, reps):
             fail(f"hist_multival ({mode}) not bitwise repeatable")
         if err != 0.0:
             fail(f"hist_multival ({mode}) off its plain version by {err}")
-        ms = time_ms(lambda: hm.hist_multival(slots, ghc, g_mv, b, ids,
+        ms = time_ms(lambda: hm.hist_multival(lay, ghc, b, ids,
                                               partial=partial), reps)
         # None: the profiler recorded none of its kernels (it loses
         # records late in a long script), not measured
         dev_ms = device_us(lambda: hm.hist_multival(
-            slots, ghc, g_mv, b, ids, partial=partial), reps,
+            lay, ghc, b, ids, partial=partial), reps,
             ("hist_multival",)) / 1e3 or None
         plain_ms = time_ms(lambda: hm.hist_multival_plain(
-            slots, ghc, g_mv, b, ids), 3)
+            lay, ghc, b, ids), 3)
         rows = n if ids is None else ids.numel()
         sel = torch.arange(n, device=dev) if ids is None else ids.long()
         keys = slots.index_select(0, sel).reshape(-1).long()
@@ -2872,9 +2878,12 @@ def check_hist_multival(ds, dev, reps):
         cases[mode] = dict(rows=rows, ms=ms, device_ms=dev_ms,
                            plain_ms=plain_ms, library_ms=library_ms,
                            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                           chunks=hm.child_chunks(rows, k, g_mv),
-                           windows=-(-g_mv // hm.window_groups(g_mv)))
+                           chunks=hm.child_chunks(rows, g_mv),
+                           windows=lay.windows)
     main = cases["all rows"]
+    print(f"[check] hist_multival layout: {lay.ent.numel()} real slots of "
+          f"{n * k} ({lay.ent.numel() / max(n, 1):.1f} a row), "
+          f"{lay.windows} windows, built in {layout_ms:.1f} ms")
     print("[check] hist_multival ok: " + "; ".join(
         f"{m}: {c['ms']:.4f} ms, device {c['device_ms'] or 'not measured'}"
         f" ({c['rows']} "
@@ -2885,7 +2894,7 @@ def check_hist_multival(ds, dev, reps):
     return dict(max_abs_err=worst, ms=main["ms"],
                 device_ms=main["device_ms"], plain_ms=main["plain_ms"],
                 library_ms=main["library_ms"], bound_ms=main["bound_ms"],
-                bound_by="bytes", cases=cases)
+                bound_by="bytes", cases=cases, layout_ms=layout_ms)
 
 
 def write_libsvm_csr(path, csr, y):

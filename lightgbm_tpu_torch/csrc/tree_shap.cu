@@ -21,38 +21,56 @@
 // times (one - zero) times the leaf value, exactly the recursion's sum
 // at the leaf.
 //
-//  * tree_shap_warp: a warp takes a row and walks every path of at most
-//    32 elements, 32 / group paths at a time, a path to a group of
-//    `group` lanes (the longest path rounded up to a power of two), one
-//    element a lane: the lane evaluates its element's one fraction, the
-//    path weights are extended in float64 with shuffles inside the group
-//    (lane i of the group holds weight i), and each lane takes its own
-//    unwound sum, reading the group's weights by broadcast. A path's
-//    elements have distinct features, but the paths of a set may share
-//    some, so the groups add their contributions into the row's phi in
-//    turn, with no atomics; the row's phi lives in shared memory (or in
-//    its out row when k (F + 1) is too wide) and is written once, with
-//    each class's expected value in its last slot. A row's sums are in
-//    path order, the same on every run.
+//  * tree_shap_bins: the host packs the paths of at most 32 elements
+//    into bins of 32 lanes, first-fit decreasing by length
+//    (ops/tree_shap_cuda.py:pack_bins), a path on consecutive lanes, an
+//    element a lane, and lays each lane's data out once a model: its
+//    position, its path's first lane and length, its feature, zero
+//    fraction, leaf value and class, and its one-fraction test -- the
+//    interval (lo, hi] of its numerical nodes and the answer for a
+//    missing value, or (a categorical node, mixed missing codes) the
+//    element's node list. A warp owns `rows` rows (their phi in shared
+//    memory, or in their out rows when k (F + 1) is too wide; the wrapper
+//    picks `rows` so that a block's phi stays small and many warps fit an
+//    SM) and walks every bin in order, a bin's lane data held in
+//    registers across its rows. For a row, each lane tests its element,
+//    the path weights are extended in float64 (lane i of a path holds
+//    weight i; its left neighbour's by shuffle, element d's zero fraction
+//    from the warp's shared copy of the bin's), and each lane takes its
+//    own unwound sum reading its path's weights from the warp's shared
+//    copy; the loops run to the bin's longest path. No loop divides: the
+//    ratios (d - i) / (d + 1), i / (d + 1), (D + 1) / (j + 1),
+//    (D - j) / (D + 1) and (D + 1) / (D - j) come from tables the host
+//    computes once (ops/tree_shap_cuda.py:shap_tables), 1 / zero is taken
+//    once a bin. The lanes of a bin that add to one (class, feature) slot
+//    leave their values in shared memory for the lowest of them, which
+//    adds its own, then theirs in lane order, and adds the sum once: no
+//    two lanes add to a slot at once, and a slot's sum runs over the bins
+//    in order, then the lanes of a bin in order, the same on every run.
+//    Each class's expected value goes in its last slot.
 //  * tree_shap_long: the paths of more than 32 elements (F >= 32): a
 //    block takes a row and walks them, one element a thread, the weights
 //    in shared memory with a block barrier a step; it adds into the out
-//    row the warp kernel wrote before it on the same stream.
+//    row the bin kernel wrote before it on the same stream.
 //
 // What bounds it on the H100: float64 operations. A row and a path of
 // D + 1 elements cost ~7 D (D + 3) / 2 operations to extend and ~8 D^2
-// for the unwound sums, against 8 (F + k (F + 1)) bytes a row; at a
-// 255-leaf tree's D ~ 5-20 that is ~300-4,000 float64 operations a
-// path a row, so the row's bytes are negligible. A lane an element of
-// a group sized by the longest path leaves the lanes of shorter paths
-// idle; sorting paths by length into groups is the next lever.
+// for the unwound sums, against 8 (F + k (F + 1)) bytes a row; the
+// row's bytes are negligible. The bin kernel keeps most lanes busy
+// (short paths share a warp) and issues no float64 division in its
+// loops; its cost is the float64 multiplies and the dependent steps of
+// each extend and unwound loop, and the shared-memory round trips
+// between them.
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;  // warps a block of tree_shap_warp
+constexpr int kWarps = 4;  // warps a block of tree_shap_bins
+constexpr int kMaxRows = 16;  // rows a warp of tree_shap_bins, at most
+constexpr int kMaxSmem = 96 * 1024;  // phi rows in shared memory, at most
+constexpr int kTab = 33;      // the ratio tables' side (d, D <= 32)
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Model {
@@ -128,66 +146,155 @@ __device__ __forceinline__ void unwound_step(double pwj, int j, int D,
   }
 }
 
+// A bin lane's ints (lint [bins * 32][8]): meta (position | first lane
+// << 8 | path length << 16; 0 for an idle lane), feature (-1: the bias
+// element), flags (bits 0-1 missing code, 2 one when missing, 3 the node
+// list, 4 the lane adds its peers' sum), element, class, peers (the
+// lanes after it that add to the same slot), 2 unused; doubles (ldbl
+// [bins * 32][4]): zero fraction, lo, hi, leaf value; per bin (blen
+// [bins]): its longest path. The ratio tables (tabs, float64): ext
+// [kTab][kTab][2] = ((d - i) / (d + 1), i / (d + 1)), then unw
+// [kTab][kTab][4] = ((D + 1) / (j + 1), (D - j) / (D + 1),
+// (D + 1) / (D - j), 0).
+constexpr int kFlagOneMissing = 4;
+constexpr int kFlagGeneral = 8;
+constexpr int kFlagLeader = 16;
+
+// kTimed: lane 0 of every warp adds its cycles of the bins' loads, the
+// one fractions, the extends, the unwound sums, the peer sums and phi
+// adds, and the phi zeroing and write-out, and its (row, bin) steps, into
+// times[warp] (chip_profile.py --shap-phases).
+template <bool kTimed>
 __global__ void __launch_bounds__(kWarps * 32)
-    tree_shap_warp(const double* __restrict__ x, long long n, int F,
-                   Model m, const int* __restrict__ paths, int num_paths,
-                   int group, double* __restrict__ out, int use_smem) {
+    tree_shap_bins(const double* __restrict__ x, long long n, int F,
+                   Model m, const int* __restrict__ lint,
+                   const double* __restrict__ ldbl,
+                   const int* __restrict__ blen, int nbins,
+                   const double* __restrict__ tabs, int rows,
+                   double* __restrict__ out, int use_smem,
+                   long long* times) {
   extern __shared__ double sh[];
+  __shared__ double wsh[kWarps][3][32];  // a warp's zeros, weights, values
+  unsigned long long t_last = 0, acc[7] = {0, 0, 0, 0, 0, 0, 0};
+  if constexpr (kTimed) t_last = clock64();
+  auto lap = [&](int i) {
+    if constexpr (kTimed) {
+      const unsigned long long now = clock64();
+      acc[i] += now - t_last;
+      t_last = now;
+    }
+  };
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int g = lane / group;      // the lane's path in the warp's set
-  const int r = lane % group;      // its element in that path
-  const int per = 32 / group;      // paths a warp takes at once
+  const long long wid = (long long)blockIdx.x * kWarps + warp;
+  const long long r0 = wid * rows;
+  if (r0 >= n) return;
+  const int nr = (int)min((long long)rows, n - r0);
   const int stride = m.k * (F + 1);
-  const long long warps_total = (long long)gridDim.x * kWarps;
-  for (long long row_i = (long long)blockIdx.x * kWarps + warp; row_i < n;
-       row_i += warps_total) {
-    const double* row = x + row_i * F;
-    double* phi =
-        use_smem ? sh + (size_t)warp * stride : out + row_i * stride;
-    for (int i = lane; i < stride; i += 32) phi[i] = 0.0;
+  double* phi = use_smem ? sh + (size_t)warp * rows * stride
+                         : out + r0 * stride;
+  double* szero = wsh[warp][0];
+  double* spw = wsh[warp][1];
+  double* sv = wsh[warp][2];
+  const double2* ext = reinterpret_cast<const double2*>(tabs);
+  const double2* unw =
+      reinterpret_cast<const double2*>(tabs + 2 * kTab * kTab);
+  for (int i = lane; i < nr * stride; i += 32) phi[i] = 0.0;
+  __syncwarp();
+  lap(5);
+  for (int bi = 0; bi < nbins; ++bi) {
+    const int4* li = reinterpret_cast<const int4*>(lint) + (bi * 32 + lane) * 2;
+    const double2* ld =
+        reinterpret_cast<const double2*>(ldbl) + (bi * 32 + lane) * 2;
+    const int4 ia = __ldg(li), ib = __ldg(li + 1);
+    const double2 da = __ldg(ld), db = __ldg(ld + 1);
+    const int maxlen = __ldg(blen + bi);
+    const int r = ia.x & 0xff, s = (ia.x >> 8) & 0xff,
+              len = (ia.x >> 16) & 0xff;
+    const int feat = ia.y, flags = ia.z, elem = ia.w;
+    const unsigned peers = (unsigned)ib.y;
+    const double zero = da.x, lo = da.y, hi = db.x, val = db.y;
+    const double invz = 1.0 / zero;
+    const int D = len - 1;
+    const int tgt = ib.x * (F + 1) + feat;
+    const bool adds = (flags & kFlagLeader) != 0;
+    const int miss = flags & 3;
+    const double2* urow = unw + 2 * kTab * max(D, 0);
+    __syncwarp();  // the last bin's reads of szero are done
+    szero[lane] = zero;
     __syncwarp();
-    for (int q0 = 0; q0 < num_paths; q0 += per) {
-      const int q = q0 + g;
-      const bool has = q < num_paths;
-      const int p = has ? paths[q] : 0;
-      const int b = m.pbegin[p];
-      const int len = has ? m.pbegin[p + 1] - b : 0;  // <= group
-      const bool active = r < len;
-      const int e = b + (active ? r : 0);
-      const double zero = active ? m.ezero[e] : 0.0;
-      const double one = active ? one_fraction(m, e, row) : 0.0;
-      int maxlen = len;  // the warp's longest path: its loops' bound
-      for (int o = 16; o > 0; o >>= 1)
-        maxlen = max(maxlen, __shfl_xor_sync(kFull, maxlen, o));
+    lap(0);
+    for (int rr = 0; rr < nr; ++rr) {
+      const double* row = x + (r0 + rr) * F;
+      double one = 1.0;
+      if (feat >= 0) {
+        if (flags & kFlagGeneral) {
+          one = one_fraction(m, elem, row);
+        } else {
+          double v = __ldg(row + feat);
+          const bool nan = isnan(v);
+          if (nan && miss != LTT_MISSING_NAN) v = 0.0;
+          const bool is_missing = miss == LTT_MISSING_ZERO
+                                      ? fabs(v) <= 1e-35
+                                      : (miss == LTT_MISSING_NAN && nan);
+          one = is_missing ? ((flags & kFlagOneMissing) ? 1.0 : 0.0)
+                           : ((v > lo && v <= hi) ? 1.0 : 0.0);
+        }
+      }
+      const unsigned ones = __ballot_sync(kFull, len > 0 && one != 0.0);
+      lap(1);
       double pw = r == 0 ? 1.0 : 0.0;
       for (int d = 1; d < maxlen; ++d) {
-        const double zd = __shfl_sync(kFull, zero, d, group);
-        const double od = __shfl_sync(kFull, one, d, group);
-        const double left = __shfl_up_sync(kFull, pw, 1, group);
-        if (d < len && r <= d) pw = extended(pw, left, r, d, zd, od);
+        const double left = __shfl_up_sync(kFull, pw, 1);
+        if (d < len && r <= d) {
+          const double2 q = __ldg(ext + d * kTab + r);
+          const double a = r < d ? szero[s + d] * pw * q.x : 0.0;
+          const double b =
+              r >= 1 && ((ones >> (s + d)) & 1u) ? left * q.y : 0.0;
+          pw = a + b;
+        }
       }
-      const int D = len - 1;
-      double next_one = __shfl_sync(kFull, pw, max(D, 0), group);
+      spw[lane] = pw;
+      __syncwarp();
+      lap(2);
+      double next_one = spw[min(s + max(D, 0), 31)];
       double total = 0.0;
       for (int j = maxlen - 2; j >= 0; --j) {
-        const double pwj = __shfl_sync(kFull, pw, j, group);
-        if (j < D) unwound_step(pwj, j, D, zero, one, &next_one, &total);
+        if (j < D) {
+          const double pwj = spw[s + j];
+          const double2 u = __ldg(urow + 2 * j);
+          if (one != 0.0) {
+            const double tmp = next_one * u.x;
+            total += tmp;
+            next_one = pwj - tmp * zero * u.y;
+          } else {
+            total += pwj * invz * __ldg(urow + 2 * j + 1).x;
+          }
+        }
       }
-      // the set's paths may share features: their adds take turns
-      for (int t = 0; t < per; ++t) {
-        if (g == t && active && r >= 1)
-          phi[m.pcls[p] * (F + 1) + m.efeat[e]] +=
-              total * (one - zero) * m.pvalue[p];
-        __syncwarp();
+      lap(3);
+      const double v = len > 0 && r >= 1 ? total * (one - zero) * val : 0.0;
+      sv[lane] = v;
+      __syncwarp();  // every value is in; spw's reads are done
+      if (adds) {
+        double sum = v;
+        for (unsigned mm = peers; mm; mm &= mm - 1u) sum += sv[__ffs(mm) - 1];
+        phi[rr * stride + tgt] += sum;
       }
+      __syncwarp();
+      lap(4);
+      if constexpr (kTimed) acc[6] += 1;
     }
-    for (int c = lane; c < m.k; c += 32) phi[c * (F + 1) + F] = m.expected[c];
-    __syncwarp();
-    if (use_smem)
-      for (int i = lane; i < stride; i += 32)
-        out[row_i * stride + i] = phi[i];
-    __syncwarp();
+  }
+  for (int i = lane; i < nr * m.k; i += 32)
+    phi[(i / m.k) * stride + (i % m.k) * (F + 1) + F] = m.expected[i % m.k];
+  __syncwarp();
+  if (use_smem)
+    for (int i = lane; i < nr * stride; i += 32) out[r0 * stride + i] = phi[i];
+  lap(5);
+  if constexpr (kTimed) {
+    if (lane == 0)
+      for (int i = 0; i < 7; ++i) times[wid * 7 + i] = (long long)acc[i];
   }
 }
 
@@ -241,40 +348,64 @@ __global__ void tree_shap_long(const double* __restrict__ x, long long n,
 }  // namespace
 
 // x [n, F] f64 row-major; the model's paths (ops/tree_shap_cuda.py
-// shap_paths); short_paths / long_paths: the ids of the paths of at most
-// and of more than 32 elements; group: a power of two at least the
-// longest short path (lanes a path); out [n, k (F + 1)] f64, every element
-// written. blocks: the warp kernel's grid (kWarps rows a block at a
-// time); use_smem: phi rows in shared memory (smem_bytes = kWarps k
-// (F + 1) 8 <= 48 KB), else in out; long_threads: a multiple of 32 at
-// least the longest path; long_blocks: the long kernel's grid.
+// shap_paths) for the node lists and the long paths; the short paths'
+// bins (pack_bins, bin_lanes): lint [nbins * 32 * 8] i32, ldbl [nbins *
+// 32 * 4] f64, blen [nbins] i32; tabs: the ratio tables (shap_tables);
+// rows: rows a warp (1 to kMaxRows); long_paths: the ids of the paths of
+// more than 32 elements; out [n, k (F + 1)] f64, every element written.
+// use_smem: phi rows in shared memory (smem_bytes = kWarps rows k (F + 1)
+// 8 <= kMaxSmem), else in out; long_threads: a multiple of 32 at least
+// the longest path; long_blocks: the long kernel's grid; times: null, or
+// int64 [warps, 7] for the bin kernel's timed instantiation (warps =
+// ceil(n / rows), rounded up to kWarps).
 LTT_EXPORT int ltt_tree_shap(
     const double* x, long long n, int F, const int* nfeat,
     const double* nthr, const int* nflags, const int* ncat_off,
     const int* ncat_len, const unsigned* cats, const int* pbegin,
     const double* pvalue, const int* pcls, const int* efeat,
     const double* ezero, const int* ecbegin, const int* cnode,
-    const int* cleft, const double* expected, int k,
-    const int* short_paths, int num_short, int group,
-    const int* long_paths, int num_long, int long_threads, double* out,
-    int blocks, int use_smem, int smem_bytes, int long_blocks,
-    cudaStream_t stream) {
-  if (n < 0 || F < 0 || k < 1 || blocks < 1 || num_short < 0 ||
-      group < 1 || group > 32 || (group & (group - 1)) != 0 ||
-      num_long < 0 || (num_long > 0 && (long_threads < 32 ||
-                                        long_threads > 1024 ||
-                                        long_blocks < 1)) ||
-      (use_smem && (smem_bytes < kWarps * k * (F + 1) * 8 ||
-                    smem_bytes > 48 * 1024)))
+    const int* cleft, const double* expected, int k, const int* lint,
+    const double* ldbl, const int* blen, int nbins, const double* tabs,
+    int rows, const int* long_paths, int num_long, int long_threads,
+    double* out, int use_smem, int smem_bytes, int long_blocks,
+    long long* times, cudaStream_t stream) {
+  if (n < 0 || F < 0 || k < 1 || nbins < 0 || num_long < 0 || rows < 1 ||
+      rows > kMaxRows ||
+      (num_long > 0 && (long_threads < 32 || long_threads > 1024 ||
+                        long_blocks < 1)) ||
+      (use_smem && (smem_bytes < kWarps * rows * k * (F + 1) * 8 ||
+                    smem_bytes > kMaxSmem)))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const Model m{nfeat,  nthr,   nflags, ncat_off, ncat_len, cats,
                 pbegin, pvalue, pcls,   efeat,    ezero,    ecbegin,
                 cnode,  cleft,  expected, k};
-  tree_shap_warp<<<blocks, kWarps * 32, use_smem ? smem_bytes : 0,
-                   stream>>>(x, n, F, m, short_paths, num_short, group,
-                             out, use_smem);
-  cudaError_t err = cudaGetLastError();
+  const long long rows_a_block = (long long)kWarps * rows;
+  const unsigned blocks = (unsigned)((n + rows_a_block - 1) / rows_a_block);
+  const size_t smem = use_smem ? (size_t)smem_bytes : 0;
+  cudaError_t err;
+  if (times) {
+    if (smem > 48 * 1024 &&
+        (err = cudaFuncSetAttribute(
+             tree_shap_bins<true>,
+             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+            cudaSuccess)
+      return (int)err;
+    tree_shap_bins<true><<<blocks, kWarps * 32, smem, stream>>>(
+        x, n, F, m, lint, ldbl, blen, nbins, tabs, rows, out, use_smem,
+        times);
+  } else {
+    if (smem > 48 * 1024 &&
+        (err = cudaFuncSetAttribute(
+             tree_shap_bins<false>,
+             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+            cudaSuccess)
+      return (int)err;
+    tree_shap_bins<false><<<blocks, kWarps * 32, smem, stream>>>(
+        x, n, F, m, lint, ldbl, blen, nbins, tabs, rows, out, use_smem,
+        nullptr);
+  }
+  err = cudaGetLastError();
   if (err != cudaSuccess || num_long == 0) return (int)err;
   tree_shap_long<<<long_blocks, long_threads,
                    3 * long_threads * sizeof(double), stream>>>(

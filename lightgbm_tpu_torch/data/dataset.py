@@ -233,6 +233,20 @@ class Dataset:
                 np.ascontiguousarray(self.mv_slots)).to(device)
         return self._device_copies[key]
 
+    def mv_layout_device(self, device):
+        """The compact layout of the device slot matrix that the multi-val
+        histogram reads (``ops/hist_multival_cuda.py:MultivalLayout``),
+        built once a device, or None without multi-val groups."""
+        if self.mv_slots is None:
+            return None
+        key = "mvlayout:" + str(torch.device(device))
+        if key not in self._device_copies:
+            from ..ops.hist_multival_cuda import MultivalLayout
+            self._device_copies[key] = MultivalLayout(
+                self.mv_slots_device(device),
+                self.num_groups - self.num_dense_groups)
+        return self._device_copies[key]
+
     def raw_numeric_device(self, device) -> Optional[torch.Tensor]:
         """Device copy of ``raw_numeric`` (float32 [N, F]), or None."""
         if self.raw_numeric is None:

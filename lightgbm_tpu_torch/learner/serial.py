@@ -46,8 +46,8 @@ group histograms are debundled before its scan (``LeafwiseLearner.
 _scan``). A multi-val dataset (``create_tree_learner`` sends it here)
 adds its pseudo-groups' histograms from the slot matrix
 (``ops/hist_multival_cuda.py``: the ``hist_multival`` kernel on the
-card), concatenated after the dense groups' on the group axis (JAX
-serial.py:786-800).
+card, over the slots' compact layout, built once here), concatenated
+after the dense groups' on the group axis (JAX serial.py:786-800).
 
 The per-phase loop also runs extra_trees, by-node sampling, CEGB
 (with the lazy penalty: its ``[N, F]`` charged matrix lives here, on the
@@ -108,7 +108,11 @@ class SerialTreeLearner(LeafwiseLearner):
         # multi-val pseudo-groups: no column, their values in the slots
         self.mv_groups = self.num_groups - self.num_cols
         self.mv_slots = dataset.mv_slots_device(self.device)
-        self._mv_partial = multival_partial(self.mv_groups, self.device) \
+        # the slots' compact layout (the histograms read it; the node
+        # walks decode the slots)
+        self.mv_layout = dataset.mv_layout_device(self.device)
+        self._mv_partial = multival_partial(
+            self.mv_groups, self.num_bins_max, self.device) \
             if self.mv_groups and not self.plain else None
         self.leaf_id = torch.zeros(self.num_data, dtype=torch.int32,
                                    device=self.device)
@@ -147,10 +151,9 @@ class SerialTreeLearner(LeafwiseLearner):
             h = reduce(h)
         if not self.mv_groups:
             return h
-        hm = hist_multival_plain(self.mv_slots, ghc, self.mv_groups, b) \
-            if self.plain else hist_multival(
-                self.mv_slots, ghc, self.mv_groups, b,
-                partial=self._mv_partial)
+        hm = hist_multival_plain(self.mv_layout, ghc, b) \
+            if self.plain else hist_multival(self.mv_layout, ghc, b,
+                                             partial=self._mv_partial)
         return torch.cat([h, hm])
 
     # ------------------------------------------------------------------
@@ -209,7 +212,7 @@ class SerialTreeLearner(LeafwiseLearner):
             lambda hists, leaves, salts: self._scan(hists, leaves, meta_t,
                                                     tables, salts),
             partial=self._partial, bundled=self.bundled,
-            mv=(self.mv_slots, self.mv_groups, self._mv_partial)
+            mv=(self.mv_slots, self.mv_layout, self._mv_partial)
             if self.mv_groups else None, hist_binned=self.binned_hist,
             reduce=self._hist_reduce())
         return self._grow_host(st, ops, im)

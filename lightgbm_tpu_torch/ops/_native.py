@@ -111,15 +111,20 @@ _SIGNATURES = {
                             _P, _P],
     # bin_bytes, B, feat_tile -> the bins one block takes
     "ltt_hist_rows_window": [_I, _I, _I],
-    # slots, K, ghc, ids (or null: all rows), count, g_mv, B,
+    # ent, off, n, npad, ghc, ids (or null: all rows), count, g_mv, B,
     # max_chunks, partial, out, stream
-    "ltt_hist_multival": [_P, _I, _P, _P, _L, _I, _I, _I, _P, _P, _P],
+    "ltt_hist_multival": [_P, _P, _L, _P, _P, _P, _L, _I, _I, _I, _P, _P,
+                          _P],
+    # the same, then times (int64 [grid, 5]), stream
+    "ltt_hist_multival_timed": [_P, _P, _L, _P, _P, _P, _L, _I, _I, _I, _P,
+                                _P, _P, _P],
     # x, n, F, nfeat, nthr, nflags, ncat_off, ncat_len, cats, pbegin,
     # pvalue, pcls, efeat, ezero, ecbegin, cnode, cleft, expected, k,
-    # short_paths, num_short, group, long_paths, num_long, long_threads,
-    # out, blocks, use_smem, smem_bytes, long_blocks, stream
+    # lint, ldbl, blen, nbins, tabs, rows, long_paths, num_long,
+    # long_threads, out, use_smem, smem_bytes, long_blocks, times (or
+    # null), stream
     "ltt_tree_shap": [_P, _L, _I] + [_P] * 15
-    + [_I, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _P],
+    + [_I, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _I, _I, _I, _P, _P],
 }
 
 

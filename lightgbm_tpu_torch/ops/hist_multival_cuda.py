@@ -12,12 +12,20 @@ bin ``(p, value % 256)``, the padding (value 0) too, into pseudo-group 0,
 bin 0, which the debundle never reads, as in the JAX function. The flat
 ``[G_mv, 256, 3]`` space is cut or zero-padded to ``B`` bins.
 
-On a CUDA tensor it launches ``csrc/hist_multival.cu`` (one launch, plus
-the reduce of the chunks' partials); on a CPU tensor it runs
-``hist_multival_plain``. Both follow the port's sum rule: the rows are
-cut into chunks from the row count, K and G_mv alone (``child_chunks``,
+The slots are static through training, so ``MultivalLayout`` compacts
+them once (on their device): the pseudo-groups fall into windows of
+``MV_WINDOW_GROUPS``; for each window and row, the row's real slots of
+that window in slot order as window-local bins (int16), behind int64
+offsets ``off[w * N + r]``; and each row's padding count ``npad``. The
+padding is never read again: bin (0, 0) takes ``npad[r] * ghc[r]``.
+
+On a CUDA layout ``hist_multival`` launches ``csrc/hist_multival.cu``
+(one launch, plus the reduce of the chunks' partials); on a CPU layout it
+runs ``hist_multival_plain``. Both follow the port's sum rule: the list
+is cut into chunks from the row count and G_mv alone (``child_chunks``,
 the constants mirrored from the kernel), each chunk summed in float64,
-the partials summed in chunk order and rounded once to float32.
+the partials summed in chunk order and rounded once to float32. The
+count channel of ``ghc`` must be a 0/1 indicator (``make_ghc``).
 """
 
 from __future__ import annotations
@@ -29,67 +37,110 @@ import torch
 from . import _native
 
 MV_SLOT_STRIDE = 256           # data/bundling.py MV_SLOT_STRIDE
-MV_CHUNK_SLOTS = 1 << 17       # csrc/hist_multival.cu kChunkSlots
-MV_CHUNK_ROWS = (32, 4096)     # kMinChunkRows, kMaxChunkRows
-MV_MAX_VBLOCKS = 1024          # kMaxVBlocks
-MV_SMEM_BUDGET = 200 * 1024    # kSmemBudget
-MV_TILE_BYTES = 32 * 129 * 4 + 32 * 3 * 4   # kTileBytes
-MV_GROUP_BYTES = MV_SLOT_STRIDE * 3 * 8     # kGroupBytes
+MV_WINDOW_GROUPS = 16          # csrc/hist_multival.cu kWindowGroups
+MV_CHUNK_ROWS = 2048           # kChunkRows
+MV_MAX_VBLOCKS = 512           # kMaxVBlocks
 
 
-def window_groups(g_mv: int) -> int:
-    """Pseudo-groups one block holds (their float64 bins in shared
+def windows(g_mv: int) -> int:
+    """Windows of pseudo-groups (a block's float64 bins in shared
     memory)."""
-    return min((MV_SMEM_BUDGET - MV_TILE_BYTES) // MV_GROUP_BYTES, g_mv)
+    return -(-int(g_mv) // MV_WINDOW_GROUPS)
 
 
 def max_chunks(g_mv: int) -> int:
     """The most chunks of a row list: the partials' leading dimension."""
-    w = window_groups(g_mv)
-    return max(1, MV_MAX_VBLOCKS // -(-g_mv // w))
+    return max(1, MV_MAX_VBLOCKS // windows(g_mv))
 
 
-def chunk_rows(k: int) -> int:
-    """Rows a chunk: about ``MV_CHUNK_SLOTS`` slots, 32 to 4096 rows."""
-    lo, hi = MV_CHUNK_ROWS
-    return min(hi, max(lo, MV_CHUNK_SLOTS // int(k)))
-
-
-def child_chunks(count: int, k: int, g_mv: int) -> int:
-    """Chunks of a list of ``count`` rows of ``k`` slots (``chunk_rows``
-    rows a chunk, at most ``max_chunks``): from the count, K and G_mv
+def child_chunks(count: int, g_mv: int) -> int:
+    """Chunks of a list of ``count`` rows (at least ``MV_CHUNK_ROWS``
+    rows a chunk, at most ``max_chunks``): from the count and G_mv
     alone."""
-    return max(1, min(max_chunks(g_mv), -(-int(count) // chunk_rows(k))))
+    return max(1, min(max_chunks(g_mv), -(-int(count) // MV_CHUNK_ROWS)))
 
 
-def multival_partial(g_mv: int, device) -> torch.Tensor:
-    """The kernel's float64 partials [max_chunks, G_mv, 256, 3], allocated
-    once by a caller that launches many histograms."""
-    return torch.empty((max_chunks(g_mv), g_mv, MV_SLOT_STRIDE, 3),
+class MultivalLayout:
+    """The slot matrix ``slots`` [N, K] int32 of ``g_mv`` pseudo-groups,
+    compacted on its device: ``ent`` int16 [E] (the real slots: window by
+    window, row by row, slot order; the window-local bin ``(p - w *
+    MV_WINDOW_GROUPS) * 256 + value % 256``), ``off`` int64 [windows * N
+    + 1] (row r's entries of window w are ``ent[off[w * N + r]:off[w * N
+    + r + 1]]``) and ``npad`` int32 [N] (the row's padding slots)."""
+
+    def __init__(self, slots: torch.Tensor, g_mv: int):
+        if slots.dim() != 2 or slots.dtype != torch.int32:
+            raise ValueError("slots must be an [N, K] int32 matrix")
+        self.n, self.k = slots.shape
+        self.g_mv = int(g_mv)
+        self.windows = windows(g_mv)
+        self.device = slots.device
+        real = slots != 0
+        self.npad = (self.k - real.sum(1)).to(torch.int32)
+        group = slots >> 8
+        win = torch.where(real, group // MV_WINDOW_GROUPS,
+                          torch.full_like(slots, -1))
+        local = ((group % MV_WINDOW_GROUPS) << 8) | (slots & 255)
+        counts, ents = [], []
+        for w in range(self.windows):
+            in_w = win == w
+            counts.append(in_w.sum(1))
+            ents.append(local[in_w])
+        self.off = torch.zeros(self.windows * self.n + 1, dtype=torch.int64,
+                               device=self.device)
+        if self.n:
+            torch.cumsum(torch.cat(counts), 0, out=self.off[1:])
+        self.ent = torch.cat(ents).to(torch.int16) if ents else \
+            torch.zeros(0, dtype=torch.int16, device=self.device)
+
+    def rows_entries(self, rows: torch.Tensor):
+        """(the entries of ``rows`` as flat values ``p * 256 + bin``, the
+        row of each entry): window by window, then row by row, then slot
+        order."""
+        w = torch.arange(self.windows, device=rows.device)
+        at = (w[:, None] * self.n + rows[None, :]).reshape(-1)
+        base = self.off[at]
+        lens = self.off[at + 1] - base
+        starts = torch.cumsum(lens, 0) - lens
+        pos = torch.arange(int(lens.sum()), device=rows.device)
+        pos = pos - torch.repeat_interleave(starts, lens) \
+            + torch.repeat_interleave(base, lens)
+        span = MV_WINDOW_GROUPS * MV_SLOT_STRIDE
+        win = torch.repeat_interleave(w.repeat_interleave(len(rows)), lens)
+        return (self.ent[pos].long() + win * span,
+                torch.repeat_interleave(rows.repeat(self.windows), lens))
+
+
+def multival_partial(g_mv: int, num_bins: int, device) -> torch.Tensor:
+    """The kernel's float64 partials [max_chunks, G_mv, min(B, 256), 3],
+    allocated once by a caller that launches many histograms."""
+    return torch.empty((max_chunks(g_mv), g_mv,
+                        min(int(num_bins), MV_SLOT_STRIDE), 3),
                        dtype=torch.float64, device=device)
 
 
-def hist_multival_plain(slots: torch.Tensor, ghc: torch.Tensor, g_mv: int,
+def hist_multival_plain(layout: MultivalLayout, ghc: torch.Tensor,
                         num_bins: int,
                         ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version: the same chunks, each a float64 ``index_add_`` over
-    the flattened (row, slot) entries, the partials summed in chunk order
-    and rounded once."""
-    if ids is not None:
-        ids = ids.long()
-        slots, ghc = slots.index_select(0, ids), ghc.index_select(0, ids)
-    n, k = slots.shape
-    chunks = child_chunks(n, k, g_mv)
-    size = -(-n // chunks) if n else 0
+    """Plain version: the same chunks of the list, each a float64
+    ``index_add_`` of its rows' real entries plus ``npad * ghc`` into bin
+    (0, 0), the partials summed in chunk order and rounded once."""
+    dev, g_mv = layout.device, layout.g_mv
+    rows = torch.arange(layout.n, device=dev) if ids is None \
+        else ids.to(device=dev, dtype=torch.int64)
+    count = rows.numel()
+    chunks = child_chunks(count, g_mv)
+    size = -(-count // chunks) if count else 0
     total = torch.zeros((g_mv * MV_SLOT_STRIDE, 3), dtype=torch.float64,
-                        device=slots.device)
+                        device=dev)
     vals = ghc.to(torch.float64)
+    npad = layout.npad.to(torch.float64)
     for c in range(chunks):
-        r0, r1 = min(n, c * size), min(n, (c + 1) * size)
+        part_rows = rows[min(count, c * size):min(count, (c + 1) * size)]
         part = torch.zeros_like(total)
-        part.index_add_(0, slots[r0:r1].reshape(-1).long(),
-                        vals[r0:r1, None, :].expand(r1 - r0, k, 3)
-                        .reshape(-1, 3))
+        flat, of = layout.rows_entries(part_rows)
+        part.index_add_(0, flat, vals.index_select(0, of))
+        part[0] += (npad[part_rows, None] * vals[part_rows]).sum(0)
         total += part
     hist = total.float().reshape(g_mv, MV_SLOT_STRIDE, 3)
     if num_bins <= MV_SLOT_STRIDE:
@@ -98,26 +149,31 @@ def hist_multival_plain(slots: torch.Tensor, ghc: torch.Tensor, g_mv: int,
                                    (0, 0, 0, num_bins - MV_SLOT_STRIDE))
 
 
-def hist_multival(slots: torch.Tensor, ghc: torch.Tensor, g_mv: int,
-                  num_bins: int, ids: Optional[torch.Tensor] = None,
-                  partial: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[G_mv, B, 3] f32 histogram of the multi-val pseudo-groups:
-    ``slots`` [N, K] int32, ``ghc`` [N, 3] f32, over all rows or the rows
-    ``ids`` (int32, in row order). On a CUDA tensor it launches
+def hist_multival(layout: MultivalLayout, ghc: torch.Tensor, num_bins: int,
+                  ids: Optional[torch.Tensor] = None,
+                  partial: Optional[torch.Tensor] = None,
+                  times: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[G_mv, B, 3] f32 histogram of the multi-val pseudo-groups of
+    ``layout`` with ``ghc`` [N, 3] f32, over all rows or the rows ``ids``
+    (int32, distinct, in row order). On a CUDA layout it launches
     ``csrc/hist_multival.cu`` (``partial``, the float64 scratch from
     ``multival_partial``, is allocated here when not given); on a CPU
-    tensor it runs ``hist_multival_plain``."""
-    dev = slots.device
+    layout it runs ``hist_multival_plain``.
+
+    ``times`` (for ``chip_profile.py``; not counted in ``LAUNCHES``):
+    int64 [blocks, 5] on the card, a row for each (chunk, window) block;
+    the launch goes through the kernel's timed instantiation, whose every
+    block writes its cycles of staging, the passes' loads and sorts, the
+    accumulation and the write-out, and its entries there."""
+    dev = layout.device
     if dev.type == "cpu":
-        return hist_multival_plain(slots, ghc, g_mv, num_bins, ids)
+        return hist_multival_plain(layout, ghc, num_bins, ids)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if g_mv < 1 or num_bins < 1:
-        raise ValueError(f"need g_mv >= 1 and num_bins >= 1, got {g_mv}, "
-                         f"{num_bins}")
-    n, k = slots.shape
+    g_mv, n = layout.g_mv, layout.n
+    if num_bins < 1:
+        raise ValueError(f"need num_bins >= 1, got {num_bins}")
     req = _native.require
-    req(slots, device=dev, dtype=torch.int32, name="slots")
     req(ghc, device=dev, dtype=torch.float32, shape=(n, 3), name="ghc")
     if ids is None:
         count, ids_ptr = n, None
@@ -127,14 +183,25 @@ def hist_multival(slots: torch.Tensor, ghc: torch.Tensor, g_mv: int,
             raise ValueError("ids must be one-dimensional")
         count, ids_ptr = ids.numel(), ids.data_ptr() or None
     if partial is None:
-        partial = multival_partial(g_mv, dev)
+        partial = multival_partial(g_mv, num_bins, dev)
     req(partial, device=dev, dtype=torch.float64,
-        shape=(max_chunks(g_mv), g_mv, MV_SLOT_STRIDE, 3), name="partial")
+        shape=(max_chunks(g_mv), g_mv, min(num_bins, MV_SLOT_STRIDE), 3),
+        name="partial")
     out = torch.empty((g_mv, num_bins, 3), dtype=torch.float32, device=dev)
-    err = _native.library().ltt_hist_multival(
-        slots.data_ptr(), k, ghc.data_ptr(), ids_ptr, count, g_mv, num_bins,
-        max_chunks(g_mv), partial.data_ptr(), out.data_ptr(),
-        _native.stream_of(slots))
+    args = (layout.ent.data_ptr() or None, layout.off.data_ptr(), n,
+            layout.npad.data_ptr() or None, ghc.data_ptr(), ids_ptr, count,
+            g_mv, num_bins, max_chunks(g_mv), partial.data_ptr(),
+            out.data_ptr())
+    if times is not None:
+        blocks = child_chunks(count, g_mv) * layout.windows
+        req(times, device=dev, dtype=torch.int64, shape=(blocks, 5),
+            name="times")
+        _native.check(_native.library().ltt_hist_multival_timed(
+            *args, times.data_ptr(), _native.stream_of(ghc)),
+            "hist_multival (timed)")
+        return out
+    err = _native.library().ltt_hist_multival(*args,
+                                              _native.stream_of(ghc))
     _native.LAUNCHES["hist_multival"] += 1
     _native.check(err, "hist_multival")
     return out

@@ -449,10 +449,11 @@ def leaf_split_ops(lid, binned, ghc, imeta: np.ndarray, b: int, scan,
     row ids in row order, else ``build_histogram`` over masked ghc (the
     plain version, the JAX twin's formulation; rows with zero ghc add
     nothing, so the two are the same function); with ``mv`` = (slots,
-    G_mv, the kernel's multi-val partials or None for the plain
+    their layout, the kernel's multi-val partials or None for the plain
     version) the multi-val groups' histogram of the same rows
-    (``hist_multival``) follows on the group axis. ``scan`` is given
-    (the scan kernel or its plain version). ``imeta`` is the host [F, 8]
+    (``hist_multival`` over the slots' ``MultivalLayout``) follows on
+    the group axis. ``scan`` is given (the scan kernel or its plain
+    version). ``imeta`` is the host [F, 8]
     metadata table. ``hist_binned`` (default ``binned``) is the matrix
     the histograms read (the feature-parallel learner's shard of the
     columns); ``reduce`` takes each histogram's float64 sums, unrounded,
@@ -510,11 +511,11 @@ def leaf_split_ops(lid, binned, ghc, imeta: np.ndarray, b: int, scan,
             h = reduce(h)
         if mv is None:
             return h
-        slots, g_mv, mv_partial = mv
+        _, layout, mv_partial = mv
         if mv_partial is not None:
-            hm = hist_multival(slots, ghc, g_mv, b, ids, partial=mv_partial)
+            hm = hist_multival(layout, ghc, b, ids, partial=mv_partial)
         else:
-            hm = hist_multival_plain(slots, ghc, g_mv, b, torch.nonzero(
+            hm = hist_multival_plain(layout, ghc, b, torch.nonzero(
                 in_small).flatten())
         return torch.cat([h, hm])
 

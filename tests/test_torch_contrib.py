@@ -18,6 +18,13 @@ port against the JAX package, on the CPU.
   1e-9 relative, on the golden models and on a deep chain that repeats
   one feature on every node and on a chain of 40 distinct features
   (paths longer than a warp).
+* The bin kernel's layout (``pack_bins``: the short paths first-fit
+  decreasing into 32-lane bins; ``bin_lanes``: each lane's interval
+  test, reciprocals, the slots' lowest lanes) evaluated by a numpy model
+  of its lanes (``bins_model``) equals JAX ``_predict_contrib`` within
+  1e-9 relative on the golden and trained models and the chains; the
+  packing puts every path in exactly one bin, at most 32 lanes a bin,
+  and gives the same bins every time.
 
 The kernel itself is held against the plain version on the card by
 ``tests/test_torch_kernels_cuda.py`` (``cuda``-marked, no JAX).
@@ -34,12 +41,14 @@ import lightgbm_tpu as lgb
 from lightgbm_tpu.io import model_text as jtext
 from lightgbm_tpu.predictor import _predict_contrib
 import lightgbm_tpu_torch as lt
-from lightgbm_tpu_torch.ops.tree_shap_cuda import shap_paths
+from lightgbm_tpu_torch.ops.tree_shap_cuda import (bin_lanes, pack_bins,
+                                                   shap_paths)
 from lightgbm_tpu_torch.predictor import tree_shap_plain
 
 sys.path.insert(0, os.path.dirname(__file__))
 from golden_common import DATASETS  # noqa: E402
-from torch_shap_model import chain_rows, chain_tree, kernel_model  # noqa: E402,E501
+from torch_shap_model import (bins_model, chain_rows,  # noqa: E402
+                              chain_tree, kernel_model)
 
 torch.set_num_threads(2)
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures", "golden")
@@ -182,6 +191,75 @@ def test_a_path_longer_than_a_warp():
         lt.Booster.from_trees([tree], {"objective": "regression"},
                               device="cpu").model_to_string())
     _close(ref, _predict_contrib(jt.models, x, 1))
+
+
+# ---- the bin kernel's packing and lanes --------------------------------
+
+def _bin_cases():
+    return [("golden", n) for n in GOLDEN] + [
+        ("trained", "binary"), ("trained", "multiclass"),
+        ("chain", "repeat"), ("chain", "long")]
+
+
+def _case_models(kind, name):
+    """(models, rows, k, model text) of a golden model, a port-trained
+    63-leaf one, or a hand-built chain."""
+    if kind == "golden":
+        text, X = _golden(name)
+        bst = lt.Booster(model_str=text, device="cpu")
+        return bst.models, X[:40], bst.num_model_per_iteration(), text
+    if kind == "trained":
+        X, bst = _trained(name, 1)
+        return (bst.models, X[:60], bst.num_model_per_iteration(),
+                bst.model_to_string())
+    if name == "repeat":
+        tree = chain_tree([0] * 36 + [1, 2, 3, 0],
+                          list(np.linspace(-1.5, 1.5, 36))
+                          + [0.1, -0.2, 0.3, 1.8])
+        x = chain_rows(4)
+    else:
+        tree = chain_tree(list(range(40)), list(0.05 * np.arange(40) - 1.0),
+                          seed=2)
+        x = chain_rows(40)
+    text = lt.Booster.from_trees([tree], {"objective": "regression"},
+                                 device="cpu").model_to_string()
+    return [tree], x, 1, text
+
+
+@pytest.mark.parametrize("kind,name", _bin_cases())
+def test_pack_bins_places_every_path_once(kind, name):
+    models, _, k, _ = _case_models(kind, name)
+    p = shap_paths(models, k)
+    lens = p["lens"]
+    short = np.nonzero(lens <= 32)[0]
+    bins = pack_bins(lens, short)
+    placed = sorted(q for b in bins for q in b)
+    assert placed == sorted(short.tolist())
+    assert all(sum(int(lens[q]) for q in b) <= 32 for b in bins)
+    assert bins == pack_bins(lens, short[::-1].copy())
+    # first fit decreasing: longest first, each path in the lowest bin
+    # with room for it when it was placed
+    where = {q: b for b, members in enumerate(bins) for q in members}
+    room = []
+    for q in sorted(short.tolist(), key=lambda q: (-int(lens[q]), q)):
+        b = where[q]
+        assert all(r < lens[q] for r in room[:b])
+        if b == len(room):
+            room.append(32)
+        room[b] -= int(lens[q])
+    lint, _, blen = bin_lanes(p, bins)
+    assert lint.shape == (len(bins), 32, 8)
+    used = (lint[:, :, 0] >> 16) & 255
+    for b, members in enumerate(bins):
+        assert int((used[b] > 0).sum()) == sum(int(lens[q]) for q in members)
+        assert blen[b] == max(int(lens[q]) for q in members)
+
+
+@pytest.mark.parametrize("kind,name", _bin_cases())
+def test_bin_layout_matches_jax(kind, name):
+    models, X, k, text = _case_models(kind, name)
+    ref = _predict_contrib(jtext.load_model_from_string(text).models, X, k)
+    _close(bins_model(models, X, k), ref)
 
 
 def test_linear_leaves_are_refused_like_jax():

@@ -869,6 +869,51 @@ def test_tree_shap_kernel_deep_chains(dev, which):
                                atol=1e-12)
 
 
+@pytest.mark.parametrize("which", ["mixed", "trained", "repeats", "long"])
+def test_tree_shap_kernel_repeatable(dev, which):
+    """Two launches give the same contributions to the bit (no float
+    atomics: every slot's adds run in bin order, then lane order), and
+    both are within 1e-9 of the plain version: on chains of 3-20 distinct
+    features whose paths (2-21 elements) share bins, on a trained model,
+    and on the deep chains (the long-path kernel after the bin kernel)."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops.tree_shap_cuda import ShapModel, \
+        tree_shap_cuda
+    from lightgbm_tpu_torch.predictor import tree_shap_plain
+    from torch_shap_model import chain_rows, chain_tree
+    f = 40 if which == "long" else 24
+    if which == "mixed":
+        models = [chain_tree(list(range(m)),
+                             list(0.1 * np.arange(m) - 0.9), seed=m)
+                  for m in (3, 7, 12, 20, 5, 9)]
+    elif which == "trained":
+        rng = np.random.RandomState(5)
+        X = rng.randn(20_000, f)
+        y = (X[:, 0] + X[:, 1] * X[:, 2] - X[:, 3] > 0).astype(float)
+        models = lt.train({"objective": "binary", "num_leaves": 63,
+                           "verbosity": -1}, lt.Dataset(X, label=y), 4,
+                          device="cpu").models
+    elif which == "repeats":
+        models = [chain_tree([0] * 36 + [1, 2, 3, 0],
+                             list(np.linspace(-1.5, 1.5, 36))
+                             + [0.1, -0.2, 0.3, 1.8])]
+    else:
+        models = [chain_tree(list(range(f)),
+                             list(0.05 * np.arange(f) - 1.0), seed=2)]
+    x = chain_rows(f, n=3_000)
+    sm = ShapModel(models, 1, dev)
+    if which == "mixed":
+        lens = sm.paths["lens"]
+        assert any(len({int(lens[q]) for q in b}) > 1 for b in sm.bins)
+    xd = torch.from_numpy(x).to(dev)
+    a = tree_shap_cuda(sm, xd)
+    b = tree_shap_cuda(sm, xd)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    ref = tree_shap_plain(models, torch.from_numpy(x), 1).numpy()
+    np.testing.assert_allclose(a.cpu().numpy(), ref, rtol=1e-9, atol=1e-12)
+
+
 def _categorical_data(n, seed=3):
     """A 40-way category (feature 0) with numeric noise, as
     tests/test_torch_categorical_train.py trains it."""
@@ -956,9 +1001,8 @@ def test_hist_multival_kernel_matches_plain(dev, b, case):
     from lightgbm_tpu_torch.ops import _native
     from lightgbm_tpu_torch.ops import hist_multival_cuda as hm
     ds = _bosch_slots(30_000)
-    g_mv = ds.num_groups - ds.num_dense_groups
-    slots = ds.mv_slots_device(dev)
-    n = slots.shape[0]
+    lay = ds.mv_layout_device(dev)
+    n = lay.n
     g = torch.Generator(device=dev).manual_seed(4)
     ghc = torch.stack([torch.randn(n, generator=g, device=dev),
                        torch.rand(n, generator=g, device=dev),
@@ -967,18 +1011,51 @@ def test_hist_multival_kernel_matches_plain(dev, b, case):
            "third": torch.randperm(n, generator=g, device=dev)[:n // 3],
            "one_row": torch.tensor([n - 1], device=dev),
            "empty": torch.zeros(0, dtype=torch.int64, device=dev),
-           "one_chunk": torch.arange(hm.chunk_rows(slots.shape[1]),
-                                     device=dev)}[case]
+           "one_chunk": torch.arange(hm.MV_CHUNK_ROWS, device=dev)}[case]
     if ids is not None:
         ids = ids.sort().values.to(torch.int32)
     before = _native.LAUNCHES["hist_multival"]
-    out = hm.hist_multival(slots, ghc, g_mv, b, ids)
-    ref = hm.hist_multival_plain(slots, ghc, g_mv, b, ids)
+    out = hm.hist_multival(lay, ghc, b, ids)
+    ref = hm.hist_multival_plain(lay, ghc, b, ids)
     torch.cuda.synchronize()
     assert _native.LAUNCHES["hist_multival"] == before + 1
-    assert out.shape == (g_mv, b, 3)
+    assert out.shape == (lay.g_mv, b, 3)
     assert torch.equal(out, ref)
-    assert torch.equal(out, hm.hist_multival(slots, ghc, g_mv, b, ids))
+    assert torch.equal(out, hm.hist_multival(lay, ghc, b, ids))
+
+
+@pytest.mark.parametrize("g_mv", [1, 16, 17, 30, 31, 242])
+@pytest.mark.parametrize("k", [1, 2, 200])
+@pytest.mark.parametrize("rows", ["all", "list"])
+def test_hist_multival_kernel_shapes(dev, g_mv, k, rows):
+    """The kernel against its plain version and against itself on a
+    second call, bitwise, across slot widths (K 1-2, and 200: past the
+    first design's 128-column tile) and pseudo-group counts (one window,
+    a window's edge of 16 groups, two windows, 16 windows), on exactly
+    representable ghc (multiples of 2^-12 in [-2, 2]: every chunk's
+    float64 sums are exact, so the two sum orders agree by
+    construction)."""
+    from lightgbm_tpu_torch.ops import hist_multival_cuda as hm
+    n = 40_000 if k < 200 else 12_000
+    rng = np.random.RandomState(g_mv * 1000 + k)
+    slots = np.zeros((n, k), np.int32)
+    real = rng.randint(0, k + 1, n)
+    vals = rng.randint(0, g_mv, (n, k)) * 256 + rng.randint(1, 256, (n, k))
+    mask = np.arange(k)[None, :] < real[:, None]
+    slots[mask] = vals[mask]
+    lay = hm.MultivalLayout(torch.from_numpy(slots).to(dev), g_mv)
+    ghc = torch.from_numpy(np.stack([
+        rng.randint(-8192, 8192, n) / 4096.0,
+        rng.randint(0, 8192, n) / 4096.0,
+        rng.randint(0, 2, n)], 1).astype(np.float32)).to(dev)
+    ids = None if rows == "all" else torch.from_numpy(np.sort(rng.choice(
+        n, n // 2, replace=False)).astype(np.int32)).to(dev)
+    out = hm.hist_multival(lay, ghc, 256, ids)
+    again = hm.hist_multival(lay, ghc, 256, ids)
+    ref = hm.hist_multival_plain(lay, ghc, 256, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert torch.equal(out, ref)
 
 
 def test_group_matrix_histogram_and_bundled_lut_partition(dev):

@@ -1,14 +1,17 @@
 """Multi-val EFB groups in the port against the JAX package, on the CPU:
 the JAX test's Bosch-shaped matrix (``tests/test_multival.py``) plans
 multi-val alike with the same slot matrix; the multi-val histogram's
-plain version against JAX ``multival_hist``; training against
-``lgb.train`` and against the same data unbundled; bagging on multi-val.
+plain version, over the slots' compact layout (``MultivalLayout``),
+against JAX ``multival_hist``; training against ``lgb.train`` and
+against the same data unbundled; bagging on multi-val.
 
 Tolerances: plans and slots exactly; histograms within 1e-5 of the
 bin's sum of absolute values, plus 1e-6 (float64 sums rounded once
 here, float32 scatter sums in JAX; the padding bin (0, 0) sums
-thousands of rows); the chunked plain version equals one chunk bit for bit on
-exactly representable inputs; trees exact up to a logged threshold tie,
+thousands of rows); the layout exactly; on exactly representable ghc
+(multiples of 1/64 whose sums stay within float32's 24 bits) the
+chunked plain version equals JAX ``multival_hist`` and one flat
+``np.add.at`` bit for bit; trees exact up to a logged threshold tie,
 leaf values within 1e-5 (``torch_efb_data.compare_trees``).
 """
 
@@ -64,37 +67,120 @@ def test_multival_hist_plain_matches_jax(b, rows):
     slots = tds.mv_slots
     ids = None if rows == "all" else np.sort(rng.choice(
         len(X), len(X) // 3, replace=False)).astype(np.int32)
-    out = hm.hist_multival(torch.from_numpy(slots), torch.from_numpy(ghc),
-                           g_mv, b, None if ids is None
-                           else torch.from_numpy(ids)).numpy()
+    layout = hm.MultivalLayout(torch.from_numpy(slots), g_mv)
+    tids = None if ids is None else torch.from_numpy(ids)
+    out = hm.hist_multival(layout, torch.from_numpy(ghc), b, tids).numpy()
     sel = slice(None) if ids is None else ids
     ref = np.asarray(jmultival(jnp.asarray(slots[sel]),
                                jnp.asarray(ghc[sel]), g_mv, b))
     assert out.shape == ref.shape == (g_mv, b, 3)
-    scale = hm.hist_multival_plain(
-        torch.from_numpy(slots), torch.from_numpy(np.abs(ghc)), g_mv, b,
-        None if ids is None else torch.from_numpy(ids)).numpy()
+    scale = hm.hist_multival_plain(layout, torch.from_numpy(np.abs(ghc)), b,
+                                   tids).numpy()
     assert (np.abs(out - ref) <= 1e-5 * scale + 1e-6).all()
 
 
 def test_multival_chunks_sum_in_chunk_order():
-    """Past one chunk (``chunk_rows(K)`` rows) the plain version sums
+    """Past one chunk (``MV_CHUNK_ROWS`` rows) the plain version sums
     each chunk and then the chunks; on exactly representable ghc that is
     the one-chunk sum bit for bit, and the padding lands in bin (0, 0)."""
     rng = np.random.RandomState(2)
     k, g_mv = 5, 3
-    n = 3 * hm.chunk_rows(k) + 17
+    n = 3 * hm.MV_CHUNK_ROWS + 17
     slots = rng.randint(0, g_mv * 256, (n, k)).astype(np.int32)
     slots[::4, -1] = 0
     ghc = (rng.randint(-512, 512, (n, 3)) / 1024.0).astype(np.float32)
-    assert hm.child_chunks(n, k, g_mv) == 4
-    out = hm.hist_multival_plain(torch.from_numpy(slots),
-                                 torch.from_numpy(ghc), g_mv, 256)
+    assert hm.child_chunks(n, g_mv) == 4
+    out = hm.hist_multival_plain(
+        hm.MultivalLayout(torch.from_numpy(slots), g_mv),
+        torch.from_numpy(ghc), 256)
     flat = np.zeros((g_mv * 256, 3))
     np.add.at(flat, slots.reshape(-1), np.repeat(ghc, k, axis=0))
     np.testing.assert_array_equal(out.numpy(),
                                   flat.astype(np.float32).reshape(
                                       g_mv, 256, 3))
+
+
+def _random_slots(n, k, g_mv, seed):
+    """Slots as ``build_mv_slots`` lays them out: each row's real values
+    (pseudo-group p, in-group value 1-255: ``p * 256 + offset + bin -
+    1``) first, then 0-padding to K; a row may hold none."""
+    rng = np.random.RandomState(seed)
+    slots = np.zeros((n, k), np.int32)
+    real = rng.randint(0, k + 1, n)
+    vals = rng.randint(0, g_mv, (n, k)) * 256 + rng.randint(1, 256, (n, k))
+    mask = np.arange(k)[None, :] < real[:, None]
+    slots[mask] = vals[mask]
+    return slots
+
+
+def _bosch_slots():
+    X, y = bosch_like()
+    tds = Dataset.from_numpy(X, Config.from_params(PARAMS), label=y)
+    return tds.mv_slots, tds.num_groups - tds.num_dense_groups
+
+
+@pytest.mark.parametrize("case", ["bosch", "one_group", "many_windows"])
+def test_multival_layout_from_slots(case):
+    """The compact layout holds each row's real slots, window by window
+    in slot order, as window-local bins behind int64 offsets, and each
+    row's padding count; nothing else."""
+    if case == "bosch":
+        slots, g_mv = _bosch_slots()
+    elif case == "one_group":
+        slots, g_mv = _random_slots(700, 2, 1, 5), 1
+    else:
+        slots, g_mv = _random_slots(900, 40, 70, 6), 70
+    n, k = slots.shape
+    lay = hm.MultivalLayout(torch.from_numpy(slots), g_mv)
+    assert lay.windows == -(-g_mv // hm.MV_WINDOW_GROUPS)
+    assert lay.off.dtype == torch.int64 and lay.ent.dtype == torch.int16
+    assert lay.off.shape == (lay.windows * n + 1,)
+    np.testing.assert_array_equal(lay.npad.numpy(), (slots == 0).sum(1))
+    off, ent = lay.off.numpy(), lay.ent.numpy().astype(np.int64)
+    assert off[0] == 0 and off[-1] == len(ent) == (slots != 0).sum()
+    span = hm.MV_WINDOW_GROUPS * 256
+    for r in range(n):
+        real = slots[r][slots[r] != 0]
+        want = real[np.argsort(real // span, kind="stable")]
+        got = np.concatenate([
+            ent[off[w * n + r]:off[w * n + r + 1]] + w * span
+            for w in range(lay.windows)])
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["bosch_all", "bosch_list",
+                                  "chunks_list", "many_windows",
+                                  "one_group_padding"])
+def test_multival_plain_equals_jax_exactly(case):
+    """On exactly representable ghc the plain version over the layout is
+    JAX ``multival_hist`` to the bit: over all rows and row lists, several
+    chunks, pseudo-groups in five windows, rows of padding alone."""
+    if case.startswith("bosch"):
+        slots, g_mv = _bosch_slots()
+    elif case == "chunks_list":
+        slots, g_mv = _random_slots(3 * hm.MV_CHUNK_ROWS + 300, 6, 9, 7), 9
+    elif case == "many_windows":
+        slots, g_mv = _random_slots(1500, 30, 70, 8), 70
+    else:
+        slots, g_mv = _random_slots(3000, 2, 1, 9), 1
+    n = len(slots)
+    rng = np.random.RandomState(10)
+    ghc = np.stack([rng.randint(-32, 32, n) / 64.0,
+                    rng.randint(0, 32, n) / 64.0,
+                    rng.randint(0, 2, n)], 1).astype(np.float32)
+    ids = None
+    if case.endswith("list"):
+        ids = np.sort(rng.choice(n, 2 * n // 3, replace=False)) \
+            .astype(np.int32)
+        if case == "chunks_list":
+            assert hm.child_chunks(len(ids), g_mv) > 1
+    lay = hm.MultivalLayout(torch.from_numpy(slots), g_mv)
+    out = hm.hist_multival(lay, torch.from_numpy(ghc), 256,
+                           None if ids is None else torch.from_numpy(ids))
+    sel = slice(None) if ids is None else ids
+    ref = np.asarray(jmultival(jnp.asarray(slots[sel]),
+                               jnp.asarray(ghc[sel]), g_mv, 256))
+    np.testing.assert_array_equal(out.numpy(), ref)
 
 
 def _pair(X, y, params, rounds, Xv=None, yv=None):

@@ -1,20 +1,27 @@
 """Models for the TreeSHAP tests, with no JAX: a numpy model of the
 kernel's arithmetic over the host's paths (``csrc/tree_shap.cu``,
-``ops/tree_shap_cuda.py:shap_paths``) and deep chain trees built by
-hand (a feature repeated on every node; more distinct features than a
-warp has lanes)."""
+``ops/tree_shap_cuda.py:shap_paths``), one of the bin kernel's lanes
+over the packed bins (``pack_bins``, ``bin_lanes``), and deep chain
+trees built by hand (a feature repeated on every node; more distinct
+features than a warp has lanes)."""
 
 import numpy as np
 import torch
 
 from lightgbm_tpu_torch.models.tree import Tree, TreeArrays
-from lightgbm_tpu_torch.ops.tree_shap_cuda import shap_paths
+from lightgbm_tpu_torch.ops.tree_shap_cuda import (FLAG_GENERAL,
+                                                   FLAG_LEADER,
+                                                   FLAG_ONE_MISSING,
+                                                   TABLE_SIDE, bin_lanes,
+                                                   pack_bins, shap_paths,
+                                                   shap_tables)
 
 
-def kernel_model(models, x, k):
+def kernel_model(models, x, k, min_len=0):
     """The kernel's arithmetic in numpy: per row and path, the elements'
     one fractions, the extend of every element in path order and each
-    element's unwound sum (csrc/tree_shap.cu)."""
+    element's unwound sum (csrc/tree_shap.cu); with ``min_len``, the
+    paths of at least that many elements alone."""
     from lightgbm_tpu_torch.predictor import node_go_left
     p = shap_paths(models, k)
     n, f = x.shape
@@ -29,6 +36,8 @@ def kernel_model(models, x, k):
         out[:, c * (f + 1) + f] = p["expected"][c]
     for q in range(len(p["pvalue"])):
         b, e1 = p["pbegin"][q], p["pbegin"][q + 1]
+        if e1 - b < min_len:
+            continue
         zero = p["ezero"][b:e1]
         one = np.ones((n, e1 - b))
         for i, e in enumerate(range(b, e1)):
@@ -59,6 +68,110 @@ def kernel_model(models, x, k):
                                / (dd + 1), nxt)
             col = p["pcls"][q] * (f + 1) + p["efeat"][b + i]
             out[:, col] += tot * (one[:, i] - zero[i]) * p["pvalue"][q]
+    return out
+
+
+def _node_left(models, x):
+    """[n, nodes] the row's decision at every node of the model, in
+    ``shap_paths``' node numbering (predictor.py decides)."""
+    from lightgbm_tpu_torch.predictor import node_go_left
+    xt = torch.from_numpy(x)
+    cols = [node_go_left(t, j, xt[:, int(t.split_feature[j])]).numpy()
+            for t in models if t.num_leaves > 1
+            for j in range(t.num_leaves - 1)]
+    return np.stack(cols, axis=1) if cols else np.zeros((len(x), 0), bool)
+
+
+def bins_model(models, x, k):
+    """The bin kernel's arithmetic (csrc/tree_shap.cu tree_shap_bins) in
+    numpy, every row at once: the short paths packed into 32-lane bins,
+    each lane's one fraction from its interval (or its node list), the
+    extend and unwound loops to the bin's longest path with the ratio
+    tables (``shap_tables``) in place of divisions and lane gathers for
+    the shuffles and shared copies, each slot's lanes summed in lane
+    order by the lowest and added once, bins in order. Paths longer
+    than a warp take ``kernel_model``'s loop, added after, as the
+    long-path kernel adds after the bin kernel."""
+    p = shap_paths(models, k)
+    n, f = x.shape
+    lens = p["lens"]
+    short = np.nonzero(lens <= 32)[0]
+    bins = pack_bins(lens, short)
+    lint, ldbl, blen = bin_lanes(p, bins)
+    left = _node_left(models, x)
+    t = TABLE_SIDE
+    tabs = shap_tables()
+    ext = tabs[:2 * t * t].reshape(t, t, 2)
+    unw = tabs[2 * t * t:].reshape(t, t, 4)
+    out = np.zeros((n, k * (f + 1)))
+    lanes = np.arange(32)
+    for b in range(len(bins)):
+        meta = lint[b, :, 0]
+        r, s, ln = meta & 255, (meta >> 8) & 255, (meta >> 16) & 255
+        feat, flags, elem, cls = (lint[b, :, i] for i in range(1, 5))
+        peers = lint[b, :, 5].view(np.uint32)
+        zero, lo, hi, val = (ldbl[b, :, i] for i in range(4))
+        maxlen = int(blen[b])
+        one = np.ones((n, 32))
+        for q in np.nonzero(feat >= 0)[0]:
+            if flags[q] & FLAG_GENERAL:
+                e = elem[q]
+                ok = np.ones(n, bool)
+                for cc in range(p["ecbegin"][e], p["ecbegin"][e + 1]):
+                    ok &= left[:, p["cnode"][cc]] == (p["cleft"][cc] != 0)
+                one[:, q] = ok
+                continue
+            v = x[:, feat[q]].copy()
+            miss = flags[q] & 3
+            nan = np.isnan(v)
+            if miss != 2:
+                v[nan] = 0.0
+            missing = np.abs(v) <= 1e-35 if miss == 1 else (
+                nan if miss == 2 else np.zeros(n, bool))
+            with np.errstate(invalid="ignore"):
+                inside = (v > lo[q]) & (v <= hi[q])
+            one[:, q] = np.where(missing,
+                                 float(bool(flags[q] & FLAG_ONE_MISSING)),
+                                 inside)
+        ones = (ln > 0) & (one != 0)
+        pw = np.where(r == 0, 1.0, 0.0)[None, :].repeat(n, 0)
+        for d in range(1, maxlen):
+            src = np.minimum(s + d, 31)
+            zd = zero[src]
+            leftw = np.concatenate([pw[:, :1], pw[:, :-1]], axis=1)
+            act = (d < ln) & (r <= d)
+            q = ext[d, np.minimum(r, t - 1)]
+            a = np.where(r < d, zd * pw * q[:, 0], 0.0)
+            bb = np.where((r >= 1) & ones[:, src], leftw * q[:, 1], 0.0)
+            pw = np.where(act, a + bb, pw)
+        dd = ln - 1
+        u = unw[np.maximum(dd, 0)]
+        with np.errstate(divide="ignore"):
+            invz = 1.0 / zero
+        nxt = pw[:, np.minimum(s + np.maximum(dd, 0), 31)]
+        tot = np.zeros((n, 32))
+        for j in range(maxlen - 2, -1, -1):
+            pwj = pw[:, np.minimum(s + j, 31)]
+            act = j < dd
+            tmp = nxt * u[:, j, 0]
+            with np.errstate(invalid="ignore"):
+                alt = pwj * invz * u[:, j, 2]
+            on = one != 0
+            tot = np.where(act, tot + np.where(on, tmp, alt), tot)
+            nxt = np.where(act & on, pwj - tmp * zero * u[:, j, 1], nxt)
+        v = np.where((ln > 0) & (r >= 1), tot * (one - zero) * val, 0.0)
+        for q in np.nonzero(flags & FLAG_LEADER)[0]:
+            acc = v[:, q].copy()
+            for src in lanes[(peers[q] >> lanes) & 1 == 1]:
+                acc += v[:, src]
+            out[:, cls[q] * (f + 1) + feat[q]] += acc
+    for c in range(k):
+        out[:, c * (f + 1) + f] = p["expected"][c]
+    if (lens > 32).any():
+        extra = kernel_model(models, x, k, min_len=33)
+        for c in range(k):
+            extra[:, c * (f + 1) + f] = 0.0
+        out += extra
     return out
 
 
