@@ -737,20 +737,14 @@ def multival_sets():
 
 
 def multival_caller(binned, dev):
-    """(call(ghc, b, ids, times=None), g_mv, b, K, blocks(count)): the
-    multi-val histogram of a binned dataset through whichever wrapper the
-    imported package has: this tree's over the slots' compact layout
-    (built here, its time printed), or a parent's over the slots."""
+    """(call(ghc, b, ids, times=None), layout, b): the multi-val
+    histogram of a binned dataset over its slots' compact layout (built
+    here, its time printed)."""
     import torch
     from lightgbm_tpu_torch.ops import hist_multival_cuda as hm
     slots = binned.mv_slots_device(dev)
     g_mv = binned.num_groups - binned.num_dense_groups
     b = int(max(binned.num_bins_array().max(), binned.group_num_bins.max()))
-    k = slots.shape[1]
-    if not hasattr(hm, "MultivalLayout"):
-        partial = hm.multival_partial(g_mv, dev)
-        return (lambda ghc, bb, ids, times=None: hm.hist_multival(
-            slots, ghc, g_mv, bb, ids, partial=partial)), g_mv, b, k, None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lay = binned.mv_layout_device(dev)
@@ -761,64 +755,66 @@ def multival_caller(binned, dev):
     partial = hm.multival_partial(g_mv, b, dev)
 
     def call(ghc, bb, ids, times=None):
-        kw = {} if times is None else {"times": times}
-        return hm.hist_multival(lay, ghc, bb, ids, partial=partial, **kw)
-
-    def blocks(count):
-        return hm.child_chunks(count, g_mv) * hm.windows(g_mv)
-    return call, g_mv, b, k, blocks
+        return hm.hist_multival(lay, ghc, bb, ids, partial=partial,
+                                times=times)
+    return call, lay, b
 
 
 MV_TIMED = ("staging", "pass loads + sort", "accumulation", "write-out",
             "entries")
 
 
-def multival_phases(sets, dev, timed: bool = True) -> str:
+def multival_phases(sets, dev) -> str:
     """``hist_multival`` on phase 12's (c) and (a) slots: over all rows
     and a random third in row order (chip_smoke.py check_hist_multival's
-    ghc and third), the median of 20 launches between CUDA events against
-    the byte bound; with ``timed``, one launch of the timed build (mean
-    cycles a block of each of its laps); then ``MV_ITERS`` iterations of
-    each run's training with CUDA events around every call (ms a call,
+    ghc and third), the median of 20 launches between CUDA events and the
+    mean device time of 5 (its own profiler session) against the byte
+    bound, and one launch of the timed build (mean cycles a
+    block of each of its laps); then ``MV_ITERS`` iterations of each
+    run's training with CUDA events around every call (ms a call,
     calls)."""
     import numpy as np
     import torch
     import lightgbm_tpu_torch as lt
-    from chip_smoke import DeviceTimer, HBM_BYTES_PER_S, time_ms
+    from chip_smoke import (DeviceTimer, HBM_BYTES_PER_S, device_us,
+                            multival_bytes, time_ms)
     from lightgbm_tpu_torch.learner import serial as ls
     from lightgbm_tpu_torch.ops import hist_multival_cuda as hmc
     lines = []
     for label, (ds, binned, params) in sets.items():
-        call, g_mv, b, k, blocks = multival_caller(binned, dev)
-        n = binned.num_data
+        call, lay, b = multival_caller(binned, dev)
+        n, k, g_mv = lay.n, lay.k, lay.g_mv
         gen = torch.Generator(device=dev).manual_seed(12)
         ghc = torch.stack([torch.randn(n, generator=gen, device=dev),
                            torch.rand(n, generator=gen, device=dev) * 0.25,
                            torch.ones(n, device=dev)], 1).contiguous()
         third = torch.nonzero(torch.rand(n, generator=gen, device=dev)
                               < 1 / 3).flatten().to(torch.int32)
-        real = float((torch.from_numpy(binned.mv_slots) != 0).sum()) / n
+        real = lay.ent.numel() / max(n, 1)
         for mode, ids in (("all rows", None), ("a third", third)):
             rows = n if ids is None else ids.numel()
             ms = time_ms(lambda: call(ghc, b, ids), 20)
-            nbytes = rows * (k * 4 + 12 + (0 if ids is None else 4)) \
-                + g_mv * b * 3 * 4
+            dev_ms = device_us(lambda: call(ghc, b, ids), 5,
+                               ("hist_multival",),
+                               need=("hist_multival_kernel",)) / 1e3
+            nbytes = multival_bytes(lay, ids, b)
             line = (f"[multival phases] {label} {mode}: {rows} rows x K {k} "
                     f"({real:.1f} real slots a row), G_mv {g_mv}, B {b}: "
-                    f"{ms:.4f} ms median of 20, bound "
-                    f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
-            if timed and blocks is not None:
-                nb = blocks(rows)
-                times = torch.zeros((nb, len(MV_TIMED)), dtype=torch.int64,
-                                    device=dev)
-                call(ghc, b, ids, times=times)
-                torch.cuda.synchronize()
-                cyc = times.cpu().numpy().astype(np.float64)
-                mean = cyc.mean(0)
-                line += f"; timed build, {nb} blocks, mean a block: " \
-                    + ", ".join(f"{name} {mean[i]:.0f}"
-                                for i, name in enumerate(MV_TIMED)) \
-                    + f" (slowest block {cyc[:, :4].sum(1).max():.0f} cycles)"
+                    f"{ms:.4f} ms median of 20, device "
+                    + (f"{dev_ms:.4f} ms (profiler, mean of 5)" if dev_ms
+                       else "not measured (profiler records lost)")
+                    + f", bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+            nb = hmc.child_chunks(rows, g_mv) * lay.windows
+            times = torch.zeros((nb, len(MV_TIMED)), dtype=torch.int64,
+                                device=dev)
+            call(ghc, b, ids, times=times)
+            torch.cuda.synchronize()
+            cyc = times.cpu().numpy().astype(np.float64)
+            mean = cyc.mean(0)
+            line += f"; timed build, {nb} blocks, mean a block: " \
+                + ", ".join(f"{name} {mean[i]:.0f}"
+                            for i, name in enumerate(MV_TIMED)) \
+                + f" (slowest block {cyc[:, :4].sum(1).max():.0f} cycles)"
             lines.append(line)
             print(line)
         del ghc, third
@@ -871,12 +867,11 @@ def shap_models(X, y, dev):
     return {"binary": binary, "multiclass 5": mc}
 
 
-def shap_phases(models, X, dev, timed: bool = True) -> str:
+def shap_phases(models, X, dev) -> str:
     """``tree_shap`` on 100k rows of each model: the median of CUDA
     events over 5 calls against the float64 operation bound, the mean
-    device time in its own profiler session; with ``timed``, one launch
-    of the timed build (the warp kernel's mean cycles a warp in each
-    lap)."""
+    device time in its own profiler session, and one launch of the timed
+    build (the warp kernel's mean cycles a warp in each lap)."""
     import numpy as np
     import torch
     from chip_smoke import (F64_FLOPS, HBM_BYTES_PER_S, device_us,
@@ -895,25 +890,21 @@ def shap_phases(models, X, dev, timed: bool = True) -> str:
         nbytes, ops = ts.shap_work(sm.paths, n, f, k)
         bound = max(nbytes / HBM_BYTES_PER_S, ops / F64_FLOPS) * 1e3
         lens = sm.paths["lens"]
-        bins = getattr(sm, "bins", None)
-        busy = lens[lens <= 32].sum() / 32 / max(len(bins or ()), 1)
+        busy = lens[lens <= 32].sum() / 32 / max(len(sm.bins), 1)
         line = (f"[shap phases] {label}: {n} rows, {len(bst.models)} trees, "
                 f"{len(lens)} paths (mean {lens.mean():.2f}, longest "
-                f"{lens.max()} elements)"
-                + (f", {len(bins)} bins ({busy:.3f} of their lanes busy)"
-                   if bins is not None else "")
-                + f": {ms:.3f} ms median of 5, device "
+                f"{lens.max()} elements), {len(sm.bins)} bins ({busy:.3f} of "
+                f"their lanes busy): {ms:.3f} ms median of 5, device "
                 f"{dev_ms:.3f} ms (profiler, mean of 3), bound "
                 f"{bound:.4f} ms")
-        if timed:
-            nw = ts.shap_warps(n, k * (f + 1))
-            times = torch.zeros((nw, len(SHAP_TIMED)), dtype=torch.int64,
-                                device=dev)
-            ts.tree_shap_cuda(sm, xd, times=times)
-            torch.cuda.synchronize()
-            mean = times.cpu().numpy().astype(np.float64).mean(0)
-            line += "; timed build, mean a warp: " + ", ".join(
-                f"{name} {mean[i]:.0f}" for i, name in enumerate(SHAP_TIMED))
+        nw = ts.shap_warps(n, k * (f + 1))
+        times = torch.zeros((nw, len(SHAP_TIMED)), dtype=torch.int64,
+                            device=dev)
+        ts.tree_shap_cuda(sm, xd, times=times)
+        torch.cuda.synchronize()
+        mean = times.cpu().numpy().astype(np.float64).mean(0)
+        line += "; timed build, mean a warp: " + ", ".join(
+            f"{name} {mean[i]:.0f}" for i, name in enumerate(SHAP_TIMED))
         lines.append(line)
         print(line)
     return "\n".join(lines)
@@ -939,12 +930,8 @@ def main() -> int:
     ap.add_argument("--multival-phases", action="store_true",
                     help="time hist_multival on phase 12's slots, its "
                     "timed build and its calls in training")
-    ap.add_argument("--multival", action="store_true",
-                    help="the same without the timed build")
     ap.add_argument("--shap-phases", action="store_true",
                     help="time tree_shap on 100k rows and its timed build")
-    ap.add_argument("--shap", action="store_true",
-                    help="the same without the timed build")
     ap.add_argument("--package", default=None,
                     help="import lightgbm_tpu_torch from this directory "
                     "(a parent tree unpacked beside this one)")
@@ -958,8 +945,7 @@ def main() -> int:
         + ["scan-phases"] * args.scan_phases \
         + ["partition"] * args.partition \
         + ["multival-phases"] * args.multival_phases \
-        + ["multival"] * args.multival \
-        + ["shap-phases"] * args.shap_phases + ["shap"] * args.shap
+        + ["shap-phases"] * args.shap_phases
     if args.package:
         sys.path.insert(0, os.path.abspath(args.package))
     paths = args.paths.split(",") if args.paths else \
@@ -978,17 +964,15 @@ def main() -> int:
     print(f"package: {os.path.dirname(lt.__file__)}")
     dev = torch.device("cuda")
     tables = []
-    if "multival-phases" in paths or "multival" in paths:
-        tables.append(multival_phases(multival_sets(), dev,
-                                      timed="multival-phases" in paths))
-    paths = [p for p in paths if p not in ("multival-phases", "multival")]
+    if "multival-phases" in paths:
+        tables.append(multival_phases(multival_sets(), dev))
+    paths = [p for p in paths if p != "multival-phases"]
     if not paths:
         return write_tables(tables)
     X, y = higgs_like(args.rows)
-    if "shap-phases" in paths or "shap" in paths:
-        tables.append(shap_phases(shap_models(X, y, dev), X, dev,
-                                  timed="shap-phases" in paths))
-    paths = [p for p in paths if p not in ("shap-phases", "shap")]
+    if "shap-phases" in paths:
+        tables.append(shap_phases(shap_models(X, y, dev), X, dev))
+    paths = [p for p in paths if p != "shap-phases"]
     # binned once per max_bin (a Dataset keeps its first binning),
     # shared by the paths
     sets = {}

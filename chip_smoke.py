@@ -303,14 +303,16 @@ def merged_us(intervals) -> float:
     return total + (0.0 if hi is None else hi - lo)
 
 
-def device_us(fn, reps: int, kernel) -> float:
+def device_us(fn, reps: int, kernel, need=()) -> float:
     """Mean device time of the CUDA kernels whose names hold ``kernel``
     (a string, or a tuple of them for a wrapper of several kernels) over
     ``reps`` calls of ``fn``: their intervals on the card's timeline
     merged (torch.profiler), so work ``fn`` does around the kernel (a
     state restored) is left out. Unlike CUDA events around a call, this
     leaves out the host's time between launches, which is most of a
-    small kernel's event time."""
+    small kernel's event time. 0 when a name in ``need`` (a kernel
+    every call launches) was recorded fewer than ``reps`` times: the
+    profiler lost records."""
     parts = (kernel,) if isinstance(kernel, str) else kernel
     import torch
     from torch.autograd import DeviceType
@@ -321,10 +323,12 @@ def device_us(fn, reps: int, kernel) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and any(p in e.name for p in parts)]
+    if any(sum(n in e.name for e in events) < reps for n in need):
+        return 0.0
     return merged_us([(e.time_range.start, e.time_range.end)
-                      for e in prof.events()
-                      if e.device_type == DeviceType.CUDA
-                      and any(p in e.name for p in parts)]) / reps
+                      for e in events]) / reps
 
 
 def fail(msg: str) -> None:
@@ -1954,8 +1958,8 @@ def shap_explain(label, bst, X, dev, reps, plain_on_card=False,
     ``abs_scale`` to the sum of the row's |contributions|, for a
     synthetic chain whose 41-element paths cancel), the kernel against
     its plain version (every row on the card with ``plain_on_card``,
-    else the first 256 rows on the CPU), the kernel's ms over ``reps``
-    calls and its bound."""
+    else the first 256 rows on the CPU), two launches on every row
+    bitwise equal, the kernel's ms over ``reps`` calls and its bound."""
     import torch
     from lightgbm_tpu_torch.ops import _native
     from lightgbm_tpu_torch.ops.tree_shap_cuda import (ShapModel, shap_work,
@@ -1984,6 +1988,8 @@ def shap_explain(label, bst, X, dev, reps, plain_on_card=False,
     models = bst.models
     xd = torch.from_numpy(X).to(dev)
     sm = ShapModel(models, k, dev)
+    if not torch.equal(tree_shap_cuda(sm, xd), tree_shap_cuda(sm, xd)):
+        fail(f"SHAP of {label}: the kernel is not bitwise repeatable")
     ms = time_ms(lambda: tree_shap_cuda(sm, xd), reps)
     plain_ms = None
     if plain_on_card:
@@ -2815,16 +2821,31 @@ def efb_pair(label, params, data, y, vdata, vy, iters, dev,
     return (out, kept) if keep else out
 
 
+def multival_bytes(lay, ids, b: int) -> int:
+    """The bytes the multi-val histogram must move over the compact
+    layout ``lay``: each real slot of the listed rows once (2 B), each
+    listed row's ghc (12 B), one offset (8 B) and, with a row list
+    ``ids``, its id (4 B) once, and the [G_mv, B, 3] f32 histogram
+    written once."""
+    real = lay.k - lay.npad.long()
+    if ids is None:
+        rows, entries = lay.n, int(real.sum())
+    else:
+        rows, entries = ids.numel(), int(real[ids.long()].sum())
+    return entries * 2 + rows * (12 + 8 + (0 if ids is None else 4)) \
+        + lay.g_mv * b * 3 * 4
+
+
 def check_hist_multival(ds, dev, reps):
     """The multi-val histogram kernel against its plain version on a
     multi-val dataset's slots over all rows (the serial learner's root)
     and a random third of them in row order (a per-phase child): max
-    abs err 0, bitwise repeatable. Timed beside its plain version, its
-    byte bound (the slots, the rows' ghc and ids read once, the
-    histogram written once) and one float64 ``index_add_`` over the
-    flattened slots (the same sums in atomic order); the compact
-    layout's build (once a dataset, at learner setup) timed apart. The
-    record's numbers are the root's."""
+    abs err 0, bitwise repeatable, and within one float32 rounding of a
+    float64 ``index_add_`` over the raw slots (which does not read the
+    compact layout). Timed beside its plain version, its byte bound
+    (``multival_bytes``) and that ``index_add_`` (the same sums in
+    atomic order); the compact layout's build (once a dataset, at
+    learner setup) timed apart. The record's numbers are the root's."""
     import torch
     from lightgbm_tpu_torch.ops import hist_multival_cuda as hm
     slots = ds.mv_slots_device(dev)
@@ -2857,11 +2878,11 @@ def check_hist_multival(ds, dev, reps):
             fail(f"hist_multival ({mode}) off its plain version by {err}")
         ms = time_ms(lambda: hm.hist_multival(lay, ghc, b, ids,
                                               partial=partial), reps)
-        # None: the profiler recorded none of its kernels (it loses
-        # records late in a long script), not measured
+        # None: the profiler lost some of its main kernel's records (it
+        # loses records late in a long script), not measured
         dev_ms = device_us(lambda: hm.hist_multival(
-            lay, ghc, b, ids, partial=partial), reps,
-            ("hist_multival",)) / 1e3 or None
+            lay, ghc, b, ids, partial=partial), reps, ("hist_multival",),
+            need=("hist_multival_kernel",)) / 1e3 or None
         plain_ms = time_ms(lambda: hm.hist_multival_plain(
             lay, ghc, b, ids), 3)
         rows = n if ids is None else ids.numel()
@@ -2870,11 +2891,20 @@ def check_hist_multival(ds, dev, reps):
         vals = ghc.index_select(0, sel).double().repeat_interleave(k, 0)
         lib_out = torch.zeros((g_mv * 256, 3), dtype=torch.float64,
                               device=dev)
+        # the raw slots' sums, independent of the layout: within one
+        # float32 rounding (rtol 2^-23) of the kernel, atol 1e-9 for the
+        # float64 sums' order
+        lib_out.index_add_(0, keys, vals)
+        lib = lib_out.view(g_mv, 256, 3)[:, :b].float().double()
+        if not torch.allclose(out.double(), lib, rtol=2.0 ** -23,
+                              atol=1e-9):
+            fail(f"hist_multival ({mode}) off the raw slots' index_add_ "
+                 f"by {float((out.double() - lib).abs().max())}")
+        del lib
         library_ms = time_ms(lambda: lib_out.index_add_(0, keys, vals),
                              reps)
         del keys, vals
-        nbytes = rows * (k * 4 + 12 + (0 if ids is None else 4)) \
-            + g_mv * b * 3 * 4
+        nbytes = multival_bytes(lay, ids, b)
         cases[mode] = dict(rows=rows, ms=ms, device_ms=dev_ms,
                            plain_ms=plain_ms, library_ms=library_ms,
                            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,

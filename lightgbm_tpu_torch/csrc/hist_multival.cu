@@ -443,7 +443,7 @@ int run(const unsigned short* ent, const long long* off, long long n,
         int g_mv, int B, int max_chunks, double* partial, float* out,
         long long* times, cudaStream_t stream) {
   if (n < 0 || g_mv < 1 || B < 1 || count < 0 ||
-      max_chunks != max_chunks_of(g_mv) || (kTimed && times == nullptr))
+      max_chunks != max_chunks_of(g_mv))
     return (int)cudaErrorInvalidValue;
   const int W = g_mv < kWindowGroups ? g_mv : kWindowGroups;
   const int chunks = child_chunks(count, g_mv);
@@ -470,26 +470,17 @@ int run(const unsigned short* ent, const long long* off, long long n,
 // g_mv pseudo-groups, B output bins; max_chunks = max_chunks_of(g_mv)
 // (the partials' leading dimension, checked against the Python mirror);
 // partial [max_chunks, g_mv, min(B, 256), 3] f64 (used when the call
-// takes more than one chunk); out [g_mv, B, 3] f32.
+// takes more than one chunk); out [g_mv, B, 3] f32; times: null, or
+// int64 [grid, 5] for the timed instantiation.
 LTT_EXPORT int ltt_hist_multival(const unsigned short* ent,
                                  const long long* off, long long n,
                                  const int* npad, const float* ghc,
                                  const int* ids, long long count, int g_mv,
                                  int B, int max_chunks, double* partial,
-                                 float* out, cudaStream_t stream) {
-  return run<false>(ent, off, n, npad, ghc, ids, count, g_mv, B, max_chunks,
-                    partial, out, nullptr, stream);
-}
-
-// The same through the timed instantiation: times int64 [grid, 5].
-LTT_EXPORT int ltt_hist_multival_timed(const unsigned short* ent,
-                                       const long long* off, long long n,
-                                       const int* npad, const float* ghc,
-                                       const int* ids, long long count,
-                                       int g_mv, int B, int max_chunks,
-                                       double* partial, float* out,
-                                       long long* times,
-                                       cudaStream_t stream) {
-  return run<true>(ent, off, n, npad, ghc, ids, count, g_mv, B, max_chunks,
-                   partial, out, times, stream);
+                                 float* out, long long* times,
+                                 cudaStream_t stream) {
+  return times ? run<true>(ent, off, n, npad, ghc, ids, count, g_mv, B,
+                           max_chunks, partial, out, times, stream)
+               : run<false>(ent, off, n, npad, ghc, ids, count, g_mv, B,
+                            max_chunks, partial, out, nullptr, stream);
 }

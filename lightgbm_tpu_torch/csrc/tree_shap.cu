@@ -70,6 +70,9 @@ namespace {
 constexpr int kWarps = 4;  // warps a block of tree_shap_bins
 constexpr int kMaxRows = 16;  // rows a warp of tree_shap_bins, at most
 constexpr int kMaxSmem = 96 * 1024;  // phi rows in shared memory, at most
+// tree_shap_bins' static shared memory (wsh), which counts against the
+// 48 KB a launch may take without opting in.
+constexpr int kStaticSmem = kWarps * 3 * 32 * 8;
 constexpr int kTab = 33;      // the ratio tables' side (d, D <= 32)
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -175,6 +178,7 @@ __global__ void __launch_bounds__(kWarps * 32)
                    long long* times) {
   extern __shared__ double sh[];
   __shared__ double wsh[kWarps][3][32];  // a warp's zeros, weights, values
+  static_assert(sizeof(wsh) == kStaticSmem, "kStaticSmem");
   unsigned long long t_last = 0, acc[7] = {0, 0, 0, 0, 0, 0, 0};
   if constexpr (kTimed) t_last = clock64();
   auto lap = [&](int i) {
@@ -345,6 +349,26 @@ __global__ void tree_shap_long(const double* __restrict__ x, long long n,
   }
 }
 
+// Launches tree_shap_bins with `smem` bytes of phi rows, opting in past
+// the default 48 KB where the static and the dynamic bytes need it.
+template <bool kTimed>
+cudaError_t launch_bins(unsigned blocks, size_t smem, cudaStream_t stream,
+                        const double* x, long long n, int F, const Model& m,
+                        const int* lint, const double* ldbl, const int* blen,
+                        int nbins, const double* tabs, int rows, double* out,
+                        int use_smem, long long* times) {
+  cudaError_t err;
+  if (smem + kStaticSmem > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(
+           tree_shap_bins<kTimed>,
+           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+          cudaSuccess)
+    return err;
+  tree_shap_bins<kTimed><<<blocks, kWarps * 32, smem, stream>>>(
+      x, n, F, m, lint, ldbl, blen, nbins, tabs, rows, out, use_smem, times);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x [n, F] f64 row-major; the model's paths (ops/tree_shap_cuda.py
@@ -383,30 +407,13 @@ LTT_EXPORT int ltt_tree_shap(
   const long long rows_a_block = (long long)kWarps * rows;
   const unsigned blocks = (unsigned)((n + rows_a_block - 1) / rows_a_block);
   const size_t smem = use_smem ? (size_t)smem_bytes : 0;
-  cudaError_t err;
-  if (times) {
-    if (smem > 48 * 1024 &&
-        (err = cudaFuncSetAttribute(
-             tree_shap_bins<true>,
-             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
-            cudaSuccess)
-      return (int)err;
-    tree_shap_bins<true><<<blocks, kWarps * 32, smem, stream>>>(
-        x, n, F, m, lint, ldbl, blen, nbins, tabs, rows, out, use_smem,
-        times);
-  } else {
-    if (smem > 48 * 1024 &&
-        (err = cudaFuncSetAttribute(
-             tree_shap_bins<false>,
-             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
-            cudaSuccess)
-      return (int)err;
-    tree_shap_bins<false><<<blocks, kWarps * 32, smem, stream>>>(
-        x, n, F, m, lint, ldbl, blen, nbins, tabs, rows, out, use_smem,
-        nullptr);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess || num_long == 0) return (int)err;
+  cudaError_t err = times
+      ? launch_bins<true>(blocks, smem, stream, x, n, F, m, lint, ldbl,
+                          blen, nbins, tabs, rows, out, use_smem, times)
+      : launch_bins<false>(blocks, smem, stream, x, n, F, m, lint, ldbl,
+                           blen, nbins, tabs, rows, out, use_smem, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  if (num_long == 0) return 0;
   tree_shap_long<<<long_blocks, long_threads,
                    3 * long_threads * sizeof(double), stream>>>(
       x, n, F, m, long_paths, num_long, out);

@@ -112,12 +112,9 @@ _SIGNATURES = {
     # bin_bytes, B, feat_tile -> the bins one block takes
     "ltt_hist_rows_window": [_I, _I, _I],
     # ent, off, n, npad, ghc, ids (or null: all rows), count, g_mv, B,
-    # max_chunks, partial, out, stream
+    # max_chunks, partial, out, times (or null; int64 [grid, 5]), stream
     "ltt_hist_multival": [_P, _P, _L, _P, _P, _P, _L, _I, _I, _I, _P, _P,
-                          _P],
-    # the same, then times (int64 [grid, 5]), stream
-    "ltt_hist_multival_timed": [_P, _P, _L, _P, _P, _P, _L, _I, _I, _I, _P,
-                                _P, _P, _P],
+                          _P, _P],
     # x, n, F, nfeat, nthr, nflags, ncat_off, ncat_len, cats, pbegin,
     # pvalue, pcls, efeat, ezero, ecbegin, cnode, cleft, expected, k,
     # lint, ldbl, blen, nbins, tabs, rows, long_paths, num_long,

@@ -188,20 +188,17 @@ def hist_multival(layout: MultivalLayout, ghc: torch.Tensor, num_bins: int,
         shape=(max_chunks(g_mv), g_mv, min(num_bins, MV_SLOT_STRIDE), 3),
         name="partial")
     out = torch.empty((g_mv, num_bins, 3), dtype=torch.float32, device=dev)
-    args = (layout.ent.data_ptr() or None, layout.off.data_ptr(), n,
-            layout.npad.data_ptr() or None, ghc.data_ptr(), ids_ptr, count,
-            g_mv, num_bins, max_chunks(g_mv), partial.data_ptr(),
-            out.data_ptr())
     if times is not None:
         blocks = child_chunks(count, g_mv) * layout.windows
         req(times, device=dev, dtype=torch.int64, shape=(blocks, 5),
             name="times")
-        _native.check(_native.library().ltt_hist_multival_timed(
-            *args, times.data_ptr(), _native.stream_of(ghc)),
-            "hist_multival (timed)")
-        return out
-    err = _native.library().ltt_hist_multival(*args,
-                                              _native.stream_of(ghc))
-    _native.LAUNCHES["hist_multival"] += 1
+    err = _native.library().ltt_hist_multival(
+        layout.ent.data_ptr() or None, layout.off.data_ptr(), n,
+        layout.npad.data_ptr() or None, ghc.data_ptr(), ids_ptr, count,
+        g_mv, num_bins, max_chunks(g_mv), partial.data_ptr(),
+        out.data_ptr(), None if times is None else times.data_ptr(),
+        _native.stream_of(ghc))
+    if times is None:
+        _native.LAUNCHES["hist_multival"] += 1
     _native.check(err, "hist_multival")
     return out

@@ -914,6 +914,34 @@ def test_tree_shap_kernel_repeatable(dev, which):
     np.testing.assert_allclose(a.cpu().numpy(), ref, rtol=1e-9, atol=1e-12)
 
 
+@pytest.mark.parametrize("k,f", [(1, 1440), (5, 290), (3, 511), (1, 1535),
+                                 (1, 3071), (1, 3072)])
+def test_tree_shap_kernel_wide_rows(dev, k, f):
+    """Wide contribution rows, k (F + 1) = 1441-1536 (a block's phi rows
+    under 48 KB but past it with the kernel's static shared memory), 3072
+    (the widest phi kept in shared memory) and 3073 (phi in global
+    memory): two launches equal to the bit and within 1e-9 of the plain
+    version."""
+    from lightgbm_tpu_torch.ops.tree_shap_cuda import ShapModel, \
+        tree_shap_cuda
+    from lightgbm_tpu_torch.predictor import tree_shap_plain
+    from torch_shap_model import chain_rows, chain_tree
+    rng = np.random.RandomState(k * 10_000 + f)
+    models = [chain_tree(list(rng.choice(f, 12, replace=False)),
+                         list(0.5 * rng.randn(12)), seed=i)
+              for i in range(2 * k)]
+    x = chain_rows(f, n=600)
+    sm = ShapModel(models, k, dev)
+    xd = torch.from_numpy(x).to(dev)
+    a = tree_shap_cuda(sm, xd)
+    b = tree_shap_cuda(sm, xd)
+    torch.cuda.synchronize()
+    assert a.shape == (600, k * (f + 1))
+    assert torch.equal(a, b)
+    ref = tree_shap_plain(models, torch.from_numpy(x), k).numpy()
+    np.testing.assert_allclose(a.cpu().numpy(), ref, rtol=1e-9, atol=1e-12)
+
+
 def _categorical_data(n, seed=3):
     """A 40-way category (feature 0) with numeric noise, as
     tests/test_torch_categorical_train.py trains it."""
