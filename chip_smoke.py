@@ -60,7 +60,7 @@ of the JAX package. Phases, each fatal on failure:
    file grows 2 more trees, keeping the file's trees to the bit, with
    finite predictions; every golden model the reference wrote
    (``tests/fixtures/golden``, data from ``tests/golden_common.py``)
-   predicts within 1e-6 of the reference's output; a 200k x 28
+   predicts within 1e-6 of the reference's output; a 100k x 28
    Higgs-like matrix written as CSV with a header and as LibSVM reads
    back as its arrays and ``Dataset(path)`` grows the 3 fused trees the
    arrays grow, to the bit. Each training run is driven with the launch
@@ -85,9 +85,10 @@ of the JAX package. Phases, each fatal on failure:
    a's best_iteration through its model text on the card (``predict``
    with no ``num_iteration`` equal to ``predict(num_iteration=
    best_iteration)`` and to the loaded text's, to the bit); kernels
-   against plain versions at 100k x 28, 3 iterations of a, b, c, e at
-   max_bin 255 and c at 1023 (the same trees, leaf values and valid
-   histories to the bit); and the golden datasets multiclass, rank,
+   against plain versions at 100k x 28, 63 leaves, 2 iterations
+   (``PARITY_ITERS``: this and every later phase's, cut from 3 for
+   time) of a, b, c, e at max_bin 255 and c at 1023 (the same trees,
+   leaf values and valid histories to the bit); and the golden datasets multiclass, rank,
    regression_l1, monotone and tweedie trained with the reference
    CLI's ``train_params``, their held-out loss within
    ``tests/test_golden_parity.py``'s margins of the reference's
@@ -121,22 +122,22 @@ of the JAX package. Phases, each fatal on failure:
    Origin, Dest, Distance; airports and carriers Zipf-skewed; label
    "delayed", ~20% positive), 2M rows and a 500k-row valid set (seed
    43), ``categorical_feature=[0, 1, 2, 4, 5, 6]``, 255 leaves, lr 0.1,
-   8 iterations, auc and binary_logloss every iteration: (a) max_bin
-   255 (the partitioned learner; the partition's LUT route for every
-   categorical split) and (b) max_bin 1023 (the serial learner; Origin
+   4 iterations (cut from 8 for time), auc and binary_logloss every
+   iteration: (a) max_bin 255 (the partitioned learner; the
+   partition's LUT route for every categorical split) and (b) max_bin 1023 (the serial learner; Origin
    and Dest keep 300 bins, wider than the 256-bin bitset, so they never
    split). Printed per run: ms/split, the categorical search's
    CUDA-event ms a split and its share of the split, the launch counts
-   and the valid AUC; on a, one more tree under torch.profiler: the
-   card's busy time a split and the partition's in-training device us
-   a call, LUT and threshold routes apart. Gates: every kernel of the
+   and the valid AUC; on a, one more tree of 63 leaves under
+   torch.profiler: the card's busy time a split and the partition's
+   in-training device us a call, LUT and threshold routes apart. Gates: every kernel of the
    run's path launched (the LUT route on a);
    ``predict(pred_leaf=True)`` of the 2M raw rows equal, tree by tree,
    to the bin-space walk of their bins (at b
    except on rows with a categorical bin at or above 256, whose count
    is printed); a's valid AUC above the same data trained with no
    categorical feature; kernels against plain versions at 100k rows,
-   63 leaves, 3 iterations at max_bin 255 (``max_cat_to_onehot=8``, so
+   63 leaves, 2 iterations at max_bin 255 (``max_cat_to_onehot=8``, so
    DayOfWeek goes one-hot) and 1023: the same trees, leaf values and
    valid histories to the bit. Phase 9's golden datasets include the
    reference CLI's ``categorical`` one (``categorical_feature=0,1`` in
@@ -152,11 +153,11 @@ of the JAX package. Phases, each fatal on failure:
    learner's bundled path, the LUT partition); (b) a at max_bin 1023;
    (c) a Bosch-shaped 1M x 968 CSC matrix at 15% stored (``bosch_like``,
    max_bin 63, lr 0.015, min_sum_hessian_in_leaf 5, valid 200k), which
-   must go multi-val; (d) 200k rows of a as LibSVM loaded in memory and
+   must go multi-val; (d) 100k rows of a as LibSVM loaded in memory and
    with ``two_round=true``: the matrices byte for byte and the same
    trees; the multi-val histogram kernel against its plain version over
    all of c's rows and a third (max abs err 0); (e) kernels against
-   plain versions at 100k rows, 63 leaves, 3 iterations for a, a', b, c.
+   plain versions at 100k rows, 63 leaves, 2 iterations for a, a', b, c.
    Printed per run: the plan, ms/split, the debundle's CUDA-event share,
    ``hist_multival`` ms a call, the launch counts, the LUT route's
    launches (= bundled splits on the partitioned learner) and the valid
@@ -179,9 +180,10 @@ of the JAX package. Phases, each fatal on failure:
    the 500k ``eval_set``, bitwise ``lt.train``, and whether
    scikit-learn was importable; (e) ``save_binary`` and back, and
    ``add_features_from`` of the two column halves; (f) kernels against
-   plain versions at 100k rows, 63 leaves, 3 iterations: cv at max_bin
-   255 and 1023, and refit. The refit route of ``hist_rows`` (F 1, B
-   255, 2M rows) is timed beside its bound for the kernels line.
+   plain versions at 100k rows, 63 leaves: cv at max_bin 255 and 1023
+   (2 iterations), and refit (3 trees). The refit route of
+   ``hist_rows`` (F 1, B 255, 2M rows) is timed beside its bound for
+   the kernels line.
 15. more than 1024 bins: the scan and ``hist_rows`` alone
    (``wide_kernel_checks``, run right after phase 2's checks, while the
    profiler keeps its records) at B in {1025, 2048, 4095, 4096}, the
@@ -194,22 +196,22 @@ of the JAX package. Phases, each fatal on failure:
    beside phase 4's per-phase ms/split at 1023, with
    ``fused_split_step_leaf`` never launched and
    ``split_scan`` and ``hist_rows`` once a tree and once a split; then
-   kernel against plain at 100k rows, 63 leaves, 3 iterations at max_bin
+   kernel against plain at 100k rows, 63 leaves, 2 iterations at max_bin
    4095 and 40,000 (``min_data_in_bin`` 1), the same trees to the bit;
 16. the parallel learners (``parallel_phase``): 2 rank processes on the
    one card (this script with ``--rank``; gloo, a ``file://``
-   rendezvous, a 60 s collective timeout), each on its 1M-row
-   ``host_row_range`` block of phase 3's rows under ``pre_partition``,
-   binned from the pooled sample of every row; ``tree_learner=data`` at
-   max_bin 255 (the segment kernels on each rank) and 1023 (``hist_rows``
-   and the scan), voting (top_k 20) at 255 and feature at 1023 (every row
-   on each rank), 255 leaves, 4 iterations (cut from 8 for time), each
+   rendezvous, a 60 s collective timeout), each on its 500k-row
+   ``host_row_range`` block of 1M Higgs-shaped rows (cut from phase 3's
+   2M for time) under ``pre_partition``, binned from the pooled sample
+   of every row; ``tree_learner=data`` at max_bin 255 (the segment
+   kernels on each rank) and 1023 (``hist_rows`` and the scan), voting (top_k 20) at 255 and feature at 1023 (every row
+   on each rank), 255 leaves, 2 iterations (cut from 8 for time), each
    with its ms/split, collectives and bytes a split and launches, held
    against the single process on the same rows and bins (trained here
    while the ranks run: the same bins; data and feature the same trees
    within the tests' tolerance, and whether to the bit; voting's valid
    AUC within 0.002 of the data model's), then each learner kernel
-   against plain at 100k rows, 63 leaves, 3 iterations, the same trees
+   against plain at 100k rows, 63 leaves, 2 iterations, the same trees
    to the bit. A rank that fails or runs out of time fails the run.
 
 The second-to-last line of output is the per-kernel JSON record; the
@@ -230,6 +232,10 @@ F, B = 28, 256
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
 WARPS = 8                    # warps of a hist_rows block (csrc/hist_ids.cuh)
+# iterations of the 100k-row kernel-against-plain runs of phases 9 and
+# 11-16, cut from 3 for the time limit (phase 7 keeps 3 at 255 leaves;
+# phase 10's GOSS samples from its third iteration and keeps 3)
+PARITY_ITERS = 2
 # kernel launches of one wrapper call at phase 2's timed shapes (the
 # histograms past one chunk add their reduce)
 LAUNCHES_A_CALL = {"hist_segment": 2, "partition_segment": 2,
@@ -1516,7 +1522,7 @@ def model_file_phase(bst, ds, X, params, dev):
               f"1e-6 of the reference's output: max abs err {worst}")
 
         # text data: CSV with a header and LibSVM, against the arrays
-        Xt, yt = higgs_like(200_000, seed=5)
+        Xt, yt = higgs_like(100_000, seed=5)
         base, _, _ = counted_train("training from arrays", params,
                                    lt.Dataset(Xt, label=yt), 3, dev)
         for fmt, writer, extra in (("csv", write_csv, {"header": True}),
@@ -1792,9 +1798,11 @@ def early_stopping_check(bst, Xq):
 
 
 def objective_parity(dev):
-    """Kernels against plain versions at 100k x 28, 3 iterations, for
-    runs a, b, c, e at max_bin 255 and c at 1023: the same trees, leaf
-    values equal to the bit, and the same valid histories to the bit."""
+    """Kernels against plain versions at 100k x 28, 63 leaves (as every
+    later phase's parity; cut from 255 for the time limit),
+    ``PARITY_ITERS`` iterations, for runs a, b, c, e at max_bin 255 and c at 1023: the
+    same trees, leaf values equal to the bit, and the same valid
+    histories to the bit."""
     import torch
     import lightgbm_tpu_torch as lt
     Xp, zp = higgs_latent(100_000, seed=3)
@@ -1810,7 +1818,7 @@ def objective_parity(dev):
             if run not in runs:
                 continue
             t0 = time.perf_counter()
-            params = {"objective": objective, "num_leaves": 255,
+            params = {"objective": objective, "num_leaves": 63,
                       "learning_rate": 0.1, "max_bin": max_bin,
                       "metric": metric, "verbosity": -1}
             if objective == "multiclass":
@@ -1822,7 +1830,7 @@ def objective_parity(dev):
                 tr, va = labeled_sets(binned, vbinned, Xp, Xpv, objective,
                                       zp, zpv, groups)
                 hist = {}
-                b = lt.train(params, tr, 3, valid_sets=[va],
+                b = lt.train(params, tr, PARITY_ITERS, valid_sets=[va],
                              valid_names=["valid"], evals_result=hist,
                              verbose_eval=False, device=dev, ops=ops)
                 res[ops] = (b, hist["valid"])
@@ -2294,6 +2302,8 @@ def sampling_phase(X, y, binned, binned_wide, bin_bst, mc_bst, dev, reps):
 
 # ---- phase 11: categorical features ------------------------------------
 AIRLINE_CATEGORICAL = [0, 1, 2, 4, 5, 6]
+CATEGORICAL_ITERS = 4  # cut from 8 for the time limit (PERF.md section 4)
+CATEGORICAL_PROFILE_LEAVES = 63   # the profiled tree, cut from 255 as well
 CATEGORICAL_PATH = {255: ("hist_segment", "partition_segment", "split_scan"),
                     1023: ("hist_rows", "split_scan")}
 
@@ -2507,8 +2517,9 @@ def leaf_walk_check(label, bst, X, binned, dev, wide_cols):
 
 
 def categorical_parity(dev):
-    """Kernels against plain versions at 100k rows, 63 leaves, 3
-    iterations, max_bin 255 (max_cat_to_onehot 8) and 1023: the same
+    """Kernels against plain versions at 100k rows, 63 leaves,
+    ``PARITY_ITERS`` iterations, max_bin 255 (max_cat_to_onehot 8) and
+    1023: the same
     trees, leaf values and valid histories to the bit."""
     import torch
     import lightgbm_tpu_torch as lt
@@ -2524,13 +2535,13 @@ def categorical_parity(dev):
         for ops in ("kernel", "plain"):
             tr = lt.Dataset(X, label=y, categorical_feature=AIRLINE_CATEGORICAL)
             hist = {}
-            b = lt.train(params, tr, 3,
+            b = lt.train(params, tr, PARITY_ITERS,
                          valid_sets=[tr.create_valid(Xv, label=yv)],
                          valid_names=["valid"], evals_result=hist,
                          verbose_eval=False, device=dev, ops=ops)
             res[ops] = (b, hist["valid"])
         (kb, kh), (pb, ph) = res["kernel"], res["plain"]
-        same = len(kb.models) == len(pb.models) == 3 and all(
+        same = len(kb.models) == len(pb.models) == PARITY_ITERS and all(
             tree_sig(a) == tree_sig(c) for a, c in zip(kb.models, pb.models))
         diff = max(float(np.abs(a.leaf_value - c.leaf_value).max())
                    for a, c in zip(kb.models, pb.models))
@@ -2577,8 +2588,9 @@ def categorical_phase(n, iters, dev):
                                        tr, va, iters, dev)
         if run == "a":
             t0 = time.perf_counter()
-            info.update(categorical_profile(f"{run} max_bin {max_bin}",
-                                            params, tr, dev))
+            info.update(categorical_profile(
+                f"{run} max_bin {max_bin}",
+                dict(params, num_leaves=CATEGORICAL_PROFILE_LEAVES), tr, dev))
             print(f"[categorical a] profiled tree in "
                   f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
@@ -2982,8 +2994,8 @@ def two_round_check(csr, y, dev):
 
 
 def efb_parity(dev, expo, expo_num, bosch):
-    """(e): kernels against plain versions at 100k rows, 63 leaves, 3
-    iterations, for (a), (a'), (b) and (c): the same trees and leaf
+    """(e): kernels against plain versions at 100k rows, 63 leaves,
+    ``PARITY_ITERS`` iterations, for (a), (a'), (b) and (c): the same trees and leaf
     values to the bit."""
     import torch
     import lightgbm_tpu_torch as lt
@@ -2998,10 +3010,10 @@ def efb_parity(dev, expo, expo_num, bosch):
             params.update(learning_rate=0.015, min_sum_hessian_in_leaf=5)
         res = {}
         for ops in ("kernel", "plain"):
-            res[ops] = lt.train(params, lt.Dataset(data, label=y), 3,
-                                device=dev, ops=ops)
+            res[ops] = lt.train(params, lt.Dataset(data, label=y),
+                                PARITY_ITERS, device=dev, ops=ops)
         kb, pb = res["kernel"], res["plain"]
-        same = len(kb.models) == len(pb.models) == 3 and all(
+        same = len(kb.models) == len(pb.models) == PARITY_ITERS and all(
             tree_sig(a) == tree_sig(c) for a, c in zip(kb.models, pb.models))
         diff = max(float(np.abs(a.leaf_value - c.leaf_value).max())
                    for a, c in zip(kb.models, pb.models))
@@ -3046,7 +3058,7 @@ def efb_phase(n, iters, dev, reps, bosch_rows=1_000_000):
     out["b"] = efb_pair("b max_bin 1023", dict(base, max_bin=1023), expo, y,
                         expo_v, yv, iters, dev)
     t0 = time.perf_counter()
-    out["d"] = two_round_check(expo[:200_000], y[:200_000], dev)
+    out["d"] = two_round_check(expo[:100_000], y[:100_000], dev)
     print(f"[efb d] done in {time.perf_counter() - t0:.1f} s")
     del expo_v
     t0 = time.perf_counter()
@@ -3262,7 +3274,7 @@ def check_scan_node(dev, reps):
 
 def extras_parity(dev, forced_path):
     """Phase 13 g: kernels against plain versions at 100k x 28, 63
-    leaves, 3 iterations, for each option of a-f: the same trees, leaf
+    leaves, ``PARITY_ITERS`` iterations, for each option of a-f: the same trees, leaf
     values and linear coefficients to the bit."""
     import lightgbm_tpu_torch as lt
     Xp, yp = higgs_like(100_000, seed=3)
@@ -3285,9 +3297,10 @@ def extras_parity(dev, forced_path):
     for label, extra in runs:
         t0 = time.perf_counter()
         pp = dict(base, **extra)
-        kb = lt.train(pp, lt.Dataset(Xp, label=yp), 3, device=dev)
-        pb = lt.train(pp, lt.Dataset(Xp, label=yp), 3, device=dev,
-                      ops="plain")
+        kb = lt.train(pp, lt.Dataset(Xp, label=yp), PARITY_ITERS,
+                      device=dev)
+        pb = lt.train(pp, lt.Dataset(Xp, label=yp), PARITY_ITERS,
+                      device=dev, ops="plain")
         same = [tree_sig(a) == tree_sig(b) for a, b in zip(kb.models,
                                                            pb.models)]
         leaf = all(a.leaf_value.tobytes() == b.leaf_value.tobytes()
@@ -3300,7 +3313,8 @@ def extras_parity(dev, forced_path):
               f": structure equal {same}, leaf values bitwise {leaf}, "
               f"linear trees {nlin} bitwise {lin} in "
               f"{time.perf_counter() - t0:.1f} s")
-        if len(kb.models) != 3 or not all(same) or not leaf or not lin:
+        if len(kb.models) != PARITY_ITERS or not all(same) or not leaf \
+                or not lin:
             fail(f"phase 13 {label}: kernel and plain runs differ")
         if label == "f linear" and nlin == 0:
             fail("phase 13 f: no linear tree at 100k rows")
@@ -3807,10 +3821,11 @@ def slice15_files(params, full, X, bst8, binned, dev):
 
 
 def slice15_parity(dev):
-    """14 f: kernels against plain versions at 100k rows, 63 leaves, 3
-    iterations: cv (3 folds) at max_bin 255 (the segment kernels) and
-    1023 (the leaf kernel and ``hist_rows``), and refit: the same folds'
-    trees and cv lists, and the same refit leaf values, to the bit."""
+    """14 f: kernels against plain versions at 100k rows, 63 leaves: cv
+    (3 folds, ``PARITY_ITERS`` iterations) at max_bin 255 (the segment
+    kernels) and 1023 (the leaf kernel and ``hist_rows``), and refit (3
+    trees): the same folds' trees and cv lists, and the same refit leaf
+    values, to the bit."""
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.ops import _native
     Xp, yp = higgs_like(100_000, seed=3)
@@ -3823,10 +3838,11 @@ def slice15_parity(dev):
         pp = dict(base, max_bin=mb)
         ds = lt.Dataset(Xp, label=yp)
         _native.reset_launch_counts()
-        kr = lt.cv(pp, ds, 3, nfold=3, return_cvbooster=True, device=dev)
+        kr = lt.cv(pp, ds, PARITY_ITERS, nfold=3, return_cvbooster=True,
+                   device=dev)
         launched = dict(_native.LAUNCHES)
-        pr = lt.cv(pp, ds, 3, nfold=3, return_cvbooster=True, device=dev,
-                   ops="plain")
+        pr = lt.cv(pp, ds, PARITY_ITERS, nfold=3, return_cvbooster=True,
+                   device=dev, ops="plain")
         kc, pc = kr.pop("cvbooster"), pr.pop("cvbooster")
         same = kr == pr and all(
             trees_bitwise(a.models, b.models)
@@ -4017,8 +4033,8 @@ def wide_hist_case(dev, b, reps, n, f=F):
 
 
 def wide_parity(dev, max_bin, min_data_in_bin=3):
-    """Kernel against plain at 100k rows, 63 leaves, 3 iterations, at
-    ``max_bin`` (the serial learner, per-phase past 1024 bins): the same
+    """Kernel against plain at 100k rows, 63 leaves, ``PARITY_ITERS``
+    iterations, at ``max_bin`` (the serial learner, per-phase past 1024 bins): the same
     trees and leaf values to the bit."""
     import lightgbm_tpu_torch as lt
     Xp, yp = higgs_like(100_000, seed=3)
@@ -4027,15 +4043,15 @@ def wide_parity(dev, max_bin, min_data_in_bin=3):
           "verbosity": -1}
     t0 = time.perf_counter()
     ds = lt.Dataset(Xp, label=yp)
-    kb = lt.train(pp, ds, 3, device=dev)
-    pb = lt.train(pp, ds, 3, device=dev, ops="plain")
+    kb = lt.train(pp, ds, PARITY_ITERS, device=dev)
+    pb = lt.train(pp, ds, PARITY_ITERS, device=dev, ops="plain")
     lrn = kb._gbdt.learner
     same = trees_bitwise(kb.models, pb.models)
     print(f"[wide bins] parity at max_bin {max_bin}: num_bins_max "
           f"{lrn.num_bins_max}, bins {lrn.binned.dtype}, fused "
           f"{lrn.fused}, trees bitwise {same} in "
           f"{time.perf_counter() - t0:.1f} s")
-    if not same or len(kb.models) != 3:
+    if not same or len(kb.models) != PARITY_ITERS:
         fail(f"kernel and plain runs grew different trees at max_bin "
              f"{max_bin}")
     return lrn.num_bins_max
@@ -4142,7 +4158,8 @@ def wide_bins_phase(X, y, dev, iters):
 # ---- phase 16: the parallel learners over ranks on one card -------------
 
 PAR_RANKS = 2
-PAR_ITERS = 4          # cut from 8 for the time limit (PERF.md section 4)
+PAR_ITERS = 2          # cut from 8 for the time limit (PERF.md section 4)
+PAR_ROWS = 1_000_000   # cut from phase 3's 2M for the time limit as well
 PAR_TIMEOUT_S = 60.0   # a collective's limit: a lost rank fails the run
 # run -> (tree_learner, max_bin): the rows each rank loaded
 PAR_RUNS = {"data_255": ("data", 255), "data_1023": ("data", 1023),
@@ -4186,8 +4203,8 @@ def par_full(local, mb, n, X, y):
 
 def par_rank(rank, size, rdzv, out, n, iters):
     """One rank of phase 16 (``chip_smoke.py --rank``): joins the gloo
-    group on the one card, loads its ``host_row_range`` block of phase
-    3's rows under ``pre_partition`` (binned from the pooled sample of
+    group on the one card, loads its ``host_row_range`` block of the
+    phase's ``n`` rows under ``pre_partition`` (binned from the pooled sample of
     every row), trains each run with the launch and collective counts
     set to 0 just before it and read just after, then kernel against
     plain at 100k rows; rank 0 also trains the single process on every
@@ -4262,15 +4279,15 @@ def par_rank(rank, size, rdzv, out, n, iters):
             else auc(yv, bst.predict(Xv, raw_score=True)))
         del bst
         torch.cuda.empty_cache()
-    # kernel against plain at 100k rows, 63 leaves, 3 iterations
+    # kernel against plain at 100k rows, 63 leaves, PARITY_ITERS iterations
     Xp, yp = higgs_like(100_000, seed=3)
     plo, phi = host_row_range(len(Xp))
     for run, (learner, mb) in PAR_RUNS.items():
         p = dict(par_params(learner, mb, len(Xp)), num_leaves=63)
         rows = slice(None) if learner == "feature" else slice(plo, phi)
         ds = lt.Dataset(Xp[rows], label=yp[rows], params=p)
-        kb = lt.train(p, ds, 3, device=dev)
-        pb = lt.train(p, ds, 3, device=dev, ops="plain")
+        kb = lt.train(p, ds, PARITY_ITERS, device=dev)
+        pb = lt.train(p, ds, PARITY_ITERS, device=dev, ops="plain")
         res["parity"][run] = trees_bitwise(kb.models, pb.models)
     res["total_s"] = time.perf_counter() - t0
     shutdown_distributed()
@@ -4293,7 +4310,7 @@ def par_same(a, b, exact):
 def parallel_phase(n, iters, dev, limit_s):
     """Phase 16 (ROADMAP Queue 1 item 8): ``PAR_RANKS`` rank processes on
     the one card (gloo, a ``file://`` rendezvous in a temporary
-    directory), each on its 1M-row block of phase 3's rows binned from
+    directory), each on its block of ``n`` Higgs-shaped rows binned from
     the pooled sample; tree_learner=data at max_bin 255 (the segment
     kernels on each rank) and 1023 (hist_rows and the scan), voting
     (top_k 20) at 255 and feature at 1023, each held against the single
@@ -4676,7 +4693,7 @@ def main() -> int:
 
     # ---- 11. categorical features on the per-phase path ----------------
     t0 = time.perf_counter()
-    cat = categorical_phase(n, args.iters, dev)
+    cat = categorical_phase(n, min(args.iters, CATEGORICAL_ITERS), dev)
     print(f"[categorical] done in {time.perf_counter() - t0:.1f} s: "
           + json.dumps(cat))
     torch.cuda.empty_cache()
@@ -4716,7 +4733,8 @@ def main() -> int:
 
     # ---- 16. the parallel learners over ranks on the card --------------
     t0 = time.perf_counter()
-    par = parallel_phase(n, min(args.iters, PAR_ITERS), dev, limit_s=400.0)
+    par = parallel_phase(min(n, PAR_ROWS), min(args.iters, PAR_ITERS), dev,
+                         limit_s=400.0)
     print(f"[parallel] done in {time.perf_counter() - t0:.1f} s: "
           + json.dumps(par, default=str))
 
