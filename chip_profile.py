@@ -4,7 +4,9 @@
 Run from the repository root: ``python3 chip_profile.py [--trees N]
 [--paths fused,per-phase,serial-fused,serial-per-phase]
 [--leaf-phases] [--segment-phases] [--hist-rows-phases]
-[--hist-rows] [--scan-phases] [--partition]``. Trains the
+[--hist-rows] [--scan-phases] [--partition] [--multival-phases]
+[--shap-phases] [--batched-phases] [--batched] [--package DIR]
+[--codegen SRC[,SRC]]``. Trains the
 Higgs-shaped binary model of ``chip_smoke.py`` (2M x 28,
 num_leaves=255, lr=0.1) through ``lightgbm_tpu_torch``, once per grow
 path: at max_bin=255 the partitioned learner's ``fused`` (the default
@@ -58,12 +60,24 @@ path's profile also prints each wrapper's in-training device time a
 call. A phases flag alone runs only that; with ``--paths`` it runs after
 the named paths.
 
-``--codegen SRC`` (e.g. ``split_step_leaf.cu``) prints, for each kernel
-that source compiles to, what ``ptxas -v`` reported when the kernel
-library was built in this process (registers, stack frame, spill stores
-and loads) and the kernel's SASS instruction count from ``cuobjdump``;
-with ``--package`` it reads the parent tree's build, so two trees'
-code can be compared in one call.
+``--batched-phases`` times the two model-batched kernels of the
+multiboost learner at B 4 and B 8 (``batched_phases``): the first B
+models of ``chip_smoke.py`` phase 17's bucket 0 at iteration 0 over the
+2M x 28 u8 rows (255 leaves); ``hist_rows_batched`` against the loop of
+B ``hist_rows`` launches at the same shape and its timed build's cycles
+a block (first fetch, stage, peers, adds, write-out), then a whole tree
+of ``fused_split_step_leaf_batched`` launches between CUDA events (the
+root and the tree's average launch) and the same tree through its timed
+build (block 0's phases: site, lid pass, compaction, histogram, reduce,
+scan, finish). ``--batched`` prints both kernels' device time at those
+shapes, each in a profiler session of its own (``batched_device``).
+
+``--codegen SRC[,SRC]`` (e.g. ``split_step_leaf.cu,hist_rows.cu``)
+prints, for each kernel those sources compile to, what ``ptxas -v``
+reported when the kernel library was built in this process (registers,
+stack frame, spill stores and loads) and the kernel's SASS instruction
+count from ``cuobjdump``; with ``--package`` it reads the parent tree's
+build, so two trees' code can be compared in one call.
 """
 
 import argparse
@@ -712,6 +726,202 @@ def partition_variants(n: int, b: int) -> list:
     return lines
 
 
+BATCHED_MODELS = (4, 8)
+
+
+def batched_launch_phases(tag, ns, cyc, finish_ns, ev_us):
+    """Mean us per phase of the batched leaf step's timed launches:
+    ``ns``/``cyc`` [launches, 7] block 0's %globaltimer and clock64 at
+    the entry and after each of its 6 phases, ``finish_ns`` the latest
+    state write. As ``phase_lines``, for the root launch and the tree's
+    average launch."""
+    import numpy as np
+    ns, cyc = ns.astype(np.float64), cyc.astype(np.float64)
+    dc = np.diff(cyc, axis=1)
+    phase_us = dc / np.maximum(dc.sum(1, keepdims=True), 1) \
+        * ((ns[:, -1] - ns[:, 0]) / 1e3)[:, None]
+    phase_us = np.concatenate(
+        [phase_us, ((finish_ns - ns[:, -1]) / 1e3)[:, None]], 1)
+    launch_us = ev_us - (np.maximum(finish_ns, ns[:, -1]) - ns[:, 0]) / 1e3
+    lines = []
+    for label, m in (("root launch", np.arange(len(ev_us)) == 0),
+                     ("tree average", np.ones(len(ev_us), bool))):
+        total = ev_us[m].mean()
+        parts = [f"{name} {phase_us[m, i].mean():.2f} "
+                 f"({phase_us[m, i].mean() / total:.3f})"
+                 for i, name in enumerate(PHASES)]
+        parts.append(f"launch {launch_us[m].mean():.2f} "
+                     f"({launch_us[m].mean() / total:.3f})")
+        lines.append(f"[{tag}] {label}: timed event {total:.2f} us = "
+                     + ", ".join(parts))
+    return lines
+
+
+def batched_phases(ds, dev, timed: bool = True) -> str:
+    """Both model-batched kernels at B 4 and B 8: the first B models of
+    ``chip_smoke.py`` phase 17's bucket 0 (``mb_sweep``) at iteration 0
+    over the 2M x 28 u8 rows (255 leaves). Kernel B
+    (``hist_rows_batched``): the median of 20 launches against the
+    median of 20 loops of B ``hist_rows`` launches at the same shape,
+    and with ``timed`` one launch of its timed build (mean cycles a
+    block of each lap). Kernel A (``fused_split_step_leaf_batched``): a
+    whole tree of L - 1 launches from the root, each between CUDA
+    events (the root launch and the tree's average), then with
+    ``timed`` the same tree through the timed build (block 0's phases,
+    ``batched_launch_phases``). A tree without the timed builds (a
+    parent) prints the event times alone."""
+    import numpy as np
+    import torch
+    from chip_smoke import mb_ghc, mb_sweep, time_ms
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops.split_step_cuda import LEAF_TIMES
+    lines = []
+    params = mb_sweep(1)
+    for models in BATCHED_MODELS:
+        bb, ghc = mb_ghc(params[:models], ds, dev)
+        lrn = bb.learner
+        bins, nb = lrn.serial.binned, lrn.serial.num_bins_max
+        n, f = bins.shape
+        bb_ = bins.element_size()
+        tag = f"batched phases B {models}"
+        partial = lrn._scratch.partial
+        single = hc.rows_partial(bins, nb)
+        ghcs = [ghc[i].contiguous() for i in range(models)]
+        k_ms = time_ms(lambda: hc.histogram_rows_batched(
+            bins, ghc, nb, partial=partial), 20)
+        loop_ms = time_ms(lambda: [hc.histogram_rows(bins, g, nb,
+                                                     partial=single)
+                                   for g in ghcs], 20)
+        tile = hc.leaf_feat_tile(f, nb, bb_)
+        line = (f"[{tag}] hist_rows_batched {n} x {f}, {nb} bins: "
+                f"{k_ms:.4f} ms median of 20, {models} hist_rows launches "
+                f"{loop_ms:.4f} ms; block "
+                f"{hc.rows_batched_shape(bb_, nb, tile, models)}")
+        if timed and hasattr(hc, "BATCHED_LAPS"):
+            blocks = hc.rows_batched_blocks(n, f, nb, bb_, models)
+            times = torch.zeros((blocks, len(hc.BATCHED_LAPS)),
+                                dtype=torch.int64, device=dev)
+            hc.histogram_rows_batched(bins, ghc, nb, partial=partial,
+                                      times=times)
+            torch.cuda.synchronize()
+            cyc = times.cpu().numpy().astype(np.float64)
+            line += f"; timed build, {blocks} blocks, mean cycles a block: " \
+                + ", ".join(f"{name} {v:.0f}" for name, v in
+                            zip(hc.BATCHED_LAPS, cyc.mean(0))) \
+                + f" (slowest block {cyc.sum(1).max():.0f})"
+        lines.append(line)
+        print(line)
+        del single, ghcs
+
+        k, S, T, imeta, fmeta = lrn.root_states(ghc)
+        start = [t.clone() for t in (k, S, T, lrn.lid, lrn.hist)]
+        state = (k, S, T, lrn.lid, lrn.hist)
+        step = lrn.split_step(k, S, T, ghc, imeta, fmeta)
+        big_l = lrn.num_leaves
+
+        def tree(launch):
+            for dst, t in zip(state, start):
+                dst.copy_(t)
+            ev = []
+            for i in range(big_l - 1):
+                a = torch.cuda.Event(enable_timing=True)
+                c = torch.cuda.Event(enable_timing=True)
+                a.record()
+                launch(i)
+                c.record()
+                ev.append((a, c))
+            torch.cuda.synchronize()
+            return np.asarray([a.elapsed_time(c) * 1e3 for a, c in ev])
+
+        tree(lambda i: step())                          # warm-up
+        ev_us = tree(lambda i: step())
+        line = (f"[{tag}] fused_split_step_leaf_batched, {big_l - 1} "
+                f"launches from the root: root {ev_us[0] / 1e3:.4f} ms, tree"
+                f" average {ev_us.mean() / 1e3:.4f} ms a launch (CUDA "
+                f"events); launch shape {lrn._scratch.shape}")
+        lines.append(line)
+        print(line)
+        if timed and hasattr(step, "timed"):
+            times = torch.zeros((big_l - 1, LEAF_TIMES), dtype=torch.int64,
+                                device=dev)
+            tree(lambda i: step.timed(times, i))        # warm-up
+            times.zero_()
+            ev_t = tree(lambda i: step.timed(times, i))
+            t = times.cpu().numpy()
+            if not (t[:, 7] > 0).all():
+                raise SystemExit("chip_profile: a batched launch wrote no "
+                                 "clock reads")
+            for line in batched_launch_phases(tag, t[:, :7], t[:, 8:15],
+                                              t[:, 7], ev_t):
+                lines.append(line)
+                print(line)
+            rate = (t[:, 14] - t[:, 8]).astype(np.float64) \
+                / np.maximum(t[:, 6] - t[:, 0], 1)
+            hist_us = t[:, 16:20].astype(np.float64) / rate[:, None] / 1e3
+            line = f"[{tag}] block 0 histogram us, tree average: " + ", ".join(
+                f"{name} {hist_us[:, i].mean():.2f}" for i, name in
+                enumerate(("first fetch", "stores", "accumulate",
+                           "write-out")))
+            if (t[:, 20:24] > 0).all():
+                # inside the lid pass and the compaction: block 0's walk,
+                # its block reduction, the wait at the grid sync
+                c = t.astype(np.float64)
+                marks = np.stack([c[:, 9], c[:, 20], c[:, 21], c[:, 10],
+                                  c[:, 22], c[:, 23], c[:, 11]], 1)
+                part = np.diff(marks, axis=1) / rate[:, None] / 1e3
+                line += "; inside, tree average us: " + ", ".join(
+                    f"{name} {part[:, i].mean():.2f}" for i, name in
+                    enumerate(("lid walk", "lid counts", "lid sync wait",
+                               "compaction offsets", "compaction words",
+                               "compaction sync wait")))
+            lines.append(line)
+            print(line)
+        del bb, lrn, ghc, start, state, step, partial
+        torch.cuda.empty_cache()
+    return "\n".join(lines)
+
+
+def batched_device(ds, dev) -> str:
+    """Both model-batched kernels' device time at B 4 and B 8 (the
+    shapes of ``batched_phases``), each in its own profiler session: the
+    root launch of kernel A (its state restored between calls, outside
+    the kernel's intervals) and kernel B."""
+    import torch
+    from chip_smoke import device_us, mb_ghc, mb_sweep
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    lines = []
+    params = mb_sweep(1)
+    for models in BATCHED_MODELS:
+        bb, ghc = mb_ghc(params[:models], ds, dev)
+        lrn = bb.learner
+        bins, nb = lrn.serial.binned, lrn.serial.num_bins_max
+        partial = lrn._scratch.partial
+        b_us = device_us(lambda: hc.histogram_rows_batched(
+            bins, ghc, nb, partial=partial), 10, "hist_rows_batched",
+            need=("hist_rows_batched_kernel",))
+        k, S, T, imeta, fmeta = lrn.root_states(ghc)
+        start = [t.clone() for t in (k, S, T, lrn.lid, lrn.hist)]
+        state = (k, S, T, lrn.lid, lrn.hist)
+        step = lrn.split_step(k, S, T, ghc, imeta, fmeta)
+
+        def root():
+            for dst, t in zip(state, start):
+                dst.copy_(t)
+            step()
+        a_us = device_us(root, 10, "split_step_leaf_batched",
+                         need=("split_step_leaf_batched",))
+        line = (f"[batched device B {models}] device ms (profiler, mean of "
+                f"10): hist_rows_batched "
+                + (f"{b_us / 1e3:.4f}" if b_us else "not measured")
+                + ", fused_split_step_leaf_batched root launch "
+                + (f"{a_us / 1e3:.4f}" if a_us else "not measured"))
+        lines.append(line)
+        print(line)
+        del bb, lrn, ghc, start, state, step, partial
+        torch.cuda.empty_cache()
+    return "\n".join(lines)
+
+
 MV_ITERS = 4
 
 
@@ -939,6 +1149,12 @@ def main() -> int:
                     "timed build and its calls in training")
     ap.add_argument("--shap-phases", action="store_true",
                     help="time tree_shap on 100k rows and its timed build")
+    ap.add_argument("--batched-phases", action="store_true",
+                    help="time both model-batched kernels at B 4 and 8 "
+                    "and their timed builds")
+    ap.add_argument("--batched", action="store_true",
+                    help="both model-batched kernels' device time, each "
+                    "in its own profiler session")
     ap.add_argument("--package", default=None,
                     help="import lightgbm_tpu_torch from this directory "
                     "(a parent tree unpacked beside this one)")
@@ -946,7 +1162,8 @@ def main() -> int:
                     help="time partition_segment on the 2M-row matrix")
     ap.add_argument("--codegen", default=None, metavar="SRC",
                     help="print ptxas's registers and spills and the SASS "
-                    "size of each kernel of this source (first)")
+                    "size of each kernel of these sources (comma-"
+                    "separated; first)")
     args = ap.parse_args()
     phase_flags = ["leaf-phases"] * args.leaf_phases \
         + ["segment-phases"] * args.segment_phases \
@@ -955,7 +1172,9 @@ def main() -> int:
         + ["scan-phases"] * args.scan_phases \
         + ["partition"] * args.partition \
         + ["multival-phases"] * args.multival_phases \
-        + ["shap-phases"] * args.shap_phases
+        + ["shap-phases"] * args.shap_phases \
+        + ["batched-phases"] * args.batched_phases \
+        + ["batched"] * args.batched
     if args.package:
         sys.path.insert(0, os.path.abspath(args.package))
     paths = args.paths.split(",") if args.paths else \
@@ -973,7 +1192,8 @@ def main() -> int:
     import lightgbm_tpu_torch as lt
     print(f"package: {os.path.dirname(lt.__file__)}")
     dev = torch.device("cuda")
-    tables = [codegen(args.codegen)] if args.codegen else []
+    tables = [codegen(src) for src in args.codegen.split(",")] \
+        if args.codegen else []
     if "multival-phases" in paths:
         tables.append(multival_phases(multival_sets(), dev))
     paths = [p for p in paths if p != "multival-phases"]
@@ -983,6 +1203,14 @@ def main() -> int:
     if "shap-phases" in paths:
         tables.append(shap_phases(shap_models(X, y, dev), X, dev))
     paths = [p for p in paths if p != "shap-phases"]
+    if "batched-phases" in paths or "batched" in paths:
+        mb_ds = lt.Dataset(X, label=y)
+        if "batched-phases" in paths:
+            tables.append(batched_phases(mb_ds, dev))
+        if "batched" in paths:
+            tables.append(batched_device(mb_ds, dev))
+        del mb_ds
+    paths = [p for p in paths if p not in ("batched-phases", "batched")]
     # binned once per max_bin (a Dataset keeps its first binning),
     # shared by the paths
     sets = {}

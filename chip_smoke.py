@@ -222,10 +222,13 @@ of the JAX package. Phases, each fatal on failure:
    batched and the twins' seconds and ms a split per model, and the
    launches (``fused_split_step_leaf_batched`` at most iterations x 254 a
    bucket, never ``fused_split_step_leaf``); both batched kernels alone
-   at the main path's shapes (4 models): ms, device ms, plain, bound
-   (kernel A: the models' ``leaf_bound_ms`` summed, split by split;
-   kernel B: the bins once, 12 B of ghc a row a model and the histograms
-   written) and ``index_add_`` for kernel B; (b) at 100k rows, 63
+   at the main path's shapes (4 models, then bucket 0's 8 beside them in
+   the record): ms, device ms, plain, bound (kernel A: the models'
+   ``leaf_bound_ms`` summed, split by split; kernel B: the bins once, 12
+   B of ghc a row a model and the histograms written), kernel A's root
+   split bitwise the single kernel's model by model, and for kernel B
+   ``index_add_`` and the loop of B ``hist_rows`` launches it replaces
+   (``loop_ms``); (b) at 100k rows, 63
    leaves, 2 iterations, B = 4: the kernels' model text equal to the
    plain route's, and kernel B against its plain version and against
    ``hist_rows`` model by model (max abs err 0); (c) ``lt.cv`` of 5
@@ -4257,6 +4260,12 @@ def mb_kernel_records(params, ds, dev, reps):
         need=("hist_rows_batched_kernel",)) / 1e3 or None
     b_plain = time_ms(lambda: hc.histogram_rows_batched_plain(bins, ghc, nb),
                       1)
+    # the loop the kernel replaces: m hist_rows launches at the same shape
+    single = hc.rows_partial(bins, nb)
+    ghcs = [ghc[i].contiguous() for i in range(m)]
+    b_loop = time_ms(lambda: [hc.histogram_rows(bins, g, nb, partial=single)
+                              for g in ghcs], reps)
+    del single, ghcs
     f = bins.shape[1]
     keys = ((torch.arange(m, device=dev)[:, None, None] * f
              + torch.arange(f, device=dev)[None, None, :]) * nb
@@ -4271,7 +4280,8 @@ def mb_kernel_records(params, ds, dev, reps):
                                   hc.leaf_feat_tile(f, nb, bin_bytes), m)
     rec_b = dict(max_abs_err=b_err, ms=b_ms, device_ms=b_dev,
                  plain_ms=b_plain, library_ms=b_lib, bound_ms=b_bound,
-                 bound_by="bytes", models=m, block_shape=shape)
+                 bound_by="bytes", models=m, block_shape=shape,
+                 loop_ms=b_loop)
 
     # ---- kernel A
     k, S, T, imeta, fmeta = lrn.root_states(ghc)
@@ -4317,6 +4327,20 @@ def mb_kernel_records(params, ds, dev, reps):
     if a_err != 0.0:
         fail(f"phase 17: fused_split_step_leaf_batched's cache is off its "
              f"plain version's by {a_err} (root split, B {m})")
+    # model by model, the single-model kernel's root split from the same
+    # state: the same bits
+    restore()
+    for i in range(m):
+        ss.fused_split_step_leaf(
+            k[i:i + 1], S[i], T[i], lrn.lid[i], lrn.hist[i], bins,
+            ghc[i].contiguous(), imeta, fmeta, params=lrn.params[i],
+            big_l=lrn.num_leaves, max_depth=lrn.serial.max_depth, b=nb,
+            has_monotone=lrn.serial.has_monotone)
+    for name, x, y in zip(("k", "S", "T", "lid", "cache"), got, state):
+        if not torch.equal(x.view(torch.uint8), y.view(torch.uint8)):
+            fail(f"phase 17: fused_split_step_leaf_batched's {name} differs "
+                 f"bitwise from fused_split_step_leaf's, model by model "
+                 f"(root split, B {m})")
     a_plain = timed(lambda: ss.fused_split_step_leaf_batched_plain(
         *state, bins, ghc, imeta, fmeta, params=lrn.params,
         big_l=lrn.num_leaves, max_depth=lrn.serial.max_depth, b=nb,
@@ -4346,7 +4370,8 @@ def mb_kernel_records(params, ds, dev, reps):
         / (lrn.num_leaves - 1)
     rec_a = dict(max_abs_err=a_err, ms=a_ms, device_ms=a_dev,
                  plain_ms=a_plain, library_ms=None, bound_ms=root_bound,
-                 bound_by="bytes", models=m, tree_avg_ms=tree_ms,
+                 bound_by="bytes", models=m, single_kernel_equal=True,
+                 tree_avg_ms=tree_ms,
                  tree_avg_bound_ms=tree_bound,
                  tree_splits=[len(sp) for sp in splits],
                  launch_shape=lrn._scratch.shape)
@@ -4545,26 +4570,34 @@ def multiboost_phase(X, y, binned, dev, iters, reps):
                     launches={k: v for k, v in launches.items() if v})
     del boosters
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    rec_a, rec_b = mb_kernel_records(params[:4], over_binned(binned, X, y),
-                                     dev, reps)
-    rec_a["launches"] = launches["fused_split_step_leaf_batched"]
-    rec_b["launches"] = launches["hist_rows_batched"]
     def dev_ms(v):
         return "not measured" if v is None else f"{v:.4f}"
-    print(f"[multiboost kernels] fused_split_step_leaf_batched (B "
-          f"{rec_a['models']}, grid {rec_a['launch_shape']}): root split "
-          f"{rec_a['ms']:.4f} ms (device {dev_ms(rec_a['device_ms'])}, plain "
-          f"{rec_a['plain_ms']:.2f}, bound {rec_a['bound_ms']:.5f}), tree "
-          f"average {rec_a['tree_avg_ms']:.4f} ms a launch (bound "
-          f"{rec_a['tree_avg_bound_ms']:.5f}) over "
-          f"{rec_a['tree_splits']} splits; cache max abs err against "
-          f"plain {rec_a['max_abs_err']}; hist_rows_batched (B "
-          f"{rec_b['models']}, block {rec_b['block_shape']}): "
-          f"{rec_b['ms']:.4f} ms (device {dev_ms(rec_b['device_ms'])}, plain "
-          f"{rec_b['plain_ms']:.2f}, index_add_ {rec_b['library_ms']:.3f}, "
-          f"bound {rec_b['bound_ms']:.5f}), max abs err against plain "
-          f"{rec_b['max_abs_err']} ({time.perf_counter() - t0:.1f} s)")
+    # the kernels alone at B 4 (the record's numbers) and B 8 (bucket 0's
+    # 8 models, beside them in the record)
+    recs = {}
+    for models in (4, 8):
+        t0 = time.perf_counter()
+        ra, rb = recs[models] = mb_kernel_records(
+            params[:models], over_binned(binned, X, y), dev, reps)
+        print(f"[multiboost kernels] fused_split_step_leaf_batched (B "
+              f"{ra['models']}, grid {ra['launch_shape']}): root split "
+              f"{ra['ms']:.4f} ms (device {dev_ms(ra['device_ms'])}, plain "
+              f"{ra['plain_ms']:.2f}, bound {ra['bound_ms']:.5f}), tree "
+              f"average {ra['tree_avg_ms']:.4f} ms a launch (bound "
+              f"{ra['tree_avg_bound_ms']:.5f}) over "
+              f"{ra['tree_splits']} splits; cache max abs err against "
+              f"plain {ra['max_abs_err']}, root split bitwise the single "
+              f"kernel's {ra['single_kernel_equal']}; hist_rows_batched (B "
+              f"{rb['models']}, block {rb['block_shape']}): "
+              f"{rb['ms']:.4f} ms (device {dev_ms(rb['device_ms'])}, "
+              f"{rb['models']} hist_rows launches {rb['loop_ms']:.4f}, plain "
+              f"{rb['plain_ms']:.2f}, index_add_ {rb['library_ms']:.3f}, "
+              f"bound {rb['bound_ms']:.5f}), max abs err against plain "
+              f"{rb['max_abs_err']} ({time.perf_counter() - t0:.1f} s)")
+    rec_a, rec_b = recs[4]
+    rec_a["models_8"], rec_b["models_8"] = recs[8]
+    rec_a["launches"] = launches["fused_split_step_leaf_batched"]
+    rec_b["launches"] = launches["hist_rows_batched"]
     out["b"] = mb_parity(dev)
     out["c"] = mb_cv(binned, X, y, iters, dev)
     return out, rec_a, rec_b
@@ -5231,8 +5264,19 @@ def main() -> int:
             kernels[-1]["tree_avg_ms"] = r["tree_avg_ms"]
             kernels[-1]["tree_avg_bound_ms"] = r["tree_avg_bound_ms"]
             kernels[-1]["models"] = r["models"]
+            kernels[-1]["single_kernel_equal"] = r["single_kernel_equal"]
         if name == "hist_rows_batched":
             kernels[-1]["models"] = r["models"]
+            # the m hist_rows launches the kernel replaces, timed beside it
+            kernels[-1]["loop_ms"] = r["loop_ms"]
+        if name in ("fused_split_step_leaf_batched", "hist_rows_batched"):
+            # bucket 0's 8 models at once, measured beside B 4
+            kernels[-1]["models_8"] = {
+                key: r["models_8"][key] for key in (
+                    "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                    "max_abs_err", "tree_avg_ms", "tree_avg_bound_ms",
+                    "loop_ms", "block_shape", "launch_shape")
+                if key in r["models_8"]}
         if name == "split_scan":
             # the per-phase scan also takes the tree's node table
             # (extra_trees, by-node sampling; phase 13)

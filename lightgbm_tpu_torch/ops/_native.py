@@ -104,12 +104,15 @@ _SIGNATURES = {
     # bin_bytes, n, F, B, feat_tile, out int32[4] (blocks per SM, grid,
     # shared bytes, most chunks of a split)
     "ltt_split_step_leaf_shape": [_I] * 5 + [_P],
-    # the model-batched step's: the same arguments and out
-    "ltt_split_step_leaf_batched_shape": [_I] * 5 + [_P],
+    # the model-batched step's: the same arguments, then models, and out
+    "ltt_split_step_leaf_batched_shape": [_I] * 6 + [_P],
     # bin_bytes, models, k, S, T, lid, hist, bins, ghc, imeta, fmeta,
-    # params, partial, mask, ids, counts, table, done, sites, sc, n, L,
-    # F, B, feat_tile, grid_cap, has_monotone, max_depth, stream
-    "ltt_split_step_leaf_batched": [_I, _I] + [_P] * 18 + [_I] * 8 + [_P],
+    # params, partial, mask, ids, counts, table, done, n, L, F, B,
+    # feat_tile, grid_cap, has_monotone, max_depth, stream
+    "ltt_split_step_leaf_batched": [_I, _I] + [_P] * 16 + [_I] * 8 + [_P],
+    # the same, then times (u64 [32]: this launch's clock reads), stream
+    "ltt_split_step_leaf_batched_timed": [_I, _I] + [_P] * 16 + [_I] * 8
+    + [_P, _P],
     # bin_bytes, bins, ghc, ids (or null: all rows), count, F, B,
     # feat_tile, max_chunks, partial, out, out64 (or null), stream
     "ltt_hist_rows": [_I, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P],
@@ -122,6 +125,9 @@ _SIGNATURES = {
     # partial, out, stream
     "ltt_hist_rows_batched": [_I, _P, _P, _L, _I, _I, _I, _I, _I, _P, _P,
                               _P],
+    # the same, then times (u64 [grid, 5]), stream
+    "ltt_hist_rows_batched_timed": [_I, _P, _P, _L, _I, _I, _I, _I, _I, _P,
+                                    _P, _P, _P],
     # bin_bytes, B, feat_tile, models, out int32[3] (features and models
     # a block, shared bytes)
     "ltt_hist_rows_batched_shape": [_I, _I, _I, _I, _P],

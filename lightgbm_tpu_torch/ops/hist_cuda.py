@@ -427,6 +427,60 @@ def rows_partial_batched(binned: torch.Tensor, num_bins: int,
                        dtype=torch.float64, device=binned.device)
 
 
+# The batched histogram's block (csrc/hist_rows.cu batched_shape): a
+# block takes a sub-tile of features and a group of models of one chunk,
+# walks its rows in steps of BATCHED_STEP_ROWS (one a thread) and holds,
+# in shared memory: each model's double2 sums and missing counts a bin
+# (20 B), each feature's row counts a bin (4 B), each warp's peer words
+# (4 B a bin), each feature's leader slots (8 B a step row), each
+# model's staged (g, h) (8 B a step row) and count words, and the staged
+# bins; at most BATCHED_SMEM_BYTES (two blocks an H100 SM: 228 KB, 1 KB
+# reserved a block).
+BATCHED_STEP_ROWS = 256      # csrc/hist_rows.cu kBStep
+BATCHED_MAX_MODELS = 8       # kBMaxModels
+BATCHED_MAX_TILE = 8         # kBMaxTile
+BATCHED_WARPS = 8            # kBWarps
+BATCHED_SMEM_BYTES = 113 * 1024   # kBatchedSmem
+BATCHED_MODEL_BIN_BYTES = 20      # kBModelBinBytes
+BATCHED_FEATURE_BIN_BYTES = 4     # kBFeatureBinBytes
+BATCHED_WARP_BIN_BYTES = 4        # kBWarpBinBytes
+BATCHED_LEADER_BYTES = 8          # kBLeaderBytes
+BATCHED_STAGE_ROW_BYTES = 8       # kBStageRowBytes
+
+
+def rows_batched_smem(bin_bytes: int, num_bins: int, features: int,
+                      models: int) -> int:
+    """Shared bytes of a batched block of ``features`` x ``models``
+    (``batched_smem``)."""
+    groups = BATCHED_STEP_ROWS // 32
+    return models * features * num_bins * BATCHED_MODEL_BIN_BYTES \
+        + features * num_bins * BATCHED_FEATURE_BIN_BYTES \
+        + BATCHED_WARPS * num_bins * BATCHED_WARP_BIN_BYTES \
+        + features * BATCHED_STEP_ROWS * BATCHED_LEADER_BYTES \
+        + models * (BATCHED_STEP_ROWS * BATCHED_STAGE_ROW_BYTES + groups * 4) \
+        + features * BATCHED_STEP_ROWS * bin_bytes
+
+
+def rows_batched_block(bin_bytes: int, num_bins: int, feat_tile: int,
+                       models: int) -> tuple:
+    """(features, models) of a batched block, the Python mirror of
+    ``batched_shape``: the models spread evenly over the fewest groups
+    of at most BATCHED_MAX_MODELS, then the widest sub-tile (at most the
+    leaf tile and BATCHED_MAX_TILE) that fits BATCHED_SMEM_BYTES; more
+    groups while not one feature fits. (1, 0) when nothing fits."""
+    cap = min(feat_tile, BATCHED_MAX_TILE)
+    groups = -(-models // BATCHED_MAX_MODELS)
+    while True:
+        mb = -(-models // groups)
+        for ft in range(cap, 0, -1):
+            if rows_batched_smem(bin_bytes, num_bins, ft, mb) \
+                    <= BATCHED_SMEM_BYTES:
+                return ft, mb
+        if mb == 1:
+            return 1, 0
+        groups += 1
+
+
 def rows_batched_shape(bin_bytes: int, num_bins: int, feat_tile: int,
                        models: int) -> dict:
     """The batched launch's blocks (``ltt_hist_rows_batched_shape``): the
@@ -438,6 +492,20 @@ def rows_batched_shape(bin_bytes: int, num_bins: int, feat_tile: int,
     return dict(features=out[0], models=out[1], smem_bytes=out[2])
 
 
+def rows_batched_blocks(n: int, num_features: int, num_bins: int,
+                        bin_bytes: int, models: int) -> int:
+    """Blocks of one batched launch: chunks x feature sub-tiles x model
+    groups (the rows of its timed build's ``times``)."""
+    tile = leaf_feat_tile(num_features, num_bins, bin_bytes)
+    ft, mb = rows_batched_block(bin_bytes, num_bins, tile, models)
+    return leaf_child_chunks(n, num_features, tile) \
+        * -(-num_features // ft) * -(-models // mb)
+
+
+# the timed build's laps a block (csrc/hist_rows.cu kBatchedLaps)
+BATCHED_LAPS = ("first fetch", "stage", "peers", "adds", "write-out")
+
+
 def histogram_rows_batched_plain(binned: torch.Tensor, ghc: torch.Tensor,
                                  num_bins: int) -> torch.Tensor:
     """Plain version: ``build_histogram`` of all rows for each model's
@@ -447,7 +515,8 @@ def histogram_rows_batched_plain(binned: torch.Tensor, ghc: torch.Tensor,
 
 def histogram_rows_batched(binned: torch.Tensor, ghc: torch.Tensor,
                            num_bins: int,
-                           partial: Optional[torch.Tensor] = None
+                           partial: Optional[torch.Tensor] = None,
+                           times: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """[models, F, B, 3] f32 histograms of all rows of ``binned`` [N, F]
     (uint8, B <= 256; the int16 bits of uint16 bins, B <= 1024: the leaf
@@ -458,7 +527,11 @@ def histogram_rows_batched(binned: torch.Tensor, ghc: torch.Tensor,
     for bit; ``partial`` is its float64 scratch (``rows_partial_batched``),
     allocated here when not given. On a CPU tensor it runs
     ``histogram_rows_batched_plain``. The count channel is a 0/1
-    indicator, as for ``histogram_rows``."""
+    indicator, as for ``histogram_rows``. ``times`` (for
+    ``chip_profile.py``; not counted in ``LAUNCHES``): int64 [blocks,
+    5] on the card (``rows_batched_blocks``); the launch goes through
+    the kernel's timed instantiation, whose every block writes its
+    cycles of each of ``BATCHED_LAPS`` there."""
     dev = binned.device
     if dev.type == "cpu":
         return histogram_rows_batched_plain(binned, ghc, num_bins)
@@ -487,10 +560,18 @@ def histogram_rows_batched(binned: torch.Tensor, ghc: torch.Tensor,
         raise ValueError("partial does not fit this histogram")
     out = torch.empty((models, f, num_bins, 3), dtype=torch.float32,
                       device=dev)
+    args = (bin_bytes, binned.data_ptr(), ghc.data_ptr(), n, models, f,
+            num_bins, tile, max_chunks, partial.data_ptr(), out.data_ptr())
+    if times is not None:
+        req(times, device=dev, dtype=torch.int64,
+            shape=(rows_batched_blocks(n, f, num_bins, bin_bytes, models),
+                   len(BATCHED_LAPS)), name="times")
+        _native.check(_native.library().ltt_hist_rows_batched_timed(
+            *args, times.data_ptr(), _native.stream_of(binned)),
+            "hist_rows_batched (timed)")
+        return out
     err = _native.library().ltt_hist_rows_batched(
-        bin_bytes, binned.data_ptr(), ghc.data_ptr(), n, models, f,
-        num_bins, tile, max_chunks, partial.data_ptr(), out.data_ptr(),
-        _native.stream_of(binned))
+        *args, _native.stream_of(binned))
     _native.LAUNCHES["hist_rows_batched"] += 1
     _native.check(err, "hist_rows_batched")
     return out

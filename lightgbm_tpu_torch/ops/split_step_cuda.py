@@ -666,9 +666,25 @@ def fused_split_step_leaf(k, S, T, lid, hist, binned, ghc, imeta, fmeta, *,
 
 # ---- the model-batched leaf step ---------------------------------------
 
-# scratch bytes of one model's split site (csrc/split_step_leaf.cu
-# kSiteBytes)
-SITE_BYTES = 128
+# shared bytes a model of the batched kernel past the single kernel's
+# (csrc/split_step_leaf.cu kModelSmem: the model's site, cut and child
+# row count, and its entry in the list of going models)
+LEAF_BATCHED_MODEL_BYTES = 144
+
+
+# the batched compaction's staging (kCompactBytes: a mask word and an
+# offset a thread, for up to 8 models of 256 threads), which takes the
+# histogram's shared bytes while they are free
+LEAF_BATCHED_COMPACT_BYTES = 2 * 8 * 256 * 4
+
+
+def leaf_batched_smem_bytes(single_smem: int, models: int) -> int:
+    """Dynamic shared bytes of a batched launch of ``models`` models:
+    the single kernel's (``leaf_launch_shape``'s; at least
+    ``LEAF_BATCHED_COMPACT_BYTES``), rounded up to 16, then
+    ``LEAF_BATCHED_MODEL_BYTES`` a model."""
+    return -(-max(single_smem, LEAF_BATCHED_COMPACT_BYTES) // 16) * 16 \
+        + models * LEAF_BATCHED_MODEL_BYTES
 
 
 def params_table(params, device) -> torch.Tensor:
@@ -683,12 +699,13 @@ def params_table(params, device) -> torch.Tensor:
 
 
 def leaf_batched_launch_shape(bin_bytes: int, n: int, num_features: int,
-                              num_bins: int) -> dict:
-    """``leaf_launch_shape`` of the model-batched kernel (its own grid)."""
+                              num_bins: int, models: int) -> dict:
+    """``leaf_launch_shape`` of the model-batched kernel for ``models``
+    models (its own grid; ``leaf_batched_smem_bytes``)."""
     out = (ctypes.c_int * 4)()
     err = _native.library().ltt_split_step_leaf_batched_shape(
         bin_bytes, n, num_features, num_bins,
-        leaf_feat_tile(num_features, num_bins, bin_bytes),
+        leaf_feat_tile(num_features, num_bins, bin_bytes), models,
         ctypes.addressof(out))
     _native.check(err, "fused_split_step_leaf_batched")
     return dict(blocks_per_sm=out[0], grid=out[1], smem_bytes=out[2],
@@ -700,7 +717,7 @@ class LeafBatchScratch:
     models, allocated once per bucket: each model's ``LeafScratch``
     (float64 partials [max_chunks, F, B, 3], which the batched root
     histogram shares, membership bits, row ids, per-block counts, both
-    scan tables, the done count) and its split site and child count.
+    scan tables, the done count).
     ``layout`` lists every tensor it allocates; ``nbytes`` sizes a
     bucket's memory gate from the same list."""
 
@@ -717,9 +734,7 @@ class LeafBatchScratch:
             "table": ((models, 2, num_features, 8), torch.float32),
             # each model's scans past their count; the launch that counts
             # a model's last resets it
-            "done": ((models,), torch.int32),
-            "sites": ((models, SITE_BYTES // 4), torch.int32),
-            "sc": ((models,), torch.int64)}
+            "done": ((models,), torch.int32)}
 
     @classmethod
     def nbytes(cls, *args) -> int:
@@ -732,7 +747,7 @@ class LeafBatchScratch:
         dev = binned.device
         self.models = models
         self.shape = leaf_batched_launch_shape(leaf_bin_bytes(binned), n, f,
-                                               num_bins)
+                                               num_bins, models)
         for name, (shape, dtype) in self.layout(
                 n, f, num_bins, models, self.shape["max_chunks"],
                 self.shape["grid"]).items():
@@ -794,7 +809,7 @@ class LeafBatchStep:
             name="params")
         if scratch is None:
             scratch = LeafBatchScratch(binned, b, models)
-        if scratch.models < models \
+        if scratch.models != models \
                 or tuple(scratch.partial.shape[2:]) != (f, b, 3) \
                 or scratch.mask.shape[1] * 32 < n \
                 or scratch.ids.shape[1] < n:
@@ -802,12 +817,13 @@ class LeafBatchStep:
         # the tensors stay referenced while their pointers are held
         self._keep = (k, S, T, lid, hist, binned, ghc, imeta, fmeta, ptable,
                       scratch)
+        self.big_l = big_l
         P, I = ctypes.c_void_p, ctypes.c_int
         self._args = (
             I(bin_bytes), I(models), *(P(t.data_ptr()) for t in (
                 k, S, T, lid, hist, binned, ghc, imeta, fmeta, ptable,
                 scratch.partial, scratch.mask, scratch.ids, scratch.counts,
-                scratch.table, scratch.done, scratch.sites, scratch.sc)),
+                scratch.table, scratch.done)),
             *(I(v) for v in (n, big_l, f, b,
                              leaf_feat_tile(f, b, bin_bytes),
                              scratch.counts.shape[1],
@@ -820,6 +836,25 @@ class LeafBatchStep:
                                                             self._stream),
                       "fused_split_step_leaf_batched")
         _native.LAUNCHES["fused_split_step_leaf_batched"] += 1
+
+    def timed(self, times: torch.Tensor, row: int) -> None:
+        """The same launch through the kernel's timed instantiation (for
+        ``chip_profile.py``; not counted in ``LAUNCHES``): block 0 writes
+        ``%globaltimer`` and ``clock64`` at the kernel's entry and after
+        each phase into ``times[row]`` (int64 [L - 1, LEAF_TIMES]:
+        nanoseconds in columns 0-6, cycles in 8-14, column 7 the latest
+        state write of any model, block 0's histogram cycles by part in
+        16-19, cycles inside the lid pass and the compaction in 20-23;
+        see ``csrc/split_step_leaf.cu`` ``bstamp``)."""
+        _native.require(times, device=self._keep[0].device,
+                        dtype=torch.int64,
+                        shape=(self.big_l - 1, LEAF_TIMES), name="times")
+        if not 0 <= row < self.big_l - 1:
+            raise ValueError(f"row {row} out of range")
+        _native.check(self._lib.ltt_split_step_leaf_batched_timed(
+            *self._args, ctypes.c_void_p(times.data_ptr() + row * LEAF_TIMES
+                                         * times.element_size()),
+            self._stream), "fused_split_step_leaf_batched (timed)")
 
 
 def fused_split_step_leaf_batched(k, S, T, lid, hist, binned, ghc, imeta,

@@ -1347,13 +1347,18 @@ def test_refit_kernel_matches_plain(dev, linear):
 
 # ---- the model-batched kernels (multiboost) ------------------------------
 
-def _batch_roots(dev, models, n, f, b, big_l, exact, seed=7):
+def _batch_roots(dev, models, n, f, b, big_l, exact, seed=7, stop=None,
+                 layout="random"):
     """``models`` models over one random [n, f] bin matrix, each with its
     own ghc (``exact``: gradients and hessians in multiples of 1/8, so
-    every float64 sum is exact in any order), its own ``SplitParams``
-    (min_data_in_leaf and lambda_l2 varying) and its root state from the
-    scan kernel. Returns ([k, S, T, lid, hist] stacked, binned, ghc [M,
-    n, 3], imeta, fmeta, params, step kwargs)."""
+    every float64 sum is exact in any order) and bagging mask (the count
+    channel), its own ``SplitParams`` (min_data_in_leaf and lambda_l2
+    varying) and its root state from the scan kernel. Model ``stop``
+    takes min_data_in_leaf n / 3: it stops growing after a split or two
+    while the others go on. ``layout`` "sorted" makes feature 0 rise
+    with the row index (whole blocks of the grid without a member).
+    Returns ([k, S, T, lid, hist] stacked, binned, ghc [M, n, 3], imeta,
+    fmeta, params, step kwargs)."""
     from lightgbm_tpu_torch.learner.split_step import (make_grow_pack,
                                                        root_state)
     from lightgbm_tpu_torch.ops import split as sp
@@ -1362,6 +1367,8 @@ def _batch_roots(dev, models, n, f, b, big_l, exact, seed=7):
     from lightgbm_tpu_torch.ops.histogram import build_histogram, make_ghc
     g = torch.Generator(device=dev).manual_seed(seed)
     bins = torch.randint(0, b, (n, f), generator=g, device=dev)
+    if layout == "sorted":
+        bins[:, 0] = torch.arange(n, device=dev) * b // n
     binned = bins.to(torch.uint8 if b <= 256 else torch.int16)
     meta = sp.FeatureMeta(
         num_bins=np.full(f, b, np.int32),
@@ -1383,7 +1390,9 @@ def _batch_roots(dev, models, n, f, b, big_l, exact, seed=7):
                 torch.clamp(torch.round(hess * 8) / 8, min=0.125)
         w = (torch.rand(n, generator=g, device=dev) < 0.8).float()
         ghcs.append(make_ghc(grad, hess, w))
-        p = sp.SplitParams(0.1, 0.5 * m, 0.0, 5.0 + 3 * m, 1e-3, 0.0, True)
+        p = sp.SplitParams(0.1, 0.5 * m, 0.0,
+                           float(n // 3) if m == stop else 5.0 + 3 * m,
+                           1e-3, 0.0, True)
         params.append(p)
         hist[m, 0] = build_histogram(binned, ghcs[-1], b)
         sums = hist[m, 0, 0].sum(0).cpu().numpy()
@@ -1401,7 +1410,7 @@ def _batch_roots(dev, models, n, f, b, big_l, exact, seed=7):
             params, kw)
 
 
-@pytest.mark.parametrize("models", [1, 3, 17])
+@pytest.mark.parametrize("models", [1, 3, 5, 8, 17])
 @pytest.mark.parametrize("b", [255, 1023], ids=["u8", "u16"])
 def test_leaf_batched_kernel_matches_single_kernel(dev, models, b):
     """A whole tree of every model (L - 1 launches of the batched kernel)
@@ -1433,7 +1442,7 @@ def test_leaf_batched_kernel_matches_single_kernel(dev, models, b):
         assert int(k[0]) > 4
 
 
-@pytest.mark.parametrize("models", [1, 3, 17])
+@pytest.mark.parametrize("models", [1, 3, 5, 8, 17])
 def test_leaf_batched_kernel_matches_plain(dev, models):
     """The same batched tree against the plain version (a loop of the
     single-model plain step) on gradients whose sums are exact: every
@@ -1461,9 +1470,10 @@ def test_leaf_batched_kernel_matches_plain(dev, models):
         assert int(state[0][0]) > 4
 
 
-@pytest.mark.parametrize("models", [1, 3, 17])
-@pytest.mark.parametrize("b,n", [(255, 20_011), (1023, 30_000), (63, 300)],
-                         ids=["u8", "u16", "one_chunk"])
+@pytest.mark.parametrize("models", [1, 3, 5, 8, 17])
+@pytest.mark.parametrize("b,n", [(255, 20_011), (1023, 30_000), (63, 300),
+                                 (255, 300_007)],
+                         ids=["u8", "u16", "one_chunk", "chunk_cap"])
 def test_hist_rows_batched_matches_single_and_plain(dev, models, b, n):
     """The batched root histogram: model by model the single kernel's
     bit for bit (random ghc), and the plain version's bit for bit on
@@ -1487,6 +1497,104 @@ def test_hist_rows_batched_matches_single_and_plain(dev, models, b, n):
     exact[..., 2] = ghc[..., 2]
     got = hc.histogram_rows_batched(binned, exact, b)
     assert _same_bytes(got, hc.histogram_rows_batched_plain(binned, exact, b))
+
+
+@pytest.mark.parametrize("case", ["chunk_cap", "stops", "sorted_u16",
+                                  "sorted_u8"])
+def test_leaf_batched_kernel_cases(dev, case):
+    """A whole tree of the batched kernel against each model's tree
+    through the single kernel, bitwise: children over the chunk cap (130
+    features at 1024 bins: 7 chunks of 512 rows at most), a model that
+    stops growing after a split or two while the others go on, and
+    splits on a sorted feature (whole blocks without a member) with N a
+    multiple of neither 32 nor 512, u16 and u8."""
+    from lightgbm_tpu_torch.ops import split_step_cuda as ss
+    models, n, f, b, stop, layout = {
+        "chunk_cap": (3, 40_000, 130, 1024, None, "random"),
+        "stops": (5, 20_011, 12, 255, 2, "random"),
+        "sorted_u16": (4, 50_003, 12, 1024, None, "sorted"),
+        "sorted_u8": (8, 20_011, 9, 255, 6, "sorted")}[case]
+    big_l = 15
+    state, binned, ghc, imeta, fmeta, params, kw = _batch_roots(
+        dev, models, n, f, b, big_l, exact=False, stop=stop, layout=layout)
+    single = [[t[m].clone() for t in state] for m in range(models)]
+    scratch = ss.LeafBatchScratch(binned, b, models)
+    for _ in range(big_l - 1):
+        ss.fused_split_step_leaf_batched(*state, binned, ghc, imeta, fmeta,
+                                         params=params, scratch=scratch,
+                                         **kw)
+    for m in range(models):
+        k, S, T, lid, hist = single[m]
+        k = k.reshape(1)
+        for _ in range(big_l - 1):
+            ss.fused_split_step_leaf(k, S, T, lid, hist, binned, ghc[m],
+                                     imeta, fmeta, params=params[m], **kw)
+        torch.cuda.synchronize()
+        for a, w in zip([t[m] for t in state], (k[0], S, T, lid, hist)):
+            assert _same_bytes(a, w), (case, m)
+    ks = state[0].tolist()
+    if stop is not None:
+        assert ks[stop] <= 3 and max(ks) == big_l, ks
+    else:
+        assert min(ks) > 4, ks
+
+
+def test_batched_timed_builds_match(dev):
+    """The timed instantiations of both batched kernels write the same
+    bits as the untimed ones, and their clock reads."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops import split_step_cuda as ss
+    big_l = 15
+    state, binned, ghc, imeta, fmeta, params, kw = _batch_roots(
+        dev, 4, 20_011, 12, 255, big_l, exact=False)
+    timed = [t.clone() for t in state]
+    scratch = ss.LeafBatchScratch(binned, 255, 4)
+    step = ss.LeafBatchStep(*state, binned, ghc, imeta, fmeta,
+                            ss.params_table(params, dev), scratch=scratch,
+                            **kw)
+    tstep = ss.LeafBatchStep(*timed, binned, ghc, imeta, fmeta,
+                             ss.params_table(params, dev),
+                             scratch=ss.LeafBatchScratch(binned, 255, 4),
+                             **kw)
+    times = torch.zeros((big_l - 1, ss.LEAF_TIMES), dtype=torch.int64,
+                        device=dev)
+    for i in range(big_l - 1):
+        step()
+        tstep.timed(times, i)
+    torch.cuda.synchronize()
+    for a, t in zip(state, timed):
+        assert _same_bytes(a, t)
+    assert bool((times[:, 7] > 0).all()) and bool((times[:, 1] > 0).all())
+    n = binned.shape[0]
+    blocks = hc.rows_batched_blocks(n, 12, 255, 1, 4)
+    laps = torch.zeros((blocks, len(hc.BATCHED_LAPS)), dtype=torch.int64,
+                       device=dev)
+    out = hc.histogram_rows_batched(binned, ghc, 255, times=laps)
+    assert _same_bytes(out, hc.histogram_rows_batched(binned, ghc, 255))
+    assert bool((laps[:, 3] > 0).all())
+
+
+@pytest.mark.parametrize("models", [1, 3, 4, 8, 17, 64])
+@pytest.mark.parametrize("b", [63, 255, 1023])
+def test_batched_shapes_match_the_library(dev, models, b):
+    """The Python mirrors of both batched kernels' shapes against the
+    library: hist_rows_batched's block (features, models, shared bytes)
+    and the batched leaf step's shared bytes (the single step's rounded
+    up to 16, then LEAF_BATCHED_MODEL_BYTES a model)."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops import split_step_cuda as ss
+    bb = 1 if b <= 256 else 2
+    tile = hc.leaf_feat_tile(28, b, bb)
+    ft, mb = hc.rows_batched_block(bb, b, tile, models)
+    assert hc.rows_batched_shape(bb, b, tile, models) == dict(
+        features=ft, models=mb, smem_bytes=hc.rows_batched_smem(bb, b, ft,
+                                                                mb))
+    single = ss.leaf_launch_shape(bb, 2_000_000, 28, b)
+    batched = ss.leaf_batched_launch_shape(bb, 2_000_000, 28, b, models)
+    assert batched["smem_bytes"] == ss.leaf_batched_smem_bytes(
+        single["smem_bytes"], models)
+    assert batched["max_chunks"] == single["max_chunks"]
+    assert batched["grid"] >= 132
 
 
 def test_multiboost_bucket_too_large_loops(dev, monkeypatch):
