@@ -235,6 +235,25 @@ of the JAX package. Phases, each fatal on failure:
    folds of the 2M rows at lr 0.25: ``multiboost=on`` byte-equal to
    ``train_many`` with the folds' ``row_indices``, and within rtol 1e-5
    / atol 1e-7 of ``multiboost=off``'s per-fold loop.
+18. the robustness and observability planes (``planes_phase``, run
+   after phase 17 on phase 2's bins, with a 500k-row valid set): (a) a
+   plain run (255 leaves, max_bin 255, lr 0.1, the script's iterations)
+   against one with ``checkpoint_dir`` (freq 2), ``guard_policy=raise``
+   and ``guard_loss_spike=10``, the texts byte-equal up to
+   ``parameters:``; the checkpoint writes, their ms and bytes, state.npz's
+   MB; (b) the drill ``nan_grad@iteration=3;sigterm@iteration=5`` under
+   ``guard_policy=rollback``: preempted, then resumed, byte-equal to
+   (a), with ``guard.rollbacks``, ``checkpoint.restores`` and the resume
+   iteration; (c) ms/split with telemetry on between two runs with it
+   off, then ``telemetry_out``, ``trace_out`` and ``profile_dir``: one
+   ``iter`` record an iteration whose ``launch.*`` equal the launch
+   counters' deltas, one ``phase_probe`` record and the probe's own
+   launches (``hist_segment``, ``partition_segment``, ``split_scan``),
+   the profiler window's trace holding ``csrc/split_step_segment.cu``'s
+   kernel, and the serial learner's probe (``hist_rows``); (d) a drill
+   at 100k x 28, 63 leaves, ``PARITY_ITERS`` + 2 iterations (its faults
+   at iterations 1 and 2), max_bin 255 and 1023, kernels against plain
+   versions, the texts equal. Prints ``[phase 18] <s>``.
 
 The second-to-last line of output is the per-kernel JSON record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -4869,6 +4888,321 @@ def parallel_phase(n, iters, dev, limit_s):
     return out
 
 
+# ---- phase 18: the robustness and observability planes ---------------
+
+# the drill of (b) and (d): a NaN gradient rolled back to the last
+# checkpoint, then a preemption; the second call resumes
+PLANES_DRILL = "nan_grad@iteration=3;sigterm@iteration=5"
+# (d)'s drill on PARITY_ITERS + 2 iterations (the faults must fire)
+PLANES_PARITY_DRILL = "nan_grad@iteration=1;sigterm@iteration=2"
+
+
+def planes_text(bst):
+    """The model text up to its ``parameters:`` section (which records
+    the plane params)."""
+    return bst.model_to_string().split("parameters:")[0]
+
+
+def timed_checkpoints():
+    """Wrap ``CheckpointManager.save`` to count its writes and sum their
+    wall ms (host clock around each save); returns the record and an
+    undo."""
+    from lightgbm_tpu_torch.robustness.checkpoint import CheckpointManager
+    orig = CheckpointManager.save
+    rec = {"writes": 0, "ms": 0.0}
+
+    def save(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = orig(self, *a, **kw)
+        if out is not None:
+            rec["writes"] += 1
+            rec["ms"] += (time.perf_counter() - t0) * 1e3
+        return out
+    CheckpointManager.save = save
+
+    def undo():
+        CheckpointManager.save = orig
+    return rec, undo
+
+
+def planes_train(params, tr, va, iters, dev, ops="kernel", callbacks=None):
+    """``lt.train`` with the valid set, the host clock around it
+    (synchronised); returns the booster, its seconds and its splits."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    bst = lt.train(params, tr, iters, valid_sets=[va], valid_names=["v"],
+                   verbose_eval=False, callbacks=callbacks, device=dev,
+                   ops=ops)
+    sync()
+    wall = time.perf_counter() - t0
+    return bst, wall, sum(t.num_leaves - 1 for t in bst.models)
+
+
+def planes_drill(params, tr, va, iters, dev, ckpt, drill, ops="kernel"):
+    """The drill: a first call that must come back preempted, then a
+    second that resumes; returns both boosters."""
+    from lightgbm_tpu_torch.observability.telemetry import get_telemetry
+    from lightgbm_tpu_torch.robustness.faults import set_fault_plan
+    p = dict(params, checkpoint_dir=ckpt, guard_policy="rollback",
+             faults=drill)
+    tel = get_telemetry()
+    tel.ensure_ring()
+    before = dict(tel.counters)
+    first, _, _ = planes_train(p, tr, va, iters, dev, ops)
+    set_fault_plan(None)
+    if not first.preempted:
+        fail(f"phase 18: the drill ({drill}) did not preempt")
+    second, _, _ = planes_train(dict(p, faults=""), tr, va, iters, dev, ops)
+    counts = {k: tel.counters.get(k, 0.0) - before.get(k, 0.0)
+              for k in ("guard.rollbacks", "checkpoint.restores",
+                        "checkpoint.writes", "faults.injected")}
+    return first, second, counts
+
+
+def trace_kernels(path):
+    """The device kernels' names and count in a torch.profiler Chrome
+    trace."""
+    with open(path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    return [e.get("name", "") for e in events
+            if e.get("cat") == "kernel"]
+
+
+def planes_phase(X, y, binned, dev, iters):
+    """Phase 18: the robustness and observability planes at full width
+    (2M x 28, 255 leaves, max_bin 255, lr 0.1, ``iters`` rounds, a
+    500k-row valid set; phase 2's bins). (a) a plain run against one
+    with ``checkpoint_dir`` (freq 2), ``guard_policy=raise`` and
+    ``guard_loss_spike=10``: the texts byte-equal up to ``parameters:``;
+    (b) the drill (``PLANES_DRILL`` under ``guard_policy=rollback``):
+    preempted, then resumed, byte-equal to (a); (c) telemetry, the span
+    trace and the profiler window: ``iters`` iter records whose
+    ``launch.*`` equal the iteration's launch deltas, one phase_probe
+    record, the probe's own launches, a device trace holding
+    ``csrc/split_step_segment.cu``'s kernel, and the serial learner's
+    probe (``hist_rows``); (d) the drill at 100k x 28, 63 leaves,
+    max_bin 255 and 1023, kernel against plain, the texts equal."""
+    import tempfile
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.learner import SerialTreeLearner
+    from lightgbm_tpu_torch.observability import get_tracer
+    from lightgbm_tpu_torch.observability.probe import run_phase_probe
+    from lightgbm_tpu_torch.observability.telemetry import get_telemetry
+    from lightgbm_tpu_torch.ops import _native
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="planes_")
+    params = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
+              "max_bin": 255, "verbosity": -1}
+    tr = lt.Dataset(X, label=y)
+    tr._binned = binned
+    Xv, yv = higgs_like(500_000, seed=43)
+    va = tr.create_valid(Xv, label=yv)
+    va._construct(lt.Config.from_params(params))
+    out = {"valid_bin_s": round(time.perf_counter() - t0, 2)}
+
+    # (a) no number changes
+    plain, wall_p, splits_p = planes_train(params, tr, va, iters, dev)
+    ck = os.path.join(tmp, "a")
+    rec, undo = timed_checkpoints()
+    try:
+        guarded, wall_g, splits_g = planes_train(
+            dict(params, checkpoint_dir=ck, checkpoint_freq=2,
+                 guard_policy="raise", guard_loss_spike=10.0),
+            tr, va, iters, dev)
+    finally:
+        undo()
+    if planes_text(plain) != planes_text(guarded):
+        fail("phase 18 (a): the checkpointed, guarded run's trees differ "
+             "from the plain run's")
+    kept = sorted(os.listdir(ck))
+    last = os.path.join(ck, kept[-1])
+    sizes = {f: os.path.getsize(os.path.join(last, f))
+             for f in os.listdir(last)}
+    out["a"] = {
+        "ms_split_plain": round(wall_p * 1e3 / splits_p, 4),
+        "ms_split_planes": round(wall_g * 1e3 / splits_g, 4),
+        "checkpoint_writes": rec["writes"],
+        "checkpoint_ms": round(rec["ms"] / max(rec["writes"], 1), 2),
+        "checkpoint_bytes": sum(sizes.values()),
+        "state_npz_mb": round(sizes["state.npz"] / 2**20, 2),
+        "kept": kept, "equal": True}
+    print(f"[phase 18 a] ms/split plain {out['a']['ms_split_plain']}, with "
+          f"checkpoint_dir + guards {out['a']['ms_split_planes']}; "
+          f"{rec['writes']} checkpoint writes, "
+          f"{out['a']['checkpoint_ms']} ms and {sum(sizes.values())} "
+          f"bytes a write (state.npz {out['a']['state_npz_mb']} MB); "
+          f"texts equal")
+    del guarded
+    torch.cuda.empty_cache()
+
+    # (b) the drill: rollback, preemption, resume
+    first, second, counts = planes_drill(
+        dict(params, checkpoint_freq=2, guard_loss_spike=10.0), tr, va,
+        iters, dev, os.path.join(tmp, "b"), PLANES_DRILL)
+    if planes_text(second) != planes_text(plain):
+        fail("phase 18 (b): the resumed run's trees differ from (a)'s")
+    if counts["guard.rollbacks"] != 1 or counts["checkpoint.restores"] < 2:
+        fail(f"phase 18 (b): unexpected drill counters {counts}")
+    out["b"] = dict(counts, preempted_at=first._gbdt.iter,
+                    resumed_iteration=second.resumed_iteration, equal=True)
+    print(f"[phase 18 b] drill {PLANES_DRILL}: preempted after iteration "
+          f"{first._gbdt.iter - 1}, guard.rollbacks "
+          f"{counts['guard.rollbacks']}, checkpoint.restores "
+          f"{counts['checkpoint.restores']}, resumed at iteration "
+          f"{second.resumed_iteration}; texts equal to (a)")
+    del first, second
+    get_telemetry().reset()
+    torch.cuda.empty_cache()
+
+    # (c) telemetry, trace, profiler window, probe
+    # telemetry alone (its probe off, so the wall is the loop's) between
+    # two runs with telemetry off
+    tel_only = os.path.join(tmp, "tel_only.jsonl")
+    walls = {"off": [], "on": []}
+    for mode in ("off", "on", "off"):
+        p = dict(params, telemetry_out=tel_only) if mode == "on" \
+            else params
+        os.environ["LGBM_TPU_TELEMETRY_NO_PROBE"] = "1"
+        try:
+            b_tel, wall_t, splits_t = planes_train(p, tr, va, iters, dev)
+        finally:
+            del os.environ["LGBM_TPU_TELEMETRY_NO_PROBE"]
+        get_telemetry().reset()
+        walls[mode].append(round(wall_t * 1e3 / splits_t, 4))
+        if planes_text(b_tel) != planes_text(plain):
+            fail(f"phase 18 (c): the run with telemetry {mode} grew "
+                 "other trees")
+        del b_tel
+    jl = os.path.join(tmp, "tel.jsonl")
+    prof_dir = os.path.join(tmp, "prof")
+    snaps = []
+
+    def snap(env):
+        snaps.append(dict(_native.LAUNCHES))
+    snap.order = 30
+    _native.reset_launch_counts()
+    b_c, wall_c, splits_c = planes_train(
+        dict(params, telemetry_out=jl, trace_out=os.path.join(tmp,
+                                                              "trace.json"),
+             profile_dir=prof_dir), tr, va, iters, dev, callbacks=[snap])
+    after = dict(_native.LAUNCHES)
+    get_telemetry().flush()
+    if planes_text(b_c) != planes_text(plain):
+        fail("phase 18 (c): the run with telemetry, trace and profiler "
+             "grew other trees")
+    with open(jl) as fh:
+        recs = [json.loads(line) for line in fh]
+    iter_recs = [r for r in recs if r["kind"] == "iter"]
+    if len(iter_recs) != iters:
+        fail(f"phase 18 (c): {len(iter_recs)} iter records, not {iters}")
+    prev = {k: 0 for k in _native.LAUNCHES}
+    per_iter = []
+    for r, s in zip(iter_recs, snaps):
+        counts = r.get("counts", {})
+        for k in _native.LAUNCHES:
+            if counts.get(f"launch.{k}", -1) != s[k] - prev[k]:
+                fail(f"phase 18 (c): iteration {r['iter']} launch.{k} "
+                     f"{counts.get(f'launch.{k}')} against the launch "
+                     f"counter's delta {s[k] - prev[k]}")
+        launched = sum(s[k] - prev[k] for k in _native.LAUNCHES)
+        if counts.get("host.dispatches", 0) < launched:
+            fail(f"phase 18 (c): iteration {r['iter']} host.dispatches "
+                 f"{counts.get('host.dispatches')} below its {launched} "
+                 "launches")
+        per_iter.append(counts["launch.fused_split_step_segment"])
+        prev = s
+    probe = [r for r in recs if r["kind"] == "phase_probe"]
+    if len(probe) != 1 or set(probe[0]["phases"]) != {
+            "grad", "update", "hist", "partition", "split"}:
+        fail(f"phase 18 (c): phase_probe records {probe}")
+    probe_launches = {k: after[k] - prev[k] for k in _native.LAUNCHES
+                      if after[k] != prev[k]}
+    for k in ("hist_segment", "partition_segment", "split_scan"):
+        if probe_launches.get(k, 0) <= 0:
+            fail(f"phase 18 (c): the probe did not launch {k}")
+    files = [f for f in os.listdir(prof_dir) if f.endswith(".json")] \
+        if os.path.isdir(prof_dir) else []
+    names = trace_kernels(os.path.join(prof_dir, files[0])) if files else []
+    seg = sum(1 for nm in names if "split_step_kernel" in nm)
+    if not seg:
+        fail("phase 18 (c): the profiler window's trace holds no kernel "
+             "of csrc/split_step_segment.cu")
+    spans = sorted({e["name"] for e in get_tracer().events
+                    if e.get("ph") == "X"})
+    # the serial learner's probe on the same bins: hist_rows (row 8)
+    lrn = SerialTreeLearner(binned, b_c._gbdt.config, dev)
+    part_learner = b_c._gbdt.learner
+    b_c._gbdt.learner = lrn
+    _native.reset_launch_counts()
+    serial_probe = run_phase_probe(b_c._gbdt)
+    serial_launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+    b_c._gbdt.learner = part_learner
+    if not serial_probe or serial_launches.get("hist_rows", 0) <= 0:
+        fail(f"phase 18 (c): the serial probe {serial_probe} launched "
+             f"{serial_launches}")
+    out["c"] = {
+        "ms_split_telemetry_off": walls["off"],
+        "ms_split_telemetry": walls["on"][0],
+        "ms_split_telemetry_trace_profile": round(wall_c * 1e3 / splits_c,
+                                                  4),
+        "iter_records": len(iter_recs),
+        "launch_fused_split_step_segment": per_iter,
+        "probe_ms": {k: round(v * 1e3, 4)
+                     for k, v in probe[0]["phases"].items()},
+        "probe_launches": probe_launches,
+        "serial_probe_ms": {k: round(v * 1e3, 4)
+                            for k, v in serial_probe.items()},
+        "serial_probe_launches": serial_launches,
+        "profiled_segment_kernels": seg, "profiled_kernels": len(names),
+        "spans": spans,
+        "records": sorted({r["kind"] for r in recs})}
+    print(f"[phase 18 c] ms/split telemetry off "
+          f"{out['c']['ms_split_telemetry_off']}, telemetry on "
+          f"{out['c']['ms_split_telemetry']}, with trace and profiler "
+          f"window {out['c']['ms_split_telemetry_trace_profile']}; "
+          f"{len(iter_recs)} iter records, launch.fused_split_step_segment "
+          f"{per_iter} (= the launch counter's deltas); probe ms "
+          f"{out['c']['probe_ms']} launches {probe_launches}; serial probe "
+          f"ms {out['c']['serial_probe_ms']} launches {serial_launches}; "
+          f"profiler trace: {seg} split_step_kernel of {len(names)} "
+          f"kernels; spans {spans}")
+    del b_c, lrn, part_learner, plain
+    get_telemetry().reset()
+    get_tracer().reset()
+    torch.cuda.empty_cache()
+
+    # (d) the drill, kernels against plain versions, at 100k rows
+    Xp, yp = higgs_like(100_000, seed=3)
+    Xpv, ypv = higgs_like(20_000, seed=4)
+    out["d"] = {}
+    for max_bin in (255, 1023):
+        pp = dict(params, max_bin=max_bin, num_leaves=63)
+        texts = {}
+        for ops in ("kernel", "plain"):
+            trp = lt.Dataset(Xp, label=yp)
+            vap = trp.create_valid(Xpv, label=ypv)
+            first, second, counts = planes_drill(
+                dict(pp, checkpoint_freq=1), trp, vap, PARITY_ITERS + 2,
+                dev, os.path.join(tmp, f"d{max_bin}{ops}"),
+                PLANES_PARITY_DRILL, ops=ops)
+            texts[ops] = planes_text(second)
+            if counts["guard.rollbacks"] != 1:
+                fail(f"phase 18 (d): {ops} drill counters {counts}")
+        if texts["kernel"] != texts["plain"]:
+            fail(f"phase 18 (d): the drill's kernel and plain texts differ "
+                 f"at max_bin {max_bin}")
+        out["d"][str(max_bin)] = "equal"
+        print(f"[phase 18 d] drill {PLANES_PARITY_DRILL} at 100000 x {F}, "
+              f"63 leaves, max_bin {max_bin}, {PARITY_ITERS + 2} "
+              f"iterations: kernel and plain texts equal")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=2_000_000)
@@ -5185,9 +5519,16 @@ def main() -> int:
     launches["fused_split_step_leaf_batched"] = \
         rec["fused_split_step_leaf_batched"].pop("launches")
     launches["hist_rows_batched"] = rec["hist_rows_batched"].pop("launches")
-    del binned
     print(f"[multiboost] done in {time.perf_counter() - t0:.1f} s: "
           + json.dumps(mb, default=str))
+    torch.cuda.empty_cache()
+
+    # ---- 18. the robustness and observability planes -------------------
+    t0 = time.perf_counter()
+    planes = planes_phase(X, y, binned, dev, args.iters)
+    del binned
+    print(f"[phase 18] {time.perf_counter() - t0:.1f} s: "
+          + json.dumps(planes, default=str))
     torch.cuda.empty_cache()
 
     # ---- 16. the parallel learners over ranks on the card --------------

@@ -254,6 +254,11 @@ class Dataset:
             self._binned = _BinnedDataset.from_scipy(self.data, config, **kw)
         else:
             self._binned = _BinnedDataset.from_numpy(X, config, **kw)
+        from .observability.telemetry import get_telemetry
+        tel = get_telemetry()
+        tel.count("data.rows_binned", self._binned.num_data)
+        tel.count("data.cells_binned",
+                  self._binned.num_data * self._binned.num_features)
         if self.free_raw_data:
             self.data = None
         return self._binned
@@ -444,6 +449,10 @@ class Booster:
         self.ops = ops
         self.best_iteration = -1
         self.best_score: Dict = {}
+        # set by engine.train: the checkpoint iteration a run resumed
+        # from, and whether a preemption signal stopped it
+        self.resumed_iteration: Optional[int] = None
+        self.preempted = False
         self._train_data_name = "training"
         self._gbdt: Optional[GBDT] = None
         self._loaded: Optional[LoadedBooster] = None
@@ -619,7 +628,12 @@ class Booster:
         return self._eval_jobs(jobs, feval)
 
     def _eval_jobs(self, jobs, feval) -> List:
+        from .observability.telemetry import get_telemetry
         g = self._gbdt
+        tel = get_telemetry()
+        # every dataset's metrics on the device, one host read for all
+        tel.count_iter("host.syncs")
+        tel.count_iter("host.dispatches", len(jobs))
         rows = g.eval_sets([(m, sc, name) for m, sc, name, _ in jobs])
         out = []
         for metrics, score, name, dataset in jobs:
@@ -627,6 +641,7 @@ class Booster:
             out += rows[:n]
             rows = rows[n:]
             if feval is not None:
+                tel.count_iter("host.syncs")
                 flat = score.cpu().numpy().astype(np.float64)
                 flat = flat[:, 0] if flat.shape[1] == 1 \
                     else flat.T.reshape(-1)

@@ -86,11 +86,38 @@ def record_evaluation(eval_result: Dict) -> Callable:
 
 
 def record_telemetry(result: Dict) -> Callable:
-    """Per-iteration telemetry needs the observability plane, which the
-    port does not have yet."""
-    raise NotImplementedError(
-        "record_telemetry needs the observability plane (ROADMAP.md "
-        "Queue 1 item 11)")
+    """Record per-iteration telemetry into ``result`` — the
+    observability analog of ``record_evaluation`` (JAX
+    ``callback.py:87``).
+
+    After training, ``result["iterations"]`` holds one dict per
+    iteration ({iteration, phases, counts, eval, ...} — ``counts`` is
+    the per-iteration dispatch/host-sync accounting with the kernel
+    launches, ``launch.<kernel>``) and ``result["summary"]`` the
+    end-of-run counters and the kernel library's build. The in-memory
+    ring sink is enabled on creation when telemetry is otherwise off,
+    so the callback works without ``LGBM_TPU_TELEMETRY``/
+    ``telemetry_out``. Its ``order`` is not in the inert set
+    (engine.py): it steps the loop one iteration at a time."""
+    if not isinstance(result, dict):
+        raise TypeError("record_telemetry expects a dictionary")
+    from .observability.telemetry import get_telemetry
+    tel = get_telemetry()
+    tel.ensure_ring()
+
+    def _callback(env: CallbackEnv) -> None:
+        rec = dict(tel.last_iter or {})
+        rec["iteration"] = env.iteration
+        if env.evaluation_result_list:
+            rec["eval"] = [[r[0], r[1], float(r[2]), bool(r[3])]
+                           for r in env.evaluation_result_list]
+        result.setdefault("iterations", []).append(rec)
+        result["summary"] = {"counters": dict(tel.counters),
+                             "compile": tel.compile_stats(),
+                             "phase_totals": tel.phase_totals()}
+
+    _callback.order = 25
+    return _callback
 
 
 def reset_parameter(**kwargs) -> Callable:

@@ -3,11 +3,9 @@
 Copy of ``lightgbm_tpu/config.py`` for the PyTorch port: same dataclass,
 aliases and ``check_param_conflict``. The differences: ``device_type``
 defaults to ``cuda``; ``slo_specs``/``slo_windows`` (validated by the
-serving plane, not ported yet), the robustness and observability
-parameters (``checkpoint_dir``, ``guard_policy``, ``faults``,
-``elastic_*``, ``telemetry_out``, ``trace_out``, ``profile_dir``,
-``crash_dump``) are rejected when set, since no module of the port reads
-them yet. Which parameters the
+serving plane, not ported yet, ROADMAP.md Queue 1 item 10) and the
+multi-rank robustness parameters (``elastic_*``, item 11.2) are rejected
+when set, since no module of the port reads them yet. Which parameters the
 port's training path accepts is checked where they are used
 (``parallel/learners.py:create_tree_learner`` and the learners).
 
@@ -841,15 +839,15 @@ class Config:
             raise NotImplementedError(
                 "slo_specs/slo_windows need the serving plane "
                 "(ROADMAP.md Queue 1 item 10)")
-        for name in _ROBUSTNESS_PARAMS + tuple(
-                f.name for f in dataclasses.fields(self)
-                if f.name.startswith("elastic_")):
+        for name in (f.name for f in dataclasses.fields(self)
+                     if f.name.startswith("elastic_")):
             if getattr(self, name) != _field_default(name):
-                # the robustness and observability planes: nothing in
-                # the port reads these yet, so a set one is refused
+                # the multi-rank robustness plane (the elastic watchdog,
+                # the coordinated checkpoint): nothing in the port reads
+                # these yet, so a set one is refused
                 raise NotImplementedError(
-                    f"{name} needs the robustness and observability "
-                    "planes (ROADMAP.md Queue 1 item 11)")
+                    f"{name} needs the multi-rank robustness plane "
+                    "(ROADMAP.md Queue 1 item 11.2)")
         if self.objective in ("multiclass", "multiclassova") and self.num_class < 2:
             raise ValueError("num_class must be >= 2 for multiclass objectives")
         if self.objective not in ("multiclass", "multiclassova", "custom",
@@ -890,12 +888,6 @@ class Config:
 
     def to_params(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
-
-
-# parsed for the JAX package's names, read by no module of the port
-_ROBUSTNESS_PARAMS = ("checkpoint_dir", "guard_policy", "faults",
-                      "telemetry_out", "trace_out", "profile_dir",
-                      "crash_dump")
 
 
 def _field_default(name: str) -> Any:

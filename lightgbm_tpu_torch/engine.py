@@ -14,7 +14,16 @@ them the booster trains its iterations in one call. ``init_model`` (a
 model file's path or a ``Booster``) continues training from that
 model's trees. ``ops="plain"`` trains through the kernels' plain
 PyTorch versions on the same device (used to check the kernels end to
-end).
+end). The robustness and observability planes ride the same loop (JAX
+``engine.py:140-448``): ``faults`` installs the fault plan,
+``checkpoint_dir`` writes checkpoints every ``checkpoint_freq``
+iterations and resumes from the newest valid one (``resume=auto``),
+installs the SIGTERM/SIGINT guard (a preempted run writes a final
+checkpoint, sets ``booster.preempted`` and returns), ``guard_policy``
+and ``guard_loss_spike`` raise, skip or roll back, and the flight
+recorder dumps on an exception; any of them steps the loop one
+iteration at a time. ``telemetry_out`` / ``trace_out`` / ``profile_dir``
+record without changing the loop.
 
 ``cv(params, Dataset, num_boost_round, folds=, nfold=, stratified=,
 shuffle=, ...)`` trains one booster a fold, each on a ``subset`` of the
@@ -52,7 +61,18 @@ from .callback import (CallbackEnv, EarlyStopException, early_stopping,
                        print_evaluation, record_evaluation)
 from .config import Config
 from .io.model_text import load_model_from_file
+from .observability.flightrec import (arm_recorder, disarm_recorder,
+                                      dump_exception)
+from .observability.telemetry import get_telemetry
+from .observability.tracing import get_tracer, profile_close
+from .parallel.distributed import current_world
 from .predictor import predict_raw
+from .robustness.checkpoint import MULTI_RANK_REFUSAL, CheckpointManager
+from .robustness.faults import (fault_plan_active, maybe_sigterm,
+                                set_fault_plan)
+from .robustness.guards import (LossSpikeDetector, LossSpikeError,
+                                NonFiniteGradientError)
+from .robustness.preempt import PreemptionGuard
 from .utils.log import LightGBMError, log_info, log_warning
 
 _ROUND_ALIASES = ("num_boost_round", "num_iterations", "num_iteration",
@@ -139,6 +159,35 @@ def train(params: Dict[str, Any], train_set: Dataset,
         gbdt.init_from_models(models, raw(train_set),
                               [raw(ds) for ds in valid])
 
+    # the robustness and observability planes (robustness/,
+    # observability/; JAX engine.py:140-193): the fault plan, the
+    # checkpoint manager and resume, the loss-spike detector and the
+    # flight recorder. Any of the robustness planes steps the loop one
+    # iteration at a time (they need iteration boundaries).
+    cfg = booster.config
+    if cfg.faults:
+        set_fault_plan(cfg.faults)
+    ckpt = None
+    resume_info = None
+    if cfg.checkpoint_dir:
+        if current_world() is not None:
+            raise NotImplementedError(MULTI_RANK_REFUSAL)
+        ckpt = CheckpointManager.from_config(cfg)
+        if cfg.resume == "auto":
+            resume_info = ckpt.restore_latest(booster)
+            if resume_info is not None:
+                booster.resumed_iteration = resume_info.iteration
+                log_info(f"Resuming training from checkpoint iteration "
+                         f"{resume_info.iteration} ({resume_info.path})")
+    guard_spike = None
+    if float(cfg.guard_loss_spike) > 1.0:
+        guard_spike = LossSpikeDetector(cfg.guard_loss_spike)
+    robust_active = ckpt is not None or guard_spike is not None \
+        or cfg.guard_policy != "off" or fault_plan_active()
+    # crash flight recorder: armed when a dump path resolves
+    # (crash_dump / LGBM_TPU_CRASH_DUMP / <telemetry_out>.crash.json)
+    flightrec = arm_recorder(cfg, gbdt)
+
     # callbacks (engine.py:186-204)
     callbacks = set(callbacks) if callbacks is not None else set()
     if verbose_eval is True:
@@ -162,35 +211,171 @@ def train(params: Dict[str, Any], train_set: Dataset,
     # print and record are inert without evaluation results
     inert = all(getattr(cb, "order", 0) in (10, 20) for cb in after)
     if not need_eval and fobj is None and not before and inert \
-            and not (early_stopping_rounds or 0) > 0:
-        gbdt.train(gbdt.iter + num_boost_round)
+            and not (early_stopping_rounds or 0) > 0 \
+            and not robust_active:
+        try:
+            gbdt.train(gbdt.iter + num_boost_round)
+        except BaseException as e:
+            if flightrec is not None:
+                dump_exception(e)
+            raise
+        finally:
+            disarm_recorder(flightrec)
         return booster
 
     # one iteration at a time (engine.py:221-276); iteration numbers are
-    # absolute, so best_iteration counts the init model's iterations too
-    begin = gbdt.iter
+    # absolute, so best_iteration counts the init model's iterations too.
+    # After a resume, ``begin`` is the original run's first iteration
+    # (num_boost_round counts from there) and the loop starts at the
+    # restored one.
+    begin = resume_info.begin_iteration if resume_info is not None \
+        else gbdt.iter
     end = begin + num_boost_round
+    tel = get_telemetry()
+    t_train0 = time.perf_counter()
     results = []
-    for i in range(begin, end):
-        for cb in before:
-            cb(CallbackEnv(model=booster, params=params, iteration=i,
-                           begin_iteration=begin, end_iteration=end,
-                           evaluation_result_list=None))
-        booster.update(fobj=fobj)
-        results = []
-        if eval_on_train or valid:
-            results = booster.eval_all(feval, include_train=eval_on_train)
-        elif feval is not None:
-            results = booster.eval_valid(feval)
+    eval_history = list(resume_info.eval_history) \
+        if resume_info is not None else []
+    stopped_early = False
+    # resume: replay the recorded eval results into the stateful
+    # callbacks (early stopping, record_evaluation) so their state, and
+    # so the stopping iteration, is the uninterrupted run's; print (10)
+    # and telemetry (25) callbacks are not re-fired
+    for it_r, results_r in eval_history:
+        env = CallbackEnv(model=booster, params=params, iteration=int(it_r),
+                          begin_iteration=begin, end_iteration=end,
+                          evaluation_result_list=[tuple(r)
+                                                  for r in results_r])
         try:
             for cb in after:
-                cb(CallbackEnv(model=booster, params=params, iteration=i,
-                               begin_iteration=begin, end_iteration=end,
-                               evaluation_result_list=results))
+                if getattr(cb, "order", 0) in (10, 25) \
+                        or not getattr(cb, "replay_on_resume", True):
+                    continue
+                cb(env)
         except EarlyStopException as stop:
             booster.best_iteration = stop.best_iteration + 1
             results = stop.best_score
+            stopped_early = True
             break
+
+    preempt = None
+    rollbacks = 0
+    max_rollbacks = int(cfg.guard_max_rollbacks)
+    if ckpt is not None:
+        preempt = PreemptionGuard().install()
+    try:
+        i = gbdt.iter
+        while not stopped_early and i < end:
+            if fault_plan_active():
+                maybe_sigterm(i)
+            for cb in before:
+                cb(CallbackEnv(model=booster, params=params, iteration=i,
+                               begin_iteration=begin, end_iteration=end,
+                               evaluation_result_list=None))
+            try:
+                with tel.span("boosting", trace="boost_iter"):
+                    booster.update(fobj=fobj)
+            except NonFiniteGradientError as nf:
+                if nf.policy != "rollback":
+                    raise
+                restored = None
+                if ckpt is not None and rollbacks < max_rollbacks:
+                    restored = ckpt.restore_latest(booster)
+                if restored is not None:
+                    rollbacks += 1
+                    tel.count("guard.rollbacks")
+                    log_warning(
+                        f"guard: non-finite gradients at iteration {i}; "
+                        f"rolled back to checkpoint iteration "
+                        f"{restored.iteration} "
+                        f"({rollbacks}/{max_rollbacks})")
+                    # the checkpoint's own history replaces entries
+                    # recorded for the now-undone iterations
+                    eval_history = list(restored.eval_history)
+                    i = gbdt.iter
+                    continue
+                if rollbacks >= max_rollbacks:
+                    raise
+                log_warning("guard: rollback requested but no valid "
+                            "checkpoint exists; skipping the iteration "
+                            "instead")
+                gbdt.skip_iteration()
+
+            results = []
+            if need_eval:
+                with tel.span("eval", trace="eval"):
+                    if eval_on_train or valid:
+                        results = booster.eval_all(
+                            feval, include_train=eval_on_train)
+                    elif feval is not None:
+                        results = booster.eval_valid(feval)
+                tel.eval_results(i, results)
+                if guard_spike is not None:
+                    spike = guard_spike.check(i, results)
+                    if spike is not None:
+                        if cfg.guard_policy == "raise":
+                            raise LossSpikeError(i, *spike,
+                                                 guard_spike.factor)
+                        if cfg.guard_policy == "rollback" \
+                                and ckpt is not None \
+                                and rollbacks < max_rollbacks:
+                            restored = ckpt.restore_latest(booster)
+                            if restored is not None:
+                                rollbacks += 1
+                                tel.count("guard.rollbacks")
+                                log_warning(
+                                    f"guard: loss spike at iteration {i}; "
+                                    "rolled back to checkpoint iteration "
+                                    f"{restored.iteration}")
+                                eval_history = list(restored.eval_history)
+                                i = gbdt.iter
+                                continue
+            try:
+                for cb in after:
+                    cb(CallbackEnv(model=booster, params=params,
+                                   iteration=i, begin_iteration=begin,
+                                   end_iteration=end,
+                                   evaluation_result_list=results))
+            except EarlyStopException as stop:
+                booster.best_iteration = stop.best_iteration + 1
+                results = stop.best_score
+                break
+            if ckpt is not None:
+                if need_eval:
+                    # plain-typed rows: the history is JSON in the
+                    # manifest and must replay with exact values
+                    eval_history.append(
+                        [i, [[r[0], r[1], float(r[2]), bool(r[3])]
+                             for r in results]])
+                ckpt.maybe_save(booster, eval_history, begin)
+                if preempt is not None and preempt.requested:
+                    # the in-flight iteration (and its eval) finished
+                    # above: write a final checkpoint and stop cleanly
+                    ckpt.save(booster, eval_history, begin)
+                    booster.preempted = True
+                    log_info(f"Training preempted after iteration {i}; "
+                             f"checkpoint written to {ckpt.directory} — "
+                             "rerun with resume=auto to continue")
+                    if flightrec is not None:
+                        flightrec.dump("preemption", iteration=i,
+                                       checkpoint_dir=ckpt.directory,
+                                       signum=preempt.signum)
+                    break
+            i += 1
+    except BaseException as e:
+        if flightrec is not None:
+            dump_exception(e)
+        raise
+    finally:
+        disarm_recorder(flightrec)
+        if preempt is not None:
+            preempt.uninstall()
+        # close a profiler capture still in flight and persist the span
+        # timeline (this loop bypasses GBDT.train)
+        profile_close()
+        get_tracer().flush()
+    if tel.enabled:
+        gbdt.emit_train_end(begin, time.perf_counter() - t_train0)
     booster.best_score = collections.defaultdict(collections.OrderedDict)
     for name, metric, score, _ in results or []:
         booster.best_score[name][metric] = score
@@ -757,6 +942,18 @@ def train_many(params_list: List[Dict[str, Any]], train_set: Dataset,
                             ops=ops)
     report["loop_seconds"] = time.perf_counter() - t1
     report["batched_models"] = sum(b["size"] for b in report["buckets"])
+    get_telemetry().record(
+        "multiboost_report",
+        models=report["models"],
+        batched_models=report["batched_models"],
+        buckets=len(report["buckets"]),
+        bucket_sizes=",".join(str(b["size"])
+                              for b in report["buckets"]),
+        loop_fallback=len(report["loop_fallback"]),
+        fallback_reasons="; ".join(sorted(
+            {f["reason"] for f in report["loop_fallback"]})),
+        batched_seconds=round(report["batched_seconds"], 6),
+        loop_seconds=round(report["loop_seconds"], 6))
     if return_report:
         return boosters, report
     return boosters

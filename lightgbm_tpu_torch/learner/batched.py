@@ -48,6 +48,7 @@ from ..data.dataset import Dataset
 from ..ops.hist_cuda import (histogram_rows_batched,
                              histogram_rows_batched_plain, leaf_bin_bytes,
                              leaf_feat_tile, leaf_max_chunks)
+from ..observability.telemetry import get_telemetry
 from ..ops.histogram import make_ghc
 from ..ops.split import SplitParams
 from ..ops.split_step_cuda import (LeafBatchScratch, LeafBatchStep,
@@ -176,7 +177,13 @@ class BatchedSerialLearner:
         step = self.split_step(k, S, T, ghc, imeta, fmeta)
         for _ in range(self.num_leaves - 1):
             step()
-        # the iteration's one host read of every model's state
+        # telemetry (JAX multiboost/batch.py:392-426): the batched root
+        # histogram, a root scan a model, L - 1 batched steps; the roots'
+        # sums read and the iteration's one read of every model's state
+        tel = get_telemetry()
+        tel.count_iter("host.dispatches", 1 + self.models
+                       + self.num_leaves - 1)
+        tel.count_iter("host.syncs", 2)
         S, T, k = S.cpu(), T.cpu(), k.cpu().tolist()
         trees = [grown_tree(self.serial.pack, {"S": S[m], "T": T[m]}, k[m],
                             self.dataset)[0] for m in range(self.models)]

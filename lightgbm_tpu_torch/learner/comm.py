@@ -70,8 +70,17 @@ def reset_comm_counts() -> None:
 
 
 def _count(name: str, t: torch.Tensor) -> None:
+    """Count a collective, and with telemetry on add its payload to
+    ``comm.<name>_bytes`` / ``comm.<name>_calls`` (JAX
+    ``learner/comm.py:_count_collective``, rendered by
+    ``tools/run_report.py`` as the per-op comms table)."""
+    from ..observability.telemetry import get_telemetry, traced_bytes
     COMM_CALLS[name] += 1
     COMM_BYTES[name] += t.numel() * t.element_size()
+    tel = get_telemetry()
+    if tel.enabled:
+        tel.count(f"comm.{name}_bytes", traced_bytes(t))
+        tel.count(f"comm.{name}_calls", 1)
 
 
 def _staged(t: torch.Tensor) -> bool:

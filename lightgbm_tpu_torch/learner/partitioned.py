@@ -98,7 +98,8 @@ from .comm import comm_root_hooks
 from .grow_extras import (CegbState, HistMemory, build_forced_plan,
                           cegb_on, cegb_penalties, hist_pool_slots)
 from .node_rand import NodeRand
-from .split_step import (SEG_SI_PREFIX, f32, fused_split_eligible,
+from .split_step import (SEG_SI_PREFIX, count_tree_telemetry, f32,
+                         fused_split_eligible,
                          fused_split_kernel_mode, grown_tree,
                          make_grow_pack, root_state, split_step_host)
 
@@ -278,6 +279,26 @@ class LeafwiseLearner:
         parallel learner's row block: ``parallel/learners.py``)."""
         return dataset.binned_device(self.device)
 
+    def checkpoint_arrays(self) -> dict:
+        """The learner's state that outlives a tree, as host arrays for
+        a checkpoint (``robustness/checkpoint.py``): CEGB's used features
+        and the lazy penalty's charged rows."""
+        if self.cegb is None:
+            return {}
+        out = {"cegb_used": self.cegb.used.copy()}
+        if self.cegb.charged is not None:
+            out["cegb_charged"] = self.cegb.charged.cpu().numpy()
+        return out
+
+    def restore_arrays(self, arrays: dict) -> None:
+        """Put back what ``checkpoint_arrays`` saved."""
+        if self.cegb is None or "cegb_used" not in arrays:
+            return
+        self.cegb.used[:] = arrays["cegb_used"]
+        if self.cegb.charged is not None and "cegb_charged" in arrays:
+            self.cegb.charged.copy_(torch.from_numpy(
+                arrays["cegb_charged"].copy()))
+
     def _tree_meta(self, feature_mask: Optional[np.ndarray]):
         """The scan's meta tensors and tables and the fused step's packed
         tables for one tree's features; draws the tree's node table
@@ -361,6 +382,7 @@ class LeafwiseLearner:
                   max_depth=self.max_depth, has_monotone=self.has_monotone,
                   cegb=self.cegb)
         k = 1
+        builds0 = self.mem.builds
         for step in self.forced_plan:
             if not split_step_host(self.pack, st, self.mem, k, ops,
                                    forced=(step, self._feature_hist), **kw):
@@ -368,7 +390,17 @@ class LeafwiseLearner:
             k += 1
         while split_step_host(self.pack, st, self.mem, k, ops, **kw):
             k += 1
+        # a split: its partition, child histogram and scan, and the
+        # histogram memory's extra builds; the gains read before every
+        # split tried and the scan tables' read after it
+        splits = k - 1
+        self._count_tree(2 + 3 * splits + self.mem.builds - builds0,
+                         1 + 2 * splits + int(k < self.num_leaves))
         return k
+
+    def _count_tree(self, dispatches: int, syncs: int) -> None:
+        """A tree's telemetry (``learner/split_step.py``)."""
+        count_tree_telemetry(self, dispatches, syncs)
 
 
 class PartitionedTreeLearner(LeafwiseLearner):
@@ -422,11 +454,32 @@ class PartitionedTreeLearner(LeafwiseLearner):
                                       tables)
         if self.fused:
             st, k = self._grow_fused(table, root, imeta, fmeta)
+            # the root's histogram and scan, L - 1 steps; one read
+            self._count_tree(self.num_leaves + 1, 1)
         else:
             st, k = self._grow_per_phase(table.cpu(), root, meta_t, tables,
                                          imeta)
         tree, v = grown_tree(self.pack, st, k, self.dataset)
         return tree, self._leaf_id(v["leaf_begin"], v["leaf_cnt"], k)
+
+    def checkpoint_arrays(self) -> dict:
+        """Adds the matrix's row order: it persists across trees, and a
+        segment histogram's float64 sums follow it."""
+        out = super().checkpoint_arrays()
+        out["row_order"] = extract_row_ids(self.mat, self.num_cols,
+                                           self.num_data).cpu().numpy()
+        return out
+
+    def restore_arrays(self, arrays: dict) -> None:
+        super().restore_arrays(arrays)
+        if "row_order" not in arrays:
+            return
+        cur = extract_row_ids(self.mat, self.num_cols,
+                              self.num_data).long()
+        pos = torch.empty_like(cur)
+        pos[cur] = torch.arange(self.num_data, device=self.device)
+        want = torch.from_numpy(arrays["row_order"].astype(np.int64))
+        self.mat.copy_(self.mat[pos[want.to(self.device)]])
 
     def _segment_hist(self, begin: int, count: int, max_count: int):
         """One segment's histogram (host bounds): with a data-parallel

@@ -180,6 +180,8 @@ class SerialTreeLearner(LeafwiseLearner):
             # the tree's one host read
             st = {"S": st["S"].cpu(), "T": st["T"].cpu()}
             k = int(k.cpu()[0])
+            # the root's histogram and scan, L - 1 steps; one read
+            self._count_tree(self.num_leaves + 1, 1)
         else:
             # the per-phase loop keeps S, T and the bitsets on the host
             st = {key: val.cpu() for key, val in st.items()}

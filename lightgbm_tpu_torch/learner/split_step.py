@@ -420,6 +420,28 @@ def root_state(pack: StatePack, table: torch.Tensor, root_g, root_h,
     return pack.pack(fields)
 
 
+def count_tree_telemetry(learner, dispatches: int, syncs: int) -> None:
+    """Per-tree learner counters (JAX ``learner/serial.py:562``): tree
+    and row totals, the planned histogram builds (1 root + 1 a split
+    with the sibling subtraction, 2 a split without the cache) and
+    splits, and the tree's ``host.dispatches`` (its kernel wrappers'
+    calls, or their plain versions', counted alike) and ``host.syncs``
+    (its host reads). Free when telemetry is off."""
+    from ..observability.telemetry import get_telemetry
+    tel = get_telemetry()
+    if not tel.enabled:
+        return
+    big_l = learner.num_leaves
+    cache = learner.mem.mode == "cache"
+    tel.count_iter("host.dispatches", dispatches)
+    tel.count_iter("host.syncs", syncs)
+    tel.count("learner.trees", 1)
+    tel.count("learner.rows_scanned", learner.num_data)
+    tel.count("learner.hist_builds_planned",
+              1 + (big_l - 1) * (1 if cache else 2))
+    tel.count("learner.splits_planned", big_l - 1)
+
+
 def grown_tree(pack: StatePack, st: dict, k: int, dataset):
     """The host ``Tree`` of a grown state ({"S", "T"} on the host) with
     ``k`` leaves, and the state's per-field numpy view (the caller may

@@ -24,10 +24,19 @@ shrinkage, and the scores add them over the datasets' raw values.
 ``refit`` replays a model's trees on this booster's rows to refit their
 leaf values (the per-leaf sums through the ``hist_rows`` kernel), and
 ``rollback_one_iter`` takes the last iteration's trees off the scores.
+
+The robustness and observability planes (``robustness/``,
+``observability/``) hook in here as in the JAX package: the ``grad`` /
+``grow`` / ``tree`` / ``update`` phase spans, an ``iter`` telemetry
+record an iteration (with its kernel launches), the ``nan_grad`` fault
+and the non-finite guard after the gradients (``guard_policy``:
+``skip_iter`` appends a constant tree a class), and ``train_end`` with
+the one-time phase probe. None of them changes a number.
 """
 
 from __future__ import annotations
 
+import time
 from types import SimpleNamespace
 from typing import Dict, List, Optional, Tuple
 
@@ -39,9 +48,13 @@ from ..data.dataset import Dataset
 from ..metric import create_metrics
 from ..metric.metrics import batched_eval
 from ..objective import create_objective
+from ..observability.telemetry import get_telemetry, memory_snapshot
+from ..observability.tracing import (get_tracer, profile_boundary,
+                                     profile_close)
 from ..ops import _native
 from ..parallel.distributed import current_world
 from ..parallel.learners import create_tree_learner
+from ..robustness.guards import NonFiniteGradientError
 from ..utils.log import log_fatal, log_info, log_warning
 from ..utils.threefry import Key, fold_in, prng_key, uniform
 from .linear import fit_linear_leaves, linear_leaf_values
@@ -110,6 +123,9 @@ class GBDT:
         self.config = config
         self.train_data = train_data
         self.device = torch.device(device)
+        tel = get_telemetry()
+        tel.ensure_started(config)
+        tel.count("train.rows", train_data.num_data)
         # the kernel library's build directory (JAX gbdt.py:282-283)
         _native.maybe_enable_compile_cache(config)
         # the kernels' plain versions (the CPU, or ops="plain" on the
@@ -325,20 +341,30 @@ class GBDT:
         splits), mirroring GBDT::TrainOneIter (gbdt.cpp:337-419).
         ``gradients`` / ``hessians`` are a custom objective's."""
         k = self.num_tree_per_iteration
+        tel = get_telemetry()
         init_scores = [0.0] * k
-        if gradients is None or hessians is None:
-            if self.objective is None:
-                log_fatal("No objective function provided")
-            for tid in range(k):
-                init_scores[tid] = self.boost_from_average(tid)
-            grad, hess = self.gradients()
-        else:
-            grad = coerce_custom_grad(gradients, self.num_data, k,
-                                      self.device)
-            hess = coerce_custom_grad(hessians, self.num_data, k,
-                                      self.device)
-        bag = self._bagging_weight(self.iter, grad, hess)
-        fmask = self._feature_mask()
+        with tel.span("grad", phase=True):
+            if gradients is None or hessians is None:
+                if self.objective is None:
+                    log_fatal("No objective function provided")
+                for tid in range(k):
+                    init_scores[tid] = self.boost_from_average(tid)
+                tel.count_iter("host.dispatches")
+                grad, hess = self.gradients()
+            else:
+                grad = coerce_custom_grad(gradients, self.num_data, k,
+                                          self.device)
+                hess = coerce_custom_grad(hessians, self.num_data, k,
+                                          self.device)
+            bag = self._bagging_weight(self.iter, grad, hess)
+            fmask = self._feature_mask()
+            try:
+                grad = self._check_gradients(grad, hess)
+            except NonFiniteGradientError as e:
+                if e.policy == "skip_iter":
+                    self.skip_iteration()
+                    return False
+                raise
         should_continue = False
         new_trees: List[Tree] = []
         for tid in range(k):
@@ -346,19 +372,29 @@ class GBDT:
             if self.class_need_train[tid] \
                     and self.train_data.num_features > 0:
                 # each tree trains on its own contiguous column
-                tree, leaf_id = self.learner.train(
-                    grad[:, tid].contiguous(), hess[:, tid].contiguous(),
-                    feature_mask=fmask, bag_weight=bag)
+                with tel.span("grow", phase=True):
+                    tree, leaf_id = self.learner.train(
+                        grad[:, tid].contiguous(),
+                        hess[:, tid].contiguous(),
+                        feature_mask=fmask, bag_weight=bag)
             if tree is not None and tree.num_leaves > 1:
                 should_continue = True
-                if self._linear_on:
-                    fit_linear_leaves(tree, self.train_data, self.config,
-                                      leaf_id, grad[:, tid], hess[:, tid],
-                                      bag)
-                self._renew_tree_output(tree, self.train_score[:, tid],
-                                        leaf_id)
-                tree.shrink(self.shrinkage_rate)
-                self._update_scores(tree, leaf_id, tid)
+                with tel.span("tree", phase=True):
+                    if self._linear_on:
+                        # the leaves' batched ridge fit; one host read
+                        # of the coefficients
+                        tel.count_iter("host.syncs")
+                        tel.count_iter("host.dispatches")
+                        fit_linear_leaves(tree, self.train_data,
+                                          self.config, leaf_id,
+                                          grad[:, tid], hess[:, tid], bag)
+                    self._renew_tree_output(
+                        tree, self.train_score[:, tid], leaf_id)
+                    tree.shrink(self.shrinkage_rate)
+                with tel.span("update", phase=True):
+                    tel.count_iter("host.dispatches",
+                                   1 + len(self.valid_sets))
+                    self._update_scores(tree, leaf_id, tid)
                 if abs(init_scores[tid]) > kEpsilon:
                     tree.add_bias(init_scores[tid])
             else:
@@ -384,7 +420,58 @@ class GBDT:
             return True
         self.models.extend(new_trees)
         self.iter += 1
+        tel.end_iteration(
+            self.iter - 1, trees=k, num_data=self.num_data,
+            bag_fraction=float(self.config.bagging_fraction)
+            if bag is not None else 1.0)
+        profile_boundary("iter")
         return False
+
+    def _check_gradients(self, grad: torch.Tensor,
+                         hess: torch.Tensor) -> torch.Tensor:
+        """The ``nan_grad`` fault (NaN, or +inf with ``value=inf``, at
+        ``[0, 0]`` of the iteration's gradients) and the non-finite
+        guard (``robustness/guards.py``: one device reduction, one host
+        read). Returns the (possibly poisoned) gradients; raises
+        ``NonFiniteGradientError`` when the guard trips under a
+        non-``off`` policy (``skip_iter`` is the caller's; ``raise`` and
+        ``rollback`` go to the training driver)."""
+        from ..robustness.faults import get_fault_plan
+        from ..robustness.guards import finite_ok_device
+        plan = get_fault_plan()
+        if plan is not None:
+            f = plan.take("nan_grad", iteration=self.iter)
+            if f is not None:
+                val = float("inf") if str(f.params.get("value", "")) \
+                    == "inf" else float("nan")
+                grad = grad.clone()
+                grad[0, 0] = val
+        policy = self.config.guard_policy
+        if policy == "off":
+            return grad
+        tel = get_telemetry()
+        tel.count_iter("host.dispatches")
+        tel.count_iter("host.syncs")
+        if bool(finite_ok_device(grad, hess).item()):
+            return grad
+        tel.count("guard.nonfinite_iters")
+        log_warning(f"guard: non-finite gradients at iteration "
+                    f"{self.iter} (policy={policy})")
+        raise NonFiniteGradientError(self.iter, policy)
+
+    def skip_iteration(self) -> None:
+        """``guard_policy=skip_iter``: advance one iteration with a
+        no-op constant tree per class so the model stays aligned with
+        the iteration counter (checkpoint/resume and model truncation
+        both index models by iteration)."""
+        k = self.num_tree_per_iteration
+        for _tid in range(k):
+            self.models.append(constant_tree(0.0))
+        self.iter += 1
+        tel = get_telemetry()
+        tel.count("guard.skipped_iters")
+        tel.end_iteration(self.iter - 1, trees=k, skipped=True,
+                          num_data=self.num_data)
 
     def _renew_tree_output(self, tree: Tree, score: torch.Tensor,
                            leaf_id: torch.Tensor) -> None:
@@ -400,6 +487,7 @@ class GBDT:
             leaf_id = torch.where(self.bag_weight > 0, leaf_id.long(),
                                   torch.full_like(leaf_id.long(), nl))
         vals = self.objective.renew_tree_output(score, leaf_id, nl + 1)
+        get_telemetry().count_iter("host.syncs")
         tree.leaf_value = vals.cpu().numpy()[:nl]
 
     def _add_tree_score(self, tree: Tree, tid: int, train: bool,
@@ -533,6 +621,7 @@ class GBDT:
                      "take the sorted route (hist_cuda.leaf_histogram)")
         # the one host read: every tree's outputs in one float64 buffer
         # (float32 and bool widen exactly)
+        get_telemetry().count("host.syncs")
         parts = [t for _, outs, _ in pending for t in outs]
         flat = torch.cat([t.double().reshape(-1) for t in parts]).cpu() \
             .numpy() if parts else np.zeros(0)
@@ -648,14 +737,62 @@ class GBDT:
     def train(self, num_iterations: int) -> None:
         """GBDT::Train (gbdt.cpp:245-264) up to ``num_iterations``
         iterations in all, evaluating after each one when there are
-        metrics."""
+        metrics. With telemetry on, the run is one ``train`` span and
+        ends with the ``train_end`` record (``emit_train_end``); a
+        profiler window still open is closed and the span timeline
+        exported."""
+        tel = get_telemetry()
+        tel.ensure_started(self.config)
+        it0 = self.iter
+        t0 = time.perf_counter()
         has_eval = bool(self.training_metrics) \
             or any(len(m) > 0 for m in self.valid_metrics)
-        for _ in range(self.iter, num_iterations):
-            if self.train_one_iter():
-                break
-            if has_eval and self._eval_and_check_early_stopping():
-                break
+        try:
+            with tel.span("train"):
+                for _ in range(self.iter, num_iterations):
+                    if self.train_one_iter():
+                        break
+                    if has_eval:
+                        with tel.span("eval", trace="eval"):
+                            stop = self._eval_and_check_early_stopping()
+                        if stop:
+                            break
+        finally:
+            profile_close()
+            get_tracer().flush()
+        if tel.enabled:
+            self.emit_train_end(it0, time.perf_counter() - t0)
+
+    def emit_train_end(self, it0: int, dur: float) -> None:
+        """Emit the ``train_end`` summary record (+ the one-time phase
+        probe, ``observability/probe.py``) after a training loop; shared
+        with ``engine.train``'s per-iteration loop."""
+        tel = get_telemetry()
+        if not tel.enabled:
+            return
+        iters = self.iter - it0
+        tel.record(
+            "train_end", iters=iters, num_data=self.num_data,
+            dur_s=round(dur, 6),
+            rows_per_s=round(self.num_data * max(iters, 0) / dur, 3)
+            if dur > 0 else 0.0,
+            compile=tel.compile_stats(),
+            phase_totals=tel.phase_totals(),
+            counters=dict(tel.counters),
+            memory=memory_snapshot())
+        if not getattr(self, "_tel_probed", False):
+            self._tel_probed = True
+            # the probe launches a handful of component kernels, so it
+            # runs only for full (JSONL) telemetry sessions
+            from ..observability.telemetry import JsonlSink
+            if any(isinstance(s, JsonlSink) for s in tel._sinks):
+                from ..observability.probe import run_phase_probe
+                ph = run_phase_probe(self)
+                if ph:
+                    tel.record("phase_probe",
+                               learner=type(self.learner).__name__,
+                               num_data=self.num_data, phases=ph)
+        tel.flush()
 
 
 def _walk_inputs(dataset: Dataset, device):

@@ -28,6 +28,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..observability.telemetry import get_telemetry
+from ..observability.tracing import profile_boundary
 from ..utils.log import log_fatal, log_info
 from ..utils.ref_random import RefRandom
 from ..utils.threefry import Key, fold_in, uniform
@@ -271,6 +273,11 @@ class RF(GBDT):
                     self._multiply_scores(tid, 1.0 / (self.iter + 1))
             self.models.append(tree)
         self.iter += 1
+        get_telemetry().end_iteration(self.iter - 1, trees=k,
+                                      num_data=self.num_data,
+                                      bag_fraction=float(
+                                          self.config.bagging_fraction))
+        profile_boundary("iter")
         return False
 
 

@@ -25,9 +25,10 @@ model is cut at its first no-split iteration. Each finished model
 writes its text through the standard ``save_model_to_string``, so it
 equals its ``engine.train`` twin's byte for byte.
 
-The JAX package's telemetry counters (``multiboost.batches``,
-``multiboost.models`` and the per-iteration syncs) have no counterpart
-until the observability plane lands (ROADMAP.md Queue 1 item 11).
+Telemetry as in the JAX package: ``multiboost.batches`` and
+``multiboost.models`` a bucket, and each iteration's ``host.dispatches``
+(the gradients, the learner's launches, the score add) and
+``host.syncs``.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from ..config import Config
 from ..models.gbdt import kEpsilon
 from ..models.tree import constant_tree
 from ..objective import create_objective
+from ..observability.telemetry import get_telemetry
 from ..utils.device import resolve_device
 from ..utils.log import log_info
 from ..utils.threefry import prng_key
@@ -358,6 +360,10 @@ class BoosterBatch:
         self._stop: List[Optional[int]] = [None] * self.B
         self._it = 0
         self._built = True
+        tel = get_telemetry()
+        tel.ensure_started(cfg0)
+        tel.count("multiboost.batches")
+        tel.count("multiboost.models", self.B)
         log_info(f"multiboost: batch of {self.B} models x "
                  f"{self.num_boost_round} rounds on {self.N} rows "
                  f"(bagging={'on' if self._use_bagging else 'off'}, "
@@ -375,9 +381,11 @@ class BoosterBatch:
 
     def step(self) -> None:
         self.setup()
+        tel = get_telemetry()
         it = self._it
         if it == 0:
             self._score += self._hyp.init_score[:, None]
+        tel.count_iter("host.dispatches", 2)   # gradients, score add
         grad, hess = batched_gradients(self._grad_obj, self._attrs,
                                        self._score)
         trees, leaf_id = self.learner.grow(grad, hess,

@@ -53,7 +53,10 @@ LAUNCHES = {"hist_segment": 0, "partition_segment": 0, "split_scan": 0,
 # launches of a kernel's route, counted beside LAUNCHES: the partition's
 # LUT route (categorical splits)
 ROUTE_LAUNCHES = {"partition_segment_lut": 0}
-BUILD_INFO = {"seconds": None, "ptxas": ""}
+# the library's build in this process: nvcc's wall seconds (0.0 when a
+# built library was reused), ptxas's report, and whether this process
+# built it (None until loaded); the telemetry's ``compile`` record
+BUILD_INFO = {"seconds": None, "ptxas": "", "built": None}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -247,8 +250,10 @@ def library() -> ctypes.CDLL:
         lib_path = library_path(nvcc)
         if not os.path.exists(lib_path):
             _build(nvcc, lib_path)
+            BUILD_INFO["built"] = True
         else:
             BUILD_INFO["seconds"] = 0.0
+            BUILD_INFO["built"] = False
         lib = ctypes.CDLL(lib_path)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

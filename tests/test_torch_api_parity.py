@@ -9,9 +9,10 @@ the CPU (ROADMAP.md Queue 3, faults 1-3).
    no names, ``free_raw_data``; ``categorical_feature`` given to the
    Dataset, to ``train`` or as the parameter trains the JAX package's
    model (which reads the argument only).
-3. The robustness and observability parameters, which no module of the
-   port reads yet, are refused with Queue 1 item 11 where the JAX
-   package acts on them.
+3. The robustness and observability parameters act as the JAX
+   package's do (Queue 1 item 11.1); the multi-rank ones (``elastic_*``)
+   are refused with Queue 1 item 11.2 where the JAX package acts on
+   them.
 """
 
 import os
@@ -162,29 +163,100 @@ def test_categorical_features_match_jax(where):
                                atol=1e-5)
 
 
+def _plane_effect(param, tmp_path, monkeypatch):
+    """What a plane param makes each package do on the same run (a NaN
+    gradient at iteration 1 where the param needs one): the files it
+    wrote, by name, and the exception it raised, by type."""
+    from lightgbm_tpu.observability.telemetry import get_telemetry as jt
+    from lightgbm_tpu.robustness.faults import set_fault_plan as jf
+    from lightgbm_tpu_torch.observability.telemetry import get_telemetry
+    from lightgbm_tpu_torch.observability.tracing import get_tracer
+    from lightgbm_tpu_torch.robustness.faults import set_fault_plan
+    from lightgbm_tpu.observability import tracing as jtracing
+    from lightgbm_tpu_torch.observability import tracing
+    # each package's one-shot profiler window, fresh for this test
+    for mod in (tracing, jtracing):
+        monkeypatch.setattr(mod, "_PROFILE", mod.ProfileWindow())
+    X, y = _data()
+    out = {}
+    for name, pkg, kw in (("jax", lgb, {"verbose_eval": False}),
+                          ("port", lt, {"device": "cpu"})):
+        d = tmp_path / name
+        d.mkdir()
+        value = {"guard_policy": "raise", "faults": "nan_grad@iteration=1",
+                 "telemetry_out": str(d / "tel.jsonl"),
+                 "trace_out": str(d / "trace.json"),
+                 "profile_dir": str(d / "prof"),
+                 "crash_dump": str(d / "crash.json")}[param]
+        p = {"objective": "binary", "num_leaves": 7, "verbosity": -1,
+             param: value}
+        if param in ("guard_policy", "crash_dump"):
+            p["faults"] = "nan_grad@iteration=1"
+            p.setdefault("guard_policy", "raise")
+        err = None
+        try:
+            bst = pkg.train(p, pkg.Dataset(X, label=y), 3, **kw)
+        except Exception as e:   # noqa: BLE001 - the raise policy's
+            err, bst = type(e).__name__, None
+        for f in (set_fault_plan, jf):
+            f(None)
+        get_telemetry().reset()
+        get_tracer().reset()
+        jt().reset()
+        out[name] = (sorted(f for f in os.listdir(d) if f != "prof"), err,
+                     None if bst is None else bst.num_trees(),
+                     os.path.isdir(d / "prof") and bool(os.listdir(
+                         d / "prof")))
+    return out
+
+
 @pytest.mark.parametrize("param,value", [
     ("guard_policy", "raise"), ("faults", "nan_grad@iteration=1"),
     ("telemetry_out", "tel.jsonl"), ("trace_out", "trace.json"),
     ("profile_dir", "prof"), ("crash_dump", "crash.json"),
     ("elastic_watchdog", False), ("elastic_heartbeat_ms", 250.0)])
-def test_robustness_params_are_refused(param, value):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        lt.Config.from_params({param: value})
-    # their defaults pass
-    lt.Config.from_params({"guard_policy": "off", "elastic_watchdog": True})
+def test_robustness_params_are_refused(param, value, tmp_path,
+                                       monkeypatch):
+    """The multi-rank params are refused (Queue 1 item 11.2); every other
+    plane param, refused until item 11.1 came, now does what the JAX
+    package's does: the same files written, the same exception raised,
+    the same number of trees."""
+    if param.startswith("elastic_"):
+        with pytest.raises(NotImplementedError,
+                           match="Queue 1 item 11.2"):
+            lt.Config.from_params({param: value})
+        # their defaults pass
+        lt.Config.from_params({"guard_policy": "off",
+                               "elastic_watchdog": True})
+        return
+    out = _plane_effect(param, tmp_path, monkeypatch)
+    assert out["port"] == out["jax"], out
+    files, err, _, profiled = out["port"]
+    assert profiled == (param == "profile_dir")
+    if param in ("guard_policy", "crash_dump"):
+        assert err == "NonFiniteGradientError"
+    if param in ("telemetry_out", "trace_out", "crash_dump"):
+        assert files, out
+    lt.Config.from_params({param: value})
 
 
 def test_checkpoint_dir_writes_in_jax_and_is_refused_in_the_port(tmp_path):
+    """Since Queue 1 item 11.1 the port writes a checkpoint directory as
+    the JAX package does (the same names), and refuses one only over
+    more than one rank (item 11.2; tests/test_torch_robustness.py)."""
     X, y = _data()
     p = {"objective": "binary", "num_leaves": 7, "verbosity": -1,
          "checkpoint_dir": str(tmp_path / "ckpt"), "checkpoint_freq": 1}
     lgb.train(p, lgb.Dataset(X, label=y), 2, verbose_eval=False)
     assert sorted(os.listdir(tmp_path / "ckpt"))[:2] == [
         "ckpt_00000001", "ckpt_00000002"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        lt.train(dict(p, checkpoint_dir=str(tmp_path / "port")),
-                 lt.Dataset(X, label=y), 2, device="cpu")
-    assert not os.path.exists(tmp_path / "port")
+    lt.train(dict(p, checkpoint_dir=str(tmp_path / "port")),
+             lt.Dataset(X, label=y), 2, device="cpu")
+    assert sorted(os.listdir(tmp_path / "port")) \
+        == sorted(os.listdir(tmp_path / "ckpt"))
+    for it in ("ckpt_00000001", "ckpt_00000002"):
+        assert sorted(os.listdir(tmp_path / "port" / it)) \
+            == sorted(os.listdir(tmp_path / "ckpt" / it))
 
 
 def _chain(pkg):

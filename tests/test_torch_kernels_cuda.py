@@ -1618,3 +1618,121 @@ def test_multiboost_bucket_too_large_loops(dev, monkeypatch):
                for f in report["loop_fallback"])
     assert _native.LAUNCHES["fused_split_step_leaf_batched"] == before
     assert len(boosters) == 2 and all(len(b.models) == 2 for b in boosters)
+
+
+# ---- the robustness and observability planes on the card ------------
+
+def _planes_data(n=20_000, f=10, seed=0):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, f)
+    y = (X[:, 0] + 0.5 * X[:, 1] + 0.3 * rng.randn(n) > 0).astype(float)
+    return X, y
+
+
+def _planes_reset():
+    from lightgbm_tpu_torch.observability.telemetry import get_telemetry
+    from lightgbm_tpu_torch.observability.tracing import get_tracer
+    from lightgbm_tpu_torch.robustness.faults import set_fault_plan
+    set_fault_plan(None)
+    get_telemetry().reset()
+    get_tracer().reset()
+
+
+@pytest.mark.parametrize("max_bin", [255, 1023])
+def test_probe_launches_its_kernels(dev, max_bin):
+    """The phase probe on the partitioned learner launches
+    ``hist_segment``, ``partition_segment`` and ``split_scan`` (rows 1,
+    4, 5), on the serial learner ``hist_rows`` and ``split_scan`` (rows
+    8, 5)."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.observability.probe import run_phase_probe
+    from lightgbm_tpu_torch.ops import _native
+    X, y = _planes_data()
+    bst = lt.train({"objective": "binary", "num_leaves": 15, "verbosity": -1,
+                    "max_bin": max_bin}, lt.Dataset(X, label=y), 2,
+                   device=dev)
+    _native.reset_launch_counts()
+    ph = run_phase_probe(bst._gbdt)
+    assert set(ph) == {"grad", "update", "hist", "partition", "split"}
+    want = ("hist_segment", "partition_segment", "split_scan") \
+        if max_bin == 255 else ("hist_rows", "split_scan")
+    assert all(_native.LAUNCHES[k] > 0 for k in want), _native.LAUNCHES
+
+
+@pytest.mark.parametrize("max_bin", [255, 1023])
+def test_planes_drill_kernel_equals_plain(dev, max_bin, tmp_path):
+    """The drill (a NaN gradient rolled back, a preemption, a resume)
+    grows the same model text through the kernels and their plain
+    versions, and the resumed text equals the uninterrupted run's."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.robustness.faults import set_fault_plan
+    X, y = _planes_data()
+    p = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
+         "max_bin": max_bin, "checkpoint_freq": 1, "guard_policy": "rollback"}
+    texts = {}
+    for ops in ("kernel", "plain"):
+        _planes_reset()
+        pp = dict(p, checkpoint_dir=str(tmp_path / ops))
+        first = lt.train(dict(pp, faults="nan_grad@iteration=1;"
+                              "sigterm@iteration=2"),
+                         lt.Dataset(X, label=y), 4, device=dev, ops=ops)
+        set_fault_plan(None)
+        assert first.preempted
+        second = lt.train(pp, lt.Dataset(X, label=y), 4, device=dev, ops=ops)
+        texts[ops] = second.model_to_string().split("parameters:")[0]
+    plain = lt.train({k: v for k, v in p.items() if k != "guard_policy"},
+                     lt.Dataset(X, label=y), 4, device=dev)
+    _planes_reset()
+    assert texts["kernel"] == texts["plain"] \
+        == plain.model_to_string().split("parameters:")[0]
+
+
+def _iter_counts(tmp_path, dev, ops, max_bin):
+    import json
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.observability.telemetry import get_telemetry
+    from lightgbm_tpu_torch.ops import _native
+    _planes_reset()
+    X, y = _planes_data()
+    snaps = []
+
+    def snap(env):
+        snaps.append(dict(_native.LAUNCHES, **_native.ROUTE_LAUNCHES))
+    path = tmp_path / f"{ops}{max_bin}.jsonl"
+    _native.reset_launch_counts()
+    ds = lt.Dataset(X, label=y)
+    lt.train({"objective": "binary", "num_leaves": 15, "verbosity": -1,
+              "max_bin": max_bin, "telemetry_out": str(path)}, ds, 3,
+             valid_sets=[ds.create_valid(X[:2000], label=y[:2000])],
+             verbose_eval=False, callbacks=[snap], device=dev, ops=ops)
+    get_telemetry().flush()
+    with open(path) as fh:
+        iters = [json.loads(line) for line in fh]
+    _planes_reset()
+    return [r["counts"] for r in iters if r["kind"] == "iter"], snaps
+
+
+@pytest.mark.parametrize("max_bin", [255, 1023])
+def test_iter_launches_equal_the_launch_counters(dev, max_bin, tmp_path):
+    """Each ``iter`` record's ``launch.*`` are that iteration's deltas
+    of the launch counters; ``host.dispatches`` covers them; and
+    ``host.dispatches`` / ``host.syncs`` are the same through the
+    kernels and through their plain versions."""
+    counts, snaps = _iter_counts(tmp_path, dev, "kernel", max_bin)
+    assert len(counts) == len(snaps) == 3
+    prev = {k: 0 for k in snaps[0]}
+    for c, s in zip(counts, snaps):
+        deltas = {k: s[k] - prev[k] for k in s}
+        assert {k: c[f"launch.{k}"] for k in s} == deltas
+        step = "fused_split_step_segment" if max_bin == 255 \
+            else "fused_split_step_leaf"
+        assert deltas[step] == 14
+        assert c["host.dispatches"] >= sum(
+            v for k, v in deltas.items() if k in prev and
+            not k.endswith("_lut"))
+        prev = s
+    plain, _ = _iter_counts(tmp_path, dev, "plain", max_bin)
+    for a, b in zip(counts, plain):
+        assert (a["host.dispatches"], a["host.syncs"]) \
+            == (b["host.dispatches"], b["host.syncs"])
+        assert all(v == 0 for k, v in b.items() if k.startswith("launch."))

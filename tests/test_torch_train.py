@@ -201,12 +201,13 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 # the ids the cases had when the list also held the refusals that
 # Queue 1 items 7.4 and 7.5 lifted (tests/test_torch_extras.py and
-# tests/test_torch_linear.py train those configurations now); items 4
-# and 8 lifted theirs too: those cases (item None) now train, as the
+# tests/test_torch_linear.py train those configurations now); items 4,
+# 8 and 11 lifted theirs too: those cases (item None) now train, as the
 # JAX package's serial learner does (a data-parallel world of one rank
-# is the serial learner; tests/test_torch_parallel.py holds the ranks)
+# is the serial learner; tests/test_torch_parallel.py holds the ranks;
+# a checkpoint directory, tests/test_torch_robustness.py)
 @pytest.mark.parametrize("extra,item", [
-    pytest.param({"checkpoint_dir": "ckpt"}, "Queue 1 item 11",
+    pytest.param({"checkpoint_dir": "ckpt"}, None,
                  id="extra1-Queue 1 item 11"),
     pytest.param({"tree_learner": "data"}, None,
                  id="extra6-Queue 1 item 8"),
@@ -214,15 +215,27 @@ def test_default_device_raises_without_cuda(monkeypatch):
     pytest.param({"max_bin": 2000}, None,
                  id="extra8-Queue 1 item 4"),
 ])
-def test_out_of_slice_configs_rejected(extra, item):
+def test_out_of_slice_configs_rejected(extra, item, tmp_path):
     # enough distinct values for more than 1024 bins where asked
     X, y = _data(5, n=5000 if extra.get("max_bin", 0) > 1024 else 200)
     params = dict(PARAMS, **extra)
+    if "checkpoint_dir" in extra:
+        params["checkpoint_dir"] = str(tmp_path / extra["checkpoint_dir"])
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
             lt.train(params, lt.Dataset(X, label=y), 1, device="cpu")
         return
     port = lt.train(params, lt.Dataset(X, label=y), 2, device="cpu")
+    if "checkpoint_dir" in extra:
+        # the final checkpoint (freq 0: none periodic) is only written on
+        # preemption; the run's trees are those of the run without it
+        ref = lt.train(PARAMS, lt.Dataset(X, label=y), 2, device="cpu")
+        trees = lambda b: b.model_to_string().split(  # noqa: E731
+            "parameters:")[0]
+        assert trees(port) == trees(ref)
+        assert not os.listdir(params["checkpoint_dir"]) \
+            if os.path.isdir(params["checkpoint_dir"]) else True
+        return
     if "tree_learner" in extra:
         # a world of one rank: the serial learner's trees, to the bit
         # (tests/test_torch_parallel.py holds worlds of 2 against JAX)
