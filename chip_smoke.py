@@ -200,7 +200,8 @@ of the JAX package. Phases, each fatal on failure:
    4095 and 40,000 (``min_data_in_bin`` 1), the same trees to the bit;
 16. the parallel learners (``parallel_phase``): 2 rank processes on the
    one card (this script with ``--rank``; gloo, a ``file://``
-   rendezvous, a 60 s collective timeout), each on its 500k-row
+   rendezvous, a 150 s collective timeout, not shorter than the elastic
+   watchdog's default bounds), each on its 500k-row
    ``host_row_range`` block of 1M Higgs-shaped rows (cut from phase 3's
    2M for time) under ``pre_partition``, binned from the pooled sample
    of every row; ``tree_learner=data`` at max_bin 255 (the segment
@@ -213,6 +214,40 @@ of the JAX package. Phases, each fatal on failure:
    AUC within 0.002 of the data model's), then each learner kernel
    against plain at 100k rows, 63 leaves, 2 iterations, the same trees
    to the bit. A rank that fails or runs out of time fails the run.
+   (e) the elastic drill (``drill_references`` in the ranks, then
+   ``drill_phase``: legs of this script with ``--leg``), at the phase's
+   shapes with the drill's watchdog bounds (heartbeats every 100 ms, a
+   2 s heartbeat timeout, a 2 s grace, a 3 s stall timeout at 100k rows
+   and 60 s at 1M, where an iteration takes 1-4 s) and a coordinated
+   checkpoint every iteration: references on the data
+   learner at 255 and 1023 bins, 4 iterations (the texts, a write's ms
+   a rank, the shard bytes); kill (``kill_rank@rank=1,iter=2``: rank 1
+   exits -9, rank 0 43 with one ``peer_lost`` abort line, the seconds
+   between the two exits printed and held to the heartbeat timeout plus
+   the grace); resume (2 ranks: byte-equal to the 255-bin reference);
+   shrink (one process, ``elastic_resume``, on the 1023-bin reference's
+   checkpoint of iteration 2: byte-equal to it); guard (the shrink
+   without ``elastic_resume``: the world-mismatch error); stall
+   (``stall_rank``, 9 s) and drop_heartbeat at 100k rows and 31 leaves,
+   run beside the kill leg: both ranks exit 43 with
+   ``collective_stall`` / ``peer_lost``. The kill, resume
+   and shrink legs' launch counts show rows 1-5 (shrink: 5 and 8) on
+   every rank. (f) Queue 1 item 13 in the ranks (``item13_runs``): the
+   Expo one-hot (phase 12's 674 columns, 400k rows: its plan goes
+   multi-val) on data and voting, each rank its row block, and on rank 0
+   the float64 route of ``hist_multival`` against its plain version
+   (max abs err 0), timed beside its byte bound; extra_trees with
+   ``feature_fraction_bynode`` 0.5 on data at 255 and feature at 1023;
+   regression_l1 under ``pre_partition`` on data at 255 (the latent
+   score as label). Each held against the single process on the same
+   rows (``item13_check``: multi-val data and L1 the same trees within
+   the tests' tolerance, and whether to the bit; voting its valid AUC),
+   the ranks' trees equal, each run's kernels launched on every rank,
+   and kernel against plain bitwise at 100k rows (the Expo's first
+   100k, a subset that keeps its multi-val plan), 63 leaves; the
+   extra_trees runs, whose draws differ over ranks by design, there
+   also within the tests' tolerance of the same 2-rank run on the CPU
+   (their 1M-row valid AUC printed beside the single process's).
 17. multiboost (``multiboost_phase``, run after phase 15): (a)
    ``engine.train_many`` over the 2M x 28 rows (255 leaves, the
    script's iterations) in two buckets, 8 models over learning rate x
@@ -4627,7 +4662,6 @@ def multiboost_phase(X, y, binned, dev, iters, reps):
 PAR_RANKS = 2
 PAR_ITERS = 2          # cut from 8 for the time limit (PERF.md section 4)
 PAR_ROWS = 1_000_000   # cut from phase 3's 2M for the time limit as well
-PAR_TIMEOUT_S = 60.0   # a collective's limit: a lost rank fails the run
 # run -> (tree_learner, max_bin): the rows each rank loaded
 PAR_RUNS = {"data_255": ("data", 255), "data_1023": ("data", 1023),
             "voting_255": ("voting", 255), "feature_1023": ("feature", 1023)}
@@ -4651,7 +4685,9 @@ def par_params(learner, max_bin, n):
     the rows), so its bins are the single process's."""
     p = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
          "max_bin": max_bin, "verbosity": -1, "tree_learner": learner,
-         "bin_construct_sample_cnt": n, "top_k": 20}
+         "bin_construct_sample_cnt": n, "top_k": 20,
+         # the group stays up for the rank's next run
+         "elastic_shutdown": False}
     if learner != "feature":
         p["pre_partition"] = True
     return p
@@ -4686,11 +4722,11 @@ def par_rank(rank, size, rdzv, out, n, iters):
     dev = torch.device("cuda")
     torch.cuda.set_device(0)
     lt.init_distributed(rank=rank, world_size=size,
-                        init_method=f"file://{rdzv}", backend="gloo",
-                        timeout_s=PAR_TIMEOUT_S)
+                        init_method=f"file://{rdzv}", backend="gloo")
     res = {"runs": {}, "parity": {}, "single": {}}
     t0 = time.perf_counter()
-    X, y = higgs_like(n)
+    X, z = higgs_latent(n)
+    y = (z > 0).astype(np.float32)
     lo, hi = host_row_range(n)
     res["rows"] = [lo, hi]
     local = {}
@@ -4722,7 +4758,6 @@ def par_rank(rank, size, rdzv, out, n, iters):
                 ms_per_split=(time.perf_counter() - t1) / max(splits, 1)
                 * 1e3, valid_auc=auc(yv, bst.predict(Xv, raw_score=True)))
             del bst
-        del full[255]
         torch.cuda.empty_cache()
     for run, (learner, mb) in PAR_RUNS.items():
         ds = full[mb] if learner == "feature" else local[mb]
@@ -4756,10 +4791,620 @@ def par_rank(rank, size, rdzv, out, n, iters):
         kb = lt.train(p, ds, PARITY_ITERS, device=dev)
         pb = lt.train(p, ds, PARITY_ITERS, device=dev, ops="plain")
         res["parity"][run] = trees_bitwise(kb.models, pb.models)
+    # (e) the drill's references and the legs' binned rows
+    t1 = time.perf_counter()
+    res["drill"] = drill_references(local, full, rank, out, n, dev)
+    res["drill_s"] = time.perf_counter() - t1
+    # (f) ROADMAP Queue 1 item 13 over the ranks
+    t1 = time.perf_counter()
+    res["item13"] = item13_runs(z, local, full, rank, n, iters, dev, Xv, yv)
+    res["item13_s"] = time.perf_counter() - t1
     res["total_s"] = time.perf_counter() - t0
     shutdown_distributed()
     with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
         json.dump(res, fh)
+
+
+# ---- phase 16 (e): the elastic drill; (f): Queue 1 item 13 on ranks ----
+
+DRILL_ITERS = 4
+# the watchdog's drill bounds (detection in seconds, not minutes)
+DRILL_WATCHDOG = {"elastic_heartbeat_ms": 100.0,
+                  "elastic_heartbeat_timeout_ms": 2000.0,
+                  "elastic_stall_timeout_ms": 3000.0,
+                  "elastic_abort_grace_ms": 2000.0,
+                  "elastic_barrier_s": 60.0}
+# the stall timeout of the 1M-row runs (the references, kill, resume,
+# shrink, guard): an iteration there takes 1-4 s and more (254 splits at
+# 4-9 ms over gloo, and the first collectives' connection set-up), so a
+# 3 s timeout declares a healthy first iteration a collective_stall; the
+# 3 s bound is the 100k-row stall and drop_heartbeat legs'
+DRILL_STALL_1M_MS = 60000.0
+DRILL_KILL_ITER = 2
+DRILL_STALL_ITER = 2
+# the stall and drop_heartbeat legs test the watchdog alone: 100k rows
+# and 31 leaves, so that a healthy iteration stays far inside their 3 s
+# stall timeout beside the 1M-row kill leg, and iterations enough to
+# outlast the detection (an abort ends the leg at once)
+DRILL_SMALL_ROWS = 100_000
+DRILL_SMALL_LEAVES = 31
+DRILL_SMALL_ITERS = 200
+# leg -> (max_bin, ranks, extra params); 1 rank: one process, no group
+DRILL_LEGS = {
+    "kill": (255, 2, {"faults": f"kill_rank@rank=1,iter={DRILL_KILL_ITER}"}),
+    "resume": (255, 2, {}),
+    "shrink": (1023, 1, {"elastic_resume": True}),
+    "guard": (1023, 1, {}),
+    "stall": (255, 2, {"faults": f"stall_rank@rank=1,iter={DRILL_STALL_ITER},"
+                                 "ms=9000"}),
+    "drop_heartbeat": (255, 2, {"faults": "drop_heartbeat@rank=1"}),
+}
+LEG_LIMIT_S = 120.0
+# (f): phase 12's Expo one-hot (674 columns; multi-val from ~400k rows
+# at the default bin sample), every row on each rank, the data and
+# voting learners taking their row blocks
+ITEM13_MV_ROWS = 400_000
+ITEM13_EXTRA = {"extra_trees": True, "feature_fraction_bynode": 0.5}
+# extra_trees and by-node draws differ over ranks by design (a feature
+# shard folds its rank into its keys, as the JAX learners fold the mesh
+# position), so the single process is no reference for such a run: the
+# card's 2-rank trees are held to the same 2-rank run on the CPU (the
+# run that tests/test_torch_parallel_item13.py ties to JAX's mesh of 2)
+# at the 100k parity rows; their valid AUC at 1M rows is a diagnostic
+ITEM13_CPU_CASES = ("extra_data_255", "extra_feature_1023")
+# the multi-val voting run's valid AUC against the single process's
+ITEM13_AUC_TOL = 0.01
+
+
+def drill_params(mb, n):
+    """Phase 16's data learner at ``max_bin`` ``mb`` on ``n`` rows with a
+    coordinated checkpoint every iteration and the drill's watchdog
+    bounds (at the phase's 1M rows, ``DRILL_STALL_1M_MS``)."""
+    p = dict(par_params("data", mb, n), checkpoint_freq=1,
+             checkpoint_keep=DRILL_ITERS, **DRILL_WATCHDOG)
+    if n > DRILL_SMALL_ROWS:
+        p["elastic_stall_timeout_ms"] = DRILL_STALL_1M_MS
+    return p
+
+
+def drill_text(bst):
+    """A model's trees: its text before the parameters (which hold each
+    leg's paths)."""
+    return bst.model_to_string().split("\nparameters:")[0]
+
+
+def path_launches(launches, mb):
+    """The path's kernels of the data learner at ``mb`` bins (rows 1-5,
+    or 5 and 8 past 255) and their launches."""
+    names = ("hist_segment", "partition_segment", "split_scan") \
+        if mb <= 255 else ("hist_rows", "split_scan")
+    return {k: launches.get(k, 0) for k in names}
+
+
+def drill_references(local, full, rank, out, n, dev):
+    """(e)'s references in the rank processes: the data learner at 255
+    and 1023 bins, ``DRILL_ITERS`` iterations with a coordinated
+    checkpoint each (``ck_<mb>``), the text, the writes' ms and this
+    rank's shard bytes; then each rank's binned rows (and on rank 0
+    every row at 1023) as binary files for the legs."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import _native
+    refs = {}
+    for mb in (255, 1023):
+        ck = os.path.join(out, f"ck_{mb}")
+        _native.reset_launch_counts()
+        writes, undo = timed_checkpoints()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            bst = lt.train(dict(drill_params(mb, n), checkpoint_dir=ck),
+                           local[mb], DRILL_ITERS, device=dev)
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        shard = os.path.join(ck, f"ckpt_{DRILL_ITERS:08d}",
+                             f"shard_{rank:05d}.npz")
+        refs[str(mb)] = dict(
+            text=drill_text(bst), wall_s=time.perf_counter() - t0,
+            writes=writes["writes"], write_ms=writes["ms"]
+            / max(writes["writes"], 1), shard_bytes=os.path.getsize(shard),
+            launches=path_launches(_native.LAUNCHES, mb))
+        local[mb].save_binary(os.path.join(out, f"local_{mb}_{rank}.bin"))
+        del bst
+    if rank == 0:
+        full[1023].save_binary(os.path.join(out, "full_1023.bin"))
+    return refs
+
+
+def drill_leg(leg, rank, size, rdzv, out, n):
+    """One rank of an (e) leg (``chip_smoke.py --leg``): the data learner
+    on the reference's binned rows (or 100k fresh rows for the watchdog
+    legs), the leg's params, the launch counts written after every
+    iteration (a SIGKILLed rank keeps its last); a watchdog verdict
+    writes them and exits with the elastic exit code and its
+    ``ELASTIC_ABORT`` line. Writes ``out/leg_<leg>_<rank>.json``."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import _native
+    from lightgbm_tpu_torch.parallel.ingest import host_row_range
+    from lightgbm_tpu_torch.robustness.elastic import (ElasticError,
+                                                       elastic_exit)
+    from lightgbm_tpu_torch.utils.log import LightGBMError
+    dev = torch.device("cuda")
+    torch.cuda.set_device(0)
+    mb, _, extra = DRILL_LEGS[leg]
+    if size > 1:
+        lt.init_distributed(rank=rank, world_size=size,
+                            init_method=f"file://{rdzv}", backend="gloo")
+    small = leg in ("stall", "drop_heartbeat")
+    iters = DRILL_SMALL_ITERS if small else DRILL_ITERS
+    if small:
+        X, y = higgs_like(DRILL_SMALL_ROWS, seed=5)
+        lo, hi = host_row_range(len(X))
+        ds = lt.Dataset(X[lo:hi], label=y[lo:hi],
+                        params=par_params("data", mb, len(X)))
+        n_run = len(X)
+    else:
+        ds = lt.Dataset(os.path.join(out, "full_1023.bin" if size == 1
+                                     else f"local_{mb}_{rank}.bin"))
+        n_run = n
+    ck = os.path.join(out, f"ck_{leg}")
+    params = dict(drill_params(mb, n_run), checkpoint_dir=ck, **extra)
+    if small:
+        params["num_leaves"] = DRILL_SMALL_LEAVES
+    path = os.path.join(out, f"leg_{leg}_{rank}.json")
+    res = {"rank": rank, "iterations": 0}
+
+    def dump(env=None):
+        if env is not None:
+            res["iterations"] = env.iteration + 1
+        res["launches"] = path_launches(_native.LAUNCHES, mb)
+        with open(path, "w") as fh:
+            json.dump(res, fh)
+    _native.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        bst = lt.train(params, ds, iters, device=dev, callbacks=[dump])
+    except ElasticError as err:
+        res.update(error=str(err)[:300], seconds=time.perf_counter() - t0)
+        dump()
+        elastic_exit(err)
+    except LightGBMError as err:
+        res.update(error=str(err), seconds=time.perf_counter() - t0)
+        dump()
+        return
+    res.update(text=drill_text(bst), seconds=time.perf_counter() - t0,
+               resumed=getattr(bst, "resumed_iteration", None),
+               learner=type(bst._gbdt.learner).__name__,
+               trees=[par_tree(t) for t in bst.models])
+    dump()
+
+
+def spawn_legs(legs, tmp, n):
+    """Start each leg's ranks at once (``--leg``, its own rendezvous and
+    logs); wait, killing past ``LEG_LIMIT_S``; return per leg the exit
+    codes, the logs and the host clock's exit time of each rank."""
+    procs = {}
+    for leg in legs:
+        _, size, _ = DRILL_LEGS[leg]
+        procs[leg] = []
+        for r in range(size):
+            log = open(os.path.join(tmp, f"leg_{leg}_{r}.log"), "w")
+            procs[leg].append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--leg", leg,
+                 "--rank", str(r), "--world", str(size), "--rdzv",
+                 os.path.join(tmp, f"rdzv_{leg}"), "--out", tmp, "--rows",
+                 str(n)], stdout=log, stderr=subprocess.STDOUT), log))
+    deadline = time.monotonic() + LEG_LIMIT_S
+    ended = {leg: [None] * len(ps) for leg, ps in procs.items()}
+    while time.monotonic() < deadline and any(
+            None in e for e in ended.values()):
+        for leg, ps in procs.items():
+            for r, (p, _) in enumerate(ps):
+                if ended[leg][r] is None and p.poll() is not None:
+                    ended[leg][r] = time.monotonic()
+        time.sleep(0.02)
+    out = {}
+    for leg, ps in procs.items():
+        for p, log in ps:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        logs = []
+        for r in range(len(ps)):
+            with open(os.path.join(tmp, f"leg_{leg}_{r}.log")) as fh:
+                logs.append(fh.read())
+        out[leg] = dict(codes=[p.returncode for p, _ in ps], logs=logs,
+                        ended=ended[leg])
+    return out
+
+
+def leg_result(tmp, leg, rank):
+    path = os.path.join(tmp, f"leg_{leg}_{rank}.json")
+    if not os.path.exists(path):
+        return {}
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def abort_reasons(log):
+    """The ``ELASTIC_ABORT`` lines of a rank's log, classified."""
+    from lightgbm_tpu_torch.robustness.elastic import \
+        classify_elastic_failure
+    return [classify_elastic_failure(ln) for ln in log.splitlines()
+            if ln.startswith("ELASTIC_ABORT")]
+
+
+def leg_fail(leg, msg, run):
+    for r, log in enumerate(run["logs"]):
+        print(f"[drill {leg}] rank {r} (exit {run['codes'][r]}) log tail:\n"
+              + "\n".join(log.splitlines()[-12:]))
+    fail(f"phase 16 (e) {leg}: {msg}")
+
+
+def drill_phase(tmp, n, refs):
+    """(e): the kill leg (its detection timed) beside the stall and
+    drop_heartbeat legs (the stall held to the injected one: both ranks
+    through ``DRILL_STALL_ITER`` iterations), then the resume, shrink and
+    guard legs at once; each leg's seconds, verdicts, texts and launches
+    checked.
+    ``refs``: the ranks' references (``drill_references``)."""
+    out = {}
+    for mb in ("255", "1023"):
+        if refs[0][mb]["text"] != refs[1][mb]["text"]:
+            fail(f"phase 16 (e): the ranks' {mb}-bin references differ")
+    ref = {mb: refs[0][mb]["text"] for mb in ("255", "1023")}
+    out["references"] = {mb: dict(
+        wall_s=refs[0][mb]["wall_s"], writes=refs[0][mb]["writes"],
+        write_ms=[r[mb]["write_ms"] for r in refs],
+        shard_bytes=[r[mb]["shard_bytes"] for r in refs])
+        for mb in ("255", "1023")}
+    # the kill leg writes into its own directory; the resume continues
+    # there, the shrink and the guard read a 2-rank 1023-bin checkpoint of
+    # iteration DRILL_KILL_ITER (the reference's, the later ones removed)
+    for leg in ("shrink", "guard"):
+        dst = os.path.join(tmp, f"ck_{leg}")
+        shutil.copytree(os.path.join(tmp, "ck_1023"), dst)
+        for it in range(DRILL_KILL_ITER + 1, DRILL_ITERS + 1):
+            shutil.rmtree(os.path.join(dst, f"ckpt_{it:08d}"))
+    t0 = time.perf_counter()
+    runs = spawn_legs(["kill", "stall", "drop_heartbeat"], tmp, n)
+    out["kill_stall_drop_heartbeat_s"] = time.perf_counter() - t0
+    kill = runs["kill"]
+    if kill["codes"] != [43, -9]:
+        leg_fail("kill", f"exit codes {kill['codes']}, want [43, -9]", kill)
+    if abort_reasons(kill["logs"][0]) != ["peer_lost"] \
+            or "reason=peer_lost rank=1" not in kill["logs"][0]:
+        leg_fail("kill", "rank 0 did not abort with peer_lost rank=1", kill)
+    detect = kill["ended"][0] - kill["ended"][1]
+    bound = (DRILL_WATCHDOG["elastic_heartbeat_timeout_ms"]
+             + DRILL_WATCHDOG["elastic_abort_grace_ms"]) / 1e3
+    if detect > bound + 1.0:
+        leg_fail("kill", f"rank 0 took {detect:.2f} s to abort", kill)
+    out["kill_detect_s"] = detect
+    os.rename(os.path.join(tmp, "ck_kill"), os.path.join(tmp, "ck_resume"))
+    t0 = time.perf_counter()
+    runs.update(spawn_legs(["resume", "shrink", "guard"], tmp, n))
+    out["resume_shrink_guard_s"] = time.perf_counter() - t0
+    res = {leg: [leg_result(tmp, leg, r)
+                 for r in range(DRILL_LEGS[leg][1])] for leg in runs}
+    for leg in ("kill", "resume", "shrink"):
+        mb = DRILL_LEGS[leg][0]
+        for r, rec in enumerate(res[leg]):
+            if not rec or not all(v > 0 for v in rec["launches"].values()):
+                leg_fail(leg, f"rank {r} did not launch its path's "
+                         f"kernels: {rec.get('launches')}", runs[leg])
+    for leg in ("resume", "shrink"):
+        if any(runs[leg]["codes"]):
+            leg_fail(leg, f"exit codes {runs[leg]['codes']}", runs[leg])
+        for rec in res[leg]:
+            if rec.get("resumed") != DRILL_KILL_ITER:
+                leg_fail(leg, f"resumed at {rec.get('resumed')}", runs[leg])
+    for rec in res["resume"]:
+        if rec["text"] != ref["255"]:
+            leg_fail("resume", "the resumed text is not the reference's",
+                     runs["resume"])
+    shrink_exact = res["shrink"][0]["text"] == ref["1023"]
+    if not shrink_exact:
+        leg_fail("shrink", "the 2 -> 1 reshard is not byte-equal to the "
+                 "2-rank reference (the data learner at 1023 bins grows the "
+                 "single process's trees bitwise)", runs["shrink"])
+    guard = res["guard"][0]
+    if runs["guard"]["codes"] != [0] or \
+            "world mismatch" not in guard.get("error", "") or \
+            "elastic_resume=true" not in guard.get("error", ""):
+        leg_fail("guard", f"no world-mismatch error: {guard}", runs["guard"])
+    want = {"stall": "collective_stall", "drop_heartbeat": "peer_lost"}
+    for leg, reason in want.items():
+        run = runs[leg]
+        if run["codes"] != [43, 43] or any(
+                abort_reasons(log)[:1] != [reason] for log in run["logs"]):
+            leg_fail(leg, f"want both ranks to exit 43 with {reason}: exit "
+                     f"codes {run['codes']}", run)
+        out[f"{leg}_iterations"] = [rec.get("iterations") for rec in
+                                    res[leg]]
+        out[f"{leg}_exit_s"] = [e - min(run["ended"])
+                                for e in run["ended"]]
+    if out["stall_iterations"] != [DRILL_STALL_ITER] * 2:
+        leg_fail("stall", "the stall was not the injected one (iterations "
+                 f"done {out['stall_iterations']}, the stall at "
+                 f"{DRILL_STALL_ITER})", runs["stall"])
+    out["launches"] = {leg: [rec["launches"] for rec in res[leg]]
+                       for leg in ("kill", "resume", "shrink")}
+    out["shrink_byte_equal"] = shrink_exact
+    out["legs_s"] = {leg: [rec.get("seconds") for rec in res[leg]]
+                     for leg in res}
+    print(f"[drill] kill: rank 1 SIGKILLed at iteration {DRILL_KILL_ITER}, "
+          f"rank 0 exit 43 peer_lost {detect:.3f} s after it (bound "
+          f"{bound:.1f} s); resume and shrink (2 -> 1, 1023 bins) "
+          f"byte-equal to the references; guard: world mismatch; stall: "
+          f"both ranks collective_stall, exits "
+          f"{[round(v, 2) for v in out['stall_exit_s']]} s apart; "
+          f"drop_heartbeat: both peer_lost; a coordinated write "
+          f"{[round(v, 2) for v in out['references']['255']['write_ms']]} "
+          f"ms a rank at 255 bins, shard bytes "
+          f"{out['references']['255']['shard_bytes']}; legs: "
+          f"kill+stall+drop_heartbeat "
+          f"{out['kill_stall_drop_heartbeat_s']:.1f} s, resume+shrink+guard "
+          f"{out['resume_shrink_guard_s']:.1f} s")
+    return out
+
+
+def check_multival_f64(ds, dev, reps):
+    """The float64 route of ``hist_multival`` (the data-parallel
+    learners') against its plain version on a multi-val dataset's slots,
+    all rows and a random third: max abs err 0; timed (CUDA events)
+    beside the plain version and its byte bound (``multival_bytes`` with
+    the histogram written as float64)."""
+    import torch
+    from lightgbm_tpu_torch.ops import hist_multival_cuda as hm
+    lay = ds.mv_layout_device(dev)
+    g_mv = ds.num_groups - ds.num_dense_groups
+    b = int(max(ds.num_bins_array().max(), ds.group_num_bins.max()))
+    n = lay.n
+    gen = torch.Generator(device=dev).manual_seed(21)
+    ghc = torch.stack([torch.randn(n, generator=gen, device=dev),
+                       torch.rand(n, generator=gen, device=dev) * 0.25,
+                       torch.ones(n, device=dev)], 1).contiguous()
+    third = torch.nonzero(torch.rand(n, generator=gen, device=dev)
+                          < 1 / 3).flatten().to(torch.int32)
+    partial = hm.multival_partial(g_mv, b, dev)
+    cases = {}
+    for mode, ids in (("all rows", None), ("a third", third)):
+        out = hm.hist_multival(lay, ghc, b, ids, partial=partial,
+                               float64=True)
+        ref = hm.hist_multival_plain(lay, ghc, b, ids, float64=True)
+        rounded = hm.hist_multival(lay, ghc, b, ids, partial=partial)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        if out.dtype != torch.float64 or err != 0.0 \
+                or not torch.equal(out.float(), rounded):
+            fail(f"hist_multival float64 route ({mode}) off its plain "
+                 f"version by {err}, or not the float32 route unrounded")
+        nbytes = multival_bytes(lay, ids, b) + g_mv * b * 3 * 4
+        cases[mode] = dict(
+            rows=n if ids is None else ids.numel(), max_abs_err=err,
+            ms=time_ms(lambda: hm.hist_multival(
+                lay, ghc, b, ids, partial=partial, float64=True), reps),
+            ms_float32=time_ms(lambda: hm.hist_multival(
+                lay, ghc, b, ids, partial=partial), reps),
+            plain_ms=time_ms(lambda: hm.hist_multival_plain(
+                lay, ghc, b, ids, float64=True), 3),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            chunks=hm.child_chunks(n if ids is None else ids.numel(), g_mv))
+    print("[check] hist_multival float64 route ok (G_mv "
+          f"{g_mv}, K {ds.mv_slots.shape[1]}): " + "; ".join(
+              f"{m}: {c['ms']:.4f} ms (float32 route {c['ms_float32']:.4f},"
+              f" plain {c['plain_ms']:.3f}, bound {c['bound_ms']:.4f}, "
+              f"{c['chunks']} chunks)" for m, c in cases.items()))
+    return dict(g_mv=g_mv, k=int(ds.mv_slots.shape[1]), b=b, cases=cases)
+
+
+def item13_runs(z, local, full, rank, n, iters, dev, Xv, yv):
+    """(f) in the rank processes, each run with the launch counts set to 0
+    just before it and read just after, rank 0 training the single
+    process on the same rows: (i) the Expo one-hot on the data and voting
+    learners (every row on each rank, each learner its row block; the
+    data recipe's multi-val histograms by the float64 route) and, on rank
+    0, the float64 route against its plain version; (ii) extra_trees
+    with ``feature_fraction_bynode`` 0.5 on data at 255 bins (the
+    rank's ``pre_partition`` rows) and feature at 1023 (every row);
+    (iii) regression_l1 under ``pre_partition`` (the latent score as the
+    label) on data at 255. Then each config's kernel against plain at
+    100k rows (the Expo's first 100k as a subset, which keeps its
+    multi-val plan), 63 leaves, and the extra_trees configs' kernel runs
+    against the same 2-rank runs on the CPU."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import _native
+    from lightgbm_tpu_torch.parallel.ingest import host_row_range
+    res = {"runs": {}, "single": {}, "parity": {}, "cpu": {}}
+
+    def run(name, params, ds, valid=None, single=False):
+        _native.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst = lt.train(params, ds, iters, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        splits = sum(t.num_leaves - 1 for t in bst.models)
+        rec = dict(learner=type(bst._gbdt.learner).__name__, wall_s=wall,
+                   ms_per_split=wall / max(splits, 1) * 1e3,
+                   launches=dict(_native.LAUNCHES),
+                   trees=[par_tree(t) for t in bst.models])
+        if valid is not None:
+            rec["valid_auc"] = auc(valid[1],
+                                   bst.predict(valid[0], raw_score=True))
+        (res["single"] if single else res["runs"])[name] = rec
+        return bst
+
+    # (i) multi-val
+    t0 = time.perf_counter()
+    mv, ymv = expo_one_hot(ITEM13_MV_ROWS, 42)
+    mvv = expo_one_hot(100_000, 43) if rank == 0 else None
+    mvp = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
+           "max_bin": 255, "verbosity": -1, "elastic_shutdown": False}
+    ds_mv = lt.Dataset(mv, label=ymv, params=mvp)
+    binned = ds_mv._construct()
+    if not binned.has_multival:
+        fail("phase 16 (f): the Expo one-hot plan did not go multi-val")
+    res["mv_plan"] = dict(rows=ITEM13_MV_ROWS, columns=int(mv.shape[1]),
+                          dense_groups=binned.num_dense_groups,
+                          mv_groups=binned.num_groups
+                          - binned.num_dense_groups,
+                          slots_k=int(binned.mv_slots.shape[1]),
+                          bin_s=time.perf_counter() - t0)
+    if rank == 0:
+        run("multival", dict(mvp, tree_learner="serial"), ds_mv, mvv,
+            single=True)
+        res["multival_f64"] = check_multival_f64(binned, dev, 10)
+    run("multival_data", dict(mvp, tree_learner="data"), ds_mv, mvv)
+    run("multival_voting", dict(mvp, tree_learner="voting", top_k=20),
+        ds_mv, mvv)
+    # (ii) extra_trees and by-node sampling
+    for mb, learner in ((255, "data"), (1023, "feature")):
+        p = dict(par_params(learner, mb, n), **ITEM13_EXTRA)
+        if rank == 0:
+            single = dict(par_params("serial", mb, n), **ITEM13_EXTRA)
+            single.pop("pre_partition")
+            run(f"extra_{mb}", single, full[mb], (Xv, yv), single=True)
+        run(f"extra_{learner}_{mb}", p,
+            full[mb] if learner == "feature" else local[mb],
+            None if Xv is None else (Xv, yv))
+    # (iii) the L1 refit under pre_partition: the latent score as label
+    lo, hi = host_row_range(n)
+    local[255].set_label(z[lo:hi])
+    l1 = dict(par_params("data", 255, n), objective="regression_l1")
+    if rank == 0:
+        full[255].set_label(z)
+        single = dict(l1, tree_learner="serial")
+        single.pop("pre_partition")
+        run("l1_255", single, full[255], single=True)
+    run("l1_data_255", l1, local[255])
+    # kernel against plain, 63 leaves, PARITY_ITERS iterations
+    Xp, zp = higgs_latent(100_000, seed=3)
+    yp = (zp > 0).astype(np.float32)
+    plo, phi = host_row_range(len(Xp))
+    # the Expo's first 100k rows keep its multi-val plan (a subset is
+    # binned with its parent's bins)
+    mv_sub = ds_mv.subset(np.arange(100_000))
+    cases = {
+        "multival_data": (dict(mvp, tree_learner="data"), mv_sub),
+        "multival_voting": (dict(mvp, tree_learner="voting", top_k=20),
+                            mv_sub),
+        "extra_data_255": (dict(par_params("data", 255, len(Xp)),
+                                **ITEM13_EXTRA), (Xp[plo:phi], yp[plo:phi])),
+        "extra_feature_1023": (dict(par_params("feature", 1023, len(Xp)),
+                                    **ITEM13_EXTRA), (Xp, yp)),
+        "l1_data_255": (dict(par_params("data", 255, len(Xp)),
+                             objective="regression_l1"),
+                        (Xp[plo:phi], zp[plo:phi])),
+    }
+    for name, (p, data) in cases.items():
+        p = dict(p, num_leaves=63)
+        ds = data if isinstance(data, lt.Dataset) \
+            else lt.Dataset(data[0], label=data[1], params=p)
+        kb = lt.train(p, ds, PARITY_ITERS, device=dev)
+        pb = lt.train(p, ds, PARITY_ITERS, device=dev, ops="plain")
+        res["parity"][name] = trees_bitwise(kb.models, pb.models)
+        if name in ITEM13_CPU_CASES:
+            cb = lt.train(p, lt.Dataset(data[0], label=data[1], params=p),
+                          PARITY_ITERS, device="cpu")
+            res["cpu"][name] = dict(
+                kernel=[par_tree(t) for t in kb.models],
+                cpu=[par_tree(t) for t in cb.models])
+    return res
+
+
+def item13_check(ranks):
+    """(f)'s checks on the ranks' records: the ranks grew the same trees;
+    the multi-val data run and the L1 refit hold the single process's
+    trees (the parity standard; whether to the bit); multi-val voting
+    holds its valid AUC; the extra_trees runs (whose draws differ over
+    ranks by design, as the JAX learners') hold the same 2-rank run on
+    the CPU at the 100k parity rows (the parity standard), their 1M-row
+    AUC a diagnostic; every run launched its path's kernels; kernel
+    against plain bitwise on every rank."""
+    r0 = ranks[0]["item13"]
+    out = {"mv_plan": r0["mv_plan"], "runs": {},
+           "multival_f64": r0["multival_f64"]}
+    paths = {"multival_data": ("hist_rows", "split_scan", "hist_multival"),
+             "multival_voting": ("hist_rows", "split_scan",
+                                 "hist_multival"),
+             "extra_data_255": ("hist_segment", "partition_segment",
+                                "split_scan"),
+             "extra_feature_1023": ("hist_rows", "split_scan"),
+             "l1_data_255": ("hist_segment", "partition_segment",
+                             "split_scan")}
+    single_of = {"multival_data": "multival", "multival_voting": "multival",
+                 "extra_data_255": "extra_255",
+                 "extra_feature_1023": "extra_1023",
+                 "l1_data_255": "l1_255"}
+    for name, kernels in paths.items():
+        recs = [rk["item13"]["runs"][name] for rk in ranks]
+        r = recs[0]
+        single = r0["single"][single_of[name]]
+        if any(x["trees"] != r["trees"] for x in recs[1:]):
+            fail(f"phase 16 (f) {name}: the ranks grew different trees")
+        for k in kernels:
+            if any(x["launches"].get(k, 0) <= 0 for x in recs):
+                fail(f"phase 16 (f) {name}: kernel {k} was not launched on "
+                     "every rank")
+        if not all(rk["item13"]["parity"][name] for rk in ranks):
+            fail(f"phase 16 (f) {name}: kernel and plain runs grew "
+                 "different trees")
+        ref = single["trees"]
+        exact = len(ref) == len(r["trees"]) and all(
+            par_same(a, b, True) for a, b in zip(r["trees"], ref))
+        close = len(ref) == len(r["trees"]) and all(
+            par_same(a, b, False) for a, b in zip(r["trees"], ref))
+        rec = dict(learner=r["learner"], ms_per_split=r["ms_per_split"],
+                   single_ms_per_split=single["ms_per_split"],
+                   launches=r["launches"], trees_equal_to_the_bit=exact,
+                   trees_within_tolerance=close, parity_bitwise=True)
+        if name in ("multival_data", "l1_data_255"):
+            if not close:
+                fail(f"phase 16 (f) {name}: not the single process's trees")
+        else:
+            rec.update(valid_auc=r["valid_auc"],
+                       single_valid_auc=single["valid_auc"])
+        if name == "multival_voting" and abs(
+                r["valid_auc"] - single["valid_auc"]) > ITEM13_AUC_TOL:
+            fail(f"phase 16 (f) {name}: valid AUC {r['valid_auc']} is "
+                 f"more than {ITEM13_AUC_TOL} from the single process's "
+                 f"{single['valid_auc']}")
+        if name in ITEM13_CPU_CASES:
+            exact_cpu = close_cpu = True
+            for rk in ranks:
+                c = rk["item13"]["cpu"][name]
+                if len(c["kernel"]) != len(c["cpu"]):
+                    fail(f"phase 16 (f) {name}: {len(c['kernel'])} trees on "
+                         f"the card, {len(c['cpu'])} on the CPU")
+                pairs = list(zip(c["kernel"], c["cpu"]))
+                exact_cpu &= all(par_same(a, b, True) for a, b in pairs)
+                close_cpu &= all(par_same(a, b, False) for a, b in pairs)
+            if not close_cpu:
+                fail(f"phase 16 (f) {name}: the card's 2-rank trees are not "
+                     "the 2-rank CPU run's (100k rows, 63 leaves)")
+            rec.update(cpu_trees_equal_to_the_bit=exact_cpu,
+                       cpu_trees_within_tolerance=close_cpu)
+        out["runs"][name] = rec
+        print(f"[item13] {name}: {r['learner']} on {PAR_RANKS} ranks, "
+              f"{r['ms_per_split']:.4f} ms/split (single "
+              f"{single['ms_per_split']:.4f}); trees: to the bit {exact}, "
+              f"within tolerance {close}"
+              + (f"; valid auc {r['valid_auc']:.6f} (single "
+                 f"{rec['single_valid_auc']:.6f})" if "valid_auc" in rec
+                 else "")
+              + (f"; the 2-rank CPU run's trees (100k rows): to the bit "
+                 f"{rec['cpu_trees_equal_to_the_bit']}, within tolerance "
+                 f"{rec['cpu_trees_within_tolerance']}"
+                 if name in ITEM13_CPU_CASES else "")
+              + f"; kernel vs plain bitwise; launches (rank 0) "
+              f"{ {k: r['launches'][k] for k in kernels} }")
+    return out
 
 
 def par_same(a, b, exact):
@@ -4823,7 +5468,6 @@ def parallel_phase(n, iters, dev, limit_s):
     for r in range(PAR_RANKS):
         with open(os.path.join(tmp, f"rank{r}.json")) as fh:
             ranks.append(json.load(fh))
-    shutil.rmtree(tmp, ignore_errors=True)
     wall = time.perf_counter() - t0
     r0 = ranks[0]
     for mb in (255, 1023):
@@ -4885,6 +5529,20 @@ def parallel_phase(n, iters, dev, limit_s):
     print(f"[parallel] ranks: binning {r0['bin_s']:.1f} s, rank 0 in all "
           f"{r0['total_s']:.1f} s; the bins of every rank equal this "
           "process's on every row")
+    # (f) item 13 over the ranks, (e) the elastic drill
+    out["item13"] = item13_check(ranks)
+    out["item13_s"] = r0["item13_s"]
+    print(f"[item13] (f) in the ranks {r0['item13_s']:.1f} s")
+    t1 = time.perf_counter()
+    try:
+        out["drill"] = drill_phase(tmp, n, [rk["drill"] for rk in ranks])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["drill"]["references_s"] = r0["drill_s"]
+    out["drill_s"] = time.perf_counter() - t1 + r0["drill_s"]
+    print(f"[drill] (e) {out['drill_s']:.1f} s (the references in the ranks "
+          f"{r0['drill_s']:.1f} s, the legs {time.perf_counter() - t1:.1f} "
+          "s)")
     return out
 
 
@@ -5215,12 +5873,18 @@ def main() -> int:
     ap.add_argument("--world", type=int, default=PAR_RANKS)
     ap.add_argument("--rdzv", default=None)
     ap.add_argument("--out", default=None)
+    # phase 16 (e)'s leg processes
+    ap.add_argument("--leg", default=None, choices=sorted(DRILL_LEGS))
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.leg is not None:
+        drill_leg(args.leg, args.rank, args.world, args.rdzv, args.out,
+                  args.rows)
+        return 0
     if args.rank is not None:
         par_rank(args.rank, args.world, args.rdzv, args.out, args.rows,
                  args.iters)
@@ -5618,6 +6282,13 @@ def main() -> int:
                     "max_abs_err", "tree_avg_ms", "tree_avg_bound_ms",
                     "loop_ms", "block_shape", "launch_shape")
                 if key in r["models_8"]}
+        if name == "hist_multival":
+            # the data-parallel learners' float64 route (phase 16 f): its
+            # launches in the multi-val data run on rank 0
+            kernels[-1]["float64_route"] = dict(
+                par["item13"]["multival_f64"],
+                launches=par["item13"]["runs"]["multival_data"][
+                    "launches"]["hist_multival"])
         if name == "split_scan":
             # the per-phase scan also takes the tree's node table
             # (extra_trees, by-node sampling; phase 13)

@@ -24,7 +24,9 @@ refits a model's leaves on new rows (per-leaf sums through the
 ``LGBMClassifier``, ``LGBMRanker``) fit with or without scikit-learn.
 ``tree_learner=data|voting|feature`` train over the ranks of a
 ``torch.distributed`` group (``init_distributed``, one process a rank;
-``parallel/``), or as a world of one without a group.
+``parallel/``), with the elastic watchdog and the coordinated
+checkpoint over the ranks (``robustness/``), or as a world of one
+without a group.
 ``engine.train_many`` trains many models over one Dataset together, a
 bucket of them a batch (``multiboost/``: the model-batched root
 histogram and leaf step kernels), and ``cv`` batches its folds the

@@ -3,8 +3,7 @@
 Copy of ``lightgbm_tpu/config.py`` for the PyTorch port: same dataclass,
 aliases and ``check_param_conflict``. The differences: ``device_type``
 defaults to ``cuda``; ``slo_specs``/``slo_windows`` (validated by the
-serving plane, not ported yet, ROADMAP.md Queue 1 item 10) and the
-multi-rank robustness parameters (``elastic_*``, item 11.2) are rejected
+serving plane, not ported yet, ROADMAP.md Queue 1 item 10) are rejected
 when set, since no module of the port reads them yet. Which parameters the
 port's training path accepts is checked where they are used
 (``parallel/learners.py:create_tree_learner`` and the learners).
@@ -404,12 +403,14 @@ class Config:
     elastic_stall_timeout_ms: float = 120000.0
     # grace between classified abort and forced exit of a wedged rank
     elastic_abort_grace_ms: float = 5000.0
-    # side-channel TCP port; 0 = coordinator port + 521
+    # side-channel TCP port; 0 = coordinator port + 521, or an
+    # ephemeral port published through the group's store
     elastic_port: int = 0
     # allow resume=auto onto a machine list that mismatches the
     # checkpoint manifest (elastic N->M reshard); off = structured error
     elastic_resume: bool = False
-    # call jax.distributed.shutdown() on clean exit / preempt escalation
+    # leave the process group (destroy_process_group) at the end of
+    # a train over the ranks
     elastic_shutdown: bool = True
     # bound on the two-phase checkpoint commit barrier (all-ranks fsync)
     elastic_barrier_s: float = 120.0
@@ -839,15 +840,6 @@ class Config:
             raise NotImplementedError(
                 "slo_specs/slo_windows need the serving plane "
                 "(ROADMAP.md Queue 1 item 10)")
-        for name in (f.name for f in dataclasses.fields(self)
-                     if f.name.startswith("elastic_")):
-            if getattr(self, name) != _field_default(name):
-                # the multi-rank robustness plane (the elastic watchdog,
-                # the coordinated checkpoint): nothing in the port reads
-                # these yet, so a set one is refused
-                raise NotImplementedError(
-                    f"{name} needs the multi-rank robustness plane "
-                    "(ROADMAP.md Queue 1 item 11.2)")
         if self.objective in ("multiclass", "multiclassova") and self.num_class < 2:
             raise ValueError("num_class must be >= 2 for multiclass objectives")
         if self.objective not in ("multiclass", "multiclassova", "custom",
@@ -888,12 +880,6 @@ class Config:
 
     def to_params(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
-
-
-def _field_default(name: str) -> Any:
-    f = {f.name: f for f in dataclasses.fields(Config)}[name]
-    return f.default if f.default is not dataclasses.MISSING \
-        else f.default_factory()
 
 
 def _coerce(value: Any, f: dataclasses.Field) -> Any:

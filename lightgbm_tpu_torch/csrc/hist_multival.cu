@@ -156,6 +156,8 @@ __device__ __forceinline__ void add_group(const unsigned* run, int ne,
 // kTimed: thread 0 of every block adds its cycles of staging, the
 // passes' loads and sorts, the accumulation and the write-out, and the
 // block's entries, into times[block] (chip_profile.py --multival-phases).
+// out == nullptr (the float64 route): every block writes its chunk's
+// partial, the one-chunk call's too, and the reduce writes float64.
 template <bool kIds, bool kTimed>
 __global__ void __launch_bounds__(kThreads)
 hist_multival_kernel(const unsigned short* __restrict__ ent,
@@ -364,7 +366,7 @@ hist_multival_kernel(const unsigned short* __restrict__ ent,
   }
   __syncthreads();
   const int bw = min(B, kStride);
-  if (chunks == 1) {
+  if (chunks == 1 && out != nullptr) {
     const int n3 = nw * B * 3;
     for (int i = threadIdx.x; i < n3; i += kThreads) {
       const int g = i / (B * 3), rest = i % (B * 3);
@@ -394,17 +396,19 @@ hist_multival_kernel(const unsigned short* __restrict__ ent,
 }
 
 // out[g, b, ch] = the chunks' partials of (g, b, ch) summed in chunk
-// order, rounded once; bins at and past 256 are 0.
+// order, rounded once (T float), or unrounded (T double: the float64
+// route); bins at and past 256 are 0.
+template <typename T>
 __global__ void hist_multival_reduce(const double* __restrict__ partial,
                                      int chunks, int g_mv, int B,
-                                     float* __restrict__ out) {
+                                     T* __restrict__ out) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long n = (long long)g_mv * B * 3;
   if (i >= n) return;
   const int g = (int)(i / (B * 3)), rest = (int)(i % (B * 3));
   const int b = rest / 3, ch = rest % 3;
   if (b >= kStride) {
-    out[i] = 0.0f;
+    out[i] = (T)0;
     return;
   }
   const int bw = min(B, kStride);
@@ -413,7 +417,7 @@ __global__ void hist_multival_reduce(const double* __restrict__ partial,
   double s = partial[at];
 #pragma unroll 8
   for (int c = 1; c < chunks; ++c) s += partial[c * plane + at];
-  out[i] = (float)s;
+  out[i] = (T)s;
 }
 
 template <bool kIds, bool kTimed>
@@ -437,17 +441,20 @@ int launch(const unsigned short* ent, const long long* off, long long n,
   return (int)cudaGetLastError();
 }
 
+// out64 non-null: the float64 route (out is null), the chunks' partials
+// summed into out64 unrounded, whatever the chunk count.
 template <bool kTimed>
 int run(const unsigned short* ent, const long long* off, long long n,
         const int* npad, const float* ghc, const int* ids, long long count,
         int g_mv, int B, int max_chunks, double* partial, float* out,
-        long long* times, cudaStream_t stream) {
+        double* out64, long long* times, cudaStream_t stream) {
   if (n < 0 || g_mv < 1 || B < 1 || count < 0 ||
       max_chunks != max_chunks_of(g_mv))
     return (int)cudaErrorInvalidValue;
   const int W = g_mv < kWindowGroups ? g_mv : kWindowGroups;
   const int chunks = child_chunks(count, g_mv);
-  if (chunks > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
+  if ((chunks > 1 || out64 != nullptr) && partial == nullptr)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(W);
   const int err =
       ids ? launch<true, kTimed>(ent, off, n, npad, ghc, ids, count, g_mv, W,
@@ -455,10 +462,17 @@ int run(const unsigned short* ent, const long long* off, long long n,
           : launch<false, kTimed>(ent, off, n, npad, ghc, ids, count, g_mv,
                                   W, chunks, B, partial, out, smem, times,
                                   stream);
-  if (err || chunks == 1) return err;
   const long long total = (long long)g_mv * B * 3;
-  hist_multival_reduce<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      partial, chunks, g_mv, B, out);
+  const unsigned grid = (unsigned)((total + 255) / 256);
+  if (err) return err;
+  if (out64 != nullptr)
+    hist_multival_reduce<double><<<grid, 256, 0, stream>>>(partial, chunks,
+                                                           g_mv, B, out64);
+  else if (chunks > 1)
+    hist_multival_reduce<float><<<grid, 256, 0, stream>>>(partial, chunks,
+                                                          g_mv, B, out);
+  else
+    return 0;
   return (int)cudaGetLastError();
 }
 
@@ -470,17 +484,23 @@ int run(const unsigned short* ent, const long long* off, long long n,
 // g_mv pseudo-groups, B output bins; max_chunks = max_chunks_of(g_mv)
 // (the partials' leading dimension, checked against the Python mirror);
 // partial [max_chunks, g_mv, min(B, 256), 3] f64 (used when the call
-// takes more than one chunk); out [g_mv, B, 3] f32; times: null, or
-// int64 [grid, 5] for the timed instantiation.
+// takes more than one chunk, and always on the float64 route); exactly
+// one of out [g_mv, B, 3] f32 (rounded once) and out64 [g_mv, B, 3] f64
+// (the float64 route: the data-parallel learners' all-reduce rounds
+// once, so the chunk-ordered sum of the partials is written unrounded);
+// times: null, or int64 [grid, 5] for the timed instantiation.
 LTT_EXPORT int ltt_hist_multival(const unsigned short* ent,
                                  const long long* off, long long n,
                                  const int* npad, const float* ghc,
                                  const int* ids, long long count, int g_mv,
                                  int B, int max_chunks, double* partial,
-                                 float* out, long long* times,
-                                 cudaStream_t stream) {
+                                 float* out, double* out64,
+                                 long long* times, cudaStream_t stream) {
+  if ((out == nullptr) == (out64 == nullptr))
+    return (int)cudaErrorInvalidValue;
   return times ? run<true>(ent, off, n, npad, ghc, ids, count, g_mv, B,
-                           max_chunks, partial, out, times, stream)
+                           max_chunks, partial, out, out64, times, stream)
                : run<false>(ent, off, n, npad, ghc, ids, count, g_mv, B,
-                            max_chunks, partial, out, nullptr, stream);
+                            max_chunks, partial, out, out64, nullptr,
+                            stream);
 }

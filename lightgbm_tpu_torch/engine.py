@@ -23,7 +23,16 @@ checkpoint, sets ``booster.preempted`` and returns), ``guard_policy``
 and ``guard_loss_spike`` raise, skip or roll back, and the flight
 recorder dumps on an exception; any of them steps the loop one
 iteration at a time. ``telemetry_out`` / ``trace_out`` / ``profile_dir``
-record without changing the loop.
+record without changing the loop. Over ranks (a parallel learner in a
+``torch.distributed`` group of more than one rank; JAX
+``engine.py:166-183, 302-310, 425-455``) ``elastic_watchdog`` starts the
+heartbeat watchdog (``robustness/elastic.py``): each iteration boundary
+raises its verdict (``ElasticError``) and fires the ``kill_rank`` /
+``stall_rank`` drills, a collective that raises inside an iteration is
+turned into the watchdog's classified ``ElasticError`` when the
+watchdog saw the rank go, the checkpoints are coordinated
+(``robustness/checkpoint.py``), and ``elastic_shutdown`` leaves the
+group at the end of the run.
 
 ``cv(params, Dataset, num_boost_round, folds=, nfold=, stratified=,
 shuffle=, ...)`` trains one booster a fold, each on a ``subset`` of the
@@ -65,11 +74,14 @@ from .observability.flightrec import (arm_recorder, disarm_recorder,
                                       dump_exception)
 from .observability.telemetry import get_telemetry
 from .observability.tracing import get_tracer, profile_close
-from .parallel.distributed import current_world
+from .parallel.distributed import (WorldInfo, current_world,
+                                   group_rendezvous, group_store,
+                                   parse_machines, shutdown_distributed)
 from .predictor import predict_raw
-from .robustness.checkpoint import MULTI_RANK_REFUSAL, CheckpointManager
-from .robustness.faults import (fault_plan_active, maybe_sigterm,
-                                set_fault_plan)
+from .robustness.checkpoint import CheckpointManager
+from .robustness.elastic import ElasticWatchdog, watchdog_bounds_s
+from .robustness.faults import (fault_plan_active, maybe_rank_fault,
+                                maybe_sigterm, set_fault_plan)
 from .robustness.guards import (LossSpikeDetector, LossSpikeError,
                                 NonFiniteGradientError)
 from .robustness.preempt import PreemptionGuard
@@ -167,12 +179,26 @@ def train(params: Dict[str, Any], train_set: Dataset,
     cfg = booster.config
     if cfg.faults:
         set_fault_plan(cfg.faults)
+    # the ranks this run spans: its learner's world of more than one
+    lrn = gbdt.learner
+    world = WorldInfo(lrn.rank, lrn.world_size) \
+        if getattr(lrn, "world_size", 1) > 1 else None
     ckpt = None
     resume_info = None
     if cfg.checkpoint_dir:
-        if current_world() is not None:
-            raise NotImplementedError(MULTI_RANK_REFUSAL)
-        ckpt = CheckpointManager.from_config(cfg)
+        group = current_world()
+        if world is None and group is not None:
+            # every rank would write its own single-process checkpoint
+            # into the one directory, over each other's files
+            raise ValueError(
+                f"checkpoint_dir in a process group of {group.size} ranks "
+                f"with a learner of one rank (tree_learner="
+                f"{cfg.tree_learner}): a coordinated checkpoint needs a "
+                "learner that spans the group (tree_learner=data, voting "
+                "or feature); for one model a rank, train it outside the "
+                "group")
+        ckpt = CheckpointManager.from_config(cfg, world=world)
+        ckpt.cleanup_stale()
         if cfg.resume == "auto":
             resume_info = ckpt.restore_latest(booster)
             if resume_info is not None:
@@ -182,8 +208,27 @@ def train(params: Dict[str, Any], train_set: Dataset,
     guard_spike = None
     if float(cfg.guard_loss_spike) > 1.0:
         guard_spike = LossSpikeDetector(cfg.guard_loss_spike)
+    # the elastic watchdog (robustness/elastic.py): a lost or wedged rank
+    # becomes a bounded, classified abort. Host threads and sockets only
+    elastic = None
+    if world is not None and cfg.elastic_watchdog:
+        init_method, group_s = group_rendezvous()
+        if group_s is not None and group_s < watchdog_bounds_s(cfg):
+            raise ValueError(
+                f"the process group's timeout ({group_s:g} s) is shorter "
+                "than the elastic watchdog's bounds "
+                f"({watchdog_bounds_s(cfg):g} s: the stall or heartbeat "
+                "timeout plus the abort grace), so a collective would "
+                "time out before the watchdog classifies the failure; "
+                "pass a longer timeout_s to init_distributed or shorten "
+                "elastic_stall_timeout_ms")
+        with get_telemetry().span("elastic.watchdog_start"):
+            elastic = ElasticWatchdog.from_config(
+                cfg, world.rank, world.size, parse_machines(cfg),
+                init_method=init_method, store=group_store()).start()
     robust_active = ckpt is not None or guard_spike is not None \
-        or cfg.guard_policy != "off" or fault_plan_active()
+        or cfg.guard_policy != "off" or fault_plan_active() \
+        or elastic is not None
     # crash flight recorder: armed when a dump path resolves
     # (crash_dump / LGBM_TPU_CRASH_DUMP / <telemetry_out>.crash.json)
     flightrec = arm_recorder(cfg, gbdt)
@@ -221,6 +266,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
             raise
         finally:
             disarm_recorder(flightrec)
+        if world is not None and cfg.elastic_shutdown:
+            shutdown_distributed()
         return booster
 
     # one iteration at a time (engine.py:221-276); iteration numbers are
@@ -266,8 +313,14 @@ def train(params: Dict[str, Any], train_set: Dataset,
     try:
         i = gbdt.iter
         while not stopped_early and i < end:
+            if elastic is not None:
+                # the watchdog's verdict at the boundary (the clean half
+                # of the bounded abort)
+                elastic.check()
             if fault_plan_active():
                 maybe_sigterm(i)
+                if world is not None:
+                    maybe_rank_fault(i, world.rank)
             for cb in before:
                 cb(CallbackEnv(model=booster, params=params, iteration=i,
                                begin_iteration=begin, end_iteration=end,
@@ -300,6 +353,15 @@ def train(params: Dict[str, Any], train_set: Dataset,
                             "checkpoint exists; skipping the iteration "
                             "instead")
                 gbdt.skip_iteration()
+            except (RuntimeError, OSError) as err:
+                # gloo raises where a peer's connection closed: with the
+                # watchdog running, the rank's classified verdict
+                if elastic is None or isinstance(err, LightGBMError):
+                    raise
+                verdict = elastic.classify(err)
+                if verdict is None:
+                    raise
+                raise verdict from err
 
             results = []
             if need_eval:
@@ -361,6 +423,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
                                        checkpoint_dir=ckpt.directory,
                                        signum=preempt.signum)
                     break
+            if elastic is not None:
+                elastic.progress(i)   # resets the stall clock
             i += 1
     except BaseException as e:
         if flightrec is not None:
@@ -368,6 +432,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
         raise
     finally:
         disarm_recorder(flightrec)
+        if elastic is not None:
+            # a clean goodbye on a normal exit (a raised verdict has
+            # already stopped it, uncleanly)
+            elastic.stop()
         if preempt is not None:
             preempt.uninstall()
         # close a profiler capture still in flight and persist the span
@@ -381,6 +449,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
         booster.best_score[name][metric] = score
     if booster.best_iteration <= 0:
         booster.best_iteration = -1
+    if world is not None and cfg.elastic_shutdown:
+        shutdown_distributed()
     return booster
 
 

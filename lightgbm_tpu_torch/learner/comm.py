@@ -28,6 +28,11 @@ CUDA tensor is staged through a host copy; NCCL takes it where it lies.
   (``gather_best_split``: max gain, ties to the lower global feature).
   CEGB and forced splits need every feature's row, so they take the
   full-reduce fallback: a replicated scan of the reduced histogram.
+  With per-node randomness the root is scanned replicated (JAX
+  ``select_root``: the tree's draws over every feature) and a shard's
+  scans read its own node table (``learner._node_shard``: the keys
+  folded with the rank). A multi-val dataset's histograms come as
+  float64 too, beside the dense groups', and are reduced with them.
 * **feature** (``make_feature_parallel_comm``): every rank holds every
   row and builds the histograms of its feature shard only; its scan of
   the shard and the packed winner gather. The root's sums (group 0's
@@ -39,7 +44,9 @@ CUDA tensor is staged through a host copy; NCCL takes it where it lies.
   (weighted gain, feature) pairs, the global vote, an all-reduce of
   only the winners' histograms (float64), and the full scan of those.
   An EFB dataset debundles its local group histograms with the local
-  leaf totals (``debundle_totals(local_hist=True)``).
+  leaf totals (``debundle_totals(local_hist=True)``). Per-node
+  randomness reads the tree's node table in both scans (the winners'
+  columns of it in the second), as the JAX recipe passes its draws.
 
 Per split (both children at once): data 1 all-reduce of the smaller
 child's [G, B, 3] float64 and 1 all-gather of 2 packed rows (1 all-reduce
@@ -213,12 +220,18 @@ def make_sharded_select():
     the data recipe's reduce-scatter form."""
 
     def select(learner, hists, leaves, meta_t, tables, salts):
+        if learner.comm.mode == "data" and learner._node is not None \
+                and tuple(salts) == (0,):
+            # the root (salt 0): scanned replicated with the tree's draws
+            # over every feature (JAX select_root)
+            return learner.serial_scan(hists, leaves, meta_t, tables, salts)
         ids = learner.shard_ids
         fh = learner.sharded_feature_hists(hists, leaves)
         sub_meta, sub_tables = learner.meta_subset(meta_t, tables, ids)
         cols = CAT_TABLE_COLS if learner.params.has_categorical else 8
         local = learner.scan_table(fh, leaves, sub_meta, sub_tables,
-                                   learner.params) \
+                                   learner.params, learner._node_shard,
+                                   salts) \
             if len(ids) else torch.zeros(
                 (len(hists), 0, cols), dtype=torch.float32,
                 device=hists[0].device)
@@ -287,8 +300,9 @@ def make_voting_parallel_comm(size: int, top_k: int, params_local) -> Comm:
         loc = torch.stack([h[0].sum(dim=0) for h in fh]).cpu().numpy()
         local_leaves = [(loc[i, 0], loc[i, 1], loc[i, 2]) + tuple(l[3:5])
                         for i, l in enumerate(leaves)]
+        node = learner._node
         table = learner.scan_table(fh, local_leaves, meta_t, tables,
-                                   params_local)
+                                   params_local, node, salts)
         score = table[..., O_SCORE]                          # [K, F]
         top_gain, top_ids = torch.sort(score, dim=1, descending=True,
                                        stable=True)
@@ -318,8 +332,10 @@ def make_voting_parallel_comm(size: int, top_k: int, params_local) -> Comm:
         full[..., O_SCORE] = float("-inf")
         for i in range(k_leaves):
             sm, st = learner.meta_subset(meta_t, tables, win[i])
-            t = learner.scan_table([sel[i]], [leaves[i]], sm, st,
-                                   learner.params)[0]        # [k, C]
+            t = learner.scan_table(
+                [sel[i]], [leaves[i]], sm, st, learner.params,
+                None if node is None else node.index_select(1, win[i]),
+                salts[i:i + 1])[0]                           # [k, C]
             b = torch.argmax(t[:, O_SCORE])
             full[i, win[i][b]] = t[b]
         return full

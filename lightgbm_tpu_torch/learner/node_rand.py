@@ -74,27 +74,41 @@ class NodeRand:
         return (prng_key(self._extra_rng.randint(0, 2**31 - 1)),
                 prng_key(self._bynode_rng.randint(0, 2**31 - 1)))
 
-    def tables(self, keys: Tuple[Key, Key], feature_mask, num_salts: int):
+    def tables(self, keys: Tuple[Key, Key], feature_mask, num_salts: int,
+               num_bins: Optional[np.ndarray] = None,
+               count: Optional[int] = None, cap: Optional[int] = None,
+               width: Optional[int] = None):
         """(rand_bins int32 [S, F] or None, node_mask bool [S, F] or
         None) of salts ``0 .. num_salts - 1`` (``make_node_rand``'s
-        ``node_rand(salt)`` for each)."""
-        f = len(self.num_bins)
+        ``node_rand(salt)`` for each). A feature shard of a parallel
+        learner (JAX ``ShardScanCtx``) passes its features' ``num_bins``,
+        its slice ``count`` of the by-node budget and the budget's
+        ``cap``, and ``width``, its padded slot count: the draws are
+        over ``width`` slots (the shard's features first, the padding
+        never in the mask) and cut to the shard's features."""
+        num_bins = self.num_bins if num_bins is None \
+            else np.asarray(num_bins, np.int32)
+        f = len(num_bins)
+        width = f if width is None else int(width)
+        count = self.count if count is None else int(count)
+        cap = count if cap is None else int(cap)
         salts = np.arange(num_salts)
-        fm = np.ones(f, bool) if feature_mask is None \
+        fm = np.zeros(width, bool)
+        fm[:f] = True if feature_mask is None \
             else np.asarray(feature_mask, bool)
         rb = nm = None
         if self.extra_trees:
             u = salted_uniform(keys[0], salts, f)
-            span = np.maximum(self.num_bins - 2, 1).astype(np.float32)
+            span = np.maximum(num_bins - 2, 1).astype(np.float32)
             rb = np.floor(u * span).astype(np.int32)
         if self.ff_bynode < 1.0:
-            u2 = np.where(fm, salted_uniform(keys[1], salts, f),
+            u2 = np.where(fm, salted_uniform(keys[1], salts, width),
                           np.float32(-1.0))
-            cap = min(max(int(self.count), 1), f)
-            cnt = min(max(int(self.count), 0), cap)
+            cap = min(max(cap, 1), width)
+            cnt = min(max(count, 0), cap)
             if cnt > 0:
                 kth = -np.sort(-u2, axis=1)[:, cnt - 1:cnt]
             else:
                 kth = np.full((num_salts, 1), 2.0, np.float32)
-            nm = (u2 >= kth) & fm
+            nm = ((u2 >= kth) & fm)[:, :f]
         return rb, nm

@@ -303,7 +303,7 @@ class LeafwiseLearner:
         """The scan's meta tensors and tables and the fused step's packed
         tables for one tree's features; draws the tree's node table
         (extra_trees, by-node sampling) for every salt of the tree."""
-        keys = self.node_rand.next_tree_keys()
+        keys = self._tree_keys = self.node_rand.next_tree_keys()
         self._node = None
         if keys is not None:
             rb, nm = self.node_rand.tables(keys, feature_mask,

@@ -107,10 +107,9 @@ class SerialTreeLearner(LeafwiseLearner):
         self.binned_hist = self._hist_bins()
         # multi-val pseudo-groups: no column, their values in the slots
         self.mv_groups = self.num_groups - self.num_cols
-        self.mv_slots = dataset.mv_slots_device(self.device)
-        # the slots' compact layout (the histograms read it; the node
-        # walks decode the slots)
-        self.mv_layout = dataset.mv_layout_device(self.device)
+        # the slots and their compact layout (the histograms read it; the
+        # node walks decode the slots)
+        self.mv_slots, self.mv_layout = self._mv_device(dataset)
         self._mv_partial = multival_partial(
             self.mv_groups, self.num_bins_max, self.device) \
             if self.mv_groups and not self.plain else None
@@ -127,6 +126,13 @@ class SerialTreeLearner(LeafwiseLearner):
     def _hist_bins(self) -> torch.Tensor:
         return self.binned
 
+    def _mv_device(self, dataset: Dataset):
+        """The multi-val slots on the device and their layout (a
+        row-split parallel learner's block: parallel/learners.py), or
+        (None, None)."""
+        return (dataset.mv_slots_device(self.device),
+                dataset.mv_layout_device(self.device))
+
     def _hist_reduce(self):
         """A data-parallel recipe's reduce of float64 histograms, else
         None (the histograms are rounded where they are built)."""
@@ -135,26 +141,25 @@ class SerialTreeLearner(LeafwiseLearner):
 
     def _histogram(self, ghc: torch.Tensor) -> torch.Tensor:
         """The root histogram: the hist_rows kernel on the card, the plain
-        ``build_histogram`` on the CPU or with ``ops="plain"`` (float64
-        sums reduced across ranks with a data-parallel recipe); then the
-        multi-val groups' (``hist_multival``, or its plain version)."""
+        ``build_histogram`` on the CPU or with ``ops="plain"``; then the
+        multi-val groups' (``hist_multival``, or its plain version). With
+        a data-parallel recipe both come as float64 sums, unrounded, and
+        the recipe reduces them across ranks and rounds once."""
         b = self.num_bins_max
         reduce = self._hist_reduce()
+        f64 = reduce is not None
         if self.plain:
-            h = build_histogram(self.binned_hist, ghc, b,
-                                float64=reduce is not None)
+            h = build_histogram(self.binned_hist, ghc, b, float64=f64)
         else:
             h = histogram_rows(self.binned_hist, ghc, b,
-                               partial=self._partial,
-                               float64=reduce is not None)
-        if reduce is not None:
-            h = reduce(h)
-        if not self.mv_groups:
-            return h
-        hm = hist_multival_plain(self.mv_layout, ghc, b) \
-            if self.plain else hist_multival(self.mv_layout, ghc, b,
-                                             partial=self._mv_partial)
-        return torch.cat([h, hm])
+                               partial=self._partial, float64=f64)
+        if self.mv_groups:
+            hm = hist_multival_plain(self.mv_layout, ghc, b, float64=f64) \
+                if self.plain else hist_multival(
+                    self.mv_layout, ghc, b, partial=self._mv_partial,
+                    float64=f64)
+            h = torch.cat([h, hm])
+        return reduce(h) if f64 else h
 
     # ------------------------------------------------------------------
     def train(self, grad: torch.Tensor, hess: torch.Tensor,

@@ -154,12 +154,12 @@ class GBDT:
         if self.objective is not None:
             self.objective.init(train_data.metadata, self.num_data,
                                 self.device)
-            if self.objective.is_renew_tree_output \
-                    and config.pre_partition and current_world() is not None:
-                raise NotImplementedError(
-                    f"objective {self.objective.name()} with pre_partition "
-                    "over ranks (its leaf refit needs every rank's rows) is "
-                    "not in the port yet (ROADMAP.md Queue 1 item 13)")
+        # the L1 family's leaf refit over ranks that hold their own rows
+        # (pre_partition): every rank's rows, gathered (_renew_gathered)
+        self._renew_weights = None
+        self._renew_over_ranks = self.objective is not None \
+            and self.objective.is_renew_tree_output \
+            and bool(getattr(self.learner, "local_data", False))
         k = self.num_tree_per_iteration
         init = train_data.metadata.init_score
         self._has_init_score = init is not None
@@ -483,12 +483,48 @@ class GBDT:
         if self.objective is None or not self.objective.is_renew_tree_output:
             return
         nl = tree.num_leaves
+        if self._renew_over_ranks:
+            vals = self._renew_gathered(score, leaf_id, nl)
+            tree.leaf_value = vals.cpu().numpy()[:nl]
+            return
         if self.bag_weight is not None:
             leaf_id = torch.where(self.bag_weight > 0, leaf_id.long(),
                                   torch.full_like(leaf_id.long(), nl))
         vals = self.objective.renew_tree_output(score, leaf_id, nl + 1)
         get_telemetry().count_iter("host.syncs")
         tree.leaf_value = vals.cpu().numpy()[:nl]
+
+    def _renew_gathered(self, score: torch.Tensor, leaf_id: torch.Tensor,
+                        nl: int) -> torch.Tensor:
+        """The leaf refit of a rank that holds its own rows
+        (``pre_partition``): every rank's residuals (float32 label -
+        score, then float64, as the objective forms them), refit weights
+        (gathered once) and leaf ids (out-of-bag rows -1, as JAX
+        ``gbdt.py:670-693`` marks them), in rank order, host-gathered;
+        every rank then takes the same percentiles, so every rank keeps
+        the same tree."""
+        from ..ops.percentile import renew_leaf_outputs
+        from ..parallel.distributed import gather_rows
+        obj = self.objective
+        tel = get_telemetry()
+        tel.count_iter("host.syncs", 2)
+        residual = gather_rows((obj.label - score).to(torch.float64)
+                               .cpu().numpy())
+        lid = leaf_id.long()
+        if self.bag_weight is not None:
+            lid = torch.where(self.bag_weight > 0, lid,
+                              torch.full_like(lid, -1))
+        lid = gather_rows(lid.cpu().numpy())
+        if self._renew_weights is None:
+            w = obj._refit_weights()
+            self._renew_weights = (None,) if w is None else (
+                torch.from_numpy(gather_rows(w.cpu().numpy())).to(
+                    self.device),)
+        lid = np.where(lid < 0, nl, lid)
+        return renew_leaf_outputs(
+            torch.from_numpy(residual).to(self.device),
+            torch.from_numpy(lid).to(self.device), nl + 1,
+            self._renew_weights[0], obj.renew_alpha)
 
     def _add_tree_score(self, tree: Tree, tid: int, train: bool,
                         valid: bool) -> None:

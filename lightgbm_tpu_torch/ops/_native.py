@@ -135,9 +135,10 @@ _SIGNATURES = {
     # a block, shared bytes)
     "ltt_hist_rows_batched_shape": [_I, _I, _I, _I, _P],
     # ent, off, n, npad, ghc, ids (or null: all rows), count, g_mv, B,
-    # max_chunks, partial, out, times (or null; int64 [grid, 5]), stream
+    # max_chunks, partial, out (f32, or null), out64 (f64 unrounded, or
+    # null), times (or null; int64 [grid, 5]), stream
     "ltt_hist_multival": [_P, _P, _L, _P, _P, _P, _L, _I, _I, _I, _P, _P,
-                          _P, _P],
+                          _P, _P, _P],
     # x, n, F, nfeat, nthr, nflags, ncat_off, ncat_len, cats, pbegin,
     # pvalue, pcls, efeat, ezero, ecbegin, cnode, cleft, expected, k,
     # lint, ldbl, blen, nbins, tabs, rows, long_paths, num_long,

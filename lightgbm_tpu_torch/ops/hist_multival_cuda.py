@@ -24,7 +24,11 @@ On a CUDA layout ``hist_multival`` launches ``csrc/hist_multival.cu``
 runs ``hist_multival_plain``. Both follow the port's sum rule: the list
 is cut into chunks from the row count and G_mv alone (``child_chunks``,
 the constants mirrored from the kernel), each chunk summed in float64,
-the partials summed in chunk order and rounded once to float32. The
+the partials summed in chunk order and rounded once to float32. With
+``float64=True`` both return that chunk-ordered float64 sum unrounded
+(the data-parallel learners' route: their all-reduce rounds it once,
+``learner/comm.py:reduce_hist``); the kernel then writes every chunk's
+partial, the one-chunk case too, and its reduce writes float64. The
 count channel of ``ghc`` must be a 0/1 indicator (``make_ghc``).
 """
 
@@ -121,10 +125,12 @@ def multival_partial(g_mv: int, num_bins: int, device) -> torch.Tensor:
 
 def hist_multival_plain(layout: MultivalLayout, ghc: torch.Tensor,
                         num_bins: int,
-                        ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        ids: Optional[torch.Tensor] = None,
+                        float64: bool = False) -> torch.Tensor:
     """Plain version: the same chunks of the list, each a float64
     ``index_add_`` of its rows' real entries plus ``npad * ghc`` into bin
-    (0, 0), the partials summed in chunk order and rounded once."""
+    (0, 0), the partials summed in chunk order and rounded once (with
+    ``float64``, returned unrounded)."""
     dev, g_mv = layout.device, layout.g_mv
     rows = torch.arange(layout.n, device=dev) if ids is None \
         else ids.to(device=dev, dtype=torch.int64)
@@ -142,7 +148,8 @@ def hist_multival_plain(layout: MultivalLayout, ghc: torch.Tensor,
         part.index_add_(0, flat, vals.index_select(0, of))
         part[0] += (npad[part_rows, None] * vals[part_rows]).sum(0)
         total += part
-    hist = total.float().reshape(g_mv, MV_SLOT_STRIDE, 3)
+    hist = (total if float64 else total.float()).reshape(
+        g_mv, MV_SLOT_STRIDE, 3)
     if num_bins <= MV_SLOT_STRIDE:
         return hist[:, :num_bins].contiguous()
     return torch.nn.functional.pad(hist,
@@ -152,10 +159,12 @@ def hist_multival_plain(layout: MultivalLayout, ghc: torch.Tensor,
 def hist_multival(layout: MultivalLayout, ghc: torch.Tensor, num_bins: int,
                   ids: Optional[torch.Tensor] = None,
                   partial: Optional[torch.Tensor] = None,
-                  times: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  times: Optional[torch.Tensor] = None,
+                  float64: bool = False) -> torch.Tensor:
     """[G_mv, B, 3] f32 histogram of the multi-val pseudo-groups of
     ``layout`` with ``ghc`` [N, 3] f32, over all rows or the rows ``ids``
-    (int32, distinct, in row order). On a CUDA layout it launches
+    (int32, distinct, in row order); with ``float64`` its float64 sums,
+    unrounded (the kernel's ``out64``). On a CUDA layout it launches
     ``csrc/hist_multival.cu`` (``partial``, the float64 scratch from
     ``multival_partial``, is allocated here when not given); on a CPU
     layout it runs ``hist_multival_plain``.
@@ -167,7 +176,7 @@ def hist_multival(layout: MultivalLayout, ghc: torch.Tensor, num_bins: int,
     accumulation and the write-out, and its entries there."""
     dev = layout.device
     if dev.type == "cpu":
-        return hist_multival_plain(layout, ghc, num_bins, ids)
+        return hist_multival_plain(layout, ghc, num_bins, ids, float64)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     g_mv, n = layout.g_mv, layout.n
@@ -187,7 +196,8 @@ def hist_multival(layout: MultivalLayout, ghc: torch.Tensor, num_bins: int,
     req(partial, device=dev, dtype=torch.float64,
         shape=(max_chunks(g_mv), g_mv, min(num_bins, MV_SLOT_STRIDE), 3),
         name="partial")
-    out = torch.empty((g_mv, num_bins, 3), dtype=torch.float32, device=dev)
+    out = torch.empty((g_mv, num_bins, 3), device=dev,
+                      dtype=torch.float64 if float64 else torch.float32)
     if times is not None:
         blocks = child_chunks(count, g_mv) * layout.windows
         req(times, device=dev, dtype=torch.int64, shape=(blocks, 5),
@@ -196,7 +206,9 @@ def hist_multival(layout: MultivalLayout, ghc: torch.Tensor, num_bins: int,
         layout.ent.data_ptr() or None, layout.off.data_ptr(), n,
         layout.npad.data_ptr() or None, ghc.data_ptr(), ids_ptr, count,
         g_mv, num_bins, max_chunks(g_mv), partial.data_ptr(),
-        out.data_ptr(), None if times is None else times.data_ptr(),
+        None if float64 else out.data_ptr(),
+        out.data_ptr() if float64 else None,
+        None if times is None else times.data_ptr(),
         _native.stream_of(ghc))
     if times is None:
         _native.LAUNCHES["hist_multival"] += 1

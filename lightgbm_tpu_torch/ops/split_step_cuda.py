@@ -464,8 +464,9 @@ def leaf_split_ops(lid, binned, ghc, imeta: np.ndarray, b: int, scan,
     version). ``imeta`` is the host [F, 8]
     metadata table. ``hist_binned`` (default ``binned``) is the matrix
     the histograms read (the feature-parallel learner's shard of the
-    columns); ``reduce`` takes each histogram's float64 sums, unrounded,
-    and returns the histogram (the data-parallel learners' all-reduce)."""
+    columns); ``reduce`` takes each histogram's float64 sums, unrounded
+    (the multi-val groups' too), and returns the histogram (the
+    data-parallel learners' all-reduce)."""
     from ..learner.split_step import SplitOps
     from ..data.bundling import MV_SLOT_STRIDE, decode_feature_bin
     from .hist_multival_cuda import hist_multival, hist_multival_plain
@@ -515,17 +516,16 @@ def leaf_split_ops(lid, binned, ghc, imeta: np.ndarray, b: int, scan,
             ids = None
             h = build_histogram(hb, ghc * in_small.to(ghc.dtype)[:, None],
                                 b, float64=f64)
-        if f64:
-            h = reduce(h)
-        if mv is None:
-            return h
-        _, layout, mv_partial = mv
-        if mv_partial is not None:
-            hm = hist_multival(layout, ghc, b, ids, partial=mv_partial)
-        else:
-            hm = hist_multival_plain(layout, ghc, b, torch.nonzero(
-                in_small).flatten())
-        return torch.cat([h, hm])
+        if mv is not None:
+            _, layout, mv_partial = mv
+            if mv_partial is not None:
+                hm = hist_multival(layout, ghc, b, ids, partial=mv_partial,
+                                   float64=f64)
+            else:
+                hm = hist_multival_plain(layout, ghc, b, torch.nonzero(
+                    in_small).flatten(), float64=f64)
+            h = torch.cat([h, hm])
+        return reduce(h) if f64 else h
 
     return SplitOps(partition=partition, histogram=histogram, scan=scan,
                     extra_i=lambda part: ({}, {}),

@@ -10,9 +10,17 @@ One process a rank, in one ``torch.distributed`` process group:
   ``machine_list_filename``, the local rank by a local interface address
   or ``LIGHTGBM_TPU_RANK`` / ``RANK``), or takes an explicit
   ``init_method`` (``tcp://host:port``, ``file:///path``), rank and world
-  size, and calls ``init_process_group`` with a timeout (60 s by
-  default), so that a lost rank fails a collective instead of hanging
-  it. The backend is ``nccl`` when every rank of the host can have a GPU
+  size, and calls ``init_process_group`` with a timeout (by default
+  the elastic watchdog's bounds, ``robustness/elastic.py:
+  watchdog_bounds_s``, of the given config or of the default params, and
+  at least 60 s; an explicit timeout is raised to the config's bounds
+  when a config is given), so that a lost
+  rank fails a collective instead of hanging it. A failed rendezvous
+  (the coordinator not up yet, a port still in TIME_WAIT) is retried
+  with jittered backoff (``robustness/retry.py:retry_call``: 3 attempts
+  from 1 s, ``LGBM_TPU_DIST_INIT_ATTEMPTS`` / ``LGBM_TPU_DIST_INIT_BACKOFF_S``),
+  and a second SIGTERM that escalates leaves the group first
+  (``robustness/preempt.py:register_escalation_cleanup``). The backend is ``nccl`` when every rank of the host can have a GPU
   of its own, ``gloo`` when ranks share a card or run on the CPU; the
   parallel learners use only collectives that gloo takes on CUDA tensors
   (``all_reduce``, ``all_gather``, ``broadcast``).
@@ -40,8 +48,13 @@ import numpy as np
 from ..config import Config
 from ..utils.log import LightGBMError, log_info, log_warning
 
-# seconds a collective (and the rendezvous) may wait for a lost rank
+# the least seconds a collective (and the rendezvous) may wait for a
+# lost rank when no timeout is given
 DEFAULT_TIMEOUT_S = 60.0
+
+# the group this process joined through init_distributed: its
+# rendezvous (the elastic side-channel's address rule) and timeout
+_GROUP = {"init_method": None, "timeout_s": None}
 
 
 def parse_machines(config: Config) -> List[Tuple[str, int]]:
@@ -132,7 +145,7 @@ def init_distributed(config: Optional[Config] = None, *,
                      world_size: Optional[int] = None,
                      init_method: Optional[str] = None,
                      backend: Optional[str] = None,
-                     timeout_s: float = DEFAULT_TIMEOUT_S) -> bool:
+                     timeout_s: Optional[float] = None) -> bool:
     """``Network::Init``: join the process group. Either an explicit
     ``init_method`` with ``rank`` and ``world_size``, or the config's
     machine list (rank 0's address is the rendezvous). Returns True when
@@ -154,14 +167,48 @@ def init_distributed(config: Optional[Config] = None, *,
         raise ValueError("init_distributed needs rank and world_size with "
                          "an init_method")
     backend = backend or default_backend(int(world_size))
+    # not shorter than the watchdog's bounds, which lt.train holds the
+    # group's timeout to
+    from ..robustness.elastic import watchdog_bounds_s
+    if timeout_s is None:
+        timeout_s = max(DEFAULT_TIMEOUT_S, watchdog_bounds_s(
+            config if config is not None else Config()))
+    elif config is not None:
+        timeout_s = max(float(timeout_s), watchdog_bounds_s(config))
     log_info(f"Initializing the process group: {world_size} ranks, "
              f"rank {rank}, {backend} at {init_method}")
-    dist.init_process_group(
-        backend=backend, init_method=init_method, world_size=int(world_size),
-        rank=int(rank), timeout=datetime.timedelta(seconds=timeout_s))
+    from ..robustness.retry import retry_call
+    retry_call(
+        dist.init_process_group, backend=backend, init_method=init_method,
+        world_size=int(world_size), rank=int(rank),
+        timeout=datetime.timedelta(seconds=timeout_s),
+        attempts=int(os.environ.get("LGBM_TPU_DIST_INIT_ATTEMPTS", 3)),
+        base_delay_s=float(os.environ.get("LGBM_TPU_DIST_INIT_BACKOFF_S",
+                                          1.0)),
+        max_delay_s=30.0, retry_on=(RuntimeError, OSError),
+        desc="torch.distributed.init_process_group")
+    _GROUP.update(init_method=init_method, timeout_s=float(timeout_s))
+    from ..robustness.preempt import register_escalation_cleanup
+    register_escalation_cleanup(shutdown_distributed)
     if config is not None:
         sync_bin_find_seed(config)
     return dist.get_world_size() > 1
+
+
+def group_rendezvous() -> Tuple[Optional[str], Optional[float]]:
+    """(init_method, timeout_s) of the group this process joined through
+    ``init_distributed``, or (None, None) (no group, or one made
+    elsewhere)."""
+    return _GROUP["init_method"], _GROUP["timeout_s"]
+
+
+def group_store():
+    """The process group's key-value store (None without a group)."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    from torch.distributed import distributed_c10d
+    return distributed_c10d._get_default_store()
 
 
 class WorldInfo(NamedTuple):
@@ -188,6 +235,7 @@ def shutdown_distributed() -> None:
     try:
         if dist.is_available() and dist.is_initialized():
             dist.destroy_process_group()
+            _GROUP.update(init_method=None, timeout_s=None)
             log_info("Process group shut down")
     except Exception as e:  # teardown is best-effort
         log_warning(f"destroy_process_group failed: {e}")

@@ -43,11 +43,23 @@ ignores forced splits with a warning; feature drops CEGB and forced
 splits; data keeps CEGB (coupled) and forced splits through the
 full-reduce recipe, and its config turns the histogram pool off
 (``config.py``); every parallel learner drops the lazy CEGB penalty
-with a warning (its charged rows would be split over the ranks). Not yet
-in the port, refused with ROADMAP Queue 1 item 13: multi-val datasets
-and per-node randomness (extra_trees, by-node sampling: the JAX package
-folds the shard into each rank's draws). The NCCL route (a card a rank)
-is written but not run.
+with a warning (its charged rows would be split over the ranks).
+
+A multi-val dataset trains on the data and voting learners (each rank
+its block of the slot matrix, ``MultivalLayout``; the data recipe's
+multi-val histograms in float64, unrounded, beside the dense ones, so
+the all-reduce rounds both once); the feature learner refuses it with
+the JAX package's words. Per-node randomness (extra_trees, by-node
+sampling) follows the JAX learners' keys: the voting learner and the
+data learner's root and full-reduce scans draw with the tree's keys
+over every feature; a feature-sharded scan (the data recipe's per-split
+scans, every feature-learner scan) draws with the keys folded with the
+rank (``utils/threefry.py:fold_in``, JAX ``_fold_shard_key``) over the
+shard's features, with its slice of the by-node budget
+(``partition_rules.split_bynode_budget``). ``n_devices`` > 1 asks for
+that many shards: the port's shards are ranks, so a run without a group
+of that many ranks is refused rather than trained as a world of one.
+The NCCL route (a card a rank) is written but not run.
 """
 
 from __future__ import annotations
@@ -65,18 +77,15 @@ from ..learner.comm import (all_gather, make_data_parallel_comm,
 from ..learner.grow_extras import cegb_on
 from ..learner.partitioned import PartitionedTreeLearner
 from ..learner.serial import SerialTreeLearner
+from ..ops.hist_multival_cuda import MultivalLayout
 from ..ops.histogram import Debundler, debundle_leaf_hists
-from ..utils.log import log_warning
-from .distributed import current_world
+from ..ops.split_scan_cuda import node_table
+from ..utils.log import log_fatal, log_warning
+from ..utils.threefry import fold_in
+from .distributed import _all_gather_host, current_world
 from .ingest import padded_rows, shard_bounds, shard_rows
-from .partition_rules import ROWS, plan_feature_shards, role_of
-
-_ITEM = "ROADMAP.md Queue 1 item 13"
-
-
-def _refuse(what: str) -> None:
-    raise NotImplementedError(
-        f"{what} is not in the port's parallel learners yet ({_ITEM})")
+from .partition_rules import (ROWS, plan_feature_shards, role_of,
+                              split_bynode_budget)
 
 
 class _ParallelMixin:
@@ -99,13 +108,20 @@ class _ParallelMixin:
         w = current_world()
         self.rank, self.world_size = (0, 1) if w is None else (w.rank,
                                                                w.size)
+        shards = int(config.n_devices)
+        if shards > 1 and shards != self.world_size:
+            # JAX meshes n_devices devices of one process; the port's
+            # shards are ranks (ROADMAP Queue 3 fault 1: never a world
+            # of one where more shards were asked for)
+            have = "no torch.distributed group is up" if w is None \
+                else f"the torch.distributed group has {w.size} ranks"
+            raise ValueError(
+                f"n_devices={shards} asks tree_learner={self._type} for "
+                f"{shards} shards, but {have}: the port's shards are "
+                "ranks, one process each; start each of them with "
+                f"lt.init_distributed(rank=..., world_size={shards}, "
+                "init_method=...) before lt.train")
         self._subsets = {}
-        if dataset.has_multival:
-            _refuse(f"tree_learner={self._type} on a multi-val dataset")
-        if bool(config.extra_trees) \
-                or float(config.feature_fraction_bynode) < 1.0:
-            _refuse(f"tree_learner={self._type} with extra_trees or "
-                    "feature_fraction_bynode")
         # a dataset of this rank's rows (pre_partition in a group), or
         # every row, of which a learner whose rows are split
         # (partition_rules.MODE_RULES) takes its block
@@ -116,6 +132,24 @@ class _ParallelMixin:
                                                 self.world_size) \
             if self.row_split and not self.local_data else (0, n)
         self.block = padded_rows(n, self.world_size) // self.world_size
+        if self.local_data:
+            # where this rank's rows sit among the run's (a coordinated
+            # checkpoint's score ranges; robustness/checkpoint.py)
+            counts = [int(c[0]) for c in _all_gather_host(
+                np.asarray([n], np.int64))]
+            self.global_row_lo = sum(counts[:self.rank])
+            self.global_num_data = sum(counts)
+
+    def _mv_device(self, dataset: Dataset):
+        """The rank's block of the multi-val slots and its layout (only
+        the block is uploaded), or every row's."""
+        if not dataset.has_multival or (self.row_lo == 0 and
+                                        self.row_hi == dataset.num_data):
+            return super()._mv_device(dataset)
+        slots = torch.from_numpy(np.ascontiguousarray(
+            dataset.mv_slots[self.row_lo:self.row_hi])).to(self.device)
+        return slots, MultivalLayout(
+            slots, dataset.num_groups - dataset.num_dense_groups)
 
     def _device_bins(self, dataset: Dataset) -> torch.Tensor:
         """The rank's block of the bin matrix (only the block is
@@ -136,6 +170,28 @@ class _ParallelMixin:
         ids = self.plan.local_features(self.rank)
         self.shard_ids = torch.as_tensor(ids, dtype=torch.int64,
                                          device=self.device)
+
+    def _tree_meta(self, feature_mask):
+        """The base learner's tree meta and node table (the tree's keys,
+        every feature), and with per-node randomness on a feature-sharded
+        scan the shard's node table (``_node_shard``): the keys folded
+        with the rank, the shard's features over its padded slots, its
+        slice of the by-node budget (JAX ``ShardScanCtx``)."""
+        out = super()._tree_meta(feature_mask)
+        self._node_shard = None
+        if self._node is not None and getattr(self, "sharded_scan", False):
+            ids = self.plan.local_features(self.rank)
+            floor, rem, cap = split_bynode_budget(self.node_rand.count,
+                                                  self.world_size)
+            keys = tuple(fold_in(k, self.rank) for k in self._tree_keys)
+            rb, nm = self.node_rand.tables(
+                keys, None if feature_mask is None
+                else np.asarray(feature_mask, bool)[ids],
+                2 * self.num_leaves + 1, num_bins=self.meta.num_bins[ids],
+                count=floor + int(self.rank < rem), cap=cap,
+                width=self.plan.f_local)
+            self._node_shard = node_table(rb, nm, len(ids), self.device)
+        return out
 
     def _drop_cegb(self) -> None:
         if self.cegb is not None or self.params.cegb_on:
@@ -214,6 +270,7 @@ def _init_parallel(lrn, mode: str, config: Config):
         sharded = not lrn.params.cegb_on and not lrn.forced_plan
         if sharded:
             lrn._setup_shards()
+        lrn.sharded_scan = sharded
         lrn.comm = make_data_parallel_comm(d, sharded)
     elif mode == "voting":
         lrn._drop_cegb()
@@ -258,9 +315,16 @@ class FeatureParallelTreeLearner(_ParallelMixin, SerialTreeLearner):
     data on every rank, as the booster does."""
 
     MODE = "feature"
+    sharded_scan = True
 
     def __init__(self, dataset: Dataset, config: Config,
                  device: torch.device, ops: str = "kernel"):
+        if dataset.has_multival:
+            # JAX parallel/learners.py:263-268
+            log_fatal("feature-parallel training does not support "
+                      "multi-val datasets (row-wise slots span the "
+                      "column shards); use tree_learner=serial/data/"
+                      "voting")
         self._setup_world(dataset, config)
         self.comm = make_feature_parallel_comm(self.world_size)
         self.dataset = dataset

@@ -19,7 +19,7 @@ exchange breaks ties across shards by the lower global id
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 
@@ -120,3 +120,12 @@ def plan_feature_shards(groups: np.ndarray, num_features: int,
     return FeatureShardPlan(d=d, f_local=f_local, f_pad=f_pad,
                             g_local=g_local, g_pad=g_pad, col_perm=col_perm,
                             col_live=col_live, feat_perm=perm)
+
+
+def split_bynode_budget(count: int, d: int) -> Tuple[int, int, int]:
+    """Each shard's slice of the by-node feature budget (JAX
+    ``split_bynode_budget``): ``count // d`` a shard plus one for the
+    first ``count % d`` shards, so the slices add up to ``count``.
+    Returns (floor, remainder, the per-shard cap)."""
+    floor, rem = divmod(int(count), d)
+    return floor, rem, floor + (1 if rem else 0)

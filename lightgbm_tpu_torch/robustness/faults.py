@@ -1,10 +1,11 @@
 """Deterministic fault-injection harness (copy of
 ``lightgbm_tpu/robustness/faults.py`` for the PyTorch port: the same
-grammar and kinds. The single-process training path fires ``nan_grad``,
-``sigterm``, ``torn_checkpoint`` and ``fail_read``; the rank kinds
-parse, and fire nothing until the multi-rank robustness plane,
-ROADMAP.md Queue 1 item 11.2; the replica and drift kinds belong to the
-serving and pipeline planes, item 10).
+grammar and kinds. The training path fires ``nan_grad``, ``sigterm``,
+``torn_checkpoint`` and ``fail_read``; over ranks ``kill_rank`` and
+``stall_rank`` at the iteration boundary (``maybe_rank_fault``) and
+``drop_heartbeat`` in the elastic watchdog's sender
+(``robustness/elastic.py``); the replica and drift kinds belong to the
+serving and pipeline planes, ROADMAP.md Queue 1 item 10).
 
 Every robustness feature in this package (checkpoint fallback, retry/
 backoff, non-finite guards, preemption handling) is tested through this
@@ -241,3 +242,22 @@ def maybe_sigterm(iteration: int) -> None:
                                       iteration=iteration) is not None:
         os.kill(os.getpid(), signal.SIGTERM)
 
+
+
+def maybe_rank_fault(iteration: int, rank: int) -> None:
+    """Call at an iteration boundary of a multi-rank run; fires the
+    armed ``kill_rank`` / ``stall_rank`` drills of this (rank,
+    iteration). ``drop_heartbeat`` is taken inside the elastic
+    watchdog's sender, never here: it must not touch the training
+    loop."""
+    plan = get_fault_plan()
+    if plan is None:
+        return
+    if plan.take("kill_rank", iteration=iteration, rank=rank) is not None:
+        # SIGKILL, not SIGTERM: an unannounced death, with no handler,
+        # no cleanup and no goodbye, that the watchdog must detect
+        os.kill(os.getpid(), signal.SIGKILL)
+    ev = plan.take("stall_rank", iteration=iteration, rank=rank)
+    if ev is not None:
+        import time
+        time.sleep(float(ev.params.get("ms", 1000)) / 1000.0)

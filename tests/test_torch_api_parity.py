@@ -10,9 +10,12 @@ the CPU (ROADMAP.md Queue 3, faults 1-3).
    Dataset, to ``train`` or as the parameter trains the JAX package's
    model (which reads the argument only).
 3. The robustness and observability parameters act as the JAX
-   package's do (Queue 1 item 11.1); the multi-rank ones (``elastic_*``)
-   are refused with Queue 1 item 11.2 where the JAX package acts on
-   them.
+   package's do (Queue 1 item 11.1); the multi-rank ones (``elastic_*``,
+   item 11.2) are read by the port as by the JAX package, over ranks
+   only (``tests/test_torch_elastic.py``, the drill in
+   ``tests/test_torch_elastic_drill.py``).
+4. ``n_devices`` > 1 without a group of that many ranks is refused
+   (Queue 3 fault 1).
 """
 
 import os
@@ -217,17 +220,27 @@ def _plane_effect(param, tmp_path, monkeypatch):
     ("elastic_watchdog", False), ("elastic_heartbeat_ms", 250.0)])
 def test_robustness_params_are_refused(param, value, tmp_path,
                                        monkeypatch):
-    """The multi-rank params are refused (Queue 1 item 11.2); every other
-    plane param, refused until item 11.1 came, now does what the JAX
-    package's does: the same files written, the same exception raised,
-    the same number of trees."""
+    """Every plane param was refused until its item came (11.1 the
+    single-process planes, 11.2 the multi-rank ``elastic_*``); now each
+    does what the JAX package's does: the same files written, the same
+    exception raised, the same number of trees. The multi-rank params
+    act over ranks only, so a single process trains the trees it trains
+    without them, in either package."""
     if param.startswith("elastic_"):
-        with pytest.raises(NotImplementedError,
-                           match="Queue 1 item 11.2"):
-            lt.Config.from_params({param: value})
-        # their defaults pass
-        lt.Config.from_params({"guard_policy": "off",
-                               "elastic_watchdog": True})
+        assert getattr(lt.Config.from_params({param: value}), param) \
+            == value
+        X, y = _data()
+        p = {"objective": "binary", "num_leaves": 7, "verbosity": -1}
+        texts = {}
+        for name, pkg, kw in (("jax", lgb, {"verbose_eval": False}),
+                              ("port", lt, {"device": "cpu"})):
+            with_p, without = (pkg.train(q, pkg.Dataset(X, label=y), 3, **kw)
+                               for q in (dict(p, **{param: value}), p))
+            texts[name] = [b.model_to_string().split("parameters:")[0]
+                           for b in (with_p, without)]
+            assert texts[name][0] == texts[name][1]
+        assert texts["port"][0].count("Tree=") \
+            == texts["jax"][0].count("Tree=") == 3
         return
     out = _plane_effect(param, tmp_path, monkeypatch)
     assert out["port"] == out["jax"], out
@@ -306,3 +319,38 @@ def test_compile_cache_dir_sets_the_kernel_build_directory(tmp_path):
         assert not d.exists()
     finally:
         _native._CACHE_DIR["path"] = saved
+
+
+def test_n_devices_without_a_group_is_refused():
+    """ROADMAP Queue 3 fault 1: JAX meshes ``n_devices`` devices of one
+    process (the suite's 8 CPU devices, ``tests/conftest.py``) and votes
+    over 2 shards; the port's shards are ranks, so without a group of 2
+    ranks it refuses instead of training a world of one (whose rows 0-2
+    would predict 0.605821, 0.465057, 0.473057); ``n_devices`` 0 and 1
+    train that world of one, JAX's mesh of one (``n_devices=1``).
+    ``tests/test_torch_distributed.py`` holds a group of 2 ranks with
+    ``n_devices=2`` against JAX's mesh of 2."""
+    rng = np.random.RandomState(0)
+    X = rng.randn(4000, 20)
+    y = (X[:, :6].sum(axis=1) + 0.5 * rng.randn(4000) > 0).astype(
+        np.float32)
+    params = {"objective": "binary", "num_leaves": 15, "top_k": 2,
+              "tree_learner": "voting", "n_devices": 2, "verbosity": -1}
+    ref = lgb.train(params, lgb.Dataset(X, label=y), num_boost_round=3,
+                    verbose_eval=False)
+    np.testing.assert_allclose(ref.predict(X)[:3],
+                               [0.605822, 0.492577, 0.450538], atol=2e-6)
+    for learner in ("voting", "data", "feature"):
+        with pytest.raises(ValueError, match="the port's shards are ranks, "
+                           "one process each") as err:
+            lt.train(dict(params, tree_learner=learner),
+                     lt.Dataset(X, label=y), 3, device="cpu")
+        assert "lt.init_distributed" in str(err.value)
+        assert "no torch.distributed group is up" in str(err.value)
+    # 0 and 1 keep training as before: a world of one, JAX's mesh of one
+    one = lgb.train(dict(params, n_devices=1), lgb.Dataset(X, label=y),
+                    num_boost_round=3, verbose_eval=False).predict(X)
+    for n in (0, 1):
+        bst = lt.train(dict(params, n_devices=n), lt.Dataset(X, label=y),
+                       3, device="cpu")
+        np.testing.assert_allclose(bst.predict(X), one, atol=2e-6)

@@ -3,8 +3,9 @@ distributed.py``) on the CPU: the hermetic cases of
 ``tests/test_distributed.py`` (machine lists, the local rank, the
 single-process identities), then one gloo world of 2 rank processes
 (``torch_parallel_worker.py``, suite "distributed"; a ``file://``
-rendezvous under ``tmp_path``, a 30 s group timeout, a 60 s limit on the
-world) that holds:
+rendezvous under ``tmp_path``, a 150 s group timeout, not shorter than
+the elastic watchdog's default bounds, and a 60 s limit on the world)
+that holds:
 
 * bins from the pooled sample (``pre_partition``, dense and sparse): every
   rank's bin mappers equal each other's, the single-process port's and
@@ -15,7 +16,12 @@ world) that holds:
   bins (structure exact, leaf values at rtol 2e-4 / atol 2e-6), the
   voting learner's too where ``top_k`` covers every feature;
 * ``lt.train`` with ``tree_learner=data|voting|feature`` against
-  ``lgb.train`` on a mesh of 2 CPU devices (``num_machines=2``).
+  ``lgb.train`` on a mesh of 2 CPU devices (``num_machines=2``);
+* an L1-family objective under ``pre_partition`` (ROADMAP Queue 1 item
+  13): its leaf refit over every rank's rows gives the single process's
+  model;
+* ``n_devices=2`` over a group of 2 ranks (ROADMAP Queue 3 fault 1):
+  JAX's model on a mesh of 2 devices.
 """
 
 import numpy as np
@@ -199,3 +205,54 @@ def test_train_matches_jax_mesh(world, name):
                                rtol=0, atol=1e-4)
     acc = ((ranks[0]["pred"] > 0.5) == y).mean()
     assert acc > 0.9, acc
+
+
+@pytest.mark.parametrize("mode", ["data", "voting"])
+def test_pre_partition_l1_refit_is_the_single_process_model(world, mode):
+    """regression_l1 under ``pre_partition`` over 2 ranks (refused until
+    Queue 1 item 13): each rank's residuals and leaf ids gathered in
+    rank order, every rank takes the single process's percentiles, so
+    every rank keeps the single process's trees, leaf values included."""
+    ranks = [world[f"pre_partition_l1_{mode}", r] for r in range(K)]
+    X, _ = W.dist_problem()
+    yl = W.l1_label(X)
+    ref = lt.train(dict(W.L1_PARAMS, bin_construct_sample_cnt=len(X)),
+                   lt.Dataset(X, label=yl), 3, device="cpu")
+    for r in range(K):
+        _same_trees(ranks[r]["trees"], ref.models)
+        np.testing.assert_allclose(ranks[r]["raw"],
+                                   ref.predict(X, raw_score=True),
+                                   rtol=0, atol=1e-5)
+    # the refit moved the leaves off the gradient step's values
+    assert len({round(float(v), 6)
+                for v in ranks[0]["trees"][0]["leaf_value"]}) > 2
+
+
+def test_n_devices_over_a_group_of_that_many_ranks(world):
+    """``n_devices=2`` with a 2-rank group is accepted (ROADMAP Queue 3
+    fault 1's data: 4000 x 20, voting, ``top_k`` 2): the model of JAX's
+    mesh of 2 devices, whose rows 0-2 predict 0.605822, 0.492577,
+    0.450538 (a world of one predicts 0.605821, 0.465057, 0.473057)."""
+    X, y = W.roadmap_problem()
+    ranks = [world["n_devices_voting", r] for r in range(K)]
+    np.testing.assert_array_equal(ranks[0]["pred"], ranks[1]["pred"])
+    ref = lgb.train(W.NDEV_PARAMS, lgb.Dataset(X, label=y),
+                    num_boost_round=3, verbose_eval=False)
+    _same_trees(ranks[0]["trees"], ref._gbdt.models)
+    np.testing.assert_allclose(ranks[0]["pred"], ref.predict(X), atol=1e-5)
+    np.testing.assert_allclose(ranks[0]["pred"][:3],
+                               [0.605822, 0.492577, 0.450538], atol=2e-6)
+
+
+def test_serial_checkpoint_in_a_group_is_refused(world):
+    """``checkpoint_dir`` with a learner of one rank (``tree_learner=
+    serial``) inside a group of 2 ranks raises on every rank before
+    anything is written: each rank would write its own single-process
+    checkpoint into the one directory (the coordinated checkpoint needs
+    a learner that spans the group)."""
+    ranks = [world["serial_checkpoint", r] for r in range(K)]
+    for rec in ranks:
+        assert rec["error"] is not None
+        assert "checkpoint_dir in a process group of 2 ranks" in rec["error"]
+        assert "tree_learner=serial" in rec["error"]
+        assert not rec["written"]

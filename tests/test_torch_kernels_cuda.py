@@ -1052,6 +1052,40 @@ def test_hist_multival_kernel_matches_plain(dev, b, case):
     assert torch.equal(out, hm.hist_multival(lay, ghc, b, ids))
 
 
+@pytest.mark.parametrize("b", [64, 256, 300])
+@pytest.mark.parametrize("case", ["all", "third", "one_row", "empty",
+                                  "one_chunk"])
+def test_hist_multival_float64_route_matches_plain(dev, b, case):
+    """The float64 route (the data-parallel learners': the chunk-ordered
+    float64 sum, unrounded, the kernel's ``out64``) against its plain
+    version on the card: max abs err 0, and rounded once it is the
+    float32 route's histogram to the bit; one launch counted."""
+    from lightgbm_tpu_torch.ops import _native
+    from lightgbm_tpu_torch.ops import hist_multival_cuda as hm
+    ds = _bosch_slots(30_000)
+    lay = ds.mv_layout_device(dev)
+    n = lay.n
+    g = torch.Generator(device=dev).manual_seed(5)
+    ghc = torch.stack([torch.randn(n, generator=g, device=dev),
+                       torch.rand(n, generator=g, device=dev),
+                       torch.ones(n, device=dev)], 1).contiguous()
+    ids = {"all": None,
+           "third": torch.randperm(n, generator=g, device=dev)[:n // 3],
+           "one_row": torch.tensor([n - 1], device=dev),
+           "empty": torch.zeros(0, dtype=torch.int64, device=dev),
+           "one_chunk": torch.arange(hm.MV_CHUNK_ROWS, device=dev)}[case]
+    if ids is not None:
+        ids = ids.sort().values.to(torch.int32)
+    before = _native.LAUNCHES["hist_multival"]
+    out = hm.hist_multival(lay, ghc, b, ids, float64=True)
+    ref = hm.hist_multival_plain(lay, ghc, b, ids, float64=True)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES["hist_multival"] == before + 1
+    assert out.dtype == torch.float64 and out.shape == (lay.g_mv, b, 3)
+    assert torch.equal(out, ref)
+    assert torch.equal(out.float(), hm.hist_multival(lay, ghc, b, ids))
+
+
 @pytest.mark.parametrize("g_mv", [1, 16, 17, 30, 31, 242])
 @pytest.mark.parametrize("k", [1, 2, 200])
 @pytest.mark.parametrize("rows", ["all", "list"])

@@ -236,12 +236,32 @@ def test_world_of_one_trains_like_jax_serial(learner_type):
                                    {"feature_fraction_bynode": 0.5}])
 @pytest.mark.parametrize("learner_type", ["data", "voting", "feature"])
 def test_per_node_randomness_is_refused(learner_type, extra):
+    """Refused until Queue 1 item 13 lifted it: per-node randomness on a
+    parallel learner now trains. In a world of one the learner draws as
+    the JAX learner on a mesh of one device does (a feature-sharded scan
+    folds the shard index 0 into its keys): the same trees.
+    ``tests/test_torch_parallel_item13.py`` holds two ranks against a
+    mesh of two."""
     X, y = W.problem(n=500)
-    cfg = Config.from_params(dict(W.BASE, tree_learner=learner_type,
-                                  **extra))
+    params = dict(W.BASE, tree_learner=learner_type, **extra)
+    cfg = Config.from_params(params)
     ds = Dataset.from_numpy(X, cfg, label=y)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        create_tree_learner(learner_type, ds, cfg, torch.device("cpu"))
+    lrn = create_tree_learner(learner_type, ds, cfg, torch.device("cpu"))
+    jcfg = JConfig.from_params(params)
+    jds = JDataset.from_numpy(X, jcfg, label=y)
+    mesh = jpar.default_mesh(1)
+    jname = type(lrn).__name__
+    jl = JMeshPartitioned(jds, jcfg, mesh=mesh, mode=learner_type,
+                          interpret=True) \
+        if jname == "MeshPartitionedTreeLearner" \
+        else getattr(jpar, jname)(jds, jcfg, mesh=mesh)
+    g, h = W.grad_hess(y)
+    for _ in range(2):
+        res = jl.train(jnp.asarray(g), jnp.asarray(h))
+        tree, lid = lrn.train(torch.from_numpy(g), torch.from_numpy(h))
+        rec = W.tree_record(tree)
+        _assert_same_tree(rec, jl.to_host_tree(res))
+        np.testing.assert_array_equal(lid.numpy(), np.asarray(res.leaf_id))
 
 
 def test_voting_drops_cegb_and_forced_splits(tmp_path, capsys):

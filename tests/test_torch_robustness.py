@@ -247,16 +247,29 @@ def test_fail_read_is_recovered_by_retry(tmp_path):
 
 
 def test_multi_rank_checkpoint_is_refused(tmp_path, monkeypatch):
-    from lightgbm_tpu_torch import engine
+    """Refused until Queue 1 item 11.2 brought the coordinated
+    checkpoint; what stays refused is a checkpoint from rank 0 alone.
+    As rank 0 of 2 whose peer never writes its shard, every version
+    waits ``elastic_barrier_s`` for rank 1's receipt and is abandoned:
+    no checkpoint is ever committed, and training goes on to the same
+    trees."""
+    from lightgbm_tpu_torch.parallel.distributed import WorldInfo
     X, y = _data()
-    monkeypatch.setattr(engine, "current_world", lambda: object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11.2"):
-        lt.train(_ckpt_params(tmp_path), lt.Dataset(X, label=y), 2,
-                 device="cpu")
-    assert not os.listdir(tmp_path)
-    monkeypatch.setattr(ck, "_multi_rank", lambda: True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11.2"):
-        ck.CheckpointManager(str(tmp_path)).restore_latest(None)
+    ref = lt.train(dict(BASE), lt.Dataset(X, label=y), 3, device="cpu")
+    make = ck.CheckpointManager.from_config.__func__
+    monkeypatch.setattr(ck.CheckpointManager, "from_config", classmethod(
+        lambda cls, cfg, world=None: make(cls, cfg, world=WorldInfo(0, 2))))
+    bst = lt.train(_ckpt_params(tmp_path, elastic_barrier_s=0.2),
+                   lt.Dataset(X, label=y), 3, device="cpu")
+    assert not [f for f in os.listdir(tmp_path) if f.startswith("ckpt_")]
+    tmp = sorted(f for f in os.listdir(tmp_path) if f.startswith(".tmp_"))
+    assert len(tmp) == 3, tmp   # every version's rank-0 half, uncommitted
+    assert sorted(os.listdir(tmp_path / tmp[0])) == [
+        "done_00000.json", "model.txt", "shard_00000.npz"]
+    assert ck.CheckpointManager(str(tmp_path)).restore_latest(bst) is None
+    trees = lambda b: b.model_to_string().split(  # noqa: E731
+        "parameters:")[0]
+    assert trees(bst) == trees(ref)
 
 
 # ---------------------------------------------------------------------
