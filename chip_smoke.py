@@ -60,7 +60,8 @@ of the JAX package. Phases, each fatal on failure:
    file grows 2 more trees, keeping the file's trees to the bit, with
    finite predictions; every golden model the reference wrote
    (``tests/fixtures/golden``, data from ``tests/golden_common.py``)
-   predicts within 1e-6 of the reference's output; a 100k x 28
+   predicts within 1e-6 of the reference's output; a ``TEXT_ROWS`` x 28
+   (50k, cut from 100k for phase 19)
    Higgs-like matrix written as CSV with a header and as LibSVM reads
    back as its arrays and ``Dataset(path)`` grows the 3 fused trees the
    arrays grow, to the bit. Each training run is driven with the launch
@@ -172,12 +173,14 @@ of the JAX package. Phases, each fatal on failure:
    early stopping, every fold on the fused segment path (one
    ``fused_split_step_segment`` launch a split), fold 0 bitwise its rows
    binned against the parent and trained alone; (b) ``Booster.refit`` on
-   a second 2M draw (seed 44) at decay 0.9, one ``hist_rows`` launch a
+   a second draw (seed 44) of ``REFIT_ROWS`` (500k, cut from 2M for phase
+   19) at decay 0.9, one ``hist_rows`` launch a
    tree, ``pred_leaf`` and the replay timed apart, leaf values bitwise
    against the plain versions, decay 1.0 unchanged, AUC before and
    after; (c) ``rollback_one_iter`` twice after 10 iterations against
-   an 8-iteration run; (d) ``LGBMClassifier`` and ``LGBMRegressor`` with
-   the 500k ``eval_set``, bitwise ``lt.train``, and whether
+   an 8-iteration run; (d) ``LGBMClassifier`` and ``LGBMRegressor`` fit
+   on the first ``ESTIMATOR_ROWS`` (500k, cut from 2M for phase 19) with
+   the 500k ``eval_set``, bitwise ``lt.train`` on the same rows, and whether
    scikit-learn was importable; (e) ``save_binary`` and back, and
    ``add_features_from`` of the two column halves; (f) kernels against
    plain versions at 100k rows, 63 leaves: cv at max_bin 255 and 1023
@@ -290,7 +293,23 @@ of the JAX package. Phases, each fatal on failure:
    at iterations 1 and 2), max_bin 255 and 1023, kernels against plain
    versions, the texts equal. Prints ``[phase 18] <s>``.
 
-The second-to-last line of output is the per-kernel JSON record; the
+19. serving on the card (``serving_phase``, run after phase 10, which
+   leaves it phase 3's model, phase 6's quality model and phase 9 (c)'s
+   5-class model): each warmed on ``ServingConfig(buckets=(1, 8, 64,
+   512), device="always", fallback_to_host=False)`` (the quality model
+   from its model text with its AOT artifact); every (bucket, kind)
+   program's CUDA graph replay bitwise the eager walk and
+   ``Booster.predict``, a chunked 700-row request, the replay's and the
+   eager walk's ms; on phase 3's model bench.py's serving block, a 200
+   qps open loop and a 3 s soak with a hot reload every 0.5 s, every
+   response bitwise ``Booster.predict``; a torn model file (degraded,
+   the old version serving), a flood past ``max_queue`` under both shed
+   policies, the HTTP frontend's every endpoint with ``/slo`` after an
+   SLO engine evaluated; no capture after warmup, no fallback, no failed
+   artifact attach. Prints the ``{"serving": ...}`` record.
+
+The line before the per-kernel JSON record is phase 19's serving record;
+the second-to-last line of output is the per-kernel JSON record; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -312,6 +331,14 @@ WARPS = 8                    # warps of a hist_rows block (csrc/hist_ids.cuh)
 # 11-16, cut from 3 for the time limit (phase 7 keeps 3 at 255 leaves;
 # phase 10's GOSS samples from its third iteration and keeps 3)
 PARITY_ITERS = 2
+# phase 14 b refits on this many new rows and 14 d's estimators fit this
+# many rows of the 2M matrix (both cut from 2M to make room for phase 19;
+# PERF.md section 4)
+REFIT_ROWS = 500_000
+ESTIMATOR_ROWS = 500_000
+# phase 8's CSV and LibSVM files hold this many rows (cut from 100k for
+# phase 19 as well)
+TEXT_ROWS = 50_000
 # kernel launches of one wrapper call at phase 2's timed shapes (the
 # histograms past one chunk add their reduce)
 LAUNCHES_A_CALL = {"hist_segment": 2, "partition_segment": 2,
@@ -1598,7 +1625,7 @@ def model_file_phase(bst, ds, X, params, dev):
               f"1e-6 of the reference's output: max abs err {worst}")
 
         # text data: CSV with a header and LibSVM, against the arrays
-        Xt, yt = higgs_like(100_000, seed=5)
+        Xt, yt = higgs_like(TEXT_ROWS, seed=5)
         base, _, _ = counted_train("training from arrays", params,
                                    lt.Dataset(Xt, label=yt), 3, dev)
         for fmt, writer, extra in (("csv", write_csv, {"header": True}),
@@ -2168,8 +2195,7 @@ def early_stop_check(label, bst, X, dev, reps, freq=2):
 
 def walk_levels(stacked, x, levels):
     """``predictor.predict_leaf_index``'s walk for exactly ``levels``
-    levels, with no host read between them (its loop stops when a read
-    shows every row done): the device's share of the walk."""
+    levels (the predictor walks the stack's deepest level, ``depth``)."""
     import torch
     from lightgbm_tpu_torch.predictor import _category_left, numerical_left
     t, n = stacked["feat"].shape[0], x.shape[0]
@@ -2198,9 +2224,9 @@ def walk_levels(stacked, x, levels):
 def predict_split(bst, X, dev):
     """How the 2M-row predict's time splits (PERF.md section 7), with
     CUDA events and host clocks (no profiler): the rows to float64 on
-    the host, their upload, the tree walk as ``predict_raw`` runs it (a
-    host read a level) against the same levels with no read between
-    them, and the whole ``predict_raw``."""
+    the host, their upload, the tree walk as ``predict_raw`` runs it
+    (the stack's deepest level, with no host read) against each chunk's
+    own deepest level, and the whole ``predict_raw``."""
     import torch
     from lightgbm_tpu_torch.predictor import (_row_chunks, predict_raw,
                                               predict_leaf_index,
@@ -2229,12 +2255,10 @@ def predict_split(bst, X, dev):
     leaves = [predict_leaf_index(stacked, x[lo:hi]) for lo, hi in chunks]
     torch.cuda.synchronize()
     walk = (time.perf_counter() - t0) * 1e3
-    # the levels the loop ran (the deepest leaf a chunk's rows reached)
-    # and its reads: one before each level and the one that ends it
+    # the deepest leaf each chunk's rows reached
     levels = [max(int(t.leaf_depth[li[i].cpu().numpy()].max())
                   for i, t in enumerate(models) if t.num_leaves > 1)
               for li in leaves]
-    reads = sum(min(lv + 1, stacked["depth"]) for lv in levels)
     ev[0].record()
     fixed = [walk_levels(stacked, x[lo:hi], lv)
              for (lo, hi), lv in zip(chunks, levels)]
@@ -2242,17 +2266,18 @@ def predict_split(bst, X, dev):
     torch.cuda.synchronize()
     device_walk = ev[0].elapsed_time(ev[1])
     if not all(torch.equal(a, b) for a, b in zip(fixed, leaves)):
-        fail("the walk with no level reads found other leaves")
+        fail("the walk of each chunk's own levels found other leaves")
     r = dict(convert_ms=convert, wall_ms=wall, upload_ms=upload,
-             walk_ms=walk, walk_no_read_ms=device_walk,
-             level_reads=reads, chunks=len(chunks))
+             walk_ms=walk, walk_chunk_levels_ms=device_walk,
+             levels=stacked["depth"], chunk_levels=levels,
+             chunks=len(chunks))
     print(f"[predict split] {len(X)} rows x {len(models)} trees "
           f"({len(chunks)} row chunks): the rows to float64 on the host "
           f"{convert:.1f} ms; predict_raw {wall:.1f} ms; of it the upload "
           f"{upload:.1f} ms (CUDA events) and the tree walk {walk:.1f} ms "
-          f"with its {reads} level reads, against "
-          f"{device_walk:.1f} ms for the same levels with no read "
-          f"between them (CUDA events)")
+          f"({stacked['depth']} levels, no host read), against "
+          f"{device_walk:.1f} ms for each chunk's own deepest level "
+          f"{levels} (CUDA events)")
     return r
 
 
@@ -3810,33 +3835,38 @@ def slice15_rollback(params, full, bst8, iters, dev):
     return dict(text_equal=same, train_score_gap=gap)
 
 
-def slice15_estimators(params, X, y, Xv, yv, bst8, binned, dev):
-    """14 d: ``LGBMClassifier`` and ``LGBMRegressor`` at full width with
-    the 500k ``eval_set``; the classifier's ``predict_proba`` bitwise
-    ``lt.train``'s, the regressor's predictions bitwise ``lt.train``'s
-    on the latent score."""
+def slice15_estimators(params, X, y, Xv, yv, bst8, dev):
+    """14 d: ``LGBMClassifier`` and ``LGBMRegressor`` on the first
+    ``ESTIMATOR_ROWS`` rows (28 features, 255 leaves) with the 500k
+    ``eval_set``; the classifier's ``predict_proba`` bitwise
+    ``lt.train``'s on the same rows, the regressor's predictions bitwise
+    ``lt.train``'s on the latent score."""
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch import sklearn as psk
-    out = {"sklearn_importable": psk.SKLEARN_INSTALLED}
+    out = {"sklearn_importable": psk.SKLEARN_INSTALLED,
+           "rows": ESTIMATOR_ROWS}
+    iters = bst8.current_iteration()
+    # the latent score of the whole matrix (its rows are the matrix's)
+    z = higgs_latent(len(y))[1][:ESTIMATOR_ROWS]
+    X, y = X[:ESTIMATOR_ROWS], y[:ESTIMATOR_ROWS]
     t0 = time.perf_counter()
-    clf = lt.LGBMClassifier(n_estimators=bst8.current_iteration(),
-                            num_leaves=255, device=dev)
+    clf = lt.LGBMClassifier(n_estimators=iters, num_leaves=255, device=dev)
     clf.fit(X, y, eval_set=[(Xv, yv)])
     proba = clf.predict_proba(Xv)
-    p = bst8.predict(Xv)
+    # the lt.train references share one binning of the rows
+    binned = lt.Dataset(X, label=y)._construct(lt.Config.from_params(params))
+    p = lt.train(params, over_binned(binned, X, y), iters,
+                 device=dev).predict(Xv)
     clf_same = np.array_equal(proba[:, 1], p) \
         and np.array_equal(proba[:, 0], 1.0 - p)
     out["classifier_s"] = time.perf_counter() - t0
     hist = clf.evals_result_["valid_0"]["binary_logloss"]
-    _, z = higgs_latent(len(y))
     _, zv = higgs_latent(len(yv), seed=43)
     t0 = time.perf_counter()
-    reg = lt.LGBMRegressor(n_estimators=bst8.current_iteration(),
-                           num_leaves=255, device=dev)
+    reg = lt.LGBMRegressor(n_estimators=iters, num_leaves=255, device=dev)
     reg.fit(X, z, eval_set=[(Xv, zv)])
     rb = lt.train(dict(params, objective="regression"),
-                  over_binned(binned, X, z), bst8.current_iteration(),
-                  device=dev)
+                  over_binned(binned, X, z), iters, device=dev)
     reg_same = np.array_equal(reg.predict(Xv), rb.predict(Xv))
     out["regressor_s"] = time.perf_counter() - t0
     l2 = reg.evals_result_["valid_0"]["l2"]
@@ -3966,11 +3996,11 @@ def slice15_phase(X, y, binned, dev, iters, reps):
     out = {"a cv": slice15_cv(params, full, X, y, iters, dev)}
     torch.cuda.empty_cache()
     bst8 = lt.train(params, full, iters, device=dev)
-    out["b refit"] = slice15_refit(params, bst8, len(y), dev)
+    out["b refit"] = slice15_refit(params, bst8, REFIT_ROWS, dev)
     torch.cuda.empty_cache()
     out["c rollback"] = slice15_rollback(params, full, bst8, iters, dev)
     out["d estimators"] = slice15_estimators(params, X, y, Xv, yv, bst8,
-                                             binned, dev)
+                                             dev)
     torch.cuda.empty_cache()
     out["e files"] = slice15_files(params, full, X, bst8, binned, dev)
     del bst8, full
@@ -5861,6 +5891,329 @@ def planes_phase(X, y, binned, dev, iters):
     return out
 
 
+# ---- phase 19: serving on the card ------------------------------------
+
+SERVING_BUCKETS = (1, 8, 64, 512)
+SERVING_KINDS = {"predict": {}, "raw_score": {"raw_score": True},
+                 "pred_leaf": {"pred_leaf": True}}
+SERVING_ROWS = 4096          # the requests' rows: the 2M matrix's first
+SERVING_REPS = 10            # CUDA-event repetitions a bucket
+
+
+class ServeRecorder:
+    """A ServingEngine as the load generator drives it, keeping every
+    request's rows and future, and the source of every version a reload
+    made, so the loops' responses are held against ``Booster.predict``
+    after the loop."""
+
+    def __init__(self, eng):
+        import threading
+        self.eng, self.config = eng, eng.config
+        self.lock = threading.Lock()
+        self.log = []
+        self.sources = {}
+
+    def stats(self):
+        return self.eng.stats()
+
+    def submit(self, rows, kind="predict", timeout_ms=None):
+        fut = self.eng.submit(rows, kind=kind, timeout_ms=timeout_ms)
+        with self.lock:
+            self.log.append((rows, kind, fut))
+        return fut
+
+    def predict(self, rows, kind="predict", timeout_ms=None):
+        return self.submit(rows, kind, timeout_ms).result(timeout=60.0)
+
+    def reload(self, source):
+        version = self.eng.reload(source)
+        with self.lock:
+            self.sources[version] = source
+        return version
+
+
+def serving_responses_equal(rec, refs, label):
+    """Every response in ``rec.log`` against its version's reference
+    booster: rows grouped by (version, kind), one ``predict`` of the
+    group's rows (rows are independent), compared to the bit."""
+    groups = {}
+    for rows, kind, fut in rec.log:
+        out = fut.result(timeout=60.0)
+        key = (fut.meta["version"], kind)
+        groups.setdefault(key, ([], []))
+        groups[key][0].append(rows)
+        groups[key][1].append(out)
+    for (version, kind), (rows, outs) in groups.items():
+        ref = refs[version].predict(np.concatenate(rows),
+                                    **SERVING_KINDS[kind])
+        if np.concatenate(outs).tobytes() != ref.tobytes():
+            fail(f"phase 19 {label}: a {kind} response of version "
+                 f"{version} is not Booster.predict of its rows")
+    return sum(len(r) for r, _ in groups.values())
+
+
+def serving_programs(label, eng, bst, Xr, card):
+    """Each (bucket, kind) program of the engine's current version:
+    its replay equal to ``Booster.predict`` and to the eager walk of the
+    same static inputs, to the bit; for ``predict``, the replay's and
+    the eager walk's ms (CUDA events); then a 700-row request (chunked
+    512 + 188) of every kind."""
+    mv = eng.registry.current()
+    if sorted(mv.programs) != sorted(
+            (b, k) for b in SERVING_BUCKETS for k in SERVING_KINDS):
+        fail(f"phase 19 {label}: warmup captured {sorted(mv.programs)}")
+    out = {}
+    for (b, kind), prog in sorted(mv.programs.items()):
+        if prog.graph is None:
+            fail(f"phase 19 {label}: bucket {b} {kind} has no CUDA graph")
+        got = prog.run(Xr[:b])
+        eager = prog._body()[:b].cpu().numpy()
+        ref = bst.predict(Xr[:b], **SERVING_KINDS[kind])
+        if not got.tobytes() == eager.tobytes() == ref.tobytes():
+            fail(f"phase 19 {label}: bucket {b} {kind}: the replay, the "
+                 "eager walk and Booster.predict differ")
+        if kind == "predict":
+            out[b] = {"replay_ms": time_ms(prog.graph.replay, SERVING_REPS),
+                      "eager_ms": time_ms(prog._body, SERVING_REPS)}
+    for kind, kw in SERVING_KINDS.items():
+        if eng.predict(Xr[:700], kind=kind).tobytes() \
+                != bst.predict(Xr[:700], **kw).tobytes():
+            fail(f"phase 19 {label}: the chunked 700-row {kind} request "
+                 "is not Booster.predict")
+    print(f"[phase 19 {label}] {card}: v{mv.version} {mv.num_trees} trees "
+          f"(k {mv.k}), {len(mv.programs)} graphs captured in "
+          f"{eng.stats()['warmup_s']:.3f} s; replay against the eager walk "
+          "(predict, ms a call, CUDA events): "
+          + ", ".join(f"bucket {b} {r['replay_ms']:.4f} / "
+                      f"{r['eager_ms']:.4f}" for b, r in out.items()))
+    return {"trees": mv.num_trees, "k": mv.k,
+            "warmup_s": eng.stats()["warmup_s"], "buckets": out}
+
+
+def loop_line(label, block, stats, card):
+    errors = block.get("errors", block.get("non_shed_errors"))
+    print(f"[phase 19 {label}] {card}: {block['requests']} requests, "
+          f"{block['rows']} rows in {block['duration_s']} s: "
+          f"{block['throughput_rps']} req/s, {block['rows_per_s']} rows/s, "
+          f"p50 {block['p50_ms']} ms, p95 {block['p95_ms']} ms, p99 "
+          f"{block['p99_ms']} ms; errors {errors}, shed {block['shed']}; "
+          f"engine: queue peak {stats['queue_peak']}, bucket hit rate "
+          f"{stats['bucket_hit_rate']}")
+
+
+def serving_flood(bst, Xr, dev):
+    """Past ``max_queue`` (2) with the flusher off, under each shed
+    policy: structured QueueFullErrors, and the queued requests served
+    once the flusher starts."""
+    from lightgbm_tpu_torch.serving import (QueueFullError, ServingConfig,
+                                            ServingEngine)
+    out = {}
+    for policy in ("reject_new", "drop_oldest"):
+        eng = ServingEngine(bst, config=ServingConfig(
+            buckets=(8,), warmup=False, max_queue=2, shed_policy=policy,
+            device="always", fallback_to_host=False), auto_start=False,
+            device=dev)
+        try:
+            futs, shed = [], 0
+            for i in range(10):
+                try:
+                    futs.append((i, eng.submit(Xr[i:i + 1], timeout_ms=0)))
+                except QueueFullError as e:
+                    if e.to_dict()["error"] != "queue_full" \
+                            or e.http_status != 429:
+                        fail(f"phase 19 flood: {e.to_dict()}")
+                    shed += 1
+            eng.start()
+            served = 0
+            for i, f in futs:
+                try:
+                    got = f.result(timeout=60.0)
+                except QueueFullError:
+                    shed += 1
+                    continue
+                if got.tobytes() != bst.predict(Xr[i:i + 1]).tobytes():
+                    fail("phase 19 flood: a queued response is wrong")
+                served += 1
+            if served != 2 or shed != 8 or eng.stats()["shed"] != 8:
+                fail(f"phase 19 flood {policy}: served {served}, shed "
+                     f"{shed}")
+            out[policy] = {"served": served, "shed": shed}
+        finally:
+            eng.stop()
+    return out
+
+
+def serving_http(eng, bst, Xr, text_a):
+    """``make_http_server`` on 127.0.0.1:0: each endpoint once, ``/slo``
+    after an SLO engine over the engine's counters sampled and
+    evaluated."""
+    import threading
+    import urllib.request
+    from lightgbm_tpu_torch.observability.slo import SLOEngine
+    from lightgbm_tpu_torch.serving.http import make_http_server
+    server = make_http_server(eng, "127.0.0.1", 0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def call(path, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}", data=data,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            body = r.read().decode()
+            return r.status, body
+
+    out = {}
+    try:
+        for kind, kw in SERVING_KINDS.items():
+            status, body = call(f"/{kind}", {"rows": Xr[:5].tolist()})
+            got = np.asarray(json.loads(body)["predictions"])
+            ref = bst.predict(Xr[:5], **kw)
+            if status != 200 or not np.array_equal(got, ref):
+                fail(f"phase 19 http /{kind}: {status}")
+        for path in ("/health", "/stats", "/metrics"):
+            status, body = call(path)
+            if status != 200:
+                fail(f"phase 19 http {path}: {status}")
+        out["health"] = json.loads(call("/health")[1])["status"]
+        slo = SLOEngine(counts_fn=eng.stats, windows=["1m", "5m"])
+        slo.sample()
+        slo.evaluate()
+        status, body = call("/slo")
+        rep = json.loads(body)
+        if status != 200 or not rep["enabled"] or not rep["last"]["slos"]:
+            fail(f"phase 19 http /slo: {body[:200]}")
+        out["slo_max_burn"] = rep["last"]["max_burn"]
+        status, body = call("/reload", {"model_str": text_a})
+        if status != 200 or json.loads(body)["status"] != "ok":
+            fail(f"phase 19 http /reload: {body[:200]}")
+        out["reload_version"] = json.loads(body)["version"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+    return out
+
+
+def serving_phase(models, X, dev, card):
+    """Phase 19: serving on the card. (a) phase 3's full-width fused
+    binary model from its Booster, (b) phase 6's quality model published
+    as model text with its AOT artifact, (c) phase 9 (c)'s 5-class model;
+    each warmed on ``ServingConfig(buckets=(1, 8, 64, 512),
+    device="always", fallback_to_host=False)``: its programs' replays
+    bitwise the eager walk and ``Booster.predict`` (and a chunked 700-row
+    request), timed against the eager walk. On (a): bench.py's closed
+    loop, a 200 qps open loop, a 3 s soak with a hot reload every 0.5 s
+    between (a) and (b), a torn model file on reload, a flood past
+    ``max_queue`` under both shed policies and the HTTP frontend; every
+    response of the loops bitwise ``Booster.predict`` of its rows; no
+    capture after warmup, no fallback, no failed artifact attach."""
+    import tempfile
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.serving import (ModelLoadError, ServingConfig,
+                                            ServingEngine, loadgen)
+    from lightgbm_tpu_torch.serving.aot import build_artifact
+    t_phase = time.perf_counter()
+    Xr = np.ascontiguousarray(X[:SERVING_ROWS], np.float64)
+    cfg = ServingConfig(buckets=SERVING_BUCKETS, device="always",
+                        fallback_to_host=False)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    out = {}
+    engines = []
+    try:
+        text_a = models["a"].model_to_string()
+        text_b = models["b"].model_to_string()
+        t0 = time.perf_counter()
+        art_b = build_artifact(models["b"], text_b, buckets=SERVING_BUCKETS,
+                               out_dir=tmp, device=dev)
+        out["artifact_s"] = time.perf_counter() - t0
+        refs = {"a": models["a"], "b": lt.Booster(model_str=text_b,
+                                                  device=dev),
+                "c": models["c"]}
+        eng = {}
+        for name in ("a", "b", "c"):
+            eng[name] = ServingEngine(config=cfg, device=dev)
+            engines.append(eng[name])
+            if name == "b":
+                eng[name].load(text_b, aot=art_b)
+            else:
+                eng[name].load(models[name])
+            out[name] = serving_programs(name, eng[name], refs[name], Xr,
+                                         card)
+        if eng["b"].stats().get("aot_attach") != 1 \
+                or not eng["b"].registry.current().describe()["aot"]:
+            fail("phase 19 b: the AOT artifact was not attached")
+        ea = eng["a"]
+        captures = ea.stats()["graph_captures"]
+        rec = ServeRecorder(ea)
+        rec.sources[1] = models["a"]
+        out["closed"] = loadgen.serving_block(rec, Xr, batch_sizes=(1, 64),
+                                              threads=2, duration_s=2.0)
+        loop_line("closed", out["closed"], ea.stats(), card)
+        out["open"] = loadgen.open_loop(rec, Xr, qps=200.0, duration_s=2.0)
+        loop_line("open", out["open"], ea.stats(), card)
+        for block in ("closed", "open"):
+            if out[block]["errors"]:
+                fail(f"phase 19 {block}: {out[block]['errors']} errors")
+        out["soak"] = loadgen.soak_loop(
+            rec, Xr, duration_s=3.0, qps=100.0, reload_every_s=0.5,
+            reload_sources={"b": text_b, "a": models["a"]})
+        loop_line("soak", out["soak"], ea.stats(), card)
+        soak = out["soak"]
+        if soak["non_shed_errors"] or soak["shed"] or soak["reloads"] < 2 \
+                or soak["reload_failures"]:
+            fail(f"phase 19 soak: {json.dumps(soak)}")
+        vrefs = {v: refs["b"] if isinstance(src, str) else refs["a"]
+                 for v, src in rec.sources.items()}
+        out["responses_checked"] = serving_responses_equal(rec, vrefs,
+                                                           "loops")
+        # a torn model file: degraded, the old version keeps serving
+        torn = os.path.join(tmp, "torn.txt")
+        with open(torn, "w") as fh:
+            fh.write(text_a[:len(text_a) // 2])
+        version = ea.version
+        try:
+            ea.reload(torn)
+            fail("phase 19: a torn model file loaded")
+        except ModelLoadError:
+            pass
+        health = ea.health()
+        if health["status"] != "degraded" or ea.version != version \
+                or ea.predict(Xr[:3]).tobytes() \
+                != vrefs[version].predict(Xr[:3]).tobytes():
+            fail(f"phase 19: after a torn reload {health['status']}")
+        out["torn_reload"] = health["status"]
+        out["flood"] = serving_flood(models["a"], Xr, dev)
+        out["http"] = serving_http(ea, refs["a"], Xr, text_a)
+        st = ea.stats()
+        loads = 1 + st["reloads"]
+        if st["graph_captures"] != captures * loads:
+            fail(f"phase 19: {st['graph_captures']} graph captures for "
+                 f"{loads} loads of {captures} programs each: a capture "
+                 "after warmup")
+        for name, e in eng.items():
+            s = e.stats()
+            if s["fallbacks"] or s.get("aot_attach_failures", 0):
+                fail(f"phase 19 {name}: fallbacks {s['fallbacks']}, AOT "
+                     f"attach failures {s.get('aot_attach_failures')}")
+        out["stats_a"] = {k: st[k] for k in (
+            "requests", "rows", "batches", "reloads", "bucket_hits",
+            "bucket_misses", "bucket_hit_rate", "queue_peak",
+            "graph_captures", "graph_replays", "fallbacks")}
+        print(f"[phase 19 counts] {card}: engine a {json.dumps(out['stats_a'])}"
+              f"; loads {loads} x {captures} programs = "
+              f"{st['graph_captures']} captures, none after warmup")
+    finally:
+        for e in engines:
+            e.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase 19] {card}: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=2_000_000)
@@ -6080,6 +6433,8 @@ def main() -> int:
             fail("the quality config did not run the fused path")
         if args.quality_iters >= 100 and q_auc < 0.97906 - 0.002:
             fail(f"AUC {q_auc} below 0.97706 at max_bin {max_bin}")
+        if max_bin == 255:
+            quality_bst = bq       # phase 19 serves it from its text
 
     # ---- 7. parity: kernels against plain versions, end to end --------
     Xp, yp = higgs_like(100_000, seed=3)
@@ -6134,7 +6489,12 @@ def main() -> int:
         X, y, binned, binned_wide, fused_bst, multiclass_bst, dev,
         args.reps)
     print(f"[sampling] done in {time.perf_counter() - t0:.1f} s")
-    del fused_bst, multiclass_bst
+    torch.cuda.empty_cache()
+
+    # ---- 19. serving on the card ---------------------------------------
+    serving = serving_phase({"a": fused_bst, "b": quality_bst,
+                             "c": multiclass_bst}, X, dev, card)
+    del fused_bst, multiclass_bst, quality_bst
     torch.cuda.empty_cache()
 
     # ---- 11. categorical features on the per-phase path ----------------
@@ -6295,6 +6655,19 @@ def main() -> int:
             kernels[-1]["node_table"] = {
                 str(b): v for b, v in extras["node_table"].items()}
     print(f"[total] {time.perf_counter() - t_all:.1f} s")
+    # phase 19's record: the card, each loop's latency and rate, each
+    # model's warmup and replay against eager walk (no hand-written
+    # kernel: the serving route is PyTorch on the card, captured as
+    # CUDA graphs)
+    print(json.dumps({"serving": dict(
+        card=card, seconds=serving["seconds"],
+        loops={k: {m: serving[k][m] for m in (
+            "requests", "rows", "throughput_rps", "rows_per_s", "p50_ms",
+            "p95_ms", "p99_ms", "shed")} for k in ("closed", "open",
+                                                   "soak")},
+        models={m: serving[m] for m in ("a", "b", "c")},
+        engine_a=serving["stats_a"],
+        responses_checked=serving["responses_checked"])}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

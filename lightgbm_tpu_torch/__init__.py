@@ -30,7 +30,10 @@ without a group.
 ``engine.train_many`` trains many models over one Dataset together, a
 bucket of them a batch (``multiboost/``: the model-batched root
 histogram and leaf step kernels), and ``cv`` batches its folds the
-same way under ``multiboost``.
+same way under ``multiboost``. ``serving`` serves a model on the card
+(``ServingEngine``: micro-batched requests, one CUDA graph a row
+bucket, hot reload, an HTTP frontend) with the SLO engine
+(``observability/slo.py``) over its counters.
 """
 
 from .basic import Booster, Dataset
@@ -40,6 +43,9 @@ from .callback import (EarlyStopException, early_stopping, print_evaluation,
 from .config import Config
 from .engine import CVBooster, cv, train
 from .parallel.distributed import init_distributed
+from . import serving
+from .serving import (ModelRegistry, Router, ServingConfig, ServingEngine,
+                      TenantQuotas)
 from .utils.device import resolve_device
 
 __version__ = "0.1.0"

@@ -1,10 +1,8 @@
 """Configuration / flag system.
 
 Copy of ``lightgbm_tpu/config.py`` for the PyTorch port: same dataclass,
-aliases and ``check_param_conflict``. The differences: ``device_type``
-defaults to ``cuda``; ``slo_specs``/``slo_windows`` (validated by the
-serving plane, not ported yet, ROADMAP.md Queue 1 item 10) are rejected
-when set, since no module of the port reads them yet. Which parameters the
+aliases and ``check_param_conflict``. The difference: ``device_type``
+defaults to ``cuda``. Which parameters the
 port's training path accepts is checked where they are used
 (``parallel/learners.py:create_tree_learner`` and the learners).
 
@@ -835,11 +833,13 @@ class Config:
         if self.metrics_max_series < 0:
             raise ValueError("metrics_max_series must be >= 0")
         if self.slo_specs or self.slo_windows:
-            # the SLO engine is part of the serving plane, which the
-            # port does not have yet
-            raise NotImplementedError(
-                "slo_specs/slo_windows need the serving plane "
-                "(ROADMAP.md Queue 1 item 10)")
+            # fail at configure time, not inside the background
+            # evaluator thread
+            from .observability.slo import (parse_slo_specs,
+                                            parse_window)
+            parse_slo_specs(self.slo_specs)
+            for w in self.slo_windows:
+                parse_window(w)
         if self.objective in ("multiclass", "multiclassova") and self.num_class < 2:
             raise ValueError("num_class must be >= 2 for multiclass objectives")
         if self.objective not in ("multiclass", "multiclassova", "custom",

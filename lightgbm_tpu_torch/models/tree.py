@@ -71,6 +71,10 @@ class Tree:
     # ``leaf_features_inner`` (-1 padded)
     is_linear = False
     leaf_const = leaf_coeff = leaf_features = leaf_features_inner = None
+    # grown on a dataset's bins (or carried over with its bin
+    # thresholds), not parsed from model text: what a serving AOT
+    # artifact is built from (serving/aot.py)
+    has_bins = False
 
     def __init__(self, arrays: TreeArrays, dataset=None,
                  shrinkage: float = 1.0):
@@ -98,6 +102,7 @@ class Tree:
             if a.cat_bitsets is None \
             else np.asarray(a.cat_bitsets, np.uint32)[:n]
         self.shrinkage = float(shrinkage)
+        self.has_bins = dataset is not None
         self.cat_threshold: List[np.ndarray] = [
             np.zeros(0, np.int64) for _ in range(n)]
         if self.num_leaves > 1 and dataset is not None:
@@ -464,6 +469,7 @@ def tree_from_arrays(num_leaves: int, split_feature, threshold,
         cat_bitsets=None if cat_bitsets is None
         else np.asarray(cat_bitsets, np.uint32)[:k]), shrinkage=shrinkage)
     tree.split_feature = sf
+    tree.has_bins = threshold_bin is not None
     tree.threshold = np.asarray(threshold, np.float64)[:k]
     tree.missing_code = np.asarray(missing_code, np.int32)[:k]
     if cat_threshold is not None:

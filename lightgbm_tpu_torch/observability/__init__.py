@@ -1,7 +1,7 @@
 """Structured training telemetry and the live observability plane of
 the PyTorch port (copy of the layout of ``lightgbm_tpu/observability/``,
-docs/Observability.md). The SLO engine comes with the serving plane
-(ROADMAP.md Queue 1 item 10).
+docs/Observability.md), with the SLO engine (``slo.py``) over the
+serving engine's counters.
 
   from lightgbm_tpu_torch.observability import get_telemetry
   from lightgbm_tpu_torch.observability import get_metrics, metrics_text

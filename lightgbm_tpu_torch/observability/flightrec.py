@@ -1,7 +1,6 @@
 """Crash flight recorder: the RingSink's last words, on disk (copy of
 ``lightgbm_tpu/observability/flightrec.py`` for the PyTorch port: the
-same dump, so ``tools/run_report.py`` reads it; the SLO section comes
-with the serving plane, ROADMAP.md Queue 1 item 10).
+same dump, so ``tools/run_report.py`` reads it).
 
 Training keeps a bounded in-memory ring of telemetry records
 (`RingSink`), but until now a crashed, preempted or guard-tripped run
@@ -174,6 +173,13 @@ class FlightRecorder:
             workers = get_metrics().federation_workers()
             if workers:
                 out["federation_workers"] = workers
+        except Exception:
+            pass
+        try:
+            from .slo import last_evaluation
+            ev = last_evaluation()
+            if ev is not None:
+                out["slo"] = ev
         except Exception:
             pass
         if extra:

@@ -43,11 +43,24 @@ from .utils.log import log_warning
 CHUNK_CELLS = 1 << 23
 
 
+def bucket_rows(n: int) -> int:
+    """Smallest power of two >= n: the row bucket a serving request
+    pads to (JAX ``predictor.py:60``)."""
+    b = 1
+    while b < n:
+        b <<= 1
+    return b
+
+
 def stack_trees(models: List, device) -> dict:
     """Pad every tree's node arrays to the widest tree: [T, S] tensors
     (S = max internal nodes), [T, L] leaf values and, when any node is
     categorical, its left categories as [T, S, W] 32-bit words held in
-    int64 (bit c of word w: category 32 w + c goes left)."""
+    int64 (bit c of word w: category 32 w + c goes left). ``depth`` is
+    the deepest leaf's level over the trees: the walk takes exactly that
+    many levels, with no host read between them, so a CUDA graph can
+    hold it (``serving/programs.py``). A linear tree's leaf models go up
+    with the nodes (``linear``: tree index -> ``tree_linear_args``)."""
     t = len(models)
     s = max([max(m.num_leaves - 1, 1) for m in models], default=1)
     ll = max([m.num_leaves for m in models], default=1)
@@ -84,11 +97,32 @@ def stack_trees(models: List, device) -> dict:
     as_t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
     out = dict(feat=as_t(feat), thr=as_t(thr), dleft=as_t(dleft),
                miss=as_t(miss), left=as_t(left), right=as_t(right),
-               leaf=as_t(leaf), single=as_t(single), depth=ll,
-               words=None)
+               leaf=as_t(leaf), single=as_t(single),
+               depth=max([deepest_leaf(m) for m in models], default=0),
+               words=None, linear={})
+    if any(m.is_linear for m in models):
+        from .models.linear import tree_linear_args
+        out["linear"] = {i: tree_linear_args(m, device, inner=False)
+                         for i, m in enumerate(models) if m.is_linear}
     if cats:
         out.update(is_cat=as_t(is_cat), words=as_t(words))
     return out
+
+
+def deepest_leaf(tree) -> int:
+    """The level of the tree's deepest leaf (0 for a one-leaf tree).
+    Children have larger node indices than their parent (creation
+    order), so one forward pass over the child arrays suffices."""
+    k = tree.num_leaves - 1
+    node_depth = np.zeros(max(k, 1), np.int64)
+    deepest = 0
+    for s in range(k):
+        for child in (int(tree.left_child[s]), int(tree.right_child[s])):
+            if child >= 0:
+                node_depth[child] = node_depth[s] + 1
+            else:
+                deepest = max(deepest, int(node_depth[s]) + 1)
+    return deepest
 
 
 def numerical_left(fval: torch.Tensor, thr, dleft: torch.Tensor,
@@ -106,7 +140,9 @@ def numerical_left(fval: torch.Tensor, thr, dleft: torch.Tensor,
 
 
 def predict_leaf_index(stacked: dict, x: torch.Tensor) -> torch.Tensor:
-    """[N, F] float64 rows -> [T, N] leaf index per tree."""
+    """[N, F] float64 rows -> [T, N] leaf index per tree: ``depth``
+    levels, each decided for every row and tree; a row that reached its
+    leaf keeps it, so the levels past it change nothing."""
     t = stacked["feat"].shape[0]
     n = x.shape[0]
     dev = x.device
@@ -116,8 +152,6 @@ def predict_leaf_index(stacked: dict, x: torch.Tensor) -> torch.Tensor:
     rows = torch.arange(n, device=dev)[None, :].expand(t, n)
     words = stacked["words"]
     for _ in range(stacked["depth"]):
-        if bool(done.all()):
-            break
         nd = torch.where(done, torch.zeros_like(node), node)
 
         def at(name):
@@ -147,63 +181,101 @@ def _category_left(words: torch.Tensor, nd: torch.Tensor,
     return ok & (((word >> (c % 32)) & 1) == 1)
 
 
-def used_models(src, num_iteration=None, start_iteration: int = 0) -> List:
-    """The trees of iterations ``[start_iteration, start_iteration +
-    num_iteration)`` (all from ``start_iteration`` when
-    ``num_iteration`` is None or <= 0), ``k`` trees an iteration."""
+def used_range(src, num_iteration=None, start_iteration: int = 0):
+    """The tree indices ``[start, end)`` of iterations
+    ``[start_iteration, start_iteration + num_iteration)`` (all from
+    ``start_iteration`` when ``num_iteration`` is None or <= 0), ``k``
+    trees an iteration."""
     k = src.num_tree_per_iteration
-    models = list(src.models)
-    start = min(max(int(start_iteration), 0), len(models) // k) * k
-    end = len(models)
+    total = len(src.models)
+    start = min(max(int(start_iteration), 0), total // k) * k
+    end = total
     if num_iteration is not None and num_iteration > 0:
         end = min(start + int(num_iteration) * k, end)
-    return models[start:end]
+    return start, end
 
 
-def predict_raw(models: List, data, device, k: int = 1) -> torch.Tensor:
+def used_models(src, num_iteration=None, start_iteration: int = 0) -> List:
+    """The trees of ``used_range``."""
+    start, end = used_range(src, num_iteration, start_iteration)
+    return list(src.models)[start:end]
+
+
+def add_trees(raw: torch.Tensor, vals: torch.Tensor, k: int) -> None:
+    """Tree ``i``'s values ``vals[i]`` onto column ``i % k`` of the
+    float64 ``raw`` [N, k], in tree order (one add a tree: the JAX host
+    loop's order, so the sums equal its bits)."""
+    for i in range(vals.shape[0]):
+        raw[:, i % k] += vals[i]
+
+
+def predict_raw(models: List, data, device, k: int = 1,
+                stacked=None) -> torch.Tensor:
     """Raw score per row and output column, float64 [N, k]: tree ``i``
-    adds to column ``i % k``, in tree order."""
+    adds to column ``i % k``, in tree order. ``stacked`` is the models'
+    stack when the caller holds one (a serving version's pinned stack),
+    else they are stacked here."""
     x = torch.as_tensor(np.asarray(data, np.float64), device=device)
     n = x.shape[0]
     raw = torch.zeros((n, k), dtype=torch.float64, device=device)
     if not models:
         return raw
-    stacked = stack_trees(models, device)
+    if stacked is None:
+        stacked = stack_trees(models, device)
     for lo, hi in _row_chunks(n, len(models)):
-        vals = leaf_values(stacked, models, x[lo:hi])
-        acc = raw[lo:hi]
-        for i in range(vals.shape[0]):
-            acc[:, i % k] += vals[i]
+        add_trees(raw[lo:hi], leaf_values(stacked, x[lo:hi]), k)
     return raw
 
 
-def leaf_values(stacked: dict, models: List, x: torch.Tensor
-                ) -> torch.Tensor:
+def leaf_values(stacked: dict, x: torch.Tensor) -> torch.Tensor:
     """[T, N] float64: each tree's output for the float64 rows ``x``,
     its leaf's value or, for a linear tree, its leaf model's float32
     ``const + w . x`` (``models/linear.py:linear_values``, the JAX host
     route's add chain) widened to float64."""
     idx = predict_leaf_index(stacked, x)
     vals = torch.gather(stacked["leaf"], 1, idx)
-    if any(m.is_linear for m in models):
-        from .models.linear import linear_leaf_values
-        for i, m in enumerate(models):
-            if m.is_linear:
-                vals[i] = linear_leaf_values(m, idx[i], x, inner=False)
+    if stacked["linear"]:
+        from .models.linear import linear_values
+        for i, args in stacked["linear"].items():
+            vals[i] = linear_values(idx[i], x, *args)
     return vals
 
 
-def predict_leaf(models: List, data, device) -> torch.Tensor:
+def predict_leaf(models: List, data, device, stacked=None) -> torch.Tensor:
     """Leaf index per row and tree, int32 [N, T]."""
     x = torch.as_tensor(np.asarray(data, np.float64), device=device)
     out = torch.zeros((x.shape[0], len(models)), dtype=torch.int32,
                       device=device)
     if not models:
         return out
-    stacked = stack_trees(models, device)
+    if stacked is None:
+        stacked = stack_trees(models, device)
     for lo, hi in _row_chunks(x.shape[0], len(models)):
         out[lo:hi] = predict_leaf_index(stacked, x[lo:hi]).T.to(torch.int32)
     return out
+
+
+def serve_rows(src, stacked: dict, x: torch.Tensor, kind: str
+               ) -> torch.Tensor:
+    """One serving request's device route over every tree of ``src``
+    for the float64 rows ``x`` [N, F] already on the stack's device, in
+    one chunk: ``pred_leaf`` int32 [N, T], ``raw_score`` or ``predict``
+    float64 [N] / [N, k]. The same operations, in the same order, as
+    ``predict`` of the rows, with no host read and no upload, so a CUDA
+    graph can hold it (``serving/programs.py``)."""
+    if kind == "pred_leaf":
+        return predict_leaf_index(stacked, x).T.to(torch.int32)
+    k = src.num_tree_per_iteration
+    raw = torch.zeros((x.shape[0], k), dtype=torch.float64,
+                      device=x.device)
+    t = stacked["feat"].shape[0]
+    if t:
+        add_trees(raw, leaf_values(stacked, x), k)
+        if getattr(src, "average_output", False):
+            raw /= max(t // k, 1)
+    if k == 1:
+        raw = raw[:, 0]
+    return raw if kind == "raw_score" else convert_output(src, raw)
 
 
 def _row_chunks(n: int, t: int):
@@ -217,6 +289,8 @@ def _slice_stacked(stacked: dict, lo: int, hi: int) -> dict:
     for key, val in stacked.items():
         if isinstance(val, torch.Tensor):
             out[key] = val[lo:hi]
+    out["linear"] = {i - lo: v for i, v in stacked["linear"].items()
+                     if lo <= i < hi}
     return out
 
 
@@ -231,7 +305,7 @@ def _objective_name(src) -> str:
 
 
 def predict_raw_early_stop(src, models: List, data, device, k: int,
-                           freq: int, margin: float):
+                           freq: int, margin: float, stacked=None):
     """Raw scores with margin-based prediction early stopping (JAX
     ``predictor.py:140``; reference prediction_early_stop.cpp:13-88):
     after every ``freq * k`` trees (but the last), a row whose margin
@@ -255,7 +329,8 @@ def predict_raw_early_stop(src, models: List, data, device, k: int,
     raw = torch.zeros((n, k), dtype=torch.float64, device=device)
     if not models or n == 0:
         return raw
-    stacked = stack_trees(models, device)
+    if stacked is None:
+        stacked = stack_trees(models, device)
     period = max(int(freq), 1) * k
     live = None            # the live rows' ids; None: every row
     for lo in range(0, len(models), period):
@@ -264,10 +339,9 @@ def predict_raw_early_stop(src, models: List, data, device, k: int,
         sub = _slice_stacked(stacked, lo, hi)
         acc = raw if live is None else raw[live]
         for clo, chi in _row_chunks(rows.shape[0], hi - lo):
-            vals = leaf_values(sub, models[lo:hi], rows[clo:chi])
-            part = acc[clo:chi]
-            for i in range(vals.shape[0]):
-                part[:, (lo + i) % k] += vals[i]
+            # a period starts at a multiple of k: its tree i adds to
+            # column (lo + i) % k = i % k
+            add_trees(acc[clo:chi], leaf_values(sub, rows[clo:chi]), k)
         if hi >= len(models):
             if live is not None:
                 raw[live] = acc
@@ -447,25 +521,33 @@ def predict(src, data, device, num_iteration=None, start_iteration: int = 0,
             raw_score: bool = False, pred_leaf: bool = False,
             pred_contrib: bool = False, pred_early_stop: bool = False,
             pred_early_stop_freq: int = 10,
-            pred_early_stop_margin: float = 10.0) -> torch.Tensor:
+            pred_early_stop_margin: float = 10.0,
+            stacked=None) -> torch.Tensor:
     """Booster.predict for a trained GBDT or a loaded model: leaf
     indices [N, T], SHAP contributions, or scores [N] (one tree an
     iteration) / [N, k], raw or converted by the model's objective;
-    ``average_output`` models divide by the iterations used."""
-    models = used_models(src, num_iteration, start_iteration)
+    ``average_output`` models divide by the iterations used.
+    ``stacked`` is ``stack_trees`` of all of ``src``'s trees on
+    ``device``, pinned once by the caller (a serving version, JAX
+    ``predictor.py:82-91``): the iterations used are a view of it, not
+    a new stack and upload."""
+    start, end = used_range(src, num_iteration, start_iteration)
+    models = list(src.models)[start:end]
+    if stacked is not None:
+        stacked = _slice_stacked(stacked, start, end)
     if pred_contrib:
         return predict_contrib(models, data, device,
                                src.num_tree_per_iteration)
     if pred_leaf:
-        return predict_leaf(models, data, device)
+        return predict_leaf(models, data, device, stacked)
     k = src.num_tree_per_iteration
     raw = None
     if pred_early_stop:
         raw = predict_raw_early_stop(src, models, data, device, k,
                                      pred_early_stop_freq,
-                                     pred_early_stop_margin)
+                                     pred_early_stop_margin, stacked)
     if raw is None:
-        raw = predict_raw(models, data, device, k)
+        raw = predict_raw(models, data, device, k, stacked)
     if getattr(src, "average_output", False) and models:
         raw /= max(len(models) // k, 1)
     if k == 1:

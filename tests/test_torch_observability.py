@@ -243,11 +243,17 @@ def test_end_iteration_feeds_the_phase_histogram():
 
 @pytest.mark.parametrize("trip", ["exception", "guard"])
 def test_flight_recorder_dumps(tmp_path, trip):
+    from lightgbm_tpu.observability import slo as jslo
+    from lightgbm_tpu_torch.observability import slo as pslo
     X, y = _data()
     out = {}
-    for name, pkg, kw in (("jax", lgb, {"verbose_eval": False}),
-                          ("port", lt, {"device": "cpu"})):
+    for name, pkg, kw, slo in (
+            ("jax", lgb, {"verbose_eval": False}, jslo),
+            ("port", lt, {"device": "cpu"}, pslo)):
         _reset()
+        # an SLO engine has evaluated: the dump carries its section
+        slo.SLOEngine(slo.parse_slo_specs(["a:availability:0.99"]),
+                      counts_fn=lambda: {"requests": 3}).evaluate(now=1.0)
         path = tmp_path / f"{name}.crash.json"
         p = dict(BASE, crash_dump=str(path),
                  faults="nan_grad@iteration=1",
@@ -261,10 +267,10 @@ def test_flight_recorder_dumps(tmp_path, trip):
         with open(path) as fh:
             out[name] = json.load(fh)
     j, p = out["jax"], out["port"]
-    # the JAX dump adds the last SLO evaluation once an SLO engine has
-    # run in the process; that section comes with the serving plane
-    # (ROADMAP.md Queue 1 item 10)
-    assert set(p) == set(j) - {"slo"}
+    assert set(p) == set(j) and "slo" in p
+    for d in (j, p):
+        d["slo"].pop("at")
+    assert p["slo"] == j["slo"]
     assert p["reason"] == j["reason"] == (
         "exception" if trip == "exception" else "guard:nonfinite")
     assert [t["kind"] for t in p["trips"]] == [t["kind"] for t in j["trips"]]
