@@ -123,7 +123,8 @@ of the JAX package. Phases, each fatal on failure:
    Origin, Dest, Distance; airports and carriers Zipf-skewed; label
    "delayed", ~20% positive), 2M rows and a 500k-row valid set (seed
    43), ``categorical_feature=[0, 1, 2, 4, 5, 6]``, 255 leaves, lr 0.1,
-   4 iterations (cut from 8 for time), auc and binary_logloss every
+   ``CATEGORICAL_ITERS`` iterations (2: cut from 8 for time, then from 4
+   for phase 20), auc and binary_logloss every
    iteration: (a) max_bin 255 (the partitioned learner; the
    partition's LUT route for every categorical split) and (b) max_bin 1023 (the serial learner; Origin
    and Dest keep 300 bins, wider than the 256-bin bitset, so they never
@@ -138,7 +139,8 @@ of the JAX package. Phases, each fatal on failure:
    except on rows with a categorical bin at or above 256, whose count
    is printed); a's valid AUC above the same data trained with no
    categorical feature; kernels against plain versions at 100k rows,
-   63 leaves, 2 iterations at max_bin 255 (``max_cat_to_onehot=8``, so
+   ``CUT_PARITY_LEAVES`` (31, cut from 63 for phase 20) leaves, 2
+   iterations at max_bin 255 (``max_cat_to_onehot=8``, so
    DayOfWeek goes one-hot) and 1023: the same trees, leaf values and
    valid histories to the bit. Phase 9's golden datasets include the
    reference CLI's ``categorical`` one (``categorical_feature=0,1`` in
@@ -158,7 +160,8 @@ of the JAX package. Phases, each fatal on failure:
    with ``two_round=true``: the matrices byte for byte and the same
    trees; the multi-val histogram kernel against its plain version over
    all of c's rows and a third (max abs err 0); (e) kernels against
-   plain versions at 100k rows, 63 leaves, 2 iterations for a, a', b, c.
+   plain versions at 100k rows, ``CUT_PARITY_LEAVES`` leaves, 2
+   iterations for a, a', b, c.
    Printed per run: the plan, ms/split, the debundle's CUDA-event share,
    ``hist_multival`` ms a call, the launch counts, the LUT route's
    launches (= bundled splits on the partitioned learner) and the valid
@@ -215,15 +218,17 @@ of the JAX package. Phases, each fatal on failure:
    while the ranks run: the same bins; data and feature the same trees
    within the tests' tolerance, and whether to the bit; voting's valid
    AUC within 0.002 of the data model's), then each learner kernel
-   against plain at 100k rows, 63 leaves, 2 iterations, the same trees
-   to the bit. A rank that fails or runs out of time fails the run.
+   against plain at 100k rows, ``CUT_PARITY_LEAVES`` (31, cut from 63
+   for phase 20) leaves, 2 iterations, the same trees to the bit. A rank
+   that fails or runs out of time fails the run.
    (e) the elastic drill (``drill_references`` in the ranks, then
    ``drill_phase``: legs of this script with ``--leg``), at the phase's
    shapes with the drill's watchdog bounds (heartbeats every 100 ms, a
    2 s heartbeat timeout, a 2 s grace, a 3 s stall timeout at 100k rows
    and 60 s at 1M, where an iteration takes 1-4 s) and a coordinated
    checkpoint every iteration: references on the data
-   learner at 255 and 1023 bins, 4 iterations (the texts, a write's ms
+   learner at 255 and 1023 bins, ``DRILL_ITERS`` (3, cut from 4 for
+   phase 20) iterations (the texts, a write's ms
    a rank, the shard bytes); kill (``kill_rank@rank=1,iter=2``: rank 1
    exits -9, rank 0 43 with one ``peer_lost`` abort line, the seconds
    between the two exits printed and held to the heartbeat timeout plus
@@ -247,7 +252,8 @@ of the JAX package. Phases, each fatal on failure:
    the tests' tolerance, and whether to the bit; voting its valid AUC),
    the ranks' trees equal, each run's kernels launched on every rank,
    and kernel against plain bitwise at 100k rows (the Expo's first
-   100k, a subset that keeps its multi-val plan), 63 leaves; the
+   100k, a subset that keeps its multi-val plan), ``CUT_PARITY_LEAVES``
+   leaves; the
    extra_trees runs, whose draws differ over ranks by design, there
    also within the tests' tolerance of the same 2-rank run on the CPU
    (their 1M-row valid AUC printed beside the single process's).
@@ -307,10 +313,33 @@ of the JAX package. Phases, each fatal on failure:
    policies, the HTTP frontend's every endpoint with ``/slo`` after an
    SLO engine evaluated; no capture after warmup, no fallback, no failed
    artifact attach. Prints the ``{"serving": ...}`` record.
+20. the fleets on the card (``fleet_phase``, run after phase 19 on phase
+   3's model as alpha and phase 6's as beta, the same ``ServingConfig``,
+   requests from the 2M matrix's first 4096 rows): (a) a thread
+   ``FleetEngine`` of 2 replicas (the models from their texts), every
+   kind bitwise ``Booster.predict`` at 1, 7, 64, 300 and 700 rows, a
+   0.25 canary alpha -> beta over 400 requests (exactly 100 to beta,
+   each its target's), a shadow of alpha to its text under a second name
+   (0 mismatches, no shadow response returned), a cold replica capturing
+   0 graphs, a replica killed under a 2-thread closed loop (none lost,
+   none answered twice), a 50 qps tenant shed with ``quota_exceeded``,
+   bench.py's serving block (batch 1 and 64, 2 threads, 2 s) on 2 live
+   replicas and on 1; (b) a process fleet of 2 workers
+   (``serving_isolation=process``, the models as Boosters: each published
+   as text with its AOT artifact, the shared-memory ring on), each on
+   ``cuda`` with 12 graphs a model, bitwise over JSON frames (1 and 64
+   rows: 14,336 B, under ``serving_shm_min_bytes``) and the ring (512
+   rows), worker 0 SIGKILLed under a 200 qps open loop of 2 s (none lost)
+   and ``crash_replica@rid=1`` meanwhile, both classified and respawned
+   (ready ms, the 24 captures a respawn pays), each worker's reserved
+   device memory, a 2 s soak with the kill storm at availability 1.0.
+   Every fleet is stopped and its workers reaped in a ``finally``. Prints
+   ``[phase 20 ...]`` lines and the ``{"fleet": ...}`` record.
 
-The line before the per-kernel JSON record is phase 19's serving record;
-the second-to-last line of output is the per-kernel JSON record; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the serving record is phase 20's fleet record, the line
+before the per-kernel JSON record is phase 19's serving record, the
+second-to-last line of output is the per-kernel JSON record and the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -339,6 +368,13 @@ ESTIMATOR_ROWS = 500_000
 # phase 8's CSV and LibSVM files hold this many rows (cut from 100k for
 # phase 19 as well)
 TEXT_ROWS = 50_000
+# the kernel-against-plain runs of phase 11, phase 12 (e) and phase 16
+# in the ranks ((b)'s four learners and (f)'s five configs, the
+# extra_trees configs' 2-rank CPU runs too) grow this many leaves,
+# phase 11 trains CATEGORICAL_ITERS iterations and phase 16 (e)'s drill
+# DRILL_ITERS (cut from 63, 4 and 4 to make room for phase 20; PERF.md
+# section 4)
+CUT_PARITY_LEAVES = 31
 # kernel launches of one wrapper call at phase 2's timed shapes (the
 # histograms past one chunk add their reduce)
 LAUNCHES_A_CALL = {"hist_segment": 2, "partition_segment": 2,
@@ -2403,7 +2439,8 @@ def sampling_phase(X, y, binned, binned_wide, bin_bst, mc_bst, dev, reps):
 
 # ---- phase 11: categorical features ------------------------------------
 AIRLINE_CATEGORICAL = [0, 1, 2, 4, 5, 6]
-CATEGORICAL_ITERS = 4  # cut from 8 for the time limit (PERF.md section 4)
+# cut from 8, then 4, for the time limit (PERF.md section 4)
+CATEGORICAL_ITERS = 2
 CATEGORICAL_PROFILE_LEAVES = 63   # the profiled tree, cut from 255 as well
 CATEGORICAL_PATH = {255: ("hist_segment", "partition_segment", "split_scan"),
                     1023: ("hist_rows", "split_scan")}
@@ -2618,17 +2655,18 @@ def leaf_walk_check(label, bst, X, binned, dev, wide_cols):
 
 
 def categorical_parity(dev):
-    """Kernels against plain versions at 100k rows, 63 leaves,
-    ``PARITY_ITERS`` iterations, max_bin 255 (max_cat_to_onehot 8) and
-    1023: the same
-    trees, leaf values and valid histories to the bit."""
+    """Kernels against plain versions at 100k rows, ``CUT_PARITY_LEAVES``
+    leaves, ``PARITY_ITERS`` iterations, max_bin 255 (max_cat_to_onehot
+    8) and 1023: the same trees, leaf values and valid histories to the
+    bit."""
     import torch
     import lightgbm_tpu_torch as lt
     X, y = airline_like(100_000, seed=3)
     Xv, yv = airline_like(20_000, seed=4)
     for max_bin, extra in ((255, {"max_cat_to_onehot": 8}), (1023, {})):
         t0 = time.perf_counter()
-        params = dict({"objective": "binary", "num_leaves": 63,
+        params = dict({"objective": "binary",
+                       "num_leaves": CUT_PARITY_LEAVES,
                        "learning_rate": 0.1, "max_bin": max_bin,
                        "metric": "auc,binary_logloss", "verbosity": -1},
                       **extra)
@@ -3095,16 +3133,16 @@ def two_round_check(csr, y, dev):
 
 
 def efb_parity(dev, expo, expo_num, bosch):
-    """(e): kernels against plain versions at 100k rows, 63 leaves,
-    ``PARITY_ITERS`` iterations, for (a), (a'), (b) and (c): the same trees and leaf
-    values to the bit."""
+    """(e): kernels against plain versions at 100k rows,
+    ``CUT_PARITY_LEAVES`` leaves, ``PARITY_ITERS`` iterations, for (a),
+    (a'), (b) and (c): the same trees and leaf values to the bit."""
     import torch
     import lightgbm_tpu_torch as lt
     runs = (("a", expo, 255), ("a'", expo_num, 255), ("b", expo, 1023),
             ("c", bosch, 63))
     for label, (data, y), max_bin in runs:
         t0 = time.perf_counter()
-        params = {"objective": "binary", "num_leaves": 63,
+        params = {"objective": "binary", "num_leaves": CUT_PARITY_LEAVES,
                   "learning_rate": 0.1, "max_bin": max_bin,
                   "verbosity": -1}
         if label == "c":
@@ -4772,6 +4810,8 @@ def par_rank(rank, size, rdzv, out, n, iters):
     # the feature learner's rows: every row, with the pooled mappers
     full = {1023: par_full(local[1023], 1023, n, X, y)}
     Xv, yv = higgs_like(n // 4, seed=43) if rank == 0 else (None, None)
+    parts = {}
+    t1 = time.perf_counter()
     if rank == 0:
         # the single process on every row and the same bins, per-phase
         full[255] = par_full(local[255], 255, n, X, y)
@@ -4789,6 +4829,8 @@ def par_rank(rank, size, rdzv, out, n, iters):
                 * 1e3, valid_auc=auc(yv, bst.predict(Xv, raw_score=True)))
             del bst
         torch.cuda.empty_cache()
+    parts["single"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
     for run, (learner, mb) in PAR_RUNS.items():
         ds = full[mb] if learner == "feature" else local[mb]
         params = par_params(learner, mb, n)
@@ -4811,16 +4853,22 @@ def par_rank(rank, size, rdzv, out, n, iters):
             else auc(yv, bst.predict(Xv, raw_score=True)))
         del bst
         torch.cuda.empty_cache()
-    # kernel against plain at 100k rows, 63 leaves, PARITY_ITERS iterations
+    parts["runs"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    # kernel against plain at 100k rows, CUT_PARITY_LEAVES leaves,
+    # PARITY_ITERS iterations
     Xp, yp = higgs_like(100_000, seed=3)
     plo, phi = host_row_range(len(Xp))
     for run, (learner, mb) in PAR_RUNS.items():
-        p = dict(par_params(learner, mb, len(Xp)), num_leaves=63)
+        p = dict(par_params(learner, mb, len(Xp)),
+                 num_leaves=CUT_PARITY_LEAVES)
         rows = slice(None) if learner == "feature" else slice(plo, phi)
         ds = lt.Dataset(Xp[rows], label=yp[rows], params=p)
         kb = lt.train(p, ds, PARITY_ITERS, device=dev)
         pb = lt.train(p, ds, PARITY_ITERS, device=dev, ops="plain")
         res["parity"][run] = trees_bitwise(kb.models, pb.models)
+    parts["parity"] = time.perf_counter() - t1
+    res["part_s"] = parts
     # (e) the drill's references and the legs' binned rows
     t1 = time.perf_counter()
     res["drill"] = drill_references(local, full, rank, out, n, dev)
@@ -4837,7 +4885,7 @@ def par_rank(rank, size, rdzv, out, n, iters):
 
 # ---- phase 16 (e): the elastic drill; (f): Queue 1 item 13 on ranks ----
 
-DRILL_ITERS = 4
+DRILL_ITERS = 3
 # the watchdog's drill bounds (detection in seconds, not minutes)
 DRILL_WATCHDOG = {"elastic_heartbeat_ms": 100.0,
                   "elastic_heartbeat_timeout_ms": 2000.0,
@@ -5244,13 +5292,20 @@ def item13_runs(z, local, full, rank, n, iters, dev, Xv, yv):
     (iii) regression_l1 under ``pre_partition`` (the latent score as the
     label) on data at 255. Then each config's kernel against plain at
     100k rows (the Expo's first 100k as a subset, which keeps its
-    multi-val plan), 63 leaves, and the extra_trees configs' kernel runs
-    against the same 2-rank runs on the CPU."""
+    multi-val plan), CUT_PARITY_LEAVES leaves, and the extra_trees
+    configs' kernel runs against the same 2-rank runs on the CPU."""
     import torch
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.ops import _native
     from lightgbm_tpu_torch.parallel.ingest import host_row_range
     res = {"runs": {}, "single": {}, "parity": {}, "cpu": {}}
+    parts = res["part_s"] = {}
+    t_part = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
 
     def run(name, params, ds, valid=None, single=False):
         _native.reset_launch_counts()
@@ -5286,13 +5341,16 @@ def item13_runs(z, local, full, rank, n, iters, dev, Xv, yv):
                           - binned.num_dense_groups,
                           slots_k=int(binned.mv_slots.shape[1]),
                           bin_s=time.perf_counter() - t0)
+    part("mv_data")
     if rank == 0:
         run("multival", dict(mvp, tree_learner="serial"), ds_mv, mvv,
             single=True)
         res["multival_f64"] = check_multival_f64(binned, dev, 10)
+    part("mv_single_f64")
     run("multival_data", dict(mvp, tree_learner="data"), ds_mv, mvv)
     run("multival_voting", dict(mvp, tree_learner="voting", top_k=20),
         ds_mv, mvv)
+    part("mv_runs")
     # (ii) extra_trees and by-node sampling
     for mb, learner in ((255, "data"), (1023, "feature")):
         p = dict(par_params(learner, mb, n), **ITEM13_EXTRA)
@@ -5313,7 +5371,9 @@ def item13_runs(z, local, full, rank, n, iters, dev, Xv, yv):
         single.pop("pre_partition")
         run("l1_255", single, full[255], single=True)
     run("l1_data_255", l1, local[255])
-    # kernel against plain, 63 leaves, PARITY_ITERS iterations
+    part("extra_l1_runs")
+    # kernel against plain, CUT_PARITY_LEAVES leaves, PARITY_ITERS
+    # iterations
     Xp, zp = higgs_latent(100_000, seed=3)
     yp = (zp > 0).astype(np.float32)
     plo, phi = host_row_range(len(Xp))
@@ -5333,18 +5393,20 @@ def item13_runs(z, local, full, rank, n, iters, dev, Xv, yv):
                         (Xp[plo:phi], zp[plo:phi])),
     }
     for name, (p, data) in cases.items():
-        p = dict(p, num_leaves=63)
+        p = dict(p, num_leaves=CUT_PARITY_LEAVES)
         ds = data if isinstance(data, lt.Dataset) \
             else lt.Dataset(data[0], label=data[1], params=p)
         kb = lt.train(p, ds, PARITY_ITERS, device=dev)
         pb = lt.train(p, ds, PARITY_ITERS, device=dev, ops="plain")
         res["parity"][name] = trees_bitwise(kb.models, pb.models)
+        part(f"parity_{name}")
         if name in ITEM13_CPU_CASES:
             cb = lt.train(p, lt.Dataset(data[0], label=data[1], params=p),
                           PARITY_ITERS, device="cpu")
             res["cpu"][name] = dict(
                 kernel=[par_tree(t) for t in kb.models],
                 cpu=[par_tree(t) for t in cb.models])
+            part(f"cpu_{name}")
     return res
 
 
@@ -5417,7 +5479,8 @@ def item13_check(ranks):
                 close_cpu &= all(par_same(a, b, False) for a, b in pairs)
             if not close_cpu:
                 fail(f"phase 16 (f) {name}: the card's 2-rank trees are not "
-                     "the 2-rank CPU run's (100k rows, 63 leaves)")
+                     "the 2-rank CPU run's (100k rows, "
+                     f"{CUT_PARITY_LEAVES} leaves)")
             rec.update(cpu_trees_equal_to_the_bit=exact_cpu,
                        cpu_trees_within_tolerance=close_cpu)
         out["runs"][name] = rec
@@ -5557,12 +5620,16 @@ def parallel_phase(n, iters, dev, limit_s):
               f"trees: to the bit {exact}, within tolerance {close}; "
               f"kernel vs plain bitwise; launches (rank 0) {r['launches']}")
     print(f"[parallel] ranks: binning {r0['bin_s']:.1f} s, rank 0 in all "
-          f"{r0['total_s']:.1f} s; the bins of every rank equal this "
-          "process's on every row")
+          f"{r0['total_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in r0["part_s"].items())
+          + " s); the bins of every rank equal this process's on every "
+          "row")
     # (f) item 13 over the ranks, (e) the elastic drill
     out["item13"] = item13_check(ranks)
     out["item13_s"] = r0["item13_s"]
-    print(f"[item13] (f) in the ranks {r0['item13_s']:.1f} s")
+    print(f"[item13] (f) in the ranks {r0['item13_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in
+                      r0["item13"]["part_s"].items()) + " s)")
     t1 = time.perf_counter()
     try:
         out["drill"] = drill_phase(tmp, n, [rk["drill"] for rk in ranks])
@@ -6214,6 +6281,432 @@ def serving_phase(models, X, dev, card):
     return out
 
 
+# ---- phase 20: the fleets on the card ---------------------------------
+
+FLEET_SIZES = (1, 7, 64, 300, 700)   # (a)'s bitwise request sizes
+FLEET_CANARY = 400                   # requests of the 0.25 canary
+FLEET_SHADOW = 50                    # requests mirrored to the shadow
+FLEET_TENANT_QPS = 50.0              # the shed tenant's rate and burst
+FLEET_WAIT_S = 90.0                  # a respawn's bound
+
+
+class FleetRecorder:
+    """A fleet as the load generator drives it (every other attribute is
+    the fleet's), keeping every request's rows, kind and future, so that
+    the loops' responses are held against ``Booster.predict`` of their
+    target after the loop."""
+
+    def __init__(self, fl):
+        import threading
+        self._fl = fl
+        self._lock = threading.Lock()
+        self.log = []
+
+    def __getattr__(self, name):
+        return getattr(self._fl, name)
+
+    def submit(self, rows, kind="predict", timeout_ms=None, model=None,
+               tenant="default"):
+        fut = self._fl.submit(rows, kind=kind, timeout_ms=timeout_ms,
+                              model=model, tenant=tenant)
+        with self._lock:
+            self.log.append((rows, kind, fut))
+        return fut
+
+
+def fleet_responses_equal(log, refs, label):
+    """Every (rows, kind, future) of ``log`` against ``Booster.predict``
+    of its target model: rows grouped by (target, kind), one predict a
+    group, compared to the bit. Returns the responses checked."""
+    groups = {}
+    for rows, kind, fut in log:
+        out = fut.result(timeout=60.0)
+        key = (fut.meta["target"], kind)
+        groups.setdefault(key, ([], []))
+        groups[key][0].append(rows)
+        groups[key][1].append(out)
+    for (target, kind), (rows, outs) in groups.items():
+        ref = refs[target].predict(np.concatenate(rows),
+                                   **SERVING_KINDS[kind])
+        if np.concatenate(outs).tobytes() != ref.tobytes():
+            fail(f"phase 20 {label}: a {kind} response of {target} is not "
+                 "Booster.predict of its rows")
+    return sum(len(o) for _, o in groups.values())
+
+
+def fleet_captures(fl):
+    """The CUDA graphs the thread fleet's engines captured."""
+    return sum(r._captures() for r in fl.replicas)
+
+
+def fleet_wait(cond, label, timeout=FLEET_WAIT_S):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return
+        time.sleep(0.05)
+    fail(f"phase 20 {label}: not within {timeout:.0f} s")
+
+
+def fleet_bitwise(fl, refs, Xr, sizes, label):
+    for n in sizes:
+        for model, ref in refs.items():
+            for kind, kw in SERVING_KINDS.items():
+                got = fl.predict(Xr[:n], kind=kind, model=model)
+                if got.tobytes() != ref.predict(Xr[:n], **kw).tobytes():
+                    fail(f"phase 20 {label}: {model} {kind} at {n} rows is "
+                         "not Booster.predict")
+    return len(sizes) * len(refs) * len(SERVING_KINDS)
+
+
+def fleet_kill_under_load(fl, refs, Xr):
+    """Two closed-loop threads on alpha; a replica killed under them: no
+    request lost, none answered twice."""
+    import threading
+    before = fl.stats()
+    log, errors = [], []
+    stop = threading.Event()
+
+    def worker(tid):
+        i = tid
+        while not stop.is_set():
+            lo = (i * 37) % (len(Xr) - 4)
+            i += 2
+            try:
+                fut = fl.submit(Xr[lo:lo + 4], model="alpha")
+                fut.result(timeout=60.0)
+            except Exception as e:   # surfaced below
+                errors.append(repr(e))
+                return
+            log.append((Xr[lo:lo + 4], "predict", fut))
+    threads = [threading.Thread(target=worker, args=(t,), daemon=True)
+               for t in range(2)]
+    for t in threads:
+        t.start()
+    time.sleep(0.4)
+    victim = [r.rid for r in fl.replicas if r.state == "ok"][0]
+    fl.kill_replica(victim)
+    time.sleep(0.6)
+    stop.set()
+    for t in threads:
+        t.join(60.0)
+    if errors:
+        fail(f"phase 20 kill: {errors[:3]}")
+    after = fl.stats()
+    requests = after["requests"] - before["requests"]
+    redispatched = after.get("redispatches", 0) \
+        - before.get("redispatches", 0)
+    served = after["engine_totals"]["requests"] \
+        - before["engine_totals"]["requests"]
+    if requests != len(log) or served != requests + redispatched \
+            or after["errors"] != before["errors"]:
+        fail(f"phase 20 kill: {len(log)} answered, fleet requests "
+             f"{requests}, engine requests {served}, redispatches "
+             f"{redispatched}, errors {after['errors']}")
+    fleet_responses_equal(log, refs, "kill")
+    return {"victim": victim, "requests": requests,
+            "redispatches": redispatched, "lost": 0, "duplicates": 0}
+
+
+def fleet_thread(texts, refs, Xr, dev, card, fleets):
+    """(a) the thread fleet: 2 replicas sharing each version's graphs."""
+    from lightgbm_tpu_torch.serving import (FleetEngine, QuotaExceededError,
+                                            ServingConfig, TenantQuotas,
+                                            loadgen)
+    cfg = ServingConfig(buckets=SERVING_BUCKETS, device="always",
+                        fallback_to_host=False)
+    out = {}
+    t0 = time.perf_counter()
+    fl = FleetEngine(config=cfg, replicas=2, default_model="alpha",
+                     device=dev, quotas=TenantQuotas(tenants={
+                         "t50": (FLEET_TENANT_QPS, FLEET_TENANT_QPS)}))
+    fleets.append(fl)
+    for name in ("alpha", "beta"):
+        fl.load_model(name, texts[name])
+    out["load_s"] = time.perf_counter() - t0
+    out["captures_at_load"] = fleet_captures(fl)
+    out["bitwise_requests"] = fleet_bitwise(fl, refs, Xr, FLEET_SIZES,
+                                            "thread")
+    # a canary at 0.25: exactly a quarter of alpha's traffic to beta
+    fl.router.set_canary("alpha", "beta", 0.25)
+    log = [(Xr[i:i + 1], "predict", fl.submit(Xr[i:i + 1], model="alpha"))
+           for i in range(FLEET_CANARY)]
+    fleet_responses_equal(log, refs, "canary")
+    to_beta = sum(f.meta["target"] == "beta" for _, _, f in log)
+    if to_beta != FLEET_CANARY // 4:
+        fail(f"phase 20 canary: {to_beta} of {FLEET_CANARY} to beta")
+    fl.router.set_canary("alpha", None, 0.0)
+    out["canary"] = {"requests": FLEET_CANARY, "to_beta": to_beta}
+    # a shadow of alpha to the same text under a second name: compared,
+    # never returned
+    fl.load_model("alpha_shadow", texts["alpha"])
+    fl.router.set_shadow("alpha", "alpha_shadow")
+    log = [(Xr[i:i + 2], "predict", fl.submit(Xr[i:i + 2], model="alpha"))
+           for i in range(FLEET_SHADOW)]
+    fleet_responses_equal(log, refs, "shadow")
+    if any(f.meta["target"] != "alpha" for _, _, f in log):
+        fail("phase 20 shadow: a response came from the shadow")
+    fleet_wait(lambda: fl.stats().get("shadow_parity_ok", 0)
+               + fl.stats().get("shadow_parity_mismatch", 0)
+               >= FLEET_SHADOW, "shadow compares", 60.0)
+    st = fl.stats()
+    if st.get("shadow_parity_mismatch", 0) or st.get("shadow_errors", 0) \
+            or st["shadow_mirrored"] != FLEET_SHADOW:
+        fail(f"phase 20 shadow: {st.get('shadow_parity_mismatch')} "
+             f"mismatches, {st.get('shadow_mirrored')} mirrored")
+    fl.router.set_shadow("alpha", None)
+    out["shadow"] = {"mirrored": st["shadow_mirrored"],
+                     "parity_ok": st["shadow_parity_ok"], "mismatches": 0}
+    captures = fleet_captures(fl)
+    if captures != 3 * len(SERVING_BUCKETS) * len(SERVING_KINDS):
+        fail(f"phase 20 thread: {captures} graphs for 3 models")
+    t0 = time.perf_counter()
+    rep = fl.cold_start_replica()
+    out["cold_start_s"] = time.perf_counter() - t0
+    if rep.cold_start_captures != 0 or fleet_captures(fl) != captures:
+        fail(f"phase 20: the cold replica captured "
+             f"{rep.cold_start_captures} graphs")
+    out["cold_start_captures"] = rep.cold_start_captures
+    out["kill"] = fleet_kill_under_load(fl, refs, Xr)
+    # a tenant past its 50 qps: shed at admission, structured
+    futs, shed = [], []
+    for i in range(3 * int(FLEET_TENANT_QPS)):
+        try:
+            futs.append((Xr[i:i + 1], "predict",
+                         fl.submit(Xr[i:i + 1], tenant="t50")))
+        except QuotaExceededError as e:
+            d = e.to_dict()
+            if d["error"] != "quota_exceeded" or e.http_status != 429 \
+                    or d.get("tenant") != "t50" \
+                    or not d.get("retry_after_s", 0) > 0:
+                fail(f"phase 20 quota: {d}")
+            shed.append(d)
+    fleet_responses_equal(futs, refs, "quota")
+    if not shed or fl.stats()["quota_shed"] != len(shed):
+        fail(f"phase 20 quota: {len(shed)} shed, "
+             f"{fl.stats().get('quota_shed')} counted")
+    out["quota"] = {"admitted": len(futs), "shed": len(shed),
+                    "error": shed[0]["error"]}
+    # bench.py's serving block on 2 live replicas, then on 1
+    live = [r.rid for r in fl.replicas if r.state == "ok"]
+    out["loops"] = {}
+    out["loops"]["2"] = loadgen.serving_block(fl, Xr, batch_sizes=(1, 64),
+                                              threads=2, duration_s=2.0)
+    fl.drain_replica(live[-1])
+    out["loops"]["1"] = loadgen.serving_block(fl, Xr, batch_sizes=(1, 64),
+                                              threads=2, duration_s=2.0)
+    for k, block in out["loops"].items():
+        if block["errors"]:
+            fail(f"phase 20 closed loop on {k} replicas: "
+                 f"{block['errors']} errors")
+        print(f"[phase 20 thread] {card}: {k} replica(s), closed loop "
+              f"(batch 1 and 64, 2 threads, 2 s): "
+              f"{block['throughput_rps']} req/s, {block['rows_per_s']} "
+              f"rows/s, p50 {block['p50_ms']} ms, p95 {block['p95_ms']} "
+              f"ms, p99 {block['p99_ms']} ms")
+    st = fl.stats()
+    if fleet_captures(fl) != captures or st["errors"] \
+            or st["engine_totals"].get("fallbacks", 0):
+        fail(f"phase 20 thread: captures {fleet_captures(fl)}, errors "
+             f"{st['errors']}, fallbacks "
+             f"{st['engine_totals'].get('fallbacks')}")
+    out["requests"] = st["requests"]
+    out["redispatches"] = st.get("redispatches", 0)
+    print(f"[phase 20 thread] {card}: 2 replicas, alpha and beta bitwise "
+          f"Booster.predict ({out['bitwise_requests']} requests, "
+          f"{FLEET_SIZES} rows, every kind); {out['captures_at_load']} "
+          f"graphs at load, a cold replica {out['cold_start_captures']} in "
+          f"{out['cold_start_s']:.3f} s; canary 0.25: {to_beta} of "
+          f"{FLEET_CANARY} to beta; shadow: {out['shadow']['parity_ok']} "
+          f"of {FLEET_SHADOW} equal, none returned; kill under load: "
+          f"{out['kill']['requests']} requests, "
+          f"{out['kill']['redispatches']} redispatched, 0 lost, 0 twice; "
+          f"quota: {len(shed)} of {3 * int(FLEET_TENANT_QPS)} shed "
+          "(quota_exceeded, 429)")
+    fl.stop()
+    return out
+
+
+def fleet_process(models, refs, Xr, dev, card, fleets):
+    """(b) the process fleet: 2 workers, each its own CUDA context."""
+    import os
+    import signal
+    import threading
+    from lightgbm_tpu_torch.robustness.faults import set_fault_plan
+    from lightgbm_tpu_torch.serving import (FleetEngine, ProcFleetOptions,
+                                            ServingConfig, loadgen)
+    cfg = ServingConfig(buckets=SERVING_BUCKETS, device="always",
+                        fallback_to_host=False)
+    opts = ProcFleetOptions(heartbeat_ms=100.0, heartbeat_timeout_ms=5000.0,
+                            spawn_timeout_s=FLEET_WAIT_S, restart_max=5)
+    out = {}
+    t0 = time.perf_counter()
+    fl = FleetEngine(models={"alpha": models["a"], "beta": models["b"]},
+                     config=cfg, replicas=2, default_model="alpha",
+                     isolation="process", proc_opts=opts, device=dev)
+    fleets.append(fl)
+    out["start_s"] = time.perf_counter() - t0
+    reps = fl.replicas
+    per_model = len(SERVING_BUCKETS) * len(SERVING_KINDS)
+    for r in reps:
+        if r.device != dev.type or r.captures != {"alpha": per_model,
+                                                "beta": per_model} \
+                or r.aot_models != {"alpha": True, "beta": True}:
+            fail(f"phase 20 process: replica {r.rid} device {r.device}, "
+                 f"captures {r.captures}, AOT {r.aot_models}")
+    out["spawn_ready_ms"] = [r.restart_ready_ms for r in reps]
+    out["spawn_split_ms"] = [r.spawn_split_ms for r in reps]
+    out["captures"] = [r.captures for r in reps]
+
+    def ring_writes():
+        return sum(r.shm_stats()["writes"] for r in fl.replicas)
+    w0 = ring_writes()
+    fleet_bitwise(fl, refs, Xr, (1, 64), "process JSON")
+    if ring_writes() != w0:
+        fail("phase 20 process: a request under serving_shm_min_bytes "
+             "took the ring")
+    fleet_bitwise(fl, refs, Xr, (512,), "process ring")
+    shm = [r.shm_stats() for r in fl.replicas]
+    if ring_writes() - w0 != 2 * len(SERVING_KINDS) \
+            or any(s["fallbacks"] or s["oversize_misses"]
+                   or s["full_misses"] for s in shm):
+        fail(f"phase 20 process: ring {shm}")
+    out["ring"] = shm
+    fleet_wait(lambda: all("device" in r.stats_lite()
+                           for r in fl.replicas), "worker stats", 10.0)
+    out["reserved_mb"] = [r.stats_lite().get("device_reserved_bytes", 0)
+                          / 2**20 for r in fl.replicas]
+    # SIGKILL worker 0 under a 200 qps open loop
+    rec = FleetRecorder(fl)
+    victim = reps[0]
+    inc = victim.incarnation
+    killer = threading.Timer(0.5, os.kill, (victim.pid, signal.SIGKILL))
+    killer.start()
+    block = loadgen.open_loop(rec, Xr, qps=200.0, duration_s=2.0)
+    killer.join()
+    out["open"] = {k: block[k] for k in ("requests", "errors",
+                                         "throughput_rps", "p50_ms",
+                                         "p95_ms", "p99_ms")}
+    checked = fleet_responses_equal(rec.log, refs, "sigkill")
+    if block["errors"] or checked != block["requests"]:
+        fail(f"phase 20 process: {block['errors']} lost in the SIGKILL")
+    # crash_replica on the other worker while worker 0 respawns (no
+    # traffic meanwhile)
+    other = reps[1]
+    inc1 = other.incarnation
+    plan = set_fault_plan(f"crash_replica@rid={other.rid},signal=9")
+    try:
+        fleet_wait(lambda: victim.state == "ok" and victim.incarnation > inc,
+                   "the SIGKILLed worker's respawn")
+        fleet_wait(lambda: other.state == "ok" and other.incarnation > inc1,
+                   "crash_replica's respawn")
+        if plan.pending():
+            fail("phase 20 process: crash_replica did not fire")
+    finally:
+        set_fault_plan(None)
+    out["sigkill"] = {"reason": victim.last_death.get("reason_code"),
+                      "respawn_ready_ms": victim.restart_ready_ms,
+                      "respawn_split_ms": victim.spawn_split_ms,
+                      "cold_start_captures": victim.cold_start_captures}
+    out["crash_replica"] = {"reason": other.last_death.get("reason_code"),
+                            "respawn_ready_ms": other.restart_ready_ms,
+                            "respawn_split_ms": other.spawn_split_ms,
+                            "cold_start_captures":
+                                other.cold_start_captures}
+    for r in reps:
+        if r.cold_start_captures != 2 * per_model or r.device != dev.type:
+            fail(f"phase 20 process: respawned replica {r.rid} captured "
+                 f"{r.cold_start_captures} on {r.device}")
+    # a 2 s soak with the kill storm (its respawn is not waited for: the
+    # fleet's stop ends a respawn in flight and reaps its worker)
+    rec = FleetRecorder(fl)
+    soak = loadgen.soak_loop(rec, Xr, duration_s=2.0, qps=100.0,
+                             models=["alpha", "beta"],
+                             kill_storm_every_s=0.5,
+                             kill_storm_kinds=("crash",))
+    fleet_responses_equal(rec.log, refs, "soak")
+    if soak["availability"] != 1.0 or soak["non_shed_errors"] \
+            or soak["fault_storms"] < 1:
+        fail(f"phase 20 soak: {json.dumps(soak)}")
+    out["soak"] = {k: soak[k] for k in (
+        "requests", "availability", "non_shed_errors", "fault_storms",
+        "replica_deaths", "replica_restarts", "redispatches", "p50_ms",
+        "p99_ms")}
+    st = fl.stats()
+    if st["errors"] or st["engine_totals"].get("fallbacks", 0):
+        fail(f"phase 20 process: errors {st['errors']}, fallbacks "
+             f"{st['engine_totals'].get('fallbacks')}")
+    out["requests"] = st["requests"]
+    out["restarts"] = st.get("replica_restarts", 0)
+    print(f"[phase 20 process] {card}: 2 workers on "
+          f"{[r.device for r in reps]}, {per_model} graphs a model each, "
+          f"AOT attached; up in {out['start_s']:.1f} s (ready ms "
+          f"{out['spawn_ready_ms']}: {out['spawn_split_ms']}); reserved "
+          "device MB "
+          f"{[round(v, 1) for v in out['reserved_mb']]}; bitwise "
+          "Booster.predict at 1 and 64 rows (JSON) and 512 (the ring, "
+          f"{2 * len(SERVING_KINDS)} writes, 0 fallbacks)")
+    print(f"[phase 20 process] {card}: SIGKILL under 200 qps: "
+          f"{block['requests']} requests, 0 lost, p50 {block['p50_ms']} ms, "
+          f"p99 {block['p99_ms']} ms; {out['sigkill']['reason']}, respawn "
+          f"ready {out['sigkill']['respawn_ready_ms']} ms "
+          f"({out['sigkill']['respawn_split_ms']}), "
+          f"{out['sigkill']['cold_start_captures']} captures; crash_replica "
+          f"{out['crash_replica']['reason']}, ready "
+          f"{out['crash_replica']['respawn_ready_ms']} ms; soak with the "
+          f"kill storm: {soak['requests']} requests, availability "
+          f"{soak['availability']}, {soak['fault_storms']} storm(s)")
+    fl.stop(drain=False)
+    return out
+
+
+def fleet_phase(models, X, dev, card):
+    """Phase 20: the fleets on the card. (a) a thread fleet of 2 replicas
+    serving phase 3's model (alpha) and phase 6's (beta) from their model
+    texts: every kind bitwise ``Booster.predict`` at 1-700 rows, a 0.25
+    canary (exactly a quarter to beta, each response its target's), a
+    shadow of alpha to the same text under a second name (compared, never
+    returned), a cold replica capturing no graph, a replica killed under
+    a 2-thread closed loop (none lost, none answered twice), a 50 qps
+    tenant shed with ``quota_exceeded``, bench.py's serving block on 2
+    replicas and on 1; (b) a process fleet of 2 workers (the models as
+    Boosters: text and AOT artifact published), each on ``cuda`` with 12
+    graphs a model, bitwise over JSON frames and the shared-memory ring,
+    a worker SIGKILLed under a 200 qps open loop (none lost) and
+    respawned, ``crash_replica`` classified and respawned, a 2 s soak
+    with the kill storm at availability 1.0. Every fleet is stopped and
+    its workers reaped in a ``finally``."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import _native
+    t_phase = time.perf_counter()
+    _native.reset_launch_counts()
+    Xr = np.ascontiguousarray(X[:SERVING_ROWS], np.float64)
+    texts = {"alpha": models["a"].model_to_string(),
+             "beta": models["b"].model_to_string()}
+    refs = {k: lt.Booster(model_str=t, device=dev) for k, t in texts.items()}
+    out = {}
+    fleets = []
+    try:
+        t0 = time.perf_counter()
+        out["thread"] = fleet_thread(texts, refs, Xr, dev, card, fleets)
+        out["thread"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["process"] = fleet_process(models, refs, Xr, dev, card, fleets)
+        out["process"]["seconds"] = time.perf_counter() - t0
+    finally:
+        for fl in fleets:
+            fl.stop(drain=False)
+    # the fleets run phase 19's route: no hand-written kernel
+    out["launches"] = sum(_native.LAUNCHES.values())
+    if out["launches"]:
+        fail(f"phase 20 launched kernels: {dict(_native.LAUNCHES)}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase 20] {card}: {out['seconds']:.1f} s (thread "
+          f"{out['thread']['seconds']:.1f}, process "
+          f"{out['process']['seconds']:.1f}); kernel launches 0")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=2_000_000)
@@ -6494,6 +6987,9 @@ def main() -> int:
     # ---- 19. serving on the card ---------------------------------------
     serving = serving_phase({"a": fused_bst, "b": quality_bst,
                              "c": multiclass_bst}, X, dev, card)
+
+    # ---- 20. the fleets on the card ------------------------------------
+    fleet = fleet_phase({"a": fused_bst, "b": quality_bst}, X, dev, card)
     del fused_bst, multiclass_bst, quality_bst
     torch.cuda.empty_cache()
 
@@ -6655,6 +7151,10 @@ def main() -> int:
             kernels[-1]["node_table"] = {
                 str(b): v for b, v in extras["node_table"].items()}
     print(f"[total] {time.perf_counter() - t_all:.1f} s")
+    # phase 20's record: the card, the thread and the process fleet's
+    # checks and times (no hand-written kernel: the fleets run phase 19's
+    # route)
+    print(json.dumps({"fleet": dict(card=card, **fleet)}, default=str))
     # phase 19's record: the card, each loop's latency and rate, each
     # model's warmup and replay against eager walk (no hand-written
     # kernel: the serving route is PyTorch on the card, captured as

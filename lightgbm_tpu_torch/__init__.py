@@ -32,7 +32,9 @@ bucket of them a batch (``multiboost/``: the model-batched root
 histogram and leaf step kernels), and ``cv`` batches its folds the
 same way under ``multiboost``. ``serving`` serves a model on the card
 (``ServingEngine``: micro-batched requests, one CUDA graph a row
-bucket, hot reload, an HTTP frontend) with the SLO engine
+bucket, hot reload, an HTTP frontend) and a fleet of them
+(``FleetEngine``: replicas in threads or in worker processes, named
+models, canary and shadow routing, tenant quotas) with the SLO engine
 (``observability/slo.py``) over its counters.
 """
 
@@ -44,8 +46,9 @@ from .config import Config
 from .engine import CVBooster, cv, train
 from .parallel.distributed import init_distributed
 from . import serving
-from .serving import (ModelRegistry, Router, ServingConfig, ServingEngine,
-                      TenantQuotas)
+from .serving import (FleetEngine, ModelFleet, ModelRegistry,
+                      ProcFleetOptions, Replica, Router, ServingConfig,
+                      ServingEngine, TenantQuotas)
 from .utils.device import resolve_device
 
 __version__ = "0.1.0"

@@ -165,8 +165,8 @@ class SLOEngine:
     """Samples cumulative SLIs and evaluates burn rates per window.
 
     ``counts_fn`` supplies the fleet's cumulative request counters
-    (a fleet's ``slo_counts``, ROADMAP.md Queue 1 item 10.2, or one
-    engine's ``ServingEngine.stats``); latency SLIs read the registry's bucket-merged
+    (a fleet's ``FleetEngine.slo_counts``, or one engine's
+    ``ServingEngine.stats``); latency SLIs read the registry's bucket-merged
     ``fleet_request_latency_ms`` (local + every federated worker
     shard), falling back to ``serving_request_latency_ms`` for a
     single-engine process. All math is on CUMULATIVE pairs, so a

@@ -5,9 +5,9 @@ grammar and kinds. The training path fires ``nan_grad``, ``sigterm``,
 ``stall_rank`` at the iteration boundary (``maybe_rank_fault``) and
 ``drop_heartbeat`` in the elastic watchdog's sender
 (``robustness/elastic.py``); the serving registry's model reads go
-through ``retry.py`` and take ``fail_read``; the replica and drift kinds
-belong to the fleets and the pipeline, ROADMAP.md Queue 1 items 10.2
-and 10.3).
+through ``retry.py`` and take ``fail_read``; the process fleet's
+supervisor (``serving/procfleet.py``) takes the replica kinds; the drift
+kind belongs to the pipeline, ROADMAP.md Queue 1 item 10.3).
 
 Every robustness feature in this package (checkpoint fallback, retry/
 backoff, non-finite guards, preemption handling) is tested through this

@@ -13,10 +13,16 @@
   pred_leaf / health / stats / metrics / slo / reload;
 * ``loadgen.py`` — closed- and open-loop load generation plus the
   sustained soak mode;
-* :class:`Router` (``router.py``) and :class:`TenantQuotas`
-  (``tenants.py``) — canary/shadow decisions and per-tenant
-  token-bucket admission, for the fleets (``FleetEngine``,
-  ``ModelFleet`` and the process fleet: ROADMAP.md Queue 1 item 10.2).
+* :class:`FleetEngine` / :class:`ModelFleet` / :class:`Replica`
+  (``fleet.py``) — a replica pool over named models with least-loaded
+  dispatch, re-dispatch on replica death, canary/shadow routing
+  (:class:`Router`, ``router.py``) and per-tenant token-bucket
+  admission (:class:`TenantQuotas`, ``tenants.py``);
+* the process fleet (``procfleet.py``: :class:`WorkerSupervisor`,
+  :class:`ProcessReplica`, :class:`ProcFleetOptions`) — each replica's
+  engines in a spawned worker process (``worker.py``) over a
+  length-prefixed JSON socket and a shared-memory row ring
+  (``shm_ring.py``).
 """
 
 from .engine import ServingConfig, ServingEngine
@@ -24,6 +30,9 @@ from .errors import (EngineStoppedError, InvalidRequestError,
                      ModelLoadError, ModelNotFoundError, QueueFullError,
                      QuotaExceededError, ReplicaUnavailableError,
                      RequestTimeoutError, ServingError)
+from .fleet import FleetEngine, ModelFleet, Replica
+from .procfleet import (ProcessReplica, ProcFleetOptions,
+                        WorkerSupervisor)
 from .registry import ModelRegistry, save_model_npz
 from .router import RouteDecision, Router
 from .tenants import TenantQuotas, TokenBucket
@@ -33,5 +42,8 @@ __all__ = ["ServingEngine", "ServingConfig", "ModelRegistry",
            "RequestTimeoutError", "EngineStoppedError",
            "ModelLoadError", "InvalidRequestError",
            "ModelNotFoundError", "QuotaExceededError",
-           "ReplicaUnavailableError", "Router", "RouteDecision",
+           "ReplicaUnavailableError",
+           "FleetEngine", "ModelFleet", "Replica",
+           "ProcessReplica", "ProcFleetOptions", "WorkerSupervisor",
+           "Router", "RouteDecision",
            "TenantQuotas", "TokenBucket"]

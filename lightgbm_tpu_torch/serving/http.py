@@ -12,15 +12,22 @@ Endpoints (all JSON):
 * ``GET  /stats``      counter/latency snapshot
 * ``GET  /metrics``    Prometheus text exposition (the live metrics
   plane, docs/Observability.md: serving latency histograms, queue
-  depth, shed/timeout counters)
+  depth, shed/timeout counters; in process isolation also every
+  federated worker shard under a ``worker`` label)
 * ``GET  /slo``        latest SLO burn-rate evaluation
   (observability/slo.py; ``{"enabled": false}`` when no engine runs)
 * ``POST /reload``     ``{"model_file": path}`` or ``{"model_str": txt}``
 
-A fleet's body keys (``"model"``, ``"tenant"``) and its ``POST
-/route`` come with the fleets (ROADMAP.md Queue 1 item 10.2); until
-then the keys are ignored and ``/route`` answers 404, as the JAX
-frontend answers them for one engine.
+When the engine is a :class:`~lightgbm_tpu_torch.serving.fleet.
+FleetEngine`, predict bodies additionally accept ``"model"`` (named
+model) and ``"tenant"`` (quota identity; the ``X-Tenant`` header is the
+fallback), ``/reload`` accepts ``"model"`` to name the entry being
+swapped, and one more route exists (one engine answers it 404):
+
+* ``POST /route``      canary/shadow control:
+  ``{"model": m, "canary": target, "weight": w}``,
+  ``{"model": m, "shadow": target}``, or ``{"model": m,
+  "promote": true}``
 
 Errors are structured (``{"error": code, "message": ...}``) with the
 HTTP status from the serving error type: 429 queue-full or
@@ -109,6 +116,9 @@ class ServingHandler(BaseHTTPRequestHandler):
                 self._predict(kind)
             elif kind == "reload":
                 self._reload()
+            elif kind == "route" \
+                    and getattr(self.engine, "is_fleet", False):
+                self._route()
             else:
                 self._send_json(404, {"error": "not_found",
                                       "message": self.path})
@@ -125,6 +135,14 @@ class ServingHandler(BaseHTTPRequestHandler):
         if rows is None:
             raise InvalidRequestError('body needs "rows" (or "row")')
         timeout_ms = body.get("timeout_ms")
+        kwargs = {}
+        if getattr(self.engine, "is_fleet", False):
+            if body.get("model"):
+                kwargs["model"] = str(body["model"])
+            tenant = body.get("tenant") \
+                or self.headers.get("X-Tenant")
+            if tenant:
+                kwargs["tenant"] = str(tenant)
         tracer = get_tracer()
         if tracer.enabled:
             # the request's root span: an X-Trace-Id header (plain hex
@@ -137,7 +155,7 @@ class ServingHandler(BaseHTTPRequestHandler):
                              args={"path": self.path}) as root:
                 fut = self.engine.submit(
                     rows, kind=kind, timeout_ms=timeout_ms,
-                    trace_ctx=root.ctx)
+                    trace_ctx=root.ctx, **kwargs)
                 t = self.engine.config.request_timeout_ms \
                     if timeout_ms is None else float(timeout_ms)
                 pred = fut.result(
@@ -146,7 +164,7 @@ class ServingHandler(BaseHTTPRequestHandler):
             meta.setdefault("trace_id", root.ctx.trace_id)
         else:
             fut = self.engine.submit(
-                rows, kind=kind, timeout_ms=timeout_ms)
+                rows, kind=kind, timeout_ms=timeout_ms, **kwargs)
             t = self.engine.config.request_timeout_ms \
                 if timeout_ms is None else float(timeout_ms)
             pred = fut.result(
@@ -161,8 +179,36 @@ class ServingHandler(BaseHTTPRequestHandler):
         if not source:
             raise InvalidRequestError(
                 'body needs "model_file" or "model_str"')
-        version = self.engine.reload(source)
-        self._send_json(200, {"status": "ok", "version": version})
+        kwargs = {}
+        if getattr(self.engine, "is_fleet", False) and body.get("model"):
+            kwargs["model"] = str(body["model"])
+        version = self.engine.reload(source, **kwargs)
+        self._send_json(200, {"status": "ok", "version": version,
+                              **kwargs})
+
+    def _route(self) -> None:
+        """Fleet canary/shadow control plane (POST /route)."""
+        body = self._read_body()
+        model = str(body.get("model")
+                    or self.engine.default_model)
+        out = {"status": "ok", "model": model}
+        if body.get("promote"):
+            out["promoted"] = self.engine.promote_canary(model)
+        elif "canary" in body:
+            try:
+                self.engine.router.set_canary(
+                    model, body.get("canary") or None,
+                    float(body.get("weight", 0.0)))
+            except (TypeError, ValueError) as e:
+                raise InvalidRequestError(str(e)) from e
+        elif "shadow" in body:
+            self.engine.router.set_shadow(
+                model, body.get("shadow") or None)
+        else:
+            raise InvalidRequestError(
+                'body needs "canary", "shadow" or "promote"')
+        out["router"] = self.engine.router.describe()
+        self._send_json(200, out)
 
 
 def make_http_server(engine: ServingEngine, host: str = "127.0.0.1",

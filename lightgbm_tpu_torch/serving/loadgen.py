@@ -1,7 +1,7 @@
 """Closed- and open-loop load generation for the serving engine (port of
-``lightgbm_tpu/serving/loadgen.py``; ``chip_smoke.py`` phase 19 drives
-it on the card). Both loops drive an in-process :class:`ServingEngine`
-and report the same block::
+``lightgbm_tpu/serving/loadgen.py``; ``chip_smoke.py`` phases 19 and 20
+drive it on the card). Both loops drive an in-process
+:class:`ServingEngine` (or a fleet) and report the same block::
 
     {"mode", "duration_s", "requests", "rows", "errors",
      "throughput_rps", "rows_per_s",
@@ -15,14 +15,16 @@ and report the same block::
   QPS regardless of completions (the honest way to measure latency
   under a given offered load; a closed loop self-throttles and hides
   queueing).
-* **soak** — a sustained open loop against one engine with chaos
-  running alongside: periodic **reload storms** and a
+* **soak** — a sustained open loop against a
+  :class:`~lightgbm_tpu_torch.serving.fleet.FleetEngine` (or a single
+  engine) with chaos running alongside: periodic **reload storms**,
+  replica kill/cold-start cycles, and a
   ``robustness/faults.py`` fault plan (``fail_read`` on model-file
-  reads). The block it returns carries p99, throughput and shed rate
-  plus an **availability** verdict: the non-shed error rate over the
-  whole soak (sheds are *correct* degradation; any other error is an
-  availability loss). The fleet's replica and process-kill storms come
-  with the fleets (ROADMAP.md Queue 1 item 10.2).
+  reads, ``sigterm`` for the flight-recorder drill). The block it
+  returns carries the fleet trajectory numbers the bench trend gate
+  chains (p99, throughput, shed rate) plus an **availability**
+  verdict: the non-shed error rate over the whole soak (sheds are
+  *correct* degradation; any other error is an availability loss).
 """
 
 from __future__ import annotations
@@ -189,38 +191,50 @@ def soak_loop(engine, X: np.ndarray, duration_s: float = 30.0,
               fault_spec: str = "") -> Dict:
     """Sustained open-loop soak with chaos; see module docstring.
 
-    ``engine`` is a ServingEngine; ``models`` and ``tenants`` name a
-    fleet's entries and are not read by one engine. ``reload_sources``
-    maps a name -> source; every ``reload_every_s`` one storm cycle
-    hot-reloads each of them back-to-back. ``fault_spec`` installs a
-    deterministic ``robustness/faults.py`` plan for the soak's duration
-    (``fail_read`` faults land on the storm's model-file reads and are
-    absorbed by the registry's retry/degraded-reload machinery —
-    availability must not move). The fleet's storms
-    (``replica_storm_every_s``, ``kill_storm_every_s`` and its
-    ``kill_storm_kinds``) need the fleets, which the port does not have
-    yet: they raise ``NotImplementedError``.
+    ``engine`` is a FleetEngine (models/tenants honored) or a plain
+    ServingEngine. ``reload_sources`` maps model name -> source; every
+    ``reload_every_s`` one storm cycle hot-reloads each of them
+    back-to-back. ``replica_storm_every_s`` kills one healthy replica
+    and cold-starts a replacement per cycle (fleet only, and only
+    while >1 replica is healthy). ``kill_storm_every_s`` is the
+    PROCESS-fault storm (serving/procfleet.py): every cycle one live
+    replica takes the next ``kill_storm_kinds`` fault (crash = SIGKILL
+    its worker, oom = exit 137, hang = go silent past the heartbeat
+    timeout) through ``FleetEngine.inject_replica_fault`` — the
+    supervisor must re-dispatch, heal and respawn; thread fleets
+    approximate crash/oom with kill+cold-start. ``fault_spec``
+    installs a deterministic ``robustness/faults.py`` plan for the
+    soak's duration (``fail_read`` faults land on the storm's
+    model-file reads and are absorbed by the registry's retry/
+    degraded-reload machinery — availability must not move).
     """
     from ..robustness.faults import get_fault_plan, set_fault_plan
-    if replica_storm_every_s > 0 or kill_storm_every_s > 0:
-        raise NotImplementedError(
-            "soak_loop's replica and kill storms need the serving fleets "
-            "(ROADMAP.md Queue 1 item 10.2)")
+    is_fleet = bool(getattr(engine, "is_fleet", False))
     rng = random.Random(seed)
+    model_cycle = list(models or ([None] if not is_fleet
+                                  else [engine.default_model]))
+    tenant_cycle = list(tenants or ["default"])
     plan = set_fault_plan(fault_spec) if fault_spec else None
     stop = threading.Event()
     chaos = {"reloads": 0, "reload_failures": 0, "replica_kills": 0,
              "cold_starts": 0, "fault_storms": 0}
+    storm_i = [0]
 
     def chaos_loop() -> None:
         next_reload = time.monotonic() + reload_every_s
+        next_storm = time.monotonic() + replica_storm_every_s
+        next_kill = time.monotonic() + kill_storm_every_s
         while not stop.wait(0.05):
             now = time.monotonic()
-            if reload_sources and now >= next_reload:
+            if reload_every_s > 0 and reload_sources \
+                    and now >= next_reload:
                 next_reload = now + reload_every_s
-                for source in reload_sources.values():
+                for name, source in reload_sources.items():
                     try:
-                        engine.reload(source)
+                        if is_fleet:
+                            engine.reload(source, model=name)
+                        else:
+                            engine.reload(source)
                         chaos["reloads"] += 1
                     except ServingError:
                         # a rejected reload (torn file, injected read
@@ -228,9 +242,40 @@ def soak_loop(engine, X: np.ndarray, duration_s: float = 30.0,
                         # previous version serving — that is the
                         # degraded-but-available contract
                         chaos["reload_failures"] += 1
+            if is_fleet and replica_storm_every_s > 0 \
+                    and now >= next_storm:
+                next_storm = now + replica_storm_every_s
+                live = [r for r in engine.replicas if r.state == "ok"]
+                if len(live) > 1:
+                    engine.kill_replica(live[0].rid)
+                    chaos["replica_kills"] += 1
+                    try:
+                        engine.cold_start_replica()
+                        chaos["cold_starts"] += 1
+                    except Exception:  # noqa: BLE001 - keep soaking
+                        pass
+            if is_fleet and kill_storm_every_s > 0 \
+                    and now >= next_kill:
+                next_kill = now + kill_storm_every_s
+                live = [r for r in engine.replicas if r.state == "ok"]
+                if len(live) > 1:
+                    kind = kill_storm_kinds[
+                        storm_i[0] % len(kill_storm_kinds)]
+                    storm_i[0] += 1
+                    params = {}
+                    if kind == "hang":
+                        sup = getattr(engine, "_proc_supervisor",
+                                      None)
+                        to = sup.opts.heartbeat_timeout_ms \
+                            if sup is not None else 1000.0
+                        params["ms"] = int(to * 1.5)
+                    if engine.inject_replica_fault(
+                            live[-1].rid, kind, **params):
+                        chaos["fault_storms"] += 1
 
     chaos_thread = None
-    if reload_every_s > 0:
+    if reload_every_s > 0 or replica_storm_every_s > 0 \
+            or kill_storm_every_s > 0:
         chaos_thread = threading.Thread(target=chaos_loop, daemon=True,
                                         name="lgbm-soak-chaos")
         chaos_thread.start()
@@ -250,6 +295,8 @@ def soak_loop(engine, X: np.ndarray, duration_s: float = 30.0,
                 keep.append((t0, b, fut))
                 continue
             try:
+                # 30s even in the non-blocking pass: a done-but-dead
+                # future may re-dispatch inside result() (fleet)
                 fut.result(timeout=30.0)
             except (QueueFullError, QuotaExceededError):
                 shed += 1
@@ -275,11 +322,17 @@ def soak_loop(engine, X: np.ndarray, duration_s: float = 30.0,
         next_at += rng.expovariate(qps)
         b = batch_sizes[i % len(batch_sizes)]
         lo = rng.randrange(max(len(X) - b, 1))
+        kwargs = {}
+        if is_fleet:
+            m = model_cycle[i % len(model_cycle)]
+            if m is not None:
+                kwargs["model"] = m
+            kwargs["tenant"] = tenant_cycle[i % len(tenant_cycle)]
         i += 1
         t0 = time.monotonic()
         try:
             fut = engine.submit(X[lo:lo + b], kind=kind,
-                                timeout_ms=timeout_ms)
+                                timeout_ms=timeout_ms, **kwargs)
         except (QueueFullError, QuotaExceededError):
             shed += 1
             continue
@@ -319,6 +372,17 @@ def soak_loop(engine, X: np.ndarray, duration_s: float = 30.0,
         # leave no armed plan behind (the spec may not have fired)
         if get_fault_plan() is plan:
             set_fault_plan(None)
+    if is_fleet:
+        st = engine.stats()
+        for key in ("redispatches", "replica_deaths", "quota_shed",
+                    "shadow_mirrored", "shadow_parity_ok",
+                    "shadow_parity_mismatch", "shadow_skipped",
+                    "promotions", "replica_restarts",
+                    "replica_quarantines"):
+            block[key] = int(st.get(key, 0))
+        block["replicas"] = len(engine.replicas)
+        block["models"] = engine.fleet.names()
+        block["isolation"] = getattr(engine, "isolation", "thread")
     block["batch_sizes"] = list(batch_sizes)
     block["buckets"] = list(engine.config.buckets)
     return block

@@ -1,7 +1,6 @@
 """Traffic routing for the fleet: weighted canary splits + shadowing
 (copy of ``lightgbm_tpu/serving/router.py`` for the PyTorch port: the
-same decisions for the same rules; the fleet that executes them comes
-with ROADMAP.md Queue 1 item 10.2).
+same decisions for the same rules; ``serving/fleet.py`` executes them).
 
 Every request names a logical **model** (the fleet default when
 omitted); the router resolves it to the concrete registry entry that
@@ -25,7 +24,7 @@ should serve it:
   machinery.
 
 The router is pure decision logic — the
-fleet engine (item 10.2) owns execution
+fleet engine (``serving/fleet.py``) owns execution
 (replica choice, shadow dispatch, parity bookkeeping).
 """
 

@@ -422,8 +422,9 @@ def test_hot_reload_concurrent_no_failures(models):
 
 def test_loadgen_blocks(models):
     """The closed, open and soak loops against one engine give the JAX
-    blocks' keys; the soak's reloads fail nothing; the fleet storms are
-    refused with their ROADMAP item."""
+    blocks' keys; the soak's reloads fail nothing; the fleet storms (a
+    fleet's: tests/test_torch_fleet.py) do nothing to one engine, as in
+    the JAX package."""
     jbst, pbst, X = models["binary"]
     jeng, peng = _pair(jbst, pbst, buckets=(1, 8, 64),
                        flush_interval_ms=1.0)
@@ -446,8 +447,13 @@ def test_loadgen_blocks(models):
         assert set(p) == set(j)
         for kw in ({"replica_storm_every_s": 0.1},
                    {"kill_storm_every_s": 0.1}):
-            with pytest.raises(NotImplementedError, match="item 10.2"):
-                loadgen.soak_loop(peng, X, duration_s=0.1, **kw)
+            p = loadgen.soak_loop(peng, X, duration_s=0.3, qps=50, **kw)
+            j = jloadgen.soak_loop(jeng, X, duration_s=0.3, qps=50, **kw)
+            assert set(p) == set(j)
+            for b in (p, j):
+                assert b["availability"] == 1.0
+                assert b["replica_kills"] == b["cold_starts"] \
+                    == b["fault_storms"] == 0
     finally:
         jeng.stop()
         peng.stop()

@@ -2,17 +2,22 @@
 every bucket's replay equals the eager walk (``Booster.predict`` of the
 same rows) to the bit, warmup captures every (bucket, kind) program so
 steady traffic captures none, and a program that fails to capture fails
-the load while the previous version keeps serving. Marked ``cuda``:
-without a CUDA device every test here skips. On a card: ``python -m
-pytest tests/test_torch_serving_cuda.py --noconftest``. ``chip_smoke.py``
-phase 19 serves the full-width models."""
+the load while the previous version keeps serving. The fleets on the
+card: a thread fleet bitwise ``Booster.predict`` whose cold-started
+replica captures no graph (the version's graphs are shared), and a
+process fleet whose 2 workers each report ``cuda`` and capture their own
+12 graphs a model. Marked ``cuda``: without a CUDA device every test
+here skips. On a card: ``python -m pytest tests/test_torch_serving_cuda.py
+--noconftest``. ``chip_smoke.py`` phases 19 and 20 serve the full-width
+models."""
 
 import numpy as np
 import pytest
 import torch
 
 import lightgbm_tpu_torch as lt
-from lightgbm_tpu_torch.serving import (ServingConfig, ServingEngine,
+from lightgbm_tpu_torch.serving import (FleetEngine, ProcFleetOptions,
+                                        ServingConfig, ServingEngine,
                                         ServingError)
 from lightgbm_tpu_torch.serving import programs
 
@@ -120,3 +125,65 @@ def test_capture_failure_fails_the_load(model, dev, monkeypatch):
             eng.submit(X[:1, :2])
     finally:
         eng.stop()
+
+
+def test_thread_fleet_bitwise_and_cold_replica_captures_none(model, dev):
+    bst, X = model
+    fl = FleetEngine(models={"m": bst.model_to_string()},
+                     config=ServingConfig(buckets=BUCKETS, device="always",
+                                          fallback_to_host=False,
+                                          flush_interval_ms=0.5),
+                     replicas=2, default_model="m", device=dev)
+    try:
+        captured = sum(r._captures() for r in fl.replicas)
+        assert captured == len(BUCKETS) * len(KINDS)
+        for n in (1, 7, 64, 300, 700):
+            for kind, kw in KINDS:
+                assert fl.predict(X[:n], kind=kind).tobytes() \
+                    == bst.predict(X[:n], **kw).tobytes()
+        rep = fl.cold_start_replica()
+        assert rep.cold_start_captures == 0
+        for _ in range(4):   # least-loaded dispatch reaches the new one
+            assert fl.predict(X[:9]).tobytes() \
+                == bst.predict(X[:9]).tobytes()
+        assert sum(r._captures() for r in fl.replicas) == captured
+        st = fl.stats()
+        assert st["errors"] == 0
+        assert st["engine_totals"].get("fallbacks", 0) == 0
+    finally:
+        fl.stop()
+
+
+def test_process_workers_report_cuda_and_capture_their_graphs(dev):
+    rng = np.random.RandomState(1)
+    X = rng.randn(2000, 8)
+    y = (X[:, 0] - X[:, 2] > 0).astype(np.float64)
+    text = lt.train({"objective": "binary", "num_leaves": 31,
+                     "verbosity": -1}, lt.Dataset(X, label=y), 12,
+                    device="cpu").model_to_string()
+    ref = lt.Booster(model_str=text, device=dev)
+    per_model = len(BUCKETS) * len(KINDS)
+    fl = FleetEngine(models={"m": text, "n": text},
+                     config=ServingConfig(buckets=BUCKETS, device="always",
+                                          fallback_to_host=False),
+                     replicas=2, default_model="m", isolation="process",
+                     proc_opts=ProcFleetOptions(spawn_timeout_s=120.0,
+                                                shm_min_bytes=16384),
+                     device=dev)
+    try:
+        for r in fl.replicas:
+            assert r.state == "ok" and r.device == "cuda"
+            assert r.captures == {"m": per_model, "n": per_model}
+            assert r.cold_start_captures == 2 * per_model
+        for n in (1, 64, 512):          # JSON, JSON, the ring
+            for model in ("m", "n"):
+                for kind, kw in KINDS:
+                    assert fl.predict(X[:n], kind=kind,
+                                      model=model).tobytes() \
+                        == ref.predict(X[:n], **kw).tobytes()
+        shm = [r.shm_stats() for r in fl.replicas]
+        assert sum(s["writes"] for s in shm) > 0
+        assert all(s["fallbacks"] == 0 for s in shm)
+        assert fl.stats()["errors"] == 0
+    finally:
+        fl.stop(drain=False)
