@@ -336,8 +336,34 @@ of the JAX package. Phases, each fatal on failure:
    Every fleet is stopped and its workers reaped in a ``finally``. Prints
    ``[phase 20 ...]`` lines and the ``{"fleet": ...}`` record.
 
-The line before the serving record is phase 20's fleet record, the line
-before the per-kernel JSON record is phase 19's serving record, the
+21. the pipeline and the CLI on the card (``pipeline_phase``, run after
+   phase 20 on phase 3's model as text): (a) ``PipelineDriver`` in
+   refit mode over a thread ``FleetEngine`` of 2 replicas (phase 19's
+   ``ServingConfig``), 3 cycles of ``REFIT_ROWS``-row windows from
+   ``ReplayLogSource(n_features=28)`` with 4,096-row holdouts, 64
+   requests a stage over the JAX driver's stages 0.05 / 0.25 / 0.5 and
+   its thresholds but ``pipeline_latency_slo_pct`` 1000, cycle 1's
+   training window poisoned (``drift@window=2,flip=1,once=1``): cycles 0
+   and 2 promoted, 1 rolled back on ``quality_drop``, every parity
+   probe and routed response bitwise ``Booster.predict``; each cycle's
+   refit, publish and ramp seconds, the device memory reserved after
+   each publish (rolled-back candidates stay registered) and every
+   stage's canary and primary p99; (b) continue mode, one cycle of
+   ``PARITY_ITERS`` 255-leaf trees on a ``REFIT_ROWS``-row window (the
+   fused segment step), its ms a split; (c) 4 tenants in one
+   ``train_many`` bucket (4 batched, 0 fallbacks); (d) at 100k rows
+   re-drawn by ``peek_window``, the refit, continued training at
+   ``CUT_PARITY_LEAVES`` leaves and the tenants through the kernels and
+   through the plain versions, the candidate texts byte-equal; (e)
+   ``cli.main`` on a ``TEXT_ROWS``-row CSV: train (255 leaves, 8
+   iterations), predict (bitwise ``Booster.predict``), refit
+   (``Booster.refit``'s trees), convert_model (compiled with ``g++ -O2
+   -shared -fPIC``, within 1e-12) and one pipeline cycle. Prints
+   ``[phase 21 ...]`` lines and the ``{"pipeline": ...}`` record.
+
+The line before the fleet record is phase 21's pipeline record, the line
+before the serving record is phase 20's fleet record, the line before
+the per-kernel JSON record is phase 19's serving record, the
 second-to-last line of output is the per-kernel JSON record and the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -368,11 +394,16 @@ ESTIMATOR_ROWS = 500_000
 # phase 8's CSV and LibSVM files hold this many rows (cut from 100k for
 # phase 19 as well)
 TEXT_ROWS = 50_000
+# phase 12 (c)'s unbundled reference (enable_bundle=false) bins and trains
+# the first this many of the Bosch rows (cut from all 1M to make room for
+# phase 21; PERF.md section 4)
+BOSCH_REF_ROWS = 250_000
 # the kernel-against-plain runs of phase 11, phase 12 (e) and phase 16
 # in the ranks ((b)'s four learners and (f)'s five configs, the
 # extra_trees configs' 2-rank CPU runs too) grow this many leaves,
 # phase 11 trains CATEGORICAL_ITERS iterations and phase 16 (e)'s drill
-# DRILL_ITERS (cut from 63, 4 and 4 to make room for phase 20; PERF.md
+# DRILL_ITERS (cut from 63, 4 and 4 to make room for phase 20), and so do
+# phases 9, 10 and 13's (cut from 63 to make room for phase 21; PERF.md
 # section 4)
 CUT_PARITY_LEAVES = 31
 # kernel launches of one wrapper call at phase 2's timed shapes (the
@@ -1937,9 +1968,10 @@ def early_stopping_check(bst, Xq):
 
 
 def objective_parity(dev):
-    """Kernels against plain versions at 100k x 28, 63 leaves (as every
-    later phase's parity; cut from 255 for the time limit),
-    ``PARITY_ITERS`` iterations, for runs a, b, c, e at max_bin 255 and c at 1023: the
+    """Kernels against plain versions at 100k x 28,
+    ``CUT_PARITY_LEAVES`` leaves (cut from 255, then 63, for the time
+    limit), ``PARITY_ITERS`` iterations, for runs a, b, c, e at max_bin
+    255 and c at 1023: the
     same trees, leaf values equal to the bit, and the same valid
     histories to the bit."""
     import torch
@@ -1957,7 +1989,8 @@ def objective_parity(dev):
             if run not in runs:
                 continue
             t0 = time.perf_counter()
-            params = {"objective": objective, "num_leaves": 63,
+            params = {"objective": objective,
+                      "num_leaves": CUT_PARITY_LEAVES,
                       "learning_rate": 0.1, "max_bin": max_bin,
                       "metric": metric, "verbosity": -1}
             if objective == "multiclass":
@@ -2354,8 +2387,8 @@ def sampling_run(label, params, ds, iters, dev, y):
 
 
 def sampling_parity(dev):
-    """Kernels against plain versions at 100k x 28, 63 leaves, 3
-    iterations: bagging (255 and 1023 bins), GOSS at lr 0.5 (it samples
+    """Kernels against plain versions at 100k x 28,
+    ``CUT_PARITY_LEAVES`` leaves (cut from 63), 3 iterations: bagging (255 and 1023 bins), GOSS at lr 0.5 (it samples
     from iteration 2) and DART; trees, leaf values and train scores to
     the bit."""
     import torch
@@ -2364,7 +2397,8 @@ def sampling_parity(dev):
     out = {}
     for label, extra, max_bin in SAMPLING_PARITY:
         t0 = time.perf_counter()
-        params = dict({"objective": "binary", "num_leaves": 63,
+        params = dict({"objective": "binary",
+                       "num_leaves": CUT_PARITY_LEAVES,
                        "learning_rate": 0.1, "max_bin": max_bin,
                        "verbosity": -1}, **extra)
         ds = lt.Dataset(Xp, label=yp)
@@ -2929,11 +2963,12 @@ def efb_run(label, params, tr, va, iters, dev, want_learner):
 
 
 def efb_pair(label, params, data, y, vdata, vy, iters, dev,
-             profile=False, keep=False):
+             profile=False, keep=False, ref_rows=None):
     """A dataset trained bundled (EFB on, the default) and with
     ``enable_bundle=false``, each with its valid set: plan, runs, and
     the bundled run's profiled tree. ``keep`` returns the bundled binned
-    dataset beside the numbers."""
+    dataset beside the numbers; ``ref_rows`` trains the unbundled
+    reference on the first that many rows."""
     import torch
     import lightgbm_tpu_torch as lt
     out = {}
@@ -2941,6 +2976,8 @@ def efb_pair(label, params, data, y, vdata, vy, iters, dev,
                                           {"enable_bundle": False})):
         p = dict(params, **extra)
         t0 = time.perf_counter()
+        if mode == "unbundled" and ref_rows is not None:
+            data, y = data[:ref_rows], y[:ref_rows]
         tr = lt.Dataset(data, label=y)
         va = tr.create_valid(vdata, label=vy)
         ds = tr._construct(lt.Config.from_params(p))
@@ -2964,11 +3001,12 @@ def efb_pair(label, params, data, y, vdata, vy, iters, dev,
         del bst, tr, va, ds
         torch.cuda.empty_cache()
     b, u = out["bundled"], out["unbundled"]
+    u["rows"] = len(y)
     print(f"[efb {label}] bundled {b['ms_per_split']:.4f} ms/split "
           f"({b['learner']}, fused {b['fused']}), auc "
           f"{b['valid_auc']:.6f}; unbundled {u['ms_per_split']:.4f} "
-          f"ms/split ({u['learner']}, fused {u['fused']}), auc "
-          f"{u['valid_auc']:.6f}")
+          f"ms/split ({u['learner']}, fused {u['fused']}) on {len(y)} "
+          f"rows, auc {u['valid_auc']:.6f}")
     return (out, kept) if keep else out
 
 
@@ -3135,7 +3173,9 @@ def two_round_check(csr, y, dev):
 def efb_parity(dev, expo, expo_num, bosch):
     """(e): kernels against plain versions at 100k rows,
     ``CUT_PARITY_LEAVES`` leaves, ``PARITY_ITERS`` iterations, for (a),
-    (a'), (b) and (c): the same trees and leaf values to the bit."""
+    (a'), (b) and (c): the same trees and leaf values to the bit. Each
+    dataset is binned once for both runs (PR 24; each run uploads the
+    bins itself)."""
     import torch
     import lightgbm_tpu_torch as lt
     runs = (("a", expo, 255), ("a'", expo_num, 255), ("b", expo, 1023),
@@ -3147,10 +3187,14 @@ def efb_parity(dev, expo, expo_num, bosch):
                   "verbosity": -1}
         if label == "c":
             params.update(learning_rate=0.015, min_sum_hessian_in_leaf=5)
+        binned = lt.Dataset(data, label=y)._construct(
+            lt.Config.from_params(params))
         res = {}
         for ops in ("kernel", "plain"):
-            res[ops] = lt.train(params, lt.Dataset(data, label=y),
-                                PARITY_ITERS, device=dev, ops=ops)
+            ds = over_binned(binned, data, y)
+            ds._binned._device_copies = {}
+            res[ops] = lt.train(params, ds, PARITY_ITERS, device=dev,
+                                ops=ops)
         kb, pb = res["kernel"], res["plain"]
         same = len(kb.models) == len(pb.models) == PARITY_ITERS and all(
             tree_sig(a) == tree_sig(c) for a, c in zip(kb.models, pb.models))
@@ -3210,7 +3254,8 @@ def efb_phase(n, iters, dev, reps, bosch_rows=1_000_000):
     cparams = dict(base, max_bin=63, learning_rate=0.015,
                    min_sum_hessian_in_leaf=5)
     out["c"], cds = efb_pair("c bosch", cparams, bosch, yb, bosch_v, ybv,
-                             iters, dev, profile=True, keep=True)
+                             iters, dev, profile=True, keep=True,
+                             ref_rows=BOSCH_REF_ROWS)
     if not out["c"]["bundled"]["plan"]["mv_groups"]:
         fail("the Bosch-shaped plan did not go multi-val")
     launches = out["c"]["bundled"]["launches"]["hist_multival"]
@@ -3412,14 +3457,16 @@ def check_scan_node(dev, reps):
 
 
 def extras_parity(dev, forced_path):
-    """Phase 13 g: kernels against plain versions at 100k x 28, 63
-    leaves, ``PARITY_ITERS`` iterations, for each option of a-f: the same trees, leaf
-    values and linear coefficients to the bit."""
+    """Phase 13 g: kernels against plain versions at 100k x 28,
+    ``CUT_PARITY_LEAVES`` leaves (cut from 63), ``PARITY_ITERS``
+    iterations, for each option of a-f, the two runs on one binning (each
+    uploading it itself): the same trees, leaf values and linear
+    coefficients to the bit."""
     import lightgbm_tpu_torch as lt
     Xp, yp = higgs_like(100_000, seed=3)
     forced_json(forced_path, Xp)
-    base = {"objective": "binary", "num_leaves": 63, "learning_rate": 0.1,
-            "verbosity": -1}
+    base = {"objective": "binary", "num_leaves": CUT_PARITY_LEAVES,
+            "learning_rate": 0.1, "verbosity": -1}
     slot = F * 256 * 12
     runs = [("a extra 255", {"extra_trees": True, "max_bin": 255}),
             ("a extra 1023", {"extra_trees": True, "max_bin": 1023}),
@@ -3436,10 +3483,15 @@ def extras_parity(dev, forced_path):
     for label, extra in runs:
         t0 = time.perf_counter()
         pp = dict(base, **extra)
-        kb = lt.train(pp, lt.Dataset(Xp, label=yp), PARITY_ITERS,
-                      device=dev)
-        pb = lt.train(pp, lt.Dataset(Xp, label=yp), PARITY_ITERS,
-                      device=dev, ops="plain")
+        binned = lt.Dataset(Xp, label=yp)._construct(
+            lt.Config.from_params(pp))
+        runs_ = {}
+        for ops in ("kernel", "plain"):
+            ds = over_binned(binned, Xp, yp)
+            ds._binned._device_copies = {}
+            runs_[ops] = lt.train(pp, ds, PARITY_ITERS, device=dev,
+                                  ops=ops)
+        kb, pb = runs_["kernel"], runs_["plain"]
         same = [tree_sig(a) == tree_sig(b) for a, b in zip(kb.models,
                                                            pb.models)]
         leaf = all(a.leaf_value.tobytes() == b.leaf_value.tobytes()
@@ -4918,6 +4970,11 @@ DRILL_LEGS = {
     "drop_heartbeat": (255, 2, {"faults": "drop_heartbeat@rank=1"}),
 }
 LEG_LIMIT_S = 120.0
+# legs started beside the first ones that wait for a go file (written once
+# the kill leg's checkpoint is in place): their process start-up overlaps
+# the first legs' (PR 24, was a second wave of processes; PERF.md
+# section 4)
+DRILL_GO_LEGS = ["resume"]
 # (f): phase 12's Expo one-hot (674 columns; multi-val from ~400k rows
 # at the default bin sample), every row on each rank, the data and
 # voting learners taking their row blocks
@@ -5027,6 +5084,15 @@ def drill_leg(leg, rank, size, rdzv, out, n):
         ds = lt.Dataset(os.path.join(out, "full_1023.bin" if size == 1
                                      else f"local_{mb}_{rank}.bin"))
         n_run = n
+    if leg in DRILL_GO_LEGS:
+        # started beside the first legs; runs once the kill leg's
+        # checkpoint is in place (its start-up overlaps theirs)
+        go = os.path.join(out, f"go_{leg}")
+        deadline = time.monotonic() + 2 * LEG_LIMIT_S
+        while not os.path.exists(go):
+            if time.monotonic() > deadline:
+                raise SystemExit(f"leg {leg}: no {go}")
+            time.sleep(0.05)
     ck = os.path.join(out, f"ck_{leg}")
     params = dict(drill_params(mb, n_run), checkpoint_dir=ck, **extra)
     if small:
@@ -5059,10 +5125,9 @@ def drill_leg(leg, rank, size, rdzv, out, n):
     dump()
 
 
-def spawn_legs(legs, tmp, n):
+def start_legs(legs, tmp, n):
     """Start each leg's ranks at once (``--leg``, its own rendezvous and
-    logs); wait, killing past ``LEG_LIMIT_S``; return per leg the exit
-    codes, the logs and the host clock's exit time of each rank."""
+    logs); returns their processes and logs."""
     procs = {}
     for leg in legs:
         _, size, _ = DRILL_LEGS[leg]
@@ -5074,6 +5139,13 @@ def spawn_legs(legs, tmp, n):
                  "--rank", str(r), "--world", str(size), "--rdzv",
                  os.path.join(tmp, f"rdzv_{leg}"), "--out", tmp, "--rows",
                  str(n)], stdout=log, stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def wait_legs(procs, tmp):
+    """Wait for ``start_legs``' processes, killing past ``LEG_LIMIT_S``;
+    return per leg the exit codes, the logs and the host clock's exit
+    time of each rank."""
     deadline = time.monotonic() + LEG_LIMIT_S
     ended = {leg: [None] * len(ps) for leg, ps in procs.items()}
     while time.monotonic() < deadline and any(
@@ -5147,25 +5219,45 @@ def drill_phase(tmp, n, refs):
         shutil.copytree(os.path.join(tmp, "ck_1023"), dst)
         for it in range(DRILL_KILL_ITER + 1, DRILL_ITERS + 1):
             shutil.rmtree(os.path.join(dst, f"ckpt_{it:08d}"))
+    # every leg starts at once; the resume leg waits (after its start-up)
+    # for the kill leg's checkpoint, which needs no other leg
     t0 = time.perf_counter()
-    runs = spawn_legs(["kill", "stall", "drop_heartbeat"], tmp, n)
-    out["kill_stall_drop_heartbeat_s"] = time.perf_counter() - t0
-    kill = runs["kill"]
-    if kill["codes"] != [43, -9]:
-        leg_fail("kill", f"exit codes {kill['codes']}, want [43, -9]", kill)
-    if abort_reasons(kill["logs"][0]) != ["peer_lost"] \
-            or "reason=peer_lost rank=1" not in kill["logs"][0]:
-        leg_fail("kill", "rank 0 did not abort with peer_lost rank=1", kill)
-    detect = kill["ended"][0] - kill["ended"][1]
-    bound = (DRILL_WATCHDOG["elastic_heartbeat_timeout_ms"]
-             + DRILL_WATCHDOG["elastic_abort_grace_ms"]) / 1e3
-    if detect > bound + 1.0:
-        leg_fail("kill", f"rank 0 took {detect:.2f} s to abort", kill)
-    out["kill_detect_s"] = detect
-    os.rename(os.path.join(tmp, "ck_kill"), os.path.join(tmp, "ck_resume"))
-    t0 = time.perf_counter()
-    runs.update(spawn_legs(["resume", "shrink", "guard"], tmp, n))
-    out["resume_shrink_guard_s"] = time.perf_counter() - t0
+    first = start_legs(["kill", "stall", "drop_heartbeat", "shrink",
+                        "guard"], tmp, n)
+    waiting = start_legs(DRILL_GO_LEGS, tmp, n)
+    try:
+        runs = wait_legs(first, tmp)
+        out["first_legs_s"] = time.perf_counter() - t0
+        kill = runs["kill"]
+        if kill["codes"] != [43, -9]:
+            leg_fail("kill", f"exit codes {kill['codes']}, want [43, -9]",
+                     kill)
+        if abort_reasons(kill["logs"][0]) != ["peer_lost"] \
+                or "reason=peer_lost rank=1" not in kill["logs"][0]:
+            leg_fail("kill", "rank 0 did not abort with peer_lost rank=1",
+                     kill)
+        detect = kill["ended"][0] - kill["ended"][1]
+        bound = (DRILL_WATCHDOG["elastic_heartbeat_timeout_ms"]
+                 + DRILL_WATCHDOG["elastic_abort_grace_ms"]) / 1e3
+        if detect > bound + 1.0:
+            leg_fail("kill", f"rank 0 took {detect:.2f} s to abort", kill)
+        out["kill_detect_s"] = detect
+        os.rename(os.path.join(tmp, "ck_kill"),
+                  os.path.join(tmp, "ck_resume"))
+        t0 = time.perf_counter()
+        for leg in DRILL_GO_LEGS:
+            with open(os.path.join(tmp, f"go_{leg}"), "w"):
+                pass
+        runs.update(wait_legs(waiting, tmp))
+    finally:
+        # a failed check leaves no waiting leg behind
+        for ps in waiting.values():
+            for p, log in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
+    out["resume_s"] = time.perf_counter() - t0
     res = {leg: [leg_result(tmp, leg, r)
                  for r in range(DRILL_LEGS[leg][1])] for leg in runs}
     for leg in ("kill", "resume", "shrink"):
@@ -5224,9 +5316,9 @@ def drill_phase(tmp, n, refs):
           f"{[round(v, 2) for v in out['references']['255']['write_ms']]} "
           f"ms a rank at 255 bins, shard bytes "
           f"{out['references']['255']['shard_bytes']}; legs: "
-          f"kill+stall+drop_heartbeat "
-          f"{out['kill_stall_drop_heartbeat_s']:.1f} s, resume+shrink+guard "
-          f"{out['resume_shrink_guard_s']:.1f} s")
+          f"kill+stall+drop_heartbeat+shrink+guard "
+          f"{out['first_legs_s']:.1f} s, then resume (started beside "
+          f"them) {out['resume_s']:.1f} s")
     return out
 
 
@@ -6314,7 +6406,7 @@ class FleetRecorder:
         return fut
 
 
-def fleet_responses_equal(log, refs, label):
+def fleet_responses_equal(log, refs, label, phase="phase 20"):
     """Every (rows, kind, future) of ``log`` against ``Booster.predict``
     of its target model: rows grouped by (target, kind), one predict a
     group, compared to the bit. Returns the responses checked."""
@@ -6329,7 +6421,7 @@ def fleet_responses_equal(log, refs, label):
         ref = refs[target].predict(np.concatenate(rows),
                                    **SERVING_KINDS[kind])
         if np.concatenate(outs).tobytes() != ref.tobytes():
-            fail(f"phase 20 {label}: a {kind} response of {target} is not "
+            fail(f"{phase} {label}: a {kind} response of {target} is not "
                  "Booster.predict of its rows")
     return sum(len(o) for _, o in groups.values())
 
@@ -6707,6 +6799,445 @@ def fleet_phase(models, X, dev, card):
     return out
 
 
+# ---- phase 21: the pipeline and the CLI on the card --------------------
+
+PIPE_HOLDOUT_ROWS = 4096            # (a)'s clean holdout windows
+PIPE_STAGE_REQUESTS = 64            # (a)'s routed requests a canary stage
+PIPE_STAGES = "0.05,0.25,0.5"       # the JAX driver's default stages
+# (a)'s cycle 1 trains on window 2 (each cycle draws its window and then
+# its holdout) with every label flipped
+PIPE_DRIFT = "drift@window=2,flip=1,once=1"
+PIPE_TENANTS = ("acme", "globex", "initech", "umbrella")
+PIPE_PARITY_ROWS = 100_000          # (d)'s window
+PIPE_CODEGEN_ROWS = 2048            # (e)'s rows through the compiled C++
+PIPE_SEED = 21                      # the replay stream's seed
+
+
+def pipe_params(**over):
+    """Phase 3's training params (and the pipeline's ``over``)."""
+    return dict({"objective": "binary", "num_leaves": 255,
+                 "learning_rate": 0.1, "max_bin": 255, "verbosity": -1},
+                **over)
+
+
+def pipe_counted(label, want, fn):
+    """``fn()`` with the launch counts set to 0 just before it and read
+    just after; every kernel in ``want`` must have launched. Returns
+    (its result, the launches, its seconds)."""
+    import torch
+    from lightgbm_tpu_torch.ops import _native
+    _native.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+    for name in want:
+        if launches.get(name, 0) <= 0:
+            fail(f"phase 21 {label}: kernel {name} was not launched "
+                 f"({launches})")
+    return res, launches, wall
+
+
+def pipe_fleet(text, dev):
+    """A thread fleet of 2 replicas serving ``text`` as "default",
+    every request recorded."""
+    from lightgbm_tpu_torch.serving import FleetEngine, ServingConfig
+    return FleetRecorder(FleetEngine(
+        models={"default": text},
+        config=ServingConfig(buckets=SERVING_BUCKETS, device="always",
+                             fallback_to_host=False),
+        replicas=2, device=dev))
+
+
+def pipe_refit(text, dev, card, tmp):
+    """(a) refit mode at full width: 3 cycles of ``REFIT_ROWS``-row
+    windows, the second poisoned; every cycle's refit, publish and ramp
+    timed, the device memory reserved after every publish, every stage's
+    p99s and parity probe, every routed response against
+    ``Booster.predict`` of its target."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.pipeline import PipelineDriver
+    from lightgbm_tpu_torch.robustness.faults import set_fault_plan
+    path = os.path.join(tmp, "base.txt")
+    with open(path, "w") as fh:
+        fh.write(text)
+    fl = pipe_fleet(text, dev)
+    set_fault_plan(PIPE_DRIFT)
+    cycles = []
+    drv = None
+    try:
+        drv = PipelineDriver({
+            "task": "pipeline", "input_model": path, "verbosity": -1,
+            "pipeline_window_rows": REFIT_ROWS,
+            "pipeline_holdout_rows": PIPE_HOLDOUT_ROWS,
+            "pipeline_stage_requests": PIPE_STAGE_REQUESTS,
+            "pipeline_canary_stages": PIPE_STAGES,
+            "pipeline_latency_slo_pct": 1000,
+            "pipeline_replay_seed": PIPE_SEED,
+            "pipeline_dir": os.path.join(tmp, "cands")}, fleet=fl)
+
+        def timed(obj, name, after=None):
+            fn = getattr(obj, name)
+
+            def wrapper(*a, **kw):
+                if name == "refit":
+                    cycles.append({})
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = fn(*a, **kw)
+                torch.cuda.synchronize()
+                cycles[-1][f"{name}_s"] = time.perf_counter() - t0
+                if after is not None:
+                    after(r)
+                return r
+            setattr(obj, name, wrapper)
+
+        def published(name):
+            cycles[-1]["reserved_mb"] = torch.cuda.memory_reserved(
+                dev) / 2 ** 20
+            cycles[-1]["allocated_mb"] = torch.cuda.memory_allocated(
+                dev) / 2 ** 20
+
+        def ramped(ok):
+            cycles[-1]["stages"] = [dict(
+                weight=m.weight, decision=v.decision, reasons=v.reasons,
+                requests=m.requests, canary_requests=m.canary_requests,
+                canary_p99_ms=m.canary_p99_ms,
+                primary_p99_ms=m.baseline_p99_ms,
+                canary_quality=m.canary_quality,
+                primary_quality=m.baseline_quality,
+                parity_mismatches=m.parity_mismatches)
+                for m, v in drv.ramp.verdicts]
+        timed(drv.trainer, "refit")
+        timed(drv.publisher, "publish", published)
+        timed(drv.ramp, "ramp", ramped)
+        summary, launches, wall = pipe_counted(
+            "a", ("hist_rows",),
+            lambda: drv.run(max_cycles=3, stop_fleet=False))
+        hist = summary["history"]
+        status = [r["status"] for r in hist]
+        if status != ["promoted", "rolled_back", "promoted"] \
+                or not hist[1]["reason"].startswith("quality_drop") \
+                or hist[1]["window"]["drift"]["flip"] != 1.0:
+            fail(f"phase 21 a: statuses {status}, reasons "
+                 f"{[r.get('reason') for r in hist]}")
+        probes = [s["parity_mismatches"] for c in cycles
+                  for s in c["stages"]]
+        if any(probes):
+            fail(f"phase 21 a: parity probes mismatched {probes}")
+        refs = {"default": lt.Booster(model_str=text, device=dev)}
+        for cand in drv.publisher.history:
+            refs[cand.name] = lt.Booster(model_str=cand.model_text,
+                                         device=dev)
+        checked = fleet_responses_equal(fl.log, refs, "a", "phase 21")
+        names = fl.fleet.names()
+        st = fl.stats()
+        if st.get("fallbacks") or st["errors"]:
+            fail(f"phase 21 a: fleet errors {st['errors']}, fallbacks "
+                 f"{st.get('fallbacks')}")
+        for i, (c, r) in enumerate(zip(cycles, hist)):
+            c.update(status=r["status"], reason=r.get("reason"),
+                     window=r["window"])
+            print(f"[phase 21 a] {card}: cycle {i} window "
+                  f"{r['window']['index']} ({r['window']['rows']} rows, "
+                  f"drift {r['window']['drift']}): {r['status']} "
+                  f"{r.get('reason') or ''}; refit {c['refit_s']:.3f} s, "
+                  f"publish {c['publish_s']:.3f} s (reserved "
+                  f"{c['reserved_mb']:.1f} MB, allocated "
+                  f"{c['allocated_mb']:.1f} MB after it), ramp "
+                  f"{c['ramp_s']:.3f} s")
+            for s in c["stages"]:
+                print(f"[phase 21 a]   stage {s['weight']}: "
+                      f"{s['decision']} {s['reasons']}; canary "
+                      f"{s['canary_requests']}/{s['requests']} requests, "
+                      f"p99 canary {fmt_ms(s['canary_p99_ms'])} ms, "
+                      f"primary {fmt_ms(s['primary_p99_ms'])} ms; quality "
+                      f"canary {s['canary_quality']:.6f}, primary "
+                      f"{s['primary_quality']:.6f}; parity mismatches "
+                      f"{s['parity_mismatches']}")
+        print(f"[phase 21 a] {card}: {len(hist)} cycles in {wall:.1f} s; "
+              f"{checked} routed responses bitwise Booster.predict; "
+              f"registered {names} (rolled-back candidates stay); primary "
+              f"{summary['primary']}; launches {launches}")
+        promoted = drv.publisher.history[-1].model_text
+    finally:
+        set_fault_plan(None)
+        if drv is not None:
+            drv.stop()        # its SLO engine, then the fleet
+        else:
+            fl.stop(drain=False)
+    return dict(cycles=cycles, seconds=wall, launches=launches,
+                responses_checked=checked, registered=names,
+                primary=summary["primary"]), promoted
+
+
+def pipe_continue(text, dev, card, tmp):
+    """(b) continue mode: one cycle growing ``PARITY_ITERS`` 255-leaf
+    trees on a ``REFIT_ROWS``-row window (the fused segment step),
+    their ms a split timed around the GBDT's loop."""
+    import torch
+    from lightgbm_tpu_torch.models import gbdt as gm
+    from lightgbm_tpu_torch.pipeline import PipelineDriver
+    path = os.path.join(tmp, "promoted.txt")
+    with open(path, "w") as fh:
+        fh.write(text)
+    fl = pipe_fleet(text, dev)
+    loop = {}
+    orig = gm.GBDT.train
+
+    def timed_train(self, num_iterations):
+        n0 = len(self.models)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig(self, num_iterations)
+        torch.cuda.synchronize()
+        loop.update(seconds=time.perf_counter() - t0,
+                    splits=sum(t.num_leaves - 1 for t in self.models[n0:]),
+                    learner=type(self.learner).__name__,
+                    fused=self.learner.fused)
+    gm.GBDT.train = timed_train
+    drv = None
+    try:
+        drv = PipelineDriver(pipe_params(**{
+            "task": "pipeline", "input_model": path,
+            "pipeline_mode": "continue",
+            "pipeline_continue_iters": PARITY_ITERS,
+            "pipeline_window_rows": REFIT_ROWS,
+            "pipeline_holdout_rows": PIPE_HOLDOUT_ROWS,
+            "pipeline_stage_requests": PIPE_STAGE_REQUESTS,
+            "pipeline_canary_stages": PIPE_STAGES,
+            "pipeline_latency_slo_pct": 1000,
+            "pipeline_replay_seed": PIPE_SEED + 1}), fleet=fl)
+        summary, launches, wall = pipe_counted(
+            "b", FUSED_SEGMENT_PATH,
+            lambda: drv.run(max_cycles=1, stop_fleet=False))
+    finally:
+        gm.GBDT.train = orig
+        if drv is not None:
+            drv.stop()
+        else:
+            fl.stop(drain=False)
+    rec = summary["history"][0]
+    if not loop.get("fused") or rec["status"] not in ("promoted",
+                                                      "rolled_back"):
+        fail(f"phase 21 b: {rec.get('status')}, loop {loop}")
+    ms = loop["seconds"] / max(loop["splits"], 1) * 1e3
+    print(f"[phase 21 b] {card}: continue {PARITY_ITERS} x 255 leaves on "
+          f"{REFIT_ROWS} rows ({loop['learner']}, fused {loop['fused']}): "
+          f"{loop['splits']} splits in {loop['seconds']:.3f} s = "
+          f"{ms:.4f} ms/split; the cycle {rec['status']} "
+          f"{rec.get('reason') or ''} in {wall:.1f} s; launches {launches}")
+    return dict(ms_per_split=ms, splits=loop["splits"], seconds=wall,
+                status=rec["status"], launches=launches)
+
+
+def pipe_tenants(dev, card):
+    """(c) 4 tenants' candidates, ``PARITY_ITERS`` iterations each, on a
+    ``REFIT_ROWS``-row window: one ``train_many`` bucket (the batched
+    kernels)."""
+    from lightgbm_tpu_torch.pipeline import ReplayLogSource
+    from lightgbm_tpu_torch.pipeline.trainer import TenantRefitTrainer
+    win = ReplayLogSource(n_features=F, seed=PIPE_SEED + 2).next_window(
+        REFIT_ROWS)
+    tr = TenantRefitTrainer(PIPE_TENANTS, params=pipe_params(),
+                            num_boost_round=PARITY_ITERS, device=dev)
+    cands, launches, wall = pipe_counted(
+        "c", ("fused_split_step_leaf_batched", "hist_rows_batched"),
+        lambda: tr.refit_all(win))
+    rep = tr.last_report
+    if rep["batched_models"] != len(PIPE_TENANTS) or rep["loop_fallback"] \
+            or len(rep["buckets"]) != 1 or len(cands) != len(PIPE_TENANTS):
+        fail(f"phase 21 c: report {rep}")
+    print(f"[phase 21 c] {card}: {len(PIPE_TENANTS)} tenants x "
+          f"{PARITY_ITERS} iterations on {REFIT_ROWS} rows in {wall:.2f} s: "
+          f"batched_models {rep['batched_models']}, loop_fallback "
+          f"{len(rep['loop_fallback'])}, buckets {len(rep['buckets'])} "
+          f"(route {rep['buckets'][0]['route']}); launches {launches}")
+    return dict(seconds=wall, batched_models=rep["batched_models"],
+                loop_fallback=len(rep["loop_fallback"]), launches=launches)
+
+
+def pipe_parity(text, dev, card):
+    """(d) kernels against plain versions on a ``PIPE_PARITY_ROWS``-row
+    window re-drawn with ``peek_window``: the refit, continued training
+    at ``CUT_PARITY_LEAVES`` leaves and the tenants' batch, each
+    candidate's text byte-equal."""
+    from lightgbm_tpu_torch.pipeline import ReplayLogSource
+    from lightgbm_tpu_torch.pipeline.trainer import (RefitTrainer,
+                                                     TenantRefitTrainer)
+    t0 = time.perf_counter()
+    win = ReplayLogSource(n_features=F, seed=PIPE_SEED).peek_window(
+        0, PIPE_PARITY_ROWS)
+    small = pipe_params(num_leaves=CUT_PARITY_LEAVES)
+    texts = {}
+    for ops in ("kernel", "plain"):
+        texts[ops] = [
+            RefitTrainer(text, mode="refit", device=dev,
+                         ops=ops).refit(win).model_text,
+            RefitTrainer(text, params=small, mode="continue",
+                         continue_iters=PARITY_ITERS, device=dev,
+                         ops=ops).refit(win).model_text]
+        tens = TenantRefitTrainer(PIPE_TENANTS, params=small,
+                                  num_boost_round=PARITY_ITERS, device=dev,
+                                  ops=ops).refit_all(win)
+        texts[ops] += [tens[t].model_text for t in PIPE_TENANTS]
+    labels = ["refit", "continue"] + [f"tenant {t}" for t in PIPE_TENANTS]
+    differ = [lab for lab, k, p in zip(labels, texts["kernel"],
+                                       texts["plain"]) if k != p]
+    if differ:
+        fail(f"phase 21 d: kernel and plain candidate texts differ: "
+             f"{differ}")
+    print(f"[phase 21 d] {card}: {PIPE_PARITY_ROWS} rows (peek_window), "
+          f"kernel against plain: refit, continue ({CUT_PARITY_LEAVES} "
+          f"leaves, {PARITY_ITERS} iterations) and {len(PIPE_TENANTS)} "
+          f"tenants' texts byte-equal in {time.perf_counter() - t0:.1f} s")
+    return dict(equal=labels, seconds=time.perf_counter() - t0)
+
+
+def pipe_cli(X, y, dev, card, tmp):
+    """(e) the CLI in process on a ``TEXT_ROWS``-row CSV of the 2M
+    matrix: train (255 leaves, 8 iterations), predict (the file equal to
+    ``Booster.predict`` to the bit), refit (its trees equal to
+    ``Booster.refit``'s), convert_model (compiled with g++, within 1e-12
+    of the booster's raw scores) and one pipeline cycle."""
+    import ctypes
+    import lightgbm_tpu_torch as lt
+    import lightgbm_tpu_torch.pipeline as pipe
+    from lightgbm_tpu_torch import cli
+    out = {}
+    Xc = np.ascontiguousarray(X[:TEXT_ROWS], np.float64)
+    yc = np.asarray(y[:TEXT_ROWS], np.float64)
+    csv = os.path.join(tmp, "train.csv")
+    t0 = time.perf_counter()
+    write_csv(csv, Xc, yc)
+    out["csv_s"] = time.perf_counter() - t0
+    # the tasks run on the card by default (a CPU rehearsal names its
+    # device)
+    dt = [] if dev.type == "cuda" else [f"device_type={dev.type}"]
+    data = [f"data={csv}", "header=true", "verbosity=-1"] + dt
+    model = os.path.join(tmp, "cli_model.txt")
+    _, out["train_launches"], out["train_s"] = pipe_counted(
+        "e train", FUSED_SEGMENT_PATH, lambda: cli.main(
+            ["task=train", "objective=binary", "num_leaves=255",
+             "max_bin=255", "learning_rate=0.1", "num_trees=8",
+             f"output_model={model}"] + data))
+    bst = lt.Booster(model_file=model, device=dev)
+    pred = os.path.join(tmp, "cli_pred.txt")
+    t0 = time.perf_counter()
+    cli.main(["task=predict", f"input_model={model}",
+              f"output_result={pred}"] + data)
+    out["predict_s"] = time.perf_counter() - t0
+    if np.loadtxt(pred).tobytes() != bst.predict(Xc).tobytes():
+        fail("phase 21 e: the predict task's file is not Booster.predict")
+    refit = os.path.join(tmp, "cli_refit.txt")
+    _, out["refit_launches"], out["refit_s"] = pipe_counted(
+        "e refit", ("hist_rows",), lambda: cli.main(
+            ["task=refit", f"input_model={model}",
+             f"output_model={refit}", "refit_decay_rate=0.9"] + data))
+    with open(refit) as fh:
+        got = fh.read().split("\nparameters:")[0]
+    want = bst.refit(Xc, yc, decay_rate=0.9).model_to_string()
+    if got != want.split("\nparameters:")[0]:
+        fail("phase 21 e: the refit task's trees are not Booster.refit's")
+    cpp = os.path.join(tmp, "model.cpp")
+    lib = os.path.join(tmp, "model.so")
+    t0 = time.perf_counter()
+    cli.main(["task=convert_model", f"input_model={model}",
+              f"convert_model={cpp}"] + dt)
+    out["convert_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-o", lib, cpp],
+                   check=True)
+    out["gxx_s"] = time.perf_counter() - t0
+    dll = ctypes.CDLL(lib)
+    dll.PredictRaw.restype = None
+    dll.PredictRaw.argtypes = [ctypes.POINTER(ctypes.c_double)] * 2
+    rows = Xc[:PIPE_CODEGEN_ROWS]
+    got = np.zeros(len(rows))
+    buf = (ctypes.c_double * 1)()
+    for i, row in enumerate(rows):
+        dll.PredictRaw(row.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                       buf)
+        got[i] = buf[0]
+    out["codegen_max_abs_err"] = float(np.abs(
+        got - bst.predict(rows, raw_score=True)).max())
+    if not out["codegen_max_abs_err"] <= 1e-12:
+        fail(f"phase 21 e: the compiled model is "
+             f"{out['codegen_max_abs_err']} off the booster")
+    seen = {}
+    real = pipe.run_pipeline
+
+    def spy(params):
+        seen["summary"] = real(params)
+        return seen["summary"]
+    pipe.run_pipeline = spy
+    t0 = time.perf_counter()
+    try:
+        cli.main(["task=pipeline", f"input_model={model}",
+                  "pipeline_cycles=1", "pipeline_latency_slo_pct=1000",
+                  f"pipeline_dir={os.path.join(tmp, 'cli_cands')}",
+                  "verbosity=-1"] + dt)
+    finally:
+        pipe.run_pipeline = real
+    out["pipeline_s"] = time.perf_counter() - t0
+    rec = seen["summary"]["history"][0]
+    if seen["summary"]["cycles"] != 1 or rec["status"] not in (
+            "promoted", "rolled_back"):
+        fail(f"phase 21 e: the pipeline task's cycle {rec}")
+    out["pipeline_status"] = rec["status"]
+    print(f"[phase 21 e] {card}: CLI on a {TEXT_ROWS}-row CSV (written in "
+          f"{out['csv_s']:.1f} s): train {out['train_s']:.1f} s (launches "
+          f"{out['train_launches']}), predict {out['predict_s']:.1f} s "
+          f"(bitwise Booster.predict), refit {out['refit_s']:.1f} s "
+          f"(Booster.refit's trees; launches {out['refit_launches']}), "
+          f"convert_model {out['convert_s']:.2f} s + g++ "
+          f"{out['gxx_s']:.1f} s (max abs err "
+          f"{out['codegen_max_abs_err']:.3g} over {PIPE_CODEGEN_ROWS} "
+          f"rows), pipeline 1 cycle {rec['status']} in "
+          f"{out['pipeline_s']:.1f} s")
+    return out
+
+
+def pipeline_phase(bst, X, y, dev, card):
+    """Phase 21: the pipeline and the CLI on the card, on phase 3's model
+    as text. (a) refit mode through ``PipelineDriver`` over a thread
+    fleet of 2 replicas: 3 cycles of ``REFIT_ROWS``-row replay windows,
+    the second's labels flipped (promoted, rolled back on quality_drop,
+    promoted); (b) continue mode; (c) 4 tenants in one ``train_many``
+    bucket; (d) kernels against plain versions, candidate texts
+    byte-equal; (e) the CLI's train, predict, refit, convert_model and
+    pipeline tasks. Every fleet is stopped in a ``finally``."""
+    import tempfile
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+    text = bst.model_to_string()
+    out = {"trees": len(bst.models)}
+    try:
+        out["a"], promoted = pipe_refit(text, dev, card, tmp)
+        out["b"] = pipe_continue(promoted, dev, card, tmp)
+        out["c"] = pipe_tenants(dev, card)
+        out["d"] = pipe_parity(text, dev, card)
+        out["e"] = pipe_cli(X, y, dev, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {}
+    for part in (out["a"]["launches"], out["b"]["launches"],
+                 out["c"]["launches"], out["e"]["train_launches"],
+                 out["e"]["refit_launches"]):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase 21] {card}: {out['seconds']:.1f} s (a "
+          f"{out['a']['seconds']:.1f}, b {out['b']['seconds']:.1f}, c "
+          f"{out['c']['seconds']:.1f}, d {out['d']['seconds']:.1f}); "
+          f"kernel launches {launches}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=2_000_000)
@@ -6990,6 +7521,9 @@ def main() -> int:
 
     # ---- 20. the fleets on the card ------------------------------------
     fleet = fleet_phase({"a": fused_bst, "b": quality_bst}, X, dev, card)
+
+    # ---- 21. the pipeline and the CLI on the card ----------------------
+    pipeline = pipeline_phase(fused_bst, X, y, dev, card)
     del fused_bst, multiclass_bst, quality_bst
     torch.cuda.empty_cache()
 
@@ -7117,6 +7651,10 @@ def main() -> int:
                 str(b): v for b, v in (wide_scans if name == "split_scan"
                                        else wide_hists).items()}
             kernels[-1]["wide_bins_launches"] = wide["launches"][name]
+        # each kernel's launches in phase 21's counted runs (the
+        # pipeline's refit, continue and tenant cycles and the CLI's
+        # train and refit)
+        kernels[-1]["pipeline_launches"] = pipeline["launches"].get(name, 0)
         # each kernel's launches on rank 0 of phase 16's runs
         kernels[-1]["parallel_launches"] = {
             run: r["launches"].get(name, 0)
@@ -7151,6 +7689,10 @@ def main() -> int:
             kernels[-1]["node_table"] = {
                 str(b): v for b, v in extras["node_table"].items()}
     print(f"[total] {time.perf_counter() - t_all:.1f} s")
+    # phase 21's record: the card, each cycle's decisions, stage p99s and
+    # seconds, the memory reserved after each publish, the CLI's tasks
+    print(json.dumps({"pipeline": dict(card=card, **pipeline)},
+                     default=str))
     # phase 20's record: the card, the thread and the process fleet's
     # checks and times (no hand-written kernel: the fleets run phase 19's
     # route)

@@ -35,7 +35,13 @@ same way under ``multiboost``. ``serving`` serves a model on the card
 bucket, hot reload, an HTTP frontend) and a fleet of them
 (``FleetEngine``: replicas in threads or in worker processes, named
 models, canary and shadow routing, tenant quotas) with the SLO engine
-(``observability/slo.py``) over its counters.
+(``observability/slo.py``) over its counters. ``pipeline`` runs the
+continuous refit loop over a fleet (refit, publish, canary ramp,
+promote or roll back; ``PipelineDriver``), and ``python -m
+lightgbm_tpu_torch task=train|predict|refit|serve|pipeline|convert_model``
+is the command line (``cli.py``; ``device_type=cpu`` for the CPU);
+``io/codegen.py`` writes a model as C++ source and ``plotting.py``
+draws importances, split values, metric curves and trees.
 """
 
 from .basic import Booster, Dataset
@@ -50,6 +56,14 @@ from .serving import (FleetEngine, ModelFleet, ModelRegistry,
                       ProcFleetOptions, Replica, Router, ServingConfig,
                       ServingEngine, TenantQuotas)
 from .utils.device import resolve_device
+
+try:  # as the JAX package's __init__ (plotting imports matplotlib and
+    # graphviz only when it draws)
+    from .plotting import (create_tree_digraph, plot_importance,
+                           plot_metric, plot_split_value_histogram,
+                           plot_tree)
+except ImportError:  # pragma: no cover
+    pass
 
 __version__ = "0.1.0"
 

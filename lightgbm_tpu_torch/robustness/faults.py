@@ -6,8 +6,8 @@ grammar and kinds. The training path fires ``nan_grad``, ``sigterm``,
 ``drop_heartbeat`` in the elastic watchdog's sender
 (``robustness/elastic.py``); the serving registry's model reads go
 through ``retry.py`` and take ``fail_read``; the process fleet's
-supervisor (``serving/procfleet.py``) takes the replica kinds; the drift
-kind belongs to the pipeline, ROADMAP.md Queue 1 item 10.3).
+supervisor (``serving/procfleet.py``) takes the replica kinds; the replay
+log source (``pipeline/logsource.py``) takes the drift kind).
 
 Every robustness feature in this package (checkpoint fallback, retry/
 backoff, non-finite guards, preemption handling) is tested through this
@@ -39,8 +39,8 @@ Supported kinds and their args:
   replay-stream window ``K`` on, the pipeline log source draws
   drifted data: feature ``J``'s mean shifts by ``V`` and/or labels
   flip with probability ``P``; ``once=1`` poisons only window ``K``
-  (``lightgbm_tpu/pipeline/logsource.py`` — the continuous-refit
-  drill's deterministic drift injection).
+  (``pipeline/logsource.py`` — the continuous-refit drill's
+  deterministic drift injection).
 * ``crash_replica@rid=K[,signal=9]`` — the process-fleet supervisor
   (``serving/procfleet.py``) arms replica ``K``'s worker process to
   kill itself with ``signal`` (default SIGKILL): the hard-death

@@ -27,3 +27,14 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {device!r} requested but CUDA is not "
                            "available")
     return dev
+
+
+def config_device(config):
+    """The device a config's ``device_type`` names for the entry points
+    that take only params (the CLI, ``task=pipeline``): ``cpu`` and
+    ``cuda:<i>`` as given; anything else (the default ``cuda``, and the
+    JAX package's ``tpu`` / ``gpu``) is None, the card."""
+    dt = str(getattr(config, "device_type", "") or "").strip().lower()
+    if dt == "cpu" or dt.startswith("cuda:"):
+        return dt
+    return None
